@@ -1,0 +1,428 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (`repro_torch`) of Static and DF-P PageRank
+on one GPU, and hold its CUDA kernels against their plain PyTorch versions.
+
+    python3 chip_smoke.py                 # full size: n=2^22, m=2^26
+    python3 chip_smoke.py --n 65536 --m 1048576 --out report.json
+
+Phases (any failure exits non-zero; nothing is caught):
+  1. the card's name and power limit (nvidia-smi);
+  2. build the kernels from src/repro_torch/csrc (one nvcc per source);
+  3. stage the graph: powerlaw_graph(n, m, alpha=1.0, seed) in the hybrid
+     layout with d_p=64, tile=256;
+  4. each kernel against its plain version on the card, at the main path's
+     shapes: every ELL bucket (dense and with an active list), the high
+     side; ranks to 1e-12 L-inf, flags exactly; a NaN rank must reach the
+     L-inf max;
+  5. static PageRank through the kernels (launch counts start at 0 here),
+     and again on the plain PyTorch path: L1 <= 1e-8, health word 0;
+  6. three chained DF-P batches (random_batch, frac=1e-4, 80% inserts)
+     through the kernels, dense and with frontier_caps, and on the plain
+     path: kernel vs plain L1 <= 1e-8; L1 against a from-scratch static
+     solve printed; then a small graph against the numpy reference;
+  7. each kernel timed with CUDA events (median) beside its plain version,
+     its bound and, where one PyTorch call computes the same function,
+     that call.
+Before the last line it prints the `kernels` JSON line; the last line is
+{"ok": true, "device": {...}}. Needs one CUDA card; exits 2 without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+FP64_FLOPS = 34e12          # H100 SXM FP64 outside the tensor cores (data sheet)
+TOL_SWEEP = 1e-12           # one sweep, f64 L-inf (tests/test_bucketed_parity.py)
+TOL_SOLVE_L1 = 1e-8         # whole solves, L1
+STEP = dict(alpha=0.85, tau_f=1e-6, tau_p=1e-6, prune=True, closed_form=True)
+
+
+_T0 = time.perf_counter()
+
+
+def log(*a):
+    """Print with the seconds since start, so a slow phase shows itself."""
+    print(f"[{time.perf_counter() - _T0:7.1f}s]", *a, flush=True)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--n", type=int, default=2 ** 22)
+    p.add_argument("--m", type=int, default=2 ** 26)
+    p.add_argument("--alpha", type=float, default=1.0)
+    p.add_argument("--d-p", type=int, default=64)
+    p.add_argument("--tile", type=int, default=256)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batches", type=int, default=3)
+    p.add_argument("--frac", type=float, default=1e-4)
+    p.add_argument("--repeats", type=int, default=20)
+    p.add_argument("--out", default=None, help="write the full report here")
+    return p.parse_args(argv)
+
+
+def linf(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def frontier_estimate(batch, outdeg: np.ndarray) -> int:
+    """Initial-frontier size of a batch: updated sources, their
+    out-neighbours, deletion targets (the JAX package's session rule)."""
+    srcs = np.unique(np.concatenate([batch.del_src, batch.ins_src]))
+    return int(srcs.size) + int(outdeg[srcs].sum()) + int(batch.del_dst.size)
+
+
+def cuda_ms(fn, repeats: int) -> float:
+    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound(nbytes: float, flops: float):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / FP64_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on a GPU only",
+              file=sys.stderr)
+        return 2
+
+    from repro_torch.core import (PRParams, apply_batch, batch_to_device,
+                                  build_hybrid, caps_for, device_graph,
+                                  dfp_pagerank,
+                                  forward_device_graph, init_ranks, l1_error,
+                                  numpy_pagerank, powerlaw_graph,
+                                  random_batch, static_pagerank, to_device,
+                                  active_frontier)
+    from repro_torch.kernels import (_build, csr_block_pull, fused_ell_update,
+                                     pr_update)
+    from repro_torch.kernels.csr_block import csr_block_pull_plain
+    from repro_torch.kernels.ell_bucket_pull import fused_ell_update_plain
+    from repro_torch.kernels.pr_update import pr_update_plain
+    from repro_torch.sentinel import take_fill, with_sink
+
+    report = {"args": vars(args)}
+    dev = torch.device("cuda")
+
+    # -- 1. the card ----------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    report["card"] = smi
+    log("torch", torch.__version__, "cuda", torch.version.cuda,
+        "device", torch.cuda.get_device_name(0))
+
+    # -- 2. build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[build] {len(logs)} libraries in {report['build_s']:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # -- 3. stage the graph ---------------------------------------------------
+    t0 = time.perf_counter()
+    g = powerlaw_graph(args.n, args.m, alpha=args.alpha, seed=args.seed)
+    lay = build_hybrid(g, d_p=args.d_p, tile=args.tile)
+    report["host_build_s"] = time.perf_counter() - t0
+    dg = to_device(lay, device=dev)
+    torch.cuda.synchronize()
+    dev_bytes = sum(t.numel() * t.element_size() for t in
+                    [x for b in dg.buckets for x in b] + list(dg[1:]))
+    report.update(n=g.n, m=g.m, widths=list(lay.widths),
+                  bucket_caps=[b.cap for b in lay.buckets],
+                  n_hi=int((~lay.is_low).sum()),
+                  t_cap=int(lay.hi_tiles.shape[0]),
+                  max_in_degree=int(g.in_degree().max()),
+                  pull_layout_bytes=dev_bytes)
+    log(f"[stage] n={g.n} m={g.m} widths={lay.widths} caps="
+        f"{report['bucket_caps']} n_hi={report['n_hi']} t_cap="
+        f"{report['t_cap']} max_in_degree={report['max_in_degree']}")
+    log(f"[stage] host build {report['host_build_s']:.1f} s, pull layout "
+        f"{dev_bytes / 2**30:.3f} GiB on the card")
+
+    # -- 4. kernels against their plain versions -----------------------------
+    rng = np.random.default_rng(args.seed + 1)
+    n = g.n
+    r = torch.from_numpy(rng.random(n) / n + 0.5 / n).to(dev)
+    aff = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    deg = dg.out_deg.double()
+    c = r / deg
+    kw = dict(inv_n=1.0 / n, **STEP)
+    r_s, d_s, a_s = with_sink(r, 1.0), with_sink(deg, 1.0), \
+        with_sink(aff.double(), 0.0)
+
+    def at(t, ids):     # the per-slot operands, as ops.update_ranks_kernel
+        return t.index_select(0, ids)
+    dv = torch.from_numpy(rng.random(n) < 0.01).to(dev)
+    af = active_frontier(dg.buckets, dg.hi_ids, dg.hi_rowmap, dv,
+                         caps_for(dg, int(dv.sum())))
+    require(not bool(af.overflow), "active lists overflowed")
+    errs = {"fused_ell_update": 0.0, "csr_block_pull": 0.0, "pr_update": 0.0}
+
+    def hold(name, got, want):
+        want = [w.to(dev) for w in want]
+        e = max(linf(got[0], want[0]), abs(float(got[3]) - float(want[3])))
+        require(e <= TOL_SWEEP, f"{name}: L-inf {e} > {TOL_SWEEP}")
+        require(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+                f"{name}: affected / delta_N flags differ")
+        errs[name] = max(errs[name], e)
+
+    for b, (blk, sel) in enumerate(zip(dg.buckets, af.bucket_sel)):
+        ops = (c, blk.idx, blk.mask, at(r_s, blk.rows), at(d_s, blk.rows),
+               at(a_s, blk.rows))
+        hold("fused_ell_update", fused_ell_update(*ops, **kw),
+             fused_ell_update_plain(*ops, **kw))
+        act = [take_fill(o, sel, f)
+               for o, f in zip(ops[1:], (0, 0.0, 1.0, 1.0, 0.0))]
+        hold("fused_ell_update", fused_ell_update(*ops, active=sel, **kw),
+             fused_ell_update_plain(c, *act, **kw))
+    slots = (dg.hi_slot_tiles, dg.hi_slot_off)
+    hi_args = (c, dg.hi_tiles, dg.hi_tmask, dg.hi_rowmap, dg.n_hi_cap)
+    for sel in (None, af.tile_sel):
+        got = csr_block_pull(*hi_args, tile_sel=sel, slots=slots)
+        e = linf(got, csr_block_pull_plain(*hi_args, tile_sel=sel))
+        require(e <= TOL_SWEEP, f"csr_block_pull: L-inf {e}")
+        errs["csr_block_pull"] = max(errs["csr_block_pull"], e)
+    hi_sums = csr_block_pull_plain(*hi_args)
+    hi_ops = (hi_sums, at(r_s, dg.hi_ids), at(d_s, dg.hi_ids),
+              at(a_s, dg.hi_ids))
+    hold("pr_update", pr_update(*hi_ops, **kw), pr_update_plain(*hi_ops, **kw))
+    # a NaN rank wins every max: affected (pr_update) and unaffected
+    # (fused_ell_update skips the gather but still reports |NaN - NaN|)
+    bad = hi_ops[1].clone()
+    bad[0] = float("nan")
+    require(torch.isnan(pr_update(hi_ops[0], bad, hi_ops[2],
+                                  torch.ones_like(bad), **kw)[3]),
+            "pr_update dropped a NaN from its max")
+    blk = dg.buckets[0]
+    bad = at(r_s, blk.rows).clone()
+    bad[0] = float("nan")
+    require(torch.isnan(fused_ell_update(
+        c, blk.idx, blk.mask, bad, at(d_s, blk.rows),
+        torch.zeros_like(bad), **kw)[3]),
+        "fused_ell_update dropped a NaN from its max")
+    torch.cuda.synchronize()
+    report["max_abs_err"] = errs
+    log(f"[kernels] all three agree with their plain versions: {errs}")
+
+    # -- 5. static PageRank ---------------------------------------------------
+    for w in (fused_ell_update, csr_block_pull, pr_update):
+        w.launches = 0
+    params = PRParams()
+    t0 = time.perf_counter()
+    r_k, it_k, hw_k = static_pagerank(dg, init_ranks(n, device=dev), params,
+                                      health=True)
+    torch.cuda.synchronize()
+    t_static = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_p, it_p, hw_p = static_pagerank(dg, init_ranks(n, device=dev), params,
+                                      kernels=False, health=True)
+    torch.cuda.synchronize()
+    t_static_plain = time.perf_counter() - t0
+    l1 = l1_error(r_k, r_p)
+    log(f"[static] kernels {it_k} iters {t_static * 1e3:.1f} ms; plain "
+        f"{it_p} iters {t_static_plain * 1e3:.1f} ms; L1 {l1:.3e}; "
+        f"health {int(hw_k)}/{int(hw_p)}; sum {float(r_k.sum()):.12f}")
+    require(l1 <= TOL_SOLVE_L1, f"static kernel vs plain L1 {l1}")
+    require(int(hw_k) == 0 and int(hw_p) == 0, "static health word set")
+    report["static"] = dict(iters=it_k, ms=t_static * 1e3, plain_iters=it_p,
+                            plain_ms=t_static_plain * 1e3, l1_vs_plain=l1)
+
+    # -- 6. three chained DF-P batches ---------------------------------------
+    rk_dense, rk_caps, rp = r_k, r_k, r_p
+    g_cur = g
+    report["dfp"] = []
+    for k in range(1, args.batches + 1):
+        t0 = time.perf_counter()
+        b = random_batch(g_cur, args.frac, seed=args.seed + 100 + k)
+        g_cur = apply_batch(g_cur, b)
+        dg_k = device_graph(g_cur, d_p=args.d_p, tile=args.tile, device=dev)
+        fwd = forward_device_graph(g_cur, d_p=args.d_p, tile=args.tile,
+                                   device=dev)
+        db = batch_to_device(b, n, device=dev)
+        caps = caps_for(dg_k, frontier_estimate(b, g_cur.out_degree()))
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+        row = dict(batch=k, size=b.size, host_s=t_host)
+        for name, kwargs in (("dense", {}),
+                             ("caps", dict(fwd=fwd, frontier_caps=caps))):
+            r_in = rk_dense if name == "dense" else rk_caps
+            t0 = time.perf_counter()
+            r_out, it, hw = dfp_pagerank(dg_k, r_in, db, params, health=True,
+                                         **kwargs)
+            torch.cuda.synchronize()
+            row[name] = dict(iters=it, ms=(time.perf_counter() - t0) * 1e3,
+                             health=int(hw))
+            require(int(hw) == 0, f"DF-P {name} batch {k}: health {int(hw)}")
+            if name == "dense":
+                rk_dense = r_out
+            else:
+                rk_caps = r_out
+        t0 = time.perf_counter()
+        rp, it_pl, hw = dfp_pagerank(dg_k, rp, db, params, kernels=False,
+                                     health=True)
+        torch.cuda.synchronize()
+        row["plain"] = dict(iters=it_pl, ms=(time.perf_counter() - t0) * 1e3)
+        r_scratch, it_s = static_pagerank(dg_k, init_ranks(n, device=dev),
+                                          params)
+        row["l1_dense_vs_plain"] = l1_error(rk_dense, rp)
+        row["l1_caps_vs_plain"] = l1_error(rk_caps, rp)
+        row["l1_vs_static"] = l1_error(rk_dense, r_scratch)
+        row["caps_l1_vs_static"] = l1_error(rk_caps, r_scratch)
+        row["static_iters"] = it_s
+        log(f"[dfp {k}] |batch|={b.size} host {t_host:.1f} s; dense "
+            f"{row['dense']['iters']} iters {row['dense']['ms']:.1f} ms; caps "
+            f"{row['caps']['iters']} iters {row['caps']['ms']:.1f} ms; plain "
+            f"{it_pl} iters {row['plain']['ms']:.1f} ms; L1 vs plain "
+            f"{row['l1_dense_vs_plain']:.3e}/{row['l1_caps_vs_plain']:.3e}; "
+            f"L1 vs from-scratch static {row['l1_vs_static']:.3e}")
+        require(row["l1_dense_vs_plain"] <= TOL_SOLVE_L1,
+                f"DF-P dense batch {k}: kernel vs plain L1")
+        require(row["l1_caps_vs_plain"] <= TOL_SOLVE_L1,
+                f"DF-P caps batch {k}: kernel vs plain L1")
+        report["dfp"].append(row)
+        del dg_k, fwd
+    launches = {w.__name__: w.launches
+                for w in (fused_ell_update, csr_block_pull, pr_update)}
+    log(f"[launches] main path: {launches}")
+    for name, cnt in launches.items():
+        require(cnt > 0, f"{name} never launched on the main path")
+
+    # small graph against the numpy reference (CPU plain path for DF-P)
+    gs = powerlaw_graph(4000, 40000, alpha=args.alpha, seed=args.seed)
+    dgs = to_device(build_hybrid(gs, d_p=8, tile=32), device=dev)
+    rs, _ = static_pagerank(dgs, init_ranks(gs.n, device=dev), params)
+    l1_np = l1_error(rs, numpy_pagerank(gs)[0])
+    bs = random_batch(gs, 0.01, seed=args.seed + 7)
+    gs2 = apply_batch(gs, bs)
+    lay2 = build_hybrid(gs2, d_p=8, tile=32)
+    rd, _ = dfp_pagerank(to_device(lay2, device=dev), rs,
+                         batch_to_device(bs, gs.n, device=dev), params)
+    rc, _ = dfp_pagerank(to_device(lay2, device="cpu"), rs.cpu(),
+                         batch_to_device(bs, gs.n, device="cpu"), params)
+    l1_cpu = l1_error(rd, rc)
+    log(f"[small] static vs numpy_pagerank L1 {l1_np:.3e}; DF-P card vs "
+        f"CPU L1 {l1_cpu:.3e}")
+    require(l1_np <= TOL_SOLVE_L1 and l1_cpu <= TOL_SOLVE_L1,
+            "small-graph reference check")
+    require(bool(torch.isfinite(rk_dense).all()) and rk_dense.shape == (n,),
+            "final ranks not finite")
+
+    # -- 7. timing ------------------------------------------------------------
+    all_on = torch.ones(n, dtype=torch.float64, device=dev)
+    a_on = with_sink(all_on, 0.0)
+    bucket_ops = [(c, blk.idx, blk.mask, at(r_s, blk.rows),
+                   at(d_s, blk.rows), at(a_on, blk.rows))
+                  for blk in dg.buckets]
+    hi_on = (hi_sums, at(r_s, dg.hi_ids), at(d_s, dg.hi_ids),
+             at(a_on, dg.hi_ids))
+
+    def ell_kernel():
+        for ops in bucket_ops:
+            fused_ell_update(*ops, **kw)
+
+    def ell_plain():
+        for ops in bucket_ops:
+            fused_ell_update_plain(*ops, **kw)
+
+    # one PyTorch call for the high-side pull: a sparse CSR product
+    tm = dg.hi_tmask.reshape(-1) > 0
+    a_rows = dg.hi_rowmap.long().repeat_interleave(dg.hi_tiles.shape[1])[tm]
+    a_hi = torch.sparse_coo_tensor(
+        torch.stack([a_rows, dg.hi_tiles.reshape(-1)[tm].long()]),
+        torch.ones(a_rows.numel(), dtype=torch.float64, device=dev),
+        (dg.n_hi_cap, n)).coalesce().to_sparse_csr()
+    del a_rows, tm
+    lib_err = linf(torch.mv(a_hi, c), hi_sums)
+    require(lib_err <= TOL_SWEEP, f"sparse library pull disagrees: {lib_err}")
+
+    rows_all = sum(b.cap for b in lay.buckets)
+    slots_all = sum(b.cap * b.width for b in lay.buckets)
+    t_cap, tile = lay.hi_tiles.shape
+    k_hi = dg.n_hi_cap
+    timings = {
+        "fused_ell_update": dict(
+            ms=cuda_ms(ell_kernel, args.repeats),
+            plain_ms=cuda_ms(ell_plain, args.repeats), library_ms=None,
+            bound=bound(n * 8 + slots_all * 8 + rows_all * 8 * 6,
+                        slots_all * 2 + rows_all * 12)),
+        "csr_block_pull": dict(
+            ms=cuda_ms(lambda: csr_block_pull(*hi_args, slots=slots),
+                       args.repeats),
+            plain_ms=cuda_ms(lambda: csr_block_pull_plain(*hi_args),
+                             args.repeats),
+            library_ms=cuda_ms(lambda: torch.mv(a_hi, c), args.repeats),
+            bound=bound(n * 8 + t_cap * tile * 8 + t_cap * 4 + k_hi * 8,
+                        t_cap * tile * 2)),
+        "pr_update": dict(
+            ms=cuda_ms(lambda: pr_update(*hi_on, **kw), args.repeats),
+            plain_ms=cuda_ms(lambda: pr_update_plain(*hi_on, **kw),
+                             args.repeats), library_ms=None,
+            bound=bound(k_hi * 8 * 7, k_hi * 12)),
+    }
+    sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
+                                    "src/repro/kernels/ell_bucket_pull.py:129"),
+               "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",
+                                  "src/repro/kernels/csr_block.py:73"),
+               "pr_update": ("src/repro_torch/csrc/pr_update.cu",
+                             "src/repro/kernels/pr_update.py:72")}
+    kernels = []
+    for name, t in timings.items():
+        kernels.append(dict(
+            name=name, route="cuda", source=sources[name][0],
+            replaces=sources[name][1], launches=launches[name],
+            max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound"][0], bound_by=t["bound"][1],
+            library_ms=t["library_ms"]))
+        log(f"[time] {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), library "
+            f"{t['library_ms']}")
+    report["kernels"] = kernels
+    report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[memory] peak allocated {report['peak_mem_bytes'] / 2**30:.3f} GiB")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,130 @@
+// fused_ell_update: one degree bucket of the ELL low side, pull and
+// Alg. 3 epilogue in one pass.
+//
+// Replaces the TPU kernel `fused_ell_update` (_fused_kernel) in
+// src/repro/kernels/ell_bucket_pull.py.
+//
+// What bounds it on the H100: bytes. Per row it reads its w_b indices and
+// mask bits (8 B per slot), gathers w_b ranks c[idx] at random (c is the
+// 8 B/vertex contribution vector; at |V| = 4M it is 32 MB and stays in the
+// 50 MB L2), and writes three f64 outputs. About two flops per slot, far
+// below the FP64 rate.
+//
+// Design:
+//   * LANES threads per row. LANES = 1 (thread per row, the paper's
+//     thread-per-vertex kernel) for the narrowest buckets; otherwise a
+//     sub-warp of min(w_b, 32) lanes that read neighbouring slots of one
+//     row, so the index and mask loads coalesce, and sum with
+//     __shfl_xor_sync.
+//   * Each row reads its affected flag first. An unaffected row skips its
+//     gather and writes r, 0, 0 with |dr| = |r - r| (0, or NaN for a NaN
+//     rank) — the same bits the TPU kernel's where(aff, rv, r) gives, and
+//     on the card it is DF-P's "process only affected vertices" without
+//     any compaction.
+//   * Every slot of an affected row, padding included, adds c[idx] * mask,
+//     as the TPU kernel does, so a NaN c[0] reaches padded rows alike.
+//   * The L-inf |dr| is reduced per block into partials, then a second
+//     one-block pass folds them; NaN wins. No atomics anywhere.
+//   * Launches on the caller's stream; allocates nothing.
+#include "epilogue.cuh"
+
+namespace {
+
+constexpr int kBlock = 256;
+
+template <int LANES>
+__global__ void __launch_bounds__(kBlock)
+    fused_ell_kernel(const double* __restrict__ c, const int* __restrict__ idx,
+                     const float* __restrict__ mask,
+                     const double* __restrict__ r,
+                     const double* __restrict__ deg,
+                     const double* __restrict__ aff,
+                     double* __restrict__ r_new, double* __restrict__ aff_new,
+                     double* __restrict__ dn, double* __restrict__ partials,
+                     int rows, int width, EpiParams p) {
+  constexpr int kRowsPerBlock = kBlock / LANES;
+  const int lane = threadIdx.x % LANES;
+  const long long row =
+      (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / LANES;
+  const bool valid = row < rows;
+
+  double rr = 1.0, d = 1.0, a = 0.0, s = 0.0;
+  if (valid) {
+    a = aff[row];
+    rr = r[row];
+    d = deg[row];
+    if (a > 0.0) {
+      const int* ip = idx + row * width;
+      const float* mp = mask + row * width;
+      for (int j = lane; j < width; j += LANES)
+        s += c[ip[j]] * (double)mp[j];
+    }
+  }
+  // every thread of the warp takes part in the shuffles
+  if (LANES > 1) {
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off, LANES);
+  }
+  double dr = 0.0;
+  if (valid) {
+    const EpiOut o = pr_epilogue(s, rr, d, a, p);
+    if (lane == 0) {
+      r_new[row] = o.r_new;
+      aff_new[row] = o.aff;
+      dn[row] = o.dn;
+    }
+    dr = o.dr;
+  }
+  dr = block_max<kBlock>(dr);
+  if (threadIdx.x == 0) partials[blockIdx.x] = dr;
+}
+
+template <int LANES>
+void launch(int grid, cudaStream_t st, const double* c, const int* idx,
+            const float* mask, const double* r, const double* deg,
+            const double* aff, double* r_new, double* aff_new, double* dn,
+            double* partials, int rows, int width, const EpiParams& p) {
+  fused_ell_kernel<LANES><<<grid, kBlock, 0, st>>>(
+      c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width,
+      p);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of blocks (and of max partials) for `rows` rows at `lanes` lanes.
+int fused_ell_update_grid(int rows, int lanes) {
+  const int per = kBlock / lanes;
+  return (rows + per - 1) / per;
+}
+
+// partials must hold fused_ell_update_grid(rows, lanes) + 1 doubles; the
+// bucket's max |dr| lands in the last one. Returns cudaGetLastError().
+int fused_ell_update(const double* c, const int* idx, const float* mask,
+                     const double* r, const double* deg, const double* aff,
+                     double* r_new, double* aff_new, double* dn,
+                     double* partials, int rows, int width, int lanes,
+                     double alpha, double c0, double tau_f, double tau_p,
+                     int prune, int closed_form, void* stream) {
+  const EpiParams p{alpha, c0, tau_f, tau_p, prune, closed_form};
+  const int grid = fused_ell_update_grid(rows, lanes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 1: launch<1>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
+    case 2: launch<2>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
+    case 4: launch<4>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
+    case 8: launch<8>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
+    case 16: launch<16>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
+    case 32: launch<32>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  max_partials_kernel<kFinalBlock><<<1, kFinalBlock, 0, st>>>(
+      partials, grid, partials + grid);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

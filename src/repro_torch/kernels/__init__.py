@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels (sm_90a) for the rank sweep, each beside its
+plain PyTorch version.
+
+A wrapper runs the plain version on CPU tensors and launches its kernel on
+CUDA tensors (or raises); each keeps a launch count in `<wrapper>.launches`.
+The kernels are built from `csrc/` by `_build` on first use.
+"""
+from .csr_block import csr_block_pull
+from .ell_bucket_pull import fused_ell_update
+from .ops import update_ranks_kernel
+from .pr_update import pr_update
+
+__all__ = ["fused_ell_update", "csr_block_pull", "pr_update",
+           "update_ranks_kernel"]

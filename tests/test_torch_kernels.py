@@ -1,0 +1,255 @@
+"""repro_torch kernel modules against the JAX package's Pallas kernels.
+
+On the CPU every wrapper runs its plain PyTorch version (the CUDA kernels
+are held against those same plain versions by `chip_smoke.py` on the
+card); here each one must agree with the Pallas kernel it ports, run in
+interpret mode as the JAX package's own tests run it. Bars are the
+reference's: 1e-12 L-inf for one sweep (tests/test_bucketed_parity.py),
+flags exactly equal.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.core as jc  # noqa: E402
+import repro.kernels as jk  # noqa: E402
+from repro.guard.health import H_NONFINITE as J_NONFINITE  # noqa: E402
+import repro_torch.core as tc  # noqa: E402
+from repro_torch.guard.health import H_NONFINITE  # noqa: E402
+from repro_torch.kernels import (_build, csr_block_pull, fused_ell_update,  # noqa: E402
+                                 pr_update, update_ranks_kernel)
+from repro_torch.kernels.ref import linf_delta_ref, pr_update_ref  # noqa: E402
+
+D_P, TILE = 8, 32
+TOL = 1e-12
+STEP = dict(alpha=0.85, tau_f=1e-6, tau_p=1e-6, prune=True,
+            closed_form=True)
+
+
+def _linf(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float64)
+                               - np.asarray(b, np.float64))))
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _same_step(got, want):
+    """(r_new, affected', delta_N, max) of one sweep: values to TOL, flags
+    exactly."""
+    assert _linf(got[0], want[0]) <= TOL
+    np.testing.assert_array_equal(np.asarray(got[1]) > 0,
+                                  np.asarray(want[1]) > 0)
+    np.testing.assert_array_equal(np.asarray(got[2]) > 0,
+                                  np.asarray(want[2]) > 0)
+    assert abs(float(got[3]) - float(want[3])) <= TOL
+
+
+def _setup(seed, **layout):
+    g = tc.powerlaw_graph(300, 2500, seed=seed)
+    lay = tc.build_hybrid(g, **(layout or dict(d_p=D_P, tile=TILE)))
+    rng = np.random.default_rng(seed + 1)
+    r = rng.random(g.n) / g.n + 1.0 / g.n
+    aff = rng.random(g.n) < 0.7
+    c = r / g.out_degree()
+    return g, lay, rng, r, aff, c
+
+
+def _with_active(cap, rng, extra=3):
+    """A sorted random slot list padded with the sentinel `cap`."""
+    k = max(1, cap // 3)
+    sel = np.sort(rng.choice(cap, size=k, replace=False)).astype(np.int32)
+    return np.concatenate([sel, np.full(extra, cap, np.int32)])
+
+
+# ---------------------------------------------------------------------------
+# fused_ell_update
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("active", [False, True])
+def test_fused_ell_update_matches_pallas(active):
+    g, lay, rng, r, aff, c = _setup(0)
+    assert len(lay.buckets) > 1
+    n = g.n
+    deg = g.out_degree().astype(np.float64)
+    pad = lambda x, v: np.concatenate([x, [v]])  # noqa: E731
+    for blk in lay.buckets:
+        ops = (c, blk.idx, blk.mask, pad(r, 1.0)[blk.rows],
+               pad(deg, 1.0)[blk.rows], pad(aff.astype(np.float64), 0.0)
+               [blk.rows])
+        sel = _with_active(blk.cap, rng) if active else None
+        kw = dict(inv_n=1.0 / n, **STEP)
+        want = jk.fused_ell_update(*map(jnp.asarray, ops), **kw,
+                                   active=None if sel is None
+                                   else jnp.asarray(sel))
+        got = fused_ell_update(*map(_t, ops), **kw,
+                               active=None if sel is None else _t(sel))
+        assert got[0].shape == want[0].shape
+        _same_step(got, want)
+
+
+# ---------------------------------------------------------------------------
+# csr_block_pull
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tile_sel", [False, True])
+def test_csr_block_pull_matches_pallas(tile_sel):
+    _, lay, rng, _, _, c = _setup(2)
+    args = (c, lay.hi_tiles, lay.hi_tmask, lay.hi_rowmap)
+    t_cap = lay.hi_tiles.shape[0]
+    sel = _with_active(t_cap, rng) if tile_sel else None
+    want = jk.csr_block_pull(*map(jnp.asarray, args), lay.n_hi_cap,
+                             tile_sel=None if sel is None
+                             else jnp.asarray(sel))
+    got = csr_block_pull(*map(_t, args), lay.n_hi_cap,
+                         tile_sel=None if sel is None else _t(sel))
+    assert got.shape == (lay.n_hi_cap,)
+    assert _linf(got, want) <= TOL
+    if tile_sel:          # only the selected tiles' slots carry sums
+        full = csr_block_pull(*map(_t, args), lay.n_hi_cap)
+        assert float((got - full).abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# pr_update
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("closed_form", [False, True])
+@pytest.mark.parametrize("prune", [False, True])
+def test_pr_update_matches_pallas(closed_form, prune):
+    n = 1000                                   # not a multiple of vt=256
+    rng = np.random.default_rng(3)
+    contrib = rng.random(n) / n
+    r = rng.random(n) / n + 0.5 / n
+    deg = rng.integers(1, 9, n).astype(np.float64)
+    aff = (rng.random(n) < 0.6).astype(np.float64)
+    kw = dict(alpha=0.85, inv_n=1.0 / n, tau_f=1e-3, tau_p=1e-3,
+              prune=prune, closed_form=closed_form)
+    ops = (contrib, r, deg, aff)
+    want = jk.pr_update(*map(jnp.asarray, ops), vt=256, **kw)
+    got = pr_update(*map(_t, ops), **kw)
+    _same_step(got, want)
+    assert 0 < int((got[2] > 0).sum()) < n     # the thresholds bite
+
+
+# ---------------------------------------------------------------------------
+# update_ranks_kernel: the three kernels composed
+# ---------------------------------------------------------------------------
+
+LAYOUTS = {"bucketed": dict(d_p=D_P, tile=TILE),
+           "single": dict(d_p=D_P, tile=TILE, widths=(D_P,)),
+           "d_p0": dict(d_p=0, tile=TILE)}
+
+
+@pytest.mark.parametrize("active", [False, True])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_update_ranks_kernel_matches_repro_and_oracle(layout, active):
+    g = tc.powerlaw_graph(250, 2000, seed=17)
+    gj = jc.powerlaw_graph(250, 2000, seed=17)
+    dg_t = tc.to_device(tc.build_hybrid(g, **LAYOUTS[layout]), device="cpu")
+    dg_j = jc.to_device(jc.build_hybrid(gj, **LAYOUTS[layout]))
+    rng = np.random.default_rng(18)
+    r = rng.random(g.n) / g.n + 1.0 / g.n
+    dv = rng.random(g.n) < (0.08 if active else 0.7)
+    step = dict(STEP, track_frontier=True)
+    af_t = af_j = None
+    if active:
+        est = int(dv.sum())
+        af_t = tc.active_frontier(dg_t.buckets, dg_t.hi_ids, dg_t.hi_rowmap,
+                                  _t(dv), tc.caps_for(dg_t, est))
+        af_j = jc.active_frontier(dg_j.buckets, dg_j.hi_ids, dg_j.hi_rowmap,
+                                  jnp.asarray(dv), jc.caps_for(dg_j, est))
+        assert not bool(af_t.overflow)
+    got = update_ranks_kernel(dg_t, _t(r), _t(dv), active=af_t, **step)
+    want = jk.update_ranks_kernel(dg_j, jnp.asarray(r), jnp.asarray(dv),
+                                  active=af_j, **step)
+    _same_step(got, want)
+    # the independent oracle: numpy pull + kernels/ref.py epilogue
+    seg = np.repeat(np.arange(g.n), np.diff(g.t_offsets))
+    contrib = np.bincount(seg, weights=(r / g.out_degree())[g.t_sources],
+                          minlength=g.n)
+    oracle = pr_update_ref(_t(contrib), _t(r), _t(g.out_degree()),
+                           _t(dv.astype(np.float64)), inv_n=1.0 / g.n,
+                           **STEP)
+    _same_step(got, oracle)
+    # and the plain engine path of the port
+    _same_step(got, tc.update_ranks(dg_t, _t(r), _t(dv), kernels=False,
+                                    **step))
+
+
+# ---------------------------------------------------------------------------
+# NaN wins every max
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_nan_rank_gives_nan_delta_and_nonfinite_bit(kernels):
+    g = tc.powerlaw_graph(300, 2500, seed=21)
+    gj = jc.powerlaw_graph(300, 2500, seed=21)
+    r0 = np.full(g.n, 1.0 / g.n)
+    r0[7] = np.nan
+    dg_t = tc.device_graph(g, d_p=D_P, tile=TILE, device="cpu")
+    r, iters, hw = tc.static_pagerank(dg_t, r0, kernels=kernels,
+                                      health=True)
+    rj, iters_j, hw_j = jc.static_pagerank(
+        jc.device_graph(gj, d_p=D_P, tile=TILE), jnp.asarray(r0),
+        health=True)
+    assert iters == int(iters_j) == 1          # NaN > tau is False: one sweep
+    assert int(hw) & H_NONFINITE and int(hw_j) & J_NONFINITE
+    assert int(hw) == int(hw_j)
+    # an unaffected NaN lane still reaches the sweep's max: |NaN - NaN|
+    off = np.zeros(g.n, bool)
+    d = tc.update_ranks(dg_t, _t(r0), _t(off), kernels=kernels,
+                        track_frontier=True, **STEP)[3]
+    dj = jc.update_ranks(jc.device_graph(gj, d_p=D_P, tile=TILE),
+                         jnp.asarray(r0), jnp.asarray(off),
+                         track_frontier=True, **STEP)[3]
+    assert torch.isnan(d) and np.isnan(float(dj))
+
+
+def test_linf_delta_ref_matches_repro_and_keeps_nan():
+    from repro.kernels.ref import linf_delta_ref as j_linf_delta_ref
+    rng = np.random.default_rng(4)
+    a, b = rng.random(777), rng.random(777)
+    assert float(linf_delta_ref(_t(a), _t(b))) == float(
+        j_linf_delta_ref(jnp.asarray(a), jnp.asarray(b)))
+    a[5] = np.nan
+    assert torch.isnan(linf_delta_ref(_t(a), _t(b)))
+
+
+# ---------------------------------------------------------------------------
+# launch discipline (what can be checked without a card)
+# ---------------------------------------------------------------------------
+
+def test_wrappers_raise_on_devices_without_a_kernel():
+    m = torch.device("meta")
+    f64 = dict(dtype=torch.float64, device=m)
+    c = torch.empty(10, **f64)
+    idx = torch.zeros(4, 2, dtype=torch.int32, device=m)
+    mask = torch.zeros(4, 2, dtype=torch.float32, device=m)
+    v = torch.empty(4, **f64)
+    kw = dict(inv_n=0.1, **STEP)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_ell_update(c, idx, mask, v, v, v, **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        pr_update(v, v, v, v, **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        csr_block_pull(c, idx, mask, idx[:, 0].contiguous(), 3)
+
+
+def test_tensor_checks_raise():
+    cpu = torch.device("cpu")
+    t = torch.zeros(4, 3, dtype=torch.float64)
+    _build.check("x", t, torch.float64, (4, 3), cpu)
+    with pytest.raises(TypeError):
+        _build.check("x", t, torch.float32, (4, 3), cpu)
+    with pytest.raises(ValueError, match="shape"):
+        _build.check("x", t, torch.float64, (3, 4), cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        _build.check("x", t.t(), torch.float64, (3, 4), cpu)
+    with pytest.raises(ValueError, match="expected"):
+        _build.check("x", t, torch.float64, (4, 3), torch.device("meta"))
+    with pytest.raises(RuntimeError, match="error 700"):
+        _build.launch_error("k", 700)
