@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (`repro_torch`) of Static and DF-P PageRank
-on one GPU, and hold its CUDA kernels against their plain PyTorch versions.
+and of its streaming session on one GPU, and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py                 # full size: n=2^22, m=2^26
     python3 chip_smoke.py --n 65536 --m 1048576 --out report.json
@@ -22,7 +23,20 @@ Phases (any failure exits non-zero; nothing is caught):
      solve printed; then a small graph against the numpy reference;
   7. each kernel timed with CUDA events (median) beside its plain version,
      its bound and, where one PyTorch call computes the same function,
-     that call.
+     that call;
+  8. the streaming path on the same graph: a StreamSession (DeviceSnapshot
+     + static solve, launch counts start at 0 here; tau = --stream-tau,
+     1e-11: the check below compares two solves that each stop once their
+     L-inf change is under tau, and over 4M vertices the default 1e-10
+     leaves their L1 gap unbounded by 1e-8), three churn batches
+     (random_batch, frac, 80% inserts) and two insert-only batches of
+     about 1,000 uniform edges (scaled with n); both engines must run and
+     no batch may rebuild. After every batch each device tensor of the
+     snapshot equals its host mirror (the slot->tile table included), the
+     ranks are within L1 1e-8 of a from-scratch solve and csr_block_pull
+     on the snapshot equals its plain version; after the last, pull_sum on
+     both halves equals a fresh build. Then scatter_rows against its plain
+     version on every table the first batch touched, and timed.
 Before the last line it prints the `kernels` JSON line; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits 2 without one.
 """
@@ -66,6 +80,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batches", type=int, default=3)
     p.add_argument("--frac", type=float, default=1e-4)
+    p.add_argument("--stream-tau", type=float, default=1e-11,
+                   help="the session's convergence tolerance (phase 8)")
     p.add_argument("--repeats", type=int, default=20)
     p.add_argument("--out", default=None, help="write the full report here")
     return p.parse_args(argv)
@@ -78,13 +94,6 @@ def linf(a, b) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
-
-
-def frontier_estimate(batch, outdeg: np.ndarray) -> int:
-    """Initial-frontier size of a batch: updated sources, their
-    out-neighbours, deletion targets (the JAX package's session rule)."""
-    srcs = np.unique(np.concatenate([batch.del_src, batch.ins_src]))
-    return int(srcs.size) + int(outdeg[srcs].sum()) + int(batch.del_dst.size)
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -109,6 +118,241 @@ def bound(nbytes: float, flops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def snapshot_pairs(snap):
+    """(name, device tensor, host mirror) for every device tensor of both
+    halves of a DeviceSnapshot, the slot->tile table against the one the
+    mirror's tile->slot map gives, and both degree vectors."""
+    from repro_torch.core.pagerank import slot_tile_table
+    for tag, h in (("pull", snap._pull), ("fwd", snap._fwd)):
+        for bi in range(len(h.widths)):
+            for f in ("bk_rows", "bk_idx", "bk_mask"):
+                yield (f"{tag}.{f}{bi}", getattr(h, "dev_" + f)[bi],
+                       getattr(h, f)[bi])
+        for f in ("bucket_of", "slot_of", "hi_tiles", "hi_tmask",
+                  "hi_rowmap", "hi_ids", "is_low"):
+            yield f"{tag}.{f}", getattr(h, "dev_" + f), getattr(h, f)
+        tiles, off = slot_tile_table(h.hi_rowmap, h.hi_ids.shape[0])
+        yield f"{tag}.hi_slot_tiles", h.dev_hi_slot_tiles, tiles
+        yield f"{tag}.hi_slot_off", h.dev_hi_slot_off, off
+    yield "outdeg", snap._dev_outdeg, snap._outdeg.astype(np.int32)
+    yield "indeg", snap._dev_indeg, snap._indeg.astype(np.int32)
+
+
+def scatter_tables(snap, touched):
+    """(name, device idx, device mask, ids) for every table a
+    `device_refresh` scattered into; `touched` maps half -> last_scatter."""
+    for tag, h in (("pull", snap._pull), ("fwd", snap._fwd)):
+        for key, ids in touched[tag].items():
+            if key == "tiles":
+                yield f"{tag}.tiles", h.dev_hi_tiles, h.dev_hi_tmask, ids
+            else:
+                yield (f"{tag}.bucket{key}", h.dev_bk_idx[key],
+                       h.dev_bk_mask[key], ids)
+
+
+def stream_phase(args, g, dev, report, wrappers):
+    """Phase 8: the streaming session on the full-size graph. Returns the
+    launch counts of the session path and scatter_rows' check and times."""
+    from repro_torch.core import (PRParams, build_hybrid, l1_error,
+                                  pull_sum, random_batch, to_device)
+    from repro_torch.kernels.csr_block import (csr_block_pull,
+                                               csr_block_pull_plain)
+    from repro_torch.kernels.stream_scatter import (ell_scatter_rows,
+                                                    ell_scatter_rows_plain,
+                                                    scatter_rows,
+                                                    scatter_rows_plain)
+    from repro_torch.stream import (DeviceSnapshot, StreamSession,
+                                    churn_workload, frontier_estimate,
+                                    ingest)
+    n = g.n
+    out = {"launches": {w.__name__: 0 for w in wrappers}}
+
+    def driven(fn, *a, **k):
+        """One piece of the session path, with every launch count set to 0
+        just before it and read just after."""
+        for w in wrappers:
+            w.launches = 0
+        res = fn(*a, **k)
+        for w in wrappers:
+            out["launches"][w.__name__] += w.launches
+        return res
+
+    # -- 8.1 the session: snapshot + static solve ----------------------------
+    t0 = time.perf_counter()
+    snap = driven(DeviceSnapshot, g, d_p=args.d_p, tile=args.tile,
+                  device=dev)
+    t_snap = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess = driven(StreamSession, g, d_p=args.d_p, tile=args.tile,
+                  snapshot=snap, params=PRParams(
+                      tau=args.stream_tau, tau_f=1e-9, tau_p=1e-9))
+    torch.cuda.synchronize()
+    t_static = time.perf_counter() - t0
+    snap_bytes = sum(t.numel() * t.element_size()
+                     for _, t, _ in snapshot_pairs(snap))
+    caps = dict(snap._caps)
+    rep = dict(build_s=t_snap, adopt_s=snap.adopt_s, static_s=t_static,
+               static_iters=sess._init_iters, device_bytes=snap_bytes,
+               caps={k: list(v) if isinstance(v, tuple) else v
+                     for k, v in caps.items()}, batches=[])
+    log(f"[stream] snapshot built in {t_snap:.1f} s on the host "
+        f"(build_hybrid x2 {snap.adopt_s['layouts']:.1f} s, mirrors + free "
+        f"lists + staging {snap.adopt_s['halves']:.1f} s); "
+        f"{snap_bytes / 2**30:.3f} GiB on the card; caps {rep['caps']}; "
+        f"static solve {sess._init_iters} iters {t_static * 1e3:.1f} ms")
+
+    # -- 8.2 five batches through the session --------------------------------
+    n_ins = max(1, round(1000 * n / 2 ** 22))
+    batches = [("churn", b) for b in churn_workload(
+        g, args.frac, 3, seed=args.seed + 200)]
+    batches += [("insert", random_batch(g, n_ins / g.m, insert_frac=1.0,
+                                        seed=args.seed + 300 + k))
+                for k in range(2)]
+    rng = np.random.default_rng(args.seed + 2)
+    c = torch.from_numpy(rng.random(n) / n).to(dev)
+    first = None
+    for k, (kind, b) in enumerate(batches, 1):
+        driven(sess.apply, b)
+        st = sess.history[-1]
+        est = frontier_estimate(ingest(b, n), snap._outdeg)
+        if first is None:
+            first = {"pull": dict(snap._pull.last_scatter),
+                     "fwd": dict(snap._fwd.last_scatter)}
+        row = dict(batch=k, kind=kind, size=st.batch_size, engine=st.engine,
+                   estimate=est, iters=st.iters, ingest_s=st.ingest_s,
+                   host_s=st.snapshot.host_s, device_s=st.snapshot.device_s,
+                   solve_s=st.solve_s, net_ins=st.snapshot.net_ins,
+                   net_del=st.snapshot.net_del,
+                   rows_touched=st.snapshot.rows_touched,
+                   tiles_touched=st.snapshot.tiles_touched,
+                   migrations=st.snapshot.migrations,
+                   rebuilt=st.snapshot.rebuilt)
+        rebuild = (report["dfp"][k - 1]["host_s"]
+                   if k <= len(report.get("dfp", [])) else None)
+        log(f"[stream {k}] {kind} |batch|={st.batch_size} estimate {est} "
+            f"(compact at <= {sess.compact_threshold * n:.0f}) -> "
+            f"{st.engine}, {st.iters} iters; ingest {st.ingest_s * 1e3:.1f} "
+            f"ms, snapshot host {st.snapshot.host_s * 1e3:.1f} ms, device "
+            f"{st.snapshot.device_s * 1e3:.2f} ms, solve "
+            f"{st.solve_s * 1e3:.1f} ms; rows {st.snapshot.rows_touched} "
+            f"tiles {st.snapshot.tiles_touched} migrations "
+            f"{st.snapshot.migrations}; host rebuild of phase 6 batch {k}: "
+            f"{'-' if rebuild is None else f'{rebuild:.1f} s'}")
+        require(not st.snapshot.rebuilt,
+                f"stream batch {k} rebuilt ({st.snapshot.rebuild_reason})")
+        # every device tensor equals its host mirror
+        bad = [name for name, t, a in snapshot_pairs(snap)
+               if not torch.equal(t, torch.from_numpy(
+                   np.ascontiguousarray(a)).to(dev))]
+        require(not bad, f"stream batch {k}: device != mirror for {bad}")
+        row["l1_vs_static"] = l1_error(sess.ranks, sess.static_reference())
+        require(row["l1_vs_static"] <= TOL_SOLVE_L1,
+                f"stream batch {k}: L1 vs static {row['l1_vs_static']}")
+        # csr_block_pull over the refreshed slot->tile table
+        e = 0.0
+        for dgx in (snap.dg, snap.fwd_dg):
+            hi = (c, dgx.hi_tiles, dgx.hi_tmask, dgx.hi_rowmap, dgx.n_hi_cap)
+            e = max(e, linf(csr_block_pull(
+                *hi, slots=(dgx.hi_slot_tiles, dgx.hi_slot_off)),
+                csr_block_pull_plain(*hi)))
+        row["csr_block_pull_err"] = e
+        require(e <= TOL_SWEEP, f"stream batch {k}: csr_block_pull on the "
+                f"snapshot L-inf {e}")
+        log(f"[stream {k}] mirrors equal; L1 vs from-scratch "
+            f"{row['l1_vs_static']:.3e}; csr_block_pull L-inf {e:.2e}")
+        rep["batches"].append(row)
+    engines = {r["engine"] for r in rep["batches"]}
+    require(engines == {"dense", "compact"}, f"stream engines {engines}")
+    log(f"[launches] stream path: {out['launches']}")
+    for name, cnt in out["launches"].items():
+        require(cnt > 0, f"{name} never launched on the stream path")
+
+    # -- 8.3 both halves against a fresh build -------------------------------
+    t0 = time.perf_counter()
+    gs = snap.graph()
+    e = 0.0
+    for dgx, gref in ((snap.dg, gs), (snap.fwd_dg, gs.transpose())):
+        ref = to_device(build_hybrid(gref, d_p=args.d_p, tile=args.tile),
+                        device=dev)
+        e = max(e, linf(pull_sum(dgx, c), pull_sum(ref, c)))
+        del ref
+    rep["pull_vs_fresh"] = e
+    log(f"[stream] pull_sum vs a fresh build of both halves: L-inf {e:.2e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    require(e <= TOL_SWEEP, f"snapshot pull_sum vs fresh build L-inf {e}")
+
+    # -- 8.4 scatter_rows against its plain version --------------------------
+    err = 0.0
+    timed = []
+    for name, d_i, d_m, ids in scatter_tables(snap, first):
+        k_rows, d = ids.size, d_i.shape[1]
+        rows = np.concatenate([ids, ids[:1]])        # a duplicated pad row
+        new_i = rng.integers(0, n, (rows.size, d)).astype(np.int32)
+        new_m = (rng.random((rows.size, d)) < 0.5).astype(np.float32)
+        new_i[-1], new_m[-1] = new_i[0], new_m[0]
+        t_rows, t_i, t_m = (torch.from_numpy(x).to(dev)
+                            for x in (rows, new_i, new_m))
+        got = ell_scatter_rows(d_i.clone(), d_m.clone(), t_rows, t_i, t_m)
+        want = ell_scatter_rows_plain(d_i.clone(), d_m.clone(), t_rows, t_i,
+                                      t_m)
+        one = (scatter_rows(d_i.clone(), t_rows, t_i),
+               scatter_rows(d_m.clone(), t_rows, t_m))
+        for x, y in zip(got + one, want + want):
+            require(torch.equal(x, y), f"scatter_rows differs on {name}")
+            err = max(err, linf(x, y))
+        timed.append((d_i.clone(), d_m.clone(), t_rows[:k_rows].contiguous(),
+                      t_i[:k_rows].contiguous(), t_m[:k_rows].contiguous(),
+                      k_rows, d))
+    # ids outside [0, R) write nothing; widths off the 16-byte path
+    dst = timed[0][0]
+    bad = torch.tensor([-1, dst.shape[0], 0], dtype=torch.int32, device=dev)
+    new = torch.randint(0, n, (3, dst.shape[1]), dtype=torch.int32,
+                        device=dev)
+    want = scatter_rows_plain(dst.clone(), bad[2:], new[2:])
+    require(torch.equal(scatter_rows(dst.clone(), bad, new), want),
+            "scatter_rows wrote an out-of-range row")
+    for d in (1, 2, 3, 6):
+        for dtype in (torch.int32, torch.float32):
+            small = torch.randint(0, 9, (1000, d), device=dev).to(dtype)
+            ids = torch.tensor([5, 999, 0, 5], dtype=torch.int32, device=dev)
+            new = torch.randint(0, 9, (4, d), device=dev).to(dtype)
+            new[3] = new[0]
+            require(torch.equal(scatter_rows(small.clone(), ids, new),
+                                scatter_rows_plain(small.clone(), ids, new)),
+                    f"scatter_rows differs at width {d} ({dtype})")
+    torch.cuda.synchronize()
+    log(f"[stream] scatter_rows equals its plain version on "
+        f"{len(timed)} tables (pair and single entry points, duplicate "
+        f"pad row), out-of-range ids and widths 1/2/3/6: max |diff| {err}")
+
+    # -- 8.5 scatter_rows timed: one batch's scatters ------------------------
+    longs = [t[2].long() for t in timed]
+
+    def kern():
+        for t in timed:
+            ell_scatter_rows(*t[:5])
+
+    def plain():
+        for t in timed:
+            ell_scatter_rows_plain(*t[:5])
+
+    def library():
+        for t, r in zip(timed, longs):
+            t[0].index_copy_(0, r, t[3])
+            t[1].index_copy_(0, r, t[4])
+
+    nbytes = sum(2 * (2 * k * d * 4) + k * 4 for *_, k, d in timed)
+    out["scatter"] = dict(
+        max_abs_err=err, ms=cuda_ms(kern, args.repeats),
+        plain_ms=cuda_ms(plain, args.repeats),
+        library_ms=cuda_ms(library, args.repeats),
+        bound=bound(nbytes, 0.0), tables=len(timed),
+        rows=sum(t[5] for t in timed), bytes=nbytes)
+    rep["scatter_rows"] = {k: v for k, v in out["scatter"].items()}
+    report["stream"] = rep
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -128,7 +372,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.csr_block import csr_block_pull_plain
     from repro_torch.kernels.ell_bucket_pull import fused_ell_update_plain
     from repro_torch.kernels.pr_update import pr_update_plain
+    from repro_torch.kernels.stream_scatter import scatter_rows
     from repro_torch.sentinel import take_fill, with_sink
+    from repro_torch.stream import frontier_estimate
 
     report = {"args": vars(args)}
     dev = torch.device("cuda")
@@ -394,12 +640,37 @@ def main(argv=None) -> int:
                              args.repeats), library_ms=None,
             bound=bound(k_hi * 8 * 7, k_hi * 12)),
     }
+    for name, t in timings.items():
+        log(f"[time] {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), library "
+            f"{t['library_ms']}")
+    del (a_hi, bucket_ops, hi_on, hi_ops, hi_sums, dg, af, dv, r_s, d_s, a_s,
+         a_on, all_on, r_k, r_p, rk_dense, rk_caps, rp, r_scratch)
+    torch.cuda.empty_cache()
+
+    # -- 8. the streaming path ------------------------------------------------
+    wrappers = (fused_ell_update, csr_block_pull, pr_update, scatter_rows)
+    stream = stream_phase(args, g, dev, report, wrappers)
+    sc = stream["scatter"]
+    timings["scatter_rows"] = dict(ms=sc["ms"], plain_ms=sc["plain_ms"],
+                                   library_ms=sc["library_ms"],
+                                   bound=sc["bound"])
+    errs["scatter_rows"] = sc["max_abs_err"]
+    log(f"[time] scatter_rows ({sc['tables']} tables, {sc['rows']} rows, "
+        f"{sc['bytes']} B): {sc['ms']:.4f} ms, plain {sc['plain_ms']:.4f} "
+        f"ms, bound {sc['bound'][0]:.4f} ms ({sc['bound'][1]}), index_copy_ "
+        f"{sc['library_ms']:.4f} ms")
+    # launches on the main paths: static + DF-P (phases 5-6) and the stream
+    launches = {name: launches.get(name, 0) + stream["launches"][name]
+                for name in stream["launches"]}
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",
                                   "src/repro/kernels/csr_block.py:73"),
                "pr_update": ("src/repro_torch/csrc/pr_update.cu",
-                             "src/repro/kernels/pr_update.py:72")}
+                             "src/repro/kernels/pr_update.py:72"),
+               "scatter_rows": ("src/repro_torch/csrc/scatter_rows.cu",
+                                "src/repro/kernels/stream_scatter.py:57")}
     kernels = []
     for name, t in timings.items():
         kernels.append(dict(
@@ -408,9 +679,6 @@ def main(argv=None) -> int:
             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][0], bound_by=t["bound"][1],
             library_ms=t["library_ms"]))
-        log(f"[time] {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), library "
-            f"{t['library_ms']}")
     report["kernels"] = kernels
     report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[memory] peak allocated {report['peak_mem_bytes'] / 2**30:.3f} GiB")

@@ -1,15 +1,40 @@
-"""The forward (out-edge) layout that push-style frontier expansion walks.
+"""Frontier-compacted DF / DF-P: sweep only the affected vertices.
 
-The frontier-compacted engines of the JAX package's `repro.core.compact`
-come with a later slice of the port; `core.dynamic` already runs the
-compacted DF / DF-P path through `frontier_caps=`.
+The paper's update kernels do `if not δ_V[v]: continue`. A masked dense
+sweep still pays the full |V|·d_p gather; these engines restore the skip
+with compaction, as the JAX package's `repro.core.compact` does:
+
+  * affected vertex ids go into fixed-capacity active lists (K from the
+    initial frontier, `plan_capacity`), and the rank pull gathers only
+    those rows of the in-neighbor layout (`update_ranks_active`; on CUDA
+    the kernels run over the lists);
+  * frontier expansion walks the OUT-edges of flagged vertices through
+    the forward layout (`push_expand`), as the paper's Alg. 5 does;
+  * if the frontier ever outgrows K, the loop exits and the dense engine
+    (`core.dynamic._loop`) finishes from the current state — correctness
+    never depends on the capacity guess.
+
+Where JAX runs a `lax.while_loop`, this is a Python loop with one host
+read per iteration: the next iteration's expansion and compaction are
+computed right after the sweep and their overflow flag is read together
+with `delta > τ`.
 """
 from __future__ import annotations
 
-from .graph import Graph, build_hybrid
-from .pagerank import DeviceGraph, resolve_device, to_device
+from typing import Optional
 
-__all__ = ["forward_device_graph"]
+import torch
+
+from .dynamic import DeviceBatch, _loop, solve_health
+from .frontier import (FrontierCaps, active_frontier, initial_affected,
+                       plan_capacity, push_expand, update_ranks_active)
+from .graph import Graph, build_hybrid
+from .pagerank import (DeviceGraph, PRParams, as_device_graph, as_ranks,
+                       resolve_device, to_device)
+from ..guard.health import rank_mass
+
+__all__ = ["forward_device_graph", "dfp_pagerank_compact",
+           "df_pagerank_compact"]
 
 
 def forward_device_graph(g: Graph, d_p: int = 64, tile: int = 1024,
@@ -19,3 +44,118 @@ def forward_device_graph(g: Graph, d_p: int = 64, tile: int = 1024,
     dev = resolve_device(device)      # raise before the host build
     return to_device(build_hybrid(g.transpose(), d_p=d_p, tile=tile, **caps),
                      device=dev)
+
+
+def _compact_loop(dg: DeviceGraph, fwd: DeviceGraph, r0, dv0, params,
+                  k: int, kt: int, kn: int, prune: bool,
+                  kernels: Optional[bool]):
+    """The compacted Alg. 2 loop. Returns (r, dv, dn, delta, iters).
+
+    An iteration whose lists overflow (a truncated bucket/hi/tile list, a
+    push worklist over `kn`, or more than `k` active rows in total) commits
+    nothing: the loop exits with the pre-iteration ranks, the expanded
+    frontier and delta = +inf, the signal for the dense finish. As in the
+    JAX loop that iteration is counted."""
+    dt = r0.dtype
+    caps = FrontierCaps(
+        bucket=tuple(min(k, int(b.rows.shape[0])) for b in dg.buckets),
+        hi=min(k, dg.n_hi_cap), tiles=kt, dn=kn, fwd_tiles=0)
+    kw = dict(alpha=params.alpha, tau_f=params.tau_f, tau_p=params.tau_p,
+              prune=prune, closed_form=prune, track_frontier=True,
+              kernels=kernels)
+
+    def compact(dv, push_ovf=None):
+        af = active_frontier(dg.buckets, dg.hi_ids, dg.hi_rowmap, dv, caps)
+        ovf = af.overflow | (af.n_rows > k)
+        return af, (ovf if push_ovf is None else ovf | push_ovf)
+
+    r, dv = r0, dv0
+    dn = torch.zeros_like(dv0)
+    # finite sentinel: +inf is reserved for the capacity-overflow signal
+    delta = torch.full((), torch.finfo(dt).max, dtype=dt, device=r.device)
+    af, ovf = compact(dv)
+    overflow = bool(ovf)
+    iters = 0
+    while iters < params.max_iter:
+        iters += 1
+        if overflow:
+            delta = torch.full_like(delta, float("inf"))
+            break
+        r, dv, dn, delta = update_ranks_active(dg, r, dv, af, **kw)
+        if iters >= params.max_iter:
+            break
+        # paper line 16: expand this sweep's δ_N, compact, then the one read
+        marks, push_ovf = push_expand(fwd, dn, kn)
+        dv_next = dv | marks
+        af, ovf = compact(dv_next, push_ovf)
+        go_on, overflow = torch.stack([delta > params.tau, ovf]).tolist()
+        if not go_on:
+            break
+        dv = dv_next
+    return r, dv, dn, delta, iters
+
+
+def _dense_finish(dg, r, dv, dn, params, prune, kernels, health):
+    return _loop(dg, r, dv, dn, params, expand=True, prune=prune,
+                 closed_form=prune, kernels=kernels, health=health)
+
+
+def _df_like_compact(dg, fwd, r_prev, batch: DeviceBatch, params: PRParams,
+                     *, prune: bool, headroom: int = 16,
+                     kernels: Optional[bool] = None, health: bool = False):
+    n = dg.n
+    dv, dn = initial_affected(n, batch.del_src, batch.del_dst, batch.ins_src)
+    # initial marking via the compacted out-edge walk (paper Alg. 5), not a
+    # dense O(|E|) pull — the batch is tiny relative to the graph
+    kn_init = plan_capacity(int(dn.sum()) + 1, n, headroom=2)
+    dv = dv | push_expand(fwd, dn, kn_init)[0]
+    k = plan_capacity(int(dv.sum()) + 1, n, headroom=headroom)
+    # no tile compaction: affected hubs need their full tile lists
+    kt = dg.hi_tiles.shape[0]
+    r, dv, dn, delta, iters = _compact_loop(
+        dg, fwd, as_ranks(r_prev, dg.device), dv, params, k, kt, k, prune,
+        kernels)
+    if float(delta) > params.tau and iters < params.max_iter:
+        # the frontier outgrew the capacity: the dense engine finishes with
+        # the REMAINING budget, so its health word is the solve's
+        rest = params._replace(max_iter=params.max_iter - iters)
+        out = _dense_finish(dg, r, dv, dn, rest, prune, kernels, health)
+        return (out[0], iters + out[1]) + tuple(out[2:])
+    if health:
+        return r, iters, solve_health(delta, iters, rank_mass(r), params)
+    return r, iters
+
+
+def _stage_pair(dg, fwd):
+    """Resolve (pull, forward) device graphs; a pre-staged snapshot exposing
+    `.dg`/`.fwd_dg` (repro_torch.stream.DeviceSnapshot) may be passed as `dg`
+    with fwd=None and supplies both orientations."""
+    if fwd is None:
+        fwd = getattr(dg, "fwd_dg", None)
+        if fwd is None:
+            raise TypeError("fwd is required unless dg is a snapshot "
+                            "exposing .fwd_dg")
+    return as_device_graph(dg), as_device_graph(fwd)
+
+
+def dfp_pagerank_compact(dg, fwd=None, r_prev=None,
+                         batch: DeviceBatch = None,
+                         params: PRParams = PRParams(),
+                         kernels: Optional[bool] = None,
+                         health: bool = False):
+    """Compacted DF-P (pruning, closed form Eq. 2). Returns (r, iters)
+    [, health word]. `kernels` picks the sweep as in `core.dynamic`."""
+    dg, fwd = _stage_pair(dg, fwd)
+    return _df_like_compact(dg, fwd, r_prev, batch, params, prune=True,
+                            kernels=kernels, health=health)
+
+
+def df_pagerank_compact(dg, fwd=None, r_prev=None,
+                        batch: DeviceBatch = None,
+                        params: PRParams = PRParams(),
+                        kernels: Optional[bool] = None,
+                        health: bool = False):
+    """Compacted DF (no pruning, Eq. 1). See `dfp_pagerank_compact`."""
+    dg, fwd = _stage_pair(dg, fwd)
+    return _df_like_compact(dg, fwd, r_prev, batch, params, prune=False,
+                            kernels=kernels, health=health)

@@ -168,7 +168,8 @@ def nd_pagerank(dg, r_prev, params: PRParams = PRParams(),
                 kernels: Optional[bool] = None, health: bool = False):
     """Naive-dynamic: previous ranks as the initial guess, all vertices on.
 
-    Every driver accepts a DeviceGraph (or a layout / Graph to stage), ranks
+    Every driver accepts a DeviceGraph (or a layout / Graph to stage, or a
+    snapshot exposing `.dg`, e.g. `repro_torch.stream.DeviceSnapshot`), ranks
     as a tensor or numpy array, and `kernels` to pick the sweep (default:
     the CUDA kernels on a CUDA graph, the plain path on a CPU one).
     ``health=True`` appends the solve's guard.health word (0-d int32).
@@ -215,12 +216,14 @@ def _df_like(dg: DeviceGraph, r_prev, batch: DeviceBatch, params: PRParams,
                  kernels=kernels, fwd=fwd, caps=caps, fs0=fs0, health=health)
 
 
-def _resolve_frontier(fwd, frontier_caps):
-    """(fwd DeviceGraph|None, caps) for the compacted path. With caps but
-    no forward layout the loop still compacts the rank pull and keeps the
-    dense expansion."""
+def _resolve_frontier(dg, fwd, frontier_caps):
+    """(fwd DeviceGraph|None, caps) for the compacted path. Snapshots carry
+    their own forward layout (`.fwd_dg`); with caps but no forward layout
+    the loop still compacts the rank pull and keeps the dense expansion."""
     if frontier_caps is None:
         return None, None
+    if fwd is None:
+        fwd = getattr(dg, "fwd_dg", None)
     return (as_device_graph(fwd) if fwd is not None else None), frontier_caps
 
 
@@ -243,7 +246,7 @@ def df_pagerank(dg, r_prev, batch: DeviceBatch,
     `frontier_caps` (core.frontier.FrontierCaps / caps_for) switches on the
     compacted path — active gather lists + push expansion through `fwd`,
     full sweep only on capacity overflow; the same results either way."""
-    fwdd, caps = _resolve_frontier(fwd, frontier_caps)
+    fwdd, caps = _resolve_frontier(dg, fwd, frontier_caps)
     out = _df_like(as_device_graph(dg), r_prev, batch, params, prune=False,
                    kernels=kernels, fwd=fwdd, caps=caps, health=health)
     return _publish(out, caps)
@@ -256,7 +259,7 @@ def dfp_pagerank(dg, r_prev, batch: DeviceBatch,
     """Dynamic Frontier with Pruning: expansion + pruning, closed form Eq. 2.
 
     See `df_pagerank` for the `frontier_caps` compacted path."""
-    fwdd, caps = _resolve_frontier(fwd, frontier_caps)
+    fwdd, caps = _resolve_frontier(dg, fwd, frontier_caps)
     out = _df_like(as_device_graph(dg), r_prev, batch, params, prune=True,
                    kernels=kernels, fwd=fwdd, caps=caps, health=health)
     return _publish(out, caps)

@@ -38,6 +38,7 @@ __all__ = [
     "HybridRows",
     "BatchUpdate",
     "build_graph",
+    "graph_from_sorted_keys",
     "apply_batch",
     "random_graph",
     "powerlaw_graph",
@@ -192,6 +193,25 @@ def build_graph(n: int, src: np.ndarray, dst: np.ndarray,
     t_offsets, t_sources, _, _ = _csr_from_edges(n, udst, usrc)
     return Graph(n=n, offsets=offsets, targets=targets,
                  t_offsets=t_offsets, t_sources=t_sources)
+
+
+def graph_from_sorted_keys(n: int, keys: np.ndarray) -> Graph:
+    """Build a Graph from already-unique, already-sorted edge keys.
+
+    The rebuild path of `repro_torch.stream.snapshot`: the maintained key
+    set is sorted src-major, so the forward CSR falls out of a single
+    bincount (no dedup sort as in `build_graph`).
+    """
+    src, dst = keys_to_edges(n, keys)
+    counts = np.bincount(src, minlength=n).astype(np.int64)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    order = np.argsort(dst, kind="stable")
+    t_counts = np.bincount(dst, minlength=n).astype(np.int64)
+    t_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(t_counts, out=t_offsets[1:])
+    return Graph(n=n, offsets=offsets, targets=dst,
+                 t_offsets=t_offsets, t_sources=src[order])
 
 
 def apply_batch(g: Graph, batch: BatchUpdate) -> Graph:

@@ -134,10 +134,14 @@ def device_graph(g: Graph, d_p: int = 64, tile: int = 1024, device=None,
 
 
 def as_device_graph(obj, device=None) -> DeviceGraph:
-    """Coerce to a pull-side DeviceGraph: a DeviceGraph (identity), a host
-    hybrid layout, or a Graph (default layout)."""
+    """Coerce to a pull-side DeviceGraph: a DeviceGraph (identity), any
+    pre-staged snapshot exposing `.dg` (`repro_torch.stream.DeviceSnapshot`),
+    a host hybrid layout, or a Graph (default layout)."""
     if isinstance(obj, DeviceGraph):
         return obj
+    staged = getattr(obj, "dg", None)
+    if staged is not None:
+        return staged
     if isinstance(obj, Graph):
         return device_graph(obj, device=device)
     if hasattr(obj, "buckets") and hasattr(obj, "hi_rowmap"):

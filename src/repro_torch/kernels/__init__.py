@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels (sm_90a) for the rank sweep, each beside its
-plain PyTorch version.
+"""Hand-written CUDA kernels (sm_90a) for the rank sweep and the streaming
+snapshot's row scatter, each beside its plain PyTorch version.
 
 A wrapper runs the plain version on CPU tensors and launches its kernel on
 CUDA tensors (or raises); each keeps a launch count in `<wrapper>.launches`.
@@ -9,6 +9,7 @@ from .csr_block import csr_block_pull
 from .ell_bucket_pull import fused_ell_update
 from .ops import update_ranks_kernel
 from .pr_update import pr_update
+from .stream_scatter import ell_scatter_rows, scatter_rows
 
 __all__ = ["fused_ell_update", "csr_block_pull", "pr_update",
-           "update_ranks_kernel"]
+           "update_ranks_kernel", "scatter_rows", "ell_scatter_rows"]

@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check", "stream_ptr",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("fused_ell_update", "csr_block_pull", "pr_update")
+SOURCES = ("fused_ell_update", "csr_block_pull", "pr_update", "scatter_rows")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
