@@ -25,18 +25,19 @@ Phases (any failure exits non-zero; nothing is caught):
      its bound and, where one PyTorch call computes the same function,
      that call;
   8. the streaming path on the same graph: a StreamSession (DeviceSnapshot
-     + static solve, launch counts start at 0 here; tau = --stream-tau,
-     1e-11: the check below compares two solves that each stop once their
-     L-inf change is under tau, and over 4M vertices the default 1e-10
-     leaves their L1 gap unbounded by 1e-8), three churn batches
-     (random_batch, frac, 80% inserts) and two insert-only batches of
-     about 1,000 uniform edges (scaled with n); both engines must run and
-     no batch may rebuild. After every batch each device tensor of the
-     snapshot equals its host mirror (the slot->tile table included), the
-     ranks are within L1 1e-8 of a from-scratch solve and csr_block_pull
-     on the snapshot equals its plain version; after the last, pull_sum on
-     both halves equals a fresh build. Then scatter_rows against its plain
-     version on every table the first batch touched, and timed.
+     + static solve, launch counts start at 0 here; tau = 1e-11, see
+     STREAM_PARAMS), three churn batches (random_batch, frac, 80% inserts)
+     and two insert-only batches of about 1,000 uniform edges (scaled with
+     n; stream.mixed_workload); both engines must run and no batch may
+     rebuild. After every batch each device tensor of the snapshot equals
+     its host mirror (the slot->tile table included), the batch's solve
+     repeated on the plain path from the same prior ranks (same engine
+     and caps) is within L1 1e-8, the ranks are within L1 1e-8 of a
+     from-scratch solve and csr_block_pull on the snapshot equals its
+     plain version; after the last, phase 4's checks on both halves of
+     the snapshot and pull_sum on both against a fresh build. Then
+     scatter_rows against its plain version on every table the first
+     batch touched, and timed.
 Before the last line it prints the `kernels` JSON line; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits 2 without one.
 """
@@ -80,8 +81,6 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batches", type=int, default=3)
     p.add_argument("--frac", type=float, default=1e-4)
-    p.add_argument("--stream-tau", type=float, default=1e-11,
-                   help="the session's convergence tolerance (phase 8)")
     p.add_argument("--repeats", type=int, default=20)
     p.add_argument("--out", default=None, help="write the full report here")
     return p.parse_args(argv)
@@ -118,6 +117,71 @@ def bound(nbytes: float, flops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def at(t, ids):
+    """The per-slot operands, as ops.update_ranks_kernel gathers them."""
+    return t.index_select(0, ids)
+
+
+def check_kernels(dgx, rng, errs):
+    """Phase 4 on one DeviceGraph: each sweep kernel against its plain
+    version at the shapes the path gives it — every ELL bucket dense and
+    over an active list (1% of the vertices flagged), the high side dense
+    and over its active tiles; ranks to 1e-12 L-inf, flags exactly. Folds
+    the errors into `errs`; returns the operands phase 7 reuses."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import active_frontier, caps_for
+    from repro_torch.kernels import csr_block_pull, fused_ell_update, pr_update
+    from repro_torch.kernels.csr_block import csr_block_pull_plain
+    from repro_torch.kernels.ell_bucket_pull import fused_ell_update_plain
+    from repro_torch.kernels.pr_update import pr_update_plain
+    from repro_torch.sentinel import take_fill, with_sink
+    dev, n = dgx.device, dgx.n
+    r = torch.from_numpy(rng.random(n) / n + 0.5 / n).to(dev)
+    aff = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    deg = dgx.out_deg.double()
+    c = r / deg
+    kw = dict(inv_n=1.0 / n, **STEP)
+    r_s, d_s, a_s = with_sink(r, 1.0), with_sink(deg, 1.0), \
+        with_sink(aff.double(), 0.0)
+    dv = torch.from_numpy(rng.random(n) < 0.01).to(dev)
+    af = active_frontier(dgx.buckets, dgx.hi_ids, dgx.hi_rowmap, dv,
+                         caps_for(dgx, int(dv.sum())))
+    require(not bool(af.overflow), "active lists overflowed")
+
+    def hold(name, got, want):
+        want = [w.to(dev) for w in want]
+        e = max(linf(got[0], want[0]), abs(float(got[3]) - float(want[3])))
+        require(e <= TOL_SWEEP, f"{name}: L-inf {e} > {TOL_SWEEP}")
+        require(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+                f"{name}: affected / delta_N flags differ")
+        errs[name] = max(errs[name], e)
+
+    for blk, sel in zip(dgx.buckets, af.bucket_sel):
+        ops = (c, blk.idx, blk.mask, at(r_s, blk.rows), at(d_s, blk.rows),
+               at(a_s, blk.rows))
+        hold("fused_ell_update", fused_ell_update(*ops, **kw),
+             fused_ell_update_plain(*ops, **kw))
+        act = [take_fill(o, sel, f)
+               for o, f in zip(ops[1:], (0, 0.0, 1.0, 1.0, 0.0))]
+        hold("fused_ell_update", fused_ell_update(*ops, active=sel, **kw),
+             fused_ell_update_plain(c, *act, **kw))
+    slots = (dgx.hi_slot_tiles, dgx.hi_slot_off)
+    hi_args = (c, dgx.hi_tiles, dgx.hi_tmask, dgx.hi_rowmap, dgx.n_hi_cap)
+    for sel in (None, af.tile_sel):
+        got = csr_block_pull(*hi_args, tile_sel=sel, slots=slots)
+        e = linf(got, csr_block_pull_plain(*hi_args, tile_sel=sel))
+        require(e <= TOL_SWEEP, f"csr_block_pull: L-inf {e}")
+        errs["csr_block_pull"] = max(errs["csr_block_pull"], e)
+    hi_sums = csr_block_pull_plain(*hi_args)
+    hi_ops = (hi_sums, at(r_s, dgx.hi_ids), at(d_s, dgx.hi_ids),
+              at(a_s, dgx.hi_ids))
+    hold("pr_update", pr_update(*hi_ops, **kw), pr_update_plain(*hi_ops, **kw))
+    torch.cuda.synchronize()
+    return SimpleNamespace(c=c, r_s=r_s, d_s=d_s, kw=kw, slots=slots,
+                           hi_args=hi_args, hi_sums=hi_sums, hi_ops=hi_ops)
+
+
 def snapshot_pairs(snap):
     """(name, device tensor, host mirror) for every device tensor of both
     halves of a DeviceSnapshot, the slot->tile table against the one the
@@ -150,11 +214,20 @@ def scatter_tables(snap, touched):
                        h.dev_bk_mask[key], ids)
 
 
-def stream_phase(args, g, dev, report, wrappers):
-    """Phase 8: the streaming session on the full-size graph. Returns the
-    launch counts of the session path and scatter_rows' check and times."""
+# Phase 8's session parameters: the session's frontier tolerances with
+# tau = 1e-11, not the default 1e-10. Each batch is held within L1 1e-8 of
+# a from-scratch solve; both solves stop once their L-inf change is under
+# tau, and at 1e-10 their L1 gap passes 1e-8 on this graph (on the CPU's
+# plain path too: python -m repro_torch.stream).
+STREAM_PARAMS = dict(tau=1e-11, tau_f=1e-9, tau_p=1e-9)
+
+
+def stream_phase(args, g, dev, report, wrappers, errs):
+    """Phase 8: the streaming session on the full-size graph. Folds the
+    kernels' errors on the snapshot into `errs`; returns the launch counts
+    of the session path and scatter_rows' check and times."""
     from repro_torch.core import (PRParams, build_hybrid, l1_error,
-                                  pull_sum, random_batch, to_device)
+                                  pull_sum, to_device)
     from repro_torch.kernels.csr_block import (csr_block_pull,
                                                csr_block_pull_plain)
     from repro_torch.kernels.stream_scatter import (ell_scatter_rows,
@@ -162,8 +235,8 @@ def stream_phase(args, g, dev, report, wrappers):
                                                     scatter_rows,
                                                     scatter_rows_plain)
     from repro_torch.stream import (DeviceSnapshot, StreamSession,
-                                    churn_workload, frontier_estimate,
-                                    ingest)
+                                    frontier_estimate, ingest,
+                                    mixed_workload)
     n = g.n
     out = {"launches": {w.__name__: 0 for w in wrappers}}
 
@@ -184,8 +257,7 @@ def stream_phase(args, g, dev, report, wrappers):
     t_snap = time.perf_counter() - t0
     t0 = time.perf_counter()
     sess = driven(StreamSession, g, d_p=args.d_p, tile=args.tile,
-                  snapshot=snap, params=PRParams(
-                      tau=args.stream_tau, tau_f=1e-9, tau_p=1e-9))
+                  snapshot=snap, params=PRParams(**STREAM_PARAMS))
     torch.cuda.synchronize()
     t_static = time.perf_counter() - t0
     snap_bytes = sum(t.numel() * t.element_size()
@@ -202,19 +274,16 @@ def stream_phase(args, g, dev, report, wrappers):
         f"static solve {sess._init_iters} iters {t_static * 1e3:.1f} ms")
 
     # -- 8.2 five batches through the session --------------------------------
-    n_ins = max(1, round(1000 * n / 2 ** 22))
-    batches = [("churn", b) for b in churn_workload(
-        g, args.frac, 3, seed=args.seed + 200)]
-    batches += [("insert", random_batch(g, n_ins / g.m, insert_frac=1.0,
-                                        seed=args.seed + 300 + k))
-                for k in range(2)]
     rng = np.random.default_rng(args.seed + 2)
     c = torch.from_numpy(rng.random(n) / n).to(dev)
     first = None
-    for k, (kind, b) in enumerate(batches, 1):
+    for k, (kind, b) in enumerate(
+            mixed_workload(g, args.frac, seed=args.seed + 200), 1):
+        r_prev = sess.ranks
         driven(sess.apply, b)
         st = sess.history[-1]
-        est = frontier_estimate(ingest(b, n), snap._outdeg)
+        delta = ingest(b, n)
+        est = frontier_estimate(delta, snap._outdeg)
         if first is None:
             first = {"pull": dict(snap._pull.last_scatter),
                      "fwd": dict(snap._fwd.last_scatter)}
@@ -245,6 +314,22 @@ def stream_phase(args, g, dev, report, wrappers):
                if not torch.equal(t, torch.from_numpy(
                    np.ascontiguousarray(a)).to(dev))]
         require(not bad, f"stream batch {k}: device != mirror for {bad}")
+        # the batch's solve again on the plain path: same engine, caps and
+        # prior ranks; it must launch no kernel
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        r_plain, it_plain = sess.solve(st.engine, r_prev,
+                                       delta.to_device(device=dev),
+                                       sess._caps, kernels=False)
+        torch.cuda.synchronize()
+        row["plain_solve_s"] = time.perf_counter() - t0
+        row["plain_iters"] = it_plain
+        require(all(w.launches == 0 for w in wrappers),
+                f"stream batch {k}: the plain solve launched a kernel")
+        row["l1_vs_plain"] = l1_error(sess.ranks, r_plain)
+        require(row["l1_vs_plain"] <= TOL_SOLVE_L1,
+                f"stream batch {k}: kernel vs plain L1 {row['l1_vs_plain']}")
         row["l1_vs_static"] = l1_error(sess.ranks, sess.static_reference())
         require(row["l1_vs_static"] <= TOL_SOLVE_L1,
                 f"stream batch {k}: L1 vs static {row['l1_vs_static']}")
@@ -258,7 +343,9 @@ def stream_phase(args, g, dev, report, wrappers):
         row["csr_block_pull_err"] = e
         require(e <= TOL_SWEEP, f"stream batch {k}: csr_block_pull on the "
                 f"snapshot L-inf {e}")
-        log(f"[stream {k}] mirrors equal; L1 vs from-scratch "
+        log(f"[stream {k}] mirrors equal; L1 vs the plain solve "
+            f"{row['l1_vs_plain']:.3e} ({it_plain} iters, "
+            f"{row['plain_solve_s'] * 1e3:.1f} ms), vs from-scratch "
             f"{row['l1_vs_static']:.3e}; csr_block_pull L-inf {e:.2e}")
         rep["batches"].append(row)
     engines = {r["engine"] for r in rep["batches"]}
@@ -267,7 +354,17 @@ def stream_phase(args, g, dev, report, wrappers):
     for name, cnt in out["launches"].items():
         require(cnt > 0, f"{name} never launched on the stream path")
 
-    # -- 8.3 both halves against a fresh build -------------------------------
+    # -- 8.3 the sweep kernels on both halves, then a fresh build ------------
+    t0 = time.perf_counter()
+    snap_errs = dict.fromkeys(("fused_ell_update", "csr_block_pull",
+                               "pr_update"), 0.0)
+    for dgx in (snap.dg, snap.fwd_dg):
+        check_kernels(dgx, rng, snap_errs)
+    rep["max_abs_err"] = snap_errs
+    for name, e in snap_errs.items():
+        errs[name] = max(errs[name], e)
+    log(f"[stream] phase 4's checks on both halves of the snapshot: "
+        f"{snap_errs} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     gs = snap.graph()
     e = 0.0
@@ -362,18 +459,17 @@ def main(argv=None) -> int:
 
     from repro_torch.core import (PRParams, apply_batch, batch_to_device,
                                   build_hybrid, caps_for, device_graph,
-                                  dfp_pagerank,
-                                  forward_device_graph, init_ranks, l1_error,
-                                  numpy_pagerank, powerlaw_graph,
-                                  random_batch, static_pagerank, to_device,
-                                  active_frontier)
+                                  dfp_pagerank, forward_device_graph,
+                                  init_ranks, l1_error, numpy_pagerank,
+                                  powerlaw_graph, random_batch,
+                                  static_pagerank, to_device)
     from repro_torch.kernels import (_build, csr_block_pull, fused_ell_update,
                                      pr_update)
     from repro_torch.kernels.csr_block import csr_block_pull_plain
     from repro_torch.kernels.ell_bucket_pull import fused_ell_update_plain
     from repro_torch.kernels.pr_update import pr_update_plain
     from repro_torch.kernels.stream_scatter import scatter_rows
-    from repro_torch.sentinel import take_fill, with_sink
+    from repro_torch.sentinel import with_sink
     from repro_torch.stream import frontier_estimate
 
     report = {"args": vars(args)}
@@ -423,50 +519,9 @@ def main(argv=None) -> int:
     # -- 4. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(args.seed + 1)
     n = g.n
-    r = torch.from_numpy(rng.random(n) / n + 0.5 / n).to(dev)
-    aff = torch.from_numpy(rng.random(n) < 0.5).to(dev)
-    deg = dg.out_deg.double()
-    c = r / deg
-    kw = dict(inv_n=1.0 / n, **STEP)
-    r_s, d_s, a_s = with_sink(r, 1.0), with_sink(deg, 1.0), \
-        with_sink(aff.double(), 0.0)
-
-    def at(t, ids):     # the per-slot operands, as ops.update_ranks_kernel
-        return t.index_select(0, ids)
-    dv = torch.from_numpy(rng.random(n) < 0.01).to(dev)
-    af = active_frontier(dg.buckets, dg.hi_ids, dg.hi_rowmap, dv,
-                         caps_for(dg, int(dv.sum())))
-    require(not bool(af.overflow), "active lists overflowed")
     errs = {"fused_ell_update": 0.0, "csr_block_pull": 0.0, "pr_update": 0.0}
-
-    def hold(name, got, want):
-        want = [w.to(dev) for w in want]
-        e = max(linf(got[0], want[0]), abs(float(got[3]) - float(want[3])))
-        require(e <= TOL_SWEEP, f"{name}: L-inf {e} > {TOL_SWEEP}")
-        require(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-                f"{name}: affected / delta_N flags differ")
-        errs[name] = max(errs[name], e)
-
-    for b, (blk, sel) in enumerate(zip(dg.buckets, af.bucket_sel)):
-        ops = (c, blk.idx, blk.mask, at(r_s, blk.rows), at(d_s, blk.rows),
-               at(a_s, blk.rows))
-        hold("fused_ell_update", fused_ell_update(*ops, **kw),
-             fused_ell_update_plain(*ops, **kw))
-        act = [take_fill(o, sel, f)
-               for o, f in zip(ops[1:], (0, 0.0, 1.0, 1.0, 0.0))]
-        hold("fused_ell_update", fused_ell_update(*ops, active=sel, **kw),
-             fused_ell_update_plain(c, *act, **kw))
-    slots = (dg.hi_slot_tiles, dg.hi_slot_off)
-    hi_args = (c, dg.hi_tiles, dg.hi_tmask, dg.hi_rowmap, dg.n_hi_cap)
-    for sel in (None, af.tile_sel):
-        got = csr_block_pull(*hi_args, tile_sel=sel, slots=slots)
-        e = linf(got, csr_block_pull_plain(*hi_args, tile_sel=sel))
-        require(e <= TOL_SWEEP, f"csr_block_pull: L-inf {e}")
-        errs["csr_block_pull"] = max(errs["csr_block_pull"], e)
-    hi_sums = csr_block_pull_plain(*hi_args)
-    hi_ops = (hi_sums, at(r_s, dg.hi_ids), at(d_s, dg.hi_ids),
-              at(a_s, dg.hi_ids))
-    hold("pr_update", pr_update(*hi_ops, **kw), pr_update_plain(*hi_ops, **kw))
+    k4 = check_kernels(dg, rng, errs)
+    c, r_s, d_s, kw, hi_ops = k4.c, k4.r_s, k4.d_s, k4.kw, k4.hi_ops
     # a NaN rank wins every max: affected (pr_update) and unaffected
     # (fused_ell_update skips the gather but still reports |NaN - NaN|)
     bad = hi_ops[1].clone()
@@ -594,6 +649,7 @@ def main(argv=None) -> int:
     bucket_ops = [(c, blk.idx, blk.mask, at(r_s, blk.rows),
                    at(d_s, blk.rows), at(a_on, blk.rows))
                   for blk in dg.buckets]
+    hi_sums, hi_args, slots = k4.hi_sums, k4.hi_args, k4.slots
     hi_on = (hi_sums, at(r_s, dg.hi_ids), at(d_s, dg.hi_ids),
              at(a_on, dg.hi_ids))
 
@@ -644,13 +700,13 @@ def main(argv=None) -> int:
         log(f"[time] {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), library "
             f"{t['library_ms']}")
-    del (a_hi, bucket_ops, hi_on, hi_ops, hi_sums, dg, af, dv, r_s, d_s, a_s,
-         a_on, all_on, r_k, r_p, rk_dense, rk_caps, rp, r_scratch)
+    del (a_hi, bucket_ops, hi_on, hi_ops, hi_sums, hi_args, k4, dg, c, r_s,
+         d_s, a_on, all_on, r_k, r_p, rk_dense, rk_caps, rp, r_scratch)
     torch.cuda.empty_cache()
 
     # -- 8. the streaming path ------------------------------------------------
     wrappers = (fused_ell_update, csr_block_pull, pr_update, scatter_rows)
-    stream = stream_phase(args, g, dev, report, wrappers)
+    stream = stream_phase(args, g, dev, report, wrappers, errs)
     sc = stream["scatter"]
     timings["scatter_rows"] = dict(ms=sc["ms"], plain_ms=sc["plain_ms"],
                                    library_ms=sc["library_ms"],

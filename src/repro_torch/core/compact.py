@@ -30,7 +30,7 @@ from .frontier import (FrontierCaps, active_frontier, initial_affected,
                        plan_capacity, push_expand, update_ranks_active)
 from .graph import Graph, build_hybrid
 from .pagerank import (DeviceGraph, PRParams, as_device_graph, as_ranks,
-                       resolve_device, to_device)
+                       resolve_device, staged_forward, to_device)
 from ..guard.health import rank_mass
 
 __all__ = ["forward_device_graph", "dfp_pagerank_compact",
@@ -131,7 +131,7 @@ def _stage_pair(dg, fwd):
     `.dg`/`.fwd_dg` (repro_torch.stream.DeviceSnapshot) may be passed as `dg`
     with fwd=None and supplies both orientations."""
     if fwd is None:
-        fwd = getattr(dg, "fwd_dg", None)
+        fwd = staged_forward(dg)
         if fwd is None:
             raise TypeError("fwd is required unless dg is a snapshot "
                             "exposing .fwd_dg")

@@ -20,7 +20,7 @@ from .frontier import (FS_ACTIVE_ROWS, FS_ACTIVE_TILES, FS_COMPACT,
                        publish_fstats, push_expand, reach_affected,
                        update_ranks_active)
 from .pagerank import (DeviceGraph, PRParams, as_device_graph, as_ranks,
-                       resolve_device, update_ranks)
+                       resolve_device, staged_forward, update_ranks)
 from ..guard.health import MASS_TOL, health_word, rank_mass
 
 __all__ = ["DeviceBatch", "batch_to_device", "solve_health", "nd_pagerank",
@@ -223,7 +223,7 @@ def _resolve_frontier(dg, fwd, frontier_caps):
     if frontier_caps is None:
         return None, None
     if fwd is None:
-        fwd = getattr(dg, "fwd_dg", None)
+        fwd = staged_forward(dg)
     return (as_device_graph(fwd) if fwd is not None else None), frontier_caps
 
 

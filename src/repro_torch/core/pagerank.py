@@ -149,6 +149,12 @@ def as_device_graph(obj, device=None) -> DeviceGraph:
     raise TypeError(f"cannot stage {type(obj).__name__} as a DeviceGraph")
 
 
+def staged_forward(obj) -> Optional[DeviceGraph]:
+    """The forward-orientation DeviceGraph a pre-staged snapshot carries
+    (`.fwd_dg`), or None for anything else."""
+    return getattr(obj, "fwd_dg", None)
+
+
 def init_ranks(n: int, dtype=torch.float64, device=None) -> torch.Tensor:
     return torch.full((n,), 1.0 / n, dtype=dtype,
                       device=resolve_device(device))

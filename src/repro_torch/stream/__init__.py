@@ -11,11 +11,11 @@ from .delta import Delta, ingest
 from .snapshot import CapacityError, DeviceSnapshot, SnapshotStats
 from .session import BatchStats, StreamSession, choose_engine, \
     frontier_estimate
-from .replay import ReplayRecord, replay, churn_workload
+from .replay import ReplayRecord, replay, churn_workload, mixed_workload
 
 __all__ = [
     "Delta", "ingest",
     "CapacityError", "DeviceSnapshot", "SnapshotStats",
     "BatchStats", "StreamSession", "choose_engine", "frontier_estimate",
-    "ReplayRecord", "replay", "churn_workload",
+    "ReplayRecord", "replay", "churn_workload", "mixed_workload",
 ]

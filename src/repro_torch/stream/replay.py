@@ -4,18 +4,19 @@ Feeds `temporal_stream` / `random_batch` workloads batch-by-batch through a
 session, recording per-batch latency split into the lifecycle stages
 (ingest / snapshot host / snapshot device / DF-P solve) plus optional
 ground-truth error against a from-scratch static recompute — the paper's
-§5.1.4 measurement protocol as a reusable harness.
+§5.1.4 measurement protocol as a reusable harness (`python -m
+repro_torch.stream` runs it from the command line).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional, Tuple
 
 from ..core.graph import BatchUpdate, Graph, random_batch
 from ..core.reference import l1_error
 from .session import BatchStats, StreamSession
 
-__all__ = ["ReplayRecord", "replay", "churn_workload"]
+__all__ = ["ReplayRecord", "replay", "churn_workload", "mixed_workload"]
 
 
 @dataclasses.dataclass
@@ -58,3 +59,17 @@ def churn_workload(g: Graph, frac: float, n_batches: int,
     against a fixed base graph — exercises deletions and degree crossings."""
     return [random_batch(g, frac, insert_frac=insert_frac, seed=seed + t)
             for t in range(n_batches)]
+
+
+def mixed_workload(g: Graph, frac: float, n_churn: int = 3,
+                   n_insert: int = 2, seed: int = 0
+                   ) -> List[Tuple[str, BatchUpdate]]:
+    """(kind, batch) pairs: `n_churn` churn batches of frac·|E|, then
+    `n_insert` insert-only batches of about 1,000·n/2^22 uniform edges (a
+    temporal stream's arrivals; 1,000 at n = 2^22)."""
+    n_ins = max(1, round(1000 * g.n / 2 ** 22))
+    out = [("churn", b) for b in churn_workload(g, frac, n_churn, seed=seed)]
+    out += [("insert", random_batch(g, n_ins / g.m, insert_frac=1.0,
+                                    seed=seed + 100 + k))
+            for k in range(n_insert)]
+    return out

@@ -116,8 +116,11 @@ class StreamSession:
         # Session default: frontier thresholds at 1e-9 (vs the one-shot
         # default 1e-6). Chained DF-P re-uses its own output as the next
         # prior, so per-batch frontier truncation error would otherwise
-        # accumulate across the stream; 1e-9 keeps every batch within
-        # L1 1e-8 of a from-scratch static solve.
+        # accumulate across the stream; at 1e-9 it stays under what τ
+        # leaves. The L1 gap to a from-scratch static solve is then that of
+        # two solves each stopped at an L∞ change under τ, and it grows
+        # with the graph: at τ = 1e-10 it passes 1e-8 on a 65,536-vertex
+        # power-law graph (`python -m repro_torch.stream` measures it).
         self.params = params if params is not None else PRParams(
             tau_f=1e-9, tau_p=1e-9)
         self.engine = engine
@@ -170,13 +173,7 @@ class StreamSession:
         engine = self._choose_engine(delta)
         caps = self._frontier_caps(frontier_estimate(delta,
                                                      self.snap._outdeg))
-        if engine == "compact":
-            fn = dfp_pagerank_compact if self.prune else df_pagerank_compact
-            r, iters = fn(self.snap, None, self.ranks, db, self.params)
-        else:
-            fn = dfp_pagerank if self.prune else df_pagerank
-            r, iters = fn(self.snap, self.ranks, db, self.params,
-                          frontier_caps=caps)
+        r, iters = self.solve(engine, self.ranks, db, caps)
         _sync(self.device)
         solve_s = time.perf_counter() - t1
 
@@ -187,6 +184,19 @@ class StreamSession:
         return self.ranks
 
     # -- engine/caps plumbing ------------------------------------------------
+
+    def solve(self, engine: str, r_prev: torch.Tensor, db, caps,
+              kernels: Optional[bool] = None):
+        """One batch's DF(-P) solve on the current snapshot from `r_prev`:
+        (r, iters). `apply` calls it; `kernels=False` repeats a batch's
+        solve on the plain PyTorch path. Does not touch session state."""
+        if engine == "compact":
+            fn = dfp_pagerank_compact if self.prune else df_pagerank_compact
+            return fn(self.snap, None, r_prev, db, self.params,
+                      kernels=kernels)
+        fn = dfp_pagerank if self.prune else df_pagerank
+        return fn(self.snap, r_prev, db, self.params, frontier_caps=caps,
+                  kernels=kernels)
 
     def _frontier_caps(self, est: int):
         """Frontier capacity plan for this batch — the running elementwise

@@ -659,3 +659,31 @@ def test_replay_records_latency_and_error():
     assert recs[0].l1_vs_static is None and recs[1].l1_vs_static is not None
     assert all(r.l1_vs_static < L1_TOL for r in recs
                if r.l1_vs_static is not None)
+
+
+@pytest.mark.parametrize("engine", ["dense", "compact"])
+def test_session_solve_repeats_the_batch(engine):
+    g = tc.powerlaw_graph(600, 6000, seed=22)
+    sess = ts.StreamSession(g, **CAPS, engine=engine, **CPU)
+    b = tc.random_batch(g, 2e-3, seed=23)
+    r_prev = sess.ranks
+    sess.apply(b)
+    db = ts.ingest(b, g.n).to_device(**CPU)
+    r, iters = sess.solve(engine, r_prev, db, sess._caps, kernels=False)
+    assert torch.equal(r, sess.ranks) and iters == sess.history[-1].iters
+    assert len(sess.history) == 1
+
+
+def test_mixed_workload_and_its_command_line(capsys):
+    from repro_torch.stream.__main__ import main
+    g = tc.powerlaw_graph(2048, 16000, alpha=1.0, seed=0)
+    work = ts.mixed_workload(g, 2e-3, seed=200)
+    assert [k for k, _ in work] == ["churn"] * 3 + ["insert"] * 2
+    assert all(b.del_src.size == 0 for _, b in work[3:])
+    assert main(["--n", "2048", "--m", "16000", "--frac", "2e-3",
+                 "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 6 and lines[0].startswith("n=2048")
+    for line, (kind, b) in zip(lines[1:], work):
+        assert f" {kind} |batch|={b.size} " in line
+        assert float(line.rsplit(" ", 1)[1]) <= L1_TOL
