@@ -12,30 +12,43 @@ Phases (any failure exits non-zero; nothing is caught):
   3. stage the graph: powerlaw_graph(n, m, alpha=1.0, seed) in the hybrid
      layout with d_p=64, tile=256;
   4. each kernel against its plain version on the card, at the main path's
-     shapes: every ELL bucket (dense and with an active list), the high
-     side; ranks to 1e-12 L-inf, flags exactly; a NaN rank must reach the
-     L-inf max;
-  5. static PageRank through the kernels (launch counts start at 0 here),
-     and again on the plain PyTorch path: L1 <= 1e-8, health word 0;
+     shapes: every ELL bucket (the fused kernel dense and with an active
+     list, ell_pull), the high side, pull_sum_kernels over the whole
+     graph; ranks and sums to 1e-12 L-inf, flags exactly; linf_delta
+     exactly (difference 0) at length n, 1, n - 1 and one off the block
+     size; a NaN rank must reach every L-inf max (linf_delta from either
+     side) and a NaN contribution ell_pull's row;
+  5. static PageRank through the fused kernels (launch counts start at 0
+     here), again on the plain PyTorch path, then on the staged sweep
+     (pull_sum_fn=pull_sum_kernels: ell_pull, csr_block_pull, the rank
+     update, linf_delta): L1 <= 1e-8 against the plain solve, health word
+     0; then the fused solve twice more, untraced and with trace=True:
+     ranks equal to the first solve, the same iteration count, the
+     trace's final L-inf <= tau;
   6. three chained DF-P batches (random_batch, frac=1e-4, 80% inserts)
-     through the kernels, dense and with frontier_caps, and on the plain
-     path: kernel vs plain L1 <= 1e-8; L1 against a from-scratch static
-     solve printed; then a small graph against the numpy reference;
+     through the fused kernels, dense and with frontier_caps, on the
+     staged sweep (dense, pull_sum_fn=pull_sum_kernels), and on the plain
+     path: each within L1 1e-8 of the plain path; L1 against a
+     from-scratch static solve printed; then a small graph against the
+     numpy reference;
   7. each kernel timed with CUDA events (median) beside its plain version,
      its bound and, where one PyTorch call computes the same function,
-     that call;
-  8. the streaming path on the same graph: a StreamSession (DeviceSnapshot
-     + static solve, launch counts start at 0 here; tau = 1e-11, see
-     STREAM_PARAMS), three churn batches (random_batch, frac, 80% inserts)
+     that call (ell_pull: torch.mv over a sparse CSR matrix of the low
+     side; linf_delta: torch.dist with p = inf);
+  8. the streaming path on the same graph: a StreamSession with
+     trace=True (DeviceSnapshot + static solve, launch counts start at 0
+     here; tau = 1e-11, see STREAM_PARAMS), three churn batches
+     (random_batch, frac, 80% inserts)
      and two insert-only batches of about 1,000 uniform edges (scaled with
      n; stream.mixed_workload); both engines must run and no batch may
      rebuild. After every batch each device tensor of the snapshot equals
-     its host mirror (the slot->tile table included), the batch's solve
-     repeated on the plain path from the same prior ranks (same engine
-     and caps) is within L1 1e-8, the ranks are within L1 1e-8 of a
-     from-scratch solve and csr_block_pull on the snapshot equals its
-     plain version; after the last, phase 4's checks on both halves of
-     the snapshot and pull_sum on both against a fresh build. Then
+     its host mirror (the slot->tile table included), the batch's trace
+     summary counts the batch's iterations and names its engine, the
+     batch's solve repeated on the plain path from the same prior ranks
+     (same engine and caps) is within L1 1e-8, the ranks are within L1
+     1e-8 of a from-scratch solve and csr_block_pull on the snapshot
+     equals its plain version; after the last, phase 4's checks on both
+     halves of the snapshot and pull_sum on both against a fresh build. Then
      scatter_rows against its plain version on every table the first
      batch touched, and timed.
 Before the last line it prints the `kernels` JSON line; the last line is
@@ -125,15 +138,19 @@ def at(t, ids):
 def check_kernels(dgx, rng, errs):
     """Phase 4 on one DeviceGraph: each sweep kernel against its plain
     version at the shapes the path gives it — every ELL bucket dense and
-    over an active list (1% of the vertices flagged), the high side dense
-    and over its active tiles; ranks to 1e-12 L-inf, flags exactly. Folds
+    over an active list (1% of the vertices flagged) and pull-only, the
+    high side dense and over its active tiles, and the staged pull over
+    the whole graph; ranks and sums to 1e-12 L-inf, flags exactly. Folds
     the errors into `errs`; returns the operands phase 7 reuses."""
     from types import SimpleNamespace
 
-    from repro_torch.core import active_frontier, caps_for
-    from repro_torch.kernels import csr_block_pull, fused_ell_update, pr_update
+    from repro_torch.core import active_frontier, caps_for, pull_sum
+    from repro_torch.kernels import (csr_block_pull, ell_pull,
+                                     fused_ell_update, pr_update,
+                                     pull_sum_kernels)
     from repro_torch.kernels.csr_block import csr_block_pull_plain
     from repro_torch.kernels.ell_bucket_pull import fused_ell_update_plain
+    from repro_torch.kernels.ell_pull import ell_pull_plain
     from repro_torch.kernels.pr_update import pr_update_plain
     from repro_torch.sentinel import take_fill, with_sink
     dev, n = dgx.device, dgx.n
@@ -166,6 +183,10 @@ def check_kernels(dgx, rng, errs):
                for o, f in zip(ops[1:], (0, 0.0, 1.0, 1.0, 0.0))]
         hold("fused_ell_update", fused_ell_update(*ops, active=sel, **kw),
              fused_ell_update_plain(c, *act, **kw))
+        e = linf(ell_pull(c, blk.idx, blk.mask),
+                 ell_pull_plain(c, blk.idx, blk.mask))
+        require(e <= TOL_SWEEP, f"ell_pull at width {blk.width}: L-inf {e}")
+        errs["ell_pull"] = max(errs["ell_pull"], e)
     slots = (dgx.hi_slot_tiles, dgx.hi_slot_off)
     hi_args = (c, dgx.hi_tiles, dgx.hi_tmask, dgx.hi_rowmap, dgx.n_hi_cap)
     for sel in (None, af.tile_sel):
@@ -177,6 +198,9 @@ def check_kernels(dgx, rng, errs):
     hi_ops = (hi_sums, at(r_s, dgx.hi_ids), at(d_s, dgx.hi_ids),
               at(a_s, dgx.hi_ids))
     hold("pr_update", pr_update(*hi_ops, **kw), pr_update_plain(*hi_ops, **kw))
+    e = linf(pull_sum_kernels(dgx, c), pull_sum(dgx, c))
+    require(e <= TOL_SWEEP, f"pull_sum_kernels vs pull_sum: L-inf {e}")
+    errs["pull_sum_kernels"] = max(errs["pull_sum_kernels"], e)
     torch.cuda.synchronize()
     return SimpleNamespace(c=c, r_s=r_s, d_s=d_s, kw=kw, slots=slots,
                            hi_args=hi_args, hi_sums=hi_sums, hi_ops=hi_ops)
@@ -257,7 +281,8 @@ def stream_phase(args, g, dev, report, wrappers, errs):
     t_snap = time.perf_counter() - t0
     t0 = time.perf_counter()
     sess = driven(StreamSession, g, d_p=args.d_p, tile=args.tile,
-                  snapshot=snap, params=PRParams(**STREAM_PARAMS))
+                  snapshot=snap, params=PRParams(**STREAM_PARAMS),
+                  trace=True)
     torch.cuda.synchronize()
     t_static = time.perf_counter() - t0
     snap_bytes = sum(t.numel() * t.element_size()
@@ -309,6 +334,19 @@ def stream_phase(args, g, dev, report, wrappers, errs):
             f"{'-' if rebuild is None else f'{rebuild:.1f} s'}")
         require(not st.snapshot.rebuilt,
                 f"stream batch {k} rebuilt ({st.snapshot.rebuild_reason})")
+        # the trace summary counts this solve's iterations, names its engine
+        tr = st.trace
+        want = {"dense": "dfp", "compact": "dfp_compact"}[st.engine]
+        require(tr is not None and tr["iters"] == st.iters
+                and tr["engine"] == want,
+                f"stream batch {k}: trace {tr and (tr['engine'], tr['iters'])}"
+                f" for {st.engine}, {st.iters} iterations")
+        row.update(trace_linf_final=tr["linf_final"],
+                   trace_frontier_peak=tr["frontier_peak"],
+                   trace_frontier_final=tr["frontier_final"])
+        log(f"[stream {k}] trace: {tr['engine']}, {tr['iters']} iters, "
+            f"frontier peak {tr['frontier_peak']} final "
+            f"{tr['frontier_final']}, final L-inf {tr['linf_final']}")
         # every device tensor equals its host mirror
         bad = [name for name, t, a in snapshot_pairs(snap)
                if not torch.equal(t, torch.from_numpy(
@@ -357,7 +395,8 @@ def stream_phase(args, g, dev, report, wrappers, errs):
     # -- 8.3 the sweep kernels on both halves, then a fresh build ------------
     t0 = time.perf_counter()
     snap_errs = dict.fromkeys(("fused_ell_update", "csr_block_pull",
-                               "pr_update"), 0.0)
+                               "pr_update", "ell_pull", "pull_sum_kernels"),
+                              0.0)
     for dgx in (snap.dg, snap.fwd_dg):
         check_kernels(dgx, rng, snap_errs)
     rep["max_abs_err"] = snap_errs
@@ -463,12 +502,16 @@ def main(argv=None) -> int:
                                   init_ranks, l1_error, numpy_pagerank,
                                   powerlaw_graph, random_batch,
                                   static_pagerank, to_device)
-    from repro_torch.kernels import (_build, csr_block_pull, fused_ell_update,
-                                     pr_update)
+    from repro_torch.kernels import (_build, csr_block_pull, ell_pull,
+                                     fused_ell_update, linf_delta, pr_update,
+                                     pull_sum_kernels)
     from repro_torch.kernels.csr_block import csr_block_pull_plain
     from repro_torch.kernels.ell_bucket_pull import fused_ell_update_plain
+    from repro_torch.kernels.ell_pull import ell_pull_plain
+    from repro_torch.kernels.linf_delta import linf_delta_plain
     from repro_torch.kernels.pr_update import pr_update_plain
     from repro_torch.kernels.stream_scatter import scatter_rows
+    from repro_torch.obs import trace_summary
     from repro_torch.sentinel import with_sink
     from repro_torch.stream import frontier_estimate
 
@@ -519,7 +562,8 @@ def main(argv=None) -> int:
     # -- 4. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(args.seed + 1)
     n = g.n
-    errs = {"fused_ell_update": 0.0, "csr_block_pull": 0.0, "pr_update": 0.0}
+    errs = dict.fromkeys(("fused_ell_update", "csr_block_pull", "pr_update",
+                          "ell_pull", "pull_sum_kernels", "linf_delta"), 0.0)
     k4 = check_kernels(dg, rng, errs)
     c, r_s, d_s, kw, hi_ops = k4.c, k4.r_s, k4.d_s, k4.kw, k4.hi_ops
     # a NaN rank wins every max: affected (pr_update) and unaffected
@@ -536,12 +580,43 @@ def main(argv=None) -> int:
         c, blk.idx, blk.mask, bad, at(d_s, blk.rows),
         torch.zeros_like(bad), **kw)[3]),
         "fused_ell_update dropped a NaN from its max")
+    # linf_delta exactly equal to its plain version: at length n on the
+    # ranks, at 1, n - 1 and a length off the block size; NaN from a and b
+    a = r_s[:n]
+    b = a * torch.from_numpy(1.0 + 1e-3 * rng.standard_normal(n)).to(dev)
+    lengths = sorted({n, 1, n - 1, (2 * n) // 3 + 1})
+    for k in lengths:
+        got, want = linf_delta(a[:k], b[:k]), linf_delta_plain(a[:k], b[:k])
+        require(got.dim() == 0 and got.is_cuda,
+                "linf_delta: not a 0-d tensor on the card")
+        e = abs(float(got) - float(want))
+        require(e == 0.0, f"linf_delta at length {k}: {float(got)} vs "
+                f"{float(want)}")
+        errs["linf_delta"] = max(errs["linf_delta"], e)
+    for which in ("a", "b"):
+        bad_a, bad_b = a.clone(), b.clone()
+        (bad_a if which == "a" else bad_b)[n // 2] = float("nan")
+        require(torch.isnan(linf_delta(bad_a, bad_b)),
+                f"linf_delta dropped a NaN in {which}")
+    # a NaN contribution reaches every ELL row whose table names it
+    blk = dg.buckets[0]
+    bad = c.clone()
+    bad[int(blk.idx[0, 0])] = float("nan")
+    got = ell_pull(bad, blk.idx, blk.mask)
+    require(bool(torch.isnan(got[0])) and torch.equal(
+        got.isnan(), ell_pull_plain(bad, blk.idx, blk.mask).isnan()),
+        "ell_pull dropped a NaN contribution")
+    del a, b, bad_a, bad_b, bad, got
     torch.cuda.synchronize()
     report["max_abs_err"] = errs
-    log(f"[kernels] all three agree with their plain versions: {errs}")
+    report["linf_delta_lengths"] = lengths
+    log(f"[kernels] all five agree with their plain versions (linf_delta "
+        f"at lengths {lengths}): {errs}")
 
     # -- 5. static PageRank ---------------------------------------------------
-    for w in (fused_ell_update, csr_block_pull, pr_update):
+    main_wrappers = (fused_ell_update, csr_block_pull, pr_update, ell_pull,
+                     linf_delta)
+    for w in main_wrappers:
         w.launches = 0
     params = PRParams()
     t0 = time.perf_counter()
@@ -562,9 +637,51 @@ def main(argv=None) -> int:
     require(int(hw_k) == 0 and int(hw_p) == 0, "static health word set")
     report["static"] = dict(iters=it_k, ms=t_static * 1e3, plain_iters=it_p,
                             plain_ms=t_static_plain * 1e3, l1_vs_plain=l1)
+    # the staged sweep: ell_pull + csr_block_pull, rank_step, linf_delta
+    t0 = time.perf_counter()
+    r_st, it_st, hw_st = static_pagerank(dg, init_ranks(n, device=dev),
+                                         params, health=True,
+                                         pull_sum_fn=pull_sum_kernels)
+    torch.cuda.synchronize()
+    t_staged = time.perf_counter() - t0
+    l1_st = l1_error(r_st, r_p)
+    log(f"[static] staged {it_st} iters {t_staged * 1e3:.1f} ms; L1 vs plain "
+        f"{l1_st:.3e}; health {int(hw_st)}")
+    require(l1_st <= TOL_SOLVE_L1, f"static staged vs plain L1 {l1_st}")
+    require(int(hw_st) == 0, "static staged health word set")
+    # the fused solve twice more, warm: untraced, then with its iteration
+    # trace (the first fused solve above paid the process's warm-up)
+    t0 = time.perf_counter()
+    r_w, it_w = static_pagerank(dg, init_ranks(n, device=dev), params)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_tr, it_tr, tb = static_pagerank(dg, init_ranks(n, device=dev), params,
+                                      trace=True)
+    torch.cuda.synchronize()
+    t_traced = time.perf_counter() - t0
+    summ = trace_summary(tb, it_tr)
+    log(f"[static] fused again {it_w} iters {t_warm * 1e3:.1f} ms; traced "
+        f"{it_tr} iters {t_traced * 1e3:.1f} ms; L-inf series "
+        f"{[f'{x:.2e}' for x in summ['linf_delta']]}")
+    require(torch.equal(r_w, r_k) and it_w == it_k,
+            "a second fused static solve differs from the first")
+    require(torch.equal(r_tr, r_k) and it_tr == it_k,
+            "the traced static solve differs from the untraced one")
+    require(summ["iters"] == it_tr and summ["engine"] == "static"
+            and summ["linf_final"] <= params.tau,
+            f"static trace summary {summ['iters']} iters, final L-inf "
+            f"{summ['linf_final']}")
+    report["static"].update(
+        staged_iters=it_st, staged_ms=t_staged * 1e3, l1_staged_vs_plain=l1_st,
+        warm_ms=t_warm * 1e3, traced_iters=it_tr, traced_ms=t_traced * 1e3,
+        trace_linf=summ["linf_delta"])
+    del r_w, r_tr, tb
 
     # -- 6. three chained DF-P batches ---------------------------------------
-    rk_dense, rk_caps, rp = r_k, r_k, r_p
+    # the three kernel chains, each from its own previous ranks
+    chains = {"dense": r_k, "caps": r_k, "staged": r_st}
+    rp = r_p
     g_cur = g
     report["dfp"] = []
     for k in range(1, args.batches + 1):
@@ -580,19 +697,16 @@ def main(argv=None) -> int:
         t_host = time.perf_counter() - t0
         row = dict(batch=k, size=b.size, host_s=t_host)
         for name, kwargs in (("dense", {}),
-                             ("caps", dict(fwd=fwd, frontier_caps=caps))):
-            r_in = rk_dense if name == "dense" else rk_caps
+                             ("caps", dict(fwd=fwd, frontier_caps=caps)),
+                             ("staged", dict(pull_sum_fn=pull_sum_kernels))):
             t0 = time.perf_counter()
-            r_out, it, hw = dfp_pagerank(dg_k, r_in, db, params, health=True,
-                                         **kwargs)
+            r_out, it, hw = dfp_pagerank(dg_k, chains[name], db, params,
+                                         health=True, **kwargs)
             torch.cuda.synchronize()
             row[name] = dict(iters=it, ms=(time.perf_counter() - t0) * 1e3,
                              health=int(hw))
             require(int(hw) == 0, f"DF-P {name} batch {k}: health {int(hw)}")
-            if name == "dense":
-                rk_dense = r_out
-            else:
-                rk_caps = r_out
+            chains[name] = r_out
         t0 = time.perf_counter()
         rp, it_pl, hw = dfp_pagerank(dg_k, rp, db, params, kernels=False,
                                      health=True)
@@ -600,25 +714,25 @@ def main(argv=None) -> int:
         row["plain"] = dict(iters=it_pl, ms=(time.perf_counter() - t0) * 1e3)
         r_scratch, it_s = static_pagerank(dg_k, init_ranks(n, device=dev),
                                           params)
-        row["l1_dense_vs_plain"] = l1_error(rk_dense, rp)
-        row["l1_caps_vs_plain"] = l1_error(rk_caps, rp)
-        row["l1_vs_static"] = l1_error(rk_dense, r_scratch)
-        row["caps_l1_vs_static"] = l1_error(rk_caps, r_scratch)
+        for name in chains:
+            row[f"l1_{name}_vs_plain"] = l1_error(chains[name], rp)
+        row["l1_vs_static"] = l1_error(chains["dense"], r_scratch)
+        row["caps_l1_vs_static"] = l1_error(chains["caps"], r_scratch)
         row["static_iters"] = it_s
         log(f"[dfp {k}] |batch|={b.size} host {t_host:.1f} s; dense "
             f"{row['dense']['iters']} iters {row['dense']['ms']:.1f} ms; caps "
-            f"{row['caps']['iters']} iters {row['caps']['ms']:.1f} ms; plain "
-            f"{it_pl} iters {row['plain']['ms']:.1f} ms; L1 vs plain "
-            f"{row['l1_dense_vs_plain']:.3e}/{row['l1_caps_vs_plain']:.3e}; "
-            f"L1 vs from-scratch static {row['l1_vs_static']:.3e}")
-        require(row["l1_dense_vs_plain"] <= TOL_SOLVE_L1,
-                f"DF-P dense batch {k}: kernel vs plain L1")
-        require(row["l1_caps_vs_plain"] <= TOL_SOLVE_L1,
-                f"DF-P caps batch {k}: kernel vs plain L1")
+            f"{row['caps']['iters']} iters {row['caps']['ms']:.1f} ms; staged "
+            f"{row['staged']['iters']} iters {row['staged']['ms']:.1f} ms; "
+            f"plain {it_pl} iters {row['plain']['ms']:.1f} ms; L1 vs plain "
+            f"{row['l1_dense_vs_plain']:.3e}/{row['l1_caps_vs_plain']:.3e}/"
+            f"{row['l1_staged_vs_plain']:.3e}; L1 vs from-scratch static "
+            f"{row['l1_vs_static']:.3e}")
+        for name in chains:
+            require(row[f"l1_{name}_vs_plain"] <= TOL_SOLVE_L1,
+                    f"DF-P {name} batch {k}: kernel vs plain L1")
         report["dfp"].append(row)
         del dg_k, fwd
-    launches = {w.__name__: w.launches
-                for w in (fused_ell_update, csr_block_pull, pr_update)}
+    launches = {w.__name__: w.launches for w in main_wrappers}
     log(f"[launches] main path: {launches}")
     for name, cnt in launches.items():
         require(cnt > 0, f"{name} never launched on the main path")
@@ -640,6 +754,7 @@ def main(argv=None) -> int:
         f"CPU L1 {l1_cpu:.3e}")
     require(l1_np <= TOL_SOLVE_L1 and l1_cpu <= TOL_SOLVE_L1,
             "small-graph reference check")
+    rk_dense = chains["dense"]
     require(bool(torch.isfinite(rk_dense).all()) and rk_dense.shape == (n,),
             "final ranks not finite")
 
@@ -672,6 +787,41 @@ def main(argv=None) -> int:
     lib_err = linf(torch.mv(a_hi, c), hi_sums)
     require(lib_err <= TOL_SWEEP, f"sparse library pull disagrees: {lib_err}")
 
+    # ell_pull over every bucket; its PyTorch call: a sparse CSR product
+    # with the low side, one row per bucket slot (buckets stacked)
+    def ellp_kernel():
+        for blk in dg.buckets:
+            ell_pull(c, blk.idx, blk.mask)
+
+    def ellp_plain():
+        for blk in dg.buckets:
+            ell_pull_plain(c, blk.idx, blk.mask)
+
+    lo_rows, lo_cols, lo_vals, off = [], [], [], 0
+    for blk in dg.buckets:
+        cap_b, w_b = blk.idx.shape
+        live = blk.mask.reshape(-1) > 0
+        lo_rows.append((torch.arange(cap_b, device=dev) + off)
+                       .repeat_interleave(w_b)[live])
+        lo_cols.append(blk.idx.reshape(-1)[live].long())
+        lo_vals.append(blk.mask.reshape(-1)[live].double())
+        off += cap_b
+    a_lo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(lo_rows), torch.cat(lo_cols)]),
+        torch.cat(lo_vals), (off, n)).coalesce().to_sparse_csr()
+    del lo_rows, lo_cols, lo_vals
+    lib_err = linf(torch.mv(a_lo, c), torch.cat(
+        [ell_pull_plain(c, blk.idx, blk.mask) for blk in dg.buckets]))
+    require(lib_err <= TOL_SWEEP, f"sparse library ELL pull disagrees: "
+            f"{lib_err}")
+    # linf_delta on [n]: the ranks of two solves; its PyTorch call
+    # torch.dist(a, b, inf)
+    la, lb = rk_dense, r_k
+    lib_err = abs(float(torch.dist(la, lb, float("inf")))
+                  - float(linf_delta(la, lb)))
+    require(lib_err <= TOL_SWEEP, f"torch.dist disagrees with linf_delta: "
+            f"{lib_err}")
+
     rows_all = sum(b.cap for b in lay.buckets)
     slots_all = sum(b.cap * b.width for b in lay.buckets)
     t_cap, tile = lay.hi_tiles.shape
@@ -695,13 +845,26 @@ def main(argv=None) -> int:
             plain_ms=cuda_ms(lambda: pr_update_plain(*hi_on, **kw),
                              args.repeats), library_ms=None,
             bound=bound(k_hi * 8 * 7, k_hi * 12)),
+        "ell_pull": dict(
+            ms=cuda_ms(ellp_kernel, args.repeats),
+            plain_ms=cuda_ms(ellp_plain, args.repeats),
+            library_ms=cuda_ms(lambda: torch.mv(a_lo, c), args.repeats),
+            bound=bound(n * 8 + slots_all * 8 + rows_all * 8,
+                        slots_all * 2)),
+        "linf_delta": dict(
+            ms=cuda_ms(lambda: linf_delta(la, lb), args.repeats),
+            plain_ms=cuda_ms(lambda: linf_delta_plain(la, lb), args.repeats),
+            library_ms=cuda_ms(lambda: torch.dist(la, lb, float("inf")),
+                               args.repeats),
+            bound=bound(n * 16 + 8, n * 2)),
     }
     for name, t in timings.items():
         log(f"[time] {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), library "
             f"{t['library_ms']}")
-    del (a_hi, bucket_ops, hi_on, hi_ops, hi_sums, hi_args, k4, dg, c, r_s,
-         d_s, a_on, all_on, r_k, r_p, rk_dense, rk_caps, rp, r_scratch)
+    del (a_hi, a_lo, la, lb, bucket_ops, hi_on, hi_ops, hi_sums, hi_args, k4,
+         dg, c, r_s, d_s, a_on, all_on, r_k, r_p, r_st, rk_dense, chains, rp,
+         r_scratch)
     torch.cuda.empty_cache()
 
     # -- 8. the streaming path ------------------------------------------------
@@ -717,8 +880,8 @@ def main(argv=None) -> int:
         f"ms, bound {sc['bound'][0]:.4f} ms ({sc['bound'][1]}), index_copy_ "
         f"{sc['library_ms']:.4f} ms")
     # launches on the main paths: static + DF-P (phases 5-6) and the stream
-    launches = {name: launches.get(name, 0) + stream["launches"][name]
-                for name in stream["launches"]}
+    launches = {name: launches.get(name, 0) + stream["launches"].get(name, 0)
+                for name in timings}
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",
@@ -726,7 +889,11 @@ def main(argv=None) -> int:
                "pr_update": ("src/repro_torch/csrc/pr_update.cu",
                              "src/repro/kernels/pr_update.py:72"),
                "scatter_rows": ("src/repro_torch/csrc/scatter_rows.cu",
-                                "src/repro/kernels/stream_scatter.py:57")}
+                                "src/repro/kernels/stream_scatter.py:57"),
+               "ell_pull": ("src/repro_torch/csrc/ell_pull.cu",
+                            "src/repro/kernels/ell_pull.py:47"),
+               "linf_delta": ("src/repro_torch/csrc/linf_delta.cu",
+                              "src/repro/kernels/linf_delta.py:34")}
     kernels = []
     for name, t in timings.items():
         kernels.append(dict(
@@ -735,6 +902,8 @@ def main(argv=None) -> int:
             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][0], bound_by=t["bound"][1],
             library_ms=t["library_ms"]))
+    require(len(kernels) == 6 and all(k["launches"] > 0 for k in kernels),
+            f"kernel launches on the main paths: {launches}")
     report["kernels"] = kernels
     report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[memory] peak allocated {report['peak_mem_bytes'] / 2**30:.3f} GiB")

@@ -25,13 +25,14 @@ from typing import Optional
 
 import torch
 
-from .dynamic import DeviceBatch, _loop, solve_health
+from .dynamic import DeviceBatch, _loop, _trace, solve_health
 from .frontier import (FrontierCaps, active_frontier, initial_affected,
                        plan_capacity, push_expand, update_ranks_active)
 from .graph import Graph, build_hybrid
 from .pagerank import (DeviceGraph, PRParams, as_device_graph, as_ranks,
                        resolve_device, staged_forward, to_device)
 from ..guard.health import rank_mass
+from ..obs.trace import trace_record
 
 __all__ = ["forward_device_graph", "dfp_pagerank_compact",
            "df_pagerank_compact"]
@@ -48,14 +49,15 @@ def forward_device_graph(g: Graph, d_p: int = 64, tile: int = 1024,
 
 def _compact_loop(dg: DeviceGraph, fwd: DeviceGraph, r0, dv0, params,
                   k: int, kt: int, kn: int, prune: bool,
-                  kernels: Optional[bool]):
+                  kernels: Optional[bool], tb=None):
     """The compacted Alg. 2 loop. Returns (r, dv, dn, delta, iters).
 
     An iteration whose lists overflow (a truncated bucket/hi/tile list, a
     push worklist over `kn`, or more than `k` active rows in total) commits
     nothing: the loop exits with the pre-iteration ranks, the expanded
     frontier and delta = +inf, the signal for the dense finish. As in the
-    JAX loop that iteration is counted."""
+    JAX loop that iteration is counted, and with `tb` it records
+    linf = inf — the visible marker of the dense handoff."""
     dt = r0.dtype
     caps = FrontierCaps(
         bucket=tuple(min(k, int(b.rows.shape[0])) for b in dg.buckets),
@@ -77,12 +79,18 @@ def _compact_loop(dg: DeviceGraph, fwd: DeviceGraph, r0, dv0, params,
     overflow = bool(ovf)
     iters = 0
     while iters < params.max_iter:
-        iters += 1
+        dv_in = dv     # the frontier entering this sweep (trace)
         if overflow:
             delta = torch.full_like(delta, float("inf"))
-            break
-        r, dv, dn, delta = update_ranks_active(dg, r, dv, af, **kw)
-        if iters >= params.max_iter:
+        else:
+            r, dv, dn, delta = update_ranks_active(dg, r, dv, af, **kw)
+        if tb is not None:
+            frontier = dv_in.sum()
+            trace_record(tb, iters, linf=delta, frontier=frontier,
+                         delta_n=dn.sum(),
+                         pruned=frontier - dv.sum() if prune else 0)
+        iters += 1
+        if overflow or iters >= params.max_iter:
             break
         # paper line 16: expand this sweep's δ_N, compact, then the one read
         marks, push_ovf = push_expand(fwd, dn, kn)
@@ -95,14 +103,17 @@ def _compact_loop(dg: DeviceGraph, fwd: DeviceGraph, r0, dv0, params,
     return r, dv, dn, delta, iters
 
 
-def _dense_finish(dg, r, dv, dn, params, prune, kernels, health):
+def _dense_finish(dg, r, dv, dn, params, prune, kernels, tb, i_off,
+                  health):
     return _loop(dg, r, dv, dn, params, expand=True, prune=prune,
-                 closed_form=prune, kernels=kernels, health=health)
+                 closed_form=prune, kernels=kernels, tb=tb, i_off=i_off,
+                 health=health)
 
 
 def _df_like_compact(dg, fwd, r_prev, batch: DeviceBatch, params: PRParams,
                      *, prune: bool, headroom: int = 16,
-                     kernels: Optional[bool] = None, health: bool = False):
+                     kernels: Optional[bool] = None, trace: bool = False,
+                     health: bool = False):
     n = dg.n
     dv, dn = initial_affected(n, batch.del_src, batch.del_dst, batch.ins_src)
     # initial marking via the compacted out-edge walk (paper Alg. 5), not a
@@ -112,18 +123,24 @@ def _df_like_compact(dg, fwd, r_prev, batch: DeviceBatch, params: PRParams,
     k = plan_capacity(int(dv.sum()) + 1, n, headroom=headroom)
     # no tile compaction: affected hubs need their full tile lists
     kt = dg.hi_tiles.shape[0]
-    r, dv, dn, delta, iters = _compact_loop(
-        dg, fwd, as_ranks(r_prev, dg.device), dv, params, k, kt, k, prune,
-        kernels)
+    r = as_ranks(r_prev, dg.device)
+    tb = _trace(params, r, "dfp_compact" if prune else "df_compact", trace)
+    r, dv, dn, delta, iters = _compact_loop(dg, fwd, r, dv, params, k, kt, k,
+                                            prune, kernels, tb)
     if float(delta) > params.tau and iters < params.max_iter:
         # the frontier outgrew the capacity: the dense engine finishes with
-        # the REMAINING budget, so its health word is the solve's
+        # the REMAINING budget, so its health word is the solve's, and
+        # appends to the trace at the offset where the compact phase stopped
         rest = params._replace(max_iter=params.max_iter - iters)
-        out = _dense_finish(dg, r, dv, dn, rest, prune, kernels, health)
+        out = _dense_finish(dg, r, dv, dn, rest, prune, kernels, tb, iters,
+                            health)
         return (out[0], iters + out[1]) + tuple(out[2:])
+    out = [r, iters]
+    if tb is not None:
+        out.append(tb)
     if health:
-        return r, iters, solve_health(delta, iters, rank_mass(r), params)
-    return r, iters
+        out.append(solve_health(delta, iters, rank_mass(r), params))
+    return tuple(out)
 
 
 def _stage_pair(dg, fwd):
@@ -142,20 +159,21 @@ def dfp_pagerank_compact(dg, fwd=None, r_prev=None,
                          batch: DeviceBatch = None,
                          params: PRParams = PRParams(),
                          kernels: Optional[bool] = None,
-                         health: bool = False):
+                         health: bool = False, trace: bool = False):
     """Compacted DF-P (pruning, closed form Eq. 2). Returns (r, iters)
-    [, health word]. `kernels` picks the sweep as in `core.dynamic`."""
+    [, obs.trace.TraceBuffer][, health word]. `kernels` picks the sweep as
+    in `core.dynamic`."""
     dg, fwd = _stage_pair(dg, fwd)
     return _df_like_compact(dg, fwd, r_prev, batch, params, prune=True,
-                            kernels=kernels, health=health)
+                            kernels=kernels, trace=trace, health=health)
 
 
 def df_pagerank_compact(dg, fwd=None, r_prev=None,
                         batch: DeviceBatch = None,
                         params: PRParams = PRParams(),
                         kernels: Optional[bool] = None,
-                        health: bool = False):
+                        health: bool = False, trace: bool = False):
     """Compacted DF (no pruning, Eq. 1). See `dfp_pagerank_compact`."""
     dg, fwd = _stage_pair(dg, fwd)
     return _df_like_compact(dg, fwd, r_prev, batch, params, prune=False,
-                            kernels=kernels, health=health)
+                            kernels=kernels, trace=trace, health=health)

@@ -22,6 +22,7 @@ from .frontier import (FS_ACTIVE_ROWS, FS_ACTIVE_TILES, FS_COMPACT,
 from .pagerank import (DeviceGraph, PRParams, as_device_graph, as_ranks,
                        resolve_device, staged_forward, update_ranks)
 from ..guard.health import MASS_TOL, health_word, rank_mass
+from ..obs.trace import trace_init, trace_record
 
 __all__ = ["DeviceBatch", "batch_to_device", "solve_health", "nd_pagerank",
            "dt_pagerank", "df_pagerank", "dfp_pagerank"]
@@ -63,9 +64,9 @@ def solve_health(delta: torch.Tensor, iters, mass: torch.Tensor,
 
 def _loop(dg: DeviceGraph, r0: torch.Tensor, dv0: torch.Tensor,
           dn0: torch.Tensor, params: PRParams, *, expand: bool, prune: bool,
-          closed_form: bool, kernels: Optional[bool] = None, fwd=None,
-          caps=None, fs0=None, health: bool = False,
-          mass_tol: float = MASS_TOL):
+          closed_form: bool, kernels: Optional[bool] = None,
+          pull_sum_fn=None, tb=None, i_off: int = 0, fwd=None, caps=None,
+          fs0=None, health: bool = False, mass_tol: float = MASS_TOL):
     """Shared Alg. 2 loop. When `expand` is False the affected set is frozen
     (ND/DT); δ_N is then never produced (track_frontier=False).
 
@@ -75,7 +76,16 @@ def _loop(dg: DeviceGraph, r0: torch.Tensor, dv0: torch.Tensor,
     iteration run the dense sweep instead — an overflowed list is never
     used. With `fwd` (the forward hybrid layout) expansion goes push-style
     through the compacted δ_N worklist, falling back to the dense pull
-    when the worklist overflows.
+    when the worklist overflows. `pull_sum_fn` makes every dense sweep the
+    staged one (`update_ranks`); with `caps` that is the iterations whose
+    lists overflow, as in the JAX loop.
+
+    `tb` (obs.trace.TraceBuffer) switches on iteration telemetry: per
+    sweep the L∞, the frontier δ_V that entered it (after expansion), the
+    δ_N count and the vertices pruned, recorded at `i_off + i` — the
+    offset lets the compact engine's dense finish append to the buffer its
+    compact phase started. The counts stay on the device; the rank math
+    never reads the trace.
 
     One host read per iteration: with `caps` the next iteration's
     expansion and compaction are computed right after the sweep, and
@@ -84,8 +94,8 @@ def _loop(dg: DeviceGraph, r0: torch.Tensor, dv0: torch.Tensor,
     overflows costs a second read, for the list rebuilt after the dense
     expansion.
 
-    Returns (r, iters)[, health word][, fstats] — fstats (the frontier.*
-    accumulator) only with `caps`, always last.
+    Returns (r, iters)[, tb][, health word][, fstats] — fstats (the
+    frontier.* accumulator) only with `caps`, always last.
     """
     kw = dict(alpha=params.alpha, tau_f=params.tau_f, tau_p=params.tau_p,
               prune=prune, closed_form=closed_form, track_frontier=expand,
@@ -106,6 +116,7 @@ def _loop(dg: DeviceGraph, r0: torch.Tensor, dv0: torch.Tensor,
     overflow = bool(af.overflow) if caps is not None else False
     iters = 0
     while iters < params.max_iter:
+        dv_in = dv     # the frontier entering this sweep (trace)
         if caps is not None and not overflow:
             r, dv, dn, delta = update_ranks_active(dg, r, dv, af, **kw)
             host_fs[FS_COMPACT] += 1
@@ -113,8 +124,14 @@ def _loop(dg: DeviceGraph, r0: torch.Tensor, dv0: torch.Tensor,
             fs[FS_ACTIVE_TILES] += af.n_tiles
             fs[FS_NB:] += af.bucket_counts
         else:
-            r, dv, dn, delta = update_ranks(dg, r, dv, **kw)
+            r, dv, dn, delta = update_ranks(dg, r, dv,
+                                            pull_sum_fn=pull_sum_fn, **kw)
             host_fs[FS_OVERFLOW] += 1
+        if tb is not None:
+            frontier = dv_in.sum()
+            trace_record(tb, i_off + iters, linf=delta, frontier=frontier,
+                         delta_n=dn.sum() if expand else 0,
+                         pruned=frontier - dv.sum() if prune else 0)
         iters += 1
         host_fs[FS_ITERS] += 1
         if iters >= params.max_iter:
@@ -154,6 +171,8 @@ def _loop(dg: DeviceGraph, r0: torch.Tensor, dv0: torch.Tensor,
         dv = dv_next
 
     out = [r, iters]
+    if tb is not None:
+        out.append(tb)
     if health:
         out.append(solve_health(delta, iters, rank_mass(r), params,
                                 mass_tol))
@@ -164,40 +183,56 @@ def _loop(dg: DeviceGraph, r0: torch.Tensor, dv0: torch.Tensor,
     return tuple(out)
 
 
+def _trace(params: PRParams, r: torch.Tensor, engine: str, trace: bool):
+    """A fresh TraceBuffer for `engine` on r's device, or None."""
+    return trace_init(params.max_iter, r.dtype, engine, r.device) \
+        if trace else None
+
+
 def nd_pagerank(dg, r_prev, params: PRParams = PRParams(),
-                kernels: Optional[bool] = None, health: bool = False):
+                kernels: Optional[bool] = None, health: bool = False,
+                pull_sum_fn=None, trace: bool = False):
     """Naive-dynamic: previous ranks as the initial guess, all vertices on.
 
     Every driver accepts a DeviceGraph (or a layout / Graph to stage, or a
     snapshot exposing `.dg`, e.g. `repro_torch.stream.DeviceSnapshot`), ranks
     as a tensor or numpy array, and `kernels` to pick the sweep (default:
-    the CUDA kernels on a CUDA graph, the plain path on a CPU one).
-    ``health=True`` appends the solve's guard.health word (0-d int32).
+    the CUDA kernels on a CUDA graph, the plain path on a CPU one);
+    `pull_sum_fn` (e.g. `kernels.ops.pull_sum_kernels`) makes it the
+    staged sweep (`core.pagerank.update_ranks`). ``trace=True`` appends
+    an `obs.trace.TraceBuffer` (identical ranks and iterations to the
+    untraced call); ``health=True`` appends the solve's guard.health word
+    (0-d int32) after it.
     """
     dg = as_device_graph(dg)
+    r = as_ranks(r_prev, dg.device)
     on = torch.ones(dg.n, dtype=torch.bool, device=dg.device)
-    return _loop(dg, as_ranks(r_prev, dg.device), on, torch.zeros_like(on),
-                 params, expand=False, prune=False, closed_form=False,
-                 kernels=kernels, health=health)
+    return _loop(dg, r, on, torch.zeros_like(on), params, expand=False,
+                 prune=False, closed_form=False, kernels=kernels,
+                 pull_sum_fn=pull_sum_fn, tb=_trace(params, r, "nd", trace),
+                 health=health)
 
 
 def dt_pagerank(dg, dg_prev, r_prev, batch: DeviceBatch,
                 params: PRParams = PRParams(),
-                kernels: Optional[bool] = None, health: bool = False):
+                kernels: Optional[bool] = None, health: bool = False,
+                pull_sum_fn=None, trace: bool = False):
     """Dynamic Traversal (Desikan et al.): mark everything reachable from the
     updated vertices in G^{t-1} ∪ G^t, then iterate on that frozen set."""
     dg, dg_prev = as_device_graph(dg), as_device_graph(dg_prev)
+    r = as_ranks(r_prev, dg.device)
     seeds = _mark(dg.n, batch.del_src, batch.del_dst, batch.ins_src,
                   batch.ins_dst)
     affected = reach_affected(dg, seeds) | reach_affected(dg_prev, seeds)
-    return _loop(dg, as_ranks(r_prev, dg.device), affected,
-                 torch.zeros_like(seeds), params, expand=False, prune=False,
-                 closed_form=False, kernels=kernels, health=health)
+    return _loop(dg, r, affected, torch.zeros_like(seeds), params,
+                 expand=False, prune=False, closed_form=False,
+                 kernels=kernels, pull_sum_fn=pull_sum_fn,
+                 tb=_trace(params, r, "dt", trace), health=health)
 
 
 def _df_like(dg: DeviceGraph, r_prev, batch: DeviceBatch, params: PRParams,
-             *, prune: bool, kernels=None, fwd=None, caps=None,
-             health: bool = False):
+             *, prune: bool, kernels=None, pull_sum_fn=None,
+             trace: bool = False, fwd=None, caps=None, health: bool = False):
     n = dg.n
     dv, dn = initial_affected(n, batch.del_src, batch.del_dst, batch.ins_src)
     fs0 = None
@@ -211,9 +246,12 @@ def _df_like(dg: DeviceGraph, r_prev, batch: DeviceBatch, params: PRParams,
         fs0[FS_PULL] += est[2]
     else:
         dv = expand_affected(dg, dv, dn)  # paper line 9: initial expansion
-    return _loop(dg, as_ranks(r_prev, dg.device), dv, torch.zeros_like(dn),
-                 params, expand=True, prune=prune, closed_form=prune,
-                 kernels=kernels, fwd=fwd, caps=caps, fs0=fs0, health=health)
+    r = as_ranks(r_prev, dg.device)
+    tb = _trace(params, r, "dfp" if prune else "df", trace)
+    return _loop(dg, r, dv, torch.zeros_like(dn), params, expand=True,
+                 prune=prune, closed_form=prune, kernels=kernels,
+                 pull_sum_fn=pull_sum_fn, tb=tb, fwd=fwd, caps=caps, fs0=fs0,
+                 health=health)
 
 
 def _resolve_frontier(dg, fwd, frontier_caps):
@@ -229,7 +267,7 @@ def _resolve_frontier(dg, fwd, frontier_caps):
 
 def _publish(out, caps):
     """Pop the fstats vector off a compacted driver's output, publish it,
-    and return the (r, iters[, health]) shape."""
+    and return the (r, iters[, tb][, health]) shape."""
     if caps is None:
         return out
     *rest, fs = out
@@ -240,26 +278,30 @@ def _publish(out, caps):
 def df_pagerank(dg, r_prev, batch: DeviceBatch,
                 params: PRParams = PRParams(),
                 kernels: Optional[bool] = None, fwd=None, frontier_caps=None,
-                health: bool = False):
+                health: bool = False, pull_sum_fn=None, trace: bool = False):
     """Dynamic Frontier: incremental expansion, no pruning (Eq. 1 update).
 
     `frontier_caps` (core.frontier.FrontierCaps / caps_for) switches on the
     compacted path — active gather lists + push expansion through `fwd`,
-    full sweep only on capacity overflow; the same results either way."""
+    full sweep only on capacity overflow; the same results either way.
+    `pull_sum_fn`, `trace` and `health` as in `nd_pagerank`."""
     fwdd, caps = _resolve_frontier(dg, fwd, frontier_caps)
     out = _df_like(as_device_graph(dg), r_prev, batch, params, prune=False,
-                   kernels=kernels, fwd=fwdd, caps=caps, health=health)
+                   kernels=kernels, pull_sum_fn=pull_sum_fn, trace=trace,
+                   fwd=fwdd, caps=caps, health=health)
     return _publish(out, caps)
 
 
 def dfp_pagerank(dg, r_prev, batch: DeviceBatch,
                  params: PRParams = PRParams(),
                  kernels: Optional[bool] = None, fwd=None,
-                 frontier_caps=None, health: bool = False):
+                 frontier_caps=None, health: bool = False,
+                 pull_sum_fn=None, trace: bool = False):
     """Dynamic Frontier with Pruning: expansion + pruning, closed form Eq. 2.
 
     See `df_pagerank` for the `frontier_caps` compacted path."""
     fwdd, caps = _resolve_frontier(dg, fwd, frontier_caps)
     out = _df_like(as_device_graph(dg), r_prev, batch, params, prune=True,
-                   kernels=kernels, fwd=fwdd, caps=caps, health=health)
+                   kernels=kernels, pull_sum_fn=pull_sum_fn, trace=trace,
+                   fwd=fwdd, caps=caps, health=health)
     return _publish(out, caps)

@@ -2,10 +2,13 @@
 
 The device graph is the hybrid ELL + tiled-CSR layout of the *transpose*
 graph (see core/graph.py). One sweep is `update_ranks`: on CUDA tensors it
-runs the hand-written kernels (`kernels.ops.update_ranks_kernel`), on CPU
-tensors the plain PyTorch pull below plus `core.rank_step`. The solve loop
-is a Python loop with one device→host read per iteration (the L∞ delta
-against τ), as the paper's host loop does.
+runs the hand-written fused kernels (`kernels.ops.update_ranks_kernel`), on
+CPU tensors the plain PyTorch pull below plus `core.rank_step`. With
+``pull_sum_fn=`` (e.g. `kernels.ops.pull_sum_kernels`) it is the paper's
+staged sweep instead: that pull, the rank update of `core.rank_step`, and
+on CUDA the `linf_delta` kernel for the L∞. The solve loop is a Python
+loop with one device→host read per iteration (the L∞ delta against τ), as
+the paper's host loop does.
 
 `update_ranks` is shared verbatim between Static / ND / DT / DF / DF-P (the
 paper re-uses `updateRanks()` the same way, toggling the affected flags).
@@ -20,6 +23,7 @@ import torch
 from .graph import Graph, build_hybrid
 from .rank_step import rank_step
 from ..guard.health import rank_mass
+from ..obs.trace import trace_init, trace_record
 
 __all__ = [
     "EllBlock", "DeviceGraph", "PRParams", "resolve_device", "to_device",
@@ -227,21 +231,32 @@ def pull_max(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
 def update_ranks(dg: DeviceGraph, r: torch.Tensor, affected: torch.Tensor,
                  *, alpha: float, tau_f: float, tau_p: float,
                  prune: bool, closed_form: bool, track_frontier: bool,
-                 kernels: Optional[bool] = None):
+                 kernels: Optional[bool] = None, pull_sum_fn=None):
     """One synchronous rank sweep.
 
     Returns (r_new, affected', delta_N, linf_delta). With `affected`
     all-True, `prune=False`, `closed_form=False`, `track_frontier=False`
     this *is* the static kernel. `kernels` picks the sweep (`use_kernels`):
-    the CUDA kernels, or the plain pull bound to `core.rank_step`.
+    the fused CUDA kernels, or the plain pull bound to `core.rank_step`.
+
+    `pull_sum_fn(dg, c)` (`pull_sum`, `kernels.ops.pull_sum_kernels`)
+    makes it the staged sweep: that pull, then `core.rank_step`, with the
+    L∞ from the `linf_delta` kernel when `kernels` picks the kernels and
+    from ``torch.max`` otherwise. The pull is the caller's choice either
+    way.
     """
     kw = dict(alpha=alpha, tau_f=tau_f, tau_p=tau_p, prune=prune,
               closed_form=closed_form, track_frontier=track_frontier)
-    if use_kernels(r, kernels):
+    on_kernels = use_kernels(r, kernels)
+    if on_kernels and pull_sum_fn is None:
         from ..kernels.ops import update_ranks_kernel
         return update_ranks_kernel(dg, r, affected, **kw)
-    s = pull_sum(dg, r / dg.out_deg.to(r.dtype))
-    return rank_step(s, r, affected, dg.out_deg, n_norm=dg.n, **kw)
+    linf_fn = None
+    if on_kernels:
+        from ..kernels.linf_delta import linf_delta as linf_fn
+    s = (pull_sum_fn or pull_sum)(dg, r / dg.out_deg.to(r.dtype))
+    return rank_step(s, r, affected, dg.out_deg, n_norm=dg.n,
+                     linf_fn=linf_fn, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -249,25 +264,38 @@ def update_ranks(dg: DeviceGraph, r: torch.Tensor, affected: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def static_pagerank(dg, r0, params: PRParams = PRParams(),
-                    kernels: Optional[bool] = None, health: bool = False):
+                    kernels: Optional[bool] = None, health: bool = False,
+                    pull_sum_fn=None, trace: bool = False):
     """Power iteration to L∞ tolerance. Returns (ranks, n_iters); with
-    ``health=True`` the solve's guard.health word (0-d int32 tensor) is
-    appended. `r0` may be a numpy array or a tensor; it is moved to the
-    graph's device. `dg` may be a DeviceGraph, a layout or a Graph."""
+    ``trace=True`` an `obs.trace.TraceBuffer` of the per-iteration L∞ is
+    appended (identical ranks either way, no host read per iteration);
+    with ``health=True`` the solve's guard.health word (0-d int32 tensor)
+    comes last. `r0` may be a numpy array or a tensor; it is moved to the
+    graph's device. `dg` may be a DeviceGraph, a layout or a Graph.
+    `kernels` and `pull_sum_fn` pick the sweep (`update_ranks`)."""
     dg = as_device_graph(dg)
     r = as_ranks(r0, dg.device)
-    all_on = torch.ones(dg.n, dtype=torch.bool, device=dg.device)
+    n = dg.n
+    all_on = torch.ones(n, dtype=torch.bool, device=dg.device)
     delta = torch.full((), float("inf"), dtype=r.dtype, device=dg.device)
+    tb = trace_init(params.max_iter, r.dtype, "static", dg.device) \
+        if trace else None
     iters = 0
     while iters < params.max_iter:
         r, _, _, delta = update_ranks(
             dg, r, all_on, alpha=params.alpha, tau_f=params.tau_f,
             tau_p=params.tau_p, prune=False, closed_form=False,
-            track_frontier=False, kernels=kernels)
+            track_frontier=False, kernels=kernels, pull_sum_fn=pull_sum_fn)
+        if tb is not None:
+            trace_record(tb, iters, linf=delta, frontier=n, delta_n=0,
+                         pruned=0)
         iters += 1
         if not delta.item() > params.tau:     # the one host read
             break
-    if not health:
-        return r, iters
-    from .dynamic import solve_health
-    return r, iters, solve_health(delta, iters, rank_mass(r), params)
+    out = [r, iters]
+    if tb is not None:
+        out.append(tb)
+    if health:
+        from .dynamic import solve_health
+        out.append(solve_health(delta, iters, rank_mass(r), params))
+    return tuple(out)

@@ -17,7 +17,7 @@ The math itself, per vertex v with pulled contribution s = Σ R[u]/|out(u)|:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -56,14 +56,18 @@ def relative_change(r_new: torch.Tensor, r_old: torch.Tensor
 def rank_step(s: torch.Tensor, r: torch.Tensor, affected: torch.Tensor,
               out_deg: torch.Tensor, *, alpha: float, n_norm: int,
               tau_f: float, tau_p: float, prune: bool, closed_form: bool,
-              track_frontier: bool
+              track_frontier: bool,
+              linf_fn: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                         torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                          torch.Tensor]:
     """One dense-shaped synchronous rank sweep given the pulled sums `s`.
 
     Returns (r_new, affected', delta_N, linf_delta); the last is a 0-d
     tensor on r's device (NaN if any |Δr| is NaN: `torch.max` propagates
-    it, which the health word relies on).
+    it, which the health word relies on). `linf_fn(r_new, r)`, when
+    given, computes that L∞ instead of ``torch.max(|Δr|)`` — the staged
+    sweep passes the `linf_delta` kernel, which gives the same value.
     """
     d = out_deg.to(r.dtype)
     rv = rank_value(s, r, d, alpha=alpha, c0=teleport(alpha, n_norm),
@@ -76,4 +80,5 @@ def rank_step(s: torch.Tensor, r: torch.Tensor, affected: torch.Tensor,
         delta_n = rel > tau_f
     else:
         delta_n = torch.zeros_like(affected)
-    return r_new, affected, delta_n, torch.max(dr)
+    linf = torch.max(dr) if linf_fn is None else linf_fn(r_new, r)
+    return r_new, affected, delta_n, linf

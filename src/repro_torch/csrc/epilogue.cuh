@@ -1,6 +1,6 @@
-// Shared device code of the rank-sweep kernels (fused_ell_update.cu and
-// pr_update.cu): the one Alg. 3 epilogue both kernels run, and the
-// NaN-propagating max reductions behind every L-inf partial.
+// Shared device code of the rank-sweep kernels (fused_ell_update.cu,
+// pr_update.cu and linf_delta.cu): the one Alg. 3 epilogue the first two
+// run, and the NaN-propagating max reductions behind every L-inf partial.
 //
 // The epilogue is the CUDA spelling of core/rank_step.py: Eq. 1, or the
 // closed form Eq. 2 that absorbs the guaranteed self-loop, then

@@ -11,11 +11,11 @@
 // below the FP64 rate.
 //
 // Design:
-//   * LANES threads per row. LANES = 1 (thread per row, the paper's
+//   * LANES threads per row, with the gather body it shares with ell_pull
+//     (ell_gather.cuh): LANES = 1 (thread per row, the paper's
 //     thread-per-vertex kernel) for the narrowest buckets; otherwise a
-//     sub-warp of min(w_b, 32) lanes that read neighbouring slots of one
-//     row, so the index and mask loads coalesce, and sum with
-//     __shfl_xor_sync.
+//     sub-warp of up to 32 lanes that read neighbouring slots of one row,
+//     so the index and mask loads coalesce, and sum with __shfl_xor_sync.
 //   * Each row reads its affected flag first. An unaffected row skips its
 //     gather and writes r, 0, 0 with |dr| = |r - r| (0, or NaN for a NaN
 //     rank) — the same bits the TPU kernel's where(aff, rv, r) gives, and
@@ -26,14 +26,13 @@
 //   * The L-inf |dr| is reduced per block into partials, then a second
 //     one-block pass folds them; NaN wins. No atomics anywhere.
 //   * Launches on the caller's stream; allocates nothing.
+#include "ell_gather.cuh"
 #include "epilogue.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
-
 template <int LANES>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kEllBlock)
     fused_ell_kernel(const double* __restrict__ c, const int* __restrict__ idx,
                      const float* __restrict__ mask,
                      const double* __restrict__ r,
@@ -42,10 +41,8 @@ __global__ void __launch_bounds__(kBlock)
                      double* __restrict__ r_new, double* __restrict__ aff_new,
                      double* __restrict__ dn, double* __restrict__ partials,
                      int rows, int width, EpiParams p) {
-  constexpr int kRowsPerBlock = kBlock / LANES;
-  const int lane = threadIdx.x % LANES;
-  const long long row =
-      (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / LANES;
+  int lane;
+  const long long row = ell_row<LANES>(&lane);
   const bool valid = row < rows;
 
   double rr = 1.0, d = 1.0, a = 0.0, s = 0.0;
@@ -53,19 +50,11 @@ __global__ void __launch_bounds__(kBlock)
     a = aff[row];
     rr = r[row];
     d = deg[row];
-    if (a > 0.0) {
-      const int* ip = idx + row * width;
-      const float* mp = mask + row * width;
-      for (int j = lane; j < width; j += LANES)
-        s += c[ip[j]] * (double)mp[j];
-    }
+    if (a > 0.0)
+      s = ell_row_partial<LANES>(c, idx + row * width, mask + row * width,
+                                 width, lane);
   }
-  // every thread of the warp takes part in the shuffles
-  if (LANES > 1) {
-#pragma unroll
-    for (int off = LANES / 2; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off, LANES);
-  }
+  s = ell_lanes_sum<LANES>(s);
   double dr = 0.0;
   if (valid) {
     const EpiOut o = pr_epilogue(s, rr, d, a, p);
@@ -76,18 +65,8 @@ __global__ void __launch_bounds__(kBlock)
     }
     dr = o.dr;
   }
-  dr = block_max<kBlock>(dr);
+  dr = block_max<kEllBlock>(dr);
   if (threadIdx.x == 0) partials[blockIdx.x] = dr;
-}
-
-template <int LANES>
-void launch(int grid, cudaStream_t st, const double* c, const int* idx,
-            const float* mask, const double* r, const double* deg,
-            const double* aff, double* r_new, double* aff_new, double* dn,
-            double* partials, int rows, int width, const EpiParams& p) {
-  fused_ell_kernel<LANES><<<grid, kBlock, 0, st>>>(
-      c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width,
-      p);
 }
 
 }  // namespace
@@ -96,8 +75,7 @@ extern "C" {
 
 // Number of blocks (and of max partials) for `rows` rows at `lanes` lanes.
 int fused_ell_update_grid(int rows, int lanes) {
-  const int per = kBlock / lanes;
-  return (rows + per - 1) / per;
+  return ell_grid(rows, lanes);
 }
 
 // partials must hold fused_ell_update_grid(rows, lanes) + 1 doubles; the
@@ -109,18 +87,15 @@ int fused_ell_update(const double* c, const int* idx, const float* mask,
                      double alpha, double c0, double tau_f, double tau_p,
                      int prune, int closed_form, void* stream) {
   const EpiParams p{alpha, c0, tau_f, tau_p, prune, closed_form};
-  const int grid = fused_ell_update_grid(rows, lanes);
+  const int grid = ell_grid(rows, lanes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (lanes) {
-    case 1: launch<1>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
-    case 2: launch<2>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
-    case 4: launch<4>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
-    case 8: launch<8>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
-    case 16: launch<16>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
-    case 32: launch<32>(grid, st, c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width, p); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = with_lanes(lanes, [&](auto L) {
+    fused_ell_kernel<decltype(L)::value><<<grid, kEllBlock, 0, st>>>(
+        c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width,
+        p);
+  });
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   max_partials_kernel<kFinalBlock><<<1, kFinalBlock, 0, st>>>(
       partials, grid, partials + grid);

@@ -2,7 +2,7 @@
 
 Each source `csrc/<name>.cu` is compiled by its own `nvcc` for `sm_90a`
 into `build/repro_torch_kernels/lib<name>-<digest>.so` at the repository
-root, on first use; the digest covers the sources, the shared header and
+root, on first use; the digest covers the source, every shared header and
 the flags, so an edited source is rebuilt and a stale library is never
 loaded. `build()` starts one `nvcc` per source, all at once. The libraries
 have a plain C interface (no PyTorch headers, so a build takes seconds):
@@ -29,7 +29,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check", "stream_ptr",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("fused_ell_update", "csr_block_pull", "pr_update", "scatter_rows")
+SOURCES = ("fused_ell_update", "csr_block_pull", "pr_update", "scatter_rows",
+           "ell_pull", "linf_delta")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 

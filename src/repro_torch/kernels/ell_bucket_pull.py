@@ -1,12 +1,17 @@
-"""``fused_ell_update``: one degree bucket of the ELL low side, pull and
+"""The degree-bucketed ELL low side: the pull-only ``ell_bucket_pull`` of
+the staged sweep, and ``fused_ell_update``, one bucket's pull and
 ``updateRanks`` epilogue in one pass.
 
-One kernel instance gathers a bucket's in-edge contributions AND applies
-the Alg. 3 epilogue (Eq. 1 / Eq. 2, DF-P pruning, δ_N, L∞ partials) before
-writing, so each rank is written once per sweep and no `contrib [n]`
-vector makes a round trip through device memory.
+``ell_bucket_pull`` runs the `ell_pull` kernel once per bucket at that
+bucket's width and adds the per-slot sums into the result through the
+bucket's row map (sentinel ids land in a sink row that is sliced off,
+where the JAX package drops them).
 
-On a CUDA tensor the wrapper launches the kernel in
+For ``fused_ell_update`` one kernel instance gathers a bucket's in-edge
+contributions AND applies the Alg. 3 epilogue (Eq. 1 / Eq. 2, DF-P
+pruning, δ_N, L∞ partials) before writing, so each rank is written once
+per sweep and no `contrib [n]` vector makes a round trip through device
+memory. On a CUDA tensor the wrapper launches the kernel in
 `csrc/fused_ell_update.cu`; on a CPU tensor it runs the plain version
 (`kernels.ref.ell_pull_ref` then `kernels.ref.pr_update_ref`).
 
@@ -14,35 +19,38 @@ Padding discipline: lanes past a bucket's live slots carry r = 1, deg = 1,
 aff = 0, mask = 0 — contrib 0, rank unchanged, |Δr| = 0 — so they are
 inert in every output, and the caller's sentinel row ids drop their
 writes.
-
-`ell_bucket_pull` (the pull-only form over all buckets) reaches the
-`ell_pull` kernel and comes with its port.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .ell_pull import ell_pull, lanes_for
 from .ref import ell_pull_ref, pr_update_ref
 from ..sentinel import take_fill
 
-__all__ = ["fused_ell_update", "fused_ell_update_plain", "lanes_for"]
+__all__ = ["ell_bucket_pull", "bucket_sums", "fused_ell_update",
+           "fused_ell_update_plain", "lanes_for"]
 
 _SIG = {"fused_ell_update_grid": [_build.I, _build.I],
         "fused_ell_update": [_build.P] * 10 + [_build.I] * 3
         + [_build.D] * 4 + [_build.I, _build.I, _build.P]}
 
 
-def lanes_for(width: int) -> int:
-    """Threads per row: one for the narrowest buckets (the paper's
-    thread-per-vertex kernel), else a sub-warp of the largest power of two
-    up to min(width, 32), which divides the warp."""
-    if width <= 2:
-        return 1
-    lanes = 1
-    while lanes * 2 <= min(width, 32):
-        lanes *= 2
-    return lanes
+def bucket_sums(c: torch.Tensor, buckets) -> torch.Tensor:
+    """`ell_bucket_pull` with its sink row: shape [n + 1], row n holding
+    whatever the sentinel ids added."""
+    out = c.new_zeros(c.shape[0] + 1)
+    for blk in buckets:
+        out.index_add_(0, blk.rows, ell_pull(c, blk.idx, blk.mask))
+    return out
+
+
+def ell_bucket_pull(c: torch.Tensor, buckets) -> torch.Tensor:
+    """out[blk.rows[s]] = sum_j c[blk.idx[s, j]] * blk.mask[s, j] over
+    every bucket, shape [n]; rows in no bucket stay 0. Each vertex lives
+    in at most one bucket slot, so no two sums meet."""
+    return bucket_sums(c, buckets)[:c.shape[0]]
 
 
 def fused_ell_update_plain(c, idx, mask, r_rows, deg_rows, aff_rows, *,

@@ -1,6 +1,7 @@
-"""The kernel-backed Alg. 3 sweep: `update_ranks_kernel`.
+"""The kernel-backed sweeps: `update_ranks_kernel` (fused) and
+`pull_sum_kernels` (the pull of the staged sweep).
 
-Per degree bucket, one `fused_ell_update` gathers the in-edge
+`update_ranks_kernel`: per degree bucket, one `fused_ell_update` gathers the in-edge
 contributions and applies the rank/prune/frontier epilogue before writing;
 the high side pulls per-slot sums through `csr_block_pull` and runs the
 same epilogue over the slot table with `pr_update`. This is the default
@@ -11,19 +12,38 @@ through the row-id maps are plain tensor ops, as in the JAX package; ids
 equal to the sentinel `n` read the pad values (r=1, deg=1, aff=0) and
 write into a sink row that is sliced off.
 
-`pull_sum_kernels` (the pull-only static form) reaches the `ell_pull`
-kernel and comes with its port.
+`pull_sum_kernels(dg, c)` is a drop-in `pull_sum_fn` for the engines of
+`core.pagerank` and `core.dynamic`: `ell_pull` per bucket
+(`ell_bucket_pull`) on the low side, `csr_block_pull` on the high side.
+The engines then run the rank update in `core.rank_step` and take the L∞
+delta from the `linf_delta` kernel — the paper's staged sweep, with the
+`contrib [n]` round trip through device memory that the fused sweep
+avoids.
 """
 from __future__ import annotations
 
 import torch
 
 from .csr_block import csr_block_pull
-from .ell_bucket_pull import fused_ell_update
+from .ell_bucket_pull import bucket_sums, fused_ell_update
 from .pr_update import pr_update
 from ..sentinel import take_fill, with_sink
 
-__all__ = ["update_ranks_kernel"]
+__all__ = ["update_ranks_kernel", "pull_sum_kernels"]
+
+
+def pull_sum_kernels(dg, c: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed pull over the hybrid layout (cf.
+    `core.pagerank.pull_sum`): sum_{u in G'.row(v)} c[u] for every v.
+
+    `dg` is a DeviceGraph, a snapshot's `.dg` included (its slot->tile
+    table is kept fresh by the snapshot). Sentinel ids land in the sink
+    row of `bucket_sums`, sliced off at the end."""
+    n = c.shape[0]
+    out = bucket_sums(c, dg.buckets)
+    hi = csr_block_pull(c, dg.hi_tiles, dg.hi_tmask, dg.hi_rowmap,
+                        dg.n_hi_cap, slots=(dg.hi_slot_tiles, dg.hi_slot_off))
+    return out.index_add_(0, dg.hi_ids, hi)[:n]
 
 
 def update_ranks_kernel(dg, r: torch.Tensor, affected: torch.Tensor, *,

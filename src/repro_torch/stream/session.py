@@ -12,11 +12,13 @@ the initial frontier is a small fraction of |V|) and the **dense** engine
 full-sweep fallback, right when the batch is large). Capacity guesses
 never affect correctness, only speed.
 
-A copy of the JAX package's single-device `repro.stream.session`. Its
-multi-device mode (``mesh=``), fault tolerance (``guard=``, ``journal_dir=``,
-``checkpoint_every=``) and observability (``slo=``, ``trace=True``) come
-with later slices of the port; until then each raises
-``NotImplementedError`` rather than being ignored.
+A copy of the JAX package's single-device `repro.stream.session`, with its
+iteration trace (``trace=True``: each `BatchStats` carries the solve's
+`obs.trace.trace_summary`). Its multi-device mode (``mesh=``), fault
+tolerance (``guard=``, ``journal_dir=``, ``checkpoint_every=``), SLO
+judging (``slo=``) and profiler capture come with later slices of the
+port; until then each argument raises ``NotImplementedError`` rather than
+being ignored.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ..core.dynamic import df_pagerank, dfp_pagerank
 from ..core.frontier import caps_for, merge_caps
 from ..core.graph import BatchUpdate, Graph
 from ..core.pagerank import PRParams, init_ranks, static_pagerank
+from ..obs.trace import maybe_summary
 from .delta import Delta, ingest
 from .snapshot import DeviceSnapshot, SnapshotStats, _sync
 
@@ -42,7 +45,7 @@ __all__ = ["StreamSession", "BatchStats", "choose_engine",
 #: with the ROADMAP item each waits on
 _LATER = {"mesh": "A7 (sharded engines)", "guard": "A5 (guard)",
           "journal_dir": "A5 (guard)", "checkpoint_every": "A5 (guard)",
-          "slo": "A6 (observability)", "trace": "A6 (observability)"}
+          "slo": "A6 (observability)"}
 
 
 def frontier_estimate(delta: Delta, outdeg: np.ndarray) -> int:
@@ -77,6 +80,9 @@ class BatchStats:
     ingest_s: float
     snapshot: SnapshotStats
     solve_s: float
+    #: per-iteration trace summary (`obs.trace.trace_summary` dict) when the
+    #: session was built with ``trace=True``; None otherwise.
+    trace: Optional[dict] = None
 
     @property
     def total_s(self) -> float:
@@ -93,7 +99,9 @@ class StreamSession:
     >>> ids, vals = sess.topk(10)
 
     `device` places the snapshot and the ranks (CUDA unless named; pass
-    ``device="cpu"`` to run the plain PyTorch path on the CPU).
+    ``device="cpu"`` to run the plain PyTorch path on the CPU). With
+    ``trace=True`` every batch's solve fills an iteration trace and its
+    `BatchStats.trace` holds the summary.
     """
 
     def __init__(self, g: Graph, params: Optional[PRParams] = None,
@@ -103,8 +111,7 @@ class StreamSession:
                  guard=None, slo=None, journal_dir: Optional[str] = None,
                  checkpoint_every: int = 0, device=None, **snap_kw):
         given = dict(mesh=mesh, guard=guard, slo=slo,
-                     journal_dir=journal_dir)
-        given.update(trace=trace or None,
+                     journal_dir=journal_dir,
                      checkpoint_every=checkpoint_every or None)
         for name, value in given.items():
             if value is not None:
@@ -113,6 +120,9 @@ class StreamSession:
                     f"ROADMAP {_LATER[name]}")
         if engine not in ("auto", "dense", "compact"):
             raise ValueError(f"unknown engine: {engine!r}")
+        #: when True every batch's solve records an obs.trace.TraceBuffer
+        #: and its BatchStats carries the `trace_summary` dict
+        self.trace = trace
         # Session default: frontier thresholds at 1e-9 (vs the one-shot
         # default 1e-6). Chained DF-P re-uses its own output as the next
         # prior, so per-batch frontier truncation error would otherwise
@@ -173,30 +183,34 @@ class StreamSession:
         engine = self._choose_engine(delta)
         caps = self._frontier_caps(frontier_estimate(delta,
                                                      self.snap._outdeg))
-        r, iters = self.solve(engine, self.ranks, db, caps)
+        (r, iters), summary = maybe_summary(
+            self.solve(engine, self.ranks, db, caps, trace=self.trace),
+            self.trace)
         _sync(self.device)
         solve_s = time.perf_counter() - t1
 
         self.ranks = r
         self.history.append(BatchStats(
             batch_size=delta.size, engine=engine, iters=int(iters),
-            ingest_s=ingest_s, snapshot=snap_stats, solve_s=solve_s))
+            ingest_s=ingest_s, snapshot=snap_stats, solve_s=solve_s,
+            trace=summary))
         return self.ranks
 
     # -- engine/caps plumbing ------------------------------------------------
 
     def solve(self, engine: str, r_prev: torch.Tensor, db, caps,
-              kernels: Optional[bool] = None):
+              kernels: Optional[bool] = None, trace: bool = False):
         """One batch's DF(-P) solve on the current snapshot from `r_prev`:
-        (r, iters). `apply` calls it; `kernels=False` repeats a batch's
-        solve on the plain PyTorch path. Does not touch session state."""
+        (r, iters), with the engine's TraceBuffer appended when `trace`.
+        `apply` calls it; `kernels=False` repeats a batch's solve on the
+        plain PyTorch path. Does not touch session state."""
         if engine == "compact":
             fn = dfp_pagerank_compact if self.prune else df_pagerank_compact
             return fn(self.snap, None, r_prev, db, self.params,
-                      kernels=kernels)
+                      kernels=kernels, trace=trace)
         fn = dfp_pagerank if self.prune else df_pagerank
         return fn(self.snap, r_prev, db, self.params, frontier_caps=caps,
-                  kernels=kernels)
+                  kernels=kernels, trace=trace)
 
     def _frontier_caps(self, est: int):
         """Frontier capacity plan for this batch — the running elementwise
