@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port (`repro_torch`) of Static and DF-P PageRank
-and of its streaming session on one GPU, and hold its CUDA kernels against
-their plain PyTorch versions.
+"""Drive the PyTorch + CUDA port (`repro_torch`) of Static and DF-P PageRank,
+of its streaming session and of LM serving on one GPU, and hold its CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py                 # full size: n=2^22, m=2^26
     python3 chip_smoke.py --n 65536 --m 1048576 --out report.json
@@ -50,9 +50,24 @@ Phases (any failure exits non-zero; nothing is caught):
      equals its plain version; after the last, phase 4's checks on both
      halves of the snapshot and pull_sum on both against a fresh build. Then
      scatter_rows against its plain version on every table the first
-     batch touched, and timed.
-Before the last line it prints the `kernels` JSON line; the last line is
-{"ok": true, "device": {...}}. Needs one CUDA card; exits 2 without one.
+     batch touched, and timed;
+  9. LM serving at qwen2-1.5b's full width and depth, bf16, weights drawn
+     from --seed (the PageRank tensors freed first): the flash_attention
+     kernel against its plain version at the prefill's shapes (B=4, H=12
+     over K=2 kv heads, S=T=2048, D=128; bf16 and f32 causal, bf16 full,
+     ragged S=T=1000 in both types and through the [BH, S, D] entry; f32
+     within 2e-5, bf16 within 2e-5 + one bf16 ulp, all finite);
+     LMModel.prefill_step on batch_for(cfg, 4, 2048) (launch count set to
+     0 here: it must rise by exactly one per layer, 28; last logits
+     finite); the f32 copy of the weights at prompt length 256,
+     prefill_step (kernel) against the stepped decode_step (no kernel)
+     within 1e-3; times of the kernel, its plain version,
+     scaled_dot_product_attention (the yardstick, never on the path) and
+     its bound, of prefill_step and of one decode_step; serve (batch 4,
+     prompt 64, gen 32) twice with one seed: equal tokens in [0, vocab).
+Before the last line it prints the `kernels` JSON line (seven kernels); the
+last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
+without one.
 """
 from __future__ import annotations
 
@@ -71,6 +86,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP64_FLOPS = 34e12          # H100 SXM FP64 outside the tensor cores (data sheet)
+BF16_FLOPS = 989e12         # H100 SXM dense BF16 tensor cores (data sheet)
 TOL_SWEEP = 1e-12           # one sweep, f64 L-inf (tests/test_bucketed_parity.py)
 TOL_SOLVE_L1 = 1e-8         # whole solves, L1
 STEP = dict(alpha=0.85, tau_f=1e-6, tau_p=1e-6, prune=True, closed_form=True)
@@ -124,9 +140,9 @@ def cuda_ms(fn, repeats: int) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = FP64_FLOPS):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / FP64_FLOPS * 1e3
+    t_o = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -487,6 +503,200 @@ def stream_phase(args, g, dev, report, wrappers, errs):
     rep["scatter_rows"] = {k: v for k, v in out["scatter"].items()}
     report["stream"] = rep
     return out
+
+# Phase 9's configuration: the LM served at full width and depth.
+LM_ARCH = "qwen2-1.5b"
+LM_BATCH, LM_SEQ = 4, 2048          # prefill_step's batch
+TOL_ATTN_F32 = 2e-5   # tests/test_kernels.py's flash-attention bar
+# bf16: kernel and plain version widen the same bf16 inputs and keep every
+# statistic in f32, so they agree to the f32 bar before the output's one
+# rounding to bf16; two roundings of nearly equal f32 values differ by at
+# most one bf16 ulp, 2^-7 of the value.
+TOL_ATTN_BF16 = (2e-5, 2.0 ** -7)   # (atol, rtol)
+# The f32 model: prefill (kernel) against stepped decode (plain), 28 layers.
+# JAX's smoke bar is 2e-2; f32 sums in another order differ by far less.
+TOL_LM_F32 = 1e-3
+
+
+def attn_err(got, want, atol, rtol):
+    """(max |got - want|, whether |got - want| <= atol + rtol |want|
+    everywhere and every value is finite)."""
+    d = (got.float() - want.float()).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (d <= atol + rtol * want.float().abs()).all())
+    return float(d.max()), ok
+
+
+def lm_phase(args, dev, report):
+    """Phase 9: LM serving at full width and depth (qwen2-1.5b, bf16).
+    Returns flash_attention's launches on the prefill path, its check error
+    and its times."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain,
+                                                flash_attention_plain)
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH)
+    B, S = LM_BATCH, LM_SEQ
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rep = dict(arch=LM_ARCH, batch=B, seq=S, checks=[])
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+
+    def qkv(s, t, dtype, heads=(H, K)):
+        return (torch.randn(B, s, heads[0], D, generator=gen, device=dev
+                            ).to(dtype),
+                torch.randn(B, t, heads[1], D, generator=gen, device=dev
+                            ).to(dtype),
+                torch.randn(B, t, heads[1], D, generator=gen, device=dev
+                            ).to(dtype))
+
+    # -- 9a the kernel against its plain version -----------------------------
+    err = 0.0
+    cases = [("bf16 causal", S, S, torch.bfloat16, True),
+             ("f32 causal", S, S, torch.float32, True),
+             ("bf16 full", S, S, torch.bfloat16, False),
+             ("bf16 ragged 1000", 1000, 1000, torch.bfloat16, True),
+             ("f32 ragged 1000", 1000, 1000, torch.float32, True)]
+    for name, s, t, dtype, causal in cases:
+        q, k, v = qkv(s, t, dtype)
+        got = flash_attention_bshd(q, k, v, causal=causal)
+        want = flash_attention_bshd_plain(q, k, v, causal=causal)
+        tol = (TOL_ATTN_F32, TOL_ATTN_F32) if dtype == torch.float32 \
+            else TOL_ATTN_BF16
+        e, ok = attn_err(got, want, *tol)
+        rep["checks"].append(dict(case=name, shape=list(q.shape),
+                                  kv=list(k.shape), max_abs_err=e))
+        log(f"[lm] flash_attention {name} q {list(q.shape)} kv "
+            f"{list(k.shape)}: max |diff| {e:.3e} (bar {tol})")
+        require(ok and got.shape == q.shape and got.dtype == dtype,
+                f"flash_attention {name}: max |diff| {e} over {tol}")
+        err = max(err, e)
+    # the Pallas signature [BH, S, D] (one kv head per q head), ragged
+    q, k, v = (x.permute(0, 2, 1, 3).reshape(B * H, 1000, D)
+               for x in qkv(1000, 1000, torch.float32, (H, H)))
+    e, ok = attn_err(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                     TOL_ATTN_F32, TOL_ATTN_F32)
+    log(f"[lm] flash_attention [BH, S, D] {list(q.shape)} f32: max |diff| "
+        f"{e:.3e}")
+    require(ok, f"flash_attention [BH, S, D]: max |diff| {e}")
+    rep["checks"].append(dict(case="[BH,S,D] f32 ragged 1000",
+                              shape=list(q.shape), max_abs_err=e))
+    err = max(err, e)
+    del q, k, v, got, want
+    torch.cuda.synchronize()
+
+    # -- 9b prefill_step at full width and depth ------------------------------
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lm] {LM_ARCH}: {n_params / 1e9:.3f} B parameters "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, {H} heads over {K} "
+        f"kv heads, head_dim {D}, vocab {cfg.vocab}, {cfg.dtype}), drawn "
+        f"in {time.perf_counter() - t0:.1f} s")
+    batch = batch_for(cfg, B, S, 0, args.seed)
+    flash_attention.launches = 0
+    last, caches = model.prefill_step(batch)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    log(f"[launches] prefill path: flash_attention {launches}")
+    require(launches == cfg.n_layers, f"prefill_step launched "
+            f"flash_attention {launches} times, not {cfg.n_layers}")
+    require(last.shape == (B, cfg.vocab) and bool(torch.isfinite(last).all()),
+            "prefill_step's last logits are not finite")
+    require(len(caches) == cfg.n_layers
+            and caches[0][0].shape == (B, S, K, D), "prefill caches")
+    rep.update(n_params=n_params, prefill_launches=launches)
+    del caches
+
+    # -- 9c the f32 model: prefill (kernel) against stepped decode (plain) ---
+    P = 256
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = LMModel(cfg32, device=dev, seed=args.seed)
+    m32.params.load_state_dict(model.params.state_dict())   # cast to f32
+    toks = batch_for(cfg32, B, P, 0, args.seed)["tokens"]
+    flash_attention.launches = 0
+    want, _ = m32.prefill_step({"tokens": toks})
+    require(flash_attention.launches == cfg.n_layers,
+            "the f32 prefill did not run the kernel in every layer")
+    cache = m32.init_cache(B, P)
+    for t in range(P):
+        logits, cache = m32.decode_step(cache, {"tokens": toks[:, t:t + 1]},
+                                        t)
+    torch.cuda.synchronize()
+    require(flash_attention.launches == cfg.n_layers,
+            "decode_step launched the flash_attention kernel")
+    e, ok = attn_err(want, logits[:, 0], TOL_LM_F32, TOL_LM_F32)
+    log(f"[lm] f32 prefill_step (kernel) vs stepped decode_step (plain) at "
+        f"prompt length {P}: max |diff| {e:.3e} of logits up to "
+        f"{float(want.abs().max()):.3f} (bar {TOL_LM_F32})")
+    require(ok, f"f32 prefill vs stepped decode: max |diff| {e}")
+    rep["f32_prefill_vs_decode"] = e
+    del m32, cache, want, logits
+    torch.cuda.empty_cache()
+
+    # -- 9e times -------------------------------------------------------------
+    q, k, v = qkv(S, S, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True).transpose(1, 2)
+    e, ok = attn_err(sdpa, flash_attention_bshd_plain(q, k, v), 2e-2, 2e-2)
+    require(ok, f"scaled_dot_product_attention disagrees: {e}")
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
+    flops = 2 * B * H * S * S * D
+    t_attn = dict(
+        ms=cuda_ms(lambda: flash_attention_bshd(q, k, v), args.repeats),
+        plain_ms=cuda_ms(lambda: flash_attention_bshd_plain(q, k, v),
+                         args.repeats),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), args.repeats),
+        bound=bound(nbytes, flops, BF16_FLOPS))
+    log(f"[time] flash_attention bf16 causal {[B, S, H, D]} / kv "
+        f"{[B, S, K, D]}: {t_attn['ms']:.4f} ms "
+        f"({flops / t_attn['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{t_attn['plain_ms']:.4f} ms, bound {t_attn['bound'][0]:.4f} ms "
+        f"({t_attn['bound'][1]}), scaled_dot_product_attention "
+        f"{t_attn['library_ms']:.4f} ms")
+    del q, k, v, qt, kt, vt, sdpa
+    rep["prefill_ms"] = cuda_ms(lambda: model.prefill_step(batch), 3)
+    cache = model.init_cache(B, S + 1)
+    tok = torch.as_tensor(batch["tokens"][:, -1:], device=dev)
+    rep["decode_ms_per_step"] = cuda_ms(
+        lambda: model.decode_step(cache, {"tokens": tok}, S), args.repeats)
+    log(f"[time] prefill_step {B} x {S}: {rep['prefill_ms']:.1f} ms "
+        f"({B * S / rep['prefill_ms']:.0f} tokens/ms); decode_step at "
+        f"position {S}: {rep['decode_ms_per_step']:.2f} ms per step of {B} "
+        f"tokens")
+    del model, cache, batch, last
+    torch.cuda.empty_cache()
+
+    # -- 9d serve, twice with one seed ----------------------------------------
+    runs = [serve(cfg, batch=4, prompt_len=64, gen=32, seed=args.seed,
+                  device=dev) for _ in range(2)]
+    (a, tps_a), (b, tps_b) = runs
+    log(f"[lm] serve batch 4, prompt 64, gen 32: {tps_a:.1f} / {tps_b:.1f} "
+        f"tokens/s; first tokens {a[:, :6].tolist()}")
+    require(a.shape == (4, 32) and np.array_equal(a, b),
+            "serve is not deterministic")
+    require(int(a.min()) >= 0 and int(a.max()) < cfg.vocab,
+            "serve produced a token outside the vocabulary")
+    rep.update(serve_tokens_per_s=[tps_a, tps_b],
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    log(f"[memory] phase 9 peak allocated "
+        f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB")
+    report["lm"] = rep
+    return dict(launches=launches, max_abs_err=err, timing=t_attn)
 
 
 def main(argv=None) -> int:
@@ -882,6 +1092,17 @@ def main(argv=None) -> int:
     # launches on the main paths: static + DF-P (phases 5-6) and the stream
     launches = {name: launches.get(name, 0) + stream["launches"].get(name, 0)
                 for name in timings}
+    report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[memory] phases 1-8 peak allocated "
+        f"{report['peak_mem_bytes'] / 2**30:.3f} GiB")
+    del g, lay, gs, dgs, rs, rd, rc
+    torch.cuda.empty_cache()
+
+    # -- 9. LM serving ----------------------------------------------------------
+    lm = lm_phase(args, dev, report)
+    timings["flash_attention"] = lm["timing"]
+    errs["flash_attention"] = lm["max_abs_err"]
+    launches["flash_attention"] = lm["launches"]
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",
@@ -893,7 +1114,9 @@ def main(argv=None) -> int:
                "ell_pull": ("src/repro_torch/csrc/ell_pull.cu",
                             "src/repro/kernels/ell_pull.py:47"),
                "linf_delta": ("src/repro_torch/csrc/linf_delta.cu",
-                              "src/repro/kernels/linf_delta.py:34")}
+                              "src/repro/kernels/linf_delta.py:34"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attn.py:90")}
     kernels = []
     for name, t in timings.items():
         kernels.append(dict(
@@ -902,11 +1125,9 @@ def main(argv=None) -> int:
             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][0], bound_by=t["bound"][1],
             library_ms=t["library_ms"]))
-    require(len(kernels) == 6 and all(k["launches"] > 0 for k in kernels),
+    require(len(kernels) == 7 and all(k["launches"] > 0 for k in kernels),
             f"kernel launches on the main paths: {launches}")
     report["kernels"] = kernels
-    report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    log(f"[memory] peak allocated {report['peak_mem_bytes'] / 2**30:.3f} GiB")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

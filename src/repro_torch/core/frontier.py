@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .graph import next_pow2
+from ..device import resolve_device
 from .pagerank import DeviceGraph, gather_rows, pull_max, use_kernels
 from .rank_step import rank_step
 from ..sentinel import take_fill, with_sink
@@ -334,8 +335,10 @@ FS_NB = 8             # per-bucket active-row counters start here
 
 
 def fstats_init(n_buckets: int, device=None) -> torch.Tensor:
-    """Zeroed frontier-stats accumulator carried through a solve loop."""
-    return torch.zeros(FS_NB + n_buckets, dtype=torch.int32, device=device)
+    """Zeroed frontier-stats accumulator carried through a solve loop, on
+    `device` (CUDA unless named, as every staging call)."""
+    return torch.zeros(FS_NB + n_buckets, dtype=torch.int32,
+                       device=resolve_device(device))
 
 
 def publish_fstats(fs, registry=None) -> None:

@@ -22,6 +22,7 @@ import torch
 
 from .graph import Graph, build_hybrid
 from .rank_step import rank_step
+from ..device import resolve_device
 from ..guard.health import rank_mass
 from ..obs.trace import trace_init, trace_record
 
@@ -86,17 +87,6 @@ class PRParams(NamedTuple):
     tau_f: float = TAU_F
     tau_p: float = TAU_P
     max_iter: int = MAX_ITER
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a staging call puts its tensors on: CUDA unless the
-    caller names another. Raises, rather than dropping to the CPU, when
-    CUDA is asked for and there is no card."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
 
 
 def slot_tile_table(hi_rowmap: np.ndarray, n_hi_cap: int):

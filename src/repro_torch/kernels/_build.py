@@ -9,6 +9,13 @@ have a plain C interface (no PyTorch headers, so a build takes seconds):
 pointers and the stream go in as `c_void_p`, sizes as `c_int`, and each
 entry point returns `cudaGetLastError()`.
 
+Flags are per source (`flags`). The six PageRank kernels build with
+`--fmad=false`, so that their f64 arithmetic rounds as the plain PyTorch
+ops do (their bars against the plain versions are 1e-12 or exact);
+`flash_attention` builds without it: its loops are f32 multiply-add
+chains held to 2e-5, and splitting each FMA would cost it about half its
+throughput.
+
 A missing `nvcc` or a failed build raises; nothing falls back.
 """
 from __future__ import annotations
@@ -23,16 +30,18 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check", "stream_ptr",
-           "launch_error"]
+__all__ = ["SOURCES", "BUILD_DIR", "flags", "build", "load", "check",
+           "stream_ptr", "launch_error"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 SOURCES = ("fused_ell_update", "csr_block_pull", "pr_update", "scatter_rows",
-           "ell_pull", "linf_delta")
+           "ell_pull", "linf_delta", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# sources built with FMA contraction (without --fmad=false)
+FMAD = ("flash_attention",)
 
 P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
@@ -51,8 +60,15 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def flags(name: str) -> tuple:
+    """The nvcc flags of source `name`."""
+    if name in FMAD:
+        return tuple(f for f in FLAGS if f != "--fmad=false")
+    return FLAGS
+
+
 def lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -70,7 +86,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     procs = {}
     for name in todo:
         tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [cc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [cc, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []

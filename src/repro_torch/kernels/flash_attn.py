@@ -1,0 +1,148 @@
+"""``flash_attention``: causal (or full) softmax attention with an online
+softmax, every statistic in f32 and the output in the input's type — the
+kernel of the LM's prefill.
+
+Two entries share one CUDA kernel (`csrc/flash_attention.cu`) and one
+launch count, `flash_attention.launches`:
+
+- `flash_attention(q, k, v, causal=)` keeps the Pallas kernel's signature,
+  q [BH, S, D] and k, v [BH, T, D];
+- `flash_attention_bshd(q, k, v, causal=)` takes the model's q [B, S, H, D]
+  and k, v [B, T, K, D] (H a multiple of K: grouped-query attention). The
+  kernel reads them through their strides and maps q head h to kv head
+  h // (H // K) itself, so nothing is copied or repeated; `attn_apply`
+  reaches the kernel here.
+
+On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
+the plain version (`flash_attention_plain`, the same online softmax in
+plain PyTorch, over kv blocks of 128 as the Pallas kernel); on any other
+device it raises. The kernel takes float32 and bfloat16, head widths 16,
+32, 64 and 128, and any S, T >= 1.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_plain",
+           "flash_attention_bshd_plain", "NEG", "HEAD_DIMS"]
+
+NEG = -2.0 ** 30      # large finite mask value: a masked score gives exp 0
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_L = ctypes.c_longlong
+_SIG = {"flash_attention": [_build.P] * 4 + [_build.I] * 7 + [_L] * 9
+        + [_build.I, _build.P]}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: q [BH, S, D], k/v [BH, T, D];
+    an online softmax over kv blocks of 128 rows (the Pallas kernel's bk)
+    with the running max, sum and accumulator in f32 (p stays f32 for the
+    PV product), masked scores at NEG. Returns [BH, S, D] in q's dtype."""
+    BH, S, D = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float()
+    qpos = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((BH, S, 1), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((BH, S, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((BH, S, D), dtype=torch.float32, device=q.device)
+    for j0 in range(0, T, 128):
+        kj = k[:, j0:j0 + 128].float()
+        vj = v[:, j0:j0 + 128].float()
+        s = torch.einsum("bqd,btd->bqt", qf, kj) * scale
+        if causal:
+            kpos = torch.arange(j0, j0 + kj.shape[1], device=q.device)[None]
+            s = torch.where(kpos <= qpos, s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bqt,btd->bqd", p, vj)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> [B * H, S, D]."""
+    B, S, H, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * H, S, D)
+
+
+def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *,
+                               causal: bool = True) -> torch.Tensor:
+    """`flash_attention_plain` on the model's layout: q [B, S, H, D], k/v
+    [B, T, K, D] with the kv heads repeated G = H // K times (q head h
+    reads kv head h // G). Returns [B, S, H, D]."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    out = flash_attention_plain(
+        _heads_first(q), _heads_first(k.repeat_interleave(G, dim=2)),
+        _heads_first(v.repeat_interleave(G, dim=2)), causal=causal)
+    return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q [BH, S, D], k/v [BH, T, D] (the Pallas kernel's signature; one kv
+    head per q head). Returns [BH, S, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    return _launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                   causal).squeeze(2)
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """q [B, S, H, D], k/v [B, T, K, D], H a multiple of K. Returns a
+    contiguous [B, S, H, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_bshd_plain(q, k, v, causal=causal)
+    return _launch(q, k, v, causal)
+
+
+def _launch(q, k, v, causal):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or H % K or S < 1 or T < 1:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k/v {tuple(k.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {D} not in "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: dtype {q.dtype}, expected "
+                        f"float32 or bfloat16")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != dev:
+            raise ValueError(f"flash_attention: {name} is {t.dtype} on "
+                             f"{t.device}, q {q.dtype} on {dev}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    lib = _build.load("flash_attention", _SIG)
+    err = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, H, K, S, T, D,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), int(causal),
+        _build.stream_ptr(dev))
+    _build.launch_error("flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

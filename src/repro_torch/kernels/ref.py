@@ -11,10 +11,12 @@ let a bug in `rank_step` cancel out.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["ell_pull_ref", "csr_block_pull_ref", "pr_update_ref",
-           "linf_delta_ref"]
+           "linf_delta_ref", "flash_attention_ref"]
 
 
 def _gather(c: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -64,3 +66,16 @@ def pr_update_ref(contrib: torch.Tensor, r: torch.Tensor,
 
 def linf_delta_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.max(torch.abs(a - b))
+
+
+def flash_attention_ref(q, k, v, *, causal=True):
+    """Exact softmax attention. q [BH,S,D]; k,v [BH,T,D]."""
+    s = torch.einsum("bqd,btd->bqt", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    if causal:
+        S, T = q.shape[1], k.shape[1]
+        mask = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None])
+        s = s.masked_fill(~mask[None], float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqt,btd->bqd", w, v.float()).to(q.dtype)

@@ -1,0 +1,200 @@
+"""Attention: GQA (+bias/qk-norm/softcap/local-window) and its KV cache.
+
+A copy of the JAX package's `repro.models.attention` for the dense
+global-attention family, on tensors:
+
+- `chunked_attention` is the jnp online-softmax schedule, whole (window
+  and soft-cap included): the plain version of full-sequence attention,
+  which `attn_apply` runs on CPU tensors;
+- on CUDA tensors `attn_apply` runs the `flash_attention` kernel
+  (`kernels.flash_attn.flash_attention_bshd`: the model's [B, S, H, D]
+  layout, kv heads mapped in the kernel). The kernel has no window and no
+  soft-cap, as the Pallas kernel has neither, so those raise on CUDA;
+- decode is single-query attention over the cache in plain PyTorch. The
+  cache is written in place (JAX's `dynamic_update_slice` returns new
+  arrays): `attn_decode` returns the same dict it was given.
+
+The int8 KV cache (`quantize_kv`/`dequantize_kv`) and MLA wait for a later
+slice (ROADMAP A9) and raise `NotImplementedError`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..kernels.flash_attn import flash_attention_bshd
+from .layers import apply_rope, dense_init, rmsnorm, softcap
+
+__all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache",
+           "chunked_attention", "NEG_INF"]
+
+NEG_INF = -2.0 ** 30  # large-finite: avoids NaN rows for fully-masked blocks
+
+
+def later(what: str) -> NotImplementedError:
+    """The error of a feature that a later slice of the port brings."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP A9: the LM substrate, the rest)")
+
+
+# ---------------------------------------------------------------------------
+# Flash-style chunked causal attention (the plain version)
+# ---------------------------------------------------------------------------
+
+def _f32_einsum(spec, a, b):
+    """einsum with f32 products and sums (JAX's preferred_element_type=f32:
+    bf16 products are exact in f32)."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
+def chunked_attention(q, k, v, *, chunk: int, window: Optional[int] = None,
+                      cap: Optional[float] = None, q_offset=0):
+    """q [B,S,H,D]; k,v [B,T,K,D] with H = G*K (GQA). Causal; optional
+    sliding window and tanh soft-cap. Returns [B,S,H,D]."""
+    B, S, H, D = q.shape
+    Dv = v.shape[-1]
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    nq = max(1, S // chunk)
+    cq = S // nq
+    nk = max(1, T // chunk)
+    ck = T // nk
+    qb = q.reshape(B, nq, cq, K, G, D)
+    dev = q.device
+    outs = []
+    for i in range(nq):
+        qi = qb[:, i]                                   # [B,cq,K,G,D]
+        qpos = q_offset + i * cq + torch.arange(cq, device=dev)
+        m = torch.full((B, K, G, cq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, K, G, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, cq, K, G, Dv), dtype=torch.float32, device=dev)
+        for j in range(nk):
+            kj = k[:, j * ck:(j + 1) * ck]
+            vj = v[:, j * ck:(j + 1) * ck]
+            s = _f32_einsum("bqkgd,btkd->bkgqt", qi, kj) * scale
+            s = softcap(s, cap)
+            kpos = j * ck + torch.arange(ck, device=dev)
+            allow = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                allow &= (qpos[:, None] - kpos[None, :]) < window
+            s = torch.where(allow[None, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = _f32_einsum("bkgqt,btkd->bqkgd", p.to(vj.dtype), vj)
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.stack(outs, dim=1).reshape(B, S, H, Dv)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def attn_init(cfg, dtype, *, generator: torch.Generator, device=None) -> dict:
+    if cfg.mla is not None:
+        raise later("MLA (multi-head latent attention)")
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    p = {"wq": dense_init((d, H, hd), in_axis_size=d, **kw),
+         "wk": dense_init((d, K, hd), in_axis_size=d, **kw),
+         "wv": dense_init((d, K, hd), in_axis_size=d, **kw),
+         "wo": dense_init((H, hd, d), in_axis_size=H * hd, **kw)}
+    zeros = dict(dtype=dtype, device=device)
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, hd), **zeros)
+        p["bk"] = torch.zeros((K, hd), **zeros)
+        p["bv"] = torch.zeros((K, hd), **zeros)
+    if cfg.qk_norm:
+        p["qn"] = torch.zeros((hd,), **zeros)
+        p["kn"] = torch.zeros((hd,), **zeros)
+    return p
+
+
+def _proj(x, w):
+    """einsum("bsd,dhe->bshe", x, w) as one matrix product."""
+    d, h, e = w.shape
+    return (x @ w.reshape(d, h * e)).unflatten(-1, (h, e))
+
+
+def _qkv(x, p, cfg, positions):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q, k = rmsnorm(q, p["qn"]), rmsnorm(k, p["kn"])
+    if cfg.rope == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        raise later("M-RoPE (rope='mrope')")
+    return q, k, v
+
+
+def _out(o, wo):
+    """einsum("bshe,hed->bsd", o, wo) as one matrix product."""
+    h, e, d = wo.shape
+    return o.flatten(-2) @ wo.reshape(h * e, d)
+
+
+def attn_apply(x, p, cfg, kind: str, positions):
+    """Full-sequence (prefill). Returns (out, (k, v) for caching). Runs the
+    flash_attention kernel on CUDA tensors, chunked_attention on CPU
+    tensors."""
+    q, k, v = _qkv(x, p, cfg, positions)
+    window = cfg.window if kind == "attn_local" else None
+    if q.device.type == "cpu":
+        o = chunked_attention(q, k, v, chunk=cfg.attn_chunk, window=window,
+                              cap=cfg.attn_softcap)
+    elif window is not None or cfg.attn_softcap is not None:
+        raise later("a local window or an attention soft-cap on the card "
+                    "(the flash_attention kernel has neither)")
+    else:
+        o = flash_attention_bshd(q, k, v, causal=True)
+    return _out(o, p["wo"]), (k, v)
+
+
+def attn_decode(x, p, cfg, kind: str, cache, pos: int):
+    """One-token decode. x [B,1,d]; cache {"k","v"} [B,T,K,hd]; pos = the
+    current position (int). Local kinds roll mod window. Writes the new
+    k/v into `cache` in place and returns (out, cache)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(x, p, cfg, positions)
+    T = cache["k"].shape[1]
+    slot = pos % T if kind == "attn_local" else pos  # rolling window slot
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    kf = cache["k"].to(q.dtype)
+    vf = cache["v"].to(q.dtype)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // K
+    qg = q.reshape(B, 1, K, G, hd)
+    s = _f32_einsum("bqkgd,btkd->bkgqt", qg, kf) / math.sqrt(hd)
+    s = softcap(s, cfg.attn_softcap)
+    tpos = torch.arange(T, device=x.device)
+    if kind == "attn_local":
+        valid = (tpos[None] <= slot) | (pos >= T)   # rolled window full
+    else:
+        valid = tpos[None] <= pos
+    s = torch.where(valid[None, None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", w.to(vf.dtype), vf)
+    o = o.reshape(B, 1, H, hd)
+    return _out(o, p["wo"]), cache
+
+
+def init_kv_cache(cfg, kind: str, B: int, T: int, dtype, device=None):
+    """T already window-clamped by the caller for local kinds."""
+    if cfg.kv_cache_dtype == "int8":
+        raise later("the int8 KV cache (kv_cache_dtype='int8')")
+    K, hd = cfg.n_kv_heads, cfg.hd
+    return {"k": torch.zeros((B, T, K, hd), dtype=dtype, device=device),
+            "v": torch.zeros((B, T, K, hd), dtype=dtype, device=device)}

@@ -1,0 +1,214 @@
+"""Decoder stack: layer-kind dispatch, one block per layer.
+
+A copy of the JAX package's `repro.models.transformer` for the dense
+attention kinds (`attn`, `attn_local`, `attn_global`). The JAX package
+stacks the repeated pattern on a leading axis and drives it with
+`lax.scan` (small HLO, flat compile time); PyTorch runs eagerly, so here
+the layout (prefix, pattern × repeats, suffix) is unrolled into an
+`nn.ModuleList` with one block per layer, in layer order (`layer_kinds`).
+Each block is an `nn.ModuleDict` of `nn.ParameterDict`s ("ln1", "mix",
+"ln2", "ffn", and "pn1"/"pn2" with post-norms) holding the JAX package's
+leaves under the same names.
+
+There is no remat (that is training's business). The MoE, MLA, RWKV and
+RG-LRU mixers, `embed_inputs` and `rope="mrope"` wait for later slices
+(ROADMAP A9) and raise `NotImplementedError`.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from . import attention as attn
+from .attention import later
+from .layers import (apply_norm, dense_init, mlp_apply, mlp_init, norm_init,
+                     sinusoidal_positions, softcap)
+
+__all__ = ["LMParams", "init_block", "apply_block", "init_params",
+           "layer_kinds", "forward_full", "forward_decode", "init_cache",
+           "check_supported"]
+
+# the layer kinds of the JAX package that later slices bring
+_LATER_KINDS = {"attn_moe": "the MoE layer (kind 'attn_moe')",
+                "mla_dense": "MLA (kind 'mla_dense')",
+                "mla_moe": "MLA with MoE (kind 'mla_moe')",
+                "rwkv": "the RWKV6 mixer (kind 'rwkv')",
+                "rec": "the RG-LRU mixer (kind 'rec')"}
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def layer_kinds(cfg) -> List[str]:
+    """The kind of every layer, in order: prefix, pattern × repeats,
+    suffix."""
+    pre, pat, reps, suf = cfg.layer_kinds()
+    return list(pre) + list(pat) * reps + list(suf)
+
+
+def check_supported(cfg) -> None:
+    """Raise NotImplementedError for what the port does not serve yet."""
+    for kind in layer_kinds(cfg):
+        if kind in _LATER_KINDS:
+            raise later(_LATER_KINDS[kind])
+    if cfg.moe is not None:
+        raise later("MoE (cfg.moe)")
+    if cfg.mla is not None:
+        raise later("MLA (cfg.mla)")
+    if cfg.rope == "mrope":
+        raise later("M-RoPE (rope='mrope')")
+    if cfg.embed_inputs:
+        raise later("embedding inputs (embed_inputs=True)")
+    if cfg.kv_cache_dtype == "int8":
+        raise later("the int8 KV cache (kv_cache_dtype='int8')")
+
+
+def _frozen(tensors: dict) -> nn.ParameterDict:
+    """Serving weights: parameters that take no gradient."""
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})
+
+
+# ---------------------------------------------------------------------------
+# Per-block init / apply
+# ---------------------------------------------------------------------------
+
+def init_block(cfg, kind: str, *, generator: torch.Generator,
+               device=None) -> nn.ModuleDict:
+    if kind in _LATER_KINDS:
+        raise later(_LATER_KINDS[kind])
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    p = nn.ModuleDict()
+    p["ln1"] = _frozen(norm_init(cfg.norm, d, dt, device))
+    p["mix"] = _frozen(attn.attn_init(cfg, dt, generator=generator,
+                                      device=device))
+    p["ln2"] = _frozen(norm_init(cfg.norm, d, dt, device))
+    p["ffn"] = _frozen(mlp_init(d, cfg.d_ff, cfg.mlp, dt,
+                                generator=generator, device=device))
+    if cfg.post_norm:
+        p["pn1"] = _frozen(norm_init(cfg.norm, d, dt, device))
+        p["pn2"] = _frozen(norm_init(cfg.norm, d, dt, device))
+    return p
+
+
+def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
+                pos=None):
+    """mode is implied: cache None => full-sequence; else one-token decode.
+    Returns (x, new_cache): (k, v) after a full sequence, the same cache
+    dict (written in place) after a decode step."""
+    h = apply_norm(cfg.norm, x, p["ln1"])
+    if cache is None:
+        o, new_cache = attn.attn_apply(h, p["mix"], cfg, kind, positions)
+    else:
+        o, new_cache = attn.attn_decode(h, p["mix"], cfg, kind, cache, pos)
+    if cfg.post_norm:
+        o = apply_norm(cfg.norm, o, p["pn1"])
+    x = x + o
+    h = apply_norm(cfg.norm, x, p["ln2"])
+    f = mlp_apply(h, p["ffn"], cfg.mlp)
+    if cfg.post_norm:
+        f = apply_norm(cfg.norm, f, p["pn2"])
+    return x + f, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Whole-model parameters / forward
+# ---------------------------------------------------------------------------
+
+class LMParams(nn.Module):
+    """The model's weights: `embed` [V, d], `unembed` [d, V], `lnf`, and
+    `blocks`, one per layer (kinds in `kinds`)."""
+
+    def __init__(self, cfg, *, generator: torch.Generator, device=None):
+        super().__init__()
+        check_supported(cfg)
+        dt = _dtype(cfg)
+        kw = dict(dtype=dt, generator=generator, device=device)
+        self.embed = nn.Parameter(dense_init((cfg.vocab, cfg.d_model), **kw),
+                                  requires_grad=False)
+        self.unembed = nn.Parameter(
+            dense_init((cfg.d_model, cfg.vocab), **kw), requires_grad=False)
+        self.lnf = _frozen(norm_init(cfg.norm, cfg.d_model, dt, device))
+        self.kinds = tuple(layer_kinds(cfg))
+        self.blocks = nn.ModuleList(
+            init_block(cfg, kind, generator=generator, device=device)
+            for kind in self.kinds)
+
+
+def init_params(cfg, *, generator: torch.Generator, device=None) -> LMParams:
+    return LMParams(cfg, generator=generator, device=device)
+
+
+def _embed_inputs(params, cfg, batch):
+    tokens = batch["tokens"]
+    x = params.embed[tokens.long()]
+    if cfg.embed_scale:
+        x = (x.float() * (cfg.d_model ** 0.5)).to(x.dtype)
+    return x
+
+
+def _run_stack(params, cfg, batch) -> Tuple[torch.Tensor, list]:
+    """Every block over the whole sequence: (x before `lnf`, [(k, v)] per
+    layer)."""
+    x = _embed_inputs(params, cfg, batch)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    if cfg.rope == "sinusoidal":
+        x = x + sinusoidal_positions(torch.arange(S, device=x.device),
+                                     cfg.d_model).to(x.dtype)[None]
+    caches = []
+    for p, kind in zip(params.blocks, params.kinds):
+        x, c = apply_block(p, x, cfg, kind, positions=positions)
+        caches.append(c)
+    return x, caches
+
+
+def _head(params, cfg, x):
+    """Final norm, unembedding in the activations' dtype, then f32 logits
+    (soft-capped where the config says so)."""
+    x = apply_norm(cfg.norm, x, params.lnf)
+    logits = x @ params.unembed
+    return softcap(logits.float(), cfg.logit_softcap)
+
+
+def forward_full(params, cfg, batch, *, want_cache=False, last_only=False):
+    """Returns (logits [B,S,V] f32, caches, aux). `caches` (with
+    want_cache) is one (k, v) [B,S,K,hd] pair per layer; `aux` is 0 (no
+    MoE here). With `last_only` the head runs on the last position only
+    (logits [B,1,V]: the same values, without the [B,S,V] tensor)."""
+    x, caches = _run_stack(params, cfg, batch)
+    if last_only:
+        x = x[:, -1:]
+    logits = _head(params, cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, (caches if want_cache else None), aux
+
+
+def forward_decode(params, cfg, cache, batch, pos: int):
+    """One-token step. batch: {"tokens" [B,1]}; cache as init_cache().
+    Writes each layer's k/v at `pos` in place. Returns (logits [B,1,V],
+    cache)."""
+    x = _embed_inputs(params, cfg, batch)
+    if cfg.rope == "sinusoidal":
+        x = x + sinusoidal_positions(
+            torch.tensor([pos], device=x.device), cfg.d_model
+        ).to(x.dtype)[None]
+    for p, kind, c in zip(params.blocks, params.kinds, cache):
+        x, _ = apply_block(p, x, cfg, kind, cache=c, pos=pos)
+    return _head(params, cfg, x), cache
+
+
+def init_cache(cfg, B: int, T: int, device=None) -> list:
+    """Decode cache sized for positions [0, T), one {"k", "v"} dict per
+    layer. Local windows clamp storage."""
+    check_supported(cfg)
+    dt = _dtype(cfg)
+    out = []
+    for kind in layer_kinds(cfg):
+        Tk = min(T, cfg.window) if kind == "attn_local" and cfg.window else T
+        out.append(attn.init_kv_cache(cfg, kind, B, Tk, dt, device))
+    return out

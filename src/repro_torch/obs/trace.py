@@ -30,6 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["ENGINE_IDS", "ENGINE_NAMES", "TraceBuffer", "trace_init",
            "trace_record", "trace_summary", "maybe_summary"]
 
@@ -56,10 +58,12 @@ class TraceBuffer(NamedTuple):
 
 
 def trace_init(cap: int, dtype, engine: str, device=None) -> TraceBuffer:
-    """Fresh buffer on `device` (the ranks' device; the CPU if None).
-    Unwritten lanes stay at the -1 / NaN sentinels, so a summary truncated
+    """Fresh buffer on `device` (CUDA unless named, as every staging call:
+    `device.resolve_device`). Unwritten lanes stay at the -1 / NaN sentinels, so a summary truncated
     by a wrong iteration count is visibly wrong rather than silently
     zero."""
+    device = resolve_device(device)
+
     def full(fill, dt):
         return torch.full((cap,), fill, dtype=dt, device=device)
     return TraceBuffer(

@@ -1,0 +1,241 @@
+"""repro_torch's attention kernel, attention, layers and configs against the
+JAX package, on the CPU.
+
+The same inputs, made with numpy from a seed, go through both packages in
+f32. Bars:
+  * `flash_attention` (on the CPU its plain version, the online softmax
+    the CUDA kernel computes) against the Pallas kernel in interpret mode
+    and against `flash_attention_ref`: 2e-5, the bar of
+    tests/test_kernels.py's sweep;
+  * `chunked_attention` (GQA, window, soft-cap): 1e-5;
+  * norms, RoPE and the MLPs: 1e-6;
+  * configs: `dataclasses.asdict` equal.
+The CUDA kernel itself is held against `flash_attention_plain` on the card
+by `chip_smoke.py` (phase 9).
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.configs as jconfigs  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attn import flash_attention as j_flash  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attn import (  # noqa: E402
+    flash_attention, flash_attention_bshd, flash_attention_plain)
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+
+KERNEL_TOL = 2e-5
+ATTN_TOL = 1e-5
+LAYER_TOL = 1e-6
+ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b")
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
+                               rtol=tol)
+
+
+# -- the kernel ----------------------------------------------------------------
+
+@pytest.mark.parametrize("S,T,D,bq,bk", [(64, 64, 16, 16, 16),
+                                         (128, 128, 32, 64, 32),
+                                         (32, 32, 8, 32, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_pallas_and_ref(S, T, D, bq, bk, causal):
+    """tests/test_kernels.py's sweep: the port (plain on the CPU) against
+    the Pallas kernel in interpret mode and against the exact softmax."""
+    rng = np.random.default_rng(S + T + D)
+    q, k, v = _normal(rng, 4, S, D), _normal(rng, 4, T, D), \
+        _normal(rng, 4, T, D)
+    before = flash_attention.launches
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal)
+    assert flash_attention.launches == before      # no kernel on the CPU
+    assert got.dtype == torch.float32 and got.shape == (4, S, D)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    _close(got, j_flash(jq, jk, jv, bq=bq, bk=bk, causal=causal), KERNEL_TOL)
+    _close(got, jref.flash_attention_ref(jq, jk, jv, causal=causal),
+           KERNEL_TOL)
+    _close(tref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), causal=causal),
+           jref.flash_attention_ref(jq, jk, jv, causal=causal), KERNEL_TOL)
+
+
+@pytest.mark.parametrize("S,T,causal", [(100, 100, True), (37, 300, False),
+                                        (300, 37, True), (1, 5, True)])
+def test_flash_attention_plain_ragged(S, T, causal):
+    """Lengths off every block size: the plain online softmax equals the
+    exact softmax (the card checks the kernel at S = T = 1000)."""
+    rng = np.random.default_rng(S * 7 + T)
+    q, k, v = (torch.from_numpy(a) for a in (
+        _normal(rng, 3, S, 32), _normal(rng, 3, T, 32), _normal(rng, 3, T, 32)))
+    got = flash_attention_plain(q, k, v, causal=causal)
+    _close(got, tref.flash_attention_ref(q, k, v, causal=causal), KERNEL_TOL)
+    assert bool(torch.isfinite(got).all())
+
+
+def test_flash_attention_bf16_plain_keeps_f32_statistics():
+    """bf16 in, bf16 out; the statistics are f32, so the result is the
+    exact softmax of the bf16 inputs rounded once."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(_normal(rng, 2, 96, 64)).to(torch.bfloat16)
+               for _ in range(3))
+    got = flash_attention_plain(q, k, v)
+    want = tref.flash_attention_ref(q.float(), k.float(), v.float())
+    assert got.dtype == torch.bfloat16
+    # one bf16 rounding of values |x| < 4: half an ulp is 2^-8 * 2 = 2^-7
+    _close(got.float(), want, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("H,K", [(4, 2), (4, 4), (6, 1)])
+def test_flash_attention_bshd_maps_kv_heads(H, K):
+    """The model-layout entry (q head h reads kv head h // (H // K))
+    against the model's own chunked schedule, both in f32."""
+    rng = np.random.default_rng(H * 10 + K)
+    B, S, D = 2, 64, 16
+    q = torch.from_numpy(_normal(rng, B, S, H, D))
+    k = torch.from_numpy(_normal(rng, B, S, K, D))
+    v = torch.from_numpy(_normal(rng, B, S, K, D))
+    got = flash_attention_bshd(q, k, v)
+    assert got.shape == (B, S, H, D)
+    _close(got, tattn.chunked_attention(q, k, v, chunk=16), KERNEL_TOL)
+    _close(got, jattn.chunked_attention(jnp.asarray(q.numpy()),
+                                        jnp.asarray(k.numpy()),
+                                        jnp.asarray(v.numpy()), chunk=16),
+           KERNEL_TOL)
+
+
+def test_flash_attention_raises_off_cpu_and_cuda():
+    q = torch.empty(2, 64, 16, device="meta")
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        flash_attention_bshd(q[:, :, None], q[:, :, None], q[:, :, None])
+    assert flash_attention.launches == before
+
+
+# -- chunked attention ---------------------------------------------------------
+
+@pytest.mark.parametrize("window,cap", [(None, None), (8, None), (None, 5.0),
+                                        (8, 5.0)])
+def test_chunked_attention_matches_jax(window, cap):
+    rng = np.random.default_rng(11)
+    B, S, H, K, D = 2, 64, 4, 2, 16
+    q, k, v = _normal(rng, B, S, H, D), _normal(rng, B, S, K, D), \
+        _normal(rng, B, S, K, D)
+    got = tattn.chunked_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  chunk=16, window=window, cap=cap)
+    want = jattn.chunked_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                   chunk=16, window=window, cap=cap)
+    assert got.shape == (B, S, H, D)
+    _close(got, want, ATTN_TOL)
+
+
+# -- layers --------------------------------------------------------------------
+
+def test_norms_match_jax():
+    rng = np.random.default_rng(5)
+    x, w, b = _normal(rng, 3, 7, 48), _normal(rng, 48), _normal(rng, 48)
+    tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
+    _close(tlayers.rmsnorm(tx, tw), jlayers.rmsnorm(jnp.asarray(x),
+                                                    jnp.asarray(w)), LAYER_TOL)
+    _close(tlayers.layernorm(tx, tw, tb),
+           jlayers.layernorm(*(jnp.asarray(a) for a in (x, w, b))), LAYER_TOL)
+    for kind in ("rmsnorm", "layernorm"):
+        tp = tlayers.norm_init(kind, 48, torch.float32)
+        jp = jlayers.norm_init(kind, 48, jnp.float32)
+        assert sorted(tp) == sorted(jp)
+        _close(tlayers.apply_norm(kind, tx, tp),
+               jlayers.apply_norm(kind, jnp.asarray(x), jp), LAYER_TOL)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_apply_rope_matches_jax(theta):
+    rng = np.random.default_rng(6)
+    x = _normal(rng, 2, 40, 3, 32)
+    pos = np.broadcast_to(np.arange(40), (2, 40)) + 7
+    got = tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                             theta)
+    want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    _close(got, want, LAYER_TOL)
+    _close(tlayers.rope_freqs(32, theta), jlayers.rope_freqs(32, theta), 0.0)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])
+def test_mlp_apply_matches_jax(kind):
+    rng = np.random.default_rng(7)
+    x = _normal(rng, 2, 5, 24)
+    names = ("wg", "wu", "wd") if kind != "gelu" else ("wu", "wd")
+    p = {n: _normal(rng, *((40, 24) if n == "wd" else (24, 40))) * 0.2
+         for n in names}
+    got = tlayers.mlp_apply(torch.from_numpy(x),
+                            {n: torch.from_numpy(a) for n, a in p.items()},
+                            kind)
+    want = jlayers.mlp_apply(jnp.asarray(x),
+                             {n: jnp.asarray(a) for n, a in p.items()}, kind)
+    _close(got, want, LAYER_TOL)
+    init = tlayers.mlp_init(24, 40, kind, torch.float32,
+                            generator=torch.Generator().manual_seed(0))
+    assert {n: tuple(a.shape) for n, a in init.items()} == \
+        {n: a.shape for n, a in p.items()}
+
+
+def test_positions_and_softcap_match_jax():
+    pos = np.arange(12)
+    _close(tlayers.sinusoidal_positions(torch.from_numpy(pos), 16),
+           jlayers.sinusoidal_positions(jnp.asarray(pos), 16), LAYER_TOL)
+    x = np.linspace(-40, 40, 101).astype(np.float32)
+    _close(tlayers.softcap(torch.from_numpy(x), 30.0),
+           jlayers.softcap(jnp.asarray(x), 30.0), LAYER_TOL)
+    tx = torch.from_numpy(x)
+    assert tlayers.softcap(tx, None) is tx
+
+
+def test_dense_init_is_a_truncated_fan_in_normal():
+    g = torch.Generator().manual_seed(0)
+    w = tlayers.dense_init((512, 256), dtype=torch.float32, generator=g)
+    std = 1.0 / np.sqrt(512)
+    assert float(w.abs().max()) <= 2.0 * std + 1e-7
+    # the standard deviation of N(0, 1) cut at ±2 is 0.8796
+    assert abs(float(w.std()) / std - 0.8796) < 0.01
+    w2 = tlayers.dense_init((512, 256), dtype=torch.float32,
+                            generator=torch.Generator().manual_seed(0))
+    assert torch.equal(w, w2)
+    assert tlayers.dense_init((4, 3, 2), in_axis_size=6, dtype=torch.bfloat16,
+                              generator=g).dtype == torch.bfloat16
+
+
+# -- configs -------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_configs_equal_jax(name):
+    tcfg, jcfg = tconfigs.get_config(name), jconfigs.get_config(name)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(tconfigs.smoke_config(tcfg)) == \
+        dataclasses.asdict(jconfigs.smoke_config(jcfg))
+    assert tcfg.layer_kinds() == jcfg.layer_kinds() and tcfg.hd == jcfg.hd
+
+
+def test_config_classes_match_jax_field_for_field():
+    for t, j in ((tconfigs.ArchConfig, jconfigs.ArchConfig),
+                 (tconfigs.MoECfg, jconfigs.MoECfg),
+                 (tconfigs.MLACfg, jconfigs.MLACfg),
+                 (tconfigs.RecCfg, jconfigs.RecCfg)):
+        assert [(f.name, f.default) for f in dataclasses.fields(t)] == \
+            [(f.name, f.default) for f in dataclasses.fields(j)]
+    assert set(tconfigs.list_configs()) == set(ARCHS)
+    assert set(ARCHS) <= set(jconfigs.list_configs())

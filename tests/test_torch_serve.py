@@ -1,0 +1,320 @@
+"""repro_torch's LM serving path (LMModel, forward_full, decode_step, the
+serve loop) against the JAX package, on the CPU, at the smoke configs of
+qwen2-1.5b, smollm-360m and qwen3-4b.
+
+The JAX package's weights (`repro.models.LMModel(cfg).init_params(
+jax.random.key(k))`) are carried into the port by `params_from_jax`, and
+the same `batch_for` tokens go through both, in f32. Bars: logits and
+caches within 1e-5 (the prefill's attention is `chunked_attention` on the
+CPU; the CUDA kernel is held against its plain version on the card by
+`chip_smoke.py`); greedy tokens exactly equal. Also the guards: what the
+port does not serve yet raises NotImplementedError naming ROADMAP A9, and
+nothing is put on the CPU unless asked.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.configs as jconfigs  # noqa: E402
+from repro.launch.serve import serve as j_serve  # noqa: E402
+from repro.models import LMModel as JLMModel  # noqa: E402
+from repro.models import transformer as jtfm  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
+from repro_torch.core.frontier import fstats_init  # noqa: E402
+from repro_torch.data import batch_for  # noqa: E402
+from repro_torch.launch.serve import generate, serve  # noqa: E402
+from repro_torch.models import LMModel  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import transformer as ttfm  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.obs import trace_init  # noqa: E402
+
+TOL = 1e-5
+ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b")
+CPU = dict(device="cpu")
+
+
+def _cfgs(name, layers=2):
+    """(port config, JAX config): the architecture's smoke config with its
+    pattern repeated `layers` times."""
+    return tuple(dataclasses.replace(c.smoke_config(c.get_config(name)),
+                                     n_layers=layers, repeats=layers)
+                 for c in (tconfigs, jconfigs))
+
+
+def _port_cfg(jcfg):
+    """A port ArchConfig with every field of a JAX one (for the families
+    the port does not register)."""
+    kw = {}
+    for f in dataclasses.fields(jcfg):
+        v = getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = getattr(tconfigs, type(v).__name__)(**dataclasses.asdict(v))
+        kw[f.name] = v
+    return tconfigs.ArchConfig(**kw)
+
+
+def _carry(name, key, layers=2):
+    """(port model on the CPU, JAX model, JAX params, port config, JAX
+    config), the port's weights carried from the JAX ones."""
+    tcfg, jcfg = _cfgs(name, layers)
+    jm = JLMModel(jcfg)
+    jp = jm.init_params(jax.random.key(key))
+    model = LMModel(tcfg, **CPU)
+    model.params.load_state_dict(
+        params_from_jax(jax.tree.map(np.asarray, jp), tcfg))
+    return model, jm, jp, tcfg, jcfg
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
+                               rtol=tol)
+
+
+# -- weights -------------------------------------------------------------------
+
+def test_params_from_jax_carries_every_leaf():
+    model, _, jp, tcfg, _ = _carry("qwen2-1.5b", 0, layers=3)
+    sd = model.params.state_dict()
+    # embed, unembed, lnf.w; per block ln1, 4 weights + 3 biases, ln2, 3 MLP
+    assert len(sd) == 3 + tcfg.n_layers * 12
+    np.testing.assert_array_equal(sd["embed"].numpy(), np.asarray(jp["embed"]))
+    np.testing.assert_array_equal(sd["lnf.w"].numpy(),
+                                  np.asarray(jp["lnf"]["w"]))
+    for layer in range(tcfg.n_layers):
+        for grp, leaf in (("mix", "wq"), ("mix", "bk"), ("ffn", "wd"),
+                          ("ln2", "w")):
+            np.testing.assert_array_equal(
+                sd[f"blocks.{layer}.{grp}.{leaf}"].numpy(),
+                np.asarray(jp["pattern"][0][grp][leaf][layer]))
+
+
+def test_params_from_jax_raises_on_a_missing_or_extra_leaf():
+    tcfg, jcfg = _cfgs("qwen3-4b")
+    tree = jax.tree.map(np.asarray,
+                        JLMModel(jcfg).init_params(jax.random.key(0)))
+    del tree["pattern"][0]["mix"]["qn"]
+    with pytest.raises(ValueError, match="missing.*qn"):
+        params_from_jax(tree, tcfg)
+    tree = jax.tree.map(np.asarray,
+                        JLMModel(jcfg).init_params(jax.random.key(0)))
+    tree["lnf"]["b"] = np.zeros(tcfg.d_model, np.float32)
+    with pytest.raises(ValueError, match="extra.*lnf.b"):
+        params_from_jax(tree, tcfg)
+    tree = jax.tree.map(np.asarray,
+                        JLMModel(jcfg).init_params(jax.random.key(0)))
+    tree["unembed"] = tree["unembed"][:, :-1]
+    with pytest.raises(ValueError, match="unembed has shape"):
+        params_from_jax(tree, tcfg)
+
+
+# -- the model -----------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_forward_full_matches_jax(name):
+    """Logits and every layer's (k, v) cache; S = 64 spans two attention
+    chunks of the smoke config."""
+    model, _, jp, tcfg, jcfg = _carry(name, 1)
+    batch = batch_for(tcfg, 2, 64, 0, seed=5)
+    jl, jc, _ = jtfm.forward_full(
+        jp, jcfg, {"tokens": jnp.asarray(batch["tokens"])}, want_cache=True)
+    tl, tc, aux = ttfm.forward_full(
+        model.params, tcfg, {"tokens": torch.from_numpy(batch["tokens"])},
+        want_cache=True)
+    assert tl.shape == (2, 64, tcfg.vocab) and tl.dtype == torch.float32
+    assert float(aux) == 0.0
+    _close(tl, jl)
+    pre, pat, reps, suf = jcfg.layer_kinds()
+    assert len(tc) == tcfg.n_layers and not pre and not suf
+    for layer, (k, v) in enumerate(tc):
+        jk, jv = jc["pattern"][layer % len(pat)]
+        _close(k, jk[layer // len(pat)])
+        _close(v, jv[layer // len(pat)])
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_decode_step_matches_jax_at_every_position(name):
+    model, jm, jp, tcfg, jcfg = _carry(name, 2)
+    B, S = 2, 16
+    toks = batch_for(tcfg, B, S, 0, seed=6)["tokens"]
+    jcache = jtfm.init_cache(jcfg, B, S)
+    tcache = model.init_cache(B, S)
+    step = jax.jit(jm.decode_step)
+    for t in range(S):
+        jl, jcache = step(jp, jcache, {"tokens": jnp.asarray(toks[:, t:t + 1])},
+                          jnp.asarray(t, jnp.int32))
+        tl, tcache2 = model.decode_step(tcache, {"tokens": toks[:, t:t + 1]},
+                                        t)
+        assert tcache2 is tcache                # written in place
+        assert tl.shape == (B, 1, tcfg.vocab)
+        _close(tl, jl)
+    for layer, c in enumerate(tcache):
+        _close(c["k"], jcache["pattern"][0]["k"][layer])
+        _close(c["v"], jcache["pattern"][0]["v"][layer])
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_prefill_step_matches_stepped_decode(name):
+    """The port's own parity (tests/test_models_smoke.py's, at 1e-5): the
+    fused prefill's last logits and caches against the stepped decode;
+    and they are forward_full's last position."""
+    tcfg, _ = _cfgs(name)
+    model = LMModel(tcfg, seed=3, **CPU)
+    B, S = 2, 16
+    batch = batch_for(tcfg, B, S, 0, seed=7)
+    last, caches = model.prefill_step(batch)
+    full, _, _ = ttfm.forward_full(model.params, tcfg,
+                                   {"tokens": torch.from_numpy(
+                                       batch["tokens"])})
+    assert last.shape == (B, tcfg.vocab)
+    _close(last, full[:, -1])
+    cache = model.init_cache(B, S)
+    for t in range(S):
+        logits, cache = model.decode_step(
+            cache, {"tokens": batch["tokens"][:, t:t + 1]}, t)
+    _close(logits[:, 0], last)
+    for (k, v), c in zip(caches, cache):
+        _close(k, c["k"])
+        _close(v, c["v"])
+
+
+def test_models_with_one_seed_are_equal_and_other_seeds_differ():
+    tcfg, _ = _cfgs("smollm-360m")
+    a, b, c = (LMModel(tcfg, seed=s, **CPU) for s in (4, 4, 5))
+    for (k, x), y, z in zip(a.state_dict().items(), b.state_dict().values(),
+                            c.state_dict().values()):
+        assert torch.equal(x, y), k
+    assert not torch.equal(a.params.embed, c.params.embed)
+    assert all(not p.requires_grad for p in a.parameters())
+
+
+# -- serving -------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,seed", [("smollm-360m", 0), ("qwen3-4b", 3),
+                                       ("qwen2-1.5b", 1)])
+def test_serve_tokens_equal_jax(name, seed):
+    """repro.launch.serve draws its weights from jax.random.key(seed); the
+    port's loop, given those weights and the same prompts, produces the
+    same greedy tokens."""
+    B, P, G = 2, 8, 6
+    want, _ = j_serve(_cfgs(name)[1], batch=B, prompt_len=P, gen=G,
+                      seed=seed)
+    model, *_ = _carry(name, seed)
+    prompts = batch_for(model.cfg, B, P, 0, seed)["tokens"]
+    got, tps = generate(model, prompts, G)
+    assert got.shape == (B, G) and tps > 0
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_serve_logits_equal_jax_under_teacher_forcing(name):
+    """Every step of the serve loop (stepped prefill, then decode) on one
+    token sequence: logits within 1e-5, so a near-tie in the argmax cannot
+    hide a difference."""
+    model, jm, jp, tcfg, jcfg = _carry(name, 4)
+    B, P, G = 2, 8, 6
+    prompts = batch_for(tcfg, B, P, 0, 4)["tokens"]
+    toks, _ = generate(model, prompts, G)
+    seq = np.concatenate([prompts, toks], axis=1)
+    jcache = jtfm.init_cache(jcfg, B, P + G)
+    tcache = model.init_cache(B, P + G)
+    step = jax.jit(jm.decode_step)
+    for t in range(P + G):
+        jl, jcache = step(jp, jcache, {"tokens": jnp.asarray(seq[:, t:t + 1])},
+                          jnp.asarray(t, jnp.int32))
+        tl, tcache = model.decode_step(tcache, {"tokens": seq[:, t:t + 1]}, t)
+        _close(tl, jl)
+        if t >= P - 1 and t < P + G - 1:       # the loop's greedy choice
+            np.testing.assert_array_equal(
+                np.asarray(tl[:, -1].argmax(-1)), seq[:, t + 1])
+
+
+def test_serve_is_deterministic_and_in_vocab():
+    tcfg, _ = _cfgs("qwen3-4b")
+    a, tps = serve(tcfg, batch=2, prompt_len=8, gen=4, seed=3, **CPU)
+    b, _ = serve(tcfg, batch=2, prompt_len=8, gen=4, seed=3, **CPU)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (2, 4) and a.min() >= 0 and a.max() < tcfg.vocab
+    assert tps > 0
+
+
+# -- guards --------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,what", [
+    ("dbrx-132b", "MoE"), ("deepseek-v3-671b", "MLA"),
+    ("rwkv6-1.6b", "RWKV6"), ("recurrentgemma-2b", "RG-LRU"),
+    ("musicgen-large", "embedding inputs"), ("qwen2-vl-2b", "M-RoPE")])
+def test_unported_families_raise(name, what):
+    cfg = _port_cfg(jconfigs.smoke_config(jconfigs.get_config(name)))
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A9"):
+        LMModel(cfg, **CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        ttfm.init_cache(cfg, 1, 4, **CPU)
+
+
+def test_unported_options_raise():
+    tcfg, _ = _cfgs("qwen2-1.5b")
+    int8 = dataclasses.replace(tcfg, kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="int8 KV cache.*A9"):
+        LMModel(int8, **CPU)
+    with pytest.raises(NotImplementedError, match="int8 KV cache.*A9"):
+        tattn.init_kv_cache(int8, "attn", 1, 4, torch.float32, "cpu")
+    mla = _port_cfg(jconfigs.smoke_config(
+        jconfigs.get_config("deepseek-v3-671b")))
+    with pytest.raises(NotImplementedError, match="MLA.*A9"):
+        tattn.attn_init(mla, torch.float32, generator=torch.Generator())
+    for kind in ("attn_moe", "mla_dense", "rwkv", "rec"):
+        with pytest.raises(NotImplementedError, match="A9"):
+            ttfm.init_block(tcfg, kind, generator=torch.Generator())
+
+
+def test_local_and_softcap_kinds_run_on_cpu_and_raise_off_it():
+    """gemma2's kinds (local window, soft-caps, post-norms) run on the CPU
+    through chunked_attention and match the JAX model there; off the CPU
+    the kernel has neither window nor soft-cap, so attn_apply raises
+    before any launch."""
+    jcfg = jconfigs.smoke_config(jconfigs.get_config("gemma2-9b"))
+    tcfg = _port_cfg(jcfg)
+    jp = JLMModel(jcfg).init_params(jax.random.key(0))
+    model = LMModel(tcfg, **CPU)
+    model.params.load_state_dict(
+        params_from_jax(jax.tree.map(np.asarray, jp), tcfg))
+    toks = batch_for(tcfg, 2, 32, 0, seed=1)["tokens"]
+    jl, _, _ = jtfm.forward_full(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    tl, _, _ = ttfm.forward_full(model.params, tcfg,
+                                 {"tokens": torch.from_numpy(toks)})
+    _close(tl, jl)
+    x = torch.empty(1, 8, tcfg.d_model, device="meta")
+    pos = torch.zeros(1, 8, dtype=torch.int64, device="meta")
+    p = {k: v.to("meta") for k, v in model.params.blocks[0]["mix"].items()}
+    for kind in ("attn_local", "attn_global"):
+        with pytest.raises(NotImplementedError, match="soft-cap.*A9"):
+            tattn.attn_apply(x, p, tcfg, kind, pos)
+    plain = dataclasses.replace(tcfg, attn_softcap=None)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tattn.attn_apply(x, p, plain, "attn_global", pos)
+
+
+def test_nothing_lands_on_the_cpu_unless_asked():
+    """LMModel, serve, trace_init and fstats_init put their tensors on CUDA
+    unless given a device; with no card they raise, as resolve_device."""
+    tcfg, _ = _cfgs("smollm-360m")
+    calls = (lambda: LMModel(tcfg).params.embed,
+             lambda: serve(tcfg, batch=1, prompt_len=2, gen=1),
+             lambda: trace_init(4, torch.float64, "static").linf,
+             lambda: fstats_init(3))
+    for call in calls:
+        if torch.cuda.is_available():
+            out = call()
+            assert isinstance(out, tuple) or out.is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert trace_init(4, torch.float64, "static", device="cpu").linf.device \
+        == torch.device("cpu")
+    assert fstats_init(3, device="cpu").device == torch.device("cpu")

@@ -55,7 +55,7 @@ def test_engine_ids_match_repro():
 
 
 def test_trace_init_sentinels_and_record():
-    tb = trace_init(8, torch.float64, "dfp")
+    tb = trace_init(8, torch.float64, "dfp", device="cpu")
     assert int(tb.engine) == ENGINE_IDS["dfp"] and tb.cap == 8
     assert tb.linf.dtype == torch.float64 and tb.frontier.dtype == torch.int32
     assert bool(torch.isnan(tb.linf).all())
@@ -72,7 +72,7 @@ def test_trace_init_sentinels_and_record():
 def test_trace_record_takes_device_scalars():
     """Channels given as 0-d tensors (the engines' device-side counts) are
     cast into the channel's dtype."""
-    tb = trace_init(4, torch.float64, "df")
+    tb = trace_init(4, torch.float64, "df", device="cpu")
     flags = torch.tensor([True, False, True, True])
     trace_record(tb, 1, linf=torch.tensor(0.125, dtype=torch.float64),
                  frontier=flags.sum(), delta_n=flags[:2].sum(),
@@ -84,8 +84,8 @@ def test_trace_record_takes_device_scalars():
 
 
 def test_trace_record_out_of_cap_drops():
-    tb = trace_init(4, torch.float64, "static")
-    fresh = trace_init(4, torch.float64, "static")
+    tb = trace_init(4, torch.float64, "static", device="cpu")
+    fresh = trace_init(4, torch.float64, "static", device="cpu")
     tb2 = trace_record(tb, 9, linf=1.0, frontier=1, delta_n=0, pruned=0)
     trace_record(tb, -1, linf=1.0, frontier=1, delta_n=0, pruned=0)
     assert torch.equal(tb2.frontier, fresh.frontier)
@@ -93,7 +93,7 @@ def test_trace_record_out_of_cap_drops():
 
 
 def test_trace_summary_trims_and_sanitizes():
-    tb = trace_init(6, torch.float64, "dfp_compact")
+    tb = trace_init(6, torch.float64, "dfp_compact", device="cpu")
     tb = trace_record(tb, 0, linf=float("inf"), frontier=5, delta_n=1,
                       pruned=0)
     tb = trace_record(tb, 1, linf=0.25, frontier=3, delta_n=0, pruned=2)
@@ -115,7 +115,7 @@ def test_trace_summary_trims_and_sanitizes():
 
 
 def test_trace_summary_of_an_empty_solve():
-    s = trace_summary(trace_init(3, torch.float64, "nd"), 0)
+    s = trace_summary(trace_init(3, torch.float64, "nd", device="cpu"), 0)
     assert s["iters"] == 0 and s["frontier"] == []
     assert s["frontier_peak"] == 0 and s["linf_final"] is None
 
@@ -123,8 +123,8 @@ def test_trace_summary_of_an_empty_solve():
 def test_maybe_summary_passthrough():
     out, s = maybe_summary(("r", 3), False)
     assert out == ("r", 3) and s is None
-    tb = trace_record(trace_init(4, torch.float64, "nd"), 0, linf=0.1,
-                      frontier=2, delta_n=0, pruned=0)
+    tb = trace_record(trace_init(4, torch.float64, "nd", device="cpu"), 0,
+                      linf=0.1, frontier=2, delta_n=0, pruned=0)
     (r, it), s = maybe_summary(("r", 1, tb), True)
     assert r == "r" and it == 1 and s["engine"] == "nd"
 
