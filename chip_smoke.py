@@ -53,18 +53,23 @@ Phases (any failure exits non-zero; nothing is caught):
      batch touched, and timed;
   9. LM serving at qwen2-1.5b's full width and depth, bf16, weights drawn
      from --seed (the PageRank tensors freed first): the flash_attention
-     kernel against its plain version at the prefill's shapes (B=4, H=12
-     over K=2 kv heads, S=T=2048, D=128; bf16 and f32 causal, bf16 full,
-     ragged S=T=1000 in both types and through the [BH, S, D] entry; f32
-     within 2e-5, bf16 within 2e-5 + one bf16 ulp, all finite);
-     LMModel.prefill_step on batch_for(cfg, 4, 2048) (launch count set to
-     0 here: it must rise by exactly one per layer, 28; last logits
-     finite); the f32 copy of the weights at prompt length 256,
-     prefill_step (kernel) against the stepped decode_step (no kernel)
-     within 1e-3; times of the kernel, its plain version,
-     scaled_dot_product_attention (the yardstick, never on the path) and
-     its bound, of prefill_step and of one decode_step; serve (batch 4,
-     prompt 64, gen 32) twice with one seed: equal tokens in [0, vocab).
+     kernels against their plain version at the prefill's shapes (B=4,
+     H=12 over K=2 kv heads, S=T=2048, D=128; bf16 and f32 causal, bf16
+     full, ragged S=T=1000 in both types and through the [BH, S, D] entry
+     in both types, and bf16 at smollm-360m's D=64, 15 heads over 5): f32
+     (the scalar kernel) within 2e-5; bf16 (the tensor-core kernel, which
+     rounds p to bf16) within 2^-8 max|v| + 2^-7 |want| and a mean of
+     1e-4 of the plain version with round_p=True and within 2e-2 of the
+     one with f32 p; all finite; LMModel.prefill_step on batch_for(cfg, 4,
+     2048) (launch counts set to 0 here: both must rise by exactly one
+     per layer, 28; last logits finite); the f32 copy of the weights at
+     prompt length 256, prefill_step (the scalar kernel, no tensor-core
+     launch) against the stepped decode_step (no kernel) within 1e-3;
+     times of the kernel (with TFLOP/s and share of the bound), its plain
+     version, scaled_dot_product_attention (the yardstick, never on the
+     path) and its bound, of prefill_step and of one decode_step; serve
+     (batch 4, prompt 64, gen 32) twice with one seed: equal tokens in
+     [0, vocab).
 Before the last line it prints the `kernels` JSON line (seven kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -124,8 +129,12 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, repeats: int) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+def cuda_ms(fn, repeats: int, per: int = 1) -> float:
+    """Median CUDA-event time of fn() in ms, after one warm-up call. With
+    `per` > 1 each sample is `per` calls back to back, divided by `per`:
+    the card's time per call once the host's enqueue runs ahead of it
+    (with one call per sample, the host's time to reach the launch counts
+    too)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -133,10 +142,11 @@ def cuda_ms(fn, repeats: int) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return float(np.median(times))
 
 
@@ -507,12 +517,21 @@ def stream_phase(args, g, dev, report, wrappers, errs):
 # Phase 9's configuration: the LM served at full width and depth.
 LM_ARCH = "qwen2-1.5b"
 LM_BATCH, LM_SEQ = 4, 2048          # prefill_step's batch
+ATTN_PER = 10                       # flash_attention calls per timed sample
 TOL_ATTN_F32 = 2e-5   # tests/test_kernels.py's flash-attention bar
-# bf16: kernel and plain version widen the same bf16 inputs and keep every
-# statistic in f32, so they agree to the f32 bar before the output's one
-# rounding to bf16; two roundings of nearly equal f32 values differ by at
-# most one bf16 ulp, 2^-7 of the value.
-TOL_ATTN_BF16 = (2e-5, 2.0 ** -7)   # (atol, rtol)
+# bf16 (the tensor-core kernel) against the plain version with round_p=True:
+# both round p to bf16 before PV, but their scores are summed in other
+# orders, so a p weight may round to the neighbouring bf16 value. One such
+# flip moves an output by at most one bf16 ulp of that weight times |v|,
+# and the flips of a row share one bound: 2^-8 * max|v| over all weights;
+# the output's own rounding adds one bf16 ulp, 2^-7 of |want|. The mean
+# |diff| over all elements must stay under 1e-4: flips are rare, so the
+# mean is ~1e-7, while a wrong mask, scale or tile moves it by orders of
+# magnitude.
+TOL_ATTN_TC = (2.0 ** -8, 2.0 ** -7, 1e-4)   # (x max|v|, x |want|, mean)
+# ... and against the plain version with f32 p: the bar
+# scaled_dot_product_attention is held to below
+TOL_ATTN_F32P = 2e-2
 # The f32 model: prefill (kernel) against stepped decode (plain), 28 layers.
 # JAX's smoke bar is 2e-2; f32 sums in another order differ by far less.
 TOL_LM_F32 = 1e-3
@@ -525,6 +544,18 @@ def attn_err(got, want, atol, rtol):
     ok = bool(torch.isfinite(got).all()) and bool(
         (d <= atol + rtol * want.float().abs()).all())
     return float(d.max()), ok
+
+
+def attn_err_tc(got, want, v):
+    """(max |got - want|, mean |got - want|, whether every value is finite
+    and within TOL_ATTN_TC) for the tensor-core kernel's bf16 output."""
+    d = (got.float() - want.float()).abs()
+    per_v, per_want, mean_bar = TOL_ATTN_TC
+    bar = per_v * float(v.float().abs().max()) + per_want * want.float().abs()
+    mean = float(d.mean())
+    ok = bool(torch.isfinite(got).all()) and bool((d <= bar).all()) \
+        and mean <= mean_bar
+    return float(d.max()), mean, ok
 
 
 def lm_phase(args, dev, report):
@@ -553,47 +584,69 @@ def lm_phase(args, dev, report):
     rep = dict(arch=LM_ARCH, batch=B, seq=S, checks=[])
     gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
 
-    def qkv(s, t, dtype, heads=(H, K)):
-        return (torch.randn(B, s, heads[0], D, generator=gen, device=dev
+    def qkv(s, t, dtype, heads=(H, K), d=D):
+        return (torch.randn(B, s, heads[0], d, generator=gen, device=dev
                             ).to(dtype),
-                torch.randn(B, t, heads[1], D, generator=gen, device=dev
+                torch.randn(B, t, heads[1], d, generator=gen, device=dev
                             ).to(dtype),
-                torch.randn(B, t, heads[1], D, generator=gen, device=dev
+                torch.randn(B, t, heads[1], d, generator=gen, device=dev
                             ).to(dtype))
 
+    def hold(name, got, plain, v, kv_shape):
+        """Hold one kernel output against `plain(round_p)`: f32 at
+        TOL_ATTN_F32; bf16 at TOL_ATTN_TC against the rounding of p it
+        shares and at TOL_ATTN_F32P against f32 p. Returns max |diff|."""
+        if got.dtype == torch.float32:
+            e, ok = attn_err(got, plain(False), TOL_ATTN_F32, TOL_ATTN_F32)
+            note = f"(bar {TOL_ATTN_F32})"
+        else:
+            e, mean, ok = attn_err_tc(got, plain(True), v)
+            e32, ok32 = attn_err(got, plain(False), TOL_ATTN_F32P,
+                                 TOL_ATTN_F32P)
+            ok = ok and ok32
+            note = (f"mean {mean:.3e} (bars {TOL_ATTN_TC}); against f32 p "
+                    f"{e32:.3e} (bar {TOL_ATTN_F32P})")
+        rep["checks"].append(dict(case=name, shape=list(got.shape),
+                                  kv=kv_shape, max_abs_err=e))
+        log(f"[lm] flash_attention {name} q {list(got.shape)} kv "
+            f"{kv_shape}: max |diff| {e:.3e} {note}")
+        require(ok, f"flash_attention {name}: max |diff| {e} {note}")
+        return e
+
     # -- 9a the kernel against its plain version -----------------------------
+    # bf16 runs the tensor-core kernel (one launches_tc each), f32 the
+    # scalar one; smollm-360m's head width 64 (15 heads over 5) beside
+    # qwen2-1.5b's 128
+    sm = get_config("smollm-360m")
     err = 0.0
-    cases = [("bf16 causal", S, S, torch.bfloat16, True),
-             ("f32 causal", S, S, torch.float32, True),
-             ("bf16 full", S, S, torch.bfloat16, False),
-             ("bf16 ragged 1000", 1000, 1000, torch.bfloat16, True),
-             ("f32 ragged 1000", 1000, 1000, torch.float32, True)]
-    for name, s, t, dtype, causal in cases:
-        q, k, v = qkv(s, t, dtype)
+    cases = [("bf16 causal", S, torch.bfloat16, True, (H, K), D),
+             ("f32 causal", S, torch.float32, True, (H, K), D),
+             ("bf16 full", S, torch.bfloat16, False, (H, K), D),
+             ("bf16 ragged 1000", 1000, torch.bfloat16, True, (H, K), D),
+             ("f32 ragged 1000", 1000, torch.float32, True, (H, K), D),
+             ("bf16 causal smollm-360m", S, torch.bfloat16, True,
+              (sm.n_heads, sm.n_kv_heads), sm.hd)]
+    for name, s, dtype, causal, heads, d in cases:
+        q, k, v = qkv(s, s, dtype, heads, d)
+        tc0 = flash_attention.launches_tc
         got = flash_attention_bshd(q, k, v, causal=causal)
-        want = flash_attention_bshd_plain(q, k, v, causal=causal)
-        tol = (TOL_ATTN_F32, TOL_ATTN_F32) if dtype == torch.float32 \
-            else TOL_ATTN_BF16
-        e, ok = attn_err(got, want, *tol)
-        rep["checks"].append(dict(case=name, shape=list(q.shape),
-                                  kv=list(k.shape), max_abs_err=e))
-        log(f"[lm] flash_attention {name} q {list(q.shape)} kv "
-            f"{list(k.shape)}: max |diff| {e:.3e} (bar {tol})")
-        require(ok and got.shape == q.shape and got.dtype == dtype,
-                f"flash_attention {name}: max |diff| {e} over {tol}")
-        err = max(err, e)
+        require(got.shape == q.shape and got.dtype == dtype
+                and flash_attention.launches_tc - tc0
+                == (dtype == torch.bfloat16),
+                f"flash_attention {name}: shape, dtype or kernel path")
+        err = max(err, hold(
+            name, got, lambda r: flash_attention_bshd_plain(
+                q, k, v, causal=causal, round_p=r), v, list(k.shape)))
     # the Pallas signature [BH, S, D] (one kv head per q head), ragged
-    q, k, v = (x.permute(0, 2, 1, 3).reshape(B * H, 1000, D)
-               for x in qkv(1000, 1000, torch.float32, (H, H)))
-    e, ok = attn_err(flash_attention(q, k, v), flash_attention_plain(q, k, v),
-                     TOL_ATTN_F32, TOL_ATTN_F32)
-    log(f"[lm] flash_attention [BH, S, D] {list(q.shape)} f32: max |diff| "
-        f"{e:.3e}")
-    require(ok, f"flash_attention [BH, S, D]: max |diff| {e}")
-    rep["checks"].append(dict(case="[BH,S,D] f32 ragged 1000",
-                              shape=list(q.shape), max_abs_err=e))
-    err = max(err, e)
-    del q, k, v, got, want
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (x.permute(0, 2, 1, 3).reshape(B * H, 1000, D)
+                   for x in qkv(1000, 1000, dtype, (H, H)))
+        err = max(err, hold(
+            f"[BH, S, D] {str(dtype)[6:]} ragged 1000",
+            flash_attention(q, k, v),
+            lambda r: flash_attention_plain(q, k, v, round_p=r), v,
+            list(k.shape)))
+    del q, k, v, got
     torch.cuda.synchronize()
 
     # -- 9b prefill_step at full width and depth ------------------------------
@@ -606,13 +659,17 @@ def lm_phase(args, dev, report):
         f"kv heads, head_dim {D}, vocab {cfg.vocab}, {cfg.dtype}), drawn "
         f"in {time.perf_counter() - t0:.1f} s")
     batch = batch_for(cfg, B, S, 0, args.seed)
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.launches_tc = 0
     last, caches = model.prefill_step(batch)
     torch.cuda.synchronize()
     launches = flash_attention.launches
-    log(f"[launches] prefill path: flash_attention {launches}")
-    require(launches == cfg.n_layers, f"prefill_step launched "
-            f"flash_attention {launches} times, not {cfg.n_layers}")
+    log(f"[launches] prefill path: flash_attention {launches}, on the "
+        f"tensor cores {flash_attention.launches_tc}")
+    require(launches == cfg.n_layers
+            and flash_attention.launches_tc == cfg.n_layers,
+            f"prefill_step launched flash_attention {launches} times "
+            f"({flash_attention.launches_tc} on the tensor cores), not "
+            f"{cfg.n_layers}")
     require(last.shape == (B, cfg.vocab) and bool(torch.isfinite(last).all()),
             "prefill_step's last logits are not finite")
     require(len(caches) == cfg.n_layers
@@ -626,10 +683,11 @@ def lm_phase(args, dev, report):
     m32 = LMModel(cfg32, device=dev, seed=args.seed)
     m32.params.load_state_dict(model.params.state_dict())   # cast to f32
     toks = batch_for(cfg32, B, P, 0, args.seed)["tokens"]
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.launches_tc = 0
     want, _ = m32.prefill_step({"tokens": toks})
-    require(flash_attention.launches == cfg.n_layers,
-            "the f32 prefill did not run the kernel in every layer")
+    require(flash_attention.launches == cfg.n_layers
+            and flash_attention.launches_tc == 0,
+            "the f32 prefill did not run the scalar kernel in every layer")
     cache = m32.init_cache(B, P)
     for t in range(P):
         logits, cache = m32.decode_step(cache, {"tokens": toks[:, t:t + 1]},
@@ -651,23 +709,39 @@ def lm_phase(args, dev, report):
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                           enable_gqa=True).transpose(1, 2)
-    e, ok = attn_err(sdpa, flash_attention_bshd_plain(q, k, v), 2e-2, 2e-2)
+    e, ok = attn_err(sdpa, flash_attention_bshd_plain(q, k, v),
+                     TOL_ATTN_F32P, TOL_ATTN_F32P)
     require(ok, f"scaled_dot_product_attention disagrees: {e}")
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
     flops = 2 * B * H * S * S * D
+    # ATTN_PER calls back to back per sample: at ~0.1 ms a call, one call
+    # per sample would also time the host's Python before the launch
+    def kern():
+        return flash_attention_bshd(q, k, v)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
     t_attn = dict(
-        ms=cuda_ms(lambda: flash_attention_bshd(q, k, v), args.repeats),
-        plain_ms=cuda_ms(lambda: flash_attention_bshd_plain(q, k, v),
-                         args.repeats),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), args.repeats),
+        ms=cuda_ms(kern, args.repeats, ATTN_PER),
+        plain_ms=cuda_ms(lambda: flash_attention_bshd_plain(
+            q, k, v, round_p=True), args.repeats, ATTN_PER),
+        library_ms=cuda_ms(library, args.repeats, ATTN_PER),
         bound=bound(nbytes, flops, BF16_FLOPS))
+    rep["attn_tflops"] = flops / t_attn["ms"] / 1e9
+    rep["attn_single_call_ms"] = [cuda_ms(kern, args.repeats),
+                                  cuda_ms(library, args.repeats)]
     log(f"[time] flash_attention bf16 causal {[B, S, H, D]} / kv "
-        f"{[B, S, K, D]}: {t_attn['ms']:.4f} ms "
-        f"({flops / t_attn['ms'] / 1e9:.1f} TFLOP/s), plain "
-        f"{t_attn['plain_ms']:.4f} ms, bound {t_attn['bound'][0]:.4f} ms "
-        f"({t_attn['bound'][1]}), scaled_dot_product_attention "
-        f"{t_attn['library_ms']:.4f} ms")
+        f"{[B, S, K, D]}: {t_attn['ms']:.4f} ms per call, {ATTN_PER} back "
+        f"to back ({rep['attn_tflops']:.1f} TFLOP/s, "
+        f"{100 * t_attn['bound'][0] / t_attn['ms']:.1f}% of the bound), "
+        f"plain (round_p) {t_attn['plain_ms']:.4f} ms, bound "
+        f"{t_attn['bound'][0]:.4f} ms ({t_attn['bound'][1]}), "
+        f"scaled_dot_product_attention {t_attn['library_ms']:.4f} ms; one "
+        f"call per sample: kernel {rep['attn_single_call_ms'][0]:.4f} ms, "
+        f"scaled_dot_product_attention {rep['attn_single_call_ms'][1]:.4f} "
+        f"ms")
     del q, k, v, qt, kt, vt, sdpa
     rep["prefill_ms"] = cuda_ms(lambda: model.prefill_step(batch), 3)
     cache = model.init_cache(B, S + 1)

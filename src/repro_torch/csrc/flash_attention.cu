@@ -5,44 +5,73 @@
 // src/repro/kernels/flash_attn.py, the Pallas form of the model's chunked
 // attention: every layer of LMModel.prefill_step runs it once.
 //
-// What bounds it on the H100: operations. At the prefill shape (S = T =
-// 2048, D = 128) a (64-row q tile, 64-row kv tile) pair does 2 * 64 * 64 *
-// 128 multiply-adds from 32 KB of K and V, far above the card's
-// operations-per-byte balance; the causal mask halves the pairs.
+// What bounds it on the H100: operations. At the prefill shape (B 4, H 12
+// over 2 kv heads, S = T = 2048, D = 128) the causal product is 51.5
+// GFLOP against 58.7 MB of inputs and output: 0.052 ms at the card's 989
+// TFLOP/s of bf16 tensor-core products, 0.018 ms of bytes. Only the
+// tensor cores, fed without stalls, come near that bound.
 //
-// Design (simple first; wgmma, TMA and warp specialisation come later):
-//   * one block of 128 threads per (batch * head, 64-row q tile); the
-//     latest (heaviest, under the causal mask) q tiles are launched first;
-//   * q head h reads kv head h / (H / KH) itself, so GQA needs no repeated
-//     K/V; q, k and v are read through their batch, row and head strides
-//     (the model's [B, S, H, D] and [B, T, KH, D] as they are), the last
-//     dimension contiguous; o is written as a contiguous [B, S, H, D];
-//   * the q tile, then each kv tile in turn (K, then V in the same
-//     buffer), is staged in shared memory as f32, rows padded by one word
-//     so that neither the row-wise nor the column-wise reads conflict;
-//   * a thread owns 4 query rows (r, r + 16, r + 32, r + 48) and 8 key
-//     columns (c, c + 8, ..., c + 56) of the 64 x 64 score tile, and the
-//     same 4 rows times D / 8 columns of the output accumulator, in
-//     registers; the 8 threads that share rows are 8 neighbouring lanes,
-//     so the row max and row sum are three xor shuffles;
-//   * scores are f32 dot products (bf16 inputs widened, as the TPU kernel
-//     does), scaled by 1/sqrt(D), masked with the large finite -2^30 (not
-//     -inf: a masked score gives exp(...) == 0, never NaN), and p stays f32
-//     for the PV product, as in the TPU kernel;
-//   * kv tiles wholly in the future of the q tile are skipped under the
-//     causal mask; tail rows (S or T not a multiple of 64) are read as zero
-//     and masked, and tail query rows are not written;
-//   * one write per output element: acc / max(l, 1e-30), rounded to the
-//     input type.
-// Built without --fmad=false (see kernels/_build.py): the loops are
-// multiply-add chains. Launches on the caller's stream; allocates nothing.
+// Two kernels, chosen by the C entry on dtype and head width:
+//
+// bf16 at D in {64, 128}: the tensor-core kernel (namespace tc).
+//   * one block of 384 threads per (batch * head, 128-row q tile), the
+//     latest (heaviest, under the causal mask) q tiles launched first;
+//     warpgroup 0 is the producer (one thread issues every copy; the
+//     warpgroup gives its registers up with setmaxnreg to 24), warpgroups
+//     1 and 2 are consumers of 64 q rows each (240 registers);
+//   * copies by TMA through 4-D tensor maps over q [B, S, H, D] and k, v
+//     [B, T, KH, D] with the caller's strides (built on the host at each
+//     call, cuTensorMapEncodeTiled reached through the runtime's
+//     driver-entry-point query, so nothing links libcuda): 128-byte
+//     swizzle, a tile as boxes of 64 columns, rows past S or T filled
+//     with zeros by the hardware; q head h reads kv head h / (H / KH), so
+//     GQA repeats nothing;
+//   * a ring of two K/V stages of 128 rows, each with a full barrier for
+//     K, one for V and an empty barrier (mbarrier): the producer keeps the
+//     next tile in flight while the consumers compute on this one;
+//   * S = Q K^T by wgmma m64n128k16 (bf16 in, f32 accumulators), Q and K
+//     both read from shared memory through descriptors; the online
+//     softmax runs on the accumulator registers (row max and row sum over
+//     the four lanes of a quad), with 1/sqrt(D) * log2(e) folded into the
+//     scores so that 2^x (ex2.approx.ftz, one special-function instruction)
+//     gives exp; the mask (-2^30, not -inf) is applied only on tiles that
+//     cross the diagonal or the tail (a loop of its own, so other tiles pay
+//     nothing for it), and tiles wholly in the future are skipped;
+//   * p is rounded to bf16 before the PV product, as the model's
+//     chunked_attention rounds it (src/repro/models/attention.py:68);
+//     the row sum l is taken from the f32 p. The f32 accumulator fragment
+//     of S is, pair by pair, the bf16 A fragment of O += P V, so P goes
+//     from registers to wgmma m64n{D}k16 with no shuffle; V is the B
+//     operand read MN-major through the descriptor's transpose bit, so it
+//     is never transposed in memory;
+//   * epilogue: acc / max(l, 1e-30) in bf16, stored from registers; tail
+//     q rows are not written.
+//   Shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) at D = 128, one block
+//   per SM.
+//
+// f32, and bf16 at D in {16, 32}: the scalar kernel (the port's first
+//   design, left as it was). One block of 128 threads per (batch * head,
+//   64-row q tile); the q tile and each K, then V, tile staged in shared
+//   memory as f32; a thread owns 4 query rows and 8 key columns of the
+//   64 x 64 score tile and the same rows of the output in registers;
+//   scores, p and the output accumulator in f32 on the CUDA cores (67
+//   TFLOP/s of f32, and a shared-memory load for every 2.7 multiply-adds),
+//   so it is far slower.
+//
+// Both: masked scores at the large finite -2^30 (a masked score gives
+// exp(...) == 0, never NaN); ragged S and T; o a contiguous [B, S, H, D].
+// Built without --fmad=false (see kernels/_build.py). Launches on the
+// caller's stream; allocates nothing.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
+// -- the scalar kernel: f32, and bf16 at D in {16, 32} ---------------------
 constexpr int kRows = 64;       // q rows per block = kv rows per tile
 constexpr int kThreads = 128;   // 16 row groups x 8 column groups
 constexpr float kNeg = -1073741824.0f;   // -2^30, the TPU kernel's NEG
@@ -231,13 +260,470 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
   switch (D) {
     FA_CASE(16)
     FA_CASE(32)
-    FA_CASE(64)
-    FA_CASE(128)
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+  // bf16 at D 64 and 128 takes the tensor-core kernel (tc::launch)
+  if constexpr (sizeof(T) == sizeof(float)) {
+    switch (D) {
+      FA_CASE(64)
+      FA_CASE(128)
+      default:
+        break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 #undef FA_CASE
 }
+
+// -- the tensor-core kernel: bf16, D in {64, 128} ---------------------------
+namespace tc {
+
+constexpr int kBM = 128;        // q rows per block: two consumer slabs of 64
+constexpr int kBN = 128;        // kv rows per tile
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kThreads = 384;   // producer warpgroup + two consumers
+constexpr int kBox = 64;        // bf16 columns per 128-byte swizzled box
+constexpr int kRowBytes = 128;  // one row of a box
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// arrive once and add `bytes` to the transaction count of this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
+// shared memory at dst, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`
+// (1024-byte aligned swizzle atoms of 8 rows x 128 bytes): `lbo` is the
+// byte offset between atoms along the leading dimension (used by the
+// MN-major V: the next 64 columns), `sbo` the offset between groups of 8
+// rows.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+         | (uint64_t)((sbo >> 4) & 0x3FFF) << 32
+         | (uint64_t)1 << 62;                     // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// 2^x by the special-function unit (subnormal results flushed to 0: a p
+// that small is 0 in the bf16 product and below f32 rounding in l)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d[64] (+)= A (shared, K-major) * B (shared, K-major), m64n128k16.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[32] += A (registers) * B (shared, MN-major), m64n64k16.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d[64] += A (registers) * B (shared, MN-major), m64n128k16.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// O += P V for one k16 step: N = D columns of V
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128) wgmma_rs_n128(acc, a, db);
+  else wgmma_rs_n64(acc, a, db);
+}
+
+template <int D>
+struct Layout {
+  static constexpr int kQBytes = kBM * D * 2;   // Q: D / 64 boxes of kBM rows
+  static constexpr int kTile = kBN * D * 2;     // K or V: D / 64 boxes
+  static constexpr int kBars = 3 * kStages + 1;
+  // + 1024: the swizzle atoms need a 1024-byte aligned start
+  static constexpr int kSmem = kQBytes + kStages * 2 * kTile + 8 * kBars
+                               + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_tc(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, int H, int KH, int S,
+                       int Tk, int BH, int nq, float scale_log2,
+                       int causal) {
+  using L = Layout<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;          // Q, then the ring
+  const uint32_t ring = sq + L::kQBytes;              // stage s: K, then V
+  const uint32_t bars = ring + kStages * 2 * L::kTile;
+  // barriers: full K [kStages], full V [kStages], empty [kStages], Q
+  const uint32_t q_full = bars + 8 * 3 * kStages;
+
+  const int bh = blockIdx.x % BH;
+  const int qt = nq - 1 - blockIdx.x / BH;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / KH);
+  const int q0 = qt * kBM;
+  int n_tiles = (Tk + kBN - 1) / kBN;
+  if (causal) n_tiles = min(n_tiles, (min(S, q0 + kBM) - 1) / kBN + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                     // producer's arrive
+      mbar_init(bars + 8 * (kStages + s), 1);
+      mbar_init(bars + 8 * (2 * kStages + s), 2 * 128);   // every consumer
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // -- producer: one thread issues every copy ------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kQBytes);
+      for (int c = 0; c < D / kBox; ++c)
+        tma_load(sq + c * kBM * kRowBytes, &tq, c * kBox, h, q0, b, q_full);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
+        // the stage's previous tile is consumed (passes at once the first
+        // time round: the phase before phase 0 counts as complete)
+        mbar_wait(bars + 8 * (2 * kStages + s), ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(bars + 8 * s, L::kTile);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(sk + c * kBN * kRowBytes, &tk, c * kBox, kh, kt * kBN, b,
+                   bars + 8 * s);
+        mbar_expect_tx(bars + 8 * (kStages + s), L::kTile);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(sv + c * kBN * kRowBytes, &tv, c * kBox, kh, kt * kBN, b,
+                   bars + 8 * (kStages + s));
+      }
+    }
+    return;
+  }
+
+  // -- consumers: 64 q rows each ----------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128;
+  // accumulator layout of wgmma m64nN: this thread holds rows r and r + 8
+  // of the slab, columns 8 j + cq and 8 j + cq + 1 for j < N / 8; element i
+  // is (row r + 8 ((i / 2) % 2), column 8 (i / 4) + cq + i % 2)
+  const int r = (t / 32) * 16 + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const int row0 = q0 + 64 * cw + r;                  // row1 = row0 + 8
+  const uint32_t qa = sq + cw * 64 * kRowBytes;       // the slab in a box
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;     // log2 units; per lane
+
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % kStages;
+    const uint32_t ph = (kt / kStages) & 1;
+    const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
+    const int k0 = kt * kBN;
+
+    // S = Q K^T: D / 16 steps of k16; step kk reads 32 bytes into box kk / 4
+    float sc[kBN / 2];
+    mbar_wait(bars + 8 * s, ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss_n128(sc,
+                    desc(qa + (kk / 4) * kBM * kRowBytes + off, 16, 1024),
+                    desc(sk + (kk / 4) * kBN * kRowBytes + off, 16, 1024),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // online softmax on the accumulators (scores in log2 units)
+    float mx0 = kNeg, mx1 = kNeg;
+    if (k0 + kBN > Tk || (causal && k0 + kBN - 1 > q0 + 64 * cw)) {
+      // the tile crosses the tail or the diagonal of this slab: mask
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        float x = sc[i] * scale_log2;
+        const int kp = k0 + 8 * (i / 4) + cq + (i % 2);
+        const int qp = row0 + 8 * ((i / 2) % 2);
+        if (kp >= Tk || (causal && kp > qp)) x = kNeg;
+        sc[i] = x;
+        if ((i / 2) % 2) mx1 = fmaxf(mx1, x);
+        else mx0 = fmaxf(mx0, x);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        sc[i] *= scale_log2;
+        if ((i / 2) % 2) mx1 = fmaxf(mx1, sc[i]);
+        else mx0 = fmaxf(mx0, sc[i]);
+      }
+    }
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+    float rs0 = 0.f, rs1 = 0.f;
+    uint32_t pa[kBN / 16][4];                           // P as A fragments
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const bool hi = (i / 2) % 2;
+      const float p0 = ex2(sc[i] - (hi ? mn1 : mn0));
+      const float p1 = ex2(sc[i + 1] - (hi ? mn1 : mn0));
+      if (hi) rs1 += p0 + p1;
+      else rs0 += p0 + p1;
+      pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+    }
+    l0 = l0 * c0 + rs0;
+    l1 = l1 * c1 + rs1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= (i / 2) % 2 ? c1 : c0;
+
+    // O += P V: kBN / 16 steps of k16; step kk reads V rows 16 kk ..
+    mbar_wait(bars + 8 * (kStages + s), ph);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      wgmma_pv<D>(acc, pa[kk],
+                  desc(sv + kk * 16 * kRowBytes, kBN * kRowBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bars + 8 * (2 * kStages + s));          // stage s is free
+  }
+
+  // epilogue: the quad's partial row sums, then acc / l in bf16
+#pragma unroll
+  for (int w = 1; w <= 2; w <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= S) continue;
+    const float den = half ? den1 : den0;
+    __nv_bfloat16* op = o + (((long long)b * S + row) * H + h) * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * half] / den, acc[4 * j + 2 * half + 1] / den);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-D map over x [B, rows, heads, D] (bf16, strides in elements, the last
+// dimension contiguous) in boxes of (64 columns, 1 head, box_rows rows, 1)
+bool make_map(CUtensorMap* map, const void* x, int D, int heads, int rows,
+              int B, long long sb, long long ss, long long sh,
+              int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dim[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                             (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t stride[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+            dim, stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int KH, int S, int Tk, const long long* st, int causal,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, H, S, B, st[0], st[1], st[2], kBM)
+      || !make_map(&tk, k, D, KH, Tk, B, st[3], st[4], st[5], kBN)
+      || !make_map(&tv, v, D, KH, Tk, B, st[6], st[7], st[8], kBN))
+    return (int)cudaErrorInvalidValue;
+  const int nq = (S + kBM - 1) / kBM;
+  const int BH = B * H;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Layout<D>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  // 1 / sqrt(D) as the scalar kernel, times log2(e) for ex2
+  const float scale_log2 =
+      (float)(1.0 / std::sqrt((double)D) * 1.4426950408889634);
+  flash_attention_tc<D><<<nq * BH, kThreads, Layout<D>::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, S, Tk, BH, nq,
+      scale_log2, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -246,7 +732,11 @@ extern "C" {
 // q [B, S, H, D], k and v [B, T, KH, D] through their (batch, row, head)
 // strides in elements (the last dimension contiguous); o a contiguous
 // [B, S, H, D]. dtype 0: float32, 1: bfloat16. D in {16, 32, 64, 128};
-// H a multiple of KH; S, T >= 1. Returns a CUDA error code (0 on success).
+// H a multiple of KH; S, T >= 1. bf16 at D 64 or 128 takes the
+// tensor-core kernel, which needs 16-byte aligned bases and strides that
+// are multiples of 8 elements (kernels/flash_attn.py makes them so);
+// everything else the scalar kernel. Returns a CUDA error code (0 on
+// success).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int dtype, int B, int H, int KH, int S, int T, int D,
                     long long qsb, long long qss, long long qsh,
@@ -255,6 +745,10 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
                     void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 128)
+    return tc::launch<128>(q, k, v, o, B, H, KH, S, T, st, causal, s);
+  if (dtype == 1 && D == 64)
+    return tc::launch<64>(q, k, v, o, B, H, KH, S, T, st, causal, s);
   if (dtype == 0)
     return launch_d<float>(D, q, k, v, o, B, H, KH, S, T, st, causal, s);
   if (dtype == 1)

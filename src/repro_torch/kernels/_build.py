@@ -12,9 +12,11 @@ entry point returns `cudaGetLastError()`.
 Flags are per source (`flags`). The six PageRank kernels build with
 `--fmad=false`, so that their f64 arithmetic rounds as the plain PyTorch
 ops do (their bars against the plain versions are 1e-12 or exact);
-`flash_attention` builds without it: its loops are f32 multiply-add
-chains held to 2e-5, and splitting each FMA would cost it about half its
-throughput.
+`flash_attention` builds without it: its scalar kernel's loops are f32
+multiply-add chains held to 2e-5, and splitting each FMA would cost it
+about half its throughput (its tensor-core kernel needs no flag beyond
+`sm_90a`: the tensor maps are encoded through the runtime's driver entry
+point, so nothing links libcuda).
 
 A missing `nvcc` or a failed build raises; nothing falls back.
 """

@@ -2,22 +2,33 @@
 softmax, every statistic in f32 and the output in the input's type — the
 kernel of the LM's prefill.
 
-Two entries share one CUDA kernel (`csrc/flash_attention.cu`) and one
-launch count, `flash_attention.launches`:
+Two entries share one CUDA source (`csrc/flash_attention.cu`) and its
+launch counts:
 
 - `flash_attention(q, k, v, causal=)` keeps the Pallas kernel's signature,
   q [BH, S, D] and k, v [BH, T, D];
 - `flash_attention_bshd(q, k, v, causal=)` takes the model's q [B, S, H, D]
   and k, v [B, T, K, D] (H a multiple of K: grouped-query attention). The
   kernel reads them through their strides and maps q head h to kv head
-  h // (H // K) itself, so nothing is copied or repeated; `attn_apply`
-  reaches the kernel here.
+  h // (H // K) itself, so nothing is repeated; `attn_apply` reaches the
+  kernel here.
 
-On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
-the plain version (`flash_attention_plain`, the same online softmax in
-plain PyTorch, over kv blocks of 128 as the Pallas kernel); on any other
-device it raises. The kernel takes float32 and bfloat16, head widths 16,
-32, 64 and 128, and any S, T >= 1.
+The source holds two kernels (`tensor_core_path` says which one a call
+takes):
+
+- bf16 at head widths 64 and 128: the Hopper kernel (TMA-fed K/V ring,
+  `wgmma` on the tensor cores). It rounds p to bf16 before the PV product,
+  as the model's `chunked_attention` does, and keeps the row sum from the
+  f32 p. Its tensor maps need 16-byte aligned bases and strides; a tensor
+  that misses that is copied first. `flash_attention.launches_tc` counts
+  its launches;
+- f32, and bf16 at widths 16 and 32: the scalar kernel, p in f32.
+
+`flash_attention.launches` counts every launch of either. On a CUDA tensor
+the wrapper launches a kernel; on a CPU tensor it runs the plain version
+(`flash_attention_plain`, the same online softmax in plain PyTorch, over
+kv blocks of 128 as the Pallas kernel; `round_p=True` rounds p as the
+tensor-core kernel does); on any other device it raises. Any S, T >= 1.
 """
 from __future__ import annotations
 
@@ -29,22 +40,34 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_plain",
-           "flash_attention_bshd_plain", "NEG", "HEAD_DIMS"]
+           "flash_attention_bshd_plain", "tensor_core_path", "NEG",
+           "HEAD_DIMS", "TC_HEAD_DIMS"]
 
 NEG = -2.0 ** 30      # large finite mask value: a masked score gives exp 0
 HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (64, 128)   # bf16 widths of the tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _L = ctypes.c_longlong
 _SIG = {"flash_attention": [_build.P] * 4 + [_build.I] * 7 + [_L] * 9
         + [_build.I, _build.P]}
 
 
+def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a call in `dtype` at `head_dim` takes the tensor-core kernel
+    (the C entry dispatches on the same two values)."""
+    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          round_p: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch: q [BH, S, D], k/v [BH, T, D];
     an online softmax over kv blocks of 128 rows (the Pallas kernel's bk)
-    with the running max, sum and accumulator in f32 (p stays f32 for the
-    PV product), masked scores at NEG. Returns [BH, S, D] in q's dtype."""
+    with the running max, sum and accumulator in f32, masked scores at NEG.
+    p stays f32 for the PV product; with `round_p` it is first rounded to
+    q's dtype, as the tensor-core kernel and `chunked_attention` round it
+    (the row sum still from the f32 p; the identity in f32). Returns
+    [BH, S, D] in q's dtype."""
     BH, S, D = q.shape
     T = k.shape[1]
     scale = 1.0 / math.sqrt(D)
@@ -64,7 +87,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bqt,btd->bqd", p, vj)
+        pv = p.to(q.dtype).float() if round_p else p
+        acc = acc * corr + torch.einsum("bqt,btd->bqd", pv, vj)
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
@@ -76,8 +100,8 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, *,
-                               causal: bool = True) -> torch.Tensor:
+                               v: torch.Tensor, *, causal: bool = True,
+                               round_p: bool = False) -> torch.Tensor:
     """`flash_attention_plain` on the model's layout: q [B, S, H, D], k/v
     [B, T, K, D] with the kv heads repeated G = H // K times (q head h
     reads kv head h // G). Returns [B, S, H, D]."""
@@ -85,7 +109,8 @@ def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor,
     G = H // k.shape[2]
     out = flash_attention_plain(
         _heads_first(q), _heads_first(k.repeat_interleave(G, dim=2)),
-        _heads_first(v.repeat_interleave(G, dim=2)), causal=causal)
+        _heads_first(v.repeat_interleave(G, dim=2)), causal=causal,
+        round_p=round_p)
     return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
 
 
@@ -130,19 +155,43 @@ def _launch(q, k, v, causal):
         if t.dtype != q.dtype or t.device != dev:
             raise ValueError(f"flash_attention: {name} is {t.dtype} on "
                              f"{t.device}, q {q.dtype} on {dev}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    tc = tensor_core_path(q.dtype, D)
+    q, k, v = (_operand(t, tc) for t in (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     lib = _build.load("flash_attention", _SIG)
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, H, K, S, T, D,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), int(causal),
-        _build.stream_ptr(dev))
+        _DTYPES[q.dtype], B, H, K, S, T, D, *_strides(q), *_strides(k),
+        *_strides(v), int(causal), _build.stream_ptr(dev))
     _build.launch_error("flash_attention", err)
     flash_attention.launches += 1
+    flash_attention.launches_tc += tc
     return out
 
 
+def _strides(t: torch.Tensor) -> tuple:
+    """The (batch, row, head) strides of a [B, S, H, D] tensor in elements,
+    a dimension of size 1 given its contiguous stride (it is never
+    stepped, and a TMA stride must be a multiple of 16 bytes)."""
+    st, n = [], t.shape[-1]
+    for d in (2, 1, 0):
+        st.append(t.stride(d) if t.shape[d] > 1 else n)
+        n *= t.shape[d]
+    return tuple(reversed(st))
+
+
+def _operand(t: torch.Tensor, tc: bool) -> torch.Tensor:
+    """`t` as the kernel reads it: the last dimension contiguous and, for
+    the tensor-core kernel's tensor maps, a 16-byte aligned base and
+    strides that are multiples of 16 bytes; a tensor that misses either is
+    copied."""
+    if t.stride(-1) != 1:
+        return t.contiguous()
+    if tc and (t.data_ptr() % 16
+               or any(s * t.element_size() % 16 for s in _strides(t))):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 flash_attention.launches = 0
+flash_attention.launches_tc = 0

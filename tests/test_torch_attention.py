@@ -9,9 +9,17 @@ f32. Bars:
     tests/test_kernels.py's sweep;
   * `chunked_attention` (GQA, window, soft-cap): 1e-5;
   * norms, RoPE and the MLPs: 1e-6;
-  * configs: `dataclasses.asdict` equal.
-The CUDA kernel itself is held against `flash_attention_plain` on the card
-by `chip_smoke.py` (phase 9).
+  * configs: `dataclasses.asdict` equal;
+  * the plain version with `round_p=True` (the tensor-core kernel's
+    rounding: p to bf16 before PV) in bf16 against JAX's bf16
+    `chunked_attention`, which rounds p so: per element 2^-8 max|v| +
+    2^-7 |want| (a p weight that rounds to the other neighbouring bf16
+    value under another blocking or summation order moves the output by at
+    most 2^-8 of that weight times |v|, and the weights of a row sum to 1;
+    the output's own rounding adds one bf16 ulp), and a mean |diff| of at
+    most 1e-4, which the f32-p plain version misses.
+The CUDA kernels themselves are held against the plain version on the
+card by `chip_smoke.py` (phase 9).
 """
 import dataclasses
 
@@ -28,8 +36,10 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import flash_attn as tflash  # noqa: E402
 from repro_torch.kernels.flash_attn import (  # noqa: E402
-    flash_attention, flash_attention_bshd, flash_attention_plain)
+    flash_attention, flash_attention_bshd, flash_attention_bshd_plain,
+    flash_attention_plain, tensor_core_path)
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 
@@ -118,6 +128,72 @@ def test_flash_attention_bshd_maps_kv_heads(H, K):
            KERNEL_TOL)
 
 
+@pytest.mark.parametrize("S,chunk,D", [(100, 128, 64), (300, 150, 128),
+                                       (384, 128, 64)])
+def test_round_p_plain_matches_jax_chunked_attention_bf16(S, chunk, D):
+    """The tensor-core kernel's oracle (p rounded to bf16 before PV, the
+    row sum from the f32 p) against the model's own bf16 attention, with
+    GQA (6 heads over 2) and lengths off the kernel's 128-row tiles."""
+    rng = np.random.default_rng(S + D)
+    B, H, K = 2, 6, 2
+    q, k, v = (torch.from_numpy(_normal(rng, B, S, h, D)).to(torch.bfloat16)
+               for h in (H, K, K))
+    got = flash_attention_bshd_plain(q, k, v, round_p=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, D)
+    want = jattn.chunked_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)), chunk=chunk)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    bar = 2.0 ** -8 * float(v.float().abs().max()) + 2.0 ** -7 * want.abs()
+    d = (got.float() - want).abs()
+    assert bool((d <= bar).all()) and float(d.mean()) <= 1e-4
+    # p kept in f32 is a different rounding: it misses the mean bar
+    d32 = (flash_attention_bshd_plain(q, k, v).float() - want).abs()
+    assert float(d32.mean()) > 1e-4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_round_p_is_the_identity_in_f32(causal):
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(_normal(rng, 2, 200, h, 32))
+               for h in (4, 2, 2))
+    assert torch.equal(
+        flash_attention_bshd_plain(q, k, v, causal=causal, round_p=True),
+        flash_attention_bshd_plain(q, k, v, causal=causal))
+    qh, kh, vh = (x[:, :, 0] for x in (q, k, v))
+    assert torch.equal(
+        flash_attention_plain(qh, kh, vh, causal=causal, round_p=True),
+        flash_attention_plain(qh, kh, vh, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_tensor_core_path_is_bf16_at_64_and_128(dtype, D):
+    assert tensor_core_path(dtype, D) == (dtype == torch.bfloat16
+                                          and D in (64, 128))
+
+
+def test_tma_operands_are_aligned_or_copied():
+    """The tensor-core kernel's tensor maps need a 16-byte aligned base and
+    strides of whole 16 bytes; a size-1 dimension gets its contiguous
+    stride. A tensor that misses either is copied, and only for that
+    kernel."""
+    flat = torch.zeros(2 * 10 * 3 * 64 + 8, dtype=torch.bfloat16)
+    off = flat[1:1 + 2 * 10 * 3 * 64].view(2, 10, 3, 64)     # 2-byte offset
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    fixed = tflash._operand(off, True)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, off)
+    assert tflash._operand(off, False) is off
+    ok = torch.zeros(2, 10, 3, 64, dtype=torch.bfloat16)
+    assert tflash._operand(ok, True) is ok
+    assert tflash._strides(ok) == (1920, 192, 64)
+    one = torch.zeros(5, 7, 64, dtype=torch.bfloat16).unsqueeze(2)
+    assert tflash._strides(one) == (448, 64, 64)
+    odd = torch.zeros(2, 10, 3, 68, dtype=torch.bfloat16)[..., :64]
+    assert tflash._operand(odd, True).stride() == (1920, 192, 64, 1)
+    assert tflash._operand(odd, False) is odd
+
+
 def test_flash_attention_raises_off_cpu_and_cuda():
     q = torch.empty(2, 64, 16, device="meta")
     before = flash_attention.launches
@@ -126,6 +202,22 @@ def test_flash_attention_raises_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         flash_attention_bshd(q[:, :, None], q[:, :, None], q[:, :, None])
     assert flash_attention.launches == before
+
+
+def test_bf16_at_tensor_core_widths_counts_no_launch_off_cuda():
+    """On the CPU a bf16 call at D = 128 runs the plain version with f32 p
+    (as the Pallas kernel) and counts no launch; on another device it
+    raises before counting."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 70, h, 128)).to(
+        torch.bfloat16) for h in (2, 1, 1))
+    before = flash_attention.launches, flash_attention.launches_tc
+    assert torch.equal(flash_attention_bshd(q, k, v),
+                       flash_attention_bshd_plain(q, k, v))
+    m = torch.empty(2, 64, 128, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        flash_attention(m, m, m)
+    assert (flash_attention.launches, flash_attention.launches_tc) == before
 
 
 # -- chunked attention ---------------------------------------------------------
