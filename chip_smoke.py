@@ -12,8 +12,12 @@ Phases (any failure exits non-zero; nothing is caught):
   3. stage the graph: powerlaw_graph(n, m, alpha=1.0, seed) in the hybrid
      layout with d_p=64, tile=256;
   4. each kernel against its plain version on the card, at the main path's
-     shapes: every ELL bucket (the fused kernel dense and with an active
-     list, ell_pull), the high side, pull_sum_kernels over the whole
+     shapes: every ELL bucket (the fused kernel's per-bucket entry dense and
+     with an active list, ell_pull), the whole low side in one launch
+     (fused_ell_sweep, dense, with an active list and with a NaN rank on
+     an unaffected row: ranks, flags and max equal to its plain version,
+     the glue around the per-bucket entry, and within 1e-12 of the plain
+     PyTorch sweep), the high side, pull_sum_kernels over the whole
      graph; ranks and sums to 1e-12 L-inf, flags exactly; linf_delta
      exactly (difference 0) at length n, 1, n - 1 and one off the block
      size; a NaN rank must reach every L-inf max (linf_delta from either
@@ -24,7 +28,8 @@ Phases (any failure exits non-zero; nothing is caught):
      update, linf_delta): L1 <= 1e-8 against the plain solve, health word
      0; then the fused solve twice more, untraced and with trace=True:
      ranks equal to the first solve, the same iteration count, the
-     trace's final L-inf <= tau;
+     trace's final L-inf <= tau; over phases 5-6, one fused_ell_update
+     call (the sweep kernel and its fold) per fused sweep;
   6. three chained DF-P batches (random_batch, frac=1e-4, 80% inserts)
      through the fused kernels, dense and with frontier_caps, on the
      staged sweep (dense, pull_sum_fn=pull_sum_kernels), and on the plain
@@ -34,7 +39,10 @@ Phases (any failure exits non-zero; nothing is caught):
   7. each kernel timed with CUDA events (median) beside its plain version,
      its bound and, where one PyTorch call computes the same function,
      that call (ell_pull: torch.mv over a sparse CSR matrix of the low
-     side; linf_delta: torch.dist with p = inf);
+     side; linf_delta: torch.dist with p = inf); fused_ell_update is the
+     whole low side of one sweep; then one whole sweep, all rows
+     affected, fused (update_ranks_kernel) and staged (pull_sum_kernels,
+     rank_step, linf_delta);
   8. the streaming path on the same graph: a StreamSession with
      trace=True (DeviceSnapshot + static solve, launch counts start at 0
      here; tau = 1e-11, see STREAM_PARAMS), three churn batches
@@ -48,9 +56,14 @@ Phases (any failure exits non-zero; nothing is caught):
      (same engine and caps) is within L1 1e-8, the ranks are within L1
      1e-8 of a from-scratch solve and csr_block_pull on the snapshot
      equals its plain version; after the last, phase 4's checks on both
-     halves of the snapshot and pull_sum on both against a fresh build. Then
-     scatter_rows against its plain version on every table the first
-     batch touched, and timed;
+     halves of the snapshot and pull_sum on both against a fresh build.
+     Each batch's device refresh must make exactly one scatter_rows launch.
+     Then scatter_rows against its plain version on every table the first
+     batch touched (all tables in one scatter_rows_batch call, and each
+     through the one-table entries) and at widths 1/2/3/6, and timed: one
+     batched call per sample and 10 back to back, one call per table, the
+     plain loop and index_copy_, and the batched call and index_copy_ on
+     the card alone (10 calls in a CUDA graph, replayed);
   9. LM serving at qwen2-1.5b's full width and depth, bf16, weights drawn
      from --seed (the PageRank tensors freed first): the flash_attention
      kernels against their plain version at the prefill's shapes (B=4,
@@ -150,6 +163,22 @@ def cuda_ms(fn, repeats: int, per: int = 1) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, repeats: int, per: int) -> float:
+    """The card's time per call of fn() with the host out of the way:
+    `per` calls captured in one CUDA graph (after a warm-up call on a side
+    stream), the graph replayed, its median CUDA-event time over `per`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    return cuda_ms(graph.replay, repeats) / per
+
+
 def bound(nbytes: float, flops: float, peak: float = FP64_FLOPS):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = flops / peak * 1e3
@@ -175,7 +204,9 @@ def check_kernels(dgx, rng, errs):
                                      fused_ell_update, pr_update,
                                      pull_sum_kernels)
     from repro_torch.kernels.csr_block import csr_block_pull_plain
-    from repro_torch.kernels.ell_bucket_pull import fused_ell_update_plain
+    from repro_torch.kernels.ell_bucket_pull import (fused_ell_sweep,
+                                                     fused_ell_sweep_plain,
+                                                     fused_ell_update_plain)
     from repro_torch.kernels.ell_pull import ell_pull_plain
     from repro_torch.kernels.pr_update import pr_update_plain
     from repro_torch.sentinel import take_fill, with_sink
@@ -213,6 +244,42 @@ def check_kernels(dgx, rng, errs):
                  ell_pull_plain(c, blk.idx, blk.mask))
         require(e <= TOL_SWEEP, f"ell_pull at width {blk.width}: L-inf {e}")
         errs["ell_pull"] = max(errs["ell_pull"], e)
+    # the whole low side in one launch (through the row maps) against its
+    # plain version, the glue around the per-bucket kernel: equal bits;
+    # and within 1e-12 of the glue around the plain per-bucket version
+    def sweep(fn, rr, a, sel, **extra):
+        outs = (with_sink(rr, -1.0), with_sink(a, True),
+                torch.zeros(n + 1, dtype=torch.bool, device=dev))
+        dmax = fn(c, dgx.buckets, rr, dgx.out_deg, a, *outs, bucket_sel=sel,
+                  **kw, **extra)
+        return outs + (dmax,)
+
+    bad = r.clone()
+    bad[int(dgx.buckets[0].rows[0])] = float("nan")
+    cases = (("dense", r, aff, None), ("active list", r, aff, af.bucket_sel),
+             ("NaN rank, unaffected", bad, torch.zeros_like(aff), None))
+    for case, rr, a, sel in cases:
+        got = sweep(fused_ell_sweep, rr, a, sel)
+        want = sweep(fused_ell_sweep_plain, rr, a, sel)
+        plain = sweep(fused_ell_sweep_plain, rr, a, sel,
+                      bucket_fn=fused_ell_update_plain)
+        nan = case.startswith("NaN")
+        require(all(torch.equal(x, y) for x, y in zip(got[1:3], want[1:3]))
+                and torch.equal(got[0].isnan(), want[0].isnan())
+                and torch.equal(got[0].nan_to_num(), want[0].nan_to_num())
+                and (bool(got[3].isnan()) if nan
+                     else torch.equal(got[3], want[3])),
+                f"fused_ell_sweep ({case}) differs from its plain version")
+        if nan:
+            require(bool(want[3].isnan()) and bool(plain[3].isnan()),
+                    "fused_ell_sweep dropped a NaN rank from its max")
+            continue
+        e = max(linf(got[0], plain[0]), abs(float(got[3]) - float(plain[3])))
+        require(e <= TOL_SWEEP and torch.equal(got[1], plain[1])
+                and torch.equal(got[2], plain[2]),
+                f"fused_ell_sweep ({case}) vs the plain PyTorch sweep: "
+                f"L-inf {e} or flags")
+        errs["fused_ell_update"] = max(errs["fused_ell_update"], e)
     slots = (dgx.hi_slot_tiles, dgx.hi_slot_off)
     hi_args = (c, dgx.hi_tiles, dgx.hi_tmask, dgx.hi_rowmap, dgx.n_hi_cap)
     for sel in (None, af.tile_sel):
@@ -270,6 +337,7 @@ def scatter_tables(snap, touched):
 # tau, and at 1e-10 their L1 gap passes 1e-8 on this graph (on the CPU's
 # plain path too: python -m repro_torch.stream).
 STREAM_PARAMS = dict(tau=1e-11, tau_f=1e-9, tau_p=1e-9)
+SCATTER_PER = 10    # scatter_rows_batch calls per back-to-back sample
 
 
 def stream_phase(args, g, dev, report, wrappers, errs):
@@ -280,10 +348,9 @@ def stream_phase(args, g, dev, report, wrappers, errs):
                                   pull_sum, to_device)
     from repro_torch.kernels.csr_block import (csr_block_pull,
                                                csr_block_pull_plain)
-    from repro_torch.kernels.stream_scatter import (ell_scatter_rows,
-                                                    ell_scatter_rows_plain,
-                                                    scatter_rows,
-                                                    scatter_rows_plain)
+    from repro_torch.kernels.stream_scatter import (
+        ell_scatter_rows, ell_scatter_rows_plain, scatter_rows,
+        scatter_rows_batch, scatter_rows_batch_plain, scatter_rows_plain)
     from repro_torch.stream import (DeviceSnapshot, StreamSession,
                                     frontier_estimate, ingest,
                                     mixed_workload)
@@ -360,6 +427,12 @@ def stream_phase(args, g, dev, report, wrappers, errs):
             f"{'-' if rebuild is None else f'{rebuild:.1f} s'}")
         require(not st.snapshot.rebuilt,
                 f"stream batch {k} rebuilt ({st.snapshot.rebuild_reason})")
+        # the refresh wrote every edited table of both halves (and both
+        # degree vectors) in one launch
+        row["scatter_launches"] = scatter_rows.launches
+        require(scatter_rows.launches == 1,
+                f"stream batch {k}: {scatter_rows.launches} scatter_rows "
+                f"launches in one device refresh")
         # the trace summary counts this solve's iterations, names its engine
         tr = st.trace
         want = {"dense": "dfp", "compact": "dfp_compact"}[st.engine]
@@ -417,6 +490,10 @@ def stream_phase(args, g, dev, report, wrappers, errs):
     log(f"[launches] stream path: {out['launches']}")
     for name, cnt in out["launches"].items():
         require(cnt > 0, f"{name} never launched on the stream path")
+    require(out["launches"]["fused_ell_update"]
+            == out["launches"]["pr_update"],
+            "the stream path made other than one fused_ell_update call per "
+            "fused sweep")
 
     # -- 8.3 the sweep kernels on both halves, then a fresh build ------------
     t0 = time.perf_counter()
@@ -465,6 +542,16 @@ def stream_phase(args, g, dev, report, wrappers, errs):
         timed.append((d_i.clone(), d_m.clone(), t_rows[:k_rows].contiguous(),
                       t_i[:k_rows].contiguous(), t_m[:k_rows].contiguous(),
                       k_rows, d))
+    # every table at once, as the refresh writes them, against the
+    # per-table plain loop
+    batch = [t[:5] for t in timed]
+    got = [(t[0].clone(), t[1].clone()) + t[2:] for t in batch]
+    want = [(t[0].clone(), t[1].clone()) + t[2:] for t in batch]
+    scatter_rows_batch(got)
+    scatter_rows_batch_plain(want)
+    for (name, *_), x, y in zip(scatter_tables(snap, first), got, want):
+        require(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]),
+                f"scatter_rows_batch differs on {name}")
     # ids outside [0, R) write nothing; widths off the 16-byte path
     dst = timed[0][0]
     bad = torch.tensor([-1, dst.shape[0], 0], dtype=torch.int32, device=dev)
@@ -473,6 +560,7 @@ def stream_phase(args, g, dev, report, wrappers, errs):
     want = scatter_rows_plain(dst.clone(), bad[2:], new[2:])
     require(torch.equal(scatter_rows(dst.clone(), bad, new), want),
             "scatter_rows wrote an out-of-range row")
+    got, want = [], []
     for d in (1, 2, 3, 6):
         for dtype in (torch.int32, torch.float32):
             small = torch.randint(0, 9, (1000, d), device=dev).to(dtype)
@@ -482,21 +570,30 @@ def stream_phase(args, g, dev, report, wrappers, errs):
             require(torch.equal(scatter_rows(small.clone(), ids, new),
                                 scatter_rows_plain(small.clone(), ids, new)),
                     f"scatter_rows differs at width {d} ({dtype})")
+            got.append((small.clone(), None, ids, new, None))
+            want.append((small.clone(), None, ids, new, None))
+    scatter_rows_batch(got)
+    scatter_rows_batch_plain(want)
+    require(all(torch.equal(x[0], y[0]) for x, y in zip(got, want)),
+            "scatter_rows_batch differs at widths 1/2/3/6")
     torch.cuda.synchronize()
     log(f"[stream] scatter_rows equals its plain version on "
-        f"{len(timed)} tables (pair and single entry points, duplicate "
-        f"pad row), out-of-range ids and widths 1/2/3/6: max |diff| {err}")
+        f"{len(timed)} tables (the batch, pair and single entry points, "
+        f"duplicate pad row), out-of-range ids and widths 1/2/3/6 (one "
+        f"table at a time and in one batch): max |diff| {err}")
 
     # -- 8.5 scatter_rows timed: one batch's scatters ------------------------
     longs = [t[2].long() for t in timed]
 
     def kern():
+        scatter_rows_batch(batch)
+
+    def per_table():
         for t in timed:
             ell_scatter_rows(*t[:5])
 
     def plain():
-        for t in timed:
-            ell_scatter_rows_plain(*t[:5])
+        scatter_rows_batch_plain(batch)
 
     def library():
         for t, r in zip(timed, longs):
@@ -504,10 +601,17 @@ def stream_phase(args, g, dev, report, wrappers, errs):
             t[1].index_copy_(0, r, t[4])
 
     nbytes = sum(2 * (2 * k * d * 4) + k * 4 for *_, k, d in timed)
+    # one call per sample (as a refresh makes it), and SCATTER_PER calls
+    # back to back (the card's time once the host runs ahead)
     out["scatter"] = dict(
         max_abs_err=err, ms=cuda_ms(kern, args.repeats),
+        back_to_back_ms=cuda_ms(kern, args.repeats, SCATTER_PER),
+        per_table_ms=cuda_ms(per_table, args.repeats),
         plain_ms=cuda_ms(plain, args.repeats),
         library_ms=cuda_ms(library, args.repeats),
+        library_back_to_back_ms=cuda_ms(library, args.repeats, SCATTER_PER),
+        graph_ms=graph_ms(kern, args.repeats, SCATTER_PER),
+        library_graph_ms=graph_ms(library, args.repeats, SCATTER_PER),
         bound=bound(nbytes, 0.0), tables=len(timed),
         rows=sum(t[5] for t in timed), bytes=nbytes)
     rep["scatter_rows"] = {k: v for k, v in out["scatter"].items()}
@@ -785,12 +889,15 @@ def main(argv=None) -> int:
                                   dfp_pagerank, forward_device_graph,
                                   init_ranks, l1_error, numpy_pagerank,
                                   powerlaw_graph, random_batch,
-                                  static_pagerank, to_device)
+                                  static_pagerank, to_device,
+                                  update_ranks)
     from repro_torch.kernels import (_build, csr_block_pull, ell_pull,
                                      fused_ell_update, linf_delta, pr_update,
                                      pull_sum_kernels)
     from repro_torch.kernels.csr_block import csr_block_pull_plain
-    from repro_torch.kernels.ell_bucket_pull import fused_ell_update_plain
+    from repro_torch.kernels.ell_bucket_pull import (fused_ell_sweep,
+                                                     fused_ell_sweep_plain,
+                                                     fused_ell_update_plain)
     from repro_torch.kernels.ell_pull import ell_pull_plain
     from repro_torch.kernels.linf_delta import linf_delta_plain
     from repro_torch.kernels.pr_update import pr_update_plain
@@ -1020,6 +1127,11 @@ def main(argv=None) -> int:
     log(f"[launches] main path: {launches}")
     for name, cnt in launches.items():
         require(cnt > 0, f"{name} never launched on the main path")
+    # one fused_ell_update call (the sweep kernel and its fold: 2 launches
+    # on the low side) per fused sweep, which runs pr_update once
+    require(launches["fused_ell_update"] == launches["pr_update"],
+            f"{launches['fused_ell_update']} fused_ell_update calls for "
+            f"{launches['pr_update']} fused sweeps")
 
     # small graph against the numpy reference (CPU plain path for DF-P)
     gs = powerlaw_graph(4000, 40000, alpha=args.alpha, seed=args.seed)
@@ -1045,20 +1157,39 @@ def main(argv=None) -> int:
     # -- 7. timing ------------------------------------------------------------
     all_on = torch.ones(n, dtype=torch.float64, device=dev)
     a_on = with_sink(all_on, 0.0)
-    bucket_ops = [(c, blk.idx, blk.mask, at(r_s, blk.rows),
-                   at(d_s, blk.rows), at(a_on, blk.rows))
-                  for blk in dg.buckets]
+    r_n, on = r_s[:n], torch.ones(n, dtype=torch.bool, device=dev)
+    sweep_out = (torch.empty(n + 1, dtype=torch.float64, device=dev),
+                 torch.empty(n + 1, dtype=torch.bool, device=dev),
+                 torch.empty(n + 1, dtype=torch.bool, device=dev))
     hi_sums, hi_args, slots = k4.hi_sums, k4.hi_args, k4.slots
     hi_on = (hi_sums, at(r_s, dg.hi_ids), at(d_s, dg.hi_ids),
              at(a_on, dg.hi_ids))
 
+    # the low side of one fused sweep, every row affected
     def ell_kernel():
-        for ops in bucket_ops:
-            fused_ell_update(*ops, **kw)
+        return fused_ell_sweep(c, dg.buckets, r_n, dg.out_deg, on,
+                               *sweep_out, **kw)
 
     def ell_plain():
-        for ops in bucket_ops:
-            fused_ell_update_plain(*ops, **kw)
+        return fused_ell_sweep_plain(c, dg.buckets, r_n, dg.out_deg, on,
+                                     *sweep_out,
+                                     bucket_fn=fused_ell_update_plain, **kw)
+
+    # one whole sweep each way, all affected, as the static solve runs it:
+    # fused (update_ranks_kernel) and staged (pull_sum_kernels, rank_step,
+    # linf_delta); one call per sample, as a solve makes them
+    sweep_kw = dict(alpha=params.alpha, tau_f=params.tau_f,
+                    tau_p=params.tau_p, prune=False, closed_form=False,
+                    track_frontier=False)
+    t_fused = cuda_ms(lambda: update_ranks(dg, r_n, on, **sweep_kw),
+                      args.repeats)
+    t_staged = cuda_ms(lambda: update_ranks(dg, r_n, on,
+                                            pull_sum_fn=pull_sum_kernels,
+                                            **sweep_kw), args.repeats)
+    report["sweep_ms"] = dict(fused=t_fused, staged=t_staged)
+    log(f"[time] one sweep, all rows affected: fused (update_ranks_kernel) "
+        f"{t_fused:.4f} ms, staged (pull_sum_kernels + rank_step + "
+        f"linf_delta) {t_staged:.4f} ms")
 
     # one PyTorch call for the high-side pull: a sparse CSR product
     tm = dg.hi_tmask.reshape(-1) > 0
@@ -1107,6 +1238,7 @@ def main(argv=None) -> int:
             f"{lib_err}")
 
     rows_all = sum(b.cap for b in lay.buckets)
+    live_all = sum(int((b.rows < n).sum()) for b in lay.buckets)
     slots_all = sum(b.cap * b.width for b in lay.buckets)
     t_cap, tile = lay.hi_tiles.shape
     k_hi = dg.n_hi_cap
@@ -1114,8 +1246,11 @@ def main(argv=None) -> int:
         "fused_ell_update": dict(
             ms=cuda_ms(ell_kernel, args.repeats),
             plain_ms=cuda_ms(ell_plain, args.repeats), library_ms=None,
-            bound=bound(n * 8 + slots_all * 8 + rows_all * 8 * 6,
-                        slots_all * 2 + rows_all * 12)),
+            # c once; idx and mask; the row map; r, out_deg, affected in
+            # and r_new and two flags out per live row
+            bound=bound(n * 8 + slots_all * 8 + rows_all * 4
+                        + live_all * (8 + 4 + 1 + 8 + 1 + 1),
+                        slots_all * 2 + live_all * 12)),
         "csr_block_pull": dict(
             ms=cuda_ms(lambda: csr_block_pull(*hi_args, slots=slots),
                        args.repeats),
@@ -1146,9 +1281,9 @@ def main(argv=None) -> int:
         log(f"[time] {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), library "
             f"{t['library_ms']}")
-    del (a_hi, a_lo, la, lb, bucket_ops, hi_on, hi_ops, hi_sums, hi_args, k4,
-         dg, c, r_s, d_s, a_on, all_on, r_k, r_p, r_st, rk_dense, chains, rp,
-         r_scratch)
+    del (a_hi, a_lo, la, lb, sweep_out, on, hi_on, hi_ops, hi_sums,
+         hi_args, k4, dg, c, r_s, d_s, a_on, all_on, r_k, r_p, r_st,
+         r_n, rk_dense, chains, rp, r_scratch)
     torch.cuda.empty_cache()
 
     # -- 8. the streaming path ------------------------------------------------
@@ -1160,9 +1295,14 @@ def main(argv=None) -> int:
                                    bound=sc["bound"])
     errs["scatter_rows"] = sc["max_abs_err"]
     log(f"[time] scatter_rows ({sc['tables']} tables, {sc['rows']} rows, "
-        f"{sc['bytes']} B): {sc['ms']:.4f} ms, plain {sc['plain_ms']:.4f} "
-        f"ms, bound {sc['bound'][0]:.4f} ms ({sc['bound'][1]}), index_copy_ "
-        f"{sc['library_ms']:.4f} ms")
+        f"{sc['bytes']} B) in one batched call: {sc['ms']:.4f} ms one call "
+        f"per sample, {sc['back_to_back_ms']:.4f} ms {SCATTER_PER} back to "
+        f"back; one call per table {sc['per_table_ms']:.4f} ms; plain "
+        f"{sc['plain_ms']:.4f} ms, bound {sc['bound'][0]:.4f} ms "
+        f"({sc['bound'][1]}), index_copy_ {sc['library_ms']:.4f} ms "
+        f"({sc['library_back_to_back_ms']:.4f} back to back); on the card "
+        f"alone (CUDA graph replay): {sc['graph_ms']:.4f} ms, index_copy_ "
+        f"{sc['library_graph_ms']:.4f} ms")
     # launches on the main paths: static + DF-P (phases 5-6) and the stream
     launches = {name: launches.get(name, 0) + stream["launches"].get(name, 0)
                 for name in timings}

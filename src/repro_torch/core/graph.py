@@ -38,6 +38,7 @@ __all__ = [
     "HybridRows",
     "BatchUpdate",
     "build_graph",
+    "add_self_loops",
     "graph_from_sorted_keys",
     "apply_batch",
     "random_graph",
@@ -185,9 +186,7 @@ def build_graph(n: int, src: np.ndarray, dst: np.ndarray,
     src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst, dtype=np.int32)
     if self_loops:
-        loops = np.arange(n, dtype=np.int32)
-        src = np.concatenate([src, loops])
-        dst = np.concatenate([dst, loops])
+        src, dst = add_self_loops(n, src, dst)
     offsets, targets, usrc, udst = _csr_from_edges(n, src, dst)
     # transpose CSR
     t_offsets, t_sources, _, _ = _csr_from_edges(n, udst, usrc)
@@ -212,6 +211,13 @@ def graph_from_sorted_keys(n: int, keys: np.ndarray) -> Graph:
     np.cumsum(t_counts, out=t_offsets[1:])
     return Graph(n=n, offsets=offsets, targets=dst,
                  t_offsets=t_offsets, t_sources=src[order])
+
+
+def add_self_loops(n: int, src: np.ndarray, dst: np.ndarray):
+    """(src, dst) as int32 with the n self-loops (v, v) appended."""
+    loops = np.arange(n, dtype=np.int32)
+    return (np.concatenate([np.asarray(src, np.int32), loops]),
+            np.concatenate([np.asarray(dst, np.int32), loops]))
 
 
 def apply_batch(g: Graph, batch: BatchUpdate) -> Graph:

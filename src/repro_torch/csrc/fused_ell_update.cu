@@ -1,105 +1,249 @@
-// fused_ell_update: one degree bucket of the ELL low side, pull and
-// Alg. 3 epilogue in one pass.
+// fused_ell_update: the ELL low side of one rank sweep (every degree
+// bucket's pull and Alg. 3 epilogue) in one launch, then one fold of the
+// L-inf partials.
 //
 // Replaces the TPU kernel `fused_ell_update` (_fused_kernel) in
-// src/repro/kernels/ell_bucket_pull.py.
+// src/repro/kernels/ell_bucket_pull.py, which runs one bucket per call on
+// operands gathered beforehand at the bucket's row ids.
 //
-// What bounds it on the H100: bytes. Per row it reads its w_b indices and
-// mask bits (8 B per slot), gathers w_b ranks c[idx] at random (c is the
-// 8 B/vertex contribution vector; at |V| = 4M it is 32 MB and stays in the
-// 50 MB L2), and writes three f64 outputs. About two flops per slot, far
-// below the FP64 rate.
+// What bounds it on the H100: bytes. Per slot it reads its index and mask
+// (8 B), gathers c[idx] at random (c is the 8 B/vertex contribution
+// vector; at |V| = 4M it is 32 MB and stays in the 50 MB L2); per row the
+// row id (4 B), r (8 B), out_deg (4 B) and affected (1 B) in, r_new (8 B)
+// and two 1 B flags out. About two flops per slot, far below the FP64 rate.
 //
 // Design:
-//   * LANES threads per row, with the gather body it shares with ell_pull
-//     (ell_gather.cuh): LANES = 1 (thread per row, the paper's
-//     thread-per-vertex kernel) for the narrowest buckets; otherwise a
-//     sub-warp of up to 32 lanes that read neighbouring slots of one row,
-//     so the index and mask loads coalesce, and sum with __shfl_xor_sync.
-//   * Each row reads its affected flag first. An unaffected row skips its
-//     gather and writes r, 0, 0 with |dr| = |r - r| (0, or NaN for a NaN
-//     rank) — the same bits the TPU kernel's where(aff, rv, r) gives, and
-//     on the card it is DF-P's "process only affected vertices" without
-//     any compaction.
+//   * One launch covers every bucket. A descriptor of the buckets (the
+//     rows, idx, mask and active-list pointers, the lane count, capacity,
+//     width, lanes per row and first block of each) goes to the kernel by
+//     value; each block finds its bucket by a scan of at most kMaxBuckets
+//     first-block offsets, and a block-uniform switch runs the LANES
+//     instantiation of the gather that the bucket's width picks
+//     (`lanes_for` in kernels/ell_pull.py). A layout of more buckets is
+//     launched in chunks of kMaxBuckets into the same partials.
+//   * Work lane i of bucket b is slot s = i, or s = sel_b[i] over an
+//     active list. Through the row map (the sweep entry) it reads vertex
+//     v = rows_b[s]: r[v] (f64), out_deg[v] (int32) and affected[v]
+//     (bool), and writes r_new[v], aff_new[v] and dn[v] (bool) in place.
+//     A sentinel (v == n, an unused slot; s == cap_b, a dead lane of the
+//     list) does nothing and adds 0 to the L-inf. With the identity map
+//     (the per-bucket entry, rows null) the operands are f64 per slot and
+//     the outputs f64 per lane i; a dead lane there computes the inert pad
+//     (r = 1, deg = 1, aff = 0), as the TPU kernel's take-with-fill does.
+//     Both maps run the same body, so their sums and ranks agree bitwise.
+//   * LANES threads per row, with the gather body and xor-fold order it
+//     shares with ell_pull (ell_gather.cuh): one thread per row for widths
+//     <= 2, else a sub-warp of up to 32 lanes reading neighbouring slots.
+//   * An unaffected row skips its gather and writes r, 0, 0 with
+//     |dr| = |r - r| (0, or NaN for a NaN rank): DF-P's "process only
+//     affected vertices" without any compaction.
 //   * Every slot of an affected row, padding included, adds c[idx] * mask,
 //     as the TPU kernel does, so a NaN c[0] reaches padded rows alike.
-//   * The L-inf |dr| is reduced per block into partials, then a second
-//     one-block pass folds them; NaN wins. No atomics anywhere.
-//   * Launches on the caller's stream; allocates nothing.
+//   * Each block writes its max |dr| into partials; one block folds them.
+//     NaN wins. No atomics. Launches on the caller's stream; allocates
+//     nothing.
 #include "ell_gather.cuh"
 #include "epilogue.cuh"
 
 namespace {
 
-template <int LANES>
-__global__ void __launch_bounds__(kEllBlock)
-    fused_ell_kernel(const double* __restrict__ c, const int* __restrict__ idx,
-                     const float* __restrict__ mask,
-                     const double* __restrict__ r,
-                     const double* __restrict__ deg,
-                     const double* __restrict__ aff,
-                     double* __restrict__ r_new, double* __restrict__ aff_new,
-                     double* __restrict__ dn, double* __restrict__ partials,
-                     int rows, int width, EpiParams p) {
-  int lane;
-  const long long row = ell_row<LANES>(&lane);
-  const bool valid = row < rows;
+constexpr int kMaxBuckets = 8;
 
-  double rr = 1.0, d = 1.0, a = 0.0, s = 0.0;
-  if (valid) {
-    a = aff[row];
-    rr = r[row];
-    d = deg[row];
-    if (a > 0.0)
-      s = ell_row_partial<LANES>(c, idx + row * width, mask + row * width,
-                                 width, lane);
-  }
-  s = ell_lanes_sum<LANES>(s);
-  double dr = 0.0;
-  if (valid) {
-    const EpiOut o = pr_epilogue(s, rr, d, a, p);
-    if (lane == 0) {
-      r_new[row] = o.r_new;
-      aff_new[row] = o.aff;
-      dn[row] = o.dn;
+struct Bucket {
+  const int* rows;    // [cap] vertex ids, sentinel n; null: identity map
+  const int* idx;     // [cap, width]
+  const float* mask;  // [cap, width]
+  const int* sel;     // [count] active slots, sentinel cap; null: dense
+  int count;          // work lanes: cap (dense) or the list's length
+  int cap;
+  int width;
+  int lanes;
+  int first_block;
+};
+
+struct Buckets {
+  Bucket b[kMaxBuckets];
+  int nb;
+};
+
+// Per-vertex operands and outputs through the row map (Deg int, Flag
+// unsigned char holding a bool), or per-slot ones for the identity map
+// (Deg and Flag double).
+template <class Deg, class Flag>
+struct Operands {
+  const double* r;
+  const Deg* deg;
+  const Flag* aff;
+  double* r_new;
+  Flag* aff_new;
+  Flag* dn;
+  long long n;  // the row map's sentinel vertex id
+};
+
+template <int LANES, bool MAPPED, class Deg, class Flag>
+__device__ __forceinline__ double sweep_rows(const Bucket& bk, int block,
+                                             const double* __restrict__ c,
+                                             const Operands<Deg, Flag>& o,
+                                             const EpiParams& p) {
+  const int lane = threadIdx.x % LANES;
+  const long long i =
+      (long long)block * (kEllBlock / LANES) + threadIdx.x / LANES;
+  const bool work = i < bk.count;
+  long long s = 0, v = 0;
+  bool live = false;  // a real row: neither sentinel
+  if (work) {
+    s = bk.sel != nullptr ? (long long)bk.sel[i] : i;
+    if (s < bk.cap) {
+      v = MAPPED ? (long long)bk.rows[s] : s;
+      live = !MAPPED || v < o.n;
     }
-    dr = o.dr;
+  }
+  double rr = 1.0, d = 1.0, a = 0.0, sum = 0.0;
+  if (live) {
+    rr = o.r[v];
+    d = (double)o.deg[v];
+    a = (double)o.aff[v];
+    if (a > 0.0)
+      sum = ell_row_partial<LANES>(c, bk.idx + s * bk.width,
+                                   bk.mask + s * bk.width, bk.width, lane);
+  }
+  sum = ell_lanes_sum<LANES>(sum);
+  double dr = 0.0;
+  if (MAPPED ? live : work) {
+    const EpiOut e = pr_epilogue(sum, rr, d, a, p);
+    if (lane == 0) {
+      const long long w = MAPPED ? v : i;
+      o.r_new[w] = e.r_new;
+      o.aff_new[w] = (Flag)e.aff;
+      o.dn[w] = (Flag)e.dn;
+    }
+    dr = e.dr;
+  }
+  return dr;
+}
+
+template <bool MAPPED, class Deg, class Flag>
+__global__ void __launch_bounds__(kEllBlock)
+    fused_sweep_kernel(const double* __restrict__ c, const Buckets bks,
+                       const Operands<Deg, Flag> o, const EpiParams p,
+                       double* __restrict__ partials) {
+  // this block's bucket, selected with static indices only (no dynamic
+  // indexing into the parameter struct)
+  Bucket bk = bks.b[0];
+#pragma unroll
+  for (int j = 1; j < kMaxBuckets; ++j)
+    if (j < bks.nb && (int)blockIdx.x >= bks.b[j].first_block) bk = bks.b[j];
+  const int block = (int)blockIdx.x - bk.first_block;
+  double dr = 0.0;
+  switch (bk.lanes) {  // uniform over the block
+    case 1: dr = sweep_rows<1, MAPPED>(bk, block, c, o, p); break;
+    case 2: dr = sweep_rows<2, MAPPED>(bk, block, c, o, p); break;
+    case 4: dr = sweep_rows<4, MAPPED>(bk, block, c, o, p); break;
+    case 8: dr = sweep_rows<8, MAPPED>(bk, block, c, o, p); break;
+    case 16: dr = sweep_rows<16, MAPPED>(bk, block, c, o, p); break;
+    default: dr = sweep_rows<32, MAPPED>(bk, block, c, o, p); break;
   }
   dr = block_max<kEllBlock>(dr);
   if (threadIdx.x == 0) partials[blockIdx.x] = dr;
+}
+
+bool valid_lanes(int lanes) {
+  return lanes == 1 || lanes == 2 || lanes == 4 || lanes == 8 ||
+         lanes == 16 || lanes == 32;
+}
+
+// Blocks of bucket j of the host tables (4 ints per bucket: count, cap,
+// width, lanes).
+int bucket_blocks(const int* ints, int j) {
+  return ints[4 * j] > 0 ? ell_grid(ints[4 * j], ints[4 * j + 3]) : 0;
+}
+
+// Launch every bucket (in chunks of kMaxBuckets, each into its own range
+// of partials), then the fold into partials[grid].
+template <bool MAPPED, class Deg, class Flag>
+int launch_sweep(const double* c, int nb, const void* const* ptrs,
+                 const int* ints, const Operands<Deg, Flag>& o,
+                 double* partials, const EpiParams& p, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int j = 0; j < nb; ++j)
+    if (!valid_lanes(ints[4 * j + 3]) || ints[4 * j] < 0)
+      return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  for (int j0 = 0; j0 < nb;) {
+    Buckets bks{};
+    int blocks = 0;
+    for (; j0 < nb && bks.nb < kMaxBuckets; ++j0) {
+      const int nblk = bucket_blocks(ints, j0);
+      if (nblk == 0) continue;
+      Bucket& bk = bks.b[bks.nb++];
+      bk.rows = static_cast<const int*>(ptrs[4 * j0]);
+      bk.idx = static_cast<const int*>(ptrs[4 * j0 + 1]);
+      bk.mask = static_cast<const float*>(ptrs[4 * j0 + 2]);
+      bk.sel = static_cast<const int*>(ptrs[4 * j0 + 3]);
+      bk.count = ints[4 * j0];
+      bk.cap = ints[4 * j0 + 1];
+      bk.width = ints[4 * j0 + 2];
+      bk.lanes = ints[4 * j0 + 3];
+      bk.first_block = blocks;
+      blocks += nblk;
+    }
+    if (blocks == 0) continue;
+    fused_sweep_kernel<MAPPED, Deg, Flag><<<blocks, kEllBlock, 0, st>>>(
+        c, bks, o, p, partials + grid);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    grid += blocks;
+  }
+  max_partials_kernel<kFinalBlock><<<1, kFinalBlock, 0, st>>>(
+      partials, grid, partials + grid);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of blocks (and of max partials) for `rows` rows at `lanes` lanes.
-int fused_ell_update_grid(int rows, int lanes) {
-  return ell_grid(rows, lanes);
+// Blocks of a launch over `nb` buckets, described by 4 ints each (work
+// lanes, capacity, width, lanes per row): the partials hold this + 1.
+int fused_ell_grid(int nb, const int* ints) {
+  int grid = 0;
+  for (int j = 0; j < nb; ++j) grid += bucket_blocks(ints, j);
+  return grid;
 }
 
-// partials must hold fused_ell_update_grid(rows, lanes) + 1 doubles; the
-// bucket's max |dr| lands in the last one. Returns cudaGetLastError().
-int fused_ell_update(const double* c, const int* idx, const float* mask,
-                     const double* r, const double* deg, const double* aff,
-                     double* r_new, double* aff_new, double* dn,
-                     double* partials, int rows, int width, int lanes,
-                     double alpha, double c0, double tau_f, double tau_p,
-                     int prune, int closed_form, void* stream) {
+// The sweep entry, through the row maps. ptrs: 4 per bucket (rows, idx,
+// mask, active list or null); ints: 4 per bucket (work lanes = cap or the
+// list's length, cap, width, lanes per row). r [n] f64, deg [n] int32,
+// aff [n] bool; r_new [n] f64, aff_new and dn [n] bool are written at
+// every live row id. The sweep's max |dr| lands in partials[grid]. Returns
+// cudaGetLastError().
+int fused_ell_sweep(const double* c, int nb, const void* const* ptrs,
+                    const int* ints, const double* r, const int* deg,
+                    const unsigned char* aff, double* r_new,
+                    unsigned char* aff_new, unsigned char* dn, int n,
+                    double* partials, double alpha, double c0, double tau_f,
+                    double tau_p, int prune, int closed_form, void* stream) {
   const EpiParams p{alpha, c0, tau_f, tau_p, prune, closed_form};
-  const int grid = ell_grid(rows, lanes);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = with_lanes(lanes, [&](auto L) {
-    fused_ell_kernel<decltype(L)::value><<<grid, kEllBlock, 0, st>>>(
-        c, idx, mask, r, deg, aff, r_new, aff_new, dn, partials, rows, width,
-        p);
-  });
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  max_partials_kernel<kFinalBlock><<<1, kFinalBlock, 0, st>>>(
-      partials, grid, partials + grid);
-  return (int)cudaGetLastError();
+  const Operands<int, unsigned char> o{r, deg, aff, r_new, aff_new, dn, n};
+  return launch_sweep<true>(c, nb, ptrs, ints, o, partials, p, stream);
+}
+
+// The per-bucket entry, identity map: one bucket's [cap, width] table,
+// operands per slot (f64; pads r = 1, deg = 1, aff = 0), sel the active
+// list or null, `count` its length (or cap). Outputs r_new, aff_new, dn
+// hold `count` f64 each. partials as above, for nb = 1.
+int fused_ell_update(const double* c, const int* idx, const float* mask,
+                     const int* sel, int count, int cap, int width,
+                     int lanes, const double* r, const double* deg,
+                     const double* aff, double* r_new, double* aff_new,
+                     double* dn, double* partials, double alpha, double c0,
+                     double tau_f, double tau_p, int prune, int closed_form,
+                     void* stream) {
+  const EpiParams p{alpha, c0, tau_f, tau_p, prune, closed_form};
+  const Operands<double, double> o{r, deg, aff, r_new, aff_new, dn, cap};
+  const void* ptrs[4] = {nullptr, idx, mask, sel};
+  const int ints[4] = {count, cap, width, lanes};
+  return launch_sweep<false>(c, 1, ptrs, ints, o, partials, p, stream);
 }
 
 }  // extern "C"

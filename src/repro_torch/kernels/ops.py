@@ -1,16 +1,17 @@
 """The kernel-backed sweeps: `update_ranks_kernel` (fused) and
 `pull_sum_kernels` (the pull of the staged sweep).
 
-`update_ranks_kernel`: per degree bucket, one `fused_ell_update` gathers the in-edge
-contributions and applies the rank/prune/frontier epilogue before writing;
-the high side pulls per-slot sums through `csr_block_pull` and runs the
-same epilogue over the slot table with `pr_update`. This is the default
-sweep of every engine on CUDA tensors (`core.pagerank.update_ranks`).
-
-The per-slot gathers of r/deg/aff and the scatters of the results back
-through the row-id maps are plain tensor ops, as in the JAX package; ids
-equal to the sentinel `n` read the pad values (r=1, deg=1, aff=0) and
-write into a sink row that is sliced off.
+`update_ranks_kernel`: one `fused_ell_sweep` launch gathers the in-edge
+contributions of every ELL bucket and applies the rank/prune/frontier
+epilogue, reading each row's rank, out-degree and flag through the
+bucket's row map and writing the new rank and flags there in place (one
+more launch folds its L∞ partials); the high side pulls per-slot sums
+through `csr_block_pull` and runs the same epilogue over the slot table
+with `pr_update`, its operands gathered and its results scattered
+through the slot→vertex map (ids equal to the sentinel `n` read the pad
+values r=1, deg=1, aff=0 and write into a sink row that is sliced off).
+This is the default sweep of every engine on CUDA tensors
+(`core.pagerank.update_ranks`).
 
 `pull_sum_kernels(dg, c)` is a drop-in `pull_sum_fn` for the engines of
 `core.pagerank` and `core.dynamic`: `ell_pull` per bucket
@@ -25,9 +26,9 @@ from __future__ import annotations
 import torch
 
 from .csr_block import csr_block_pull
-from .ell_bucket_pull import bucket_sums, fused_ell_update
+from .ell_bucket_pull import bucket_sums, fused_ell_sweep
 from .pr_update import pr_update
-from ..sentinel import take_fill, with_sink
+from ..sentinel import take_fill
 
 __all__ = ["update_ranks_kernel", "pull_sum_kernels"]
 
@@ -50,12 +51,14 @@ def update_ranks_kernel(dg, r: torch.Tensor, affected: torch.Tensor, *,
                         alpha: float, tau_f: float, tau_p: float,
                         prune: bool, closed_form: bool, track_frontier: bool,
                         active=None):
-    """Kernel-backed Alg. 3 body, single-pass per bucket.
+    """Kernel-backed Alg. 3 body: the ELL low side in one pass over every
+    bucket, the high side in `csr_block_pull` + `pr_update`.
 
     Same contract as core.pagerank.update_ranks. Every vertex lives in
     exactly one bucket or one high slot (self-loops guarantee in-degree
     >= 1, so the d_p = 0 layout puts every vertex high-side and one
-    epilogue serves all layouts), so each output is written exactly once.
+    epilogue serves all layouts), so in the dense sweep each output is
+    written exactly once and the outputs start uninitialised.
 
     `active` (core.frontier.ActiveFrontier, valid only when its `overflow`
     is False) restricts every kernel to the compacted active lists. Rows
@@ -65,31 +68,23 @@ def update_ranks_kernel(dg, r: torch.Tensor, affected: torch.Tensor, *,
     """
     n = r.shape[0]
     dt = r.dtype
-    deg = dg.out_deg.to(dt)
-    c = r / deg
-    aff_f = affected.to(dt)
+    c = r / dg.out_deg
     kw = dict(alpha=alpha, inv_n=1.0 / n, tau_f=tau_f, tau_p=tau_p,
               prune=prune, closed_form=closed_form)
 
-    # reads at id n see the pad values; writes at id n land in the sink
-    r_src, d_src, a_src = with_sink(r, 1.0), with_sink(deg, 1.0), \
-        with_sink(aff_f, 0.0)
-    r_new, aff_new = r_src.clone(), a_src.clone()
-    dn_f = torch.zeros_like(a_src)
-    dmax = r.new_zeros(())
-
-    b_sel = active.bucket_sel if active is not None \
-        else (None,) * len(dg.buckets)
-    for blk, sel in zip(dg.buckets, b_sel):
-        rows = blk.rows if sel is None else take_fill(blk.rows, sel, n)
-        rb, ab, db, pb = fused_ell_update(
-            c, blk.idx, blk.mask, r_src.index_select(0, blk.rows),
-            d_src.index_select(0, blk.rows), a_src.index_select(0, blk.rows),
-            active=sel, **kw)
-        r_new[rows] = rb
-        aff_new[rows] = ab
-        dn_f[rows] = db
-        dmax = torch.maximum(dmax, pb)
+    # [n + 1] outputs: the high side's sentinel ids write into row n; over
+    # active lists the rows off the lists keep their rank and flag
+    r_new = torch.empty(n + 1, dtype=dt, device=r.device)
+    aff_new = torch.empty(n + 1, dtype=torch.bool, device=r.device)
+    if active is None:
+        dn = torch.empty(n + 1, dtype=torch.bool, device=r.device)
+    else:
+        r_new[:n].copy_(r)
+        aff_new[:n].copy_(affected)
+        dn = torch.zeros(n + 1, dtype=torch.bool, device=r.device)
+    dmax = fused_ell_sweep(
+        c, dg.buckets, r, dg.out_deg, affected, r_new, aff_new, dn,
+        bucket_sel=active.bucket_sel if active is not None else None, **kw)
 
     hi_sums = csr_block_pull(
         c, dg.hi_tiles, dg.hi_tmask, dg.hi_rowmap, dg.n_hi_cap,
@@ -103,13 +98,13 @@ def update_ranks_kernel(dg, r: torch.Tensor, affected: torch.Tensor, *,
     else:
         ids = dg.hi_ids
     rh, ah, dh, ph = pr_update(
-        hi_sums, r_src.index_select(0, ids), d_src.index_select(0, ids),
-        a_src.index_select(0, ids), **kw)
+        hi_sums, take_fill(r, ids, 1.0), take_fill(dg.out_deg, ids, 1).to(dt),
+        take_fill(affected, ids, False).to(dt), **kw)
     r_new[ids] = rh
-    aff_new[ids] = ah
-    dn_f[ids] = dh
+    aff_new[ids] = ah > 0
+    dn[ids] = dh > 0
     dmax = torch.maximum(dmax, ph)
 
-    aff_out = aff_new[:n] > 0 if prune else affected
-    dn_out = dn_f[:n] > 0 if track_frontier else torch.zeros_like(affected)
+    aff_out = aff_new[:n] if prune else affected
+    dn_out = dn[:n] if track_frontier else torch.zeros_like(affected)
     return r_new[:n], aff_out, dn_out, dmax

@@ -7,14 +7,14 @@ across batches, `replay` drives workloads with per-batch latency
 accounting. The single-device part of the JAX package's `repro.stream`;
 its sharded snapshot comes with a later slice.
 """
-from .delta import Delta, ingest
+from .delta import Delta, ingest, next_pow2
 from .snapshot import CapacityError, DeviceSnapshot, SnapshotStats
 from .session import BatchStats, StreamSession, choose_engine, \
     frontier_estimate
 from .replay import ReplayRecord, replay, churn_workload, mixed_workload
 
 __all__ = [
-    "Delta", "ingest",
+    "Delta", "ingest", "next_pow2",
     "CapacityError", "DeviceSnapshot", "SnapshotStats",
     "BatchStats", "StreamSession", "choose_engine", "frontier_estimate",
     "ReplayRecord", "replay", "churn_workload", "mixed_workload",

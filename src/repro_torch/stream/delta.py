@@ -22,7 +22,7 @@ from ..core.dynamic import DeviceBatch, batch_to_device
 from ..core.graph import BatchUpdate, edge_keys, keys_to_edges, next_pow2
 from ..guard.validate import validate_batch
 
-__all__ = ["Delta", "ingest"]
+__all__ = ["Delta", "ingest", "next_pow2"]
 
 
 @dataclasses.dataclass(frozen=True)

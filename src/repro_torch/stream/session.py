@@ -231,6 +231,11 @@ class StreamSession:
         return static_pagerank(self.snap.dg,
                                init_ranks(self.n, device=self.device), params)
 
+    def flat_ranks(self) -> torch.Tensor:
+        """Current ranks as a dense [n] vector. Single-device, that is
+        `ranks` itself."""
+        return self.ranks
+
     def static_reference(self) -> torch.Tensor:
         """From-scratch static solve on the *current* snapshot — the
         verification anchor for the chained DF-P ranks. Does not touch

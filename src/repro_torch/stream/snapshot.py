@@ -64,7 +64,7 @@ from ..core.graph import (Graph, bucket_band_counts, build_hybrid,
                           graph_from_sorted_keys, keys_to_edges, next_pow2)
 from ..core.pagerank import (DeviceGraph, EllBlock, resolve_device,
                              slot_tile_table)
-from ..kernels.stream_scatter import ell_scatter_rows
+from ..kernels.stream_scatter import scatter_rows_batch
 from .delta import Delta
 
 __all__ = ["CapacityError", "DeviceSnapshot", "SnapshotStats",
@@ -106,6 +106,56 @@ def _sync(dev: torch.device) -> None:
     """Wait for the device, so a host clock read next times the work."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _scatter_from_host(jobs, dev: torch.device) -> None:
+    """Write host rows into device tables, in place, with one copy to the
+    device and one `scatter_rows_batch` call.
+
+    `jobs`: (dst, dst_mask or None, ids, new, new_mask or None) with dst
+    (and dst_mask) a device table [R, d] of 32-bit words, ids [k] int32
+    and new (new_mask) [k, d] numpy rows of the destination's dtype. All
+    of them are packed, as raw 32-bit words, into one host buffer (pinned
+    on CUDA, fresh per call: PyTorch's pinned-memory cache keeps a block
+    from reuse until the copy out of it has run), every segment starting
+    on a 16-byte boundary so the kernel's vector path stays open."""
+    if not jobs:
+        return
+    def pad(words):                 # to the next 16-byte boundary
+        return -(-words // 4) * 4
+
+    total = sum(pad(ids.size) + pad(new.size)
+                + (0 if new_m is None else pad(new_m.size))
+                for _, _, ids, new, new_m in jobs)
+    buf = torch.empty(total, dtype=torch.int32,
+                      pin_memory=dev.type == "cuda")
+    words = buf.numpy()
+    spans, at = [], 0
+    for _, _, ids, new, new_m in jobs:
+        seg = []
+        for a in (ids, new, new_m):
+            if a is None:
+                seg.append(None)
+                continue
+            if a.dtype.itemsize != 4:
+                raise TypeError(f"scatter rows of dtype {a.dtype}: the "
+                                "tables hold 32-bit words")
+            words[at:at + a.size] = np.ascontiguousarray(a).reshape(
+                -1).view(np.int32)
+            seg.append((at, a.shape))
+            at += pad(a.size)
+        spans.append(seg)
+    on_dev = buf.to(dev, non_blocking=True) if dev.type == "cuda" else buf
+
+    def view(span, dtype):
+        at, shape = span
+        n = int(np.prod(shape))
+        return on_dev[at:at + n].view(dtype).view(shape)
+
+    scatter_rows_batch([
+        (dst, dst_m, view(sp[0], torch.int32), view(sp[1], dst.dtype),
+         None if sp[2] is None else view(sp[2], dst_m.dtype))
+        for (dst, dst_m, _, _, _), sp in zip(jobs, spans)])
 
 
 def apply_net_delta(keys: np.ndarray, n: int, delta: Delta,
@@ -503,32 +553,28 @@ class _HalfLayout:
 
     # -- device refresh -----------------------------------------------------
 
-    def _scatter(self, dev_idx, dev_mask, host_idx, host_mask, ids):
-        """Write the mirror rows `ids` into the device pair, in place."""
-        dev = self.device
-        ell_scatter_rows(dev_idx, dev_mask, _stage(ids, dev),
-                         _stage(host_idx[ids], dev),
-                         _stage(host_mask[ids], dev))
-
-    def device_refresh(self) -> tuple:
-        """Push dirty slots/tiles to the device tensors, in place; returns
-        (#slots, #tiles)."""
+    def device_refresh(self, jobs: list) -> tuple:
+        """Push dirty slots/tiles to the device tensors, in place: the
+        edited rows of every (index, mask) table go into `jobs` for
+        `_scatter_from_host`, the small side tables are re-staged here.
+        Returns (#slots, #tiles)."""
         nr = sum(len(s) for s in self._dirty_slots)
         nt = len(self._dirty_tiles)
         self.last_scatter = {}
-        for bi, dirty in enumerate(self._dirty_slots):
+        tables = [(bi, self.dev_bk_idx[bi], self.dev_bk_mask[bi],
+                   self.bk_idx[bi], self.bk_mask[bi], dirty)
+                  for bi, dirty in enumerate(self._dirty_slots)]
+        tables.append(("tiles", self.dev_hi_tiles, self.dev_hi_tmask,
+                       self.hi_tiles, self.hi_tmask, self._dirty_tiles))
+        for key, dev_idx, dev_mask, host_idx, host_mask, dirty in tables:
             if dirty:
                 ids = np.fromiter(dirty, np.int32, len(dirty))
-                self._scatter(self.dev_bk_idx[bi], self.dev_bk_mask[bi],
-                              self.bk_idx[bi], self.bk_mask[bi], ids)
-                self.last_scatter[bi] = ids
-            if self._bmap_dirty[bi]:
+                jobs.append((dev_idx, dev_mask, ids, host_idx[ids],
+                             host_mask[ids]))
+                self.last_scatter[key] = ids
+        for bi, dirty in enumerate(self._bmap_dirty):
+            if dirty:
                 _restage(self.dev_bk_rows[bi], self.bk_rows[bi])
-        if nt:
-            ids = np.fromiter(self._dirty_tiles, np.int32, nt)
-            self._scatter(self.dev_hi_tiles, self.dev_hi_tmask,
-                          self.hi_tiles, self.hi_tmask, ids)
-            self.last_scatter["tiles"] = ids
         # small 1-D side tables: re-staged wholesale, but only when touched
         if self._rowmap_dirty:
             _restage(self.dev_hi_rowmap, self.hi_rowmap)
@@ -742,15 +788,17 @@ class DeviceSnapshot:
         stats.migrations = self._pull.migrations + self._fwd.migrations - mig0
         t1 = time.perf_counter()
         stats.host_s = t1 - t0
-        rows_p, tiles_p = self._pull.device_refresh()
-        rows_f, tiles_f = self._fwd.device_refresh()
+        jobs = []
+        rows_p, tiles_p = self._pull.device_refresh(jobs)
+        rows_f, tiles_f = self._fwd.device_refresh(jobs)
         touched = np.unique(np.concatenate([d_s, d_d, i_s, i_d]))
         if touched.size:
-            at = _stage(touched.astype(np.int64), self.device)
-            self._dev_outdeg.index_copy_(0, at, _stage(
-                self._outdeg[touched].astype(np.int32), self.device))
-            self._dev_indeg.index_copy_(0, at, _stage(
-                self._indeg[touched].astype(np.int32), self.device))
+            ids = touched.astype(np.int32)
+            for dst, deg in ((self._dev_outdeg, self._outdeg),
+                             (self._dev_indeg, self._indeg)):
+                jobs.append((dst.view(-1, 1), None, ids,
+                             deg[touched].astype(np.int32)[:, None], None))
+        _scatter_from_host(jobs, self.device)
         _sync(self.device)
         stats.rows_touched = rows_p + rows_f
         stats.tiles_touched = tiles_p + tiles_f

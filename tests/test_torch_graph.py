@@ -85,6 +85,21 @@ def test_temporal_stream_identical():
         np.testing.assert_array_equal(x.ins_dst, y.ins_dst)
 
 
+@pytest.mark.parametrize("n,dtype", [(7, np.int32), (5, np.int64),
+                                     (3, np.int32)])
+def test_add_self_loops_identical(n, dtype):
+    from repro.core.graph import add_self_loops as j_add_self_loops
+    rng = np.random.default_rng(n)
+    m = 0 if n == 3 else 11
+    src, dst = (rng.integers(0, n, m).astype(dtype) for _ in range(2))
+    got = tc.graph.add_self_loops(n, src, dst)
+    want = j_add_self_loops(n, src, dst)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == np.int32
+        np.testing.assert_array_equal(x, y)
+    assert "add_self_loops" in tc.graph.__all__
+
+
 def test_key_and_ragged_primitives_identical():
     rng = np.random.default_rng(0)
     src, dst = rng.integers(0, 50, 40), rng.integers(0, 50, 40)

@@ -20,6 +20,7 @@ import repro_torch.core as tc  # noqa: E402
 from repro_torch.guard.health import H_NONFINITE  # noqa: E402
 from repro_torch.kernels import (_build, csr_block_pull, fused_ell_update,  # noqa: E402
                                  pr_update, update_ranks_kernel)
+from repro_torch.kernels.ell_bucket_pull import fused_ell_sweep  # noqa: E402
 from repro_torch.kernels.ref import linf_delta_ref, pr_update_ref  # noqa: E402
 
 D_P, TILE = 8, 32
@@ -181,6 +182,133 @@ def test_update_ranks_kernel_matches_repro_and_oracle(layout, active):
 
 
 # ---------------------------------------------------------------------------
+# fused_ell_sweep: the low side of update_ranks_kernel through the row maps
+# ---------------------------------------------------------------------------
+
+def _padded(g, **layout):
+    """`build_hybrid` with 5 unused slots (row id n) in every bucket."""
+    caps = tc.hybrid_caps(tc.build_hybrid(g, **layout))
+    return dict(layout, bucket_caps=tuple(c + 5 for c in
+                                          caps["bucket_caps"]))
+
+
+SWEEP_LAYOUTS = dict(LAYOUTS, padded=None)
+
+
+def _sweep_case(layout, active):
+    """The inputs of `test_update_ranks_kernel_matches_repro_and_oracle`,
+    plus the host layout; `padded` gives every bucket sentinel slots."""
+    g = tc.powerlaw_graph(250, 2000, seed=17)
+    gj = jc.powerlaw_graph(250, 2000, seed=17)
+    kw = (LAYOUTS[layout] if layout != "padded"
+          else _padded(g, d_p=D_P, tile=TILE))
+    lay = tc.build_hybrid(g, **kw)
+    dg_t = tc.to_device(lay, device="cpu")
+    dg_j = jc.to_device(jc.build_hybrid(gj, **kw))
+    rng = np.random.default_rng(18)
+    r = rng.random(g.n) / g.n + 1.0 / g.n
+    dv = rng.random(g.n) < (0.08 if active else 0.7)
+    af_t = af_j = None
+    if active:
+        est = int(dv.sum())
+        af_t = tc.active_frontier(dg_t.buckets, dg_t.hi_ids, dg_t.hi_rowmap,
+                                  _t(dv), tc.caps_for(dg_t, est))
+        af_j = jc.active_frontier(dg_j.buckets, dg_j.hi_ids, dg_j.hi_rowmap,
+                                  jnp.asarray(dv), jc.caps_for(dg_j, est))
+        assert not bool(af_t.overflow)
+    return g, lay, dg_t, dg_j, r, dv, af_t, af_j
+
+
+def _live_rows(lay, sels, n):
+    """[n + 1] mask of the vertex ids of every bucket's live slots (on the
+    active list when there is one); id n is the unused slots' sentinel."""
+    live = np.zeros(n + 1, bool)
+    for bi, blk in enumerate(lay.buckets):
+        slots = np.arange(blk.cap)
+        if sels is not None:
+            sel = sels[bi].numpy()
+            slots = sel[sel < blk.cap]
+        live[blk.rows[slots]] = True
+    live[n] = False
+    return live
+
+
+def _sweep_outputs(n):
+    """[n + 1] outputs holding a marker no sweep writes: -1, True, True."""
+    return (torch.full((n + 1,), -1.0, dtype=torch.float64),
+            torch.ones(n + 1, dtype=torch.bool),
+            torch.ones(n + 1, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("active", [False, True])
+@pytest.mark.parametrize("layout", sorted(SWEEP_LAYOUTS))
+def test_fused_ell_sweep_matches_repro_on_the_low_side(layout, active):
+    g, lay, dg_t, dg_j, r, dv, af_t, af_j = _sweep_case(layout, active)
+    n = g.n
+    want = jk.update_ranks_kernel(dg_j, jnp.asarray(r), jnp.asarray(dv),
+                                  active=af_j, track_frontier=True, **STEP)
+    sels = af_t.bucket_sel if active else None
+    r_new, aff_new, dn = _sweep_outputs(n)
+    dmax = fused_ell_sweep(_t(r) / dg_t.out_deg, dg_t.buckets, _t(r),
+                           dg_t.out_deg, _t(dv), r_new, aff_new, dn,
+                           bucket_sel=sels, inv_n=1.0 / n, **STEP)
+    assert dmax.dim() == 0
+    live = _live_rows(lay, sels, n)
+    if layout == "padded":
+        assert all((blk.rows == n).any() for blk in lay.buckets)
+    if layout == "d_p0":           # no bucket: nothing runs, nothing moves
+        assert not live.any() and float(dmax) == 0.0
+        assert bool((r_new == -1.0).all()) and bool(aff_new.all())
+        return
+    assert live[:n].any()
+    lv = torch.from_numpy(live[:n])
+    got_r = r_new[:n][lv].numpy()
+    want_r = np.asarray(want[0])[live[:n]]
+    assert _linf(got_r, want_r) <= TOL
+    np.testing.assert_array_equal(aff_new[:n][lv].numpy(),
+                                  np.asarray(want[1])[live[:n]] > 0)
+    np.testing.assert_array_equal(dn[:n][lv].numpy(),
+                                  np.asarray(want[2])[live[:n]] > 0)
+    want_max = np.max(np.abs(want_r - r[live[:n]]), initial=0.0)
+    assert abs(float(dmax) - want_max) <= TOL
+
+
+@pytest.mark.parametrize("active", [False, True])
+def test_fused_ell_sweep_writes_nothing_for_sentinels(active):
+    """Unused slots (row id n) and dead lanes of an active list (slot id
+    cap_b) leave every output as it was, the sink row n included."""
+    g, lay, dg_t, _, r, dv, af_t, _ = _sweep_case("padded", active)
+    n = g.n
+    sels = af_t.bucket_sel if active else None
+    if active:
+        assert any(bool((s == blk.cap).any())
+                   for s, blk in zip(sels, lay.buckets))
+    r_new, aff_new, dn = _sweep_outputs(n)
+    fused_ell_sweep(_t(r) / dg_t.out_deg, dg_t.buckets, _t(r), dg_t.out_deg,
+                    _t(dv), r_new, aff_new, dn, bucket_sel=sels,
+                    inv_n=1.0 / n, **STEP)
+    off = torch.from_numpy(~_live_rows(lay, sels, n))
+    assert bool(off[n]) and bool((~off[:n]).any())
+    assert bool((r_new[off] == -1.0).all())
+    assert bool(aff_new[off].all()) and bool(dn[off].all())
+    assert bool((r_new[~off] != -1.0).all())
+
+
+def test_fused_ell_sweep_keeps_a_nan_rank_of_an_unaffected_row():
+    g, lay, dg_t, _, r, _, _, _ = _sweep_case("bucketed", False)
+    n = g.n
+    v = int(lay.buckets[0].rows[0])
+    r[v] = np.nan
+    off = torch.zeros(n, dtype=torch.bool)
+    r_new, aff_new, dn = _sweep_outputs(n)
+    dmax = fused_ell_sweep(_t(r) / dg_t.out_deg, dg_t.buckets, _t(r),
+                           dg_t.out_deg, off, r_new, aff_new, dn,
+                           inv_n=1.0 / n, **STEP)
+    assert torch.isnan(dmax) and torch.isnan(r_new[v])
+    assert not bool(aff_new[v]) and not bool(dn[v])
+
+
+# ---------------------------------------------------------------------------
 # NaN wins every max
 # ---------------------------------------------------------------------------
 
@@ -233,6 +361,12 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     kw = dict(inv_n=0.1, **STEP)
     with pytest.raises(ValueError, match="no kernel"):
         fused_ell_update(c, idx, mask, v, v, v, **kw)
+    blk = tc.EllBlock(rows=idx[:, 0].contiguous(), idx=idx, mask=mask)
+    deg = torch.ones(10, dtype=torch.int32, device=m)
+    flags = torch.zeros(10, dtype=torch.bool, device=m)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_ell_sweep(c, (blk,), c, deg, flags, c.clone(), flags.clone(),
+                        flags.clone(), **kw)
     with pytest.raises(ValueError, match="no kernel"):
         pr_update(v, v, v, v, **kw)
     with pytest.raises(ValueError, match="no kernel"):

@@ -32,6 +32,7 @@ from repro_torch.core import compact as tcompact  # noqa: E402
 from repro_torch.core.pagerank import slot_tile_table  # noqa: E402
 from repro_torch.guard import ValidationError, validate_batch  # noqa: E402
 from repro_torch.kernels import ell_scatter_rows, scatter_rows  # noqa: E402
+from repro_torch.kernels.stream_scatter import scatter_rows_batch  # noqa: E402
 
 CAPS = dict(d_p=8, tile=32)
 CPU = dict(device="cpu")
@@ -121,6 +122,77 @@ def test_scatter_wrappers_never_fall_back_off_the_cpu():
         ell_scatter_rows(dst, msk, rows, new, new_m)
     with pytest.raises(TypeError, match="int32 idx"):
         ell_scatter_rows(msk, dst, rows, new_m, new)
+
+
+def test_next_pow2_is_exported_and_matches_repro():
+    from repro_torch.stream import next_pow2
+    assert "next_pow2" in ts.__all__
+    for floor in (1, 2, 16, 64):
+        for x in list(range(-2, 70)) + [1000, 1023, 1024, 1025, 2 ** 20 + 1]:
+            assert next_pow2(x, floor) == js.next_pow2(x, floor), (x, floor)
+    assert next_pow2(5) == js.next_pow2(5)
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["single", "pair"])
+def test_scatter_rows_batch_matches_pallas_table_by_table(pair):
+    """One batched call over tables of widths 4, 8, 16, 64 and 256 (row
+    counts and dtypes differing) against the Pallas kernels applied to
+    each table in turn; every table repeats its first row id as a pad row
+    with identical contents."""
+    from repro.kernels import ell_scatter_rows as j_pair
+    rng = np.random.default_rng(13)
+    tables, wants = [], []
+    for t, d in enumerate((4, 8, 16, 64, 256)):
+        n_rows, k = 30 + 7 * t, 3 + t
+        idx = rng.integers(0, 99, (n_rows, d)).astype(np.int32)
+        mask = (rng.random((n_rows, d)) < 0.5).astype(np.float32)
+        rows = rng.choice(n_rows, k, replace=False).astype(np.int32)
+        rows = np.concatenate([rows, rows[:1]])
+        new_i = rng.integers(0, 99, (k + 1, d)).astype(np.int32)
+        new_m = (rng.random((k + 1, d)) < 0.5).astype(np.float32)
+        new_i[-1], new_m[-1] = new_i[0], new_m[0]
+        if pair:
+            want = j_pair(*map(jnp.asarray, (idx, mask, rows, new_i, new_m)),
+                          interpret=True)
+            tables.append((torch.from_numpy(idx.copy()),
+                           torch.from_numpy(mask.copy()),
+                           torch.from_numpy(rows), torch.from_numpy(new_i),
+                           torch.from_numpy(new_m)))
+        else:                  # single tables, int32 and float32 in turn
+            dst, new = (idx, new_i) if t % 2 == 0 else (mask, new_m)
+            want = (j_scatter_rows(jnp.asarray(dst), jnp.asarray(rows),
+                                   jnp.asarray(new), interpret=True),)
+            tables.append((torch.from_numpy(dst.copy()), None,
+                           torch.from_numpy(rows), torch.from_numpy(new),
+                           None))
+        wants.append(want)
+    scatter_rows_batch(tables)
+    for tab, want in zip(tables, wants):
+        got = (tab[0],) if tab[1] is None else tab[:2]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_scatter_rows_batch_plain_refuses_an_out_of_range_id():
+    """The plain version raises on a row id outside [0, R) (the kernel
+    drops that row, checked on the card); an empty batch does nothing."""
+    dst = torch.zeros(6, 4, dtype=torch.int32)
+    new = torch.ones(2, 4, dtype=torch.int32)
+    for bad in (6, -7):
+        with pytest.raises(IndexError):
+            scatter_rows_batch([(dst, None, torch.tensor([1, bad],
+                                                         dtype=torch.int32),
+                                 new, None)])
+    scatter_rows_batch([])
+
+
+def test_scatter_rows_batch_never_falls_back_off_the_cpu():
+    m = torch.device("meta")
+    dst = torch.empty(8, 4, dtype=torch.int32, device=m)
+    rows = torch.zeros(2, dtype=torch.int32, device=m)
+    new = torch.empty(2, 4, dtype=torch.int32, device=m)
+    with pytest.raises(ValueError, match="no kernel"):
+        scatter_rows_batch([(dst, None, rows, new, None)])
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +692,42 @@ def test_session_engine_selection_and_override():
     r = s.recompute()
     assert s.history[-1].engine == "recompute"
     assert tc.l1_error(r, s.static_reference()) == 0.0
+
+
+def test_flat_ranks_are_the_ranks_and_match_repro():
+    g = tc.powerlaw_graph(600, 6000, seed=23)
+    gj = jc.build_graph(g.n, *g.edges())
+    sess = ts.StreamSession(g, **CAPS, **CPU)
+    sj = js.StreamSession(gj, **CAPS)
+    for k in range(3):
+        r = sess.flat_ranks()
+        assert r is sess.ranks and r.shape == (g.n,)
+        assert _linf(r, sj.flat_ranks()) <= SOLVE_TOL
+        b = tc.random_batch(g, 2e-3, seed=24 + k)
+        sess.apply(b)
+        sj.apply(_jbatch(b))
+
+
+def test_refresh_scatters_every_table_in_one_call(monkeypatch):
+    """A batch that edits rows sends every edited table of both halves and
+    both degree vectors to one `scatter_rows_batch` call."""
+    calls = []
+
+    def spy(tables):
+        calls.append(len(tables))
+        scatter_rows_batch(tables)
+
+    monkeypatch.setattr(ts.snapshot, "scatter_rows_batch", spy)
+    g = tc.powerlaw_graph(600, 6000, seed=25)
+    snap = ts.DeviceSnapshot(g, **CAPS, **CPU)
+    for k in range(3):
+        before = len(calls)
+        stats = snap.apply(ts.ingest(tc.random_batch(g, 5e-3, seed=26 + k),
+                                     g.n))
+        assert not stats.rebuilt and stats.rows_touched > 0
+        tables = sum(len(h.last_scatter) for h in (snap._pull, snap._fwd))
+        assert calls[before:] == [tables + 2]
+        _port_device_matches_mirrors(snap)
 
 
 def test_session_topk_matches_argsort():
