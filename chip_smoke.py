@@ -17,11 +17,19 @@ Phases (any failure exits non-zero; nothing is caught):
      (fused_ell_sweep, dense, with an active list and with a NaN rank on
      an unaffected row: ranks, flags and max equal to its plain version,
      the glue around the per-bucket entry, and within 1e-12 of the plain
-     PyTorch sweep), the high side, pull_sum_kernels over the whole
-     graph; ranks and sums to 1e-12 L-inf, flags exactly; linf_delta
-     exactly (difference 0) at length n, 1, n - 1 and one off the block
-     size; a NaN rank must reach every L-inf max (linf_delta from either
-     side) and a NaN contribution ell_pull's row;
+     PyTorch sweep; ell_pull_buckets equal to the per-bucket ell_pull's
+     sums at their rows, nothing at the sentinel row), the high side
+     (csr_block_pull dense and over its active tiles), pull_sum_kernels
+     over the whole graph; ranks and sums to 1e-12 L-inf, flags exactly;
+     ell_pull and csr_block_pull on tables 4 bytes off a 16-byte boundary
+     (4-byte loads) equal to the aligned run; the same checks on the small
+     graph of phase 6 in its layout (widths 1/2/4/8, tile 32) and in nine
+     buckets (widths 1-6, 8, 16, 32: two launches' worth of descriptors,
+     the generic loop at 3, 5, 6; tile 8); linf_delta exactly (difference
+     0) at length n, 1, n - 1 and one off the block size; a NaN rank must
+     reach every L-inf max (linf_delta from either side) and a NaN
+     contribution the rows of both ell_pull entries and the
+     csr_block_pull slot that name it;
   5. static PageRank through the fused kernels (launch counts start at 0
      here), again on the plain PyTorch path, then on the staged sweep
      (pull_sum_fn=pull_sum_kernels: ell_pull, csr_block_pull, the rank
@@ -29,7 +37,8 @@ Phases (any failure exits non-zero; nothing is caught):
      0; then the fused solve twice more, untraced and with trace=True:
      ranks equal to the first solve, the same iteration count, the
      trace's final L-inf <= tau; over phases 5-6, one fused_ell_update
-     call (the sweep kernel and its fold) per fused sweep;
+     call (the sweep kernel and its fold) per fused sweep and one ell_pull
+     launch (every bucket) per staged sweep;
   6. three chained DF-P batches (random_batch, frac=1e-4, 80% inserts)
      through the fused kernels, dense and with frontier_caps, on the
      staged sweep (dense, pull_sum_fn=pull_sum_kernels), and on the plain
@@ -38,11 +47,17 @@ Phases (any failure exits non-zero; nothing is caught):
      numpy reference;
   7. each kernel timed with CUDA events (median) beside its plain version,
      its bound and, where one PyTorch call computes the same function,
-     that call (ell_pull: torch.mv over a sparse CSR matrix of the low
-     side; linf_delta: torch.dist with p = inf); fused_ell_update is the
-     whole low side of one sweep; then one whole sweep, all rows
-     affected, fused (update_ranks_kernel) and staged (pull_sum_kernels,
-     rank_step, linf_delta);
+     that call (ell_pull, csr_block_pull: torch.mv over a sparse CSR
+     matrix of the low / high side; linf_delta: torch.dist with p = inf);
+     fused_ell_update is the whole low side of one sweep, ell_pull every
+     bucket in one launch; then one whole sweep, all rows affected, fused
+     (update_ranks_kernel) and staged (pull_sum_kernels, rank_step,
+     linf_delta); then the three gathers of c (ell_pull, csr_block_pull,
+     the fused low side) and the two torch.mv calls timed three ways (one
+     call a sample, 10 back to back, on the card alone: 10 calls in a
+     replayed CUDA graph), and each gather on the card alone on two
+     locality probes, tables of the same shape with c read in order and
+     from one line, and with the other L2 policy for c;
   8. the streaming path on the same graph: a StreamSession with
      trace=True (DeviceSnapshot + static solve, launch counts start at 0
      here; tau = 1e-11, see STREAM_PARAMS), three churn batches
@@ -179,10 +194,37 @@ def graph_ms(fn, repeats: int, per: int) -> float:
     return cuda_ms(graph.replay, repeats) / per
 
 
+PER = 10    # calls per back-to-back sample and per replayed CUDA graph
+
+
+def three_ways(fn, repeats: int) -> dict:
+    """fn's time one call per sample (as a solve makes the call), PER calls
+    back to back, and on the card alone (PER calls in a CUDA graph)."""
+    return dict(ms=cuda_ms(fn, repeats),
+                back_to_back_ms=cuda_ms(fn, repeats, PER),
+                graph_ms=graph_ms(fn, repeats, PER))
+
+
+def in_order(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """A table of idx's shape whose entry [s, j] is (s * w + j) mod n: the
+    locality probe whose gathers of c coalesce."""
+    k = torch.arange(idx.numel(), device=idx.device, dtype=torch.int64)
+    return (k % n).to(torch.int32).view(idx.shape)
+
+
 def bound(nbytes: float, flops: float, peak: float = FP64_FLOPS):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t whose data starts 4 bytes past a 16-byte boundary: the
+    gather kernels then take 4-byte loads at the same slots."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = flat[1:t.numel() + 1].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def at(t, ids):
@@ -207,7 +249,9 @@ def check_kernels(dgx, rng, errs):
     from repro_torch.kernels.ell_bucket_pull import (fused_ell_sweep,
                                                      fused_ell_sweep_plain,
                                                      fused_ell_update_plain)
-    from repro_torch.kernels.ell_pull import ell_pull_plain
+    from repro_torch.kernels.ell_pull import (ell_pull_buckets,
+                                              ell_pull_buckets_plain,
+                                              ell_pull_plain)
     from repro_torch.kernels.pr_update import pr_update_plain
     from repro_torch.sentinel import take_fill, with_sink
     dev, n = dgx.device, dgx.n
@@ -240,10 +284,27 @@ def check_kernels(dgx, rng, errs):
                for o, f in zip(ops[1:], (0, 0.0, 1.0, 1.0, 0.0))]
         hold("fused_ell_update", fused_ell_update(*ops, active=sel, **kw),
              fused_ell_update_plain(c, *act, **kw))
-        e = linf(ell_pull(c, blk.idx, blk.mask),
-                 ell_pull_plain(c, blk.idx, blk.mask))
+        got = ell_pull(c, blk.idx, blk.mask)
+        e = linf(got, ell_pull_plain(c, blk.idx, blk.mask))
         require(e <= TOL_SWEEP, f"ell_pull at width {blk.width}: L-inf {e}")
         errs["ell_pull"] = max(errs["ell_pull"], e)
+        # off the 16-byte path: the same slots, 4-byte loads, equal bits
+        require(torch.equal(ell_pull(c, misaligned(blk.idx),
+                                     misaligned(blk.mask)), got),
+                f"ell_pull at width {blk.width}: the 4-byte loads differ")
+    # every bucket in one launch, through the row maps: equal to the
+    # per-bucket entry's sums put at their rows, within 1e-12 of the plain
+    # version, and nothing written for a sentinel row
+    got = ell_pull_buckets(c, dgx.buckets)
+    want = c.new_zeros(n + 1)
+    for blk in dgx.buckets:
+        want.index_add_(0, blk.rows, ell_pull(c, blk.idx, blk.mask))
+    want[n] = 0.0
+    e = linf(got, ell_pull_buckets_plain(c, dgx.buckets))
+    require(torch.equal(got, want) and e <= TOL_SWEEP,
+            f"ell_pull_buckets: not the per-bucket sums, or L-inf {e} to "
+            f"the plain version")
+    errs["ell_pull"] = max(errs["ell_pull"], e)
     # the whole low side in one launch (through the row maps) against its
     # plain version, the glue around the per-bucket kernel: equal bits;
     # and within 1e-12 of the glue around the plain per-bucket version
@@ -285,8 +346,21 @@ def check_kernels(dgx, rng, errs):
     for sel in (None, af.tile_sel):
         got = csr_block_pull(*hi_args, tile_sel=sel, slots=slots)
         e = linf(got, csr_block_pull_plain(*hi_args, tile_sel=sel))
-        require(e <= TOL_SWEEP, f"csr_block_pull: L-inf {e}")
+        require(e <= TOL_SWEEP, f"csr_block_pull (tile "
+                f"{dgx.hi_tiles.shape[1]}): L-inf {e}")
         errs["csr_block_pull"] = max(errs["csr_block_pull"], e)
+        require(torch.equal(csr_block_pull(
+            c, misaligned(dgx.hi_tiles), misaligned(dgx.hi_tmask),
+            *hi_args[3:], tile_sel=sel, slots=slots), got),
+            "csr_block_pull: the 4-byte loads differ")
+    # a NaN contribution reaches the high slot whose tile names it
+    for t, j in (dgx.hi_tmask > 0).nonzero()[:1].tolist():
+        bad = c.clone()
+        bad[int(dgx.hi_tiles[t, j])] = float("nan")
+        got = csr_block_pull(bad, *hi_args[1:], slots=slots)
+        require(bool(got[int(dgx.hi_rowmap[t])].isnan()) and torch.equal(
+            got.isnan(), csr_block_pull_plain(bad, *hi_args[1:]).isnan()),
+            "csr_block_pull dropped a NaN contribution")
     hi_sums = csr_block_pull_plain(*hi_args)
     hi_ops = (hi_sums, at(r_s, dgx.hi_ids), at(d_s, dgx.hi_ids),
               at(a_s, dgx.hi_ids))
@@ -898,7 +972,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ell_bucket_pull import (fused_ell_sweep,
                                                      fused_ell_sweep_plain,
                                                      fused_ell_update_plain)
-    from repro_torch.kernels.ell_pull import ell_pull_plain
+    from repro_torch.kernels.ell_pull import (ell_pull_buckets,
+                                              ell_pull_buckets_plain,
+                                              ell_pull_plain)
     from repro_torch.kernels.linf_delta import linf_delta_plain
     from repro_torch.kernels.pr_update import pr_update_plain
     from repro_torch.kernels.stream_scatter import scatter_rows
@@ -957,6 +1033,21 @@ def main(argv=None) -> int:
                           "ell_pull", "pull_sum_kernels", "linf_delta"), 0.0)
     k4 = check_kernels(dg, rng, errs)
     c, r_s, d_s, kw, hi_ops = k4.c, k4.r_s, k4.d_s, k4.kw, k4.hi_ops
+    # the small graph of phase 6 in its layout (widths 1, 2, 4, 8; tile
+    # 32) and in nine buckets (two launches' worth of descriptors) whose
+    # widths 3, 5 and 6 take the generic loop, at tile 8
+    gs = powerlaw_graph(4000, 40000, alpha=args.alpha, seed=args.seed)
+    small = {}
+    for lay_kw in (dict(d_p=8, tile=32),
+                   dict(d_p=32, tile=8, widths=(1, 2, 3, 4, 5, 6, 8, 16,
+                                                32))):
+        dgx = to_device(build_hybrid(gs, **lay_kw), device=dev)
+        check_kernels(dgx, rng, errs)
+        small[str(lay_kw)] = dict(widths=[b.width for b in dgx.buckets],
+                                  tile=int(dgx.hi_tiles.shape[1]))
+        del dgx
+    report["small_layouts"] = small
+    log(f"[kernels] phase 4's checks on the small graph's layouts: {small}")
     # a NaN rank wins every max: affected (pr_update) and unaffected
     # (fused_ell_update skips the gather but still reports |NaN - NaN|)
     bad = hi_ops[1].clone()
@@ -997,12 +1088,17 @@ def main(argv=None) -> int:
     require(bool(torch.isnan(got[0])) and torch.equal(
         got.isnan(), ell_pull_plain(bad, blk.idx, blk.mask).isnan()),
         "ell_pull dropped a NaN contribution")
+    got = ell_pull_buckets(bad, dg.buckets)
+    require(bool(torch.isnan(got[int(blk.rows[0])])) and torch.equal(
+        got.isnan(), ell_pull_buckets_plain(bad, dg.buckets).isnan()),
+        "ell_pull_buckets dropped a NaN contribution")
     del a, b, bad_a, bad_b, bad, got
     torch.cuda.synchronize()
     report["max_abs_err"] = errs
     report["linf_delta_lengths"] = lengths
     log(f"[kernels] all five agree with their plain versions (linf_delta "
-        f"at lengths {lengths}): {errs}")
+        f"at lengths {lengths}; ell_pull both entries, csr_block_pull at "
+        f"tiles 256, 32 and 8): {errs}")
 
     # -- 5. static PageRank ---------------------------------------------------
     main_wrappers = (fused_ell_update, csr_block_pull, pr_update, ell_pull,
@@ -1132,9 +1228,13 @@ def main(argv=None) -> int:
     require(launches["fused_ell_update"] == launches["pr_update"],
             f"{launches['fused_ell_update']} fused_ell_update calls for "
             f"{launches['pr_update']} fused sweeps")
+    # one ell_pull launch (every bucket) per staged sweep, which runs
+    # linf_delta once
+    require(launches["ell_pull"] == launches["linf_delta"],
+            f"{launches['ell_pull']} ell_pull launches for "
+            f"{launches['linf_delta']} staged sweeps")
 
     # small graph against the numpy reference (CPU plain path for DF-P)
-    gs = powerlaw_graph(4000, 40000, alpha=args.alpha, seed=args.seed)
     dgs = to_device(build_hybrid(gs, d_p=8, tile=32), device=dev)
     rs, _ = static_pagerank(dgs, init_ranks(gs.n, device=dev), params)
     l1_np = l1_error(rs, numpy_pagerank(gs)[0])
@@ -1166,9 +1266,9 @@ def main(argv=None) -> int:
              at(a_on, dg.hi_ids))
 
     # the low side of one fused sweep, every row affected
-    def ell_kernel():
-        return fused_ell_sweep(c, dg.buckets, r_n, dg.out_deg, on,
-                               *sweep_out, **kw)
+    def ell_kernel(bks=dg.buckets):
+        return fused_ell_sweep(c, bks, r_n, dg.out_deg, on, *sweep_out,
+                               **kw)
 
     def ell_plain():
         return fused_ell_sweep_plain(c, dg.buckets, r_n, dg.out_deg, on,
@@ -1202,15 +1302,14 @@ def main(argv=None) -> int:
     lib_err = linf(torch.mv(a_hi, c), hi_sums)
     require(lib_err <= TOL_SWEEP, f"sparse library pull disagrees: {lib_err}")
 
-    # ell_pull over every bucket; its PyTorch call: a sparse CSR product
-    # with the low side, one row per bucket slot (buckets stacked)
-    def ellp_kernel():
-        for blk in dg.buckets:
-            ell_pull(c, blk.idx, blk.mask)
+    # ell_pull over every bucket in one launch (and its zero fill); its
+    # PyTorch call: a sparse CSR product with the low side, one row per
+    # bucket slot (buckets stacked)
+    def ellp_kernel(bks=dg.buckets):
+        return ell_pull_buckets(c, bks)
 
     def ellp_plain():
-        for blk in dg.buckets:
-            ell_pull_plain(c, blk.idx, blk.mask)
+        return ell_pull_buckets_plain(c, dg.buckets)
 
     lo_rows, lo_cols, lo_vals, off = [], [], [], 0
     for blk in dg.buckets:
@@ -1268,7 +1367,8 @@ def main(argv=None) -> int:
             ms=cuda_ms(ellp_kernel, args.repeats),
             plain_ms=cuda_ms(ellp_plain, args.repeats),
             library_ms=cuda_ms(lambda: torch.mv(a_lo, c), args.repeats),
-            bound=bound(n * 8 + slots_all * 8 + rows_all * 8,
+            # c once; idx and mask; the row maps; the [n + 1] sums out
+            bound=bound(n * 8 + slots_all * 8 + rows_all * 4 + (n + 1) * 8,
                         slots_all * 2)),
         "linf_delta": dict(
             ms=cuda_ms(lambda: linf_delta(la, lb), args.repeats),
@@ -1281,6 +1381,41 @@ def main(argv=None) -> int:
         log(f"[time] {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), library "
             f"{t['library_ms']}")
+    # the three gathers of c timed three ways (torch.mv beside the two
+    # pulls), then on the same tables with c read in order (idx'[s, j] =
+    # (s w + j) mod n), from one line (idx' = 0), and with the other L2
+    # policy for c (_build.C_EVICT_LAST flipped), each on the card alone
+    probes = {}
+    for name, kern, lib, remake in (
+            ("ell_pull", ellp_kernel, lambda: torch.mv(a_lo, c),
+             lambda f: [blk._replace(idx=f(blk.idx)) for blk in dg.buckets]),
+            ("csr_block_pull", lambda t=dg.hi_tiles: csr_block_pull(
+                c, t, *hi_args[2:], slots=slots),
+             lambda: torch.mv(a_hi, c), lambda f: f(dg.hi_tiles)),
+            ("fused_ell_update", ell_kernel, None,
+             lambda f: [blk._replace(idx=f(blk.idx)) for blk in dg.buckets])):
+        p = dict(kernel=three_ways(kern, args.repeats))
+        for probe, f in (("in_order", lambda x: in_order(x, n)),
+                         ("one_line", torch.zeros_like)):
+            other = remake(f)
+            p[probe] = dict(graph_ms=graph_ms(lambda: kern(other),
+                                              args.repeats, PER))
+            del other
+        _build.C_EVICT_LAST = not _build.C_EVICT_LAST
+        p["c_evict_last" if _build.C_EVICT_LAST else "c_evict_normal"] = \
+            dict(graph_ms=graph_ms(kern, args.repeats, PER))
+        _build.C_EVICT_LAST = not _build.C_EVICT_LAST
+        if lib is not None:
+            p["library"] = three_ways(lib, args.repeats)
+        probes[name] = p
+        timings[name]["graph_ms"] = p["kernel"]["graph_ms"]
+        log(f"[probe] {name}, ms one call a sample / {PER} back to back / "
+            f"on the card alone: " + ", ".join(
+                f"{k} " + " / ".join(f"{v[m]:.4f}" for m in (
+                    "ms", "back_to_back_ms", "graph_ms") if m in v)
+                for k, v in p.items())
+            + f"; bound {timings[name]['bound'][0]:.4f} ms")
+    report["probes"] = probes
     del (a_hi, a_lo, la, lb, sweep_out, on, hi_on, hi_ops, hi_sums,
          hi_args, k4, dg, c, r_s, d_s, a_on, all_on, r_k, r_p, r_st,
          r_n, rk_dense, chains, rp, r_scratch)

@@ -4,8 +4,9 @@
 // Replaces the TPU kernel `csr_block_pull` (_kernel) in
 // src/repro/kernels/csr_block.py.
 //
-// What bounds it on the H100: bytes — 8 B of index and mask per tile slot,
-// plus the random gathers of c (32 MB at |V| = 4M, held in the 50 MB L2).
+// What bounds it on the H100: bytes — 8 B of index and mask per tile slot
+// (450 MB a sweep at |V| = 4M), plus the random gathers of c (33.5 MB,
+// about what the 50 MB L2 holds beside that stream).
 //
 // The TPU kernel reduces by walking its grid in order: out[rowmap[t]] is
 // zeroed at t == 0 and read-modified-written at every step. Blocks on the
@@ -13,8 +14,15 @@
 // both deterministic and atomics-free:
 //   pass 1: one warp per tile (or per entry of the tile_sel list) writes
 //           that tile's sum into tsum[t]; a sentinel entry (t >= t_cap)
-//           writes nothing. Lanes read neighbouring slots, so the index and
-//           mask loads coalesce.
+//           writes nothing. The gather is ell_gather.cuh's, a row of 32
+//           lanes: at the main path's tile of 256 (a template plan) each
+//           lane loads its 8 indices and 8 mask bits as two 16-byte words
+//           each (adjacent lanes on adjacent words: 512 contiguous bytes a
+//           warp load; four 4-byte loads at the same slots when the table
+//           is not 16-byte aligned), then starts its 8 gathers of c, then
+//           sums them in slot order; the streams go past L1 with L2
+//           evict_first, c is read with L2 evict_last. Other tiles take
+//           the generic loop (lane, lane + 32, ...).
 //   pass 2: one warp per high slot sums tsum over the slot's tiles, taken
 //           from the slot->tile table that to_device builds once from
 //           hi_rowmap (stable argsort + offsets: tiles in ascending order,
@@ -26,12 +34,13 @@
 //           xor tree, so the order is the same on every run.
 // Launches on the caller's stream; allocates nothing (tsum comes from the
 // caller, zeroed when tile_sel is used).
-#include <cuda_runtime.h>
+#include "ell_gather.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
+constexpr int kTile = 256;  // the main path's tile: a template plan
 
 __device__ __forceinline__ double warp_sum(double s) {
 #pragma unroll
@@ -40,24 +49,22 @@ __device__ __forceinline__ double warp_sum(double s) {
   return s;
 }
 
+template <class P>
 __global__ void __launch_bounds__(kBlock)
     tile_sums_kernel(const double* __restrict__ c,
                      const int* __restrict__ tiles,
                      const float* __restrict__ tmask,
                      const int* __restrict__ tile_sel, int n_sel, int t_cap,
-                     int tile, double* __restrict__ tsum) {
+                     int tile, int c_evict_last, double* __restrict__ tsum) {
   const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   long long t = t_cap;  // sentinel: nothing to do
   if (w < n_sel) t = tile_sel ? tile_sel[w] : w;
   const bool live = t < t_cap;  // uniform across the warp
-  double s = 0.0;
-  if (live) {
-    const int* ip = tiles + t * tile;
-    const float* mp = tmask + t * tile;
-    for (int j = lane; j < tile; j += 32) s += c[ip[j]] * (double)mp[j];
-  }
-  s = warp_sum(s);
+  const GatherPolicy pol = gather_policy(c_evict_last);
+  const double s = warp_sum(ell_row_partial<P>(
+      c, live ? tiles + t * tile : nullptr,
+      live ? tmask + t * tile : nullptr, tile, lane, pol));
   if (live && lane == 0) tsum[t] = s;
 }
 
@@ -86,15 +93,28 @@ int blocks_for_warps(long long warps) {
 extern "C" {
 
 // tile_sel may be null (every tile, n_sel == t_cap). tsum holds t_cap
-// doubles. Returns cudaGetLastError().
+// doubles. The plan: tw = kTile (only when tile == kTile) or 0 (the generic
+// loop), vec = 16-byte loads (tw == kTile and a 16-byte aligned table).
+// Returns cudaGetLastError().
 int csr_block_pull(const double* c, const int* tiles, const float* tmask,
                    const int* tile_sel, int n_sel, int t_cap, int tile,
-                   const int* slot_tiles, const int* slot_off, int n_rows,
-                   double* tsum, double* out, void* stream) {
+                   int tw, int vec, const int* slot_tiles,
+                   const int* slot_off, int n_rows, double* tsum,
+                   double* out, int c_evict_last, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((tw != 0 && (tw != kTile || tile != kTile)) || (tw == 0 && vec))
+    return cudaErrorInvalidValue;
   if (n_sel > 0) {
-    tile_sums_kernel<<<blocks_for_warps(n_sel), kBlock, 0, st>>>(
-        c, tiles, tmask, tile_sel, n_sel, t_cap, tile, tsum);
+    const int grid = blocks_for_warps(n_sel);
+    if (tw == 0)
+      tile_sums_kernel<EllPlan<0, 32, false>><<<grid, kBlock, 0, st>>>(
+          c, tiles, tmask, tile_sel, n_sel, t_cap, tile, c_evict_last, tsum);
+    else if (vec)
+      tile_sums_kernel<EllPlan<kTile, 32, true>><<<grid, kBlock, 0, st>>>(
+          c, tiles, tmask, tile_sel, n_sel, t_cap, tile, c_evict_last, tsum);
+    else
+      tile_sums_kernel<EllPlan<kTile, 32, false>><<<grid, kBlock, 0, st>>>(
+          c, tiles, tmask, tile_sel, n_sel, t_cap, tile, c_evict_last, tsum);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

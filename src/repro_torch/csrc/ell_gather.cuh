@@ -1,32 +1,201 @@
-// Shared gather body of the ELL kernels (fused_ell_update.cu and
-// ell_pull.cu): the masked row-sum  s = sum_j c[idx[row, j]] * mask[row, j]
-// of one degree bucket's [rows, width] slot table.
+// Shared gather body of the ELL kernels (ell_pull.cu and
+// fused_ell_update.cu): the masked row-sum  s = sum_j c[idx[row, j]] *
+// mask[row, j]  of one degree bucket's [rows, width] slot table, and the
+// by-value descriptor of the buckets that one launch covers.
 //
-// LANES threads own a row: one thread per row for the narrowest buckets
-// (the paper's thread-per-vertex kernel), otherwise a sub-warp of the
-// largest power of two up to min(width, 32) (`lanes_for` in
-// kernels/ell_pull.py picks it). The lanes of a row read
-// neighbouring slots, so the index and mask loads coalesce, and fold their
-// partial sums with a fixed xor tree, so the order is the same on every
-// run. Every slot adds c[idx] * mask, padding included, as the TPU kernels
-// do: a NaN in c reaches every row whose table names it.
+// What bounds it on the H100: the random gathers of c (8 B used of every
+// 32 B sector they touch) and the stream of idx and mask (8 B per slot,
+// read once). The design keeps many gathers in flight and keeps the
+// streams from pushing c out of L2:
+//   * A bucket's plan (`ell_plan` in kernels/ell_pull.py) names a template
+//     width W and LANES threads per row. Each lane owns K = W / LANES slots
+//     of its row, in chunks of 4 at slots ((q LANES + lane) * 4 .. + 3), so
+//     neighbouring lanes read neighbouring 16-byte words. It loads every
+//     index and mask bit of its share first (one 16-byte load per chunk
+//     when the table is 16-byte aligned, else four 4-byte loads at the same
+//     slots), then starts all K gathers of c, then sums them in slot order.
+//     The load width never changes the order of the sums, so aligned and
+//     unaligned tables give the same bits.
+//   * Widths without an instantiation take the generic loop: LANES lanes
+//     (`lanes_for`) step through the row, lane, lane + LANES, ...
+//   * idx and mask are read once: ld.global.nc with L1::no_allocate and an
+//     L2 evict_first policy. c goes through the read-only path with an L2
+//     policy the caller picks: evict_last (the default, `C_EVICT_LAST` in
+//     kernels/_build.py), which keeps c ahead of the streams, or
+//     evict_normal. These are per-load hints; no device-wide cache setting
+//     is touched.
+//   * The lanes of a row fold their partial sums with a fixed xor tree, so
+//     the order is the same on every run. Every slot adds c[idx] * mask,
+//     padding included, as the TPU kernels do: a NaN in c reaches every
+//     row whose table names it.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include <cstdint>
 
-// Rows per block of every ELL kernel: kEllBlock / LANES.
+// Threads per block of every ELL kernel: a block covers kEllBlock / LANES
+// rows of one bucket.
 constexpr int kEllBlock = 256;
 
-// This lane's share of one row's sum: slots lane, lane + LANES, ...
-template <int LANES>
+// The instantiated plans: X(kind, W, LANES, VEC). W = 0 is the generic
+// loop over a runtime width (4-byte loads). `ell_plan` in
+// kernels/ell_pull.py picks among these; a plan not listed is refused.
+#define ELL_PLANS(X)                                                      \
+  X(0, 1, 1, false) X(1, 2, 1, false) X(2, 4, 1, true) X(3, 4, 1, false)  \
+  X(4, 8, 2, true) X(5, 8, 2, false) X(6, 16, 4, true)                    \
+  X(7, 16, 4, false) X(8, 32, 8, true) X(9, 32, 8, false)                 \
+  X(10, 64, 16, true) X(11, 64, 16, false) X(12, 0, 1, false)             \
+  X(13, 0, 2, false) X(14, 0, 4, false) X(15, 0, 8, false)                \
+  X(16, 0, 16, false) X(17, 0, 32, false)
+
+template <int W, int LANES, bool VEC>
+struct EllPlan {
+  static constexpr int kWidth = W;
+  static constexpr int kLanes = LANES;
+  static constexpr bool kVec = VEC;
+  static_assert(kEllBlock % LANES == 0 && 32 % LANES == 0, "lanes");
+  static_assert(W == 0 || (W % LANES == 0 &&
+                           ((W / LANES) % 4 == 0 || LANES == 1)),
+                "a lane owns whole chunks of 4, or the whole row");
+  static_assert(!VEC || (W % 4 == 0 && (W / LANES) % 4 == 0), "16-byte");
+};
+
+// The kind of plan (W, lanes, vec), or -1 if it has no instantiation.
+inline int ell_plan_kind(int w, int lanes, int vec) {
+#define ELL_KIND(k, W, L, V) \
+  if (w == W && lanes == L && (vec != 0) == V) return k;
+  ELL_PLANS(ELL_KIND)
+#undef ELL_KIND
+  return -1;
+}
+
+// Calls f(EllPlan<...>{}) for the plan of `kind`: a block-uniform switch.
+template <class F>
+__device__ __forceinline__ void with_ell_plan(int kind, F&& f) {
+  switch (kind) {
+#define ELL_CASE(k, W, L, V) \
+  case k:                    \
+    f(EllPlan<W, L, V>{});   \
+    break;
+    ELL_PLANS(ELL_CASE)
+#undef ELL_CASE
+    default:
+      break;
+  }
+}
+
+// ---- loads -----------------------------------------------------------------
+
+struct GatherPolicy {
+  uint64_t stream;  // idx and mask: L2 evict_first
+  uint64_t c;       // c: L2 evict_normal or evict_last
+};
+
+__device__ __forceinline__ GatherPolicy gather_policy(int c_evict_last) {
+  GatherPolicy p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+      : "=l"(p.stream));
+  if (c_evict_last)
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p.c));
+  else
+    asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p.c));
+  return p;
+}
+
+__device__ __forceinline__ int ld_stream(const int* q, uint64_t pol) {
+  int v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.b32 %0, [%1], %2;"
+      : "=r"(v) : "l"(q), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ float ld_stream(const float* q, uint64_t pol) {
+  float v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.f32 %0, [%1], %2;"
+      : "=f"(v) : "l"(q), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ void ld_stream4(const int* q, uint64_t pol,
+                                           int* v) {
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.b32 {%0, %1, %2, %3},"
+      " [%4], %5;"
+      : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "l"(q), "l"(pol));
+}
+
+__device__ __forceinline__ void ld_stream4(const float* q, uint64_t pol,
+                                           float* v) {
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.f32 {%0, %1, %2, %3},"
+      " [%4], %5;"
+      : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "l"(q), "l"(pol));
+}
+
+__device__ __forceinline__ double ld_c(const double* q, uint64_t pol) {
+  double v;
+  asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;"
+      : "=d"(v) : "l"(q), "l"(pol));
+  return v;
+}
+
+// Slot of element e (0 .. K-1) of `lane`'s share of a row: chunks of 4 at
+// ((q LANES + lane) * 4), or the whole row when one lane owns it.
+template <int LANES, int K>
+__device__ __forceinline__ int chunk_slot(int e, int lane) {
+  if (K % 4 != 0) return e;  // LANES == 1
+  return ((e / 4) * LANES + lane) * 4 + (e % 4);
+}
+
+// Loads K index and mask values of one lane's share of a row (ip, mp at the
+// row's start), 16 bytes at a time when VEC.
+template <int LANES, int K, bool VEC>
+__device__ __forceinline__ void load_share(const int* ip, const float* mp,
+                                           int lane, uint64_t pol, int* id,
+                                           float* mk) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q) {
+      const int at = (q * LANES + lane) * 4;
+      ld_stream4(ip + at, pol, id + 4 * q);
+      ld_stream4(mp + at, pol, mk + 4 * q);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < K; ++e) {
+      const int at = chunk_slot<LANES, K>(e, lane);
+      id[e] = ld_stream(ip + at, pol);
+      mk[e] = ld_stream(mp + at, pol);
+    }
+  }
+}
+
+// This lane's partial sum of a row: ip / mp point at the row's table row,
+// or are null for a row that reads nothing (its partial is then 0).
+// `width` is read by the generic plan only.
+template <class P>
 __device__ __forceinline__ double ell_row_partial(
-    const double* __restrict__ c, const int* __restrict__ ip,
-    const float* __restrict__ mp, int width, int lane) {
-  double s = 0.0;
-  for (int j = lane; j < width; j += LANES) s += c[ip[j]] * (double)mp[j];
-  return s;
+    const double* __restrict__ c, const int* ip, const float* mp, int width,
+    int lane, const GatherPolicy& pol) {
+  constexpr int L = P::kLanes;
+  double acc = 0.0;
+  if (ip == nullptr) return acc;
+  if constexpr (P::kWidth == 0) {
+#pragma unroll 4
+    for (int j = lane; j < width; j += L)
+      acc += ld_c(c + ld_stream(ip + j, pol.stream), pol.c) *
+             (double)ld_stream(mp + j, pol.stream);
+  } else {
+    constexpr int K = P::kWidth / L;
+    int id[K];
+    float mk[K];
+    load_share<L, K, P::kVec>(ip, mp, lane, pol.stream, id, mk);
+    double cv[K];
+#pragma unroll
+    for (int e = 0; e < K; ++e) cv[e] = ld_c(c + id[e], pol.c);
+#pragma unroll
+    for (int e = 0; e < K; ++e) acc += cv[e] * (double)mk[e];
+  }
+  return acc;
 }
 
 // Fold the LANES partials of a row; every lane gets the row's sum. Every
@@ -41,32 +210,83 @@ __device__ __forceinline__ double ell_lanes_sum(double s) {
   return s;
 }
 
-// The row this thread works on, and its lane within the row.
-template <int LANES>
-__device__ __forceinline__ long long ell_row(int* lane) {
-  *lane = threadIdx.x % LANES;
-  return (long long)blockIdx.x * (kEllBlock / LANES) + threadIdx.x / LANES;
+// ---- the buckets of one launch ------------------------------------------------
+
+constexpr int kMaxBuckets = 8;
+// ints per bucket from the host: work lanes, cap, width, then the plan:
+// template width, lanes, 16-byte loads
+constexpr int kBucketInts = 6;
+
+struct EllBucket {
+  const int* rows;    // [cap] vertex ids, sentinel n; null: identity map
+  const int* idx;     // [cap, width]
+  const float* mask;  // [cap, width]
+  const int* sel;     // [count] active slots, sentinel cap; null: dense
+  int count;          // work lanes: cap (dense) or the list's length
+  int cap;
+  int width;
+  int kind;           // ELL_PLANS entry
+  int first_block;
+};
+
+struct EllBuckets {
+  EllBucket b[kMaxBuckets];
+  int nb;
+};
+
+// Blocks of bucket j of the host tables (kBucketInts ints per bucket): a
+// block covers kEllBlock / lanes work lanes.
+inline int ell_bucket_blocks(const int* ints, int j) {
+  const int* b = ints + kBucketInts * j;
+  if (b[0] <= 0 || b[4] <= 0) return 0;
+  const int per = kEllBlock / b[4];
+  return (b[0] + per - 1) / per;
 }
 
-// Blocks for `rows` rows at `lanes` lanes per row.
-inline int ell_grid(int rows, int lanes) {
-  const int per = kEllBlock / lanes;
-  return (rows + per - 1) / per;
-}
-
-// Calls f(std::integral_constant<int, L>{}) for L == lanes, so a launch
-// site instantiates its kernel once per lane count. Lanes other than 1, 2,
-// 4, 8, 16 or 32 are refused with cudaErrorInvalidValue.
-template <class F>
-inline cudaError_t with_lanes(int lanes, F&& f) {
-  switch (lanes) {
-    case 1: f(std::integral_constant<int, 1>{}); break;
-    case 2: f(std::integral_constant<int, 2>{}); break;
-    case 4: f(std::integral_constant<int, 4>{}); break;
-    case 8: f(std::integral_constant<int, 8>{}); break;
-    case 16: f(std::integral_constant<int, 16>{}); break;
-    case 32: f(std::integral_constant<int, 32>{}); break;
-    default: return cudaErrorInvalidValue;
+// Refuses bad plans and counts: cudaErrorInvalidValue, else cudaSuccess.
+inline cudaError_t ell_check(int nb, const int* ints) {
+  for (int j = 0; j < nb; ++j) {
+    const int* b = ints + kBucketInts * j;
+    if (b[0] < 0 || ell_plan_kind(b[3], b[4], b[5]) < 0 ||
+        (b[3] != 0 && b[3] != b[2]))
+      return cudaErrorInvalidValue;
   }
   return cudaSuccess;
+}
+
+// Fills `bks` from bucket j0 on (skipping empty ones) until it holds
+// kMaxBuckets; returns the blocks of the chunk and advances j0. ptrs: 4
+// per bucket (rows, idx, mask, active list; rows and list may be null).
+inline int ell_chunk(int nb, const void* const* ptrs, const int* ints,
+                     int* j0, EllBuckets* bks) {
+  *bks = EllBuckets{};
+  int blocks = 0;
+  for (; *j0 < nb && bks->nb < kMaxBuckets; ++*j0) {
+    const int j = *j0;
+    const int nblk = ell_bucket_blocks(ints, j);
+    if (nblk == 0) continue;
+    const int* b = ints + kBucketInts * j;
+    EllBucket& bk = bks->b[bks->nb++];
+    bk.rows = static_cast<const int*>(ptrs[4 * j]);
+    bk.idx = static_cast<const int*>(ptrs[4 * j + 1]);
+    bk.mask = static_cast<const float*>(ptrs[4 * j + 2]);
+    bk.sel = static_cast<const int*>(ptrs[4 * j + 3]);
+    bk.count = b[0];
+    bk.cap = b[1];
+    bk.width = b[2];
+    bk.kind = ell_plan_kind(b[3], b[4], b[5]);
+    bk.first_block = blocks;
+    blocks += nblk;
+  }
+  return blocks;
+}
+
+// This block's bucket, selected with static indices only (no dynamic
+// indexing into the parameter struct, which may go through local memory).
+__device__ __forceinline__ EllBucket ell_find_bucket(const EllBuckets& bks) {
+  EllBucket bk = bks.b[0];
+#pragma unroll
+  for (int j = 1; j < kMaxBuckets; ++j)
+    if (j < bks.nb && (int)blockIdx.x >= bks.b[j].first_block) bk = bks.b[j];
+  return bk;
 }

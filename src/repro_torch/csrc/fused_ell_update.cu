@@ -8,19 +8,19 @@
 //
 // What bounds it on the H100: bytes. Per slot it reads its index and mask
 // (8 B), gathers c[idx] at random (c is the 8 B/vertex contribution
-// vector; at |V| = 4M it is 32 MB and stays in the 50 MB L2); per row the
+// vector; at |V| = 4M it is 33.5 MB of the 50 MB L2); per row the
 // row id (4 B), r (8 B), out_deg (4 B) and affected (1 B) in, r_new (8 B)
 // and two 1 B flags out. About two flops per slot, far below the FP64 rate.
 //
 // Design:
 //   * One launch covers every bucket. A descriptor of the buckets (the
 //     rows, idx, mask and active-list pointers, the lane count, capacity,
-//     width, lanes per row and first block of each) goes to the kernel by
-//     value; each block finds its bucket by a scan of at most kMaxBuckets
-//     first-block offsets, and a block-uniform switch runs the LANES
-//     instantiation of the gather that the bucket's width picks
-//     (`lanes_for` in kernels/ell_pull.py). A layout of more buckets is
-//     launched in chunks of kMaxBuckets into the same partials.
+//     width, plan and first block of each; ell_gather.cuh) goes to the
+//     kernel by value; each block finds its bucket by a scan of at most
+//     kMaxBuckets first-block offsets, and a block-uniform switch runs the
+//     instantiation of the gather that the bucket's plan names (`ell_plan`
+//     in kernels/ell_pull.py). A layout of more buckets is launched in
+//     chunks of kMaxBuckets into the same partials.
 //   * Work lane i of bucket b is slot s = i, or s = sel_b[i] over an
 //     active list. Through the row map (the sweep entry) it reads vertex
 //     v = rows_b[s]: r[v] (f64), out_deg[v] (int32) and affected[v]
@@ -31,9 +31,10 @@
 //     the outputs f64 per lane i; a dead lane there computes the inert pad
 //     (r = 1, deg = 1, aff = 0), as the TPU kernel's take-with-fill does.
 //     Both maps run the same body, so their sums and ranks agree bitwise.
-//   * LANES threads per row, with the gather body and xor-fold order it
-//     shares with ell_pull (ell_gather.cuh): one thread per row for widths
-//     <= 2, else a sub-warp of up to 32 lanes reading neighbouring slots.
+//   * The gather body and xor-fold order it shares with ell_pull
+//     (ell_gather.cuh): LANES threads per row, every index and mask load
+//     of a lane's share before its gathers, the streams past L1 with L2
+//     evict_first, c read with L2 evict_last.
 //   * An unaffected row skips its gather and writes r, 0, 0 with
 //     |dr| = |r - r| (0, or NaN for a NaN rank): DF-P's "process only
 //     affected vertices" without any compaction.
@@ -46,25 +47,6 @@
 #include "epilogue.cuh"
 
 namespace {
-
-constexpr int kMaxBuckets = 8;
-
-struct Bucket {
-  const int* rows;    // [cap] vertex ids, sentinel n; null: identity map
-  const int* idx;     // [cap, width]
-  const float* mask;  // [cap, width]
-  const int* sel;     // [count] active slots, sentinel cap; null: dense
-  int count;          // work lanes: cap (dense) or the list's length
-  int cap;
-  int width;
-  int lanes;
-  int first_block;
-};
-
-struct Buckets {
-  Bucket b[kMaxBuckets];
-  int nb;
-};
 
 // Per-vertex operands and outputs through the row map (Deg int, Flag
 // unsigned char holding a bool), or per-slot ones for the identity map
@@ -80,14 +62,16 @@ struct Operands {
   long long n;  // the row map's sentinel vertex id
 };
 
-template <int LANES, bool MAPPED, class Deg, class Flag>
-__device__ __forceinline__ double sweep_rows(const Bucket& bk, int block,
-                                             const double* __restrict__ c,
-                                             const Operands<Deg, Flag>& o,
-                                             const EpiParams& p) {
-  const int lane = threadIdx.x % LANES;
+template <class P, bool MAPPED, class Deg, class Flag>
+__device__ __forceinline__ double sweep_row(const EllBucket& bk, int block,
+                                            const double* __restrict__ c,
+                                            const Operands<Deg, Flag>& o,
+                                            const EpiParams& p,
+                                            const GatherPolicy& pol) {
+  constexpr int L = P::kLanes;
+  const int lane = threadIdx.x % L;
   const long long i =
-      (long long)block * (kEllBlock / LANES) + threadIdx.x / LANES;
+      (long long)block * (kEllBlock / L) + threadIdx.x / L;
   const bool work = i < bk.count;
   long long s = 0, v = 0;
   bool live = false;  // a real row: neither sentinel
@@ -98,16 +82,20 @@ __device__ __forceinline__ double sweep_rows(const Bucket& bk, int block,
       live = !MAPPED || v < o.n;
     }
   }
-  double rr = 1.0, d = 1.0, a = 0.0, sum = 0.0;
+  double rr = 1.0, d = 1.0, a = 0.0;
+  const int* ip = nullptr;
+  const float* mp = nullptr;
   if (live) {
     rr = o.r[v];
     d = (double)o.deg[v];
     a = (double)o.aff[v];
-    if (a > 0.0)
-      sum = ell_row_partial<LANES>(c, bk.idx + s * bk.width,
-                                   bk.mask + s * bk.width, bk.width, lane);
+    if (a > 0.0) {
+      ip = bk.idx + s * bk.width;
+      mp = bk.mask + s * bk.width;
+    }
   }
-  sum = ell_lanes_sum<LANES>(sum);
+  const double sum =
+      ell_lanes_sum<L>(ell_row_partial<P>(c, ip, mp, bk.width, lane, pol));
   double dr = 0.0;
   if (MAPPED ? live : work) {
     const EpiOut e = pr_epilogue(sum, rr, d, a, p);
@@ -124,38 +112,18 @@ __device__ __forceinline__ double sweep_rows(const Bucket& bk, int block,
 
 template <bool MAPPED, class Deg, class Flag>
 __global__ void __launch_bounds__(kEllBlock)
-    fused_sweep_kernel(const double* __restrict__ c, const Buckets bks,
+    fused_sweep_kernel(const double* __restrict__ c, const EllBuckets bks,
                        const Operands<Deg, Flag> o, const EpiParams p,
-                       double* __restrict__ partials) {
-  // this block's bucket, selected with static indices only (no dynamic
-  // indexing into the parameter struct)
-  Bucket bk = bks.b[0];
-#pragma unroll
-  for (int j = 1; j < kMaxBuckets; ++j)
-    if (j < bks.nb && (int)blockIdx.x >= bks.b[j].first_block) bk = bks.b[j];
+                       int c_evict_last, double* __restrict__ partials) {
+  const EllBucket bk = ell_find_bucket(bks);
   const int block = (int)blockIdx.x - bk.first_block;
+  const GatherPolicy pol = gather_policy(c_evict_last);
   double dr = 0.0;
-  switch (bk.lanes) {  // uniform over the block
-    case 1: dr = sweep_rows<1, MAPPED>(bk, block, c, o, p); break;
-    case 2: dr = sweep_rows<2, MAPPED>(bk, block, c, o, p); break;
-    case 4: dr = sweep_rows<4, MAPPED>(bk, block, c, o, p); break;
-    case 8: dr = sweep_rows<8, MAPPED>(bk, block, c, o, p); break;
-    case 16: dr = sweep_rows<16, MAPPED>(bk, block, c, o, p); break;
-    default: dr = sweep_rows<32, MAPPED>(bk, block, c, o, p); break;
-  }
+  with_ell_plan(bk.kind, [&](auto plan) {
+    dr = sweep_row<decltype(plan), MAPPED>(bk, block, c, o, p, pol);
+  });
   dr = block_max<kEllBlock>(dr);
   if (threadIdx.x == 0) partials[blockIdx.x] = dr;
-}
-
-bool valid_lanes(int lanes) {
-  return lanes == 1 || lanes == 2 || lanes == 4 || lanes == 8 ||
-         lanes == 16 || lanes == 32;
-}
-
-// Blocks of bucket j of the host tables (4 ints per bucket: count, cap,
-// width, lanes).
-int bucket_blocks(const int* ints, int j) {
-  return ints[4 * j] > 0 ? ell_grid(ints[4 * j], ints[4 * j + 3]) : 0;
 }
 
 // Launch every bucket (in chunks of kMaxBuckets, each into its own range
@@ -163,33 +131,18 @@ int bucket_blocks(const int* ints, int j) {
 template <bool MAPPED, class Deg, class Flag>
 int launch_sweep(const double* c, int nb, const void* const* ptrs,
                  const int* ints, const Operands<Deg, Flag>& o,
-                 double* partials, const EpiParams& p, void* stream) {
+                 double* partials, const EpiParams& p, int c_evict_last,
+                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int j = 0; j < nb; ++j)
-    if (!valid_lanes(ints[4 * j + 3]) || ints[4 * j] < 0)
-      return (int)cudaErrorInvalidValue;
+  const cudaError_t bad = ell_check(nb, ints);
+  if (bad != cudaSuccess) return (int)bad;
   int grid = 0;
   for (int j0 = 0; j0 < nb;) {
-    Buckets bks{};
-    int blocks = 0;
-    for (; j0 < nb && bks.nb < kMaxBuckets; ++j0) {
-      const int nblk = bucket_blocks(ints, j0);
-      if (nblk == 0) continue;
-      Bucket& bk = bks.b[bks.nb++];
-      bk.rows = static_cast<const int*>(ptrs[4 * j0]);
-      bk.idx = static_cast<const int*>(ptrs[4 * j0 + 1]);
-      bk.mask = static_cast<const float*>(ptrs[4 * j0 + 2]);
-      bk.sel = static_cast<const int*>(ptrs[4 * j0 + 3]);
-      bk.count = ints[4 * j0];
-      bk.cap = ints[4 * j0 + 1];
-      bk.width = ints[4 * j0 + 2];
-      bk.lanes = ints[4 * j0 + 3];
-      bk.first_block = blocks;
-      blocks += nblk;
-    }
+    EllBuckets bks;
+    const int blocks = ell_chunk(nb, ptrs, ints, &j0, &bks);
     if (blocks == 0) continue;
     fused_sweep_kernel<MAPPED, Deg, Flag><<<blocks, kEllBlock, 0, st>>>(
-        c, bks, o, p, partials + grid);
+        c, bks, o, p, c_evict_last, partials + grid);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     grid += blocks;
@@ -203,47 +156,51 @@ int launch_sweep(const double* c, int nb, const void* const* ptrs,
 
 extern "C" {
 
-// Blocks of a launch over `nb` buckets, described by 4 ints each (work
-// lanes, capacity, width, lanes per row): the partials hold this + 1.
+// Blocks of a launch over `nb` buckets, described by kBucketInts ints each
+// (work lanes, capacity, width, then the plan): the partials hold this + 1.
 int fused_ell_grid(int nb, const int* ints) {
   int grid = 0;
-  for (int j = 0; j < nb; ++j) grid += bucket_blocks(ints, j);
+  for (int j = 0; j < nb; ++j) grid += ell_bucket_blocks(ints, j);
   return grid;
 }
 
 // The sweep entry, through the row maps. ptrs: 4 per bucket (rows, idx,
-// mask, active list or null); ints: 4 per bucket (work lanes = cap or the
-// list's length, cap, width, lanes per row). r [n] f64, deg [n] int32,
-// aff [n] bool; r_new [n] f64, aff_new and dn [n] bool are written at
-// every live row id. The sweep's max |dr| lands in partials[grid]. Returns
+// mask, active list or null); ints: kBucketInts per bucket (work lanes =
+// cap or the list's length, cap, width, then the plan: template width,
+// lanes per row, 16-byte loads). r [n] f64, deg [n] int32, aff [n]
+// bool; r_new [n] f64, aff_new and dn [n] bool are written at every live
+// row id. The sweep's max |dr| lands in partials[grid]. Returns
 // cudaGetLastError().
 int fused_ell_sweep(const double* c, int nb, const void* const* ptrs,
                     const int* ints, const double* r, const int* deg,
                     const unsigned char* aff, double* r_new,
                     unsigned char* aff_new, unsigned char* dn, int n,
                     double* partials, double alpha, double c0, double tau_f,
-                    double tau_p, int prune, int closed_form, void* stream) {
+                    double tau_p, int prune, int closed_form,
+                    int c_evict_last, void* stream) {
   const EpiParams p{alpha, c0, tau_f, tau_p, prune, closed_form};
   const Operands<int, unsigned char> o{r, deg, aff, r_new, aff_new, dn, n};
-  return launch_sweep<true>(c, nb, ptrs, ints, o, partials, p, stream);
+  return launch_sweep<true>(c, nb, ptrs, ints, o, partials, p, c_evict_last,
+                            stream);
 }
 
 // The per-bucket entry, identity map: one bucket's [cap, width] table,
 // operands per slot (f64; pads r = 1, deg = 1, aff = 0), sel the active
-// list or null, `count` its length (or cap). Outputs r_new, aff_new, dn
-// hold `count` f64 each. partials as above, for nb = 1.
+// list or null; ints as one bucket of the sweep's (its work lanes `count`
+// = the list's length, or cap). Outputs r_new, aff_new, dn hold `count`
+// f64 each. partials as above, for nb = 1.
 int fused_ell_update(const double* c, const int* idx, const float* mask,
-                     const int* sel, int count, int cap, int width,
-                     int lanes, const double* r, const double* deg,
-                     const double* aff, double* r_new, double* aff_new,
-                     double* dn, double* partials, double alpha, double c0,
-                     double tau_f, double tau_p, int prune, int closed_form,
+                     const int* sel, const int* ints, const double* r,
+                     const double* deg, const double* aff, double* r_new,
+                     double* aff_new, double* dn, double* partials,
+                     double alpha, double c0, double tau_f, double tau_p,
+                     int prune, int closed_form, int c_evict_last,
                      void* stream) {
   const EpiParams p{alpha, c0, tau_f, tau_p, prune, closed_form};
-  const Operands<double, double> o{r, deg, aff, r_new, aff_new, dn, cap};
+  const Operands<double, double> o{r, deg, aff, r_new, aff_new, dn, ints[1]};
   const void* ptrs[4] = {nullptr, idx, mask, sel};
-  const int ints[4] = {count, cap, width, lanes};
-  return launch_sweep<false>(c, 1, ptrs, ints, o, partials, p, stream);
+  return launch_sweep<false>(c, 1, ptrs, ints, o, partials, p, c_evict_last,
+                             stream);
 }
 
 }  // extern "C"

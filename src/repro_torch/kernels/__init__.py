@@ -8,7 +8,7 @@ The kernels are built from `csrc/` by `_build` on first use.
 """
 from .csr_block import csr_block_pull
 from .ell_bucket_pull import ell_bucket_pull, fused_ell_update
-from .ell_pull import ell_pull
+from .ell_pull import ell_pull, ell_pull_buckets
 from .flash_attn import flash_attention, flash_attention_bshd
 from .linf_delta import linf_delta
 from .ops import pull_sum_kernels, update_ranks_kernel
@@ -17,5 +17,5 @@ from .stream_scatter import ell_scatter_rows, scatter_rows
 
 __all__ = ["fused_ell_update", "csr_block_pull", "pr_update",
            "update_ranks_kernel", "scatter_rows", "ell_scatter_rows",
-           "ell_pull", "ell_bucket_pull", "linf_delta", "pull_sum_kernels",
-           "flash_attention", "flash_attention_bshd"]
+           "ell_pull", "ell_pull_buckets", "ell_bucket_pull", "linf_delta",
+           "pull_sum_kernels", "flash_attention", "flash_attention_bshd"]

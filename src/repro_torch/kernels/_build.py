@@ -32,8 +32,8 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "flags", "build", "load", "check",
-           "stream_ptr", "launch_error"]
+__all__ = ["SOURCES", "BUILD_DIR", "C_EVICT_LAST", "flags", "build",
+           "load", "check", "stream_ptr", "launch_error"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -46,6 +46,13 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 FMAD = ("flash_attention",)
 
 P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+
+# The L2 policy of the gathers of c in the three gather kernels (ell_pull,
+# fused_ell_update, csr_block_pull; csrc/ell_gather.cuh): evict_last when
+# True (c then stays in L2 ahead of the streams of idx and mask, which are
+# read evict_first), else evict_normal. Read at every launch;
+# chip_smoke.py times both.
+C_EVICT_LAST = True
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -122,7 +129,8 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
           device: torch.device) -> None:
     """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
-    `device` — the only tensors the kernels take."""
+    `device`, its data aligned to its element size — the only tensors the
+    kernels take."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -134,6 +142,9 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if t.data_ptr() % t.element_size():
+        raise ValueError(f"{name}: misaligned (data at byte "
+                         f"{t.data_ptr() % t.element_size()} of an element)")
 
 
 def stream_ptr(device: torch.device) -> int:

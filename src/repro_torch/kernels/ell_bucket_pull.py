@@ -3,10 +3,10 @@ the staged sweep; ``fused_ell_sweep``, every bucket's pull and
 ``updateRanks`` epilogue in one launch through the row maps; and
 ``fused_ell_update``, the same over one bucket's pre-gathered operands.
 
-``ell_bucket_pull`` runs the `ell_pull` kernel once per bucket at that
-bucket's width and adds the per-slot sums into the result through the
-bucket's row map (sentinel ids land in a sink row that is sliced off,
-where the JAX package drops them).
+``ell_bucket_pull`` runs the all-bucket `ell_pull` entry
+(`ell_pull_buckets`: one launch writes every slot's sum at its row id
+through the bucket's row map, and sentinel ids write nothing, where the
+JAX package drops them).
 
 ``fused_ell_sweep`` is the low side of the fused sweep
 (`ops.update_ranks_kernel`): one kernel gathers each live slot's in-edge
@@ -40,36 +40,26 @@ import ctypes
 import torch
 
 from . import _build
-from .ell_pull import ell_pull, lanes_for
+from .ell_pull import bucket_ints, ell_pull_buckets, lanes_for
 from .ref import ell_pull_ref, pr_update_ref
 from ..sentinel import take_fill, with_sink
 
-__all__ = ["ell_bucket_pull", "bucket_sums", "fused_ell_update",
+__all__ = ["ell_bucket_pull", "fused_ell_update",
            "fused_ell_update_plain", "fused_ell_sweep",
            "fused_ell_sweep_plain", "lanes_for"]
 
-_EPI = [_build.D] * 4 + [_build.I, _build.I, _build.P]
+_EPI = [_build.D] * 4 + [_build.I] * 3 + [_build.P]
 _SIG = {"fused_ell_grid": [_build.I, _build.P],
         "fused_ell_sweep": [_build.P, _build.I, _build.P, _build.P]
         + [_build.P] * 6 + [_build.I, _build.P] + _EPI,
-        "fused_ell_update": [_build.P] * 4 + [_build.I] * 4
-        + [_build.P] * 7 + _EPI}
-
-
-def bucket_sums(c: torch.Tensor, buckets) -> torch.Tensor:
-    """`ell_bucket_pull` with its sink row: shape [n + 1], row n holding
-    whatever the sentinel ids added."""
-    out = c.new_zeros(c.shape[0] + 1)
-    for blk in buckets:
-        out.index_add_(0, blk.rows, ell_pull(c, blk.idx, blk.mask))
-    return out
+        "fused_ell_update": [_build.P] * 12 + _EPI}
 
 
 def ell_bucket_pull(c: torch.Tensor, buckets) -> torch.Tensor:
     """out[blk.rows[s]] = sum_j c[blk.idx[s, j]] * blk.mask[s, j] over
     every bucket, shape [n]; rows in no bucket stay 0. Each vertex lives
     in at most one bucket slot, so no two sums meet."""
-    return bucket_sums(c, buckets)[:c.shape[0]]
+    return ell_pull_buckets(c, buckets)[:c.shape[0]]
 
 
 def fused_ell_update_plain(c, idx, mask, r_rows, deg_rows, aff_rows, *,
@@ -174,21 +164,18 @@ def fused_ell_sweep(c: torch.Tensor, buckets, r: torch.Tensor,
 
 def _epi_args(alpha, inv_n, tau_f, tau_p, prune, closed_form, dev):
     return (alpha, (1.0 - alpha) * inv_n, tau_f, tau_p, int(prune),
-            int(closed_form), _build.stream_ptr(dev))
+            int(closed_form), int(_build.C_EVICT_LAST),
+            _build.stream_ptr(dev))
 
 
 def _check_table(name, dev, idx, mask, sel):
-    """(work lanes, cap, width, lanes per row) of one bucket's table."""
-    if idx.dim() != 2 or idx.shape[0] == 0 or idx.shape[1] == 0:
-        raise ValueError(f"{name}: bad slot table {tuple(idx.shape)}")
-    cap, width = idx.shape
-    _build.check(f"{name} idx", idx, torch.int32, (cap, width), dev)
-    _build.check(f"{name} mask", mask, torch.float32, (cap, width), dev)
-    count = cap
+    """The C entries' ints of one bucket's table (`bucket_ints`), its work
+    lanes the active list's length when there is one."""
+    count = None
     if sel is not None:
         count = sel.shape[0]
         _build.check(f"{name} active", sel, torch.int32, (count,), dev)
-    return count, cap, width, lanes_for(width)
+    return bucket_ints(name, dev, idx, mask, count)
 
 
 def _launch_sweep(c, buckets, r, out_deg, aff, r_new, aff_new, dn, b_sel,
@@ -238,20 +225,20 @@ def _launch_bucket(c, idx, mask, r, deg, aff, sel, **kw):
     dev = c.device
     if dev.type != "cuda":
         raise ValueError(f"fused_ell_update: no kernel for device {dev}")
-    count, cap, width, lanes = _check_table("fused_ell_update", dev, idx,
-                                            mask, sel)
+    ints = _check_table("fused_ell_update", dev, idx, mask, sel)
+    count, cap = ints[:2]
     _build.check("fused_ell_update c", c, torch.float64, (c.shape[0],), dev)
     for name, t in (("r", r), ("deg", deg), ("aff", aff)):
         _build.check(f"fused_ell_update {name}", t, torch.float64, (cap,),
                      dev)
     lib = _build.load("fused_ell_update", _SIG)
-    grid = lib.fused_ell_grid(1, (ctypes.c_int * 4)(count, cap, width,
-                                                    lanes))
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    grid = lib.fused_ell_grid(1, c_ints)
     out = torch.empty((3, count), dtype=torch.float64, device=dev)
     partials = torch.empty(grid + 1, dtype=torch.float64, device=dev)
     err = lib.fused_ell_update(
         c.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-        0 if sel is None else sel.data_ptr(), count, cap, width, lanes,
+        0 if sel is None else sel.data_ptr(), c_ints,
         r.data_ptr(), deg.data_ptr(), aff.data_ptr(), out[0].data_ptr(),
         out[1].data_ptr(), out[2].data_ptr(), partials.data_ptr(),
         *_epi_args(dev=dev, **kw))

@@ -1,39 +1,101 @@
-"""``ell_pull``: the pull-only masked gather row-sum over one ELL table
+"""``ell_pull``: the pull-only masked gather row-sum over the ELL tables
 (the paper's thread-per-vertex kernel for low in-degree vertices).
 
     out[row] = sum_j c[idx[row, j]] * mask[row, j]
 
-The staged sweep runs it once per degree bucket (`ell_bucket_pull`, then
-`ops.pull_sum_kernels`). On a CUDA tensor the wrapper launches the kernel
-in `csrc/ell_pull.cu`, which shares its gather body with
-`fused_ell_update`; on a CPU tensor it runs the plain version,
-`kernels.ref.ell_pull_ref`; on any other device it raises.
+Two entries run the kernel in `csrc/ell_pull.cu`:
+
+* ``ell_pull_buckets(c, buckets)``: every bucket of the staged sweep in one
+  launch, each slot's sum written at its row id through the bucket's row
+  map (`ell_bucket_pull`, then `ops.pull_sum_kernels`); a slot whose row
+  is the sentinel ``n`` writes nothing;
+* ``ell_pull(c, idx, mask)``: one bucket's table, the counterpart of the
+  JAX kernel; the same body with the identity map, so the two agree bit
+  for bit.
+
+The gather body (`csrc/ell_gather.cuh`) is shared with `fused_ell_update`;
+`ell_plan` picks its instantiation for a bucket. On a CUDA tensor each
+wrapper launches the kernel; on a CPU tensor it runs its plain version
+(`kernels.ref.ell_pull_ref`, and the JAX package's glue around it for the
+buckets); on any other device it raises.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 from .ref import ell_pull_ref
 
-__all__ = ["ell_pull", "ell_pull_plain", "lanes_for"]
+__all__ = ["ell_pull", "ell_pull_plain", "ell_pull_buckets",
+           "ell_pull_buckets_plain", "EllPlan", "ell_plan", "lanes_for",
+           "bucket_ints"]
 
-_SIG = {"ell_pull": [_build.P] * 4 + [_build.I] * 3 + [_build.P]}
+_SIG = {"ell_pull": [_build.P] * 4 + [_build.I] * 6 + [_build.P],
+        "ell_pull_buckets": [_build.P, _build.I, _build.P, _build.P,
+                             _build.P, _build.I, _build.I, _build.P]}
 
 ell_pull_plain = ell_pull_ref
 
 
+class EllPlan(NamedTuple):
+    """How the gather kernels run one bucket (`csrc/ell_gather.cuh`
+    ELL_PLANS): `width` is the template width (0: the generic loop over
+    the runtime width), `lanes` the threads per row, `vec` 16-byte loads
+    of idx and mask."""
+    width: int
+    lanes: int
+    vec: bool
+
+
+# template widths -> lanes per row: each lane owns 4 slots of its row (the
+# whole row below width 4), one 16-byte word of idx and one of mask
+_TEMPLATES = {1: 1, 2: 1, 4: 1, 8: 2, 16: 4, 32: 8, 64: 16}
+
+
 def lanes_for(width: int) -> int:
-    """Threads per row of both ELL kernels (`ell_pull`,
-    `fused_ell_update`): one for the narrowest buckets (the paper's
-    thread-per-vertex kernel), else a sub-warp of the largest power of two
-    up to min(width, 32), which divides the warp."""
+    """Threads per row of the generic loop (widths without a template):
+    one for the narrowest rows (the paper's thread-per-vertex kernel),
+    else a sub-warp of the largest power of two up to min(width, 32),
+    which divides the warp."""
     if width <= 2:
         return 1
     lanes = 1
     while lanes * 2 <= min(width, 32):
         lanes *= 2
     return lanes
+
+
+def ell_plan(width: int, aligned: bool) -> EllPlan:
+    """The plan of a [rows, width] table whose idx and mask start on a
+    16-byte boundary iff `aligned`: a template for widths 1, 2, 4, 8, 16,
+    32 and 64, with 16-byte loads when the width is a multiple of 4 and
+    the table aligned (a row is then 16-byte aligned too); the generic
+    loop at `lanes_for(width)` lanes otherwise."""
+    if width in _TEMPLATES:
+        return EllPlan(width, _TEMPLATES[width],
+                       bool(aligned) and width % 4 == 0)
+    return EllPlan(0, lanes_for(width), False)
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def bucket_ints(name, dev, idx, mask, count=None):
+    """(work lanes, cap, width, *plan) of one bucket's table, the ints the
+    C entries take per bucket, after checking the table on `dev`."""
+    if idx.dim() != 2 or idx.shape[0] == 0 or idx.shape[1] == 0:
+        raise ValueError(f"{name}: bad slot table {tuple(idx.shape)}")
+    cap, width = idx.shape
+    _build.check(f"{name} idx", idx, torch.int32, (cap, width), dev)
+    _build.check(f"{name} mask", mask, torch.float32, (cap, width), dev)
+    plan = ell_plan(width, aligned16(idx, mask))
+    return (cap if count is None else count, cap, width, plan.width,
+            plan.lanes, int(plan.vec))
 
 
 def ell_pull(c: torch.Tensor, idx: torch.Tensor,
@@ -48,22 +110,67 @@ def ell_pull(c: torch.Tensor, idx: torch.Tensor,
     return _launch(c, idx, mask)
 
 
+def ell_pull_buckets_plain(c: torch.Tensor, buckets) -> torch.Tensor:
+    """The plain version of `ell_pull_buckets`: the JAX package's glue
+    around `ell_pull_ref` (sums added through each row map into a sink row
+    n), the sink row then cleared."""
+    out = c.new_zeros(c.shape[0] + 1)
+    for blk in buckets:
+        out.index_add_(0, blk.rows, ell_pull_ref(c, blk.idx, blk.mask))
+    out[-1] = 0.0
+    return out
+
+
+def ell_pull_buckets(c: torch.Tensor, buckets) -> torch.Tensor:
+    """out[blk.rows[s]] = sum_j c[blk.idx[s, j]] * blk.mask[s, j] over every
+    bucket's slots, shape [n + 1] (n = len(c)): rows in no bucket and the
+    sink row n stay 0, so a caller may add sentinel-indexed sums there.
+    Each vertex lives in at most one bucket slot, so no two sums meet. On
+    CUDA: one zero fill and one launch."""
+    if c.device.type == "cpu":
+        return ell_pull_buckets_plain(c, buckets)
+    return _launch_buckets(c, buckets)
+
+
 def _launch(c, idx, mask):
     dev = c.device
     if dev.type != "cuda":
         raise ValueError(f"ell_pull: no kernel for device {dev}")
-    if idx.dim() != 2 or idx.shape[0] == 0 or idx.shape[1] == 0:
-        raise ValueError(f"ell_pull: bad slot table {tuple(idx.shape)}")
-    rows, width = idx.shape
+    ints = bucket_ints("ell_pull", dev, idx, mask)
     _build.check("ell_pull c", c, torch.float64, (c.shape[0],), dev)
-    _build.check("ell_pull idx", idx, torch.int32, (rows, width), dev)
-    _build.check("ell_pull mask", mask, torch.float32, (rows, width), dev)
-    out = torch.empty(rows, dtype=torch.float64, device=dev)
+    out = torch.empty(ints[1], dtype=torch.float64, device=dev)
     lib = _build.load("ell_pull", _SIG)
     err = lib.ell_pull(c.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                       out.data_ptr(), rows, width, lanes_for(width),
+                       out.data_ptr(), *ints[1:], int(_build.C_EVICT_LAST),
                        _build.stream_ptr(dev))
     _build.launch_error("ell_pull", err)
+    ell_pull.launches += 1
+    return out
+
+
+def _launch_buckets(c, buckets):
+    dev = c.device
+    if dev.type != "cuda":
+        raise ValueError(f"ell_pull_buckets: no kernel for device {dev}")
+    n = c.shape[0]
+    _build.check("ell_pull_buckets c", c, torch.float64, (n,), dev)
+    out = torch.zeros(n + 1, dtype=torch.float64, device=dev)
+    if not buckets:
+        return out
+    ptrs, ints = [], []
+    for blk in buckets:
+        b = bucket_ints("ell_pull_buckets", dev, blk.idx, blk.mask)
+        _build.check("ell_pull_buckets rows", blk.rows, torch.int32, (b[1],),
+                     dev)
+        ptrs += [blk.rows.data_ptr(), blk.idx.data_ptr(),
+                 blk.mask.data_ptr(), 0]
+        ints += b
+    lib = _build.load("ell_pull", _SIG)
+    err = lib.ell_pull_buckets(
+        c.data_ptr(), len(buckets), (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(ints))(*ints), out.data_ptr(), n,
+        int(_build.C_EVICT_LAST), _build.stream_ptr(dev))
+    _build.launch_error("ell_pull_buckets", err)
     ell_pull.launches += 1
     return out
 

@@ -14,8 +14,9 @@ This is the default sweep of every engine on CUDA tensors
 (`core.pagerank.update_ranks`).
 
 `pull_sum_kernels(dg, c)` is a drop-in `pull_sum_fn` for the engines of
-`core.pagerank` and `core.dynamic`: `ell_pull` per bucket
-(`ell_bucket_pull`) on the low side, `csr_block_pull` on the high side.
+`core.pagerank` and `core.dynamic`: `ell_pull` over every bucket in one
+launch (`ell_pull_buckets`) on the low side, `csr_block_pull` on the high
+side.
 The engines then run the rank update in `core.rank_step` and take the L∞
 delta from the `linf_delta` kernel — the paper's staged sweep, with the
 `contrib [n]` round trip through device memory that the fused sweep
@@ -26,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from .csr_block import csr_block_pull
-from .ell_bucket_pull import bucket_sums, fused_ell_sweep
+from .ell_bucket_pull import fused_ell_sweep
+from .ell_pull import ell_pull_buckets
 from .pr_update import pr_update
 from ..sentinel import take_fill
 
@@ -38,10 +40,10 @@ def pull_sum_kernels(dg, c: torch.Tensor) -> torch.Tensor:
     `core.pagerank.pull_sum`): sum_{u in G'.row(v)} c[u] for every v.
 
     `dg` is a DeviceGraph, a snapshot's `.dg` included (its slot->tile
-    table is kept fresh by the snapshot). Sentinel ids land in the sink
-    row of `bucket_sums`, sliced off at the end."""
+    table is kept fresh by the snapshot). The high side's sentinel ids
+    land in the sink row of `ell_pull_buckets`, sliced off at the end."""
     n = c.shape[0]
-    out = bucket_sums(c, dg.buckets)
+    out = ell_pull_buckets(c, dg.buckets)
     hi = csr_block_pull(c, dg.hi_tiles, dg.hi_tmask, dg.hi_rowmap,
                         dg.n_hi_cap, slots=(dg.hi_slot_tiles, dg.hi_slot_off))
     return out.index_add_(0, dg.hi_ids, hi)[:n]

@@ -21,6 +21,8 @@ from repro_torch.guard.health import H_NONFINITE  # noqa: E402
 from repro_torch.kernels import (_build, csr_block_pull, fused_ell_update,  # noqa: E402
                                  pr_update, update_ranks_kernel)
 from repro_torch.kernels.ell_bucket_pull import fused_ell_sweep  # noqa: E402
+from repro_torch.kernels.ell_pull import (bucket_ints, ell_pull,  # noqa: E402
+                                          ell_pull_buckets)
 from repro_torch.kernels.ref import linf_delta_ref, pr_update_ref  # noqa: E402
 
 D_P, TILE = 8, 32
@@ -371,6 +373,22 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         pr_update(v, v, v, v, **kw)
     with pytest.raises(ValueError, match="no kernel"):
         csr_block_pull(c, idx, mask, idx[:, 0].contiguous(), 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        ell_pull_buckets(c, (blk,))
+    with pytest.raises(ValueError, match="no kernel"):
+        ell_pull(c, idx, mask)
+
+
+def _off_by(dtype, shape, nbytes):
+    """A contiguous CPU tensor whose data starts `nbytes` past a 16-byte
+    boundary."""
+    numel = int(np.prod(shape))
+    size = torch.empty((), dtype=dtype).element_size()
+    buf = bytearray(numel * size + 32)
+    base = torch.frombuffer(buf, dtype=torch.uint8).data_ptr()
+    off = (16 - base % 16) % 16 + nbytes
+    return torch.frombuffer(buf, dtype=dtype, offset=off,
+                            count=numel).view(shape)
 
 
 def test_tensor_checks_raise():
@@ -387,3 +405,27 @@ def test_tensor_checks_raise():
         _build.check("x", t, torch.float64, (4, 3), torch.device("meta"))
     with pytest.raises(RuntimeError, match="error 700"):
         _build.launch_error("k", 700)
+    # the gathers' tables: a table off its element size, or not contiguous,
+    # is refused by both new entries' checks (`bucket_ints` for
+    # ell_pull_buckets / ell_pull / the fused sweep, `check` for
+    # csr_block_pull's tiles); one 4 bytes off a 16-byte boundary is taken,
+    # with 4-byte loads
+    idx = _off_by(torch.int32, (6, 4), 0)
+    mask = _off_by(torch.float32, (6, 4), 0)
+    assert bucket_ints("t", cpu, idx, mask) == (6, 6, 4, 4, 1, 1)
+    assert bucket_ints("t", cpu, _off_by(torch.int32, (6, 4), 4), mask,
+                       count=3) == (3, 6, 4, 4, 1, 0)
+    with pytest.raises(ValueError, match="misaligned"):
+        bucket_ints("t", cpu, _off_by(torch.int32, (6, 4), 2), mask)
+    with pytest.raises(ValueError, match="misaligned"):
+        bucket_ints("t", cpu, idx, _off_by(torch.float32, (6, 4), 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        bucket_ints("t", cpu, torch.zeros(4, 6, dtype=torch.int32).t(), mask)
+    with pytest.raises(ValueError, match="bad slot table"):
+        bucket_ints("t", cpu, idx[:0], mask[:0])
+    tiles = _off_by(torch.int32, (3, 256), 2)
+    with pytest.raises(ValueError, match="misaligned"):
+        _build.check("hi_tiles", tiles, torch.int32, (3, 256), cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        _build.check("hi_tiles", torch.zeros(256, 3, dtype=torch.int32).t(),
+                     torch.int32, (3, 256), cpu)

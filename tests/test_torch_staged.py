@@ -24,7 +24,12 @@ from repro_torch.core.pagerank import update_ranks  # noqa: E402
 from repro_torch.core.rank_step import rank_step  # noqa: E402
 from repro_torch.kernels import (ell_bucket_pull, ell_pull,  # noqa: E402
                                  linf_delta, pull_sum_kernels)
-from repro_torch.kernels.ell_pull import ell_pull_plain  # noqa: E402
+from repro_torch.kernels.csr_block import (TEMPLATE_TILE,  # noqa: E402
+                                           csr_plan)
+from repro_torch.kernels.ell_pull import (EllPlan, ell_plan,  # noqa: E402
+                                          ell_pull_buckets,
+                                          ell_pull_buckets_plain,
+                                          ell_pull_plain, lanes_for)
 from repro_torch.kernels.linf_delta import linf_delta_plain  # noqa: E402
 
 D_P, TILE = 8, 32
@@ -122,6 +127,90 @@ def test_pull_sum_kernels_on_a_snapshot():
             <= TOL
         snap.apply(ts.ingest(tc.random_batch(snap.graph(), 0.02,
                                              seed=6 + step), g.n))
+
+
+def _padded_layout(g):
+    """d_p = D_P with 5 unused slots (row id n) in every bucket."""
+    caps = tc.hybrid_caps(tc.build_hybrid(g, d_p=D_P, tile=TILE))
+    return dict(d_p=D_P, tile=TILE, bucket_caps=tuple(
+        c + 5 for c in caps["bucket_caps"]))
+
+
+@pytest.mark.parametrize("layout", ["bucketed", "d_p0", "padded"])
+def test_ell_pull_buckets_matches_pallas(layout):
+    """The all-bucket entry (plain path here) against the JAX
+    `ell_bucket_pull` (Pallas, interpret) over every bucket; the sink row
+    n stays 0, even where the sentinel slots gather a NaN."""
+    g = tc.powerlaw_graph(300, 2500, seed=2)
+    kw = {"bucketed": dict(d_p=D_P, tile=TILE), "d_p0": dict(d_p=0, tile=TILE),
+          "padded": _padded_layout(g)}[layout]
+    lay = tc.build_hybrid(g, **kw)
+    dg = tc.to_device(lay, **CPU)
+    dg_j = jc.to_device(jc.build_hybrid(jc.powerlaw_graph(300, 2500, seed=2),
+                                        **kw))
+    c = np.random.default_rng(3).random(g.n) / g.out_degree()
+    n = g.n
+    if layout == "padded":
+        assert all((blk.rows == n).any() for blk in lay.buckets)
+        pad = lay.buckets[0]
+        slot = int(np.flatnonzero(pad.rows == n)[0])
+        c[int(pad.idx[slot, 0])] = np.nan
+    got = ell_pull_buckets(_t(c), dg.buckets)
+    want = np.asarray(jk.ell_bucket_pull(jnp.asarray(c), dg_j.buckets, vt=VT,
+                                         interpret=True))
+    assert got.shape == (n + 1,) and float(got[n]) == 0.0
+    np.testing.assert_array_equal(got[:n].isnan().numpy(), np.isnan(want))
+    live = ~np.isnan(want)
+    assert _linf(got[:n].numpy()[live], want[live]) <= TOL
+    assert torch.equal(got.nan_to_num(), ell_pull_buckets_plain(
+        _t(c), dg.buckets).nan_to_num())
+    assert torch.equal(ell_bucket_pull(_t(c), dg.buckets).nan_to_num(),
+                       got[:n].nan_to_num())
+    if layout == "d_p0":
+        assert not dg.buckets and not bool(got.any())
+
+
+def _header_plans():
+    """The ELL_PLANS table of csrc/ell_gather.cuh: {(W, lanes, vec)}."""
+    import pathlib
+    import re
+    src = (pathlib.Path(tc.__file__).resolve().parents[1] / "csrc"
+           / "ell_gather.cuh").read_text()
+    body = src[src.index("#define ELL_PLANS(X)"):]
+    body = body[:body.index("\n\n")]
+    rows = re.findall(r"X\((\d+), (\d+), (\d+), (true|false)\)", body)
+    assert [int(k) for k, *_ in rows] == list(range(len(rows)))
+    return {(int(w), int(ln), v == "true") for _, w, ln, v in rows}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 6, 64])
+def test_ell_plan_picks_an_instantiated_kernel(width, aligned):
+    """The host's choice of the gather's path: a template at widths 1, 2,
+    4 and 64 (16-byte loads only for an aligned width % 4 == 0 table), the
+    generic loop at lanes_for(width) otherwise; every plan the wrappers
+    can pick is one the kernel source instantiates."""
+    plan = ell_plan(width, aligned)
+    want = {1: EllPlan(1, 1, False), 2: EllPlan(2, 1, False),
+            3: EllPlan(0, 2, False), 4: EllPlan(4, 1, aligned),
+            6: EllPlan(0, 4, False), 64: EllPlan(64, 16, aligned)}
+    assert plan == want[width]
+    assert plan.lanes == (lanes_for(width) if plan.width == 0
+                          else plan.lanes)
+    table = _header_plans()
+    assert tuple(plan) in table
+    for w in range(1, 130):
+        assert tuple(ell_plan(w, aligned)) in table
+        p = ell_plan(w, aligned)
+        assert 32 % p.lanes == 0 and (p.width in (0, w))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("tile", [8, 256])
+def test_csr_plan_picks_the_template_at_tile_256(tile, aligned):
+    assert TEMPLATE_TILE == 256
+    want = (256, aligned) if tile == 256 else (0, False)
+    assert csr_plan(tile, aligned) == want
 
 
 # ---------------------------------------------------------------------------
