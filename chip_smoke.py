@@ -22,7 +22,8 @@ Phases (any failure exits non-zero; nothing is caught):
      (csr_block_pull dense and over its active tiles), pull_sum_kernels
      over the whole graph; ranks and sums to 1e-12 L-inf, flags exactly;
      ell_pull and csr_block_pull on tables 4 bytes off a 16-byte boundary
-     (4-byte loads) equal to the aligned run; the same checks on the small
+     (the generic loop) within 1e-12 of the aligned run; the same checks
+     on the small
      graph of phase 6 in its layout (widths 1/2/4/8, tile 32) and in nine
      buckets (widths 1-6, 8, 16, 32: two launches' worth of descriptors,
      the generic loop at 3, 5, 6; tile 8); linf_delta exactly (difference
@@ -57,7 +58,7 @@ Phases (any failure exits non-zero; nothing is caught):
      call a sample, 10 back to back, on the card alone: 10 calls in a
      replayed CUDA graph), and each gather on the card alone on two
      locality probes, tables of the same shape with c read in order and
-     from one line, and with the other L2 policy for c;
+     from one line;
   8. the streaming path on the same graph: a StreamSession with
      trace=True (DeviceSnapshot + static solve, launch counts start at 0
      here; tau = 1e-11, see STREAM_PARAMS), three churn batches
@@ -220,7 +221,7 @@ def bound(nbytes: float, flops: float, peak: float = FP64_FLOPS):
 
 def misaligned(t: torch.Tensor) -> torch.Tensor:
     """A copy of t whose data starts 4 bytes past a 16-byte boundary: the
-    gather kernels then take 4-byte loads at the same slots."""
+    gather kernels then take their generic loop."""
     flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
     out = flat[1:t.numel() + 1].view(t.shape)
     out.copy_(t)
@@ -288,10 +289,11 @@ def check_kernels(dgx, rng, errs):
         e = linf(got, ell_pull_plain(c, blk.idx, blk.mask))
         require(e <= TOL_SWEEP, f"ell_pull at width {blk.width}: L-inf {e}")
         errs["ell_pull"] = max(errs["ell_pull"], e)
-        # off the 16-byte path: the same slots, 4-byte loads, equal bits
-        require(torch.equal(ell_pull(c, misaligned(blk.idx),
-                                     misaligned(blk.mask)), got),
-                f"ell_pull at width {blk.width}: the 4-byte loads differ")
+        # off the 16-byte path: the generic loop on the same slots
+        e = linf(ell_pull(c, misaligned(blk.idx), misaligned(blk.mask)), got)
+        require(e <= TOL_SWEEP, f"ell_pull at width {blk.width}: the "
+                f"generic loop is {e} off the aligned run")
+        errs["ell_pull"] = max(errs["ell_pull"], e)
     # every bucket in one launch, through the row maps: equal to the
     # per-bucket entry's sums put at their rows, within 1e-12 of the plain
     # version, and nothing written for a sentinel row
@@ -349,10 +351,12 @@ def check_kernels(dgx, rng, errs):
         require(e <= TOL_SWEEP, f"csr_block_pull (tile "
                 f"{dgx.hi_tiles.shape[1]}): L-inf {e}")
         errs["csr_block_pull"] = max(errs["csr_block_pull"], e)
-        require(torch.equal(csr_block_pull(
+        e = linf(csr_block_pull(
             c, misaligned(dgx.hi_tiles), misaligned(dgx.hi_tmask),
-            *hi_args[3:], tile_sel=sel, slots=slots), got),
-            "csr_block_pull: the 4-byte loads differ")
+            *hi_args[3:], tile_sel=sel, slots=slots), got)
+        require(e <= TOL_SWEEP, f"csr_block_pull: the generic loop is {e} "
+                f"off the aligned run")
+        errs["csr_block_pull"] = max(errs["csr_block_pull"], e)
     # a NaN contribution reaches the high slot whose tile names it
     for t, j in (dgx.hi_tmask > 0).nonzero()[:1].tolist():
         bad = c.clone()
@@ -1383,8 +1387,7 @@ def main(argv=None) -> int:
             f"{t['library_ms']}")
     # the three gathers of c timed three ways (torch.mv beside the two
     # pulls), then on the same tables with c read in order (idx'[s, j] =
-    # (s w + j) mod n), from one line (idx' = 0), and with the other L2
-    # policy for c (_build.C_EVICT_LAST flipped), each on the card alone
+    # (s w + j) mod n) and from one line (idx' = 0), each on the card alone
     probes = {}
     for name, kern, lib, remake in (
             ("ell_pull", ellp_kernel, lambda: torch.mv(a_lo, c),
@@ -1401,10 +1404,6 @@ def main(argv=None) -> int:
             p[probe] = dict(graph_ms=graph_ms(lambda: kern(other),
                                               args.repeats, PER))
             del other
-        _build.C_EVICT_LAST = not _build.C_EVICT_LAST
-        p["c_evict_last" if _build.C_EVICT_LAST else "c_evict_normal"] = \
-            dict(graph_ms=graph_ms(kern, args.repeats, PER))
-        _build.C_EVICT_LAST = not _build.C_EVICT_LAST
         if lib is not None:
             p["library"] = three_ways(lib, args.repeats)
         probes[name] = p

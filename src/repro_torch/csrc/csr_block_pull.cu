@@ -15,14 +15,15 @@
 //   pass 1: one warp per tile (or per entry of the tile_sel list) writes
 //           that tile's sum into tsum[t]; a sentinel entry (t >= t_cap)
 //           writes nothing. The gather is ell_gather.cuh's, a row of 32
-//           lanes: at the main path's tile of 256 (a template plan) each
-//           lane loads its 8 indices and 8 mask bits as two 16-byte words
-//           each (adjacent lanes on adjacent words: 512 contiguous bytes a
-//           warp load; four 4-byte loads at the same slots when the table
-//           is not 16-byte aligned), then starts its 8 gathers of c, then
-//           sums them in slot order; the streams go past L1 with L2
-//           evict_first, c is read with L2 evict_last. Other tiles take
-//           the generic loop (lane, lane + 32, ...).
+//           lanes: at the main path's tile of kCsrTile = 256 on 16-byte
+//           aligned tables (the template plan, `csr_plan` in
+//           kernels/gather_plan.py) each lane loads its 8 indices and 8
+//           mask bits as two 16-byte words each (adjacent lanes on
+//           adjacent words: 512 contiguous bytes a warp load), then starts
+//           its 8 gathers of c, then sums them in slot order; the streams
+//           go past L1 with L2 evict_first, c is read with L2 evict_last.
+//           Other tiles and tables take the generic loop (lane,
+//           lane + 32, ...).
 //   pass 2: one warp per high slot sums tsum over the slot's tiles, taken
 //           from the slot->tile table that to_device builds once from
 //           hi_rowmap (stable argsort + offsets: tiles in ascending order,
@@ -40,7 +41,6 @@ namespace {
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
-constexpr int kTile = 256;  // the main path's tile: a template plan
 
 __device__ __forceinline__ double warp_sum(double s) {
 #pragma unroll
@@ -55,13 +55,13 @@ __global__ void __launch_bounds__(kBlock)
                      const int* __restrict__ tiles,
                      const float* __restrict__ tmask,
                      const int* __restrict__ tile_sel, int n_sel, int t_cap,
-                     int tile, int c_evict_last, double* __restrict__ tsum) {
+                     int tile, double* __restrict__ tsum) {
   const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   long long t = t_cap;  // sentinel: nothing to do
   if (w < n_sel) t = tile_sel ? tile_sel[w] : w;
   const bool live = t < t_cap;  // uniform across the warp
-  const GatherPolicy pol = gather_policy(c_evict_last);
+  const GatherPolicy pol = gather_policy();
   const double s = warp_sum(ell_row_partial<P>(
       c, live ? tiles + t * tile : nullptr,
       live ? tmask + t * tile : nullptr, tile, lane, pol));
@@ -93,28 +93,22 @@ int blocks_for_warps(long long warps) {
 extern "C" {
 
 // tile_sel may be null (every tile, n_sel == t_cap). tsum holds t_cap
-// doubles. The plan: tw = kTile (only when tile == kTile) or 0 (the generic
-// loop), vec = 16-byte loads (tw == kTile and a 16-byte aligned table).
-// Returns cudaGetLastError().
+// doubles. templated: the template plan (tile == kCsrTile, tables 16-byte
+// aligned), else the generic loop. Returns cudaGetLastError().
 int csr_block_pull(const double* c, const int* tiles, const float* tmask,
                    const int* tile_sel, int n_sel, int t_cap, int tile,
-                   int tw, int vec, const int* slot_tiles,
-                   const int* slot_off, int n_rows, double* tsum,
-                   double* out, int c_evict_last, void* stream) {
+                   int templated, const int* slot_tiles, const int* slot_off,
+                   int n_rows, double* tsum, double* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((tw != 0 && (tw != kTile || tile != kTile)) || (tw == 0 && vec))
-    return cudaErrorInvalidValue;
+  if (templated && tile != kCsrTile) return cudaErrorInvalidValue;
   if (n_sel > 0) {
     const int grid = blocks_for_warps(n_sel);
-    if (tw == 0)
-      tile_sums_kernel<EllPlan<0, 32, false>><<<grid, kBlock, 0, st>>>(
-          c, tiles, tmask, tile_sel, n_sel, t_cap, tile, c_evict_last, tsum);
-    else if (vec)
-      tile_sums_kernel<EllPlan<kTile, 32, true>><<<grid, kBlock, 0, st>>>(
-          c, tiles, tmask, tile_sel, n_sel, t_cap, tile, c_evict_last, tsum);
+    if (templated)
+      tile_sums_kernel<EllPlan<kCsrTile, 32, true>><<<grid, kBlock, 0, st>>>(
+          c, tiles, tmask, tile_sel, n_sel, t_cap, tile, tsum);
     else
-      tile_sums_kernel<EllPlan<kTile, 32, false>><<<grid, kBlock, 0, st>>>(
-          c, tiles, tmask, tile_sel, n_sel, t_cap, tile, c_evict_last, tsum);
+      tile_sums_kernel<EllPlan<0, 32, false>><<<grid, kBlock, 0, st>>>(
+          c, tiles, tmask, tile_sel, n_sel, t_cap, tile, tsum);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -7,23 +7,22 @@
 // 32 B sector they touch) and the stream of idx and mask (8 B per slot,
 // read once). The design keeps many gathers in flight and keeps the
 // streams from pushing c out of L2:
-//   * A bucket's plan (`ell_plan` in kernels/ell_pull.py) names a template
-//     width W and LANES threads per row. Each lane owns K = W / LANES slots
-//     of its row, in chunks of 4 at slots ((q LANES + lane) * 4 .. + 3), so
-//     neighbouring lanes read neighbouring 16-byte words. It loads every
-//     index and mask bit of its share first (one 16-byte load per chunk
-//     when the table is 16-byte aligned, else four 4-byte loads at the same
-//     slots), then starts all K gathers of c, then sums them in slot order.
-//     The load width never changes the order of the sums, so aligned and
-//     unaligned tables give the same bits.
-//   * Widths without an instantiation take the generic loop: LANES lanes
-//     (`lanes_for`) step through the row, lane, lane + LANES, ...
+//   * A bucket's plan (`ell_plan` in kernels/gather_plan.py, the one place
+//     that picks it) names a template width W and LANES threads per row.
+//     Each lane owns K = W / LANES slots of its row, in chunks of 4 at
+//     slots ((q LANES + lane) * 4 .. + 3), so neighbouring lanes read
+//     neighbouring 16-byte words (below width 4 one lane owns the row and
+//     reads it 4 bytes at a time). It loads every index and mask bit of its
+//     share first, one 16-byte load per chunk, then starts all K gathers
+//     of c, then sums them in slot order. A template of a width % 4 == 0
+//     runs only on a 16-byte aligned table; the host sends any other table
+//     to the generic loop.
+//   * The generic loop takes any width: LANES lanes (`lanes_for`) step
+//     through the row, lane, lane + LANES, ...
 //   * idx and mask are read once: ld.global.nc with L1::no_allocate and an
 //     L2 evict_first policy. c goes through the read-only path with an L2
-//     policy the caller picks: evict_last (the default, `C_EVICT_LAST` in
-//     kernels/_build.py), which keeps c ahead of the streams, or
-//     evict_normal. These are per-load hints; no device-wide cache setting
-//     is touched.
+//     evict_last policy, which keeps it ahead of the streams. These are
+//     per-load hints; no device-wide cache setting is touched.
 //   * The lanes of a row fold their partial sums with a fixed xor tree, so
 //     the order is the same on every run. Every slot adds c[idx] * mask,
 //     padding included, as the TPU kernels do: a NaN in c reaches every
@@ -38,16 +37,11 @@
 // rows of one bucket.
 constexpr int kEllBlock = 256;
 
-// The instantiated plans: X(kind, W, LANES, VEC). W = 0 is the generic
-// loop over a runtime width (4-byte loads). `ell_plan` in
-// kernels/ell_pull.py picks among these; a plan not listed is refused.
-#define ELL_PLANS(X)                                                      \
-  X(0, 1, 1, false) X(1, 2, 1, false) X(2, 4, 1, true) X(3, 4, 1, false)  \
-  X(4, 8, 2, true) X(5, 8, 2, false) X(6, 16, 4, true)                    \
-  X(7, 16, 4, false) X(8, 32, 8, true) X(9, 32, 8, false)                 \
-  X(10, 64, 16, true) X(11, 64, 16, false) X(12, 0, 1, false)             \
-  X(13, 0, 2, false) X(14, 0, 4, false) X(15, 0, 8, false)                \
-  X(16, 0, 16, false) X(17, 0, 32, false)
+// The instantiated plans, ELL_PLANS(X) calling X(kind, W, LANES, VEC) for
+// each: generated from kernels/gather_plan.py into the build's include
+// directory (kernels/_build.py), so the host can pick no plan the kernels
+// lack. W = 0 is the generic loop over a runtime width.
+#include "ell_plans.h"
 
 template <int W, int LANES, bool VEC>
 struct EllPlan {
@@ -56,18 +50,27 @@ struct EllPlan {
   static constexpr bool kVec = VEC;
   static_assert(kEllBlock % LANES == 0 && 32 % LANES == 0, "lanes");
   static_assert(W == 0 || (W % LANES == 0 &&
-                           ((W / LANES) % 4 == 0 || LANES == 1)),
-                "a lane owns whole chunks of 4, or the whole row");
-  static_assert(!VEC || (W % 4 == 0 && (W / LANES) % 4 == 0), "16-byte");
+                           (VEC ? (W / LANES) % 4 == 0 : LANES == 1)),
+                "a lane owns whole 16-byte chunks, or the whole row");
+  static_assert(W != 0 || !VEC, "the generic loop reads 4 bytes a slot");
 };
 
-// The kind of plan (W, lanes, vec), or -1 if it has no instantiation.
-inline int ell_plan_kind(int w, int lanes, int vec) {
-#define ELL_KIND(k, W, L, V) \
-  if (w == W && lanes == L && (vec != 0) == V) return k;
-  ELL_PLANS(ELL_KIND)
-#undef ELL_KIND
-  return -1;
+// The lanes per row of plan `kind`, or 0 if there is no such plan.
+inline int ell_plan_lanes(int kind) {
+#define ELL_LANES(k, W, L, V) \
+  if (kind == k) return L;
+  ELL_PLANS(ELL_LANES)
+#undef ELL_LANES
+  return 0;
+}
+
+// Whether plan `kind` exists and runs a table of `width`.
+inline bool ell_plan_fits(int kind, int width) {
+#define ELL_FITS(k, W, L, V) \
+  if (kind == k) return W == 0 || W == width;
+  ELL_PLANS(ELL_FITS)
+#undef ELL_FITS
+  return false;
 }
 
 // Calls f(EllPlan<...>{}) for the plan of `kind`: a block-uniform switch.
@@ -89,17 +92,14 @@ __device__ __forceinline__ void with_ell_plan(int kind, F&& f) {
 
 struct GatherPolicy {
   uint64_t stream;  // idx and mask: L2 evict_first
-  uint64_t c;       // c: L2 evict_normal or evict_last
+  uint64_t c;       // c: L2 evict_last
 };
 
-__device__ __forceinline__ GatherPolicy gather_policy(int c_evict_last) {
+__device__ __forceinline__ GatherPolicy gather_policy() {
   GatherPolicy p;
   asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
       : "=l"(p.stream));
-  if (c_evict_last)
-    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p.c));
-  else
-    asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p.c));
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p.c));
   return p;
 }
 
@@ -138,16 +138,9 @@ __device__ __forceinline__ double ld_c(const double* q, uint64_t pol) {
   return v;
 }
 
-// Slot of element e (0 .. K-1) of `lane`'s share of a row: chunks of 4 at
-// ((q LANES + lane) * 4), or the whole row when one lane owns it.
-template <int LANES, int K>
-__device__ __forceinline__ int chunk_slot(int e, int lane) {
-  if (K % 4 != 0) return e;  // LANES == 1
-  return ((e / 4) * LANES + lane) * 4 + (e % 4);
-}
-
 // Loads K index and mask values of one lane's share of a row (ip, mp at the
-// row's start), 16 bytes at a time when VEC.
+// row's start): chunks of 4 at ((q LANES + lane) * 4), 16 bytes at a time
+// when VEC, else the whole row (LANES == 1) 4 bytes at a time.
 template <int LANES, int K, bool VEC>
 __device__ __forceinline__ void load_share(const int* ip, const float* mp,
                                            int lane, uint64_t pol, int* id,
@@ -162,9 +155,8 @@ __device__ __forceinline__ void load_share(const int* ip, const float* mp,
   } else {
 #pragma unroll
     for (int e = 0; e < K; ++e) {
-      const int at = chunk_slot<LANES, K>(e, lane);
-      id[e] = ld_stream(ip + at, pol);
-      mk[e] = ld_stream(mp + at, pol);
+      id[e] = ld_stream(ip + e, pol);
+      mk[e] = ld_stream(mp + e, pol);
     }
   }
 }
@@ -213,9 +205,8 @@ __device__ __forceinline__ double ell_lanes_sum(double s) {
 // ---- the buckets of one launch ------------------------------------------------
 
 constexpr int kMaxBuckets = 8;
-// ints per bucket from the host: work lanes, cap, width, then the plan:
-// template width, lanes, 16-byte loads
-constexpr int kBucketInts = 6;
+// ints per bucket from the host: work lanes, cap, width, plan kind
+constexpr int kBucketInts = 4;
 
 struct EllBucket {
   const int* rows;    // [cap] vertex ids, sentinel n; null: identity map
@@ -238,8 +229,9 @@ struct EllBuckets {
 // block covers kEllBlock / lanes work lanes.
 inline int ell_bucket_blocks(const int* ints, int j) {
   const int* b = ints + kBucketInts * j;
-  if (b[0] <= 0 || b[4] <= 0) return 0;
-  const int per = kEllBlock / b[4];
+  const int lanes = ell_plan_lanes(b[3]);
+  if (b[0] <= 0 || lanes <= 0) return 0;
+  const int per = kEllBlock / lanes;
   return (b[0] + per - 1) / per;
 }
 
@@ -247,8 +239,7 @@ inline int ell_bucket_blocks(const int* ints, int j) {
 inline cudaError_t ell_check(int nb, const int* ints) {
   for (int j = 0; j < nb; ++j) {
     const int* b = ints + kBucketInts * j;
-    if (b[0] < 0 || ell_plan_kind(b[3], b[4], b[5]) < 0 ||
-        (b[3] != 0 && b[3] != b[2]))
+    if (b[0] < 0 || !ell_plan_fits(b[3], b[2]))
       return cudaErrorInvalidValue;
   }
   return cudaSuccess;
@@ -274,7 +265,7 @@ inline int ell_chunk(int nb, const void* const* ptrs, const int* ints,
     bk.count = b[0];
     bk.cap = b[1];
     bk.width = b[2];
-    bk.kind = ell_plan_kind(b[3], b[4], b[5]);
+    bk.kind = b[3];
     bk.first_block = blocks;
     blocks += nblk;
   }

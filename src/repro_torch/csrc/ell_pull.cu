@@ -19,11 +19,11 @@
 //     sentinel n writes nothing. `ell_pull` is the JAX kernel's
 //     counterpart, one bucket with the identity map (out[s]). Both run the
 //     same body, so they agree bit for bit.
-//   * The gather is ell_gather.cuh's: a plan per bucket (template width,
-//     lanes per row, 16-byte loads), every index and mask load of a lane's
-//     share started before its gathers, all gathers before the sums; idx
-//     and mask streamed past L1 with L2 evict_first, c read with L2
-//     evict_last.
+//   * The gather is ell_gather.cuh's: a plan per bucket (template width and
+//     lanes per row, 16-byte loads, or the generic loop), every index and
+//     mask load of a lane's share started before its gathers, all gathers
+//     before the sums; idx and mask streamed past L1 with L2 evict_first,
+//     c read with L2 evict_last.
 //   * Every row of the table is summed (no affected flag on this path);
 //     a block masks its ragged end, so any row count is taken as it is. No
 //     atomics; launches on the caller's stream; allocates nothing.
@@ -59,10 +59,10 @@ __device__ __forceinline__ void pull_row(const EllBucket& bk, int block,
 template <bool MAPPED>
 __global__ void __launch_bounds__(kEllBlock)
     ell_pull_kernel(const double* __restrict__ c, const EllBuckets bks,
-                    double* __restrict__ out, long long n, int c_evict_last) {
+                    double* __restrict__ out, long long n) {
   const EllBucket bk = ell_find_bucket(bks);
   const int block = (int)blockIdx.x - bk.first_block;
-  const GatherPolicy pol = gather_policy(c_evict_last);
+  const GatherPolicy pol = gather_policy();
   with_ell_plan(bk.kind, [&](auto plan) {
     pull_row<decltype(plan), MAPPED>(bk, block, c, out, n, pol);
   });
@@ -70,19 +70,20 @@ __global__ void __launch_bounds__(kEllBlock)
 
 template <bool MAPPED>
 int launch_pull(const double* c, int nb, const void* const* ptrs,
-                const int* ints, double* out, long long n, int c_evict_last,
+                const int* ints, double* out, long long n, int* launched,
                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
   const cudaError_t bad = ell_check(nb, ints);
   if (bad != cudaSuccess) return (int)bad;
   for (int j0 = 0; j0 < nb;) {
     EllBuckets bks;
     const int blocks = ell_chunk(nb, ptrs, ints, &j0, &bks);
     if (blocks == 0) continue;
-    ell_pull_kernel<MAPPED><<<blocks, kEllBlock, 0, st>>>(c, bks, out, n,
-                                                          c_evict_last);
+    ell_pull_kernel<MAPPED><<<blocks, kEllBlock, 0, st>>>(c, bks, out, n);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    ++*launched;
   }
   return (int)cudaGetLastError();
 }
@@ -93,25 +94,24 @@ extern "C" {
 
 // Every bucket in one launch (in chunks of kMaxBuckets for longer
 // layouts), through the row maps. ptrs: 4 per bucket (rows, idx, mask,
-// null); ints: kBucketInts per bucket (cap, cap, width, then the plan).
-// out [n] (or longer) gets each live slot's sum at its row id and is
-// written nowhere else. Returns cudaGetLastError().
+// null); ints: kBucketInts per bucket (cap, cap, width, plan kind). out
+// [n] (or longer) gets each live slot's sum at its row id and is written
+// nowhere else. *launched gets the number of kernels started. Returns
+// cudaGetLastError().
 int ell_pull_buckets(const double* c, int nb, const void* const* ptrs,
-                     const int* ints, double* out, int n, int c_evict_last,
+                     const int* ints, double* out, int n, int* launched,
                      void* stream) {
-  return launch_pull<true>(c, nb, ptrs, ints, out, n, c_evict_last, stream);
+  return launch_pull<true>(c, nb, ptrs, ints, out, n, launched, stream);
 }
 
 // One bucket's [rows, width] table, identity map: out holds `rows` doubles.
-// plan: template width, lanes per row, 16-byte loads. Returns
+// kind: the plan. *launched gets the number of kernels started. Returns
 // cudaGetLastError().
 int ell_pull(const double* c, const int* idx, const float* mask, double* out,
-             int rows, int width, int tw, int lanes, int vec,
-             int c_evict_last, void* stream) {
+             int rows, int width, int kind, int* launched, void* stream) {
   const void* ptrs[4] = {nullptr, idx, mask, nullptr};
-  const int ints[kBucketInts] = {rows, rows, width, tw, lanes, vec};
-  return launch_pull<false>(c, 1, ptrs, ints, out, rows, c_evict_last,
-                            stream);
+  const int ints[kBucketInts] = {rows, rows, width, kind};
+  return launch_pull<false>(c, 1, ptrs, ints, out, rows, launched, stream);
 }
 
 }  // extern "C"

@@ -19,7 +19,7 @@
 //     kernel by value; each block finds its bucket by a scan of at most
 //     kMaxBuckets first-block offsets, and a block-uniform switch runs the
 //     instantiation of the gather that the bucket's plan names (`ell_plan`
-//     in kernels/ell_pull.py). A layout of more buckets is launched in
+//     in kernels/gather_plan.py). A layout of more buckets is launched in
 //     chunks of kMaxBuckets into the same partials.
 //   * Work lane i of bucket b is slot s = i, or s = sel_b[i] over an
 //     active list. Through the row map (the sweep entry) it reads vertex
@@ -114,10 +114,10 @@ template <bool MAPPED, class Deg, class Flag>
 __global__ void __launch_bounds__(kEllBlock)
     fused_sweep_kernel(const double* __restrict__ c, const EllBuckets bks,
                        const Operands<Deg, Flag> o, const EpiParams p,
-                       int c_evict_last, double* __restrict__ partials) {
+                       double* __restrict__ partials) {
   const EllBucket bk = ell_find_bucket(bks);
   const int block = (int)blockIdx.x - bk.first_block;
-  const GatherPolicy pol = gather_policy(c_evict_last);
+  const GatherPolicy pol = gather_policy();
   double dr = 0.0;
   with_ell_plan(bk.kind, [&](auto plan) {
     dr = sweep_row<decltype(plan), MAPPED>(bk, block, c, o, p, pol);
@@ -127,13 +127,14 @@ __global__ void __launch_bounds__(kEllBlock)
 }
 
 // Launch every bucket (in chunks of kMaxBuckets, each into its own range
-// of partials), then the fold into partials[grid].
+// of partials; *launched counts them), then the fold into partials[grid].
 template <bool MAPPED, class Deg, class Flag>
 int launch_sweep(const double* c, int nb, const void* const* ptrs,
                  const int* ints, const Operands<Deg, Flag>& o,
-                 double* partials, const EpiParams& p, int c_evict_last,
+                 double* partials, const EpiParams& p, int* launched,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
   const cudaError_t bad = ell_check(nb, ints);
   if (bad != cudaSuccess) return (int)bad;
   int grid = 0;
@@ -142,9 +143,10 @@ int launch_sweep(const double* c, int nb, const void* const* ptrs,
     const int blocks = ell_chunk(nb, ptrs, ints, &j0, &bks);
     if (blocks == 0) continue;
     fused_sweep_kernel<MAPPED, Deg, Flag><<<blocks, kEllBlock, 0, st>>>(
-        c, bks, o, p, c_evict_last, partials + grid);
+        c, bks, o, p, partials + grid);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    ++*launched;
     grid += blocks;
   }
   max_partials_kernel<kFinalBlock><<<1, kFinalBlock, 0, st>>>(
@@ -157,7 +159,7 @@ int launch_sweep(const double* c, int nb, const void* const* ptrs,
 extern "C" {
 
 // Blocks of a launch over `nb` buckets, described by kBucketInts ints each
-// (work lanes, capacity, width, then the plan): the partials hold this + 1.
+// (work lanes, capacity, width, plan kind): the partials hold this + 1.
 int fused_ell_grid(int nb, const int* ints) {
   int grid = 0;
   for (int j = 0; j < nb; ++j) grid += ell_bucket_blocks(ints, j);
@@ -166,21 +168,21 @@ int fused_ell_grid(int nb, const int* ints) {
 
 // The sweep entry, through the row maps. ptrs: 4 per bucket (rows, idx,
 // mask, active list or null); ints: kBucketInts per bucket (work lanes =
-// cap or the list's length, cap, width, then the plan: template width,
-// lanes per row, 16-byte loads). r [n] f64, deg [n] int32, aff [n]
-// bool; r_new [n] f64, aff_new and dn [n] bool are written at every live
-// row id. The sweep's max |dr| lands in partials[grid]. Returns
+// cap or the list's length, cap, width, plan kind). r [n] f64, deg [n]
+// int32, aff [n] bool; r_new [n] f64, aff_new and dn [n] bool are written
+// at every live row id. The sweep's max |dr| lands in partials[grid];
+// *launched gets the number of sweep kernels started. Returns
 // cudaGetLastError().
 int fused_ell_sweep(const double* c, int nb, const void* const* ptrs,
                     const int* ints, const double* r, const int* deg,
                     const unsigned char* aff, double* r_new,
                     unsigned char* aff_new, unsigned char* dn, int n,
                     double* partials, double alpha, double c0, double tau_f,
-                    double tau_p, int prune, int closed_form,
-                    int c_evict_last, void* stream) {
+                    double tau_p, int prune, int closed_form, int* launched,
+                    void* stream) {
   const EpiParams p{alpha, c0, tau_f, tau_p, prune, closed_form};
   const Operands<int, unsigned char> o{r, deg, aff, r_new, aff_new, dn, n};
-  return launch_sweep<true>(c, nb, ptrs, ints, o, partials, p, c_evict_last,
+  return launch_sweep<true>(c, nb, ptrs, ints, o, partials, p, launched,
                             stream);
 }
 
@@ -194,12 +196,12 @@ int fused_ell_update(const double* c, const int* idx, const float* mask,
                      const double* deg, const double* aff, double* r_new,
                      double* aff_new, double* dn, double* partials,
                      double alpha, double c0, double tau_f, double tau_p,
-                     int prune, int closed_form, int c_evict_last,
+                     int prune, int closed_form, int* launched,
                      void* stream) {
   const EpiParams p{alpha, c0, tau_f, tau_p, prune, closed_form};
   const Operands<double, double> o{r, deg, aff, r_new, aff_new, dn, ints[1]};
   const void* ptrs[4] = {nullptr, idx, mask, sel};
-  return launch_sweep<false>(c, 1, ptrs, ints, o, partials, p, c_evict_last,
+  return launch_sweep<false>(c, 1, ptrs, ints, o, partials, p, launched,
                              stream);
 }
 

@@ -2,9 +2,12 @@
 
 Each source `csrc/<name>.cu` is compiled by its own `nvcc` for `sm_90a`
 into `build/repro_torch_kernels/lib<name>-<digest>.so` at the repository
-root, on first use; the digest covers the source, every shared header and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded. `build()` starts one `nvcc` per source, all at once. The libraries
+root, on first use; the digest covers the source, every shared header, the
+generated headers and the flags, so an edited source is rebuilt and a
+stale library is never loaded. `build()` first writes the headers
+generated from Python (`GENERATED`: `ell_plans.h`, the gather plans of
+`gather_plan`) into `build/repro_torch_kernels/include`, then starts one
+`nvcc` per source, all at once. The libraries
 have a plain C interface (no PyTorch headers, so a build takes seconds):
 pointers and the stream go in as `c_void_p`, sizes as `c_int`, and each
 entry point returns `cudaGetLastError()`.
@@ -32,12 +35,17 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "C_EVICT_LAST", "flags", "build",
+from . import gather_plan
+
+__all__ = ["SOURCES", "BUILD_DIR", "flags", "build",
            "load", "check", "stream_ptr", "launch_error"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
+# headers generated from Python, on the include path of every build
+GEN_DIR = BUILD_DIR / "include"
+GENERATED = {"ell_plans.h": gather_plan.header}
 SOURCES = ("fused_ell_update", "csr_block_pull", "pr_update", "scatter_rows",
            "ell_pull", "linf_delta", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -46,13 +54,6 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 FMAD = ("flash_attention",)
 
 P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-
-# The L2 policy of the gathers of c in the three gather kernels (ell_pull,
-# fused_ell_update, csr_block_pull; csrc/ell_gather.cuh): evict_last when
-# True (c then stays in L2 ahead of the streams of idx and mask, which are
-# read evict_first), else evict_normal. Read at every launch;
-# chip_smoke.py times both.
-C_EVICT_LAST = True
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -80,6 +81,8 @@ def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
+    for text in GENERATED.values():
+        h.update(text().encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -90,12 +93,17 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     todo = [n for n in names if not lib_path(n).is_file()]
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    GEN_DIR.mkdir(parents=True, exist_ok=True)
+    for fname, text in GENERATED.items():
+        tmp = GEN_DIR / f"{fname}.{os.getpid()}.tmp"
+        tmp.write_text(text())
+        os.replace(tmp, GEN_DIR / fname)
     cc = nvcc()
     procs = {}
     for name in todo:
         tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [cc, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [cc, *flags(name), "-I", str(GEN_DIR), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []

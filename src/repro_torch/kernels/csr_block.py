@@ -8,7 +8,8 @@ slot tile t belongs to. The result is one in-edge sum per high slot.
 On a CUDA tensor the wrapper launches the two-pass kernel in
 `csrc/csr_block_pull.cu` (tile sums, then a fixed-order per-slot sum over
 the slot→tile table of `core.pagerank.DeviceGraph`), its tile pass in the
-instantiation `csr_plan` picks; on a CPU tensor it runs the plain version,
+instantiation `gather_plan.csr_plan` picks; on a CPU tensor it runs the
+plain version,
 `kernels.ref.csr_block_pull_ref`.
 """
 from __future__ import annotations
@@ -18,27 +19,14 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .ell_pull import aligned16
+from .gather_plan import aligned16, csr_plan
 from .ref import csr_block_pull_ref
 from ..sentinel import take_fill
 
-__all__ = ["csr_block_pull", "csr_block_pull_plain", "csr_plan",
-           "TEMPLATE_TILE"]
+__all__ = ["csr_block_pull", "csr_block_pull_plain"]
 
-_SIG = {"csr_block_pull": [_build.P] * 4 + [_build.I] * 5 + [_build.P] * 2
-        + [_build.I] + [_build.P] * 2 + [_build.I, _build.P]}
-
-TEMPLATE_TILE = 256     # the main path's tile (`kTile` in the source)
-
-
-def csr_plan(tile: int, aligned: bool) -> Tuple[int, bool]:
-    """(template tile, 16-byte loads) of the tile pass: the template at
-    TEMPLATE_TILE (each lane's 8 slots as two 16-byte words of idx and of
-    mask when the tables start on a 16-byte boundary, else 4-byte loads at
-    the same slots), the generic loop (0, False) at any other tile."""
-    if tile == TEMPLATE_TILE:
-        return TEMPLATE_TILE, bool(aligned)
-    return 0, False
+_SIG = {"csr_block_pull": [_build.P] * 4 + [_build.I] * 4 + [_build.P] * 2
+        + [_build.I] + [_build.P] * 3}
 
 
 def csr_block_pull_plain(c, hi_tiles, hi_tmask, hi_rowmap, n_rows, *,
@@ -105,13 +93,13 @@ def _launch(c, tiles, tmask, rowmap, n_rows, tile_sel, slots):
         sel_ptr = tile_sel.data_ptr()
         tsum = torch.zeros(t_cap, dtype=torch.float64, device=dev)
     out = torch.empty(n_rows, dtype=torch.float64, device=dev)
-    tw, vec = csr_plan(tile, aligned16(tiles, tmask))
+    plan = csr_plan(tile, aligned16(tiles.data_ptr(), tmask.data_ptr()))
     lib = _build.load("csr_block_pull", _SIG)
     err = lib.csr_block_pull(
         c.data_ptr(), tiles.data_ptr(), tmask.data_ptr(), sel_ptr, n_sel,
-        t_cap, tile, tw, int(vec), slot_tiles.data_ptr(),
+        t_cap, tile, int(plan.width != 0), slot_tiles.data_ptr(),
         slot_off.data_ptr(), n_rows, tsum.data_ptr(), out.data_ptr(),
-        int(_build.C_EVICT_LAST), _build.stream_ptr(dev))
+        _build.stream_ptr(dev))
     _build.launch_error("csr_block_pull", err)
     csr_block_pull.launches += 1
     return out

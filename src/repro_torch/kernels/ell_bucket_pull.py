@@ -24,7 +24,9 @@ operands pre-gathered at its row ids, per-slot outputs. It runs the same
 kernel body with the identity row map.
 
 On a CUDA tensor each wrapper launches the kernel in
-`csrc/fused_ell_update.cu`; on a CPU tensor it runs its plain version
+`csrc/fused_ell_update.cu` (`fused_ell_update.launches` counts the sweep
+kernels started: one per call, unless a layout holds more buckets than one
+launch takes); on a CPU tensor it runs its plain version
 (`kernels.ref.ell_pull_ref` then `kernels.ref.pr_update_ref` per bucket);
 on any other device it raises.
 
@@ -40,7 +42,8 @@ import ctypes
 import torch
 
 from . import _build
-from .ell_pull import bucket_ints, ell_pull_buckets, lanes_for
+from .ell_pull import bucket_ints, ell_pull_buckets
+from .gather_plan import lanes_for
 from .ref import ell_pull_ref, pr_update_ref
 from ..sentinel import take_fill, with_sink
 
@@ -48,7 +51,8 @@ __all__ = ["ell_bucket_pull", "fused_ell_update",
            "fused_ell_update_plain", "fused_ell_sweep",
            "fused_ell_sweep_plain", "lanes_for"]
 
-_EPI = [_build.D] * 4 + [_build.I] * 3 + [_build.P]
+_EPI = [_build.D] * 4 + [_build.I] * 2 + [ctypes.POINTER(ctypes.c_int),
+                                          _build.P]
 _SIG = {"fused_ell_grid": [_build.I, _build.P],
         "fused_ell_sweep": [_build.P, _build.I, _build.P, _build.P]
         + [_build.P] * 6 + [_build.I, _build.P] + _EPI,
@@ -162,10 +166,10 @@ def fused_ell_sweep(c: torch.Tensor, buckets, r: torch.Tensor,
                          dn, bucket_sel, **kw)
 
 
-def _epi_args(alpha, inv_n, tau_f, tau_p, prune, closed_form, dev):
+def _epi_args(alpha, inv_n, tau_f, tau_p, prune, closed_form, dev,
+              launched):
     return (alpha, (1.0 - alpha) * inv_n, tau_f, tau_p, int(prune),
-            int(closed_form), int(_build.C_EVICT_LAST),
-            _build.stream_ptr(dev))
+            int(closed_form), ctypes.byref(launched), _build.stream_ptr(dev))
 
 
 def _check_table(name, dev, idx, mask, sel):
@@ -212,12 +216,13 @@ def _launch_sweep(c, buckets, r, out_deg, aff, r_new, aff_new, dn, b_sel,
     lib = _build.load("fused_ell_update", _SIG)
     grid = lib.fused_ell_grid(nb, c_ints)
     partials = torch.empty(grid + 1, dtype=torch.float64, device=dev)
+    launched = ctypes.c_int(0)
     err = lib.fused_ell_sweep(
         c.data_ptr(), nb, c_ptrs, c_ints, r.data_ptr(), out_deg.data_ptr(),
         aff.data_ptr(), r_new.data_ptr(), aff_new.data_ptr(), dn.data_ptr(),
-        n, partials.data_ptr(), *_epi_args(dev=dev, **kw))
+        n, partials.data_ptr(), *_epi_args(dev=dev, launched=launched, **kw))
     _build.launch_error("fused_ell_sweep", err)
-    fused_ell_update.launches += 1
+    fused_ell_update.launches += launched.value
     return partials[grid]
 
 
@@ -236,14 +241,15 @@ def _launch_bucket(c, idx, mask, r, deg, aff, sel, **kw):
     grid = lib.fused_ell_grid(1, c_ints)
     out = torch.empty((3, count), dtype=torch.float64, device=dev)
     partials = torch.empty(grid + 1, dtype=torch.float64, device=dev)
+    launched = ctypes.c_int(0)
     err = lib.fused_ell_update(
         c.data_ptr(), idx.data_ptr(), mask.data_ptr(),
         0 if sel is None else sel.data_ptr(), c_ints,
         r.data_ptr(), deg.data_ptr(), aff.data_ptr(), out[0].data_ptr(),
         out[1].data_ptr(), out[2].data_ptr(), partials.data_ptr(),
-        *_epi_args(dev=dev, **kw))
+        *_epi_args(dev=dev, launched=launched, **kw))
     _build.launch_error("fused_ell_update", err)
-    fused_ell_update.launches += 1
+    fused_ell_update.launches += launched.value
     return out[0], out[1], out[2], partials[grid]
 
 

@@ -14,7 +14,9 @@ Two entries run the kernel in `csrc/ell_pull.cu`:
   for bit.
 
 The gather body (`csrc/ell_gather.cuh`) is shared with `fused_ell_update`;
-`ell_plan` picks its instantiation for a bucket. On a CUDA tensor each
+`gather_plan.ell_plan` picks its instantiation for a bucket.
+`ell_pull.launches` counts the kernels started (one per call, unless a
+layout holds more buckets than one launch takes). On a CUDA tensor each
 wrapper launches the kernel; on a CPU tensor it runs its plain version
 (`kernels.ref.ell_pull_ref`, and the JAX package's glue around it for the
 buckets); on any other device it raises.
@@ -22,80 +24,34 @@ buckets); on any other device it raises.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
 from . import _build
+from .gather_plan import aligned16, ell_kind
 from .ref import ell_pull_ref
 
 __all__ = ["ell_pull", "ell_pull_plain", "ell_pull_buckets",
-           "ell_pull_buckets_plain", "EllPlan", "ell_plan", "lanes_for",
-           "bucket_ints"]
+           "ell_pull_buckets_plain", "bucket_ints"]
 
-_SIG = {"ell_pull": [_build.P] * 4 + [_build.I] * 6 + [_build.P],
+_COUNT = ctypes.POINTER(ctypes.c_int)
+_SIG = {"ell_pull": [_build.P] * 4 + [_build.I] * 3 + [_COUNT, _build.P],
         "ell_pull_buckets": [_build.P, _build.I, _build.P, _build.P,
-                             _build.P, _build.I, _build.I, _build.P]}
+                             _build.P, _build.I, _COUNT, _build.P]}
 
 ell_pull_plain = ell_pull_ref
 
 
-class EllPlan(NamedTuple):
-    """How the gather kernels run one bucket (`csrc/ell_gather.cuh`
-    ELL_PLANS): `width` is the template width (0: the generic loop over
-    the runtime width), `lanes` the threads per row, `vec` 16-byte loads
-    of idx and mask."""
-    width: int
-    lanes: int
-    vec: bool
-
-
-# template widths -> lanes per row: each lane owns 4 slots of its row (the
-# whole row below width 4), one 16-byte word of idx and one of mask
-_TEMPLATES = {1: 1, 2: 1, 4: 1, 8: 2, 16: 4, 32: 8, 64: 16}
-
-
-def lanes_for(width: int) -> int:
-    """Threads per row of the generic loop (widths without a template):
-    one for the narrowest rows (the paper's thread-per-vertex kernel),
-    else a sub-warp of the largest power of two up to min(width, 32),
-    which divides the warp."""
-    if width <= 2:
-        return 1
-    lanes = 1
-    while lanes * 2 <= min(width, 32):
-        lanes *= 2
-    return lanes
-
-
-def ell_plan(width: int, aligned: bool) -> EllPlan:
-    """The plan of a [rows, width] table whose idx and mask start on a
-    16-byte boundary iff `aligned`: a template for widths 1, 2, 4, 8, 16,
-    32 and 64, with 16-byte loads when the width is a multiple of 4 and
-    the table aligned (a row is then 16-byte aligned too); the generic
-    loop at `lanes_for(width)` lanes otherwise."""
-    if width in _TEMPLATES:
-        return EllPlan(width, _TEMPLATES[width],
-                       bool(aligned) and width % 4 == 0)
-    return EllPlan(0, lanes_for(width), False)
-
-
-def aligned16(*tensors: torch.Tensor) -> bool:
-    """Whether every tensor's data starts on a 16-byte boundary."""
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
-
-
 def bucket_ints(name, dev, idx, mask, count=None):
-    """(work lanes, cap, width, *plan) of one bucket's table, the ints the
-    C entries take per bucket, after checking the table on `dev`."""
+    """(work lanes, cap, width, plan kind) of one bucket's table, the ints
+    the C entries take per bucket, after checking the table on `dev`."""
     if idx.dim() != 2 or idx.shape[0] == 0 or idx.shape[1] == 0:
         raise ValueError(f"{name}: bad slot table {tuple(idx.shape)}")
     cap, width = idx.shape
     _build.check(f"{name} idx", idx, torch.int32, (cap, width), dev)
     _build.check(f"{name} mask", mask, torch.float32, (cap, width), dev)
-    plan = ell_plan(width, aligned16(idx, mask))
-    return (cap if count is None else count, cap, width, plan.width,
-            plan.lanes, int(plan.vec))
+    kind = ell_kind(width, aligned16(idx.data_ptr(), mask.data_ptr()))
+    return (cap if count is None else count, cap, width, kind)
 
 
 def ell_pull(c: torch.Tensor, idx: torch.Tensor,
@@ -140,11 +96,12 @@ def _launch(c, idx, mask):
     _build.check("ell_pull c", c, torch.float64, (c.shape[0],), dev)
     out = torch.empty(ints[1], dtype=torch.float64, device=dev)
     lib = _build.load("ell_pull", _SIG)
+    launched = ctypes.c_int(0)
     err = lib.ell_pull(c.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                       out.data_ptr(), *ints[1:], int(_build.C_EVICT_LAST),
+                       out.data_ptr(), *ints[1:], ctypes.byref(launched),
                        _build.stream_ptr(dev))
     _build.launch_error("ell_pull", err)
-    ell_pull.launches += 1
+    ell_pull.launches += launched.value
     return out
 
 
@@ -166,12 +123,13 @@ def _launch_buckets(c, buckets):
                  blk.mask.data_ptr(), 0]
         ints += b
     lib = _build.load("ell_pull", _SIG)
+    launched = ctypes.c_int(0)
     err = lib.ell_pull_buckets(
         c.data_ptr(), len(buckets), (ctypes.c_void_p * len(ptrs))(*ptrs),
         (ctypes.c_int * len(ints))(*ints), out.data_ptr(), n,
-        int(_build.C_EVICT_LAST), _build.stream_ptr(dev))
+        ctypes.byref(launched), _build.stream_ptr(dev))
     _build.launch_error("ell_pull_buckets", err)
-    ell_pull.launches += 1
+    ell_pull.launches += launched.value
     return out
 
 

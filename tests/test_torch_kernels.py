@@ -23,6 +23,7 @@ from repro_torch.kernels import (_build, csr_block_pull, fused_ell_update,  # no
 from repro_torch.kernels.ell_bucket_pull import fused_ell_sweep  # noqa: E402
 from repro_torch.kernels.ell_pull import (bucket_ints, ell_pull,  # noqa: E402
                                           ell_pull_buckets)
+from repro_torch.kernels.gather_plan import PLANS, GatherPlan  # noqa: E402
 from repro_torch.kernels.ref import linf_delta_ref, pr_update_ref  # noqa: E402
 
 D_P, TILE = 8, 32
@@ -408,13 +409,15 @@ def test_tensor_checks_raise():
     # the gathers' tables: a table off its element size, or not contiguous,
     # is refused by both new entries' checks (`bucket_ints` for
     # ell_pull_buckets / ell_pull / the fused sweep, `check` for
-    # csr_block_pull's tiles); one 4 bytes off a 16-byte boundary is taken,
-    # with 4-byte loads
+    # csr_block_pull's tiles); one 4 bytes off a 16-byte boundary is taken
+    # by the generic loop
     idx = _off_by(torch.int32, (6, 4), 0)
     mask = _off_by(torch.float32, (6, 4), 0)
-    assert bucket_ints("t", cpu, idx, mask) == (6, 6, 4, 4, 1, 1)
+    assert bucket_ints("t", cpu, idx, mask) == (
+        6, 6, 4, PLANS.index(GatherPlan(4, 1, True)))
     assert bucket_ints("t", cpu, _off_by(torch.int32, (6, 4), 4), mask,
-                       count=3) == (3, 6, 4, 4, 1, 0)
+                       count=3) == (3, 6, 4, PLANS.index(GatherPlan(0, 4,
+                                                                   False)))
     with pytest.raises(ValueError, match="misaligned"):
         bucket_ints("t", cpu, _off_by(torch.int32, (6, 4), 2), mask)
     with pytest.raises(ValueError, match="misaligned"):

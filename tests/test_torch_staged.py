@@ -24,12 +24,13 @@ from repro_torch.core.pagerank import update_ranks  # noqa: E402
 from repro_torch.core.rank_step import rank_step  # noqa: E402
 from repro_torch.kernels import (ell_bucket_pull, ell_pull,  # noqa: E402
                                  linf_delta, pull_sum_kernels)
-from repro_torch.kernels.csr_block import (TEMPLATE_TILE,  # noqa: E402
-                                           csr_plan)
-from repro_torch.kernels.ell_pull import (EllPlan, ell_plan,  # noqa: E402
-                                          ell_pull_buckets,
+from repro_torch.kernels import gather_plan  # noqa: E402
+from repro_torch.kernels.ell_pull import (ell_pull_buckets,  # noqa: E402
                                           ell_pull_buckets_plain,
-                                          ell_pull_plain, lanes_for)
+                                          ell_pull_plain)
+from repro_torch.kernels.gather_plan import (CSR_TILE,  # noqa: E402
+                                             GatherPlan, csr_plan, ell_kind,
+                                             ell_plan, lanes_for)
 from repro_torch.kernels.linf_delta import linf_delta_plain  # noqa: E402
 
 D_P, TILE = 8, 32
@@ -170,46 +171,55 @@ def test_ell_pull_buckets_matches_pallas(layout):
         assert not dg.buckets and not bool(got.any())
 
 
-def _header_plans():
-    """The ELL_PLANS table of csrc/ell_gather.cuh: {(W, lanes, vec)}."""
+def _generated_plans():
+    """The plans the kernels instantiate: the rows X(kind, W, LANES, VEC)
+    of the header `_build` generates (`gather_plan.header`), in kind
+    order. The gather header itself lists none."""
     import pathlib
     import re
     src = (pathlib.Path(tc.__file__).resolve().parents[1] / "csrc"
            / "ell_gather.cuh").read_text()
-    body = src[src.index("#define ELL_PLANS(X)"):]
-    body = body[:body.index("\n\n")]
-    rows = re.findall(r"X\((\d+), (\d+), (\d+), (true|false)\)", body)
+    assert '#include "ell_plans.h"' in src
+    assert "#define ELL_PLANS" not in src
+    rows = re.findall(r"X\((\d+), (\d+), (\d+), (true|false)\)",
+                      gather_plan.header())
     assert [int(k) for k, *_ in rows] == list(range(len(rows)))
-    return {(int(w), int(ln), v == "true") for _, w, ln, v in rows}
+    return [GatherPlan(int(w), int(ln), v == "true") for _, w, ln, v in rows]
 
 
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("width", [1, 2, 3, 4, 6, 64])
 def test_ell_plan_picks_an_instantiated_kernel(width, aligned):
     """The host's choice of the gather's path: a template at widths 1, 2,
-    4 and 64 (16-byte loads only for an aligned width % 4 == 0 table), the
-    generic loop at lanes_for(width) otherwise; every plan the wrappers
-    can pick is one the kernel source instantiates."""
+    4 and 64 (at 4 and 64, with its 16-byte loads, only on an aligned
+    table), the generic loop at lanes_for(width) otherwise; the kind the
+    C entries get names that plan among those the kernels instantiate."""
     plan = ell_plan(width, aligned)
-    want = {1: EllPlan(1, 1, False), 2: EllPlan(2, 1, False),
-            3: EllPlan(0, 2, False), 4: EllPlan(4, 1, aligned),
-            6: EllPlan(0, 4, False), 64: EllPlan(64, 16, aligned)}
+    want = {1: GatherPlan(1, 1, False), 2: GatherPlan(2, 1, False),
+            3: GatherPlan(0, 2, False),
+            4: GatherPlan(4, 1, True) if aligned else GatherPlan(0, 4, False),
+            6: GatherPlan(0, 4, False),
+            64: (GatherPlan(64, 16, True) if aligned
+                 else GatherPlan(0, 32, False))}
     assert plan == want[width]
-    assert plan.lanes == (lanes_for(width) if plan.width == 0
-                          else plan.lanes)
-    table = _header_plans()
-    assert tuple(plan) in table
+    if plan.width == 0:
+        assert plan.lanes == lanes_for(width)
+    table = _generated_plans()
+    assert table == list(gather_plan.PLANS)
+    assert table[ell_kind(width, aligned)] == plan
     for w in range(1, 130):
-        assert tuple(ell_plan(w, aligned)) in table
         p = ell_plan(w, aligned)
-        assert 32 % p.lanes == 0 and (p.width in (0, w))
+        assert p in table and 32 % p.lanes == 0 and p.width in (0, w)
+        assert not p.vec or (aligned and w % 4 == 0)
 
 
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("tile", [8, 256])
 def test_csr_plan_picks_the_template_at_tile_256(tile, aligned):
-    assert TEMPLATE_TILE == 256
-    want = (256, aligned) if tile == 256 else (0, False)
+    assert CSR_TILE == 256
+    assert f"kCsrTile = {CSR_TILE};" in gather_plan.header()
+    want = (GatherPlan(256, 32, True) if tile == 256 and aligned
+            else GatherPlan(0, 32, False))
     assert csr_plan(tile, aligned) == want
 
 
