@@ -19,18 +19,28 @@ Phases (any failure exits non-zero; nothing is caught):
      the glue around the per-bucket entry, and within 1e-12 of the plain
      PyTorch sweep; ell_pull_buckets equal to the per-bucket ell_pull's
      sums at their rows, nothing at the sentinel row), the high side
-     (csr_block_pull dense and over its active tiles), pull_sum_kernels
-     over the whole graph; ranks and sums to 1e-12 L-inf, flags exactly;
+     (csr_block_pull dense and over its active tiles; pr_update_sweep,
+     through the slot->vertex map, dense, over an active list with dead
+     lanes, with a NaN rank on an affected and on an unaffected high row
+     and with a NaN prior: ranks, flags and max equal to its plain
+     version, the per-slot pr_update plus scatters, nothing written at
+     row n, and within 1e-12 of the plain PyTorch version),
+     update_ranks_kernel dense and over the active lists equal to its
+     composition around the per-slot pr_update, pull_sum_kernels over the
+     whole graph; ranks and sums to 1e-12 L-inf, flags exactly;
      ell_pull and csr_block_pull on tables 4 bytes off a 16-byte boundary
      (the generic loop) within 1e-12 of the aligned run; the same checks
      on the small
-     graph of phase 6 in its layout (widths 1/2/4/8, tile 32) and in nine
+     graph of phase 6 in its layout (widths 1/2/4/8, tile 32), in nine
      buckets (widths 1-6, 8, 16, 32: two launches' worth of descriptors,
-     the generic loop at 3, 5, 6; tile 8); linf_delta exactly (difference
-     0) at length n, 1, n - 1 and one off the block size; a NaN rank must
-     reach every L-inf max (linf_delta from either side) and a NaN
-     contribution the rows of both ell_pull entries and the
-     csr_block_pull slot that name it;
+     the generic loop at 3, 5, 6; tile 8) and in its layout with 5 unused
+     slots in every bucket and on the high side; linf_delta exactly
+     (difference 0) at length n, 1, n - 1 and one off the block size, and
+     at lengths 1, 2, 3, 1001 and n - 1 on views 8 bytes off a 16-byte
+     boundary (both, or one of the two); a NaN rank must reach every L-inf
+     max (linf_delta from either side, also at a view's scalar head and
+     tail) and a NaN contribution the rows of both ell_pull entries and
+     the csr_block_pull slot that name it;
   5. static PageRank through the fused kernels (launch counts start at 0
      here), again on the plain PyTorch path, then on the staged sweep
      (pull_sum_fn=pull_sum_kernels: ell_pull, csr_block_pull, the rank
@@ -50,10 +60,16 @@ Phases (any failure exits non-zero; nothing is caught):
      its bound and, where one PyTorch call computes the same function,
      that call (ell_pull, csr_block_pull: torch.mv over a sparse CSR
      matrix of the low / high side; linf_delta: torch.dist with p = inf);
-     fused_ell_update is the whole low side of one sweep, ell_pull every
-     bucket in one launch; then one whole sweep, all rows affected, fused
-     (update_ranks_kernel) and staged (pull_sum_kernels, rank_step,
-     linf_delta); then the three gathers of c (ell_pull, csr_block_pull,
+     fused_ell_update is the whole low side of one sweep, pr_update its
+     high side through the slot->vertex map (pr_update_sweep), ell_pull
+     every bucket in one launch; pr_update and linf_delta (and
+     torch.dist) also 10 back to back and on the card alone; then one
+     whole sweep, all rows affected, fused (update_ranks_kernel), fused
+     with its high side composed around the per-slot pr_update, and
+     staged (pull_sum_kernels, rank_step, linf_delta), and the CUDA
+     kernels each launches (torch.profiler's device events, or the
+     wrappers' counters where the profiler records none); then the three
+     gathers of c (ell_pull, csr_block_pull,
      the fused low side) and the two torch.mv calls timed three ways (one
      call a sample, 10 back to back, on the card alone: 10 calls in a
      replayed CUDA graph), and each gather on the card alone on two
@@ -233,6 +249,79 @@ def at(t, ids):
     return t.index_select(0, ids)
 
 
+def composed_update_ranks(dg, r, affected, *, alpha, tau_f, tau_p, prune,
+                          closed_form, track_frontier, active=None):
+    """The fused sweep as `update_ranks_kernel` composed it before its high
+    side read and wrote through the slot->vertex map: the low side in
+    place into [n + 1] outputs, then the per-slot `pr_update` over
+    operands gathered at the high slots' vertex ids (take_fill, casts),
+    its outputs scattered back (sentinel ids into row n) and its max
+    taken with the low side's."""
+    from repro_torch.kernels import csr_block_pull, pr_update
+    from repro_torch.kernels.ell_bucket_pull import fused_ell_sweep
+    from repro_torch.sentinel import take_fill
+    n = r.shape[0]
+    dt = r.dtype
+    c = r / dg.out_deg
+    kw = dict(alpha=alpha, inv_n=1.0 / n, tau_f=tau_f, tau_p=tau_p,
+              prune=prune, closed_form=closed_form)
+    r_new = torch.empty(n + 1, dtype=dt, device=r.device)
+    aff_new = torch.empty(n + 1, dtype=torch.bool, device=r.device)
+    if active is None:
+        dn = torch.empty(n + 1, dtype=torch.bool, device=r.device)
+    else:
+        r_new[:n].copy_(r)
+        aff_new[:n].copy_(affected)
+        dn = torch.zeros(n + 1, dtype=torch.bool, device=r.device)
+    dmax = fused_ell_sweep(
+        c, dg.buckets, r, dg.out_deg, affected, r_new, aff_new, dn,
+        bucket_sel=active.bucket_sel if active is not None else None, **kw)
+    hi_sums = csr_block_pull(
+        c, dg.hi_tiles, dg.hi_tmask, dg.hi_rowmap, dg.n_hi_cap,
+        tile_sel=active.tile_sel if active is not None else None,
+        slots=(dg.hi_slot_tiles, dg.hi_slot_off))
+    if active is not None:
+        ids = take_fill(dg.hi_ids, active.hi_sel, n)
+        hi_sums = take_fill(hi_sums, active.hi_sel, 0.0)
+    else:
+        ids = dg.hi_ids
+    rh, ah, dh, ph = pr_update(
+        hi_sums, take_fill(r, ids, 1.0), take_fill(dg.out_deg, ids, 1).to(dt),
+        take_fill(affected, ids, False).to(dt), **kw)
+    r_new[ids] = rh
+    aff_new[ids] = ah > 0
+    dn[ids] = dh > 0
+    dmax = torch.maximum(dmax, ph)
+    aff_out = aff_new[:n] if prune else affected
+    dn_out = dn[:n] if track_frontier else torch.zeros_like(affected)
+    return r_new[:n], aff_out, dn_out, dmax
+
+
+def cuda_kernels(fn):
+    """The names of the CUDA kernels one call of fn() runs (memsets and
+    copies left out), from torch.profiler's device events; None when the
+    profiler records no device event (CUPTI not loaded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not names:
+        return None
+    return [x for x in names if not x.startswith(("Memset", "Memcpy"))]
+
+
+def same_bits(x, y) -> bool:
+    """Equal tensors, NaN where the other is NaN."""
+    return torch.equal(x.isnan(), y.isnan()) and torch.equal(
+        x.nan_to_num(), y.nan_to_num())
+
+
 def check_kernels(dgx, rng, errs):
     """Phase 4 on one DeviceGraph: each sweep kernel against its plain
     version at the shapes the path gives it — every ELL bucket dense and
@@ -253,7 +342,10 @@ def check_kernels(dgx, rng, errs):
     from repro_torch.kernels.ell_pull import (ell_pull_buckets,
                                               ell_pull_buckets_plain,
                                               ell_pull_plain)
-    from repro_torch.kernels.pr_update import pr_update_plain
+    from repro_torch.kernels.ops import update_ranks_kernel
+    from repro_torch.kernels.pr_update import (pr_update_plain,
+                                               pr_update_sweep,
+                                               pr_update_sweep_plain)
     from repro_torch.sentinel import take_fill, with_sink
     dev, n = dgx.device, dgx.n
     r = torch.from_numpy(rng.random(n) / n + 0.5 / n).to(dev)
@@ -369,12 +461,68 @@ def check_kernels(dgx, rng, errs):
     hi_ops = (hi_sums, at(r_s, dgx.hi_ids), at(d_s, dgx.hi_ids),
               at(a_s, dgx.hi_ids))
     hold("pr_update", pr_update(*hi_ops, **kw), pr_update_plain(*hi_ops, **kw))
+    # the high side through the slot->vertex map (pr_update_sweep) against
+    # its plain version, the per-slot entry plus scatters: equal bits; and
+    # within 1e-12 of the glue around the plain per-slot version. Sentinel
+    # slots (id n) and dead lanes of the list write nothing.
+    def hi_sweep(fn, rr, a, sel, prior, **extra):
+        outs = (with_sink(rr, -1.0), with_sink(a, True),
+                torch.ones(n + 1, dtype=torch.bool, device=dev))
+        dmax = fn(hi_sums, dgx.hi_ids, rr, dgx.out_deg, a, *outs, hi_sel=sel,
+                  prior=prior, **kw, **extra)
+        return outs + (dmax,)
+
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    cases = [("dense", r, aff, None, zero),
+             ("active list", r, aff, af.hi_sel, zero),
+             ("NaN prior", r, aff, None, zero + float("nan"))]
+    live_hi = dgx.hi_ids[dgx.hi_ids < n]
+    if live_hi.numel():             # a NaN rank on a high row
+        v_hi = int(live_hi[0])
+        bad = r.clone()
+        bad[v_hi] = float("nan")
+        a_on, a_off = aff.clone(), aff.clone()
+        a_on[v_hi], a_off[v_hi] = True, False
+        cases += [("NaN rank, affected", bad, a_on, None, zero),
+                  ("NaN rank, unaffected", bad, a_off, None, zero)]
+    for case, rr, a, sel, prior in cases:
+        got = hi_sweep(pr_update_sweep, rr, a, sel, prior)
+        want = hi_sweep(pr_update_sweep_plain, rr, a, sel, prior)
+        require(all(torch.equal(x, y) for x, y in zip(got[1:3], want[1:3]))
+                and same_bits(got[0], want[0]) and same_bits(got[3], want[3]),
+                f"pr_update_sweep ({case}) differs from the per-slot entry "
+                f"plus scatters")
+        require(float(got[0][n]) == -1.0 and bool(got[1][n])
+                and bool(got[2][n]), f"pr_update_sweep ({case}) wrote row n")
+        if case.startswith("NaN"):
+            require(bool(got[3].isnan()),
+                    f"pr_update_sweep ({case}): the NaN missed the max")
+            continue
+        plain = hi_sweep(pr_update_sweep_plain, rr, a, sel, prior,
+                         slot_fn=pr_update_plain)
+        e = max(linf(got[0], plain[0]), abs(float(got[3]) - float(plain[3])))
+        require(e <= TOL_SWEEP and torch.equal(got[1], plain[1])
+                and torch.equal(got[2], plain[2]),
+                f"pr_update_sweep ({case}) vs the plain PyTorch sweep: "
+                f"L-inf {e} or flags")
+        errs["pr_update"] = max(errs["pr_update"], e)
+    # the whole fused sweep against its composition around the per-slot
+    # entry: equal bits, dense and over the active lists
+    step = dict(STEP, track_frontier=True)
+    for a, act in ((aff, None), (dv, af)):
+        got = update_ranks_kernel(dgx, r, a, active=act, **step)
+        want = composed_update_ranks(dgx, r, a, active=act, **step)
+        require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                f"update_ranks_kernel ({'dense' if act is None else 'active'})"
+                f" differs from its composition around the per-slot pr_update")
     e = linf(pull_sum_kernels(dgx, c), pull_sum(dgx, c))
     require(e <= TOL_SWEEP, f"pull_sum_kernels vs pull_sum: L-inf {e}")
     errs["pull_sum_kernels"] = max(errs["pull_sum_kernels"], e)
     torch.cuda.synchronize()
-    return SimpleNamespace(c=c, r_s=r_s, d_s=d_s, kw=kw, slots=slots,
-                           hi_args=hi_args, hi_sums=hi_sums, hi_ops=hi_ops)
+    return SimpleNamespace(
+        c=c, r_s=r_s, d_s=d_s, kw=kw, slots=slots, hi_args=hi_args,
+        hi_sums=hi_sums, hi_ops=hi_ops, live_hi=int(live_hi.numel()),
+        dead_hi_lanes=int((af.hi_sel == dgx.n_hi_cap).sum()))
 
 
 def snapshot_pairs(snap):
@@ -965,7 +1113,8 @@ def main(argv=None) -> int:
     from repro_torch.core import (PRParams, apply_batch, batch_to_device,
                                   build_hybrid, caps_for, device_graph,
                                   dfp_pagerank, forward_device_graph,
-                                  init_ranks, l1_error, numpy_pagerank,
+                                  hybrid_caps, init_ranks, l1_error,
+                                  numpy_pagerank,
                                   powerlaw_graph, random_batch,
                                   static_pagerank, to_device,
                                   update_ranks)
@@ -980,7 +1129,9 @@ def main(argv=None) -> int:
                                               ell_pull_buckets_plain,
                                               ell_pull_plain)
     from repro_torch.kernels.linf_delta import linf_delta_plain
-    from repro_torch.kernels.pr_update import pr_update_plain
+    from repro_torch.kernels.pr_update import (pr_update_plain,
+                                               pr_update_sweep,
+                                               pr_update_sweep_plain)
     from repro_torch.kernels.stream_scatter import scatter_rows
     from repro_torch.obs import trace_summary
     from repro_torch.sentinel import with_sink
@@ -1037,19 +1188,31 @@ def main(argv=None) -> int:
                           "ell_pull", "pull_sum_kernels", "linf_delta"), 0.0)
     k4 = check_kernels(dg, rng, errs)
     c, r_s, d_s, kw, hi_ops = k4.c, k4.r_s, k4.d_s, k4.kw, k4.hi_ops
+    require(k4.live_hi > 0 and k4.dead_hi_lanes > 0,
+            f"phase 4 met {k4.live_hi} high rows and {k4.dead_hi_lanes} dead "
+            f"lanes of the active high-slot list")
     # the small graph of phase 6 in its layout (widths 1, 2, 4, 8; tile
     # 32) and in nine buckets (two launches' worth of descriptors) whose
-    # widths 3, 5 and 6 take the generic loop, at tile 8
+    # widths 3, 5 and 6 take the generic loop, at tile 8; and the first
+    # layout with 5 unused slots (id n) in every bucket and on the high side
     gs = powerlaw_graph(4000, 40000, alpha=args.alpha, seed=args.seed)
+    caps = hybrid_caps(build_hybrid(gs, d_p=8, tile=32))
     small = {}
     for lay_kw in (dict(d_p=8, tile=32),
                    dict(d_p=32, tile=8, widths=(1, 2, 3, 4, 5, 6, 8, 16,
-                                                32))):
+                                                32)),
+                   dict(d_p=8, tile=32, n_hi_cap=caps["n_hi_cap"] + 5,
+                        bucket_caps=tuple(c + 5
+                                          for c in caps["bucket_caps"]))):
         dgx = to_device(build_hybrid(gs, **lay_kw), device=dev)
         check_kernels(dgx, rng, errs)
-        small[str(lay_kw)] = dict(widths=[b.width for b in dgx.buckets],
-                                  tile=int(dgx.hi_tiles.shape[1]))
+        small[str(lay_kw)] = dict(
+            widths=[b.width for b in dgx.buckets],
+            tile=int(dgx.hi_tiles.shape[1]),
+            unused_hi_slots=int((dgx.hi_ids == gs.n).sum()))
         del dgx
+    require(small[str(lay_kw)]["unused_hi_slots"] == 5,
+            "the padded layout has no unused high slot")
     report["small_layouts"] = small
     log(f"[kernels] phase 4's checks on the small graph's layouts: {small}")
     # a NaN rank wins every max: affected (pr_update) and unaffected
@@ -1079,11 +1242,30 @@ def main(argv=None) -> int:
         require(e == 0.0, f"linf_delta at length {k}: {float(got)} vs "
                 f"{float(want)}")
         errs["linf_delta"] = max(errs["linf_delta"], e)
+    # views 8 bytes off a 16-byte boundary (a scalar head before the
+    # 16-byte words), odd lengths (a scalar tail), and a and b at different
+    # offsets (the 8-byte loop)
+    views = []
+    for k in (1, 2, 3, 1001, n - 1):
+        for oa, ob in ((1, 1), (1, 0), (0, 1)):
+            x, y = a[oa:oa + k], b[ob:ob + k]
+            got, want = linf_delta(x, y), linf_delta_plain(x, y)
+            require(float(got) == float(want), f"linf_delta at length {k}, "
+                    f"offsets {oa}/{ob}: {float(got)} vs {float(want)}")
+            views.append((k, oa, ob))
     for which in ("a", "b"):
         bad_a, bad_b = a.clone(), b.clone()
         (bad_a if which == "a" else bad_b)[n // 2] = float("nan")
         require(torch.isnan(linf_delta(bad_a, bad_b)),
                 f"linf_delta dropped a NaN in {which}")
+        # ... and at the scalar head and tail of a 1000-element view one
+        # element off
+        for i in (1, 1000):
+            bad = (bad_a if which == "a" else bad_b).clone()
+            bad[i] = float("nan")
+            x, y = (bad, b) if which == "a" else (a, bad)
+            require(torch.isnan(linf_delta(x[1:1001], y[1:1001])),
+                    f"linf_delta dropped a NaN at {i} of a view in {which}")
     # a NaN contribution reaches every ELL row whose table names it
     blk = dg.buckets[0]
     bad = c.clone()
@@ -1100,9 +1282,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     report["max_abs_err"] = errs
     report["linf_delta_lengths"] = lengths
+    report["linf_delta_views"] = views
     log(f"[kernels] all five agree with their plain versions (linf_delta "
-        f"at lengths {lengths}; ell_pull both entries, csr_block_pull at "
-        f"tiles 256, 32 and 8): {errs}")
+        f"at lengths {lengths} and on {len(views)} views 8 bytes off; "
+        f"ell_pull both entries, csr_block_pull at tiles 256, 32 and 8; "
+        f"pr_update_sweep bit-equal to the per-slot entry plus scatters and "
+        f"update_ranks_kernel to its composition around it): {errs}")
 
     # -- 5. static PageRank ---------------------------------------------------
     main_wrappers = (fused_ell_update, csr_block_pull, pr_update, ell_pull,
@@ -1290,10 +1475,46 @@ def main(argv=None) -> int:
     t_staged = cuda_ms(lambda: update_ranks(dg, r_n, on,
                                             pull_sum_fn=pull_sum_kernels,
                                             **sweep_kw), args.repeats)
-    report["sweep_ms"] = dict(fused=t_fused, staged=t_staged)
+    # the fused sweep as it was composed around the per-slot pr_update
+    t_composed = cuda_ms(lambda: composed_update_ranks(dg, r_n, on,
+                                                       **sweep_kw),
+                         args.repeats)
+    report["sweep_ms"] = dict(fused=t_fused, staged=t_staged,
+                              composed=t_composed)
     log(f"[time] one sweep, all rows affected: fused (update_ranks_kernel) "
         f"{t_fused:.4f} ms, staged (pull_sum_kernels + rank_step + "
-        f"linf_delta) {t_staged:.4f} ms")
+        f"linf_delta) {t_staged:.4f} ms; fused with its high side composed "
+        f"around the per-slot pr_update {t_composed:.4f} ms")
+    # the CUDA kernels one sweep launches, by the profiler's device events
+    per_sweep = {}
+    for name, fn in (
+            ("fused", lambda: update_ranks(dg, r_n, on, **sweep_kw)),
+            ("composed", lambda: composed_update_ranks(dg, r_n, on,
+                                                       **sweep_kw)),
+            ("staged", lambda: update_ranks(dg, r_n, on,
+                                            pull_sum_fn=pull_sum_kernels,
+                                            **sweep_kw))):
+        per_sweep[name] = cuda_kernels(fn)
+    if per_sweep["fused"] is None:
+        for w in main_wrappers:
+            w.launches = 0
+        update_ranks(dg, r_n, on, **sweep_kw)
+        torch.cuda.synchronize()
+        ours = 2 * sum(w.launches for w in main_wrappers)
+        report["kernels_per_sweep"] = dict(profiler=False, ours=ours)
+        log(f"[kernels per sweep] the profiler recorded no device event "
+            f"(CUPTI did not load); from the wrappers' counters one fused "
+            f"sweep launches {ours} kernels of ours (each call a kernel and "
+            f"its fold), its plain tensor ops not counted")
+    else:
+        report["kernels_per_sweep"] = {k: len(v) for k, v in
+                                       per_sweep.items()}
+        for name, names in per_sweep.items():
+            kinds = {}
+            for x in names:
+                kinds[x[:60]] = kinds.get(x[:60], 0) + 1
+            log(f"[kernels per sweep] {name}: {len(names)} CUDA kernels "
+                f"(profiler device events): {kinds}")
 
     # one PyTorch call for the high-side pull: a sparse CSR product
     tm = dg.hi_tmask.reshape(-1) > 0
@@ -1340,6 +1561,20 @@ def main(argv=None) -> int:
     require(lib_err <= TOL_SWEEP, f"torch.dist disagrees with linf_delta: "
             f"{lib_err}")
 
+    # the high side of one fused sweep through the slot->vertex map, as
+    # update_ranks_kernel calls it (its fold from a 0-d prior)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    live_hi = int((dg.hi_ids < n).sum())
+
+    def pru_kernel():
+        return pr_update_sweep(hi_sums, dg.hi_ids, r_n, dg.out_deg, on,
+                               *sweep_out, prior=zero, **kw)
+
+    def pru_plain():
+        return pr_update_sweep_plain(hi_sums, dg.hi_ids, r_n, dg.out_deg, on,
+                                     *sweep_out, prior=zero,
+                                     slot_fn=pr_update_plain, **kw)
+
     rows_all = sum(b.cap for b in lay.buckets)
     live_all = sum(int((b.rows < n).sum()) for b in lay.buckets)
     slots_all = sum(b.cap * b.width for b in lay.buckets)
@@ -1363,10 +1598,15 @@ def main(argv=None) -> int:
             bound=bound(n * 8 + t_cap * tile * 8 + t_cap * 4 + k_hi * 8,
                         t_cap * tile * 2)),
         "pr_update": dict(
-            ms=cuda_ms(lambda: pr_update(*hi_on, **kw), args.repeats),
-            plain_ms=cuda_ms(lambda: pr_update_plain(*hi_on, **kw),
-                             args.repeats), library_ms=None,
-            bound=bound(k_hi * 8 * 7, k_hi * 12)),
+            three_ways(pru_kernel, args.repeats),
+            plain_ms=cuda_ms(pru_plain, args.repeats), library_ms=None,
+            per_slot_ms=cuda_ms(lambda: pr_update(*hi_on, **kw),
+                                args.repeats),
+            # each slot's id and sum; r, out_deg and affected in and r_new
+            # and two flags out at each live slot's vertex
+            bound=bound(k_hi * (4 + 8) + live_hi * (8 + 4 + 1 + 8 + 1 + 1),
+                        live_hi * 12),
+            sector_ms=live_hi * 6 * 32 / HBM_BYTES_PER_S * 1e3),
         "ell_pull": dict(
             ms=cuda_ms(ellp_kernel, args.repeats),
             plain_ms=cuda_ms(ellp_plain, args.repeats),
@@ -1375,12 +1615,25 @@ def main(argv=None) -> int:
             bound=bound(n * 8 + slots_all * 8 + rows_all * 4 + (n + 1) * 8,
                         slots_all * 2)),
         "linf_delta": dict(
-            ms=cuda_ms(lambda: linf_delta(la, lb), args.repeats),
+            three_ways(lambda: linf_delta(la, lb), args.repeats),
             plain_ms=cuda_ms(lambda: linf_delta_plain(la, lb), args.repeats),
             library_ms=cuda_ms(lambda: torch.dist(la, lb, float("inf")),
                                args.repeats),
+            library=three_ways(lambda: torch.dist(la, lb, float("inf")),
+                               args.repeats),
             bound=bound(n * 16 + 8, n * 2)),
     }
+    for name in ("pr_update", "linf_delta"):
+        t = timings[name]
+        lib = t.get("library")
+        log(f"[probe] {name}, ms one call a sample / {PER} back to back / "
+            f"on the card alone: kernel {t['ms']:.4f} / "
+            f"{t['back_to_back_ms']:.4f} / {t['graph_ms']:.4f}"
+            + (f", torch.dist {lib['ms']:.4f} / {lib['back_to_back_ms']:.4f}"
+               f" / {lib['graph_ms']:.4f}" if lib else
+               f", the per-slot entry {t['per_slot_ms']:.4f} one call a "
+               f"sample; 6 sectors a live slot {t['sector_ms']:.4f}")
+            + f"; bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
     for name, t in timings.items():
         log(f"[time] {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), library "
@@ -1415,7 +1668,7 @@ def main(argv=None) -> int:
                 for k, v in p.items())
             + f"; bound {timings[name]['bound'][0]:.4f} ms")
     report["probes"] = probes
-    del (a_hi, a_lo, la, lb, sweep_out, on, hi_on, hi_ops, hi_sums,
+    del (a_hi, a_lo, la, lb, sweep_out, on, hi_on, hi_ops, hi_sums, zero,
          hi_args, k4, dg, c, r_s, d_s, a_on, all_on, r_k, r_p, r_st,
          r_n, rk_dense, chains, rp, r_scratch)
     torch.cuda.empty_cache()

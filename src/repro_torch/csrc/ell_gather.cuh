@@ -1,7 +1,9 @@
 // Shared gather body of the ELL kernels (ell_pull.cu and
 // fused_ell_update.cu): the masked row-sum  s = sum_j c[idx[row, j]] *
 // mask[row, j]  of one degree bucket's [rows, width] slot table, and the
-// by-value descriptor of the buckets that one launch covers.
+// by-value descriptor of the buckets that one launch covers. Its hinted
+// loads (past L1, with an L2 policy) also serve csr_block_pull.cu and
+// linf_delta.cu.
 //
 // What bounds it on the H100: the random gathers of c (8 B used of every
 // 32 B sector they touch) and the stream of idx and mask (8 B per slot,
@@ -129,6 +131,20 @@ __device__ __forceinline__ void ld_stream4(const float* q, uint64_t pol,
   asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.f32 {%0, %1, %2, %3},"
       " [%4], %5;"
       : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "l"(q), "l"(pol));
+}
+
+__device__ __forceinline__ double ld_stream(const double* q, uint64_t pol) {
+  double v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.f64 %0, [%1], %2;"
+      : "=d"(v) : "l"(q), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ double2 ld_stream2(const double* q, uint64_t pol) {
+  double2 v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
+      : "=d"(v.x), "=d"(v.y) : "l"(q), "l"(pol));
+  return v;
 }
 
 __device__ __forceinline__ double ld_c(const double* q, uint64_t pol) {

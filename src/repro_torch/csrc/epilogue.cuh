@@ -1,6 +1,7 @@
 // Shared device code of the rank-sweep kernels (fused_ell_update.cu,
 // pr_update.cu and linf_delta.cu): the one Alg. 3 epilogue the first two
-// run, and the NaN-propagating max reductions behind every L-inf partial.
+// run, the operands it reads through a row map or per slot, and the
+// NaN-propagating max reductions behind every L-inf partial.
 //
 // The epilogue is the CUDA spelling of core/rank_step.py: Eq. 1, or the
 // closed form Eq. 2 that absorbs the guaranteed self-loop, then
@@ -25,6 +26,20 @@ struct EpiParams {
 
 struct EpiOut {
   double r_new, aff, dn, dr;
+};
+
+// The epilogue's operands and outputs: per vertex through a row map (Deg
+// int, Flag unsigned char holding a bool), or per slot for the identity
+// map (Deg and Flag double).
+template <class Deg, class Flag>
+struct Operands {
+  const double* r;
+  const Deg* deg;
+  const Flag* aff;
+  double* r_new;
+  Flag* aff_new;
+  Flag* dn;
+  long long n;  // the row map's sentinel vertex id
 };
 
 // max that lets NaN win. fmax drops NaN; the health word needs a NaN rank
@@ -74,13 +89,15 @@ __device__ __forceinline__ double block_max(double v) {
   return v;
 }
 
-// Second pass of a max: one block folds the per-block partials into out[0].
-// |dr| >= 0, so 0 is the identity.
+// Second pass of a max: one block folds the per-block partials, and
+// prior[0] when prior is not null, into out[0]. |dr| >= 0, so 0 is the
+// identity.
 template <int BLOCK>
 __global__ void __launch_bounds__(BLOCK)
     max_partials_kernel(const double* __restrict__ partials, int n,
+                        const double* __restrict__ prior,
                         double* __restrict__ out) {
-  double v = 0.0;
+  double v = (prior != nullptr && threadIdx.x == 0) ? prior[0] : 0.0;
   for (int i = threadIdx.x; i < n; i += BLOCK) v = nan_max(v, partials[i]);
   v = block_max<BLOCK>(v);
   if (threadIdx.x == 0) out[0] = v;

@@ -48,20 +48,6 @@
 
 namespace {
 
-// Per-vertex operands and outputs through the row map (Deg int, Flag
-// unsigned char holding a bool), or per-slot ones for the identity map
-// (Deg and Flag double).
-template <class Deg, class Flag>
-struct Operands {
-  const double* r;
-  const Deg* deg;
-  const Flag* aff;
-  double* r_new;
-  Flag* aff_new;
-  Flag* dn;
-  long long n;  // the row map's sentinel vertex id
-};
-
 template <class P, bool MAPPED, class Deg, class Flag>
 __device__ __forceinline__ double sweep_row(const EllBucket& bk, int block,
                                             const double* __restrict__ c,
@@ -150,7 +136,7 @@ int launch_sweep(const double* c, int nb, const void* const* ptrs,
     grid += blocks;
   }
   max_partials_kernel<kFinalBlock><<<1, kFinalBlock, 0, st>>>(
-      partials, grid, partials + grid);
+      partials, grid, nullptr, partials + grid);
   return (int)cudaGetLastError();
 }
 

@@ -12,10 +12,11 @@ from .ell_pull import ell_pull, ell_pull_buckets
 from .flash_attn import flash_attention, flash_attention_bshd
 from .linf_delta import linf_delta
 from .ops import pull_sum_kernels, update_ranks_kernel
-from .pr_update import pr_update
+from .pr_update import pr_update, pr_update_sweep
 from .stream_scatter import ell_scatter_rows, scatter_rows
 
 __all__ = ["fused_ell_update", "csr_block_pull", "pr_update",
-           "update_ranks_kernel", "scatter_rows", "ell_scatter_rows",
-           "ell_pull", "ell_pull_buckets", "ell_bucket_pull", "linf_delta",
-           "pull_sum_kernels", "flash_attention", "flash_attention_bshd"]
+           "pr_update_sweep", "update_ranks_kernel", "scatter_rows",
+           "ell_scatter_rows", "ell_pull", "ell_pull_buckets",
+           "ell_bucket_pull", "linf_delta", "pull_sum_kernels",
+           "flash_attention", "flash_attention_bshd"]

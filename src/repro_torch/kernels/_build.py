@@ -38,7 +38,7 @@ import torch
 from . import gather_plan
 
 __all__ = ["SOURCES", "BUILD_DIR", "flags", "build",
-           "load", "check", "stream_ptr", "launch_error"]
+           "load", "check", "check_out", "stream_ptr", "launch_error"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -153,6 +153,16 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
     if t.data_ptr() % t.element_size():
         raise ValueError(f"{name}: misaligned (data at byte "
                          f"{t.data_ptr() % t.element_size()} of an element)")
+
+
+def check_out(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
+              device: torch.device) -> None:
+    """`check` for an output written in place at row ids below `n`: a
+    vector of at least `n` elements."""
+    if t.dim() != 1 or t.shape[0] < n:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected at "
+                         f"least ({n},)")
+    check(name, t, dtype, tuple(t.shape), device)
 
 
 def stream_ptr(device: torch.device) -> int:

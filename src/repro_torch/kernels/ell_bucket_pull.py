@@ -195,10 +195,7 @@ def _launch_sweep(c, buckets, r, out_deg, aff, r_new, aff_new, dn, b_sel,
     for name, t, dt in (("r_new", r_new, torch.float64),
                         ("aff_new", aff_new, torch.bool),
                         ("dn", dn, torch.bool)):
-        if t.dim() != 1 or t.shape[0] < n:
-            raise ValueError(f"fused_ell_sweep {name}: shape "
-                             f"{tuple(t.shape)}, expected at least ({n},)")
-        _build.check(f"fused_ell_sweep {name}", t, dt, tuple(t.shape), dev)
+        _build.check_out(f"fused_ell_sweep {name}", t, dt, n, dev)
     if not buckets:
         return r.new_zeros(())
     b_sel = (None,) * len(buckets) if b_sel is None else b_sel

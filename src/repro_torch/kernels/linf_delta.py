@@ -18,10 +18,13 @@ from .ref import linf_delta_ref
 
 __all__ = ["linf_delta", "linf_delta_plain"]
 
-_SIG = {"linf_delta_grid": [_build.I],
-        "linf_delta": [_build.P] * 2 + [_build.I] + [_build.P] * 2}
+_SIG = {"linf_delta_max_grid": [_build.I],
+        "linf_delta": [_build.P] * 2 + [_build.I] * 2 + [_build.P] * 2}
 
 linf_delta_plain = linf_delta_ref
+
+# stage 1's grid per device index (SMs x resident blocks), taken once
+_max_grid: dict = {}
 
 
 def linf_delta(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -40,16 +43,26 @@ def _launch(a, b):
         raise ValueError(f"linf_delta: expects a non-empty vector, got "
                          f"shape {tuple(a.shape)}")
     n = a.shape[0]
-    _build.check("linf_delta a", a, torch.float64, (n,), dev)
-    _build.check("linf_delta b", b, torch.float64, (n,), dev)
+    pa, pb = a.data_ptr(), b.data_ptr()
+    # what `_build.check` asks of both, in one expression; it names the
+    # fault when one fails
+    if not (a.dtype == b.dtype == torch.float64 and b.shape == a.shape
+            and b.device == dev and a.is_contiguous() and b.is_contiguous()
+            and (pa | pb) % 8 == 0):
+        _build.check("linf_delta a", a, torch.float64, (n,), dev)
+        _build.check("linf_delta b", b, torch.float64, (n,), dev)
     lib = _build.load("linf_delta", _SIG)
-    grid = lib.linf_delta_grid(n)
-    partials = torch.empty(grid + 1, dtype=torch.float64, device=dev)
-    err = lib.linf_delta(a.data_ptr(), b.data_ptr(), n, partials.data_ptr(),
+    cap = _max_grid.get(dev.index)
+    if cap is None:
+        cap = _max_grid[dev.index] = lib.linf_delta_max_grid(dev.index)
+        if cap < 1:
+            raise RuntimeError(f"linf_delta: no grid for device {dev}")
+    partials = torch.empty(cap + 1, dtype=torch.float64, device=dev)
+    err = lib.linf_delta(pa, pb, n, cap, partials.data_ptr(),
                          _build.stream_ptr(dev))
     _build.launch_error("linf_delta", err)
     linf_delta.launches += 1
-    return partials[grid]
+    return partials[cap]
 
 
 linf_delta.launches = 0

@@ -7,11 +7,10 @@ epilogue, reading each row's rank, out-degree and flag through the
 bucket's row map and writing the new rank and flags there in place (one
 more launch folds its L∞ partials); the high side pulls per-slot sums
 through `csr_block_pull` and runs the same epilogue over the slot table
-with `pr_update`, its operands gathered and its results scattered
-through the slot→vertex map (ids equal to the sentinel `n` read the pad
-values r=1, deg=1, aff=0 and write into a sink row that is sliced off).
-This is the default sweep of every engine on CUDA tensors
-(`core.pagerank.update_ranks`).
+with `pr_update_sweep`, which reads and writes through the slot→vertex map
+in the same way (sentinel ids write nothing) and folds its L∞ partials
+together with the low side's max. This is the default sweep of every
+engine on CUDA tensors (`core.pagerank.update_ranks`).
 
 `pull_sum_kernels(dg, c)` is a drop-in `pull_sum_fn` for the engines of
 `core.pagerank` and `core.dynamic`: `ell_pull` over every bucket in one
@@ -29,8 +28,7 @@ import torch
 from .csr_block import csr_block_pull
 from .ell_bucket_pull import fused_ell_sweep
 from .ell_pull import ell_pull_buckets
-from .pr_update import pr_update
-from ..sentinel import take_fill
+from .pr_update import pr_update_sweep
 
 __all__ = ["update_ranks_kernel", "pull_sum_kernels"]
 
@@ -54,7 +52,7 @@ def update_ranks_kernel(dg, r: torch.Tensor, affected: torch.Tensor, *,
                         prune: bool, closed_form: bool, track_frontier: bool,
                         active=None):
     """Kernel-backed Alg. 3 body: the ELL low side in one pass over every
-    bucket, the high side in `csr_block_pull` + `pr_update`.
+    bucket, the high side in `csr_block_pull` + `pr_update_sweep`.
 
     Same contract as core.pagerank.update_ranks. Every vertex lives in
     exactly one bucket or one high slot (self-loops guarantee in-degree
@@ -69,44 +67,33 @@ def update_ranks_kernel(dg, r: torch.Tensor, affected: torch.Tensor, *,
     affected set.
     """
     n = r.shape[0]
-    dt = r.dtype
     c = r / dg.out_deg
     kw = dict(alpha=alpha, inv_n=1.0 / n, tau_f=tau_f, tau_p=tau_p,
               prune=prune, closed_form=closed_form)
 
-    # [n + 1] outputs: the high side's sentinel ids write into row n; over
-    # active lists the rows off the lists keep their rank and flag
-    r_new = torch.empty(n + 1, dtype=dt, device=r.device)
-    aff_new = torch.empty(n + 1, dtype=torch.bool, device=r.device)
+    # both halves write in place; over active lists the rows off the lists
+    # keep their rank and flag
+    flag = dict(dtype=torch.bool, device=r.device)
     if active is None:
-        dn = torch.empty(n + 1, dtype=torch.bool, device=r.device)
+        r_new = torch.empty_like(r)
+        aff_new = torch.empty(n, **flag)
+        dn = torch.empty(n, **flag)
     else:
-        r_new[:n].copy_(r)
-        aff_new[:n].copy_(affected)
-        dn = torch.zeros(n + 1, dtype=torch.bool, device=r.device)
+        r_new = r.clone()
+        aff_new = affected.to(torch.bool, copy=True)
+        dn = torch.zeros(n, **flag)
     dmax = fused_ell_sweep(
         c, dg.buckets, r, dg.out_deg, affected, r_new, aff_new, dn,
         bucket_sel=active.bucket_sel if active is not None else None, **kw)
-
     hi_sums = csr_block_pull(
         c, dg.hi_tiles, dg.hi_tmask, dg.hi_rowmap, dg.n_hi_cap,
         tile_sel=active.tile_sel if active is not None else None,
         slots=(dg.hi_slot_tiles, dg.hi_slot_off))
-    if active is not None:
-        # epilogue over the k_h active hi slots only, scattered back
-        # through their vertex ids (sentinel lanes dropped)
-        ids = take_fill(dg.hi_ids, active.hi_sel, n)
-        hi_sums = take_fill(hi_sums, active.hi_sel, 0.0)
-    else:
-        ids = dg.hi_ids
-    rh, ah, dh, ph = pr_update(
-        hi_sums, take_fill(r, ids, 1.0), take_fill(dg.out_deg, ids, 1).to(dt),
-        take_fill(affected, ids, False).to(dt), **kw)
-    r_new[ids] = rh
-    aff_new[ids] = ah > 0
-    dn[ids] = dh > 0
-    dmax = torch.maximum(dmax, ph)
+    dmax = pr_update_sweep(
+        hi_sums, dg.hi_ids, r, dg.out_deg, affected, r_new, aff_new, dn,
+        hi_sel=active.hi_sel if active is not None else None, prior=dmax,
+        **kw)
 
-    aff_out = aff_new[:n] if prune else affected
-    dn_out = dn[:n] if track_frontier else torch.zeros_like(affected)
-    return r_new[:n], aff_out, dn_out, dmax
+    aff_out = aff_new if prune else affected
+    dn_out = dn if track_frontier else torch.zeros_like(affected)
+    return r_new, aff_out, dn_out, dmax

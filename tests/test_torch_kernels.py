@@ -19,12 +19,14 @@ from repro.guard.health import H_NONFINITE as J_NONFINITE  # noqa: E402
 import repro_torch.core as tc  # noqa: E402
 from repro_torch.guard.health import H_NONFINITE  # noqa: E402
 from repro_torch.kernels import (_build, csr_block_pull, fused_ell_update,  # noqa: E402
-                                 pr_update, update_ranks_kernel)
+                                 pr_update, pr_update_sweep,
+                                 update_ranks_kernel)
 from repro_torch.kernels.ell_bucket_pull import fused_ell_sweep  # noqa: E402
 from repro_torch.kernels.ell_pull import (bucket_ints, ell_pull,  # noqa: E402
                                           ell_pull_buckets)
 from repro_torch.kernels.gather_plan import PLANS, GatherPlan  # noqa: E402
 from repro_torch.kernels.ref import linf_delta_ref, pr_update_ref  # noqa: E402
+from repro_torch.sentinel import take_fill  # noqa: E402
 
 D_P, TILE = 8, 32
 TOL = 1e-12
@@ -188,23 +190,27 @@ def test_update_ranks_kernel_matches_repro_and_oracle(layout, active):
 # fused_ell_sweep: the low side of update_ranks_kernel through the row maps
 # ---------------------------------------------------------------------------
 
-def _padded(g, **layout):
-    """`build_hybrid` with 5 unused slots (row id n) in every bucket."""
+def _padded(g, hi=0, **layout):
+    """`build_hybrid` with 5 unused slots (row id n) in every bucket, and
+    `hi` unused high slots (id n)."""
     caps = tc.hybrid_caps(tc.build_hybrid(g, **layout))
-    return dict(layout, bucket_caps=tuple(c + 5 for c in
-                                          caps["bucket_caps"]))
+    kw = dict(layout, bucket_caps=tuple(c + 5 for c in caps["bucket_caps"]))
+    if hi:
+        kw["n_hi_cap"] = caps["n_hi_cap"] + hi
+    return kw
 
 
 SWEEP_LAYOUTS = dict(LAYOUTS, padded=None)
 
 
-def _sweep_case(layout, active):
+def _sweep_case(layout, active, hi_pad=0):
     """The inputs of `test_update_ranks_kernel_matches_repro_and_oracle`,
-    plus the host layout; `padded` gives every bucket sentinel slots."""
+    plus the host layout; `padded` gives every bucket sentinel slots, and
+    the high side `hi_pad` of them."""
     g = tc.powerlaw_graph(250, 2000, seed=17)
     gj = jc.powerlaw_graph(250, 2000, seed=17)
     kw = (LAYOUTS[layout] if layout != "padded"
-          else _padded(g, d_p=D_P, tile=TILE))
+          else _padded(g, hi=hi_pad, d_p=D_P, tile=TILE))
     lay = tc.build_hybrid(g, **kw)
     dg_t = tc.to_device(lay, device="cpu")
     dg_j = jc.to_device(jc.build_hybrid(gj, **kw))
@@ -312,6 +318,172 @@ def test_fused_ell_sweep_keeps_a_nan_rank_of_an_unaffected_row():
 
 
 # ---------------------------------------------------------------------------
+# pr_update_sweep: the high side of update_ranks_kernel through the
+# slot->vertex map
+# ---------------------------------------------------------------------------
+
+HI_PAD = 5          # unused high slots (id n) of the `padded` layout
+
+
+def _hi_case(layout, active):
+    """`_sweep_case` with 5 unused high slots in the `padded` layout and,
+    when `active`, every other live high row flagged beside the 8% of
+    rows; adds the high side's per-slot sums (`csr_block_pull`, over the
+    active tiles when `active`) and its slot list."""
+    g, lay, dg_t, dg_j, r, dv, af_t, af_j = _sweep_case(layout, active,
+                                                        hi_pad=HI_PAD)
+    if active:
+        hi = lay.hi_ids[lay.hi_ids < g.n]
+        dv[hi[::2]] = True
+        est = int(dv.sum())
+        af_t = tc.active_frontier(dg_t.buckets, dg_t.hi_ids, dg_t.hi_rowmap,
+                                  _t(dv), tc.caps_for(dg_t, est))
+        af_j = jc.active_frontier(dg_j.buckets, dg_j.hi_ids, dg_j.hi_rowmap,
+                                  jnp.asarray(dv), jc.caps_for(dg_j, est))
+        assert not bool(af_t.overflow)
+    case = (g, lay, dg_t, dg_j, r, dv, af_t, af_j)
+    c = _t(r) / dg_t.out_deg
+    hi_sums = csr_block_pull(c, dg_t.hi_tiles, dg_t.hi_tmask, dg_t.hi_rowmap,
+                             dg_t.n_hi_cap,
+                             tile_sel=af_t.tile_sel if active else None)
+    return case + (hi_sums, af_t.hi_sel if active else None)
+
+
+def _live_hi_rows(lay, hi_sel, n):
+    """[n + 1] mask of the vertex ids of the live high slots (on the list
+    when there is one); id n is the unused slots' sentinel."""
+    slots = np.arange(lay.n_hi_cap)
+    if hi_sel is not None:
+        sel = hi_sel.numpy()
+        slots = sel[sel < lay.n_hi_cap]
+    live = np.zeros(n + 1, bool)
+    live[lay.hi_ids[slots]] = True
+    live[n] = False
+    return live
+
+
+def _hi_sweep(hi_sums, dg_t, r, dv, hi_sel, prior, fn=None):
+    """The high side into fresh marker outputs: (r_new, aff_new, dn,
+    dmax)."""
+    n = r.shape[0]
+    outs = _sweep_outputs(n)
+    dmax = (fn or pr_update_sweep)(
+        hi_sums, dg_t.hi_ids, _t(r), dg_t.out_deg, _t(dv), *outs,
+        hi_sel=hi_sel, prior=prior, inv_n=1.0 / n, **STEP)
+    return outs + (dmax,)
+
+
+def _per_slot_and_scatters(hi_sums, dg_t, r, dv, hi_sel, prior):
+    """The high side as `update_ranks_kernel` composed it before the
+    row-mapped entry: operands gathered per slot, the per-slot
+    `pr_update`, its outputs scattered through the slot->vertex map into
+    [n + 1] outputs (sentinel ids into row n), the max taken with the
+    low side's."""
+    n = r.shape[0]
+    ids = dg_t.hi_ids
+    if hi_sel is not None:
+        ids = take_fill(dg_t.hi_ids, hi_sel, n)
+        hi_sums = take_fill(hi_sums, hi_sel, 0.0)
+    rh, ah, dh, ph = pr_update(
+        hi_sums, take_fill(_t(r), ids, 1.0),
+        take_fill(dg_t.out_deg, ids, 1).to(torch.float64),
+        take_fill(_t(dv), ids, False).to(torch.float64), inv_n=1.0 / n,
+        **STEP)
+    r_new, aff_new, dn = _sweep_outputs(n)
+    r_new[ids] = rh
+    aff_new[ids] = ah > 0
+    dn[ids] = dh > 0
+    return r_new, aff_new, dn, torch.maximum(prior, ph)
+
+
+@pytest.mark.parametrize("active", [False, True])
+@pytest.mark.parametrize("layout", sorted(SWEEP_LAYOUTS))
+def test_pr_update_sweep_matches_repro_on_the_high_side(layout, active):
+    g, lay, dg_t, dg_j, r, dv, _, af_j, hi_sums, hi_sel = _hi_case(layout,
+                                                                  active)
+    n = g.n
+    want = jk.update_ranks_kernel(dg_j, jnp.asarray(r), jnp.asarray(dv),
+                                  active=af_j, track_frontier=True, **STEP)
+    r_new, aff_new, dn, dmax = _hi_sweep(hi_sums, dg_t, r, dv, hi_sel,
+                                         torch.zeros((), dtype=torch.float64))
+    assert dmax.dim() == 0
+    live = _live_hi_rows(lay, hi_sel, n)
+    if layout == "padded":
+        assert int((lay.hi_ids == n).sum()) >= HI_PAD
+    if layout == "d_p0":           # every vertex on the high side
+        assert live[:n].all() or active
+    if active:
+        assert bool((hi_sel == lay.n_hi_cap).any())     # dead lanes
+    assert live[:n].any()
+    lv = torch.from_numpy(live[:n])
+    got_r = r_new[:n][lv].numpy()
+    want_r = np.asarray(want[0])[live[:n]]
+    assert _linf(got_r, want_r) <= TOL
+    np.testing.assert_array_equal(aff_new[:n][lv].numpy(),
+                                  np.asarray(want[1])[live[:n]] > 0)
+    np.testing.assert_array_equal(dn[:n][lv].numpy(),
+                                  np.asarray(want[2])[live[:n]] > 0)
+    want_max = np.max(np.abs(want_r - r[live[:n]]), initial=0.0)
+    assert abs(float(dmax) - want_max) <= TOL
+
+
+@pytest.mark.parametrize("active", [False, True])
+@pytest.mark.parametrize("layout", sorted(SWEEP_LAYOUTS))
+def test_pr_update_sweep_equals_the_per_slot_entry_and_scatters(layout,
+                                                                active):
+    g, _, dg_t, _, r, dv, _, _, hi_sums, hi_sel = _hi_case(layout, active)
+    n = g.n
+    for prior in (0.0, 1.0):      # under and over the high side's max
+        prior = torch.tensor(prior, dtype=torch.float64)
+        got = _hi_sweep(hi_sums, dg_t, r, dv, hi_sel, prior)
+        want = _per_slot_and_scatters(hi_sums, dg_t, r, dv, hi_sel, prior)
+        for x, y in zip(got[:3], want[:3]):
+            assert torch.equal(x[:n], y[:n])
+        assert torch.equal(got[3], want[3])
+    assert float(got[3]) == 1.0
+
+
+@pytest.mark.parametrize("active", [False, True])
+def test_pr_update_sweep_writes_nothing_off_the_list(active):
+    """Low rows, unused high slots (id n), dead lanes of the list (slot id
+    n_hi_cap) and high rows off the list leave every output as it was,
+    the sink row n included."""
+    g, lay, dg_t, _, r, dv, _, _, hi_sums, hi_sel = _hi_case("padded",
+                                                            active)
+    n = g.n
+    r_new, aff_new, dn, _ = _hi_sweep(hi_sums, dg_t, r, dv, hi_sel, None)
+    off = torch.from_numpy(~_live_hi_rows(lay, hi_sel, n))
+    assert bool(off[n]) and bool((~off[:n]).any())
+    if active:                    # some high rows are off the list
+        assert bool(off[torch.from_numpy(lay.hi_ids[lay.hi_ids < n])].any())
+    assert bool((r_new[off] == -1.0).all())
+    assert bool(aff_new[off].all()) and bool(dn[off].all())
+    assert bool((r_new[~off] != -1.0).all())
+
+
+@pytest.mark.parametrize("where", ["rank", "prior"])
+def test_a_nan_reaches_the_sweeps_dmax_through_the_high_side(where):
+    g, lay, dg_t, _, r, dv, _, _, hi_sums, _ = _hi_case("bucketed", False)
+    n = g.n
+    prior = torch.tensor(0.0, dtype=torch.float64)
+    if where == "rank":
+        v = int(lay.hi_ids[0])
+        r[v] = np.nan
+        for flag in (False, True):    # affected or not: |NaN - NaN|
+            dv[v] = flag
+            got = _hi_sweep(hi_sums, dg_t, r, dv, None, prior)
+            assert torch.isnan(got[3]) and torch.isnan(got[0][v])
+        # ... and through the whole sweep
+        d = update_ranks_kernel(dg_t, _t(r), _t(dv), track_frontier=True,
+                                **STEP)[3]
+        assert torch.isnan(d)
+    else:
+        prior = torch.tensor(np.nan, dtype=torch.float64)
+        got = _hi_sweep(hi_sums, dg_t, r, dv, None, prior)
+        assert torch.isnan(got[3]) and not bool(got[0][:n].isnan().any())
+
+
+# ---------------------------------------------------------------------------
 # NaN wins every max
 # ---------------------------------------------------------------------------
 
@@ -378,6 +550,17 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         ell_pull_buckets(c, (blk,))
     with pytest.raises(ValueError, match="no kernel"):
         ell_pull(c, idx, mask)
+
+
+def test_pr_update_sweep_raises_where_it_has_no_kernel():
+    m = torch.device("meta")
+    v = torch.empty(10, dtype=torch.float64, device=m)
+    ids = torch.zeros(4, dtype=torch.int32, device=m)
+    deg = torch.ones(10, dtype=torch.int32, device=m)
+    flags = torch.zeros(10, dtype=torch.bool, device=m)
+    with pytest.raises(ValueError, match="no kernel"):
+        pr_update_sweep(v[:4], ids, v, deg, flags, v.clone(), flags.clone(),
+                        flags.clone(), inv_n=0.1, **STEP)
 
 
 def _off_by(dtype, shape, nbytes):

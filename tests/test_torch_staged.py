@@ -248,6 +248,41 @@ def test_linf_delta_keeps_nan(side):
                                         interpret=True)))
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 2, 3, 1001])
+def test_linf_delta_is_exact_at_short_lengths_and_on_offset_views(n,
+                                                                   offset):
+    """Short and odd lengths, and views one element (8 bytes) off the
+    start, where the kernel reads a scalar head and tail around its 16-byte
+    words."""
+    rng = np.random.default_rng(100 + n)
+    a, b = rng.random(n + 1), rng.random(n + 1)
+    ta, tb = _t(a)[offset:offset + n], _t(b)[offset:offset + n]
+    assert ta.storage_offset() == offset and ta.shape == (n,)
+    aw, bw = a[offset:offset + n], b[offset:offset + n]
+    got = linf_delta(ta, tb)
+    assert float(got) == float(np.max(np.abs(aw - bw)))
+    assert float(got) == float(jk.linf_delta(jnp.asarray(aw),
+                                             jnp.asarray(bw),
+                                             interpret=True))
+
+
+def test_linf_delta_is_exact_on_views_at_different_offsets():
+    """a one element off the start, b not: the kernel's 8-byte loop."""
+    rng = np.random.default_rng(31)
+    a, b = rng.random(2001), rng.random(2001)
+    got = linf_delta(_t(a)[1:], _t(b)[:2000])
+    assert float(got) == float(np.max(np.abs(a[1:] - b[:2000])))
+
+
+@pytest.mark.parametrize("at", [0, -1])
+def test_linf_delta_keeps_a_nan_at_the_head_or_tail_of_a_view(at):
+    rng = np.random.default_rng(32)
+    a, b = rng.random(1002), rng.random(1002)
+    a[1:1001][at] = np.nan      # the scalar head or tail on the card
+    assert torch.isnan(linf_delta(_t(a)[1:1001], _t(b)[1:1001]))
+
+
 def test_new_wrappers_raise_where_they_have_no_kernel():
     m = torch.device("meta")
     v = torch.empty(4, dtype=torch.float64, device=m)
