@@ -76,12 +76,30 @@ Phases (any failure exits non-zero; nothing is caught):
      locality probes, tables of the same shape with c read in order and
      from one line;
   8. the streaming path on the same graph: a StreamSession with
-     trace=True (DeviceSnapshot + static solve, launch counts start at 0
-     here; tau = 1e-11, see STREAM_PARAMS), three churn batches
+     trace=True and an SLO (DeviceSnapshot + static solve, launch counts
+     start at 0 here, the obs registry and flight recorder are reset; tau
+     = 1e-11, see STREAM_PARAMS; STREAM_SLO: a 1 us solve p99 judged from
+     the fifth solve, one batch captured), three churn batches
      (random_batch, frac, 80% inserts)
-     and two insert-only batches of about 1,000 uniform edges (scaled with
-     n; stream.mixed_workload); both engines must run and no batch may
-     rebuild. After every batch each device tensor of the snapshot equals
+     and three insert-only batches of about 1,000 uniform edges (scaled
+     with n; stream.mixed_workload); both engines must run and no batch may
+     rebuild. First the observability layer's host cost per call (spans
+     with and without their torch.profiler annotation, a counter, a flight
+     emit, the SLO's judgement, publish_fstats on a vector on the card):
+     the warm static solve's one span must cost <= 1% of that solve, and
+     each batch's calls (counted around its apply) <= 1% of its solve.
+     The fifth batch breaches the SLO and arms one torch.profiler capture,
+     which the sixth runs under: after it, slo.breach.solve_p99 >= 1, one
+     capture started and stopped, none unavailable, one chrome trace
+     holding the ranges session.solve, the engine's solve.* and
+     snapshot.device_refresh, with fused_ell_update, csr_block_pull and
+     pr_update kernels inside the first and scatter_rows inside the last
+     (no device event at all fails); the solve's device-busy share and
+     longest idle gaps are printed. The registry must agree with the
+     session's BatchStats (solve count and max, rows/tiles touched,
+     migrations, engines, no rebuild), kernels.stream_scatter.calls rise
+     on every batch, and a post-mortem bundle is written and rendered.
+     After every batch each device tensor of the snapshot equals
      its host mirror (the slot->tile table included), the batch's trace
      summary counts the batch's iterations and names its engine, the
      batch's solve repeated on the plain path from the same prior ranks
@@ -122,10 +140,13 @@ without one.
 from __future__ import annotations
 
 import argparse
+import glob
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -564,6 +585,182 @@ def scatter_tables(snap, touched):
 # plain path too: python -m repro_torch.stream).
 STREAM_PARAMS = dict(tau=1e-11, tau_f=1e-9, tau_p=1e-9)
 SCATTER_PER = 10    # scatter_rows_batch calls per back-to-back sample
+# Phase 8's SLO: every solve breaches a 1 us p99 budget, and the p99 is
+# judged from the fifth solve on, so the fifth batch arms one capture and
+# the sixth runs under it (the first five stay uncaptured)
+STREAM_SLO = dict(solve_p99_us=1.0, min_samples=5, capture_batches=1)
+# the CUDA kernels of each wrapper on the stream path, as a capture names
+# them (the folds' max_partials_kernel is shared, so it names none)
+KERNEL_SYMBOLS = {"fused_ell_update": ("fused_sweep_kernel",),
+                  "csr_block_pull": ("tile_sums_kernel", "slot_sums_kernel"),
+                  "pr_update": ("pr_update_kernel",),
+                  "scatter_rows": ("scatter_rows_kernel",)}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")   # chrome trace cats
+OBS_PASSES = 10000  # passes per timed observability call
+OBS_SHARE = 0.01    # the layer's host time against the solve it observes
+# spans opened with annotate=True (torch.profiler.record_function ranges)
+ANNOTATED = ("session.solve", "snapshot.device_refresh", "solve.")
+
+
+def obs_costs(dev, n_buckets: int) -> dict:
+    """The observability layer's host cost per call, in us: a span without
+    and with its profiler annotation, a counter increment, a flight emit
+    (OBS_PASSES each, on a registry and recorder of their own), the SLO's
+    judgement (one histogram add and a p99) and `publish_fstats` on an
+    fstats vector on the card (its one read back included)."""
+    from repro_torch.core.frontier import FS_NB, publish_fstats
+    from repro_torch.obs import FlightRecorder, Histogram, Registry
+
+    def per_call_us(fn, passes=OBS_PASSES):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            fn()
+        return (time.perf_counter() - t0) / passes * 1e6
+
+    reg, fl, h = Registry(), FlightRecorder(), Histogram()
+
+    def span():
+        with reg.span("cost.span"):
+            pass
+
+    def annotated():
+        with reg.span("cost.annotated", annotate=True):
+            pass
+
+    def judge():
+        h.add(0.5)
+        h.percentile(99)
+
+    fs = torch.zeros(FS_NB + n_buckets, dtype=torch.int32, device=dev)
+    return dict(
+        span_us=per_call_us(span), annotated_span_us=per_call_us(annotated),
+        inc_us=per_call_us(lambda: reg.inc("cost.inc")),
+        emit_us=per_call_us(lambda: fl.emit("cost.emit", seq=1, size=2)),
+        slo_judge_us=per_call_us(judge),
+        publish_fstats_us=per_call_us(lambda: publish_fstats(fs, reg),
+                                      passes=OBS_PASSES // 10))
+
+
+class ObsCalls:
+    """Counts the observability calls of one `apply`: spans (the
+    registry's own counts, annotated or not), flight emits (the
+    recorder's total), counter increments (the default registry's method
+    wrapped on the instance) and `publish_fstats` calls (wrapped where
+    `core.dynamic` calls it; its own increments are in its cost, not
+    counted again)."""
+
+    def __enter__(self):
+        import repro_torch.core.dynamic as dyn
+        from repro_torch.obs import get_flight, get_registry
+        self.reg, self.fl, self.dyn = get_registry(), get_flight(), dyn
+        self.n = dict(spans=0, annotated=0, incs=0, emits=0, publishes=0)
+        self._spans0, self._emits0 = self._span_counts(), self.fl.total
+        inc, pub = self.reg.inc, dyn.publish_fstats
+        inside = []
+
+        def c_inc(*a, **k):
+            self.n["incs"] += not inside
+            return inc(*a, **k)
+
+        def c_pub(*a, **k):
+            self.n["publishes"] += 1
+            inside.append(1)
+            try:
+                return pub(*a, **k)
+            finally:
+                inside.pop()
+
+        self.reg.inc, dyn.publish_fstats = c_inc, c_pub
+        self._pub = pub
+        return self
+
+    def _span_counts(self):
+        return {k: v["count"] for k, v in self.reg.report()["spans"].items()}
+
+    def __exit__(self, *exc):
+        del self.reg.inc
+        self.dyn.publish_fstats = self._pub
+        self.n["emits"] = self.fl.total - self._emits0
+        for k, v in self._span_counts().items():
+            d = v - self._spans0.get(k, 0)
+            self.n["annotated" if k.startswith(ANNOTATED) else "spans"] += d
+        return False
+
+    def host_us(self, cost: dict) -> float:
+        """This apply's observability host time, from the per-call costs;
+        one SLO judgement a batch."""
+        n = self.n
+        return (n["spans"] * cost["span_us"]
+                + n["annotated"] * cost["annotated_span_us"]
+                + n["incs"] * cost["inc_us"] + n["emits"] * cost["emit_us"]
+                + n["publishes"] * cost["publish_fstats_us"]
+                + cost["slo_judge_us"])
+
+
+def read_capture(path: str, engine_span: str) -> dict:
+    """What a phase-8 capture holds: the host ranges `session.solve`,
+    `engine_span` and `snapshot.device_refresh`, the CUDA kernels of
+    KERNEL_SYMBOLS inside them (the sweep's three in the solve, the
+    scatter in the refresh), and the solve's device-busy share: the union
+    of device kernel, copy and set intervals over the `session.solve`
+    window, with the longest idle gaps and the device time by kernel name.
+    Fails on a capture with no device event."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            ranges.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    device = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") in DEVICE_CATS)
+    require(bool(device), "the capture holds no device event")
+    for name in ("session.solve", engine_span, "snapshot.device_refresh"):
+        require(len(ranges.get(name, ())) == 1,
+                f"the capture holds {len(ranges.get(name, ()))} "
+                f"'{name}' ranges")
+    (solve,), (refresh,) = ranges["session.solve"], ranges[
+        "snapshot.device_refresh"]
+
+    def inside(window, symbols):
+        return [d for d in device if window[0] <= d[0] and d[1] <= window[1]
+                and any(s in d[2] for s in symbols)]
+
+    found = {}
+    for name, window in (("fused_ell_update", solve),
+                         ("csr_block_pull", solve), ("pr_update", solve),
+                         ("scatter_rows", refresh)):
+        found[name] = len(inside(window, KERNEL_SYMBOLS[name]))
+        require(found[name] > 0, f"the capture has no {name} kernel inside "
+                f"its {'solve' if window is solve else 'refresh'} range")
+    busy, gaps, at = 0.0, [], solve[0]
+    for a, b, _ in device:
+        a, b = max(a, solve[0]), min(b, solve[1])
+        if b <= a or b <= at:
+            continue
+        if a > at:
+            gaps.append((a - at, at - solve[0]))
+        busy += b - max(a, at)
+        at = b
+    if solve[1] > at:
+        gaps.append((solve[1] - at, at - solve[0]))
+    span_us = solve[1] - solve[0]
+    gaps.sort(reverse=True)
+    by_name = {}
+    for a, b, name in inside(solve, ("",)):
+        t = by_name.setdefault(name[:90], [0, 0.0])
+        t[0] += 1
+        t[1] += b - a
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return dict(kernels_inside=found, solve_us=span_us, busy_us=busy,
+                busy_share=busy / span_us, idle_gaps=len(gaps),
+                longest_gaps_us=[dict(us=g, at_us=t) for g, t in gaps[:5]],
+                device_events=sum(solve[0] <= d[0] and d[1] <= solve[1]
+                                  for d in device),
+                device_us_by_name=[dict(name=k, count=c, us=u)
+                                   for k, (c, u) in top])
 
 
 def stream_phase(args, g, dev, report, wrappers, errs):
@@ -577,11 +774,18 @@ def stream_phase(args, g, dev, report, wrappers, errs):
     from repro_torch.kernels.stream_scatter import (
         ell_scatter_rows, ell_scatter_rows_plain, scatter_rows,
         scatter_rows_batch, scatter_rows_batch_plain, scatter_rows_plain)
+    from repro_torch.obs import (SLOConfig, get_registry, reset_flight,
+                                 reset_registry)
     from repro_torch.stream import (DeviceSnapshot, StreamSession,
                                     frontier_estimate, ingest,
                                     mixed_workload)
     n = g.n
     out = {"launches": {w.__name__: 0 for w in wrappers}}
+    # the registry and the flight recorder hold phase 8 alone
+    reset_registry()
+    reset_flight()
+    reg = get_registry()
+    capture_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_capture_")
 
     def driven(fn, *a, **k):
         """One piece of the session path, with every launch count set to 0
@@ -601,7 +805,8 @@ def stream_phase(args, g, dev, report, wrappers, errs):
     t0 = time.perf_counter()
     sess = driven(StreamSession, g, d_p=args.d_p, tile=args.tile,
                   snapshot=snap, params=PRParams(**STREAM_PARAMS),
-                  trace=True)
+                  trace=True, slo=SLOConfig(**STREAM_SLO,
+                                            capture_dir=capture_dir.name))
     torch.cuda.synchronize()
     t_static = time.perf_counter() - t0
     snap_bytes = sum(t.numel() * t.element_size()
@@ -617,21 +822,51 @@ def stream_phase(args, g, dev, report, wrappers, errs):
         f"{snap_bytes / 2**30:.3f} GiB on the card; caps {rep['caps']}; "
         f"static solve {sess._init_iters} iters {t_static * 1e3:.1f} ms")
 
-    # -- 8.2 five batches through the session --------------------------------
+    # the observability layer's cost per call, and the warm static solve's
+    # one annotated span against that solve
+    cost = obs_costs(dev, len(snap.dg.buckets))
+    rep["obs_cost_us"] = cost
+    log("[obs] host us per call (" + ", ".join(
+        f"{k} {v:.3f}" for k, v in cost.items()) + f"; {OBS_PASSES} passes, "
+        f"publish_fstats {OBS_PASSES // 10} on the card's vector)")
+    warm_ms = report["static"]["warm_ms"]
+    rep["static_span_share"] = cost["annotated_span_us"] * 1e-3 / warm_ms
+    log(f"[obs] the warm fused static solve's span: "
+        f"{rep['static_span_share']:.2e} of its {warm_ms:.1f} ms")
+    require(rep["static_span_share"] <= OBS_SHARE,
+            f"the static solve's span costs {rep['static_span_share']} of it")
+
+    # -- 8.2 six batches through the session ---------------------------------
+    # three churn and three insert-only batches; the fifth breaches the SLO
+    # and arms the capture the sixth runs under
     rng = np.random.default_rng(args.seed + 2)
     c = torch.from_numpy(rng.random(n) / n).to(dev)
     first = None
     for k, (kind, b) in enumerate(
-            mixed_workload(g, args.frac, seed=args.seed + 200), 1):
+            mixed_workload(g, args.frac, n_insert=3, seed=args.seed + 200),
+            1):
         r_prev = sess.ranks
-        driven(sess.apply, b)
+        calls0 = reg.counter("kernels.stream_scatter.calls")
+        with ObsCalls() as obs_calls:
+            driven(sess.apply, b)
         st = sess.history[-1]
+        require(reg.counter("kernels.stream_scatter.calls") > calls0,
+                f"stream batch {k}: kernels.stream_scatter.calls did not "
+                f"rise")
+        obs_us = obs_calls.host_us(cost)
+        log(f"[obs {k}] {obs_calls.n}: {obs_us:.1f} us of host time, "
+            f"{obs_us * 1e-6 / st.solve_s:.2e} of the solve"
+            + (", captured" if k == 6 else ""))
+        require(obs_us * 1e-6 <= OBS_SHARE * st.solve_s,
+                f"stream batch {k}: the observability layer's {obs_us} us "
+                f"pass {OBS_SHARE} of the solve")
         delta = ingest(b, n)
         est = frontier_estimate(delta, snap._outdeg)
         if first is None:
             first = {"pull": dict(snap._pull.last_scatter),
                      "fwd": dict(snap._fwd.last_scatter)}
         row = dict(batch=k, kind=kind, size=st.batch_size, engine=st.engine,
+                   obs_calls=obs_calls.n, obs_host_us=obs_us,
                    estimate=est, iters=st.iters, ingest_s=st.ingest_s,
                    host_s=st.snapshot.host_s, device_s=st.snapshot.device_s,
                    solve_s=st.solve_s, net_ins=st.snapshot.net_ins,
@@ -713,6 +948,8 @@ def stream_phase(args, g, dev, report, wrappers, errs):
         rep["batches"].append(row)
     engines = {r["engine"] for r in rep["batches"]}
     require(engines == {"dense", "compact"}, f"stream engines {engines}")
+    rep["obs"] = obs_phase(sess, reg, capture_dir.name)
+    capture_dir.cleanup()
     log(f"[launches] stream path: {out['launches']}")
     for name, cnt in out["launches"].items():
         require(cnt > 0, f"{name} never launched on the stream path")
@@ -841,8 +1078,86 @@ def stream_phase(args, g, dev, report, wrappers, errs):
         bound=bound(nbytes, 0.0), tables=len(timed),
         rows=sum(t[5] for t in timed), bytes=nbytes)
     rep["scatter_rows"] = {k: v for k, v in out["scatter"].items()}
+    counters = reg.report()["counters"]
+    rep["obs"]["counters"] = counters
+    log(f"[obs] the registry's counters after phase 8: {counters}")
     report["stream"] = rep
     return out
+
+
+def obs_phase(sess, reg, capture_dir: str) -> dict:
+    """Phase 8's observability checks after its six batches: the registry
+    agrees with the session's own accounting (`BatchStats`), the SLO
+    breach started exactly one capture and its chrome trace holds the
+    session's ranges with the stream path's kernels inside, and a
+    post-mortem bundle is written and rendered."""
+    from repro_torch.obs import write_bundle
+    from repro_torch.obs.postmortem import render
+    hist = sess.history
+    solve = [h.solve_s for h in hist]
+    cn = reg.report()["counters"]
+    sh = reg.span_hist("session.solve")
+    pct = sess.solve_percentiles()
+    require(sh.count == len(hist) == pct["count"],
+            f"session.solve counts {sh.count} / {pct['count']} for "
+            f"{len(hist)} batches")
+    # the session's histogram holds solve_s itself; the span encloses
+    # solve_s's two clock reads and nothing more
+    require(pct["max_s"] == max(solve) and
+            0.0 <= sh.max - max(solve) <= 1e-4,
+            f"solve max: histogram {pct['max_s']}, span {sh.max}, "
+            f"BatchStats {max(solve)}")
+    for name in ("rows_touched", "tiles_touched", "migrations"):
+        want = sum(getattr(h.snapshot, name) for h in hist)
+        require(cn.get(f"snapshot.{name}", 0) == want,
+                f"snapshot.{name} {cn.get(f'snapshot.{name}')} vs "
+                f"BatchStats {want}")
+    require(cn.get("session.engine.dense", 0)
+            + cn.get("session.engine.compact", 0) == len(hist),
+            "session.engine.* do not count the batches")
+    require(cn.get("snapshot.rebuilds", 0) == 0, "the registry counts a "
+            "rebuild")
+    require(cn.get("slo.breach.solve_p99", 0) >= 1
+            and cn.get("slo.capture.start", 0) == 1
+            and cn.get("slo.capture.stop", 0) == 1
+            and cn.get("slo.capture.unavailable", 0) == 0,
+            f"SLO counters {({k: v for k, v in cn.items() if 'slo' in k})}")
+    require(not torch.autograd._profiler_enabled(),
+            "a profiler is still live after the capture")
+    traces = sorted(glob.glob(os.path.join(capture_dir, "trace-*.json")))
+    require(len(traces) == 1, f"{len(traces)} chrome traces in the capture "
+            f"directory")
+    engine = {"dense": "solve.dfp", "compact": "solve.dfp_compact"}[
+        hist[-1].engine]
+    cap = read_capture(traces[0], engine)
+    cap.update(trace_mb=os.path.getsize(traces[0]) / 2**20, engine=engine,
+               solve_s=hist[-1].solve_s)
+    log(f"[capture] batch {len(hist)} ({hist[-1].engine}, "
+        f"{hist[-1].iters} iters): session.solve {cap['solve_us']:.0f} us, "
+        f"device busy {cap['busy_us']:.0f} us = {cap['busy_share']:.4f} of "
+        f"it over {cap['device_events']} device events; "
+        f"{cap['idle_gaps']} idle gaps, the longest (us, at us) "
+        + ", ".join(f"{g['us']:.1f} at {g['at_us']:.0f}"
+                    for g in cap["longest_gaps_us"])
+        + f"; kernels inside {cap['kernels_inside']}; trace "
+        f"{cap['trace_mb']:.1f} MB")
+    for t in cap["device_us_by_name"]:
+        log(f"[capture] device time in the solve: {t['us']:10.1f} us "
+            f"{t['count']:5d}x {t['name']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bundle_") as d:
+        path = write_bundle(d, reason="chip_smoke", trace=hist[-1].trace,
+                            extra={"batches": len(hist)})
+        require(path is not None, "write_bundle returned no path")
+        buf = io.StringIO()
+        render(path, out=buf)
+        text = buf.getvalue()
+        require(f"post-mortem bundle: {path}" in text
+                and "reason   chip_smoke" in text
+                and "session.solve" in text,
+                "postmortem.render did not print the bundle")
+        log("[bundle] " + " | ".join(text.splitlines()[:6]))
+    return dict(capture=cap, solve_percentiles=pct,
+                session_solve_span=dict(count=sh.count, max_s=sh.max))
 
 # Phase 9's configuration: the LM served at full width and depth.
 LM_ARCH = "qwen2-1.5b"

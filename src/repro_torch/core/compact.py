@@ -32,6 +32,7 @@ from .graph import Graph, build_hybrid
 from .pagerank import (DeviceGraph, PRParams, as_device_graph, as_ranks,
                        resolve_device, staged_forward, to_device)
 from ..guard.health import rank_mass
+from ..obs.spans import get_registry
 from ..obs.trace import trace_record
 
 __all__ = ["forward_device_graph", "dfp_pagerank_compact",
@@ -162,10 +163,13 @@ def dfp_pagerank_compact(dg, fwd=None, r_prev=None,
                          health: bool = False, trace: bool = False):
     """Compacted DF-P (pruning, closed form Eq. 2). Returns (r, iters)
     [, obs.trace.TraceBuffer][, health word]. `kernels` picks the sweep as
-    in `core.dynamic`."""
-    dg, fwd = _stage_pair(dg, fwd)
-    return _df_like_compact(dg, fwd, r_prev, batch, params, prune=True,
-                            kernels=kernels, trace=trace, health=health)
+    in `core.dynamic`; the solve runs under the annotated span
+    ``solve.dfp_compact`` (``solve.df_compact`` for `df_pagerank_compact`)."""
+    with get_registry().span("solve.dfp_compact", annotate=True):
+        dg, fwd = _stage_pair(dg, fwd)
+        return _df_like_compact(dg, fwd, r_prev, batch, params,
+                                prune=True, kernels=kernels, trace=trace,
+                                health=health)
 
 
 def df_pagerank_compact(dg, fwd=None, r_prev=None,
@@ -174,6 +178,8 @@ def df_pagerank_compact(dg, fwd=None, r_prev=None,
                         kernels: Optional[bool] = None,
                         health: bool = False, trace: bool = False):
     """Compacted DF (no pruning, Eq. 1). See `dfp_pagerank_compact`."""
-    dg, fwd = _stage_pair(dg, fwd)
-    return _df_like_compact(dg, fwd, r_prev, batch, params, prune=False,
-                            kernels=kernels, trace=trace, health=health)
+    with get_registry().span("solve.df_compact", annotate=True):
+        dg, fwd = _stage_pair(dg, fwd)
+        return _df_like_compact(dg, fwd, r_prev, batch, params,
+                                prune=False, kernels=kernels, trace=trace,
+                                health=health)

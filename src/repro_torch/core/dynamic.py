@@ -22,6 +22,7 @@ from .frontier import (FS_ACTIVE_ROWS, FS_ACTIVE_TILES, FS_COMPACT,
 from .pagerank import (DeviceGraph, PRParams, as_device_graph, as_ranks,
                        resolve_device, staged_forward, update_ranks)
 from ..guard.health import MASS_TOL, health_word, rank_mass
+from ..obs.spans import get_registry
 from ..obs.trace import trace_init, trace_record
 
 __all__ = ["DeviceBatch", "batch_to_device", "solve_health", "nd_pagerank",
@@ -203,14 +204,20 @@ def nd_pagerank(dg, r_prev, params: PRParams = PRParams(),
     an `obs.trace.TraceBuffer` (identical ranks and iterations to the
     untraced call); ``health=True`` appends the solve's guard.health word
     (0-d int32) after it.
+
+    Every driver runs under an annotated ``solve.<engine>`` span (JAX's
+    names): on a live ``torch.profiler`` capture its kernels fall inside
+    that range, and the span ends after the loop's last read, so it times
+    the device's work.
     """
-    dg = as_device_graph(dg)
-    r = as_ranks(r_prev, dg.device)
-    on = torch.ones(dg.n, dtype=torch.bool, device=dg.device)
-    return _loop(dg, r, on, torch.zeros_like(on), params, expand=False,
-                 prune=False, closed_form=False, kernels=kernels,
-                 pull_sum_fn=pull_sum_fn, tb=_trace(params, r, "nd", trace),
-                 health=health)
+    with get_registry().span("solve.nd", annotate=True):
+        dg = as_device_graph(dg)
+        r = as_ranks(r_prev, dg.device)
+        on = torch.ones(dg.n, dtype=torch.bool, device=dg.device)
+        return _loop(dg, r, on, torch.zeros_like(on), params, expand=False,
+                     prune=False, closed_form=False, kernels=kernels,
+                     pull_sum_fn=pull_sum_fn,
+                     tb=_trace(params, r, "nd", trace), health=health)
 
 
 def dt_pagerank(dg, dg_prev, r_prev, batch: DeviceBatch,
@@ -219,15 +226,16 @@ def dt_pagerank(dg, dg_prev, r_prev, batch: DeviceBatch,
                 pull_sum_fn=None, trace: bool = False):
     """Dynamic Traversal (Desikan et al.): mark everything reachable from the
     updated vertices in G^{t-1} ∪ G^t, then iterate on that frozen set."""
-    dg, dg_prev = as_device_graph(dg), as_device_graph(dg_prev)
-    r = as_ranks(r_prev, dg.device)
-    seeds = _mark(dg.n, batch.del_src, batch.del_dst, batch.ins_src,
-                  batch.ins_dst)
-    affected = reach_affected(dg, seeds) | reach_affected(dg_prev, seeds)
-    return _loop(dg, r, affected, torch.zeros_like(seeds), params,
-                 expand=False, prune=False, closed_form=False,
-                 kernels=kernels, pull_sum_fn=pull_sum_fn,
-                 tb=_trace(params, r, "dt", trace), health=health)
+    with get_registry().span("solve.dt", annotate=True):
+        dg, dg_prev = as_device_graph(dg), as_device_graph(dg_prev)
+        r = as_ranks(r_prev, dg.device)
+        seeds = _mark(dg.n, batch.del_src, batch.del_dst, batch.ins_src,
+                      batch.ins_dst)
+        affected = reach_affected(dg, seeds) | reach_affected(dg_prev, seeds)
+        return _loop(dg, r, affected, torch.zeros_like(seeds), params,
+                     expand=False, prune=False, closed_form=False,
+                     kernels=kernels, pull_sum_fn=pull_sum_fn,
+                     tb=_trace(params, r, "dt", trace), health=health)
 
 
 def _df_like(dg: DeviceGraph, r_prev, batch: DeviceBatch, params: PRParams,
@@ -237,6 +245,8 @@ def _df_like(dg: DeviceGraph, r_prev, batch: DeviceBatch, params: PRParams,
     dv, dn = initial_affected(n, batch.del_src, batch.del_dst, batch.ins_src)
     fs0 = None
     if caps is not None:
+        # the JAX package counts `frontier.retrace` here, once per jit
+        # trace; without jit the port has no counterpart
         fs0 = fstats_init(len(dg.buckets), dg.device)
     if caps is not None and fwd is not None:
         # paper line 9: initial expansion, via the compacted out-edge walk
@@ -286,9 +296,10 @@ def df_pagerank(dg, r_prev, batch: DeviceBatch,
     full sweep only on capacity overflow; the same results either way.
     `pull_sum_fn`, `trace` and `health` as in `nd_pagerank`."""
     fwdd, caps = _resolve_frontier(dg, fwd, frontier_caps)
-    out = _df_like(as_device_graph(dg), r_prev, batch, params, prune=False,
-                   kernels=kernels, pull_sum_fn=pull_sum_fn, trace=trace,
-                   fwd=fwdd, caps=caps, health=health)
+    with get_registry().span("solve.df", annotate=True):
+        out = _df_like(as_device_graph(dg), r_prev, batch, params,
+                       prune=False, kernels=kernels, pull_sum_fn=pull_sum_fn,
+                       trace=trace, fwd=fwdd, caps=caps, health=health)
     return _publish(out, caps)
 
 
@@ -301,7 +312,8 @@ def dfp_pagerank(dg, r_prev, batch: DeviceBatch,
 
     See `df_pagerank` for the `frontier_caps` compacted path."""
     fwdd, caps = _resolve_frontier(dg, fwd, frontier_caps)
-    out = _df_like(as_device_graph(dg), r_prev, batch, params, prune=True,
-                   kernels=kernels, pull_sum_fn=pull_sum_fn, trace=trace,
-                   fwd=fwdd, caps=caps, health=health)
+    with get_registry().span("solve.dfp", annotate=True):
+        out = _df_like(as_device_graph(dg), r_prev, batch, params,
+                       prune=True, kernels=kernels, pull_sum_fn=pull_sum_fn,
+                       trace=trace, fwd=fwdd, caps=caps, health=health)
     return _publish(out, caps)

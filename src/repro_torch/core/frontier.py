@@ -37,6 +37,7 @@ from .graph import next_pow2
 from ..device import resolve_device
 from .pagerank import DeviceGraph, gather_rows, pull_max, use_kernels
 from .rank_step import rank_step
+from ..obs.spans import get_registry
 from ..sentinel import take_fill, with_sink
 
 __all__ = [
@@ -341,9 +342,17 @@ def fstats_init(n_buckets: int, device=None) -> torch.Tensor:
                        device=resolve_device(device))
 
 
-def publish_fstats(fs, registry=None) -> None:
-    """Fold a loop's fstats vector into the host counter registry.
+_FS_NAMES = ("iters", "compact_iters", "compaction_overflows",
+             "active_rows", "active_tiles", "push_expands", "pull_expands",
+             "expansion_work")
 
-    The port has no counter registry yet (it comes with the obs slice), so
-    this publishes nothing; the engines still return the vector."""
-    del fs, registry
+
+def publish_fstats(fs, registry=None) -> None:
+    """Fold a loop's fstats vector into the host registry (`frontier.*`
+    and `frontier.active_rows.b{b}`), reading it from the device once."""
+    reg = registry if registry is not None else get_registry()
+    vals = fs.cpu().tolist()
+    for name, v in zip(_FS_NAMES, vals):
+        reg.inc(f"frontier.{name}", v)
+    for b, v in enumerate(vals[FS_NB:]):
+        reg.inc(f"frontier.active_rows.b{b}", v)

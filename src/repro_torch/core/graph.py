@@ -515,11 +515,13 @@ def build_hybrid_rows(offsets: np.ndarray, data: np.ndarray,
     hi_ids[:n_hi] = hi
     slot_of[hi] = np.arange(n_hi, dtype=np.int32)
 
-    return HybridRows(d_p=d_p, tile=tile, widths=widths,
-                      buckets=tuple(buckets), bucket_of=bucket_of,
-                      slot_of=slot_of, hi_ids=hi_ids, hi_tiles=hi_tiles,
-                      hi_tmask=hi_tmask, hi_rowmap=hi_rowmap, is_low=is_low,
-                      row_deg=deg)
+    hr = HybridRows(d_p=d_p, tile=tile, widths=widths,
+                    buckets=tuple(buckets), bucket_of=bucket_of,
+                    slot_of=slot_of, hi_ids=hi_ids, hi_tiles=hi_tiles,
+                    hi_tmask=hi_tmask, hi_rowmap=hi_rowmap, is_low=is_low,
+                    row_deg=deg)
+    _count_layout(hr)
+    return hr
 
 
 def build_hybrid(g: Graph, d_p: int = 64, tile: int = 1024,
@@ -574,6 +576,21 @@ def layout_slot_stats(lay) -> dict:
                + int(lay.hi_tmask.sum()))
     return dict(real_edges=real, ell_slots=ell_slots, hi_slots=hi_slots,
                 gathered_slots=ell_slots + hi_slots)
+
+
+def _count_layout(hr: HybridRows) -> None:
+    """Record padded-edge-efficiency counters (`layout.*`) for each layout
+    build. The registry is imported here, not at the top: this module is
+    numpy only."""
+    from ..obs.spans import get_registry
+
+    st = layout_slot_stats(hr)
+    reg = get_registry()
+    reg.inc("layout.builds")
+    reg.inc("layout.real_edges", st["real_edges"])
+    reg.inc("layout.ell_slots", st["ell_slots"])
+    reg.inc("layout.hi_slots", st["hi_slots"])
+    reg.inc("layout.gathered_slots", st["gathered_slots"])
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from .graph import Graph, build_hybrid
 from .rank_step import rank_step
 from ..device import resolve_device
 from ..guard.health import rank_mass
+from ..obs.spans import get_registry
 from ..obs.trace import trace_init, trace_record
 
 __all__ = [
@@ -262,7 +263,17 @@ def static_pagerank(dg, r0, params: PRParams = PRParams(),
     with ``health=True`` the solve's guard.health word (0-d int32 tensor)
     comes last. `r0` may be a numpy array or a tensor; it is moved to the
     graph's device. `dg` may be a DeviceGraph, a layout or a Graph.
-    `kernels` and `pull_sum_fn` pick the sweep (`update_ranks`)."""
+    `kernels` and `pull_sum_fn` pick the sweep (`update_ranks`).
+
+    The solve runs under the annotated span ``solve.static``: on a live
+    ``torch.profiler`` capture its kernels fall inside that range, and the
+    span ends after the loop's last read, so it times the device's work."""
+    with get_registry().span("solve.static", annotate=True):
+        return _static_pagerank(dg, r0, params, kernels, health,
+                                pull_sum_fn, trace)
+
+
+def _static_pagerank(dg, r0, params, kernels, health, pull_sum_fn, trace):
     dg = as_device_graph(dg)
     r = as_ranks(r0, dg.device)
     n = dg.n

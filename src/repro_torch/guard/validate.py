@@ -16,9 +16,11 @@ error anywhere. This module puts a strict gate in front of the keying:
         returned in a ``QuarantineReport`` for inspection — the stream
         keeps flowing on the clean remainder.
 
-A copy of the JAX package's `repro.guard.validate`, without its
-``guard.quarantined*`` counters (the port has no counter registry yet).
-The checks are O(|Δ|) vectorized numpy on the host side of ingest.
+Every quarantining call counts ``guard.quarantined`` (pairs dropped) and
+``guard.quarantined_batches`` in the `obs` registry.
+
+A copy of the JAX package's `repro.guard.validate`. The checks are O(|Δ|)
+vectorized numpy on the host side of ingest.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Tuple
 import numpy as np
 
 from ..core.graph import BatchUpdate
+from ..obs.spans import get_registry as _obs
 
 __all__ = ["ValidationError", "QuarantineReport", "validate_batch",
            "POLICIES"]
@@ -114,6 +117,9 @@ def validate_batch(batch: BatchUpdate, n: int, policy: str = "raise"
         del_dst=d_d[d_bad].astype(np.int32, copy=False),
         ins_src=i_s[i_bad].astype(np.int32, copy=False),
         ins_dst=i_d[i_bad].astype(np.int32, copy=False))
+    obs = _obs()
+    obs.inc("guard.quarantined", n_bad)
+    obs.inc("guard.quarantined_batches")
     clean = BatchUpdate(del_src=d_s[~d_bad], del_dst=d_d[~d_bad],
                         ins_src=i_s[~i_bad], ins_dst=i_d[~i_bad])
     return clean, report

@@ -18,6 +18,13 @@ On a CUDA tensor each wrapper launches the kernel in
 on any other device it raises. Duplicate row ids are allowed only when
 they carry identical contents. A row id outside ``[0, R)`` raises in the
 plain version and writes nothing in the kernel.
+
+Every call counts, on either device, ``kernels.stream_scatter.calls``
+(one per table it writes; an (index, mask) pair is one table) and
+``kernels.stream_scatter.rows`` (the rows given) in the `obs` registry.
+The names are the JAX package's, the meaning is not: there the counters
+run while `jit` traces, once per build, with the rows padded to a power
+of two, so they say nothing about a batch the cached build scatters.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..obs.spans import get_registry
 
 __all__ = ["scatter_rows", "ell_scatter_rows", "scatter_rows_batch",
            "scatter_rows_plain", "ell_scatter_rows_plain",
@@ -60,6 +68,7 @@ def scatter_rows(dst: torch.Tensor, rows: torch.Tensor,
 
     dst: [R, d] int32 or float32; rows: [K] int32; new_rows: [K, d] of
     dst's dtype, all contiguous on one device."""
+    _count(((dst, None, rows, new_rows, None),))
     if dst.device.type == "cpu":
         return scatter_rows_plain(dst, rows, new_rows)
     _launch([(dst, None, rows, new_rows, None)])
@@ -72,6 +81,7 @@ def ell_scatter_rows(idx: torch.Tensor, mask: torch.Tensor,
     """Scatter edited (index, mask) row pairs of one layout table in place,
     in one launch: idx [R, d] int32, mask [R, d] float32. Returns
     (idx, mask)."""
+    _count(((idx, mask, rows, new_idx, new_mask),))
     if idx.device.type == "cpu":
         return ell_scatter_rows_plain(idx, mask, rows, new_idx, new_mask)
     if idx.dtype != torch.int32 or mask.dtype != torch.float32:
@@ -91,10 +101,17 @@ def scatter_rows_batch(tables) -> None:
     device. Tables may differ in R, d, K and dtype."""
     if not tables:
         return
+    _count(tables)
     if tables[0][0].device.type == "cpu":
         scatter_rows_batch_plain(tables)
         return
     _launch(tables)
+
+
+def _count(tables) -> None:
+    reg = get_registry()
+    reg.inc("kernels.stream_scatter.calls", len(tables))
+    reg.inc("kernels.stream_scatter.rows", sum(t[2].shape[0] for t in tables))
 
 
 def _launch(tables):

@@ -48,7 +48,16 @@ array-equal to the JAX snapshot's after the same deltas. What differs:
     from the mirror whenever a tile is allocated or freed.
   * The edited-row lists are not padded to a power of two (there is no
     `jit` to keep shapes few).
-  * No spans or counters yet (they come with the port's obs slice).
+
+Every `apply` feeds the `obs` registry with the JAX package's names: spans
+``snapshot.apply_net_delta``, ``snapshot.host_edit``, ``snapshot.rebuild``
+and ``snapshot.device_refresh`` (annotated, so the refresh's
+``scatter_rows`` launch falls inside that range of a ``torch.profiler``
+capture; it ends in a synchronize, so it times the device), counters
+``snapshot.rebuilds``, ``snapshot.rebuild.<reason>``,
+``snapshot.inplace_batches``, ``snapshot.rows_touched``,
+``snapshot.tiles_touched``, ``snapshot.migrations``, and the flight event
+``snapshot.rebuild``.
 """
 from __future__ import annotations
 
@@ -65,6 +74,8 @@ from ..core.graph import (Graph, bucket_band_counts, build_hybrid,
 from ..core.pagerank import (DeviceGraph, EllBlock, resolve_device,
                              slot_tile_table)
 from ..kernels.stream_scatter import scatter_rows_batch
+from ..obs.flight import get_flight
+from ..obs.spans import get_registry as _obs
 from .delta import Delta
 
 __all__ = ["CapacityError", "DeviceSnapshot", "SnapshotStats",
@@ -758,10 +769,12 @@ class DeviceSnapshot:
 
         `host_s` times the key-set update and the mirror edits, `device_s`
         the device scatters, ending in a synchronize on CUDA."""
+        obs = _obs()
         t0 = time.perf_counter()
         stats = SnapshotStats()
-        self._keys, (d_s, d_d), (i_s, i_d) = apply_net_delta(
-            self._keys, self.n, delta, self._indeg, self._outdeg)
+        with obs.span("snapshot.apply_net_delta"):
+            self._keys, (d_s, d_d), (i_s, i_d) = apply_net_delta(
+                self._keys, self.n, delta, self._indeg, self._outdeg)
         stats.net_del, stats.net_ins = int(d_s.size), int(i_s.size)
 
         reason = rebuild_reason(delta.size, self.m, self.fragmentation(),
@@ -769,18 +782,23 @@ class DeviceSnapshot:
         if reason is None:
             mig0 = self._pull.migrations + self._fwd.migrations
             try:
-                for u, v in zip(d_s.tolist(), d_d.tolist()):
-                    self._pull.delete(v, u)
-                    self._fwd.delete(u, v)
-                for u, v in zip(i_s.tolist(), i_d.tolist()):
-                    self._pull.insert(v, u)
-                    self._fwd.insert(u, v)
+                with obs.span("snapshot.host_edit"):
+                    for u, v in zip(d_s.tolist(), d_d.tolist()):
+                        self._pull.delete(v, u)
+                        self._fwd.delete(u, v)
+                    for u, v in zip(i_s.tolist(), i_d.tolist()):
+                        self._pull.insert(v, u)
+                        self._fwd.insert(u, v)
             except CapacityError as e:
                 # mirrors are mid-edit but the key set is complete
                 reason = f"capacity:{e}"
         if reason is not None:
-            self._rebuild(reason)
-            _sync(self.device)
+            with obs.span("snapshot.rebuild"):
+                self._rebuild(reason)
+                _sync(self.device)
+            obs.inc("snapshot.rebuilds")
+            obs.inc(f"snapshot.rebuild.{reason.split(':')[0]}")
+            get_flight().emit("snapshot.rebuild", reason=reason)
             stats.rebuilt, stats.rebuild_reason = True, reason
             stats.host_s = time.perf_counter() - t0
             return stats
@@ -788,19 +806,25 @@ class DeviceSnapshot:
         stats.migrations = self._pull.migrations + self._fwd.migrations - mig0
         t1 = time.perf_counter()
         stats.host_s = t1 - t0
-        jobs = []
-        rows_p, tiles_p = self._pull.device_refresh(jobs)
-        rows_f, tiles_f = self._fwd.device_refresh(jobs)
-        touched = np.unique(np.concatenate([d_s, d_d, i_s, i_d]))
-        if touched.size:
-            ids = touched.astype(np.int32)
-            for dst, deg in ((self._dev_outdeg, self._outdeg),
-                             (self._dev_indeg, self._indeg)):
-                jobs.append((dst.view(-1, 1), None, ids,
-                             deg[touched].astype(np.int32)[:, None], None))
-        _scatter_from_host(jobs, self.device)
-        _sync(self.device)
+        with obs.span("snapshot.device_refresh", annotate=True):
+            jobs = []
+            rows_p, tiles_p = self._pull.device_refresh(jobs)
+            rows_f, tiles_f = self._fwd.device_refresh(jobs)
+            touched = np.unique(np.concatenate([d_s, d_d, i_s, i_d]))
+            if touched.size:
+                ids = touched.astype(np.int32)
+                for dst, deg in ((self._dev_outdeg, self._outdeg),
+                                 (self._dev_indeg, self._indeg)):
+                    jobs.append((dst.view(-1, 1), None, ids,
+                                 deg[touched].astype(np.int32)[:, None],
+                                 None))
+            _scatter_from_host(jobs, self.device)
+            _sync(self.device)
         stats.rows_touched = rows_p + rows_f
         stats.tiles_touched = tiles_p + tiles_f
         stats.device_s = time.perf_counter() - t1
+        obs.inc("snapshot.inplace_batches")
+        obs.inc("snapshot.rows_touched", stats.rows_touched)
+        obs.inc("snapshot.tiles_touched", stats.tiles_touched)
+        obs.inc("snapshot.migrations", stats.migrations)
         return stats

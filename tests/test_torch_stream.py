@@ -743,8 +743,7 @@ def test_session_topk_matches_argsort():
 
 @pytest.mark.parametrize("arg,value,item", [
     ("mesh", object(), "A7"), ("guard", object(), "A5"),
-    ("journal_dir", "journal", "A5"), ("checkpoint_every", 2, "A5"),
-    ("slo", object(), "A6")])
+    ("journal_dir", "journal", "A5"), ("checkpoint_every", 2, "A5")])
 def test_session_arguments_of_later_slices_raise(arg, value, item):
     g = tc.powerlaw_graph(50, 200, seed=0)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
