@@ -114,6 +114,35 @@ Phases (any failure exits non-zero; nothing is caught):
      batched call per sample and 10 back to back, one call per table, the
      plain loop and index_copy_, and the batched call and index_copy_ on
      the card alone (10 calls in a CUDA graph, replayed);
+  8b. the guard on the same graph, once phase 8's session is freed: a
+     StreamSession with GuardConfig(policy="quarantine", audit_every=3)
+     and a journal in a temporary directory (launch counts start at 0
+     here, the obs registry and flight recorder are reset; STREAM_PARAMS).
+     (1) two churn batches and one insert-only batch, each solve repeated
+     from the same prior ranks without and with health=True, interleaved
+     HEALTH_PAIRS times: the word's overhead per solve in % (ranks, iters
+     equal, word 0); (2) a churn batch with 4 out-of-range pairs spliced in
+     (ChaosMonkey): 4 quarantined, the clean rest applied; (3) a NaN on a
+     vertex the next (insert-only) batch's sweep reads: H_NONFINITE, the
+     rungs walked, one escalate.success, L1 <= 1e-8 to a from-scratch
+     solve, the pre-solve ranks bit-unchanged; (4) a churn batch at
+     max_iter=1 (force_nonconvergence): H_MAX_ITER, one rung (dense), L1
+     <= 1e-8 to a full-budget static solve, the params put back; (5) the
+     audits of batches 3 and 6: L1, resync, time; (6) a checkpoint by
+     hand: bytes, seconds, free disk before, host MemAvailable, peak RSS;
+     (7) a churn (dense) and an insert-only (compact) batch, each within
+     L1 1e-8 of the same solve on the plain path; (8) StreamSession.restore
+     on the card: ranks torch.equal to the live session's, every mirror,
+     free list and capacity equal (state_dict), every device tensor equal
+     to its mirror, one guard.restores, 2 batches replayed from step 6; the
+     restore's seconds split into load (checksums), build, restage and
+     replay; (9) on a 4,000-vertex graph: checkpoint_every=2 over 5 batches
+     (restore bit for bit), a torn journal (the session after batch 4, bit
+     for bit), a corrupted leaf (the checksum error and a restore_failed
+     bundle), retry_budget=0 at max_iter=1 (escalate.exhausted and an
+     escalation_exhausted bundle rendered by python -m
+     repro_torch.obs.postmortem). The directories are removed after;
+     the fused sweep's three kernels and scatter_rows must launch;
   9. LM serving at qwen2-1.5b's full width and depth, bf16, weights drawn
      from --seed (the PageRank tensors freed first): the flash_attention
      kernels against their plain version at the prefill's shapes (B=4,
@@ -566,6 +595,14 @@ def snapshot_pairs(snap):
     yield "indeg", snap._dev_indeg, snap._indeg.astype(np.int32)
 
 
+def device_matches_mirrors(snap, dev) -> list:
+    """Names of the snapshot's device tensors that differ from their host
+    mirrors."""
+    return [name for name, t, a in snapshot_pairs(snap)
+            if not torch.equal(t, torch.from_numpy(
+                np.ascontiguousarray(a)).to(dev))]
+
+
 def scatter_tables(snap, touched):
     """(name, device idx, device mask, ids) for every table a
     `device_refresh` scattered into; `touched` maps half -> last_scatter."""
@@ -908,9 +945,7 @@ def stream_phase(args, g, dev, report, wrappers, errs):
             f"frontier peak {tr['frontier_peak']} final "
             f"{tr['frontier_final']}, final L-inf {tr['linf_final']}")
         # every device tensor equals its host mirror
-        bad = [name for name, t, a in snapshot_pairs(snap)
-               if not torch.equal(t, torch.from_numpy(
-                   np.ascontiguousarray(a)).to(dev))]
+        bad = device_matches_mirrors(snap, dev)
         require(not bad, f"stream batch {k}: device != mirror for {bad}")
         # the batch's solve again on the plain path: same engine, caps and
         # prior ranks; it must launch no kernel
@@ -1160,6 +1195,376 @@ def obs_phase(sess, reg, capture_dir: str) -> dict:
                 session_solve_span=dict(count=sh.count, max_s=sh.max))
 
 # Phase 9's configuration: the LM served at full width and depth.
+# Phase 8b's guard: quarantine and a drift audit every third batch; the
+# health word's overhead timed over this many interleaved pairs of solves
+GUARD = dict(policy="quarantine", audit_every=3)
+HEALTH_PAIRS = 3
+HEALTH_SHARE = 0.02     # benchmarks/bench_guard.py's bar for the word's cost
+
+
+def mem_available_gib() -> float:
+    """The host's MemAvailable (a file system in memory eats it)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def peak_rss_gib() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def same_state(a, b) -> list:
+    """Names where two snapshots' `state_dict`s differ (mirrors, free
+    lists, capacities)."""
+    A, ea = a.state_dict()
+    B, eb = b.state_dict()
+    bad = sorted(set(A) ^ set(B))
+    bad += [k for k in sorted(set(A) & set(B))
+            if not np.array_equal(A[k], B[k])]
+    return bad + (["extra"] if ea != eb else [])
+
+
+def guard_phase(args, g, dev, report, wrappers) -> dict:
+    """Phase 8b: a guarded, journaled StreamSession on the full-size graph
+    (the health word's cost, quarantine, the ladder after a NaN and after a
+    starved budget, the audit, a checkpoint, two batches, a restore bit for
+    bit), then the directory cases on a 4,000-vertex graph. Returns the
+    phase's launch counts."""
+    import shutil
+    from repro_torch.core import (PRParams, init_ranks, l1_error,
+                                  static_pagerank)
+    from repro_torch.guard import (ChaosMonkey, GuardConfig, H_MAX_ITER,
+                                   H_NONFINITE, describe_health)
+    from repro_torch.obs import (get_flight, get_registry, reset_flight,
+                                 reset_registry)
+    from repro_torch.stream import StreamSession, ingest, mixed_workload
+    t_phase = time.perf_counter()
+    reset_registry()
+    reset_flight()
+    reg = get_registry()
+    for w in wrappers:
+        w.launches = 0
+    n = g.n
+    params = PRParams(**STREAM_PARAMS)
+    rep = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_guard_")
+    jdir = os.path.join(root, "journal")
+    try:
+        work = [b for _, b in mixed_workload(g, args.frac, n_churn=5,
+                                             n_insert=3,
+                                             seed=args.seed + 300)]
+        churn, ins = work[:5], work[5:]
+        t0 = time.perf_counter()
+        sess = StreamSession(g, d_p=args.d_p, tile=args.tile, params=params,
+                             guard=GuardConfig(**GUARD), journal_dir=jdir,
+                             device=dev)
+        torch.cuda.synchronize()
+        rep["build_s"] = time.perf_counter() - t0
+        audits = []
+        audit = sess._audit
+
+        def timed_audit():
+            t = time.perf_counter()
+            audit()
+            torch.cuda.synchronize()
+            audits.append(time.perf_counter() - t)
+        sess._audit = timed_audit
+        log(f"[guard] session (GuardConfig({GUARD}), journaled) built in "
+            f"{rep['build_s']:.1f} s")
+
+        def healthy(k, b, what):
+            r_prev = sess.ranks
+            sess.apply(b)
+            st = sess.history[-1]
+            require(st.health == 0 and st.escalations == 0,
+                    f"guard batch {k} ({what}): health "
+                    f"{describe_health(st.health)}, {st.escalations} rungs")
+            return r_prev, st
+
+        # -- 1. the health word's cost per solve ------------------------------
+        rep["health_cost"] = []
+        for k, b in enumerate((churn[0], churn[1], ins[0]), 1):
+            r_prev, st = healthy(k, b, "health cost")
+            db = ingest(b, n).to_device(device=dev)
+            plain, health = [], []
+            for _ in range(HEALTH_PAIRS):
+                t0 = time.perf_counter()
+                r, it = sess.solve(st.engine, r_prev, db, sess._caps)
+                torch.cuda.synchronize()
+                plain.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                r2, it2, hw = sess.solve(st.engine, r_prev, db, sess._caps,
+                                         health=True)
+                word = int(hw)
+                torch.cuda.synchronize()
+                health.append(time.perf_counter() - t0)
+                require(torch.equal(r, r2) and it == it2 and word == 0,
+                        f"guard batch {k}: the health word changed the "
+                        f"solve (word {word})")
+            over = (min(health) - min(plain)) / min(plain)
+            rep["health_cost"].append(dict(
+                batch=k, engine=st.engine, iters=st.iters, plain_s=plain,
+                health_s=health, overhead=over,
+                overhead_median=(float(np.median(health))
+                                 - float(np.median(plain)))
+                / float(np.median(plain))))
+            log(f"[guard 1] batch {k} {st.engine} {st.iters} iters: solve "
+                f"{[f'{x * 1e3:.1f}' for x in plain]} ms, with health=True "
+                f"{[f'{x * 1e3:.1f}' for x in health]} ms: overhead "
+                f"{over * 100:+.2f}% (min), "
+                f"{rep['health_cost'][-1]['overhead_median'] * 100:+.2f}% "
+                f"(median)")
+        worst = max(c["overhead"] for c in rep["health_cost"])
+        log(f"[guard 1] the health word's worst overhead {worst * 100:+.2f}% "
+            f"of a solve (benchmarks/bench_guard.py holds the JAX package's "
+            f"under {HEALTH_SHARE * 100:.0f}%; a host-clock reading, so "
+            f"within the solves' spread it is noise)")
+
+        # -- 2. quarantine ----------------------------------------------------
+        q0 = reg.counter("guard.quarantined")
+        bad = ChaosMonkey(args.seed).corrupt_batch(churn[2], n,
+                                                   "out_of_range", k=4)
+        _, st = healthy(4, bad, "quarantine")
+        require(st.quarantined == 4 and reg.counter("guard.quarantined")
+                - q0 == 4 and st.batch_size == ingest(churn[2], n).size,
+                f"guard batch 4: quarantined {st.quarantined}, batch "
+                f"{st.batch_size}")
+        rep["quarantine"] = dict(quarantined=st.quarantined,
+                                 applied=st.batch_size, engine=st.engine)
+        log(f"[guard 2] batch 4: 4 out-of-range pairs quarantined, the "
+            f"clean {st.batch_size} applied ({st.engine}, {st.iters} iters)")
+
+        # -- 3. a NaN on a lane the next batch's sweep reads ------------------
+        v = int(ingest(ins[1], n).ins_dst[0])
+        sess.ranks = ChaosMonkey(args.seed).poison_ranks(sess.ranks, "nan",
+                                                         idx=[v])
+        r_pre = sess.ranks
+        bits = r_pre.view(torch.int64).clone()
+        s0 = reg.counter("guard.escalate.success")
+        rungs0 = len([e for e in get_flight().events()
+                      if e.kind == "guard.escalate"])
+        sess.apply(ins[1])
+        st = sess.history[-1]
+        rungs = [e.data["rung"] for e in get_flight().events()
+                 if e.kind == "guard.escalate"][rungs0:]
+        l1 = l1_error(sess.ranks, sess.static_reference())
+        unchanged = torch.equal(r_pre.view(torch.int64), bits)
+        rep["nan_ladder"] = dict(vertex=v, engine=st.engine,
+                                 health=st.health,
+                                 escalations=st.escalations, rungs=rungs,
+                                 l1_vs_static=l1,
+                                 r_pre_unchanged=unchanged,
+                                 solve_s=st.solve_s)
+        log(f"[guard 3] batch 5: NaN at vertex {v} -> {st.engine} health "
+            f"{describe_health(st.health)}; rungs walked {rungs} "
+            f"({st.escalations}), solve + ladder {st.solve_s:.3f} s; L1 vs "
+            f"from-scratch {l1:.3e}; r_pre bit-unchanged {unchanged}")
+        require(st.health & H_NONFINITE, "the NaN did not trip H_NONFINITE")
+        require(st.escalations >= 1 and reg.counter(
+            "guard.escalate.success") - s0 == 1,
+            f"the ladder after the NaN: {st.escalations} rungs")
+        require(l1 <= TOL_SOLVE_L1, f"the ladder's ranks: L1 {l1}")
+        require(unchanged, "the failed attempt wrote into r_pre")
+
+        # -- 4. a starved budget ----------------------------------------------
+        d0 = reg.counter("guard.escalate.dense")
+        ChaosMonkey(args.seed).force_nonconvergence(sess)
+        sess.apply(churn[3])
+        sess.params = params
+        st = sess.history[-1]
+        ref = static_pagerank(sess.snap.dg, init_ranks(n, device=dev),
+                              params)[0]
+        l1 = l1_error(sess.ranks, ref)
+        rep["starved_ladder"] = dict(engine=st.engine, health=st.health,
+                                     escalations=st.escalations,
+                                     l1_vs_static=l1, solve_s=st.solve_s)
+        log(f"[guard 4] batch 6 at max_iter=1: {st.engine} health "
+            f"{describe_health(st.health)}, {st.escalations} rung(s), dense "
+            f"{reg.counter('guard.escalate.dense') - d0}; solve + ladder "
+            f"{st.solve_s:.3f} s; L1 vs a full-budget static solve {l1:.3e}")
+        require(st.health & H_MAX_ITER and st.escalations == 1
+                and reg.counter("guard.escalate.dense") - d0 == 1,
+                f"the starved batch: health {st.health}, {st.escalations} "
+                f"rungs")
+        require(l1 <= TOL_SOLVE_L1, f"the starved batch's ranks: L1 {l1}")
+
+        # -- 5. the audits (batches 3 and 6) ------------------------------------
+        ev = [e.data for e in get_flight().events() if e.kind == "guard.audit"]
+        rep["audits"] = [dict(seq=e["seq"], l1=e["l1"], resync=e["resync"],
+                              s=t) for e, t in zip(ev, audits)]
+        log("[guard 5] audits: " + "; ".join(
+            f"batch {a['seq']} L1 {a['l1']:.3e} resync {a['resync']} "
+            f"{a['s'] * 1e3:.1f} ms" for a in rep["audits"]))
+        require(reg.counter("guard.audit.runs") >= 1 and len(ev) >= 1,
+                "no audit ran")
+
+        # -- 6. a checkpoint at full size -------------------------------------
+        free0 = shutil.disk_usage(root).free
+        avail0 = mem_available_gib()
+        t0 = time.perf_counter()
+        path = sess.checkpoint()
+        ck_s = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+        rep["checkpoint"] = dict(
+            s=ck_s, bytes=ck_bytes, files=len(os.listdir(path)),
+            disk_free_before=free0, mem_available_before_gib=avail0,
+            mem_available_after_gib=mem_available_gib(),
+            peak_rss_gib=peak_rss_gib())
+        log(f"[guard 6] checkpoint after batch 6: {ck_bytes / 2**30:.3f} GiB "
+            f"in {rep['checkpoint']['files']} files, {ck_s:.1f} s "
+            f"({ck_bytes / ck_s / 1e9:.2f} GB/s with the hashes); "
+            f"{free0 / 2**30:.1f} GiB free before; host MemAvailable "
+            f"{avail0:.1f} -> {rep['checkpoint']['mem_available_after_gib']:.1f}"
+            f" GiB; peak RSS {rep['checkpoint']['peak_rss_gib']:.1f} GiB")
+
+        # -- 7. two healthy batches after it ----------------------------------
+        live = []
+        for k, b in ((7, churn[4]), (8, ins[2])):
+            r_prev, st = healthy(k, b, "after the checkpoint")
+            r_plain, it_plain = sess.solve(st.engine, r_prev,
+                                           ingest(b, n).to_device(device=dev),
+                                           sess._caps, kernels=False)
+            l1 = l1_error(sess.ranks, r_plain)
+            live.append(sess.ranks.cpu().clone())
+            log(f"[guard 7] batch {k} {st.engine} {st.iters} iters, solve "
+                f"{st.solve_s:.3f} s; L1 vs the plain path {l1:.3e} "
+                f"({it_plain} iters)")
+            require(l1 <= TOL_SOLVE_L1, f"guard batch {k}: L1 vs plain {l1}")
+        require({h.engine for h in sess.history[-2:]} == {"dense",
+                                                           "compact"},
+                "batches 7 and 8 did not run both engines")
+        sess.close()
+
+        # -- 8. restore -------------------------------------------------------
+        r0 = reg.counter("guard.restores")
+        t0 = time.perf_counter()
+        back = StreamSession.restore(jdir, device=dev)
+        torch.cuda.synchronize()
+        rs_s = time.perf_counter() - t0
+        (ev,) = [e.data for e in get_flight().events()
+                 if e.kind == "guard.restore"]
+        same_ranks = torch.equal(back.ranks, sess.ranks)
+        rep["restore"] = dict(s=rs_s, split=back.restore_s,
+                              replayed=ev["replayed"], step=ev["step"],
+                              ranks_equal=same_ranks,
+                              peak_rss_gib=peak_rss_gib(),
+                              mem_available_gib=mem_available_gib())
+        log(f"[guard 8] restore {rs_s:.1f} s: load with checksums "
+            f"{back.restore_s['load']:.1f} s, fresh DeviceSnapshot + static "
+            f"solve {back.restore_s['build']:.1f} s, load_state (re-adopt "
+            f"+ mirrors + restage) {back.restore_s['restage']:.1f} s, replay "
+            f"of {ev['replayed']} batches {back.restore_s['replay']:.1f} s; "
+            f"step {ev['step']}; ranks torch.equal {same_ranks}; peak RSS "
+            f"{rep['restore']['peak_rss_gib']:.1f} GiB")
+        require(same_ranks and torch.equal(back.ranks.cpu(), live[-1]),
+                "the restored ranks differ from the live session's")
+        diff = same_state(sess.snap, back.snap)
+        require(not diff, f"restored mirrors differ: {diff}")
+        diff = device_matches_mirrors(back.snap, dev)
+        require(not diff, f"restored device tensors != mirrors: {diff}")
+        require(reg.counter("guard.restores") - r0 == 1
+                and ev["replayed"] == 2 and ev["step"] == 6,
+                f"restore: {ev}")
+        log("[guard 8] mirrors, free lists and capacities equal the live "
+            "session's; every device tensor equals its mirror")
+        del sess, back, r_pre, bits, ref, live
+        shutil.rmtree(jdir)
+        torch.cuda.empty_cache()
+
+        # -- 9. the directory cases on a small graph --------------------------
+        t0 = time.perf_counter()
+        rep["small"] = small_guard_cases(args, dev, root)
+        log(f"[guard 9] {rep['small']} ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"launches": {w.__name__: w.launches for w in wrappers}}
+    rep["launches"] = out["launches"]
+    rep["counters"] = {k: v for k, v in reg.report()["counters"].items()
+                       if k.startswith("guard.")}
+    rep["s"] = time.perf_counter() - t_phase
+    log(f"[guard] counters {rep['counters']}")
+    log(f"[launches] guard phase: {out['launches']} ({rep['s']:.1f} s)")
+    for name, cnt in out["launches"].items():
+        require(cnt > 0, f"{name} never launched in the guard phase")
+    report["guard"] = rep
+    return out
+
+
+def small_guard_cases(args, dev, root) -> dict:
+    """Phase 8b, step 9, on a 4,000-vertex graph: checkpoints every second
+    batch, a torn journal, a corrupted leaf, an exhausted ladder."""
+    from repro_torch.core import PRParams, powerlaw_graph, random_batch
+    from repro_torch.guard import ChaosMonkey, GuardConfig, journal_path
+    from repro_torch.obs import get_registry, load_bundle
+    from repro_torch.stream import StreamSession
+    from repro_torch.train import list_checkpoints
+    reg = get_registry()
+    gs = powerlaw_graph(4000, 40000, alpha=args.alpha, seed=args.seed)
+    kw = dict(d_p=8, tile=32, params=PRParams(**STREAM_PARAMS), device=dev)
+    d = os.path.join(root, "small")
+    s = StreamSession(gs, guard=GuardConfig(), journal_dir=d,
+                      checkpoint_every=2, **kw)
+    ranks = []
+    for k in range(5):
+        s.apply(random_batch(s.snap.graph(), 2e-3, seed=args.seed + 400 + k))
+        ranks.append(s.ranks.clone())
+    s.close()
+    steps = list_checkpoints(d)
+    back = StreamSession.restore(d, device=dev)
+    require(steps == [2, 4] and back._batch_idx == 5
+            and torch.equal(back.ranks, s.ranks)
+            and not same_state(s.snap, back.snap),
+            f"checkpoint_every=2: steps {steps}, restored at "
+            f"{back._batch_idx}")
+    # a torn tail: the session after batch 4, bit for bit
+    size = os.path.getsize(journal_path(d))
+    ChaosMonkey(args.seed).truncate_journal(journal_path(d), size - 3)
+    torn = StreamSession.restore(d, device=dev)
+    require(torn._batch_idx == 4 and torch.equal(torn.ranks, ranks[3]),
+            f"torn journal: restored at {torn._batch_idx}")
+    # a corrupted leaf: the checksum error and a restore_failed bundle
+    leaf = os.path.join(d, "step_0000000004", "leaf_00000.npy")
+    with open(leaf, "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        last = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([last[0] ^ 0xFF]))
+    try:
+        StreamSession.restore(d, device=dev)
+        raised = None
+    except IOError as e:
+        raised = str(e)
+    bundles = [load_bundle(os.path.join(d, p)) for p in os.listdir(d)
+               if p.startswith("postmortem-")]
+    require(raised is not None and "checksum mismatch" in raised
+            and [b["reason"] for b in bundles] == ["restore_failed"],
+            f"corrupted leaf: raised {raised}, bundles "
+            f"{[b['reason'] for b in bundles]}")
+    # an exhausted ladder: counted, bundled, rendered on the command line
+    d2 = os.path.join(root, "exhausted")
+    e0 = reg.counter("guard.escalate.exhausted")
+    s2 = StreamSession(gs, guard=GuardConfig(retry_budget=0),
+                       journal_dir=d2, **kw)
+    ChaosMonkey(args.seed).force_nonconvergence(s2)
+    s2.apply(random_batch(gs, 2e-3, seed=args.seed + 410))
+    s2.close()
+    text = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.postmortem", d2],
+        capture_output=True, text=True, check=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))).stdout
+    require(reg.counter("guard.escalate.exhausted") - e0 == 1
+            and "escalation_exhausted" in text,
+            f"exhausted ladder: {reg.counter('guard.escalate.exhausted')}"
+            f" ; rendered {text[:200]!r}")
+    return dict(checkpoints=steps, torn_restored_at=torn._batch_idx,
+                corrupt_error=raised,
+                exhausted_bundle=text.splitlines()[0])
+
+
 LM_ARCH = "qwen2-1.5b"
 LM_BATCH, LM_SEQ = 4, 2048          # prefill_step's batch
 ATTN_PER = 10                       # flash_attention calls per timed sample
@@ -2005,11 +2410,16 @@ def main(argv=None) -> int:
         f"({sc['library_back_to_back_ms']:.4f} back to back); on the card "
         f"alone (CUDA graph replay): {sc['graph_ms']:.4f} ms, index_copy_ "
         f"{sc['library_graph_ms']:.4f} ms")
-    # launches on the main paths: static + DF-P (phases 5-6) and the stream
+    torch.cuda.empty_cache()
+
+    # -- 8b. the guard on the streaming path --------------------------------
+    guard = guard_phase(args, g, dev, report, wrappers)
+    # launches on the main paths: static + DF-P (phases 5-6), the stream
+    # and the guard
     launches = {name: launches.get(name, 0) + stream["launches"].get(name, 0)
-                for name in timings}
+                + guard["launches"].get(name, 0) for name in timings}
     report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    log(f"[memory] phases 1-8 peak allocated "
+    log(f"[memory] phases 1-8b peak allocated "
         f"{report['peak_mem_bytes'] / 2**30:.3f} GiB")
     del g, lay, gs, dgs, rs, rd, rc
     torch.cuda.empty_cache()

@@ -20,8 +20,9 @@ skip).
 
 A copy of the JAX package's `repro.obs.postmortem`, with the same schema:
 a bundle written by either package renders with the other's `render`.
-The session's calls (the guard's escalation ladder and restore) come with
-the port's guard slice (ROADMAP A5).
+The guarded `StreamSession` writes one when its escalation ladder runs out
+of budget (``escalation_exhausted``) and when `restore` fails
+(``restore_failed``).
 """
 from __future__ import annotations
 

@@ -1,0 +1,9 @@
+"""repro_torch.train — the part of the JAX package's `repro.train` the
+port has so far: atomic checkpoints of flat array dicts (`checkpoint`),
+which the guard's session checkpoints sit on. The training loop, elastic
+restarts and model trees come with ROADMAP A9."""
+from .checkpoint import (latest_step, list_checkpoints, restore_checkpoint,
+                         save_checkpoint)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "list_checkpoints"]

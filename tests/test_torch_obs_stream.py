@@ -12,11 +12,15 @@ Bars:
     in order;
   * one `solve.<engine>` span per driver call, under JAX's names;
   * `guard.quarantined*` equal after the same quarantining validation;
+  * a guarded, journaled stream (quarantine, the ladder after a NaN, the
+    audit, checkpoints): every counter and flight event equal, but times,
+    paths by their last component and the audit's ``l1`` within 1e-12;
   * the SLO and capture state machine as JAX's, with the profiler
     wrappers monkeypatched as in `tests/test_obs2.py`, then one real
     `torch.profiler` capture.
 """
 import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,11 +29,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.core as jc  # noqa: E402
+import repro.guard as jg  # noqa: E402
 import repro.obs as jobs  # noqa: E402
 import repro.stream as js  # noqa: E402
 import repro.stream.session as jsession  # noqa: E402
 from repro.guard.validate import validate_batch as j_validate  # noqa: E402
 import repro_torch.core as tc  # noqa: E402
+import repro_torch.guard as tg  # noqa: E402
 import repro_torch.obs as tobs  # noqa: E402
 import repro_torch.stream as ts  # noqa: E402
 import repro_torch.stream.session as tsession  # noqa: E402
@@ -178,6 +184,115 @@ def test_stream_spans_and_history_agree(streams):
 def test_stream_ranks_still_track_jax(streams):
     assert tc.l1_error(torch.from_numpy(streams["torch"]["ranks"]),
                        streams["jax"]["ranks"]) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# a guarded, journaled stream
+# ---------------------------------------------------------------------------
+
+#: flight fields that name a file of the session's own directory
+PATH_FIELDS = ("path",)
+
+
+def _guarded_batches(g):
+    """churn with four out-of-range pairs spliced in (quarantined), churn
+    on a NaN-poisoned rank read by the sweep (the ladder), an empty batch,
+    insert-only, churn; the guard audits every second batch and the
+    session checkpoints every second."""
+    n = g.n
+    churn = [tc.random_batch(g, 2e-3, seed=301 + k) for k in range(3)]
+    bad = tg.ChaosMonkey(seed=7).corrupt_batch(churn[0], n, k=4)
+    poison_at = int(ts.ingest(churn[1], n).ins_dst[0])
+    return [("apply", bad), ("poison", poison_at), ("apply", churn[1]),
+            ("apply", _empty()),
+            ("apply", tc.random_batch(g, 2 / g.m, insert_frac=1.0,
+                                      seed=304)),
+            ("apply", churn[2])]
+
+
+@pytest.fixture(scope="module")
+def guarded_streams(tmp_path_factory):
+    _reset()
+    g = tc.powerlaw_graph(N, M, seed=0)
+    gj = jc.powerlaw_graph(N, M, seed=0)
+    root = tmp_path_factory.mktemp("guarded")
+    out = {}
+    for name, pkg, guard, make in (
+            ("torch", tobs, tg, lambda **k: ts.StreamSession(
+                g, device="cpu", **CAPS, **k)),
+            ("jax", jobs, jg, lambda **k: js.StreamSession(gj, **CAPS,
+                                                           **k))):
+        s = make(guard=guard.GuardConfig(policy="quarantine",
+                                         audit_every=2),
+                 journal_dir=str(root / name), checkpoint_every=2)
+        for op, arg in _guarded_batches(g):
+            if op == "poison":
+                s.ranks = guard.ChaosMonkey(seed=8).poison_ranks(
+                    s.ranks, mode="nan", idx=[arg])
+            else:
+                s.apply(arg if name == "torch" else _jbatch(arg))
+        s.close()
+        rep = pkg.get_registry().report()
+        events = []
+        for kind, data in _events(pkg):
+            events.append((kind, {k: os.path.basename(v)
+                                  if k in PATH_FIELDS else v
+                                  for k, v in data.items()}))
+        out[name] = dict(counters=rep["counters"], events=events,
+                         history=list(s.history), ranks=np.asarray(s.ranks),
+                         dir=str(root / name))
+    _reset()
+    return out
+
+
+def test_guarded_stream_counters_equal_jax(guarded_streams):
+    t = guarded_streams["torch"]["counters"]
+    j = guarded_streams["jax"]["counters"]
+    for name in ("guard.quarantined", "guard.unhealthy",
+                 "guard.health.nonfinite", "guard.escalate.dense",
+                 "guard.escalate.success", "guard.audit.runs",
+                 "guard.journal.appends", "guard.checkpoint.saves",
+                 "session.engine.noop"):
+        assert t.get(name, 0) > 0, name
+    assert t["guard.journal.appends"] == 4        # the noop is not journaled
+    assert t["guard.checkpoint.saves"] == 2
+    assert _compared(t) == _compared(j)
+    assert {k: v for k, v in t.items() if k.startswith("guard.")} == \
+        {k: v for k, v in j.items() if k.startswith("guard.")}
+    hist = guarded_streams["torch"]["history"]
+    assert [h.quarantined for h in hist] == [4, 0, 0, 0, 0]
+    assert hist[1].health and hist[1].escalations >= 1
+    assert [(h.health, h.escalations, h.quarantined) for h in hist] == [
+        (h.health, h.escalations, h.quarantined)
+        for h in guarded_streams["jax"]["history"]]
+
+
+def test_guarded_stream_flight_events_equal_jax(guarded_streams):
+    t = guarded_streams["torch"]["events"]
+    j = guarded_streams["jax"]["events"]
+    kinds = [k for k, _ in t]
+    for kind in ("guard.quarantine", "guard.escalate", "guard.audit",
+                 "guard.checkpoint", "session.batch"):
+        assert kind in kinds, kind
+    assert kinds == [k for k, _ in j]
+    for (kind, a), (_, b) in zip(t, j):
+        assert set(a) == set(b), kind
+        for k in a:
+            if kind == "guard.audit" and k == "l1":
+                assert abs(a[k] - b[k]) <= 1e-12, (a[k], b[k])
+            else:
+                assert a[k] == b[k], (kind, k, a[k], b[k])
+
+
+def test_guarded_stream_ranks_and_journals(guarded_streams):
+    t, j = guarded_streams["torch"], guarded_streams["jax"]
+    assert tc.l1_error(torch.from_numpy(t["ranks"]), j["ranks"]) <= 1e-8
+    # the same canonical deltas, byte for byte, in both journals
+    with open(os.path.join(t["dir"], "deltas.journal"), "rb") as f:
+        tj = f.read()
+    with open(os.path.join(j["dir"], "deltas.journal"), "rb") as f:
+        assert f.read() == tj
+    assert sorted(os.listdir(t["dir"])) == sorted(os.listdir(j["dir"]))
 
 
 # ---------------------------------------------------------------------------
@@ -402,8 +517,8 @@ def test_real_capture_holds_the_session_ranges(small_graphs, tmp_path):
 
 
 def test_slo_is_accepted(small_graphs):
-    """`slo=` no longer raises (the other arguments of later slices still
-    do: tests/test_torch_stream.py)."""
+    """`slo=` no longer raises (`mesh=` still does:
+    tests/test_torch_stream.py)."""
     g, _ = small_graphs
     sess = ts.StreamSession(g, device="cpu", slo=tobs.SLOConfig())
     assert sess.slo == tobs.SLOConfig()
