@@ -129,20 +129,23 @@ Phases (any failure exits non-zero; nothing is caught):
      max_iter=1 (force_nonconvergence): H_MAX_ITER, one rung (dense), L1
      <= 1e-8 to a full-budget static solve, the params put back; (5) the
      audits of batches 3 and 6: L1, resync, time; (6) a checkpoint by
-     hand: bytes, seconds, free disk before, host MemAvailable, peak RSS;
-     (7) a churn (dense) and an insert-only (compact) batch, each within
-     L1 1e-8 of the same solve on the plain path; (8) StreamSession.restore
-     on the card: ranks torch.equal to the live session's, every mirror,
-     free list and capacity equal (state_dict), every device tensor equal
-     to its mirror, one guard.restores, 2 batches replayed from step 6; the
-     restore's seconds split into load (checksums), build, restage and
-     replay; (9) on a 4,000-vertex graph: checkpoint_every=2 over 5 batches
-     (restore bit for bit), a torn journal (the session after batch 4, bit
-     for bit), a corrupted leaf (the checksum error and a restore_failed
+     hand: bytes, seconds, free disk before, peak RSS; (7) a churn
+     (dense) and an insert-only (compact) batch, each within L1 1e-8 of
+     the same solve on the plain path, which launches no kernel; (8)
+     StreamSession.restore on the card: ranks torch.equal to the live
+     session's, every mirror, free list and capacity equal (state_dict),
+     every device tensor equal to its mirror, one guard.restores, 2
+     batches replayed from step 6; the restore's seconds split into load
+     (checksums), graph, snapshot, static solve, restage and replay; (9)
+     on a 4,000-vertex graph: checkpoint_every=2 over 5 batches (restore
+     bit for bit), a torn journal (the session after batch 4, bit for
+     bit), a corrupted leaf (the checksum error and a restore_failed
      bundle), retry_budget=0 at max_iter=1 (escalate.exhausted and an
      escalation_exhausted bundle rendered by python -m
-     repro_torch.obs.postmortem). The directories are removed after;
-     the fused sweep's three kernels and scatter_rows must launch;
+     repro_torch.obs.postmortem). The directories are removed after. The
+     launch counts are read around the guarded session's apply calls and
+     the full-size restore only; the fused sweep's three kernels and
+     scatter_rows must launch there;
   9. LM serving at qwen2-1.5b's full width and depth, bf16, weights drawn
      from --seed (the PageRank tensors freed first): the flash_attention
      kernels against their plain version at the prefill's shapes (B=4,
@@ -169,6 +172,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import functools
 import glob
 import io
 import json
@@ -800,6 +804,17 @@ def read_capture(path: str, engine_span: str) -> dict:
                                    for k, (c, u) in top])
 
 
+def drive(wrappers, tally: dict, fn, *a, **k):
+    """One piece of a session path, with every launch count set to 0 just
+    before it and added to `tally` just after."""
+    for w in wrappers:
+        w.launches = 0
+    res = fn(*a, **k)
+    for w in wrappers:
+        tally[w.__name__] += w.launches
+    return res
+
+
 def stream_phase(args, g, dev, report, wrappers, errs):
     """Phase 8: the streaming session on the full-size graph. Folds the
     kernels' errors on the snapshot into `errs`; returns the launch counts
@@ -823,16 +838,7 @@ def stream_phase(args, g, dev, report, wrappers, errs):
     reset_flight()
     reg = get_registry()
     capture_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_capture_")
-
-    def driven(fn, *a, **k):
-        """One piece of the session path, with every launch count set to 0
-        just before it and read just after."""
-        for w in wrappers:
-            w.launches = 0
-        res = fn(*a, **k)
-        for w in wrappers:
-            out["launches"][w.__name__] += w.launches
-        return res
+    driven = functools.partial(drive, wrappers, out["launches"])
 
     # -- 8.1 the session: snapshot + static solve ----------------------------
     t0 = time.perf_counter()
@@ -1199,16 +1205,6 @@ def obs_phase(sess, reg, capture_dir: str) -> dict:
 # health word's overhead timed over this many interleaved pairs of solves
 GUARD = dict(policy="quarantine", audit_every=3)
 HEALTH_PAIRS = 3
-HEALTH_SHARE = 0.02     # benchmarks/bench_guard.py's bar for the word's cost
-
-
-def mem_available_gib() -> float:
-    """The host's MemAvailable (a file system in memory eats it)."""
-    with open("/proc/meminfo") as f:
-        for line in f:
-            if line.startswith("MemAvailable:"):
-                return int(line.split()[1]) / 2**20
-    return float("nan")
 
 
 def peak_rss_gib() -> float:
@@ -1232,7 +1228,9 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
     (the health word's cost, quarantine, the ladder after a NaN and after a
     starved budget, the audit, a checkpoint, two batches, a restore bit for
     bit), then the directory cases on a 4,000-vertex graph. Returns the
-    phase's launch counts."""
+    launch counts of the guarded session's path: its `apply` calls and the
+    full-size restore (timing repeats, references and the small graph stay
+    out)."""
     import shutil
     from repro_torch.core import (PRParams, init_ranks, l1_error,
                                   static_pagerank)
@@ -1245,8 +1243,8 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
     reset_registry()
     reset_flight()
     reg = get_registry()
-    for w in wrappers:
-        w.launches = 0
+    launches = {w.__name__: 0 for w in wrappers}
+    driven = functools.partial(drive, wrappers, launches)
     n = g.n
     params = PRParams(**STREAM_PARAMS)
     rep = {}
@@ -1263,21 +1261,12 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
                              device=dev)
         torch.cuda.synchronize()
         rep["build_s"] = time.perf_counter() - t0
-        audits = []
-        audit = sess._audit
-
-        def timed_audit():
-            t = time.perf_counter()
-            audit()
-            torch.cuda.synchronize()
-            audits.append(time.perf_counter() - t)
-        sess._audit = timed_audit
         log(f"[guard] session (GuardConfig({GUARD}), journaled) built in "
             f"{rep['build_s']:.1f} s")
 
         def healthy(k, b, what):
             r_prev = sess.ranks
-            sess.apply(b)
+            driven(sess.apply, b)
             st = sess.history[-1]
             require(st.health == 0 and st.escalations == 0,
                     f"guard batch {k} ({what}): health "
@@ -1320,8 +1309,8 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
         worst = max(c["overhead"] for c in rep["health_cost"])
         log(f"[guard 1] the health word's worst overhead {worst * 100:+.2f}% "
             f"of a solve (benchmarks/bench_guard.py holds the JAX package's "
-            f"under {HEALTH_SHARE * 100:.0f}%; a host-clock reading, so "
-            f"within the solves' spread it is noise)")
+            f"under 2%; a host-clock reading, so within the solves' spread "
+            f"it is noise)")
 
         # -- 2. quarantine ----------------------------------------------------
         q0 = reg.counter("guard.quarantined")
@@ -1346,7 +1335,7 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
         s0 = reg.counter("guard.escalate.success")
         rungs0 = len([e for e in get_flight().events()
                       if e.kind == "guard.escalate"])
-        sess.apply(ins[1])
+        driven(sess.apply, ins[1])
         st = sess.history[-1]
         rungs = [e.data["rung"] for e in get_flight().events()
                  if e.kind == "guard.escalate"][rungs0:]
@@ -1372,7 +1361,7 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
         # -- 4. a starved budget ----------------------------------------------
         d0 = reg.counter("guard.escalate.dense")
         ChaosMonkey(args.seed).force_nonconvergence(sess)
-        sess.apply(churn[3])
+        driven(sess.apply, churn[3])
         sess.params = params
         st = sess.history[-1]
         ref = static_pagerank(sess.snap.dg, init_ranks(n, device=dev),
@@ -1392,18 +1381,24 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
         require(l1 <= TOL_SOLVE_L1, f"the starved batch's ranks: L1 {l1}")
 
         # -- 5. the audits (batches 3 and 6) ------------------------------------
-        ev = [e.data for e in get_flight().events() if e.kind == "guard.audit"]
-        rep["audits"] = [dict(seq=e["seq"], l1=e["l1"], resync=e["resync"],
-                              s=t) for e, t in zip(ev, audits)]
+        # an audit's time: from its batch's `session.batch` event (emitted
+        # after the solve's synchronize) to its `guard.audit` event (after
+        # the reference solve's L1 is read back to the host)
+        batch_ts = {e.data["seq"]: e.ts for e in get_flight().events()
+                    if e.kind == "session.batch"}
+        rep["audits"] = [dict(seq=e.data["seq"], l1=e.data["l1"],
+                              resync=e.data["resync"],
+                              s=e.ts - batch_ts[e.data["seq"]])
+                         for e in get_flight().events()
+                         if e.kind == "guard.audit"]
         log("[guard 5] audits: " + "; ".join(
             f"batch {a['seq']} L1 {a['l1']:.3e} resync {a['resync']} "
             f"{a['s'] * 1e3:.1f} ms" for a in rep["audits"]))
-        require(reg.counter("guard.audit.runs") >= 1 and len(ev) >= 1,
+        require(reg.counter("guard.audit.runs") >= 1 and rep["audits"],
                 "no audit ran")
 
         # -- 6. a checkpoint at full size -------------------------------------
         free0 = shutil.disk_usage(root).free
-        avail0 = mem_available_gib()
         t0 = time.perf_counter()
         path = sess.checkpoint()
         ck_s = time.perf_counter() - t0
@@ -1411,23 +1406,24 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
                        for f in os.listdir(path))
         rep["checkpoint"] = dict(
             s=ck_s, bytes=ck_bytes, files=len(os.listdir(path)),
-            disk_free_before=free0, mem_available_before_gib=avail0,
-            mem_available_after_gib=mem_available_gib(),
-            peak_rss_gib=peak_rss_gib())
+            disk_free_before=free0, peak_rss_gib=peak_rss_gib())
         log(f"[guard 6] checkpoint after batch 6: {ck_bytes / 2**30:.3f} GiB "
             f"in {rep['checkpoint']['files']} files, {ck_s:.1f} s "
             f"({ck_bytes / ck_s / 1e9:.2f} GB/s with the hashes); "
-            f"{free0 / 2**30:.1f} GiB free before; host MemAvailable "
-            f"{avail0:.1f} -> {rep['checkpoint']['mem_available_after_gib']:.1f}"
-            f" GiB; peak RSS {rep['checkpoint']['peak_rss_gib']:.1f} GiB")
+            f"{free0 / 2**30:.1f} GiB free before; peak RSS "
+            f"{rep['checkpoint']['peak_rss_gib']:.1f} GiB")
 
         # -- 7. two healthy batches after it ----------------------------------
         live = []
         for k, b in ((7, churn[4]), (8, ins[2])):
             r_prev, st = healthy(k, b, "after the checkpoint")
+            for w in wrappers:
+                w.launches = 0
             r_plain, it_plain = sess.solve(st.engine, r_prev,
                                            ingest(b, n).to_device(device=dev),
                                            sess._caps, kernels=False)
+            require(all(w.launches == 0 for w in wrappers),
+                    f"guard batch {k}: the plain solve launched a kernel")
             l1 = l1_error(sess.ranks, r_plain)
             live.append(sess.ranks.cpu().clone())
             log(f"[guard 7] batch {k} {st.engine} {st.iters} iters, solve "
@@ -1442,7 +1438,7 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
         # -- 8. restore -------------------------------------------------------
         r0 = reg.counter("guard.restores")
         t0 = time.perf_counter()
-        back = StreamSession.restore(jdir, device=dev)
+        back = driven(StreamSession.restore, jdir, device=dev)
         torch.cuda.synchronize()
         rs_s = time.perf_counter() - t0
         (ev,) = [e.data for e in get_flight().events()
@@ -1451,13 +1447,14 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
         rep["restore"] = dict(s=rs_s, split=back.restore_s,
                               replayed=ev["replayed"], step=ev["step"],
                               ranks_equal=same_ranks,
-                              peak_rss_gib=peak_rss_gib(),
-                              mem_available_gib=mem_available_gib())
+                              peak_rss_gib=peak_rss_gib())
+        sp = back.restore_s
         log(f"[guard 8] restore {rs_s:.1f} s: load with checksums "
-            f"{back.restore_s['load']:.1f} s, fresh DeviceSnapshot + static "
-            f"solve {back.restore_s['build']:.1f} s, load_state (re-adopt "
-            f"+ mirrors + restage) {back.restore_s['restage']:.1f} s, replay "
-            f"of {ev['replayed']} batches {back.restore_s['replay']:.1f} s; "
+            f"{sp['load']:.1f} s, graph from keys {sp['graph']:.1f} s, fresh "
+            f"DeviceSnapshot {sp['snapshot']:.1f} s, static solve "
+            f"{sp['static']:.2f} s, load_state (re-adopt + mirrors + "
+            f"restage) {sp['restage']:.1f} s, replay of {ev['replayed']} "
+            f"batches {sp['replay']:.1f} s; "
             f"step {ev['step']}; ranks torch.equal {same_ranks}; peak RSS "
             f"{rep['restore']['peak_rss_gib']:.1f} GiB")
         require(same_ranks and torch.equal(back.ranks.cpu(), live[-1]),
@@ -1481,8 +1478,8 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
         log(f"[guard 9] {rep['small']} ({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    out = {"launches": {w.__name__: w.launches for w in wrappers}}
-    rep["launches"] = out["launches"]
+    out = {"launches": launches}
+    rep["launches"] = launches
     rep["counters"] = {k: v for k, v in reg.report()["counters"].items()
                        if k.startswith("guard.")}
     rep["s"] = time.perf_counter() - t_phase

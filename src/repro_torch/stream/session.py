@@ -579,9 +579,10 @@ class StreamSession:
         mid-append) is detected by ``DeltaJournal.scan`` and dropped — at
         most the batch being written when the process died. The restored
         session's ``restore_s`` holds the seconds of each step: ``load``
-        (the checkpoint, checksums verified), ``build`` (the session at
-        the checkpoint's graph: its snapshot and static solve),
-        ``restage`` (`load_state`) and ``replay``.
+        (the checkpoint, checksums verified), ``graph`` (the graph from
+        the checkpoint's keys), ``snapshot`` (its `DeviceSnapshot`),
+        ``static`` (the session's static solve), ``restage``
+        (`load_state`) and ``replay``.
 
         A checkpoint of either package restores; ``mesh=`` (a sharded
         session) is not ported yet."""
@@ -624,14 +625,20 @@ class StreamSession:
             slo = SLOConfig(**sd)
         g = graph_from_sorted_keys(
             int(cfg["n"]), np.ascontiguousarray(arrays["keys"]))
+        t_graph = time.perf_counter()
+        snap_kw = cfg.get("snap_kw", {})
+        snap = DeviceSnapshot(g, d_p=cfg["d_p"], tile=cfg["tile"],
+                              device=device, **snap_kw)
+        _sync(snap.device)
+        t_snap = time.perf_counter()
         sess = cls(g, params=params, d_p=cfg["d_p"], tile=cfg["tile"],
                    engine=cfg["engine"], prune=cfg["prune"],
                    compact_threshold=cfg["compact_threshold"],
                    trace=cfg["trace"], guard=guard, slo=slo,
                    journal_dir=directory,
-                   checkpoint_every=cfg["checkpoint_every"], device=device,
-                   **cfg.get("snap_kw", {}))
-        del g
+                   checkpoint_every=cfg["checkpoint_every"], snapshot=snap,
+                   device=device, **snap_kw)
+        del g, snap
         _sync(sess.device)
         t2 = time.perf_counter()
         sess.snap.load_state(arrays, extra["snap"])
@@ -663,7 +670,9 @@ class StreamSession:
                 replayed += 1
         finally:
             sess._replaying = False
-        sess.restore_s = dict(load=t1 - t0, build=t2 - t1, restage=t3 - t2,
+        sess.restore_s = dict(load=t1 - t0, graph=t_graph - t1,
+                              snapshot=t_snap - t_graph, static=t2 - t_snap,
+                              restage=t3 - t2,
                               replay=time.perf_counter() - t3)
         _obs().inc("guard.restores")
         get_flight().emit("guard.restore", step=step, replayed=replayed)
