@@ -146,6 +146,29 @@ Phases (any failure exits non-zero; nothing is caught):
      launch counts are read around the guarded session's apply calls and
      the full-size restore only; the fused sweep's three kernels and
      scatter_rows must launch there;
+  10. the sharded engines (after 8b, on phase 1's graph): (10a) the graph
+     split 4 ways (build_sharded, d_p and tile as phase 3), each shard's
+     local pull on the kernels (ell_pull_buckets with n_loc output rows,
+     csr_block_pull) against its plain version on a seeded c of all n_pad
+     vertices, at phase 4's bars; (10b) a one-rank NCCL mesh: a
+     StreamSession(mesh=, trace=True) at STREAM_PARAMS builds its
+     ShardedSnapshot, then distributed_static_pagerank (default params,
+     health=True) and phase 6's three batches applied to the snapshot,
+     each solved by distributed_dfp_pagerank dense and with frontier caps,
+     every solve within L1 1e-8 of the single-device fused engine on the
+     same layout and inputs, health 0, ms beside ms; (10c) the same
+     session recomputed, then a churn and an insert-only batch: engine
+     sharded, no rebuild, the trace's engine and iterations, L1 <= 1e-8
+     to a from-scratch solve, every device table equal to the shard's
+     mirror; (10d) four gloo ranks spawned on the card (run_ranks, a
+     deadline) at n = 2^20, m = 2^24 (GLOO: cut from 2^22 / 2^26 for the
+     phase's time): the 1-D engines (static, DF-P dense and with caps),
+     pagerank_2d and dfp_2d on a (2, 2) mesh over a uniform graph of that
+     size, and a guarded mesh session with a churn batch and a NaN batch
+     that must walk the sharded rung; rank 0 holds each against a
+     single-device solve on the same graph (L1 1e-8). Launch counts are
+     read around the sharded path only (10b-c, and every 10d rank, each
+     of which must launch ell_pull, csr_block_pull and scatter_rows);
   9. LM serving at qwen2-1.5b's full width and depth, bf16, weights drawn
      from --seed (the PageRank tensors freed first): the flash_attention
      kernels against their plain version at the prefill's shapes (B=4,
@@ -1200,6 +1223,430 @@ def obs_phase(sess, reg, capture_dir: str) -> dict:
     return dict(capture=cap, solve_percentiles=pct,
                 session_solve_span=dict(count=sh.count, max_s=sh.max))
 
+# Phase 10: the sharded engines (repro_torch.core.distributed, distributed2d,
+# stream.sharded). 10a and 10b-c run on phase 1's graph; 10d spawns four
+# gloo ranks on the one card (NCCL refuses two ranks on one card) at
+# n = 2^20, m = 2^24, cut from 2^22 / 2^26 for the phase's time; its 2-D
+# engines run on a uniform graph of that size, since a block of the 2-D
+# split is one ELL as wide as the block's largest in-degree, which the
+# power-law graph's hubs would make ~10^5 wide.
+SHARD_ND = 4                                 # 10a: shards of the graph
+GLOO = dict(ranks=4, n=2 ** 20, m=2 ** 24)   # 10d
+GLOO_TIMEOUT_S = 300.0
+
+
+def sharded_view(snap, dev):
+    """The single-device DeviceGraph of a one-shard ShardedSnapshot: its
+    tables, with the mirror's bucket/slot maps (rows local == global when
+    nd = 1), for the single-device fused engine on the same layout."""
+    from repro_torch.core.pagerank import DeviceGraph
+
+    sg, h = snap.sg, snap._half
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return DeviceGraph(
+        buckets=sg.buckets, bucket_of=t(h.bucket_of), slot_of=t(h.slot_of),
+        hi_ids=sg.hi_pos, hi_tiles=sg.hi_tiles, hi_tmask=sg.hi_tmask,
+        hi_rowmap=sg.hi_rowmap, hi_slot_tiles=sg.hi_slot_tiles,
+        hi_slot_off=sg.hi_slot_off, is_low=t(h.is_low), out_deg=sg.out_deg)
+
+
+def sharded_mirror_diffs(snap, dev) -> list:
+    """Names of a ShardedSnapshot's device tables that differ from its
+    shard's host mirror (the slot->tile table against the mirror's)."""
+    from repro_torch.core.pagerank import slot_tile_table
+
+    sg, h = snap.sg, snap._half
+    tiles, off = slot_tile_table(h.hi_rowmap, h.hi_ids.shape[0])
+    pairs = [(f"{f}{b}", getattr(blk, f), getattr(h, "bk_" + f)[b])
+             for b, blk in enumerate(sg.buckets)
+             for f in ("rows", "idx", "mask")]
+    pairs += [("hi_pos", sg.hi_pos, h.hi_ids),
+              ("hi_tiles", sg.hi_tiles, h.hi_tiles),
+              ("hi_tmask", sg.hi_tmask, h.hi_tmask),
+              ("hi_rowmap", sg.hi_rowmap, h.hi_rowmap),
+              ("hi_slot_tiles", sg.hi_slot_tiles, tiles),
+              ("hi_slot_off", sg.hi_slot_off, off),
+              ("out_deg", sg.out_deg,
+               snap._outdeg[snap._lo:snap._hi].astype(np.int32))]
+    return [name for name, t, a in pairs
+            if not torch.equal(t[:a.shape[0]], torch.from_numpy(
+                np.ascontiguousarray(a)).to(dev))]
+
+
+def timed(fn, *a, **k):
+    """(fn's result, its host-clock ms ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_phase(args, g, dev, report, batches, errs) -> dict:
+    """Phase 10: the sharded engines. 10a holds the per-shard pull of a
+    4-way split of the full-size graph on the kernels against its plain
+    version; 10b runs the 1-D engines at world size 1 over NCCL on the
+    full-size graph (static, then phase 6's three batches dense and with
+    frontier caps, on a ShardedSnapshot) against the single-device fused
+    engine on the same layout; 10c runs a mesh StreamSession there; 10d
+    spawns four gloo ranks on the card. Returns the launch counts of the
+    sharded path (10b, 10c and every rank of 10d)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import (PRParams, caps_for, dfp_pagerank,
+                                  init_ranks, l1_error, static_pagerank)
+    from repro_torch.core.distributed import (
+        build_sharded, distributed_dfp_pagerank, distributed_static_pagerank,
+        initial_affected_sharded, local_pull, sharded_frontier_caps)
+    from repro_torch.core.mesh import init_mesh, run_ranks
+    from repro_torch.guard import H_NONFINITE
+    from repro_torch.kernels import csr_block_pull, ell_pull
+    from repro_torch.kernels.csr_block import csr_block_pull_plain
+    from repro_torch.kernels.ell_pull import (ell_pull_buckets,
+                                              ell_pull_buckets_plain)
+    from repro_torch.kernels.stream_scatter import scatter_rows
+    from repro_torch.obs import trace_summary
+    from repro_torch.stream import (StreamSession, frontier_estimate, ingest,
+                                    mixed_workload)
+
+    t_phase = time.perf_counter()
+    rep = {}
+    n = g.n
+    wrappers = (ell_pull, csr_block_pull, scatter_rows)
+    tally = dict.fromkeys((w.__name__ for w in wrappers), 0)
+
+    # -- 10a. the per-shard pull on the card, no collectives ----------------
+    rng = np.random.default_rng(args.seed + 10)
+    shards = []
+    for s in range(SHARD_ND):
+        t0 = time.perf_counter()
+        sg = build_sharded(g, SHARD_ND, d_p=args.d_p, tile=args.tile,
+                           shard=s, device=dev)
+        t_build = time.perf_counter() - t0
+        n_pad = SHARD_ND * sg.n_loc
+        require(sg.n_loc < n_pad, "10a: a shard's rows are all of c")
+        # contributions at the ranks' scale (they sum to 1), as phase 4's
+        c_full = rng.random(n_pad)
+        c_full = torch.from_numpy(c_full / c_full.sum()).to(dev)
+        got = local_pull(sg, c_full)
+        want = local_pull(sg, c_full, kernels=False)
+        e_pull = linf(got, want)
+        lo = ell_pull_buckets(c_full, sg.buckets, n_rows=sg.n_loc)
+        lo_p = ell_pull_buckets_plain(c_full, sg.buckets, n_rows=sg.n_loc)
+        e_ell = linf(lo, lo_p)
+        hi_args = (c_full, sg.hi_tiles, sg.hi_tmask, sg.hi_rowmap,
+                   sg.n_hi_cap)
+        e_csr = linf(csr_block_pull(*hi_args, slots=(sg.hi_slot_tiles,
+                                                     sg.hi_slot_off)),
+                     csr_block_pull_plain(*hi_args))
+        require(lo.shape == (sg.n_loc + 1,) and float(lo[-1]) == 0.0,
+                f"10a shard {s}: ell_pull_buckets wrote {tuple(lo.shape)} "
+                f"or its sink row")
+        require(max(e_pull, e_ell, e_csr) <= TOL_SWEEP,
+                f"10a shard {s}: local pull {e_pull}, ell_pull {e_ell}, "
+                f"csr_block_pull {e_csr}")
+        errs["ell_pull"] = max(errs["ell_pull"], e_ell)
+        errs["csr_block_pull"] = max(errs["csr_block_pull"], e_csr)
+        shards.append(dict(shard=s, n_loc=sg.n_loc, n_pad=n_pad,
+                           build_s=t_build, local_pull_err=e_pull,
+                           ell_pull_err=e_ell, csr_block_pull_err=e_csr,
+                           valid=int(sg.valid.sum()),
+                           high_slots=int((sg.hi_pos < sg.n_loc).sum())))
+        log(f"[sharded 10a] shard {s}/{SHARD_ND}: n_loc {sg.n_loc} of c's "
+            f"{n_pad}, {shards[-1]['high_slots']} high rows, build "
+            f"{t_build:.1f} s; kernels vs plain: local pull {e_pull:.2e}, "
+            f"ell_pull {e_ell:.2e}, csr_block_pull {e_csr:.2e}")
+        del sg, c_full, got, want, lo, lo_p, hi_args
+        torch.cuda.empty_cache()
+    rep["10a"] = shards
+
+    # -- 10b. the 1-D engines at world size 1 over NCCL ---------------------
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    mesh = init_mesh(device=dev, backend="nccl",
+                     init_method=f"file://{store}/pg", rank=0, world_size=1,
+                     timeout_s=600)
+    require(mesh.size == 1, f"10b mesh {mesh}")
+    t0 = time.perf_counter()
+    sparams = PRParams(**STREAM_PARAMS)
+    sess = drive(wrappers, tally, StreamSession, g, params=sparams,
+                 d_p=args.d_p, tile=args.tile, mesh=mesh, trace=True)
+    snap = sess.snap
+    t_sess = time.perf_counter() - t0
+    params = PRParams()
+    r0 = torch.full((n,), 1.0 / n, dtype=torch.float64, device=dev)
+    (r_sh, it_sh, hw_sh), ms_sh = timed(drive, wrappers, tally,
+                                        distributed_static_pagerank, mesh,
+                                        snap.sg, r0, params, health=True)
+    (r_sd, it_sd), ms_sd = timed(static_pagerank, sharded_view(snap, dev),
+                                 init_ranks(n, device=dev), params)
+    l1 = l1_error(r_sh, r_sd)
+    log(f"[sharded 10b] world size 1 ({mesh.backend}): ShardedSnapshot and "
+        f"the session's static solve {t_sess:.1f} s; static sharded "
+        f"{it_sh} iters {ms_sh:.1f} ms, single-device fused on the same "
+        f"layout {it_sd} iters {ms_sd:.1f} ms; L1 {l1:.3e}; health "
+        f"{int(hw_sh)}")
+    require(l1 <= TOL_SOLVE_L1 and int(hw_sh) == 0,
+            f"10b static: L1 {l1}, health {int(hw_sh)}")
+    b10 = dict(snapshot_s=t_sess, static=dict(iters=it_sh, ms=ms_sh,
+                                              single_iters=it_sd,
+                                              single_ms=ms_sd, l1=l1),
+               dfp=[])
+    chains = {"dense": r_sh, "caps": r_sh}
+    single = {"dense": r_sd, "caps": r_sd}
+    for k, b in enumerate(batches, 1):
+        delta = ingest(b, n)
+        st = drive(wrappers, tally, snap.apply, delta)
+        require(not st.rebuilt, f"10b batch {k} rebuilt: {st.rebuild_reason}")
+        db = delta.to_device(device=dev)
+        dv0, dn0 = initial_affected_sharded(1, n, db, 0)
+        est = frontier_estimate(delta, snap._outdeg)
+        row = dict(batch=k, size=delta.size, rows=st.rows_touched,
+                   host_s=st.host_s, device_s=st.device_s)
+        view = sharded_view(snap, dev)
+        for name in chains:
+            caps = sharded_frontier_caps(snap.sg, est) if name == "caps" \
+                else None
+            (r_k, it_k, hw_k), ms_k = timed(
+                drive, wrappers, tally, distributed_dfp_pagerank, mesh,
+                snap.sg, chains[name], dv0, dn0, params, frontier_caps=caps,
+                health=True)
+            (r_1, it_1, hw_1), ms_1 = timed(
+                dfp_pagerank, view, single[name], db, params,
+                frontier_caps=caps_for(view, est) if caps else None,
+                health=True)
+            l1 = l1_error(r_k, r_1)
+            row[name] = dict(iters=it_k, ms=ms_k, single_iters=it_1,
+                             single_ms=ms_1, l1=l1, health=int(hw_k))
+            require(l1 <= TOL_SOLVE_L1 and int(hw_k) == 0 and int(hw_1) == 0,
+                    f"10b DF-P {name} batch {k}: L1 {l1}, health "
+                    f"{int(hw_k)}/{int(hw_1)}")
+            chains[name], single[name] = r_k, r_1
+        b10["dfp"].append(row)
+        log(f"[sharded 10b] batch {k} (|Δ| {delta.size}, {st.rows_touched} "
+            f"rows, host edit {st.host_s:.2f} s, refresh "
+            f"{st.device_s * 1e3:.1f} ms): dense sharded "
+            f"{row['dense']['iters']} iters {row['dense']['ms']:.1f} ms vs "
+            f"single {row['dense']['single_iters']} iters "
+            f"{row['dense']['single_ms']:.1f} ms (L1 "
+            f"{row['dense']['l1']:.2e}); caps sharded "
+            f"{row['caps']['iters']} iters {row['caps']['ms']:.1f} ms vs "
+            f"single {row['caps']['single_ms']:.1f} ms (L1 "
+            f"{row['caps']['l1']:.2e})")
+        del view
+    rep["10b"] = b10
+    del chains, single, r_sh, r_sd, r0
+
+    # -- 10c. the mesh StreamSession at world size 1 ------------------------
+    drive(wrappers, tally, sess.recompute)
+    c10 = []
+    for kind, b in mixed_workload(g, args.frac, n_churn=1, n_insert=1,
+                                  seed=args.seed + 600):
+        drive(wrappers, tally, sess.apply, b)
+        st = sess.history[-1]
+        torch.cuda.synchronize()
+        ref, _ = static_pagerank(sharded_view(snap, dev),
+                                 init_ranks(n, device=dev), sparams)
+        l1 = l1_error(sess.flat_ranks(), ref)
+        diffs = sharded_mirror_diffs(snap, dev)
+        row = dict(kind=kind, size=st.batch_size, engine=st.engine,
+                   iters=st.iters, solve_s=st.solve_s,
+                   host_s=st.snapshot.host_s, device_s=st.snapshot.device_s,
+                   rows=st.snapshot.rows_touched, l1=l1,
+                   trace_engine=st.trace["engine"],
+                   trace_iters=st.trace["iters"])
+        c10.append(row)
+        log(f"[sharded 10c] {kind} batch |Δ| {st.batch_size}: {st.engine} "
+            f"{st.iters} iters, solve {st.solve_s * 1e3:.1f} ms, host edit "
+            f"{st.snapshot.host_s:.2f} s, refresh "
+            f"{st.snapshot.device_s * 1e3:.1f} ms; L1 vs a from-scratch "
+            f"solve {l1:.2e}; tables == mirrors: {not diffs}")
+        require(st.engine == "sharded" and not st.snapshot.rebuilt,
+                f"10c {kind}: engine {st.engine}, rebuilt "
+                f"{st.snapshot.rebuilt}")
+        require(st.trace["engine"] == "dfp_1d"
+                and st.trace["iters"] == st.iters,
+                f"10c {kind}: trace {st.trace['engine']} "
+                f"{st.trace['iters']} iters for {st.iters}")
+        require(l1 <= TOL_SOLVE_L1, f"10c {kind}: L1 {l1}")
+        require(not diffs, f"10c {kind}: tables differ from the mirror: "
+                f"{diffs}")
+    rep["10c"] = c10
+    launches_1 = dict(tally)
+    log(f"[launches] phase 10b-c (world size 1): {launches_1}")
+    del sess, snap, ref
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # -- 10d. four gloo ranks on the one card --------------------------------
+    cfg = dict(GLOO, alpha=args.alpha, seed=args.seed, d_p=args.d_p,
+               tile=args.tile, frac=args.frac, device=str(mesh.device))
+    t0 = time.perf_counter()
+    ranks = run_ranks(gloo_rank, GLOO["ranks"], cfg, store_dir=store,
+                      backend="gloo", timeout_s=GLOO_TIMEOUT_S)
+    t_gloo = time.perf_counter() - t0
+    shutil.rmtree(store)
+    for r in ranks:
+        for name, cnt in r["launches"].items():
+            tally[name] += cnt
+    ref = ranks[0]["checks"]
+    log(f"[sharded 10d] {GLOO['ranks']} gloo ranks, n {GLOO['n']}: "
+        f"{t_gloo:.1f} s; per rank {[round(r['s'], 1) for r in ranks]} s; "
+        f"launches per rank {[r['launches'] for r in ranks]}; rank 0 "
+        f"against single-device solves (L1): {ref}")
+    for r in ranks:
+        for name, cnt in r["launches"].items():
+            require(cnt > 0, f"10d rank {r['rank']}: {name} never launched")
+    for name, v in ref.items():
+        require(v <= TOL_SOLVE_L1, f"10d {name}: L1 {v}")
+    nan = ranks[0]["nan"]
+    require(nan["health"] & H_NONFINITE and nan["rungs"][:1] == ["sharded"]
+            and nan["success"] == 1,
+            f"10d NaN batch: {nan}")
+    rep["10d"] = dict(s=t_gloo, ranks=ranks)
+    rep["s"] = time.perf_counter() - t_phase
+    rep["launches"] = dict(tally)
+    log(f"[launches] phase 10 (10b-c and every 10d rank): {tally}; phase "
+        f"10 {rep['s']:.1f} s")
+    report["sharded"] = rep
+    return dict(launches=tally)
+
+
+def gloo_rank(rank, world, cfg) -> dict:
+    """Phase 10d on one of `world` gloo ranks sharing the card: the 1-D
+    engines (static, DF-P dense and with frontier caps), the 2-D engines
+    on a (2, 2) mesh, and a guarded mesh session with a churn batch and a
+    NaN batch that walks the `sharded` rung. Rank 0 also runs the
+    single-device solves they are held against. Returns the launches of
+    the sharded path on this rank, and rank 0 the L1 gaps."""
+    from repro_torch.core import (PRParams, apply_batch, batch_to_device,
+                                  device_graph, dfp_pagerank, init_ranks,
+                                  l1_error, powerlaw_graph, random_batch,
+                                  random_graph, static_pagerank)
+    from repro_torch.core.distributed import (
+        build_sharded, distributed_dfp_pagerank, distributed_static_pagerank,
+        initial_affected_sharded, sharded_frontier_caps, unshard_vector)
+    from repro_torch.core.distributed2d import (block_of, build_sharded_2d,
+                                                dfp_2d, pagerank_2d)
+    from repro_torch.core.frontier import initial_affected
+    from repro_torch.core.mesh import build_mesh
+    from repro_torch.guard import ChaosMonkey, GuardConfig
+    from repro_torch.kernels import csr_block_pull, ell_pull
+    from repro_torch.kernels.stream_scatter import scatter_rows
+    from repro_torch.obs import get_flight, get_registry
+    from repro_torch.stream import StreamSession, frontier_estimate, ingest
+
+    t_start = time.perf_counter()
+    dev = torch.device(cfg["device"])
+    wrappers = (ell_pull, csr_block_pull, scatter_rows)
+    tally = dict.fromkeys((w.__name__ for w in wrappers), 0)
+    mesh = build_mesh((world,), ("shard",), device=dev)
+    mesh2 = build_mesh((2, 2), ("data", "model"), device=dev)
+    n, d_p, tile = cfg["n"], cfg["d_p"], cfg["tile"]
+    params = PRParams()
+    checks = {}
+
+    def sd(r):
+        return torch.as_tensor(r, device=dev)
+
+    # the 1-D engines
+    g = powerlaw_graph(n, cfg["m"], alpha=cfg["alpha"], seed=cfg["seed"])
+    sg = build_sharded(g, world, d_p=d_p, tile=tile, shard=mesh.shard,
+                       device=dev)
+    r0 = torch.full((sg.n_loc,), 1.0 / n, dtype=torch.float64, device=dev)
+    r, _, hw = drive(wrappers, tally, distributed_static_pagerank, mesh, sg,
+                     r0, params, health=True)
+    flat = unshard_vector(r, n, mesh)
+    b = random_batch(g, cfg["frac"], seed=cfg["seed"] + 300)
+    g2 = apply_batch(g, b)
+    sg2 = build_sharded(g2, world, d_p=d_p, tile=tile, shard=mesh.shard,
+                        device=dev)
+    db = batch_to_device(b, n, device=dev)
+    dv0, dn0 = initial_affected_sharded(world, sg2.n_loc, db, mesh.shard)
+    rd, _, hwd = drive(wrappers, tally, distributed_dfp_pagerank, mesh, sg2,
+                       r, dv0, dn0, params, health=True)
+    caps = sharded_frontier_caps(sg2, frontier_estimate(ingest(b, n),
+                                                        g2.out_degree()))
+    rc, _, hwc = drive(wrappers, tally, distributed_dfp_pagerank, mesh, sg2,
+                       r, dv0, dn0, params, frontier_caps=caps, health=True)
+    flat_d = unshard_vector(rd, n, mesh)
+    flat_c = unshard_vector(rc, n, mesh)
+    health = [int(hw), int(hwd), int(hwc)]
+    del sg, sg2
+
+    # the 2-D engines on a uniform graph of the same size
+    gu = random_graph(n, cfg["m"], seed=cfg["seed"])
+    blk_id = block_of(mesh2)
+    s2 = build_sharded_2d(gu, 2, 2, d_p=8, block=blk_id, device=dev)
+    blk = s2.out_deg.shape[0]
+    r2, _ = drive(wrappers, tally, pagerank_2d, mesh2, s2, torch.full(
+        (blk,), 1.0 / n, dtype=torch.float64, device=dev), params)
+    flat_2 = unshard_vector(r2, n, mesh2)
+    bu = random_batch(gu, cfg["frac"], seed=cfg["seed"] + 310)
+    gu2 = apply_batch(gu, bu)
+    s22 = build_sharded_2d(gu2, 2, 2, d_p=8, block=blk_id, device=dev)
+    dbu = batch_to_device(bu, n, device=dev)
+    dv, dn = initial_affected(4 * blk, dbu.del_src, dbu.del_dst,
+                              dbu.ins_src)
+    lo = blk_id * blk
+    r2d, _ = drive(wrappers, tally, dfp_2d, mesh2, s22, r2,
+                   dv[lo:lo + blk], dn[lo:lo + blk], params)
+    flat_2d = unshard_vector(r2d, n, mesh2)
+    del s2, s22
+
+    # a guarded mesh session: a churn batch, then a NaN batch
+    sparams = PRParams(**STREAM_PARAMS)
+    sess = drive(wrappers, tally, StreamSession, g, params=sparams,
+                 d_p=d_p, tile=tile, mesh=mesh, guard=GuardConfig())
+    drive(wrappers, tally, sess.apply,
+          random_batch(g, cfg["frac"], seed=cfg["seed"] + 400))
+    health.append(sess.history[-1].health)
+    ins = random_batch(g, max(1, round(1000 * n / 2 ** 22)) / g.m,
+                       insert_frac=1.0, seed=cfg["seed"] + 500)
+    v = int(ingest(ins, n).ins_dst[0])
+    lo = mesh.shard * sess.snap.n_loc
+    if lo <= v < lo + sess.snap.n_loc:
+        sess.ranks = ChaosMonkey(cfg["seed"]).poison_ranks(
+            sess.ranks, "nan", idx=[v - lo])
+    drive(wrappers, tally, sess.apply, ins)
+    st = sess.history[-1]
+    nan = dict(vertex=v, health=st.health, escalations=st.escalations,
+               rungs=[e.data["rung"] for e in get_flight().events()
+                      if e.kind == "guard.escalate"],
+               success=get_registry().counter("guard.escalate.success"))
+    flat_s = sess.flat_ranks()
+    g3 = sess.snap.graph()
+    del sess
+
+    if mesh.rank == 0:
+        # the single-device solves on the same graphs
+        dg = device_graph(g, d_p=d_p, tile=tile, device=dev)
+        rs, _ = static_pagerank(dg, init_ranks(n, device=dev), params)
+        checks["static_1d"] = l1_error(flat, rs)
+        dg2 = device_graph(g2, d_p=d_p, tile=tile, device=dev)
+        rds, _ = dfp_pagerank(dg2, sd(flat), db, params)
+        checks["dfp_1d"] = l1_error(flat_d, rds)
+        checks["dfp_1d_caps"] = l1_error(flat_c, rds)
+        del dg, dg2
+        dgu = device_graph(gu, d_p=d_p, tile=tile, device=dev)
+        rsu, _ = static_pagerank(dgu, init_ranks(n, device=dev), params)
+        checks["static_2d"] = l1_error(flat_2, rsu)
+        dgu2 = device_graph(gu2, d_p=d_p, tile=tile, device=dev)
+        rdu, _ = dfp_pagerank(dgu2, sd(flat_2), dbu, params)
+        checks["dfp_2d"] = l1_error(flat_2d, rdu)
+        del dgu, dgu2
+        dg3 = device_graph(g3, d_p=d_p, tile=tile, device=dev)
+        rs3, _ = static_pagerank(dg3, init_ranks(n, device=dev), sparams)
+        checks["session"] = l1_error(flat_s, rs3)
+        del dg3
+    return dict(rank=mesh.rank, launches=tally, health=health, nan=nan,
+                checks=checks, s=time.perf_counter() - t_start)
+
+
 # Phase 9's configuration: the LM served at full width and depth.
 # Phase 8b's guard: quarantine and a drift audit every third batch; the
 # health word's overhead timed over this many interleaved pairs of solves
@@ -2077,9 +2524,11 @@ def main(argv=None) -> int:
     rp = r_p
     g_cur = g
     report["dfp"] = []
+    dfp_batches = []        # phase 10b replays them on a ShardedSnapshot
     for k in range(1, args.batches + 1):
         t0 = time.perf_counter()
         b = random_batch(g_cur, args.frac, seed=args.seed + 100 + k)
+        dfp_batches.append(b)
         g_cur = apply_batch(g_cur, b)
         dg_k = device_graph(g_cur, d_p=args.d_p, tile=args.tile, device=dev)
         fwd = forward_device_graph(g_cur, d_p=args.d_p, tile=args.tile,
@@ -2411,12 +2860,17 @@ def main(argv=None) -> int:
 
     # -- 8b. the guard on the streaming path --------------------------------
     guard = guard_phase(args, g, dev, report, wrappers)
-    # launches on the main paths: static + DF-P (phases 5-6), the stream
-    # and the guard
+    torch.cuda.empty_cache()
+
+    # -- 10. the sharded engines --------------------------------------------
+    sharded = sharded_phase(args, g, dev, report, dfp_batches, errs)
+    # launches on the main paths: static + DF-P (phases 5-6), the stream,
+    # the guard and the sharded engines
     launches = {name: launches.get(name, 0) + stream["launches"].get(name, 0)
-                + guard["launches"].get(name, 0) for name in timings}
+                + guard["launches"].get(name, 0)
+                + sharded["launches"].get(name, 0) for name in timings}
     report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    log(f"[memory] phases 1-8b peak allocated "
+    log(f"[memory] phases 1-8b and 10 peak allocated "
         f"{report['peak_mem_bytes'] / 2**30:.3f} GiB")
     del g, lay, gs, dgs, rs, rd, rc
     torch.cuda.empty_cache()

@@ -178,7 +178,8 @@ def gather_rows(c: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return c.index_select(0, idx.reshape(-1)).view(idx.shape)
 
 
-def pull_sum(dg: DeviceGraph, c: torch.Tensor) -> torch.Tensor:
+def pull_sum(dg: DeviceGraph, c: torch.Tensor,
+             n_out: Optional[int] = None) -> torch.Tensor:
     """sum_{u in G'.row(v)} c[u] for every v — the paper's two rank kernels,
     in plain PyTorch.
 
@@ -186,9 +187,12 @@ def pull_sum(dg: DeviceGraph, c: torch.Tensor) -> torch.Tensor:
     scattered once through the bucket's row map. CSR side: [t_cap, tile]
     masked gather + tile-sum + per-slot sum over the tile->slot map,
     scattered once into the dense result. Sentinel ids land in a sink row.
+    The result has `n_out` rows (default len(c)): a shard's layout holds
+    local rows and ids into the gathered `c` of every shard
+    (`core.distributed`).
     """
     dt = c.dtype
-    n = c.shape[0]
+    n = c.shape[0] if n_out is None else n_out
     out = c.new_zeros(n + 1)
     for blk in dg.buckets:
         sums = (gather_rows(c, blk.idx) * blk.mask.to(dt)).sum(1)
@@ -200,10 +204,12 @@ def pull_sum(dg: DeviceGraph, c: torch.Tensor) -> torch.Tensor:
     return out[:n]
 
 
-def pull_max(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
-    """max_{u in G'.row(v)} x[u] (x ≥ 0) — pull-based frontier expansion."""
+def pull_max(dg: DeviceGraph, x: torch.Tensor,
+             n_out: Optional[int] = None) -> torch.Tensor:
+    """max_{u in G'.row(v)} x[u] (x ≥ 0) — pull-based frontier expansion,
+    over `n_out` rows (default len(x), as `pull_sum`)."""
     dt = x.dtype
-    n = x.shape[0]
+    n = x.shape[0] if n_out is None else n_out
     out = x.new_zeros(n + 1)
     for blk in dg.buckets:
         rmax = (gather_rows(x, blk.idx) * blk.mask.to(dt)).amax(1)

@@ -1,14 +1,17 @@
-"""Alg. 4 — parallel vertex partitioning by degree (host numpy version).
+"""Alg. 4 — parallel vertex partitioning by degree.
 
 The paper partitions vertex IDs into low-degree-first order with two
-exclusive-prefix-sum passes; `build_hybrid` calls this when it (re)builds a
-layout. A copy of the JAX package's numpy `partition_by_degree`.
+exclusive-prefix-sum passes. `partition_by_degree` is the host numpy
+version `build_hybrid` calls when it (re)builds a layout;
+`partition_by_degree_device` is the same scan formulation on tensors, on
+whatever device they lie (the JAX package's `partition_by_degree_jax`).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["partition_by_degree"]
+__all__ = ["partition_by_degree", "partition_by_degree_device"]
 
 
 def partition_by_degree(deg: np.ndarray, d_p: int):
@@ -28,4 +31,20 @@ def partition_by_degree(deg: np.ndarray, d_p: int):
     bk2 = np.zeros(n + 1, dtype=np.int64)
     bk2[1:] = np.cumsum(~low)
     perm[n_low + bk2[:n][~low]] = ids[~low]
+    return perm, n_low
+
+
+def partition_by_degree_device(deg: torch.Tensor, d_p: int):
+    """Alg. 4 on tensors (two exclusive scans and a scatter), on `deg`'s
+    device. Returns (perm [n] int32, n_low 0-d int64 tensor)."""
+    n = deg.shape[0]
+    low = deg <= d_p
+    lo, hi = low.long(), (~low).long()
+    ids = torch.arange(n, dtype=torch.int32, device=deg.device)
+    scan_low = torch.cumsum(lo, 0) - lo            # exclusive scans
+    n_low = lo.sum()
+    scan_hi = torch.cumsum(hi, 0) - hi
+    pos = torch.where(low, scan_low, n_low + scan_hi)
+    perm = torch.zeros(n, dtype=torch.int32, device=deg.device)
+    perm[pos] = ids
     return perm, n_low

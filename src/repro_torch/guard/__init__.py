@@ -9,8 +9,8 @@ package wraps the streaming lifecycle in four pieces:
     policy knob (out-of-range ids would silently corrupt ``edge_keys``);
   * ``health``    — a health word every solve can return (converged at
     max_iter, NaN/Inf, rank-mass drift), computed on the device and
-    consumed by the session's escalation ladder (dense DF-P retry, then a
-    static recompute);
+    consumed by the session's escalation ladder (a dense DF-P retry, or
+    the sharded one on a mesh, then a static recompute);
   * ``journal``   — write-ahead delta journal + atomic session checkpoints;
     ``StreamSession.restore(dir)`` replays to bit-identical state;
   * ``chaos``     — seeded fault injector (corrupt deltas, NaN/bit-flip
@@ -19,8 +19,7 @@ package wraps the streaming lifecycle in four pieces:
 
 ``GuardConfig`` is the one knob object the session takes; ``guard=None``
 keeps the ungated behaviour. A copy of the JAX package's `repro.guard`,
-with the same exports, single-device (the sharded rung comes with ROADMAP
-A7).
+with the same exports.
 """
 from __future__ import annotations
 

@@ -24,6 +24,7 @@ buckets); on any other device it raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -66,26 +67,30 @@ def ell_pull(c: torch.Tensor, idx: torch.Tensor,
     return _launch(c, idx, mask)
 
 
-def ell_pull_buckets_plain(c: torch.Tensor, buckets) -> torch.Tensor:
+def ell_pull_buckets_plain(c: torch.Tensor, buckets,
+                           n_rows: Optional[int] = None) -> torch.Tensor:
     """The plain version of `ell_pull_buckets`: the JAX package's glue
     around `ell_pull_ref` (sums added through each row map into a sink row
     n), the sink row then cleared."""
-    out = c.new_zeros(c.shape[0] + 1)
+    out = c.new_zeros((c.shape[0] if n_rows is None else n_rows) + 1)
     for blk in buckets:
         out.index_add_(0, blk.rows, ell_pull_ref(c, blk.idx, blk.mask))
     out[-1] = 0.0
     return out
 
 
-def ell_pull_buckets(c: torch.Tensor, buckets) -> torch.Tensor:
+def ell_pull_buckets(c: torch.Tensor, buckets,
+                     n_rows: Optional[int] = None) -> torch.Tensor:
     """out[blk.rows[s]] = sum_j c[blk.idx[s, j]] * blk.mask[s, j] over every
-    bucket's slots, shape [n + 1] (n = len(c)): rows in no bucket and the
-    sink row n stay 0, so a caller may add sentinel-indexed sums there.
+    bucket's slots, shape [n + 1] (n = `n_rows`, default len(c)): rows in
+    no bucket and the sink row n stay 0, so a caller may add
+    sentinel-indexed sums there. A shard's layout names `n_rows` local
+    rows (sentinel n_rows) and ids into the gathered `c` of every shard.
     Each vertex lives in at most one bucket slot, so no two sums meet. On
     CUDA: one zero fill and one launch."""
     if c.device.type == "cpu":
-        return ell_pull_buckets_plain(c, buckets)
-    return _launch_buckets(c, buckets)
+        return ell_pull_buckets_plain(c, buckets, n_rows)
+    return _launch_buckets(c, buckets, n_rows)
 
 
 def _launch(c, idx, mask):
@@ -105,12 +110,12 @@ def _launch(c, idx, mask):
     return out
 
 
-def _launch_buckets(c, buckets):
+def _launch_buckets(c, buckets, n_rows):
     dev = c.device
     if dev.type != "cuda":
         raise ValueError(f"ell_pull_buckets: no kernel for device {dev}")
-    n = c.shape[0]
-    _build.check("ell_pull_buckets c", c, torch.float64, (n,), dev)
+    _build.check("ell_pull_buckets c", c, torch.float64, (c.shape[0],), dev)
+    n = c.shape[0] if n_rows is None else int(n_rows)
     out = torch.zeros(n + 1, dtype=torch.float64, device=dev)
     if not buckets:
         return out

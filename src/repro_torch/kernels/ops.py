@@ -33,15 +33,17 @@ from .pr_update import pr_update_sweep
 __all__ = ["update_ranks_kernel", "pull_sum_kernels"]
 
 
-def pull_sum_kernels(dg, c: torch.Tensor) -> torch.Tensor:
+def pull_sum_kernels(dg, c: torch.Tensor, n_out=None) -> torch.Tensor:
     """Kernel-backed pull over the hybrid layout (cf.
     `core.pagerank.pull_sum`): sum_{u in G'.row(v)} c[u] for every v.
 
     `dg` is a DeviceGraph, a snapshot's `.dg` included (its slot->tile
-    table is kept fresh by the snapshot). The high side's sentinel ids
-    land in the sink row of `ell_pull_buckets`, sliced off at the end."""
-    n = c.shape[0]
-    out = ell_pull_buckets(c, dg.buckets)
+    table is kept fresh by the snapshot), or a shard's layout
+    (`core.distributed.ShardedGraph`), whose `n_out` local rows read ids
+    into the gathered `c`. The high side's sentinel ids land in the sink
+    row of `ell_pull_buckets`, sliced off at the end."""
+    n = c.shape[0] if n_out is None else n_out
+    out = ell_pull_buckets(c, dg.buckets, n_rows=n)
     hi = csr_block_pull(c, dg.hi_tiles, dg.hi_tmask, dg.hi_rowmap,
                         dg.n_hi_cap, slots=(dg.hi_slot_tiles, dg.hi_slot_off))
     return out.index_add_(0, dg.hi_ids, hi)[:n]

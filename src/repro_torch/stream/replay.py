@@ -44,7 +44,7 @@ def replay(session: StreamSession, batches: Iterable[BatchUpdate],
         session.apply(b)
         err = None
         if verify_every and (t + 1) % verify_every == 0:
-            err = l1_error(session.ranks, session.static_reference())
+            err = l1_error(session.flat_ranks(), session.static_reference())
         rec = ReplayRecord(t=t, stats=session.history[-1], l1_vs_static=err)
         records.append(rec)
         if on_batch is not None:

@@ -33,9 +33,20 @@ solve. ``journal_dir=`` adds a write-ahead delta journal and (with
 ``checkpoint_every=K``) periodic full-state checkpoints;
 ``StreamSession.restore(dir, device=...)`` rebuilds the session
 bit-identically from the newest checkpoint plus a journal replay, from a
-checkpoint directory of either package. The multi-device mode
-(``mesh=``) comes with a later slice of the port; until then it raises
-``NotImplementedError`` rather than being ignored.
+checkpoint directory of either package.
+
+Multi-rank mode (``mesh=``, a `core.mesh.Mesh`): every rank of the mesh
+builds the session with the same arguments and applies the same batches.
+Each holds its shard of the partitioned layout (`ShardedSnapshot`) and its
+[n_loc] slice of the ranks, which `apply` returns (JAX returns the stacked
+[nd, n_loc]); `flat_ranks` all-gathers the dense [n] on every rank. Every
+batch runs ``distributed_dfp_pagerank`` with the initial frontier seeded on
+the device (`initial_affected_sharded`), and the ladder's first rung is
+the same sharded engine. Rank 0 alone writes the journal and the
+checkpoints (the JAX on-disk format, ``mesh: true``: `ShardedSnapshot`'s
+``s{shard}.`` arrays and the stacked ranks); the other ranks wait for it.
+``restore(dir, mesh=)`` has every rank read the directory and keep its
+shard.
 """
 from __future__ import annotations
 
@@ -48,6 +59,10 @@ import numpy as np
 import torch
 
 from ..core.compact import df_pagerank_compact, dfp_pagerank_compact
+from ..core.distributed import (distributed_dfp_pagerank,
+                                distributed_static_pagerank,
+                                initial_affected_sharded,
+                                sharded_frontier_caps)
 from ..core.dynamic import df_pagerank, dfp_pagerank
 from ..core.frontier import FrontierCaps, caps_for, merge_caps
 from ..core.graph import BatchUpdate, Graph, graph_from_sorted_keys
@@ -64,13 +79,11 @@ from ..obs.postmortem import write_bundle
 from ..obs.spans import get_registry as _obs
 from ..obs.trace import maybe_summary
 from .delta import Delta, ingest
+from .sharded import ShardedSnapshot
 from .snapshot import DeviceSnapshot, SnapshotStats, _sync
 
 __all__ = ["StreamSession", "BatchStats", "choose_engine",
            "frontier_estimate"]
-
-#: the ROADMAP item that brings the JAX session's multi-device mode
-_MESH_LATER = "A7 (sharded engines)"
 
 
 def frontier_estimate(delta: Delta, outdeg: np.ndarray) -> int:
@@ -154,6 +167,12 @@ class StreamSession:
     validation, the per-solve health watchdog + escalation ladder and the
     periodic drift audit; ``journal_dir=``/``checkpoint_every=`` add crash
     recovery via ``StreamSession.restore(journal_dir)``.
+
+    Multi-rank: pass ``mesh=`` (a `core.mesh.Mesh`; `device` is then the
+    mesh's) — the session shards the snapshot over the mesh and chains
+    the 1-D distributed DF-P engine instead (``engine``/``prune``/
+    ``compact_threshold`` apply only to the single-device path; sharded
+    DF-P always prunes).
     """
 
     def __init__(self, g: Graph, params: Optional[PRParams] = None,
@@ -164,10 +183,6 @@ class StreamSession:
                  slo: Optional[SLOConfig] = None,
                  journal_dir: Optional[str] = None,
                  checkpoint_every: int = 0, device=None, **snap_kw):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"StreamSession(mesh=...) is not ported yet: "
-                f"ROADMAP {_MESH_LATER}")
         if engine not in ("auto", "dense", "compact"):
             raise ValueError(f"unknown engine: {engine!r}")
         #: when True every batch's solve records an obs.trace.TraceBuffer
@@ -186,14 +201,23 @@ class StreamSession:
         self.engine = engine
         self.prune = prune
         self.compact_threshold = compact_threshold
+        self.mesh = mesh
         self.guard = guard
         self.slo = slo
         self.journal_dir = journal_dir
         self.checkpoint_every = checkpoint_every
         self._snap_kw = dict(snap_kw)
         self._d_p, self._tile = d_p, tile
-        self.snap = snapshot if snapshot is not None else DeviceSnapshot(
-            g, d_p=d_p, tile=tile, device=device, **snap_kw)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} on a mesh of "
+                                 f"{mesh.device}")
+            self.snap = snapshot if snapshot is not None else \
+                ShardedSnapshot(g, mesh, d_p=d_p, tile=tile, **snap_kw)
+        else:
+            self.snap = snapshot if snapshot is not None else \
+                DeviceSnapshot(g, d_p=d_p, tile=tile, device=device,
+                               **snap_kw)
         self.ranks, self._init_iters = self._static_solve()
         self.history: List[BatchStats] = []
         #: never-shrink FrontierCaps across the stream (None until the
@@ -204,8 +228,10 @@ class StreamSession:
         #: replay and the live stream stay aligned)
         self._batch_idx = 0
         self._replaying = False
+        # one writer: on a mesh, rank 0 journals for every rank
         self._journal = (DeltaJournal(journal_path(journal_dir))
-                         if journal_dir is not None else None)
+                         if journal_dir is not None and self._writer
+                         else None)
         #: per-session solve-latency histogram (the SLO judges THIS stream's
         #: p99, not the process-wide registry shared across sessions)
         self._solve_hist = Histogram()
@@ -233,10 +259,17 @@ class StreamSession:
     def device(self) -> torch.device:
         return self.snap.device
 
+    @property
+    def _writer(self) -> bool:
+        """Whether this process writes the journal and checkpoints (rank
+        0 of a mesh; always, single-device)."""
+        return self.mesh is None or self.mesh.rank == 0
+
     # -- the streaming API ---------------------------------------------------
 
     def apply(self, batch: BatchUpdate | Delta) -> torch.Tensor:
-        """Apply Δ^t and return the new rank vector (on the device).
+        """Apply Δ^t and return the new rank vector (on the device; this
+        rank's [n_loc] slice in mesh mode — see `flat_ranks`).
 
         A raw batch is validated under the guard's policy ("raise" when
         unguarded) and canonicalized (`ingest`); a `Delta` is taken as it
@@ -420,7 +453,7 @@ class StreamSession:
         g = self.guard
         if g is None or g.mass_tol == MASS_TOL:
             return hw
-        drift = abs(float(torch.sum(r)) - 1.0)
+        drift = abs(float(torch.sum(self._flatten(r))) - 1.0)
         if np.isfinite(drift) and drift > g.mass_tol:
             return hw | H_MASS_DRIFT
         return hw & ~H_MASS_DRIFT
@@ -438,9 +471,10 @@ class StreamSession:
                   seq: Optional[int] = None):
         """Walk the recovery ladder after an unhealthy solve.
 
-        Rung 1 (``dense``) retries the batch with the *recovery* params
-        (full iteration budget) from the pre-solve ranks, on the dense
-        engine (the compact engine's own superset). Rung 2
+        Rung 1 (``dense``, or ``sharded`` in mesh mode) retries the batch
+        with the *recovery* params (full iteration budget) from the
+        pre-solve ranks, on the dense engine (the compact engine's own
+        superset) or the sharded one. Rung 2
         (``recompute``) solves from scratch: a static solve from
         ``init_ranks``, which ignores every piece of possibly-poisoned rank
         state. Each rung's result is accepted only if ITS health word is
@@ -456,14 +490,17 @@ class StreamSession:
         rp = self._recovery_params()
         walked = 0
         hw2 = hw
-        for rung in ("dense", "recompute")[
-                :max(int(self.guard.retry_budget), 0)]:
+        rungs = ("sharded" if self.mesh is not None else "dense",
+                 "recompute")
+        for rung in rungs[:max(int(self.guard.retry_budget), 0)]:
             walked += 1
             obs.inc(f"guard.escalate.{rung}")
             flight.emit("guard.escalate", rung=rung, seq=seq, health=hw)
             if rung == "dense":
                 fn = dfp_pagerank if self.prune else df_pagerank
                 r, it, hw2 = fn(self.snap, r_pre, db, rp, health=True)
+            elif rung == "sharded":
+                r, it, hw2 = self._sharded_solve(r_pre, db, rp, health=True)
             else:
                 r, it, hw2 = self._static_solve(params=rp, health=True)
             iters, hw2 = int(it), self._apply_mass_tol(int(hw2), r)
@@ -503,7 +540,8 @@ class StreamSession:
         obs = _obs()
         obs.inc("guard.audit.runs")
         r_ref = self._static_solve(params=self._recovery_params())[0]
-        l1 = float(torch.sum(torch.abs(self.ranks - r_ref)))
+        l1 = float(torch.sum(torch.abs(self.flat_ranks()
+                                       - self._flatten(r_ref))))
         resync = l1 > self.guard.audit_tol
         get_flight().emit("guard.audit", seq=self._batch_idx, l1=l1,
                           resync=resync)
@@ -526,7 +564,7 @@ class StreamSession:
     def _session_config(self) -> dict:
         """The JSON-safe arguments `restore` rebuilds the session with —
         the JAX session's keys, so either package restores the other's
-        checkpoints (``mesh`` is always False here)."""
+        checkpoints."""
         g = self.guard
         gd = None
         if g is not None:
@@ -542,23 +580,34 @@ class StreamSession:
                     d_p=self._d_p, tile=self._tile, engine=self.engine,
                     prune=self.prune,
                     compact_threshold=self.compact_threshold,
-                    trace=self.trace, mesh=False,
+                    trace=self.trace, mesh=self.mesh is not None,
                     checkpoint_every=self.checkpoint_every,
                     guard=gd, slo=slo, snap_kw=dict(self._snap_kw))
 
     def checkpoint(self) -> str:
         """Write a full-state checkpoint (ranks + snapshot mirrors + config)
         under ``journal_dir``, valid after batch ``_batch_idx``. Atomic via
-        train/checkpoint.py's manifest rename."""
+        train/checkpoint.py's manifest rename. In mesh mode a collective:
+        the shards' states and ranks (stacked [nd, n_loc], as JAX writes
+        them) are gathered, rank 0 writes, and every rank returns once the
+        checkpoint is committed."""
         if self.journal_dir is None:
             raise ValueError("session has no journal_dir")
         arrays, snap_extra = self.snap.state_dict()
         arrays = dict(arrays)
-        arrays["ranks"] = self.ranks
+        if self.mesh is None:
+            arrays["ranks"] = self.ranks
+        else:
+            arrays["ranks"] = self.mesh.all_gather(self.ranks).reshape(
+                self.snap.nd, self.snap.n_loc)
         extra = {"snap": snap_extra, "session": self._session_config(),
                  "frontier_caps": _caps_to_json(self._caps)}
-        path = save_session_checkpoint(self.journal_dir, self._batch_idx,
-                                       arrays, extra)
+        path = os.path.join(self.journal_dir, f"step_{self._batch_idx:010d}")
+        if self._writer:
+            path = save_session_checkpoint(self.journal_dir, self._batch_idx,
+                                           arrays, extra)
+        if self.mesh is not None:
+            self.mesh.barrier()
         get_flight().emit("guard.checkpoint", seq=self._batch_idx,
                           path=path)
         return path
@@ -584,14 +633,12 @@ class StreamSession:
         ``static`` (the session's static solve), ``restage``
         (`load_state`) and ``replay``.
 
-        A checkpoint of either package restores; ``mesh=`` (a sharded
-        session) is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                f"StreamSession.restore(mesh=...) is not ported yet: "
-                f"ROADMAP {_MESH_LATER}")
+        A checkpoint of either package restores. A mesh session's
+        checkpoint needs ``mesh=`` (meshes do not serialize) of the
+        checkpoint's shard count: every rank calls `restore` and keeps its
+        shard; only rank 0 cuts a torn journal tail."""
         try:
-            return cls._restore_impl(directory, device)
+            return cls._restore_impl(directory, mesh, device)
         except Exception as e:
             # a failed recovery is the post-mortem case par excellence:
             # bundle the flight tail + registry before re-raising (the
@@ -601,15 +648,15 @@ class StreamSession:
             raise
 
     @classmethod
-    def _restore_impl(cls, directory: str, device) -> "StreamSession":
+    def _restore_impl(cls, directory: str, mesh, device) -> "StreamSession":
         t0 = time.perf_counter()
         arrays, extra, step = load_session_checkpoint(directory)
         t1 = time.perf_counter()
         cfg = extra["session"]
-        if cfg["mesh"]:
-            raise NotImplementedError(
-                f"checkpoint is from a mesh session, which is not ported "
-                f"yet: ROADMAP {_MESH_LATER}")
+        if cfg["mesh"] and mesh is None:
+            raise ValueError("checkpoint is from a mesh session: pass mesh=")
+        if not cfg["mesh"] and mesh is not None:
+            raise ValueError("checkpoint is single-device: mesh= given")
         params = PRParams(*cfg["params"])
         guard = None
         if cfg.get("guard") is not None:
@@ -627,13 +674,17 @@ class StreamSession:
             int(cfg["n"]), np.ascontiguousarray(arrays["keys"]))
         t_graph = time.perf_counter()
         snap_kw = cfg.get("snap_kw", {})
-        snap = DeviceSnapshot(g, d_p=cfg["d_p"], tile=cfg["tile"],
-                              device=device, **snap_kw)
+        if mesh is not None:
+            snap = ShardedSnapshot(g, mesh, d_p=cfg["d_p"], tile=cfg["tile"],
+                                   **snap_kw)
+        else:
+            snap = DeviceSnapshot(g, d_p=cfg["d_p"], tile=cfg["tile"],
+                                  device=device, **snap_kw)
         _sync(snap.device)
         t_snap = time.perf_counter()
         sess = cls(g, params=params, d_p=cfg["d_p"], tile=cfg["tile"],
                    engine=cfg["engine"], prune=cfg["prune"],
-                   compact_threshold=cfg["compact_threshold"],
+                   compact_threshold=cfg["compact_threshold"], mesh=mesh,
                    trace=cfg["trace"], guard=guard, slo=slo,
                    journal_dir=directory,
                    checkpoint_every=cfg["checkpoint_every"], snapshot=snap,
@@ -642,14 +693,26 @@ class StreamSession:
         _sync(sess.device)
         t2 = time.perf_counter()
         sess.snap.load_state(arrays, extra["snap"])
-        sess.ranks = torch.from_numpy(arrays.pop("ranks")).to(sess.device)
+        ranks = arrays.pop("ranks")
+        if mesh is not None:
+            want = (sess.snap.nd, sess.snap.n_loc)
+            if ranks.shape != want:
+                raise ValueError(f"checkpointed ranks {ranks.shape} on a "
+                                 f"mesh of {want}")
+            ranks = ranks[sess.snap.shard]
+        sess.ranks = torch.from_numpy(np.ascontiguousarray(ranks)).to(
+            sess.device)
         del arrays
         _sync(sess.device)
         t3 = time.perf_counter()
         sess._batch_idx = step
         sess._caps = _caps_from_json(extra.get("frontier_caps"))
         records, truncated = DeltaJournal.scan(journal_path(directory))
-        if truncated:
+        if mesh is not None:
+            # every rank has read the journal before rank 0 may cut it or
+            # append the next batch
+            mesh.barrier()
+        if truncated and sess._writer:
             # cut the torn tail, so the session's next append follows the
             # last intact record and a later restore reads it (JAX's
             # session appends after the torn bytes)
@@ -694,6 +757,10 @@ class StreamSession:
         its health word (a 0-d int32 tensor) when `health`. `apply` calls
         it; `kernels=False` repeats a batch's solve on the plain PyTorch
         path. Does not touch session state."""
+        if engine == "sharded":
+            return self._sharded_solve(r_prev, db, self.params, caps=caps,
+                                       kernels=kernels, trace=trace,
+                                       health=health)
         if engine == "compact":
             fn = dfp_pagerank_compact if self.prune else df_pagerank_compact
             return fn(self.snap, None, r_prev, db, self.params,
@@ -706,13 +773,29 @@ class StreamSession:
         """Frontier capacity plan for this batch — the running elementwise
         max over the stream (never-shrink). `frontier.caps_growth` counts
         the batches that grew it."""
-        merged = merge_caps(self._caps, caps_for(self.snap.dg, est))
+        new = (sharded_frontier_caps(self.snap.sg, est)
+               if self.mesh is not None else caps_for(self.snap.dg, est))
+        merged = merge_caps(self._caps, new)
         if self._caps is not None and merged != self._caps:
             _obs().inc("frontier.caps_growth")
         self._caps = merged
         return merged
 
+    def _sharded_solve(self, r_prev, db, params: PRParams, caps=None,
+                       kernels: Optional[bool] = None, trace: bool = False,
+                       health: bool = False):
+        """The sharded DF-P solve of one batch from `r_prev` (this rank's
+        slice), its frontier seeded from the batch on the device."""
+        snap = self.snap
+        dv0, dn0 = initial_affected_sharded(snap.nd, snap.n_loc, db,
+                                            snap.shard)
+        return distributed_dfp_pagerank(
+            self.mesh, snap.sg, r_prev, dv0, dn0, params, trace=trace,
+            frontier_caps=caps, health=health, kernels=kernels)
+
     def _choose_engine(self, delta: Delta) -> str:
+        if self.mesh is not None:
+            return "sharded"
         if self.engine != "auto":
             return self.engine
         return choose_engine(delta, self.snap._outdeg, self.n,
@@ -723,26 +806,39 @@ class StreamSession:
         """From-scratch static solve on the current snapshot: the one place
         the recipe lives (init vector, engine, params), in lock-step across
         __init__, static_reference, recompute, the audit and the ladder's
-        recompute rung."""
+        recompute rung — in the session's rank layout (dense [n], or this
+        rank's [n_loc] slice in mesh mode)."""
         params = params if params is not None else self.params
-        return static_pagerank(self.snap.dg,
-                               init_ranks(self.n, device=self.device), params,
-                               health=health)
+        if self.mesh is None:
+            return static_pagerank(self.snap.dg,
+                                   init_ranks(self.n, device=self.device),
+                                   params, health=health)
+        r0 = torch.full((self.snap.n_loc,), 1.0 / self.n,
+                        dtype=torch.float64, device=self.device)
+        return distributed_static_pagerank(self.mesh, self.snap.sg, r0,
+                                           params, health=health)
+
+    def _flatten(self, r: torch.Tensor) -> torch.Tensor:
+        """Dense [n] ranks from the session's layout (in mesh mode an
+        all-gather: every rank calls it)."""
+        if self.mesh is None:
+            return r
+        return self.mesh.all_gather(r)[:self.n]
 
     def flat_ranks(self) -> torch.Tensor:
-        """Current ranks as a dense [n] vector. Single-device, that is
-        `ranks` itself."""
-        return self.ranks
+        """Current ranks as a dense [n] vector: `ranks` itself on one
+        device, all-gathered in mesh mode (a collective)."""
+        return self._flatten(self.ranks)
 
     def static_reference(self) -> torch.Tensor:
-        """From-scratch static solve on the *current* snapshot — the
-        verification anchor for the chained DF-P ranks. Does not touch
+        """From-scratch static solve on the *current* snapshot, dense [n] —
+        the verification anchor for the chained DF-P ranks. Does not touch
         session state."""
-        return self._static_solve()[0]
+        return self._flatten(self._static_solve()[0])
 
     def topk(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k vertices by rank: (ids [k], ranks [k]), descending."""
-        vals, ids = torch.topk(self.ranks, k)
+        vals, ids = torch.topk(self.flat_ranks(), k)
         return ids.cpu().numpy(), vals.cpu().numpy()
 
     def recompute(self) -> torch.Tensor:

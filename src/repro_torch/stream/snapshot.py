@@ -232,13 +232,14 @@ class _HalfLayout:
     or, from the tile side, to `low_water` (the d_p hysteresis).
     """
 
-    def __init__(self, lay, row_deg: np.ndarray, device: torch.device,
-                 low_water: Optional[int] = None):
+    def __init__(self, lay, row_deg: np.ndarray,
+                 device: Optional[torch.device],
+                 low_water: Optional[int] = None, stage_device: bool = True):
         n = lay.n
         self.n, self.d_p, self.tile = n, lay.d_p, lay.tile
         self.device = device
-        self.low_water = (max(self.d_p // 2, 1) if low_water is None
-                          else min(low_water, self.d_p))
+        if low_water is not None:
+            self.low_water = low_water
         self.widths = tuple(lay.widths)
         self.bk_rows = [np.ascontiguousarray(b.rows) for b in lay.buckets]
         self.bk_idx = [np.ascontiguousarray(b.idx) for b in lay.buckets]
@@ -281,7 +282,13 @@ class _HalfLayout:
         #: the slot / tile ids the last `device_refresh` scattered, by table
         #: (bucket index, or "tiles") — what `chip_smoke.py` replays
         self.last_scatter: dict = {}
-        self._stage_device()
+        # `stage_device=False` stages nothing: the sharded snapshot
+        # (stream/sharded.py) keeps this host-edit machinery for its shard
+        # but owns the device tables itself, draining `drain_dirty()` into
+        # its own scatters instead of calling `device_refresh`
+        self._staged = stage_device
+        if stage_device:
+            self._stage_device()
 
     def _clear_dirty(self) -> None:
         nb = len(self.widths)
@@ -368,7 +375,27 @@ class _HalfLayout:
             for i in range(off.shape[0] - 1)]
         self.migrations = int(st[f"{prefix}migrations"][0])
         self._clear_dirty()
-        self._stage_device()
+        if self._staged:
+            self._stage_device()
+
+    # -- dirty-state handoff (sharded snapshot path) -------------------------
+
+    def drain_dirty(self) -> dict:
+        """Return and clear the dirty state: `bucket_slots` (slot ids per
+        bucket), `bucket_maps` (per bucket: its row map changed),
+        `tiles`, `rowmap_dirty`, `side_dirty`. For owners that stage the
+        device tables themselves: the mirrors are current, and the ids say
+        which slots and tiles to scatter."""
+        nt = len(self._dirty_tiles)
+        out = dict(
+            bucket_slots=[np.fromiter(s, np.int32, len(s))
+                          for s in self._dirty_slots],
+            bucket_maps=list(self._bmap_dirty),
+            tiles=np.fromiter(self._dirty_tiles, np.int32, nt),
+            rowmap_dirty=self._rowmap_dirty,
+            side_dirty=self._side_dirty)
+        self._clear_dirty()
+        return out
 
     # -- structural edits (host mirrors) ------------------------------------
 
@@ -411,6 +438,17 @@ class _HalfLayout:
         self._hi_delete(row, nbr)
         if self.widths and self.row_deg[row] <= self.low_water:
             self._migrate_to_low(row)
+
+    @property
+    def low_water(self) -> int:
+        """The degree at which a tile-side row demotes to the ELL (the d_p
+        hysteresis): d_p // 2 unless set, and never above d_p — a row
+        with more than d_p neighbours must stay on the tile side."""
+        return getattr(self, "_low_water", max(self.d_p // 2, 1))
+
+    @low_water.setter
+    def low_water(self, v: int) -> None:
+        self._low_water = min(v, self.d_p)
 
     # -- ELL bucket slot management -----------------------------------------
 
@@ -624,12 +662,22 @@ class DeviceSnapshot:
     The tensors live on `device` (CUDA unless the caller names another;
     without a card the constructor raises) and are updated in place by
     `apply` (see the module docstring).
+
+    ``scatter_impl`` ("jnp" or "pallas") is the JAX snapshot's choice of
+    row scatter, kept so that sessions and checkpoints carry the same
+    keyword in both packages. Here it changes nothing: the device of the
+    tensors decides, the `scatter_rows` kernel on CUDA and its plain
+    version on the CPU.
     """
 
     def __init__(self, g: Graph, d_p: int = 64, tile: int = 256,
                  hi_headroom: float = 2.0, tile_headroom: float = 2.0,
                  rebuild_threshold: float = 0.05, frag_budget: float = 0.6,
-                 low_water: Optional[int] = None, device=None):
+                 low_water: Optional[int] = None, scatter_impl: str = "jnp",
+                 device=None):
+        if scatter_impl not in ("jnp", "pallas"):
+            raise ValueError(f"unknown scatter_impl: {scatter_impl!r}")
+        self.scatter_impl = scatter_impl
         self.device = resolve_device(device)   # raise before the host work
         self.n = g.n
         self.d_p, self.tile = d_p, tile

@@ -799,8 +799,6 @@ def test_journal_write_ahead_ordering(tmp_path):
 
 def test_restore_arguments_and_failures(tmp_path):
     g = tc.random_graph(N, M, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ts.StreamSession.restore(str(tmp_path), mesh=object())
     with pytest.raises(ValueError, match="no journal_dir"):
         ts.StreamSession(g, device="cpu").checkpoint()
     # nothing to restore: FileNotFoundError, and a restore_failed bundle
@@ -829,6 +827,13 @@ def test_restore_arguments_and_failures(tmp_path):
     assert "checksum mismatch" in doc["extra"]["error"]
     assert [e.kind for e in tobs.get_flight().events()].count(
         "guard.checkpoint") == 1
+    # a single-device checkpoint refuses a mesh, as JAX's restore does
+    d = tmp_path / "single"
+    sess = ts.StreamSession(g, journal_dir=str(d), device="cpu")
+    sess.checkpoint()
+    sess.close()
+    with pytest.raises(ValueError, match="single-device: mesh= given"):
+        ts.StreamSession.restore(str(d), mesh=object())
 
 
 # ---------------------------------------------------------------------------

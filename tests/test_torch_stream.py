@@ -13,6 +13,7 @@ On the CPU every kernel wrapper runs its plain PyTorch version; the CUDA
 kernels are held against those by `chip_smoke.py` on the card.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -741,10 +742,14 @@ def test_session_topk_matches_argsort():
     assert np.all(np.diff(vals) <= 0)
 
 
-@pytest.mark.parametrize("arg,value,item", [("mesh", object(), "A7")])
-def test_session_arguments_of_later_slices_raise(arg, value, item):
+@pytest.mark.parametrize("arg,value,match", [
+    ("mesh", SimpleNamespace(device=torch.device("meta")),
+     "device cpu on a mesh of meta")])
+def test_session_arguments_of_later_slices_raise(arg, value, match):
+    """An argument a later slice ported (`mesh=`) is taken, not ignored:
+    a device that is not the mesh's raises."""
     g = tc.powerlaw_graph(50, 200, seed=0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(ValueError, match=match):
         ts.StreamSession(g, **CAPS, **{arg: value}, **CPU)
 
 
