@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (`repro_torch`) of Static and DF-P PageRank,
-of its streaming session and of LM serving on one GPU, and hold its CUDA
-kernels against their plain PyTorch versions.
+of its streaming session and of LM serving and training on one GPU, and
+hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py                 # full size: n=2^22, m=2^26
     python3 chip_smoke.py --n 65536 --m 1048576 --out report.json
@@ -187,8 +187,29 @@ Phases (any failure exits non-zero; nothing is caught):
      version, scaled_dot_product_attention (the yardstick, never on the
      path) and its bound, of prefill_step and of one decode_step; serve
      (batch 4, prompt 64, gen 32) twice with one seed: equal tokens in
-     [0, vocab).
-Before the last line it prints the `kernels` JSON line (seven kernels); the
+     [0, vocab);
+  11. LM training (after 9): (11a) flash_attention_bwd against its plain
+     version (flash_attention_bwd_plain, on the forward kernel's o and
+     lse, p rounded for dV where the forward took the tensor cores) at the
+     training shapes: bf16 (the tensor-core forward's lse) and f32 causal,
+     bf16 full, ragged S = T = 1000 in both types, bf16 at smollm-360m's
+     D 64 (15 heads over 5), f32 at D 16: f32 within 1e-4 of each
+     gradient's max, bf16 within 2^-7 |want| + 2^-8 max|want|, lse within
+     1e-4 + 1e-5 |lse|, two runs bit-identical; FlashAttentionFn against
+     autograd through the plain forward; the kernel's times beside its
+     plain version, its bound and scaled_dot_product_attention's backward
+     (the yardstick); (11b) qwen2-1.5b at full width, 2 layers, f32, 2 x
+     256, the same weights on the card and the CPU: loss within 1e-5
+     relative, gradients and m within 1e-5 of each leaf's max, v within
+     2e-5, the weights after one train_step within AdamW's sign-step bar
+     (tests/test_torch_train.py); (11c) train() at full width and depth,
+     bf16, 3 steps on batch_for(cfg, 4, 2048) (one microbatch; launch
+     counts set to 0 here: flash_attention exactly 56 a step, all on the
+     tensor cores, flash_attention_bwd 28), losses and grad norms finite,
+     every weight leaf moved, the steps' ms and tokens/s (the first apart),
+     the peak memory, one step's forward / backward / AdamW split by CUDA
+     events, and a checkpoint of the 2-layer model restored bit for bit.
+Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
 """
@@ -200,6 +221,7 @@ import glob
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2267,6 +2289,374 @@ def lm_phase(args, dev, report):
     return dict(launches=launches, max_abs_err=err, timing=t_attn)
 
 
+# -- phase 11: LM training ----------------------------------------------------
+# The backward kernel against its plain version: f32 within 1e-4 of the
+# gradient's max |value| (the sums run in another order than the plain
+# version's einsums over S = 2048 terms); bf16 within one bf16 ulp of each
+# value (2^-7 |want|: both round their f32 result, and the two f32 results
+# may straddle a rounding boundary) plus 2^-8 of the gradient's max (the f32
+# differences, and a p rounded to the neighbouring bf16 value in dV where
+# the two versions' scores differ in their last bits).
+TOL_BWD_F32 = 1e-4
+TOL_BWD_BF16 = (2.0 ** -7, 2.0 ** -8)        # (x |want|, x max|want|)
+TOL_LSE = (1e-4, 1e-5)                        # (absolute, x |want|)
+
+
+def bwd_err(got, want):
+    """(max |got - want|, that over max |want|, whether every value is
+    finite and within the bar of got's dtype)."""
+    d = (got.float() - want.float()).abs()
+    mx = float(want.float().abs().max())
+    if got.dtype == torch.float32:
+        bar = TOL_BWD_F32 * mx
+    else:
+        bar = TOL_BWD_BF16[0] * want.float().abs() + TOL_BWD_BF16[1] * mx
+    ok = bool(torch.isfinite(got).all()) and bool((d <= bar).all())
+    return float(d.max()), float(d.max()) / max(mx, 1e-30), ok
+
+
+def attn_bwd_checks(args, dev, report):
+    """11a: flash_attention_bwd against flash_attention_bwd_plain on the
+    forward kernel's o and lse, at the training shapes; two runs bit for
+    bit; FlashAttentionFn against autograd through the plain forward; then
+    the times at 4 x 2048 bf16. Returns the worst error and the times."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (FlashAttentionFn,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain,
+                                                flash_attention_bwd,
+                                                flash_attention_bwd_plain,
+                                                tensor_core_path)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, sm = get_config(LM_ARCH), get_config("smollm-360m")
+    B, S = LM_BATCH, LM_SEQ
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    rep = dict(checks=[])
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def operands(s, dtype, heads=(H, K), d=D, causal=True):
+        q = rand(B, s, heads[0], d, dtype=dtype)
+        k = rand(B, s, heads[1], d, dtype=dtype)
+        v = rand(B, s, heads[1], d, dtype=dtype)
+        do = rand(B, s, heads[0], d, dtype=dtype)
+        o, lse = flash_attention_bshd(q, k, v, causal=causal,
+                                      return_lse=True)
+        return q, k, v, o, lse, do
+
+    err = 0.0
+    cases = [("bf16 causal", S, torch.bfloat16, True, (H, K), D),
+             ("f32 causal", S, torch.float32, True, (H, K), D),
+             ("bf16 full", S, torch.bfloat16, False, (H, K), D),
+             ("bf16 ragged 1000", 1000, torch.bfloat16, True, (H, K), D),
+             ("f32 ragged 1000", 1000, torch.float32, True, (H, K), D),
+             ("bf16 smollm-360m", S, torch.bfloat16, True,
+              (sm.n_heads, sm.n_kv_heads), sm.hd),
+             ("f32 D 16", S, torch.float32, True, (H, K), 16)]
+    for name, s, dtype, causal, heads, d in cases:
+        q, k, v, o, lse, do = operands(s, dtype, heads, d, causal)
+        tc = tensor_core_path(dtype, d)
+        _, lse_p = flash_attention_bshd_plain(q, k, v, causal=causal,
+                                              round_p=tc, return_lse=True)
+        e_lse = float((lse - lse_p).abs().max())
+        require(bool(((lse - lse_p).abs() <= TOL_LSE[0]
+                      + TOL_LSE[1] * lse_p.abs()).all()),
+                f"flash_attention lse {name}: max |diff| {e_lse}")
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         round_p=tc)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = {}
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            require(g.shape == w.shape and g.dtype == dtype,
+                    f"flash_attention_bwd {name} {gname}: shape or dtype")
+            e, rel, ok = bwd_err(g, w)
+            errs[gname] = (e, rel)
+            err = max(err, e)
+            require(ok, f"flash_attention_bwd {name} {gname}: max |diff| "
+                        f"{e} ({rel:.3e} of max |want|)")
+        require(same, f"flash_attention_bwd {name}: two runs differ")
+        rep["checks"].append(dict(case=name, q=list(q.shape),
+                                  kv=list(k.shape), lse_err=e_lse,
+                                  errs=errs, bit_identical=same))
+        log(f"[train] flash_attention_bwd {name} q {list(q.shape)} kv "
+            f"{list(k.shape)}: " + ", ".join(
+                f"{g} {e:.3e} ({r:.2e} of max)" for g, (e, r) in errs.items())
+            + f"; lse {e_lse:.2e}; repeat bit-identical {same}")
+        del q, k, v, o, lse, do, got, again, want
+    # the autograd Function against autograd through the plain forward
+    qkv = [rand(2, 256, h, D).requires_grad_() for h in (H, K, K)]
+    do = rand(2, 256, H, D)
+    got = torch.autograd.grad(FlashAttentionFn.apply(*qkv, True), qkv, do)
+    want = torch.autograd.grad(flash_attention_bshd_plain(*qkv), qkv, do)
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        e, rel, ok = bwd_err(g, w)
+        log(f"[train] FlashAttentionFn {gname} against autograd through the "
+            f"plain forward (f32, 2 x 256): {e:.3e} ({rel:.2e} of max)")
+        require(ok, f"FlashAttentionFn {gname} vs autograd: {e}")
+    del qkv, do, got, want
+
+    # times at the training shape, bf16
+    q, k, v, o, lse, do = operands(S, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def kern():
+        return flash_attention_bwd(q, k, v, o, lse, do)
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    flops = 2.5 * 2 * B * H * S * S * D
+    nbytes = 2 * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S
+    t = dict(ms=cuda_ms(kern, args.repeats, ATTN_PER),
+             plain_ms=cuda_ms(lambda: flash_attention_bwd_plain(
+                 q, k, v, o, lse, do, round_p=True), max(3, args.repeats // 4)),
+             library_ms=cuda_ms(library, args.repeats, ATTN_PER),
+             bound=bound(nbytes, flops, BF16_FLOPS))
+    t["single_call_ms"] = cuda_ms(kern, args.repeats)
+    log(f"[time] flash_attention_bwd bf16 causal {[B, S, H, D]} / kv "
+        f"{[B, S, K, D]}: {t['ms']:.4f} ms per call, {ATTN_PER} back to back "
+        f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * t['bound'][0] / t['ms']:.2f}% of the bound), one call a "
+        f"sample {t['single_call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+        f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}); "
+        f"scaled_dot_product_attention's backward {t['library_ms']:.4f} ms")
+    rep["timing"] = t
+    report["attn_bwd"] = rep
+    del q, k, v, o, lse, do, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, timing=t)
+
+
+# 11b: the model on the card against the model on the CPU (f32, the same
+# weights): tests/test_torch_train.py's bars for one train_step
+TOL_TRAIN = 1e-5          # loss, grad norm (relative); grads, m (x leaf max)
+TRAIN_LR, TRAIN_EPS = 3e-4, 1e-8   # AdamW's defaults
+TRAIN_STEPS = 3           # 11c
+
+
+def _leaf_err(got: dict, want: dict, tol: float):
+    """(worst |got - want| over a leaf's max |want|, the leaf), requiring
+    every leaf within `tol` of its max."""
+    worst = (0.0, None)
+    for k, w in want.items():
+        w = w.float()
+        rel = float((got[k].float().cpu() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        worst = max(worst, (rel, k))
+    require(worst[0] <= tol, f"leaf {worst[1]}: {worst[0]:.3e} of its max "
+                             f"(bar {tol})")
+    return worst
+
+
+def train_parity(args, dev, report):
+    """11b: qwen2-1.5b at full width, 2 layers, f32, B 2, S 256: loss,
+    gradients and one train_step on the card (the flash_attention kernel
+    and its backward) against the CPU (chunked_attention and autograd)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.models import LMModel
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2, repeats=2,
+                              dtype="float32")
+    cpu = LMModel(cfg, device="cpu", seed=args.seed)
+    card = LMModel(cfg, device=dev, seed=args.seed)
+    card.params.load_state_dict(cpu.params.state_dict())
+    batch = batch_for(cfg, 2, 256, 0, args.seed)
+
+    def loss_grads(m):
+        loss, _ = m.loss(batch)
+        w = dict(m.params.named_parameters())
+        g = torch.autograd.grad(loss, list(w.values()))
+        return float(loss.detach()), {k: x.detach().cpu()
+                                      for k, x in zip(w, g)}
+
+    t0 = time.perf_counter()
+    (lc, gc), (lg, gg) = loss_grads(cpu), loss_grads(card)
+    rep = dict(loss_rel=abs(lg - lc) / abs(lc))
+    require(rep["loss_rel"] <= TOL_TRAIN, f"11b loss {lg} vs {lc}")
+    rep["grad_worst"] = _leaf_err(gg, gc, TOL_TRAIN)
+    oc, mc = cpu.train_step(cpu.init_opt(), batch)
+    og, mg = card.train_step(card.init_opt(), batch)
+    for key in ("loss", "grad_norm"):
+        rel = abs(float(mg[key]) - float(mc[key])) / abs(float(mc[key]))
+        require(rel <= TOL_TRAIN, f"11b train_step {key}: {rel:.3e}")
+        rep[f"step_{key}_rel"] = rel
+    rep["m_worst"] = _leaf_err(og.m, oc.m, TOL_TRAIN)
+    rep["v_worst"] = _leaf_err(og.v, oc.v, 2 * TOL_TRAIN)
+    # AdamW's first step is lr g / (|g| + eps), about lr sign(g): an entry
+    # moves by up to 2 lr where |g| is within the gradients' bar of 0
+    scale = min(1.0, 1.0 / max(float(mc["grad_norm"]), 1e-9))
+    worst = 0.0
+    for k, p in cpu.params.state_dict().items():
+        g = (gc[k] * scale).abs()
+        bar = 1e-6 + TRAIN_LR * torch.clamp(
+            2 * TOL_TRAIN * g.max() / (g + TRAIN_EPS), max=2.0)
+        diff = (card.params.state_dict()[k].cpu() - p).abs()
+        worst = max(worst, float((diff / bar).max()))
+        require(bool((diff <= bar).all()), f"11b weights {k} after the step")
+    rep.update(weights_worst_of_bar=worst, s=time.perf_counter() - t0)
+    log(f"[train] 11b {LM_ARCH} full width, 2 layers, f32, 2 x 256, card vs "
+        f"CPU: loss {rep['loss_rel']:.2e} relative; worst gradient leaf "
+        f"{rep['grad_worst'][1]} {rep['grad_worst'][0]:.2e} of its max; "
+        f"train_step loss {rep['step_loss_rel']:.2e}, grad_norm "
+        f"{rep['step_grad_norm_rel']:.2e}; m {rep['m_worst'][0]:.2e}, v "
+        f"{rep['v_worst'][0]:.2e}; weights at {worst:.3f} of their bar "
+        f"({rep['s']:.1f} s)")
+    report["train_parity"] = rep
+    del cpu, card, gg, gc, oc, og
+    torch.cuda.empty_cache()
+
+
+def train_phase(args, dev, report):
+    """Phase 11: the backward kernel (11a), the model on the card against
+    the CPU (11b), then qwen2-1.5b trained at full width and depth in bf16
+    (11c) with its launch counts, and a checkpoint round trip. Returns the
+    main path's launches, the kernel's worst error and its times."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bwd)
+    from repro_torch.models import LMModel
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import train
+    from repro_torch.train.loop import restore_train_state, save_train_state
+
+    t_phase = time.perf_counter()
+    bwd = attn_bwd_checks(args, dev, report)
+    train_parity(args, dev, report)
+
+    # -- 11c full width and depth, bf16 --------------------------------------
+    cfg = get_config(LM_ARCH)
+    B, S, L = LM_BATCH, LM_SEQ, cfg.n_layers
+    rep = dict(arch=LM_ARCH, batch=B, seq=S, steps=TRAIN_STEPS,
+               microbatch=min(cfg.microbatch, B))
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention.launches_tc = 0
+    flash_attention_bwd.launches = 0
+    params, hist = train(cfg, steps=TRAIN_STEPS, batch=B, seq=S, log_every=1,
+                         seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(flash_attention=flash_attention.launches,
+                    flash_attention_tc=flash_attention.launches_tc,
+                    flash_attention_bwd=flash_attention_bwd.launches)
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[launches] training path, {TRAIN_STEPS} steps: flash_attention "
+        f"{launches['flash_attention']} (on the tensor cores "
+        f"{launches['flash_attention_tc']}), flash_attention_bwd "
+        f"{launches['flash_attention_bwd']}")
+    want = dict(flash_attention=2 * L * TRAIN_STEPS,
+                flash_attention_tc=2 * L * TRAIN_STEPS,
+                flash_attention_bwd=L * TRAIN_STEPS)
+    require(launches == want, f"training launches {launches}, want {want} "
+            f"(per step: the forward and its remat recomputation in each of "
+            f"{L} layers, one backward each)")
+    require(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                for h in hist), f"training losses {hist}")
+    fresh = LMModel(cfg, device=dev, seed=args.seed).params.state_dict()
+    still = [k for k, p in params.state_dict().items()
+             if torch.equal(p, fresh[k])]
+    require(not still, f"weights that did not move: {still[:5]}")
+    del params, fresh
+    secs = [hist[0]["sec"]] + [b["sec"] - a["sec"]
+                               for a, b in zip(hist, hist[1:])]
+    rep.update(history=hist, step_s=secs,
+               tokens_per_s=[B * S / x for x in secs])
+    log(f"[time] train_step {B} x {S} bf16, {L} layers: first "
+        f"{1e3 * secs[0]:.1f} ms, then " + " / ".join(
+            f"{1e3 * x:.1f}" for x in secs[1:]) + " ms ("
+        + " / ".join(f"{t:.0f}" for t in rep["tokens_per_s"][1:])
+        + " tokens/s); losses " + " / ".join(f"{h['loss']:.4f}" for h in hist)
+        + ", grad norms " + " / ".join(f"{h['grad_norm']:.3f}" for h in hist))
+    log(f"[memory] training peak allocated "
+        f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+
+    # the step's breakdown on the card: forward under remat, backward,
+    # optimizer (CUDA events around each part of one more step)
+    model = LMModel(cfg, device=dev, seed=args.seed)
+    opt = model.init_opt()
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in batch_for(cfg, B, S, 0, args.seed).items()}
+    for _ in range(2):          # warm, then timed
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = model.loss(batch)
+        ev[1].record()
+        w = dict(model.params.named_parameters())
+        grads = torch.autograd.grad(loss, list(w.values()))
+        ev[2].record()
+        new, opt, _ = adamw_update(
+            {k: g.float() for k, g in zip(w, grads)}, opt,
+            {k: p.detach() for k, p in w.items()})
+        ev[3].record()
+        torch.cuda.synchronize()
+        del grads, new, loss
+    parts = dict(forward_ms=ev[0].elapsed_time(ev[1]),
+                 backward_ms=ev[1].elapsed_time(ev[2]),
+                 optimizer_ms=ev[2].elapsed_time(ev[3]))
+    rep["breakdown"] = parts
+    fwd_ms = parts["forward_ms"]
+    log(f"[time] train step parts (CUDA events): forward {fwd_ms:.1f} ms, "
+        f"backward with the remat forward "
+        f"{parts['backward_ms']:.1f} ms ({L} flash_attention_bwd calls at "
+        f"{bwd['timing']['single_call_ms']:.2f} ms one call a sample: "
+        f"{100 * L * bwd['timing']['single_call_ms'] / parts['backward_ms']:.0f}"
+        f"% of it), AdamW {parts['optimizer_ms']:.1f} ms")
+    del model, opt, batch, w
+    torch.cuda.empty_cache()
+
+    # -- a checkpoint round trip at 2 layers of the same width ---------------
+    import dataclasses
+    cfg2 = dataclasses.replace(cfg, n_layers=2, repeats=2)
+    model = LMModel(cfg2, device=dev, seed=args.seed)
+    opt, _ = model.train_step(model.init_opt(),
+                              batch_for(cfg2, B, S, 0, args.seed))
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        save_train_state(root, 1, model, opt)
+        rep["ckpt_s"] = time.perf_counter() - t0
+        rep["ckpt_bytes"] = sum(os.path.getsize(f) for f in glob.glob(
+            os.path.join(root, "step_0000000001", "*")))
+        other = LMModel(cfg2, device=dev, seed=args.seed + 1)
+        t0 = time.perf_counter()
+        got, step = restore_train_state(root, other, other.init_opt())
+        torch.cuda.synchronize()
+        rep["restore_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = model.params.state_dict(), other.params.state_dict()
+    same = step == 1 and torch.equal(got.step, opt.step) and all(
+        torch.equal(a[k], b[k]) for k in a) and all(
+        torch.equal(x[k], y[k]) for x, y in ((got.m, opt.m), (got.v, opt.v))
+        for k in x)
+    require(same, "the training checkpoint did not restore bit for bit")
+    log(f"[train] checkpoint of {LM_ARCH} at 2 layers (bf16 weights, f32 "
+        f"AdamW state): {rep['ckpt_bytes'] / 2**30:.3f} GiB written in "
+        f"{rep['ckpt_s']:.1f} s, restored bit for bit in "
+        f"{rep['restore_s']:.1f} s")
+    del model, other, opt, got, a, b
+    torch.cuda.empty_cache()
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase 11 {rep['phase_s']:.1f} s")
+    report["train"] = rep
+    return dict(launches=launches, max_abs_err=bwd["max_abs_err"],
+                timing=bwd["timing"])
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -2879,7 +3269,16 @@ def main(argv=None) -> int:
     lm = lm_phase(args, dev, report)
     timings["flash_attention"] = lm["timing"]
     errs["flash_attention"] = lm["max_abs_err"]
-    launches["flash_attention"] = lm["launches"]
+    torch.cuda.empty_cache()
+
+    # -- 11. LM training ------------------------------------------------------
+    tr = train_phase(args, dev, report)
+    timings["flash_attention_bwd"] = tr["timing"]
+    errs["flash_attention_bwd"] = tr["max_abs_err"]
+    # launches on the main paths: the prefill, then training
+    launches["flash_attention"] = (lm["launches"]
+                                   + tr["launches"]["flash_attention"])
+    launches["flash_attention_bwd"] = tr["launches"]["flash_attention_bwd"]
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",
@@ -2893,7 +3292,11 @@ def main(argv=None) -> int:
                "linf_delta": ("src/repro_torch/csrc/linf_delta.cu",
                               "src/repro/kernels/linf_delta.py:34"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attn.py:90")}
+                                   "src/repro/kernels/flash_attn.py:90"),
+               # no Pallas kernel: JAX differentiates chunked_attention
+               "flash_attention_bwd": (
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "src/repro/models/attention.py:33")}
     kernels = []
     for name, t in timings.items():
         kernels.append(dict(
@@ -2902,7 +3305,7 @@ def main(argv=None) -> int:
             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][0], bound_by=t["bound"][1],
             library_ms=t["library_ms"]))
-    require(len(kernels) == 7 and all(k["launches"] > 0 for k in kernels),
+    require(len(kernels) == 8 and all(k["launches"] > 0 for k in kernels),
             f"kernel launches on the main paths: {launches}")
     report["kernels"] = kernels
     if args.out:

@@ -60,6 +60,10 @@
 //
 // Both: masked scores at the large finite -2^30 (a masked score gives
 // exp(...) == 0, never NaN); ragged S and T; o a contiguous [B, S, H, D].
+// Given a non-null lse (training asks for it, serving does not), each also
+// writes every query row's log-sum-exp m + log l in natural-log units
+// (the tensor-core kernel converts from its log2 units), from which
+// flash_attention_bwd.cu recomputes p.
 // Built without --fmad=false (see kernels/_build.py). Launches on the
 // caller's stream; allocates nothing.
 #include <cuda.h>
@@ -104,6 +108,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse,
                            int H, int KH, int S, int Tk, int BH, int nq,
                            long long qsb, long long qss, long long qsh,
                            long long ksb, long long kss, long long ksh,
@@ -227,13 +232,16 @@ __global__ void __launch_bounds__(kThreads)
     T* op = o + (((long long)b * S + q0 + r) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) store(op + cg + 8 * c, acc[i][c] / den);
+    // m and l are the whole row's in every lane of the row group
+    if (lse != nullptr && cg == 0)
+      lse[(long long)bh * S + q0 + r] = m[i] + logf(den);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KH, int S, int Tk, const long long* st, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KH, int S, int Tk, const long long* st,
+           int causal, cudaStream_t stream) {
   const int nq = (S + kRows - 1) / kRows;
   const int BH = B * H;
   const size_t smem = sizeof(float) * (2 * kRows * (D + 1)
@@ -244,7 +252,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   flash_attention_kernel<T, D><<<nq * BH, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KH, S, Tk, BH, nq,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, S, Tk, BH,
+      nq,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       (float)(1.0 / std::sqrt((double)D)), causal);   // as 1 / math.sqrt(D)
   return (int)cudaGetLastError();
@@ -252,11 +261,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int H, int KH, int S, int Tk, const long long* st,
-             int causal, cudaStream_t stream) {
-#define FA_CASE(DD) \
-  case DD:          \
-    return launch<T, DD>(q, k, v, o, B, H, KH, S, Tk, st, causal, stream);
+             float* lse, int B, int H, int KH, int S, int Tk,
+             const long long* st, int causal, cudaStream_t stream) {
+#define FA_CASE(DD)                                                        \
+  case DD:                                                                 \
+    return launch<T, DD>(q, k, v, o, lse, B, H, KH, S, Tk, st, causal,     \
+                         stream);
   switch (D) {
     FA_CASE(16)
     FA_CASE(32)
@@ -475,7 +485,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_tc(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, int H, int KH, int S,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int H, int KH, int S,
                        int Tk, int BH, int nq, float scale_log2,
                        int causal) {
   using L = Layout<D>;
@@ -646,6 +657,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = row0 + 8 * half;
     if (row >= S) continue;
     const float den = half ? den1 : den0;
+    // m and l are in log2 units: lse = (m + log2 l) ln 2, in natural units
+    if (lse != nullptr && cq == 0)
+      lse[(long long)bh * S + row] =
+          ((half ? m1 : m0) + log2f(den)) * 0.6931471805599453f;
     __nv_bfloat16* op = o + (((long long)b * S + row) * H + h) * D + cq;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -700,9 +715,9 @@ bool make_map(CUtensorMap* map, const void* x, int D, int heads, int rows,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KH, int S, int Tk, const long long* st, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KH, int S, int Tk, const long long* st,
+           int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, H, S, B, st[0], st[1], st[2], kBM)
       || !make_map(&tk, k, D, KH, Tk, B, st[3], st[4], st[5], kBN)
@@ -718,7 +733,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const float scale_log2 =
       (float)(1.0 / std::sqrt((double)D) * 1.4426950408889634);
   flash_attention_tc<D><<<nq * BH, kThreads, Layout<D>::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, S, Tk, BH, nq,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, KH, S, Tk, BH, nq,
       scale_log2, causal);
   return (int)cudaGetLastError();
 }
@@ -731,28 +746,33 @@ extern "C" {
 
 // q [B, S, H, D], k and v [B, T, KH, D] through their (batch, row, head)
 // strides in elements (the last dimension contiguous); o a contiguous
-// [B, S, H, D]. dtype 0: float32, 1: bfloat16. D in {16, 32, 64, 128};
-// H a multiple of KH; S, T >= 1. bf16 at D 64 or 128 takes the
+// [B, S, H, D]; lse null, or a contiguous f32 [B, H, S] that receives each
+// row's log-sum-exp of its scaled scores (m + log l, natural log: the
+// statistic the backward recomputes p from). dtype 0: float32, 1:
+// bfloat16. D in {16, 32, 64, 128}; H a multiple of KH; S, T >= 1. bf16 at D 64 or 128 takes the
 // tensor-core kernel, which needs 16-byte aligned bases and strides that
 // are multiples of 8 elements (kernels/flash_attn.py makes them so);
 // everything else the scalar kernel. Returns a CUDA error code (0 on
 // success).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    int dtype, int B, int H, int KH, int S, int T, int D,
+                    void* lse_out, int dtype, int B, int H, int KH, int S,
+                    int T, int D,
                     long long qsb, long long qss, long long qsh,
                     long long ksb, long long kss, long long ksh,
                     long long vsb, long long vss, long long vsh, int causal,
                     void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, o, B, H, KH, S, T, st, causal, s);
+    return tc::launch<128>(q, k, v, o, lse, B, H, KH, S, T, st, causal, s);
   if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, o, B, H, KH, S, T, st, causal, s);
+    return tc::launch<64>(q, k, v, o, lse, B, H, KH, S, T, st, causal, s);
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, H, KH, S, T, st, causal, s);
+    return launch_d<float>(D, q, k, v, o, lse, B, H, KH, S, T, st, causal,
+                           s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KH, S, T, st,
+    return launch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KH, S, T, st,
                                    causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,7 +19,10 @@ ops do (their bars against the plain versions are 1e-12 or exact);
 multiply-add chains held to 2e-5, and splitting each FMA would cost it
 about half its throughput (its tensor-core kernel needs no flag beyond
 `sm_90a`: the tensor maps are encoded through the runtime's driver entry
-point, so nothing links libcuda).
+point, so nothing links libcuda). `flash_attention_bwd` builds without it
+too, for the same reason: its five products are f32 multiply-add chains,
+held to 1e-4 of the gradient's max against the plain backward, whose sums
+run in another order anyway.
 
 A missing `nvcc` or a failed build raises; nothing falls back.
 """
@@ -47,11 +50,11 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
 GEN_DIR = BUILD_DIR / "include"
 GENERATED = {"ell_plans.h": gather_plan.header}
 SOURCES = ("fused_ell_update", "csr_block_pull", "pr_update", "scatter_rows",
-           "ell_pull", "linf_delta", "flash_attention")
+           "ell_pull", "linf_delta", "flash_attention", "flash_attention_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # sources built with FMA contraction (without --fmad=false)
-FMAD = ("flash_attention",)
+FMAD = ("flash_attention", "flash_attention_bwd")
 
 P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 

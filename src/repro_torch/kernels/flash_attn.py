@@ -29,6 +29,18 @@ the wrapper launches a kernel; on a CPU tensor it runs the plain version
 (`flash_attention_plain`, the same online softmax in plain PyTorch, over
 kv blocks of 128 as the Pallas kernel; `round_p=True` rounds p as the
 tensor-core kernel does); on any other device it raises. Any S, T >= 1.
+With `return_lse=True` either kernel also writes each query row's
+log-sum-exp, f32 [B, H, S] in natural-log units.
+
+The gradient (the Pallas kernel has none; JAX differentiates
+`chunked_attention`): `FlashAttentionFn` is the autograd Function that
+`attn_apply` runs on CUDA tensors. Its forward asks for `lse` only when a
+gradient is wanted and then saves q, k, v, o and lse; its backward
+launches `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`, counted by
+`flash_attention_bwd.launches`: one per call, its three CUDA kernels
+together), which recomputes p from `lse`. On CPU tensors both halves run
+their plain versions; `flash_attention_bwd_plain` is the closed form and
+the kernel's oracle.
 """
 from __future__ import annotations
 
@@ -40,16 +52,19 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_plain",
-           "flash_attention_bshd_plain", "tensor_core_path", "NEG",
-           "HEAD_DIMS", "TC_HEAD_DIMS"]
+           "flash_attention_bshd_plain", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "FlashAttentionFn",
+           "tensor_core_path", "NEG", "HEAD_DIMS", "TC_HEAD_DIMS"]
 
 NEG = -2.0 ** 30      # large finite mask value: a masked score gives exp 0
 HEAD_DIMS = (16, 32, 64, 128)
 TC_HEAD_DIMS = (64, 128)   # bf16 widths of the tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _L = ctypes.c_longlong
-_SIG = {"flash_attention": [_build.P] * 4 + [_build.I] * 7 + [_L] * 9
+_SIG = {"flash_attention": [_build.P] * 5 + [_build.I] * 7 + [_L] * 9
         + [_build.I, _build.P]}
+_SIG_BWD = {"flash_attention_bwd": [_build.P] * 10 + [_build.I] * 7
+            + [_L] * 9 + [_build.I] * 2 + [_build.P]}
 
 
 def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
@@ -59,15 +74,16 @@ def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          round_p: bool = False) -> torch.Tensor:
+                          *, causal: bool = True, round_p: bool = False,
+                          return_lse: bool = False):
     """The kernel's function in plain PyTorch: q [BH, S, D], k/v [BH, T, D];
     an online softmax over kv blocks of 128 rows (the Pallas kernel's bk)
     with the running max, sum and accumulator in f32, masked scores at NEG.
     p stays f32 for the PV product; with `round_p` it is first rounded to
     q's dtype, as the tensor-core kernel and `chunked_attention` round it
     (the row sum still from the f32 p; the identity in f32). Returns
-    [BH, S, D] in q's dtype."""
+    [BH, S, D] in q's dtype, and with `return_lse` also each row's
+    log-sum-exp m + log l, f32 [BH, S]."""
     BH, S, D = q.shape
     T = k.shape[1]
     scale = 1.0 / math.sqrt(D)
@@ -90,7 +106,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pv = p.to(q.dtype).float() if round_p else p
         acc = acc * corr + torch.einsum("bqt,btd->bqd", pv, vj)
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    den = torch.clamp(l, min=1e-30)
+    out = (acc / den).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(den))[..., 0]
+    return out
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
@@ -101,17 +121,62 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True,
-                               round_p: bool = False) -> torch.Tensor:
+                               round_p: bool = False,
+                               return_lse: bool = False):
     """`flash_attention_plain` on the model's layout: q [B, S, H, D], k/v
     [B, T, K, D] with the kv heads repeated G = H // K times (q head h
-    reads kv head h // G). Returns [B, S, H, D]."""
+    reads kv head h // G). Returns [B, S, H, D] (and with `return_lse`
+    the row log-sum-exp, f32 [B, H, S])."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
     out = flash_attention_plain(
         _heads_first(q), _heads_first(k.repeat_interleave(G, dim=2)),
         _heads_first(v.repeat_interleave(G, dim=2)), causal=causal,
-        round_p=round_p)
+        round_p=round_p, return_lse=return_lse)
+    if return_lse:
+        out, lse = out
+        return (out.reshape(B, H, S, D).permute(0, 2, 1, 3),
+                lse.reshape(B, H, S))
     return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, round_p: bool = False):
+    """The backward in closed form, plain PyTorch with every product in
+    f32: q, o, do [B, S, H, D], k/v [B, T, K, D], lse f32 [B, H, S] (the
+    forward's). With P = exp(S / sqrt(D) - lse) (0 where masked, as the
+    forward's NEG gives exp 0), Dr = rowsum(do * o), dS = P * (do V^T -
+    Dr): dV = P^T do, dK = dS^T Q / sqrt(D), dQ = dS K / sqrt(D), the G
+    query heads of a kv head summed into its dK and dV. With `round_p` the
+    dV product takes P rounded to q's dtype, as the tensor-core forward
+    rounded p before PV (dS keeps the f32 P); the identity in f32. Dr comes
+    from the output the forward returned, so in bf16 this is not the exact
+    derivative of the rounded forward. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, S, K, G, D)
+    dof = do.float().reshape(B, S, K, G, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bskgd,btkd->bkgst", qf, kf) * scale
+    if causal:
+        allow = (torch.arange(T, device=q.device)[None, :]
+                 <= torch.arange(S, device=q.device)[:, None])
+        s = torch.where(allow, s, NEG)
+    p = torch.exp(s - lse.reshape(B, K, G, S, 1))
+    dr = (do.float() * o.float()).sum(-1)                   # [B, S, H]
+    dr = dr.permute(0, 2, 1).reshape(B, K, G, S, 1)
+    ds = p * (torch.einsum("bskgd,btkd->bkgst", dof, vf) - dr)
+    pv = p.to(q.dtype).float() if round_p else p
+    dv = torch.einsum("bkgst,bskgd->btkd", pv, dof)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qf) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -125,15 +190,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True, return_lse: bool = False):
     """q [B, S, H, D], k/v [B, T, K, D], H a multiple of K. Returns a
-    contiguous [B, S, H, D] in q's dtype."""
+    contiguous [B, S, H, D] in q's dtype (and with `return_lse` the row
+    log-sum-exp, f32 [B, H, S])."""
     if q.device.type == "cpu":
-        return flash_attention_bshd_plain(q, k, v, causal=causal)
-    return _launch(q, k, v, causal)
+        return flash_attention_bshd_plain(q, k, v, causal=causal,
+                                          return_lse=return_lse)
+    return _launch(q, k, v, causal, return_lse)
 
 
-def _launch(q, k, v, causal):
+def _check(q, k, v):
+    """Raise unless q, k, v are tensors on one CUDA device that the kernels
+    take; returns whether the call takes the tensor-core path."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
@@ -155,18 +224,94 @@ def _launch(q, k, v, causal):
         if t.dtype != q.dtype or t.device != dev:
             raise ValueError(f"flash_attention: {name} is {t.dtype} on "
                              f"{t.device}, q {q.dtype} on {dev}")
-    tc = tensor_core_path(q.dtype, D)
+    return tensor_core_path(q.dtype, D)
+
+
+def _launch(q, k, v, causal, return_lse=False):
+    tc = _check(q, k, v)
+    dev = q.device
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
     q, k, v = (_operand(t, tc) for t in (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if return_lse else None)
     lib = _build.load("flash_attention", _SIG)
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         _DTYPES[q.dtype], B, H, K, S, T, D, *_strides(q), *_strides(k),
         *_strides(v), int(causal), _build.stream_ptr(dev))
     _build.launch_error("flash_attention", err)
     flash_attention.launches += 1
     flash_attention.launches_tc += tc
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True):
+    """(dq, dk, dv) of `flash_attention_bshd(q, k, v, causal=)`: q, o, do
+    [B, S, H, D], k/v [B, T, K, D], lse f32 [B, H, S] from the forward.
+    On a CUDA tensor one call launches the backward kernel (p rounded for
+    dV where the forward took the tensor-core path); on a CPU tensor it
+    runs `flash_attention_bwd_plain`; anything else raises. Returns
+    contiguous gradients in the inputs' dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    tc = _check(q, k, v)
+    dev = q.device
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (B, S, H, D) or t.device != dev:
+            raise ValueError(f"flash_attention_bwd: {name} is "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{(B, S, H, D)} on {dev}")
+    o, do = o.to(q.dtype).contiguous(), do.to(q.dtype).contiguous()
+    _build.check("flash_attention_bwd lse", lse, torch.float32, (B, H, S),
+                 dev)
+    q, k, v = (_operand(t, False) for t in (q, k, v))
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, T, K, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, T, K, D), dtype=q.dtype, device=dev)
+    lib = _build.load("flash_attention_bwd", _SIG_BWD)
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, H, K, S, T, D,
+        *_strides(q), *_strides(k), *_strides(v), int(causal), int(tc),
+        _build.stream_ptr(dev))
+    _build.launch_error("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention_bshd(q, k, v, causal=)` with a gradient:
+    `FlashAttentionFn.apply(q, k, v, causal)`. The forward writes the row
+    log-sum-exp only when an input wants a gradient (as it does again when
+    `torch.utils.checkpoint` recomputes it) and saves q, k, v, o and lse;
+    the backward is `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True):
+        want = any(ctx.needs_input_grad[:3])
+        out = flash_attention_bshd(q, k, v, causal=causal, return_lse=want)
+        ctx.causal = causal
+        if not want:
+            return out
+        out, lse = out
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def _strides(t: torch.Tensor) -> tuple:
@@ -195,3 +340,4 @@ def _operand(t: torch.Tensor, tc: bool) -> torch.Tensor:
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+flash_attention_bwd.launches = 0

@@ -1,1 +1,1 @@
-"""Launchers (serving)."""
+"""Launchers (serving, training)."""

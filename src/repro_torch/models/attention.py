@@ -6,9 +6,11 @@ global-attention family, on tensors:
 - `chunked_attention` is the jnp online-softmax schedule, whole (window
   and soft-cap included): the plain version of full-sequence attention,
   which `attn_apply` runs on CPU tensors;
-- on CUDA tensors `attn_apply` runs the `flash_attention` kernel
-  (`kernels.flash_attn.flash_attention_bshd`: the model's [B, S, H, D]
-  layout, kv heads mapped in the kernel). The kernel has no window and no
+- on CUDA tensors `attn_apply` runs the `flash_attention` kernel through
+  `kernels.flash_attn.FlashAttentionFn` (the model's [B, S, H, D] layout,
+  kv heads mapped in the kernel), whose backward is the
+  `flash_attention_bwd` kernel; on CPU tensors autograd differentiates
+  `chunked_attention`, as JAX does. The kernels have no window and no
   soft-cap, as the Pallas kernel has neither, so those raise on CUDA;
 - decode is single-query attention over the cache in plain PyTorch. The
   cache is written in place (JAX's `dynamic_update_slice` returns new
@@ -24,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels.flash_attn import flash_attention_bshd
+from ..kernels.flash_attn import FlashAttentionFn
 from .layers import apply_rope, dense_init, rmsnorm, softcap
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache",
@@ -145,9 +147,9 @@ def _out(o, wo):
 
 
 def attn_apply(x, p, cfg, kind: str, positions):
-    """Full-sequence (prefill). Returns (out, (k, v) for caching). Runs the
-    flash_attention kernel on CUDA tensors, chunked_attention on CPU
-    tensors."""
+    """Full-sequence (prefill and training). Returns (out, (k, v) for
+    caching). Runs the flash_attention kernel (with its backward) on CUDA
+    tensors, chunked_attention on CPU tensors."""
     q, k, v = _qkv(x, p, cfg, positions)
     window = cfg.window if kind == "attn_local" else None
     if q.device.type == "cpu":
@@ -157,7 +159,7 @@ def attn_apply(x, p, cfg, kind: str, positions):
         raise later("a local window or an attention soft-cap on the card "
                     "(the flash_attention kernel has neither)")
     else:
-        o = flash_attention_bshd(q, k, v, causal=True)
+        o = FlashAttentionFn.apply(q, k, v, True)
     return _out(o, p["wo"]), (k, v)
 
 

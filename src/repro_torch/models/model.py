@@ -1,4 +1,4 @@
-"""LMModel: the public serving step API.
+"""LMModel: the public step API (serving and training).
 
 The JAX package's `repro.models.LMModel` as an `nn.Module` that owns its
 weights (`self.params`, a `transformer.LMParams`), so the steps take no
@@ -10,11 +10,24 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
   runs on the last position only: the same values as the JAX step's
   `logits[:, -1]`, without its [B, S, V] f32 tensor;
 - `decode_step(cache, batch, pos)` -> (logits [B, 1, V], cache), the cache
-  written in place at `pos`.
+  written in place at `pos`;
+- `loss(batch)` -> (loss + 0.01 aux, {"loss", "aux"}), differentiable;
+- `train_step(opt_state, batch)` -> (opt_state, {"loss", "aux",
+  "grad_norm"}): gradients of `min(cfg.microbatch, B)`-row microbatches
+  summed in `cfg.grad_accum_dtype` and divided by their count, then one
+  AdamW or Adafactor update (`cfg.optimizer`) written into `self.params`
+  in place; the metrics are the microbatches' means, as in JAX. AdamW's
+  state is keyed like the weights; Adafactor's, whose factors and update
+  clipping span a stacked leaf, by the JAX tree's paths with the pattern
+  stacked (`convert.jax_paths`). On CUDA
+  tensors every layer's attention runs the `flash_attention` kernel
+  twice (the forward and its recomputation under remat) and its backward
+  kernel once a microbatch.
 
 Inputs are dicts of tensors or numpy arrays ({"tokens": [B, S] int}), moved
-to the model's device. The sharding specs, `train_step`, `loss` and the
-optimizers come with the training slice (ROADMAP A9).
+to the model's device. One device: `zero1`, `seq_parallel` and `pure_dp`
+act on a mesh only, so they change nothing here (as in JAX with
+`mesh=None`); the sharding specs come with ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -23,7 +36,10 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..optim import (adafactor_init, adafactor_update, adamw_init,
+                     adamw_update)
 from . import transformer as tfm
+from .convert import jax_paths, unstack_paths
 
 __all__ = ["LMModel"]
 
@@ -61,3 +77,61 @@ class LMModel(nn.Module):
     def decode_step(self, cache, batch, pos: int):
         return tfm.forward_decode(self.params, self.cfg, cache,
                                   self._batch(batch), int(pos))
+
+    # ---- training ---------------------------------------------------------
+    def _weights(self) -> dict:
+        return dict(self.params.named_parameters())
+
+    def _adafactor(self) -> bool:
+        return self.cfg.optimizer == "adafactor"
+
+    def init_opt(self):
+        """Fresh optimizer state for `cfg.optimizer` over the weights."""
+        w = {k: p.detach() for k, p in self._weights().items()}
+        if self._adafactor():
+            return adafactor_init(jax_paths(w, self.cfg))
+        return adamw_init(w)
+
+    def loss(self, batch):
+        return tfm.loss_fn(self.params, self.cfg, self._batch(batch))
+
+    def train_step(self, opt_state, batch):
+        cfg = self.cfg
+        b = self._batch(batch)
+        B = b["tokens"].shape[0]
+        mb = min(cfg.microbatch, B)
+        if B % mb:
+            raise ValueError(f"batch {B} is not a multiple of the "
+                             f"microbatch {mb}")
+        n_micro = B // mb
+        acc_dt = getattr(torch, cfg.grad_accum_dtype)
+        weights = self._weights()
+        acc, losses, auxes = None, [], []
+        for i in range(n_micro):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in b.items()}
+            total, metrics = tfm.loss_fn(self.params, cfg, micro)
+            grads = torch.autograd.grad(total, list(weights.values()))
+            if acc is None:
+                acc = [g.to(acc_dt) for g in grads]
+            else:
+                for a, g in zip(acc, grads):
+                    a += g.to(acc_dt)
+            del grads, total
+            losses.append(metrics["loss"].detach())
+            auxes.append(metrics["aux"].detach())
+        grads = {k: a.div_(n_micro) for k, a in zip(weights, acc)}
+        del acc
+        params = {k: p.detach() for k, p in weights.items()}
+        if self._adafactor():
+            new, opt_state, gn = adafactor_update(
+                jax_paths(grads, cfg), opt_state, jax_paths(params, cfg))
+            new = unstack_paths(new, cfg)
+        else:
+            new, opt_state, gn = adamw_update(grads, opt_state, params)
+        del grads, params
+        with torch.no_grad():
+            for k, p in weights.items():
+                p.copy_(new.pop(k))
+        return opt_state, {"loss": torch.stack(losses).mean(),
+                           "aux": torch.stack(auxes).mean(),
+                           "grad_norm": gn}

@@ -1,4 +1,4 @@
-"""Decoder stack: layer-kind dispatch, one block per layer.
+"""Decoder stack: layer-kind dispatch, one block per layer, remat, loss.
 
 A copy of the JAX package's `repro.models.transformer` for the dense
 attention kinds (`attn`, `attn_local`, `attn_global`). The JAX package
@@ -8,11 +8,16 @@ the layout (prefix, pattern × repeats, suffix) is unrolled into an
 `nn.ModuleList` with one block per layer, in layer order (`layer_kinds`).
 Each block is an `nn.ModuleDict` of `nn.ParameterDict`s ("ln1", "mix",
 "ln2", "ffn", and "pn1"/"pn2" with post-norms) holding the JAX package's
-leaves under the same names.
+leaves under the same names. The weights are trainable parameters; the
+serving steps run under `torch.no_grad()`.
 
-There is no remat (that is training's business). The MoE, MLA, RWKV and
-RG-LRU mixers, `embed_inputs` and `rope="mrope"` wait for later slices
-(ROADMAP A9) and raise `NotImplementedError`.
+Remat as in JAX (`jax.checkpoint` around each block): when autograd
+records the forward and no cache is wanted, each block runs under
+`torch.utils.checkpoint` and only the layer-boundary activations are
+kept; the backward runs the block's forward again. `loss_fn` is JAX's
+next-token cross entropy. The MoE, MLA, RWKV and RG-LRU mixers,
+`embed_inputs` and `rope="mrope"` wait for later slices (ROADMAP A9) and
+raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .attention import later
@@ -28,7 +34,7 @@ from .layers import (apply_norm, dense_init, mlp_apply, mlp_init, norm_init,
 
 __all__ = ["LMParams", "init_block", "apply_block", "init_params",
            "layer_kinds", "forward_full", "forward_decode", "init_cache",
-           "check_supported"]
+           "loss_fn", "check_supported"]
 
 # the layer kinds of the JAX package that later slices bring
 _LATER_KINDS = {"attn_moe": "the MoE layer (kind 'attn_moe')",
@@ -66,10 +72,8 @@ def check_supported(cfg) -> None:
         raise later("the int8 KV cache (kv_cache_dtype='int8')")
 
 
-def _frozen(tensors: dict) -> nn.ParameterDict:
-    """Serving weights: parameters that take no gradient."""
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+def _weights(tensors: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -83,15 +87,15 @@ def init_block(cfg, kind: str, *, generator: torch.Generator,
     dt = _dtype(cfg)
     d = cfg.d_model
     p = nn.ModuleDict()
-    p["ln1"] = _frozen(norm_init(cfg.norm, d, dt, device))
-    p["mix"] = _frozen(attn.attn_init(cfg, dt, generator=generator,
-                                      device=device))
-    p["ln2"] = _frozen(norm_init(cfg.norm, d, dt, device))
-    p["ffn"] = _frozen(mlp_init(d, cfg.d_ff, cfg.mlp, dt,
-                                generator=generator, device=device))
+    p["ln1"] = _weights(norm_init(cfg.norm, d, dt, device))
+    p["mix"] = _weights(attn.attn_init(cfg, dt, generator=generator,
+                                       device=device))
+    p["ln2"] = _weights(norm_init(cfg.norm, d, dt, device))
+    p["ffn"] = _weights(mlp_init(d, cfg.d_ff, cfg.mlp, dt,
+                                 generator=generator, device=device))
     if cfg.post_norm:
-        p["pn1"] = _frozen(norm_init(cfg.norm, d, dt, device))
-        p["pn2"] = _frozen(norm_init(cfg.norm, d, dt, device))
+        p["pn1"] = _weights(norm_init(cfg.norm, d, dt, device))
+        p["pn2"] = _weights(norm_init(cfg.norm, d, dt, device))
     return p
 
 
@@ -128,11 +132,9 @@ class LMParams(nn.Module):
         check_supported(cfg)
         dt = _dtype(cfg)
         kw = dict(dtype=dt, generator=generator, device=device)
-        self.embed = nn.Parameter(dense_init((cfg.vocab, cfg.d_model), **kw),
-                                  requires_grad=False)
-        self.unembed = nn.Parameter(
-            dense_init((cfg.d_model, cfg.vocab), **kw), requires_grad=False)
-        self.lnf = _frozen(norm_init(cfg.norm, cfg.d_model, dt, device))
+        self.embed = nn.Parameter(dense_init((cfg.vocab, cfg.d_model), **kw))
+        self.unembed = nn.Parameter(dense_init((cfg.d_model, cfg.vocab), **kw))
+        self.lnf = _weights(norm_init(cfg.norm, cfg.d_model, dt, device))
         self.kinds = tuple(layer_kinds(cfg))
         self.blocks = nn.ModuleList(
             init_block(cfg, kind, generator=generator, device=device)
@@ -151,19 +153,32 @@ def _embed_inputs(params, cfg, batch):
     return x
 
 
-def _run_stack(params, cfg, batch) -> Tuple[torch.Tensor, list]:
+def _block_out(p, x, cfg, kind, positions):
+    return apply_block(p, x, cfg, kind, positions=positions)[0]
+
+
+def _run_stack(params, cfg, batch, want_cache=False
+               ) -> Tuple[torch.Tensor, list]:
     """Every block over the whole sequence: (x before `lnf`, [(k, v)] per
-    layer)."""
+    layer with `want_cache`, else []). Without a cache, a forward that
+    autograd records runs each block under `torch.utils.checkpoint`."""
     x = _embed_inputs(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     if cfg.rope == "sinusoidal":
         x = x + sinusoidal_positions(torch.arange(S, device=x.device),
                                      cfg.d_model).to(x.dtype)[None]
+    remat = torch.is_grad_enabled() and not want_cache
     caches = []
     for p, kind in zip(params.blocks, params.kinds):
+        if remat:
+            # the blocks draw no random numbers: no RNG state to keep
+            x = checkpoint(_block_out, p, x, cfg, kind, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
         x, c = apply_block(p, x, cfg, kind, positions=positions)
-        caches.append(c)
+        if want_cache:
+            caches.append(c)
     return x, caches
 
 
@@ -180,12 +195,28 @@ def forward_full(params, cfg, batch, *, want_cache=False, last_only=False):
     want_cache) is one (k, v) [B,S,K,hd] pair per layer; `aux` is 0 (no
     MoE here). With `last_only` the head runs on the last position only
     (logits [B,1,V]: the same values, without the [B,S,V] tensor)."""
-    x, caches = _run_stack(params, cfg, batch)
+    x, caches = _run_stack(params, cfg, batch, want_cache)
     if last_only:
         x = x[:, -1:]
     logits = _head(params, cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, (caches if want_cache else None), aux
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token cross entropy (mean over predicted positions) from the
+    f32 logits, plus 0.01 x the MoE aux loss (0 here). Returns (loss +
+    0.01 aux, {"loss", "aux"}). The label logit is gathered: the same value
+    as the JAX package's one-hot contraction, which exists there only to
+    keep a model-sharded vocab axis local."""
+    logits, _, aux = forward_full(params, cfg, batch)
+    labels = batch["labels"] if "labels" in batch else batch["tokens"]
+    lg = logits[:, :-1]
+    tgt = labels[:, 1:].long()
+    lse = torch.logsumexp(lg, dim=-1)                          # [B, S-1]
+    ll = torch.gather(lg, -1, tgt[..., None])[..., 0]
+    loss = torch.mean(lse - ll)
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def forward_decode(params, cfg, cache, batch, pos: int):

@@ -6,15 +6,21 @@ package restores the other's checkpoints:
   * ``step_{step:010d}/`` is written as ``step_{step:010d}.tmp/`` and
     renamed into place (atomic on POSIX), so a crash mid-save never
     corrupts the latest checkpoint;
-  * ``leaf_{i:05d}.npy`` per array, in sorted-key order (JAX's
-    ``tree_flatten`` order for a dict);
-  * ``manifest.json`` with ``step``, ``time``, ``treedef``, ``n_leaves``,
-    ``extra`` and ``files[leaf] = {shape, dtype, sha256_16}``; restore
-    verifies every checksum before use.
+  * ``leaf_{i:05d}.npy`` per array, in JAX's ``tree_flatten`` order: dict
+    keys sorted, lists, tuples and NamedTuples in order (a flat dict is
+    sorted-key order);
+  * ``manifest.json`` with ``step``, ``time``, ``treedef`` (JAX's
+    ``str(treedef)`` for the same tree), ``n_leaves``, ``extra`` and
+    ``files[leaf] = {shape, dtype, sha256_16}``; restore verifies every
+    checksum before use.
 
-The port's trees are flat ``{name: array}`` dicts of numpy arrays or
-tensors (tensors go through ``.cpu().numpy()``), which is what the guard's
-session checkpoints need; model trees come with ROADMAP A9.
+Trees nest dicts, lists, tuples and NamedTuples (the optimizer states) of
+numpy arrays or tensors (tensors go through the host). A dtype that .npy
+cannot hold, such as bfloat16, is stored as an unsigned-integer view of its
+bytes with its own name in the manifest, as JAX's ``_to_native`` stores it;
+the views are taken with torch (`Tensor.view`), so no ``ml_dtypes`` is
+needed. The training loop writes ``(params, opt_state)`` in JAX's tree
+(``models.convert``), so either package resumes the other's run.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import json
 import os
 import shutil
 import time
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -31,10 +37,11 @@ import torch
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "list_checkpoints"]
 
-#: dtypes a .npy file round-trips (the JAX module stores others, such as
-#: bfloat16, as byte views; the port's flat trees hold none yet)
+#: dtypes a .npy file round-trips; others are stored as byte views
 _NATIVE = {"float64", "float32", "float16", "int64", "int32", "int16", "int8",
            "uint64", "uint32", "uint16", "uint8", "bool"}
+_VIEW = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def _key(i: int) -> str:
@@ -48,32 +55,88 @@ def _sha256_16(path: str) -> str:
         return hashlib.file_digest(f, "sha256").hexdigest()[:16]
 
 
-def _flatten(tree: dict):
-    if not isinstance(tree, dict) or not all(isinstance(k, str)
-                                             for k in tree):
-        raise TypeError("a checkpoint tree is a flat {name: array} dict")
-    keys = sorted(tree)
-    return keys, [tree[k] for k in keys]
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _treedef(keys) -> str:
-    # JAX writes str(treedef); for a flat dict that is this string, so the
-    # two packages' manifests read the same (restore takes the structure
-    # from `like` in both, not from this field)
-    return "PyTreeDef({" + ", ".join(f"{k!r}: *" for k in keys) + "})"
+def _flatten(tree):
+    """(leaves in JAX's tree_flatten order, JAX's str(treedef))."""
+    leaves = []
+
+    def walk(x) -> str:
+        if isinstance(x, dict):
+            if not all(isinstance(k, str) for k in x):
+                raise TypeError("checkpoint dict keys must be strings")
+            return "{" + ", ".join(f"{k!r}: {walk(x[k])}"
+                                   for k in sorted(x)) + "}"
+        if _is_namedtuple(x):
+            return (f"CustomNode(namedtuple[{type(x).__name__}], ["
+                    + ", ".join(walk(c) for c in x) + "])")
+        if isinstance(x, tuple):
+            inner = ", ".join(walk(c) for c in x)
+            return "(" + inner + ("," if len(x) == 1 else "") + ")"
+        if isinstance(x, list):
+            return "[" + ", ".join(walk(c) for c in x) + "]"
+        if x is None:
+            return "None"
+        leaves.append(x)
+        return "*"
+
+    return leaves, f"PyTreeDef({walk(tree)})"
 
 
-def _host(leaf) -> np.ndarray:
+def _unflatten(like, leaves):
+    """`like`'s structure with its leaves taken in order from `leaves`."""
+    it = iter(leaves)
+
+    def build(x):
+        if isinstance(x, dict):
+            return {k: build(x[k]) for k in sorted(x)}
+        if _is_namedtuple(x):
+            return type(x)(*(build(c) for c in x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(build(c) for c in x)
+        if x is None:
+            return None
+        return next(it)
+
+    return build(like)
+
+
+def _host(leaf):
+    """(the array .npy stores, the leaf's dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu().contiguous()
+        name = str(t.dtype).removeprefix("torch.")
+        if name in _NATIVE:
+            return t.numpy(), name
+        size = t.element_size()
+        return t.view(_SIGNED[size]).numpy().view(_VIEW[size]), name
     arr = np.asarray(leaf)
-    if arr.dtype.name not in _NATIVE:
-        raise TypeError(f"checkpoint leaf of dtype {arr.dtype} is not "
-                        f"supported yet (ROADMAP A9)")
-    return arr
+    if arr.dtype.name in _NATIVE:
+        return arr, arr.dtype.name
+    return (np.ascontiguousarray(arr).view(_VIEW[arr.dtype.itemsize]),
+            arr.dtype.name)
 
 
-def save_checkpoint(directory: str, step: int, tree: dict,
+def _leaf_like(arr: np.ndarray, dtype_name: str, leaf):
+    """The stored array as `leaf` is: a CPU tensor of its dtype for a
+    tensor template, else a numpy array of its dtype."""
+    if isinstance(leaf, torch.Tensor):
+        if dtype_name in _NATIVE:
+            t = torch.from_numpy(arr)
+        else:
+            size = arr.dtype.itemsize
+            t = torch.from_numpy(arr.view(np.dtype(f"int{8 * size}"))).view(
+                getattr(torch, dtype_name))
+        return t.to(leaf.dtype)
+    if dtype_name not in _NATIVE:
+        raise TypeError(f"a {dtype_name} leaf restores into a torch.Tensor "
+                        f"template only (numpy has no {dtype_name})")
+    return arr.astype(np.dtype(leaf.dtype), copy=False)
+
+
+def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[dict] = None) -> str:
     """Blocking save. Returns the committed checkpoint path."""
     ckpt = os.path.join(directory, f"step_{step:010d}")
@@ -81,16 +144,16 @@ def save_checkpoint(directory: str, step: int, tree: dict,
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-    keys, leaves = _flatten(tree)
+    leaves, treedef = _flatten(tree)
     manifest = {"step": step, "time": time.time(),
-                "treedef": _treedef(keys), "n_leaves": len(leaves),
+                "treedef": treedef, "n_leaves": len(leaves),
                 "extra": extra or {}, "files": {}}
     for i, leaf in enumerate(leaves):
-        arr = _host(leaf)
+        arr, dtype_name = _host(leaf)
         path = os.path.join(tmp, _key(i))
         np.save(path, arr, allow_pickle=False)
         manifest["files"][_key(i)] = {
-            "shape": list(arr.shape), "dtype": arr.dtype.name,
+            "shape": list(arr.shape), "dtype": dtype_name,
             "sha256_16": _sha256_16(path)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -116,11 +179,12 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, like: dict,
+def restore_checkpoint(directory: str, like: Any,
                        step: Optional[int] = None):
-    """Restore into the structure of `like`, a flat dict whose values have
-    numpy ``shape`` and ``dtype`` (arrays, or any such template), after
-    verifying every checksum: numpy arrays of those dtypes.
+    """Restore into the structure of `like`, a tree whose leaves have a
+    ``shape`` and a ``dtype`` (arrays, tensors, or any such template),
+    after verifying every checksum: CPU tensors where `like` has tensors
+    (any device, "meta" too), numpy arrays elsewhere, of `like`'s dtypes.
 
     Returns (tree, extra_dict, step).
     """
@@ -131,16 +195,17 @@ def restore_checkpoint(directory: str, like: dict,
     ckpt = os.path.join(directory, f"step_{step:010d}")
     with open(os.path.join(ckpt, "manifest.json")) as f:
         manifest = json.load(f)
-    keys, leaves = _flatten(like)
+    leaves, _ = _flatten(like)
     assert manifest["n_leaves"] == len(leaves), \
         f"checkpoint has {manifest['n_leaves']} leaves, expected {len(leaves)}"
-    out = {}
-    for i, (key, leaf) in enumerate(zip(keys, leaves)):
+    out = []
+    for i, leaf in enumerate(leaves):
         path = os.path.join(ckpt, _key(i))
-        if _sha256_16(path) != manifest["files"][_key(i)]["sha256_16"]:
+        entry = manifest["files"][_key(i)]
+        if _sha256_16(path) != entry["sha256_16"]:
             raise IOError(f"checksum mismatch in {path}")
         arr = np.load(path, allow_pickle=False)
         want_shape = tuple(leaf.shape)
         assert arr.shape == want_shape, (arr.shape, want_shape)
-        out[key] = arr.astype(np.dtype(leaf.dtype), copy=False)
-    return out, manifest["extra"], step
+        out.append(_leaf_like(arr, entry["dtype"], leaf))
+    return _unflatten(like, out), manifest["extra"], step

@@ -223,13 +223,16 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
-              ROOT / "examples" / "torch_distributed_pagerank.py"]
+              ROOT / "examples" / "torch_distributed_pagerank.py",
+              ROOT / "examples" / "torch_train_lm.py"]
     assert len(files) > 10
     # the sharded engines, their mesh and the elastic resume are scanned
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for mod in ("core/mesh.py", "core/distributed.py",
                 "core/distributed2d.py", "stream/sharded.py",
-                "train/elastic.py"):
+                "train/elastic.py", "train/loop.py", "optim/adamw.py",
+                "optim/adafactor.py", "optim/compress.py",
+                "launch/train.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         bad = {m for m in _imported_roots(f) if m in ("jax", "jaxlib",

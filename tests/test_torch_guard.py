@@ -907,5 +907,15 @@ def test_train_checkpoints_read_each_other(tmp_path):
     assert tckpt.latest_step(str(tmp_path / "none")) is None
     with pytest.raises(FileNotFoundError):
         tckpt.restore_checkpoint(str(tmp_path / "none"), tree)
+    # any JAX tree, not only a flat dict (a list here; model trees in
+    # tests/test_torch_train.py); a bfloat16 leaf restores into a tensor
+    # template only, since numpy has no bfloat16 of its own
+    tckpt.save_checkpoint(str(tmp_path / "x"), 1, [np.zeros(2)])
+    got, _, _ = jckpt.restore_checkpoint(str(tmp_path / "x"),
+                                         [jnp.zeros(2)])
+    np.testing.assert_array_equal(np.asarray(got[0]), np.zeros(2))
+    tckpt.save_checkpoint(str(tmp_path / "bf"), 1,
+                          {"w": torch.ones(2, dtype=torch.bfloat16)})
     with pytest.raises(TypeError):
-        tckpt.save_checkpoint(str(tmp_path / "x"), 1, [np.zeros(2)])
+        tckpt.restore_checkpoint(str(tmp_path / "bf"),
+                                 {"w": np.zeros(2, np.float32)})

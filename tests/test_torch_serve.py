@@ -72,6 +72,10 @@ def _carry(name, key, layers=2):
 
 
 def _close(got, want, tol=TOL):
+    # the weights are trainable: forward_full outside the serving steps'
+    # no_grad returns tensors that autograd records
+    got, want = (x.detach() if isinstance(x, torch.Tensor) else x
+                 for x in (got, want))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
                                rtol=tol)
 
@@ -190,7 +194,10 @@ def test_models_with_one_seed_are_equal_and_other_seeds_differ():
                             c.state_dict().values()):
         assert torch.equal(x, y), k
     assert not torch.equal(a.params.embed, c.params.embed)
-    assert all(not p.requires_grad for p in a.parameters())
+    # trainable weights; the serving steps record no graph
+    assert all(p.requires_grad for p in a.parameters())
+    last, caches = a.prefill_step(batch_for(tcfg, 1, 4, 0))
+    assert not last.requires_grad and not caches[0][0].requires_grad
 
 
 # -- serving -------------------------------------------------------------------

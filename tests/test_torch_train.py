@@ -1,0 +1,331 @@
+"""repro_torch's LM training path against the JAX package, on the CPU.
+
+- `flash_attention_bwd_plain` (the closed-form backward, the CUDA
+  kernel's oracle) against autograd through `flash_attention_bshd_plain`:
+  causal and full, S = T and ragged, GQA with H / K in {1, 2, 3}, D in
+  {16, 64}. f32 within 1e-5 of each gradient's max |value| (the closed
+  form is exact; only f32 rounding differs). bf16 within 2^-6 of it: the
+  plain backward takes Dr = rowsum(dO * O) from the bf16 output, while
+  autograd differentiates the f32 output before its rounding, so Dr is
+  off by up to 2^-8 |O| |dO| per term, and both round each gradient to
+  bf16 (2^-8 relative).
+- `FlashAttentionFn` on CPU tensors against autograd through
+  `chunked_attention` at the model's chunking, within 1e-5 of the max.
+- `LMModel.loss` and one `train_step` against `repro.models.LMModel`
+  (jit) for the smoke configs of qwen2-1.5b, smollm-360m and qwen3-4b
+  (two layers, the JAX weights carried over), f32: loss and grad_norm
+  within 1e-5 relative; every gradient leaf within 1e-5 of its max |value|
+  (sums in another order); after the step m within 1e-5 and v within
+  2e-5 of their leaves' max (v is g², so its relative error doubles); the
+  weights within 1e-6 plus lr x min(2, 2 d / (|g| + eps)) per element,
+  where d is the gradient's bar and g JAX's clipped gradient: AdamW's
+  first step is lr g / (|g| + eps), about lr sign(g), which moves by up to
+  2 lr where |g| is within d of 0 and by d / |g| elsewhere. Also two
+  microbatches (B = 4), a bf16 copy (below) and Adafactor: its update
+  divides each gradient entry by a factored RMS of its row and column, so
+  entries far below their column's scale (RoPE's slow dimensions of the k
+  bias) carry their rounding into the update (JAX's own update moves the
+  k bias by 2e-3 of its max between the two packages' gradients). So its
+  gradients are held as above and its weights and factors, within 1e-5 of
+  each leaf's max, against JAX's update of the port's gradients.
+- The loop against `train_step` driven by hand, the launcher, the mesh
+  guards; remat keeps no layer's (k, v) and changes no gradient.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.configs as jconfigs  # noqa: E402
+from repro.models import LMModel as JLMModel  # noqa: E402
+import repro.optim as jopt  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
+from repro_torch.data import batch_for  # noqa: E402
+from repro_torch.kernels.flash_attn import (  # noqa: E402
+    FlashAttentionFn, flash_attention_bshd_plain, flash_attention_bwd,
+    flash_attention_bwd_plain)
+from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.models import LMModel  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import transformer as ttfm  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    jax_tree, opt_state_from_jax, params_from_jax, unstack_jax_tree)
+from repro_torch.train import train as ttrain  # noqa: E402
+
+CPU = dict(device="cpu")
+ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b")
+TOL = 1e-5
+LR, EPS = 3e-4, 1e-8            # adamw_update's defaults in both packages
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _rel(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# -- the attention backward ----------------------------------------------------
+
+@pytest.mark.parametrize("S,T,H,K,D,causal", [
+    (40, 40, 4, 4, 16, True), (40, 40, 4, 2, 64, True),
+    (33, 33, 6, 2, 16, True), (24, 37, 3, 1, 16, False),
+    (37, 24, 6, 2, 64, False), (50, 50, 6, 3, 16, False)])
+def test_bwd_plain_matches_autograd(S, T, H, K, D, causal):
+    rng = np.random.default_rng(S * T + H + D)
+    q = torch.from_numpy(_normal(rng, 2, S, H, D)).requires_grad_()
+    k = torch.from_numpy(_normal(rng, 2, T, K, D)).requires_grad_()
+    v = torch.from_numpy(_normal(rng, 2, T, K, D)).requires_grad_()
+    do = torch.from_numpy(_normal(rng, 2, S, H, D))
+    o, lse = flash_attention_bshd_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                    o.detach(), lse, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _rel(g, w) <= TOL
+
+
+@pytest.mark.parametrize("round_p", [False, True])
+def test_bwd_plain_bf16_near_autograd(round_p):
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(_normal(rng, 2, 48, h, 64)).to(
+        torch.bfloat16) for h in (6, 2, 2, 6))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    o, lse = flash_attention_bshd_plain(q, k, v, round_p=round_p,
+                                        return_lse=True)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                    o.detach(), lse, do, round_p=round_p)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and _rel(g, w) <= 2.0 ** -6
+
+
+def test_lse_is_the_rows_logsumexp():
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(_normal(rng, 2, 70, h, 16)) for h in (4, 2, 2))
+    _, lse = flash_attention_bshd_plain(q, k, v, return_lse=True)
+    s = torch.einsum("bshd,bthd->bhst", q, k.repeat_interleave(2, 2)) / 4.0
+    s = s.masked_fill(torch.ones(70, 70, dtype=torch.bool).triu(1), -1e30)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_flash_attention_fn_matches_chunked_attention_grads():
+    """On CPU tensors the Function runs the plain forward and backward;
+    its gradients are chunked_attention's (autograd) at chunk 32."""
+    rng = np.random.default_rng(9)
+    qkv = [torch.from_numpy(_normal(rng, 2, 64, h, 16)).requires_grad_()
+           for h in (4, 2, 2)]
+    do = torch.from_numpy(_normal(rng, 2, 64, 4, 16))
+    launches = flash_attention_bwd.launches
+    got_o = FlashAttentionFn.apply(*qkv, True)
+    got = torch.autograd.grad(got_o, qkv, do)
+    want_o = tattn.chunked_attention(*qkv, chunk=32)
+    want = torch.autograd.grad(want_o, qkv, do)
+    assert _rel(got_o.detach(), want_o.detach()) <= TOL
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= TOL
+    assert flash_attention_bwd.launches == launches     # no kernel here
+
+
+def test_flash_attention_fn_raises_off_cpu_and_cuda():
+    q = torch.empty(1, 8, 2, 16, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        FlashAttentionFn.apply(q, q, q, True)
+    m = torch.empty(1, 8, 2, 16, device="meta")
+    lse = torch.empty(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        flash_attention_bwd(m, m, m, m, lse, m)
+
+
+# -- loss and train_step against JAX -------------------------------------------
+
+def _cfgs(name, layers=2, **kw):
+    return tuple(dataclasses.replace(c.smoke_config(c.get_config(name)),
+                                     n_layers=layers, repeats=layers, **kw)
+                 for c in (tconfigs, jconfigs))
+
+
+def _carry(name, key=0, **kw):
+    tcfg, jcfg = _cfgs(name, **kw)
+    jm = JLMModel(jcfg)
+    jp = jm.init_params(jax.random.key(key))
+    model = LMModel(tcfg, **CPU)
+    model.params.load_state_dict(
+        params_from_jax(jax.tree.map(np.asarray, jp), tcfg))
+    return model, jm, jp, tcfg
+
+
+def _flat(tree, cfg):
+    return {k: np.asarray(v, dtype=np.float32)
+            for k, v in unstack_jax_tree(tree, cfg).items()}
+
+
+def _leaves_close(got: dict, want: dict, tol):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k].detach().float().numpy()
+        np.testing.assert_allclose(g, w, rtol=0, err_msg=k,
+                                   atol=tol * max(np.abs(w).max(), 1e-30))
+
+
+def _check_step(model, jm, jp, tcfg, B, S=32):
+    """One loss, its gradients and one train_step in both packages."""
+    batch = batch_for(tcfg, B, S, 0, seed=1)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        jp, jb)
+    tl, tmet = model.loss(batch)
+    weights = dict(model.params.named_parameters())
+    tg = dict(zip(weights, torch.autograd.grad(tl, list(weights.values()))))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=TOL)
+    np.testing.assert_allclose(float(tmet["loss"].detach()),
+                               float(jmet["loss"]),
+                               rtol=TOL)
+    assert float(tmet["aux"]) == float(jmet["aux"]) == 0.0
+    jgf = _flat(jg, tcfg)
+    _leaves_close(tg, jgf, TOL)
+    jopt = jm.init_opt(jp)
+    jnew, jstate, jm_ = jax.jit(jm.train_step)(jp, jopt, jb)
+    topt, tm = model.train_step(model.init_opt(), batch)
+    for key in ("loss", "aux", "grad_norm"):
+        np.testing.assert_allclose(float(tm[key]), float(jm_[key]),
+                                   rtol=TOL, atol=1e-30)
+    return jnew, jstate, float(jm_["grad_norm"]), topt, tg
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_loss_and_train_step_match_jax(name):
+    model, jm, jp, tcfg = _carry(name)
+    jnew, jstate, gn, topt, _ = _check_step(model, jm, jp, tcfg, B=2)
+    assert int(topt.step) == int(jstate.step) == 1
+    _leaves_close(topt.m, _flat(jstate.m, tcfg), TOL)
+    _leaves_close(topt.v, _flat(jstate.v, tcfg), 2 * TOL)
+    # the weights: AdamW's first step is about lr sign(g), see the docstring
+    scale = min(1.0, 1.0 / max(gn, 1e-9))
+    g_c = {k: v * scale for k, v in _flat(jstate.m, tcfg).items()}  # 0.1 g_c
+    want = _flat(jnew, tcfg)
+    for k, p in model.params.state_dict().items():
+        g = np.abs(g_c[k]) / 0.1
+        d = TOL * g.max()
+        bar = 1e-6 + LR * np.minimum(2.0, 2 * d / (g + EPS))
+        diff = np.abs(p.numpy() - want[k])
+        assert (diff <= bar).all(), (k, float((diff - bar).max()))
+
+
+def test_train_step_accumulates_two_microbatches():
+    model, jm, jp, tcfg = _carry("smollm-360m", key=1)
+    assert tcfg.microbatch == 2
+    _check_step(model, jm, jp, tcfg, B=4)
+
+
+def test_adafactor_train_step_matches_jax():
+    model, jm, jp, tcfg = _carry("qwen2-1.5b", key=2, optimizer="adafactor")
+    _, _, gn, topt, tg = _check_step(model, jm, jp, tcfg, B=2)
+    assert gn == 0.0 and type(topt).__name__ == "AdafactorState"
+    # JAX's update of the port's gradients (see the docstring)
+    g_tree = jax_tree({k: v.numpy() for k, v in tg.items()}, tcfg, np.stack)
+    jnew, jstate, _ = jax.jit(jopt.adafactor_update)(
+        jax.tree.map(jnp.asarray, g_tree), jm.init_opt(jp), jp)
+    _leaves_close(dict(model.params.state_dict()), _flat(jnew, tcfg), TOL)
+    # keyed by the JAX tree's paths, the pattern stacked (its factors and
+    # update clip span the layer axis)
+    want = opt_state_from_jax(jax.tree.map(np.asarray, jstate), tcfg)
+    assert topt.vr["pattern.0.ln1.w"].shape == (tcfg.repeats,)
+    for got, w in ((topt.vr, want.vr), (topt.vc, want.vc)):
+        _leaves_close(got, {k: v.numpy() for k, v in w.items()}, TOL)
+
+
+def test_bf16_train_step_near_jax():
+    """bf16 weights and activations: the two frameworks round at other
+    places (XLA fuses an op chain and rounds once, PyTorch rounds every
+    op's output), so the loss agrees to 2^-6 relative (a few bf16 ulps
+    through two layers into the f32 head) and each gradient leaf to 0.1
+    of its max |value| (bf16 products and sums, 8 significant bits, over
+    B x S = 64 rows). The step's weights stay bf16 and its state f32."""
+    model, jm, jp, tcfg = _carry("qwen2-1.5b", key=3, dtype="bfloat16")
+    batch = batch_for(tcfg, 2, 32, 0, seed=1)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jl, _), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(jp, jb)
+    tl, _ = model.loss(batch)
+    weights = dict(model.params.named_parameters())
+    tg = dict(zip(weights, torch.autograd.grad(tl, list(weights.values()))))
+    np.testing.assert_allclose(float(tl.detach()), float(jl),
+                               rtol=2.0 ** -6)
+    _leaves_close(tg, _flat(jg, tcfg), 0.1)
+    topt, tm = model.train_step(model.init_opt(), batch)
+    assert np.isfinite(float(tm["loss"])) and float(tm["grad_norm"]) > 0
+    assert all(p.dtype == torch.bfloat16 for p in model.params.parameters())
+    assert all(m.dtype == torch.float32 for m in topt.m.values())
+
+
+def test_remat_keeps_no_layer_cache_and_same_gradients():
+    """Under autograd each block runs under torch.utils.checkpoint and
+    forward_full keeps no (k, v); the gradients equal those of the same
+    stack run without remat (a cache asked for turns remat off)."""
+    model, _, _, tcfg = _carry("qwen3-4b", key=4)
+    batch = {"tokens": torch.from_numpy(batch_for(tcfg, 2, 32, 0)["tokens"])}
+    logits, caches, _ = ttfm.forward_full(model.params, tcfg, batch)
+    assert caches is None
+    w = list(model.params.parameters())
+    g_remat = torch.autograd.grad(logits.sum(), w)
+    logits2, caches2, _ = ttfm.forward_full(model.params, tcfg, batch,
+                                            want_cache=True)
+    assert len(caches2) == tcfg.n_layers
+    for a, b in zip(g_remat, torch.autograd.grad(logits2.sum(), w)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# -- the loop and the launcher -------------------------------------------------
+
+def test_loop_steps_as_train_step_and_mesh_raises():
+    """`train` is `train_step` on `batch_for`'s step-indexed batches from
+    a model of the same seed: the same losses, bit for bit, logged every
+    `log_every` steps and at the last."""
+    tcfg, _ = _cfgs("smollm-360m", layers=1)
+    params, hist = ttrain(tcfg, steps=5, batch=2, seq=32, log_every=2,
+                          seed=3, **CPU)
+    assert [h["step"] for h in hist] == [2, 4, 5]
+    assert set(hist[0]) == {"loss", "aux", "grad_norm", "step", "sec"}
+    model = LMModel(tcfg, seed=3, **CPU)
+    opt, losses = model.init_opt(), []
+    for step in range(5):
+        opt, m = model.train_step(opt, batch_for(tcfg, 2, 32, step, seed=3))
+        losses.append(float(m["loss"]))
+    assert [h["loss"] for h in hist] == [losses[1], losses[3], losses[4]]
+    for a, b in zip(params.parameters(), model.params.parameters()):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="mesh.*ROADMAP A9"):
+        ttrain(tcfg, steps=1, batch=2, seq=32, mesh=object(), **CPU)
+
+
+def test_launcher_smoke_on_cpu(capsys):
+    tlaunch.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "3",
+                  "--batch", "2", "--seq", "32", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "arch=qwen2-1.5b-smoke device=cpu" in out
+    assert "final loss:" in out
+
+
+@pytest.mark.parametrize("flags", [["--production-mesh"], ["--multi-pod"],
+                                   ["--model-parallel", "2"]])
+def test_launcher_mesh_flags_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        tlaunch.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
+                      *flags])
+
+
+def test_training_defaults_to_cuda():
+    tcfg, _ = _cfgs("smollm-360m", layers=1)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain(tcfg, steps=1, batch=2, seq=32)
