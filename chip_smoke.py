@@ -190,24 +190,30 @@ Phases (any failure exits non-zero; nothing is caught):
      [0, vocab);
   11. LM training (after 9): (11a) flash_attention_bwd against its plain
      version (flash_attention_bwd_plain, on the forward kernel's o and
-     lse, p rounded for dV where the forward took the tensor cores) at the
-     training shapes: bf16 (the tensor-core forward's lse) and f32 causal,
-     bf16 full, ragged S = T = 1000 in both types, bf16 at smollm-360m's
-     D 64 (15 heads over 5), f32 at D 16: f32 within 1e-4 of each
-     gradient's max, bf16 within 2^-7 |want| + 2^-8 max|want|, lse within
-     1e-4 + 1e-5 |lse|, two runs bit-identical; FlashAttentionFn against
+     lse, with round_p where the call takes the tensor-core kernels: p
+     rounded to bf16 for dV, dS for dK and dQ) at the training shapes:
+     bf16 (the tensor-core forward's lse) and f32 causal, bf16 full,
+     ragged S = T = 1000 in both types, bf16 at smollm-360m's D 64 (15
+     heads over 5), f32 at D 16; the bf16 cases at D 64 and 128 on the
+     tensor-core kernels (launches_tc counts exactly those), the rest on
+     the scalar ones: f32 within 1e-4 of each gradient's max, bf16 within
+     2^-7 |want| + 2^-8 max|want|, lse within 1e-4 + 1e-5 |lse|, two
+     runs bit-identical; FlashAttentionFn against
      autograd through the plain forward; the kernel's times beside its
      plain version, its bound and scaled_dot_product_attention's backward
-     (the yardstick); (11b) qwen2-1.5b at full width, 2 layers, f32, 2 x
+     (the yardstick), and each of its CUDA kernels' device time
+     (torch.profiler, in a fresh process: --bwd-split); (11b) qwen2-1.5b
+     at full width, 2 layers, f32, 2 x
      256, the same weights on the card and the CPU: loss within 1e-5
      relative, gradients and m within 1e-5 of each leaf's max, v within
      2e-5, the weights after one train_step within AdamW's sign-step bar
      (tests/test_torch_train.py); (11c) train() at full width and depth,
      bf16, 3 steps on batch_for(cfg, 4, 2048) (one microbatch; launch
      counts set to 0 here: flash_attention exactly 56 a step, all on the
-     tensor cores, flash_attention_bwd 28), losses and grad norms finite,
-     every weight leaf moved, the steps' ms and tokens/s (the first apart),
-     the peak memory, one step's forward / backward / AdamW split by CUDA
+     tensor cores, flash_attention_bwd 28, all on the tensor cores),
+     losses and grad norms finite, every weight leaf moved, the steps' ms
+     and tokens/s (the first apart), the peak memory, one step's forward /
+     backward / AdamW split by CUDA
      events, and a checkpoint of the 2-layer model restored bit for bit.
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
@@ -261,6 +267,10 @@ def parse_args(argv=None):
     p.add_argument("--frac", type=float, default=1e-4)
     p.add_argument("--repeats", type=int, default=20)
     p.add_argument("--out", default=None, help="write the full report here")
+    p.add_argument("--bwd-split", action="store_true",
+                   help="only print flash_attention_bwd's CUDA kernels' "
+                   "device ms at the training shape as one JSON line (11a "
+                   "runs this in a fresh process)")
     return p.parse_args(argv)
 
 
@@ -413,6 +423,30 @@ def cuda_kernels(fn):
     if not names:
         return None
     return [x for x in names if not x.startswith(("Memset", "Memcpy"))]
+
+
+def kernel_split(fn, calls: int = 10):
+    """Device ms per call of each CUDA kernel that fn() runs, by name (its
+    namespace and arguments cut), from torch.profiler's averages over
+    `calls` calls; None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0)        # us, over every call
+        if t <= 0 or e.key.startswith(("Memset", "Memcpy", "aten::",
+                                       "cuda")):
+            continue
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("::")[-1].replace("void ", "")
+        split[name] = split.get(name, 0.0) + t / 1e3 / calls
+    return split or None
 
 
 def same_bits(x, y) -> bool:
@@ -2315,6 +2349,42 @@ def bwd_err(got, want):
     return float(d.max()), float(d.max()) / max(mx, 1e-30), ok
 
 
+def bwd_split_main(args) -> int:
+    """`--bwd-split`: `kernel_split` of flash_attention_bwd at the
+    training shape (bf16 causal, random inputs from --seed), printed as
+    one JSON line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (flash_attention_bshd,
+                                                flash_attention_bwd)
+    cfg, dev = get_config(LM_ARCH), torch.device("cuda")
+    B, S, H, K, D = LM_BATCH, LM_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, S, K, D, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    o, lse = flash_attention_bshd(q, k, v, causal=True, return_lse=True)
+    print(json.dumps(kernel_split(
+        lambda: flash_attention_bwd(q, k, v, o, lse, do))))
+    return 0
+
+
+def bwd_kernel_split(seed: int):
+    """flash_attention_bwd's CUDA kernels' device ms per call at the
+    training shape, from `--bwd-split` in a fresh process: in this one,
+    after the earlier phases, torch.profiler records few or none of the
+    kernels' device events. None if that process fails."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--bwd-split", "--seed", str(seed)],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=ROOT)
+    if proc.returncode != 0:
+        log(f"[time] --bwd-split exited with {proc.returncode}: "
+            f"{proc.stderr[-500:]}")
+        return None
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def attn_bwd_checks(args, dev, report):
     """11a: flash_attention_bwd against flash_attention_bwd_plain on the
     forward kernel's o and lse, at the training shapes; two runs bit for
@@ -2367,8 +2437,12 @@ def attn_bwd_checks(args, dev, report):
         require(bool(((lse - lse_p).abs() <= TOL_LSE[0]
                       + TOL_LSE[1] * lse_p.abs()).all()),
                 f"flash_attention lse {name}: max |diff| {e_lse}")
+        tc0 = flash_attention_bwd.launches_tc
         got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        require(flash_attention_bwd.launches_tc - tc0 == 2 * tc,
+                f"flash_attention_bwd {name}: launches_tc "
+                f"{flash_attention_bwd.launches_tc - tc0}, want {2 * tc}")
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          round_p=tc)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -2383,10 +2457,12 @@ def attn_bwd_checks(args, dev, report):
                         f"{e} ({rel:.3e} of max |want|)")
         require(same, f"flash_attention_bwd {name}: two runs differ")
         rep["checks"].append(dict(case=name, q=list(q.shape),
-                                  kv=list(k.shape), lse_err=e_lse,
-                                  errs=errs, bit_identical=same))
+                                  kv=list(k.shape), tensor_cores=tc,
+                                  lse_err=e_lse, errs=errs,
+                                  bit_identical=same))
         log(f"[train] flash_attention_bwd {name} q {list(q.shape)} kv "
-            f"{list(k.shape)}: " + ", ".join(
+            f"{list(k.shape)} ({'tensor-core' if tc else 'scalar'} "
+            f"kernels): " + ", ".join(
                 f"{g} {e:.3e} ({r:.2e} of max)" for g, (e, r) in errs.items())
             + f"; lse {e_lse:.2e}; repeat bit-identical {same}")
         del q, k, v, o, lse, do, got, again, want
@@ -2424,6 +2500,11 @@ def attn_bwd_checks(args, dev, report):
              library_ms=cuda_ms(library, args.repeats, ATTN_PER),
              bound=bound(nbytes, flops, BF16_FLOPS))
     t["single_call_ms"] = cuda_ms(kern, args.repeats)
+    t["kernel_split_ms"] = bwd_kernel_split(args.seed)
+    log("[time] flash_attention_bwd's kernels, device ms per call "
+        "(torch.profiler, 10 calls, a fresh process): " + (", ".join(
+            f"{n} {x:.4f}" for n, x in t["kernel_split_ms"].items())
+            if t["kernel_split_ms"] else "not measured (no device events)"))
     log(f"[time] flash_attention_bwd bf16 causal {[B, S, H, D]} / kv "
         f"{[B, S, K, D]}: {t['ms']:.4f} ms per call, {ATTN_PER} back to back "
         f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
@@ -2545,21 +2626,24 @@ def train_phase(args, dev, report):
                microbatch=min(cfg.microbatch, B))
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = flash_attention.launches_tc = 0
-    flash_attention_bwd.launches = 0
+    flash_attention_bwd.launches = flash_attention_bwd.launches_tc = 0
     params, hist = train(cfg, steps=TRAIN_STEPS, batch=B, seq=S, log_every=1,
                          seed=args.seed, device=dev)
     torch.cuda.synchronize()
     launches = dict(flash_attention=flash_attention.launches,
                     flash_attention_tc=flash_attention.launches_tc,
-                    flash_attention_bwd=flash_attention_bwd.launches)
+                    flash_attention_bwd=flash_attention_bwd.launches,
+                    flash_attention_bwd_tc=flash_attention_bwd.launches_tc)
     rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[launches] training path, {TRAIN_STEPS} steps: flash_attention "
         f"{launches['flash_attention']} (on the tensor cores "
         f"{launches['flash_attention_tc']}), flash_attention_bwd "
-        f"{launches['flash_attention_bwd']}")
+        f"{launches['flash_attention_bwd']} (on the tensor cores "
+        f"{launches['flash_attention_bwd_tc']})")
     want = dict(flash_attention=2 * L * TRAIN_STEPS,
                 flash_attention_tc=2 * L * TRAIN_STEPS,
-                flash_attention_bwd=L * TRAIN_STEPS)
+                flash_attention_bwd=L * TRAIN_STEPS,
+                flash_attention_bwd_tc=L * TRAIN_STEPS)
     require(launches == want, f"training launches {launches}, want {want} "
             f"(per step: the forward and its remat recomputation in each of "
             f"{L} layers, one backward each)")
@@ -2663,6 +2747,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 2
+    if args.bwd_split:
+        return bwd_split_main(args)
 
     from repro_torch.core import (PRParams, apply_batch, batch_to_device,
                                   build_hybrid, caps_for, device_graph,

@@ -10,41 +10,87 @@
 // What bounds it on the H100: operations. At the training shape (B 4, H 12
 // over 2 kv heads, S = T = 2048, D 128) the five causal products (S again,
 // dP, dV, dK, dQ) are 2.5x the forward's 51.5 GFLOP: 128.8 GFLOP, 0.130 ms
-// at the card's 989 TFLOP/s of bf16 tensor-core products. This first
-// design is the simple one: every product on the CUDA cores in f32, tiles
-// staged in shared memory as f32, like the forward's scalar kernel. Its
-// tensor-core form (wgmma, a TMA ring) is later work.
+// at the card's 989 TFLOP/s of bf16 tensor-core products. Only the tensor
+// cores, fed by TMA without stalls, come near it.
 //
 // The closed form (kernels/flash_attn.py flash_attention_bwd_plain):
 //   P  = exp(S / sqrt(D) - lse), 0 where the mask hides a key
 //   Dr = rowsum(dO o O)                      per (b, h, query row), f32
 //   dP = dO V^T,  dS = P o (dP - Dr)
 //   dV = P^T dO,  dK = dS^T Q / sqrt(D),  dQ = dS K / sqrt(D)
-// Three kernels on the caller's stream, no atomics, every sum in one fixed
-// order, so two runs give the same bits:
-//   * rowdot_kernel: Dr, one warp per row (a shuffle tree);
+// No atomics anywhere: every sum runs in one fixed order, so two runs give
+// the same bits. The C entry dispatches on dtype and head width as the
+// forward's does (kernels/flash_attn.py tensor_core_path):
+//
+// bf16 at D in {64, 128}: the tensor-core kernels (namespace tc), four
+//   launches on the caller's stream:
+//   * stats_kernel: Dr and lse log2(e) per (b, h, row) into f32 [B H, Sp]
+//     (Sp = S rounded up to 128); the pad rows get lse 2^30, so that any
+//     score there gives p = 2^(s - 2^30) = 0, and Dr 0;
+//   * dkdv_tc: one block of 384 threads per (batch, QUERY head, 128-row k
+//     tile), the k tiles nearest the start (which the most queries see)
+//     launched first: 768 blocks at the training shape, the heaviest
+//     first, so that the 132 SMs stay busy to the end. Warpgroup 0
+//     is the producer (one thread issues every copy; setmaxnreg 24): K and
+//     V once, then for each 64-row q tile that the causal mask lets see the
+//     k tile, Q and dO by TMA (4-D tensor maps with the caller's strides,
+//     128-byte swizzle, rows past S or T filled with zeros) and the tile's
+//     lse and Dr by 1-D bulk copies, into a ring of two stages with full
+//     and empty mbarriers. Warpgroups 1 and 2 own 64 k rows each (240
+//     registers): S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 from
+//     shared memory; P^T = 2^(S^T scale log2(e) - lse log2(e)) and
+//     dS^T = P^T o (dP^T - Dr) on the accumulator registers (the causal
+//     mask only on tiles that cross the diagonal; a slab whose keys all
+//     come after the tile's queries skips the tile); then dV += P^T dO and
+//     dK += dS^T Q by wgmma m64n{D}k16 with the A operand from registers
+//     (the f32 accumulator fragment, packed pair by pair into the bf16 A
+//     fragment) and dO, Q read MN-major through the descriptor's transpose
+//     bit. The block writes its head's f32 dK and dV partials into a
+//     scratch [B, T, H, D] each;
+//   * dq_tc: one block per (batch * head, 128-row q tile), the latest
+//     (heaviest) q tiles first, Q and dO resident, K and V tiles of 128 rows
+//     streamed up to the diagonal through the same kind of ring: S = Q K^T
+//     and dP = dO V^T again (seven products where the bound counts five: the
+//     alternative, dQ summed across the dK/dV blocks, needs atomics), dS on
+//     the registers, dQ += dS K with K read MN-major; dQ * scale in bf16;
+//   * reduce_kernel: dK and dV = the sum of each kv head's G = H / KH query
+//     heads' partials in ascending head order (dK then times 1 / sqrt(D)),
+//     rounded once to bf16.
+//   Rounding (flash_attention_bwd_plain with round_p=True defines it): the
+//   tensor cores take bf16 operands, so p is rounded to bf16 for the dV
+//   product (the p the tensor-core forward weighed V by) and dS to bf16 for
+//   the dK and dQ products; S, dP, P, dS and every accumulator are f32, and
+//   dP is not rounded before the subtraction.
+//   Shared memory at D 128: dkdv_tc K 32 KB + V 32 KB + 2 x (Q 16 KB + dO
+//   16 KB + 512 B of statistics); dq_tc Q 32 KB + dO 32 KB + 2 x (K 32 KB +
+//   V 32 KB). One block per SM. Scratch: 2 B H Sp + 2 B T H D f32, from
+//   the wrapper. Each consumer waits for its S and dP products together:
+//   two commit groups, to run the exponentials while dP is in flight, ran
+//   slower on the H100 in a side-by-side build (the two consumers already
+//   overlap each other's products), as did a third ring stage in dkdv_tc
+//   and 64-row K/V tiles in dq_tc.
+//
+// f32, and bf16 at D in {16, 32}: the scalar kernels (the port's first
+//   design), every product on the CUDA cores in f32, tiles staged in shared
+//   memory as f32, like the forward's scalar kernel; p stays f32. Three
+//   launches:
+//   * rowdot_kernel: Dr, one warp per row (a shuffle tree) into f32
+//     [B, H, S] scratch;
 //   * dkdv_kernel: one block of 256 threads per (batch, kv head, 64-row k
-//     tile), the k tiles nearest the start (which the most query rows see)
-//     launched first. It loops over the G = H / KH query heads of its kv
-//     head and, for each, over the 64-row q tiles that the causal mask lets
-//     see its keys, and keeps dK and dV in registers. So the sum of GQA
-//     over the G heads happens inside the block: dK and dV are written
-//     once, nothing is repeated or added atomically;
+//     tile), the k tiles nearest the start launched first. It loops over
+//     the G = H / KH query heads of its kv head and, for each, over the
+//     64-row q tiles that the causal mask lets see its keys, and keeps dK
+//     and dV in registers, so the sum of GQA over the G heads happens
+//     inside the block;
 //   * dq_kernel: one block per (batch * head, 64-row q tile), the latest
 //     (heaviest) q tiles first, over the k tiles up to the diagonal.
-// A thread of the 64 x 64 score tile owns 4 rows and 4 columns (rows
-// rg + 16 i, columns cg + 16 j), and the same 4 rows times D / 16 columns
-// of each accumulator.
-//
-// Rounding of p: where the forward took the tensor-core kernel (bf16 at
-// D 64 and 128) it rounded p to bf16 before the PV product. With
-// `round_p` the dV product here uses p rounded to bf16 too, so dV weighs
-// dO by the p the forward weighed V by; dS and the other products keep
-// the f32 p. The plain version's `round_p` defines the same choice.
+//   A thread of the 64 x 64 score tile owns 4 rows and 4 columns (rows
+//   rg + 16 i, columns cg + 16 j), and the same 4 rows times D / 16 columns
+//   of each accumulator.
 //
 // Masked scores: p is 0 wherever the forward's mask (-2^30) gave exp 0:
 // keys after the query under the causal mask, and the tail rows past S or
-// T, which are staged as zeros and never written. dQ, dK and dV are
+// T, which are read as zeros and never written. dQ, dK and dV are
 // contiguous [B, S, H, D] / [B, T, KH, D] in the input's type; q, k and v
 // are read through their strides, o and dO are contiguous. Built without
 // --fmad=false, like flash_attention.cu: f32 multiply-add chains held to
@@ -52,10 +98,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
+#include "hopper_tc.cuh"
+
 namespace {
+
+// -- the scalar kernels: f32, and bf16 at D in {16, 32} ----------------------
 
 constexpr int kRows = 64;       // rows of a q or k tile
 constexpr int kThreads = 256;   // 16 row groups x 16 column groups
@@ -68,9 +119,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // dst[r][d] (row pitch D + 1) = src[(row0 + r) * row_stride + d] as f32 for
@@ -133,7 +181,7 @@ __global__ void __launch_bounds__(kThreads)
                 T* __restrict__ dv, int B, int H, int KH, int S, int Tk,
                 long long qsb, long long qss, long long qsh, long long ksb,
                 long long kss, long long ksh, long long vsb, long long vss,
-                long long vsh, float scale, int causal, int round_p) {
+                long long vsh, float scale, int causal) {
   constexpr int kPitch = D + 1;
   constexpr int kCols = D / 16;         // accumulator columns per thread
   extern __shared__ float smem[];
@@ -217,7 +265,7 @@ __global__ void __launch_bounds__(kThreads)
           if (kr < k_valid && qc < q_valid
               && !(causal && k0 + kr > q0 + qc))
             p = expf(st[i][j] * scale - ls[qc]);
-          ps[kr * kPP + qc] = round_p ? round_bf16(p) : p;
+          ps[kr * kPP + qc] = p;
           dss[kr * kPP + qc] = p * (dpt[i][j] - ds[qc]);
         }
       }
@@ -380,8 +428,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq,
            void* dk, void* dv, int B, int H, int KH, int S, int Tk,
-           const long long* st, int causal, int round_p,
-           cudaStream_t stream) {
+           const long long* st, int causal, cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -405,7 +452,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   dkdv_kernel<T, D><<<nk * B * KH, kThreads, smem, stream>>>(
       qp, kp, vp, dop, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
       B, H, KH, S, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], scale, causal, round_p);
+      st[7], st[8], scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -427,22 +474,555 @@ template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, float* dsum,
              void* dq, void* dk, void* dv, int B, int H, int KH, int S,
-             int Tk, const long long* st, int causal, int round_p,
-             cudaStream_t stream) {
+             int Tk, const long long* st, int causal, cudaStream_t stream) {
 #define FAB_CASE(DD)                                                       \
   case DD:                                                                 \
     return launch<T, DD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, H,    \
-                         KH, S, Tk, st, causal, round_p, stream);
+                         KH, S, Tk, st, causal, stream);
   switch (D) {
     FAB_CASE(16)
     FAB_CASE(32)
-    FAB_CASE(64)
-    FAB_CASE(128)
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+  // bf16 at D 64 and 128 takes the tensor-core kernels (tc::launch)
+  if constexpr (sizeof(T) == sizeof(float)) {
+    switch (D) {
+      FAB_CASE(64)
+      FAB_CASE(128)
+      default:
+        break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 #undef FAB_CASE
 }
+
+// -- the tensor-core kernels: bf16, D in {64, 128} --------------------------
+namespace tc {
+
+constexpr int kThreads = 384;   // producer warpgroup + two consumers
+constexpr int kKV = 128;        // dkdv_tc: k rows per block (two slabs)
+constexpr int kQT = 64;         // dkdv_tc: q rows per streamed tile
+constexpr int kStagesKV = 2;    // dkdv_tc: ring depth
+constexpr int kQB = 128;        // dq_tc: q rows per block (two slabs)
+constexpr int kKT = 128;        // dq_tc: k rows per streamed tile
+constexpr int kStagesQ = 2;     // dq_tc: ring depth
+constexpr int kPadRows = 128;   // statistics rows padded to a multiple
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kPadLse = 1073741824.0f;   // 2^30: p = 0 on the pad rows
+
+// lse2[bh, s] = lse[bh, s] log2(e) and dr[bh, s] = sum_d dO O at row s of
+// head bh, for s < S; pad rows S <= s < Sp get 2^30 and 0. One warp a row.
+__global__ void __launch_bounds__(256)
+    stats_kernel(const __nv_bfloat16* __restrict__ o,
+                 const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ lse2,
+                 float* __restrict__ dr, long long rows, int H, int S,
+                 int Sp, int D) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const long long bh = row / Sp;
+  const int s = (int)(row % Sp);
+  if (s >= S) {
+    if (lane == 0) {
+      lse2[row] = kPadLse;
+      dr[row] = 0.f;
+    }
+    return;
+  }
+  const long long off = ((bh / H * S + s) * H + bh % H) * D;
+  float acc = 0.f;
+  for (int d = 2 * lane; d < D; d += 64) {
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(o + off + d));
+    const float2 g = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(dout + off + d));
+    acc += a.x * g.x + a.y * g.y;
+  }
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) {
+    dr[row] = acc;
+    lse2[row] = lse[bh * S + s] * kLog2e;
+  }
+}
+
+template <int D>
+struct DkdvLayout {
+  static constexpr int kTileKV = kKV * D * 2;   // K or V: D / 64 boxes
+  static constexpr int kTileQ = kQT * D * 2;    // Q or dO of a stage
+  static constexpr int kStats = kQT * 4;        // lse2 or Dr of a stage
+  static constexpr int kBars = 2 * kStagesKV + 1;
+  // + 1024: the swizzle atoms need a 1024-byte aligned start
+  static constexpr int kSmem = 2 * kTileKV + kStagesKV * 2 * kTileQ
+                               + kStagesKV * 2 * kStats + 8 * kBars + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_tc(const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tdo,
+            const float* __restrict__ lse2, const float* __restrict__ dr,
+            float* __restrict__ dk_part, float* __restrict__ dv_part, int H,
+            int KH, int S, int Tk, int Sp, int BH, float scale_log2,
+            int causal) {
+  using L = DkdvLayout<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sk = (raw + 1023) & ~1023u;          // K, V, then the ring
+  const uint32_t sv = sk + L::kTileKV;
+  const uint32_t ring = sv + L::kTileKV;              // stage s: Q, then dO
+  const uint32_t stats = ring + kStagesKV * 2 * L::kTileQ;  // s: lse2, Dr
+  const uint32_t bars = stats + kStagesKV * 2 * L::kStats;
+  // barriers: full [kStagesKV], empty [kStagesKV], K and V
+  const uint32_t kv_full = bars + 8 * 2 * kStagesKV;
+  const float* stats_p =
+      reinterpret_cast<const float*>(smem_raw + (stats - raw));
+
+  const int bh = blockIdx.x % BH;
+  const int kt = blockIdx.x / BH;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / KH);
+  const int k0 = kt * kKV;
+  const int nq = (S + kQT - 1) / kQT;
+  // under the causal mask, q tile qt sees a key of [k0, k0 + kKV) only if
+  // qt * kQT + kQT - 1 >= k0
+  const int qt_first = causal ? min(k0 / kQT, nq) : 0;
+  const int n_iter = nq - qt_first;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesKV; ++s) {
+      mbar_init(bars + 8 * s, 1);                     // producer's arrive
+      mbar_init(bars + 8 * (kStagesKV + s), 2 * 128);   // every consumer
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // -- producer: one thread issues every copy ------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kTileKV);
+      for (int c = 0; c < D / kBox; ++c) {
+        tma_load(sk + c * kKV * kRowBytes, &tk, c * kBox, kh, k0, b, kv_full);
+        tma_load(sv + c * kKV * kRowBytes, &tv, c * kBox, kh, k0, b, kv_full);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kStagesKV;
+        const int q0 = (qt_first + it) * kQT;
+        const uint32_t sq = ring + s * 2 * L::kTileQ, sdo = sq + L::kTileQ;
+        const uint32_t full = bars + 8 * s;
+        // the stage's previous tile is consumed (passes at once the first
+        // time round: the phase before phase 0 counts as complete)
+        mbar_wait(bars + 8 * (kStagesKV + s), ((it / kStagesKV) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kTileQ + 2 * L::kStats);
+        for (int c = 0; c < D / kBox; ++c) {
+          tma_load(sq + c * kQT * kRowBytes, &tq, c * kBox, h, q0, b, full);
+          tma_load(sdo + c * kQT * kRowBytes, &tdo, c * kBox, h, q0, b, full);
+        }
+        const long long st = (long long)bh * Sp + q0;
+        bulk_load(stats + s * 2 * L::kStats, lse2 + st, L::kStats, full);
+        bulk_load(stats + s * 2 * L::kStats + L::kStats, dr + st, L::kStats,
+                  full);
+      }
+    }
+    return;
+  }
+
+  // -- consumers: 64 k rows each ----------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128;
+  // accumulator rows r and r + 8 of the slab, columns 8 j + cq (+ 1)
+  const int r = (t / 32) * 16 + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const int ks0 = k0 + 64 * cw;                       // the slab's first key
+  const int krow0 = ks0 + r;                          // krow1 = krow0 + 8
+  const uint32_t ka = sk + cw * 64 * kRowBytes;       // the slab in a box
+  const uint32_t va = sv + cw * 64 * kRowBytes;
+
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStagesKV;
+    const int q0 = (qt_first + it) * kQT;
+    const uint32_t sq = ring + s * 2 * L::kTileQ, sdo = sq + L::kTileQ;
+    mbar_wait(bars + 8 * s, (it / kStagesKV) & 1);
+    // under the causal mask a slab whose keys all come after the tile's
+    // last query gets p = 0 from the whole tile
+    if (!causal || q0 + kQT - 1 >= ks0) {
+      // S^T = K Q^T, dP^T = V dO^T: D / 16 steps of k16 each
+      float st[kQT / 2], dpt[kQT / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kKV * kRowBytes + (kk % 4) * 32;
+        const uint32_t offq = (kk / 4) * kQT * kRowBytes + (kk % 4) * 32;
+        wgmma_ss<kQT>(st, desc(ka + off, 16, 1024), desc(sq + offq, 16, 1024),
+                      kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kKV * kRowBytes + (kk % 4) * 32;
+        const uint32_t offq = (kk / 4) * kQT * kRowBytes + (kk % 4) * 32;
+        wgmma_ss<kQT>(dpt, desc(va + off, 16, 1024),
+                      desc(sdo + offq, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T on the accumulators: rows keys, columns queries; the
+      // columns' statistics from the stage
+      const float* ls = stats_p + s * 2 * kQT;
+      const float* ds = ls + kQT;
+      const bool mask = causal && ks0 + 63 > q0;      // crosses the diagonal
+      uint32_t pa[kQT / 16][4], da[kQT / 16][4];      // A fragments
+#pragma unroll
+      for (int i = 0; i < kQT / 2; i += 2) {
+        const int col = 8 * (i / 4) + cq;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + col);
+        float p0 = ex2(fmaf(st[i], scale_log2, -l2.x));
+        float p1 = ex2(fmaf(st[i + 1], scale_log2, -l2.y));
+        if (mask) {
+          const int kp = krow0 + 8 * ((i / 2) % 2);
+          if (kp > q0 + col) p0 = 0.f;
+          if (kp > q0 + col + 1) p1 = 0.f;
+        }
+        pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+        da[i / 8][(i % 8) / 2] =
+            pack_bf16(p0 * (dpt[i] - d2.x), p1 * (dpt[i + 1] - d2.y));
+      }
+
+      // dV += P^T dO, dK += dS^T Q: kQT / 16 steps of k16; step kk reads
+      // rows 16 kk .. of the stage's dO and Q
+      fence_regs(adv);
+      fence_regs(adk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQT / 16; ++kk)
+        wgmma_rs<D>(adv, pa[kk],
+                    desc(sdo + kk * 16 * kRowBytes, kQT * kRowBytes, 1024));
+#pragma unroll
+      for (int kk = 0; kk < kQT / 16; ++kk)
+        wgmma_rs<D>(adk, da[kk],
+                    desc(sq + kk * 16 * kRowBytes, kQT * kRowBytes, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(adv);
+      fence_regs(adk);
+    }
+    mbar_arrive(bars + 8 * (kStagesKV + s));              // stage s is free
+  }
+
+  // epilogue: this head's partials, f32, rows past T not written
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = krow0 + 8 * half;
+    if (row >= Tk) continue;
+    const long long off = (((long long)b * Tk + row) * H + h) * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dk_part + off + 8 * j) =
+          make_float2(adk[4 * j + 2 * half], adk[4 * j + 2 * half + 1]);
+      *reinterpret_cast<float2*>(dv_part + off + 8 * j) =
+          make_float2(adv[4 * j + 2 * half], adv[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+template <int D>
+struct DqLayout {
+  static constexpr int kQBytes = kQB * D * 2;   // Q or dO: D / 64 boxes
+  static constexpr int kTile = kKT * D * 2;     // K or V of a stage
+  static constexpr int kBars = 2 * kStagesQ + 1;
+  static constexpr int kSmem = 2 * kQBytes + kStagesQ * 2 * kTile + 8 * kBars
+                               + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_tc(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tdo,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          const float* __restrict__ lse2, const float* __restrict__ dr,
+          __nv_bfloat16* __restrict__ dq, int H, int KH, int S, int Tk,
+          int Sp, int BH, int nq, float scale_log2, float scale,
+          int causal) {
+  using L = DqLayout<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;          // Q, dO, then the ring
+  const uint32_t sdo = sq + L::kQBytes;
+  const uint32_t ring = sdo + L::kQBytes;             // stage s: K, then V
+  const uint32_t bars = ring + kStagesQ * 2 * L::kTile;
+  // barriers: full [kStagesQ], empty [kStagesQ], Q and dO
+  const uint32_t q_full = bars + 8 * 2 * kStagesQ;
+
+  const int bh = blockIdx.x % BH;
+  const int qt = nq - 1 - blockIdx.x / BH;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / KH);
+  const int q0 = qt * kQB;
+  int n_tiles = (Tk + kKT - 1) / kKT;
+  if (causal) n_tiles = min(n_tiles, (min(S, q0 + kQB) - 1) / kKT + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesQ; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStagesQ + s), 2 * 128);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * L::kQBytes);
+      for (int c = 0; c < D / kBox; ++c) {
+        tma_load(sq + c * kQB * kRowBytes, &tq, c * kBox, h, q0, b, q_full);
+        tma_load(sdo + c * kQB * kRowBytes, &tdo, c * kBox, h, q0, b, q_full);
+      }
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kStagesQ;
+        const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (kStagesQ + s), ((kt / kStagesQ) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kTile);
+        for (int c = 0; c < D / kBox; ++c) {
+          tma_load(sk + c * kKT * kRowBytes, &tk, c * kBox, kh, kt * kKT, b,
+                   full);
+          tma_load(sv + c * kKT * kRowBytes, &tv, c * kBox, kh, kt * kKT, b,
+                   full);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- consumers: 64 q rows each ----------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int r = (t / 32) * 16 + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const int qs0 = q0 + 64 * cw;                       // the slab's first row
+  const int row0 = qs0 + r;                           // row1 = row0 + 8
+  const uint32_t qa = sq + cw * 64 * kRowBytes;       // the slab in a box
+  const uint32_t oa = sdo + cw * 64 * kRowBytes;
+  // the rows' statistics (Sp is a multiple of kQB: never past the pad)
+  const long long st0 = (long long)bh * Sp + row0;
+  const float l20 = lse2[st0], l21 = lse2[st0 + 8];
+  const float dr0 = dr[st0], dr1 = dr[st0 + 8];
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % kStagesQ;
+    const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
+    const int k0 = kt * kKT;
+    mbar_wait(bars + 8 * s, (kt / kStagesQ) & 1);
+    // a tile wholly after the slab's last query is skipped
+    if (!causal || k0 <= qs0 + 63) {
+      // S = Q K^T, dP = dO V^T
+      float sc[kKT / 2], dp[kKT / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t offa = (kk / 4) * kQB * kRowBytes + (kk % 4) * 32;
+        const uint32_t offb = (kk / 4) * kKT * kRowBytes + (kk % 4) * 32;
+        wgmma_ss<kKT>(sc, desc(qa + offa, 16, 1024),
+                      desc(sk + offb, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t offa = (kk / 4) * kQB * kRowBytes + (kk % 4) * 32;
+        const uint32_t offb = (kk / 4) * kKT * kRowBytes + (kk % 4) * 32;
+        wgmma_ss<kKT>(dp, desc(oa + offa, 16, 1024),
+                      desc(sv + offb, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS on the accumulators; the mask only where the tile crosses the
+      // tail of T (keys read as zeros there, but p could overflow) or the
+      // slab's diagonal
+      const bool mask = k0 + kKT > Tk || (causal && k0 + kKT - 1 > qs0);
+      uint32_t da[kKT / 16][4];
+#pragma unroll
+      for (int i = 0; i < kKT / 2; i += 2) {
+        const bool hi = (i / 2) % 2;
+        const float l2 = hi ? l21 : l20, d2 = hi ? dr1 : dr0;
+        float p0 = ex2(fmaf(sc[i], scale_log2, -l2));
+        float p1 = ex2(fmaf(sc[i + 1], scale_log2, -l2));
+        if (mask) {
+          const int kp = k0 + 8 * (i / 4) + cq;
+          const int qp = row0 + 8 * hi;
+          if (kp >= Tk || (causal && kp > qp)) p0 = 0.f;
+          if (kp + 1 >= Tk || (causal && kp + 1 > qp)) p1 = 0.f;
+        }
+        da[i / 8][(i % 8) / 2] =
+            pack_bf16(p0 * (dp[i] - d2), p1 * (dp[i + 1] - d2));
+      }
+
+      // dQ += dS K: kKT / 16 steps of k16; step kk reads K rows 16 kk ..
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKT / 16; ++kk)
+        wgmma_rs<D>(acc, da[kk],
+                    desc(sk + kk * 16 * kRowBytes, kKT * kRowBytes, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(bars + 8 * (kStagesQ + s));              // stage s is free
+  }
+
+  // epilogue: dQ / sqrt(D) in bf16; tail rows are not written
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= S) continue;
+    __nv_bfloat16* op = dq + (((long long)b * S + row) * H + h) * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
+  }
+}
+
+// out[b, t, kh, :] = scale x the sum over g < G, in ascending g, of
+// part[b, t, kh G + g, :], rounded once to bf16; blockIdx.y picks dK (with
+// 1 / sqrt(D)) or dV (scale 1). Four columns a thread.
+__global__ void __launch_bounds__(256)
+    reduce_kernel(const float* __restrict__ dk_part,
+                  const float* __restrict__ dv_part,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, long long n4, int G,
+                  int D, float scale_k) {
+  const float* part = blockIdx.y ? dv_part : dk_part;
+  __nv_bfloat16* out = blockIdx.y ? dv : dk;
+  const float scale = blockIdx.y ? 1.f : scale_k;
+  const int d4 = D / 4;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n4; i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / d4;                     // (b T + t) KH + kh
+    const int d = (int)(i % d4) * 4;
+    const float4* src =
+        reinterpret_cast<const float4*>(part + row * G * D + d);
+    float4 a = src[0];
+    for (int g = 1; g < G; ++g) {
+      const float4 x = src[g * d4];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + row * D + d);
+    o[0] = __floats2bfloat162_rn(a.x * scale, a.y * scale);
+    o[1] = __floats2bfloat162_rn(a.z * scale, a.w * scale);
+  }
+}
+
+// the scratch of these kernels, in floats: lse2 and Dr [B H Sp], the dK
+// and dV partials [B T H D] each
+long long work_floats(int B, int H, int S, int Tk, int D) {
+  const long long Sp = (S + kPadRows - 1) / kPadRows * kPadRows;
+  return 2LL * B * H * Sp + 2LL * B * Tk * H * D;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* work, void* dq,
+           void* dk, void* dv, int B, int H, int KH, int S, int Tk,
+           const long long* st, int causal, cudaStream_t stream) {
+  const int Sp = (S + kPadRows - 1) / kPadRows * kPadRows;
+  const int BH = B * H;
+  float* lse2 = work;
+  float* dr = lse2 + (long long)BH * Sp;
+  float* dk_part = dr + (long long)BH * Sp;
+  float* dv_part = dk_part + (long long)B * Tk * H * D;
+  const auto* o16 = static_cast<const __nv_bfloat16*>(o);
+  const auto* do16 = static_cast<const __nv_bfloat16*>(dout);
+
+  const long long rows = (long long)BH * Sp;
+  stats_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      o16, do16, lse, lse2, dr, rows, H, S, Sp, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // dO is contiguous [B, S, H, D]
+  const long long dsb = (long long)S * H * D, dss = (long long)H * D;
+  CUtensorMap tk, tv, tq, tdo;
+  if (!make_map(&tk, k, D, KH, Tk, B, st[3], st[4], st[5], kKV)
+      || !make_map(&tv, v, D, KH, Tk, B, st[6], st[7], st[8], kKV)
+      || !make_map(&tq, q, D, H, S, B, st[0], st[1], st[2], kQT)
+      || !make_map(&tdo, dout, D, H, S, B, dsb, dss, D, kQT))
+    return (int)cudaErrorInvalidValue;
+  // 1 / sqrt(D) as the forward, times log2(e) for ex2
+  const double scale = 1.0 / std::sqrt((double)D);
+  const float scale_log2 = (float)(scale * 1.4426950408889634);
+  err = cudaFuncSetAttribute(dkdv_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DkdvLayout<D>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int nk = (Tk + kKV - 1) / kKV;
+  dkdv_tc<D><<<nk * BH, kThreads, DkdvLayout<D>::kSmem, stream>>>(
+      tk, tv, tq, tdo, lse2, dr, dk_part, dv_part, H, KH, S, Tk, Sp, BH,
+      scale_log2, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  CUtensorMap tq2, tdo2, tk2, tv2;
+  if (!make_map(&tq2, q, D, H, S, B, st[0], st[1], st[2], kQB)
+      || !make_map(&tdo2, dout, D, H, S, B, dsb, dss, D, kQB)
+      || !make_map(&tk2, k, D, KH, Tk, B, st[3], st[4], st[5], kKT)
+      || !make_map(&tv2, v, D, KH, Tk, B, st[6], st[7], st[8], kKT))
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(dq_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DqLayout<D>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (S + kQB - 1) / kQB;
+  dq_tc<D><<<nq * BH, kThreads, DqLayout<D>::kSmem, stream>>>(
+      tq2, tdo2, tk2, tv2, lse2, dr, static_cast<__nv_bfloat16*>(dq), H, KH,
+      S, Tk, Sp, BH, nq, scale_log2, (float)scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const long long n4 = (long long)B * Tk * KH * D / 4;
+  const unsigned blocks = (unsigned)std::min<long long>((n4 + 255) / 256,
+                                                        4096);
+  reduce_kernel<<<dim3(blocks, 2), 256, 0, stream>>>(
+      dk_part, dv_part, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), n4, H / KH, D, (float)scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -451,32 +1031,52 @@ extern "C" {
 // q [B, S, H, D], k and v [B, T, KH, D] through their (batch, row, head)
 // strides in elements (the last dimension contiguous); o and dout (the
 // forward's output and its gradient) contiguous [B, S, H, D]; lse the
-// forward's contiguous f32 [B, H, S] row log-sum-exp (natural log); dsum
-// f32 [B, H, S] scratch; dq a contiguous [B, S, H, D], dk and dv
-// contiguous [B, T, KH, D], written whole. dtype 0: float32, 1: bfloat16.
-// D in {16, 32, 64, 128}; H a multiple of KH; S, T >= 1. round_p: the dV
-// product takes p rounded to bf16 (as the tensor-core forward rounded
-// it). Three launches on `stream`; returns a CUDA error code (0 on
+// forward's contiguous f32 [B, H, S] row log-sum-exp (natural log); dq a
+// contiguous [B, S, H, D], dk and dv contiguous [B, T, KH, D], written
+// whole. dtype 0: float32, 1: bfloat16. D in {16, 32, 64, 128}; H a
+// multiple of KH; S, T >= 1. bf16 at D 64 or 128 takes the tensor-core
+// kernels, which need 16-byte aligned bases and strides that are multiples
+// of 8 elements (kernels/flash_attn.py makes them so); everything else
+// the scalar kernels. `work` is f32 scratch of the size that
+// flash_attention_bwd_work gives. Returns a CUDA error code (0 on
 // success).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
-                        void* dsum, void* dq, void* dk, void* dv, int dtype,
+                        void* work, void* dq, void* dk, void* dv, int dtype,
                         int B, int H, int KH, int S, int T, int D,
                         long long qsb, long long qss, long long qsh,
                         long long ksb, long long kss, long long ksh,
                         long long vsb, long long vss, long long vsh,
-                        int causal, int round_p, void* stream) {
+                        int causal, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* ds = static_cast<float*>(dsum);
+  float* w = static_cast<float*>(work);
+  if (dtype == 1 && D == 128)
+    return tc::launch<128>(q, k, v, o, dout, l, w, dq, dk, dv, B, H, KH, S,
+                           T, st, causal, s);
+  if (dtype == 1 && D == 64)
+    return tc::launch<64>(q, k, v, o, dout, l, w, dq, dk, dv, B, H, KH, S, T,
+                          st, causal, s);
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, dout, l, ds, dq, dk, dv, B, H, KH,
-                           S, T, st, causal, round_p, s);
+    return launch_d<float>(D, q, k, v, o, dout, l, w, dq, dk, dv, B, H, KH,
+                           S, T, st, causal, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, ds, dq, dk, dv, B,
-                                   H, KH, S, T, st, causal, round_p, s);
+    return launch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, w, dq, dk, dv, B,
+                                   H, KH, S, T, st, causal, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// *floats = the f32 scratch flash_attention_bwd needs for these sizes: the
+// tensor-core kernels' padded row statistics and per-query-head dK and dV
+// partials (2 B H Sp + 2 B T H D, Sp = S rounded up to 128), the scalar
+// kernels' Dr (B H S). Returns 0.
+int flash_attention_bwd_work(int dtype, int B, int H, int S, int T, int D,
+                             long long* floats) {
+  *floats = dtype == 1 && (D == 64 || D == 128)
+                ? tc::work_floats(B, H, S, T, D)
+                : (long long)B * H * S;
+  return 0;
 }
 
 }  // extern "C"

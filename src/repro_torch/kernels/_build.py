@@ -20,9 +20,10 @@ multiply-add chains held to 2e-5, and splitting each FMA would cost it
 about half its throughput (its tensor-core kernel needs no flag beyond
 `sm_90a`: the tensor maps are encoded through the runtime's driver entry
 point, so nothing links libcuda). `flash_attention_bwd` builds without it
-too, for the same reason: its five products are f32 multiply-add chains,
-held to 1e-4 of the gradient's max against the plain backward, whose sums
-run in another order anyway.
+too, for the same reason: its scalar kernels' five products are f32
+multiply-add chains, held to 1e-4 of the gradient's max against the plain
+backward, whose sums run in another order anyway (its tensor-core kernels
+run their products in `wgmma`).
 
 A missing `nvcc` or a failed build raises; nothing falls back.
 """

@@ -36,11 +36,25 @@ The gradient (the Pallas kernel has none; JAX differentiates
 `chunked_attention`): `FlashAttentionFn` is the autograd Function that
 `attn_apply` runs on CUDA tensors. Its forward asks for `lse` only when a
 gradient is wanted and then saves q, k, v, o and lse; its backward
-launches `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`, counted by
-`flash_attention_bwd.launches`: one per call, its three CUDA kernels
-together), which recomputes p from `lse`. On CPU tensors both halves run
-their plain versions; `flash_attention_bwd_plain` is the closed form and
-the kernel's oracle.
+launches `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`), which
+recomputes p from `lse`. Its source holds two designs, chosen by
+`tensor_core_path` as the forward's are:
+
+- bf16 at head widths 64 and 128: the Hopper kernels (TMA rings, `wgmma`;
+  a dK/dV kernel per (batch, query head, k tile) writing f32 per-head
+  partials into a scratch of 2 B T H D floats that a small kernel sums
+  over each kv head's query heads in a fixed order, and a dQ kernel; the
+  wrapper allocates the scratch at the size the library's
+  `flash_attention_bwd_work` gives). The tensor cores take bf16
+  operands, so p is rounded to bf16 for dV and dS for dK and dQ:
+  `flash_attention_bwd_plain(round_p=True)` rounds the same.
+  `flash_attention_bwd.launches_tc` counts these calls;
+- f32, and bf16 at widths 16 and 32: the scalar kernels, all in f32.
+
+`flash_attention_bwd.launches` counts every call (each launches its
+design's kernels together). On CPU tensors both halves run their plain
+versions; `flash_attention_bwd_plain` is the closed form and the kernels'
+oracle.
 """
 from __future__ import annotations
 
@@ -64,7 +78,9 @@ _L = ctypes.c_longlong
 _SIG = {"flash_attention": [_build.P] * 5 + [_build.I] * 7 + [_L] * 9
         + [_build.I, _build.P]}
 _SIG_BWD = {"flash_attention_bwd": [_build.P] * 10 + [_build.I] * 7
-            + [_L] * 9 + [_build.I] * 2 + [_build.P]}
+            + [_L] * 9 + [_build.I, _build.P],
+            "flash_attention_bwd_work": [_build.I] * 6
+            + [ctypes.POINTER(_L)]}
 
 
 def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
@@ -149,9 +165,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     forward's). With P = exp(S / sqrt(D) - lse) (0 where masked, as the
     forward's NEG gives exp 0), Dr = rowsum(do * o), dS = P * (do V^T -
     Dr): dV = P^T do, dK = dS^T Q / sqrt(D), dQ = dS K / sqrt(D), the G
-    query heads of a kv head summed into its dK and dV. With `round_p` the
-    dV product takes P rounded to q's dtype, as the tensor-core forward
-    rounded p before PV (dS keeps the f32 P); the identity in f32. Dr comes
+    query heads of a kv head summed into its dK and dV. With `round_p`
+    the products take what the tensor-core kernel gives its tensor cores:
+    P rounded to q's dtype for dV (the p the tensor-core forward weighed V
+    by) and dS rounded to q's dtype for dK and dQ; S, dP, P and dS stay f32
+    until then (dP is not rounded before the subtraction, where JAX's bf16
+    VJP of `chunked_attention` rounds it), and the identity in f32.
+    Without it everything is f32, the scalar kernel's arithmetic. Dr comes
     from the output the forward returned, so in bf16 this is not the exact
     derivative of the rounded forward. Returns (dq, dk, dv) in the inputs'
     dtypes."""
@@ -171,8 +191,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dr = (do.float() * o.float()).sum(-1)                   # [B, S, H]
     dr = dr.permute(0, 2, 1).reshape(B, K, G, S, 1)
     ds = p * (torch.einsum("bskgd,btkd->bkgst", dof, vf) - dr)
-    pv = p.to(q.dtype).float() if round_p else p
-    dv = torch.einsum("bkgst,bskgd->btkd", pv, dof)
+    if round_p:
+        p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dof)
     dk = torch.einsum("bkgst,bskgd->btkd", ds, qf) * scale
     dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
     return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
@@ -253,10 +274,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True):
     """(dq, dk, dv) of `flash_attention_bshd(q, k, v, causal=)`: q, o, do
     [B, S, H, D], k/v [B, T, K, D], lse f32 [B, H, S] from the forward.
-    On a CUDA tensor one call launches the backward kernel (p rounded for
-    dV where the forward took the tensor-core path); on a CPU tensor it
-    runs `flash_attention_bwd_plain`; anything else raises. Returns
-    contiguous gradients in the inputs' dtype."""
+    On a CUDA tensor one call launches the backward kernels (the
+    tensor-core design where `tensor_core_path` says so, rounding as
+    `flash_attention_bwd_plain(round_p=True)`; else the scalar one, all
+    f32); on a CPU tensor it runs `flash_attention_bwd_plain`; anything
+    else raises. Returns contiguous gradients in the inputs' dtype."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     tc = _check(q, k, v)
@@ -271,20 +293,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o, do = o.to(q.dtype).contiguous(), do.to(q.dtype).contiguous()
     _build.check("flash_attention_bwd lse", lse, torch.float32, (B, H, S),
                  dev)
-    q, k, v = (_operand(t, False) for t in (q, k, v))
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    q, k, v = (_operand(t, tc) for t in (q, k, v))
+    lib = _build.load("flash_attention_bwd", _SIG_BWD)
+    floats = _L()
+    lib.flash_attention_bwd_work(_DTYPES[q.dtype], B, H, S, T, D,
+                                 ctypes.byref(floats))
+    work = torch.empty(floats.value, dtype=torch.float32, device=dev)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, T, K, D), dtype=q.dtype, device=dev)
     dv = torch.empty((B, T, K, D), dtype=q.dtype, device=dev)
-    lib = _build.load("flash_attention_bwd", _SIG_BWD)
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, H, K, S, T, D,
-        *_strides(q), *_strides(k), *_strides(v), int(causal), int(tc),
+        *_strides(q), *_strides(k), *_strides(v), int(causal),
         _build.stream_ptr(dev))
     _build.launch_error("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_tc += tc
     return dq, dk, dv
 
 
@@ -341,3 +367,4 @@ def _operand(t: torch.Tensor, tc: bool) -> torch.Tensor:
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_tc = 0

@@ -1,0 +1,173 @@
+"""The rounding of the attention backward's plain version, on the CPU.
+
+`flash_attention_bwd_plain(round_p=True)` defines what the tensor-core
+backward kernel (`csrc/flash_attention_bwd.cu`, bf16 at D 64 and 128)
+rounds: p to bf16 for the dV product and dS to bf16 for the dK and dQ
+products, everything else f32. Here it is held:
+
+- against autograd through `flash_attention_bshd_plain(round_p=True)`
+  within 2^-6 of each gradient's max |value| (the bar of
+  tests/test_torch_train.py: Dr comes from the bf16 output where autograd
+  differentiates the f32 one, and each gradient is rounded to bf16);
+- against `jax.vjp` of the JAX package's `chunked_attention` in bf16 (the
+  reference's own gradient: it rounds p for PV and dP = dO V^T to bf16,
+  keeps dS f32, and rounds its results to bf16 at other places) within
+  2^-5 of each gradient's max |value|, GQA with 6 query heads over 2 kv
+  heads at D 64, inputs from one numpy seed; full attention is JAX's
+  causal mask with every key before the queries (q_offset = T);
+- without `round_p`, bit for bit against the f32 closed form the scalar
+  kernels are held to (the formula as it stood before the rounding of dS
+  was added), and in f32 `round_p` changes nothing.
+
+Each case runs causal and full, at S 64 and 96 and a ragged S.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.models.attention import chunked_attention  # noqa: E402
+from repro_torch.kernels.flash_attn import (  # noqa: E402
+    NEG, flash_attention_bshd_plain, flash_attention_bwd,
+    flash_attention_bwd_plain)
+
+B, H, K, D = 2, 6, 2, 64
+CASES = [(64, True), (64, False), (96, True), (96, False), (50, True),
+         (50, False)]
+CASE_IDS = [f"S{s}-{'causal' if c else 'full'}" for s, c in CASES]
+TOL_AUTOGRAD = 2.0 ** -6
+TOL_JAX = 2.0 ** -5
+
+
+def _inputs(S: int, dtype=torch.bfloat16):
+    """q, k, v, do as `dtype` tensors from one numpy seed per length."""
+    rng = np.random.default_rng(1000 + S)
+    shapes = ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D))
+    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+            .to(dtype) for sh in shapes]
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("S,causal", CASES, ids=CASE_IDS)
+def test_round_p_matches_autograd(S, causal):
+    q, k, v, do = _inputs(S)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    o, lse = flash_attention_bshd_plain(q, k, v, causal=causal, round_p=True,
+                                        return_lse=True)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                    o.detach(), lse, do, causal=causal,
+                                    round_p=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _rel(g, w) <= TOL_AUTOGRAD
+
+
+def _jax_grads(q, k, v, do, causal: bool):
+    """jax.vjp of chunked_attention in bf16 on the same values."""
+    S, T = q.shape[1], k.shape[1]
+    chunk = 32 if S % 32 == 0 else S
+    q_offset = 0 if causal else T
+
+    def to_jax(x):
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+    def f(q_, k_, v_):
+        return chunked_attention(q_, k_, v_, chunk=chunk, q_offset=q_offset)
+
+    _, vjp = jax.vjp(f, to_jax(q), to_jax(k), to_jax(v))
+    return [torch.from_numpy(np.array(g.astype(jnp.float32)))
+            for g in vjp(to_jax(do))]
+
+
+@pytest.mark.parametrize("S,causal", CASES, ids=CASE_IDS)
+def test_round_p_near_jax_bf16_vjp(S, causal):
+    q, k, v, do = _inputs(S)
+    o, lse = flash_attention_bshd_plain(q, k, v, causal=causal, round_p=True,
+                                        return_lse=True)
+    got = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                    round_p=True)
+    want = _jax_grads(q, k, v, do, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel(g, w) <= TOL_JAX
+
+
+def _bwd_f32_reference(q, k, v, o, lse, do, causal):
+    """The f32 closed form as the scalar kernels' oracle computed it before
+    round_p also rounded dS: the same operations in the same order."""
+    B_, S, H_, D_ = q.shape
+    T, K_ = k.shape[1], k.shape[2]
+    G = H_ // K_
+    scale = 1.0 / math.sqrt(D_)
+    qf = q.float().reshape(B_, S, K_, G, D_)
+    dof = do.float().reshape(B_, S, K_, G, D_)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bskgd,btkd->bkgst", qf, kf) * scale
+    if causal:
+        allow = torch.arange(T)[None, :] <= torch.arange(S)[:, None]
+        s = torch.where(allow, s, NEG)
+    p = torch.exp(s - lse.reshape(B_, K_, G, S, 1))
+    dr = (do.float() * o.float()).sum(-1)
+    dr = dr.permute(0, 2, 1).reshape(B_, K_, G, S, 1)
+    ds = p * (torch.einsum("bskgd,btkd->bkgst", dof, vf) - dr)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dof)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qf) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    return (dq.reshape(B_, S, H_, D_).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("S,causal", CASES, ids=CASE_IDS)
+def test_f32_unchanged_bit_for_bit(S, causal):
+    q, k, v, do = _inputs(S, torch.float32)
+    o, lse = flash_attention_bshd_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    want = _bwd_f32_reference(q, k, v, o, lse, do, causal)
+    for round_p in (False, True):      # in f32 the rounding is the identity
+        got = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        round_p=round_p)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("S,causal", CASES, ids=CASE_IDS)
+def test_round_p_rounds_p_and_ds_only(S, causal):
+    """bf16 inputs: without round_p the products take the f32 p and dS
+    (the reference above); with it they differ, and by no more than the
+    bf16 rounding of p and dS can move them."""
+    q, k, v, do = _inputs(S)
+    o, lse = flash_attention_bshd_plain(q, k, v, causal=causal, round_p=True,
+                                        return_lse=True)
+    want = _bwd_f32_reference(q, k, v, o, lse, do, causal)
+    plain = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    rounded = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        round_p=True)
+    for a, w, r in zip(plain, want, rounded):
+        assert torch.equal(a, w)
+        assert not torch.equal(r, w)
+        assert _rel(r, w) <= 2.0 ** -6
+
+
+def test_cpu_calls_launch_nothing():
+    """On CPU tensors the wrapper runs the plain version: no launch of
+    either design is counted."""
+    q, k, v, do = _inputs(64)
+    o, lse = flash_attention_bshd_plain(q, k, v, round_p=True,
+                                        return_lse=True)
+    before = (flash_attention_bwd.launches, flash_attention_bwd.launches_tc)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (flash_attention_bwd.launches,
+            flash_attention_bwd.launches_tc) == before
+
