@@ -201,8 +201,7 @@ Phases (any failure exits non-zero; nothing is caught):
      runs bit-identical; FlashAttentionFn against
      autograd through the plain forward; the kernel's times beside its
      plain version, its bound and scaled_dot_product_attention's backward
-     (the yardstick), and each of its CUDA kernels' device time
-     (torch.profiler, in a fresh process: --bwd-split); (11b) qwen2-1.5b
+     (the yardstick); (11b) qwen2-1.5b
      at full width, 2 layers, f32, 2 x
      256, the same weights on the card and the CPU: loss within 1e-5
      relative, gradients and m within 1e-5 of each leaf's max, v within
@@ -267,10 +266,6 @@ def parse_args(argv=None):
     p.add_argument("--frac", type=float, default=1e-4)
     p.add_argument("--repeats", type=int, default=20)
     p.add_argument("--out", default=None, help="write the full report here")
-    p.add_argument("--bwd-split", action="store_true",
-                   help="only print flash_attention_bwd's CUDA kernels' "
-                   "device ms at the training shape as one JSON line (11a "
-                   "runs this in a fresh process)")
     return p.parse_args(argv)
 
 
@@ -423,30 +418,6 @@ def cuda_kernels(fn):
     if not names:
         return None
     return [x for x in names if not x.startswith(("Memset", "Memcpy"))]
-
-
-def kernel_split(fn, calls: int = 10):
-    """Device ms per call of each CUDA kernel that fn() runs, by name (its
-    namespace and arguments cut), from torch.profiler's averages over
-    `calls` calls; None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0)        # us, over every call
-        if t <= 0 or e.key.startswith(("Memset", "Memcpy", "aten::",
-                                       "cuda")):
-            continue
-        name = e.key.replace("(anonymous namespace)::", "")
-        name = name.split("(")[0].split("::")[-1].replace("void ", "")
-        split[name] = split.get(name, 0.0) + t / 1e3 / calls
-    return split or None
 
 
 def same_bits(x, y) -> bool:
@@ -2349,42 +2320,6 @@ def bwd_err(got, want):
     return float(d.max()), float(d.max()) / max(mx, 1e-30), ok
 
 
-def bwd_split_main(args) -> int:
-    """`--bwd-split`: `kernel_split` of flash_attention_bwd at the
-    training shape (bf16 causal, random inputs from --seed), printed as
-    one JSON line."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attn import (flash_attention_bshd,
-                                                flash_attention_bwd)
-    cfg, dev = get_config(LM_ARCH), torch.device("cuda")
-    B, S, H, K, D = LM_BATCH, LM_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
-    q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
-             for _ in range(2))
-    k, v = (torch.randn(B, S, K, D, generator=gen, device=dev).bfloat16()
-            for _ in range(2))
-    o, lse = flash_attention_bshd(q, k, v, causal=True, return_lse=True)
-    print(json.dumps(kernel_split(
-        lambda: flash_attention_bwd(q, k, v, o, lse, do))))
-    return 0
-
-
-def bwd_kernel_split(seed: int):
-    """flash_attention_bwd's CUDA kernels' device ms per call at the
-    training shape, from `--bwd-split` in a fresh process: in this one,
-    after the earlier phases, torch.profiler records few or none of the
-    kernels' device events. None if that process fails."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--bwd-split", "--seed", str(seed)],
-                          capture_output=True, text=True, timeout=600,
-                          cwd=ROOT)
-    if proc.returncode != 0:
-        log(f"[time] --bwd-split exited with {proc.returncode}: "
-            f"{proc.stderr[-500:]}")
-        return None
-    return json.loads(proc.stdout.strip().splitlines()[-1])
-
-
 def attn_bwd_checks(args, dev, report):
     """11a: flash_attention_bwd against flash_attention_bwd_plain on the
     forward kernel's o and lse, at the training shapes; two runs bit for
@@ -2500,11 +2435,6 @@ def attn_bwd_checks(args, dev, report):
              library_ms=cuda_ms(library, args.repeats, ATTN_PER),
              bound=bound(nbytes, flops, BF16_FLOPS))
     t["single_call_ms"] = cuda_ms(kern, args.repeats)
-    t["kernel_split_ms"] = bwd_kernel_split(args.seed)
-    log("[time] flash_attention_bwd's kernels, device ms per call "
-        "(torch.profiler, 10 calls, a fresh process): " + (", ".join(
-            f"{n} {x:.4f}" for n, x in t["kernel_split_ms"].items())
-            if t["kernel_split_ms"] else "not measured (no device events)"))
     log(f"[time] flash_attention_bwd bf16 causal {[B, S, H, D]} / kv "
         f"{[B, S, K, D]}: {t['ms']:.4f} ms per call, {ATTN_PER} back to back "
         f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
@@ -2747,8 +2677,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 2
-    if args.bwd_split:
-        return bwd_split_main(args)
 
     from repro_torch.core import (PRParams, apply_batch, batch_to_device,
                                   build_hybrid, caps_for, device_graph,
