@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (`repro_torch`) of Static and DF-P PageRank,
-of its streaming session and of LM serving and training on one GPU, and
-hold its CUDA kernels against their plain PyTorch versions.
+of its streaming session and of LM serving (qwen2-1.5b, gemma2-9b) and
+training on one GPU, and hold its CUDA kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py                 # full size: n=2^22, m=2^26
     python3 chip_smoke.py --n 65536 --m 1048576 --out report.json
@@ -213,7 +214,33 @@ Phases (any failure exits non-zero; nothing is caught):
      losses and grad norms finite, every weight leaf moved, the steps' ms
      and tokens/s (the first apart), the peak memory, one step's forward /
      backward / AdamW split by CUDA
-     events, and a checkpoint of the 2-layer model restored bit for bit.
+     events, and a checkpoint of the 2-layer model restored bit for bit;
+  12. gemma2-9b serving (after 11; 42 layers alternating a 4096-window
+     local and a global layer, soft-caps 50 and 30, head width 256, bf16,
+     weights from --seed): (12a) flash_attention with the window, the
+     soft-cap and D 256 against its plain version at phase 9's bars (q
+     scaled by 8 so that scores reach the cap): bf16 on the tensor cores
+     at B 2, 16 heads over 8, S = T = 8192 with window 4096 and cap 50
+     (a local layer) and with the cap only (a global one), ragged 1000
+     with window 256, D 128 with window 256; f32 on the scalar kernel at
+     2048 with window 1024 (launches_tc exactly the bf16 cases); the
+     times of the local and global shapes beside their bounds over the
+     allowed pairs only, the plain version, the library's one call
+     (torch.compile of flex_attention with the cap as its score_mod and
+     causal + window as its block mask, held against the plain version at
+     the kernel's bars) and SDPA causal without a cap; (12c) 2 layers (one local,
+     one global) in f32, B 1, prompt 4608: prefill_step (the scalar
+     kernel) within 1e-3 of the stepped decode_step, whose local cache
+     rolls; (12b) prefill_step on batch_for(cfg, 2, 8192) (launch counts
+     set to 0 here: exactly 42, all on the tensor cores; last logits
+     finite), its time by CUDA events and the peak memory; (12d) one
+     decode_step at position 8192, B 4, with the bf16 and the int8 cache
+     (kv_cache_dtype="int8", as the JAX dry run's decode cells) and their
+     bytes; quantize_kv / dequantize_kv within scale / 2 plus one bf16 ulp;
+     teacher-forced decoding of 2 x (64 + 32) tokens with both caches:
+     argmax agreeing on at least 90% of the 64 predicted positions, logits
+     finite; (12e) serve (batch 4, prompt 64, gen 32) twice with one seed
+     (equal tokens in [0, vocab)) and once with the int8 cache.
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -2079,6 +2106,28 @@ def attn_err_tc(got, want, v):
     return float(d.max()), mean, ok
 
 
+def hold_attn(checks, name, got, plain, v, kv_shape):
+    """Hold one flash_attention output against `plain(round_p)`: f32 at
+    TOL_ATTN_F32; bf16 at TOL_ATTN_TC against the rounding of p it shares
+    and at TOL_ATTN_F32P against f32 p. Appends the case to `checks`;
+    returns max |diff|."""
+    if got.dtype == torch.float32:
+        e, ok = attn_err(got, plain(False), TOL_ATTN_F32, TOL_ATTN_F32)
+        note = f"(bar {TOL_ATTN_F32})"
+    else:
+        e, mean, ok = attn_err_tc(got, plain(True), v)
+        e32, ok32 = attn_err(got, plain(False), TOL_ATTN_F32P, TOL_ATTN_F32P)
+        ok = ok and ok32
+        note = (f"mean {mean:.3e} (bars {TOL_ATTN_TC}); against f32 p "
+                f"{e32:.3e} (bar {TOL_ATTN_F32P})")
+    checks.append(dict(case=name, shape=list(got.shape), kv=kv_shape,
+                       max_abs_err=e))
+    log(f"[lm] flash_attention {name} q {list(got.shape)} kv {kv_shape}: "
+        f"max |diff| {e:.3e} {note}")
+    require(ok, f"flash_attention {name}: max |diff| {e} {note}")
+    return e
+
+
 def lm_phase(args, dev, report):
     """Phase 9: LM serving at full width and depth (qwen2-1.5b, bf16).
     Returns flash_attention's launches on the prefill path, its check error
@@ -2113,27 +2162,6 @@ def lm_phase(args, dev, report):
                 torch.randn(B, t, heads[1], d, generator=gen, device=dev
                             ).to(dtype))
 
-    def hold(name, got, plain, v, kv_shape):
-        """Hold one kernel output against `plain(round_p)`: f32 at
-        TOL_ATTN_F32; bf16 at TOL_ATTN_TC against the rounding of p it
-        shares and at TOL_ATTN_F32P against f32 p. Returns max |diff|."""
-        if got.dtype == torch.float32:
-            e, ok = attn_err(got, plain(False), TOL_ATTN_F32, TOL_ATTN_F32)
-            note = f"(bar {TOL_ATTN_F32})"
-        else:
-            e, mean, ok = attn_err_tc(got, plain(True), v)
-            e32, ok32 = attn_err(got, plain(False), TOL_ATTN_F32P,
-                                 TOL_ATTN_F32P)
-            ok = ok and ok32
-            note = (f"mean {mean:.3e} (bars {TOL_ATTN_TC}); against f32 p "
-                    f"{e32:.3e} (bar {TOL_ATTN_F32P})")
-        rep["checks"].append(dict(case=name, shape=list(got.shape),
-                                  kv=kv_shape, max_abs_err=e))
-        log(f"[lm] flash_attention {name} q {list(got.shape)} kv "
-            f"{kv_shape}: max |diff| {e:.3e} {note}")
-        require(ok, f"flash_attention {name}: max |diff| {e} {note}")
-        return e
-
     # -- 9a the kernel against its plain version -----------------------------
     # bf16 runs the tensor-core kernel (one launches_tc each), f32 the
     # scalar one; smollm-360m's head width 64 (15 heads over 5) beside
@@ -2155,15 +2183,15 @@ def lm_phase(args, dev, report):
                 and flash_attention.launches_tc - tc0
                 == (dtype == torch.bfloat16),
                 f"flash_attention {name}: shape, dtype or kernel path")
-        err = max(err, hold(
-            name, got, lambda r: flash_attention_bshd_plain(
+        err = max(err, hold_attn(
+            rep["checks"], name, got, lambda r: flash_attention_bshd_plain(
                 q, k, v, causal=causal, round_p=r), v, list(k.shape)))
     # the Pallas signature [BH, S, D] (one kv head per q head), ragged
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (x.permute(0, 2, 1, 3).reshape(B * H, 1000, D)
                    for x in qkv(1000, 1000, dtype, (H, H)))
-        err = max(err, hold(
-            f"[BH, S, D] {str(dtype)[6:]} ragged 1000",
+        err = max(err, hold_attn(
+            rep["checks"], f"[BH, S, D] {str(dtype)[6:]} ragged 1000",
             flash_attention(q, k, v),
             lambda r: flash_attention_plain(q, k, v, round_p=r), v,
             list(k.shape)))
@@ -2669,6 +2697,344 @@ def train_phase(args, dev, report):
     report["train"] = rep
     return dict(launches=launches, max_abs_err=bwd["max_abs_err"],
                 timing=bwd["timing"])
+
+
+# -- phase 12: gemma2-9b serving ----------------------------------------------
+GEMMA_ARCH = "gemma2-9b"
+GEMMA_BATCH, GEMMA_SEQ = 2, 8192    # 12a, 12b: gemma2's context length, so
+                                    # the local layers' 4096 window masks
+GEMMA_PROMPT_F32 = 4608             # 12c: past the window, so the local
+                                    # layer's kernel masks and its cache rolls
+GEMMA_DECODE_B = 4                  # 12d: one decode_step at position 8192
+GEMMA_TF = (2, 64, 32)              # 12d: teacher forcing, B x (prompt + gen)
+# 12a's capped cases scale q so that the scores reach the cap (at unit
+# scale they stay near 0, where cap tanh(s / cap) is s to 1e-3)
+GEMMA_Q_SCALE = 8.0
+# int8 against bf16 cache, teacher-forced argmax agreement
+# (tests/test_dryrun_machinery.py::test_int8_decode_matches_bf16_closely)
+INT8_AGREE = 0.9
+
+
+def allowed_pairs(s: int, window) -> int:
+    """Causal (query, key) pairs of S = T = s under an optional window."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def gemma_attn_checks(args, dev, report):
+    """12a: flash_attention with gemma2's window, soft-cap and head width
+    256 against its plain version, then its times at the local and global
+    layers' shapes beside flex_attention's (the library's call) and
+    SDPA's without a cap. Returns the worst error and the times."""
+    import torch.nn.functional as F
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain)
+
+    cfg = get_config(GEMMA_ARCH)
+    B, S = GEMMA_BATCH, GEMMA_SEQ
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    W, CAP = cfg.window, cfg.attn_softcap
+    bf, f32 = torch.bfloat16, torch.float32
+    rep = dict(checks=[])
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 12)
+
+    def qkv(s, dtype, d, q_scale=GEMMA_Q_SCALE):
+        q, k, v = (torch.randn(B, s, h, d, generator=gen, device=dev)
+                   for h in (H, K, K))
+        return (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+
+    # (name, S = T, dtype, D, window, cap): the bf16 cases take the
+    # tensor-core kernel, f32 the scalar one
+    cases = [(f"bf16 local (window {W}, cap {CAP:g})", S, bf, D, W, CAP),
+             (f"bf16 global (cap {CAP:g})", S, bf, D, None, CAP),
+             ("bf16 ragged 1000 (window 256)", 1000, bf, D, 256, CAP),
+             ("bf16 D 128 (window 256)", 2048, bf, 128, 256, CAP),
+             ("f32 (window 1024)", 2048, f32, D, 1024, CAP)]
+    err = 0.0
+    tc0 = flash_attention.launches_tc
+    for name, s, dtype, d, window, cap in cases:
+        q, k, v = qkv(s, dtype, d)
+        got = flash_attention_bshd(q, k, v, window=window, cap=cap)
+        require(got.shape == q.shape and got.dtype == dtype,
+                f"flash_attention {name}: shape or dtype")
+        err = max(err, hold_attn(
+            rep["checks"], name, got,
+            lambda r: flash_attention_bshd_plain(q, k, v, window=window,
+                                                 cap=cap, round_p=r),
+            v, list(k.shape)))
+        del q, k, v, got
+    n_tc = flash_attention.launches_tc - tc0
+    require(n_tc == sum(c[2] == bf for c in cases),
+            f"12a: {n_tc} tensor-core launches, expected one per bf16 case")
+    torch.cuda.synchronize()
+
+    # -- times at the local and the global layer's shapes --------------------
+    # The library's call: one flex_attention computes the same function
+    # (cap tanh(s / cap) after its 1/sqrt(D) scale as the score_mod, causal
+    # and window as the block mask, kv heads shared by GQA). Its block masks
+    # are built and its compilation warmed up outside the timed region, and
+    # its output is held against the plain version. Timed here only: the
+    # port never calls it.
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def softcap(score, b, h, qi, ki):
+        return CAP * torch.tanh(score / CAP)
+
+    def allowed(window):
+        def mask(b, h, qi, ki):
+            ok = ki <= qi
+            return ok if window is None else ok & (qi - ki < window)
+        return mask
+
+    t = {}
+    for layer, window in (("local", W), ("global", None)):
+        q, k, v = qkv(S, bf, D)
+        pairs = allowed_pairs(S, window)
+        flops = 4 * B * H * pairs * D
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
+
+        def kern():
+            return flash_attention_bshd(q, k, v, window=window, cap=CAP)
+
+        def plain():
+            return flash_attention_bshd_plain(q, k, v, window=window,
+                                              cap=CAP, round_p=True)
+
+        block_mask = create_block_mask(allowed(window), None, None, S, S,
+                                       device=dev)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def lib():
+            return flex(qt, kt, vt, score_mod=softcap, block_mask=block_mask,
+                        enable_gqa=True)
+
+        t0 = time.perf_counter()
+        lib_err, lib_mean, lib_ok = attn_err_tc(lib().transpose(1, 2),
+                                                plain(), v)
+        t[layer] = dict(
+            ms=cuda_ms(kern, args.repeats, ATTN_PER),
+            single_ms=cuda_ms(kern, args.repeats),
+            plain_ms=cuda_ms(plain, 3),
+            library_ms=cuda_ms(lib, args.repeats, ATTN_PER),
+            library_single_ms=cuda_ms(lib, args.repeats),
+            library_first_s=time.perf_counter() - t0,
+            library_err=lib_err, library_mean_err=lib_mean,
+            library_within_bars=lib_ok,
+            bound=bound(nbytes, flops, BF16_FLOPS), pairs_per_head=pairs)
+        t[layer]["tflops"] = flops / t[layer]["ms"] / 1e9
+        del q, k, v, qt, kt, vt, block_mask
+    # and scaled_dot_product_attention, causal, at the global shape without
+    # a cap: the yardstick of phase 9's kernel at this width
+    q, k, v = qkv(S, bf, D, 1.0)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), args.repeats, ATTN_PER)
+    del q, k, v, qt, kt, vt
+    for layer, tl in t.items():
+        log(f"[time] flash_attention gemma2 {layer} bf16 {[B, S, H, D]} / kv "
+            f"{[B, S, K, D]}, cap {CAP}"
+            f"{f', window {W}' if layer == 'local' else ''}: "
+            f"{tl['ms']:.4f} ms per call, {ATTN_PER} back to back, "
+            f"{tl['single_ms']:.4f} one call a sample "
+            f"({tl['tflops']:.1f} TFLOP/s over {tl['pairs_per_head']} "
+            f"allowed pairs a head, {100 * tl['bound'][0] / tl['ms']:.1f}% "
+            f"of the {tl['bound'][0]:.4f} ms bound ({tl['bound'][1]})); "
+            f"plain (round_p) {tl['plain_ms']:.2f} ms; flex_attention "
+            f"(compiled, the library's call) {tl['library_ms']:.4f} ms, "
+            f"{ATTN_PER} back to back, {tl['library_single_ms']:.4f} one "
+            f"call a sample, vs plain max |diff| {tl['library_err']:.3e} "
+            f"mean {tl['library_mean_err']:.3e} "
+            f"({'within' if tl['library_within_bars'] else 'OUTSIDE'} the "
+            f"kernel's bars; compiled and timed in "
+            f"{tl['library_first_s']:.1f} s)")
+    log(f"[time] scaled_dot_product_attention bf16 causal {[B, S, H, D]}, no "
+        f"cap (the yardstick, never on the path): {sdpa_ms:.4f} ms per call, "
+        f"{ATTN_PER} back to back")
+    rep.update(times=t, sdpa_global_nocap_ms=sdpa_ms, max_abs_err=err)
+    report.setdefault("gemma", {})["attn"] = rep
+    return err, t
+
+
+def gemma_phase(args, dev, report):
+    """Phase 12: gemma2-9b served at full width and depth (bf16, weights
+    from --seed): 12a the kernel at gemma2's shapes, 12b prefill_step at
+    2 x 8192, 12c the f32 prefill against the stepped decode at 2 layers,
+    12d decode with the bf16 and the int8 cache, 12e serve. Returns the
+    prefill path's launches, the kernel's worst error and its times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import LMModel
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    err, times = gemma_attn_checks(args, dev, report)
+    cfg = get_config(GEMMA_ARCH)
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    B, S, L = GEMMA_BATCH, GEMMA_SEQ, cfg.n_layers
+    K, D = cfg.n_kv_heads, cfg.hd
+    rep = report.setdefault("gemma", {})
+
+    # -- 12c the f32 model at 2 layers: prefill (kernel) against stepped
+    # decode (plain), past the window -----------------------------------------
+    P = GEMMA_PROMPT_F32
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=2, repeats=1)
+    m32 = LMModel(cfg32, device=dev, seed=args.seed)
+    toks = batch_for(cfg32, 1, P, 0, args.seed)["tokens"]
+    flash_attention.launches = flash_attention.launches_tc = 0
+    want, _ = m32.prefill_step({"tokens": toks})
+    require(flash_attention.launches == 2
+            and flash_attention.launches_tc == 0,
+            "the f32 prefill did not run the scalar kernel in both layers")
+    cache = m32.init_cache(1, P)
+    require(cache[0]["k"].shape[1] == cfg.window and cache[1]["k"].shape[1]
+            == P, "12c: the local layer's cache is not the window's")
+    t0 = time.perf_counter()
+    for t in range(P):
+        logits, cache = m32.decode_step(cache, {"tokens": toks[:, t:t + 1]},
+                                        t)
+    torch.cuda.synchronize()
+    require(flash_attention.launches == 2,
+            "decode_step launched the flash_attention kernel")
+    e, ok = attn_err(want, logits[:, 0], TOL_LM_F32, TOL_LM_F32)
+    log(f"[gemma] f32, 2 layers (local, global): prefill_step (kernel) vs "
+        f"{P} stepped decode_steps (plain, {time.perf_counter() - t0:.1f} s; "
+        f"the local cache rolled {P - cfg.window} times): max |diff| "
+        f"{e:.3e} of logits up to {float(want.abs().max()):.3f} (bar "
+        f"{TOL_LM_F32})")
+    require(ok, f"gemma2 f32 prefill vs stepped decode: max |diff| {e}")
+    rep["f32_prefill_vs_decode"] = e
+    del m32, cache, want, logits
+    torch.cuda.empty_cache()
+
+    # -- 12b prefill_step at full width and depth ----------------------------
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[gemma] {GEMMA_ARCH}: {n_params / 1e9:.3f} B parameters "
+        f"({L} layers, local window {cfg.window} / global, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {K} kv heads, head_dim {D}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}), drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = batch_for(cfg, B, S, 0, args.seed)
+    flash_attention.launches = flash_attention.launches_tc = 0
+    last, caches = model.prefill_step(batch)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    log(f"[launches] gemma2 prefill path: flash_attention {launches}, on the "
+        f"tensor cores {flash_attention.launches_tc}")
+    require(launches == L and flash_attention.launches_tc == L,
+            f"gemma2's prefill_step launched flash_attention {launches} "
+            f"times ({flash_attention.launches_tc} on the tensor cores), not "
+            f"{L}")
+    require(last.shape == (B, cfg.vocab) and bool(torch.isfinite(last).all()),
+            "gemma2's prefill_step: last logits not finite")
+    require(len(caches) == L and caches[0][0].shape == (B, S, K, D),
+            "gemma2's prefill caches")
+    del caches, last
+    rep["prefill_ms"] = cuda_ms(lambda: model.prefill_step(batch), 3)
+    rep["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[time] gemma2 prefill_step {B} x {S}: {rep['prefill_ms']:.1f} ms "
+        f"({B * S / rep['prefill_ms']:.0f} tokens/ms), of which "
+        f"flash_attention {L // 2} x {times['local']['ms']:.3f} + {L // 2} x "
+        f"{times['global']['ms']:.3f} ms; peak allocated "
+        f"{rep['prefill_peak_bytes'] / 2**30:.3f} GiB")
+    rep.update(n_params=n_params, prefill_launches=launches)
+
+    # -- 12d decode at position 8192 with each cache; int8 parity ------------
+    Bd = GEMMA_DECODE_B
+    tok = torch.as_tensor(batch_for(cfg, Bd, 2, 0, args.seed)["tokens"][
+        :, -1:], device=dev)
+    for name, c in (("bf16", cfg), ("int8", cfg8)):
+        cache = tfm.init_cache(c, Bd, S + 1, device=dev)
+        nbytes = sum(x.numel() * x.element_size() for layer in cache
+                     for x in layer.values())
+        ms = cuda_ms(lambda: model.decode_step(cache, {"tokens": tok}, S),
+                     args.repeats)
+        rep[f"decode_{name}"] = dict(ms=ms, cache_bytes=nbytes)
+        log(f"[time] gemma2 decode_step, {Bd} sequences at position {S}, "
+            f"{name} cache ({nbytes / 2**30:.3f} GiB): {ms:.2f} ms per step")
+        del cache
+    x = torch.randn(Bd, S + 1, K, D, generator=torch.Generator(
+        device=dev).manual_seed(args.seed + 121), device=dev).to(
+            torch.bfloat16)
+    codes, scale = quantize_kv(x, {"k": torch.zeros(1, dtype=torch.int8,
+                                                    device=dev)})
+    back = dequantize_kv(codes, scale, torch.bfloat16)
+    _, ex = torch.frexp(x.float())
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), ex - 8)
+    d = (back.float() - x.float()).abs()
+    require(codes.dtype == torch.int8 and bool(
+        (d <= scale / 2 + ulp).all()),
+        "int8 round trip beyond scale / 2 + one bf16 ulp")
+    log(f"[gemma] int8 round trip {list(x.shape)}: max |x - deq(q(x))| "
+        f"{float(d.max()):.4e}, max over the bar "
+        f"{float((d / (scale / 2 + ulp)).max()):.4f}")
+    del x, codes, scale, back, ex, ulp, d
+    # teacher forcing: the same 64 + 32 tokens through both caches
+    tb, tp, tg = GEMMA_TF
+    seq = torch.as_tensor(batch_for(cfg, tb, tp + tg, 0, args.seed + 1)[
+        "tokens"], device=dev)
+    preds, logs = {}, {}
+    for name, c in (("bf16", cfg), ("int8", cfg8)):
+        cache = tfm.init_cache(c, tb, tp + tg, device=dev)
+        out = []
+        for t in range(tp + tg - 1):
+            logits, cache = model.decode_step(
+                cache, {"tokens": seq[:, t:t + 1]}, t)
+            if t >= tp - 1:
+                out.append(logits[:, 0])
+        logs[name] = torch.stack(out, 1)                # [tb, tg, V]
+        require(bool(torch.isfinite(logs[name]).all()),
+                f"gemma2 teacher-forced {name} logits not finite")
+        preds[name] = logs[name].argmax(-1)
+        del cache
+    agree = float((preds["int8"] == preds["bf16"]).float().mean())
+    dmax = float((logs["int8"] - logs["bf16"]).abs().max())
+    log(f"[gemma] teacher-forced decode, {tb} x ({tp} + {tg}), int8 vs bf16 "
+        f"cache: argmax agrees on {agree:.4f} of {preds['bf16'].numel()} "
+        f"predicted positions (bar {INT8_AGREE}); max |d logit| {dmax:.4f}")
+    require(agree >= INT8_AGREE, f"int8 argmax agreement {agree}")
+    rep.update(int8_agree=agree, int8_max_dlogit=dmax)
+    del model, batch, logs, preds, seq
+    torch.cuda.empty_cache()
+
+    # -- 12e serve: twice with one seed, then with the int8 cache ------------
+    runs = [serve(c, batch=4, prompt_len=64, gen=32, seed=args.seed,
+                  device=dev) for c in (cfg, cfg, cfg8)]
+    (a, tps_a), (b, tps_b), (c8, tps_8) = runs
+    log(f"[gemma] serve batch 4, prompt 64, gen 32: {tps_a:.1f} / {tps_b:.1f} "
+        f"tokens/s (bf16 cache), {tps_8:.1f} (int8); first tokens "
+        f"{a[:, :6].tolist()}; int8's tokens equal bf16's at "
+        f"{float((a == c8).mean()):.3f}")
+    require(a.shape == (4, 32) and np.array_equal(a, b),
+            "gemma2 serve is not deterministic")
+    for toks_ in (a, c8):
+        require(toks_.shape == (4, 32) and int(toks_.min()) >= 0
+                and int(toks_.max()) < cfg.vocab,
+                "gemma2 serve produced a token outside the vocabulary")
+    rep.update(serve_tokens_per_s=[tps_a, tps_b, tps_8],
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[memory] phase 12 peak allocated "
+        f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB; phase 12 "
+        f"{rep['phase_s']:.1f} s")
+    return dict(launches=launches, max_abs_err=err, times=times)
 
 
 def main(argv=None) -> int:
@@ -3289,9 +3655,15 @@ def main(argv=None) -> int:
     tr = train_phase(args, dev, report)
     timings["flash_attention_bwd"] = tr["timing"]
     errs["flash_attention_bwd"] = tr["max_abs_err"]
-    # launches on the main paths: the prefill, then training
+    torch.cuda.empty_cache()
+
+    # -- 12. gemma2-9b serving ------------------------------------------------
+    gm = gemma_phase(args, dev, report)
+    errs["flash_attention"] = max(errs["flash_attention"], gm["max_abs_err"])
+    # launches on the main paths: qwen2's prefill, training, gemma2's prefill
     launches["flash_attention"] = (lm["launches"]
-                                   + tr["launches"]["flash_attention"])
+                                   + tr["launches"]["flash_attention"]
+                                   + gm["launches"])
     launches["flash_attention_bwd"] = tr["launches"]["flash_attention_bwd"]
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),

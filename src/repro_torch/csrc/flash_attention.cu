@@ -1,9 +1,15 @@
 // flash_attention: causal (or full) softmax(Q K^T / sqrt(D)) V with an
-// online softmax, every statistic in f32, for grouped-query attention.
+// online softmax, every statistic in f32, for grouped-query attention;
+// optionally a sliding window and a tanh soft-cap, as the model's
+// chunked_attention (src/repro/models/attention.py:33) computes them for
+// gemma2's local and global layers: s = q.k / sqrt(D), then
+// s = cap tanh(s / cap), then a key is masked (-2^30) unless kpos <= qpos
+// (causal) and qpos - kpos < window.
 //
 // Replaces the TPU kernel `flash_attention` (_kernel) in
 // src/repro/kernels/flash_attn.py, the Pallas form of the model's chunked
-// attention: every layer of LMModel.prefill_step runs it once.
+// attention (which has neither window nor cap): every layer of
+// LMModel.prefill_step runs it once.
 //
 // What bounds it on the H100: operations. At the prefill shape (B 4, H 12
 // over 2 kv heads, S = T = 2048, D = 128) the causal product is 51.5
@@ -11,9 +17,13 @@
 // TFLOP/s of bf16 tensor-core products, 0.018 ms of bytes. Only the
 // tensor cores, fed without stalls, come near that bound.
 //
+// At gemma2's shape (B 2, H 16 over 8 kv heads, S = T = 8192, D = 256) the
+// allowed pairs are 33.6M a head (global) or 25.2M (window 4096): 1.10 and
+// 0.83 PFLOP, a bound of 1.112 and 0.834 ms; operations bound it there too.
+//
 // Two kernels, chosen by the C entry on dtype and head width:
 //
-// bf16 at D in {64, 128}: the tensor-core kernel (namespace tc).
+// bf16 at D in {64, 128, 256}: the tensor-core kernel (namespace tc).
 //   * one block of 384 threads per (batch * head, 128-row q tile), the
 //     latest (heaviest, under the causal mask) q tiles launched first;
 //     warpgroup 0 is the producer (one thread issues every copy; the
@@ -26,39 +36,56 @@
 //     swizzle, a tile as boxes of 64 columns, rows past S or T filled
 //     with zeros by the hardware; q head h reads kv head h / (H / KH), so
 //     GQA repeats nothing;
-//   * a ring of two K/V stages of 128 rows, each with a full barrier for
-//     K, one for V and an empty barrier (mbarrier): the producer keeps the
-//     next tile in flight while the consumers compute on this one;
-//   * S = Q K^T by wgmma m64n128k16 (bf16 in, f32 accumulators), Q and K
-//     both read from shared memory through descriptors; the online
+//   * a ring of two K/V stages of 128 rows (64 at D = 256, where 128-row
+//     tiles would need 320 KB), each with a full barrier for K, one for V
+//     and an empty barrier (mbarrier): the producer keeps the next tile in
+//     flight while the consumers compute on this one;
+//   * S = Q K^T by wgmma m64n128k16 (m64n64k16 at D = 256; bf16 in, f32
+//     accumulators), Q and K both read from shared memory through
+//     descriptors; the online
 //     softmax runs on the accumulator registers (row max and row sum over
 //     the four lanes of a quad), with 1/sqrt(D) * log2(e) folded into the
 //     scores so that 2^x (ex2.approx.ftz, one special-function instruction)
 //     gives exp; the mask (-2^30, not -inf) is applied only on tiles that
 //     cross the diagonal or the tail (a loop of its own, so other tiles pay
 //     nothing for it), and tiles wholly in the future are skipped;
+//   * window and cap (template flag kMod, so that a call with neither
+//     runs the code above unchanged): the soft-cap is applied to the f32
+//     scores before the mask, tanh as 1 - 2 / (2^(2x log2 e) + 1) with
+//     ex2.approx and a true division (accurate to about 2^-22 absolute:
+//     tanh.approx's 2^-11 would move a capped logit by ~0.02), and
+//     log2(e) multiplied in after it; each q tile starts its K/V loop at
+//     the tile that holds its first row's first allowed key
+//     (q0 - window + 1), so tiles wholly left of the window are neither
+//     loaded nor computed, and the masked loop also runs on tiles that
+//     cross the window's left edge. A q tile's work still grows with its
+//     index, so the launch order stays heaviest first;
 //   * p is rounded to bf16 before the PV product, as the model's
 //     chunked_attention rounds it (src/repro/models/attention.py:68);
 //     the row sum l is taken from the f32 p. The f32 accumulator fragment
 //     of S is, pair by pair, the bf16 A fragment of O += P V, so P goes
-//     from registers to wgmma m64n{D}k16 with no shuffle; V is the B
-//     operand read MN-major through the descriptor's transpose bit, so it
-//     is never transposed in memory;
+//     from registers to wgmma m64n{D}k16 (D up to 256) with no shuffle;
+//     V is the B operand read MN-major through the descriptor's transpose
+//     bit, so it is never transposed in memory;
 //   * epilogue: acc / max(l, 1e-30) in bf16, stored from registers; tail
 //     q rows are not written.
-//   Shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) at D = 128, one block
-//   per SM.
+//   Shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) at D = 128; Q 64 KB
+//   + 2 x (K 32 KB + V 32 KB) at D = 256; one block per SM. At D = 256 a
+//   consumer holds a 64 x 256 f32 O (128 registers a thread) and a 64 x 64
+//   S (32).
 //   The mbarrier, TMA, descriptor, wgmma and tensor-map helpers live in
 //   hopper_tc.cuh, shared with flash_attention_bwd.cu.
 //
 // f32, and bf16 at D in {16, 32}: the scalar kernel (the port's first
-//   design, left as it was). One block of 128 threads per (batch * head,
+//   design; the window and cap added, tanhf for the cap, window tiles
+//   skipped as above). One block of 128 threads per (batch * head,
 //   64-row q tile); the q tile and each K, then V, tile staged in shared
 //   memory as f32; a thread owns 4 query rows and 8 key columns of the
 //   64 x 64 score tile and the same rows of the output in registers;
 //   scores, p and the output accumulator in f32 on the CUDA cores (67
 //   TFLOP/s of f32, and a shared-memory load for every 2.7 multiply-adds),
-//   so it is far slower.
+//   so it is far slower. At D = 256 its tiles take 145 KB of shared
+//   memory and a thread holds 4 x 32 output values.
 //
 // Both: masked scores at the large finite -2^30 (a masked score gives
 // exp(...) == 0, never NaN); ragged S and T; o a contiguous [B, S, H, D].
@@ -117,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
                            long long qsb, long long qss, long long qsh,
                            long long ksb, long long kss, long long ksh,
                            long long vsb, long long vss, long long vsh,
-                           float scale, int causal) {
+                           float scale, int causal, int window, float cap) {
   constexpr int kPitch = D + 1;
   constexpr int kPP = kRows + 1;        // pitch of the probability tile
   constexpr int kCols = D / 8;          // output columns per thread
@@ -152,8 +179,10 @@ __global__ void __launch_bounds__(kThreads)
 
   int n_tiles = (Tk + kRows - 1) / kRows;
   if (causal) n_tiles = min(n_tiles, (q0 + q_valid - 1) / kRows + 1);
+  // under a window, the first tile that holds row q0's first allowed key
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kRows : 0;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = kt0; kt < n_tiles; ++kt) {
     const int k0 = kt * kRows;
     const int k_valid = min(kRows, Tk - k0);
     __syncthreads();                    // last tile's V and P are read
@@ -186,7 +215,10 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 8; ++j) {
         const int kpos = k0 + cg + 8 * j;
         float x = s[i][j] * scale;
-        if (kpos >= Tk || (causal && kpos > qpos)) x = kNeg;
+        if (cap > 0.f) x = tanhf(x / cap) * cap;
+        if (kpos >= Tk || (causal && kpos > qpos)
+            || (window > 0 && qpos - kpos >= window))
+          x = kNeg;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -245,7 +277,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int KH, int S, int Tk, const long long* st,
-           int causal, cudaStream_t stream) {
+           int causal, int window, float cap, cudaStream_t stream) {
   const int nq = (S + kRows - 1) / kRows;
   const int BH = B * H;
   const size_t smem = sizeof(float) * (2 * kRows * (D + 1)
@@ -259,29 +291,32 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, S, Tk, BH,
       nq,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      (float)(1.0 / std::sqrt((double)D)), causal);   // as 1 / math.sqrt(D)
+      (float)(1.0 / std::sqrt((double)D)), causal,   // as 1 / math.sqrt(D)
+      window, cap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int H, int KH, int S, int Tk,
-             const long long* st, int causal, cudaStream_t stream) {
+             const long long* st, int causal, int window, float cap,
+             cudaStream_t stream) {
 #define FA_CASE(DD)                                                        \
   case DD:                                                                 \
     return launch<T, DD>(q, k, v, o, lse, B, H, KH, S, Tk, st, causal,     \
-                         stream);
+                         window, cap, stream);
   switch (D) {
     FA_CASE(16)
     FA_CASE(32)
     default:
       break;
   }
-  // bf16 at D 64 and 128 takes the tensor-core kernel (tc::launch)
+  // bf16 at D 64, 128 and 256 takes the tensor-core kernel (tc::launch)
   if constexpr (sizeof(T) == sizeof(float)) {
     switch (D) {
       FA_CASE(64)
       FA_CASE(128)
+      FA_CASE(256)
       default:
         break;
     }
@@ -290,16 +325,18 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
 #undef FA_CASE
 }
 
-// -- the tensor-core kernel: bf16, D in {64, 128} ---------------------------
+// -- the tensor-core kernel: bf16, D in {64, 128, 256} ----------------------
 namespace tc {
 
 constexpr int kBM = 128;        // q rows per block: two consumer slabs of 64
-constexpr int kBN = 128;        // kv rows per tile
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kThreads = 384;   // producer warpgroup + two consumers
 
 template <int D>
 struct Layout {
+  // kv rows per tile: 128, or 64 at D = 256, where Q and two stages of
+  // 128-row K and V tiles would need 320 KB of the SM's 227
+  static constexpr int kBN = D == 256 ? 64 : 128;
   static constexpr int kQBytes = kBM * D * 2;   // Q: D / 64 boxes of kBM rows
   static constexpr int kTile = kBN * D * 2;     // K or V: D / 64 boxes
   static constexpr int kBars = 3 * kStages + 1;
@@ -308,7 +345,17 @@ struct Layout {
                                + 1024;
 };
 
-template <int D>
+// tanh x = 1 - 2 / (2^(2 x log2 e) + 1): 2^y by ex2.approx (relative error
+// about 2^-22; its flush of tiny results gives -1 for x below -44), then a
+// true division, so the result is within about 2^-22 of tanh x
+__device__ __forceinline__ float tanh_f32(float x) {
+  return 1.f - 2.f / (ex2(x * 2.8853900817779268f) + 1.f);
+}
+
+// kMod: the call has a window or a soft-cap (win is the window, 2^30 for
+// none; cap_on whether scores are capped). Without it the kernel is the
+// plain causal (or full) one, and none of the code below costs it a thing.
+template <int D, bool kMod>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_tc(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -316,8 +363,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                        __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int H, int KH, int S,
                        int Tk, int BH, int nq, float scale_log2,
-                       int causal) {
+                       int causal, int win, int cap_on, float scale_cap,
+                       float cap_log2) {
   using L = Layout<D>;
+  constexpr int kBN = L::kBN;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + 1023) & ~1023u;          // Q, then the ring
@@ -333,6 +382,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = qt * kBM;
   int n_tiles = (Tk + kBN - 1) / kBN;
   if (causal) n_tiles = min(n_tiles, (min(S, q0 + kBM) - 1) / kBN + 1);
+  // under a window, the first tile that holds row q0's first allowed key
+  int kt0 = 0;
+  if constexpr (kMod) kt0 = max(0, q0 - win + 1) / kBN;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -353,12 +405,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(q_full, L::kQBytes);
       for (int c = 0; c < D / kBox; ++c)
         tma_load(sq + c * kBM * kRowBytes, &tq, c * kBox, h, q0, b, q_full);
-      for (int kt = 0; kt < n_tiles; ++kt) {
-        const int s = kt % kStages;
+      for (int kt = kt0; kt < n_tiles; ++kt) {
+        const int it = kt - kt0;                      // the ring's count
+        const int s = it % kStages;
         const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
         // the stage's previous tile is consumed (passes at once the first
         // time round: the phase before phase 0 counts as complete)
-        mbar_wait(bars + 8 * (2 * kStages + s), ((kt / kStages) & 1) ^ 1);
+        mbar_wait(bars + 8 * (2 * kStages + s), ((it / kStages) & 1) ^ 1);
         mbar_expect_tx(bars + 8 * s, L::kTile);
         for (int c = 0; c < D / kBox; ++c)
           tma_load(sk + c * kBN * kRowBytes, &tk, c * kBox, kh, kt * kBN, b,
@@ -382,6 +435,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int r = (t / 32) * 16 + (t % 32) / 4;
   const int cq = 2 * (t % 4);
   const int row0 = q0 + 64 * cw + r;                  // row1 = row0 + 8
+  const int slab0 = q0 + 64 * cw;                     // the slab's first row
   const uint32_t qa = sq + cw * 64 * kRowBytes;       // the slab in a box
 
   float acc[D / 2];
@@ -390,9 +444,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;     // log2 units; per lane
 
   mbar_wait(q_full, 0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int s = kt % kStages;
-    const uint32_t ph = (kt / kStages) & 1;
+  for (int kt = kt0; kt < n_tiles; ++kt) {
+    const int it = kt - kt0;
+    const int s = it % kStages;
+    const uint32_t ph = (it / kStages) & 1;
     const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
     const int k0 = kt * kBN;
 
@@ -403,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n128(sc,
+      wgmma_ss<kBN>(sc,
                     desc(qa + (kk / 4) * kBM * kRowBytes + off, 16, 1024),
                     desc(sk + (kk / 4) * kBN * kRowBytes + off, 16, 1024),
                     kk > 0);
@@ -414,14 +469,29 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // online softmax on the accumulators (scores in log2 units)
     float mx0 = kNeg, mx1 = kNeg;
-    if (k0 + kBN > Tk || (causal && k0 + kBN - 1 > q0 + 64 * cw)) {
-      // the tile crosses the tail or the diagonal of this slab: mask
+    bool masked = k0 + kBN > Tk || (causal && k0 + kBN - 1 > slab0);
+    // the tile reaches left of some slab row's window
+    if constexpr (kMod) masked = masked || slab0 + 63 - k0 >= win;
+    if constexpr (kMod) {
+      if (cap_on) {                 // uniform: the whole call is capped
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i)
+          sc[i] = cap_log2 * tanh_f32(sc[i] * scale_cap);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) sc[i] *= scale_log2;
+      }
+    }
+    if (masked) {
+      // the tile crosses the tail, the diagonal or the window's left edge
+      // of this slab: mask
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) {
-        float x = sc[i] * scale_log2;
+        float x = kMod ? sc[i] : sc[i] * scale_log2;
         const int kp = k0 + 8 * (i / 4) + cq + (i % 2);
         const int qp = row0 + 8 * ((i / 2) % 2);
-        if (kp >= Tk || (causal && kp > qp)) x = kNeg;
+        if (kp >= Tk || (causal && kp > qp) || (kMod && qp - kp >= win))
+          x = kNeg;
         sc[i] = x;
         if ((i / 2) % 2) mx1 = fmaxf(mx1, x);
         else mx0 = fmaxf(mx0, x);
@@ -429,7 +499,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else {
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) {
-        sc[i] *= scale_log2;
+        if constexpr (!kMod) sc[i] *= scale_log2;
         if ((i / 2) % 2) mx1 = fmaxf(mx1, sc[i]);
         else mx0 = fmaxf(mx0, sc[i]);
       }
@@ -497,28 +567,45 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <int D, bool kMod>
+int launch_mod(const CUtensorMap& tq, const CUtensorMap& tk,
+               const CUtensorMap& tv, void* o, float* lse, int B, int H,
+               int KH, int S, int Tk, int causal, int window, float cap,
+               cudaStream_t stream) {
+  const int nq = (S + kBM - 1) / kBM;
+  const int BH = B * H;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc<D, kMod>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const double scale = 1.0 / std::sqrt((double)D);   // as the scalar kernel
+  const double log2e = 1.4426950408889634;
+  // scores s: s scale log2(e) for ex2; capped, cap log2(e) tanh(s scale /
+  // cap) (the f32 score's scale and cap folded into one factor)
+  flash_attention_tc<D, kMod><<<nq * BH, kThreads, Layout<D>::kSmem,
+                                stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, KH, S, Tk, BH, nq,
+      (float)(scale * log2e), causal, window > 0 ? window : 1 << 30,
+      cap > 0.f, cap > 0.f ? (float)(scale / cap) : 0.f,
+      (float)(cap * log2e));
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int KH, int S, int Tk, const long long* st,
-           int causal, cudaStream_t stream) {
+           int causal, int window, float cap, cudaStream_t stream) {
+  constexpr int kBN = Layout<D>::kBN;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, H, S, B, st[0], st[1], st[2], kBM)
       || !make_map(&tk, k, D, KH, Tk, B, st[3], st[4], st[5], kBN)
       || !make_map(&tv, v, D, KH, Tk, B, st[6], st[7], st[8], kBN))
     return (int)cudaErrorInvalidValue;
-  const int nq = (S + kBM - 1) / kBM;
-  const int BH = B * H;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Layout<D>::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  // 1 / sqrt(D) as the scalar kernel, times log2(e) for ex2
-  const float scale_log2 =
-      (float)(1.0 / std::sqrt((double)D) * 1.4426950408889634);
-  flash_attention_tc<D><<<nq * BH, kThreads, Layout<D>::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, KH, S, Tk, BH, nq,
-      scale_log2, causal);
-  return (int)cudaGetLastError();
+  if (window > 0 || cap > 0.f)
+    return launch_mod<D, true>(tq, tk, tv, o, lse, B, H, KH, S, Tk, causal,
+                               window, cap, stream);
+  return launch_mod<D, false>(tq, tk, tv, o, lse, B, H, KH, S, Tk, causal,
+                              window, cap, stream);
 }
 
 }  // namespace tc
@@ -532,31 +619,39 @@ extern "C" {
 // [B, S, H, D]; lse null, or a contiguous f32 [B, H, S] that receives each
 // row's log-sum-exp of its scaled scores (m + log l, natural log: the
 // statistic the backward recomputes p from). dtype 0: float32, 1:
-// bfloat16. D in {16, 32, 64, 128}; H a multiple of KH; S, T >= 1. bf16 at D 64 or 128 takes the
-// tensor-core kernel, which needs 16-byte aligned bases and strides that
-// are multiples of 8 elements (kernels/flash_attn.py makes them so);
-// everything else the scalar kernel. Returns a CUDA error code (0 on
-// success).
+// bfloat16. D in {16, 32, 64, 128, 256}; H a multiple of KH; S, T >= 1.
+// window: 0 for none, else a key is allowed only when qpos - kpos <
+// window (then S <= T, so that every row keeps a key); cap: 0 for none,
+// else the scaled scores s become cap tanh(s / cap) before the mask. bf16
+// at D 64, 128 or 256 takes the tensor-core kernel, which needs 16-byte
+// aligned bases and strides that are multiples of 8 elements
+// (kernels/flash_attn.py makes them so); everything else the scalar
+// kernel. Returns a CUDA error code (0 on success).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     void* lse_out, int dtype, int B, int H, int KH, int S,
                     int T, int D,
                     long long qsb, long long qss, long long qsh,
                     long long ksb, long long kss, long long ksh,
                     long long vsb, long long vss, long long vsh, int causal,
-                    void* stream) {
+                    int window, float cap, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
+  if (dtype == 1 && D == 256)
+    return tc::launch<256>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
+                           window, cap, s);
   if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, o, lse, B, H, KH, S, T, st, causal, s);
+    return tc::launch<128>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
+                           window, cap, s);
   if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, o, lse, B, H, KH, S, T, st, causal, s);
+    return tc::launch<64>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
+                          window, cap, s);
   if (dtype == 0)
     return launch_d<float>(D, q, k, v, o, lse, B, H, KH, S, T, st, causal,
-                           s);
+                           window, cap, s);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KH, S, T, st,
-                                   causal, s);
+                                   causal, window, cap, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,34 +1,41 @@
 """``flash_attention``: causal (or full) softmax attention with an online
 softmax, every statistic in f32 and the output in the input's type — the
-kernel of the LM's prefill.
+kernel of the LM's prefill. Beside the Pallas kernel's function it takes
+what the model's `chunked_attention` computes: a sliding window (`window`:
+a key is allowed only when qpos − kpos < window) and a tanh soft-cap
+(`cap`: scores s / sqrt(D) become cap · tanh(s / (sqrt(D) cap)) before the
+mask), as gemma2's local and global layers need.
 
 Two entries share one CUDA source (`csrc/flash_attention.cu`) and its
 launch counts:
 
-- `flash_attention(q, k, v, causal=)` keeps the Pallas kernel's signature,
-  q [BH, S, D] and k, v [BH, T, D];
-- `flash_attention_bshd(q, k, v, causal=)` takes the model's q [B, S, H, D]
-  and k, v [B, T, K, D] (H a multiple of K: grouped-query attention). The
-  kernel reads them through their strides and maps q head h to kv head
-  h // (H // K) itself, so nothing is repeated; `attn_apply` reaches the
-  kernel here.
+- `flash_attention(q, k, v, causal=, window=, cap=)` keeps the Pallas
+  kernel's signature, q [BH, S, D] and k, v [BH, T, D];
+- `flash_attention_bshd(q, k, v, causal=, window=, cap=)` takes the
+  model's q [B, S, H, D] and k, v [B, T, K, D] (H a multiple of K:
+  grouped-query attention). The kernel reads them through their strides
+  and maps q head h to kv head h // (H // K) itself, so nothing is
+  repeated; `attn_apply` reaches the kernel here.
 
 The source holds two kernels (`tensor_core_path` says which one a call
 takes):
 
-- bf16 at head widths 64 and 128: the Hopper kernel (TMA-fed K/V ring,
-  `wgmma` on the tensor cores). It rounds p to bf16 before the PV product,
-  as the model's `chunked_attention` does, and keeps the row sum from the
-  f32 p. Its tensor maps need 16-byte aligned bases and strides; a tensor
-  that misses that is copied first. `flash_attention.launches_tc` counts
-  its launches;
+- bf16 at head widths 64, 128 and 256: the Hopper kernel (TMA-fed K/V
+  ring, `wgmma` on the tensor cores; 64-row K/V tiles at 256). Under a
+  window it loads and computes only the K/V tiles some row of its q tile
+  may see. It rounds p to bf16 before the PV product, as the model's
+  `chunked_attention` does, and keeps the row sum from the f32 p. Its
+  tensor maps need 16-byte aligned bases and strides; a tensor that
+  misses that is copied first. `flash_attention.launches_tc` counts its
+  launches;
 - f32, and bf16 at widths 16 and 32: the scalar kernel, p in f32.
 
 `flash_attention.launches` counts every launch of either. On a CUDA tensor
 the wrapper launches a kernel; on a CPU tensor it runs the plain version
 (`flash_attention_plain`, the same online softmax in plain PyTorch, over
 kv blocks of 128 as the Pallas kernel; `round_p=True` rounds p as the
-tensor-core kernel does); on any other device it raises. Any S, T >= 1.
+tensor-core kernel does); on any other device it raises. Any S, T >= 1
+(under a window, S <= T: every row keeps a key).
 With `return_lse=True` either kernel also writes each query row's
 log-sum-exp, f32 [B, H, S] in natural-log units.
 
@@ -51,6 +58,8 @@ recomputes p from `lse`. Its source holds two designs, chosen by
   `flash_attention_bwd.launches_tc` counts these calls;
 - f32, and bf16 at widths 16 and 32: the scalar kernels, all in f32.
 
+The backward has no window, no soft-cap and no width 256 yet (ROADMAP A9):
+`FlashAttentionFn` refuses a call with any of them that wants a gradient.
 `flash_attention_bwd.launches` counts every call (each launches its
 design's kernels together). On CPU tensors both halves run their plain
 versions; `flash_attention_bwd_plain` is the closed form and the kernels'
@@ -68,15 +77,17 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_plain",
            "flash_attention_bshd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "FlashAttentionFn",
-           "tensor_core_path", "NEG", "HEAD_DIMS", "TC_HEAD_DIMS"]
+           "tensor_core_path", "NEG", "HEAD_DIMS", "TC_HEAD_DIMS",
+           "BWD_HEAD_DIMS"]
 
 NEG = -2.0 ** 30      # large finite mask value: a masked score gives exp 0
-HEAD_DIMS = (16, 32, 64, 128)
-TC_HEAD_DIMS = (64, 128)   # bf16 widths of the tensor-core kernel
+HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128, 256)   # bf16 widths of the tensor-core kernel
+BWD_HEAD_DIMS = (16, 32, 64, 128)   # widths of flash_attention_bwd
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _L = ctypes.c_longlong
 _SIG = {"flash_attention": [_build.P] * 5 + [_build.I] * 7 + [_L] * 9
-        + [_build.I, _build.P]}
+        + [_build.I, _build.I, ctypes.c_float, _build.P]}
 _SIG_BWD = {"flash_attention_bwd": [_build.P] * 10 + [_build.I] * 7
             + [_L] * 9 + [_build.I, _build.P],
             "flash_attention_bwd_work": [_build.I] * 6
@@ -90,14 +101,17 @@ def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, round_p: bool = False,
-                          return_lse: bool = False):
+                          *, causal: bool = True, window=None, cap=None,
+                          round_p: bool = False, return_lse: bool = False):
     """The kernel's function in plain PyTorch: q [BH, S, D], k/v [BH, T, D];
     an online softmax over kv blocks of 128 rows (the Pallas kernel's bk)
     with the running max, sum and accumulator in f32, masked scores at NEG.
-    p stays f32 for the PV product; with `round_p` it is first rounded to
-    q's dtype, as the tensor-core kernel and `chunked_attention` round it
-    (the row sum still from the f32 p; the identity in f32). Returns
+    As `chunked_attention`: the scores s / sqrt(D) are soft-capped to
+    cap · tanh(s / (sqrt(D) cap)) when `cap` is given, then a key is masked
+    when it lies in the future (`causal`) or `window` or more positions
+    back. p stays f32 for the PV product; with `round_p` it is first
+    rounded to q's dtype, as the tensor-core kernel and `chunked_attention`
+    round it (the row sum still from the f32 p; the identity in f32). Returns
     [BH, S, D] in q's dtype, and with `return_lse` also each row's
     log-sum-exp m + log l, f32 [BH, S]."""
     BH, S, D = q.shape
@@ -112,9 +126,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kj = k[:, j0:j0 + 128].float()
         vj = v[:, j0:j0 + 128].float()
         s = torch.einsum("bqd,btd->bqt", qf, kj) * scale
+        if cap is not None:
+            s = torch.tanh(s / cap) * cap
+        kpos = torch.arange(j0, j0 + kj.shape[1], device=q.device)[None]
         if causal:
-            kpos = torch.arange(j0, j0 + kj.shape[1], device=q.device)[None]
             s = torch.where(kpos <= qpos, s, NEG)
+        if window is not None:
+            s = torch.where(qpos - kpos < window, s, NEG)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
@@ -137,7 +155,7 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True,
-                               round_p: bool = False,
+                               window=None, cap=None, round_p: bool = False,
                                return_lse: bool = False):
     """`flash_attention_plain` on the model's layout: q [B, S, H, D], k/v
     [B, T, K, D] with the kv heads repeated G = H // K times (q head h
@@ -148,7 +166,7 @@ def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor,
     out = flash_attention_plain(
         _heads_first(q), _heads_first(k.repeat_interleave(G, dim=2)),
         _heads_first(v.repeat_interleave(G, dim=2)), causal=causal,
-        round_p=round_p, return_lse=return_lse)
+        window=window, cap=cap, round_p=round_p, return_lse=return_lse)
     if return_lse:
         out, lse = out
         return (out.reshape(B, H, S, D).permute(0, 2, 1, 3),
@@ -201,27 +219,31 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window=None,
+                    cap=None) -> torch.Tensor:
     """q [BH, S, D], k/v [BH, T, D] (the Pallas kernel's signature; one kv
     head per q head). Returns [BH, S, D] in q's dtype."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     cap=cap)
     return _launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
-                   causal).squeeze(2)
+                   causal, window, cap).squeeze(2)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, return_lse: bool = False):
+                         *, causal: bool = True, window=None, cap=None,
+                         return_lse: bool = False):
     """q [B, S, H, D], k/v [B, T, K, D], H a multiple of K. Returns a
     contiguous [B, S, H, D] in q's dtype (and with `return_lse` the row
     log-sum-exp, f32 [B, H, S])."""
     if q.device.type == "cpu":
         return flash_attention_bshd_plain(q, k, v, causal=causal,
+                                          window=window, cap=cap,
                                           return_lse=return_lse)
-    return _launch(q, k, v, causal, return_lse)
+    return _launch(q, k, v, causal, window, cap, return_lse)
 
 
-def _check(q, k, v):
+def _check(q, k, v, window=None, cap=None):
     """Raise unless q, k, v are tensors on one CUDA device that the kernels
     take; returns whether the call takes the tensor-core path."""
     dev = q.device
@@ -245,11 +267,17 @@ def _check(q, k, v):
         if t.dtype != q.dtype or t.device != dev:
             raise ValueError(f"flash_attention: {name} is {t.dtype} on "
                              f"{t.device}, q {q.dtype} on {dev}")
+    if window is not None and (int(window) != window or window < 1
+                               or S > T):
+        raise ValueError(f"flash_attention: window {window} (a positive "
+                         f"int, with S {S} <= T {T})")
+    if cap is not None and not cap > 0:
+        raise ValueError(f"flash_attention: soft-cap {cap}, expected > 0")
     return tensor_core_path(q.dtype, D)
 
 
-def _launch(q, k, v, causal, return_lse=False):
-    tc = _check(q, k, v)
+def _launch(q, k, v, causal, window=None, cap=None, return_lse=False):
+    tc = _check(q, k, v, window, cap)
     dev = q.device
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -262,7 +290,8 @@ def _launch(q, k, v, causal, return_lse=False):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         _DTYPES[q.dtype], B, H, K, S, T, D, *_strides(q), *_strides(k),
-        *_strides(v), int(causal), _build.stream_ptr(dev))
+        *_strides(v), int(causal), int(window or 0), float(cap or 0.0),
+        _build.stream_ptr(dev))
     _build.launch_error("flash_attention", err)
     flash_attention.launches += 1
     flash_attention.launches_tc += tc
@@ -285,6 +314,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head width {D} not in "
+                         f"{BWD_HEAD_DIMS}")
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != (B, S, H, D) or t.device != dev:
             raise ValueError(f"flash_attention_bwd: {name} is "
@@ -315,16 +347,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """`flash_attention_bshd(q, k, v, causal=)` with a gradient:
-    `FlashAttentionFn.apply(q, k, v, causal)`. The forward writes the row
-    log-sum-exp only when an input wants a gradient (as it does again when
-    `torch.utils.checkpoint` recomputes it) and saves q, k, v, o and lse;
-    the backward is `flash_attention_bwd`."""
+    """`flash_attention_bshd(q, k, v, causal=, window=, cap=)` with a
+    gradient: `FlashAttentionFn.apply(q, k, v, causal, window, cap)`. The
+    forward writes the row log-sum-exp only when an input wants a gradient
+    (as it does again when `torch.utils.checkpoint` recomputes it) and
+    saves q, k, v, o and lse; the backward is `flash_attention_bwd`, which
+    has no window, soft-cap or width 256: such a call that wants a gradient
+    raises before any launch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True):
+    def forward(ctx, q, k, v, causal=True, window=None, cap=None):
         want = any(ctx.needs_input_grad[:3])
-        out = flash_attention_bshd(q, k, v, causal=causal, return_lse=want)
+        if want and (window is not None or cap is not None
+                     or q.shape[-1] not in BWD_HEAD_DIMS):
+            raise NotImplementedError(
+                "the backward of a windowed, soft-capped or width-256 "
+                "attention is not ported yet (ROADMAP A9)")
+        out = flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                   cap=cap, return_lse=want)
         ctx.causal = causal
         if not want:
             return out
@@ -337,7 +377,7 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None, None
 
 
 def _strides(t: torch.Tensor) -> tuple:

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
 
 The JAX package's `repro.launch.serve` on one device: the prompts are
 prefilled by stepping every token through `decode_step` (correct for every
@@ -9,6 +10,9 @@ cache kind; the fused `prefill_step` is the other entry point, and the
 one that runs the flash_attention kernel), then greedy argmax decoding.
 Weights are random, drawn from `seed`; prompts come from
 `data.batch_for(cfg, batch, prompt_len, 0, seed)`, as in the JAX package.
+The int8 KV cache is the config's `kv_cache_dtype="int8"`, reached by
+`serve(dataclasses.replace(cfg, kv_cache_dtype="int8"), ...)` as in the
+JAX dry run; there is no flag for it, as in JAX's launcher.
 """
 from __future__ import annotations
 

@@ -8,16 +8,23 @@ global-attention family, on tensors:
   which `attn_apply` runs on CPU tensors;
 - on CUDA tensors `attn_apply` runs the `flash_attention` kernel through
   `kernels.flash_attn.FlashAttentionFn` (the model's [B, S, H, D] layout,
-  kv heads mapped in the kernel), whose backward is the
+  kv heads mapped in the kernel; `attn_local`'s window and the config's
+  `attn_softcap` computed in the kernel), whose backward is the
   `flash_attention_bwd` kernel; on CPU tensors autograd differentiates
-  `chunked_attention`, as JAX does. The kernels have no window and no
-  soft-cap, as the Pallas kernel has neither, so those raise on CUDA;
+  `chunked_attention`, as JAX does. The backward kernel has no window, no
+  soft-cap and no head width 256 yet, so a call with any of them that
+  autograd would record raises on the card (ROADMAP A9);
 - decode is single-query attention over the cache in plain PyTorch. The
   cache is written in place (JAX's `dynamic_update_slice` returns new
-  arrays): `attn_decode` returns the same dict it was given.
+  arrays): `attn_decode` returns the same dict it was given. With
+  `kv_cache_dtype="int8"` the cache holds int8 codes and f32 scales per
+  (batch, position, kv head) (`quantize_kv`); each step writes the new
+  codes and scales at its slot and dequantizes the whole cache to q's
+  dtype (`dequantize_kv`), in plain PyTorch on both devices, as JAX does
+  in `jnp`.
 
-The int8 KV cache (`quantize_kv`/`dequantize_kv`) and MLA wait for a later
-slice (ROADMAP A9) and raise `NotImplementedError`.
+MLA waits for a later slice (ROADMAP A9) and raises
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ from ..kernels.flash_attn import FlashAttentionFn
 from .layers import apply_rope, dense_init, rmsnorm, softcap
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache",
-           "chunked_attention", "NEG_INF"]
+           "chunked_attention", "quantize_kv", "dequantize_kv", "NEG_INF"]
 
 NEG_INF = -2.0 ** 30  # large-finite: avoids NaN rows for fully-masked blocks
 
@@ -152,30 +159,36 @@ def attn_apply(x, p, cfg, kind: str, positions):
     tensors, chunked_attention on CPU tensors."""
     q, k, v = _qkv(x, p, cfg, positions)
     window = cfg.window if kind == "attn_local" else None
+    cap = cfg.attn_softcap
     if q.device.type == "cpu":
         o = chunked_attention(q, k, v, chunk=cfg.attn_chunk, window=window,
-                              cap=cfg.attn_softcap)
-    elif window is not None or cfg.attn_softcap is not None:
-        raise later("a local window or an attention soft-cap on the card "
-                    "(the flash_attention kernel has neither)")
+                              cap=cap)
     else:
-        o = FlashAttentionFn.apply(q, k, v, True)
+        # raises naming A9, before any launch, if autograd records a call
+        # that flash_attention_bwd cannot differentiate yet
+        o = FlashAttentionFn.apply(q, k, v, True, window, cap)
     return _out(o, p["wo"]), (k, v)
 
 
 def attn_decode(x, p, cfg, kind: str, cache, pos: int):
-    """One-token decode. x [B,1,d]; cache {"k","v"} [B,T,K,hd]; pos = the
-    current position (int). Local kinds roll mod window. Writes the new
-    k/v into `cache` in place and returns (out, cache)."""
+    """One-token decode. x [B,1,d]; cache {"k","v"} [B,T,K,hd] (+ f32
+    "k_scale", "v_scale" [B,T,K,1] if int8); pos = the current position
+    (int). Local kinds roll mod window. Writes the new k/v (codes and
+    scales) into `cache` in place and returns (out, cache)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(x, p, cfg, positions)
     T = cache["k"].shape[1]
     slot = pos % T if kind == "attn_local" else pos  # rolling window slot
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    kf = cache["k"].to(q.dtype)
-    vf = cache["v"].to(q.dtype)
+    kq, ks_ = quantize_kv(k, cache)
+    vq, vs_ = quantize_kv(v, cache)
+    cache["k"][:, slot] = kq[:, 0]
+    cache["v"][:, slot] = vq[:, 0]
+    if "k_scale" in cache:
+        cache["k_scale"][:, slot] = ks_[:, 0]
+        cache["v_scale"][:, slot] = vs_[:, 0]
+    kf = dequantize_kv(cache["k"], cache.get("k_scale"), q.dtype)
+    vf = dequantize_kv(cache["v"], cache.get("v_scale"), q.dtype)
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // K
     qg = q.reshape(B, 1, K, G, hd)
@@ -193,10 +206,38 @@ def attn_decode(x, p, cfg, kind: str, cache, pos: int):
     return _out(o, p["wo"]), cache
 
 
+def quantize_kv(x, cache):
+    """Per (B, T, K) head int8 quantization when the cache is int8: (codes
+    int8, scales f32 [..., 1]), codes = round(x / scale) (half to even, as
+    `jnp.round`) clipped to ±127, scale = max(amax, 1e-6) / 127; else (x in
+    the cache's dtype, None)."""
+    if cache.get("k_scale") is None and cache["k"].dtype != torch.int8:
+        return x.to(cache["k"].dtype), None
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(x, scale, dtype):
+    if x.dtype == torch.int8:
+        return (x.float() * scale).to(dtype)
+    return x.to(dtype)
+
+
 def init_kv_cache(cfg, kind: str, B: int, T: int, dtype, device=None):
-    """T already window-clamped by the caller for local kinds."""
-    if cfg.kv_cache_dtype == "int8":
-        raise later("the int8 KV cache (kv_cache_dtype='int8')")
+    """T already window-clamped by the caller for local kinds. An int8
+    cache holds int8 k/v and f32 scales [B, T, K, 1]."""
     K, hd = cfg.n_kv_heads, cfg.hd
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros((B, T, K, hd), dtype=torch.int8,
+                                 device=device),
+                "v": torch.zeros((B, T, K, hd), dtype=torch.int8,
+                                 device=device),
+                "k_scale": torch.zeros((B, T, K, 1), dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros((B, T, K, 1), dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros((B, T, K, hd), dtype=dtype, device=device),
             "v": torch.zeros((B, T, K, hd), dtype=dtype, device=device)}

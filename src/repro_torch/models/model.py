@@ -10,7 +10,8 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
   runs on the last position only: the same values as the JAX step's
   `logits[:, -1]`, without its [B, S, V] f32 tensor;
 - `decode_step(cache, batch, pos)` -> (logits [B, 1, V], cache), the cache
-  written in place at `pos`;
+  (bf16, or int8 codes and scales with `kv_cache_dtype="int8"`) written
+  in place at `pos`;
 - `loss(batch)` -> (loss + 0.01 aux, {"loss", "aux"}), differentiable;
 - `train_step(opt_state, batch)` -> (opt_state, {"loss", "aux",
   "grad_norm"}): gradients of `min(cfg.microbatch, B)`-row microbatches
@@ -22,7 +23,9 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
   stacked (`convert.jax_paths`). On CUDA
   tensors every layer's attention runs the `flash_attention` kernel
   twice (the forward and its recomputation under remat) and its backward
-  kernel once a microbatch.
+  kernel once a microbatch. The backward kernel has no window, soft-cap
+  or head width 256 yet, so gemma2 trains on the CPU only (on the card
+  the forward raises naming ROADMAP A9).
 
 Inputs are dicts of tensors or numpy arrays ({"tokens": [B, S] int}), moved
 to the model's device. One device: `zero1`, `seq_parallel` and `pure_dp`

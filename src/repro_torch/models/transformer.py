@@ -1,7 +1,8 @@
 """Decoder stack: layer-kind dispatch, one block per layer, remat, loss.
 
 A copy of the JAX package's `repro.models.transformer` for the dense
-attention kinds (`attn`, `attn_local`, `attn_global`). The JAX package
+attention kinds (`attn`, `attn_local`, `attn_global`), with the bf16 or
+int8 KV cache (`kv_cache_dtype`). The JAX package
 stacks the repeated pattern on a leading axis and drives it with
 `lax.scan` (small HLO, flat compile time); PyTorch runs eagerly, so here
 the layout (prefix, pattern × repeats, suffix) is unrolled into an
@@ -68,8 +69,6 @@ def check_supported(cfg) -> None:
         raise later("M-RoPE (rope='mrope')")
     if cfg.embed_inputs:
         raise later("embedding inputs (embed_inputs=True)")
-    if cfg.kv_cache_dtype == "int8":
-        raise later("the int8 KV cache (kv_cache_dtype='int8')")
 
 
 def _weights(tensors: dict) -> nn.ParameterDict:
@@ -235,7 +234,8 @@ def forward_decode(params, cfg, cache, batch, pos: int):
 
 def init_cache(cfg, B: int, T: int, device=None) -> list:
     """Decode cache sized for positions [0, T), one {"k", "v"} dict per
-    layer. Local windows clamp storage."""
+    layer (+ "k_scale", "v_scale" with `kv_cache_dtype="int8"`). Local
+    windows clamp storage."""
     check_supported(cfg)
     dt = _dtype(cfg)
     out = []

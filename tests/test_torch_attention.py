@@ -10,6 +10,11 @@ f32. Bars:
   * `chunked_attention` (GQA, window, soft-cap): 1e-5;
   * norms, RoPE and the MLPs: 1e-6;
   * configs: `dataclasses.asdict` equal;
+  * the plain version with a sliding window and a tanh soft-cap (gemma2's
+    local and global layers) against `chunked_attention`: 2e-5 in f32;
+  * the int8 KV cache: `quantize_kv` codes equal to JAX's, scales within
+    f32 rounding; `attn_decode` on an int8 cache within 1e-5, its codes
+    within one step;
   * the plain version with `round_p=True` (the tensor-core kernel's
     rounding: p to bf16 before PV) in bf16 against JAX's bf16
     `chunked_attention`, which rounds p so: per element 2^-8 max|v| +
@@ -46,7 +51,7 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 KERNEL_TOL = 2e-5
 ATTN_TOL = 1e-5
 LAYER_TOL = 1e-6
-ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b")
+ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b")
 
 
 def _normal(rng, *shape):
@@ -152,6 +157,82 @@ def test_round_p_plain_matches_jax_chunked_attention_bf16(S, chunk, D):
     assert float(d32.mean()) > 1e-4
 
 
+def _bf16_bar_ok(got, want, v):
+    """The tensor-core kernel's bar: per element 2^-8 max|v| + 2^-7 |want|,
+    mean |diff| <= 1e-4."""
+    bar = 2.0 ** -8 * float(v.float().abs().max()) + 2.0 ** -7 * want.abs()
+    d = (got.float() - want).abs()
+    return bool((d <= bar).all()) and float(d.mean()) <= 1e-4
+
+
+@pytest.mark.parametrize("D,window,cap", [(16, 24, 5.0), (16, 24, None),
+                                          (16, None, 5.0), (256, 40, 50.0),
+                                          (256, None, 50.0)])
+def test_plain_window_and_cap_match_jax_chunked_attention(D, window, cap):
+    """gemma2's attention kinds in the kernel's oracle: the soft-cap on the
+    scaled scores, then the causal and window masks, as the model's
+    `chunked_attention` (S > window, so the window masks). q is scaled so
+    that the scores reach the cap. f32 at 2e-5; bf16 with `round_p` at
+    the tensor-core bar."""
+    rng = np.random.default_rng(D + (window or 0))
+    B, S, H, K = 2, 96, 4, 2
+    scale = 3.0 if D == 16 else 40.0
+    q = _normal(rng, B, S, H, D) * scale
+    k, v = _normal(rng, B, S, K, D), _normal(rng, B, S, K, D)
+    kw = dict(window=window, cap=cap)
+    got = flash_attention_bshd_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                     **kw)
+    want = jattn.chunked_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                   chunk=32, **kw)
+    _close(got, want, KERNEL_TOL)
+    # the window and the cap change the result: neither is a no-op here
+    plain = flash_attention_bshd_plain(*(torch.from_numpy(a)
+                                         for a in (q, k, v)))
+    assert float((got - plain).abs().max()) > 1e-2
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention_bshd_plain(tq, tk, tv, round_p=True, **kw)
+    want = jattn.chunked_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (tq, tk, tv)), chunk=32, **kw)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    assert got.dtype == torch.bfloat16 and _bf16_bar_ok(got, want, tv)
+
+
+def test_flash_attention_entries_take_window_and_cap():
+    """The [BH, S, D] entry and the model-layout one pass the window and
+    the cap to the plain version on the CPU; the heads of one kv head
+    agree with the [BH, S, D] entry."""
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 70, 1, 32) * 4)
+               for _ in range(3))
+    kw = dict(window=20, cap=3.0)
+    got = flash_attention_bshd(q, k, v, **kw)
+    _close(got, tattn.chunked_attention(q, k, v, chunk=35, **kw), KERNEL_TOL)
+    _close(flash_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0], **kw),
+           got[:, :, 0], 0.0)
+
+
+def test_flash_attention_fn_refuses_what_the_backward_lacks():
+    """FlashAttentionFn has no backward for a window, a soft-cap or head
+    width 256: a call with one of them that wants a gradient raises
+    NotImplementedError naming A9 before the forward runs; without a
+    gradient it runs."""
+    assert 256 in tflash.HEAD_DIMS and 256 not in tflash.BWD_HEAD_DIMS
+    rng = np.random.default_rng(22)
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 40, 2, 16)) for _ in range(3))
+    qg = q.clone().requires_grad_()
+    wide = torch.zeros(1, 8, 2, 256, requires_grad=True)
+    for args in ((qg, k, v, True, 8, None), (qg, k, v, True, None, 5.0),
+                 (wide, wide, wide, True)):
+        before = flash_attention.launches
+        with pytest.raises(NotImplementedError, match="A9"):
+            tflash.FlashAttentionFn.apply(*args)
+        assert flash_attention.launches == before
+    with torch.no_grad():
+        _close(tflash.FlashAttentionFn.apply(q, k, v, True, 8, 5.0),
+               flash_attention_bshd_plain(q, k, v, window=8, cap=5.0), 0.0)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_round_p_is_the_identity_in_f32(causal):
     rng = np.random.default_rng(8)
@@ -167,10 +248,12 @@ def test_round_p_is_the_identity_in_f32(causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 def test_tensor_core_path_is_bf16_at_64_and_128(dtype, D):
+    """bf16 at D 64, 128 and gemma2's 256 runs on the tensor cores; f32 and
+    the narrow widths on the scalar kernel."""
     assert tensor_core_path(dtype, D) == (dtype == torch.bfloat16
-                                          and D in (64, 128))
+                                          and D in (64, 128, 256))
 
 
 def test_tma_operands_are_aligned_or_copied():
@@ -235,6 +318,81 @@ def test_chunked_attention_matches_jax(window, cap):
                                    chunk=16, window=window, cap=cap)
     assert got.shape == (B, S, H, D)
     _close(got, want, ATTN_TOL)
+
+
+# -- the int8 KV cache --------------------------------------------------------
+
+def test_quantize_kv_matches_jax():
+    """Codes equal to JAX's (round half to even, the division kept), scales
+    within f32 rounding, dequantized values equal; rows of zeros (the
+    1e-6 floor) and exact halves included. A cache that is not int8 gets
+    x in its dtype and no scale."""
+    rng = np.random.default_rng(23)
+    x = _normal(rng, 2, 5, 3, 16) * rng.uniform(0.01, 20.0, (2, 5, 3, 1))
+    x = x.astype(np.float32)
+    x[0, 0, 0] = 0.0
+    x[0, 1, 0, :6] = [127.0, 0.5, 1.5, 2.5, -2.5, -0.5]
+    x[0, 1, 0, 6:] = 0.0
+    tq, ts = tattn.quantize_kv(torch.from_numpy(x),
+                               {"k": torch.zeros(1, dtype=torch.int8)})
+    jq, js = jattn.quantize_kv(jnp.asarray(x),
+                               {"k": jnp.zeros(1, jnp.int8)})
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    assert ts.shape == (2, 5, 3, 1)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert tq[0, 1, 0, :6].tolist() == [127, 0, 2, 2, -2, 0]
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=2.0 ** -23,
+                               atol=0)
+    for dt, jdt in ((torch.float32, jnp.float32),
+                    (torch.bfloat16, jnp.bfloat16)):
+        got = tattn.dequantize_kv(tq, ts, dt)
+        want = jattn.dequantize_kv(jq, js, jdt)
+        assert got.dtype == dt
+        _close(got.float(), np.asarray(want.astype(jnp.float32)), 1e-6)
+    same, none = tattn.quantize_kv(torch.from_numpy(x),
+                                   {"k": torch.zeros(1, dtype=torch.bfloat16)})
+    assert none is None and same.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kind", ["attn", "attn_local"])
+def test_attn_decode_int8_matches_jax(kind):
+    """One layer's decode on an int8 cache (gemma2's smoke shapes: window
+    16, soft-cap) for 24 positions, so the local cache's rolling slot
+    wraps: outputs within 1e-5 of JAX's, codes within one step, scales
+    within f32 rounding, at every position."""
+    jcfg = dataclasses.replace(
+        jconfigs.smoke_config(jconfigs.get_config("gemma2-9b")),
+        kv_cache_dtype="int8")
+    tcfg = dataclasses.replace(
+        tconfigs.smoke_config(tconfigs.get_config("gemma2-9b")),
+        kv_cache_dtype="int8")
+    rng = np.random.default_rng(24)
+    d, H, K, hd = tcfg.d_model, tcfg.n_heads, tcfg.n_kv_heads, tcfg.hd
+    p = {"wq": _normal(rng, d, H, hd), "wk": _normal(rng, d, K, hd),
+         "wv": _normal(rng, d, K, hd), "wo": _normal(rng, H, hd, d)}
+    p = {n: a / np.float32(np.sqrt(a.shape[0])) for n, a in p.items()}
+    B, steps = 2, 24
+    T = tcfg.window if kind == "attn_local" else steps
+    tcache = tattn.init_kv_cache(tcfg, kind, B, T, torch.float32)
+    jcache = jattn.init_kv_cache(jcfg, kind, B, T, jnp.float32)
+    assert {n: (t.dtype, tuple(t.shape)) for n, t in tcache.items()} == {
+        n: (getattr(torch, str(a.dtype)), a.shape) for n, a in jcache.items()}
+    tp = {n: torch.from_numpy(a) for n, a in p.items()}
+    jp = {n: jnp.asarray(a) for n, a in p.items()}
+    for pos in range(steps):
+        x = _normal(rng, B, 1, d)
+        to, tcache2 = tattn.attn_decode(torch.from_numpy(x), tp, tcfg, kind,
+                                        tcache, pos)
+        jo, jcache = jattn.attn_decode(jnp.asarray(x), jp, jcfg, kind,
+                                       jcache, pos)
+        assert tcache2 is tcache                       # written in place
+        _close(to, jo, ATTN_TOL)
+        for n in ("k", "v"):
+            codes = tcache[n].numpy().astype(np.int32)
+            assert np.abs(codes - np.asarray(jcache[n])).max() <= 1
+            np.testing.assert_allclose(tcache[n + "_scale"].numpy(),
+                                       np.asarray(jcache[n + "_scale"]),
+                                       rtol=1e-6, atol=0)
 
 
 # -- layers --------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """repro_torch's LM serving path (LMModel, forward_full, decode_step, the
 serve loop) against the JAX package, on the CPU, at the smoke configs of
-qwen2-1.5b, smollm-360m and qwen3-4b.
+qwen2-1.5b, smollm-360m, qwen3-4b and gemma2-9b (local and global layers,
+soft-caps, sandwich norms), with the bf16 and the int8 KV cache.
 
 The JAX package's weights (`repro.models.LMModel(cfg).init_params(
 jax.random.key(k))`) are carried into the port by `params_from_jax`, and
@@ -27,6 +28,7 @@ from repro.models import transformer as jtfm  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.core.frontier import fstats_init  # noqa: E402
 from repro_torch.data import batch_for  # noqa: E402
+from repro_torch.kernels import flash_attn as tflash  # noqa: E402
 from repro_torch.launch.serve import generate, serve  # noqa: E402
 from repro_torch.models import LMModel  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -35,16 +37,20 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.obs import trace_init  # noqa: E402
 
 TOL = 1e-5
-ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b")
+ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b")
 CPU = dict(device="cpu")
 
 
-def _cfgs(name, layers=2):
+def _cfgs(name, layers=2, **changes):
     """(port config, JAX config): the architecture's smoke config with its
-    pattern repeated `layers` times."""
-    return tuple(dataclasses.replace(c.smoke_config(c.get_config(name)),
-                                     n_layers=layers, repeats=layers)
-                 for c in (tconfigs, jconfigs))
+    pattern repeated `layers` times (and `changes` to its fields)."""
+    out = []
+    for c in (tconfigs, jconfigs):
+        smoke = c.smoke_config(c.get_config(name))
+        out.append(dataclasses.replace(
+            smoke, n_layers=layers * len(smoke.pattern), repeats=layers,
+            **changes))
+    return tuple(out)
 
 
 def _port_cfg(jcfg):
@@ -59,16 +65,22 @@ def _port_cfg(jcfg):
     return tconfigs.ArchConfig(**kw)
 
 
-def _carry(name, key, layers=2):
+def _carry(name, key, layers=2, **changes):
     """(port model on the CPU, JAX model, JAX params, port config, JAX
     config), the port's weights carried from the JAX ones."""
-    tcfg, jcfg = _cfgs(name, layers)
+    tcfg, jcfg = _cfgs(name, layers, **changes)
     jm = JLMModel(jcfg)
     jp = jm.init_params(jax.random.key(key))
     model = LMModel(tcfg, **CPU)
     model.params.load_state_dict(
         params_from_jax(jax.tree.map(np.asarray, jp), tcfg))
     return model, jm, jp, tcfg, jcfg
+
+
+def _jlayer(jcache, layer, n_pat):
+    """Layer `layer`'s cache dict out of JAX's stacked pattern caches."""
+    return {n: a[layer // n_pat]
+            for n, a in jcache["pattern"][layer % n_pat].items()}
 
 
 def _close(got, want, tol=TOL):
@@ -158,8 +170,40 @@ def test_decode_step_matches_jax_at_every_position(name):
         assert tl.shape == (B, 1, tcfg.vocab)
         _close(tl, jl)
     for layer, c in enumerate(tcache):
-        _close(c["k"], jcache["pattern"][0]["k"][layer])
-        _close(c["v"], jcache["pattern"][0]["v"][layer])
+        jc = _jlayer(jcache, layer, len(tcfg.pattern))
+        _close(c["k"], jc["k"])
+        _close(c["v"], jc["v"])
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma2-9b"])
+def test_int8_decode_step_matches_jax(name):
+    """kv_cache_dtype="int8" (the JAX dry run's decode option): logits
+    within 1e-5 of JAX's at every position, every layer's codes within one
+    step and scales within 1e-5 (the bar the bf16 caches' k and v are held
+    to: two layers of products summed in other orders). 24 positions, so
+    gemma2's local caches (window 16) roll."""
+    model, jm, jp, tcfg, jcfg = _carry(name, 8, kv_cache_dtype="int8")
+    B, S = 2, 24
+    toks = batch_for(tcfg, B, S, 0, seed=8)["tokens"]
+    jcache = jtfm.init_cache(jcfg, B, S)
+    tcache = model.init_cache(B, S)
+    step = jax.jit(jm.decode_step)
+    for t in range(S):
+        jl, jcache = step(jp, jcache, {"tokens": jnp.asarray(toks[:, t:t + 1])},
+                          jnp.asarray(t, jnp.int32))
+        tl, tcache = model.decode_step(tcache, {"tokens": toks[:, t:t + 1]},
+                                       t)
+        _close(tl, jl)
+    for layer, c in enumerate(tcache):
+        jc = _jlayer(jcache, layer, len(tcfg.pattern))
+        assert c["k"].dtype == torch.int8 and c["k_scale"].dtype == \
+            torch.float32
+        for n in ("k", "v"):
+            d = c[n].numpy().astype(np.int32) - np.asarray(jc[n], np.int32)
+            assert np.abs(d).max() <= 1
+            np.testing.assert_allclose(c[n + "_scale"].numpy(),
+                                       np.asarray(jc[n + "_scale"]),
+                                       rtol=TOL, atol=0)
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -203,7 +247,7 @@ def test_models_with_one_seed_are_equal_and_other_seeds_differ():
 # -- serving -------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,seed", [("smollm-360m", 0), ("qwen3-4b", 3),
-                                       ("qwen2-1.5b", 1)])
+                                       ("qwen2-1.5b", 1), ("gemma2-9b", 2)])
 def test_serve_tokens_equal_jax(name, seed):
     """repro.launch.serve draws its weights from jax.random.key(seed); the
     port's loop, given those weights and the same prompts, produces the
@@ -215,6 +259,20 @@ def test_serve_tokens_equal_jax(name, seed):
     prompts = batch_for(model.cfg, B, P, 0, seed)["tokens"]
     got, tps = generate(model, prompts, G)
     assert got.shape == (B, G) and tps > 0
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("name,seed", [("qwen2-1.5b", 6), ("gemma2-9b", 7)])
+def test_serve_tokens_equal_jax_with_the_int8_cache(name, seed):
+    """The same with kv_cache_dtype="int8" in both packages: equal greedy
+    tokens over a prompt and generation (20 positions) longer than
+    gemma2's smoke window of 16, so its local caches roll."""
+    B, P, G = 2, 12, 8
+    want, _ = j_serve(_cfgs(name, kv_cache_dtype="int8")[1], batch=B,
+                      prompt_len=P, gen=G, seed=seed)
+    model, *_ = _carry(name, seed, kv_cache_dtype="int8")
+    prompts = batch_for(model.cfg, B, P, 0, seed)["tokens"]
+    got, _ = generate(model, prompts, G)
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
@@ -265,12 +323,18 @@ def test_unported_families_raise(name, what):
 
 
 def test_unported_options_raise():
-    tcfg, _ = _cfgs("qwen2-1.5b")
-    int8 = dataclasses.replace(tcfg, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8 KV cache.*A9"):
-        LMModel(int8, **CPU)
-    with pytest.raises(NotImplementedError, match="int8 KV cache.*A9"):
-        tattn.init_kv_cache(int8, "attn", 1, 4, torch.float32, "cpu")
+    """MLA and the unported layer kinds raise naming A9. The int8 KV cache
+    is ported: its model builds and its caches have JAX's layout (codes
+    int8, scales f32 [B, T, K, 1]; local layers clamped to the window)."""
+    tcfg, jcfg = _cfgs("gemma2-9b", kv_cache_dtype="int8")
+    LMModel(tcfg, **CPU)
+    tcache = ttfm.init_cache(tcfg, 2, 40, **CPU)
+    jcache = jtfm.init_cache(jcfg, 2, 40)
+    for layer, c in enumerate(tcache):
+        jc = _jlayer(jcache, layer, len(tcfg.pattern))
+        assert {n: (str(t.dtype)[6:], tuple(t.shape)) for n, t in c.items()} \
+            == {n: (str(a.dtype), a.shape) for n, a in jc.items()}
+    assert tcache[0]["k"].shape[1] == tcfg.window
     mla = _port_cfg(jconfigs.smoke_config(
         jconfigs.get_config("deepseek-v3-671b")))
     with pytest.raises(NotImplementedError, match="MLA.*A9"):
@@ -280,11 +344,13 @@ def test_unported_options_raise():
             ttfm.init_block(tcfg, kind, generator=torch.Generator())
 
 
-def test_local_and_softcap_kinds_run_on_cpu_and_raise_off_it():
+def test_local_and_softcap_kinds_run_on_cpu_and_their_backward_raises_off_it():
     """gemma2's kinds (local window, soft-caps, post-norms) run on the CPU
-    through chunked_attention and match the JAX model there; off the CPU
-    the kernel has neither window nor soft-cap, so attn_apply raises
-    before any launch."""
+    through chunked_attention and match the JAX model there. Off the CPU
+    the kernel takes the window, the soft-cap and head width 256, but its
+    backward has none of them: a call with one of them that autograd would
+    record raises naming A9 before any launch; without a gradient it
+    reaches the kernel (here, on `meta`, its device check)."""
     jcfg = jconfigs.smoke_config(jconfigs.get_config("gemma2-9b"))
     tcfg = _port_cfg(jcfg)
     jp = JLMModel(jcfg).init_params(jax.random.key(0))
@@ -299,10 +365,24 @@ def test_local_and_softcap_kinds_run_on_cpu_and_raise_off_it():
     x = torch.empty(1, 8, tcfg.d_model, device="meta")
     pos = torch.zeros(1, 8, dtype=torch.int64, device="meta")
     p = {k: v.to("meta") for k, v in model.params.blocks[0]["mix"].items()}
-    for kind in ("attn_local", "attn_global"):
-        with pytest.raises(NotImplementedError, match="soft-cap.*A9"):
-            tattn.attn_apply(x, p, tcfg, kind, pos)
-    plain = dataclasses.replace(tcfg, attn_softcap=None)
+    assert p["wq"].requires_grad
+    plain = dataclasses.replace(tcfg, attn_softcap=None, window=None)
+    wide = dataclasses.replace(plain, head_dim=256)
+    d, H, K = tcfg.d_model, tcfg.n_heads, tcfg.n_kv_heads
+    pw = {n: torch.empty(shape, device="meta", requires_grad=True)
+          for n, shape in (("wq", (d, H, 256)), ("wk", (d, K, 256)),
+                           ("wv", (d, K, 256)), ("wo", (H, 256, d)))}
+    cases = (("attn_local", tcfg, p), ("attn_global", tcfg, p),
+             ("attn_local", dataclasses.replace(tcfg, attn_softcap=None), p),
+             ("attn_global", wide, pw))
+    before = tflash.flash_attention.launches
+    for kind, cfg, w in cases:
+        with pytest.raises(NotImplementedError, match="backward.*A9"):
+            tattn.attn_apply(x, w, cfg, kind, pos)
+        with torch.no_grad(), pytest.raises(
+                ValueError, match="no kernel for device meta"):
+            tattn.attn_apply(x, w, cfg, kind, pos)
+    assert tflash.flash_attention.launches == before
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tattn.attn_apply(x, p, plain, "attn_global", pos)
 
