@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (`repro_torch`) of Static and DF-P PageRank,
-of its streaming session and of LM serving (qwen2-1.5b, gemma2-9b) and
-training on one GPU, and hold its CUDA kernels against their plain
+of its streaming session and of LM serving and training (qwen2-1.5b,
+gemma2-9b) on one GPU, and hold its CUDA kernels against their plain
 PyTorch versions.
 
     python3 chip_smoke.py                 # full size: n=2^22, m=2^26
@@ -240,7 +240,38 @@ Phases (any failure exits non-zero; nothing is caught):
      teacher-forced decoding of 2 x (64 + 32) tokens with both caches:
      argmax agreeing on at least 90% of the 64 predicted positions, logits
      finite; (12e) serve (batch 4, prompt 64, gen 32) twice with one seed
-     (equal tokens in [0, vocab)) and once with the int8 cache.
+     (equal tokens in [0, vocab)) and once with the int8 cache;
+  13. gemma2-9b training (after 12): (13a) flash_attention_bwd with the
+     window, the soft-cap and D 256 against flash_attention_bwd_plain
+     (one kv head at a time) on the forward kernel's o and lse, q scaled
+     by 8 as in 12a, at 11a's bars, two runs bit-identical: bf16 on the
+     tensor cores at B 1, 16 heads over 8, S = T = 8192, D 256 with
+     window 4096 and cap 50 (a local layer) and with the cap only (a
+     global one), ragged 1000 with window 256, at 2048 with window 512
+     and no cap and with neither, D 128 with window 256; f32
+     on the scalar kernels at D 256, 2048, window 1024 (launches_tc
+     exactly the bf16 cases); FlashAttentionFn against autograd through
+     the plain forward with the window and cap (f32, D 256); the local
+     and global shapes' times (10 back to back, one call a sample) beside
+     their bound (2.5x 12a's allowed-pair FLOPs), the plain version and
+     the library's one call (the backward of compiled flex_attention, the
+     cap as its score_mod, causal + window as its block mask, held to the
+     kernel's bars; a failure to compile is recorded); (13b) gemma2-9b's
+     widths at 2 layers (local, global) in f32, window 128, B 2 x 512:
+     loss and every gradient leaf on the card (the scalar kernels) against
+     the CPU (chunked_attention under autograd) at 11b's bars, the host's
+     peak RSS; (13c) train() at full width, 4 layers (two local, two
+     global: GEMMA_TRAIN_LAYERS, the depth measured to fit the card), in
+     the allocator's expandable segments, bf16, AdamW, 3 steps on
+     batch_for(cfg, 1, 8192) (launch counts set to 0 here:
+     flash_attention exactly 8 a step, flash_attention_bwd 4, all on the
+     tensor cores), losses and grad norms finite, every leaf moved, the
+     steps' ms and tokens/s (the first apart), the peak allocated and
+     reserved memory and the allocator's retries, one step's forward /
+     backward / AdamW split by CUDA events with its wall time and its
+     device-busy time under torch.profiler, and that
+     model's checkpoint (its post-norms and untied head) restored bit for
+     bit.
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -1713,6 +1744,15 @@ def peak_rss_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
+def rss_gib() -> float:
+    """The process's resident set now (Linux), GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
 def same_state(a, b) -> list:
     """Names where two snapshots' `state_dict`s differ (mirrors, free
     lists, capacities)."""
@@ -2487,7 +2527,7 @@ TRAIN_STEPS = 3           # 11c
 def _leaf_err(got: dict, want: dict, tol: float):
     """(worst |got - want| over a leaf's max |want|, the leaf), requiring
     every leaf within `tol` of its max."""
-    worst = (0.0, None)
+    worst = (-1.0, "")
     for k, w in want.items():
         w = w.float()
         rel = float((got[k].float().cpu() - w).abs().max()) / max(
@@ -3034,6 +3074,578 @@ def gemma_phase(args, dev, report):
     log(f"[memory] phase 12 peak allocated "
         f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB; phase 12 "
         f"{rep['phase_s']:.1f} s")
+    return dict(launches=launches, max_abs_err=err, times=times)
+
+
+# -- phase 13: gemma2-9b training ---------------------------------------------
+GEMMA_BWD_BATCH = 1                 # 13a: B 1 at gemma2's context
+GEMMA_PARITY = (2, 512, 128)        # 13b: B, S, window (short, so it masks)
+GEMMA_TRAIN_SEQ = 8192              # 13c: gemma2's context, B 1
+# 13c's depth: two local and two global layers, the one cut. The step
+# peaks in the backward of the 256,000-word head, where a layer holds only
+# its bf16 weights and f32 m and v (10 bytes a parameter, 1.85 GiB for its
+# 198 M) and the f32 logits of 8,192 x 256,000 (7.8 GiB a copy, three to
+# four live with the soft-cap, logsumexp and their gradients) hold most of
+# the rest: measured alone, 68.1 GiB allocated at 2 layers and 71.9 at 4
+# (scripts/gemma_train_memory.py), of the card's 79.2. Every depth needs
+# expandable segments: in fixed ones the head's blocks leave 10-22 GiB
+# reserved that no 7.8 GiB block fits (R14).
+GEMMA_TRAIN_LAYERS = 4
+
+
+def plain_bwd_by_kv_head(q, k, v, o, lse, do, **kw):
+    """flash_attention_bwd_plain one kv head (and its G query heads) at a
+    time: the same values, without [B, K, G, S, T] f32 tensors of 4 GB at
+    gemma2's 8192."""
+    from repro_torch.kernels.flash_attn import flash_attention_bwd_plain
+
+    K = k.shape[2]
+    G = q.shape[2] // K
+    parts = []
+    for j in range(K):
+        hs = slice(j * G, (j + 1) * G)
+        parts.append(flash_attention_bwd_plain(
+            q[:, :, hs], k[:, :, j:j + 1], v[:, :, j:j + 1], o[:, :, hs],
+            lse[:, hs], do[:, :, hs], **kw))
+    return tuple(torch.cat(x, dim=2) for x in zip(*parts))
+
+
+def gemma_bwd_checks(args, dev, report):
+    """13a: flash_attention_bwd with gemma2's window, soft-cap and head
+    width 256 against flash_attention_bwd_plain on the forward kernel's o
+    and lse (q scaled by 8, as 12a, so that scores reach the cap): 11a's
+    bars, two runs bit for bit, launches_tc exactly the bf16 cases;
+    FlashAttentionFn against autograd through the plain forward with the
+    window and cap; then the local and global shapes' times beside their
+    bound, the plain version and the library's one call (the backward of
+    compiled flex_attention). Returns the worst error and the times."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (FlashAttentionFn,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain,
+                                                flash_attention_bwd,
+                                                tensor_core_path)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(GEMMA_ARCH)
+    B, S = GEMMA_BWD_BATCH, GEMMA_SEQ
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    W, CAP = cfg.window, cfg.attn_softcap
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    rep = dict(checks=[])
+
+    def operands(s, dtype, d, window, cap):
+        q, k, v, do = (torch.randn(B, s, h, d, generator=gen, device=dev)
+                       for h in (H, K, K, H))
+        q, k, v, do = ((q * GEMMA_Q_SCALE).to(dtype), k.to(dtype),
+                       v.to(dtype), do.to(dtype))
+        o, lse = flash_attention_bshd(q, k, v, window=window, cap=cap,
+                                      return_lse=True)
+        return q, k, v, o, lse, do
+
+    # (name, S = T, dtype, D, window, cap): bf16 on the tensor cores, f32
+    # on the scalar kernels
+    cases = [(f"bf16 local (window {W}, cap {CAP:g})", S, bf, D, W, CAP),
+             (f"bf16 global (cap {CAP:g})", S, bf, D, None, CAP),
+             ("bf16 ragged 1000 (window 256, cap)", 1000, bf, D, 256, CAP),
+             ("bf16 window 512 alone", 2048, bf, D, 512, None),
+             ("bf16 causal alone", 2048, bf, D, None, None),
+             ("bf16 D 128 (window 256, cap)", 2048, bf, 128, 256, CAP),
+             ("f32 D 256 (window 1024, cap)", 2048, f32, D, 1024, CAP)]
+    err = 0.0
+    tc0 = flash_attention_bwd.launches_tc
+    for name, s, dtype, d, window, cap in cases:
+        q, k, v, o, lse, do = operands(s, dtype, d, window, cap)
+        tc = tensor_core_path(dtype, d)
+        kw = dict(window=window, cap=cap)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=tc, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = {}
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            require(g.shape == w.shape and g.dtype == dtype,
+                    f"flash_attention_bwd {name} {gname}: shape or dtype")
+            e, rel, ok = bwd_err(g, w)
+            errs[gname] = (e, rel)
+            err = max(err, e)
+            require(ok, f"flash_attention_bwd {name} {gname}: max |diff| "
+                        f"{e} ({rel:.3e} of max |want|)")
+        require(same, f"flash_attention_bwd {name}: two runs differ")
+        rep["checks"].append(dict(case=name, q=list(q.shape),
+                                  kv=list(k.shape), tensor_cores=tc,
+                                  errs=errs, bit_identical=same))
+        log(f"[gemma-train] flash_attention_bwd {name} q {list(q.shape)} kv "
+            f"{list(k.shape)} ({'tensor-core' if tc else 'scalar'} "
+            f"kernels): " + ", ".join(
+                f"{g} {e:.3e} ({r:.2e} of max)" for g, (e, r) in errs.items())
+            + f"; repeat bit-identical {same}")
+        del q, k, v, o, lse, do, got, again, want
+    n_tc = flash_attention_bwd.launches_tc - tc0
+    want_tc = 2 * sum(c[2] == bf for c in cases)
+    require(n_tc == want_tc, f"13a: {n_tc} tensor-core backward calls, "
+                             f"want {want_tc}")
+    # the autograd Function against autograd through the plain forward,
+    # f32 at D 256 with the window and the cap (the scalar kernels)
+    kw = dict(window=64, cap=CAP)
+    qkv = [torch.randn(2, 256, h, D, generator=gen, device=dev)
+           for h in (H, K, K)]
+    qkv[0] = qkv[0] * GEMMA_Q_SCALE
+    qkv = [x.requires_grad_() for x in qkv]
+    do = torch.randn(2, 256, H, D, generator=gen, device=dev)
+    got = torch.autograd.grad(
+        FlashAttentionFn.apply(*qkv, True, kw["window"], kw["cap"]), qkv, do)
+    want = torch.autograd.grad(flash_attention_bshd_plain(*qkv, **kw), qkv,
+                               do)
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        e, rel, ok = bwd_err(g, w)
+        log(f"[gemma-train] FlashAttentionFn {gname} (window 64, cap "
+            f"{CAP:g}, f32, 2 x 256, D {D}) against autograd through the "
+            f"plain forward: {e:.3e} ({rel:.2e} of max)")
+        require(ok, f"FlashAttentionFn {gname} vs autograd: {e}")
+    del qkv, do, got, want
+    torch.cuda.synchronize()
+
+    # -- times at the local and the global layer's shapes --------------------
+    # The library's call: the backward of one compiled flex_attention (the
+    # cap as its score_mod, causal and window as its block mask, GQA), held
+    # to the kernel's bars against the plain version; timed here only, the
+    # port never calls it. A failure to compile is recorded, not raised.
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def softcap(score, b, h, qi, ki):
+        return CAP * torch.tanh(score / CAP)
+
+    def allowed(window):
+        def mask(b, h, qi, ki):
+            ok = ki <= qi
+            return ok if window is None else ok & (qi - ki < window)
+        return mask
+
+    t = {}
+    for layer, window in (("local", W), ("global", None)):
+        q, k, v, o, lse, do = operands(S, bf, D, window, CAP)
+        kw = dict(window=window, cap=CAP)
+        pairs = allowed_pairs(S, window)
+        flops = 2.5 * 4 * B * H * pairs * D
+        nbytes = 2 * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S
+
+        def kern():
+            return flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+        def plain():
+            return plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=True,
+                                        **kw)
+
+        tl = dict(ms=cuda_ms(kern, args.repeats, ATTN_PER),
+                  single_ms=cuda_ms(kern, args.repeats),
+                  plain_ms=cuda_ms(plain, 3),
+                  bound=bound(nbytes, flops, BF16_FLOPS),
+                  pairs_per_head=pairs)
+        tl["tflops"] = flops / tl["ms"] / 1e9
+        t0 = time.perf_counter()
+        try:
+            block_mask = create_block_mask(allowed(window), None, None, S, S,
+                                           device=dev)
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            out = flex(qt, kt, vt, score_mod=softcap, block_mask=block_mask,
+                       enable_gqa=True)
+            dot = do.transpose(1, 2)
+
+            def lib():
+                return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+            lib_got = [x.transpose(1, 2) for x in lib()]
+            want = plain()
+            lib_errs = [bwd_err(g, w) for g, w in zip(lib_got, want)]
+            del lib_got, want
+            tl.update(library_ms=cuda_ms(lib, args.repeats, ATTN_PER),
+                      library_single_ms=cuda_ms(lib, args.repeats),
+                      library_err=max(e[0] for e in lib_errs),
+                      library_within_bars=all(e[2] for e in lib_errs))
+            del qt, kt, vt, out, dot, block_mask
+        except Exception as exc:          # the yardstick only, never the port
+            tl.update(library_ms=None,
+                      library_error=f"{type(exc).__name__}: "
+                                    f"{str(exc).splitlines()[0][:300]}")
+        tl["library_first_s"] = time.perf_counter() - t0
+        t[layer] = tl
+        lib_txt = (f"flex_attention's backward (compiled, the library's "
+                   f"call) {tl['library_ms']:.4f} ms, {ATTN_PER} back to "
+                   f"back, {tl['library_single_ms']:.4f} one call a sample, "
+                   f"vs plain max |diff| {tl['library_err']:.3e} "
+                   f"({'within' if tl['library_within_bars'] else 'OUTSIDE'}"
+                   f" the kernel's bars)"
+                   if tl["library_ms"] is not None else
+                   f"flex_attention's backward failed: {tl['library_error']}")
+        log(f"[time] flash_attention_bwd gemma2 {layer} bf16 {[B, S, H, D]} "
+            f"/ kv {[B, S, K, D]}, cap {CAP}"
+            f"{f', window {W}' if window else ''}: {tl['ms']:.4f} ms per "
+            f"call, {ATTN_PER} back to back, {tl['single_ms']:.4f} one call "
+            f"a sample ({tl['tflops']:.1f} TFLOP/s over {pairs} allowed "
+            f"pairs a head, {100 * tl['bound'][0] / tl['ms']:.1f}% of the "
+            f"{tl['bound'][0]:.4f} ms bound ({tl['bound'][1]})); plain "
+            f"(round_p, by kv head) {tl['plain_ms']:.2f} ms; {lib_txt} "
+            f"({tl['library_first_s']:.1f} s)")
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    rep.update(times=t, max_abs_err=err)
+    report.setdefault("gemma_train", {})["attn_bwd"] = rep
+    return err, t
+
+
+def gemma_train_parity(args, dev, report):
+    """13b: gemma2-9b at full width, 2 layers (one local, one global), f32,
+    the window cut to 128 so that it masks at B 2 x 512: loss and every
+    gradient leaf on the card (the scalar kernels, with the window and the
+    cap) against the CPU (chunked_attention under autograd), within the CPU
+    tests' bars. A parity check, not the path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import flash_attention_bwd
+    from repro_torch.models import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, W = GEMMA_PARITY
+    cfg = dataclasses.replace(get_config(GEMMA_ARCH), n_layers=2, repeats=1,
+                              dtype="float32", window=W)
+    t0 = time.perf_counter()
+    card = LMModel(cfg, device=dev, seed=args.seed)
+    # the CPU's copy: the same seed's weights drawn on the card and moved
+    # (trunc_normal_ on the host takes 22 s for these 2.2 B weights)
+    cpu = LMModel(cfg, device=dev, seed=args.seed).to("cpu")
+    cpu.device = torch.device("cpu")
+    batch = batch_for(cfg, B, S, 0, args.seed)
+
+    def loss_grads(m):
+        loss, _ = m.loss(batch)
+        w = dict(m.params.named_parameters())
+        g = torch.autograd.grad(loss, list(w.values()))
+        return float(loss.detach()), {k: x.detach().cpu()
+                                      for k, x in zip(w, g)}
+
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(
+        card.params.parameters(), cpu.params.parameters())),
+        "13b: the CPU's copy of the weights differs from the card's")
+    n0 = flash_attention_bwd.launches
+    (lc, gc), (lg, gg) = loss_grads(cpu), loss_grads(card)
+    require(flash_attention_bwd.launches - n0 == 2,
+            "13b: the card's backward did not run flash_attention_bwd once "
+            "a layer")
+    rep = dict(loss_rel=abs(lg - lc) / abs(lc))
+    require(rep["loss_rel"] <= TOL_TRAIN, f"13b loss {lg} vs {lc}")
+    rep["grad_worst"] = _leaf_err(gg, gc, TOL_TRAIN)
+    rep.update(s=time.perf_counter() - t0, host_rss_gib=rss_gib(),
+               host_peak_rss_gib=peak_rss_gib())
+    log(f"[gemma-train] 13b {GEMMA_ARCH} full width, 2 layers, f32, window "
+        f"{W}, {B} x {S}, card (scalar kernels) vs CPU (chunked_attention): "
+        f"loss {lg:.6f}, {rep['loss_rel']:.2e} relative; worst gradient "
+        f"leaf {rep['grad_worst'][1]} {rep['grad_worst'][0]:.2e} of its "
+        f"max (bar {TOL_TRAIN}); host RSS {rep['host_rss_gib']:.1f} GiB with "
+        f"the CPU model and both gradients live (the process's peak so far "
+        f"{rep['host_peak_rss_gib']:.1f} GiB) ({rep['s']:.1f} s)")
+    report.setdefault("gemma_train", {})["parity"] = rep
+    del cpu, card, gg, gc
+    torch.cuda.empty_cache()
+
+
+# whether the caching allocator maps expandable segments: as
+# PYTORCH_CUDA_ALLOC_CONF set it when CUDA started, then as
+# expandable_segments() left it
+EXPANDABLE = ["expandable_segments:true"
+              in os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "").lower()]
+
+
+def expandable_segments(on: bool) -> None:
+    """Switch the CUDA caching allocator's expandable segments on or off
+    for the allocations that follow (PYTORCH_CUDA_ALLOC_CONF is read only
+    when CUDA starts; torch's setter for a running process is private and
+    warns that it moved)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(
+            f"expandable_segments:{'True' if on else 'False'}")
+    EXPANDABLE[0] = on
+
+
+def step_device_busy(step) -> dict:
+    """One call of `step` under torch.profiler in a `train.step` range
+    that ends after a synchronize: the range's wall time, the union of the
+    device's kernel, copy and set intervals inside it (busy), the device
+    time of the kernels that take the most, and the host time of the CUDA
+    runtime and driver calls that take the most (where the host waits:
+    allocations, frees, synchronizations). Empty when the capture holds no
+    device event."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("train.step"):
+            step()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_step_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+    span = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation" and e["name"] == "train.step"]
+    device = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") in DEVICE_CATS)
+    if len(span) != 1 or not device:
+        return {}
+    (t0, t1), = span
+    api = {}
+    for e in events:
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and t0 <= e["ts"] <= t1):
+            api[e["name"]] = api.get(e["name"], 0.0) + e["dur"] / 1e3
+    busy, at, by_name = 0.0, t0, {}
+    for a, b, name in device:
+        a, b = max(a, t0), min(b, t1)
+        if b <= a:
+            continue
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (b - a) / 1e3
+        if b > at:
+            busy += b - max(a, at)
+            at = b
+    return dict(step_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3,
+                busy_share=busy / (t1 - t0),
+                top_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:5],
+                api_ms=sorted(api.items(), key=lambda kv: -kv[1])[:6])
+
+
+def alloc_counts() -> dict:
+    """The caching allocator's counters of work that waits on the driver:
+    retries after a failed allocation (each frees the cache, which
+    synchronizes the device), out-of-memory errors, and the device
+    allocations and frees it made (cudaMalloc and cudaFree, or the maps and
+    unmaps of expandable segments)."""
+    st = torch.cuda.memory_stats()
+    return {k: int(st.get(k, 0)) for k in (
+        "num_alloc_retries", "num_ooms", "num_device_alloc",
+        "num_device_free")}
+
+
+def gemma_train_run(args, dev, L, times=None):
+    """13c at depth L (one local and one global layer a pair): train() at
+    full width, bf16, the config's AdamW, TRAIN_STEPS steps on
+    batch_for(cfg, 1, GEMMA_TRAIN_SEQ) with the launch counts set to 0
+    first and held to 2L flash_attention and L flash_attention_bwd a step,
+    all on the tensor cores; finite losses, every leaf moved; the steps'
+    times, the peak allocated and reserved memory and the allocator's
+    counters over the steps. Then one more step split by CUDA events
+    (forward under remat, backward, AdamW) with its wall time and counters,
+    and one under torch.profiler for the device's busy time. `times`: 13a's,
+    to set the backward kernel's share of the step. Returns (report,
+    launches, model, optimizer state) for the checkpoint."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bwd)
+    from repro_torch.models import LMModel
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import train
+
+    cfg = dataclasses.replace(get_config(GEMMA_ARCH), n_layers=L,
+                              repeats=L // 2)
+    B, S = 1, GEMMA_TRAIN_SEQ
+    rep = dict(arch=GEMMA_ARCH, layers=L, batch=B, seq=S, steps=TRAIN_STEPS,
+               allocator=torch.cuda.get_allocator_backend(),
+               expandable_segments=EXPANDABLE[0])
+    torch.cuda.reset_peak_memory_stats()
+    a0 = alloc_counts()
+    flash_attention.launches = flash_attention.launches_tc = 0
+    flash_attention_bwd.launches = flash_attention_bwd.launches_tc = 0
+    params, hist = train(cfg, steps=TRAIN_STEPS, batch=B, seq=S, log_every=1,
+                         seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(flash_attention=flash_attention.launches,
+                    flash_attention_tc=flash_attention.launches_tc,
+                    flash_attention_bwd=flash_attention_bwd.launches,
+                    flash_attention_bwd_tc=flash_attention_bwd.launches_tc)
+    rep["alloc"] = {k: v - a0[k] for k, v in alloc_counts().items()}
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rep["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    rep["n_params"] = sum(p.numel() for p in params.parameters())
+    log(f"[launches] gemma2 training path, {TRAIN_STEPS} steps: "
+        f"flash_attention {launches['flash_attention']} (on the tensor cores "
+        f"{launches['flash_attention_tc']}), flash_attention_bwd "
+        f"{launches['flash_attention_bwd']} (on the tensor cores "
+        f"{launches['flash_attention_bwd_tc']})")
+    want = dict(flash_attention=2 * L * TRAIN_STEPS,
+                flash_attention_tc=2 * L * TRAIN_STEPS,
+                flash_attention_bwd=L * TRAIN_STEPS,
+                flash_attention_bwd_tc=L * TRAIN_STEPS)
+    require(launches == want, f"gemma2 training launches {launches}, want "
+            f"{want} (per step: the forward and its remat recomputation in "
+            f"each of {L} layers, one backward each)")
+    require(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                for h in hist), f"gemma2 training losses {hist}")
+    fresh = LMModel(cfg, device=dev, seed=args.seed).params.state_dict()
+    still = [k for k, p in params.state_dict().items()
+             if torch.equal(p, fresh[k])]
+    require(not still, f"gemma2 weights that did not move: {still[:5]}")
+    del params, fresh
+    secs = [hist[0]["sec"]] + [b["sec"] - a["sec"]
+                               for a, b in zip(hist, hist[1:])]
+    rep.update(history=hist, step_s=secs,
+               tokens_per_s=[B * S / x for x in secs])
+    log(f"[time] gemma2 train_step {B} x {S} bf16, {L} layers (local, "
+        f"global; {rep['n_params'] / 1e9:.3f} B parameters): first "
+        f"{1e3 * secs[0]:.1f} ms, then " + " / ".join(
+            f"{1e3 * x:.1f}" for x in secs[1:]) + " ms ("
+        + " / ".join(f"{t:.0f}" for t in rep["tokens_per_s"][1:])
+        + " tokens/s); losses " + " / ".join(f"{h['loss']:.4f}" for h in hist)
+        + ", grad norms " + " / ".join(f"{h['grad_norm']:.3f}" for h in hist))
+    log(f"[memory] gemma2 training peak allocated "
+        f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB, reserved "
+        f"{rep['peak_reserved_bytes'] / 2**30:.3f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.3f}; "
+        f"expandable segments {'on' if EXPANDABLE[0] else 'off'}; the "
+        f"allocator over the {TRAIN_STEPS} steps: {rep['alloc']}")
+    torch.cuda.empty_cache()
+
+    # one more step split by CUDA events: forward under remat, backward,
+    # AdamW; then its model and optimizer state checkpointed and restored
+    model = LMModel(cfg, device=dev, seed=args.seed)
+    opt = model.init_opt()
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in batch_for(cfg, B, S, 0, args.seed).items()}
+
+    def step():
+        """train_step's AdamW step with CUDA events between its parts."""
+        nonlocal opt
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = model.loss(batch)
+        ev[1].record()
+        w = dict(model.params.named_parameters())
+        grads = torch.autograd.grad(loss, list(w.values()))
+        ev[2].record()
+        new, opt, _ = adamw_update(
+            {k: g.float() for k, g in zip(w, grads)}, opt,
+            {k: p.detach() for k, p in w.items()})
+        ev[3].record()
+        torch.cuda.synchronize()
+        del grads, loss
+        with torch.no_grad():
+            for k, p in w.items():
+                p.copy_(new.pop(k))
+        return ev
+
+    step()                      # warm
+    a0 = alloc_counts()
+    t0 = time.perf_counter()
+    ev = step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    parts = dict(forward_ms=ev[0].elapsed_time(ev[1]),
+                 backward_ms=ev[1].elapsed_time(ev[2]),
+                 optimizer_ms=ev[2].elapsed_time(ev[3]), wall_ms=wall_ms,
+                 alloc={k: v - a0[k] for k, v in alloc_counts().items()})
+    rep["breakdown"] = parts
+    busy = step_device_busy(step)
+    if busy:
+        busy["busy_of_unprofiled"] = busy["busy_ms"] / wall_ms
+    rep["device_busy"] = busy
+    log("[time] gemma2 train step under torch.profiler: " + (
+        f"device busy {busy['busy_ms']:.1f} ms, "
+        f"{100 * busy['busy_share']:.1f}% of the profiled step's "
+        f"{busy['step_ms']:.1f} ms and {100 * busy['busy_of_unprofiled']:.1f}"
+        f"% of the unprofiled step's {wall_ms:.1f} ms; the most device "
+        "time: " + ", ".join(f"{n} {ms:.1f} ms" for n, ms in busy["top_ms"])
+        + "; the most host time in CUDA calls: " + ", ".join(
+            f"{n} {ms:.1f} ms" for n, ms in busy["api_ms"])
+        if busy else "the capture holds no device event (not measured)"))
+    bwd = ""
+    if times:
+        bwd_ms = (times["local"]["single_ms"]
+                  + times["global"]["single_ms"]) * L / 2
+        bwd = (f" ({L} flash_attention_bwd calls at 13a's one-call-a-sample "
+               f"times: {bwd_ms:.2f} ms, "
+               f"{100 * bwd_ms / parts['backward_ms']:.0f}% of it)")
+    log(f"[time] gemma2 train step parts (CUDA events): forward "
+        f"{parts['forward_ms']:.1f} ms, backward with the remat forward "
+        f"{parts['backward_ms']:.1f} ms{bwd}, AdamW "
+        f"{parts['optimizer_ms']:.1f} ms; the step's wall time "
+        f"{wall_ms:.1f} ms; the allocator over it: {parts['alloc']}")
+    del batch
+    return rep, launches, model, opt
+
+
+def gemma_train_phase(args, dev, report):
+    """Phase 13: the backward with gemma2's window, soft-cap and D 256
+    (13a), the model on the card against the CPU (13b), then gemma2-9b
+    trained at full width in bf16 (13c) with its launch counts, a step's
+    split and a checkpoint round trip. Returns the main path's launches,
+    the kernel's worst error and its times."""
+    from repro_torch.models import LMModel
+    from repro_torch.train.loop import restore_train_state, save_train_state
+
+    t_phase = time.perf_counter()
+    err, times = gemma_bwd_checks(args, dev, report)
+    gemma_train_parity(args, dev, report)
+
+    # -- 13c full width, bf16, GEMMA_TRAIN_LAYERS layers ----------------------
+    L = GEMMA_TRAIN_LAYERS
+    # The step's f32 logits (8,192 x 256,000) come and go in 7.8 GiB blocks
+    # between smaller ones; in the allocator's fixed segments the step
+    # alone, in a fresh process, leaves 21.8 GiB (2 layers) or 10.6 GiB (4)
+    # reserved that no such block fits and runs out of memory, so 13c maps
+    # its memory in expandable segments
+    torch.cuda.empty_cache()
+    expandable_segments(True)
+    rep, launches, model, opt = gemma_train_run(args, dev, L, times)
+    cfg = model.cfg
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_gemma_train_")
+    try:
+        t0 = time.perf_counter()
+        save_train_state(root, 1, model, opt)
+        rep["ckpt_s"] = time.perf_counter() - t0
+        rep["ckpt_bytes"] = sum(os.path.getsize(f) for f in glob.glob(
+            os.path.join(root, "step_0000000001", "*")))
+        other = LMModel(cfg, device=dev, seed=args.seed + 1)
+        t0 = time.perf_counter()
+        got, step = restore_train_state(root, other, other.init_opt())
+        torch.cuda.synchronize()
+        rep["restore_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = model.params.state_dict(), other.params.state_dict()
+    same = step == 1 and torch.equal(got.step, opt.step) and all(
+        torch.equal(a[k], b[k]) for k in a) and all(
+        torch.equal(x[k], y[k]) for x, y in ((got.m, opt.m), (got.v, opt.v))
+        for k in x)
+    require(same, "the gemma2 training checkpoint did not restore bit for "
+                  "bit")
+    log(f"[gemma-train] checkpoint of {GEMMA_ARCH} at {L} layers (bf16 "
+        f"weights, f32 AdamW state, post-norms and the untied head): "
+        f"{rep['ckpt_bytes'] / 2**30:.3f} GiB written in {rep['ckpt_s']:.1f} "
+        f"s, restored bit for bit in {rep['restore_s']:.1f} s")
+    del model, other, opt, got, a, b
+    torch.cuda.empty_cache()
+    expandable_segments(False)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"[gemma-train] phase 13 {rep['phase_s']:.1f} s")
+    report.setdefault("gemma_train", {})["train"] = rep
     return dict(launches=launches, max_abs_err=err, times=times)
 
 
@@ -3660,11 +4272,20 @@ def main(argv=None) -> int:
     # -- 12. gemma2-9b serving ------------------------------------------------
     gm = gemma_phase(args, dev, report)
     errs["flash_attention"] = max(errs["flash_attention"], gm["max_abs_err"])
-    # launches on the main paths: qwen2's prefill, training, gemma2's prefill
+    torch.cuda.empty_cache()
+
+    # -- 13. gemma2-9b training -----------------------------------------------
+    gt = gemma_train_phase(args, dev, report)
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
+                                      gt["max_abs_err"])
+    # launches on the main paths: qwen2's prefill, both trainings, gemma2's
+    # prefill
     launches["flash_attention"] = (lm["launches"]
                                    + tr["launches"]["flash_attention"]
-                                   + gm["launches"])
-    launches["flash_attention_bwd"] = tr["launches"]["flash_attention_bwd"]
+                                   + gm["launches"]
+                                   + gt["launches"]["flash_attention"])
+    launches["flash_attention_bwd"] = (tr["launches"]["flash_attention_bwd"]
+                                       + gt["launches"]["flash_attention_bwd"])
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",

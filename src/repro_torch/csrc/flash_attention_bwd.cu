@@ -1,22 +1,30 @@
 // flash_attention_bwd: dQ, dK and dV of causal (or full) softmax attention
 // softmax(Q K^T / sqrt(D)) V for grouped-query attention, from q, k, v, the
-// forward's output o, its row log-sum-exp lse and the output's gradient dO.
+// forward's output o, its row log-sum-exp lse and the output's gradient dO;
+// optionally with the forward's sliding window and tanh soft-cap (gemma2's
+// local and global layers).
 //
 // Replaces what the JAX package gets by autodiff of `chunked_attention`
-// (src/repro/models/attention.py:33): the Pallas `flash_attention` kernel
-// has no backward. Every layer of LMModel.train_step runs it once per
-// microbatch, through kernels/flash_attn.py's FlashAttentionFn.
+// (src/repro/models/attention.py:33, with its `window` and `cap`): the
+// Pallas `flash_attention` kernel has no backward. Every layer of
+// LMModel.train_step runs it once per microbatch, through
+// kernels/flash_attn.py's FlashAttentionFn.
 //
 // What bounds it on the H100: operations. At the training shape (B 4, H 12
 // over 2 kv heads, S = T = 2048, D 128) the five causal products (S again,
 // dP, dV, dK, dQ) are 2.5x the forward's 51.5 GFLOP: 128.8 GFLOP, 0.130 ms
-// at the card's 989 TFLOP/s of bf16 tensor-core products. Only the tensor
-// cores, fed by TMA without stalls, come near it.
+// at the card's 989 TFLOP/s of bf16 tensor-core products. At gemma2's (B 1,
+// H 16 over 8, S = T = 8192, D 256) they are 2.5x the forward's FLOPs over
+// the allowed pairs: 1.04 ms for a local layer (window 4096), 1.39 ms for a
+// global one. Only the tensor cores, fed by TMA without stalls, come near.
 //
 // The closed form (kernels/flash_attn.py flash_attention_bwd_plain):
-//   P  = exp(S / sqrt(D) - lse), 0 where the mask hides a key
+//   X  = S / sqrt(D); capped, t = tanh(X / cap) and the logit cap t
+//   P  = exp(logit - lse), 0 where the mask hides a key (the forward's:
+//        kpos <= qpos under the causal mask, qpos - kpos < window)
 //   Dr = rowsum(dO o O)                      per (b, h, query row), f32
-//   dP = dO V^T,  dS = P o (dP - Dr)
+//   dP = dO V^T,  dS = P o (dP - Dr), capped times 1 - t^2 (the soft-cap's
+//        derivative)
 //   dV = P^T dO,  dK = dS^T Q / sqrt(D),  dQ = dS K / sqrt(D)
 // No atomics anywhere: every sum runs in one fixed order, so two runs give
 // the same bits. The C entry dispatches on dtype and head width as the
@@ -70,31 +78,71 @@
 //   overlap each other's products), as did a third ring stage in dkdv_tc
 //   and 64-row K/V tiles in dq_tc.
 //
+// The window and the soft-cap (template flag kMod on the D 64 and 128
+//   tensor-core kernels, as the forward's, so that a call with neither
+//   runs the code above unchanged; the D 256 kernels take them always, a
+//   call without them as window 2^30 and the uncapped logit). The score's
+//   p, the cap's factor and the masks come from one set of helpers (prob,
+//   hidden, tile_live, tile_edge) in all four. The cap's tanh is the
+//   forward's f32-accurate one (1 - 2 / (2^(2 y log2 e) + 1), ex2.approx
+//   and a true division, the same operations, so the logit is the
+//   forward's), and its derivative 1 - t^2 is taken as u (2 - u) with
+//   u = 1 - t, exact where t nears +-1. The work follows the allowed
+//   pairs: a k block visits only the q tiles up to k0 + rows - 1 + window
+//   - 1, a q block starts at the k tile of q0 - window + 1 (the forward's
+//   kt0); tiles that cross the diagonal or the window's left edge take the
+//   masked loop, slabs wholly outside it skip the tile.
+//
+// bf16 at D 256: its own tensor-core layouts (the D 128 ones would need
+//   256 KB for dK/dV and 384 KB for dQ of the 227 KB, and 256 accumulator
+//   registers a thread):
+//   * dkdv_tc256: one block per (batch, query head, 64-row k tile), K and V
+//     resident (32 KB each), a two-stage ring of 64-row Q and dO tiles (64
+//     KB a stage). The two consumers split the accumulators: warpgroup 1
+//     holds dV (64 x 256 f32, 128 registers), warpgroup 2 dK. Warpgroup 1
+//     computes S^T = K Q^T and P^T, hands G^T = P^T (1 - t^2) (P^T
+//     uncapped) to warpgroup 2 as f32 through a double buffer in shared
+//     memory (16 KB each, full and free mbarriers), then dV += P^T dO;
+//     warpgroup 2 computes dP^T = V dO^T meanwhile, then dS^T = G^T o (dP^T
+//     - Dr) and dK += dS^T Q. Four products per tile, two a warpgroup, the
+//     bound's count; 226 KB of shared memory;
+//   * dq_tc256: one block per (batch * head, 64-row q tile), Q and dO
+//     resident (32 KB each), a two-stage ring of 64-row K and V tiles (64
+//     KB a stage); the two consumers take the k tiles in turn (warpgroup 1
+//     the even ones, from stage 0; warpgroup 2 the odd ones, from stage 1),
+//     each with its own f32 dQ (128 registers) over all 64 rows; at the end
+//     warpgroup 2 hands its sum to warpgroup 1 through its stage's memory,
+//     which adds it (one fixed order) and writes dQ * scale in bf16;
+//   * stats_kernel and reduce_kernel as above; the scratch is the same
+//     formula's (0.27 GB at B 1, T 8192, H 16).
+//
 // f32, and bf16 at D in {16, 32}: the scalar kernels (the port's first
 //   design), every product on the CUDA cores in f32, tiles staged in shared
 //   memory as f32, like the forward's scalar kernel; p stays f32. Three
 //   launches:
 //   * rowdot_kernel: Dr, one warp per row (a shuffle tree) into f32
 //     [B, H, S] scratch;
-//   * dkdv_kernel: one block of 256 threads per (batch, kv head, 64-row k
-//     tile), the k tiles nearest the start launched first. It loops over
-//     the G = H / KH query heads of its kv head and, for each, over the
-//     64-row q tiles that the causal mask lets see its keys, and keeps dK
-//     and dV in registers, so the sum of GQA over the G heads happens
+//   * dkdv_kernel: one block of 256 threads per (batch, kv head, k tile of
+//     R rows: 64, or 32 at D 256, whose four f32 tiles of 64 rows would
+//     need 263 KB of shared memory), the k tiles nearest the start launched
+//     first. It loops over the G = H / KH query heads of its kv head and,
+//     for each, over the q tiles that the mask lets see its keys, and keeps
+//     dK and dV in registers, so the sum of GQA over the G heads happens
 //     inside the block;
-//   * dq_kernel: one block per (batch * head, 64-row q tile), the latest
-//     (heaviest) q tiles first, over the k tiles up to the diagonal.
-//   A thread of the 64 x 64 score tile owns 4 rows and 4 columns (rows
-//   rg + 16 i, columns cg + 16 j), and the same 4 rows times D / 16 columns
-//   of each accumulator.
+//   * dq_kernel: one block per (batch * head, R-row q tile), the latest
+//     (heaviest) q tiles first, over the k tiles the mask allows.
+//   A thread of the R x R score tile owns R / 16 rows and columns (rows
+//   rg + 16 i, columns cg + 16 j), and the same rows times D / 16 columns
+//   of each accumulator. The cap by tanhf, as the forward's scalar kernel.
 //
 // Masked scores: p is 0 wherever the forward's mask (-2^30) gave exp 0:
-// keys after the query under the causal mask, and the tail rows past S or
-// T, which are read as zeros and never written. dQ, dK and dV are
-// contiguous [B, S, H, D] / [B, T, KH, D] in the input's type; q, k and v
-// are read through their strides, o and dO are contiguous. Built without
-// --fmad=false, like flash_attention.cu: f32 multiply-add chains held to
-// 1e-4 of the gradient's max (see kernels/_build.py). Allocates nothing.
+// keys after the query under the causal mask, keys window or more places
+// back, and the tail rows past S or T, which are read as zeros and never
+// written. dQ, dK and dV are contiguous [B, S, H, D] / [B, T, KH, D] in the
+// input's type; q, k and v are read through their strides, o and dO are
+// contiguous. Built without --fmad=false, like flash_attention.cu: f32
+// multiply-add chains held to 1e-4 of the gradient's max (see
+// kernels/_build.py). Allocates nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -108,9 +156,11 @@ namespace {
 
 // -- the scalar kernels: f32, and bf16 at D in {16, 32} ----------------------
 
-constexpr int kRows = 64;       // rows of a q or k tile
 constexpr int kThreads = 256;   // 16 row groups x 16 column groups
-constexpr int kPP = kRows + 1;  // pitch of a score tile in shared memory
+
+// rows of a scalar q or k tile: 64, or 32 at D 256
+template <int D>
+constexpr int kRowsOf = D == 256 ? 32 : 64;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -123,12 +173,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 // dst[r][d] (row pitch D + 1) = src[(row0 + r) * row_stride + d] as f32 for
 // r < valid, 0 for the tail rows.
-template <typename T, int D>
+template <typename T, int D, int R>
 __device__ __forceinline__ void stage_tile(float* dst, const T* src,
                                            long long row_stride, int row0,
                                            int valid) {
 #pragma unroll 4
-  for (int e = threadIdx.x; e < kRows * D; e += kThreads) {
+  for (int e = threadIdx.x; e < R * D; e += kThreads) {
     const int r = e / D, d = e % D;
     float x = 0.f;
     if (r < valid) x = to_f32(src[(long long)(row0 + r) * row_stride + d]);
@@ -136,16 +186,35 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* src,
   }
 }
 
-// row statistics of q tile [q0, q0 + 64) of head bh: lse and Dr, 0 past S
+// row statistics of q tile [q0, q0 + R) of head bh: lse and Dr, 0 past S
+template <int R>
 __device__ __forceinline__ void stage_stats(float* ls, float* ds,
                                             const float* lse,
                                             const float* dsum, long long bh,
                                             int S, int q0, int valid) {
-  if (threadIdx.x < kRows) {
+  if (threadIdx.x < R) {
     const int r = threadIdx.x;
     ls[r] = r < valid ? lse[bh * S + q0 + r] : 0.f;
     ds[r] = r < valid ? dsum[bh * S + q0 + r] : 0.f;
   }
+}
+
+// the scaled score x of a (query, key) pair as the forward's scalar kernel
+// takes it (capped: cap tanh(x / cap)), and the soft-cap's derivative
+__device__ __forceinline__ float logit_of(float x, float cap, float& dcap) {
+  if (cap > 0.f) {
+    const float t = tanhf(x / cap);
+    dcap = 1.f - t * t;
+    return t * cap;
+  }
+  dcap = 1.f;
+  return x;
+}
+
+// whether the forward's mask lets query qpos see key kpos
+__device__ __forceinline__ bool allowed(int qpos, int kpos, int causal,
+                                        int window) {
+  return !(causal && kpos > qpos) && !(window > 0 && qpos - kpos >= window);
 }
 
 // Dr[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d], one warp per row
@@ -181,102 +250,109 @@ __global__ void __launch_bounds__(kThreads)
                 T* __restrict__ dv, int B, int H, int KH, int S, int Tk,
                 long long qsb, long long qss, long long qsh, long long ksb,
                 long long kss, long long ksh, long long vsb, long long vss,
-                long long vsh, float scale, int causal) {
+                long long vsh, float scale, int causal, int window,
+                float cap) {
+  constexpr int R = kRowsOf<D>;
+  constexpr int kI = R / 16;            // rows (and columns) per thread
   constexpr int kPitch = D + 1;
+  constexpr int kPP = R + 1;            // pitch of a score tile
   constexpr int kCols = D / 16;         // accumulator columns per thread
   extern __shared__ float smem[];
-  float* ks = smem;                     // [kRows][kPitch] each
-  float* vs = ks + kRows * kPitch;
-  float* qs = vs + kRows * kPitch;
-  float* dos = qs + kRows * kPitch;
-  float* ps = dos + kRows * kPitch;     // [kRows][kPP]: P^T, then dS^T
-  float* dss = ps + kRows * kPP;
-  float* ls = dss + kRows * kPP;        // [kRows] lse, then Dr
-  float* ds = ls + kRows;
+  float* ks = smem;                     // [R][kPitch] each
+  float* vs = ks + R * kPitch;
+  float* qs = vs + R * kPitch;
+  float* dos = qs + R * kPitch;
+  float* ps = dos + R * kPitch;         // [R][kPP]: P^T, then dS^T
+  float* dss = ps + R * kPP;
+  float* ls = dss + R * kPP;            // [R] lse, then Dr
+  float* ds = ls + R;
 
   const int bkh = blockIdx.x % (B * KH);
   const int kt = blockIdx.x / (B * KH);
   const int b = bkh / KH, kh = bkh % KH;
   const int G = H / KH;
-  const int k0 = kt * kRows;
-  const int k_valid = min(kRows, Tk - k0);
-  const int nq = (S + kRows - 1) / kRows;
+  const int k0 = kt * R;
+  const int k_valid = min(R, Tk - k0);
+  const int nq = (S + R - 1) / R;
   const int rg = threadIdx.x / 16;      // key rows rg + 16 i
   const int cg = threadIdx.x % 16;      // query columns cg + 16 j
 
-  stage_tile<T, D>(ks, k + b * ksb + kh * ksh, kss, k0, k_valid);
-  stage_tile<T, D>(vs, v + b * vsb + kh * vsh, vss, k0, k_valid);
+  stage_tile<T, D, R>(ks, k + b * ksb + kh * ksh, kss, k0, k_valid);
+  stage_tile<T, D, R>(vs, v + b * vsb + kh * vsh, vss, k0, k_valid);
 
-  float adk[4][kCols], adv[4][kCols];
+  float adk[kI][kCols], adv[kI][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kI; ++i)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) adk[i][c] = adv[i][c] = 0.f;
 
-  // under the causal mask, q tile qt sees key k0 only if qt >= kt
+  // under the causal mask, q tile qt sees key k0 only if qt >= kt; under a
+  // window, only if its first row is within window - 1 of the block's last
   const int q_first = causal ? min(kt, nq) : 0;
+  const int q_end = window > 0 ? min(nq, (k0 + R - 1 + window - 1) / R + 1)
+                               : nq;
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
     const long long bh = (long long)b * H + h;
-    for (int qt = q_first; qt < nq; ++qt) {
-      const int q0 = qt * kRows;
-      const int q_valid = min(kRows, S - q0);
+    for (int qt = q_first; qt < q_end; ++qt) {
+      const int q0 = qt * R;
+      const int q_valid = min(R, S - q0);
       __syncthreads();                  // the last tile's reads are done
-      stage_tile<T, D>(qs, q + b * qsb + h * qsh, qss, q0, q_valid);
-      stage_tile<T, D>(dos, dout + ((long long)b * S * H + h) * D,
-                       (long long)H * D, q0, q_valid);
-      stage_stats(ls, ds, lse, dsum, bh, S, q0, q_valid);
+      stage_tile<T, D, R>(qs, q + b * qsb + h * qsh, qss, q0, q_valid);
+      stage_tile<T, D, R>(dos, dout + ((long long)b * S * H + h) * D,
+                          (long long)H * D, q0, q_valid);
+      stage_stats<R>(ls, ds, lse, dsum, bh, S, q0, q_valid);
       __syncthreads();
 
       // S^T = K Q^T and dP^T = V dO^T on the tile: rows keys, columns queries
-      float st[4][4], dpt[4][4];
+      float st[kI][kI], dpt[kI][kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+        for (int j = 0; j < kI; ++j) st[i][j] = dpt[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float ak[4], av[4], bq[4], bo[4];
+        float ak[kI], av[kI], bq[kI], bo[kI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kI; ++i) {
           ak[i] = ks[(rg + 16 * i) * kPitch + d];
           av[i] = vs[(rg + 16 * i) * kPitch + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kI; ++j) {
           bq[j] = qs[(cg + 16 * j) * kPitch + d];
           bo[j] = dos[(cg + 16 * j) * kPitch + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kI; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < kI; ++j) {
             st[i][j] += ak[i] * bq[j];
             dpt[i][j] += av[i] * bo[j];
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kI; ++i) {
         const int kr = rg + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kI; ++j) {
           const int qc = cg + 16 * j;
-          float p = 0.f;
+          float p = 0.f, dcap = 1.f;
           if (kr < k_valid && qc < q_valid
-              && !(causal && k0 + kr > q0 + qc))
-            p = expf(st[i][j] * scale - ls[qc]);
+              && allowed(q0 + qc, k0 + kr, causal, window))
+            p = expf(logit_of(st[i][j] * scale, cap, dcap) - ls[qc]);
           ps[kr * kPP + qc] = p;
-          dss[kr * kPP + qc] = p * (dpt[i][j] - ds[qc]);
+          dss[kr * kPP + qc] = p * (dpt[i][j] - ds[qc]) * dcap;
         }
       }
       __syncthreads();
 
-      // dV += P^T dO, dK += dS^T Q over the tile's 64 query rows
+      // dV += P^T dO, dK += dS^T Q over the tile's R query rows
 #pragma unroll 4
-      for (int t = 0; t < kRows; ++t) {
-        float pr[4], dr[4];
+      for (int t = 0; t < R; ++t) {
+        float pr[kI], dr[kI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kI; ++i) {
           pr[i] = ps[(rg + 16 * i) * kPP + t];
           dr[i] = dss[(rg + 16 * i) * kPP + t];
         }
@@ -285,7 +361,7 @@ __global__ void __launch_bounds__(kThreads)
           const float ov = dos[t * kPitch + cg + 16 * c];
           const float qv = qs[t * kPitch + cg + 16 * c];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < kI; ++i) {
             adv[i][c] += pr[i] * ov;
             adk[i][c] += dr[i] * qv;
           }
@@ -295,7 +371,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kI; ++i) {
     const int kr = rg + 16 * i;
     if (kr >= k_valid) continue;
     const long long off = (((long long)b * Tk + k0 + kr) * KH + kh) * D;
@@ -315,106 +391,113 @@ __global__ void __launch_bounds__(kThreads)
               T* __restrict__ dq, int H, int KH, int S, int Tk, int BH,
               int nq, long long qsb, long long qss, long long qsh,
               long long ksb, long long kss, long long ksh, long long vsb,
-              long long vss, long long vsh, float scale, int causal) {
+              long long vss, long long vsh, float scale, int causal,
+              int window, float cap) {
+  constexpr int R = kRowsOf<D>;
+  constexpr int kI = R / 16;
   constexpr int kPitch = D + 1;
+  constexpr int kPP = R + 1;
   constexpr int kCols = D / 16;
   extern __shared__ float smem[];
-  float* qs = smem;                     // [kRows][kPitch] each
-  float* dos = qs + kRows * kPitch;
-  float* ks = dos + kRows * kPitch;
-  float* vs = ks + kRows * kPitch;
-  float* dss = vs + kRows * kPitch;     // [kRows][kPP]: dS
-  float* ls = dss + kRows * kPP;
-  float* ds = ls + kRows;
+  float* qs = smem;                     // [R][kPitch] each
+  float* dos = qs + R * kPitch;
+  float* ks = dos + R * kPitch;
+  float* vs = ks + R * kPitch;
+  float* dss = vs + R * kPitch;         // [R][kPP]: dS
+  float* ls = dss + R * kPP;
+  float* ds = ls + R;
 
   const int bh = blockIdx.x % BH;
   const int qt = nq - 1 - blockIdx.x / BH;
   const int b = bh / H, h = bh % H;
   const int kh = h / (H / KH);
-  const int q0 = qt * kRows;
-  const int q_valid = min(kRows, S - q0);
+  const int q0 = qt * R;
+  const int q_valid = min(R, S - q0);
   const int rg = threadIdx.x / 16;      // query rows rg + 16 i
   const int cg = threadIdx.x % 16;      // key columns cg + 16 j
 
-  stage_tile<T, D>(qs, q + b * qsb + h * qsh, qss, q0, q_valid);
-  stage_tile<T, D>(dos, dout + ((long long)b * S * H + h) * D,
-                   (long long)H * D, q0, q_valid);
-  stage_stats(ls, ds, lse, dsum, bh, S, q0, q_valid);
+  stage_tile<T, D, R>(qs, q + b * qsb + h * qsh, qss, q0, q_valid);
+  stage_tile<T, D, R>(dos, dout + ((long long)b * S * H + h) * D,
+                      (long long)H * D, q0, q_valid);
+  stage_stats<R>(ls, ds, lse, dsum, bh, S, q0, q_valid);
 
-  float adq[4][kCols];
+  float adq[kI][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kI; ++i)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) adq[i][c] = 0.f;
 
-  int n_tiles = (Tk + kRows - 1) / kRows;
-  if (causal) n_tiles = min(n_tiles, (q0 + q_valid - 1) / kRows + 1);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kRows;
-    const int k_valid = min(kRows, Tk - k0);
+  int n_tiles = (Tk + R - 1) / R;
+  if (causal) n_tiles = min(n_tiles, (q0 + q_valid - 1) / R + 1);
+  // under a window, the first tile that holds row q0's first allowed key
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / R : 0;
+  for (int kt = kt0; kt < n_tiles; ++kt) {
+    const int k0 = kt * R;
+    const int k_valid = min(R, Tk - k0);
     __syncthreads();                    // the last tile's reads are done
-    stage_tile<T, D>(ks, k + b * ksb + kh * ksh, kss, k0, k_valid);
-    stage_tile<T, D>(vs, v + b * vsb + kh * vsh, vss, k0, k_valid);
+    stage_tile<T, D, R>(ks, k + b * ksb + kh * ksh, kss, k0, k_valid);
+    stage_tile<T, D, R>(vs, v + b * vsb + kh * vsh, vss, k0, k_valid);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: rows queries, columns keys
-    float s[4][4], dp[4][4];
+    float s[kI][kI], dp[kI][kI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < kI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float aq[4], ao[4], bk[4], bv[4];
+      float aq[kI], ao[kI], bk[kI], bv[kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kI; ++i) {
         aq[i] = qs[(rg + 16 * i) * kPitch + d];
         ao[i] = dos[(rg + 16 * i) * kPitch + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kI; ++j) {
         bk[j] = ks[(cg + 16 * j) * kPitch + d];
         bv[j] = vs[(cg + 16 * j) * kPitch + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kI; ++j) {
           s[i][j] += aq[i] * bk[j];
           dp[i][j] += ao[i] * bv[j];
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kI; ++i) {
       const int qr = rg + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kI; ++j) {
         const int kc = cg + 16 * j;
-        float p = 0.f;
-        if (qr < q_valid && kc < k_valid && !(causal && k0 + kc > q0 + qr))
-          p = expf(s[i][j] * scale - ls[qr]);
-        dss[qr * kPP + kc] = p * (dp[i][j] - ds[qr]);
+        float p = 0.f, dcap = 1.f;
+        if (qr < q_valid && kc < k_valid
+            && allowed(q0 + qr, k0 + kc, causal, window))
+          p = expf(logit_of(s[i][j] * scale, cap, dcap) - ls[qr]);
+        dss[qr * kPP + kc] = p * (dp[i][j] - ds[qr]) * dcap;
       }
     }
     __syncthreads();
 
-    // dQ += dS K over the tile's 64 keys
+    // dQ += dS K over the tile's R keys
 #pragma unroll 4
-    for (int t = 0; t < kRows; ++t) {
-      float dr[4];
+    for (int t = 0; t < R; ++t) {
+      float dr[kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dr[i] = dss[(rg + 16 * i) * kPP + t];
+      for (int i = 0; i < kI; ++i) dr[i] = dss[(rg + 16 * i) * kPP + t];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const float kv = ks[t * kPitch + cg + 16 * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) adq[i][c] += dr[i] * kv;
+        for (int i = 0; i < kI; ++i) adq[i][c] += dr[i] * kv;
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kI; ++i) {
     const int qr = rg + 16 * i;
     if (qr >= q_valid) continue;
     T* out = dq + (((long long)b * S + q0 + qr) * H + h) * D;
@@ -428,7 +511,9 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq,
            void* dk, void* dv, int B, int H, int KH, int S, int Tk,
-           const long long* st, int causal, cudaStream_t stream) {
+           const long long* st, int causal, int window, float cap,
+           cudaStream_t stream) {
+  constexpr int R = kRowsOf<D>;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -442,31 +527,31 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return (int)err;
 
   const float scale = (float)(1.0 / std::sqrt((double)D));  // as the forward
-  const size_t smem = sizeof(float) * (4 * kRows * (D + 1) + 2 * kRows * kPP
-                                       + 2 * kRows);
+  const size_t smem = sizeof(float) * (4 * R * (D + 1) + 2 * R * (R + 1)
+                                       + 2 * R);
   err = cudaFuncSetAttribute(dkdv_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int nk = (Tk + kRows - 1) / kRows;
+  const int nk = (Tk + R - 1) / R;
   dkdv_kernel<T, D><<<nk * B * KH, kThreads, smem, stream>>>(
       qp, kp, vp, dop, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
       B, H, KH, S, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], scale, causal);
+      st[7], st[8], scale, causal, window, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_q = sizeof(float) * (4 * kRows * (D + 1) + kRows * kPP
-                                         + 2 * kRows);
+  const size_t smem_q = sizeof(float) * (4 * R * (D + 1) + R * (R + 1)
+                                         + 2 * R);
   err = cudaFuncSetAttribute(dq_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_q);
   if (err != cudaSuccess) return (int)err;
-  const int nq = (S + kRows - 1) / kRows;
+  const int nq = (S + R - 1) / R;
   dq_kernel<T, D><<<nq * B * H, kThreads, smem_q, stream>>>(
       qp, kp, vp, dop, lse, dsum, static_cast<T*>(dq), H, KH, S, Tk, B * H,
       nq, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      scale, causal);
+      scale, causal, window, cap);
   return (int)cudaGetLastError();
 }
 
@@ -474,22 +559,24 @@ template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, float* dsum,
              void* dq, void* dk, void* dv, int B, int H, int KH, int S,
-             int Tk, const long long* st, int causal, cudaStream_t stream) {
+             int Tk, const long long* st, int causal, int window, float cap,
+             cudaStream_t stream) {
 #define FAB_CASE(DD)                                                       \
   case DD:                                                                 \
     return launch<T, DD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, H,    \
-                         KH, S, Tk, st, causal, stream);
+                         KH, S, Tk, st, causal, window, cap, stream);
   switch (D) {
     FAB_CASE(16)
     FAB_CASE(32)
     default:
       break;
   }
-  // bf16 at D 64 and 128 takes the tensor-core kernels (tc::launch)
+  // bf16 at D 64, 128 and 256 takes the tensor-core kernels (tc::launch)
   if constexpr (sizeof(T) == sizeof(float)) {
     switch (D) {
       FAB_CASE(64)
       FAB_CASE(128)
+      FAB_CASE(256)
       default:
         break;
     }
@@ -511,6 +598,58 @@ constexpr int kStagesQ = 2;     // dq_tc: ring depth
 constexpr int kPadRows = 128;   // statistics rows padded to a multiple
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kPadLse = 1073741824.0f;   // 2^30: p = 0 on the pad rows
+
+// The window and cap of a kMod instantiation: win the window (2^30 for
+// none), cap_on whether the call is capped, scale_cap = 1 / (sqrt(D) cap)
+// and cap_log2 = cap log2(e), as the forward's.
+struct Mod {
+  int win, cap_on;
+  float scale_cap, cap_log2;
+};
+
+// The forward's capped logit in log2 units, cap log2(e) tanh(s scale_cap),
+// with the same operations as its tanh_f32 (t = 1 - u, u = 2 / (2^(2 y
+// log2 e) + 1)), and the cap's derivative 1 - t^2 = u (2 - u).
+__device__ __forceinline__ float capped(float s, const Mod& m, float& dcap) {
+  const float u = 2.f / (ex2(s * m.scale_cap * 2.8853900817779268f) + 1.f);
+  dcap = u * (2.f - u);
+  return m.cap_log2 * (1.f - u);
+}
+
+// p = 2^(logit - l2) at a raw score s of Q K^T, and g the cap's derivative
+// (1 uncapped); without kMod, or uncapped, the logit is s scale log2(e)
+template <bool kMod>
+__device__ __forceinline__ float prob(float s, float l2, float scale_log2,
+                                      const Mod& m, float& g) {
+  if (kMod && m.cap_on) return ex2(capped(s, m, g) - l2);   // uniform
+  g = 1.f;
+  return ex2(fmaf(s, scale_log2, -l2));
+}
+
+// whether the forward's mask hides key kp from query qp (under kMod also
+// the window, 2^30 for none)
+template <bool kMod>
+__device__ __forceinline__ bool hidden(int qp, int kp, int causal,
+                                       const Mod& m) {
+  return (causal && kp > qp) || (kMod && qp - kp >= m.win);
+}
+
+// A tile of queries [q_lo, q_hi] and keys [k_lo, k_hi]: whether the mask
+// allows some pair of it (a key at or before a query and, under kMod,
+// within the window), and whether it hides some pair (the tile crosses
+// the diagonal or the window's left edge, and takes the masked loop).
+template <bool kMod>
+__device__ __forceinline__ bool tile_live(int q_lo, int q_hi, int k_lo,
+                                          int k_hi, int causal,
+                                          const Mod& m) {
+  return !(causal && k_lo > q_hi) && !(kMod && q_lo - k_hi >= m.win);
+}
+template <bool kMod>
+__device__ __forceinline__ bool tile_edge(int q_lo, int q_hi, int k_lo,
+                                          int k_hi, int causal,
+                                          const Mod& m) {
+  return (causal && k_hi > q_lo) || (kMod && q_hi - k_lo >= m.win);
+}
 
 // lse2[bh, s] = lse[bh, s] log2(e) and dr[bh, s] = sum_d dO O at row s of
 // head bh, for s < S; pad rows S <= s < Sp get 2^30 and 0. One warp a row.
@@ -561,7 +700,7 @@ struct DkdvLayout {
                                + kStagesKV * 2 * kStats + 8 * kBars + 1024;
 };
 
-template <int D>
+template <int D, bool kMod>
 __global__ void __launch_bounds__(kThreads, 1)
     dkdv_tc(const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv,
@@ -570,7 +709,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const float* __restrict__ lse2, const float* __restrict__ dr,
             float* __restrict__ dk_part, float* __restrict__ dv_part, int H,
             int KH, int S, int Tk, int Sp, int BH, float scale_log2,
-            int causal) {
+            int causal, Mod mod) {
   using L = DkdvLayout<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -593,7 +732,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   // under the causal mask, q tile qt sees a key of [k0, k0 + kKV) only if
   // qt * kQT + kQT - 1 >= k0
   const int qt_first = causal ? min(k0 / kQT, nq) : 0;
-  const int n_iter = nq - qt_first;
+  // under a window, only if its first row is within window - 1 of the last
+  // (so never below qt_first)
+  const int qt_end =
+      kMod ? min(nq, (k0 + kKV - 1 + mod.win - 1) / kQT + 1) : nq;
+  const int n_iter = qt_end - qt_first;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStagesKV; ++s) {
@@ -660,8 +803,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t sq = ring + s * 2 * L::kTileQ, sdo = sq + L::kTileQ;
     mbar_wait(bars + 8 * s, (it / kStagesKV) & 1);
     // under the causal mask a slab whose keys all come after the tile's
-    // last query gets p = 0 from the whole tile
-    if (!causal || q0 + kQT - 1 >= ks0) {
+    // last query gets p = 0 from the whole tile; under a window, so does
+    // one whose keys all lie window or more places before its first query
+    if (tile_live<kMod>(q0, q0 + kQT - 1, ks0, ks0 + 63, causal,
+                        mod)) {
       // S^T = K Q^T, dP^T = V dO^T: D / 16 steps of k16 each
       float st[kQT / 2], dpt[kQT / 2];
       wgmma_fence();
@@ -688,23 +833,31 @@ __global__ void __launch_bounds__(kThreads, 1)
       // columns' statistics from the stage
       const float* ls = stats_p + s * 2 * kQT;
       const float* ds = ls + kQT;
-      const bool mask = causal && ks0 + 63 > q0;      // crosses the diagonal
+      const bool mask =
+          tile_edge<kMod>(q0, q0 + kQT - 1, ks0, ks0 + 63, causal, mod);
       uint32_t pa[kQT / 16][4], da[kQT / 16][4];      // A fragments
 #pragma unroll
       for (int i = 0; i < kQT / 2; i += 2) {
         const int col = 8 * (i / 4) + cq;
         const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
         const float2 d2 = *reinterpret_cast<const float2*>(ds + col);
-        float p0 = ex2(fmaf(st[i], scale_log2, -l2.x));
-        float p1 = ex2(fmaf(st[i + 1], scale_log2, -l2.y));
+        float g0, g1;                         // the cap's derivative
+        float p0 = prob<kMod>(st[i], l2.x, scale_log2, mod, g0);
+        float p1 = prob<kMod>(st[i + 1], l2.y, scale_log2, mod, g1);
         if (mask) {
           const int kp = krow0 + 8 * ((i / 2) % 2);
-          if (kp > q0 + col) p0 = 0.f;
-          if (kp > q0 + col + 1) p1 = 0.f;
+          // (without kMod a masked tile is a causal one; this form keeps
+          // that instantiation's code as fast as before the flag)
+          if (kMod ? hidden<true>(q0 + col, kp, causal, mod)
+                   : kp > q0 + col)
+            p0 = 0.f;
+          if (kMod ? hidden<true>(q0 + col + 1, kp, causal, mod)
+                   : kp > q0 + col + 1)
+            p1 = 0.f;
         }
         pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
-        da[i / 8][(i % 8) / 2] =
-            pack_bf16(p0 * (dpt[i] - d2.x), p1 * (dpt[i + 1] - d2.y));
+        da[i / 8][(i % 8) / 2] = pack_bf16(p0 * (dpt[i] - d2.x) * g0,
+                                           p1 * (dpt[i + 1] - d2.y) * g1);
       }
 
       // dV += P^T dO, dK += dS^T Q: kQT / 16 steps of k16; step kk reads
@@ -753,7 +906,7 @@ struct DqLayout {
                                + 1024;
 };
 
-template <int D>
+template <int D, bool kMod>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_tc(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tdo,
@@ -762,7 +915,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float* __restrict__ lse2, const float* __restrict__ dr,
           __nv_bfloat16* __restrict__ dq, int H, int KH, int S, int Tk,
           int Sp, int BH, int nq, float scale_log2, float scale,
-          int causal) {
+          int causal, Mod mod) {
   using L = DqLayout<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -780,6 +933,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = qt * kQB;
   int n_tiles = (Tk + kKT - 1) / kKT;
   if (causal) n_tiles = min(n_tiles, (min(S, q0 + kQB) - 1) / kKT + 1);
+  // under a window, the first tile that holds row q0's first allowed key
+  int kt0 = 0;
+  if constexpr (kMod) kt0 = max(0, q0 - mod.win + 1) / kKT;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStagesQ; ++s) {
@@ -800,11 +956,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_load(sq + c * kQB * kRowBytes, &tq, c * kBox, h, q0, b, q_full);
         tma_load(sdo + c * kQB * kRowBytes, &tdo, c * kBox, h, q0, b, q_full);
       }
-      for (int kt = 0; kt < n_tiles; ++kt) {
-        const int s = kt % kStagesQ;
+      for (int kt = kt0; kt < n_tiles; ++kt) {
+        const int it = kt - kt0;                      // the ring's count
+        const int s = it % kStagesQ;
         const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
         const uint32_t full = bars + 8 * s;
-        mbar_wait(bars + 8 * (kStagesQ + s), ((kt / kStagesQ) & 1) ^ 1);
+        mbar_wait(bars + 8 * (kStagesQ + s), ((it / kStagesQ) & 1) ^ 1);
         mbar_expect_tx(full, 2 * L::kTile);
         for (int c = 0; c < D / kBox; ++c) {
           tma_load(sk + c * kKT * kRowBytes, &tk, c * kBox, kh, kt * kKT, b,
@@ -837,13 +994,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(q_full, 0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int s = kt % kStagesQ;
+  for (int kt = kt0; kt < n_tiles; ++kt) {
+    const int it = kt - kt0;
+    const int s = it % kStagesQ;
     const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
     const int k0 = kt * kKT;
-    mbar_wait(bars + 8 * s, (kt / kStagesQ) & 1);
-    // a tile wholly after the slab's last query is skipped
-    if (!causal || k0 <= qs0 + 63) {
+    mbar_wait(bars + 8 * s, (it / kStagesQ) & 1);
+    // a tile wholly after the slab's last query is skipped, and under a
+    // window one wholly window or more places before its first
+    if (tile_live<kMod>(qs0, qs0 + 63, k0, k0 + kKT - 1, causal,
+                        mod)) {
       // S = Q K^T, dP = dO V^T
       float sc[kKT / 2], dp[kKT / 2];
       wgmma_fence();
@@ -867,24 +1027,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(dp);
 
       // dS on the accumulators; the mask only where the tile crosses the
-      // tail of T (keys read as zeros there, but p could overflow) or the
-      // slab's diagonal
-      const bool mask = k0 + kKT > Tk || (causal && k0 + kKT - 1 > qs0);
+      // tail of T (keys read as zeros there, but p could overflow), the
+      // slab's diagonal or its window's left edge
+      const bool mask = k0 + kKT > Tk
+          || tile_edge<kMod>(qs0, qs0 + 63, k0, k0 + kKT - 1, causal, mod);
       uint32_t da[kKT / 16][4];
 #pragma unroll
       for (int i = 0; i < kKT / 2; i += 2) {
         const bool hi = (i / 2) % 2;
         const float l2 = hi ? l21 : l20, d2 = hi ? dr1 : dr0;
-        float p0 = ex2(fmaf(sc[i], scale_log2, -l2));
-        float p1 = ex2(fmaf(sc[i + 1], scale_log2, -l2));
+        float g0, g1;                         // the cap's derivative
+        float p0 = prob<kMod>(sc[i], l2, scale_log2, mod, g0);
+        float p1 = prob<kMod>(sc[i + 1], l2, scale_log2, mod, g1);
         if (mask) {
           const int kp = k0 + 8 * (i / 4) + cq;
           const int qp = row0 + 8 * hi;
-          if (kp >= Tk || (causal && kp > qp)) p0 = 0.f;
-          if (kp + 1 >= Tk || (causal && kp + 1 > qp)) p1 = 0.f;
+          if (kp >= Tk || hidden<kMod>(qp, kp, causal, mod)) p0 = 0.f;
+          if (kp + 1 >= Tk || hidden<kMod>(qp, kp + 1, causal, mod))
+            p1 = 0.f;
         }
-        da[i / 8][(i % 8) / 2] =
-            pack_bf16(p0 * (dp[i] - d2), p1 * (dp[i + 1] - d2));
+        da[i / 8][(i % 8) / 2] = pack_bf16(p0 * (dp[i] - d2) * g0,
+                                           p1 * (dp[i + 1] - d2) * g1);
       }
 
       // dQ += dS K: kKT / 16 steps of k16; step kk reads K rows 16 kk ..
@@ -902,6 +1065,364 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // epilogue: dQ / sqrt(D) in bf16; tail rows are not written
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= S) continue;
+    __nv_bfloat16* op = dq + (((long long)b * S + row) * H + h) * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
+  }
+}
+
+// -- the tensor-core kernels at D 256 ----------------------------------------
+constexpr int kR256 = 64;       // rows of every tile and block at D 256
+
+struct Layout256 {
+  static constexpr int kTile = kR256 * 256 * 2;   // 32 KB: 4 boxes of 64 rows
+  static constexpr int kStats = kR256 * 4;        // lse2 or Dr of a stage
+  static constexpr int kGBuf = 64 * 64 * 4;       // G^T of a q tile, f32
+  // dkdv: K, V, 2 stages of Q and dO, their statistics, two G^T buffers;
+  // barriers full [2], empty [2], K and V, G full [2], G free [2]
+  static constexpr int kSmemKV = 2 * kTile + 2 * 2 * kTile + 2 * 2 * kStats
+                                 + 2 * kGBuf + 8 * 9 + 1024;
+  // dq: Q, dO, 2 stages of K and V; barriers full [2], empty [2], Q and dO
+  static constexpr int kSmemQ = 2 * kTile + 2 * 2 * kTile + 8 * 5 + 1024;
+};
+static_assert(Layout256::kSmemKV <= 232448, "dkdv_tc256 shared memory");
+
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_tc256(const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse2, const float* __restrict__ dr,
+               float* __restrict__ dk_part, float* __restrict__ dv_part,
+               int H, int KH, int S, int Tk, int Sp, int BH,
+               float scale_log2, int causal, Mod mod) {
+  constexpr int D = 256, R = kR256;
+  using L = Layout256;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sk = (raw + 1023) & ~1023u;          // K, V, then the ring
+  const uint32_t sv = sk + L::kTile;
+  const uint32_t ring = sv + L::kTile;                // stage s: Q, then dO
+  const uint32_t stats = ring + 2 * 2 * L::kTile;     // s: lse2, Dr
+  const uint32_t gbuf = stats + 2 * 2 * L::kStats;    // G^T [2]
+  const uint32_t bars = gbuf + 2 * L::kGBuf;
+  const uint32_t kv_full = bars + 8 * 4;
+  const uint32_t g_full = bars + 8 * 5, g_free = bars + 8 * 7;
+  const float* stats_p =
+      reinterpret_cast<const float*>(smem_raw + (stats - raw));
+  float* gbuf_p = reinterpret_cast<float*>(smem_raw + (gbuf - raw));
+
+  const int bh = blockIdx.x % BH;
+  const int kt = blockIdx.x / BH;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / KH);
+  const int k0 = kt * R;
+  const int nq = (S + R - 1) / R;
+  // the q tiles that see a key of [k0, k0 + R): from the diagonal's under
+  // the causal mask, up to the window's reach under a window; each has an
+  // allowed pair, so no tile is skipped
+  const int qt_first = causal ? min(k0 / R, nq) : 0;
+  const int qt_end = min(nq, (k0 + R - 1 + mod.win - 1) / R + 1);
+  const int n_iter = max(0, qt_end - qt_first);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bars + 8 * s, 1);                     // producer's arrive
+      mbar_init(bars + 8 * (2 + s), 2 * 128);         // both consumers
+      mbar_init(g_full + 8 * s, 128);                 // warpgroup 1
+      mbar_init(g_free + 8 * s, 128);                 // warpgroup 2
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kTile);
+      for (int c = 0; c < D / kBox; ++c) {
+        tma_load(sk + c * R * kRowBytes, &tk, c * kBox, kh, k0, b, kv_full);
+        tma_load(sv + c * R * kRowBytes, &tv, c * kBox, kh, k0, b, kv_full);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % 2;
+        const int q0 = (qt_first + it) * R;
+        const uint32_t sq = ring + s * 2 * L::kTile, sdo = sq + L::kTile;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (2 + s), ((it / 2) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kTile + 2 * L::kStats);
+        for (int c = 0; c < D / kBox; ++c) {
+          tma_load(sq + c * R * kRowBytes, &tq, c * kBox, h, q0, b, full);
+          tma_load(sdo + c * R * kRowBytes, &tdo, c * kBox, h, q0, b, full);
+        }
+        const long long st = (long long)bh * Sp + q0;
+        bulk_load(stats + s * 2 * L::kStats, lse2 + st, L::kStats, full);
+        bulk_load(stats + s * 2 * L::kStats + L::kStats, dr + st, L::kStats,
+                  full);
+      }
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup 1 P^T and dV, warpgroup 2 dS^T and dK -----------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int r = (t / 32) * 16 + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const int krow0 = k0 + r;                           // krow1 = krow0 + 8
+
+  float acc[D / 2];                                   // dV, or dK
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % 2;
+    const uint32_t ph = (it / 2) & 1;
+    const int q0 = (qt_first + it) * R;
+    const uint32_t sq = ring + s * 2 * L::kTile, sdo = sq + L::kTile;
+    const float* ls = stats_p + s * 2 * R;
+    float* gp = gbuf_p + s * 64 * 64;      // G^T [32][128 threads] of tile
+    mbar_wait(bars + 8 * s, ph);
+    float x[R / 2];                        // S^T, or dP^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * R * kRowBytes + (kk % 4) * 32;
+      wgmma_ss<R>(x, desc((cw ? sv : sk) + off, 16, 1024),
+                  desc((cw ? sdo : sq) + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(x);
+    uint32_t a[R / 16][4];                 // P^T, or dS^T: the A fragments
+    if (cw == 0) {
+      // P^T = 2^(logit - lse2) on the accumulators, rows keys, columns
+      // queries; G^T = P^T (1 - t^2) (P^T uncapped) to warpgroup 2
+      const bool mask =
+          tile_edge<true>(q0, q0 + R - 1, k0, k0 + R - 1, causal, mod);
+      mbar_wait(g_free + 8 * s, ph ^ 1);
+#pragma unroll
+      for (int i = 0; i < R / 2; i += 2) {
+        const int col = 8 * (i / 4) + cq;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        float g0, g1;
+        float p0 = prob<true>(x[i], l2.x, scale_log2, mod, g0);
+        float p1 = prob<true>(x[i + 1], l2.y, scale_log2, mod, g1);
+        if (mask) {
+          const int kp = krow0 + 8 * ((i / 2) % 2);
+          if (hidden<true>(q0 + col, kp, causal, mod)) p0 = 0.f;
+          if (hidden<true>(q0 + col + 1, kp, causal, mod)) p1 = 0.f;
+        }
+        a[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+        gp[i * 128 + t] = p0 * g0;
+        gp[(i + 1) * 128 + t] = p1 * g1;
+      }
+      mbar_arrive(g_full + 8 * s);
+    } else {
+      // dS^T = G^T o (dP^T - Dr), from warpgroup 1's G^T
+      const float* ds = ls + R;
+      mbar_wait(g_full + 8 * s, ph);
+#pragma unroll
+      for (int i = 0; i < R / 2; i += 2) {
+        const int col = 8 * (i / 4) + cq;
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + col);
+        a[i / 8][(i % 8) / 2] = pack_bf16(gp[i * 128 + t] * (x[i] - d2.x),
+                                          gp[(i + 1) * 128 + t]
+                                              * (x[i + 1] - d2.y));
+      }
+      mbar_arrive(g_free + 8 * s);
+    }
+
+    // dV += P^T dO, or dK += dS^T Q: R / 16 steps of k16, the stage's dO or
+    // Q read MN-major
+    const uint32_t bsrc = cw ? sq : sdo;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+      wgmma_rs<D>(acc, a[kk],
+                  desc(bsrc + kk * 16 * kRowBytes, R * kRowBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bars + 8 * (2 + s));                  // stage s is free
+  }
+
+  // epilogue: this head's partial, f32, rows past T not written
+  float* part = cw ? dk_part : dv_part;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = krow0 + 8 * half;
+    if (row >= Tk) continue;
+    const long long off = (((long long)b * Tk + row) * H + h) * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(part + off + 8 * j) =
+          make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_tc256(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tdo,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const float* __restrict__ lse2, const float* __restrict__ dr,
+             __nv_bfloat16* __restrict__ dq, int H, int KH, int S, int Tk,
+             int Sp, int BH, int nq, float scale_log2, float scale,
+             int causal, Mod mod) {
+  constexpr int D = 256, R = kR256;
+  using L = Layout256;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;          // Q, dO, then the ring
+  const uint32_t sdo = sq + L::kTile;
+  const uint32_t ring = sdo + L::kTile;               // stage s: K, then V
+  const uint32_t bars = ring + 2 * 2 * L::kTile;
+  const uint32_t q_full = bars + 8 * 4;
+
+  const int bh = blockIdx.x % BH;
+  const int qt = nq - 1 - blockIdx.x / BH;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / KH);
+  const int q0 = qt * R;
+  int n_tiles = (Tk + R - 1) / R;
+  if (causal) n_tiles = min(n_tiles, (min(S, q0 + R) - 1) / R + 1);
+  const int kt0 = max(0, q0 - mod.win + 1) / R;
+  const int n_iter = max(0, n_tiles - kt0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (2 + s), 128);   // stage s: consumer s alone
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * L::kTile);
+      for (int c = 0; c < D / kBox; ++c) {
+        tma_load(sq + c * R * kRowBytes, &tq, c * kBox, h, q0, b, q_full);
+        tma_load(sdo + c * R * kRowBytes, &tdo, c * kBox, h, q0, b, q_full);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % 2;
+        const int k0 = (kt0 + it) * R;
+        const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (2 + s), ((it / 2) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kTile);
+        for (int c = 0; c < D / kBox; ++c) {
+          tma_load(sk + c * R * kRowBytes, &tk, c * kBox, kh, k0, b, full);
+          tma_load(sv + c * R * kRowBytes, &tv, c * kBox, kh, k0, b, full);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- consumers: the k tiles in turn, each over all 64 q rows ------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int r = (t / 32) * 16 + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const int row0 = q0 + r;                            // row1 = row0 + 8
+  const long long st0 = (long long)bh * Sp + row0;    // never past the pad
+  const float l20 = lse2[st0], l21 = lse2[st0 + 8];
+  const float dr0 = dr[st0], dr1 = dr[st0 + 8];
+  const uint32_t sk = ring + cw * 2 * L::kTile, sv = sk + L::kTile;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int it = cw; it < n_iter; it += 2) {
+    const int k0 = (kt0 + it) * R;
+    mbar_wait(bars + 8 * cw, (it / 2) & 1);
+    // S = Q K^T, dP = dO V^T
+    float sc[R / 2], dp[R / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * R * kRowBytes + (kk % 4) * 32;
+      wgmma_ss<R>(sc, desc(sq + off, 16, 1024), desc(sk + off, 16, 1024),
+                  kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * R * kRowBytes + (kk % 4) * 32;
+      wgmma_ss<R>(dp, desc(sdo + off, 16, 1024), desc(sv + off, 16, 1024),
+                  kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS on the accumulators, masked where the tile crosses the tail of T,
+    // the diagonal or the window's left edge
+    const bool mask = k0 + R > Tk
+        || tile_edge<true>(q0, q0 + R - 1, k0, k0 + R - 1, causal, mod);
+    uint32_t da[R / 16][4];
+#pragma unroll
+    for (int i = 0; i < R / 2; i += 2) {
+      const bool hi = (i / 2) % 2;
+      const float l2 = hi ? l21 : l20, d2 = hi ? dr1 : dr0;
+      float g0, g1;
+      float p0 = prob<true>(sc[i], l2, scale_log2, mod, g0);
+      float p1 = prob<true>(sc[i + 1], l2, scale_log2, mod, g1);
+      if (mask) {
+        const int kp = k0 + 8 * (i / 4) + cq;
+        const int qp = row0 + 8 * hi;
+        if (kp >= Tk || hidden<true>(qp, kp, causal, mod)) p0 = 0.f;
+        if (kp + 1 >= Tk || hidden<true>(qp, kp + 1, causal, mod)) p1 = 0.f;
+      }
+      da[i / 8][(i % 8) / 2] = pack_bf16(p0 * (dp[i] - d2) * g0,
+                                         p1 * (dp[i + 1] - d2) * g1);
+    }
+
+    // dQ += dS K: R / 16 steps of k16, K read MN-major
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+      wgmma_rs<D>(acc, da[kk],
+                  desc(sk + kk * 16 * kRowBytes, R * kRowBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bars + 8 * (2 + cw));                 // stage cw is free
+  }
+
+  // warpgroup 2 hands its sum to warpgroup 1 through stage 1's memory (no
+  // copy lands there any more: its last tile was warpgroup 2's), which adds
+  // it and writes dQ / sqrt(D) in bf16; tail rows are not written
+  float* xp = reinterpret_cast<float*>(smem_raw + (ring + 2 * L::kTile - raw));
+  if (cw == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) xp[i * 128 + t] = acc[i];
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  if (cw == 1) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] += xp[i * 128 + t];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
@@ -954,62 +1475,99 @@ long long work_floats(int B, int H, int S, int Tk, int D) {
   return 2LL * B * H * Sp + 2LL * B * Tk * H * D;
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* work, void* dq,
-           void* dk, void* dv, int B, int H, int KH, int S, int Tk,
-           const long long* st, int causal, cudaStream_t stream) {
+// The kernels' shared arguments at one call.
+struct Call {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* work;
+  void *dq, *dk, *dv;
+  int B, H, KH, S, Tk;
+  const long long* st;
+  int causal;
+};
+
+template <int D, bool kMod>
+int run(const Call& c, const Mod& mod, cudaStream_t stream) {
+  const int B = c.B, H = c.H, KH = c.KH, S = c.S, Tk = c.Tk;
+  const long long* st = c.st;
   const int Sp = (S + kPadRows - 1) / kPadRows * kPadRows;
   const int BH = B * H;
-  float* lse2 = work;
+  float* lse2 = c.work;
   float* dr = lse2 + (long long)BH * Sp;
   float* dk_part = dr + (long long)BH * Sp;
   float* dv_part = dk_part + (long long)B * Tk * H * D;
-  const auto* o16 = static_cast<const __nv_bfloat16*>(o);
-  const auto* do16 = static_cast<const __nv_bfloat16*>(dout);
+  const auto* o16 = static_cast<const __nv_bfloat16*>(c.o);
+  const auto* do16 = static_cast<const __nv_bfloat16*>(c.dout);
 
   const long long rows = (long long)BH * Sp;
   stats_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      o16, do16, lse, lse2, dr, rows, H, S, Sp, D);
+      o16, do16, c.lse, lse2, dr, rows, H, S, Sp, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   // dO is contiguous [B, S, H, D]
   const long long dsb = (long long)S * H * D, dss = (long long)H * D;
-  CUtensorMap tk, tv, tq, tdo;
-  if (!make_map(&tk, k, D, KH, Tk, B, st[3], st[4], st[5], kKV)
-      || !make_map(&tv, v, D, KH, Tk, B, st[6], st[7], st[8], kKV)
-      || !make_map(&tq, q, D, H, S, B, st[0], st[1], st[2], kQT)
-      || !make_map(&tdo, dout, D, H, S, B, dsb, dss, D, kQT))
-    return (int)cudaErrorInvalidValue;
   // 1 / sqrt(D) as the forward, times log2(e) for ex2
   const double scale = 1.0 / std::sqrt((double)D);
   const float scale_log2 = (float)(scale * 1.4426950408889634);
-  err = cudaFuncSetAttribute(dkdv_tc<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             DkdvLayout<D>::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int nk = (Tk + kKV - 1) / kKV;
-  dkdv_tc<D><<<nk * BH, kThreads, DkdvLayout<D>::kSmem, stream>>>(
-      tk, tv, tq, tdo, lse2, dr, dk_part, dv_part, H, KH, S, Tk, Sp, BH,
-      scale_log2, causal);
+  // rows of each map's box: the k block and q tile of dkdv, then the q
+  // block and k tile of dq (all 64 at D 256)
+  constexpr int kKVr = D == 256 ? kR256 : kKV;
+  constexpr int kQTr = D == 256 ? kR256 : kQT;
+  constexpr int kQBr = D == 256 ? kR256 : kQB;
+  constexpr int kKTr = D == 256 ? kR256 : kKT;
+  CUtensorMap tk, tv, tq, tdo;
+  if (!make_map(&tk, c.k, D, KH, Tk, B, st[3], st[4], st[5], kKVr)
+      || !make_map(&tv, c.v, D, KH, Tk, B, st[6], st[7], st[8], kKVr)
+      || !make_map(&tq, c.q, D, H, S, B, st[0], st[1], st[2], kQTr)
+      || !make_map(&tdo, c.dout, D, H, S, B, dsb, dss, D, kQTr))
+    return (int)cudaErrorInvalidValue;
+  const int nk = (Tk + kKVr - 1) / kKVr;
+  if constexpr (D == 256) {
+    err = cudaFuncSetAttribute(dkdv_tc256,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Layout256::kSmemKV);
+    if (err != cudaSuccess) return (int)err;
+    dkdv_tc256<<<nk * BH, kThreads, Layout256::kSmemKV, stream>>>(
+        tk, tv, tq, tdo, lse2, dr, dk_part, dv_part, H, KH, S, Tk, Sp, BH,
+        scale_log2, c.causal, mod);
+  } else {
+    err = cudaFuncSetAttribute(dkdv_tc<D, kMod>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DkdvLayout<D>::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    dkdv_tc<D, kMod><<<nk * BH, kThreads, DkdvLayout<D>::kSmem, stream>>>(
+        tk, tv, tq, tdo, lse2, dr, dk_part, dv_part, H, KH, S, Tk, Sp, BH,
+        scale_log2, c.causal, mod);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   CUtensorMap tq2, tdo2, tk2, tv2;
-  if (!make_map(&tq2, q, D, H, S, B, st[0], st[1], st[2], kQB)
-      || !make_map(&tdo2, dout, D, H, S, B, dsb, dss, D, kQB)
-      || !make_map(&tk2, k, D, KH, Tk, B, st[3], st[4], st[5], kKT)
-      || !make_map(&tv2, v, D, KH, Tk, B, st[6], st[7], st[8], kKT))
+  if (!make_map(&tq2, c.q, D, H, S, B, st[0], st[1], st[2], kQBr)
+      || !make_map(&tdo2, c.dout, D, H, S, B, dsb, dss, D, kQBr)
+      || !make_map(&tk2, c.k, D, KH, Tk, B, st[3], st[4], st[5], kKTr)
+      || !make_map(&tv2, c.v, D, KH, Tk, B, st[6], st[7], st[8], kKTr))
     return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(dq_tc<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             DqLayout<D>::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int nq = (S + kQB - 1) / kQB;
-  dq_tc<D><<<nq * BH, kThreads, DqLayout<D>::kSmem, stream>>>(
-      tq2, tdo2, tk2, tv2, lse2, dr, static_cast<__nv_bfloat16*>(dq), H, KH,
-      S, Tk, Sp, BH, nq, scale_log2, (float)scale, causal);
+  const int nq = (S + kQBr - 1) / kQBr;
+  auto* dq16 = static_cast<__nv_bfloat16*>(c.dq);
+  if constexpr (D == 256) {
+    err = cudaFuncSetAttribute(dq_tc256,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Layout256::kSmemQ);
+    if (err != cudaSuccess) return (int)err;
+    dq_tc256<<<nq * BH, kThreads, Layout256::kSmemQ, stream>>>(
+        tq2, tdo2, tk2, tv2, lse2, dr, dq16, H, KH, S, Tk, Sp, BH, nq,
+        scale_log2, (float)scale, c.causal, mod);
+  } else {
+    err = cudaFuncSetAttribute(dq_tc<D, kMod>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DqLayout<D>::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    dq_tc<D, kMod><<<nq * BH, kThreads, DqLayout<D>::kSmem, stream>>>(
+        tq2, tdo2, tk2, tv2, lse2, dr, dq16, H, KH, S, Tk, Sp, BH, nq,
+        scale_log2, (float)scale, c.causal, mod);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1017,9 +1575,25 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const unsigned blocks = (unsigned)std::min<long long>((n4 + 255) / 256,
                                                         4096);
   reduce_kernel<<<dim3(blocks, 2), 256, 0, stream>>>(
-      dk_part, dv_part, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), n4, H / KH, D, (float)scale);
+      dk_part, dv_part, static_cast<__nv_bfloat16*>(c.dk),
+      static_cast<__nv_bfloat16*>(c.dv), n4, H / KH, D, (float)scale);
   return (int)cudaGetLastError();
+}
+
+// the kMod instantiation when the call has a window or a soft-cap, and at
+// D 256 always (its kernels have no other)
+template <int D>
+int launch(const Call& c, int window, float cap, cudaStream_t stream) {
+  const double scale = 1.0 / std::sqrt((double)D);
+  const Mod mod{window > 0 ? window : 1 << 30, cap > 0.f,
+                cap > 0.f ? (float)(scale / cap) : 0.f,
+                (float)(cap * 1.4426950408889634)};
+  if constexpr (D == 256) {
+    return run<D, true>(c, mod, stream);
+  } else {
+    if (window > 0 || cap > 0.f) return run<D, true>(c, mod, stream);
+    return run<D, false>(c, mod, stream);
+  }
 }
 
 }  // namespace tc
@@ -1033,13 +1607,15 @@ extern "C" {
 // forward's output and its gradient) contiguous [B, S, H, D]; lse the
 // forward's contiguous f32 [B, H, S] row log-sum-exp (natural log); dq a
 // contiguous [B, S, H, D], dk and dv contiguous [B, T, KH, D], written
-// whole. dtype 0: float32, 1: bfloat16. D in {16, 32, 64, 128}; H a
-// multiple of KH; S, T >= 1. bf16 at D 64 or 128 takes the tensor-core
-// kernels, which need 16-byte aligned bases and strides that are multiples
-// of 8 elements (kernels/flash_attn.py makes them so); everything else
-// the scalar kernels. `work` is f32 scratch of the size that
-// flash_attention_bwd_work gives. Returns a CUDA error code (0 on
-// success).
+// whole. dtype 0: float32, 1: bfloat16. D in {16, 32, 64, 128, 256}; H a
+// multiple of KH; S, T >= 1. window: 0 for none, else the forward's
+// (a key is allowed only when qpos - kpos < window); cap: 0 for none, else
+// the forward's soft-cap of the scaled scores. bf16 at D 64, 128 or 256
+// takes the tensor-core kernels, which need 16-byte aligned bases and
+// strides that are multiples of 8 elements (kernels/flash_attn.py makes
+// them so); everything else the scalar kernels. `work` is f32 scratch of
+// the size that flash_attention_bwd_work gives. Returns a CUDA error code
+// (0 on success).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
                         void* work, void* dq, void* dk, void* dv, int dtype,
@@ -1047,23 +1623,22 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         long long qsb, long long qss, long long qsh,
                         long long ksb, long long kss, long long ksh,
                         long long vsb, long long vss, long long vsh,
-                        int causal, void* stream) {
+                        int causal, int window, float cap, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* w = static_cast<float*>(work);
-  if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, o, dout, l, w, dq, dk, dv, B, H, KH, S,
-                           T, st, causal, s);
-  if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, o, dout, l, w, dq, dk, dv, B, H, KH, S, T,
-                          st, causal, s);
+  const tc::Call c{q, k, v, o, dout, l, w, dq, dk, dv, B, H, KH, S, T, st,
+                   causal};
+  if (dtype == 1 && D == 256) return tc::launch<256>(c, window, cap, s);
+  if (dtype == 1 && D == 128) return tc::launch<128>(c, window, cap, s);
+  if (dtype == 1 && D == 64) return tc::launch<64>(c, window, cap, s);
   if (dtype == 0)
     return launch_d<float>(D, q, k, v, o, dout, l, w, dq, dk, dv, B, H, KH,
-                           S, T, st, causal, s);
+                           S, T, st, causal, window, cap, s);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, w, dq, dk, dv, B,
-                                   H, KH, S, T, st, causal, s);
+                                   H, KH, S, T, st, causal, window, cap, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1073,7 +1648,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
 // kernels' Dr (B H S). Returns 0.
 int flash_attention_bwd_work(int dtype, int B, int H, int S, int T, int D,
                              long long* floats) {
-  *floats = dtype == 1 && (D == 64 || D == 128)
+  *floats = dtype == 1 && (D == 64 || D == 128 || D == 256)
                 ? tc::work_floats(B, H, S, T, D)
                 : (long long)B * H * S;
   return 0;

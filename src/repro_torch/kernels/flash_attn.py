@@ -42,24 +42,26 @@ log-sum-exp, f32 [B, H, S] in natural-log units.
 The gradient (the Pallas kernel has none; JAX differentiates
 `chunked_attention`): `FlashAttentionFn` is the autograd Function that
 `attn_apply` runs on CUDA tensors. Its forward asks for `lse` only when a
-gradient is wanted and then saves q, k, v, o and lse; its backward
-launches `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`), which
-recomputes p from `lse`. Its source holds two designs, chosen by
-`tensor_core_path` as the forward's are:
+gradient is wanted and then saves q, k, v, o and lse (and the window and
+cap); its backward launches `flash_attention_bwd`
+(`csrc/flash_attention_bwd.cu`), which recomputes p from `lse` with the
+forward's window and soft-cap (the cap's derivative 1 - t^2 joins dS).
+Its source holds two designs, chosen by `tensor_core_path` as the
+forward's are:
 
-- bf16 at head widths 64 and 128: the Hopper kernels (TMA rings, `wgmma`;
-  a dK/dV kernel per (batch, query head, k tile) writing f32 per-head
-  partials into a scratch of 2 B T H D floats that a small kernel sums
-  over each kv head's query heads in a fixed order, and a dQ kernel; the
-  wrapper allocates the scratch at the size the library's
-  `flash_attention_bwd_work` gives). The tensor cores take bf16
-  operands, so p is rounded to bf16 for dV and dS for dK and dQ:
-  `flash_attention_bwd_plain(round_p=True)` rounds the same.
-  `flash_attention_bwd.launches_tc` counts these calls;
+- bf16 at head widths 64, 128 and 256: the Hopper kernels (TMA rings,
+  `wgmma`; a dK/dV kernel per (batch, query head, k tile) writing f32
+  per-head partials into a scratch of 2 B T H D floats that a small kernel
+  sums over each kv head's query heads in a fixed order, and a dQ kernel;
+  at 256 their own layouts: 64-row tiles, the two consumer warpgroups
+  splitting dK from dV and the k tiles of dQ; the wrapper allocates the
+  scratch at the size the library's `flash_attention_bwd_work` gives).
+  Under a window they visit only the tiles some allowed pair lies in. The
+  tensor cores take bf16 operands, so p is rounded to bf16 for dV and dS
+  for dK and dQ: `flash_attention_bwd_plain(round_p=True)` rounds the
+  same. `flash_attention_bwd.launches_tc` counts these calls;
 - f32, and bf16 at widths 16 and 32: the scalar kernels, all in f32.
 
-The backward has no window, no soft-cap and no width 256 yet (ROADMAP A9):
-`FlashAttentionFn` refuses a call with any of them that wants a gradient.
 `flash_attention_bwd.launches` counts every call (each launches its
 design's kernels together). On CPU tensors both halves run their plain
 versions; `flash_attention_bwd_plain` is the closed form and the kernels'
@@ -77,19 +79,17 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_plain",
            "flash_attention_bshd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "FlashAttentionFn",
-           "tensor_core_path", "NEG", "HEAD_DIMS", "TC_HEAD_DIMS",
-           "BWD_HEAD_DIMS"]
+           "tensor_core_path", "NEG", "HEAD_DIMS", "TC_HEAD_DIMS"]
 
 NEG = -2.0 ** 30      # large finite mask value: a masked score gives exp 0
 HEAD_DIMS = (16, 32, 64, 128, 256)
-TC_HEAD_DIMS = (64, 128, 256)   # bf16 widths of the tensor-core kernel
-BWD_HEAD_DIMS = (16, 32, 64, 128)   # widths of flash_attention_bwd
+TC_HEAD_DIMS = (64, 128, 256)   # bf16 widths of the tensor-core kernels
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _L = ctypes.c_longlong
 _SIG = {"flash_attention": [_build.P] * 5 + [_build.I] * 7 + [_L] * 9
         + [_build.I, _build.I, ctypes.c_float, _build.P]}
 _SIG_BWD = {"flash_attention_bwd": [_build.P] * 10 + [_build.I] * 7
-            + [_L] * 9 + [_build.I, _build.P],
+            + [_L] * 9 + [_build.I, _build.I, ctypes.c_float, _build.P],
             "flash_attention_bwd_work": [_build.I] * 6
             + [ctypes.POINTER(_L)]}
 
@@ -177,20 +177,25 @@ def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor, *,
-                              causal: bool = True, round_p: bool = False):
+                              causal: bool = True, window=None, cap=None,
+                              round_p: bool = False):
     """The backward in closed form, plain PyTorch with every product in
     f32: q, o, do [B, S, H, D], k/v [B, T, K, D], lse f32 [B, H, S] (the
-    forward's). With P = exp(S / sqrt(D) - lse) (0 where masked, as the
-    forward's NEG gives exp 0), Dr = rowsum(do * o), dS = P * (do V^T -
-    Dr): dV = P^T do, dK = dS^T Q / sqrt(D), dQ = dS K / sqrt(D), the G
-    query heads of a kv head summed into its dK and dV. With `round_p`
-    the products take what the tensor-core kernel gives its tensor cores:
-    P rounded to q's dtype for dV (the p the tensor-core forward weighed V
-    by) and dS rounded to q's dtype for dK and dQ; S, dP, P and dS stay f32
-    until then (dP is not rounded before the subtraction, where JAX's bf16
-    VJP of `chunked_attention` rounds it), and the identity in f32.
-    Without it everything is f32, the scalar kernel's arithmetic. Dr comes
-    from the output the forward returned, so in bf16 this is not the exact
+    forward's). The logits are the forward's: X = S / sqrt(D), soft-capped
+    to cap · t with t = tanh(X / cap) when `cap` is given, masked (P = 0,
+    as the forward's NEG gives exp 0) where a key lies in the future
+    (`causal`) or `window` or more positions back. With P = exp(logit -
+    lse), Dr = rowsum(do * o), dS = P * (do V^T - Dr), times the cap's
+    derivative 1 - t^2 when capped: dV = P^T do, dK = dS^T Q / sqrt(D),
+    dQ = dS K / sqrt(D), the G query heads of a kv head summed into its dK
+    and dV. With `round_p` the products take what the tensor-core kernel
+    gives its tensor cores: P rounded to q's dtype for dV (the p the
+    tensor-core forward weighed V by) and dS (after the cap's factor)
+    rounded to q's dtype for dK and dQ; S, dP, P and dS stay f32 until
+    then (dP is not rounded before the subtraction, where JAX's bf16 VJP
+    of `chunked_attention` rounds it), and the identity in f32. Without it
+    everything is f32, the scalar kernel's arithmetic. Dr comes from the
+    output the forward returned, so in bf16 this is not the exact
     derivative of the rounded forward. Returns (dq, dk, dv) in the inputs'
     dtypes."""
     B, S, H, D = q.shape
@@ -201,14 +206,21 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dof = do.float().reshape(B, S, K, G, D)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bskgd,btkd->bkgst", qf, kf) * scale
+    if cap is not None:
+        t = torch.tanh(s / cap)
+        s = t * cap
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
     if causal:
-        allow = (torch.arange(T, device=q.device)[None, :]
-                 <= torch.arange(S, device=q.device)[:, None])
-        s = torch.where(allow, s, NEG)
+        s = torch.where(kpos <= qpos, s, NEG)
+    if window is not None:
+        s = torch.where(qpos - kpos < window, s, NEG)
     p = torch.exp(s - lse.reshape(B, K, G, S, 1))
     dr = (do.float() * o.float()).sum(-1)                   # [B, S, H]
     dr = dr.permute(0, 2, 1).reshape(B, K, G, S, 1)
     ds = p * (torch.einsum("bskgd,btkd->bkgst", dof, vf) - dr)
+    if cap is not None:
+        ds = ds * (1 - t * t)
     if round_p:
         p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dv = torch.einsum("bkgst,bskgd->btkd", p, dof)
@@ -300,23 +312,23 @@ def _launch(q, k, v, causal, window=None, cap=None, return_lse=False):
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor, *, causal: bool = True):
-    """(dq, dk, dv) of `flash_attention_bshd(q, k, v, causal=)`: q, o, do
-    [B, S, H, D], k/v [B, T, K, D], lse f32 [B, H, S] from the forward.
-    On a CUDA tensor one call launches the backward kernels (the
-    tensor-core design where `tensor_core_path` says so, rounding as
-    `flash_attention_bwd_plain(round_p=True)`; else the scalar one, all
-    f32); on a CPU tensor it runs `flash_attention_bwd_plain`; anything
-    else raises. Returns contiguous gradients in the inputs' dtype."""
+                        do: torch.Tensor, *, causal: bool = True,
+                        window=None, cap=None):
+    """(dq, dk, dv) of `flash_attention_bshd(q, k, v, causal=, window=,
+    cap=)`: q, o, do [B, S, H, D], k/v [B, T, K, D], lse f32 [B, H, S]
+    from the forward. On a CUDA tensor one call launches the backward
+    kernels (the tensor-core design where `tensor_core_path` says so,
+    rounding as `flash_attention_bwd_plain(round_p=True)`; else the scalar
+    one, all f32); on a CPU tensor it runs `flash_attention_bwd_plain`;
+    anything else raises. Returns contiguous gradients in the inputs'
+    dtype."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
-    tc = _check(q, k, v)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, cap=cap)
+    tc = _check(q, k, v, window, cap)
     dev = q.device
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
-    if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head width {D} not in "
-                         f"{BWD_HEAD_DIMS}")
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != (B, S, H, D) or t.device != dev:
             raise ValueError(f"flash_attention_bwd: {name} is "
@@ -339,7 +351,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         do.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, H, K, S, T, D,
         *_strides(q), *_strides(k), *_strides(v), int(causal),
-        _build.stream_ptr(dev))
+        int(window or 0), float(cap or 0.0), _build.stream_ptr(dev))
     _build.launch_error("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_tc += tc
@@ -351,21 +363,15 @@ class FlashAttentionFn(torch.autograd.Function):
     gradient: `FlashAttentionFn.apply(q, k, v, causal, window, cap)`. The
     forward writes the row log-sum-exp only when an input wants a gradient
     (as it does again when `torch.utils.checkpoint` recomputes it) and
-    saves q, k, v, o and lse; the backward is `flash_attention_bwd`, which
-    has no window, soft-cap or width 256: such a call that wants a gradient
-    raises before any launch."""
+    saves q, k, v, o and lse; the backward is `flash_attention_bwd` with
+    the same causal flag, window and cap."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, window=None, cap=None):
         want = any(ctx.needs_input_grad[:3])
-        if want and (window is not None or cap is not None
-                     or q.shape[-1] not in BWD_HEAD_DIMS):
-            raise NotImplementedError(
-                "the backward of a windowed, soft-capped or width-256 "
-                "attention is not ported yet (ROADMAP A9)")
         out = flash_attention_bshd(q, k, v, causal=causal, window=window,
                                    cap=cap, return_lse=want)
-        ctx.causal = causal
+        ctx.causal, ctx.window, ctx.cap = causal, window, cap
         if not want:
             return out
         out, lse = out
@@ -376,7 +382,8 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
-                                         causal=ctx.causal)
+                                         causal=ctx.causal,
+                                         window=ctx.window, cap=ctx.cap)
         return dq, dk, dv, None, None, None
 
 

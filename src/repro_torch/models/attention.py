@@ -10,10 +10,8 @@ global-attention family, on tensors:
   `kernels.flash_attn.FlashAttentionFn` (the model's [B, S, H, D] layout,
   kv heads mapped in the kernel; `attn_local`'s window and the config's
   `attn_softcap` computed in the kernel), whose backward is the
-  `flash_attention_bwd` kernel; on CPU tensors autograd differentiates
-  `chunked_attention`, as JAX does. The backward kernel has no window, no
-  soft-cap and no head width 256 yet, so a call with any of them that
-  autograd would record raises on the card (ROADMAP A9);
+  `flash_attention_bwd` kernel (the window and the soft-cap too); on CPU
+  tensors autograd differentiates `chunked_attention`, as JAX does;
 - decode is single-query attention over the cache in plain PyTorch. The
   cache is written in place (JAX's `dynamic_update_slice` returns new
   arrays): `attn_decode` returns the same dict it was given. With
@@ -164,8 +162,6 @@ def attn_apply(x, p, cfg, kind: str, positions):
         o = chunked_attention(q, k, v, chunk=cfg.attn_chunk, window=window,
                               cap=cap)
     else:
-        # raises naming A9, before any launch, if autograd records a call
-        # that flash_attention_bwd cannot differentiate yet
         o = FlashAttentionFn.apply(q, k, v, True, window, cap)
     return _out(o, p["wo"]), (k, v)
 

@@ -23,9 +23,8 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
   stacked (`convert.jax_paths`). On CUDA
   tensors every layer's attention runs the `flash_attention` kernel
   twice (the forward and its recomputation under remat) and its backward
-  kernel once a microbatch. The backward kernel has no window, soft-cap
-  or head width 256 yet, so gemma2 trains on the CPU only (on the card
-  the forward raises naming ROADMAP A9).
+  kernel once a microbatch (with gemma2's window, soft-cap and head width
+  256 too).
 
 Inputs are dicts of tensors or numpy arrays ({"tokens": [B, S] int}), moved
 to the model's device. One device: `zero1`, `seq_parallel` and `pure_dp`

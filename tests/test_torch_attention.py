@@ -213,24 +213,44 @@ def test_flash_attention_entries_take_window_and_cap():
 
 
 def test_flash_attention_fn_refuses_what_the_backward_lacks():
-    """FlashAttentionFn has no backward for a window, a soft-cap or head
-    width 256: a call with one of them that wants a gradient raises
-    NotImplementedError naming A9 before the forward runs; without a
-    gradient it runs."""
-    assert 256 in tflash.HEAD_DIMS and 256 not in tflash.BWD_HEAD_DIMS
+    """FlashAttentionFn differentiates the window, the soft-cap and head
+    width 256 (gemma2's layers): on CPU tensors its output, with and
+    without a gradient, is the plain forward's exactly, and its backward
+    gives autograd's gradients through the plain forward. What
+    it still refuses is a device without a kernel: on `meta`, with a
+    gradient and with the window, the cap or width 256, the call reaches
+    the kernel's device check and raises before any launch, as does the
+    backward itself."""
+    assert tflash.HEAD_DIMS == (16, 32, 64, 128, 256)
+    assert not hasattr(tflash, "BWD_HEAD_DIMS")
     rng = np.random.default_rng(22)
-    q, k, v = (torch.from_numpy(_normal(rng, 1, 40, 2, 16)) for _ in range(3))
-    qg = q.clone().requires_grad_()
-    wide = torch.zeros(1, 8, 2, 256, requires_grad=True)
-    for args in ((qg, k, v, True, 8, None), (qg, k, v, True, None, 5.0),
-                 (wide, wide, wide, True)):
-        before = flash_attention.launches
-        with pytest.raises(NotImplementedError, match="A9"):
+    for D, window, cap in ((16, 8, None), (16, None, 5.0), (16, 8, 5.0),
+                           (256, 8, 5.0)):
+        q, k, v = (torch.from_numpy(_normal(rng, 1, 40, h, D) * 3)
+                   .requires_grad_() for h in (2, 1, 1))
+        do = torch.from_numpy(_normal(rng, 1, 40, 2, D))
+        out = tflash.FlashAttentionFn.apply(q, k, v, True, window, cap)
+        ref = flash_attention_bshd_plain(q, k, v, window=window, cap=cap)
+        _close(out.detach(), ref.detach(), 0.0)
+        with torch.no_grad():
+            _close(tflash.FlashAttentionFn.apply(q, k, v, True, window, cap),
+                   ref.detach(), 0.0)
+        got = torch.autograd.grad(out, (q, k, v), do)
+        want = torch.autograd.grad(ref, (q, k, v), do)
+        for g, w in zip(got, want):
+            _close(g, w, KERNEL_TOL * float(w.abs().max()))
+    m = torch.empty(1, 8, 2, 256, device="meta", requires_grad=True)
+    lse = torch.empty(1, 2, 8, device="meta")
+    for args in ((m, m, m, True, 8, None), (m, m, m, True, None, 5.0),
+                 (m, m, m, True)):
+        before = (flash_attention.launches,
+                  tflash.flash_attention_bwd.launches)
+        with pytest.raises(ValueError, match="no kernel for device meta"):
             tflash.FlashAttentionFn.apply(*args)
-        assert flash_attention.launches == before
-    with torch.no_grad():
-        _close(tflash.FlashAttentionFn.apply(q, k, v, True, 8, 5.0),
-               flash_attention_bshd_plain(q, k, v, window=8, cap=5.0), 0.0)
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            tflash.flash_attention_bwd(m, m, m, m, lse, m, window=8, cap=5.0)
+        assert (flash_attention.launches,
+                tflash.flash_attention_bwd.launches) == before
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -1,9 +1,10 @@
 """The rounding of the attention backward's plain version, on the CPU.
 
 `flash_attention_bwd_plain(round_p=True)` defines what the tensor-core
-backward kernel (`csrc/flash_attention_bwd.cu`, bf16 at D 64 and 128)
-rounds: p to bf16 for the dV product and dS to bf16 for the dK and dQ
-products, everything else f32. Here it is held:
+backward kernels (`csrc/flash_attention_bwd.cu`, bf16 at D 64, 128 and
+256) round: p to bf16 for the dV product and dS (after the soft-cap's
+factor) to bf16 for the dK and dQ products, everything else f32. Here it
+is held:
 
 - against autograd through `flash_attention_bshd_plain(round_p=True)`
   within 2^-6 of each gradient's max |value| (the bar of
@@ -19,7 +20,10 @@ products, everything else f32. Here it is held:
   kernels are held to (the formula as it stood before the rounding of dS
   was added), and in f32 `round_p` changes nothing.
 
-Each case runs causal and full, at S 64 and 96 and a ragged S.
+Each case runs causal and full, at S 64 and 96 and a ragged S; the first
+two also with gemma2's window and soft-cap, alone and together (causal, q
+scaled by 3 so that scores reach the cap), against `chunked_attention(
+window=, cap=)`'s VJP.
 """
 import math
 
@@ -39,16 +43,31 @@ B, H, K, D = 2, 6, 2, 64
 CASES = [(64, True), (64, False), (96, True), (96, False), (50, True),
          (50, False)]
 CASE_IDS = [f"S{s}-{'causal' if c else 'full'}" for s, c in CASES]
+# gemma2's window and soft-cap, alone and together (causal: JAX's
+# chunked_attention is), q scaled by 3 so that scores reach the cap:
+# (S, window, cap)
+MOD_CASES = [(96, 24, None), (96, None, 2.0), (96, 24, 2.0), (50, 16, 1.5)]
+MOD_IDS = [f"S{s}-causal" + (f"-w{w}" if w else "")
+           + (f"-cap{c:g}" if c else "") for s, w, c in MOD_CASES]
+ALL = ([(s, c, None, None) for s, c in CASES]
+       + [(s, True, w, c) for s, w, c in MOD_CASES])
+ALL_IDS = CASE_IDS + MOD_IDS
 TOL_AUTOGRAD = 2.0 ** -6
 TOL_JAX = 2.0 ** -5
 
 
-def _inputs(S: int, dtype=torch.bfloat16):
-    """q, k, v, do as `dtype` tensors from one numpy seed per length."""
+def _inputs(S: int, dtype=torch.bfloat16, q_scale=1.0):
+    """q, k, v, do as `dtype` tensors from one numpy seed per length, q
+    times `q_scale`."""
     rng = np.random.default_rng(1000 + S)
     shapes = ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D))
-    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
-            .to(dtype) for sh in shapes]
+    x = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+    x[0] = x[0] * np.float32(q_scale)
+    return [torch.from_numpy(a).to(dtype) for a in x]
+
+
+def _mod_inputs(S, cap, dtype=torch.bfloat16):
+    return _inputs(S, dtype, 1.0 if cap is None else 3.0)
 
 
 def _rel(got, want) -> float:
@@ -56,22 +75,22 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("S,causal", CASES, ids=CASE_IDS)
-def test_round_p_matches_autograd(S, causal):
-    q, k, v, do = _inputs(S)
+@pytest.mark.parametrize("S,causal,window,cap", ALL, ids=ALL_IDS)
+def test_round_p_matches_autograd(S, causal, window, cap):
+    q, k, v, do = _mod_inputs(S, cap)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
-    o, lse = flash_attention_bshd_plain(q, k, v, causal=causal, round_p=True,
-                                        return_lse=True)
+    kw = dict(causal=causal, window=window, cap=cap)
+    o, lse = flash_attention_bshd_plain(q, k, v, round_p=True,
+                                        return_lse=True, **kw)
     want = torch.autograd.grad(o, (q, k, v), do)
     got = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
-                                    o.detach(), lse, do, causal=causal,
-                                    round_p=True)
+                                    o.detach(), lse, do, round_p=True, **kw)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         assert _rel(g, w) <= TOL_AUTOGRAD
 
 
-def _jax_grads(q, k, v, do, causal: bool):
+def _jax_grads(q, k, v, do, causal: bool, window=None, cap=None):
     """jax.vjp of chunked_attention in bf16 on the same values."""
     S, T = q.shape[1], k.shape[1]
     chunk = 32 if S % 32 == 0 else S
@@ -81,21 +100,22 @@ def _jax_grads(q, k, v, do, causal: bool):
         return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
 
     def f(q_, k_, v_):
-        return chunked_attention(q_, k_, v_, chunk=chunk, q_offset=q_offset)
+        return chunked_attention(q_, k_, v_, chunk=chunk, q_offset=q_offset,
+                                 window=window, cap=cap)
 
     _, vjp = jax.vjp(f, to_jax(q), to_jax(k), to_jax(v))
     return [torch.from_numpy(np.array(g.astype(jnp.float32)))
             for g in vjp(to_jax(do))]
 
 
-@pytest.mark.parametrize("S,causal", CASES, ids=CASE_IDS)
-def test_round_p_near_jax_bf16_vjp(S, causal):
-    q, k, v, do = _inputs(S)
-    o, lse = flash_attention_bshd_plain(q, k, v, causal=causal, round_p=True,
-                                        return_lse=True)
-    got = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                    round_p=True)
-    want = _jax_grads(q, k, v, do, causal)
+@pytest.mark.parametrize("S,causal,window,cap", ALL, ids=ALL_IDS)
+def test_round_p_near_jax_bf16_vjp(S, causal, window, cap):
+    q, k, v, do = _mod_inputs(S, cap)
+    kw = dict(causal=causal, window=window, cap=cap)
+    o, lse = flash_attention_bshd_plain(q, k, v, round_p=True,
+                                        return_lse=True, **kw)
+    got = flash_attention_bwd_plain(q, k, v, o, lse, do, round_p=True, **kw)
+    want = _jax_grads(q, k, v, do, causal, window, cap)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         assert bool(torch.isfinite(g.float()).all())

@@ -225,6 +225,7 @@ def test_port_imports_neither_jax_nor_repro():
     files += [ROOT / "chip_smoke.py",
               ROOT / "examples" / "torch_distributed_pagerank.py",
               ROOT / "examples" / "torch_train_lm.py"]
+    files += sorted((ROOT / "scripts").glob("*.py"))
     assert len(files) > 10
     # the sharded engines, their mesh and the elastic resume are scanned
     names = {f.relative_to(ROOT).as_posix() for f in files}

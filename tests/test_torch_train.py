@@ -3,8 +3,10 @@
 - `flash_attention_bwd_plain` (the closed-form backward, the CUDA
   kernel's oracle) against autograd through `flash_attention_bshd_plain`:
   causal and full, S = T and ragged, GQA with H / K in {1, 2, 3}, D in
-  {16, 64}. f32 within 1e-5 of each gradient's max |value| (the closed
-  form is exact; only f32 rounding differs). bf16 within 2^-6 of it: the
+  {16, 64, 256}, and gemma2's window and soft-cap alone and together
+  (the cap's derivative 1 - t^2 in dS). f32 within 1e-5 of each
+  gradient's max |value| (the closed form is exact; only f32 rounding
+  differs). bf16 within 2^-6 of it: the
   plain backward takes Dr = rowsum(dO * O) from the bf16 output, while
   autograd differentiates the f32 output before its rounding, so Dr is
   off by up to 2^-8 |O| |dO| per term, and both round each gradient to
@@ -12,11 +14,13 @@
 - `FlashAttentionFn` on CPU tensors against autograd through
   `chunked_attention` at the model's chunking, within 1e-5 of the max.
 - `LMModel.loss` and one `train_step` against `repro.models.LMModel`
-  (jit) for the smoke configs of qwen2-1.5b, smollm-360m and qwen3-4b
-  (two layers, the JAX weights carried over), f32: loss and grad_norm
-  within 1e-5 relative; every gradient leaf within 1e-5 of its max |value|
-  (sums in another order); after the step m within 1e-5 and v within
-  2e-5 of their leaves' max (v is g², so its relative error doubles); the
+  (jit) for the smoke configs of qwen2-1.5b, smollm-360m, qwen3-4b and
+  gemma2-9b (two layers: gemma2's local, window 16, and global, with both
+  soft-caps, the post-norms and the untied head; the JAX weights carried
+  over), f32: loss and grad_norm within 1e-5 relative; every gradient
+  leaf within 1e-5 of its max |value| (sums in another order); after
+  the step m within 1e-5 and v within 2e-5 of their leaves' max (v is
+  g², so its relative error doubles); the
   weights within 1e-6 plus lr x min(2, 2 d / (|g| + eps)) per element,
   where d is the gradient's bar and g JAX's clipped gradient: AdamW's
   first step is lr g / (|g| + eps), about lr sign(g), which moves by up to
@@ -28,8 +32,9 @@
   k bias by 2e-3 of its max between the two packages' gradients). So its
   gradients are held as above and its weights and factors, within 1e-5 of
   each leaf's max, against JAX's update of the port's gradients.
-- The loop against `train_step` driven by hand, the launcher, the mesh
-  guards; remat keeps no layer's (k, v) and changes no gradient.
+- The loop against `train_step` driven by hand, the launcher (gemma2's
+  smoke config too), the mesh guards; remat keeps no layer's (k, v) and
+  changes no gradient.
 """
 import dataclasses
 
@@ -57,7 +62,7 @@ from repro_torch.models.convert import (  # noqa: E402
 from repro_torch.train import train as ttrain  # noqa: E402
 
 CPU = dict(device="cpu")
-ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b")
+ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b")
 TOL = 1e-5
 LR, EPS = 3e-4, 1e-8            # adamw_update's defaults in both packages
 
@@ -73,21 +78,47 @@ def _rel(got, want):
 
 # -- the attention backward ----------------------------------------------------
 
-@pytest.mark.parametrize("S,T,H,K,D,causal", [
-    (40, 40, 4, 4, 16, True), (40, 40, 4, 2, 64, True),
-    (33, 33, 6, 2, 16, True), (24, 37, 3, 1, 16, False),
-    (37, 24, 6, 2, 64, False), (50, 50, 6, 3, 16, False)])
-def test_bwd_plain_matches_autograd(S, T, H, K, D, causal):
+# (S, T, H, K, D, causal, window, cap): gemma2's window and soft-cap alone
+# and together, at D 16, 64 and 256 (q scaled by 3 where capped, so that
+# scores reach the cap)
+BWD_CASES = [
+    (40, 40, 4, 4, 16, True, None, None),
+    (40, 40, 4, 2, 64, True, None, None),
+    (33, 33, 6, 2, 16, True, None, None),
+    (24, 37, 3, 1, 16, False, None, None),
+    (37, 24, 6, 2, 64, False, None, None),
+    (50, 50, 6, 3, 16, False, None, None),
+    (40, 40, 4, 2, 16, True, 8, None), (40, 40, 4, 2, 64, True, None, 2.0),
+    (33, 33, 6, 2, 256, True, 12, 1.5), (48, 48, 4, 4, 256, True, None, 2.0),
+    (36, 36, 4, 1, 256, True, 7, None), (30, 30, 6, 3, 64, True, 5, 1.5),
+    (50, 50, 6, 3, 16, False, 10, 2.0)]
+
+
+def _bwd_id(case):
+    """The case's id: the first six values (as pytest names them), then
+    the window and cap where given."""
+    *head, window, cap = case
+    if window is not None:
+        head.append(f"w{window}")
+    if cap is not None:
+        head.append(f"cap{cap:g}")
+    return "-".join(str(x) for x in head)
+
+
+@pytest.mark.parametrize("S,T,H,K,D,causal,window,cap", BWD_CASES,
+                         ids=[_bwd_id(c) for c in BWD_CASES])
+def test_bwd_plain_matches_autograd(S, T, H, K, D, causal, window, cap):
     rng = np.random.default_rng(S * T + H + D)
-    q = torch.from_numpy(_normal(rng, 2, S, H, D)).requires_grad_()
+    qs = 1.0 if cap is None else 3.0
+    q = torch.from_numpy(qs * _normal(rng, 2, S, H, D)).requires_grad_()
     k = torch.from_numpy(_normal(rng, 2, T, K, D)).requires_grad_()
     v = torch.from_numpy(_normal(rng, 2, T, K, D)).requires_grad_()
     do = torch.from_numpy(_normal(rng, 2, S, H, D))
-    o, lse = flash_attention_bshd_plain(q, k, v, causal=causal,
-                                        return_lse=True)
+    kw = dict(causal=causal, window=window, cap=cap)
+    o, lse = flash_attention_bshd_plain(q, k, v, return_lse=True, **kw)
     want = torch.autograd.grad(o, (q, k, v), do)
     got = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
-                                    o.detach(), lse, do, causal=causal)
+                                    o.detach(), lse, do, **kw)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert _rel(g, w) <= TOL
@@ -149,9 +180,14 @@ def test_flash_attention_fn_raises_off_cpu_and_cuda():
 # -- loss and train_step against JAX -------------------------------------------
 
 def _cfgs(name, layers=2, **kw):
-    return tuple(dataclasses.replace(c.smoke_config(c.get_config(name)),
-                                     n_layers=layers, repeats=layers, **kw)
-                 for c in (tconfigs, jconfigs))
+    """Both packages' smoke configs of `name` at `layers` layers (repeats
+    of the layer pattern: gemma2's local and global alternate)."""
+    out = []
+    for c in (tconfigs, jconfigs):
+        cfg = c.smoke_config(c.get_config(name))
+        out.append(dataclasses.replace(
+            cfg, n_layers=layers, repeats=layers // len(cfg.pattern), **kw))
+    return tuple(out)
 
 
 def _carry(name, key=0, **kw):
@@ -312,6 +348,16 @@ def test_launcher_smoke_on_cpu(capsys):
                   "--batch", "2", "--seq", "32", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "arch=qwen2-1.5b-smoke device=cpu" in out
+    assert "final loss:" in out
+
+
+def test_launcher_smoke_gemma2_on_cpu(capsys):
+    """gemma2's smoke config (window 16, both soft-caps, post-norms, the
+    untied head) through the launcher at a length past its window."""
+    tlaunch.main(["--arch", "gemma2-9b", "--smoke", "--steps", "3",
+                  "--batch", "2", "--seq", "40", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "arch=gemma2-9b-smoke device=cpu" in out
     assert "final loss:" in out
 
 

@@ -10,7 +10,9 @@
   port's `train` and JAX's `train` each go on to step 4. Their loss and
   grad-norm histories agree within 1e-5 relative, and the final weights
   within 1e-5 of each leaf's max |value| (f32 sums in another order; the
-  resumed steps' moments are not AdamW's first, sign-like ones).
+  resumed steps' moments are not AdamW's first, sign-like ones). The same
+  for gemma2-9b's smoke config (window 16, the post-norm leaves pn1/pn2,
+  the untied unembed), whose manifest names those leaves.
 - `fail_at` restart (the counterpart of tests/test_checkpoint.py::
   test_train_restart_continues) and the weight and state conversions.
 """
@@ -47,9 +49,14 @@ RUN = dict(batch=2, seq=32, ckpt_every=2, log_every=1)
 
 
 def _cfgs(name, **kw):
-    return tuple(dataclasses.replace(c.smoke_config(c.get_config(name)),
-                                     n_layers=2, repeats=2, **kw)
-                 for c in (tconfigs, jconfigs))
+    """Both packages' smoke configs of `name` at 2 layers (repeats of the
+    layer pattern: gemma2's local and global alternate)."""
+    out = []
+    for c in (tconfigs, jconfigs):
+        cfg = c.smoke_config(c.get_config(name))
+        out.append(dataclasses.replace(
+            cfg, n_layers=2, repeats=2 // len(cfg.pattern), **kw))
+    return tuple(out)
 
 
 def _bits_equal(a: dict, b: dict):
@@ -101,11 +108,11 @@ def test_manifest_equals_jax_and_jax_reads_bf16(tmp_path, optimizer):
                                       np.asarray(y, np.float32))
 
 
-def _run_both(root, first):
-    """`first` ("jax" or "port") trains smollm-360m smoke to step 2 with a
-    checkpoint; then both packages resume copies of it to step 4. Returns
-    ((port history, port weights), (JAX history, JAX weights))."""
-    tcfg, jcfg = _cfgs("smollm-360m")
+def _run_both(root, first, name="smollm-360m"):
+    """`first` ("jax" or "port") trains `name`'s smoke config to step 2
+    with a checkpoint; then both packages resume copies of it to step 4.
+    Returns ((port history, port weights), (JAX history, JAX weights))."""
+    tcfg, jcfg = _cfgs(name)
     base = root / "base"
     if first == "jax":
         jtrain(jcfg, steps=2, ckpt_dir=str(base), **RUN)
@@ -121,9 +128,7 @@ def _run_both(root, first):
                      unstack_jax_tree(jparams, tcfg).items()}))
 
 
-@pytest.mark.parametrize("first", ["jax", "port"])
-def test_resume_across_packages(tmp_path, first):
-    (thist, tw), (jhist, jw) = _run_both(tmp_path, first)
+def _check_resumed(thist, tw, jhist, jw):
     assert [h["step"] for h in thist] == [h["step"] for h in jhist] == [3, 4]
     for t, j in zip(thist, jhist):
         for key in ("loss", "grad_norm"):
@@ -132,6 +137,25 @@ def test_resume_across_packages(tmp_path, first):
     for k, w in jw.items():
         np.testing.assert_allclose(tw[k].numpy(), w, rtol=0, err_msg=k,
                                    atol=TOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_resume_across_packages(tmp_path, first):
+    _check_resumed(*sum(_run_both(tmp_path, first), ()))
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_gemma2_resume_across_packages(tmp_path, first):
+    """gemma2's tree (post-norm leaves pn1/pn2, the untied unembed, a local
+    and a global layer stacked on the pattern axis) resumes across the
+    packages both ways, as smollm-360m's does; the first package's
+    manifest names those leaves."""
+    runs = _run_both(tmp_path, first, "gemma2-9b")
+    _check_resumed(*sum(runs, ()))
+    man = (tmp_path / "base" / "step_0000000002" / "manifest.json"
+           ).read_text()
+    for leaf in ("pn1", "pn2", "unembed"):
+        assert leaf in man, leaf
 
 
 def test_train_restart_continues(tmp_path):
