@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (`repro_torch`) of Static and DF-P PageRank,
 of its streaming session and of LM serving and training (qwen2-1.5b,
-gemma2-9b) on one GPU, and hold its CUDA kernels against their plain
-PyTorch versions.
+gemma2-9b, recurrentgemma-2b, rwkv6-1.6b) on one GPU, and hold its CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py                 # full size: n=2^22, m=2^26
     python3 chip_smoke.py --n 65536 --m 1048576 --out report.json
@@ -215,9 +215,10 @@ Phases (any failure exits non-zero; nothing is caught):
      and tokens/s (the first apart), the peak memory, one step's forward /
      backward / AdamW split by CUDA
      events, and a checkpoint of the 2-layer model restored bit for bit;
-  12. gemma2-9b serving (after 11; 42 layers alternating a 4096-window
-     local and a global layer, soft-caps 50 and 30, head width 256, bf16,
-     weights from --seed): (12a) flash_attention with the window, the
+  12. gemma2-9b serving (after 11; full width: layers alternating a
+     4096-window local and a global layer, soft-caps 50 and 30, head width
+     256, bf16, weights from --seed; 12b, 12d and 12e at 8 of its 42
+     layers, GEMMA_SERVE_LAYERS, for the script's time): (12a) flash_attention with the window, the
      soft-cap and D 256 against its plain version at phase 9's bars (q
      scaled by 8 so that scores reach the cap): bf16 on the tensor cores
      at B 2, 16 heads over 8, S = T = 8192 with window 4096 and cap 50
@@ -229,10 +230,11 @@ Phases (any failure exits non-zero; nothing is caught):
      (torch.compile of flex_attention with the cap as its score_mod and
      causal + window as its block mask, held against the plain version at
      the kernel's bars) and SDPA causal without a cap; (12c) 2 layers (one local,
-     one global) in f32, B 1, prompt 4608: prefill_step (the scalar
-     kernel) within 1e-3 of the stepped decode_step, whose local cache
-     rolls; (12b) prefill_step on batch_for(cfg, 2, 8192) (launch counts
-     set to 0 here: exactly 42, all on the tensor cores; last logits
+     one global) in f32, window 4096, B 1, prompt 4160:
+     prefill_step (the scalar kernel) within 1e-3 of the stepped
+     decode_step, whose local cache rolls; (12b) prefill_step on
+     batch_for(cfg, 2, 8192) (launch counts set to 0 here: exactly one a
+     layer, 8, all on the tensor cores; last logits
      finite), its time by CUDA events and the peak memory; (12d) one
      decode_step at position 8192, B 4, with the bf16 and the int8 cache
      (kv_cache_dtype="int8", as the JAX dry run's decode cells) and their
@@ -271,7 +273,41 @@ Phases (any failure exits non-zero; nothing is caught):
      backward / AdamW split by CUDA events with its wall time and its
      device-busy time under torch.profiler, and that
      model's checkpoint (its post-norms and untied head) restored bit for
-     bit.
+     bit;
+  14. the recurrent families (after 13, in the allocator's fixed
+     segments): (14a) flash_attention and flash_attention_bwd at
+     recurrentgemma-2b's attention shape, bf16 on the tensor cores, 10
+     heads over 1 kv head, D 256, window 2048, no cap, q scaled by 8: the
+     forward at B 2 x 8192 at phase 9's bars, the backward at B 1 x 8192
+     against flash_attention_bwd_plain at 11a's bars, two runs bit for
+     bit; both timed beside their bounds over the allowed pairs, their
+     plain versions and compiled flex_attention (the window as its block
+     mask) and its backward; (14b) recurrentgemma-2b served at full size
+     (26 layers, bf16, weights from --seed): the f32 model at one pattern
+     (rec, rec, attn_local), prefill_step (the scalar kernel) against 2112
+     stepped decode_steps (plain; the local cache rolls 64 times), logits
+     and states within 1e-3; prefill_step on batch_for(cfg, 2, 8192)
+     (launch counts set to 0 just before: exactly 8 flash_attention, all
+     on the tensor cores, and no other kernel), its time and peak memory;
+     decode_step at B 4, position 8192; the cache at long_500k's 524,288
+     positions holding the bytes of the cache at 2048, and decode_step at
+     its last 8 positions; serve (4, 64 + 32) twice, equal tokens; (14c)
+     rwkv6-1.6b the same (the f32 model at 2 layers, 256 stepped
+     decode_steps, then 16 more from the prefill's returned state against
+     continued stepping; its prefill_step launches no kernel); (14d) each
+     family at full width in f32 on the card against the CPU, B 2 x 512:
+     recurrentgemma at one pattern, window 128, and rwkv6 at 2 layers, one
+     train_step (AdamW) each: loss, grad norm, m (the gradients), v and the
+     weights at 11b's bars; rwkv6's at 1e-4 of a leaf's max
+     (TOL_TRAIN_RWKV), with the same step in f64 on the card as the
+     witness that both f32 steps differ from it by rounding; (14e) train() in bf16, AdamW, 3
+     steps (launch counts set to 0 just before): rwkv6-1.6b uncut on 2 x
+     4096, no kernel; recurrentgemma-2b at full width, 5 layers (one
+     pattern and the suffix), 1 x 4096, exactly 2 flash_attention and 1
+     flash_attention_bwd a step, all on the tensor cores; losses finite,
+     every leaf moved but bf16 ones the steps cannot move, the steps'
+     times and tokens/s, the peak memory and one more step's device-busy
+     share under torch.profiler.
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -299,6 +335,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP64_FLOPS = 34e12          # H100 SXM FP64 outside the tensor cores (data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense BF16 tensor cores (data sheet)
+FP32_FLOPS = 67e12          # H100 SXM FP32 outside the tensor cores (data sheet)
 TOL_SWEEP = 1e-12           # one sweep, f64 L-inf (tests/test_bucketed_parity.py)
 TOL_SOLVE_L1 = 1e-8         # whole solves, L1
 STEP = dict(alpha=0.85, tau_f=1e-6, tau_p=1e-6, prune=True, closed_form=True)
@@ -850,7 +887,7 @@ class ObsCalls:
 def read_capture(path: str, engine_span: str) -> dict:
     """What a phase-8 capture holds: the host ranges `session.solve`,
     `engine_span` and `snapshot.device_refresh`, the CUDA kernels of
-    KERNEL_SYMBOLS inside them (the sweep's three in the solve, the
+    KERNEL_SYMBOLS that each launched (the sweep's three in the solve, the
     scatter in the refresh), and the solve's device-busy share: the union
     of device kernel, copy and set intervals over the `session.solve`
     window, with the longest idle gaps and the device time by kernel name.
@@ -877,13 +914,32 @@ def read_capture(path: str, engine_span: str) -> dict:
         return [d for d in device if window[0] <= d[0] and d[1] <= window[1]
                 and any(s in d[2] for s in symbols)]
 
+    # a kernel belongs to a range where it ran inside it or where the
+    # runtime call that launched it (the same correlation id) lies inside
+    # it: the profiler maps the device's clock onto the host's, and a short
+    # kernel that a range's closing synchronize waits for can then end a
+    # few µs past the range
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["name"],
+                launch_ts.get(e.get("args", {}).get("correlation")))
+               for e in events if e.get("cat") == "kernel"]
+
+    def launched_in(window, symbols):
+        return [k for k in kernels if any(s in k[2] for s in symbols)
+                and ((window[0] <= k[0] and k[1] <= window[1])
+                     or (k[3] is not None
+                         and window[0] <= k[3] <= window[1]))]
+
     found = {}
     for name, window in (("fused_ell_update", solve),
                          ("csr_block_pull", solve), ("pr_update", solve),
                          ("scatter_rows", refresh)):
-        found[name] = len(inside(window, KERNEL_SYMBOLS[name]))
-        require(found[name] > 0, f"the capture has no {name} kernel inside "
-                f"its {'solve' if window is solve else 'refresh'} range")
+        found[name] = len(launched_in(window, KERNEL_SYMBOLS[name]))
+        require(found[name] > 0, f"the capture has no {name} kernel "
+                f"launched in its "
+                f"{'solve' if window is solve else 'refresh'} range")
     busy, gaps, at = 0.0, [], solve[0]
     for a, b, _ in device:
         a, b = max(a, solve[0]), min(b, solve[1])
@@ -2526,12 +2582,14 @@ TRAIN_STEPS = 3           # 11c
 
 def _leaf_err(got: dict, want: dict, tol: float):
     """(worst |got - want| over a leaf's max |want|, the leaf), requiring
-    every leaf within `tol` of its max."""
+    every leaf within `tol` of its max; computed where `got` lies."""
     worst = (-1.0, "")
     for k, w in want.items():
-        w = w.float()
-        rel = float((got[k].float().cpu() - w).abs().max()) / max(
-            float(w.abs().max()), 1e-30)
+        x = got[k]
+        dt = torch.promote_types(torch.promote_types(x.dtype, w.dtype),
+                                 torch.float32)
+        x, w = x.to(dt), w.to(x.device, dt)
+        rel = float((x - w).abs().max()) / max(float(w.abs().max()), 1e-30)
         worst = max(worst, (rel, k))
     require(worst[0] <= tol, f"leaf {worst[1]}: {worst[0]:.3e} of its max "
                              f"(bar {tol})")
@@ -2743,8 +2801,16 @@ def train_phase(args, dev, report):
 GEMMA_ARCH = "gemma2-9b"
 GEMMA_BATCH, GEMMA_SEQ = 2, 8192    # 12a, 12b: gemma2's context length, so
                                     # the local layers' 4096 window masks
-GEMMA_PROMPT_F32 = 4608             # 12c: past the window, so the local
-                                    # layer's kernel masks and its cache rolls
+# 12c: the f32 model at gemma2's 4096 window and a prompt 64 tokens past
+# it, so the local layer's kernel masks and its cache rolls 64 times in the
+# stepped decode_steps
+GEMMA_PROMPT_F32 = 4160
+# 12b, 12d, 12e: gemma2 at full width, cut to 8 layers (4 local, 4 global)
+# for the script's time: at 42 layers its decode loops (teacher forcing,
+# three serves) and prefills took ~50 s of a normal run and ~100 s of a
+# slow one, which took 1132 s of the 1200 allowed (PERF.md keeps the
+# full-depth runs: 42 launches a prefill, all on the tensor cores)
+GEMMA_SERVE_LAYERS = 8
 GEMMA_DECODE_B = 4                  # 12d: one decode_step at position 8192
 GEMMA_TF = (2, 64, 32)              # 12d: teacher forcing, B x (prompt + gen)
 # 12a's capped cases scale q so that the scores reach the cap (at unit
@@ -2762,14 +2828,114 @@ def allowed_pairs(s: int, window) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
+def compiled_flex():
+    """The library's call for the attention kernels' yardstick: compiled
+    flex_attention (its caches under build/). Timed here only: the port
+    never calls it."""
+    from torch.nn.attention.flex_attention import flex_attention
+
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
+    return torch.compile(flex_attention, dynamic=False)
+
+
+@functools.lru_cache(maxsize=None)
+def cap_score_mod(cap):
+    """flex_attention's score_mod for a soft-cap: cap tanh(s / cap) after
+    its 1/sqrt(D) scale (one function a cap, so compiled once)."""
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+    return softcap
+
+
+def flex_inputs(dev, q, k, v, window, cap, grad=False):
+    """(q, k, v in flex_attention's [B, H, S, D] layout, its keyword
+    arguments: causal + window as the block mask, built here outside any
+    timed region, the cap as the score_mod, kv heads shared by GQA)."""
+    from torch.nn.attention.flex_attention import create_block_mask
+
+    def mask(b, h, qi, ki):
+        ok = ki <= qi
+        return ok if window is None else ok & (qi - ki < window)
+
+    S = q.shape[1]
+    ts = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    if grad:
+        ts = [x.requires_grad_() for x in ts]
+    kw = dict(block_mask=create_block_mask(mask, None, None, S, S,
+                                           device=dev),
+              score_mod=None if cap is None else cap_score_mod(cap),
+              enable_gqa=True)
+    return ts, kw
+
+
+def time_attn(args, dev, flex, q, k, v, window, cap):
+    """flash_attention at one bf16 shape: 10 calls back to back and one a
+    sample, beside its bound over the allowed pairs, its plain version
+    (round_p) and the library's one call (compiled flex_attention, held
+    to the kernel's bars against the plain version, its compilation
+    warmed up outside the timed region)."""
+    from repro_torch.kernels.flash_attn import (flash_attention_bshd,
+                                                flash_attention_bshd_plain)
+
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    pairs = allowed_pairs(S, window)
+    flops = 4 * B * H * pairs * D
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
+
+    def kern():
+        return flash_attention_bshd(q, k, v, window=window, cap=cap)
+
+    def plain():
+        return flash_attention_bshd_plain(q, k, v, window=window, cap=cap,
+                                          round_p=True)
+
+    (qt, kt, vt), fkw = flex_inputs(dev, q, k, v, window, cap)
+
+    def lib():
+        return flex(qt, kt, vt, **fkw)
+
+    t0 = time.perf_counter()
+    lib_err, lib_mean, lib_ok = attn_err_tc(lib().transpose(1, 2), plain(),
+                                            v)
+    t = dict(ms=cuda_ms(kern, args.repeats, ATTN_PER),
+             single_ms=cuda_ms(kern, args.repeats),
+             plain_ms=cuda_ms(plain, 3),
+             library_ms=cuda_ms(lib, args.repeats, ATTN_PER),
+             library_single_ms=cuda_ms(lib, args.repeats),
+             library_first_s=time.perf_counter() - t0,
+             library_err=lib_err, library_mean_err=lib_mean,
+             library_within_bars=lib_ok,
+             bound=bound(nbytes, flops, BF16_FLOPS), pairs_per_head=pairs)
+    t["tflops"] = flops / t["ms"] / 1e9
+    return t
+
+
+def log_attn_time(what, tl):
+    log(f"[time] flash_attention {what}: "
+        f"{tl['ms']:.4f} ms per call, {ATTN_PER} back to back, "
+        f"{tl['single_ms']:.4f} one call a sample "
+        f"({tl['tflops']:.1f} TFLOP/s over {tl['pairs_per_head']} "
+        f"allowed pairs a head, {100 * tl['bound'][0] / tl['ms']:.1f}% "
+        f"of the {tl['bound'][0]:.4f} ms bound ({tl['bound'][1]})); "
+        f"plain (round_p) {tl['plain_ms']:.2f} ms; flex_attention "
+        f"(compiled, the library's call) {tl['library_ms']:.4f} ms, "
+        f"{ATTN_PER} back to back, {tl['library_single_ms']:.4f} one "
+        f"call a sample, vs plain max |diff| {tl['library_err']:.3e} "
+        f"mean {tl['library_mean_err']:.3e} "
+        f"({'within' if tl['library_within_bars'] else 'OUTSIDE'} the "
+        f"kernel's bars; compiled and timed in "
+        f"{tl['library_first_s']:.1f} s)")
+
+
 def gemma_attn_checks(args, dev, report):
     """12a: flash_attention with gemma2's window, soft-cap and head width
     256 against its plain version, then its times at the local and global
     layers' shapes beside flex_attention's (the library's call) and
     SDPA's without a cap. Returns the worst error and the times."""
     import torch.nn.functional as F
-    from torch.nn.attention.flex_attention import (create_block_mask,
-                                                   flex_attention)
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn import (flash_attention,
@@ -2816,62 +2982,13 @@ def gemma_attn_checks(args, dev, report):
 
     # -- times at the local and the global layer's shapes --------------------
     # The library's call: one flex_attention computes the same function
-    # (cap tanh(s / cap) after its 1/sqrt(D) scale as the score_mod, causal
-    # and window as the block mask, kv heads shared by GQA). Its block masks
-    # are built and its compilation warmed up outside the timed region, and
-    # its output is held against the plain version. Timed here only: the
-    # port never calls it.
-    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
-                     ("TRITON_CACHE_DIR", "triton")):
-        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
-    flex = torch.compile(flex_attention, dynamic=False)
-
-    def softcap(score, b, h, qi, ki):
-        return CAP * torch.tanh(score / CAP)
-
-    def allowed(window):
-        def mask(b, h, qi, ki):
-            ok = ki <= qi
-            return ok if window is None else ok & (qi - ki < window)
-        return mask
-
+    # (the cap as its score_mod, causal and window as its block mask)
+    flex = compiled_flex()
     t = {}
     for layer, window in (("local", W), ("global", None)):
         q, k, v = qkv(S, bf, D)
-        pairs = allowed_pairs(S, window)
-        flops = 4 * B * H * pairs * D
-        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
-
-        def kern():
-            return flash_attention_bshd(q, k, v, window=window, cap=CAP)
-
-        def plain():
-            return flash_attention_bshd_plain(q, k, v, window=window,
-                                              cap=CAP, round_p=True)
-
-        block_mask = create_block_mask(allowed(window), None, None, S, S,
-                                       device=dev)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-
-        def lib():
-            return flex(qt, kt, vt, score_mod=softcap, block_mask=block_mask,
-                        enable_gqa=True)
-
-        t0 = time.perf_counter()
-        lib_err, lib_mean, lib_ok = attn_err_tc(lib().transpose(1, 2),
-                                                plain(), v)
-        t[layer] = dict(
-            ms=cuda_ms(kern, args.repeats, ATTN_PER),
-            single_ms=cuda_ms(kern, args.repeats),
-            plain_ms=cuda_ms(plain, 3),
-            library_ms=cuda_ms(lib, args.repeats, ATTN_PER),
-            library_single_ms=cuda_ms(lib, args.repeats),
-            library_first_s=time.perf_counter() - t0,
-            library_err=lib_err, library_mean_err=lib_mean,
-            library_within_bars=lib_ok,
-            bound=bound(nbytes, flops, BF16_FLOPS), pairs_per_head=pairs)
-        t[layer]["tflops"] = flops / t[layer]["ms"] / 1e9
-        del q, k, v, qt, kt, vt, block_mask
+        t[layer] = time_attn(args, dev, flex, q, k, v, window, CAP)
+        del q, k, v
     # and scaled_dot_product_attention, causal, at the global shape without
     # a cap: the yardstick of phase 9's kernel at this width
     q, k, v = qkv(S, bf, D, 1.0)
@@ -2880,22 +2997,9 @@ def gemma_attn_checks(args, dev, report):
         qt, kt, vt, is_causal=True, enable_gqa=True), args.repeats, ATTN_PER)
     del q, k, v, qt, kt, vt
     for layer, tl in t.items():
-        log(f"[time] flash_attention gemma2 {layer} bf16 {[B, S, H, D]} / kv "
-            f"{[B, S, K, D]}, cap {CAP}"
-            f"{f', window {W}' if layer == 'local' else ''}: "
-            f"{tl['ms']:.4f} ms per call, {ATTN_PER} back to back, "
-            f"{tl['single_ms']:.4f} one call a sample "
-            f"({tl['tflops']:.1f} TFLOP/s over {tl['pairs_per_head']} "
-            f"allowed pairs a head, {100 * tl['bound'][0] / tl['ms']:.1f}% "
-            f"of the {tl['bound'][0]:.4f} ms bound ({tl['bound'][1]})); "
-            f"plain (round_p) {tl['plain_ms']:.2f} ms; flex_attention "
-            f"(compiled, the library's call) {tl['library_ms']:.4f} ms, "
-            f"{ATTN_PER} back to back, {tl['library_single_ms']:.4f} one "
-            f"call a sample, vs plain max |diff| {tl['library_err']:.3e} "
-            f"mean {tl['library_mean_err']:.3e} "
-            f"({'within' if tl['library_within_bars'] else 'OUTSIDE'} the "
-            f"kernel's bars; compiled and timed in "
-            f"{tl['library_first_s']:.1f} s)")
+        log_attn_time(f"gemma2 {layer} bf16 {[B, S, H, D]} / kv "
+                      f"{[B, S, K, D]}, cap {CAP}"
+                      f"{f', window {W}' if layer == 'local' else ''}", tl)
     log(f"[time] scaled_dot_product_attention bf16 causal {[B, S, H, D]}, no "
         f"cap (the yardstick, never on the path): {sdpa_ms:.4f} ms per call, "
         f"{ATTN_PER} back to back")
@@ -2923,7 +3027,9 @@ def gemma_phase(args, dev, report):
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     err, times = gemma_attn_checks(args, dev, report)
-    cfg = get_config(GEMMA_ARCH)
+    cfg = dataclasses.replace(get_config(GEMMA_ARCH),
+                              n_layers=GEMMA_SERVE_LAYERS,
+                              repeats=GEMMA_SERVE_LAYERS // 2)
     cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     B, S, L = GEMMA_BATCH, GEMMA_SEQ, cfg.n_layers
     K, D = cfg.n_kv_heads, cfg.hd
@@ -2941,8 +3047,9 @@ def gemma_phase(args, dev, report):
             and flash_attention.launches_tc == 0,
             "the f32 prefill did not run the scalar kernel in both layers")
     cache = m32.init_cache(1, P)
-    require(cache[0]["k"].shape[1] == cfg.window and cache[1]["k"].shape[1]
-            == P, "12c: the local layer's cache is not the window's")
+    require(cache[0]["k"].shape[1] == cfg32.window
+            and cache[1]["k"].shape[1] == P,
+            "12c: the local layer's cache is not the window's")
     t0 = time.perf_counter()
     for t in range(P):
         logits, cache = m32.decode_step(cache, {"tokens": toks[:, t:t + 1]},
@@ -2951,9 +3058,10 @@ def gemma_phase(args, dev, report):
     require(flash_attention.launches == 2,
             "decode_step launched the flash_attention kernel")
     e, ok = attn_err(want, logits[:, 0], TOL_LM_F32, TOL_LM_F32)
-    log(f"[gemma] f32, 2 layers (local, global): prefill_step (kernel) vs "
-        f"{P} stepped decode_steps (plain, {time.perf_counter() - t0:.1f} s; "
-        f"the local cache rolled {P - cfg.window} times): max |diff| "
+    log(f"[gemma] f32, 2 layers (local, global), window {cfg32.window}: "
+        f"prefill_step (kernel) vs {P} stepped decode_steps (plain, "
+        f"{time.perf_counter() - t0:.1f} s; the local cache rolled "
+        f"{P - cfg32.window} times): max |diff| "
         f"{e:.3e} of logits up to {float(want.abs().max()):.3f} (bar "
         f"{TOL_LM_F32})")
     require(ok, f"gemma2 f32 prefill vs stepped decode: max |diff| {e}")
@@ -2961,7 +3069,7 @@ def gemma_phase(args, dev, report):
     del m32, cache, want, logits
     torch.cuda.empty_cache()
 
-    # -- 12b prefill_step at full width and depth ----------------------------
+    # -- 12b prefill_step at full width, GEMMA_SERVE_LAYERS layers -----------
     t0 = time.perf_counter()
     model = LMModel(cfg, device=dev, seed=args.seed)
     torch.cuda.synchronize()
@@ -3110,6 +3218,78 @@ def plain_bwd_by_kv_head(q, k, v, o, lse, do, **kw):
     return tuple(torch.cat(x, dim=2) for x in zip(*parts))
 
 
+def time_attn_bwd(args, dev, flex, q, k, v, o, lse, do, window, cap):
+    """flash_attention_bwd at one bf16 shape: 10 calls back to back and
+    one a sample, beside its bound (2.5x the forward's allowed-pair
+    FLOPs), its plain version (round_p, one kv head at a time) and the
+    library's one call: the backward of compiled flex_attention, held to
+    the kernel's bars against the plain version (a failure to compile is
+    recorded, not raised)."""
+    from repro_torch.kernels.flash_attn import flash_attention_bwd
+
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    kw = dict(window=window, cap=cap)
+    pairs = allowed_pairs(S, window)
+    flops = 2.5 * 4 * B * H * pairs * D
+    nbytes = 2 * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S
+
+    def kern():
+        return flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+    def plain():
+        return plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=True, **kw)
+
+    tl = dict(ms=cuda_ms(kern, args.repeats, ATTN_PER),
+              single_ms=cuda_ms(kern, args.repeats),
+              plain_ms=cuda_ms(plain, 3),
+              bound=bound(nbytes, flops, BF16_FLOPS), pairs_per_head=pairs)
+    tl["tflops"] = flops / tl["ms"] / 1e9
+    t0 = time.perf_counter()
+    try:
+        (qt, kt, vt), fkw = flex_inputs(dev, q, k, v, window, cap, grad=True)
+        out = flex(qt, kt, vt, **fkw)
+        dot = do.transpose(1, 2)
+
+        def lib():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        lib_got = [x.transpose(1, 2) for x in lib()]
+        want = plain()
+        lib_errs = [bwd_err(g, w) for g, w in zip(lib_got, want)]
+        del lib_got, want
+        tl.update(library_ms=cuda_ms(lib, args.repeats, ATTN_PER),
+                  library_single_ms=cuda_ms(lib, args.repeats),
+                  library_err=max(e[0] for e in lib_errs),
+                  library_within_bars=all(e[2] for e in lib_errs))
+        del qt, kt, vt, out, dot, fkw
+    except Exception as exc:              # the yardstick only, never the port
+        tl.update(library_ms=None,
+                  library_error=f"{type(exc).__name__}: "
+                                f"{str(exc).splitlines()[0][:300]}")
+    tl["library_first_s"] = time.perf_counter() - t0
+    return tl
+
+
+def log_attn_bwd_time(what, tl):
+    lib_txt = (f"flex_attention's backward (compiled, the library's "
+               f"call) {tl['library_ms']:.4f} ms, {ATTN_PER} back to "
+               f"back, {tl['library_single_ms']:.4f} one call a sample, "
+               f"vs plain max |diff| {tl['library_err']:.3e} "
+               f"({'within' if tl['library_within_bars'] else 'OUTSIDE'}"
+               f" the kernel's bars)"
+               if tl["library_ms"] is not None else
+               f"flex_attention's backward failed: {tl['library_error']}")
+    log(f"[time] flash_attention_bwd {what}: {tl['ms']:.4f} ms per "
+        f"call, {ATTN_PER} back to back, {tl['single_ms']:.4f} one call "
+        f"a sample ({tl['tflops']:.1f} TFLOP/s over {tl['pairs_per_head']} "
+        f"allowed pairs a head, {100 * tl['bound'][0] / tl['ms']:.1f}% of "
+        f"the {tl['bound'][0]:.4f} ms bound ({tl['bound'][1]})); plain "
+        f"(round_p, by kv head) {tl['plain_ms']:.2f} ms; {lib_txt} "
+        f"({tl['library_first_s']:.1f} s)")
+
+
 def gemma_bwd_checks(args, dev, report):
     """13a: flash_attention_bwd with gemma2's window, soft-cap and head
     width 256 against flash_attention_bwd_plain on the forward kernel's o
@@ -3119,9 +3299,6 @@ def gemma_bwd_checks(args, dev, report):
     window and cap; then the local and global shapes' times beside their
     bound, the plain version and the library's one call (the backward of
     compiled flex_attention). Returns the worst error and the times."""
-    from torch.nn.attention.flex_attention import (create_block_mask,
-                                                   flex_attention)
-
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn import (FlashAttentionFn,
                                                 flash_attention_bshd,
@@ -3212,90 +3389,16 @@ def gemma_bwd_checks(args, dev, report):
 
     # -- times at the local and the global layer's shapes --------------------
     # The library's call: the backward of one compiled flex_attention (the
-    # cap as its score_mod, causal and window as its block mask, GQA), held
-    # to the kernel's bars against the plain version; timed here only, the
-    # port never calls it. A failure to compile is recorded, not raised.
-    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
-                     ("TRITON_CACHE_DIR", "triton")):
-        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
-    flex = torch.compile(flex_attention, dynamic=False)
-
-    def softcap(score, b, h, qi, ki):
-        return CAP * torch.tanh(score / CAP)
-
-    def allowed(window):
-        def mask(b, h, qi, ki):
-            ok = ki <= qi
-            return ok if window is None else ok & (qi - ki < window)
-        return mask
-
+    # cap as its score_mod, causal and window as its block mask, GQA)
+    flex = compiled_flex()
     t = {}
     for layer, window in (("local", W), ("global", None)):
         q, k, v, o, lse, do = operands(S, bf, D, window, CAP)
-        kw = dict(window=window, cap=CAP)
-        pairs = allowed_pairs(S, window)
-        flops = 2.5 * 4 * B * H * pairs * D
-        nbytes = 2 * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S
-
-        def kern():
-            return flash_attention_bwd(q, k, v, o, lse, do, **kw)
-
-        def plain():
-            return plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=True,
-                                        **kw)
-
-        tl = dict(ms=cuda_ms(kern, args.repeats, ATTN_PER),
-                  single_ms=cuda_ms(kern, args.repeats),
-                  plain_ms=cuda_ms(plain, 3),
-                  bound=bound(nbytes, flops, BF16_FLOPS),
-                  pairs_per_head=pairs)
-        tl["tflops"] = flops / tl["ms"] / 1e9
-        t0 = time.perf_counter()
-        try:
-            block_mask = create_block_mask(allowed(window), None, None, S, S,
-                                           device=dev)
-            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                          for x in (q, k, v))
-            out = flex(qt, kt, vt, score_mod=softcap, block_mask=block_mask,
-                       enable_gqa=True)
-            dot = do.transpose(1, 2)
-
-            def lib():
-                return torch.autograd.grad(out, (qt, kt, vt), dot,
-                                           retain_graph=True)
-
-            lib_got = [x.transpose(1, 2) for x in lib()]
-            want = plain()
-            lib_errs = [bwd_err(g, w) for g, w in zip(lib_got, want)]
-            del lib_got, want
-            tl.update(library_ms=cuda_ms(lib, args.repeats, ATTN_PER),
-                      library_single_ms=cuda_ms(lib, args.repeats),
-                      library_err=max(e[0] for e in lib_errs),
-                      library_within_bars=all(e[2] for e in lib_errs))
-            del qt, kt, vt, out, dot, block_mask
-        except Exception as exc:          # the yardstick only, never the port
-            tl.update(library_ms=None,
-                      library_error=f"{type(exc).__name__}: "
-                                    f"{str(exc).splitlines()[0][:300]}")
-        tl["library_first_s"] = time.perf_counter() - t0
-        t[layer] = tl
-        lib_txt = (f"flex_attention's backward (compiled, the library's "
-                   f"call) {tl['library_ms']:.4f} ms, {ATTN_PER} back to "
-                   f"back, {tl['library_single_ms']:.4f} one call a sample, "
-                   f"vs plain max |diff| {tl['library_err']:.3e} "
-                   f"({'within' if tl['library_within_bars'] else 'OUTSIDE'}"
-                   f" the kernel's bars)"
-                   if tl["library_ms"] is not None else
-                   f"flex_attention's backward failed: {tl['library_error']}")
-        log(f"[time] flash_attention_bwd gemma2 {layer} bf16 {[B, S, H, D]} "
-            f"/ kv {[B, S, K, D]}, cap {CAP}"
-            f"{f', window {W}' if window else ''}: {tl['ms']:.4f} ms per "
-            f"call, {ATTN_PER} back to back, {tl['single_ms']:.4f} one call "
-            f"a sample ({tl['tflops']:.1f} TFLOP/s over {pairs} allowed "
-            f"pairs a head, {100 * tl['bound'][0] / tl['ms']:.1f}% of the "
-            f"{tl['bound'][0]:.4f} ms bound ({tl['bound'][1]})); plain "
-            f"(round_p, by kv head) {tl['plain_ms']:.2f} ms; {lib_txt} "
-            f"({tl['library_first_s']:.1f} s)")
+        t[layer] = time_attn_bwd(args, dev, flex, q, k, v, o, lse, do,
+                                 window, CAP)
+        log_attn_bwd_time(f"gemma2 {layer} bf16 {[B, S, H, D]} / kv "
+                          f"{[B, S, K, D]}, cap {CAP}"
+                          f"{f', window {W}' if window else ''}", t[layer])
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
     rep.update(times=t, max_abs_err=err)
@@ -3647,6 +3750,654 @@ def gemma_train_phase(args, dev, report):
     log(f"[gemma-train] phase 13 {rep['phase_s']:.1f} s")
     report.setdefault("gemma_train", {})["train"] = rep
     return dict(launches=launches, max_abs_err=err, times=times)
+
+
+# -- phase 14: the recurrent families -----------------------------------------
+REC_ARCH, RWKV_ARCH = "recurrentgemma-2b", "rwkv6-1.6b"
+REC_BATCH, REC_SEQ = 2, 8192        # 14a's forward; 14b and 14c's prefill
+REC_BWD_BATCH = 1                   # 14a's backward
+REC_DECODE_B = 4                    # 14b, 14c: decode_step at position 8192
+LONG_CONTEXT = 524_288              # long_500k's decode position (shapes.py)
+# 14b: the f32 model at one pattern (rec, rec, attn_local) against stepped
+# decode past the 2048 window, so the local layer's kernel masks and its
+# cache rolls 64 times
+REC_F32_PROMPT = 2112
+RWKV_F32 = (2, 256, 16)             # 14c: layers, prompt, steps continued
+REC_PARITY = (2, 512, 128)          # 14d: B, S, recurrentgemma's window
+# 14d's bar for rwkv6: its decays start at 1 - 2.5e-3, so the wkv state
+# sums its tokens almost undamped and a gradient is a sum with cancellation
+# whose f32 rounding grows with the tokens summed (at the smoke widths and
+# 32 tokens both packages' f32 gradients lie 0.9-1.0e-5 of a leaf's max
+# from the f64 ones: tests/test_torch_train.py's
+# test_rwkv6_f32_gradients_are_rounding_of_f64). The card and the host sum
+# in other orders; both are held to the f64 step (the witness) and to each
+# other at the JAX package's own bar for a reassociated wkv sum, the 1e-4
+# of tests/test_recurrence.py's chunk-size invariance, of a leaf's max
+TOL_TRAIN_RWKV = 1e-4
+# 14e: recurrentgemma at full width cut to one pattern and the suffix (four
+# rec layers and one attn_local: 1.75 B parameters, most of them the
+# 256,000-word embedding and head), B 1 x 4096; rwkv6 uncut on 2 x 4096
+# (train_4k's length)
+REC_TRAIN = (1, 4096, 5)
+RWKV_TRAIN = (2, 4096)
+
+
+def launch_wrappers() -> tuple:
+    """Every kernel wrapper (each counts its launches)."""
+    from repro_torch.kernels import (csr_block_pull, ell_pull,
+                                     fused_ell_update, linf_delta, pr_update)
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bwd)
+    from repro_torch.kernels.stream_scatter import scatter_rows
+
+    return (fused_ell_update, csr_block_pull, pr_update, scatter_rows,
+            ell_pull, linf_delta, flash_attention, flash_attention_bwd)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    return {w.__name__: w.launches for w in launch_wrappers()}
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for c in cache
+               for t in c.values())
+
+
+def rec_attn_checks(args, dev, report):
+    """14a: flash_attention and flash_attention_bwd at recurrentgemma's
+    attention shape (10 heads over 1 kv head, D 256, window 2048, no cap;
+    q x GEMMA_Q_SCALE), bf16 on the tensor cores: the forward at B 2 x 8192
+    against its plain version at phase 9's bars, the backward at B 1 x 8192
+    against flash_attention_bwd_plain (one kv head at a time) at 11a's
+    bars, two runs bit for bit; then both timed as 12a and 13a time
+    gemma2's. Returns (worst forward error, worst backward error,
+    times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain,
+                                                flash_attention_bwd)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(REC_ARCH)
+    H, K, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+    S = REC_SEQ
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 14)
+    rep = dict(checks=[])
+    flex = compiled_flex()
+    shape = f"H {H} over K {K}, D {D}, S = T = {S}, window {W}, no cap"
+
+    def operands(B):
+        q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=dev)
+                       for h in (H, K, K, H))
+        return (q * GEMMA_Q_SCALE).to(bf), k.to(bf), v.to(bf), do.to(bf)
+
+    # -- the forward, B 2 -----------------------------------------------------
+    B = REC_BATCH
+    q, k, v, _ = operands(B)
+    tc0 = flash_attention.launches_tc
+    got = flash_attention_bshd(q, k, v, window=W)
+    require(flash_attention.launches_tc - tc0 == 1 and got.shape == q.shape
+            and got.dtype == bf, "14a: the forward did not run on the "
+            "tensor cores at recurrentgemma's shape")
+    err_f = hold_attn(
+        rep["checks"], f"recurrentgemma bf16 ({shape})", got,
+        lambda r: flash_attention_bshd_plain(q, k, v, window=W, round_p=r),
+        v, list(k.shape))
+    del got
+    t = dict(forward=time_attn(args, dev, flex, q, k, v, W, None))
+    log_attn_time(f"recurrentgemma bf16 B {B} ({shape})", t["forward"])
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # -- the backward, B 1 ----------------------------------------------------
+    B = REC_BWD_BATCH
+    q, k, v, do = operands(B)
+    o, lse = flash_attention_bshd(q, k, v, window=W, return_lse=True)
+    tc0 = flash_attention_bwd.launches_tc
+    got = flash_attention_bwd(q, k, v, o, lse, do, window=W)
+    again = flash_attention_bwd(q, k, v, o, lse, do, window=W)
+    require(flash_attention_bwd.launches_tc - tc0 == 2,
+            "14a: the backward did not run on the tensor cores")
+    want = plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=True, window=W)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs, err_b = {}, 0.0
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        require(g.shape == w.shape and g.dtype == bf,
+                f"14a flash_attention_bwd {gname}: shape or dtype")
+        e, rel, ok = bwd_err(g, w)
+        errs[gname] = (e, rel)
+        err_b = max(err_b, e)
+        require(ok, f"14a flash_attention_bwd {gname}: max |diff| {e} "
+                    f"({rel:.3e} of max |want|)")
+    require(same, "14a flash_attention_bwd: two runs differ")
+    rep["checks"].append(dict(case=f"bwd bf16 ({shape})", q=list(q.shape),
+                              kv=list(k.shape), errs=errs,
+                              bit_identical=same))
+    log(f"[rec] flash_attention_bwd bf16 q {list(q.shape)} kv "
+        f"{list(k.shape)} (window {W}, tensor-core kernels, G = {H // K}): "
+        + ", ".join(f"{g} {e:.3e} ({r:.2e} of max)"
+                    for g, (e, r) in errs.items())
+        + f"; repeat bit-identical {same}")
+    del got, again, want
+    t["backward"] = time_attn_bwd(args, dev, flex, q, k, v, o, lse, do, W,
+                                  None)
+    log_attn_bwd_time(f"recurrentgemma bf16 B {B} ({shape})", t["backward"])
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    rep.update(times=t, max_abs_err=err_f, max_abs_err_bwd=err_b)
+    report.setdefault("recurrent", {})["attn"] = rep
+    return err_f, err_b, t
+
+
+def long_decode(model, tok, rep, name):
+    """The decode cache at long_500k's position (its bytes equal to the
+    cache at the window's length: constant-size states, the local layers'
+    window) and decode_step at the last 8 positions before it, one token
+    each, timed by CUDA events."""
+    cfg = model.cfg
+    long = model.init_cache(1, LONG_CONTEXT)
+    nb = cache_bytes(long)
+    short = cache_bytes(model.init_cache(1, cfg.window or 2048))
+    require(nb == short, f"{name}: the cache at {LONG_CONTEXT} holds {nb} "
+                         f"bytes, at the window {short}")
+    times = []
+    for pos in range(LONG_CONTEXT - 8, LONG_CONTEXT):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, long = model.decode_step(long, {"tokens": tok[:1]}, pos)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    require(bool(torch.isfinite(logits).all()),
+            f"{name}: decode at {LONG_CONTEXT} not finite")
+    rep.update(long_cache_bytes=nb, long_decode_ms=times)
+    log(f"[time] {name} decode_step at positions {LONG_CONTEXT - 8}-"
+        f"{LONG_CONTEXT - 1} (long_500k), B 1, cache {nb / 2**20:.3f} MiB "
+        f"(= the cache at {cfg.window or 2048} positions): " + " / ".join(
+            f"{x:.2f}" for x in times) + " ms")
+
+
+def rec_serve_checks(args, dev, arch, report):
+    """14b (recurrentgemma-2b) and 14c (rwkv6-1.6b) served at full size,
+    bf16, weights from --seed: the f32 model cut in depth, prefill_step
+    against stepped decode_step (plain) at TOL_LM_F32, states included
+    (and for rwkv6, 16 more steps from the prefill's returned state
+    against continued stepping); prefill_step on 2 x 8192 with the launch
+    counts set to 0 just before (one flash_attention a local layer, all on
+    the tensor cores; rwkv6 none at all), its time and peak memory;
+    decode_step at B 4, position 8192, and at long_500k's positions;
+    serve (4, 64 + 32) twice. Returns the prefill's flash_attention
+    launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import LMModel, ssm
+    from repro_torch.models.transformer import layer_kinds
+
+    cfg = get_config(arch)
+    rep = report.setdefault("recurrent", {}).setdefault(arch, {})
+    is_rec = arch == REC_ARCH
+
+    # -- the f32 model, cut in depth: prefill (kernel) vs stepped decode -----
+    if is_rec:
+        cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=3,
+                                    repeats=1, suffix=())
+        P, G = REC_F32_PROMPT, 0
+    else:
+        L32, P, G = RWKV_F32
+        cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=L32,
+                                    repeats=L32)
+    m32 = LMModel(cfg32, device=dev, seed=args.seed)
+    toks = batch_for(cfg32, 1, P + G, 0, args.seed)["tokens"]
+    n0 = launch_counts()
+    want, pcache = m32.prefill_step({"tokens": toks[:, :P]})
+    n1 = launch_counts()
+    n_attn = sum(k == "attn_local" for k in layer_kinds(cfg32))
+    require(n1["flash_attention"] - n0["flash_attention"] == n_attn
+            and all(n1[k] == n0[k] for k in n0 if k != "flash_attention"),
+            f"{arch} f32 prefill launches {n0} -> {n1}")
+    cache = m32.init_cache(1, P + G)
+    t0 = time.perf_counter()
+    for t in range(P):
+        logits, cache = m32.decode_step(cache, {"tokens": toks[:, t:t + 1]},
+                                        t)
+    torch.cuda.synchronize()
+    require(launch_counts() == n1, f"{arch}: decode_step launched a kernel")
+    e, ok = attn_err(want, logits[:, 0], TOL_LM_F32, TOL_LM_F32)
+    # the recurrent layers' states after the prompt, each within
+    # TOL_LM_F32 of its max
+    e_state = 0.0
+    for got_c, c in zip(pcache, cache):
+        if isinstance(got_c, dict):
+            for n, x in got_c.items():
+                e_state = max(e_state, float((x - c[n]).abs().max()) / max(
+                    1.0, float(c[n].abs().max())))
+    require(ok and e_state <= TOL_LM_F32,
+            f"{arch} f32 prefill vs stepped decode: logits {e}, states "
+            f"{e_state}")
+    e_cont = 0.0
+    for t in range(P, P + G):
+        step = {"tokens": toks[:, t:t + 1]}
+        la, pcache = m32.decode_step(pcache, step, t)
+        lb, cache = m32.decode_step(cache, step, t)
+        e_cont = max(e_cont, float((la - lb).abs().max()))
+    require(e_cont <= TOL_LM_F32, f"{arch}: decode from the prefill's state "
+                                  f"vs continued stepping {e_cont}")
+    torch.cuda.synchronize()
+    rep.update(f32_prefill_vs_decode=e, f32_states=e_state,
+               f32_continued=e_cont)
+    log(f"[rec] {arch} f32, {cfg32.n_layers} layers ("
+        f"{', '.join(layer_kinds(cfg32))}): prefill_step (kernel) vs {P} "
+        f"stepped decode_steps (plain, {time.perf_counter() - t0:.1f} s"
+        + (f"; the local cache rolled {P - cfg.window} times" if is_rec
+           else f"; then {G} steps from the prefill's state vs continued "
+                f"stepping: {e_cont:.3e}")
+        + f"): logits max |diff| {e:.3e} of up to "
+        f"{float(want.abs().max()):.3f}, states {e_state:.3e} of their max "
+        f"(bar {TOL_LM_F32})")
+    del m32, cache, pcache, want, logits
+    torch.cuda.empty_cache()
+
+    # -- prefill_step at full size --------------------------------------------
+    B, S = REC_BATCH, REC_SEQ
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = layer_kinds(cfg)
+    n_attn = sum(k == "attn_local" for k in kinds)
+    log(f"[rec] {arch}: {n_params / 1e9:.3f} B parameters ({cfg.n_layers} "
+        f"layers: {kinds.count('rec')} rec, {kinds.count('rwkv')} rwkv, "
+        f"{n_attn} attn_local; d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}), drawn in {time.perf_counter() - t0:.1f} s")
+    batch = batch_for(cfg, B, S, 0, args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    for w in launch_wrappers():
+        w.launches = 0
+    flash_attention.launches_tc = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    last, caches = model.prefill_step(batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    first_ms = ev[0].elapsed_time(ev[1])
+    counts = launch_counts()
+    log(f"[launches] {arch} prefill path: {counts}, flash_attention on the "
+        f"tensor cores {flash_attention.launches_tc}")
+    require(counts["flash_attention"] == n_attn
+            and flash_attention.launches_tc == n_attn
+            and all(v == 0 for k, v in counts.items()
+                    if k != "flash_attention"),
+            f"{arch}'s prefill_step launches {counts}, want flash_attention "
+            f"{n_attn} on the tensor cores and nothing else")
+    require(last.shape == (B, cfg.vocab) and bool(torch.isfinite(last).all()),
+            f"{arch}'s prefill_step: last logits not finite")
+    for kind, c in zip(kinds, caches):
+        if kind == "attn_local":
+            ok = c[0].shape == (B, S, cfg.n_kv_heads, cfg.hd)
+        elif kind == "rec":
+            ok = c["h"].shape == (B, cfg.rec.lru_width) and \
+                c["conv"].dtype == torch.float32
+        else:
+            ok = c["s"].shape == (B, cfg.d_model // cfg.rec.head_dim,
+                                  cfg.rec.head_dim, cfg.rec.head_dim)
+        require(ok and len(caches) == cfg.n_layers,
+                f"{arch}'s prefill caches ({kind})")
+    del caches, last
+    # the counted call and one more (rwkv6's takes seconds: no warm-up needed,
+    # the plain ops compile nothing)
+    rep["prefill_ms"] = [first_ms, cuda_ms(lambda: model.prefill_step(batch),
+                                           1)]
+    rep["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[time] {arch} prefill_step {B} x {S}: " + " / ".join(
+        f"{x:.1f}" for x in rep["prefill_ms"]) + f" ms (the counted call, "
+        f"then one more; {B * S / rep['prefill_ms'][-1]:.0f} tokens/ms); "
+        f"peak allocated {rep['prefill_peak_bytes'] / 2**30:.3f} GiB")
+    rep.update(n_params=n_params, prefill_launches=counts["flash_attention"])
+
+    # -- the plain recurrence of one layer at the prefill's shape -------------
+    # (no kernel: later scan-kernel work starts from these times and bounds;
+    # the bound's operations are the sequential recurrence's, 2 a channel
+    # and token for RG-LRU, 5 dk^2 a head and token for the wkv)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 140)
+    if is_rec:
+        w = cfg.rec.lru_width
+        a = torch.rand(B, S, w, generator=gen, device=dev)
+        b = torch.randn(B, S, w, generator=gen, device=dev)
+        ops = (lambda: ssm._linear_scan(a, b), "RG-LRU's _linear_scan",
+               [B, S, w], 3 * B * S * w * 4, 2 * B * S * w, "rec")
+    else:
+        dk, C = cfg.rec.head_dim, cfg.rec.chunk
+        H = cfg.d_model // dk
+        r, k_, v = (torch.randn(B, S // C, C, H, dk, generator=gen,
+                                device=dev) for _ in range(3))
+        wl = -0.01 * torch.rand(B, S // C, C, H, dk, generator=gen,
+                                device=dev)
+        u = torch.zeros(H, dk, device=dev)
+        s0 = torch.zeros(B, H, dk, dk, device=dev)
+        ops = (lambda: ssm._wkv(r, k_, v, wl, u, s0), "RWKV-6's _wkv",
+               [B, S, H, dk], (5 * B * S * H * dk + 2 * B * H * dk * dk
+                               + H * dk) * 4, 5 * B * S * H * dk * dk,
+               "rwkv")
+    fn, what, shape, nbytes, flops, kind = ops
+    rep["recurrence"] = dict(ms=cuda_ms(fn, 3),
+                             bound=bound(nbytes, flops, FP32_FLOPS),
+                             layers=kinds.count(kind))
+    t = rep["recurrence"]
+    log(f"[time] {arch} plain {what} {shape} f32, one layer's recurrence: "
+        f"{t['ms']:.3f} ms ({t['layers']} layers: "
+        f"{t['ms'] * t['layers']:.1f} ms of the prefill), bound "
+        f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    del ops, fn
+    torch.cuda.empty_cache()
+
+    # -- decode at position 8192 and at long_500k's ---------------------------
+    Bd = REC_DECODE_B
+    tok = torch.as_tensor(batch_for(cfg, Bd, 2, 0, args.seed)["tokens"][
+        :, -1:], device=dev)
+    cache = model.init_cache(Bd, S + 1)
+    rep["decode_ms"] = cuda_ms(
+        lambda: model.decode_step(cache, {"tokens": tok}, S), args.repeats)
+    rep["decode_cache_bytes"] = cache_bytes(cache)
+    log(f"[time] {arch} decode_step, {Bd} sequences at position {S} (cache "
+        f"{rep['decode_cache_bytes'] / 2**20:.3f} MiB): "
+        f"{rep['decode_ms']:.2f} ms per step")
+    del cache
+    long_decode(model, tok, rep, arch)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # -- serve: twice with one seed -------------------------------------------
+    (a, tps_a), (b, tps_b) = (serve(cfg, batch=4, prompt_len=64, gen=32,
+                                    seed=args.seed, device=dev)
+                              for _ in range(2))
+    log(f"[rec] {arch} serve batch 4, prompt 64, gen 32: {tps_a:.1f} / "
+        f"{tps_b:.1f} tokens/s; first tokens {a[:, :6].tolist()}")
+    require(a.shape == (4, 32) and np.array_equal(a, b)
+            and int(a.min()) >= 0 and int(a.max()) < cfg.vocab,
+            f"{arch} serve is not deterministic or left the vocabulary")
+    rep["serve_tokens_per_s"] = [tps_a, tps_b]
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def rec_train_parity(args, dev, report):
+    """14d: each family at full width in f32 on the card and on the CPU
+    from the same weights, B 2 x 512, one train_step (AdamW) each:
+    recurrentgemma at one pattern (rec, rec, attn_local) with its window
+    cut to 128 so that it masks, rwkv6 at 2 layers. Loss and grad norm
+    relative; m (0.1 x the clipped gradient: the gradients, leaf by leaf)
+    of each leaf's max, v at 2 x; the weights within AdamW's sign-step bar
+    (11b's). The bars: TOL_TRAIN; TOL_TRAIN_RWKV for rwkv6, with its
+    witness: the same step's m in f64 on the card (`grads_f64`), which the
+    card's and the host's f32 m each lie within, and which two chunkings
+    give alike to 1e-10. The host's results are compared on the card. A
+    parity check, not the path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.models import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, W = REC_PARITY
+    out = report.setdefault("recurrent", {}).setdefault("parity", {})
+    for arch, cut in ((REC_ARCH, dict(n_layers=3, repeats=1, suffix=(),
+                                      window=W)),
+                      (RWKV_ARCH, dict(n_layers=2, repeats=2))):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        t0 = time.perf_counter()
+        card = LMModel(cfg, device=dev, seed=args.seed)
+        # the CPU's copy: the same seed's weights drawn on the card, moved
+        cpu = LMModel(cfg, device=dev, seed=args.seed).to("cpu")
+        cpu.device = torch.device("cpu")
+        batch = batch_for(cfg, B, S, 0, args.seed)
+        n_attn = int(arch == REC_ARCH)
+        tol = TOL_TRAIN if n_attn else TOL_TRAIN_RWKV
+        n0 = launch_counts()
+        rep = {}
+        m64 = None if n_attn else {
+            chunk: adamw_m_f64(card, cfg, batch, chunk)
+            for chunk in (cfg.rec.chunk, cfg.rec.chunk // 2)}
+        og, mg = card.train_step(card.init_opt(), batch)
+        t1 = time.perf_counter()
+        oc, mc = cpu.train_step(cpu.init_opt(), batch)
+        rep["host_step_s"] = time.perf_counter() - t1
+        for key in ("loss", "grad_norm"):
+            rel = abs(float(mg[key]) - float(mc[key])) / abs(float(mc[key]))
+            require(rel <= tol, f"14d {arch} train_step {key}: {rel:.3e}")
+            rep[f"{key}_rel"] = rel
+        rep["m_worst"] = _leaf_err(og.m, oc.m, tol)
+        rep["v_worst"] = _leaf_err(og.v, oc.v, 2 * tol)
+        worst = 0.0
+        card_w = card.params.state_dict()
+        for k, p in cpu.params.state_dict().items():
+            g = (oc.m[k].to(dev) / 0.1).abs()        # the clipped gradient
+            bar = 1e-6 + TRAIN_LR * torch.clamp(
+                2 * tol * g.max() / (g + TRAIN_EPS), max=2.0)
+            diff = (card_w[k] - p.to(dev)).abs()
+            worst = max(worst, float((diff / bar).max()))
+            require(bool((diff <= bar).all()),
+                    f"14d {arch} weights {k} after the step")
+        rep["weights_worst_of_bar"] = worst
+        what = (f"train_step loss {rep['loss_rel']:.2e}, grad norm "
+                f"{rep['grad_norm_rel']:.2e} relative; m (the gradients) "
+                f"worst leaf {rep['m_worst'][1]} {rep['m_worst'][0]:.2e} of "
+                f"its max, v {rep['v_worst'][0]:.2e}; weights at {worst:.3f}"
+                f" of their bar")
+        if m64 is not None:
+            want, other = m64[cfg.rec.chunk], m64[cfg.rec.chunk // 2]
+            rep["f64_witness"] = {
+                "card": _leaf_err(og.m, want, tol)[0],
+                "host": _leaf_err({k: x.to(dev) for k, x in oc.m.items()},
+                                  want, tol)[0],
+                "f64_chunks": _leaf_err(other, want, 1e-10)[0]}
+            what += ("; against the f64 step (the witness): card "
+                     f"{rep['f64_witness']['card']:.2e}, host "
+                     f"{rep['f64_witness']['host']:.2e} of a leaf's max, "
+                     f"f64 at chunks {cfg.rec.chunk} and "
+                     f"{cfg.rec.chunk // 2} "
+                     f"{rep['f64_witness']['f64_chunks']:.1e}")
+        del og, oc, card_w, m64
+        n = {k: v - n0[k] for k, v in launch_counts().items()}
+        require(n["flash_attention"] == 2 * n_attn
+                and n["flash_attention_bwd"] == n_attn,
+                f"14d {arch}: launches {n}")
+        rep.update(s=time.perf_counter() - t0,
+                   host_peak_rss_gib=peak_rss_gib())
+        log(f"[rec-train] 14d {arch} full width, {cfg.n_layers} layers, f32"
+            f"{f', window {W}' if n_attn else ''}, {B} x {S}, card vs CPU: "
+            f"{what} (bar {tol}); {rep['s']:.1f} s (the host's train_step "
+            f"{rep['host_step_s']:.1f} s), host peak RSS "
+            f"{rep['host_peak_rss_gib']:.1f} GiB")
+        out[arch] = rep
+        del card, cpu
+        torch.cuda.empty_cache()
+
+
+def adamw_m_f64(model, cfg, batch, chunk: int) -> dict:
+    """The first AdamW step's m (0.1 x the gradient clipped to norm 1) of
+    `model`'s loss with every tensor in f64 on its device, RWKV's chunk
+    set to `chunk`: the f32 weights widened, and `.float()` (the f32 casts
+    of the norms, gates and recurrences) leaving f64 tensors f64."""
+    import dataclasses
+
+    from repro_torch.models import LMModel
+
+    cfg64 = dataclasses.replace(cfg, rec=dataclasses.replace(cfg.rec,
+                                                             chunk=chunk))
+    m64 = LMModel(cfg64, device=model.device, seed=0)
+    m64.params.load_state_dict(model.params.state_dict())
+    m64.params.double()
+    to_f32 = torch.Tensor.float
+    torch.Tensor.float = (lambda t, *a, **k: t if t.dtype == torch.float64
+                          else to_f32(t, *a, **k))
+    try:
+        loss, _ = m64.loss(batch)
+        w = dict(m64.params.named_parameters())
+        g = dict(zip(w, torch.autograd.grad(loss, list(w.values()))))
+    finally:
+        torch.Tensor.float = to_f32
+    gn = torch.sqrt(sum(torch.sum(x * x) for x in g.values()))
+    scale = torch.clamp(1.0 / gn, max=1.0)
+    return {k: 0.1 * x * scale for k, x in g.items()}
+
+
+def can_move(p: torch.Tensor, steps: int) -> bool:
+    """Whether `steps` AdamW steps, each moving an entry by at most
+    lr (1 + wd |p|), can change a bf16 leaf: not where every entry is
+    nonzero and that sum stays under half the bf16 spacing just below it
+    (rwkv6's group-norm weights start at 1.0, where that is 2^-9)."""
+    if p.dtype != torch.bfloat16:
+        return True
+    a = p.float().abs()
+    if bool((a == 0).any()):
+        return True
+    half = torch.ldexp(torch.ones_like(a), torch.frexp(a)[1] - 10)
+    return bool((steps * TRAIN_LR * (1 + 0.1 * a) >= half).any())
+
+
+def rec_train_run(args, dev, report, arch):
+    """14e: train() of one family, bf16, AdamW, TRAIN_STEPS steps, in the
+    allocator's fixed segments, with the launch counts set to 0 just
+    before: rwkv6-1.6b uncut on 2 x 4096, no kernel; recurrentgemma-2b at
+    full width cut to 5 layers on 1 x 4096, two flash_attention (forward
+    and remat) and one flash_attention_bwd a step in its one attn_local
+    layer, all on the tensor cores. Finite losses, every leaf moved but
+    bf16 ones that the steps cannot move (`can_move`); the steps' times
+    and tokens/s, the peak memory, then one more step's device-busy time
+    under torch.profiler against train()'s last step. Returns the path's
+    launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bwd)
+    from repro_torch.models import LMModel
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.train import train
+
+    cfg = get_config(arch)
+    if arch == REC_ARCH:
+        B, S, L = REC_TRAIN
+        cfg = dataclasses.replace(cfg, n_layers=L, repeats=1)
+    else:
+        B, S = RWKV_TRAIN
+    n_attn = layer_kinds(cfg).count("attn_local")
+    require(not EXPANDABLE[0], "14e runs in the allocator's fixed segments")
+    rep = dict(arch=arch, layers=cfg.n_layers, batch=B, seq=S,
+               steps=TRAIN_STEPS, allocator=torch.cuda.get_allocator_backend(),
+               expandable_segments=EXPANDABLE[0])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a0 = alloc_counts()
+    for w in launch_wrappers():
+        w.launches = 0
+    flash_attention.launches_tc = flash_attention_bwd.launches_tc = 0
+    params, hist = train(cfg, steps=TRAIN_STEPS, batch=B, seq=S, log_every=1,
+                         seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    counts.update(flash_attention_tc=flash_attention.launches_tc,
+                  flash_attention_bwd_tc=flash_attention_bwd.launches_tc)
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=2 * n_attn * TRAIN_STEPS,
+                flash_attention_tc=2 * n_attn * TRAIN_STEPS,
+                flash_attention_bwd=n_attn * TRAIN_STEPS,
+                flash_attention_bwd_tc=n_attn * TRAIN_STEPS)
+    log(f"[launches] {arch} training path, {TRAIN_STEPS} steps: {counts}")
+    require(counts == want, f"{arch} training launches {counts}, want "
+                            f"{want}")
+    rep["alloc"] = {k: v - a0[k] for k, v in alloc_counts().items()}
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rep["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    rep["n_params"] = sum(p.numel() for p in params.parameters())
+    require(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                for h in hist), f"{arch} training losses {hist}")
+    fresh = LMModel(cfg, device=dev, seed=args.seed).params.state_dict()
+    still = [k for k, p in params.state_dict().items()
+             if torch.equal(p, fresh[k])]
+    stuck = [k for k in still if not can_move(fresh[k], TRAIN_STEPS)]
+    require(still == stuck, f"{arch} weights that did not move: {still[:5]}")
+    rep["bf16_leaves_that_cannot_move"] = stuck
+    del params, fresh
+    secs = [hist[0]["sec"]] + [b["sec"] - a["sec"]
+                               for a, b in zip(hist, hist[1:])]
+    rep.update(history=hist, step_s=secs,
+               tokens_per_s=[B * S / x for x in secs])
+    log(f"[train] {arch}: every leaf moved but bf16 leaves that "
+        f"{TRAIN_STEPS} AdamW steps cannot move: {stuck}")
+    log(f"[time] {arch} train_step {B} x {S} bf16, {cfg.n_layers} layers "
+        f"({rep['n_params'] / 1e9:.3f} B parameters): first "
+        f"{1e3 * secs[0]:.1f} ms, then " + " / ".join(
+            f"{1e3 * x:.1f}" for x in secs[1:]) + " ms ("
+        + " / ".join(f"{t:.0f}" for t in rep["tokens_per_s"][1:])
+        + " tokens/s); losses " + " / ".join(f"{h['loss']:.4f}" for h in hist)
+        + ", grad norms " + " / ".join(f"{h['grad_norm']:.3f}" for h in hist))
+    log(f"[memory] {arch} training peak allocated "
+        f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB, reserved "
+        f"{rep['peak_reserved_bytes'] / 2**30:.3f} GiB, fixed segments; the "
+        f"allocator over the {TRAIN_STEPS} steps: {rep['alloc']}")
+    torch.cuda.empty_cache()
+
+    # one more step under torch.profiler (the process is warm: train()
+    # ran the same step), its device time against train()'s last step
+    model = LMModel(cfg, device=dev, seed=args.seed)
+    opt = [model.init_opt()]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in batch_for(cfg, B, S, 0, args.seed).items()}
+
+    def step():
+        opt[0], _ = model.train_step(opt[0], batch)
+
+    wall_ms = 1e3 * secs[-1]
+    busy = step_device_busy(step)
+    if busy:
+        busy["busy_of_unprofiled"] = busy["busy_ms"] / wall_ms
+    rep["device_busy"] = busy
+    log(f"[time] {arch} train step under torch.profiler: " + (
+            f"the device busy {busy['busy_ms']:.1f} ms, "
+            f"{100 * busy['busy_share']:.1f}% of the profiled step's "
+            f"{busy['step_ms']:.1f} ms and "
+            f"{100 * busy['busy_of_unprofiled']:.1f}% of train()'s last "
+            f"step ({wall_ms:.1f} ms); the most device time: " + ", ".join(
+                f"{n} {ms:.1f} ms" for n, ms in busy["top_ms"])
+            if busy else "the capture holds no device event (not measured)"))
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    report.setdefault("recurrent", {}).setdefault("train", {})[arch] = rep
+    return {k: counts[k] for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def recurrent_phase(args, dev, report):
+    """Phase 14: the recurrent families. 14a the attention kernels at
+    recurrentgemma's shape, 14b recurrentgemma-2b and 14c rwkv6-1.6b
+    served at full size, 14d one f32 train_step of each on the card
+    against the CPU, 14e train() of each (rwkv6 uncut, recurrentgemma at
+    full width and 5 layers). Returns the main path's launches (14b's
+    prefill and 14e's training), the kernels' worst errors and times."""
+    t_phase = time.perf_counter()
+    err_f, err_b, times = rec_attn_checks(args, dev, report)
+    prefill = rec_serve_checks(args, dev, REC_ARCH, report)
+    rec_serve_checks(args, dev, RWKV_ARCH, report)
+    rec_train_parity(args, dev, report)
+    trained = {arch: rec_train_run(args, dev, report, arch)
+               for arch in (RWKV_ARCH, REC_ARCH)}
+    launches = dict(trained[REC_ARCH])
+    launches["flash_attention"] += prefill
+    s = time.perf_counter() - t_phase
+    report.setdefault("recurrent", {})["phase_s"] = s
+    log(f"[rec] phase 14 {s:.1f} s; its main path's launches {launches}")
+    return dict(launches=launches, max_abs_err=err_f, max_abs_err_bwd=err_b,
+                times=times)
 
 
 def main(argv=None) -> int:
@@ -4279,13 +5030,22 @@ def main(argv=None) -> int:
     errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
                                       gt["max_abs_err"])
     # launches on the main paths: qwen2's prefill, both trainings, gemma2's
-    # prefill
+    # prefill; then phase 14's recurrentgemma prefill and training
     launches["flash_attention"] = (lm["launches"]
                                    + tr["launches"]["flash_attention"]
                                    + gm["launches"]
                                    + gt["launches"]["flash_attention"])
     launches["flash_attention_bwd"] = (tr["launches"]["flash_attention_bwd"]
                                        + gt["launches"]["flash_attention_bwd"])
+    torch.cuda.empty_cache()
+
+    # -- 14. the recurrent families -------------------------------------------
+    rc = recurrent_phase(args, dev, report)
+    errs["flash_attention"] = max(errs["flash_attention"], rc["max_abs_err"])
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
+                                      rc["max_abs_err_bwd"])
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += rc["launches"][name]
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",

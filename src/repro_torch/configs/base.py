@@ -5,8 +5,8 @@ A copy of the JAX package's `repro.configs.base`, field for field, so that
 describes the layer stacking as (prefix, pattern × repeats, suffix); the
 port's stack unrolls it into one block per layer (`models.transformer`).
 The port registers the configurations whose families it serves
-(`qwen2-1.5b`, `smollm-360m`, `qwen3-4b`, `gemma2-9b`); the rest join
-with their families.
+(`qwen2-1.5b`, `smollm-360m`, `qwen3-4b`, `gemma2-9b`,
+`recurrentgemma-2b`, `rwkv6-1.6b`); the rest join with their families.
 """
 from __future__ import annotations
 
@@ -137,7 +137,7 @@ def list_configs() -> list[str]:
 def _load_all():
     # import side-effect registration
     from . import (gemma2_9b, qwen2_1_5b, qwen3_4b,  # noqa: F401
-                   smollm_360m)
+                   recurrentgemma_2b, rwkv6_1_6b, smollm_360m)
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

@@ -2,8 +2,10 @@
 
 The JAX package stacks its repeated `pattern` of layers on a leading axis
 (one slice per repeat); the port holds one block per layer, in layer
-order, under `LMParams.state_dict()` keys ("blocks.{i}.mix.wq", ...).
-Every leaf keeps its layout and dtype, RMSNorm weights as "scale − 1".
+order, under `LMParams.state_dict()` keys ("blocks.{i}.mix.wq", ...;
+a nested leaf as its path, "blocks.{i}.mix.mu.r"). Every leaf keeps its
+layout and dtype (RWKV's and RG-LRU's f32 leaves stay f32 in a bf16
+model), RMSNorm weights as "scale − 1".
 
 - `params_from_jax(tree, cfg)`: the JAX `init_params` pytree with numpy
   leaves -> a state dict for `LMParams` (`load_state_dict`). A leaf
@@ -63,6 +65,20 @@ def _layer_ids(cfg):
             list(range(first_suf, first_suf + len(suf))))
 
 
+def _slice(tree, r):
+    """Repeat r of a stacked (possibly nested) dict of leaves."""
+    if isinstance(tree, dict):
+        return {k: _slice(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _stack(trees: list, stack: Callable):
+    """The inverse of `_slice`: leaves stacked over the repeats."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees], stack) for k in trees[0]}
+    return stack(trees)
+
+
 def unstack_jax_tree(tree: dict, cfg) -> dict:
     """A JAX tree keyed like `init_params` (the weights, or an optimizer
     state's dict of them) -> {state-dict key: leaf}, the pattern axis
@@ -74,8 +90,7 @@ def unstack_jax_tree(tree: dict, cfg) -> dict:
     layers = list(tree.get("prefix", []))
     for r in range(reps):
         for group in tree["pattern"]:
-            layers.append({name: {leaf: a[r] for leaf, a in sub.items()}
-                           for name, sub in group.items()})
+            layers.append(_slice(group, r))
     layers += list(tree.get("suffix", []))
     if len(tree["pattern"]) != len(pat) or len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: the tree has {len(layers)} layers, "
@@ -97,8 +112,11 @@ def jax_tree(flat: dict, cfg, stack: Callable = torch.stack) -> dict:
         head = f"blocks.{i}."
         for key, leaf in flat.items():
             if key.startswith(head):
-                group, name = key[len(head):].split(".")
-                out.setdefault(group, {})[name] = leaf
+                *groups, name = key[len(head):].split(".")
+                node = out
+                for g in groups:
+                    node = node.setdefault(g, {})
+                node[name] = leaf
         return out
 
     tree = {"embed": flat["embed"], "unembed": flat["unembed"],
@@ -107,10 +125,7 @@ def jax_tree(flat: dict, cfg, stack: Callable = torch.stack) -> dict:
             "prefix": [block(i) for i in pre_ids],
             "suffix": [block(i) for i in suf_ids], "pattern": []}
     for ids in pat_ids:
-        blocks = [block(i) for i in ids]
-        tree["pattern"].append({
-            g: {n: stack([b[g][n] for b in blocks]) for n in sub}
-            for g, sub in blocks[0].items()})
+        tree["pattern"].append(_stack([block(i) for i in ids], stack))
     return tree
 
 

@@ -5,13 +5,16 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
 `params` argument; each returns what the JAX step returns:
 
 - `prefill_step(batch)` -> (logits [B, V] at the last position, caches:
-  one (k, v) [B, S, K, hd] pair per layer). On CUDA tensors every layer's
-  attention runs the `flash_attention` kernel. The head (`lnf`, `unembed`)
+  one (k, v) [B, S, K, hd] pair per attention layer, and each recurrent
+  layer's final f32 state, {"h", "conv"} for RG-LRU or {"s", "x_tm",
+  "x_cm"} for RWKV-6, as `init_cache` lays it out). On CUDA tensors every
+  attention layer runs the `flash_attention` kernel; the recurrences are
+  plain PyTorch on every device. The head (`lnf`, `unembed`)
   runs on the last position only: the same values as the JAX step's
   `logits[:, -1]`, without its [B, S, V] f32 tensor;
 - `decode_step(cache, batch, pos)` -> (logits [B, 1, V], cache), the cache
   (bf16, or int8 codes and scales with `kv_cache_dtype="int8"`) written
-  in place at `pos`;
+  in place at `pos`, each recurrent layer's state replaced in place;
 - `loss(batch)` -> (loss + 0.01 aux, {"loss", "aux"}), differentiable;
 - `train_step(opt_state, batch)` -> (opt_state, {"loss", "aux",
   "grad_norm"}): gradients of `min(cfg.microbatch, B)`-row microbatches
@@ -21,7 +24,7 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
   state is keyed like the weights; Adafactor's, whose factors and update
   clipping span a stacked leaf, by the JAX tree's paths with the pattern
   stacked (`convert.jax_paths`). On CUDA
-  tensors every layer's attention runs the `flash_attention` kernel
+  tensors every attention layer runs the `flash_attention` kernel
   twice (the forward and its recomputation under remat) and its backward
   kernel once a microbatch (with gemma2's window, soft-cap and head width
   256 too).

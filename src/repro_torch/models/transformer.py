@@ -2,23 +2,32 @@
 
 A copy of the JAX package's `repro.models.transformer` for the dense
 attention kinds (`attn`, `attn_local`, `attn_global`), with the bf16 or
-int8 KV cache (`kv_cache_dtype`). The JAX package
+int8 KV cache (`kv_cache_dtype`), and the recurrent kinds `rec` (RG-LRU
+with its MLP) and `rwkv` (RWKV-6's time mix and its own channel mix,
+`models.ssm`). The JAX package
 stacks the repeated pattern on a leading axis and drives it with
 `lax.scan` (small HLO, flat compile time); PyTorch runs eagerly, so here
 the layout (prefix, pattern × repeats, suffix) is unrolled into an
 `nn.ModuleList` with one block per layer, in layer order (`layer_kinds`).
-Each block is an `nn.ModuleDict` of `nn.ParameterDict`s ("ln1", "mix",
-"ln2", "ffn", and "pn1"/"pn2" with post-norms) holding the JAX package's
-leaves under the same names. The weights are trainable parameters; the
-serving steps run under `torch.no_grad()`.
+Each block is an `nn.ModuleDict` of groups ("ln1", "mix", "ln2", "ffn",
+and "pn1"/"pn2" with post-norms; an `rwkv` block has no "ffn") holding
+the JAX package's leaves under the same names in `nn.ParameterDict`s,
+nested where JAX's group nests dicts (RWKV's `mu` and `lora_b`).
+The weights are trainable parameters; the serving steps run under
+`torch.no_grad()`.
+
+Caches: a full sequence returns each attention layer's (k, v) and each
+recurrent layer's final state ({"h", "conv"} or {"s", "x_tm", "x_cm"},
+f32), as JAX's prefill does; `init_cache` gives one dict per layer and a
+decode step writes every layer's new k/v or state into it in place.
 
 Remat as in JAX (`jax.checkpoint` around each block): when autograd
 records the forward and no cache is wanted, each block runs under
 `torch.utils.checkpoint` and only the layer-boundary activations are
 kept; the backward runs the block's forward again. `loss_fn` is JAX's
-next-token cross entropy. The MoE, MLA, RWKV and RG-LRU mixers,
-`embed_inputs` and `rope="mrope"` wait for later slices (ROADMAP A9) and
-raise `NotImplementedError`.
+next-token cross entropy. The MoE and MLA mixers, `embed_inputs` and
+`rope="mrope"` wait for later slices (ROADMAP A9) and raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
+from . import ssm
 from .attention import later
 from .layers import (apply_norm, dense_init, mlp_apply, mlp_init, norm_init,
                      sinusoidal_positions, softcap)
@@ -40,9 +50,7 @@ __all__ = ["LMParams", "init_block", "apply_block", "init_params",
 # the layer kinds of the JAX package that later slices bring
 _LATER_KINDS = {"attn_moe": "the MoE layer (kind 'attn_moe')",
                 "mla_dense": "MLA (kind 'mla_dense')",
-                "mla_moe": "MLA with MoE (kind 'mla_moe')",
-                "rwkv": "the RWKV6 mixer (kind 'rwkv')",
-                "rec": "the RG-LRU mixer (kind 'rec')"}
+                "mla_moe": "MLA with MoE (kind 'mla_moe')"}
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -72,7 +80,19 @@ def check_supported(cfg) -> None:
 
 
 def _weights(tensors: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
+    """A group of leaves as parameters; a nested dict (RWKV's `mu` and
+    `lora_b`) becomes a nested group, read as `p["mu"]["r"]`, its
+    state-dict keys "mix.mu.r" as JAX's tree paths."""
+    return nn.ParameterDict({k: _weights(v) if isinstance(v, dict)
+                             else nn.Parameter(v) for k, v in tensors.items()})
+
+
+def _write(cache: dict, state: dict) -> dict:
+    """A decode step's new recurrent state, copied into the layer's cache
+    dict in place (the serve loop keeps the dict it passed in)."""
+    for k, v in state.items():
+        cache[k].copy_(v)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -85,10 +105,17 @@ def init_block(cfg, kind: str, *, generator: torch.Generator,
         raise later(_LATER_KINDS[kind])
     dt = _dtype(cfg)
     d = cfg.d_model
+    kw = dict(generator=generator, device=device)
     p = nn.ModuleDict()
     p["ln1"] = _weights(norm_init(cfg.norm, d, dt, device))
-    p["mix"] = _weights(attn.attn_init(cfg, dt, generator=generator,
-                                       device=device))
+    if kind == "rwkv":
+        p["mix"] = _weights(ssm.rwkv_init(cfg, dt, **kw))
+        p["ln2"] = _weights(norm_init(cfg.norm, d, dt, device))
+        return p                      # rwkv carries its own channel mix
+    if kind == "rec":
+        p["mix"] = _weights(ssm.rglru_init(cfg, dt, **kw))
+    else:
+        p["mix"] = _weights(attn.attn_init(cfg, dt, **kw))
     p["ln2"] = _weights(norm_init(cfg.norm, d, dt, device))
     p["ffn"] = _weights(mlp_init(d, cfg.d_ff, cfg.mlp, dt,
                                  generator=generator, device=device))
@@ -101,10 +128,32 @@ def init_block(cfg, kind: str, *, generator: torch.Generator,
 def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
                 pos=None):
     """mode is implied: cache None => full-sequence; else one-token decode.
-    Returns (x, new_cache): (k, v) after a full sequence, the same cache
-    dict (written in place) after a decode step."""
+    Returns (x, new_cache): after a full sequence (k, v) or the recurrent
+    layer's final state; after a decode step the same cache dict, its k/v
+    or state written in place."""
     h = apply_norm(cfg.norm, x, p["ln1"])
-    if cache is None:
+    if kind == "rwkv":                # time mix + its own channel mix
+        if cache is None:
+            o, (x_tm, s_fin) = ssm.rwkv_time_mix(h, p["mix"], cfg)
+            x = x + o
+            h2 = apply_norm(cfg.norm, x, p["ln2"])
+            o2, x_cm = ssm.rwkv_channel_mix(h2, p["mix"])
+            return x + o2, {"s": s_fin, "x_tm": x_tm.float(),
+                            "x_cm": x_cm.float()}
+        o, st = ssm.rwkv_decode(h, p["mix"], cfg, cache)
+        x = x + o
+        h2 = apply_norm(cfg.norm, x, p["ln2"])
+        o2, x_cm = ssm.rwkv_channel_mix(h2, p["mix"],
+                                        x_prev=cache["x_cm"].to(h2.dtype))
+        st["x_cm"] = x_cm.float()
+        return x + o2, _write(cache, st)
+    if kind == "rec":
+        if cache is None:
+            o, new_cache = ssm.rglru_apply(h, p["mix"], cfg)
+        else:
+            o, st = ssm.rglru_decode(h, p["mix"], cfg, cache)
+            new_cache = _write(cache, st)
+    elif cache is None:
         o, new_cache = attn.attn_apply(h, p["mix"], cfg, kind, positions)
     else:
         o, new_cache = attn.attn_decode(h, p["mix"], cfg, kind, cache, pos)
@@ -158,8 +207,9 @@ def _block_out(p, x, cfg, kind, positions):
 
 def _run_stack(params, cfg, batch, want_cache=False
                ) -> Tuple[torch.Tensor, list]:
-    """Every block over the whole sequence: (x before `lnf`, [(k, v)] per
-    layer with `want_cache`, else []). Without a cache, a forward that
+    """Every block over the whole sequence: (x before `lnf`, each layer's
+    (k, v) or recurrent state with `want_cache`, else []). Without a
+    cache, a forward that
     autograd records runs each block under `torch.utils.checkpoint`."""
     x = _embed_inputs(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
@@ -191,8 +241,8 @@ def _head(params, cfg, x):
 
 def forward_full(params, cfg, batch, *, want_cache=False, last_only=False):
     """Returns (logits [B,S,V] f32, caches, aux). `caches` (with
-    want_cache) is one (k, v) [B,S,K,hd] pair per layer; `aux` is 0 (no
-    MoE here). With `last_only` the head runs on the last position only
+    want_cache) is one (k, v) [B,S,K,hd] pair per attention layer and the
+    final state dict of each recurrent one; `aux` is 0 (no MoE here). With `last_only` the head runs on the last position only
     (logits [B,1,V]: the same values, without the [B,S,V] tensor)."""
     x, caches = _run_stack(params, cfg, batch, want_cache)
     if last_only:
@@ -220,8 +270,8 @@ def loss_fn(params, cfg, batch):
 
 def forward_decode(params, cfg, cache, batch, pos: int):
     """One-token step. batch: {"tokens" [B,1]}; cache as init_cache().
-    Writes each layer's k/v at `pos` in place. Returns (logits [B,1,V],
-    cache)."""
+    Writes each layer's k/v at `pos`, or its new recurrent state, in
+    place. Returns (logits [B,1,V], cache)."""
     x = _embed_inputs(params, cfg, batch)
     if cfg.rope == "sinusoidal":
         x = x + sinusoidal_positions(
@@ -232,14 +282,22 @@ def forward_decode(params, cfg, cache, batch, pos: int):
     return _head(params, cfg, x), cache
 
 
+def _cache_for_kind(cfg, kind, B, T, dt, device):
+    if kind == "rwkv":
+        return ssm.rwkv_init_state(cfg, B, device)
+    if kind == "rec":
+        return ssm.rglru_init_state(cfg, B, device)
+    Tk = min(T, cfg.window) if kind == "attn_local" and cfg.window else T
+    return attn.init_kv_cache(cfg, kind, B, Tk, dt, device)
+
+
 def init_cache(cfg, B: int, T: int, device=None) -> list:
-    """Decode cache sized for positions [0, T), one {"k", "v"} dict per
-    layer (+ "k_scale", "v_scale" with `kv_cache_dtype="int8"`). Local
-    windows clamp storage."""
+    """Decode cache sized for positions [0, T), one dict per layer: {"k",
+    "v"} (+ "k_scale", "v_scale" with `kv_cache_dtype="int8"`) for
+    attention, local windows clamping storage; the constant-size f32
+    state for the recurrent kinds ({"h", "conv"} for `rec`, {"s", "x_tm",
+    "x_cm"} for `rwkv`)."""
     check_supported(cfg)
     dt = _dtype(cfg)
-    out = []
-    for kind in layer_kinds(cfg):
-        Tk = min(T, cfg.window) if kind == "attn_local" and cfg.window else T
-        out.append(attn.init_kv_cache(cfg, kind, B, Tk, dt, device))
-    return out
+    return [_cache_for_kind(cfg, kind, B, T, dt, device)
+            for kind in layer_kinds(cfg)]

@@ -51,7 +51,8 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 KERNEL_TOL = 2e-5
 ATTN_TOL = 1e-5
 LAYER_TOL = 1e-6
-ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b")
+ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b",
+         "recurrentgemma-2b", "rwkv6-1.6b")
 
 
 def _normal(rng, *shape):

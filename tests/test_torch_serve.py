@@ -1,7 +1,9 @@
 """repro_torch's LM serving path (LMModel, forward_full, decode_step, the
 serve loop) against the JAX package, on the CPU, at the smoke configs of
-qwen2-1.5b, smollm-360m, qwen3-4b and gemma2-9b (local and global layers,
-soft-caps, sandwich norms), with the bf16 and the int8 KV cache.
+qwen2-1.5b, smollm-360m, qwen3-4b, gemma2-9b (local and global layers,
+soft-caps, sandwich norms), recurrentgemma-2b (RG-LRU and local
+attention, a suffix after the pattern) and rwkv6-1.6b (RWKV-6), with the
+bf16 and the int8 KV cache and the recurrent layers' f32 states.
 
 The JAX package's weights (`repro.models.LMModel(cfg).init_params(
 jax.random.key(k))`) are carried into the port by `params_from_jax`, and
@@ -37,19 +39,28 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.obs import trace_init  # noqa: E402
 
 TOL = 1e-5
-ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b")
+ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b",
+         "recurrentgemma-2b", "rwkv6-1.6b")
 CPU = dict(device="cpu")
 
 
-def _cfgs(name, layers=2, **changes):
+# repeats of the pattern in the tests' models: two, but one for
+# recurrentgemma, whose pattern (rec, rec, attn_local) and suffix (rec,
+# rec) give every kind and both layer groups in five layers
+LAYERS = {"recurrentgemma-2b": 1}
+
+
+def _cfgs(name, layers=None, **changes):
     """(port config, JAX config): the architecture's smoke config with its
-    pattern repeated `layers` times (and `changes` to its fields)."""
+    pattern repeated `layers` times (LAYERS, else 2) between its prefix
+    and suffix (and `changes` to its fields)."""
+    layers = LAYERS.get(name, 2) if layers is None else layers
     out = []
     for c in (tconfigs, jconfigs):
         smoke = c.smoke_config(c.get_config(name))
         out.append(dataclasses.replace(
-            smoke, n_layers=layers * len(smoke.pattern), repeats=layers,
-            **changes))
+            smoke, n_layers=len(smoke.prefix) + layers * len(smoke.pattern)
+            + len(smoke.suffix), repeats=layers, **changes))
     return tuple(out)
 
 
@@ -65,22 +76,58 @@ def _port_cfg(jcfg):
     return tconfigs.ArchConfig(**kw)
 
 
-def _carry(name, key, layers=2, **changes):
+def _carry(name, key, layers=None, **changes):
     """(port model on the CPU, JAX model, JAX params, port config, JAX
     config), the port's weights carried from the JAX ones."""
     tcfg, jcfg = _cfgs(name, layers, **changes)
     jm = JLMModel(jcfg)
-    jp = jm.init_params(jax.random.key(key))
+    jp = jax.jit(jm.init_params)(jax.random.key(key))
     model = LMModel(tcfg, **CPU)
     model.params.load_state_dict(
         params_from_jax(jax.tree.map(np.asarray, jp), tcfg))
     return model, jm, jp, tcfg, jcfg
 
 
-def _jlayer(jcache, layer, n_pat):
-    """Layer `layer`'s cache dict out of JAX's stacked pattern caches."""
-    return {n: a[layer // n_pat]
-            for n, a in jcache["pattern"][layer % n_pat].items()}
+def _jlayer(jcache, layer, cfg):
+    """Layer `layer`'s cache out of JAX's caches (prefix and suffix
+    lists, the pattern's stacked over its repeats): a dict of arrays, or
+    forward_full's (k, v)."""
+    pre, pat, reps, _ = cfg.layer_kinds()
+    i = layer - len(pre)
+    if i < 0:
+        return jcache["prefix"][layer]
+    if i >= reps * len(pat):
+        return jcache["suffix"][i - reps * len(pat)]
+    c = jcache["pattern"][i % len(pat)]
+    if isinstance(c, dict):
+        return {n: a[i // len(pat)] for n, a in c.items()}
+    return tuple(a[i // len(pat)] for a in c)
+
+
+# the recurrent layers' f32 states: RWKV's wkv state sums its tokens
+# almost undamped (decays 1 - 2.5e-3 at init) and reaches |s| ~ 40 at the
+# smoke widths, where an f32 ulp is 4e-6 and the two packages' states
+# differ by a few ulps (2.8e-5 after 64 tokens). So a state is held
+# within TOL of its max |value| (the train tests' form), every other
+# tensor within TOL elementwise.
+STATES = {"h", "conv", "s", "x_tm", "x_cm"}
+
+
+def _cache_close(got, want):
+    """One layer's cache: (k, v) or a dict of k/v or recurrent state."""
+    if isinstance(want, tuple):
+        want = dict(zip("kv", want))
+    if isinstance(got, tuple):
+        got = dict(zip("kv", got))
+    assert set(got) == set(want)
+    for n in want:
+        if n in STATES:
+            w = np.asarray(want[n])
+            np.testing.assert_allclose(
+                np.asarray(got[n].detach()), w, rtol=0, err_msg=n,
+                atol=TOL * max(1.0, float(np.abs(w).max())))
+        else:
+            _close(got[n], want[n])
 
 
 def _close(got, want, tol=TOL):
@@ -133,11 +180,13 @@ def test_params_from_jax_raises_on_a_missing_or_extra_leaf():
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_forward_full_matches_jax(name):
-    """Logits and every layer's (k, v) cache; S = 64 spans two attention
-    chunks of the smoke config."""
+    """Logits and every layer's cache, (k, v) or recurrent state; S = 64
+    spans two attention chunks and eight RWKV chunks of the smoke
+    config."""
     model, _, jp, tcfg, jcfg = _carry(name, 1)
     batch = batch_for(tcfg, 2, 64, 0, seed=5)
-    jl, jc, _ = jtfm.forward_full(
+    jl, jc, _ = jax.jit(jtfm.forward_full, static_argnums=1,
+                        static_argnames="want_cache")(
         jp, jcfg, {"tokens": jnp.asarray(batch["tokens"])}, want_cache=True)
     tl, tc, aux = ttfm.forward_full(
         model.params, tcfg, {"tokens": torch.from_numpy(batch["tokens"])},
@@ -145,12 +194,9 @@ def test_forward_full_matches_jax(name):
     assert tl.shape == (2, 64, tcfg.vocab) and tl.dtype == torch.float32
     assert float(aux) == 0.0
     _close(tl, jl)
-    pre, pat, reps, suf = jcfg.layer_kinds()
-    assert len(tc) == tcfg.n_layers and not pre and not suf
-    for layer, (k, v) in enumerate(tc):
-        jk, jv = jc["pattern"][layer % len(pat)]
-        _close(k, jk[layer // len(pat)])
-        _close(v, jv[layer // len(pat)])
+    assert len(tc) == tcfg.n_layers
+    for layer, c in enumerate(tc):
+        _cache_close(c, _jlayer(jc, layer, jcfg))
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -170,9 +216,7 @@ def test_decode_step_matches_jax_at_every_position(name):
         assert tl.shape == (B, 1, tcfg.vocab)
         _close(tl, jl)
     for layer, c in enumerate(tcache):
-        jc = _jlayer(jcache, layer, len(tcfg.pattern))
-        _close(c["k"], jc["k"])
-        _close(c["v"], jc["v"])
+        _cache_close(c, _jlayer(jcache, layer, jcfg))
 
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma2-9b"])
@@ -195,7 +239,7 @@ def test_int8_decode_step_matches_jax(name):
                                        t)
         _close(tl, jl)
     for layer, c in enumerate(tcache):
-        jc = _jlayer(jcache, layer, len(tcfg.pattern))
+        jc = _jlayer(jcache, layer, jcfg)
         assert c["k"].dtype == torch.int8 and c["k_scale"].dtype == \
             torch.float32
         for n in ("k", "v"):
@@ -226,9 +270,8 @@ def test_prefill_step_matches_stepped_decode(name):
         logits, cache = model.decode_step(
             cache, {"tokens": batch["tokens"][:, t:t + 1]}, t)
     _close(logits[:, 0], last)
-    for (k, v), c in zip(caches, cache):
-        _close(k, c["k"])
-        _close(v, c["v"])
+    for got, c in zip(caches, cache):
+        _cache_close(got, {n: t.numpy() for n, t in c.items()})
 
 
 def test_models_with_one_seed_are_equal_and_other_seeds_differ():
@@ -247,7 +290,9 @@ def test_models_with_one_seed_are_equal_and_other_seeds_differ():
 # -- serving -------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,seed", [("smollm-360m", 0), ("qwen3-4b", 3),
-                                       ("qwen2-1.5b", 1), ("gemma2-9b", 2)])
+                                       ("qwen2-1.5b", 1), ("gemma2-9b", 2),
+                                       ("recurrentgemma-2b", 9),
+                                       ("rwkv6-1.6b", 10)])
 def test_serve_tokens_equal_jax(name, seed):
     """repro.launch.serve draws its weights from jax.random.key(seed); the
     port's loop, given those weights and the same prompts, produces the
@@ -312,7 +357,6 @@ def test_serve_is_deterministic_and_in_vocab():
 
 @pytest.mark.parametrize("name,what", [
     ("dbrx-132b", "MoE"), ("deepseek-v3-671b", "MLA"),
-    ("rwkv6-1.6b", "RWKV6"), ("recurrentgemma-2b", "RG-LRU"),
     ("musicgen-large", "embedding inputs"), ("qwen2-vl-2b", "M-RoPE")])
 def test_unported_families_raise(name, what):
     cfg = _port_cfg(jconfigs.smoke_config(jconfigs.get_config(name)))
@@ -328,20 +372,47 @@ def test_unported_options_raise():
     int8, scales f32 [B, T, K, 1]; local layers clamped to the window)."""
     tcfg, jcfg = _cfgs("gemma2-9b", kv_cache_dtype="int8")
     LMModel(tcfg, **CPU)
-    tcache = ttfm.init_cache(tcfg, 2, 40, **CPU)
-    jcache = jtfm.init_cache(jcfg, 2, 40)
-    for layer, c in enumerate(tcache):
-        jc = _jlayer(jcache, layer, len(tcfg.pattern))
-        assert {n: (str(t.dtype)[6:], tuple(t.shape)) for n, t in c.items()} \
-            == {n: (str(a.dtype), a.shape) for n, a in jc.items()}
-    assert tcache[0]["k"].shape[1] == tcfg.window
+    _layouts_equal(tcfg, jcfg, 2, 40)
+    assert ttfm.init_cache(tcfg, 2, 40, **CPU)[0]["k"].shape[1] == tcfg.window
     mla = _port_cfg(jconfigs.smoke_config(
         jconfigs.get_config("deepseek-v3-671b")))
     with pytest.raises(NotImplementedError, match="MLA.*A9"):
         tattn.attn_init(mla, torch.float32, generator=torch.Generator())
-    for kind in ("attn_moe", "mla_dense", "rwkv", "rec"):
+    for kind in ("attn_moe", "mla_dense"):
         with pytest.raises(NotImplementedError, match="A9"):
             ttfm.init_block(tcfg, kind, generator=torch.Generator())
+
+
+def _layouts_equal(tcfg, jcfg, B, T):
+    """init_cache of both packages: every layer's names, dtypes and
+    shapes equal."""
+    tcache = ttfm.init_cache(tcfg, B, T, **CPU)
+    jcache = jtfm.init_cache(jcfg, B, T)
+    assert len(tcache) == tcfg.n_layers
+    for layer, c in enumerate(tcache):
+        jc = _jlayer(jcache, layer, jcfg)
+        assert {n: (str(t.dtype)[6:], tuple(t.shape)) for n, t in c.items()} \
+            == {n: (str(a.dtype), a.shape) for n, a in jc.items()}
+    return tcache
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "rwkv6-1.6b"])
+def test_recurrent_cache_layouts_match_jax(name):
+    """The recurrent layers' f32 states ({"h", "conv"}, {"s", "x_tm",
+    "x_cm"}) and recurrentgemma's windowed k/v in bf16 have JAX's names,
+    dtypes and shapes; their size does not grow with the context."""
+    tcfg, jcfg = _cfgs(name, dtype="bfloat16")
+    small = _layouts_equal(tcfg, jcfg, 2, 40)
+    assert {n for c in small for n in c} == (
+        {"h", "conv", "k", "v"} if name == "recurrentgemma-2b"
+        else {"s", "x_tm", "x_cm"})
+
+    def nbytes(cache):
+        return sum(t.numel() * t.element_size() for c in cache
+                   for t in c.values())
+
+    assert nbytes(ttfm.init_cache(tcfg, 1, 4096, **CPU)) == nbytes(
+        ttfm.init_cache(tcfg, 1, tcfg.window or 16, **CPU))
 
 
 def test_local_and_softcap_kinds_run_on_cpu_and_their_backward_raises_off_it():

@@ -14,9 +14,11 @@
 - `FlashAttentionFn` on CPU tensors against autograd through
   `chunked_attention` at the model's chunking, within 1e-5 of the max.
 - `LMModel.loss` and one `train_step` against `repro.models.LMModel`
-  (jit) for the smoke configs of qwen2-1.5b, smollm-360m, qwen3-4b and
+  (jit) for the smoke configs of qwen2-1.5b, smollm-360m, qwen3-4b,
   gemma2-9b (two layers: gemma2's local, window 16, and global, with both
-  soft-caps, the post-norms and the untied head; the JAX weights carried
+  soft-caps, the post-norms and the untied head), recurrentgemma-2b (its
+  pattern of two RG-LRU layers and a local one, then its suffix of two
+  RG-LRU layers) and rwkv6-1.6b (two layers; the JAX weights carried
   over), f32: loss and grad_norm within 1e-5 relative; every gradient
   leaf within 1e-5 of its max |value| (sums in another order); after
   the step m within 1e-5 and v within 2e-5 of their leaves' max (v is
@@ -31,7 +33,13 @@
   bias) carry their rounding into the update (JAX's own update moves the
   k bias by 2e-3 of its max between the two packages' gradients). So its
   gradients are held as above and its weights and factors, within 1e-5 of
-  each leaf's max, against JAX's update of the port's gradients.
+  each leaf's max, against JAX's update of the port's gradients
+  (qwen2-1.5b; and the two recurrent families, whose nested and f32
+  leaves Adafactor keys by the same paths).
+- rwkv6's f32 gradients in both packages against the same model's
+  gradients in f64 (the port's, with `.float()` keeping f64): the
+  witness that they differ by rounding, which card-against-host checks
+  of the wkv at larger sizes rely on.
 - The loop against `train_step` driven by hand, the launcher (gemma2's
   smoke config too), the mesh guards; remat keeps no layer's (k, v) and
   changes no gradient.
@@ -62,7 +70,8 @@ from repro_torch.models.convert import (  # noqa: E402
 from repro_torch.train import train as ttrain  # noqa: E402
 
 CPU = dict(device="cpu")
-ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b")
+ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b",
+         "recurrentgemma-2b", "rwkv6-1.6b")
 TOL = 1e-5
 LR, EPS = 3e-4, 1e-8            # adamw_update's defaults in both packages
 
@@ -180,20 +189,23 @@ def test_flash_attention_fn_raises_off_cpu_and_cuda():
 # -- loss and train_step against JAX -------------------------------------------
 
 def _cfgs(name, layers=2, **kw):
-    """Both packages' smoke configs of `name` at `layers` layers (repeats
-    of the layer pattern: gemma2's local and global alternate)."""
+    """Both packages' smoke configs of `name` with `layers` layers in its
+    repeated pattern (at least one repeat: gemma2's local and global
+    alternate), between its prefix and suffix."""
     out = []
     for c in (tconfigs, jconfigs):
         cfg = c.smoke_config(c.get_config(name))
+        reps = max(1, layers // len(cfg.pattern))
         out.append(dataclasses.replace(
-            cfg, n_layers=layers, repeats=layers // len(cfg.pattern), **kw))
+            cfg, n_layers=len(cfg.prefix) + reps * len(cfg.pattern)
+            + len(cfg.suffix), repeats=reps, **kw))
     return tuple(out)
 
 
 def _carry(name, key=0, **kw):
     tcfg, jcfg = _cfgs(name, **kw)
     jm = JLMModel(jcfg)
-    jp = jm.init_params(jax.random.key(key))
+    jp = jax.jit(jm.init_params)(jax.random.key(key))
     model = LMModel(tcfg, **CPU)
     model.params.load_state_dict(
         params_from_jax(jax.tree.map(np.asarray, jp), tcfg))
@@ -241,13 +253,12 @@ def _check_step(model, jm, jp, tcfg, B, S=32):
 @pytest.mark.parametrize("name", ARCHS)
 def test_loss_and_train_step_match_jax(name):
     model, jm, jp, tcfg = _carry(name)
-    jnew, jstate, gn, topt, _ = _check_step(model, jm, jp, tcfg, B=2)
+    jnew, jstate, _, topt, _ = _check_step(model, jm, jp, tcfg, B=2)
     assert int(topt.step) == int(jstate.step) == 1
     _leaves_close(topt.m, _flat(jstate.m, tcfg), TOL)
     _leaves_close(topt.v, _flat(jstate.v, tcfg), 2 * TOL)
     # the weights: AdamW's first step is about lr sign(g), see the docstring
-    scale = min(1.0, 1.0 / max(gn, 1e-9))
-    g_c = {k: v * scale for k, v in _flat(jstate.m, tcfg).items()}  # 0.1 g_c
+    g_c = _flat(jstate.m, tcfg)             # 0.1 g_c: m holds the clipped g
     want = _flat(jnew, tcfg)
     for k, p in model.params.state_dict().items():
         g = np.abs(g_c[k]) / 0.1
@@ -257,6 +268,61 @@ def test_loss_and_train_step_match_jax(name):
         assert (diff <= bar).all(), (k, float((diff - bar).max()))
 
 
+def _grads_f64(model, tcfg, batch):
+    """The port's loss gradients with every tensor in f64: the f32 model's
+    weights widened, and `.float()` (the f32 casts of the norms, gates
+    and recurrences) leaving f64 tensors f64. The witness for the f32
+    gradients' rounding."""
+    m64 = LMModel(tcfg, **CPU)
+    m64.params.load_state_dict(model.params.state_dict())
+    m64.params.double()
+    to_f32 = torch.Tensor.float
+    torch.Tensor.float = (lambda t, *a, **k: t if t.dtype == torch.float64
+                          else to_f32(t, *a, **k))
+    try:
+        loss, _ = m64.loss(batch)
+        weights = dict(m64.params.named_parameters())
+        return dict(zip(weights, torch.autograd.grad(
+            loss, list(weights.values()))))
+    finally:
+        torch.Tensor.float = to_f32
+
+
+def test_rwkv6_f32_gradients_are_rounding_of_f64():
+    """The witness that rwkv6's f32 gradients differ only by rounding: at
+    the data of test_loss_and_train_step_match_jax, the port's and JAX's
+    f32 gradient leaves each lie within 2e-5 of the same model's
+    gradients in f64 (of the f64 leaf's max; at the smoke widths the
+    decays start at 1 - 2.5e-3, so each leaf is an almost undamped sum
+    with cancellation, and both packages' f32 rounding comes to about
+    1e-5), and the f64 gradients of two chunkings agree to 1e-10."""
+    name = "rwkv6-1.6b"
+    model, jm, jp, tcfg = _carry(name)
+    batch = batch_for(tcfg, 2, 32, 0, seed=1)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jg = _flat(jax.jit(jax.grad(lambda p: jm.loss(p, jb)[0]))(jp), tcfg)
+    loss, _ = model.loss(batch)
+    weights = dict(model.params.named_parameters())
+    tg = dict(zip(weights, torch.autograd.grad(loss, list(weights.values()))))
+    g64 = _grads_f64(model, tcfg, batch)
+    half = dataclasses.replace(tcfg, rec=dataclasses.replace(
+        tcfg.rec, chunk=tcfg.rec.chunk // 2))
+    g64_half = _grads_f64(model, half, batch)
+    worst = {"port": 0.0, "jax": 0.0, "port-jax": 0.0, "f64 chunks": 0.0}
+    for k, w in g64.items():
+        w = w.numpy()
+        top = max(np.abs(w).max(), 1e-300)
+        for what, err in (("port", tg[k].numpy() - w), ("jax", jg[k] - w),
+                          ("port-jax", tg[k].numpy() - jg[k]),
+                          ("f64 chunks", g64_half[k].numpy() - w)):
+            worst[what] = max(worst[what], float(np.abs(err).max() / top))
+    print("rwkv6 gradient leaves, max |err| / max |f64|:", worst)
+    assert worst["f64 chunks"] <= 1e-10, worst
+    assert worst["port"] <= 2e-5, worst
+    assert worst["jax"] <= 2e-5, worst
+    assert worst["port-jax"] <= TOL, worst
+
+
 def test_train_step_accumulates_two_microbatches():
     model, jm, jp, tcfg = _carry("smollm-360m", key=1)
     assert tcfg.microbatch == 2
@@ -264,7 +330,20 @@ def test_train_step_accumulates_two_microbatches():
 
 
 def test_adafactor_train_step_matches_jax():
-    model, jm, jp, tcfg = _carry("qwen2-1.5b", key=2, optimizer="adafactor")
+    _adafactor_step("qwen2-1.5b", 2, "pattern.0.ln1.w")
+
+
+@pytest.mark.parametrize("name,path", [
+    ("recurrentgemma-2b", "pattern.0.mix.lam"),
+    ("rwkv6-1.6b", "pattern.0.mix.mu.r")])
+def test_adafactor_train_step_matches_jax_recurrent(name, path):
+    """The same for the recurrent families: their nested (`mu.r`) and f32
+    (`lam`) leaves, and recurrentgemma's unstacked suffix."""
+    _adafactor_step(name, 5, path)
+
+
+def _adafactor_step(name, key, path):
+    model, jm, jp, tcfg = _carry(name, key=key, optimizer="adafactor")
     _, _, gn, topt, tg = _check_step(model, jm, jp, tcfg, B=2)
     assert gn == 0.0 and type(topt).__name__ == "AdafactorState"
     # JAX's update of the port's gradients (see the docstring)
@@ -275,7 +354,7 @@ def test_adafactor_train_step_matches_jax():
     # keyed by the JAX tree's paths, the pattern stacked (its factors and
     # update clip span the layer axis)
     want = opt_state_from_jax(jax.tree.map(np.asarray, jstate), tcfg)
-    assert topt.vr["pattern.0.ln1.w"].shape == (tcfg.repeats,)
+    assert topt.vr[path].shape == (tcfg.repeats,)
     for got, w in ((topt.vr, want.vr), (topt.vc, want.vc)):
         _leaves_close(got, {k: v.numpy() for k, v in w.items()}, TOL)
 

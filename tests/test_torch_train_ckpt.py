@@ -12,7 +12,9 @@
   within 1e-5 of each leaf's max |value| (f32 sums in another order; the
   resumed steps' moments are not AdamW's first, sign-like ones). The same
   for gemma2-9b's smoke config (window 16, the post-norm leaves pn1/pn2,
-  the untied unembed), whose manifest names those leaves.
+  the untied unembed), whose manifest names those leaves. The manifests
+  of rwkv6-1.6b (nested leaves) and recurrentgemma-2b (f32 leaves in a
+  bf16 model, a suffix) equal JAX's too.
 - `fail_at` restart (the counterpart of tests/test_checkpoint.py::
   test_train_restart_continues) and the weight and state conversions.
 """
@@ -49,13 +51,16 @@ RUN = dict(batch=2, seq=32, ckpt_every=2, log_every=1)
 
 
 def _cfgs(name, **kw):
-    """Both packages' smoke configs of `name` at 2 layers (repeats of the
-    layer pattern: gemma2's local and global alternate)."""
+    """Both packages' smoke configs of `name` with 2 layers in its repeated
+    pattern (at least one repeat: gemma2's local and global alternate),
+    between its prefix and suffix."""
     out = []
     for c in (tconfigs, jconfigs):
         cfg = c.smoke_config(c.get_config(name))
+        reps = max(1, 2 // len(cfg.pattern))
         out.append(dataclasses.replace(
-            cfg, n_layers=2, repeats=2 // len(cfg.pattern), **kw))
+            cfg, n_layers=len(cfg.prefix) + reps * len(cfg.pattern)
+            + len(cfg.suffix), repeats=reps, **kw))
     return tuple(out)
 
 
@@ -87,9 +92,28 @@ def test_bf16_train_state_round_trips_bit_for_bit(tmp_path):
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
 def test_manifest_equals_jax_and_jax_reads_bf16(tmp_path, optimizer):
-    tcfg, jcfg = _cfgs("qwen3-4b", dtype="bfloat16", optimizer=optimizer)
+    _manifests_equal(tmp_path, "qwen3-4b", optimizer)
+
+
+@pytest.mark.parametrize("name,optimizer", [
+    ("rwkv6-1.6b", "adamw"), ("rwkv6-1.6b", "adafactor"),
+    ("recurrentgemma-2b", "adafactor")])
+def test_recurrent_manifests_equal_jax(tmp_path, name, optimizer):
+    """The same for the recurrent families' trees: RWKV's nested leaves
+    (mix.mu.r, mix.lora_b.w), the f32 leaves of a bf16 model (w0, u; ba,
+    bi, lam) and recurrentgemma's unstacked suffix, in JAX's leaf order."""
+    man = _manifests_equal(tmp_path, name, optimizer)
+    assert {"float32", "bfloat16"} <= {f["dtype"]
+                                       for f in man["files"].values()}
+
+
+def _manifests_equal(tmp_path, name, optimizer):
+    """JAX's weights and fresh optimizer state of `name` in bf16,
+    checkpointed by each package: the manifests equal but for `time`, and
+    JAX restores the port's leaves. Returns the port's manifest."""
+    tcfg, jcfg = _cfgs(name, dtype="bfloat16", optimizer=optimizer)
     jm = JLMModel(jcfg)
-    jp = jm.init_params(jax.random.key(0))
+    jp = jax.jit(jm.init_params)(jax.random.key(0))
     jstate = jm.init_opt(jp)
     jckpt.save_checkpoint(str(tmp_path / "j"), 3, (jp, jstate))
     model = LMModel(tcfg, **CPU)
@@ -106,6 +130,7 @@ def test_manifest_equals_jax_and_jax_reads_bf16(tmp_path, optimizer):
         assert x.dtype == y.dtype
         np.testing.assert_array_equal(np.asarray(x, np.float32),
                                       np.asarray(y, np.float32))
+    return a
 
 
 def _run_both(root, first, name="smollm-360m"):
