@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (`repro_torch`) of Static and DF-P PageRank,
 of its streaming session and of LM serving and training (qwen2-1.5b,
-gemma2-9b, recurrentgemma-2b, rwkv6-1.6b) on one GPU, and hold its CUDA
+gemma2-9b, recurrentgemma-2b, rwkv6-1.6b, qwen2-vl-2b, musicgen-large,
+dbrx-132b) on one GPU, and hold its CUDA
 kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py                 # full size: n=2^22, m=2^26
@@ -115,7 +116,9 @@ Phases (any failure exits non-zero; nothing is caught):
      batched call per sample and 10 back to back, one call per table, the
      plain loop and index_copy_, and the batched call and index_copy_ on
      the card alone (10 calls in a CUDA graph, replayed);
-  8b. the guard on the same graph, once phase 8's session is freed: a
+  8b. the guard, once phase 8's session is freed, on a power-law graph of
+     2^20 vertices and 2^24 edges (GUARD_GRAPH: cut from phase 3's size
+     for the script's time; at a smaller --n, phase 3's graph): a
      StreamSession with GuardConfig(policy="quarantine", audit_every=3)
      and a journal in a temporary directory (launch counts start at 0
      here, the obs registry and flight recorder are reset; STREAM_PARAMS).
@@ -145,7 +148,7 @@ Phases (any failure exits non-zero; nothing is caught):
      escalation_exhausted bundle rendered by python -m
      repro_torch.obs.postmortem). The directories are removed after. The
      launch counts are read around the guarded session's apply calls and
-     the full-size restore only; the fused sweep's three kernels and
+     its restore only; the fused sweep's three kernels and
      scatter_rows must launch there;
   10. the sharded engines (after 8b, on phase 1's graph): (10a) the graph
      split 4 ways (build_sharded, d_p and tile as phase 3), each shard's
@@ -307,7 +310,41 @@ Phases (any failure exits non-zero; nothing is caught):
      flash_attention_bwd a step, all on the tensor cores; losses finite,
      every leaf moved but bf16 ones the steps cannot move, the steps'
      times and tokens/s, the peak memory and one more step's device-busy
-     share under torch.profiler.
+     share under torch.profiler;
+  15. the embedding-input and MoE families (after 14, fixed segments):
+     (15a) flash_attention and flash_attention_bwd, bf16 on the tensor
+     cores, causal, at musicgen-large's attention (B 4 x 2048, 32 heads
+     over 32, D 64: forward and backward) and dbrx-132b's (48 heads over
+     8, D 128: forward at B 2 x 8192, backward at B 1 x 8192) against
+     their plain versions at 9's and 11a's bars (the backward twice, bit
+     for bit), timed beside their bounds and
+     scaled_dot_product_attention's forward and backward (the yardstick:
+     no window, no cap); (15b) qwen2-vl-2b uncut (M-RoPE, embedding
+     inputs): at full width, 2 layers, f32, the card's prefill_step
+     against the CPU's on grid positions (text, a 16 x 16 image, text;
+     logits and every layer's k within 1e-3) and against 256 stepped
+     decode_steps on batch_for's equal streams; prefill_step on 4 x 2048
+     embeddings with text, one 32 x 32 image, text (launch counts set to
+     0 just before: exactly 28 flash_attention, all on the tensor cores,
+     nothing else), its time and peak memory, decode_step at 2048, B 4,
+     serve (4, 64 + 32) from embedding prompts; (15c) musicgen-large
+     uncut (layernorm, GELU, sinusoidal positions, MHA) the same (48
+     launches); (15d) dbrx-132b at full width: 2 layers in f32 with the
+     capacity factor raised so that no token drops, prefill_step against
+     64 stepped decode_steps within 1e-3; then bf16 at MOE_SERVE_LAYERS = 6
+     of its 40 layers (the card's memory): prefill_step on 2 x 8192
+     (exactly 6 flash_attention on the tensor cores, nothing else), a
+     second one bit for bit the first with each MoE layer's dropped
+     tokens printed, decode_step at 8192, B 4, serve (4, 64 + 32); (15e)
+     train() in bf16, 3 steps each (launch counts set to 0 just before:
+     2 flash_attention and 1 flash_attention_bwd a step an attention
+     layer, all on the tensor cores): qwen2-vl-2b uncut on 4 x 2048
+     (AdamW), musicgen-large uncut on 4 x 2048 (AdamW, f32 gradient
+     sums), dbrx-132b at 1 layer on 2 x 2048 (Adafactor, bf16 gradient
+     sums); finite losses, every leaf moved but bf16 ones the steps
+     cannot move and `embed` under embedding inputs (the loss reads no
+     `embed`), the steps' times and tokens/s, the peak memory and one more
+     step's device-busy share.
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -315,6 +352,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import glob
 import io
@@ -1792,6 +1830,9 @@ def gloo_rank(rank, world, cfg) -> dict:
 # Phase 8b's guard: quarantine and a drift audit every third batch; the
 # health word's overhead timed over this many interleaved pairs of solves
 GUARD = dict(policy="quarantine", audit_every=3)
+# 8b's graph, cut from phase 3's 2^22 vertices and 2^26 edges for the
+# script's time (its full-size restore took 123-137 s): 10d's size
+GUARD_GRAPH = (2 ** 20, 2 ** 24)
 HEALTH_PAIRS = 3
 
 
@@ -1821,13 +1862,13 @@ def same_state(a, b) -> list:
 
 
 def guard_phase(args, g, dev, report, wrappers) -> dict:
-    """Phase 8b: a guarded, journaled StreamSession on the full-size graph
-    (the health word's cost, quarantine, the ladder after a NaN and after a
-    starved budget, the audit, a checkpoint, two batches, a restore bit for
-    bit), then the directory cases on a 4,000-vertex graph. Returns the
-    launch counts of the guarded session's path: its `apply` calls and the
-    full-size restore (timing repeats, references and the small graph stay
-    out)."""
+    """Phase 8b: a guarded, journaled StreamSession on `g` (GUARD_GRAPH's
+    size in the full run; the health word's cost, quarantine, the ladder
+    after a NaN and after a starved budget, the audit, a checkpoint, two
+    batches, a restore bit for bit), then the directory cases on a
+    4,000-vertex graph. Returns the launch counts of the guarded session's
+    path: its `apply` calls and the restore (timing repeats, references
+    and the small graph stay out)."""
     import shutil
     from repro_torch.core import (PRParams, init_ranks, l1_error,
                                   static_pagerank)
@@ -1994,7 +2035,7 @@ def guard_phase(args, g, dev, report, wrappers) -> dict:
         require(reg.counter("guard.audit.runs") >= 1 and rep["audits"],
                 "no audit ran")
 
-        # -- 6. a checkpoint at full size -------------------------------------
+        # -- 6. a checkpoint of the session -----------------------------------
         free0 = shutil.disk_usage(root).free
         t0 = time.perf_counter()
         path = sess.checkpoint()
@@ -2870,12 +2911,28 @@ def flex_inputs(dev, q, k, v, window, cap, grad=False):
     return ts, kw
 
 
-def time_attn(args, dev, flex, q, k, v, window, cap):
+FLEX = "flex_attention (compiled, the library's call)"
+SDPA = "scaled_dot_product_attention (causal, GQA; the library's call)"
+
+
+def sdpa_library(q, k, v, block_mask=None, score_mod=None, enable_gqa=True):
+    """The yardstick where no window and no cap apply: SDPA causal with
+    GQA, called with compiled flex_attention's arguments (its block mask
+    is the causal one; no score_mod). Timed here only: the port never
+    calls it."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=enable_gqa)
+
+
+def time_attn(args, dev, flex, q, k, v, window, cap, lib_name=FLEX):
     """flash_attention at one bf16 shape: 10 calls back to back and one a
     sample, beside its bound over the allowed pairs, its plain version
-    (round_p) and the library's one call (compiled flex_attention, held
-    to the kernel's bars against the plain version, its compilation
-    warmed up outside the timed region)."""
+    (round_p) and the library's one call (`flex`: compiled
+    flex_attention, or `sdpa_library`; held to the kernel's bars against
+    the plain version, a compilation warmed up outside the timed
+    region)."""
     from repro_torch.kernels.flash_attn import (flash_attention_bshd,
                                                 flash_attention_bshd_plain)
 
@@ -2907,7 +2964,7 @@ def time_attn(args, dev, flex, q, k, v, window, cap):
              library_single_ms=cuda_ms(lib, args.repeats),
              library_first_s=time.perf_counter() - t0,
              library_err=lib_err, library_mean_err=lib_mean,
-             library_within_bars=lib_ok,
+             library_within_bars=lib_ok, library=lib_name,
              bound=bound(nbytes, flops, BF16_FLOPS), pairs_per_head=pairs)
     t["tflops"] = flops / t["ms"] / 1e9
     return t
@@ -2920,8 +2977,8 @@ def log_attn_time(what, tl):
         f"({tl['tflops']:.1f} TFLOP/s over {tl['pairs_per_head']} "
         f"allowed pairs a head, {100 * tl['bound'][0] / tl['ms']:.1f}% "
         f"of the {tl['bound'][0]:.4f} ms bound ({tl['bound'][1]})); "
-        f"plain (round_p) {tl['plain_ms']:.2f} ms; flex_attention "
-        f"(compiled, the library's call) {tl['library_ms']:.4f} ms, "
+        f"plain (round_p) {tl['plain_ms']:.2f} ms; "
+        f"{tl.get('library', FLEX)} {tl['library_ms']:.4f} ms, "
         f"{ATTN_PER} back to back, {tl['library_single_ms']:.4f} one "
         f"call a sample, vs plain max |diff| {tl['library_err']:.3e} "
         f"mean {tl['library_mean_err']:.3e} "
@@ -3218,7 +3275,8 @@ def plain_bwd_by_kv_head(q, k, v, o, lse, do, **kw):
     return tuple(torch.cat(x, dim=2) for x in zip(*parts))
 
 
-def time_attn_bwd(args, dev, flex, q, k, v, o, lse, do, window, cap):
+def time_attn_bwd(args, dev, flex, q, k, v, o, lse, do, window, cap,
+                  lib_name=FLEX):
     """flash_attention_bwd at one bf16 shape: 10 calls back to back and
     one a sample, beside its bound (2.5x the forward's allowed-pair
     FLOPs), its plain version (round_p, one kv head at a time) and the
@@ -3243,7 +3301,8 @@ def time_attn_bwd(args, dev, flex, q, k, v, o, lse, do, window, cap):
     tl = dict(ms=cuda_ms(kern, args.repeats, ATTN_PER),
               single_ms=cuda_ms(kern, args.repeats),
               plain_ms=cuda_ms(plain, 3),
-              bound=bound(nbytes, flops, BF16_FLOPS), pairs_per_head=pairs)
+              bound=bound(nbytes, flops, BF16_FLOPS), pairs_per_head=pairs,
+              library=lib_name)
     tl["tflops"] = flops / tl["ms"] / 1e9
     t0 = time.perf_counter()
     try:
@@ -3273,14 +3332,15 @@ def time_attn_bwd(args, dev, flex, q, k, v, o, lse, do, window, cap):
 
 
 def log_attn_bwd_time(what, tl):
-    lib_txt = (f"flex_attention's backward (compiled, the library's "
-               f"call) {tl['library_ms']:.4f} ms, {ATTN_PER} back to "
+    lib_txt = (f"the backward of {tl.get('library', FLEX)} "
+               f"{tl['library_ms']:.4f} ms, {ATTN_PER} back to "
                f"back, {tl['library_single_ms']:.4f} one call a sample, "
                f"vs plain max |diff| {tl['library_err']:.3e} "
                f"({'within' if tl['library_within_bars'] else 'OUTSIDE'}"
                f" the kernel's bars)"
                if tl["library_ms"] is not None else
-               f"flex_attention's backward failed: {tl['library_error']}")
+               f"the backward of {tl.get('library', FLEX)} failed: "
+               f"{tl['library_error']}")
     log(f"[time] flash_attention_bwd {what}: {tl['ms']:.4f} ms per "
         f"call, {ATTN_PER} back to back, {tl['single_ms']:.4f} one call "
         f"a sample ({tl['tflops']:.1f} TFLOP/s over {tl['pairs_per_head']} "
@@ -4264,37 +4324,31 @@ def can_move(p: torch.Tensor, steps: int) -> bool:
     return bool((steps * TRAIN_LR * (1 + 0.1 * a) >= half).any())
 
 
-def rec_train_run(args, dev, report, arch):
-    """14e: train() of one family, bf16, AdamW, TRAIN_STEPS steps, in the
-    allocator's fixed segments, with the launch counts set to 0 just
-    before: rwkv6-1.6b uncut on 2 x 4096, no kernel; recurrentgemma-2b at
-    full width cut to 5 layers on 1 x 4096, two flash_attention (forward
-    and remat) and one flash_attention_bwd a step in its one attn_local
-    layer, all on the tensor cores. Finite losses, every leaf moved but
-    bf16 ones that the steps cannot move (`can_move`); the steps' times
-    and tokens/s, the peak memory, then one more step's device-busy time
-    under torch.profiler against train()'s last step. Returns the path's
-    launches."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
+def train_run(args, dev, cfg, B, S):
+    """train() of `cfg`, TRAIN_STEPS steps on batch_for(cfg, B, S) with
+    the config's optimizer, in the allocator's fixed segments, the launch
+    counts set to 0 just before: two flash_attention (the forward and its
+    remat) and one flash_attention_bwd a step in each attention layer, all
+    on the tensor cores. Finite losses; every leaf moved but bf16 leaves
+    the steps cannot move (`can_move`) and a leaf the loss does not read
+    (`embed` under `embed_inputs`: its gradient is 0, its AdamW step the
+    decay alone); the steps' times and tokens/s, the peak memory, then
+    one more step's device-busy time under torch.profiler against
+    train()'s last step. Returns (the report, the path's launches)."""
     from repro_torch.data import batch_for
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_bwd)
     from repro_torch.models import LMModel
-    from repro_torch.models.transformer import layer_kinds
     from repro_torch.train import train
 
-    cfg = get_config(arch)
-    if arch == REC_ARCH:
-        B, S, L = REC_TRAIN
-        cfg = dataclasses.replace(cfg, n_layers=L, repeats=1)
-    else:
-        B, S = RWKV_TRAIN
-    n_attn = layer_kinds(cfg).count("attn_local")
-    require(not EXPANDABLE[0], "14e runs in the allocator's fixed segments")
+    arch = cfg.name
+    n_attn = n_attn_layers(cfg)
+    require(not EXPANDABLE[0], f"{arch}'s training runs in the allocator's "
+                               f"fixed segments")
     rep = dict(arch=arch, layers=cfg.n_layers, batch=B, seq=S,
-               steps=TRAIN_STEPS, allocator=torch.cuda.get_allocator_backend(),
+               steps=TRAIN_STEPS, optimizer=cfg.optimizer,
+               grad_accum_dtype=cfg.grad_accum_dtype,
+               allocator=torch.cuda.get_allocator_backend(),
                expandable_segments=EXPANDABLE[0])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4325,23 +4379,27 @@ def rec_train_run(args, dev, report, arch):
     fresh = LMModel(cfg, device=dev, seed=args.seed).params.state_dict()
     still = [k for k, p in params.state_dict().items()
              if torch.equal(p, fresh[k])]
+    unread = [k for k in still if cfg.embed_inputs and k == "embed"]
     stuck = [k for k in still if not can_move(fresh[k], TRAIN_STEPS)]
-    require(still == stuck, f"{arch} weights that did not move: {still[:5]}")
-    rep["bf16_leaves_that_cannot_move"] = stuck
+    bad = [k for k in still if k not in stuck + unread]
+    require(not bad, f"{arch} weights that did not move: {bad[:5]}")
+    rep["unmoved"] = dict(cannot_move=stuck, unread=unread)
     del params, fresh
     secs = [hist[0]["sec"]] + [b["sec"] - a["sec"]
                                for a, b in zip(hist, hist[1:])]
     rep.update(history=hist, step_s=secs,
                tokens_per_s=[B * S / x for x in secs])
     log(f"[train] {arch}: every leaf moved but bf16 leaves that "
-        f"{TRAIN_STEPS} AdamW steps cannot move: {stuck}")
-    log(f"[time] {arch} train_step {B} x {S} bf16, {cfg.n_layers} layers "
-        f"({rep['n_params'] / 1e9:.3f} B parameters): first "
+        f"{TRAIN_STEPS} steps cannot move {stuck} and unread leaves "
+        f"{rep['unmoved']['unread']}")
+    log(f"[time] {arch} train_step {B} x {S} bf16, {cfg.n_layers} layers, "
+        f"{cfg.optimizer}, gradients summed in {cfg.grad_accum_dtype} ("
+        f"{rep['n_params'] / 1e9:.3f} B parameters): first "
         f"{1e3 * secs[0]:.1f} ms, then " + " / ".join(
             f"{1e3 * x:.1f}" for x in secs[1:]) + " ms ("
         + " / ".join(f"{t:.0f}" for t in rep["tokens_per_s"][1:])
         + " tokens/s); losses " + " / ".join(f"{h['loss']:.4f}" for h in hist)
-        + ", grad norms " + " / ".join(f"{h['grad_norm']:.3f}" for h in hist))
+        + ", aux " + " / ".join(f"{h['aux']:.4f}" for h in hist))
     log(f"[memory] {arch} training peak allocated "
         f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB, reserved "
         f"{rep['peak_reserved_bytes'] / 2**30:.3f} GiB, fixed segments; the "
@@ -4373,8 +4431,29 @@ def rec_train_run(args, dev, report, arch):
             if busy else "the capture holds no device event (not measured)"))
     del model, opt, batch
     torch.cuda.empty_cache()
+    launches = {k: counts[k] for k in ("flash_attention",
+                                       "flash_attention_bwd")}
+    return rep, launches
+
+
+def rec_train_run(args, dev, report, arch):
+    """14e: `train_run` of one family, bf16, AdamW: rwkv6-1.6b uncut on
+    2 x 4096, no kernel; recurrentgemma-2b at full width cut to 5 layers on
+    1 x 4096, two flash_attention and one flash_attention_bwd a step in
+    its one attn_local layer. Returns the path's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == REC_ARCH:
+        B, S, L = REC_TRAIN
+        cfg = dataclasses.replace(cfg, n_layers=L, repeats=1)
+    else:
+        B, S = RWKV_TRAIN
+    rep, launches = train_run(args, dev, cfg, B, S)
     report.setdefault("recurrent", {}).setdefault("train", {})[arch] = rep
-    return {k: counts[k] for k in ("flash_attention", "flash_attention_bwd")}
+    return launches
 
 
 def recurrent_phase(args, dev, report):
@@ -4396,6 +4475,500 @@ def recurrent_phase(args, dev, report):
     s = time.perf_counter() - t_phase
     report.setdefault("recurrent", {})["phase_s"] = s
     log(f"[rec] phase 14 {s:.1f} s; its main path's launches {launches}")
+    return dict(launches=launches, max_abs_err=err_f, max_abs_err_bwd=err_b,
+                times=times)
+
+
+# -- phase 15: the embedding-input and MoE families ---------------------------
+VL_ARCH, MUSIC_ARCH, MOE_ARCH = "qwen2-vl-2b", "musicgen-large", "dbrx-132b"
+FAM_BATCH, FAM_SEQ = 4, 2048        # 15b, 15c: prefill_step; decode position
+VL_GRID = (32, 32)                  # 15b's prefill: one image of 32 x 32
+# 15b, 15c f32 witnesses at full width: layers; text, image grid, text of
+# the card-against-CPU prefill; the prompt of prefill against stepped decode
+FAM_WITNESS = (2, (16, (16, 16), 16), 256)
+MOE_BATCH, MOE_SEQ = 2, 8192        # 15d: prefill_step; decode position
+MOE_DECODE_B = 4                    # 15d: decode_step at position 8192
+# 15d: dbrx-132b cut to 6 of its 40 layers to fit the card: each layer
+# holds 6.34 GB of bf16 expert weights and 0.18 GB of attention, the
+# embedding and head 2.47 GB (41.6 GB in all)
+MOE_SERVE_LAYERS = 6
+# 15d: f32 prefill against stepped decode at full width: layers, tokens
+MOE_F32 = (2, 64)
+MUSIC_ATTN = (4, 2048)              # 15a: musicgen's B, S (forward, backward)
+MOE_ATTN = (2, 1, 8192)             # 15a: dbrx's forward B, backward B, S
+# 15e: (arch, layers (None: uncut), B, S). dbrx at 1 layer: at 2 its
+# Adafactor step holds the weights and gradients (15.2 GB each), their
+# stacked copies (12.7 GB each), the new expert leaves and the f32
+# temporaries of one [2, 16, 6144, 10752] leaf (8.5 GB each), about
+# 100 GB; at 1 layer about 58 GB of the card's 79
+FAM_TRAIN = ((VL_ARCH, None, 4, 2048), (MUSIC_ARCH, None, 4, 2048),
+             (MOE_ARCH, 1, 2, 2048))
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_moe")
+
+
+def vl_positions(B, n_text, grid, n_after) -> np.ndarray:
+    """M-RoPE position ids [B, 3, S] (int32) as Qwen2-VL lays out text,
+    one image and text: `n_text` text tokens at i on all three streams
+    (t, h, w); the image's h x w patches in one frame, patch (r, c) at
+    t = s, h = s + r, w = s + c (s = n_text); then `n_after` text tokens
+    from the largest position + 1 on."""
+    h, w = grid
+    s = n_text
+    rows, cols = np.divmod(np.arange(h * w), w)
+    image = np.stack([np.full(h * w, s), s + rows, s + cols])
+    nxt = s + max(h, w)
+    pos = np.concatenate([np.broadcast_to(np.arange(s), (3, s)), image,
+                          np.broadcast_to(np.arange(nxt, nxt + n_after),
+                                          (3, n_after))], axis=1)
+    return np.broadcast_to(pos, (B,) + pos.shape).astype(np.int32).copy()
+
+
+def model_inputs(cfg, batch) -> dict:
+    """The model's inputs out of a `batch_for` batch: the tokens or the
+    embeddings, and M-RoPE's positions."""
+    keys = ("embeddings", "positions") if cfg.embed_inputs else ("tokens",)
+    return {k: batch[k] for k in keys if k in batch}
+
+
+def step_input(cfg, batch, t) -> dict:
+    key = "embeddings" if cfg.embed_inputs else "tokens"
+    return {key: batch[key][:, t:t + 1]}
+
+
+def n_attn_layers(cfg) -> int:
+    from repro_torch.models.transformer import layer_kinds
+
+    return sum(k in ATTN_KINDS for k in layer_kinds(cfg))
+
+
+@contextlib.contextmanager
+def moe_drops(record: list):
+    """Within the block, each MoE layer appends its dropped tokens (routed
+    past an expert's capacity C, from the layer's own routing) to
+    `record`, then runs unchanged (`transformer.moe_apply` wrapped)."""
+    from repro_torch.models import moe, transformer
+
+    real = transformer.moe_apply
+
+    def counted(x, p, cfg_moe):
+        N = x.shape[0] * x.shape[1]
+        gates, _ = moe._route(x.reshape(N, -1), p, cfg_moe)
+        C = min(moe.capacity(N, cfg_moe), N)
+        record.append(int(torch.clamp((gates > 0).sum(0) - C, min=0).sum()))
+        return real(x, p, cfg_moe)
+
+    transformer.moe_apply = counted
+    try:
+        yield record
+    finally:
+        transformer.moe_apply = real
+
+
+def family_attn_checks(args, dev, report):
+    """15a: flash_attention and flash_attention_bwd, bf16 on the tensor
+    cores, at musicgen-large's attention (B 4 x 2048, 32 heads over 32, D
+    64: the first MHA on the card) and dbrx-132b's (48 heads over 8, D
+    128: forward at B 2 x 8192, backward at B 1 x 8192), causal, no window
+    and no cap: each against its plain version at phase 9's / 11a's bars,
+    the backward's two runs bit for bit; each timed beside its bound and
+    scaled_dot_product_attention (forward and backward), which computes the
+    same function at these shapes. Returns (worst forward error, worst
+    backward error, times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain,
+                                                flash_attention_bwd)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 15)
+    rep = dict(checks=[], times={})
+    err_f = err_b = 0.0
+    music, moe = get_config(MUSIC_ARCH), get_config(MOE_ARCH)
+    cases = ((MUSIC_ARCH, music, MUSIC_ATTN[0], MUSIC_ATTN[0],
+              MUSIC_ATTN[1]),
+             (MOE_ARCH, moe, MOE_ATTN[0], MOE_ATTN[1], MOE_ATTN[2]))
+    for arch, cfg, B_f, B_b, S in cases:
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+        def operands(B):
+            return [torch.randn(B, S, h, D, generator=gen, device=dev).to(bf)
+                    for h in (H, K, K, H)]
+
+        shape = f"{arch}: H {H} over K {K}, D {D}, S = T = {S}, causal"
+        # -- the forward --------------------------------------------------
+        q, k, v, _ = operands(B_f)
+        tc0 = flash_attention.launches_tc
+        got = flash_attention_bshd(q, k, v)
+        require(flash_attention.launches_tc - tc0 == 1
+                and got.shape == q.shape and got.dtype == bf,
+                f"15a: the forward did not run on the tensor cores ({shape})")
+        err_f = max(err_f, hold_attn(
+            rep["checks"], f"bf16 B {B_f} ({shape})", got,
+            lambda r: flash_attention_bshd_plain(q, k, v, round_p=r), v,
+            list(k.shape)))
+        del got
+        t = time_attn(args, dev, sdpa_library, q, k, v, None, None, SDPA)
+        rep["times"][f"{arch} forward"] = t
+        log_attn_time(f"bf16 B {B_f} ({shape})", t)
+        del q, k, v
+        torch.cuda.empty_cache()
+        # -- the backward -------------------------------------------------
+        q, k, v, do = operands(B_b)
+        o, lse = flash_attention_bshd(q, k, v, return_lse=True)
+        tc0 = flash_attention_bwd.launches_tc
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        again = flash_attention_bwd(q, k, v, o, lse, do)
+        require(flash_attention_bwd.launches_tc - tc0 == 2,
+                f"15a: the backward did not run on the tensor cores "
+                f"({shape})")
+        want = plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=True)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = {}
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            require(g.shape == w.shape and g.dtype == bf,
+                    f"15a flash_attention_bwd {gname}: shape or dtype")
+            e, rel, ok = bwd_err(g, w)
+            errs[gname] = (e, rel)
+            err_b = max(err_b, e)
+            require(ok, f"15a flash_attention_bwd {gname} ({shape}): max "
+                        f"|diff| {e} ({rel:.3e} of max |want|)")
+        require(same, f"15a flash_attention_bwd ({shape}): two runs differ")
+        rep["checks"].append(dict(case=f"bwd bf16 B {B_b} ({shape})",
+                                  q=list(q.shape), kv=list(k.shape),
+                                  errs=errs, bit_identical=same))
+        log(f"[fam] flash_attention_bwd bf16 q {list(q.shape)} kv "
+            f"{list(k.shape)} (tensor-core kernels, G = {H // K}): "
+            + ", ".join(f"{g} {e:.3e} ({r:.2e} of max)"
+                        for g, (e, r) in errs.items())
+            + f"; repeat bit-identical {same}")
+        del got, again, want
+        t = time_attn_bwd(args, dev, sdpa_library, q, k, v, o, lse, do,
+                          None, None, SDPA)
+        rep["times"][f"{arch} backward"] = t
+        log_attn_bwd_time(f"bf16 B {B_b} ({shape})", t)
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    rep.update(max_abs_err=err_f, max_abs_err_bwd=err_b)
+    report.setdefault("families", {})["attn"] = rep
+    return err_f, err_b, rep["times"]
+
+
+def embed_serve_checks(args, dev, arch, report):
+    """15b (qwen2-vl-2b) and 15c (musicgen-large) served uncut in bf16 from
+    embedding inputs, weights from --seed: at full width and 2 layers in
+    f32, the card's prefill_step (the scalar kernel) against the same on
+    the CPU (chunked_attention), qwen2-vl on grid positions (text, a 16 x
+    16 image, text), logits and every layer's k within TOL_LM_F32, and
+    prefill_step against stepped decode_step on `batch_for`'s inputs
+    (M-RoPE's equal streams, which is what a decode step gives);
+    prefill_step on 4 x 2048 (qwen2-vl: text, one 32 x 32 image, text)
+    with the launch counts set to 0 just before (one flash_attention a
+    layer, all on the tensor cores, nothing else), its time and peak
+    memory; decode_step at 2048, B 4; serve (4, 64 + 32). Returns the
+    prefill's flash_attention launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    rep = report.setdefault("families", {}).setdefault(arch, {})
+    mrope = cfg.rope == "mrope"
+    L32, (n_text, grid, n_after), P = FAM_WITNESS
+
+    # -- the f32 witnesses at full width --------------------------------------
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=L32)
+    card = LMModel(cfg32, device=dev, seed=args.seed)
+    # the CPU's copy: the same seed's weights drawn on the card, moved
+    cpu = LMModel(cfg32, device=dev, seed=args.seed).to("cpu")
+    cpu.device = torch.device("cpu")
+    S32 = n_text + grid[0] * grid[1] + n_after
+    batch = batch_for(cfg32, 1, S32, 0, args.seed)
+    if mrope:
+        batch["positions"] = vl_positions(1, n_text, grid, n_after)
+    n0 = launch_counts()
+    got, got_c = card.prefill_step(model_inputs(cfg32, batch))
+    n1 = launch_counts()
+    require(n1["flash_attention"] - n0["flash_attention"] == L32
+            and all(n1[k] == n0[k] for k in n0 if k != "flash_attention"),
+            f"15 {arch} f32 prefill launches {n0} -> {n1}")
+    want, want_c = cpu.prefill_step(model_inputs(cfg32, batch))
+    e_cpu, ok = attn_err(got.cpu(), want, TOL_LM_F32, TOL_LM_F32)
+    e_k = max(float((a[0].cpu() - b[0]).abs().max())
+              for a, b in zip(got_c, want_c))
+    require(ok and e_k <= TOL_LM_F32, f"15 {arch} f32 prefill, card vs CPU"
+                                      f": logits {e_cpu}, k {e_k}")
+    del cpu, want, want_c, got_c
+    b2 = batch_for(cfg32, 1, P, 0, args.seed)
+    want, _ = card.prefill_step(model_inputs(cfg32, b2))
+    cache = card.init_cache(1, P)
+    n1 = launch_counts()
+    for t in range(P):
+        logits, cache = card.decode_step(cache, step_input(cfg32, b2, t), t)
+    torch.cuda.synchronize()
+    require(launch_counts() == n1, f"15 {arch}: decode_step launched a "
+                                   f"kernel")
+    e_dec, ok = attn_err(want, logits[:, 0], TOL_LM_F32, TOL_LM_F32)
+    require(ok, f"15 {arch} f32 prefill vs stepped decode: {e_dec}")
+    rep.update(f32_card_vs_cpu=e_cpu, f32_card_vs_cpu_k=e_k,
+               f32_prefill_vs_decode=e_dec)
+    log(f"[fam] {arch} f32, full width, {L32} layers: prefill_step on the "
+        f"card (kernel) vs the CPU (chunked_attention) on 1 x {S32}"
+        + (f" (text {n_text}, a {grid[0]} x {grid[1]} image, text "
+           f"{n_after}: distinct M-RoPE streams)" if mrope else "")
+        + f": logits {e_cpu:.3e} of up to {float(got.abs().max()):.3f}, "
+        f"every layer's k {e_k:.3e}; prefill_step vs {P} stepped "
+        f"decode_steps: {e_dec:.3e} (bar {TOL_LM_F32}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del card, cache, want, logits, got
+    torch.cuda.empty_cache()
+
+    # -- prefill_step uncut -----------------------------------------------------
+    B, S = FAM_BATCH, FAM_SEQ
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[fam] {arch}: {n_params / 1e9:.3f} B parameters ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads}, head_dim {cfg.hd}, {cfg.mlp}, {cfg.norm}, "
+        f"{cfg.rope}, vocab {cfg.vocab}, {cfg.dtype}), drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = batch_for(cfg, B, S, 0, args.seed)
+    if mrope:
+        n_img = VL_GRID[0] * VL_GRID[1]
+        pre = (S - n_img) // 2
+        batch["positions"] = vl_positions(B, pre, VL_GRID, S - n_img - pre)
+    inputs = {k: torch.as_tensor(v, device=dev)
+              for k, v in model_inputs(cfg, batch).items()}
+    torch.cuda.reset_peak_memory_stats()
+    for w in launch_wrappers():
+        w.launches = 0
+    flash_attention.launches_tc = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    last, caches = model.prefill_step(inputs)
+    ev[1].record()
+    torch.cuda.synchronize()
+    first_ms = ev[0].elapsed_time(ev[1])
+    counts = launch_counts()
+    L = cfg.n_layers
+    log(f"[launches] {arch} prefill path: {counts}, flash_attention on the "
+        f"tensor cores {flash_attention.launches_tc}")
+    require(counts["flash_attention"] == L and flash_attention.launches_tc
+            == L and all(v == 0 for k, v in counts.items()
+                         if k != "flash_attention"),
+            f"{arch}'s prefill_step launches {counts}, want flash_attention "
+            f"{L} on the tensor cores and nothing else")
+    require(last.shape == (B, cfg.vocab) and bool(torch.isfinite(last).all())
+            and len(caches) == L and caches[0][0].shape
+            == (B, S, cfg.n_kv_heads, cfg.hd),
+            f"{arch}'s prefill_step: last logits or caches")
+    del caches, last
+    rep["prefill_ms"] = [first_ms, cuda_ms(
+        lambda: model.prefill_step(inputs), 3)]
+    rep["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[time] {arch} prefill_step {B} x {S}: " + " / ".join(
+        f"{x:.1f}" for x in rep["prefill_ms"]) + f" ms (the counted call, "
+        f"then the median of 3; {B * S / rep['prefill_ms'][-1]:.0f} "
+        f"tokens/ms); peak allocated "
+        f"{rep['prefill_peak_bytes'] / 2**30:.3f} GiB")
+    rep.update(n_params=n_params, prefill_launches=counts["flash_attention"])
+
+    # -- decode_step at 2048, serve ---------------------------------------------
+    step = {k: torch.as_tensor(v, device=dev)
+            for k, v in step_input(cfg, batch, S - 1).items()}
+    cache = model.init_cache(B, S + 1)
+    rep["decode_ms"] = cuda_ms(lambda: model.decode_step(cache, step, S),
+                               args.repeats)
+    log(f"[time] {arch} decode_step, {B} sequences at position {S}: "
+        f"{rep['decode_ms']:.2f} ms per step")
+    del model, cache, batch, inputs, step
+    torch.cuda.empty_cache()
+    toks, tps = serve(cfg, batch=4, prompt_len=64, gen=32, seed=args.seed,
+                      device=dev)
+    require(toks.shape == (4, 32) and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab,
+            f"{arch} serve left the vocabulary")
+    rep["serve_tokens_per_s"] = tps
+    log(f"[fam] {arch} serve batch 4, prompt 64 (embeddings), gen 32: "
+        f"{tps:.1f} tokens/s; first tokens {toks[:, :6].tolist()}")
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def moe_serve_checks(args, dev, report):
+    """15d: dbrx-132b at full width, bf16, weights from --seed, cut to
+    MOE_SERVE_LAYERS layers for the card's memory: first 2 layers in f32
+    with the capacity factor raised to E / top_k (capacity(64) = 64: no
+    token can drop, as JAX's smoke config raises it for the same check),
+    prefill_step (the scalar kernel) on 1 x 64 tokens against 64 stepped
+    decode_steps within TOL_LM_F32, no token dropped; then prefill_step
+    on 2 x 8192 with the launch counts set to 0 just before (one
+    flash_attention a layer, all on the tensor cores, nothing else), its
+    time and peak memory; a second prefill_step, bit for bit the first,
+    with each MoE layer's dropped tokens counted; decode_step at 8192, B 4;
+    serve (4, 64 + 32). Returns the prefill's flash_attention launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import LMModel, moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH)
+    rep = report.setdefault("families", {}).setdefault(MOE_ARCH, {})
+    E, top_k = cfg.moe.n_experts, cfg.moe.top_k
+
+    # -- f32, 2 layers, no drop: prefill against stepped decode ---------------
+    L32, P = MOE_F32
+    t0 = time.perf_counter()
+    wide = dataclasses.replace(cfg.moe, capacity_factor=E / top_k)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=L32, moe=wide)
+    require(moe.capacity(P, wide) >= P, "15d: tokens could drop at 64")
+    m32 = LMModel(cfg32, device=dev, seed=args.seed)
+    toks = batch_for(cfg32, 1, P, 0, args.seed)["tokens"]
+    with moe_drops([]) as drops:
+        want, _ = m32.prefill_step({"tokens": toks})
+    require(drops == [0] * L32, f"15d f32: tokens dropped {drops}")
+    cache = m32.init_cache(1, P)
+    for t in range(P):
+        logits, cache = m32.decode_step(cache, {"tokens": toks[:, t:t + 1]},
+                                        t)
+    e_dec, ok = attn_err(want, logits[:, 0], TOL_LM_F32, TOL_LM_F32)
+    require(ok, f"15d f32 prefill vs stepped decode: {e_dec}")
+    rep["f32_prefill_vs_decode"] = e_dec
+    log(f"[fam] {MOE_ARCH} f32, full width, {L32} layers, capacity factor "
+        f"raised from {cfg.moe.capacity_factor} to {E / top_k} (no token "
+        f"can drop; dropped {drops}): prefill_step vs {P} stepped "
+        f"decode_steps {e_dec:.3e} of up to {float(want.abs().max()):.3f} "
+        f"(bar {TOL_LM_F32}; {time.perf_counter() - t0:.1f} s)")
+    del m32, cache, want, logits
+    torch.cuda.empty_cache()
+
+    # -- prefill_step at full width, MOE_SERVE_LAYERS layers ------------------
+    L = MOE_SERVE_LAYERS
+    cut = dataclasses.replace(cfg, n_layers=L)
+    B, S = MOE_BATCH, MOE_SEQ
+    t0 = time.perf_counter()
+    model = LMModel(cut, device=dev, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[fam] {MOE_ARCH} at {L} of its {cfg.n_layers} layers: "
+        f"{n_params / 1e9:.3f} B parameters ({E} experts, top {top_k}, "
+        f"expert width {cfg.moe.d_ff_expert}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}), drawn in {time.perf_counter() - t0:.1f} s")
+    batch = {"tokens": torch.as_tensor(
+        batch_for(cut, B, S, 0, args.seed)["tokens"], device=dev)}
+    torch.cuda.reset_peak_memory_stats()
+    for w in launch_wrappers():
+        w.launches = 0
+    flash_attention.launches_tc = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    last, caches = model.prefill_step(batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[launches] {MOE_ARCH} prefill path: {counts}, flash_attention on "
+        f"the tensor cores {flash_attention.launches_tc}")
+    require(counts["flash_attention"] == L and flash_attention.launches_tc
+            == L and all(v == 0 for k, v in counts.items()
+                         if k != "flash_attention"),
+            f"{MOE_ARCH}'s prefill_step launches {counts}, want "
+            f"flash_attention {L} on the tensor cores and nothing else")
+    require(last.shape == (B, cfg.vocab) and bool(torch.isfinite(last).all())
+            and len(caches) == L, f"{MOE_ARCH}'s prefill_step")
+    rep["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+    with moe_drops([]) as drops:
+        ev[2].record()
+        last2, caches2 = model.prefill_step(batch)
+        ev[3].record()
+    torch.cuda.synchronize()
+    same = torch.equal(last, last2) and all(
+        torch.equal(a, b) for c, c2 in zip(caches, caches2)
+        for a, b in zip(c, c2))
+    require(same, f"{MOE_ARCH}: two prefill_steps differ")
+    N = B * S
+    C = min(moe.capacity(N, cfg.moe), N)
+    rep.update(n_params=n_params, layers=L, prefill_launches=L,
+               prefill_ms=[ev[0].elapsed_time(ev[1]),
+                           ev[2].elapsed_time(ev[3])],
+               dropped=drops, capacity=C, bit_identical=same)
+    log(f"[time] {MOE_ARCH} prefill_step {B} x {S} at {L} layers: "
+        f"{rep['prefill_ms'][0]:.1f} ms (counted), "
+        f"{rep['prefill_ms'][1]:.1f} ms (again, with the drop counter's "
+        f"routing; bit-identical {same}); peak allocated "
+        f"{rep['prefill_peak_bytes'] / 2**30:.3f} GiB; tokens dropped a "
+        f"layer (capacity {C} of {N} tokens x {top_k} / {E} experts, "
+        f"factor {cfg.moe.capacity_factor}): {drops} of {N * top_k} "
+        f"assignments")
+    del last, last2, caches, caches2
+
+    # -- decode_step at 8192, serve ---------------------------------------------
+    Bd = MOE_DECODE_B
+    tok = torch.as_tensor(batch_for(cut, Bd, 2, 0, args.seed)["tokens"][
+        :, -1:], device=dev)
+    cache = model.init_cache(Bd, S + 1)
+    rep["decode_ms"] = cuda_ms(
+        lambda: model.decode_step(cache, {"tokens": tok}, S), args.repeats)
+    log(f"[time] {MOE_ARCH} decode_step, {Bd} sequences at position {S}, "
+        f"{L} layers: {rep['decode_ms']:.2f} ms per step (reads every "
+        f"expert's weights: {L * 3 * E * cfg.d_model * cfg.moe.d_ff_expert * 2 / 1e9:.1f} GB)")
+    del model, cache, batch
+    torch.cuda.empty_cache()
+    toks, tps = serve(cut, batch=4, prompt_len=64, gen=32, seed=args.seed,
+                      device=dev)
+    require(toks.shape == (4, 32) and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab,
+            f"{MOE_ARCH} serve left the vocabulary")
+    rep["serve_tokens_per_s"] = tps
+    log(f"[fam] {MOE_ARCH} serve batch 4, prompt 64, gen 32 at {L} layers: "
+        f"{tps:.1f} tokens/s; first tokens {toks[:, :6].tolist()}")
+    torch.cuda.empty_cache()
+    return L
+
+
+def family_phase(args, dev, report):
+    """Phase 15: the embedding-input and MoE families. 15a the attention
+    kernels at musicgen-large's and dbrx-132b's shapes, 15b qwen2-vl-2b and
+    15c musicgen-large served uncut, 15d dbrx-132b served at 6 layers, 15e
+    train() of each (qwen2-vl and musicgen uncut, dbrx at 1 layer).
+    Returns the main path's launches (15b-d's prefills and 15e's
+    training), the kernels' worst errors and times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    err_f, err_b, times = family_attn_checks(args, dev, report)
+    launches = dict(flash_attention=0, flash_attention_bwd=0)
+    for arch in (VL_ARCH, MUSIC_ARCH):
+        launches["flash_attention"] += embed_serve_checks(args, dev, arch,
+                                                          report)
+    launches["flash_attention"] += moe_serve_checks(args, dev, report)
+    fam = report.setdefault("families", {})
+    for arch, layers, B, S in FAM_TRAIN:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        rep, n = train_run(args, dev, cfg, B, S)
+        fam.setdefault("train", {})[arch] = rep
+        for k in launches:
+            launches[k] += n[k]
+    s = time.perf_counter() - t_phase
+    fam["phase_s"] = s
+    log(f"[fam] phase 15 {s:.1f} s; its main path's launches {launches}")
     return dict(launches=launches, max_abs_err=err_f, max_abs_err_bwd=err_b,
                 times=times)
 
@@ -4992,7 +5565,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 8b. the guard on the streaming path --------------------------------
-    guard = guard_phase(args, g, dev, report, wrappers)
+    gg = g
+    if args.n > GUARD_GRAPH[0]:     # cut for the script's time (GUARD_GRAPH)
+        t0 = time.perf_counter()
+        gg = powerlaw_graph(*GUARD_GRAPH, alpha=args.alpha, seed=args.seed)
+        log(f"[guard] its graph: powerlaw_graph({GUARD_GRAPH[0]}, "
+            f"{GUARD_GRAPH[1]}), {gg.m} edges, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    guard = guard_phase(args, gg, dev, report, wrappers)
+    del gg
     torch.cuda.empty_cache()
 
     # -- 10. the sharded engines --------------------------------------------
@@ -5046,6 +5627,15 @@ def main(argv=None) -> int:
                                       rc["max_abs_err_bwd"])
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] += rc["launches"][name]
+    torch.cuda.empty_cache()
+
+    # -- 15. the embedding-input and MoE families -----------------------------
+    fm = family_phase(args, dev, report)
+    errs["flash_attention"] = max(errs["flash_attention"], fm["max_abs_err"])
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
+                                      fm["max_abs_err_bwd"])
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += fm["launches"][name]
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",

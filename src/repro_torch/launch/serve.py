@@ -9,7 +9,12 @@ prefilled by stepping every token through `decode_step` (correct for every
 cache kind; the fused `prefill_step` is the other entry point, and the
 one that runs the flash_attention kernel), then greedy argmax decoding.
 Weights are random, drawn from `seed`; prompts come from
-`data.batch_for(cfg, batch, prompt_len, 0, seed)`, as in the JAX package.
+`data.batch_for(cfg, batch, prompt_len, 0, seed)`, as in the JAX package:
+token ids, or with `embed_inputs` (qwen2-vl-2b, musicgen-large, whose
+frontends are stubs) frame or patch embeddings, stepped in one position
+at a time, after which each generated token goes in as its `embed` row
+(M-RoPE's three streams all at the step's position, as JAX's decode
+gives them).
 The int8 KV cache is the config's `kv_cache_dtype="int8"`, reached by
 `serve(dataclasses.replace(cfg, kv_cache_dtype="int8"), ...)` as in the
 JAX dry run; there is no flag for it, as in JAX's launcher.
@@ -30,23 +35,27 @@ __all__ = ["serve", "generate", "main"]
 
 
 def generate(model: LMModel, prompts: np.ndarray, gen: int):
-    """Greedy decoding after a stepped prefill of `prompts` [B, P] with an
-    already-built model. Returns (generated tokens [B, gen] as numpy,
-    tokens/s over the B * (P + gen) steps)."""
-    B, prompt_len = prompts.shape
+    """Greedy decoding after a stepped prefill of `prompts` with an
+    already-built model: token ids [B, P], or embeddings [B, P, d] for a
+    config with `embed_inputs`. Returns (generated tokens [B, gen] as
+    numpy, tokens/s over the B * (P + gen) steps)."""
+    key = "embeddings" if model.cfg.embed_inputs else "tokens"
+    B, prompt_len = prompts.shape[:2]
     total = prompt_len + gen
     cache = model.init_cache(B, total)
-    tokens = torch.as_tensor(prompts, device=model.device)
+    inputs = torch.as_tensor(prompts, device=model.device)
     t0 = time.perf_counter()
     logits = None
     for t in range(prompt_len):
         logits, cache = model.decode_step(
-            cache, {"tokens": tokens[:, t:t + 1]}, t)
+            cache, {key: inputs[:, t:t + 1]}, t)
     out = []
     nxt = torch.argmax(logits[:, -1], dim=-1)
     for t in range(prompt_len, total):
         out.append(nxt)
-        logits, cache = model.decode_step(cache, {"tokens": nxt[:, None]}, t)
+        piece = (model.params.embed.detach()[nxt[:, None]]
+                 if model.cfg.embed_inputs else nxt[:, None])
+        logits, cache = model.decode_step(cache, {key: piece}, t)
         nxt = torch.argmax(logits[:, -1], dim=-1)
     toks = torch.stack(out, dim=1).cpu().numpy()   # waits for the device
     dt = time.perf_counter() - t0
@@ -59,7 +68,8 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed=0,
     `device` names another; raises without a card."""
     model = LMModel(cfg, device=device, seed=seed)
     prompts = batch_for(cfg, batch, prompt_len, 0, seed)
-    return generate(model, prompts["tokens"], gen)
+    return generate(model, prompts["embeddings" if cfg.embed_inputs
+                                   else "tokens"], gen)
 
 
 def main(argv=None):

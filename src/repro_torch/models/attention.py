@@ -21,7 +21,9 @@ global-attention family, on tensors:
   dtype (`dequantize_kv`), in plain PyTorch on both devices, as JAX does
   in `jnp`.
 
-MLA waits for a later slice (ROADMAP A9) and raises
+Qwen2-VL's M-RoPE (`rope="mrope"`) rotates q and k by three position
+streams ([B, 3, S]); a decode step gives all three its position, as JAX
+does. MLA waits for a later slice (ROADMAP A9) and raises
 `NotImplementedError`.
 """
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attn import FlashAttentionFn
-from .layers import apply_rope, dense_init, rmsnorm, softcap
+from .layers import apply_rope, dense_init, mrope_apply, rmsnorm, softcap
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache",
            "chunked_attention", "quantize_kv", "dequantize_kv", "NEG_INF"]
@@ -141,7 +143,8 @@ def _qkv(x, p, cfg, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        raise later("M-RoPE (rope='mrope')")
+        q = mrope_apply(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = mrope_apply(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -172,7 +175,8 @@ def attn_decode(x, p, cfg, kind: str, cache, pos: int):
     (int). Local kinds roll mod window. Writes the new k/v (codes and
     scales) into `cache` in place and returns (out, cache)."""
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    shape = (B, 3, 1) if cfg.rope == "mrope" else (B, 1)
+    positions = torch.full(shape, pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(x, p, cfg, positions)
     T = cache["k"].shape[1]
     slot = pos % T if kind == "attn_local" else pos  # rolling window slot

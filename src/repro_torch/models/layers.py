@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 __all__ = ["dense_init", "rmsnorm", "layernorm", "norm_init", "apply_norm",
            "mlp_init", "mlp_apply", "rope_freqs", "apply_rope",
-           "sinusoidal_positions", "softcap"]
+           "mrope_apply", "sinusoidal_positions", "softcap"]
 
 
 def dense_init(shape, in_axis_size=None, dtype=torch.bfloat16, *,
@@ -111,6 +111,26 @@ def apply_rope(x, positions, theta: float):
     inv = rope_freqs(hd, theta, x.device)
     ang = positions.float()[..., None] * inv                   # [..., S, hd/2]
     cos = torch.cos(ang)[..., None, :]                         # [..., S, 1, hd/2]
+    sin = torch.sin(ang)[..., None, :]
+    return _rotate(x, cos, sin)
+
+
+def mrope_apply(x, positions3, theta: float, sections=(16, 24, 24)):
+    """Qwen2-VL M-RoPE: the hd/2 freq channels split into (t, h, w) groups,
+    each rotated by its own position stream. x [B, S, H, hd]; positions3:
+    [B, 3, S] (int). With three equal streams this is `apply_rope`."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover "
+                         f"head width {hd}")
+    inv = rope_freqs(hd, theta, x.device)                      # [hd/2]
+    ang_all = positions3.float()[..., None] * inv              # [B,3,S,hd/2]
+    parts, off = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang_all[:, i, :, off:off + sec])
+        off += sec
+    ang = torch.cat(parts, dim=-1)                             # [B,S,hd/2]
+    cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     return _rotate(x, cos, sin)
 

@@ -8,19 +8,23 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
   one (k, v) [B, S, K, hd] pair per attention layer, and each recurrent
   layer's final f32 state, {"h", "conv"} for RG-LRU or {"s", "x_tm",
   "x_cm"} for RWKV-6, as `init_cache` lays it out). On CUDA tensors every
-  attention layer runs the `flash_attention` kernel; the recurrences are
-  plain PyTorch on every device. The head (`lnf`, `unembed`)
+  attention layer runs the `flash_attention` kernel; the recurrences and
+  the MoE layers' routing, expert products and combine are plain PyTorch
+  on every device. The head (`lnf`, `unembed`)
   runs on the last position only: the same values as the JAX step's
   `logits[:, -1]`, without its [B, S, V] f32 tensor;
 - `decode_step(cache, batch, pos)` -> (logits [B, 1, V], cache), the cache
   (bf16, or int8 codes and scales with `kv_cache_dtype="int8"`) written
   in place at `pos`, each recurrent layer's state replaced in place;
-- `loss(batch)` -> (loss + 0.01 aux, {"loss", "aux"}), differentiable;
+- `loss(batch)` -> (loss + 0.01 aux, {"loss", "aux"}), differentiable
+  (aux: the MoE layers' summed load-balance loss, 0 without MoE);
 - `train_step(opt_state, batch)` -> (opt_state, {"loss", "aux",
   "grad_norm"}): gradients of `min(cfg.microbatch, B)`-row microbatches
   summed in `cfg.grad_accum_dtype` and divided by their count, then one
   AdamW or Adafactor update (`cfg.optimizer`) written into `self.params`
-  in place; the metrics are the microbatches' means, as in JAX. AdamW's
+  in place; the metrics are the microbatches' means, as in JAX. A leaf
+  the loss does not read (`embed` under `embed_inputs`) gets a zero
+  gradient, as JAX's autodiff gives it. AdamW's
   state is keyed like the weights; Adafactor's, whose factors and update
   clipping span a stacked leaf, by the JAX tree's paths with the pattern
   stacked (`convert.jax_paths`). On CUDA
@@ -29,8 +33,10 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
   kernel once a microbatch (with gemma2's window, soft-cap and head width
   256 too).
 
-Inputs are dicts of tensors or numpy arrays ({"tokens": [B, S] int}), moved
-to the model's device. One device: `zero1`, `seq_parallel` and `pure_dp`
+Inputs are dicts of tensors or numpy arrays ({"tokens": [B, S] int}, or
+with `embed_inputs` {"embeddings": [B, S, d], "labels": [B, S] int}, and
+{"positions": [B, 3, S] int} for M-RoPE, as `data.batch_for` gives
+them), moved to the model's device. One device: `zero1`, `seq_parallel` and `pure_dp`
 act on a mesh only, so they change nothing here (as in JAX with
 `mesh=None`); the sharding specs come with ROADMAP A9.
 """
@@ -103,7 +109,7 @@ class LMModel(nn.Module):
     def train_step(self, opt_state, batch):
         cfg = self.cfg
         b = self._batch(batch)
-        B = b["tokens"].shape[0]
+        B = b["embeddings" if cfg.embed_inputs else "tokens"].shape[0]
         mb = min(cfg.microbatch, B)
         if B % mb:
             raise ValueError(f"batch {B} is not a multiple of the "
@@ -115,7 +121,10 @@ class LMModel(nn.Module):
         for i in range(n_micro):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in b.items()}
             total, metrics = tfm.loss_fn(self.params, cfg, micro)
-            grads = torch.autograd.grad(total, list(weights.values()))
+            grads = torch.autograd.grad(total, list(weights.values()),
+                                        allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, weights.values())]
             if acc is None:
                 acc = [g.to(acc_dt) for g in grads]
             else:

@@ -1,0 +1,117 @@
+"""Mixture-of-Experts with capacity-bounded, sort-free dispatch.
+
+A copy of the JAX package's `repro.models.moe` on tensors. Dispatch is
+"token-choice with per-expert top-C": the router gives a [N, E] gate
+matrix (top-k per token, f32); each expert then takes its top-C tokens by
+gate (two top-k ops, no [N, E, C] one-hot, no sort), runs its SwiGLU on
+them as one batched product over the experts, and the gated outputs are
+added back at their tokens. Tokens past an expert's capacity are
+dropped; spare capacity slots take zero-gate tokens, which add 0.
+`torch.topk` and XLA's `top_k` may pick other zero-gate tokens for those
+slots: the outputs and gradients do not depend on which.
+
+The combine adds one expert at a time, in ascending order (`index_add_`
+of that expert's C distinct rows, so no two writes meet): a token's
+contributions are rounded in the order of JAX's scatter-add, and the
+result is the same on every run (one `index_add_` over all experts at
+once would add with atomics on CUDA, in an order that varies).
+
+DeepSeek-V3's refinements, as in JAX: node-limited group routing
+(`n_groups`, `group_top`: tokens restricted to the `group_top` expert
+groups with the largest sum of their top-2 scores) and a low-precision
+dispatch (`dispatch_dtype`: the dispatched tokens rounded through that
+dtype, then the experts run in the model's). One device: the sharding
+constraints of the JAX package's expert parallelism have no counterpart.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import dense_init, mlp_apply, mlp_init
+
+__all__ = ["moe_init", "moe_apply", "capacity"]
+
+
+def capacity(n_tokens: int, cfg_moe) -> int:
+    c = int(math.ceil(n_tokens * cfg_moe.top_k * cfg_moe.capacity_factor
+                      / cfg_moe.n_experts))
+    return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
+
+
+def moe_init(d: int, moe, dtype, *, generator: torch.Generator,
+             device=None) -> dict:
+    """The router (f32 [d, E]), the experts' SwiGLU weights ([E, d, F],
+    [E, d, F], [E, F, d]) and, with `n_shared`, a shared SwiGLU MLP of
+    width F x n_shared (a nested group, "shared")."""
+    E, Fe = moe.n_experts, moe.d_ff_expert
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    p = {"router": dense_init((d, E), dtype=torch.float32,
+                              generator=generator, device=device),
+         "wg": dense_init((E, d, Fe), in_axis_size=d, **kw),
+         "wu": dense_init((E, d, Fe), in_axis_size=d, **kw),
+         "wd": dense_init((E, Fe, d), in_axis_size=Fe, **kw)}
+    if moe.n_shared:
+        p["shared"] = mlp_init(d, Fe * moe.n_shared, "swiglu", **kw)
+    return p
+
+
+def _route(x_flat, p, moe):
+    """(dense gate matrix [N, E], f32, zeros off each token's top-k; the
+    Switch-style load-balance aux loss)."""
+    logits = x_flat.float() @ p["router"]                       # [N, E]
+    if moe.router == "sigmoid":                                 # DeepSeek-V3
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    N, E = scores.shape
+    if moe.n_groups and moe.group_top:
+        # node-limited routing: score each expert group by the sum of its
+        # top-2 affinities, keep only the top `group_top` groups
+        g = scores.reshape(N, moe.n_groups, E // moe.n_groups)
+        gscore = torch.topk(g, min(2, g.shape[-1]), dim=-1).values.sum(-1)
+        gidx = torch.topk(gscore, moe.group_top, dim=-1).indices
+        gmask = torch.zeros_like(gscore).scatter(1, gidx, 1.0)
+        scores = (g * gmask[..., None]).reshape(N, E)
+    top_vals, top_idx = torch.topk(scores, moe.top_k, dim=-1)
+    top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True),
+                                      min=1e-9)
+    gates = torch.zeros_like(scores).scatter(1, top_idx, top_vals)
+    me = (gates > 0).float().mean(dim=0)      # fraction routed per expert
+    pe = scores.mean(dim=0)                   # mean router prob per expert
+    aux = E * torch.sum(me * pe)
+    return gates, aux
+
+
+def _expert_ffn(xe, p):
+    """xe [E, C, d] -> [E, C, d], each expert's SwiGLU as one batched
+    product."""
+    h = F.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
+    return torch.bmm(h, p["wd"])
+
+
+def moe_apply(x, p, moe):
+    """x [B, S, d] -> ([B, S, d], aux loss (f32 scalar))."""
+    B, S, d = x.shape
+    N = B * S
+    x_flat = x.reshape(N, d)
+    gates, aux = _route(x_flat, p, moe)                         # [N, E]
+    C = min(capacity(N, moe), N)   # decode: a single token caps capacity
+    # per-expert top-C tokens (spare slots take zero-gate tokens: they add 0)
+    vals, idx = torch.topk(gates.T, C, dim=-1)                  # [E, C]
+    xe = x_flat[idx]                                            # [E, C, d]
+    if moe.dispatch_dtype != "bfloat16":
+        # DeepSeek-V3-style low-precision dispatch; the experts run in the
+        # model's dtype
+        xe = xe.to(getattr(torch, moe.dispatch_dtype))
+    xe = xe.to(x.dtype)
+    ye = _expert_ffn(xe, p)                                     # [E, C, d]
+    ye = ye * vals[..., None].to(ye.dtype)
+    out = torch.zeros((N, d), dtype=ye.dtype, device=x.device)
+    for e in range(ye.shape[0]):       # ascending: JAX's order, no atomics
+        out.index_add_(0, idx[e], ye[e])
+    if "shared" in p:
+        out = out + mlp_apply(x_flat, p["shared"], "swiglu")
+    return out.reshape(B, S, d), aux

@@ -2,9 +2,10 @@
 
 A copy of the JAX package's `repro.models.transformer` for the dense
 attention kinds (`attn`, `attn_local`, `attn_global`), with the bf16 or
-int8 KV cache (`kv_cache_dtype`), and the recurrent kinds `rec` (RG-LRU
-with its MLP) and `rwkv` (RWKV-6's time mix and its own channel mix,
-`models.ssm`). The JAX package
+int8 KV cache (`kv_cache_dtype`), the MoE kind `attn_moe` (attention,
+then `models.moe` in place of the MLP), and the recurrent kinds `rec`
+(RG-LRU with its MLP) and `rwkv` (RWKV-6's time mix and its own channel
+mix, `models.ssm`). The JAX package
 stacks the repeated pattern on a leading axis and drives it with
 `lax.scan` (small HLO, flat compile time); PyTorch runs eagerly, so here
 the layout (prefix, pattern × repeats, suffix) is unrolled into an
@@ -12,7 +13,15 @@ the layout (prefix, pattern × repeats, suffix) is unrolled into an
 Each block is an `nn.ModuleDict` of groups ("ln1", "mix", "ln2", "ffn",
 and "pn1"/"pn2" with post-norms; an `rwkv` block has no "ffn") holding
 the JAX package's leaves under the same names in `nn.ParameterDict`s,
-nested where JAX's group nests dicts (RWKV's `mu` and `lora_b`).
+nested where JAX's group nests dicts (RWKV's `mu` and `lora_b`, MoE's
+"shared").
+
+Inputs: {"tokens" [B, S]} looked up in `embed`, or, with
+`embed_inputs` (the audio and vision configs, whose frontends are stubs),
+{"embeddings" [B, S, d]} cast to the model's dtype; M-RoPE takes
+{"positions" [B, 3, S]} where given, else three equal streams.
+Sinusoidal positions are added to the inputs. `embed` stays a leaf
+either way (the serve loop feeds generated tokens' rows), as in JAX.
 The weights are trainable parameters; the serving steps run under
 `torch.no_grad()`.
 
@@ -23,10 +32,11 @@ decode step writes every layer's new k/v or state into it in place.
 
 Remat as in JAX (`jax.checkpoint` around each block): when autograd
 records the forward and no cache is wanted, each block runs under
-`torch.utils.checkpoint` and only the layer-boundary activations are
-kept; the backward runs the block's forward again. `loss_fn` is JAX's
-next-token cross entropy. The MoE and MLA mixers, `embed_inputs` and
-`rope="mrope"` wait for later slices (ROADMAP A9) and raise
+`torch.utils.checkpoint` and only the layer-boundary activations (and
+each MoE layer's aux loss) are kept; the backward runs the block's
+forward again. `loss_fn` is JAX's next-token cross entropy plus 0.01 x
+the MoE layers' summed aux loss (decode discards aux, as JAX does). The
+MLA mixers wait for a later slice (ROADMAP A9) and raise
 `NotImplementedError`.
 """
 from __future__ import annotations
@@ -42,14 +52,14 @@ from . import ssm
 from .attention import later
 from .layers import (apply_norm, dense_init, mlp_apply, mlp_init, norm_init,
                      sinusoidal_positions, softcap)
+from .moe import moe_apply, moe_init
 
 __all__ = ["LMParams", "init_block", "apply_block", "init_params",
            "layer_kinds", "forward_full", "forward_decode", "init_cache",
            "loss_fn", "check_supported"]
 
 # the layer kinds of the JAX package that later slices bring
-_LATER_KINDS = {"attn_moe": "the MoE layer (kind 'attn_moe')",
-                "mla_dense": "MLA (kind 'mla_dense')",
+_LATER_KINDS = {"mla_dense": "MLA (kind 'mla_dense')",
                 "mla_moe": "MLA with MoE (kind 'mla_moe')"}
 
 
@@ -69,14 +79,8 @@ def check_supported(cfg) -> None:
     for kind in layer_kinds(cfg):
         if kind in _LATER_KINDS:
             raise later(_LATER_KINDS[kind])
-    if cfg.moe is not None:
-        raise later("MoE (cfg.moe)")
     if cfg.mla is not None:
         raise later("MLA (cfg.mla)")
-    if cfg.rope == "mrope":
-        raise later("M-RoPE (rope='mrope')")
-    if cfg.embed_inputs:
-        raise later("embedding inputs (embed_inputs=True)")
 
 
 def _weights(tensors: dict) -> nn.ParameterDict:
@@ -117,8 +121,10 @@ def init_block(cfg, kind: str, *, generator: torch.Generator,
     else:
         p["mix"] = _weights(attn.attn_init(cfg, dt, **kw))
     p["ln2"] = _weights(norm_init(cfg.norm, d, dt, device))
-    p["ffn"] = _weights(mlp_init(d, cfg.d_ff, cfg.mlp, dt,
-                                 generator=generator, device=device))
+    if kind.endswith("_moe"):
+        p["ffn"] = _weights(moe_init(d, cfg.moe, dt, **kw))
+    else:
+        p["ffn"] = _weights(mlp_init(d, cfg.d_ff, cfg.mlp, dt, **kw))
     if cfg.post_norm:
         p["pn1"] = _weights(norm_init(cfg.norm, d, dt, device))
         p["pn2"] = _weights(norm_init(cfg.norm, d, dt, device))
@@ -128,9 +134,12 @@ def init_block(cfg, kind: str, *, generator: torch.Generator,
 def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
                 pos=None):
     """mode is implied: cache None => full-sequence; else one-token decode.
-    Returns (x, new_cache): after a full sequence (k, v) or the recurrent
-    layer's final state; after a decode step the same cache dict, its k/v
-    or state written in place."""
+    Returns (x, new_cache, aux): after a full sequence (k, v) or the
+    recurrent layer's final state; after a decode step the same cache
+    dict, its k/v or state written in place; aux the MoE layer's
+    load-balance loss (f32), None for the other kinds (JAX's 0, without a
+    device tensor a layer)."""
+    aux = None
     h = apply_norm(cfg.norm, x, p["ln1"])
     if kind == "rwkv":                # time mix + its own channel mix
         if cache is None:
@@ -139,14 +148,14 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
             h2 = apply_norm(cfg.norm, x, p["ln2"])
             o2, x_cm = ssm.rwkv_channel_mix(h2, p["mix"])
             return x + o2, {"s": s_fin, "x_tm": x_tm.float(),
-                            "x_cm": x_cm.float()}
+                            "x_cm": x_cm.float()}, aux
         o, st = ssm.rwkv_decode(h, p["mix"], cfg, cache)
         x = x + o
         h2 = apply_norm(cfg.norm, x, p["ln2"])
         o2, x_cm = ssm.rwkv_channel_mix(h2, p["mix"],
                                         x_prev=cache["x_cm"].to(h2.dtype))
         st["x_cm"] = x_cm.float()
-        return x + o2, _write(cache, st)
+        return x + o2, _write(cache, st), aux
     if kind == "rec":
         if cache is None:
             o, new_cache = ssm.rglru_apply(h, p["mix"], cfg)
@@ -161,10 +170,13 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
         o = apply_norm(cfg.norm, o, p["pn1"])
     x = x + o
     h = apply_norm(cfg.norm, x, p["ln2"])
-    f = mlp_apply(h, p["ffn"], cfg.mlp)
+    if kind.endswith("_moe"):
+        f, aux = moe_apply(h, p["ffn"], cfg.moe)
+    else:
+        f = mlp_apply(h, p["ffn"], cfg.mlp)
     if cfg.post_norm:
         f = apply_norm(cfg.norm, f, p["pn2"])
-    return x + f, new_cache
+    return x + f, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -194,41 +206,58 @@ def init_params(cfg, *, generator: torch.Generator, device=None) -> LMParams:
 
 
 def _embed_inputs(params, cfg, batch):
-    tokens = batch["tokens"]
-    x = params.embed[tokens.long()]
+    if cfg.embed_inputs:
+        x = batch["embeddings"].to(_dtype(cfg))
+    else:
+        x = params.embed[batch["tokens"].long()]
     if cfg.embed_scale:
         x = (x.float() * (cfg.d_model ** 0.5)).to(x.dtype)
     return x
 
 
+def _positions(cfg, batch, B, S, device):
+    """[B, 3, S] for M-RoPE (the batch's "positions" where given), else
+    [B, S]."""
+    if cfg.rope == "mrope":
+        if "positions" in batch:
+            return batch["positions"]
+        return torch.arange(S, device=device).expand(B, 3, S)
+    return torch.arange(S, device=device).expand(B, S)
+
+
 def _block_out(p, x, cfg, kind, positions):
-    return apply_block(p, x, cfg, kind, positions=positions)[0]
+    """One block under remat: (x, aux); the cache is dropped."""
+    x, _, aux = apply_block(p, x, cfg, kind, positions=positions)
+    return x, aux
 
 
 def _run_stack(params, cfg, batch, want_cache=False
-               ) -> Tuple[torch.Tensor, list]:
+               ) -> Tuple[torch.Tensor, list, torch.Tensor]:
     """Every block over the whole sequence: (x before `lnf`, each layer's
-    (k, v) or recurrent state with `want_cache`, else []). Without a
-    cache, a forward that
-    autograd records runs each block under `torch.utils.checkpoint`."""
+    (k, v) or recurrent state with `want_cache`, else [], the layers'
+    summed aux loss). Without a cache, a forward that autograd records
+    runs each block under `torch.utils.checkpoint`."""
     x = _embed_inputs(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = _positions(cfg, batch, B, S, x.device)
     if cfg.rope == "sinusoidal":
         x = x + sinusoidal_positions(torch.arange(S, device=x.device),
                                      cfg.d_model).to(x.dtype)[None]
     remat = torch.is_grad_enabled() and not want_cache
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params.blocks, params.kinds):
         if remat:
             # the blocks draw no random numbers: no RNG state to keep
-            x = checkpoint(_block_out, p, x, cfg, kind, positions,
-                           use_reentrant=False, preserve_rng_state=False)
-            continue
-        x, c = apply_block(p, x, cfg, kind, positions=positions)
-        if want_cache:
-            caches.append(c)
-    return x, caches
+            x, a = checkpoint(_block_out, p, x, cfg, kind, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, c, a = apply_block(p, x, cfg, kind, positions=positions)
+            if want_cache:
+                caches.append(c)
+        if a is not None:
+            aux = aux + a
+    return x, caches, aux
 
 
 def _head(params, cfg, x):
@@ -242,19 +271,20 @@ def _head(params, cfg, x):
 def forward_full(params, cfg, batch, *, want_cache=False, last_only=False):
     """Returns (logits [B,S,V] f32, caches, aux). `caches` (with
     want_cache) is one (k, v) [B,S,K,hd] pair per attention layer and the
-    final state dict of each recurrent one; `aux` is 0 (no MoE here). With `last_only` the head runs on the last position only
-    (logits [B,1,V]: the same values, without the [B,S,V] tensor)."""
-    x, caches = _run_stack(params, cfg, batch, want_cache)
+    final state dict of each recurrent one; `aux` the MoE layers' summed
+    load-balance loss (f32, 0 without MoE). With `last_only` the head runs
+    on the last position only (logits [B,1,V]: the same values, without
+    the [B,S,V] tensor)."""
+    x, caches, aux = _run_stack(params, cfg, batch, want_cache)
     if last_only:
         x = x[:, -1:]
     logits = _head(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, (caches if want_cache else None), aux
 
 
 def loss_fn(params, cfg, batch):
     """Next-token cross entropy (mean over predicted positions) from the
-    f32 logits, plus 0.01 x the MoE aux loss (0 here). Returns (loss +
+    f32 logits, plus 0.01 x the MoE aux loss. Returns (loss +
     0.01 aux, {"loss", "aux"}). The label logit is gathered: the same value
     as the JAX package's one-hot contraction, which exists there only to
     keep a model-sharded vocab axis local."""
@@ -269,16 +299,17 @@ def loss_fn(params, cfg, batch):
 
 
 def forward_decode(params, cfg, cache, batch, pos: int):
-    """One-token step. batch: {"tokens" [B,1]}; cache as init_cache().
-    Writes each layer's k/v at `pos`, or its new recurrent state, in
-    place. Returns (logits [B,1,V], cache)."""
+    """One-token step. batch: {"tokens" [B,1]} or {"embeddings" [B,1,d]};
+    cache as init_cache(). Writes each layer's k/v at `pos`, or its new
+    recurrent state, in place. Returns (logits [B,1,V], cache); the MoE
+    layers' aux is discarded, as in JAX."""
     x = _embed_inputs(params, cfg, batch)
     if cfg.rope == "sinusoidal":
         x = x + sinusoidal_positions(
             torch.tensor([pos], device=x.device), cfg.d_model
         ).to(x.dtype)[None]
     for p, kind, c in zip(params.blocks, params.kinds, cache):
-        x, _ = apply_block(p, x, cfg, kind, cache=c, pos=pos)
+        x, _, _ = apply_block(p, x, cfg, kind, cache=c, pos=pos)
     return _head(params, cfg, x), cache
 
 

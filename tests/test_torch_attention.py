@@ -8,7 +8,10 @@ f32. Bars:
     and against `flash_attention_ref`: 2e-5, the bar of
     tests/test_kernels.py's sweep;
   * `chunked_attention` (GQA, window, soft-cap): 1e-5;
-  * norms, RoPE and the MLPs: 1e-6;
+  * norms, RoPE, M-RoPE and the MLPs: 1e-6 (M-RoPE on three distinct
+    position streams laid out as Qwen2-VL lays out text and an image
+    grid, `grid_positions`: equal streams cannot show a wrong section
+    split, and with them M-RoPE is RoPE exactly);
   * configs: `dataclasses.asdict` equal;
   * the plain version with a sliding window and a tanh soft-cap (gemma2's
     local and global layers) against `chunked_attention`: 2e-5 in f32;
@@ -52,11 +55,29 @@ KERNEL_TOL = 2e-5
 ATTN_TOL = 1e-5
 LAYER_TOL = 1e-6
 ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b",
-         "recurrentgemma-2b", "rwkv6-1.6b")
+         "recurrentgemma-2b", "rwkv6-1.6b", "qwen2-vl-2b", "musicgen-large",
+         "dbrx-132b")
 
 
 def _normal(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
+
+
+def grid_positions(B, n_text, grid, n_after):
+    """M-RoPE position ids [B, 3, S] (int32) laid out as Qwen2-VL lays out
+    text, one image and text: `n_text` text tokens at i on all three
+    streams (t, h, w); then the image's grid of h x w patches in one
+    frame, patch (r, c) at t = s, h = s + r, w = s + c (s = n_text); then
+    `n_after` text tokens from the largest position + 1 on."""
+    h, w = grid
+    s = n_text
+    rows, cols = np.divmod(np.arange(h * w), w)
+    image = np.stack([np.full(h * w, s), s + rows, s + cols])
+    nxt = s + max(h, w)
+    pos = np.concatenate([np.broadcast_to(np.arange(s), (3, s)), image,
+                          np.broadcast_to(np.arange(nxt, nxt + n_after),
+                                          (3, n_after))], axis=1)
+    return np.broadcast_to(pos, (B,) + pos.shape).astype(np.int32).copy()
 
 
 def _close(got, want, tol):
@@ -444,6 +465,82 @@ def test_apply_rope_matches_jax(theta):
     want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
     _close(got, want, LAYER_TOL)
     _close(tlayers.rope_freqs(32, theta), jlayers.rope_freqs(32, theta), 0.0)
+
+
+# (head width, sections): the smoke configs' and qwen2-vl-2b's
+MROPE = [(16, (2, 3, 3)), (128, (16, 24, 24))]
+
+
+@pytest.mark.parametrize("hd,sections", MROPE)
+def test_mrope_apply_matches_jax(hd, sections):
+    rng = np.random.default_rng(hd)
+    pos = grid_positions(2, 5, (4, 6), 7)
+    x = _normal(rng, 2, pos.shape[-1], 3, hd)
+    assert not (pos[:, 0] == pos[:, 1]).all()
+    assert not (pos[:, 1] == pos[:, 2]).all()
+    got = tlayers.mrope_apply(torch.from_numpy(x), torch.from_numpy(pos),
+                              1_000_000.0, sections)
+    want = jlayers.mrope_apply(jnp.asarray(x), jnp.asarray(pos), 1_000_000.0,
+                               sections)
+    _close(got, want, LAYER_TOL)
+    with pytest.raises(ValueError, match="sections"):
+        tlayers.mrope_apply(torch.from_numpy(x), torch.from_numpy(pos),
+                            1e6, (1, 3, 3))
+
+
+@pytest.mark.parametrize("hd,sections", MROPE)
+def test_mrope_with_equal_streams_is_rope(hd, sections):
+    """Three equal streams: exactly `apply_rope` (the case a test on
+    `batch_for`'s positions sees); the grid's streams move the image's
+    rows, which a section split must reach."""
+    rng = np.random.default_rng(hd + 1)
+    x = torch.from_numpy(_normal(rng, 2, 40, 3, hd))
+    pos = torch.arange(40).expand(2, 40) + 3
+    got = tlayers.mrope_apply(x, pos[:, None].expand(2, 3, 40), 1e6,
+                              sections)
+    assert torch.equal(got, tlayers.apply_rope(x, pos, 1e6))
+    grid = torch.from_numpy(grid_positions(2, 5, (4, 6), 11))
+    other = tlayers.mrope_apply(x, grid, 1e6, sections)
+    flat = tlayers.apply_rope(x, grid[:, 0], 1e6)
+    assert torch.equal(other[:, :5], flat[:, :5])      # text: t = h = w
+    assert not torch.allclose(other[:, 5:29], flat[:, 5:29])
+
+
+def test_attn_with_mrope_matches_jax():
+    """qwen2-vl's attention layer (smoke shapes, sections (2, 3, 3)) on
+    grid positions: attn_apply within 1e-5 of JAX's; then attn_decode,
+    whose step gives all three streams its position, at every position
+    of an 8-token prompt."""
+    jcfg = jconfigs.smoke_config(jconfigs.get_config("qwen2-vl-2b"))
+    tcfg = tconfigs.smoke_config(tconfigs.get_config("qwen2-vl-2b"))
+    rng = np.random.default_rng(27)
+    d, H, K, hd = tcfg.d_model, tcfg.n_heads, tcfg.n_kv_heads, tcfg.hd
+    p = {"wq": _normal(rng, d, H, hd), "wk": _normal(rng, d, K, hd),
+         "wv": _normal(rng, d, K, hd), "wo": _normal(rng, H, hd, d)}
+    p = {n: a / np.float32(np.sqrt(a.shape[0])) for n, a in p.items()}
+    p.update(bq=_normal(rng, H, hd), bk=_normal(rng, K, hd),
+             bv=_normal(rng, K, hd))
+    tp = {n: torch.from_numpy(a) for n, a in p.items()}
+    jp = {n: jnp.asarray(a) for n, a in p.items()}
+    pos = grid_positions(2, 6, (3, 5), 9)
+    x = _normal(rng, 2, pos.shape[-1], d)
+    to, (tk, _) = tattn.attn_apply(torch.from_numpy(x), tp, tcfg, "attn",
+                                   torch.from_numpy(pos))
+    jo, (jk, _) = jattn.attn_apply(jnp.asarray(x), jp, jcfg, "attn",
+                                   jnp.asarray(pos))
+    _close(to, jo, ATTN_TOL)
+    _close(tk, jk, ATTN_TOL)
+    B, steps = 2, 8
+    tcache = tattn.init_kv_cache(tcfg, "attn", B, steps, torch.float32)
+    jcache = jattn.init_kv_cache(jcfg, "attn", B, steps, jnp.float32)
+    for t in range(steps):
+        xt = _normal(rng, B, 1, d)
+        to, tcache = tattn.attn_decode(torch.from_numpy(xt), tp, tcfg,
+                                       "attn", tcache, t)
+        jo, jcache = jattn.attn_decode(jnp.asarray(xt), jp, jcfg, "attn",
+                                       jcache, t)
+        _close(to, jo, ATTN_TOL)
+    _close(tcache["k"], jcache["k"], ATTN_TOL)
 
 
 @pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])

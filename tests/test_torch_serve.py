@@ -2,12 +2,17 @@
 serve loop) against the JAX package, on the CPU, at the smoke configs of
 qwen2-1.5b, smollm-360m, qwen3-4b, gemma2-9b (local and global layers,
 soft-caps, sandwich norms), recurrentgemma-2b (RG-LRU and local
-attention, a suffix after the pattern) and rwkv6-1.6b (RWKV-6), with the
-bf16 and the int8 KV cache and the recurrent layers' f32 states.
+attention, a suffix after the pattern), rwkv6-1.6b (RWKV-6), qwen2-vl-2b
+(M-RoPE; embedding inputs), musicgen-large (embedding inputs, sinusoidal
+positions, layernorm, GELU) and dbrx-132b (MoE), with the bf16 and the
+int8 KV cache and the recurrent layers' f32 states.
 
 The JAX package's weights (`repro.models.LMModel(cfg).init_params(
 jax.random.key(k))`) are carried into the port by `params_from_jax`, and
-the same `batch_for` tokens go through both, in f32. Bars: logits and
+the same `batch_for` inputs go through both, in f32 (for M-RoPE the
+full-sequence forward takes distinct position streams, `grid_positions`;
+`batch_for`'s three equal streams are what a decode step gives, so the
+prefill-against-decode checks keep them). Bars: logits and
 caches within 1e-5 (the prefill's attention is `chunked_attention` on the
 CPU; the CUDA kernel is held against its plain version on the card by
 `chip_smoke.py`); greedy tokens exactly equal. Also the guards: what the
@@ -37,11 +42,30 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.obs import trace_init  # noqa: E402
+from test_torch_attention import grid_positions  # noqa: E402
 
 TOL = 1e-5
 ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b",
-         "recurrentgemma-2b", "rwkv6-1.6b")
+         "recurrentgemma-2b", "rwkv6-1.6b", "qwen2-vl-2b", "musicgen-large",
+         "dbrx-132b")
 CPU = dict(device="cpu")
+
+
+def _key(cfg):
+    """The batch key of the model's inputs."""
+    return "embeddings" if cfg.embed_inputs else "tokens"
+
+
+def _inputs(batch, cfg, to):
+    """The model's inputs out of a `batch_for` batch (tokens or
+    embeddings, and M-RoPE's positions), each leaf through `to`."""
+    keys = [_key(cfg)] + (["positions"] if "positions" in batch else [])
+    return {k: to(batch[k]) for k in keys}
+
+
+def _piece(batch, cfg, t):
+    """Position t's decode input (numpy)."""
+    return {_key(cfg): batch[_key(cfg)][:, t:t + 1]}
 
 
 # repeats of the pattern in the tests' models: two, but one for
@@ -180,19 +204,24 @@ def test_params_from_jax_raises_on_a_missing_or_extra_leaf():
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_forward_full_matches_jax(name):
-    """Logits and every layer's cache, (k, v) or recurrent state; S = 64
-    spans two attention chunks and eight RWKV chunks of the smoke
-    config."""
+    """Logits, the MoE aux loss and every layer's cache, (k, v) or
+    recurrent state; S = 64 spans two attention chunks and eight RWKV
+    chunks of the smoke config. M-RoPE on grid positions (8 text tokens,
+    a 6 x 8 image, 8 text tokens)."""
     model, _, jp, tcfg, jcfg = _carry(name, 1)
     batch = batch_for(tcfg, 2, 64, 0, seed=5)
-    jl, jc, _ = jax.jit(jtfm.forward_full, static_argnums=1,
-                        static_argnames="want_cache")(
-        jp, jcfg, {"tokens": jnp.asarray(batch["tokens"])}, want_cache=True)
+    if "positions" in batch:
+        batch["positions"] = grid_positions(2, 8, (6, 8), 8)
+    jl, jc, jaux = jax.jit(jtfm.forward_full, static_argnums=1,
+                           static_argnames="want_cache")(
+        jp, jcfg, _inputs(batch, tcfg, jnp.asarray), want_cache=True)
     tl, tc, aux = ttfm.forward_full(
-        model.params, tcfg, {"tokens": torch.from_numpy(batch["tokens"])},
+        model.params, tcfg, _inputs(batch, tcfg, torch.from_numpy),
         want_cache=True)
     assert tl.shape == (2, 64, tcfg.vocab) and tl.dtype == torch.float32
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    assert (float(aux.detach()) > 0) == (tcfg.moe is not None)
+    np.testing.assert_allclose(float(aux.detach()), float(jaux), rtol=TOL)
     _close(tl, jl)
     assert len(tc) == tcfg.n_layers
     for layer, c in enumerate(tc):
@@ -203,15 +232,16 @@ def test_forward_full_matches_jax(name):
 def test_decode_step_matches_jax_at_every_position(name):
     model, jm, jp, tcfg, jcfg = _carry(name, 2)
     B, S = 2, 16
-    toks = batch_for(tcfg, B, S, 0, seed=6)["tokens"]
+    batch = batch_for(tcfg, B, S, 0, seed=6)
     jcache = jtfm.init_cache(jcfg, B, S)
     tcache = model.init_cache(B, S)
     step = jax.jit(jm.decode_step)
     for t in range(S):
-        jl, jcache = step(jp, jcache, {"tokens": jnp.asarray(toks[:, t:t + 1])},
+        piece = _piece(batch, tcfg, t)
+        jl, jcache = step(jp, jcache,
+                          {k: jnp.asarray(v) for k, v in piece.items()},
                           jnp.asarray(t, jnp.int32))
-        tl, tcache2 = model.decode_step(tcache, {"tokens": toks[:, t:t + 1]},
-                                        t)
+        tl, tcache2 = model.decode_step(tcache, piece, t)
         assert tcache2 is tcache                # written in place
         assert tl.shape == (B, 1, tcfg.vocab)
         _close(tl, jl)
@@ -254,21 +284,21 @@ def test_int8_decode_step_matches_jax(name):
 def test_prefill_step_matches_stepped_decode(name):
     """The port's own parity (tests/test_models_smoke.py's, at 1e-5): the
     fused prefill's last logits and caches against the stepped decode;
-    and they are forward_full's last position."""
+    and they are forward_full's last position. M-RoPE on `batch_for`'s
+    equal streams, which is what a decode step gives; dbrx's MoE at the
+    smoke config's capacity factor of 8, which drops no token."""
     tcfg, _ = _cfgs(name)
     model = LMModel(tcfg, seed=3, **CPU)
     B, S = 2, 16
     batch = batch_for(tcfg, B, S, 0, seed=7)
     last, caches = model.prefill_step(batch)
     full, _, _ = ttfm.forward_full(model.params, tcfg,
-                                   {"tokens": torch.from_numpy(
-                                       batch["tokens"])})
+                                   _inputs(batch, tcfg, torch.from_numpy))
     assert last.shape == (B, tcfg.vocab)
     _close(last, full[:, -1])
     cache = model.init_cache(B, S)
     for t in range(S):
-        logits, cache = model.decode_step(
-            cache, {"tokens": batch["tokens"][:, t:t + 1]}, t)
+        logits, cache = model.decode_step(cache, _piece(batch, tcfg, t), t)
     _close(logits[:, 0], last)
     for got, c in zip(caches, cache):
         _cache_close(got, {n: t.numpy() for n, t in c.items()})
@@ -292,16 +322,20 @@ def test_models_with_one_seed_are_equal_and_other_seeds_differ():
 @pytest.mark.parametrize("name,seed", [("smollm-360m", 0), ("qwen3-4b", 3),
                                        ("qwen2-1.5b", 1), ("gemma2-9b", 2),
                                        ("recurrentgemma-2b", 9),
-                                       ("rwkv6-1.6b", 10)])
+                                       ("rwkv6-1.6b", 10),
+                                       ("qwen2-vl-2b", 11),
+                                       ("musicgen-large", 12),
+                                       ("dbrx-132b", 13)])
 def test_serve_tokens_equal_jax(name, seed):
     """repro.launch.serve draws its weights from jax.random.key(seed); the
-    port's loop, given those weights and the same prompts, produces the
-    same greedy tokens."""
+    port's loop, given those weights and the same prompts (embeddings for
+    qwen2-vl-2b and musicgen-large, whose generated tokens go back in as
+    their `embed` rows), produces the same greedy tokens."""
     B, P, G = 2, 8, 6
     want, _ = j_serve(_cfgs(name)[1], batch=B, prompt_len=P, gen=G,
                       seed=seed)
     model, *_ = _carry(name, seed)
-    prompts = batch_for(model.cfg, B, P, 0, seed)["tokens"]
+    prompts = batch_for(model.cfg, B, P, 0, seed)[_key(model.cfg)]
     got, tps = generate(model, prompts, G)
     assert got.shape == (B, G) and tps > 0
     np.testing.assert_array_equal(got, np.asarray(want))
@@ -328,20 +362,25 @@ def test_serve_logits_equal_jax_under_teacher_forcing(name):
     hide a difference."""
     model, jm, jp, tcfg, jcfg = _carry(name, 4)
     B, P, G = 2, 8, 6
-    prompts = batch_for(tcfg, B, P, 0, 4)["tokens"]
+    key = _key(tcfg)
+    prompts = batch_for(tcfg, B, P, 0, 4)[key]
     toks, _ = generate(model, prompts, G)
-    seq = np.concatenate([prompts, toks], axis=1)
+    if tcfg.embed_inputs:       # the generated tokens go in as embed rows
+        seq = np.concatenate([prompts, np.asarray(jp["embed"])[toks]],
+                             axis=1)
+    else:
+        seq = np.concatenate([prompts, toks], axis=1)
     jcache = jtfm.init_cache(jcfg, B, P + G)
     tcache = model.init_cache(B, P + G)
     step = jax.jit(jm.decode_step)
     for t in range(P + G):
-        jl, jcache = step(jp, jcache, {"tokens": jnp.asarray(seq[:, t:t + 1])},
+        jl, jcache = step(jp, jcache, {key: jnp.asarray(seq[:, t:t + 1])},
                           jnp.asarray(t, jnp.int32))
-        tl, tcache = model.decode_step(tcache, {"tokens": seq[:, t:t + 1]}, t)
+        tl, tcache = model.decode_step(tcache, {key: seq[:, t:t + 1]}, t)
         _close(tl, jl)
         if t >= P - 1 and t < P + G - 1:       # the loop's greedy choice
             np.testing.assert_array_equal(
-                np.asarray(tl[:, -1].argmax(-1)), seq[:, t + 1])
+                np.asarray(tl[:, -1].argmax(-1)), toks[:, t + 1 - P])
 
 
 def test_serve_is_deterministic_and_in_vocab():
@@ -355,9 +394,7 @@ def test_serve_is_deterministic_and_in_vocab():
 
 # -- guards --------------------------------------------------------------------
 
-@pytest.mark.parametrize("name,what", [
-    ("dbrx-132b", "MoE"), ("deepseek-v3-671b", "MLA"),
-    ("musicgen-large", "embedding inputs"), ("qwen2-vl-2b", "M-RoPE")])
+@pytest.mark.parametrize("name,what", [("deepseek-v3-671b", "MLA")])
 def test_unported_families_raise(name, what):
     cfg = _port_cfg(jconfigs.smoke_config(jconfigs.get_config(name)))
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A9"):
@@ -367,7 +404,7 @@ def test_unported_families_raise(name, what):
 
 
 def test_unported_options_raise():
-    """MLA and the unported layer kinds raise naming A9. The int8 KV cache
+    """MLA and its layer kinds raise naming A9. The int8 KV cache
     is ported: its model builds and its caches have JAX's layout (codes
     int8, scales f32 [B, T, K, 1]; local layers clamped to the window)."""
     tcfg, jcfg = _cfgs("gemma2-9b", kv_cache_dtype="int8")
@@ -378,7 +415,7 @@ def test_unported_options_raise():
         jconfigs.get_config("deepseek-v3-671b")))
     with pytest.raises(NotImplementedError, match="MLA.*A9"):
         tattn.attn_init(mla, torch.float32, generator=torch.Generator())
-    for kind in ("attn_moe", "mla_dense"):
+    for kind in ("mla_dense", "mla_moe"):
         with pytest.raises(NotImplementedError, match="A9"):
             ttfm.init_block(tcfg, kind, generator=torch.Generator())
 

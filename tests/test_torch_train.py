@@ -18,8 +18,12 @@
   gemma2-9b (two layers: gemma2's local, window 16, and global, with both
   soft-caps, the post-norms and the untied head), recurrentgemma-2b (its
   pattern of two RG-LRU layers and a local one, then its suffix of two
-  RG-LRU layers) and rwkv6-1.6b (two layers; the JAX weights carried
-  over), f32: loss and grad_norm within 1e-5 relative; every gradient
+  RG-LRU layers), rwkv6-1.6b (two layers), qwen2-vl-2b (M-RoPE on
+  distinct grid position streams; embedding inputs, whose unread `embed`
+  leaf gets JAX's zero gradient), musicgen-large (embedding inputs) and
+  dbrx-132b (MoE, its aux loss in the loss at 0.01x; Adafactor with bf16
+  gradient accumulation; the JAX weights carried over), f32: loss, aux
+  and grad_norm within 1e-5 relative; every gradient
   leaf within 1e-5 of its max |value| (sums in another order); after
   the step m within 1e-5 and v within 2e-5 of their leaves' max (v is
   g², so its relative error doubles); the
@@ -68,10 +72,12 @@ from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     jax_tree, opt_state_from_jax, params_from_jax, unstack_jax_tree)
 from repro_torch.train import train as ttrain  # noqa: E402
+from test_torch_attention import grid_positions  # noqa: E402
 
 CPU = dict(device="cpu")
 ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b",
-         "recurrentgemma-2b", "rwkv6-1.6b")
+         "recurrentgemma-2b", "rwkv6-1.6b", "qwen2-vl-2b", "musicgen-large",
+         "dbrx-132b")
 TOL = 1e-5
 LR, EPS = 3e-4, 1e-8            # adamw_update's defaults in both packages
 
@@ -226,19 +232,29 @@ def _leaves_close(got: dict, want: dict, tol):
 
 
 def _check_step(model, jm, jp, tcfg, B, S=32):
-    """One loss, its gradients and one train_step in both packages."""
+    """One loss, its gradients and one train_step in both packages (M-RoPE
+    on grid positions: 4 text tokens, a 4 x 6 image, 4 text tokens)."""
     batch = batch_for(tcfg, B, S, 0, seed=1)
+    if "positions" in batch:
+        batch["positions"] = grid_positions(B, 4, (4, 6), S - 28)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
         jp, jb)
     tl, tmet = model.loss(batch)
     weights = dict(model.params.named_parameters())
-    tg = dict(zip(weights, torch.autograd.grad(tl, list(weights.values()))))
+    grads = torch.autograd.grad(tl, list(weights.values()), allow_unused=True)
+    # embed_inputs: the loss reads no `embed`; JAX's gradient there is 0
+    assert [k for k, g in zip(weights, grads) if g is None] == (
+        ["embed"] if tcfg.embed_inputs else [])
+    tg = {k: torch.zeros_like(w) if g is None else g
+          for (k, w), g in zip(weights.items(), grads)}
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=TOL)
     np.testing.assert_allclose(float(tmet["loss"].detach()),
                                float(jmet["loss"]),
                                rtol=TOL)
-    assert float(tmet["aux"]) == float(jmet["aux"]) == 0.0
+    np.testing.assert_allclose(float(tmet["aux"].detach()),
+                               float(jmet["aux"]), rtol=TOL)
+    assert (float(jmet["aux"]) > 0) == (tcfg.moe is not None)
     jgf = _flat(jg, tcfg)
     _leaves_close(tg, jgf, TOL)
     jopt = jm.init_opt(jp)
@@ -252,7 +268,15 @@ def _check_step(model, jm, jp, tcfg, B, S=32):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_loss_and_train_step_match_jax(name):
+    """AdamW's state and weights against JAX's step; dbrx's Adafactor as
+    `_adafactor_step` holds it (its 4-D expert leaves factored over their
+    last two axes, the pattern stacked)."""
     model, jm, jp, tcfg = _carry(name)
+    if tcfg.optimizer == "adafactor":
+        _adafactor_step(name, 0, "pattern.0.ffn.wg",
+                        (2, tcfg.moe.n_experts, tcfg.d_model), carried=(
+                            model, jm, jp, tcfg))
+        return
     jnew, jstate, _, topt, _ = _check_step(model, jm, jp, tcfg, B=2)
     assert int(topt.step) == int(jstate.step) == 1
     _leaves_close(topt.m, _flat(jstate.m, tcfg), TOL)
@@ -342,19 +366,27 @@ def test_adafactor_train_step_matches_jax_recurrent(name, path):
     _adafactor_step(name, 5, path)
 
 
-def _adafactor_step(name, key, path):
-    model, jm, jp, tcfg = _carry(name, key=key, optimizer="adafactor")
+def _adafactor_step(name, key, path, vr_shape=None, carried=None):
+    """One Adafactor train_step; its weights and factors against JAX's
+    update of the port's gradients, rounded first to the config's
+    `grad_accum_dtype` as both packages' accumulators round them. `path`'s
+    row factor has `vr_shape` (default: the pattern's repeats, a vector
+    leaf's)."""
+    model, jm, jp, tcfg = carried or _carry(name, key=key,
+                                            optimizer="adafactor")
     _, _, gn, topt, tg = _check_step(model, jm, jp, tcfg, B=2)
     assert gn == 0.0 and type(topt).__name__ == "AdafactorState"
     # JAX's update of the port's gradients (see the docstring)
-    g_tree = jax_tree({k: v.numpy() for k, v in tg.items()}, tcfg, np.stack)
+    acc = getattr(torch, tcfg.grad_accum_dtype)
+    g_tree = jax_tree({k: v.to(acc).float().numpy() for k, v in tg.items()},
+                      tcfg, np.stack)
     jnew, jstate, _ = jax.jit(jopt.adafactor_update)(
         jax.tree.map(jnp.asarray, g_tree), jm.init_opt(jp), jp)
     _leaves_close(dict(model.params.state_dict()), _flat(jnew, tcfg), TOL)
     # keyed by the JAX tree's paths, the pattern stacked (its factors and
     # update clip span the layer axis)
     want = opt_state_from_jax(jax.tree.map(np.asarray, jstate), tcfg)
-    assert topt.vr[path].shape == (tcfg.repeats,)
+    assert topt.vr[path].shape == (vr_shape or (tcfg.repeats,))
     for got, w in ((topt.vr, want.vr), (topt.vc, want.vc)):
         _leaves_close(got, {k: v.numpy() for k, v in w.items()}, TOL)
 

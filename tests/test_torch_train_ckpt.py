@@ -14,7 +14,16 @@
   for gemma2-9b's smoke config (window 16, the post-norm leaves pn1/pn2,
   the untied unembed), whose manifest names those leaves. The manifests
   of rwkv6-1.6b (nested leaves) and recurrentgemma-2b (f32 leaves in a
-  bf16 model, a suffix) equal JAX's too.
+  bf16 model, a suffix) equal JAX's too, and so do those of dbrx-132b
+  (Adafactor's factors of the stacked 4-D expert leaves, the f32 router
+  in a bf16 model), qwen2-vl-2b and musicgen-large (an `embed` leaf the
+  loss does not read). dbrx's smoke config resumes across the packages
+  both ways too (Adafactor over the 4-D expert leaves), with its
+  gradients accumulated in f32 there: in bf16 the two packages' f32
+  gradients, equal to 1e-6, round to neighbouring bf16 values at a few
+  entries, and Adafactor carries such a flip (2^-8 of the entry) into
+  the weights at about 3e-6, past this file's bar;
+  tests/test_torch_train.py holds the bf16 accumulation itself.
 - `fail_at` restart (the counterpart of tests/test_checkpoint.py::
   test_train_restart_continues) and the weight and state conversions.
 """
@@ -107,6 +116,29 @@ def test_recurrent_manifests_equal_jax(tmp_path, name, optimizer):
                                        for f in man["files"].values()}
 
 
+@pytest.mark.parametrize("name", ["dbrx-132b", "qwen2-vl-2b",
+                                  "musicgen-large"])
+def test_moe_and_embedding_input_manifests_equal_jax(tmp_path, name):
+    """dbrx's tree (the router f32 [d, E] and the experts [E, d, F]
+    stacked to [L, E, d, F]; Adafactor's row and column factors of those
+    leaves) and the embedding-input configs' (their `embed` leaf kept, as
+    in JAX), each with its config's optimizer."""
+    tcfg, _ = _cfgs(name)
+    man = _manifests_equal(tmp_path, name, tcfg.optimizer)
+    if tcfg.moe is not None:
+        shapes = {tuple(f["shape"]) for f in man["files"].values()}
+        L, E, d, F = 2, tcfg.moe.n_experts, tcfg.d_model, \
+            tcfg.moe.d_ff_expert
+        assert {(L, E, d, F), (L, E, F, d), (L, d, E), (L, E, d),
+                (L, E, F)} <= shapes
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_dbrx_resume_across_packages(tmp_path, first):
+    _check_resumed(*sum(_run_both(tmp_path, first, "dbrx-132b",
+                                  grad_accum_dtype="float32"), ()))
+
+
 def _manifests_equal(tmp_path, name, optimizer):
     """JAX's weights and fresh optimizer state of `name` in bf16,
     checkpointed by each package: the manifests equal but for `time`, and
@@ -133,11 +165,12 @@ def _manifests_equal(tmp_path, name, optimizer):
     return a
 
 
-def _run_both(root, first, name="smollm-360m"):
-    """`first` ("jax" or "port") trains `name`'s smoke config to step 2
-    with a checkpoint; then both packages resume copies of it to step 4.
-    Returns ((port history, port weights), (JAX history, JAX weights))."""
-    tcfg, jcfg = _cfgs(name)
+def _run_both(root, first, name="smollm-360m", **kw):
+    """`first` ("jax" or "port") trains `name`'s smoke config (with `kw`
+    changed) to step 2 with a checkpoint; then both packages resume copies
+    of it to step 4. Returns ((port history, port weights), (JAX history,
+    JAX weights))."""
+    tcfg, jcfg = _cfgs(name, **kw)
     base = root / "base"
     if first == "jax":
         jtrain(jcfg, steps=2, ckpt_dir=str(base), **RUN)
