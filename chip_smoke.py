@@ -265,11 +265,11 @@ Phases (any failure exits non-zero; nothing is caught):
      widths at 2 layers (local, global) in f32, window 128, B 2 x 512:
      loss and every gradient leaf on the card (the scalar kernels) against
      the CPU (chunked_attention under autograd) at 11b's bars, the host's
-     peak RSS; (13c) train() at full width, 4 layers (two local, two
-     global: GEMMA_TRAIN_LAYERS, the depth measured to fit the card), in
+     peak RSS; (13c) train() at full width, 2 layers (one local, one
+     global: GEMMA_TRAIN_LAYERS; 4 until PR 28, cut for the script's time), in
      the allocator's expandable segments, bf16, AdamW, 3 steps on
      batch_for(cfg, 1, 8192) (launch counts set to 0 here:
-     flash_attention exactly 8 a step, flash_attention_bwd 4, all on the
+     flash_attention exactly 4 a step, flash_attention_bwd 2, all on the
      tensor cores), losses and grad norms finite, every leaf moved, the
      steps' ms and tokens/s (the first apart), the peak allocated and
      reserved memory and the allocator's retries, one step's forward /
@@ -304,8 +304,8 @@ Phases (any failure exits non-zero; nothing is caught):
      weights at 11b's bars; rwkv6's at 1e-4 of a leaf's max
      (TOL_TRAIN_RWKV), with the same step in f64 on the card as the
      witness that both f32 steps differ from it by rounding; (14e) train() in bf16, AdamW, 3
-     steps (launch counts set to 0 just before): rwkv6-1.6b uncut on 2 x
-     4096, no kernel; recurrentgemma-2b at full width, 5 layers (one
+     steps (launch counts set to 0 just before): rwkv6-1.6b at full width,
+     12 of its 24 layers (uncut until PR 28), on 2 x 4096, no kernel; recurrentgemma-2b at full width, 5 layers (one
      pattern and the suffix), 1 x 4096, exactly 2 flash_attention and 1
      flash_attention_bwd a step, all on the tensor cores; losses finite,
      every leaf moved but bf16 ones the steps cannot move, the steps'
@@ -344,7 +344,28 @@ Phases (any failure exits non-zero; nothing is caught):
      sums); finite losses, every leaf moved but bf16 ones the steps
      cannot move and `embed` under embedding inputs (the loss reads no
      `embed`), the steps' times and tokens/s, the peak memory and one more
-     step's device-busy share.
+     step's device-busy share;
+  16. MLA and deepseek-v3-671b serving (after 15): (16a) flash_attention
+     at MLA's q/k width 192 over v width 128, bf16 on the tensor cores
+     (launches_tc counted), causal, B 2, 128 heads over 128, S = T = 8192,
+     against the plain version (round_p) at 9's bars, bit for bit on
+     repeat; bf16 at a ragged 1000 on the tensor cores; the f32 scalar
+     kernel at B 1, 4 heads, S = T = 1024 at 9's f32 bar; the big shape
+     timed beside its bound (2 B H pairs (192 + 128) FLOPs at 989 TFLOP/s)
+     and scaled_dot_product_attention (the fused backend the dispatcher
+     picks for E 192, Ev 128, recorded; q, k and v zero-padded to 256
+     with the scale 1/sqrt(192) if no fused backend takes them); (16b)
+     an f32 witness at full width: one mla_dense and one mla_moe layer,
+     the capacity factor raised to E / top_k (no token drops),
+     prefill_step on 1 x 128 (the f32 kernel: 2 launches, none on the
+     tensor cores) against 128 stepped absorbed-matrix decode_steps
+     within 1e-3; (16c) deepseek-v3-671b at full width, bf16, cut to
+     DEEPSEEK_SERVE_LAYERS = 5 of its 61 layers (3 mla_dense, 2 mla_moe:
+     53.2 GB of weights), prefill_step on 2 x 8192 (launch counts set to
+     0 just before: exactly 5 flash_attention, all on the tensor cores,
+     nothing else), its time and peak memory, a second prefill_step bit
+     for bit the first with each MoE layer's dropped assignments counted,
+     decode_step at 8192, B 4, serve (4, 64 + 32).
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -357,6 +378,7 @@ import functools
 import glob
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -2932,15 +2954,16 @@ def time_attn(args, dev, flex, q, k, v, window, cap, lib_name=FLEX):
     (round_p) and the library's one call (`flex`: compiled
     flex_attention, or `sdpa_library`; held to the kernel's bars against
     the plain version, a compilation warmed up outside the timed
-    region)."""
+    region). v may be narrower than q and k (MLA's): the bound counts
+    2 pairs (D + Dv) FLOPs a head and q, k, v and o once each."""
     from repro_torch.kernels.flash_attn import (flash_attention_bshd,
                                                 flash_attention_bshd_plain)
 
     B, S, H, D = q.shape
-    K = k.shape[2]
+    K, Dv = k.shape[2], v.shape[3]
     pairs = allowed_pairs(S, window)
-    flops = 4 * B * H * pairs * D
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
+    flops = 2 * B * H * pairs * (D + Dv)
+    nbytes = 2 * (B * S * H * (D + Dv) + B * S * K * (D + Dv))
 
     def kern():
         return flash_attention_bshd(q, k, v, window=window, cap=cap)
@@ -3254,8 +3277,10 @@ GEMMA_TRAIN_SEQ = 8192              # 13c: gemma2's context, B 1
 # the rest: measured alone, 68.1 GiB allocated at 2 layers and 71.9 at 4
 # (scripts/gemma_train_memory.py), of the card's 79.2. Every depth needs
 # expandable segments: in fixed ones the head's blocks leave 10-22 GiB
-# reserved that no 7.8 GiB block fits (R14).
-GEMMA_TRAIN_LAYERS = 4
+# reserved that no 7.8 GiB block fits (R14). 4 layers in PR 25-27; 2 since
+# PR 28, for the script's time (the checkpoint of the head and two layers
+# is 20.8 GiB where four layers' is 24.5).
+GEMMA_TRAIN_LAYERS = 2
 
 
 def plain_bwd_by_kv_head(q, k, v, o, lse, do, **kw):
@@ -3836,10 +3861,11 @@ REC_PARITY = (2, 512, 128)          # 14d: B, S, recurrentgemma's window
 TOL_TRAIN_RWKV = 1e-4
 # 14e: recurrentgemma at full width cut to one pattern and the suffix (four
 # rec layers and one attn_local: 1.75 B parameters, most of them the
-# 256,000-word embedding and head), B 1 x 4096; rwkv6 uncut on 2 x 4096
-# (train_4k's length)
+# 256,000-word embedding and head), B 1 x 4096; rwkv6 at full width on 2 x
+# 4096 (train_4k's length): B, S, layers (uncut in PR 26-27, 12 of its 24
+# since PR 28, for the script's time)
 REC_TRAIN = (1, 4096, 5)
-RWKV_TRAIN = (2, 4096)
+RWKV_TRAIN = (2, 4096, 12)
 
 
 def launch_wrappers() -> tuple:
@@ -4437,8 +4463,8 @@ def train_run(args, dev, cfg, B, S):
 
 
 def rec_train_run(args, dev, report, arch):
-    """14e: `train_run` of one family, bf16, AdamW: rwkv6-1.6b uncut on
-    2 x 4096, no kernel; recurrentgemma-2b at full width cut to 5 layers on
+    """14e: `train_run` of one family, bf16, AdamW: rwkv6-1.6b at full
+    width, 12 of its 24 layers, on 2 x 4096, no kernel; recurrentgemma-2b at full width cut to 5 layers on
     1 x 4096, two flash_attention and one flash_attention_bwd a step in
     its one attn_local layer. Returns the path's launches."""
     import dataclasses
@@ -4450,7 +4476,8 @@ def rec_train_run(args, dev, report, arch):
         B, S, L = REC_TRAIN
         cfg = dataclasses.replace(cfg, n_layers=L, repeats=1)
     else:
-        B, S = RWKV_TRAIN
+        B, S, L = RWKV_TRAIN
+        cfg = dataclasses.replace(cfg, n_layers=L)
     rep, launches = train_run(args, dev, cfg, B, S)
     report.setdefault("recurrent", {}).setdefault("train", {})[arch] = rep
     return launches
@@ -4460,8 +4487,8 @@ def recurrent_phase(args, dev, report):
     """Phase 14: the recurrent families. 14a the attention kernels at
     recurrentgemma's shape, 14b recurrentgemma-2b and 14c rwkv6-1.6b
     served at full size, 14d one f32 train_step of each on the card
-    against the CPU, 14e train() of each (rwkv6 uncut, recurrentgemma at
-    full width and 5 layers). Returns the main path's launches (14b's
+    against the CPU, 14e train() of each (rwkv6 at 12 layers,
+    recurrentgemma at 5, both at full width). Returns the main path's launches (14b's
     prefill and 14e's training), the kernels' worst errors and times."""
     t_phase = time.perf_counter()
     err_f, err_b, times = rec_attn_checks(args, dev, report)
@@ -4486,8 +4513,8 @@ VL_GRID = (32, 32)                  # 15b's prefill: one image of 32 x 32
 # 15b, 15c f32 witnesses at full width: layers; text, image grid, text of
 # the card-against-CPU prefill; the prompt of prefill against stepped decode
 FAM_WITNESS = (2, (16, (16, 16), 16), 256)
-MOE_BATCH, MOE_SEQ = 2, 8192        # 15d: prefill_step; decode position
-MOE_DECODE_B = 4                    # 15d: decode_step at position 8192
+MOE_BATCH, MOE_SEQ = 2, 8192        # 15d, 16c: prefill_step; decode position
+MOE_DECODE_B = 4                    # 15d, 16c: decode_step at position 8192
 # 15d: dbrx-132b cut to 6 of its 40 layers to fit the card: each layer
 # holds 6.34 GB of bf16 expert weights and 0.18 GB of attention, the
 # embedding and head 2.47 GB (41.6 GB in all)
@@ -4503,7 +4530,8 @@ MOE_ATTN = (2, 1, 8192)             # 15a: dbrx's forward B, backward B, S
 # 100 GB; at 1 layer about 58 GB of the card's 79
 FAM_TRAIN = ((VL_ARCH, None, 4, 2048), (MUSIC_ARCH, None, 4, 2048),
              (MOE_ARCH, 1, 2, 2048))
-ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_moe")
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_moe", "mla_dense",
+              "mla_moe")
 
 
 def vl_positions(B, n_text, grid, n_after) -> np.ndarray:
@@ -4804,70 +4832,81 @@ def embed_serve_checks(args, dev, arch, report):
     return counts["flash_attention"]
 
 
-def moe_serve_checks(args, dev, report):
-    """15d: dbrx-132b at full width, bf16, weights from --seed, cut to
-    MOE_SERVE_LAYERS layers for the card's memory: first 2 layers in f32
-    with the capacity factor raised to E / top_k (capacity(64) = 64: no
-    token can drop, as JAX's smoke config raises it for the same check),
-    prefill_step (the scalar kernel) on 1 x 64 tokens against 64 stepped
-    decode_steps within TOL_LM_F32, no token dropped; then prefill_step
-    on 2 x 8192 with the launch counts set to 0 just before (one
-    flash_attention a layer, all on the tensor cores, nothing else), its
-    time and peak memory; a second prefill_step, bit for bit the first,
-    with each MoE layer's dropped tokens counted; decode_step at 8192, B 4;
-    serve (4, 64 + 32). Returns the prefill's flash_attention launches."""
-    import dataclasses
+def moe_witness(args, dev, cfg32, P, rep, tag):
+    """A MoE model at full width in f32, cut to a few layers, its capacity
+    factor raised to E / top_k so that no token can drop (as JAX's smoke
+    config raises it for the same check): prefill_step on 1 x P (the f32
+    kernel: one launch an attention layer, none on the tensor cores, no
+    token dropped) against P stepped decode_steps within TOL_LM_F32."""
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.models import LMModel, moe
+    from repro_torch.models.transformer import layer_kinds
 
-    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    require(moe.capacity(P, cfg32.moe) >= P, f"{tag}: tokens could drop at "
+            f"{P}")
+    m32 = LMModel(cfg32, device=dev, seed=args.seed)
+    n_params = sum(p.numel() for p in m32.parameters())
+    toks = batch_for(cfg32, 1, P, 0, args.seed)["tokens"]
+    n0, tc0 = flash_attention.launches, flash_attention.launches_tc
+    with moe_drops([]) as drops:
+        want, _ = m32.prefill_step({"tokens": toks})
+    n, tc = flash_attention.launches - n0, flash_attention.launches_tc - tc0
+    require(n == n_attn_layers(cfg32) and tc == 0,
+            f"{tag} f32 prefill launches {n}, on the tensor cores {tc}")
+    n_moe = sum(k.endswith("_moe") for k in layer_kinds(cfg32))
+    require(drops == [0] * n_moe, f"{tag} f32: tokens dropped {drops}")
+    cache = m32.init_cache(1, P)
+    for t in range(P):
+        logits, cache = m32.decode_step(cache, {"tokens": toks[:, t:t + 1]},
+                                        t)
+    e_dec, ok = attn_err(want, logits[:, 0], TOL_LM_F32, TOL_LM_F32)
+    require(ok, f"{tag} f32 prefill vs stepped decode: {e_dec}")
+    rep["f32_prefill_vs_decode"] = e_dec
+    log(f"[fam] {cfg32.name} f32, full width, layers "
+        f"{', '.join(layer_kinds(cfg32))} ({n_params / 1e9:.3f} B "
+        f"parameters), capacity factor {cfg32.moe.capacity_factor} (no "
+        f"token can drop; dropped {drops}): prefill_step ({n} launches, "
+        f"none on the tensor cores) vs {P} stepped decode_steps "
+        f"{e_dec:.3e} of up to {float(want.abs().max()):.3f} (bar "
+        f"{TOL_LM_F32}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB; {time.perf_counter() - t0:.1f} s)")
+    del m32, cache, want, logits
+    torch.cuda.empty_cache()
+
+
+def moe_serve(args, dev, cut, rep):
+    """A MoE model at full width, bf16, weights from --seed, cut by layers
+    for the card's memory: prefill_step on MOE_BATCH x MOE_SEQ with the
+    launch counts set to 0 just before (one flash_attention an attention
+    layer, all on the tensor cores, nothing else), its time and peak
+    memory; a second prefill_step, bit for bit the first, with each MoE
+    layer's dropped assignments counted; decode_step at MOE_SEQ, B
+    MOE_DECODE_B; serve (4, 64 + 32). Returns the prefill's
+    flash_attention launches."""
     from repro_torch.data import batch_for
     from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.launch.serve import serve
     from repro_torch.models import LMModel, moe
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(MOE_ARCH)
-    rep = report.setdefault("families", {}).setdefault(MOE_ARCH, {})
-    E, top_k = cfg.moe.n_experts, cfg.moe.top_k
-
-    # -- f32, 2 layers, no drop: prefill against stepped decode ---------------
-    L32, P = MOE_F32
-    t0 = time.perf_counter()
-    wide = dataclasses.replace(cfg.moe, capacity_factor=E / top_k)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=L32, moe=wide)
-    require(moe.capacity(P, wide) >= P, "15d: tokens could drop at 64")
-    m32 = LMModel(cfg32, device=dev, seed=args.seed)
-    toks = batch_for(cfg32, 1, P, 0, args.seed)["tokens"]
-    with moe_drops([]) as drops:
-        want, _ = m32.prefill_step({"tokens": toks})
-    require(drops == [0] * L32, f"15d f32: tokens dropped {drops}")
-    cache = m32.init_cache(1, P)
-    for t in range(P):
-        logits, cache = m32.decode_step(cache, {"tokens": toks[:, t:t + 1]},
-                                        t)
-    e_dec, ok = attn_err(want, logits[:, 0], TOL_LM_F32, TOL_LM_F32)
-    require(ok, f"15d f32 prefill vs stepped decode: {e_dec}")
-    rep["f32_prefill_vs_decode"] = e_dec
-    log(f"[fam] {MOE_ARCH} f32, full width, {L32} layers, capacity factor "
-        f"raised from {cfg.moe.capacity_factor} to {E / top_k} (no token "
-        f"can drop; dropped {drops}): prefill_step vs {P} stepped "
-        f"decode_steps {e_dec:.3e} of up to {float(want.abs().max()):.3f} "
-        f"(bar {TOL_LM_F32}; {time.perf_counter() - t0:.1f} s)")
-    del m32, cache, want, logits
-    torch.cuda.empty_cache()
-
-    # -- prefill_step at full width, MOE_SERVE_LAYERS layers ------------------
-    L = MOE_SERVE_LAYERS
-    cut = dataclasses.replace(cfg, n_layers=L)
+    E, top_k = cut.moe.n_experts, cut.moe.top_k
+    L = cut.n_layers
     B, S = MOE_BATCH, MOE_SEQ
     t0 = time.perf_counter()
     model = LMModel(cut, device=dev, seed=args.seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[fam] {MOE_ARCH} at {L} of its {cfg.n_layers} layers: "
-        f"{n_params / 1e9:.3f} B parameters ({E} experts, top {top_k}, "
-        f"expert width {cfg.moe.d_ff_expert}, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, vocab {cfg.vocab}, "
-        f"{cfg.dtype}), drawn in {time.perf_counter() - t0:.1f} s")
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[fam] {cut.name} at {L} layers ({', '.join(model.params.kinds)}): "
+        f"{n_params / 1e9:.3f} B parameters, {w_bytes / 1e9:.2f} GB ({E} "
+        f"experts, top {top_k}, {cut.moe.n_shared} shared, expert width "
+        f"{cut.moe.d_ff_expert}, d_model {cut.d_model}, {cut.n_heads} heads "
+        f"over {cut.n_kv_heads}{f', {cut.mla}' if cut.mla else ''}, vocab "
+        f"{cut.vocab}, {cut.dtype}), drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
     batch = {"tokens": torch.as_tensor(
         batch_for(cut, B, S, 0, args.seed)["tokens"], device=dev)}
     torch.cuda.reset_peak_memory_stats()
@@ -4880,15 +4919,15 @@ def moe_serve_checks(args, dev, report):
     ev[1].record()
     torch.cuda.synchronize()
     counts = launch_counts()
-    log(f"[launches] {MOE_ARCH} prefill path: {counts}, flash_attention on "
+    log(f"[launches] {cut.name} prefill path: {counts}, flash_attention on "
         f"the tensor cores {flash_attention.launches_tc}")
     require(counts["flash_attention"] == L and flash_attention.launches_tc
             == L and all(v == 0 for k, v in counts.items()
                          if k != "flash_attention"),
-            f"{MOE_ARCH}'s prefill_step launches {counts}, want "
+            f"{cut.name}'s prefill_step launches {counts}, want "
             f"flash_attention {L} on the tensor cores and nothing else")
-    require(last.shape == (B, cfg.vocab) and bool(torch.isfinite(last).all())
-            and len(caches) == L, f"{MOE_ARCH}'s prefill_step")
+    require(last.shape == (B, cut.vocab) and bool(torch.isfinite(last).all())
+            and len(caches) == L, f"{cut.name}'s prefill_step")
     rep["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
     with moe_drops([]) as drops:
         ev[2].record()
@@ -4898,45 +4937,67 @@ def moe_serve_checks(args, dev, report):
     same = torch.equal(last, last2) and all(
         torch.equal(a, b) for c, c2 in zip(caches, caches2)
         for a, b in zip(c, c2))
-    require(same, f"{MOE_ARCH}: two prefill_steps differ")
+    require(same, f"{cut.name}: two prefill_steps differ")
     N = B * S
-    C = min(moe.capacity(N, cfg.moe), N)
-    rep.update(n_params=n_params, layers=L, prefill_launches=L,
+    C = min(moe.capacity(N, cut.moe), N)
+    rep.update(n_params=n_params, weight_bytes=w_bytes, layers=L,
+               prefill_launches=L,
                prefill_ms=[ev[0].elapsed_time(ev[1]),
                            ev[2].elapsed_time(ev[3])],
                dropped=drops, capacity=C, bit_identical=same)
-    log(f"[time] {MOE_ARCH} prefill_step {B} x {S} at {L} layers: "
+    log(f"[time] {cut.name} prefill_step {B} x {S} at {L} layers: "
         f"{rep['prefill_ms'][0]:.1f} ms (counted), "
         f"{rep['prefill_ms'][1]:.1f} ms (again, with the drop counter's "
         f"routing; bit-identical {same}); peak allocated "
-        f"{rep['prefill_peak_bytes'] / 2**30:.3f} GiB; tokens dropped a "
-        f"layer (capacity {C} of {N} tokens x {top_k} / {E} experts, "
-        f"factor {cfg.moe.capacity_factor}): {drops} of {N * top_k} "
-        f"assignments")
+        f"{rep['prefill_peak_bytes'] / 2**30:.3f} GiB; assignments dropped "
+        f"a MoE layer (capacity {C} of {N} tokens x {top_k} / {E} experts, "
+        f"factor {cut.moe.capacity_factor}): {drops} of {N * top_k}")
     del last, last2, caches, caches2
 
-    # -- decode_step at 8192, serve ---------------------------------------------
     Bd = MOE_DECODE_B
     tok = torch.as_tensor(batch_for(cut, Bd, 2, 0, args.seed)["tokens"][
         :, -1:], device=dev)
     cache = model.init_cache(Bd, S + 1)
     rep["decode_ms"] = cuda_ms(
         lambda: model.decode_step(cache, {"tokens": tok}, S), args.repeats)
-    log(f"[time] {MOE_ARCH} decode_step, {Bd} sequences at position {S}, "
+    n_moe = sum(k.endswith("_moe") for k in model.params.kinds)
+    expert_bytes = n_moe * 3 * E * cut.d_model * cut.moe.d_ff_expert * 2
+    log(f"[time] {cut.name} decode_step, {Bd} sequences at position {S}, "
         f"{L} layers: {rep['decode_ms']:.2f} ms per step (reads every "
-        f"expert's weights: {L * 3 * E * cfg.d_model * cfg.moe.d_ff_expert * 2 / 1e9:.1f} GB)")
+        f"expert's weights: {expert_bytes / 1e9:.1f} GB, "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.1f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
     del model, cache, batch
     torch.cuda.empty_cache()
     toks, tps = serve(cut, batch=4, prompt_len=64, gen=32, seed=args.seed,
                       device=dev)
     require(toks.shape == (4, 32) and int(toks.min()) >= 0
-            and int(toks.max()) < cfg.vocab,
-            f"{MOE_ARCH} serve left the vocabulary")
+            and int(toks.max()) < cut.vocab,
+            f"{cut.name} serve left the vocabulary")
     rep["serve_tokens_per_s"] = tps
-    log(f"[fam] {MOE_ARCH} serve batch 4, prompt 64, gen 32 at {L} layers: "
+    log(f"[fam] {cut.name} serve batch 4, prompt 64, gen 32 at {L} layers: "
         f"{tps:.1f} tokens/s; first tokens {toks[:, :6].tolist()}")
     torch.cuda.empty_cache()
     return L
+
+
+def moe_serve_checks(args, dev, report):
+    """15d: dbrx-132b at full width: `moe_witness` at MOE_F32 (2 layers,
+    64 tokens), then `moe_serve` at MOE_SERVE_LAYERS layers. Returns the
+    prefill's flash_attention launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    rep = report.setdefault("families", {}).setdefault(MOE_ARCH, {})
+    L32, P = MOE_F32
+    wide = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts
+                               / cfg.moe.top_k)
+    moe_witness(args, dev, dataclasses.replace(
+        cfg, dtype="float32", n_layers=L32, moe=wide), P, rep, "15d")
+    return moe_serve(args, dev, dataclasses.replace(
+        cfg, n_layers=MOE_SERVE_LAYERS), rep)
 
 
 def family_phase(args, dev, report):
@@ -4971,6 +5032,181 @@ def family_phase(args, dev, report):
     log(f"[fam] phase 15 {s:.1f} s; its main path's launches {launches}")
     return dict(launches=launches, max_abs_err=err_f, max_abs_err_bwd=err_b,
                 times=times)
+
+
+# -- phase 16: MLA and deepseek-v3-671b serving --------------------------------
+MLA_ARCH = "deepseek-v3-671b"
+MLA_ATTN = (2, 8192)                # 16a: the prefill's B, S = T
+MLA_F32_ATTN = (1, 4, 1024)         # 16a: the f32 scalar kernel's B, H, S
+MLA_RAGGED = (1, 4, 1000)           # 16a: bf16 tails on the tensor cores
+MLA_F32_PROMPT = 128                # 16b: prefill against stepped decode
+# 16c: deepseek-v3-671b cut to 5 of its 61 layers to fit the card: its 3
+# dense layers (1.17 GB of bf16 MLA and MLP weights each) and 2 MoE layers
+# (23.0 GB each: 22.55 GB of routed experts, the shared expert, the router
+# and MLA), the embedding and head 3.7 GB; 53.2 GB in all. Three MoE
+# layers (76 GB) would not fit beside the prefill's activations.
+DEEPSEEK_SERVE_LAYERS = 5
+MLA_SDPA = ("scaled_dot_product_attention (causal, E 192, Ev 128; the "
+            "library's call)")
+
+
+def mla_sdpa(q, k, v):
+    """(the library's call for MLA's attention in SDPA's [B, H, S, *]
+    layout, its name): SDPA restricted to the fused backends when one takes
+    q/k width 192 over v width 128 (named after the one the dispatcher
+    picks, and the others that take it), else SDPA on q, k and v
+    zero-padded to width 256 with the scale 1/sqrt(192), the output cut
+    back to 128. Timed here only: the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+             SDPBackend.EFFICIENT_ATTENTION]
+    takes = []
+    for b in fused:
+        try:
+            with sdpa_kernel([b]):
+                F.scaled_dot_product_attention(q[:, :, :256], k[:, :, :256],
+                                               v[:, :, :256], is_causal=True)
+            takes.append(b.name)
+        except RuntimeError:
+            pass
+    if takes:
+        try:
+            picked = SDPBackend(torch._fused_sdp_choice(
+                q, k, v, is_causal=True)).name
+        except (AttributeError, RuntimeError, TypeError, ValueError):
+            picked = takes[0]
+
+        def lib(q, k, v, block_mask=None, score_mod=None, enable_gqa=True):
+            with sdpa_kernel(fused):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        return lib, (f"{MLA_SDPA}: backend {picked} (fused backends that "
+                     f"take it: {', '.join(takes)})")
+    D, Dv = q.shape[-1], v.shape[-1]
+
+    def padded(q, k, v, block_mask=None, score_mod=None, enable_gqa=True):
+        pad = [F.pad(t, (0, 256 - t.shape[-1])) for t in (q, k, v)]
+        return F.scaled_dot_product_attention(
+            *pad, is_causal=True, scale=1.0 / math.sqrt(D))[..., :Dv]
+
+    return padded, (f"{MLA_SDPA}: no fused backend takes Ev != E, so SDPA "
+                    f"on q, k, v zero-padded to 256, scale 1/sqrt({D})")
+
+
+def mla_attn_checks(args, dev, report):
+    """16a: flash_attention at MLA's widths (q/k 192, v 128), causal, no
+    window, no cap: bf16 at deepseek-v3's prefill (B 2, H 128 over 128,
+    S = T = 8192) on the tensor cores against the plain version (round_p)
+    at phase 9's bars and bit for bit on repeat, timed beside its bound,
+    its plain version and SDPA; bf16 at a ragged 1000 on the tensor cores;
+    f32 on the scalar kernel at a small shape at 9's f32 bar. Returns
+    (worst error, the big shape's times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MLA_ARCH)
+    m = cfg.mla
+    Dqk, Dv, H = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim, cfg.n_heads
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 16)
+    rep = dict(checks=[])
+    err = 0.0
+
+    def operands(B, H, S, dtype):
+        return [torch.randn(B, S, H, d, generator=gen, device=dev).to(dtype)
+                for d in (Dqk, Dqk, Dv)]
+
+    def case(B, h, S, dtype, tc_want):
+        nonlocal err
+        q, k, v = operands(B, h, S, dtype)
+        n0, tc0 = flash_attention.launches, flash_attention.launches_tc
+        got = flash_attention_bshd(q, k, v)
+        again = flash_attention_bshd(q, k, v)
+        torch.cuda.synchronize()
+        shape = (f"{MLA_ARCH}: {str(dtype)[6:]}, B {B}, H {h} over {h}, "
+                 f"Dqk {Dqk}, Dv {Dv}, S = T = {S}, causal")
+        require(flash_attention.launches - n0 == 2
+                and flash_attention.launches_tc - tc0 == 2 * tc_want
+                and got.shape == (B, S, h, Dv) and got.dtype == dtype,
+                f"16a: {shape}: launches {flash_attention.launches - n0}, "
+                f"on the tensor cores {flash_attention.launches_tc - tc0}, "
+                f"shape {tuple(got.shape)}")
+        same = torch.equal(got, again)
+        require(same, f"16a: {shape}: two runs differ")
+        err = max(err, hold_attn(
+            rep["checks"], shape, got,
+            lambda r: flash_attention_bshd_plain(q, k, v, round_p=r), v,
+            list(v.shape)))
+        rep["checks"][-1]["bit_identical"] = same
+        return q, k, v
+
+    case(*MLA_F32_ATTN, torch.float32, False)
+    case(*MLA_RAGGED, torch.bfloat16, True)
+    B, S = MLA_ATTN
+    q, k, v = case(B, H, S, torch.bfloat16, True)
+    lib, lib_name = mla_sdpa(*(t.transpose(1, 2) for t in (q, k, v)))
+    t = time_attn(args, dev, lib, q, k, v, None, None, lib_name)
+    log_attn_time(f"bf16 B {B} ({MLA_ARCH}: H {H} over {H}, Dqk {Dqk}, "
+                  f"Dv {Dv}, S = T = {S}, causal)", t)
+    rep.update(max_abs_err=err, times=t)
+    report.setdefault("mla", {})["attn"] = rep
+    del q, k, v
+    torch.cuda.empty_cache()
+    return err, t
+
+
+def mla_witness(args, dev, report):
+    """16b: `moe_witness` for deepseek-v3-671b: one mla_dense and one
+    mla_moe layer (≈ 56 GB of f32 weights), 1 x MLA_F32_PROMPT: the
+    prefill's MLA decompressed through the f32 kernel at 192 / 128, the
+    decode's absorbed matrices over the latent cache."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MLA_ARCH)
+    wide = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts
+                               / cfg.moe.top_k)
+    moe_witness(args, dev, dataclasses.replace(
+        cfg, dtype="float32", n_layers=2, prefix=("mla_dense",), repeats=1,
+        moe=wide), MLA_F32_PROMPT, report.setdefault("mla", {}), "16b")
+
+
+def deepseek_serve_checks(args, dev, report):
+    """16c: `moe_serve` for deepseek-v3-671b at DEEPSEEK_SERVE_LAYERS of
+    its 61 layers (its 3 dense layers and 2 MoE ones): prefill_step on 2 x
+    8192 with one flash_attention a layer at 192 / 128. Returns its
+    launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MLA_ARCH)
+    L = DEEPSEEK_SERVE_LAYERS
+    return moe_serve(args, dev, dataclasses.replace(
+        cfg, n_layers=L, repeats=L - len(cfg.prefix)),
+        report.setdefault("mla", {}).setdefault(MLA_ARCH, {}))
+
+
+def mla_phase(args, dev, report):
+    """Phase 16: MLA and deepseek-v3-671b serving. 16a flash_attention at
+    q/k width 192 over v width 128, 16b the f32 witness at full width (one
+    dense and one MoE layer), 16c deepseek-v3-671b served at 5 layers.
+    Returns the main path's flash_attention launches (16c's prefill), the
+    kernel's worst error and the big shape's times."""
+    t_phase = time.perf_counter()
+    err, times = mla_attn_checks(args, dev, report)
+    mla_witness(args, dev, report)
+    n = deepseek_serve_checks(args, dev, report)
+    s = time.perf_counter() - t_phase
+    report.setdefault("mla", {})["phase_s"] = s
+    log(f"[mla] phase 16 {s:.1f} s; its main path's flash_attention "
+        f"launches {n}")
+    return dict(launches=n, max_abs_err=err, times=times)
 
 
 def main(argv=None) -> int:
@@ -5636,6 +5872,12 @@ def main(argv=None) -> int:
                                       fm["max_abs_err_bwd"])
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] += fm["launches"][name]
+    torch.cuda.empty_cache()
+
+    # -- 16. MLA and deepseek-v3-671b serving ----------------------------------
+    ml = mla_phase(args, dev, report)
+    errs["flash_attention"] = max(errs["flash_attention"], ml["max_abs_err"])
+    launches["flash_attention"] += ml["launches"]
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",

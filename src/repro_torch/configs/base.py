@@ -5,9 +5,9 @@ A copy of the JAX package's `repro.configs.base`, field for field, so that
 describes the layer stacking as (prefix, pattern × repeats, suffix); the
 port's stack unrolls it into one block per layer (`models.transformer`).
 The port registers the configurations whose families it serves
-(`qwen2-1.5b`, `smollm-360m`, `qwen3-4b`, `gemma2-9b`,
-`recurrentgemma-2b`, `rwkv6-1.6b`, `qwen2-vl-2b`, `musicgen-large`,
-`dbrx-132b`); `deepseek-v3-671b` joins with MLA.
+(all ten of the JAX package's: `qwen2-1.5b`, `smollm-360m`, `qwen3-4b`,
+`gemma2-9b`, `recurrentgemma-2b`, `rwkv6-1.6b`, `qwen2-vl-2b`,
+`musicgen-large`, `dbrx-132b`, `deepseek-v3-671b`).
 """
 from __future__ import annotations
 
@@ -137,9 +137,9 @@ def list_configs() -> list[str]:
 
 def _load_all():
     # import side-effect registration
-    from . import (dbrx_132b, gemma2_9b, musicgen_large,  # noqa: F401
-                   qwen2_1_5b, qwen2_vl_2b, qwen3_4b, recurrentgemma_2b,
-                   rwkv6_1_6b, smollm_360m)
+    from . import (dbrx_132b, deepseek_v3_671b,  # noqa: F401
+                   gemma2_9b, musicgen_large, qwen2_1_5b, qwen2_vl_2b,
+                   qwen3_4b, recurrentgemma_2b, rwkv6_1_6b, smollm_360m)
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

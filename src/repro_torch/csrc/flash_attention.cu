@@ -21,11 +21,21 @@
 // allowed pairs are 33.6M a head (global) or 25.2M (window 4096): 1.10 and
 // 0.83 PFLOP, a bound of 1.112 and 0.834 ms; operations bound it there too.
 //
-// Two kernels, chosen by the C entry on dtype and head width:
+// v may be narrower than q and k: MLA (DeepSeek-V3) attends with q/k width
+// DQK = 192 (128 + a 64-wide rotary part) over v width DV = 128, scale
+// 1/sqrt(192), o [B, S, H, 128]. Both kernels are templated on (DQK, DV);
+// every other call is the instantiation DQK = DV, whose code is the one
+// width's. At MLA's prefill (B 2, H 128 over 128, S = T = 8192) the causal
+// products are 2 B H pairs (DQK + DV) = 5.50 TFLOP: 5.56 ms at 989 TFLOP/s.
 //
-// bf16 at D in {64, 128, 256}: the tensor-core kernel (namespace tc).
+// Two kernels, chosen by the C entry on dtype and head widths:
+//
+// bf16 at D in {64, 128, 256}, and at (DQK, DV) = (192, 128): the
+// tensor-core kernel (namespace tc).
 //   * one block of 384 threads per (batch * head, 128-row q tile), the
-//     latest (heaviest, under the causal mask) q tiles launched first;
+//     latest (heaviest, under the causal mask) q tiles launched first:
+//     tile by tile across the heads, or at 192 / 128 (MLA: no two heads
+//     share K/V) head by head;
 //     warpgroup 0 is the producer (one thread issues every copy; the
 //     warpgroup gives its registers up with setmaxnreg to 24), warpgroups
 //     1 and 2 are consumers of 64 q rows each (240 registers);
@@ -70,13 +80,17 @@
 //   * epilogue: acc / max(l, 1e-30) in bf16, stored from registers; tail
 //     q rows are not written.
 //   Shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) at D = 128; Q 64 KB
-//   + 2 x (K 32 KB + V 32 KB) at D = 256; one block per SM. At D = 256 a
+//   + 2 x (K 32 KB + V 32 KB) at D = 256; Q 48 KB + 2 x (K 48 KB + V 32
+//   KB) = 208 KB at 192 / 128 (K and V tiles have their own byte counts,
+//   three and two boxes of 64 columns); one block per SM. At D = 256 a
 //   consumer holds a 64 x 256 f32 O (128 registers a thread) and a 64 x 64
-//   S (32).
+//   S (32); at 192 / 128 the registers of D = 128 (S takes 12 k-steps
+//   where D = 128 takes 8).
 //   The mbarrier, TMA, descriptor, wgmma and tensor-map helpers live in
 //   hopper_tc.cuh, shared with flash_attention_bwd.cu.
 //
-// f32, and bf16 at D in {16, 32}: the scalar kernel (the port's first
+// f32 (at 192 / 128 too), and bf16 at D in {16, 32}: the scalar kernel
+//   (the port's first
 //   design; the window and cap added, tanhf for the cap, window tiles
 //   skipped as above). One block of 128 threads per (batch * head,
 //   64-row q tile); the q tile and each K, then V, tile staged in shared
@@ -85,10 +99,11 @@
 //   scores, p and the output accumulator in f32 on the CUDA cores (67
 //   TFLOP/s of f32, and a shared-memory load for every 2.7 multiply-adds),
 //   so it is far slower. At D = 256 its tiles take 145 KB of shared
-//   memory and a thread holds 4 x 32 output values.
+//   memory and a thread holds 4 x 32 output values; at 192 / 128 115 KB
+//   (the K/V buffer sized for the wider K) and 4 x 16.
 //
 // Both: masked scores at the large finite -2^30 (a masked score gives
-// exp(...) == 0, never NaN); ragged S and T; o a contiguous [B, S, H, D].
+// exp(...) == 0, never NaN); ragged S and T; o a contiguous [B, S, H, DV].
 // Given a non-null lse (training asks for it, serving does not), each also
 // writes every query row's log-sum-exp m + log l in natural-log units
 // (the tensor-core kernel converts from its log2 units), from which
@@ -135,7 +150,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* src,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
@@ -145,13 +160,15 @@ __global__ void __launch_bounds__(kThreads)
                            long long ksb, long long kss, long long ksh,
                            long long vsb, long long vss, long long vsh,
                            float scale, int causal, int window, float cap) {
-  constexpr int kPitch = D + 1;
+  constexpr int kPitch = DQK + 1;       // q and K rows
+  constexpr int kVPitch = DV + 1;       // V rows
+  constexpr int kKV = DQK > DV ? kPitch : kVPitch;
   constexpr int kPP = kRows + 1;        // pitch of the probability tile
-  constexpr int kCols = D / 8;          // output columns per thread
+  constexpr int kCols = DV / 8;         // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;                     // [kRows][kPitch]
   float* kvs = qs + kRows * kPitch;     // [kRows][kPitch]: K, then V
-  float* ps = kvs + kRows * kPitch;     // [kRows][kPP]
+  float* ps = kvs + kRows * kKV;        // [kRows][kPP]
 
   const int bh = blockIdx.x % BH;
   const int qt = nq - 1 - blockIdx.x / BH;
@@ -175,7 +192,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  stage_tile<T, D>(qs, qp, qss, q0, q_valid);
+  stage_tile<T, DQK>(qs, qp, qss, q0, q_valid);
 
   int n_tiles = (Tk + kRows - 1) / kRows;
   if (causal) n_tiles = min(n_tiles, (q0 + q_valid - 1) / kRows + 1);
@@ -186,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = kt * kRows;
     const int k_valid = min(kRows, Tk - k0);
     __syncthreads();                    // last tile's V and P are read
-    stage_tile<T, D>(kvs, kp, kss, k0, k_valid);
+    stage_tile<T, DQK>(kvs, kp, kss, k0, k_valid);
     __syncthreads();
 
     float s[4][8];
@@ -195,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float a[4], bk[8];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = qs[(rg + 16 * i) * kPitch + d];
@@ -244,7 +261,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     __syncthreads();                    // K is read, P is written
-    stage_tile<T, D>(kvs, vp, vss, k0, k_valid);
+    stage_tile<T, DV>(kvs, vp, vss, k0, k_valid);
     __syncthreads();
 #pragma unroll 4
     for (int t = 0; t < kRows; ++t) {
@@ -253,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < 4; ++i) p[i] = ps[(rg + 16 * i) * kPP + t];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float vv = kvs[t * kPitch + cg + 8 * c];
+        const float vv = kvs[t * kVPitch + cg + 8 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] += p[i] * vv;
       }
@@ -265,7 +282,7 @@ __global__ void __launch_bounds__(kThreads)
     const int r = rg + 16 * i;
     if (r >= q_valid) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* op = o + (((long long)b * S + q0 + r) * H + h) * D;
+    T* op = o + (((long long)b * S + q0 + r) * H + h) * DV;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) store(op + cg + 8 * c, acc[i][c] / den);
     // m and l are the whole row's in every lane of the row group
@@ -274,37 +291,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int KH, int S, int Tk, const long long* st,
            int causal, int window, float cap, cudaStream_t stream) {
   const int nq = (S + kRows - 1) / kRows;
   const int BH = B * H;
-  const size_t smem = sizeof(float) * (2 * kRows * (D + 1)
+  constexpr int kWide = DQK > DV ? DQK : DV;
+  const size_t smem = sizeof(float) * (kRows * (DQK + 1) + kRows * (kWide + 1)
                                        + kRows * (kRows + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<T, DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_kernel<T, D><<<nq * BH, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, DQK, DV><<<nq * BH, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, S, Tk, BH,
       nq,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      (float)(1.0 / std::sqrt((double)D)), causal,   // as 1 / math.sqrt(D)
+      (float)(1.0 / std::sqrt((double)DQK)), causal,  // as 1 / math.sqrt(D)
       window, cap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int H, int KH, int S, int Tk,
+int launch_d(int D, int Dv, const void* q, const void* k, const void* v,
+             void* o, float* lse, int B, int H, int KH, int S, int Tk,
              const long long* st, int causal, int window, float cap,
              cudaStream_t stream) {
+  if (Dv != D) {
+    // MLA's pair, in f32 (bf16 takes the tensor-core kernel)
+    if constexpr (sizeof(T) == sizeof(float)) {
+      if (D == 192 && Dv == 128)
+        return launch<T, 192, 128>(q, k, v, o, lse, B, H, KH, S, Tk, st,
+                                   causal, window, cap, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
 #define FA_CASE(DD)                                                        \
   case DD:                                                                 \
-    return launch<T, DD>(q, k, v, o, lse, B, H, KH, S, Tk, st, causal,     \
-                         window, cap, stream);
+    return launch<T, DD, DD>(q, k, v, o, lse, B, H, KH, S, Tk, st, causal, \
+                             window, cap, stream);
   switch (D) {
     FA_CASE(16)
     FA_CASE(32)
@@ -325,24 +352,25 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
 #undef FA_CASE
 }
 
-// -- the tensor-core kernel: bf16, D in {64, 128, 256} ----------------------
+// -- the tensor-core kernel: bf16, D in {64, 128, 256} and 192 / 128 --------
 namespace tc {
 
 constexpr int kBM = 128;        // q rows per block: two consumer slabs of 64
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kThreads = 384;   // producer warpgroup + two consumers
 
-template <int D>
+template <int DQK, int DV>
 struct Layout {
   // kv rows per tile: 128, or 64 at D = 256, where Q and two stages of
   // 128-row K and V tiles would need 320 KB of the SM's 227
-  static constexpr int kBN = D == 256 ? 64 : 128;
-  static constexpr int kQBytes = kBM * D * 2;   // Q: D / 64 boxes of kBM rows
-  static constexpr int kTile = kBN * D * 2;     // K or V: D / 64 boxes
+  static constexpr int kBN = DQK == 256 ? 64 : 128;
+  static constexpr int kQBytes = kBM * DQK * 2;  // Q: DQK / 64 boxes
+  static constexpr int kTileK = kBN * DQK * 2;   // K: DQK / 64 boxes
+  static constexpr int kTileV = kBN * DV * 2;    // V: DV / 64 boxes
+  static constexpr int kStage = kTileK + kTileV;
   static constexpr int kBars = 3 * kStages + 1;
   // + 1024: the swizzle atoms need a 1024-byte aligned start
-  static constexpr int kSmem = kQBytes + kStages * 2 * kTile + 8 * kBars
-                               + 1024;
+  static constexpr int kSmem = kQBytes + kStages * kStage + 8 * kBars + 1024;
 };
 
 // tanh x = 1 - 2 / (2^(2 x log2 e) + 1): 2^y by ex2.approx (relative error
@@ -355,7 +383,7 @@ __device__ __forceinline__ float tanh_f32(float x) {
 // kMod: the call has a window or a soft-cap (win is the window, 2^30 for
 // none; cap_on whether scores are capped). Without it the kernel is the
 // plain causal (or full) one, and none of the code below costs it a thing.
-template <int D, bool kMod>
+template <int DQK, int DV, bool kMod>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_tc(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -365,18 +393,31 @@ __global__ void __launch_bounds__(kThreads, 1)
                        int Tk, int BH, int nq, float scale_log2,
                        int causal, int win, int cap_on, float scale_cap,
                        float cap_log2) {
-  using L = Layout<D>;
+  using L = Layout<DQK, DV>;
   constexpr int kBN = L::kBN;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + 1023) & ~1023u;          // Q, then the ring
   const uint32_t ring = sq + L::kQBytes;              // stage s: K, then V
-  const uint32_t bars = ring + kStages * 2 * L::kTile;
+  const uint32_t bars = ring + kStages * L::kStage;
   // barriers: full K [kStages], full V [kStages], empty [kStages], Q
   const uint32_t q_full = bars + 8 * 3 * kStages;
 
-  const int bh = blockIdx.x % BH;
-  const int qt = nq - 1 - blockIdx.x / BH;
+  // heaviest q tiles first. At DQK = DV every head's tile qt comes before
+  // any head's qt - 1 (the G heads of a kv head, adjacent, share its K/V
+  // tiles in L2). MLA's instance has one kv head a head, with 5.2 MB of
+  // K/V each at 8192: there a head's q tiles are adjacent instead, so the
+  // resident blocks share one or two heads' K/V in L2 rather than each
+  // streaming its own from HBM (MLA's prefill on an H100 80GB HBM3 at
+  // 700 W: 14.6 ms -> 10.0 ms)
+  int bh, qt;
+  if constexpr (DQK != DV) {
+    bh = blockIdx.x / nq;
+    qt = nq - 1 - blockIdx.x % nq;
+  } else {
+    bh = blockIdx.x % BH;
+    qt = nq - 1 - blockIdx.x / BH;
+  }
   const int b = bh / H, h = bh % H;
   const int kh = h / (H / KH);
   const int q0 = qt * kBM;
@@ -403,21 +444,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, L::kQBytes);
-      for (int c = 0; c < D / kBox; ++c)
+      for (int c = 0; c < DQK / kBox; ++c)
         tma_load(sq + c * kBM * kRowBytes, &tq, c * kBox, h, q0, b, q_full);
       for (int kt = kt0; kt < n_tiles; ++kt) {
         const int it = kt - kt0;                      // the ring's count
         const int s = it % kStages;
-        const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
+        const uint32_t sk = ring + s * L::kStage, sv = sk + L::kTileK;
         // the stage's previous tile is consumed (passes at once the first
         // time round: the phase before phase 0 counts as complete)
         mbar_wait(bars + 8 * (2 * kStages + s), ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(bars + 8 * s, L::kTile);
-        for (int c = 0; c < D / kBox; ++c)
+        mbar_expect_tx(bars + 8 * s, L::kTileK);
+        for (int c = 0; c < DQK / kBox; ++c)
           tma_load(sk + c * kBN * kRowBytes, &tk, c * kBox, kh, kt * kBN, b,
                    bars + 8 * s);
-        mbar_expect_tx(bars + 8 * (kStages + s), L::kTile);
-        for (int c = 0; c < D / kBox; ++c)
+        mbar_expect_tx(bars + 8 * (kStages + s), L::kTileV);
+        for (int c = 0; c < DV / kBox; ++c)
           tma_load(sv + c * kBN * kRowBytes, &tv, c * kBox, kh, kt * kBN, b,
                    bars + 8 * (kStages + s));
       }
@@ -438,9 +479,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int slab0 = q0 + 64 * cw;                     // the slab's first row
   const uint32_t qa = sq + cw * 64 * kRowBytes;       // the slab in a box
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;     // log2 units; per lane
 
   mbar_wait(q_full, 0);
@@ -448,15 +489,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int it = kt - kt0;
     const int s = it % kStages;
     const uint32_t ph = (it / kStages) & 1;
-    const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
+    const uint32_t sk = ring + s * L::kStage, sv = sk + L::kTileK;
     const int k0 = kt * kBN;
 
-    // S = Q K^T: D / 16 steps of k16; step kk reads 32 bytes into box kk / 4
+    // S = Q K^T: DQK / 16 steps of k16; step kk reads 32 bytes into box kk / 4
     float sc[kBN / 2];
     mbar_wait(bars + 8 * s, ph);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
       wgmma_ss<kBN>(sc,
                     desc(qa + (kk / 4) * kBM * kRowBytes + off, 16, 1024),
@@ -527,7 +568,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= (i / 2) % 2 ? c1 : c0;
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= (i / 2) % 2 ? c1 : c0;
 
     // O += P V: kBN / 16 steps of k16; step kk reads V rows 16 kk ..
     mbar_wait(bars + 8 * (kStages + s), ph);
@@ -535,7 +576,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_rs<D>(acc, pa[kk],
+      wgmma_rs<DV>(acc, pa[kk],
                   desc(sv + kk * 16 * kRowBytes, kBN * kRowBytes, 1024));
     wgmma_commit();
     wgmma_wait_all();
@@ -559,31 +600,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lse != nullptr && cq == 0)
       lse[(long long)bh * S + row] =
           ((half ? m1 : m0) + log2f(den)) * 0.6931471805599453f;
-    __nv_bfloat16* op = o + (((long long)b * S + row) * H + h) * D + cq;
+    __nv_bfloat16* op = o + (((long long)b * S + row) * H + h) * DV + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * half] / den, acc[4 * j + 2 * half + 1] / den);
   }
 }
 
-template <int D, bool kMod>
+template <int DQK, int DV, bool kMod>
 int launch_mod(const CUtensorMap& tq, const CUtensorMap& tk,
                const CUtensorMap& tv, void* o, float* lse, int B, int H,
                int KH, int S, int Tk, int causal, int window, float cap,
                cudaStream_t stream) {
   const int nq = (S + kBM - 1) / kBM;
   const int BH = B * H;
+  constexpr int kSmem = Layout<DQK, DV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc<D, kMod>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kSmem);
+      flash_attention_tc<DQK, DV, kMod>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
-  const double scale = 1.0 / std::sqrt((double)D);   // as the scalar kernel
+  const double scale = 1.0 / std::sqrt((double)DQK);  // as the scalar kernel
   const double log2e = 1.4426950408889634;
   // scores s: s scale log2(e) for ex2; capped, cap log2(e) tanh(s scale /
   // cap) (the f32 score's scale and cap folded into one factor)
-  flash_attention_tc<D, kMod><<<nq * BH, kThreads, Layout<D>::kSmem,
-                                stream>>>(
+  flash_attention_tc<DQK, DV, kMod><<<nq * BH, kThreads, kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, KH, S, Tk, BH, nq,
       (float)(scale * log2e), causal, window > 0 ? window : 1 << 30,
       cap > 0.f, cap > 0.f ? (float)(scale / cap) : 0.f,
@@ -591,21 +632,21 @@ int launch_mod(const CUtensorMap& tq, const CUtensorMap& tk,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int KH, int S, int Tk, const long long* st,
            int causal, int window, float cap, cudaStream_t stream) {
-  constexpr int kBN = Layout<D>::kBN;
+  constexpr int kBN = Layout<DQK, DV>::kBN;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, H, S, B, st[0], st[1], st[2], kBM)
-      || !make_map(&tk, k, D, KH, Tk, B, st[3], st[4], st[5], kBN)
-      || !make_map(&tv, v, D, KH, Tk, B, st[6], st[7], st[8], kBN))
+  if (!make_map(&tq, q, DQK, H, S, B, st[0], st[1], st[2], kBM)
+      || !make_map(&tk, k, DQK, KH, Tk, B, st[3], st[4], st[5], kBN)
+      || !make_map(&tv, v, DV, KH, Tk, B, st[6], st[7], st[8], kBN))
     return (int)cudaErrorInvalidValue;
   if (window > 0 || cap > 0.f)
-    return launch_mod<D, true>(tq, tk, tv, o, lse, B, H, KH, S, Tk, causal,
-                               window, cap, stream);
-  return launch_mod<D, false>(tq, tk, tv, o, lse, B, H, KH, S, Tk, causal,
-                              window, cap, stream);
+    return launch_mod<DQK, DV, true>(tq, tk, tv, o, lse, B, H, KH, S, Tk,
+                                     causal, window, cap, stream);
+  return launch_mod<DQK, DV, false>(tq, tk, tv, o, lse, B, H, KH, S, Tk,
+                                    causal, window, cap, stream);
 }
 
 }  // namespace tc
@@ -614,22 +655,23 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 extern "C" {
 
-// q [B, S, H, D], k and v [B, T, KH, D] through their (batch, row, head)
-// strides in elements (the last dimension contiguous); o a contiguous
-// [B, S, H, D]; lse null, or a contiguous f32 [B, H, S] that receives each
-// row's log-sum-exp of its scaled scores (m + log l, natural log: the
-// statistic the backward recomputes p from). dtype 0: float32, 1:
-// bfloat16. D in {16, 32, 64, 128, 256}; H a multiple of KH; S, T >= 1.
-// window: 0 for none, else a key is allowed only when qpos - kpos <
-// window (then S <= T, so that every row keeps a key); cap: 0 for none,
-// else the scaled scores s become cap tanh(s / cap) before the mask. bf16
-// at D 64, 128 or 256 takes the tensor-core kernel, which needs 16-byte
-// aligned bases and strides that are multiples of 8 elements
-// (kernels/flash_attn.py makes them so); everything else the scalar
-// kernel. Returns a CUDA error code (0 on success).
+// q [B, S, H, D], k [B, T, KH, D] and v [B, T, KH, Dv] through their
+// (batch, row, head) strides in elements (the last dimension contiguous);
+// o a contiguous [B, S, H, Dv]; lse null, or a contiguous f32 [B, H, S]
+// that receives each row's log-sum-exp of its scaled scores (m + log l,
+// natural log: the statistic the backward recomputes p from). dtype 0:
+// float32, 1: bfloat16. Dv = D in {16, 32, 64, 128, 256}, or (D, Dv) =
+// (192, 128); H a multiple of KH; S, T >= 1. window: 0 for none, else a
+// key is allowed only when qpos - kpos < window (then S <= T, so that
+// every row keeps a key); cap: 0 for none, else the scaled scores s
+// become cap tanh(s / cap) before the mask. bf16 at D 64, 128 or 256, or
+// at 192 / 128, takes the tensor-core kernel, which needs 16-byte aligned
+// bases and strides that are multiples of 8 elements (kernels/
+// flash_attn.py makes them so); everything else the scalar kernel.
+// Returns a CUDA error code (0 on success).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     void* lse_out, int dtype, int B, int H, int KH, int S,
-                    int T, int D,
+                    int T, int D, int Dv,
                     long long qsb, long long qss, long long qsh,
                     long long ksb, long long kss, long long ksh,
                     long long vsb, long long vss, long long vsh, int causal,
@@ -637,21 +679,24 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
-  if (dtype == 1 && D == 256)
-    return tc::launch<256>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
-                           window, cap, s);
-  if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
-                           window, cap, s);
-  if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
-                          window, cap, s);
+  if (dtype == 1 && D == 192 && Dv == 128)
+    return tc::launch<192, 128>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
+                                window, cap, s);
+  if (dtype == 1 && D == 256 && Dv == D)
+    return tc::launch<256, 256>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
+                                window, cap, s);
+  if (dtype == 1 && D == 128 && Dv == D)
+    return tc::launch<128, 128>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
+                                window, cap, s);
+  if (dtype == 1 && D == 64 && Dv == D)
+    return tc::launch<64, 64>(q, k, v, o, lse, B, H, KH, S, T, st, causal,
+                              window, cap, s);
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, lse, B, H, KH, S, T, st, causal,
-                           window, cap, s);
+    return launch_d<float>(D, Dv, q, k, v, o, lse, B, H, KH, S, T, st,
+                           causal, window, cap, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KH, S, T, st,
-                                   causal, window, cap, s);
+    return launch_d<__nv_bfloat16>(D, Dv, q, k, v, o, lse, B, H, KH, S, T,
+                                   st, causal, window, cap, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,18 +17,28 @@ launch counts:
   and maps q head h to kv head h // (H // K) itself, so nothing is
   repeated; `attn_apply` reaches the kernel here.
 
+v may be narrower than q and k in one pair, `V_PAIRS`: q/k width 192
+over v width 128, MLA's (DeepSeek-V3's `qk_nope_dim` 128 + `qk_rope_dim`
+64, `v_head_dim` 128; `mla_apply` reaches the kernel there). The scale is
+1/sqrt of q's width and the output takes v's: [B, S, H, Dv]. The kernels
+are instantiated for the pair itself, not padded to 256 (which would do
+1.6x the products and write 2x the output).
+
 The source holds two kernels (`tensor_core_path` says which one a call
 takes):
 
-- bf16 at head widths 64, 128 and 256: the Hopper kernel (TMA-fed K/V
-  ring, `wgmma` on the tensor cores; 64-row K/V tiles at 256). Under a
+- bf16 at head widths 64, 128 and 256, and at the pair 192 / 128: the
+  Hopper kernel (TMA-fed K/V ring, `wgmma` on the tensor cores; 64-row
+  K/V tiles at 256; at 192 / 128 a head's q tiles launched side by side,
+  so that they share its K/V in L2). Under a
   window it loads and computes only the K/V tiles some row of its q tile
   may see. It rounds p to bf16 before the PV product, as the model's
   `chunked_attention` does, and keeps the row sum from the f32 p. Its
   tensor maps need 16-byte aligned bases and strides; a tensor that
   misses that is copied first. `flash_attention.launches_tc` counts its
   launches;
-- f32, and bf16 at widths 16 and 32: the scalar kernel, p in f32.
+- f32 (the pair 192 / 128 too), and bf16 at widths 16 and 32: the
+  scalar kernel, p in f32.
 
 `flash_attention.launches` counts every launch of either. On a CUDA tensor
 the wrapper launches a kernel; on a CPU tensor it runs the plain version
@@ -62,6 +72,12 @@ forward's are:
   same. `flash_attention_bwd.launches_tc` counts these calls;
 - f32, and bf16 at widths 16 and 32: the scalar kernels, all in f32.
 
+The backward kernels take one width for q, k and v: at the pair 192 / 128
+(MLA's training) `flash_attention_bwd` and a `FlashAttentionFn` that
+wants a gradient raise `NotImplementedError` naming ROADMAP A9 on a
+device other than the CPU, before any launch; on the CPU both run the
+plain versions, which take the pair.
+
 `flash_attention_bwd.launches` counts every call (each launches its
 design's kernels together). On CPU tensors both halves run their plain
 versions; `flash_attention_bwd_plain` is the closed form and the kernels'
@@ -79,14 +95,16 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_plain",
            "flash_attention_bshd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "FlashAttentionFn",
-           "tensor_core_path", "NEG", "HEAD_DIMS", "TC_HEAD_DIMS"]
+           "tensor_core_path", "NEG", "HEAD_DIMS", "TC_HEAD_DIMS",
+           "V_PAIRS"]
 
 NEG = -2.0 ** 30      # large finite mask value: a masked score gives exp 0
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128, 256)   # bf16 widths of the tensor-core kernels
+V_PAIRS = ((192, 128),)   # (q/k width, narrower v width): MLA's, both dtypes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _L = ctypes.c_longlong
-_SIG = {"flash_attention": [_build.P] * 5 + [_build.I] * 7 + [_L] * 9
+_SIG = {"flash_attention": [_build.P] * 5 + [_build.I] * 8 + [_L] * 9
         + [_build.I, _build.I, ctypes.c_float, _build.P]}
 _SIG_BWD = {"flash_attention_bwd": [_build.P] * 10 + [_build.I] * 7
             + [_L] * 9 + [_build.I, _build.I, ctypes.c_float, _build.P],
@@ -94,34 +112,42 @@ _SIG_BWD = {"flash_attention_bwd": [_build.P] * 10 + [_build.I] * 7
             + [ctypes.POINTER(_L)]}
 
 
-def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether a call in `dtype` at `head_dim` takes the tensor-core kernel
-    (the C entry dispatches on the same two values)."""
-    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+def tensor_core_path(dtype: torch.dtype, head_dim: int,
+                     v_dim: int = None) -> bool:
+    """Whether a call in `dtype` at q/k width `head_dim` and v width `v_dim`
+    (`head_dim` unless given) takes the tensor-core kernel (the C entry
+    dispatches on the same values)."""
+    v_dim = head_dim if v_dim is None else v_dim
+    if dtype != torch.bfloat16:
+        return False
+    if v_dim == head_dim:
+        return head_dim in TC_HEAD_DIMS
+    return (head_dim, v_dim) in V_PAIRS
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window=None, cap=None,
                           round_p: bool = False, return_lse: bool = False):
-    """The kernel's function in plain PyTorch: q [BH, S, D], k/v [BH, T, D];
-    an online softmax over kv blocks of 128 rows (the Pallas kernel's bk)
-    with the running max, sum and accumulator in f32, masked scores at NEG.
+    """The kernel's function in plain PyTorch: q [BH, S, D], k [BH, T, D],
+    v [BH, T, Dv] (Dv = D, or narrower: MLA's); an online softmax over kv
+    blocks of 128 rows (the Pallas kernel's bk) with the running max, sum
+    and accumulator in f32, masked scores at NEG.
     As `chunked_attention`: the scores s / sqrt(D) are soft-capped to
     cap · tanh(s / (sqrt(D) cap)) when `cap` is given, then a key is masked
     when it lies in the future (`causal`) or `window` or more positions
     back. p stays f32 for the PV product; with `round_p` it is first
     rounded to q's dtype, as the tensor-core kernel and `chunked_attention`
     round it (the row sum still from the f32 p; the identity in f32). Returns
-    [BH, S, D] in q's dtype, and with `return_lse` also each row's
+    [BH, S, Dv] in q's dtype, and with `return_lse` also each row's
     log-sum-exp m + log l, f32 [BH, S]."""
     BH, S, D = q.shape
-    T = k.shape[1]
+    T, Dv = k.shape[1], v.shape[-1]
     scale = 1.0 / math.sqrt(D)
     qf = q.float()
     qpos = torch.arange(S, device=q.device)[:, None]
     m = torch.full((BH, S, 1), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((BH, S, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((BH, S, D), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((BH, S, Dv), dtype=torch.float32, device=q.device)
     for j0 in range(0, T, 128):
         kj = k[:, j0:j0 + 128].float()
         vj = v[:, j0:j0 + 128].float()
@@ -157,21 +183,22 @@ def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True,
                                window=None, cap=None, round_p: bool = False,
                                return_lse: bool = False):
-    """`flash_attention_plain` on the model's layout: q [B, S, H, D], k/v
-    [B, T, K, D] with the kv heads repeated G = H // K times (q head h
-    reads kv head h // G). Returns [B, S, H, D] (and with `return_lse`
-    the row log-sum-exp, f32 [B, H, S])."""
-    B, S, H, D = q.shape
+    """`flash_attention_plain` on the model's layout: q [B, S, H, D], k
+    [B, T, K, D], v [B, T, K, Dv] with the kv heads repeated G = H // K
+    times (q head h reads kv head h // G). Returns [B, S, H, Dv] (and with
+    `return_lse` the row log-sum-exp, f32 [B, H, S])."""
+    B, S, H, _ = q.shape
     G = H // k.shape[2]
+    Dv = v.shape[-1]
     out = flash_attention_plain(
         _heads_first(q), _heads_first(k.repeat_interleave(G, dim=2)),
         _heads_first(v.repeat_interleave(G, dim=2)), causal=causal,
         window=window, cap=cap, round_p=round_p, return_lse=return_lse)
     if return_lse:
         out, lse = out
-        return (out.reshape(B, H, S, D).permute(0, 2, 1, 3),
+        return (out.reshape(B, H, S, Dv).permute(0, 2, 1, 3),
                 lse.reshape(B, H, S))
-    return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
+    return out.reshape(B, H, S, Dv).permute(0, 2, 1, 3)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -180,8 +207,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               causal: bool = True, window=None, cap=None,
                               round_p: bool = False):
     """The backward in closed form, plain PyTorch with every product in
-    f32: q, o, do [B, S, H, D], k/v [B, T, K, D], lse f32 [B, H, S] (the
-    forward's). The logits are the forward's: X = S / sqrt(D), soft-capped
+    f32: q [B, S, H, D], k [B, T, K, D], v [B, T, K, Dv], o, do [B, S, H,
+    Dv], lse f32 [B, H, S] (the forward's; Dv = D, or MLA's narrower v). The logits are the forward's: X = S / sqrt(D), soft-capped
     to cap · t with t = tanh(X / cap) when `cap` is given, masked (P = 0,
     as the forward's NEG gives exp 0) where a key lies in the future
     (`causal`) or `window` or more positions back. With P = exp(logit -
@@ -199,11 +226,11 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     derivative of the rounded forward. Returns (dq, dk, dv) in the inputs'
     dtypes."""
     B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
     scale = 1.0 / math.sqrt(D)
     qf = q.float().reshape(B, S, K, G, D)
-    dof = do.float().reshape(B, S, K, G, D)
+    dof = do.float().reshape(B, S, K, G, Dv)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bskgd,btkd->bkgst", qf, kf) * scale
     if cap is not None:
@@ -234,7 +261,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None,
                     cap=None) -> torch.Tensor:
     """q [BH, S, D], k/v [BH, T, D] (the Pallas kernel's signature; one kv
-    head per q head). Returns [BH, S, D] in q's dtype."""
+    head per q head; v may be [BH, T, Dv] for a pair of `V_PAIRS`).
+    Returns [BH, S, Dv] in q's dtype."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      cap=cap)
@@ -245,9 +273,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window=None, cap=None,
                          return_lse: bool = False):
-    """q [B, S, H, D], k/v [B, T, K, D], H a multiple of K. Returns a
-    contiguous [B, S, H, D] in q's dtype (and with `return_lse` the row
-    log-sum-exp, f32 [B, H, S])."""
+    """q [B, S, H, D], k [B, T, K, D], v [B, T, K, Dv] (Dv = D, or a pair
+    of `V_PAIRS`), H a multiple of K. Returns a contiguous [B, S, H, Dv]
+    in q's dtype (and with `return_lse` the row log-sum-exp, f32 [B, H,
+    S])."""
     if q.device.type == "cpu":
         return flash_attention_bshd_plain(q, k, v, causal=causal,
                                           window=window, cap=cap,
@@ -261,17 +290,21 @@ def _check(q, k, v, window=None, cap=None):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D or H % K or S < 1 or T < 1:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}")
-    if D not in HEAD_DIMS:
+    if Dv == D and D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head width {D} not in "
                          f"{HEAD_DIMS}")
+    if Dv != D and (D, Dv) not in V_PAIRS:
+        raise ValueError(f"flash_attention: q/k width {D} over v width "
+                         f"{Dv}, a pair not in {V_PAIRS}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype}, expected "
                         f"float32 or bfloat16")
@@ -285,23 +318,23 @@ def _check(q, k, v, window=None, cap=None):
                          f"int, with S {S} <= T {T})")
     if cap is not None and not cap > 0:
         raise ValueError(f"flash_attention: soft-cap {cap}, expected > 0")
-    return tensor_core_path(q.dtype, D)
+    return tensor_core_path(q.dtype, D, Dv)
 
 
 def _launch(q, k, v, causal, window=None, cap=None, return_lse=False):
     tc = _check(q, k, v, window, cap)
     dev = q.device
     B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     q, k, v = (_operand(t, tc) for t in (q, k, v))
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
            if return_lse else None)
     lib = _build.load("flash_attention", _SIG)
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        _DTYPES[q.dtype], B, H, K, S, T, D, *_strides(q), *_strides(k),
+        _DTYPES[q.dtype], B, H, K, S, T, D, Dv, *_strides(q), *_strides(k),
         *_strides(v), int(causal), int(window or 0), float(cap or 0.0),
         _build.stream_ptr(dev))
     _build.launch_error("flash_attention", err)
@@ -320,11 +353,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels (the tensor-core design where `tensor_core_path` says so,
     rounding as `flash_attention_bwd_plain(round_p=True)`; else the scalar
     one, all f32); on a CPU tensor it runs `flash_attention_bwd_plain`;
-    anything else raises. Returns contiguous gradients in the inputs'
-    dtype."""
+    anything else raises, a narrower v (MLA's) with NotImplementedError
+    naming ROADMAP A9 (no backward kernel takes it yet). Returns contiguous
+    gradients in the inputs' dtype."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, cap=cap)
+    if v.shape[-1] != q.shape[-1]:
+        raise _narrow_v_grad(q, v)
     tc = _check(q, k, v, window, cap)
     dev = q.device
     B, S, H, D = q.shape
@@ -358,17 +394,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _narrow_v_grad(q, v) -> NotImplementedError:
+    """The error of a gradient the backward kernels cannot give yet."""
+    return NotImplementedError(
+        f"flash_attention's backward at q/k width {q.shape[-1]} over v width "
+        f"{v.shape[-1]} (MLA training) is not ported yet (ROADMAP A9: the "
+        f"LM substrate, the rest)")
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """`flash_attention_bshd(q, k, v, causal=, window=, cap=)` with a
     gradient: `FlashAttentionFn.apply(q, k, v, causal, window, cap)`. The
     forward writes the row log-sum-exp only when an input wants a gradient
     (as it does again when `torch.utils.checkpoint` recomputes it) and
     saves q, k, v, o and lse; the backward is `flash_attention_bwd` with
-    the same causal flag, window and cap."""
+    the same causal flag, window and cap. Off the CPU, a gradient at a
+    narrower v (MLA's) raises NotImplementedError naming ROADMAP A9 in the
+    forward, before any launch."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, window=None, cap=None):
         want = any(ctx.needs_input_grad[:3])
+        if want and q.device.type != "cpu" and v.shape[-1] != q.shape[-1]:
+            raise _narrow_v_grad(q, v)
         out = flash_attention_bshd(q, k, v, causal=causal, window=window,
                                    cap=cap, return_lse=want)
         ctx.causal, ctx.window, ctx.cap = causal, window, cap

@@ -15,6 +15,10 @@ frontends are stubs) frame or patch embeddings, stepped in one position
 at a time, after which each generated token goes in as its `embed` row
 (M-RoPE's three streams all at the step's position, as JAX's decode
 gives them).
+deepseek-v3-671b (MLA; its cache is the latent `ckv` and `krope`) is
+served the same way; at full width it fits one card only cut by layers
+(`dataclasses.replace(cfg, n_layers=5)`: 3 dense, 2 MoE layers, ≈ 53 GB
+of bf16 weights).
 The int8 KV cache is the config's `kv_cache_dtype="int8"`, reached by
 `serve(dataclasses.replace(cfg, kv_cache_dtype="int8"), ...)` as in the
 JAX dry run; there is no flag for it, as in JAX's launcher.

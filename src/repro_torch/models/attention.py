@@ -1,7 +1,6 @@
-"""Attention: GQA (+bias/qk-norm/softcap/local-window) and its KV cache.
+"""Attention: GQA (+bias/qk-norm/softcap/local-window), MLA, KV caches.
 
-A copy of the JAX package's `repro.models.attention` for the dense
-global-attention family, on tensors:
+A copy of the JAX package's `repro.models.attention` on tensors:
 
 - `chunked_attention` is the jnp online-softmax schedule, whole (window
   and soft-cap included): the plain version of full-sequence attention,
@@ -23,8 +22,22 @@ global-attention family, on tensors:
 
 Qwen2-VL's M-RoPE (`rope="mrope"`) rotates q and k by three position
 streams ([B, 3, S]); a decode step gives all three its position, as JAX
-does. MLA waits for a later slice (ROADMAP A9) and raises
-`NotImplementedError`.
+does.
+
+DeepSeek-V3's multi-head latent attention (`mla_*`): q through a rank
+`q_lora_rank` bottleneck, k and v decompressed per head from one
+`kv_lora_rank` latent (`ckv`), a rotary part of width `qk_rope_dim` that
+all heads share for k. `mla_apply` (prefill and training) materialises
+k = [k_nope, k_rope broadcast over the heads] at q/k width 192 and v at
+width 128, as JAX does, and runs `chunked_attention` on CPU tensors and
+the `flash_attention` kernel (its 192 / 128 instantiation, through
+`FlashAttentionFn`) on CUDA tensors; its cache is (ckv, k_rope).
+`mla_decode` is JAX's absorbed-matrix form in plain PyTorch on both
+devices: `wk_b` folded into q and `wv_b` applied after the softmax, so a
+step reads the latent cache {"ckv" [B, T, r], "krope" [B, T, rope]}
+(written in place) and never the per-head k and v. Training MLA on the
+card needs the backward kernel at 192 / 128, which a later slice brings:
+there `FlashAttentionFn` raises NotImplementedError naming ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -36,7 +49,8 @@ import torch
 from ..kernels.flash_attn import FlashAttentionFn
 from .layers import apply_rope, dense_init, mrope_apply, rmsnorm, softcap
 
-__all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache",
+__all__ = ["attn_init", "attn_apply", "attn_decode", "mla_init", "mla_apply",
+           "mla_decode", "init_kv_cache", "init_mla_cache",
            "chunked_attention", "quantize_kv", "dequantize_kv", "NEG_INF"]
 
 NEG_INF = -2.0 ** 30  # large-finite: avoids NaN rows for fully-masked blocks
@@ -108,8 +122,6 @@ def chunked_attention(q, k, v, *, chunk: int, window: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 def attn_init(cfg, dtype, *, generator: torch.Generator, device=None) -> dict:
-    if cfg.mla is not None:
-        raise later("MLA (multi-head latent attention)")
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     kw = dict(dtype=dtype, generator=generator, device=device)
     p = {"wq": dense_init((d, H, hd), in_axis_size=d, **kw),
@@ -204,6 +216,104 @@ def attn_decode(x, p, cfg, kind: str, cache, pos: int):
     o = torch.einsum("bkgqt,btkd->bqkgd", w.to(vf.dtype), vf)
     o = o.reshape(B, 1, H, hd)
     return _out(o, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def mla_init(cfg, dtype, *, generator: torch.Generator, device=None) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    m = cfg.mla
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    zeros = dict(dtype=dtype, device=device)
+    return {
+        "wq_a": dense_init((d, m.q_lora_rank), **kw),
+        "qn": torch.zeros((m.q_lora_rank,), **zeros),
+        "wq_b": dense_init((m.q_lora_rank, H, qk),
+                           in_axis_size=m.q_lora_rank, **kw),
+        "wkv_a": dense_init((d, m.kv_lora_rank + m.qk_rope_dim), **kw),
+        "kvn": torch.zeros((m.kv_lora_rank,), **zeros),
+        "wk_b": dense_init((m.kv_lora_rank, H, m.qk_nope_dim),
+                           in_axis_size=m.kv_lora_rank, **kw),
+        "wv_b": dense_init((m.kv_lora_rank, H, m.v_head_dim),
+                           in_axis_size=m.kv_lora_rank, **kw),
+        "wo": dense_init((H, m.v_head_dim, d),
+                         in_axis_size=H * m.v_head_dim, **kw),
+    }
+
+
+def _mla_qkv_latent(x, p, cfg, positions):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated, ckv [B,S,r]
+    normed, k_rope [B,S,1,rope] rotated)."""
+    m = cfg.mla
+    q_lat = rmsnorm(x @ p["wq_a"], p["qn"])
+    q = _proj(q_lat, p["wq_b"])
+    q_nope = q[..., :m.qk_nope_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_dim:], positions, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"]
+    ckv = rmsnorm(kv_a[..., :m.kv_lora_rank], p["kvn"])
+    k_rope = apply_rope(kv_a[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)                   # [B,S,1,rope]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_apply(x, p, cfg, positions):
+    """Full-sequence MLA: per-head k/v decompressed from the latent
+    (prefill and training). Runs the flash_attention kernel (q/k width
+    192, v width 128 at the full config) on CUDA tensors,
+    chunked_attention on CPU tensors. Returns (out, (ckv, k_rope
+    [B,S,rope]) for caching)."""
+    m = cfg.mla
+    q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(x, p, cfg, positions)
+    k_nope = _proj(ckv, p["wk_b"])
+    v = _proj(ckv, p["wv_b"])
+    H = cfg.n_heads
+    k = torch.cat([k_nope, k_rope.expand(k_rope.shape[:2]
+                                         + (H, m.qk_rope_dim))], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    if q.device.type == "cpu":
+        o = chunked_attention(q, k, v, chunk=cfg.attn_chunk)
+    else:
+        o = FlashAttentionFn.apply(q, k, v, True, None, None)
+    return _out(o, p["wo"]), (ckv, k_rope[..., 0, :])
+
+
+def mla_decode(x, p, cfg, cache, pos: int):
+    """Absorbed-matrix MLA decode (DeepSeek-V3's weight absorption): the
+    scores against the latent cache directly, so a step's cost does not
+    grow with H x head width. cache {"ckv" [B,T,r], "krope" [B,T,rope]};
+    writes position `pos` in place and returns (out, cache)."""
+    m = cfg.mla
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv_latent(x, p, cfg,
+                                                          positions)
+    cache["ckv"][:, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][:, pos] = k_rope_new[:, 0, 0].to(cache["krope"].dtype)
+    ckv = cache["ckv"].to(x.dtype)                      # [B,T,r]
+    krope = cache["krope"].to(x.dtype)                  # [B,T,rope]
+    # absorb W_k into q: q_eff [B,1,H,r]
+    q_eff = torch.einsum("bshe,rhe->bshr", q_nope, p["wk_b"])
+    s = (torch.einsum("bshr,btr->bhst", q_eff, ckv)
+         + torch.einsum("bshe,bte->bhst", q_rope, krope)).float()
+    s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    T = ckv.shape[1]
+    valid = torch.arange(T, device=x.device) <= pos
+    s = torch.where(valid[None, None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", w.to(ckv.dtype), ckv)
+    o = torch.einsum("bshr,rhe->bshe", ctx, p["wv_b"])  # [B,1,H,v]
+    return _out(o, p["wo"]), cache
+
+
+def init_mla_cache(cfg, B: int, T: int, dtype, device=None):
+    m = cfg.mla
+    return {"ckv": torch.zeros((B, T, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((B, T, m.qk_rope_dim), dtype=dtype,
+                                 device=device)}
 
 
 def quantize_kv(x, cache):

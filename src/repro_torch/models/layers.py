@@ -27,12 +27,13 @@ def dense_init(shape, in_axis_size=None, dtype=torch.bfloat16, *,
                generator: torch.Generator, device=None) -> torch.Tensor:
     """Truncated-normal fan-in init: N(0, 1) cut at ±2, times
     1/sqrt(fan_in), drawn in f32 on `device` from `generator` (which lives
-    on that device)."""
+    on that device). Scaled in place: the largest leaves (DeepSeek-V3's
+    [256, 7168, 2048] experts, 15 GB in f32) need no second f32 copy."""
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     std = 1.0 / math.sqrt(max(1, fan_in))
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)
 
 
 def rmsnorm(x, w, eps=1e-6):

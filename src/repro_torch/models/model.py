@@ -5,17 +5,21 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
 `params` argument; each returns what the JAX step returns:
 
 - `prefill_step(batch)` -> (logits [B, V] at the last position, caches:
-  one (k, v) [B, S, K, hd] pair per attention layer, and each recurrent
-  layer's final f32 state, {"h", "conv"} for RG-LRU or {"s", "x_tm",
-  "x_cm"} for RWKV-6, as `init_cache` lays it out). On CUDA tensors every
-  attention layer runs the `flash_attention` kernel; the recurrences and
+  one (k, v) [B, S, K, hd] pair per attention layer, one (ckv [B, S, r],
+  k_rope [B, S, rope]) pair per MLA layer, and each recurrent layer's
+  final f32 state, {"h", "conv"} for RG-LRU or {"s", "x_tm", "x_cm"} for
+  RWKV-6, as `init_cache` lays it out). On CUDA tensors every attention
+  layer runs the `flash_attention` kernel (an MLA layer its q/k width 192
+  over v width 128 instance); the recurrences and
   the MoE layers' routing, expert products and combine are plain PyTorch
   on every device. The head (`lnf`, `unembed`)
   runs on the last position only: the same values as the JAX step's
   `logits[:, -1]`, without its [B, S, V] f32 tensor;
 - `decode_step(cache, batch, pos)` -> (logits [B, 1, V], cache), the cache
-  (bf16, or int8 codes and scales with `kv_cache_dtype="int8"`) written
-  in place at `pos`, each recurrent layer's state replaced in place;
+  (bf16, or int8 codes and scales with `kv_cache_dtype="int8"`; MLA's
+  latent {"ckv", "krope"}, read by the absorbed-matrix decode in plain
+  PyTorch) written in place at `pos`, each recurrent layer's state
+  replaced in place;
 - `loss(batch)` -> (loss + 0.01 aux, {"loss", "aux"}), differentiable
   (aux: the MoE layers' summed load-balance loss, 0 without MoE);
 - `train_step(opt_state, batch)` -> (opt_state, {"loss", "aux",
@@ -31,7 +35,9 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
   tensors every attention layer runs the `flash_attention` kernel
   twice (the forward and its recomputation under remat) and its backward
   kernel once a microbatch (with gemma2's window, soft-cap and head width
-  256 too).
+  256 too). An MLA config trains on the CPU; on the card its first layer
+  raises NotImplementedError naming ROADMAP A9 (no backward kernel at
+  q/k width 192 over v width 128 yet), before any launch.
 
 Inputs are dicts of tensors or numpy arrays ({"tokens": [B, S] int}, or
 with `embed_inputs` {"embeddings": [B, S, d], "labels": [B, S] int}, and

@@ -1,11 +1,13 @@
 """Decoder stack: layer-kind dispatch, one block per layer, remat, loss.
 
-A copy of the JAX package's `repro.models.transformer` for the dense
-attention kinds (`attn`, `attn_local`, `attn_global`), with the bf16 or
-int8 KV cache (`kv_cache_dtype`), the MoE kind `attn_moe` (attention,
-then `models.moe` in place of the MLP), and the recurrent kinds `rec`
-(RG-LRU with its MLP) and `rwkv` (RWKV-6's time mix and its own channel
-mix, `models.ssm`). The JAX package
+A copy of the JAX package's `repro.models.transformer`, every layer kind:
+the dense attention kinds (`attn`, `attn_local`, `attn_global`), with the
+bf16 or int8 KV cache (`kv_cache_dtype`), the MoE kind `attn_moe`
+(attention, then `models.moe` in place of the MLP), DeepSeek-V3's MLA
+kinds `mla_dense` (MLA, then the MLP) and `mla_moe` (MLA, then the MoE
+layer with its shared expert), and the recurrent kinds `rec` (RG-LRU with
+its MLP) and `rwkv` (RWKV-6's time mix and its own channel mix,
+`models.ssm`). The JAX package
 stacks the repeated pattern on a leading axis and drives it with
 `lax.scan` (small HLO, flat compile time); PyTorch runs eagerly, so here
 the layout (prefix, pattern × repeats, suffix) is unrolled into an
@@ -25,19 +27,19 @@ either way (the serve loop feeds generated tokens' rows), as in JAX.
 The weights are trainable parameters; the serving steps run under
 `torch.no_grad()`.
 
-Caches: a full sequence returns each attention layer's (k, v) and each
-recurrent layer's final state ({"h", "conv"} or {"s", "x_tm", "x_cm"},
-f32), as JAX's prefill does; `init_cache` gives one dict per layer and a
-decode step writes every layer's new k/v or state into it in place.
+Caches: a full sequence returns each attention layer's (k, v), each MLA
+layer's latent (ckv [B, S, r], k_rope [B, S, rope]) and each recurrent
+layer's final state ({"h", "conv"} or {"s", "x_tm", "x_cm"}, f32), as
+JAX's prefill does; `init_cache` gives one dict per layer ({"ckv",
+"krope"} for MLA) and a decode step writes every layer's new k/v, latent
+or state into it in place.
 
 Remat as in JAX (`jax.checkpoint` around each block): when autograd
 records the forward and no cache is wanted, each block runs under
 `torch.utils.checkpoint` and only the layer-boundary activations (and
 each MoE layer's aux loss) are kept; the backward runs the block's
 forward again. `loss_fn` is JAX's next-token cross entropy plus 0.01 x
-the MoE layers' summed aux loss (decode discards aux, as JAX does). The
-MLA mixers wait for a later slice (ROADMAP A9) and raise
-`NotImplementedError`.
+the MoE layers' summed aux loss (decode discards aux, as JAX does).
 """
 from __future__ import annotations
 
@@ -49,18 +51,19 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import ssm
-from .attention import later
 from .layers import (apply_norm, dense_init, mlp_apply, mlp_init, norm_init,
                      sinusoidal_positions, softcap)
 from .moe import moe_apply, moe_init
 
 __all__ = ["LMParams", "init_block", "apply_block", "init_params",
            "layer_kinds", "forward_full", "forward_decode", "init_cache",
-           "loss_fn", "check_supported"]
+           "loss_fn", "KIND_MIXER"]
 
-# the layer kinds of the JAX package that later slices bring
-_LATER_KINDS = {"mla_dense": "MLA (kind 'mla_dense')",
-                "mla_moe": "MLA with MoE (kind 'mla_moe')"}
+KIND_MIXER = {
+    "attn": "attn", "attn_local": "attn", "attn_global": "attn",
+    "attn_moe": "attn", "mla_dense": "mla", "mla_moe": "mla",
+    "rwkv": "rwkv", "rec": "rec",
+}
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -72,15 +75,6 @@ def layer_kinds(cfg) -> List[str]:
     suffix."""
     pre, pat, reps, suf = cfg.layer_kinds()
     return list(pre) + list(pat) * reps + list(suf)
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for what the port does not serve yet."""
-    for kind in layer_kinds(cfg):
-        if kind in _LATER_KINDS:
-            raise later(_LATER_KINDS[kind])
-    if cfg.mla is not None:
-        raise later("MLA (cfg.mla)")
 
 
 def _weights(tensors: dict) -> nn.ParameterDict:
@@ -105,19 +99,20 @@ def _write(cache: dict, state: dict) -> dict:
 
 def init_block(cfg, kind: str, *, generator: torch.Generator,
                device=None) -> nn.ModuleDict:
-    if kind in _LATER_KINDS:
-        raise later(_LATER_KINDS[kind])
     dt = _dtype(cfg)
     d = cfg.d_model
     kw = dict(generator=generator, device=device)
+    mixer = KIND_MIXER[kind]
     p = nn.ModuleDict()
     p["ln1"] = _weights(norm_init(cfg.norm, d, dt, device))
-    if kind == "rwkv":
+    if mixer == "rwkv":
         p["mix"] = _weights(ssm.rwkv_init(cfg, dt, **kw))
         p["ln2"] = _weights(norm_init(cfg.norm, d, dt, device))
         return p                      # rwkv carries its own channel mix
-    if kind == "rec":
+    if mixer == "rec":
         p["mix"] = _weights(ssm.rglru_init(cfg, dt, **kw))
+    elif mixer == "mla":
+        p["mix"] = _weights(attn.mla_init(cfg, dt, **kw))
     else:
         p["mix"] = _weights(attn.attn_init(cfg, dt, **kw))
     p["ln2"] = _weights(norm_init(cfg.norm, d, dt, device))
@@ -134,14 +129,15 @@ def init_block(cfg, kind: str, *, generator: torch.Generator,
 def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
                 pos=None):
     """mode is implied: cache None => full-sequence; else one-token decode.
-    Returns (x, new_cache, aux): after a full sequence (k, v) or the
-    recurrent layer's final state; after a decode step the same cache
-    dict, its k/v or state written in place; aux the MoE layer's
-    load-balance loss (f32), None for the other kinds (JAX's 0, without a
-    device tensor a layer)."""
+    Returns (x, new_cache, aux): after a full sequence (k, v), MLA's
+    (ckv, k_rope) or the recurrent layer's final state; after a decode
+    step the same cache dict, its k/v, latent or state written in place;
+    aux the MoE layer's load-balance loss (f32), None for the other kinds
+    (JAX's 0, without a device tensor a layer)."""
     aux = None
+    mixer = KIND_MIXER[kind]
     h = apply_norm(cfg.norm, x, p["ln1"])
-    if kind == "rwkv":                # time mix + its own channel mix
+    if mixer == "rwkv":               # time mix + its own channel mix
         if cache is None:
             o, (x_tm, s_fin) = ssm.rwkv_time_mix(h, p["mix"], cfg)
             x = x + o
@@ -156,12 +152,17 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
                                         x_prev=cache["x_cm"].to(h2.dtype))
         st["x_cm"] = x_cm.float()
         return x + o2, _write(cache, st), aux
-    if kind == "rec":
+    if mixer == "rec":
         if cache is None:
             o, new_cache = ssm.rglru_apply(h, p["mix"], cfg)
         else:
             o, st = ssm.rglru_decode(h, p["mix"], cfg, cache)
             new_cache = _write(cache, st)
+    elif mixer == "mla":
+        if cache is None:
+            o, new_cache = attn.mla_apply(h, p["mix"], cfg, positions)
+        else:
+            o, new_cache = attn.mla_decode(h, p["mix"], cfg, cache, pos)
     elif cache is None:
         o, new_cache = attn.attn_apply(h, p["mix"], cfg, kind, positions)
     else:
@@ -189,7 +190,6 @@ class LMParams(nn.Module):
 
     def __init__(self, cfg, *, generator: torch.Generator, device=None):
         super().__init__()
-        check_supported(cfg)
         dt = _dtype(cfg)
         kw = dict(dtype=dt, generator=generator, device=device)
         self.embed = nn.Parameter(dense_init((cfg.vocab, cfg.d_model), **kw))
@@ -270,8 +270,9 @@ def _head(params, cfg, x):
 
 def forward_full(params, cfg, batch, *, want_cache=False, last_only=False):
     """Returns (logits [B,S,V] f32, caches, aux). `caches` (with
-    want_cache) is one (k, v) [B,S,K,hd] pair per attention layer and the
-    final state dict of each recurrent one; `aux` the MoE layers' summed
+    want_cache) is one (k, v) [B,S,K,hd] pair per attention layer, one
+    (ckv [B,S,r], k_rope [B,S,rope]) pair per MLA layer and the final
+    state dict of each recurrent one; `aux` the MoE layers' summed
     load-balance loss (f32, 0 without MoE). With `last_only` the head runs
     on the last position only (logits [B,1,V]: the same values, without
     the [B,S,V] tensor)."""
@@ -314,10 +315,13 @@ def forward_decode(params, cfg, cache, batch, pos: int):
 
 
 def _cache_for_kind(cfg, kind, B, T, dt, device):
-    if kind == "rwkv":
+    mixer = KIND_MIXER[kind]
+    if mixer == "rwkv":
         return ssm.rwkv_init_state(cfg, B, device)
-    if kind == "rec":
+    if mixer == "rec":
         return ssm.rglru_init_state(cfg, B, device)
+    if mixer == "mla":
+        return attn.init_mla_cache(cfg, B, T, dt, device)
     Tk = min(T, cfg.window) if kind == "attn_local" and cfg.window else T
     return attn.init_kv_cache(cfg, kind, B, Tk, dt, device)
 
@@ -325,10 +329,9 @@ def _cache_for_kind(cfg, kind, B, T, dt, device):
 def init_cache(cfg, B: int, T: int, device=None) -> list:
     """Decode cache sized for positions [0, T), one dict per layer: {"k",
     "v"} (+ "k_scale", "v_scale" with `kv_cache_dtype="int8"`) for
-    attention, local windows clamping storage; the constant-size f32
-    state for the recurrent kinds ({"h", "conv"} for `rec`, {"s", "x_tm",
-    "x_cm"} for `rwkv`)."""
-    check_supported(cfg)
+    attention, local windows clamping storage; the latent {"ckv",
+    "krope"} for MLA; the constant-size f32 state for the recurrent kinds
+    ({"h", "conv"} for `rec`, {"s", "x_tm", "x_cm"} for `rwkv`)."""
     dt = _dtype(cfg)
     return [_cache_for_kind(cfg, kind, B, T, dt, device)
             for kind in layer_kinds(cfg)]

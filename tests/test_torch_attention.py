@@ -25,7 +25,11 @@ f32. Bars:
     value under another blocking or summation order moves the output by at
     most 2^-8 of that weight times |v|, and the weights of a row sum to 1;
     the output's own rounding adds one bf16 ulp), and a mean |diff| of at
-    most 1e-4, which the f32-p plain version misses.
+    most 1e-4, which the f32-p plain version misses;
+  * the plain versions with v narrower than q and k (MLA's q/k width 192
+    over v width 128, and the smoke config's 24 over 16) against
+    `chunked_attention`: f32 at 2e-5, bf16 with `round_p` at the bar
+    above.
 The CUDA kernels themselves are held against the plain version on the
 card by `chip_smoke.py` (phase 9).
 """
@@ -56,7 +60,7 @@ ATTN_TOL = 1e-5
 LAYER_TOL = 1e-6
 ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b",
          "recurrentgemma-2b", "rwkv6-1.6b", "qwen2-vl-2b", "musicgen-large",
-         "dbrx-132b")
+         "dbrx-132b", "deepseek-v3-671b")
 
 
 def _normal(rng, *shape):
@@ -220,6 +224,41 @@ def test_plain_window_and_cap_match_jax_chunked_attention(D, window, cap):
     assert got.dtype == torch.bfloat16 and _bf16_bar_ok(got, want, tv)
 
 
+@pytest.mark.parametrize("D,Dv,H,K,S,chunk", [(24, 16, 4, 4, 96, 32),
+                                               (24, 16, 6, 2, 70, 35),
+                                               (192, 128, 2, 2, 160, 64)])
+def test_plain_narrow_v_matches_jax_chunked_attention(D, Dv, H, K, S, chunk):
+    """MLA's attention in the kernel's oracle: q/k width D over v width
+    Dv (the smoke config's 24 / 16 and the full config's 192 / 128; MLA
+    has one kv head a query head, GQA is taken too), scale 1/sqrt(D).
+    Both entries in f32 against the model's `chunked_attention` at 2e-5;
+    bf16 with `round_p` at the tensor-core bar."""
+    rng = np.random.default_rng(D + Dv + S)
+    B = 2
+    q, k = _normal(rng, B, S, H, D), _normal(rng, B, S, K, D)
+    v = _normal(rng, B, S, K, Dv)
+    want = jattn.chunked_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                   chunk=chunk)
+    got = flash_attention_bshd_plain(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert got.shape == (B, S, H, Dv)
+    _close(got, want, KERNEL_TOL)
+    if H == K:                        # the [BH, S, D] entry: one kv head each
+        def bh(a):
+            return torch.from_numpy(a).permute(0, 2, 1, 3).reshape(
+                B * H, S, a.shape[-1])
+        got = flash_attention(bh(q), bh(k), bh(v))
+        assert got.shape == (B * H, S, Dv)
+        _close(got.reshape(B, H, S, Dv).permute(0, 2, 1, 3), want,
+               KERNEL_TOL)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention_bshd_plain(tq, tk, tv, round_p=True)
+    want = jattn.chunked_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (tq, tk, tv)), chunk=chunk)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    assert got.dtype == torch.bfloat16 and _bf16_bar_ok(got, want, tv)
+
+
 def test_flash_attention_entries_take_window_and_cap():
     """The [BH, S, D] entry and the model-layout one pass the window and
     the cap to the plain version on the CPU; the heads of one kv head
@@ -238,19 +277,26 @@ def test_flash_attention_fn_refuses_what_the_backward_lacks():
     """FlashAttentionFn differentiates the window, the soft-cap and head
     width 256 (gemma2's layers): on CPU tensors its output, with and
     without a gradient, is the plain forward's exactly, and its backward
-    gives autograd's gradients through the plain forward. What
-    it still refuses is a device without a kernel: on `meta`, with a
-    gradient and with the window, the cap or width 256, the call reaches
-    the kernel's device check and raises before any launch, as does the
-    backward itself."""
+    gives autograd's gradients through the plain forward.
+    The same on the CPU at MLA's q/k width 192 over v width 128, where the
+    plain backward takes the narrower v. What it still refuses is a device
+    without a kernel: on `meta`, with a gradient and with the window, the
+    cap or width 256, the call reaches the kernel's device check and
+    raises before any launch, as does the backward itself; and off the
+    CPU the backward at 192 / 128 (MLA's training, ROADMAP A9): a
+    gradient there raises NotImplementedError naming A9 before any
+    launch, in the Function's forward and in the backward, while the
+    forward without a gradient reaches the device check."""
     assert tflash.HEAD_DIMS == (16, 32, 64, 128, 256)
+    assert tflash.V_PAIRS == ((192, 128),)
     assert not hasattr(tflash, "BWD_HEAD_DIMS")
     rng = np.random.default_rng(22)
-    for D, window, cap in ((16, 8, None), (16, None, 5.0), (16, 8, 5.0),
-                           (256, 8, 5.0)):
-        q, k, v = (torch.from_numpy(_normal(rng, 1, 40, h, D) * 3)
-                   .requires_grad_() for h in (2, 1, 1))
-        do = torch.from_numpy(_normal(rng, 1, 40, 2, D))
+    for D, Dv, window, cap in ((16, 16, 8, None), (16, 16, None, 5.0),
+                               (16, 16, 8, 5.0), (256, 256, 8, 5.0),
+                               (192, 128, None, None)):
+        q, k, v = (torch.from_numpy(_normal(rng, 1, 40, h, d) * 3)
+                   .requires_grad_() for h, d in ((2, D), (1, D), (1, Dv)))
+        do = torch.from_numpy(_normal(rng, 1, 40, 2, Dv))
         out = tflash.FlashAttentionFn.apply(q, k, v, True, window, cap)
         ref = flash_attention_bshd_plain(q, k, v, window=window, cap=cap)
         _close(out.detach(), ref.detach(), 0.0)
@@ -273,6 +319,18 @@ def test_flash_attention_fn_refuses_what_the_backward_lacks():
             tflash.flash_attention_bwd(m, m, m, m, lse, m, window=8, cap=5.0)
         assert (flash_attention.launches,
                 tflash.flash_attention_bwd.launches) == before
+    mq = torch.empty(1, 8, 2, 192, device="meta", requires_grad=True)
+    mv = torch.empty(1, 8, 2, 128, device="meta", requires_grad=True)
+    before = (flash_attention.launches, tflash.flash_attention_bwd.launches)
+    with pytest.raises(NotImplementedError, match="MLA training.*A9"):
+        tflash.FlashAttentionFn.apply(mq, mq, mv, True)
+    with pytest.raises(NotImplementedError, match="MLA training.*A9"):
+        tflash.flash_attention_bwd(mq, mq, mv, mv, lse, mv)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tflash.FlashAttentionFn.apply(mq.detach(), mq.detach(), mv.detach(),
+                                      True)
+    assert (flash_attention.launches,
+            tflash.flash_attention_bwd.launches) == before
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -296,6 +354,17 @@ def test_tensor_core_path_is_bf16_at_64_and_128(dtype, D):
     the narrow widths on the scalar kernel."""
     assert tensor_core_path(dtype, D) == (dtype == torch.bfloat16
                                           and D in (64, 128, 256))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tensor_core_path_takes_the_mla_pair(dtype):
+    """bf16 at q/k width 192 over v width 128 (MLA's) runs on the tensor
+    cores, f32 on the scalar kernel; no other pair of widths is taken, and
+    192 is no width of its own."""
+    assert tensor_core_path(dtype, 192, 128) == (dtype == torch.bfloat16)
+    assert tensor_core_path(dtype, 128, 128) == (dtype == torch.bfloat16)
+    for D, Dv in ((192, 192), (256, 128), (192, 64), (128, 64)):
+        assert not tensor_core_path(dtype, D, Dv)
 
 
 def test_tma_operands_are_aligned_or_copied():

@@ -235,7 +235,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "optim/adafactor.py", "optim/compress.py",
                 "launch/train.py", "models/moe.py", "models/layers.py",
                 "configs/qwen2_vl_2b.py", "configs/musicgen_large.py",
-                "configs/dbrx_132b.py"):
+                "configs/dbrx_132b.py", "configs/deepseek_v3_671b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         bad = {m for m in _imported_roots(f) if m in ("jax", "jaxlib",

@@ -4,8 +4,11 @@ qwen2-1.5b, smollm-360m, qwen3-4b, gemma2-9b (local and global layers,
 soft-caps, sandwich norms), recurrentgemma-2b (RG-LRU and local
 attention, a suffix after the pattern), rwkv6-1.6b (RWKV-6), qwen2-vl-2b
 (M-RoPE; embedding inputs), musicgen-large (embedding inputs, sinusoidal
-positions, layernorm, GELU) and dbrx-132b (MoE), with the bf16 and the
-int8 KV cache and the recurrent layers' f32 states.
+positions, layernorm, GELU), dbrx-132b (MoE) and deepseek-v3-671b (MLA:
+three `mla_dense` layers, then `mla_moe` with its sigmoid router and
+shared expert; the prefill decompresses k and v, decode is the
+absorbed-matrix form over the latent cache), with the bf16 and the int8
+KV cache, MLA's latent cache and the recurrent layers' f32 states.
 
 The JAX package's weights (`repro.models.LMModel(cfg).init_params(
 jax.random.key(k))`) are carried into the port by `params_from_jax`, and
@@ -16,8 +19,9 @@ prefill-against-decode checks keep them). Bars: logits and
 caches within 1e-5 (the prefill's attention is `chunked_attention` on the
 CPU; the CUDA kernel is held against its plain version on the card by
 `chip_smoke.py`); greedy tokens exactly equal. Also the guards: what the
-port does not serve yet raises NotImplementedError naming ROADMAP A9, and
-nothing is put on the CPU unless asked.
+port does not run yet (MLA's training off the CPU) raises
+NotImplementedError naming ROADMAP A9, and nothing is put on the CPU
+unless asked.
 """
 import dataclasses
 
@@ -47,7 +51,7 @@ from test_torch_attention import grid_positions  # noqa: E402
 TOL = 1e-5
 ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b",
          "recurrentgemma-2b", "rwkv6-1.6b", "qwen2-vl-2b", "musicgen-large",
-         "dbrx-132b")
+         "dbrx-132b", "deepseek-v3-671b")
 CPU = dict(device="cpu")
 
 
@@ -138,11 +142,15 @@ STATES = {"h", "conv", "s", "x_tm", "x_cm"}
 
 
 def _cache_close(got, want):
-    """One layer's cache: (k, v) or a dict of k/v or recurrent state."""
+    """One layer's cache: a full sequence's (k, v) or MLA's (ckv, k_rope),
+    or a decode cache's dict of k/v, MLA's ckv/krope or recurrent state
+    (a tuple is named after the dict it is held against)."""
+    names = next((list(c) for c in (want, got) if isinstance(c, dict)),
+                 ["k", "v"])
     if isinstance(want, tuple):
-        want = dict(zip("kv", want))
+        want = dict(zip(names, want))
     if isinstance(got, tuple):
-        got = dict(zip("kv", got))
+        got = dict(zip(names, got))
     assert set(got) == set(want)
     for n in want:
         if n in STATES:
@@ -325,7 +333,8 @@ def test_models_with_one_seed_are_equal_and_other_seeds_differ():
                                        ("rwkv6-1.6b", 10),
                                        ("qwen2-vl-2b", 11),
                                        ("musicgen-large", 12),
-                                       ("dbrx-132b", 13)])
+                                       ("dbrx-132b", 13),
+                                       ("deepseek-v3-671b", 14)])
 def test_serve_tokens_equal_jax(name, seed):
     """repro.launch.serve draws its weights from jax.random.key(seed); the
     port's loop, given those weights and the same prompts (embeddings for
@@ -394,30 +403,89 @@ def test_serve_is_deterministic_and_in_vocab():
 
 # -- guards --------------------------------------------------------------------
 
+def _leaves(tree, prefix=""):
+    """A nested dict of arrays -> {"a.b": array} (state-dict keys)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _mla_on_meta(cfg, grad: bool):
+    """An MLA layer's full-sequence pass on `meta` (no kernel there), its
+    weights wanting a gradient or not."""
+    p = {k: v.to("meta").requires_grad_(grad) for k, v in
+         ttfm.init_block(cfg, "mla_dense", generator=torch.Generator(),
+                         device="meta")["mix"].items()}
+    x = torch.empty(1, 8, cfg.d_model, device="meta")
+    pos = torch.zeros(1, 8, dtype=torch.int64, device="meta")
+    return tattn.mla_apply(x, p, cfg, pos)
+
+
 @pytest.mark.parametrize("name,what", [("deepseek-v3-671b", "MLA")])
 def test_unported_families_raise(name, what):
+    """Every family is served now; what still raises naming A9 is MLA's
+    training off the CPU, whose backward kernel at q/k width 192 over v
+    width 128 a later slice brings. deepseek-v3-671b's model and caches
+    build (the full config's 61 layers on `meta`); on `meta` an MLA layer
+    that wants a gradient raises NotImplementedError naming A9 in
+    FlashAttentionFn's forward, before any launch, at the full config's
+    widths and at the smoke config's; without a gradient it reaches the
+    kernel's device check."""
     cfg = _port_cfg(jconfigs.smoke_config(jconfigs.get_config(name)))
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A9"):
-        LMModel(cfg, **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ttfm.init_cache(cfg, 1, 4, **CPU)
+    full = tconfigs.get_config(name)
+    LMModel(cfg, **CPU)
+    assert len(ttfm.init_cache(cfg, 1, 4, **CPU)) == cfg.n_layers
+    params = ttfm.init_params(full, generator=torch.Generator(),
+                              device="meta")
+    assert len(params.blocks) == 61 and params.kinds[:4] == (
+        "mla_dense",) * 3 + ("mla_moe",)
+    assert params.blocks[3]["ffn"]["wg"].shape == (256, 7168, 2048)
+    before = (tflash.flash_attention.launches,
+              tflash.flash_attention_bwd.launches)
+    for c in (full, cfg):
+        with pytest.raises(NotImplementedError,
+                           match=f"{what} training.*ROADMAP A9"):
+            _mla_on_meta(c, True)
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            _mla_on_meta(c, False)
+    assert (tflash.flash_attention.launches,
+            tflash.flash_attention_bwd.launches) == before
 
 
 def test_unported_options_raise():
-    """MLA and its layer kinds raise naming A9. The int8 KV cache
-    is ported: its model builds and its caches have JAX's layout (codes
-    int8, scales f32 [B, T, K, 1]; local layers clamped to the window)."""
+    """The int8 KV cache is ported: its model builds and its caches have
+    JAX's layout (codes int8, scales f32 [B, T, K, 1]; local layers
+    clamped to the window). MLA and its layer kinds are ported too: MLA's
+    latent cache has JAX's layout ({"ckv" [B, T, r], "krope" [B, T,
+    rope]}), and `init_block` gives each MLA kind JAX's leaves; what still
+    refuses is `flash_attention_bwd` off the CPU at q/k width 192 over v
+    width 128 (NotImplementedError naming A9, before any launch)."""
     tcfg, jcfg = _cfgs("gemma2-9b", kv_cache_dtype="int8")
     LMModel(tcfg, **CPU)
     _layouts_equal(tcfg, jcfg, 2, 40)
     assert ttfm.init_cache(tcfg, 2, 40, **CPU)[0]["k"].shape[1] == tcfg.window
-    mla = _port_cfg(jconfigs.smoke_config(
-        jconfigs.get_config("deepseek-v3-671b")))
-    with pytest.raises(NotImplementedError, match="MLA.*A9"):
-        tattn.attn_init(mla, torch.float32, generator=torch.Generator())
-    for kind in ("mla_dense", "mla_moe"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            ttfm.init_block(tcfg, kind, generator=torch.Generator())
+    mcfg, mjcfg = _cfgs("deepseek-v3-671b")
+    assert {n for c in _layouts_equal(mcfg, mjcfg, 2, 40) for n in c} == \
+        {"ckv", "krope"}
+    jp = jax.tree.map(np.asarray,
+                      JLMModel(mjcfg).init_params(jax.random.key(0)))
+    for kind, jblock in (("mla_dense", jp["prefix"][0]),
+                         ("mla_moe", jax.tree.map(lambda a: a[0],
+                                                  jp["pattern"][0]))):
+        block = ttfm.init_block(mcfg, kind, generator=torch.Generator())
+        assert {k: tuple(v.shape) for k, v in block.state_dict().items()} \
+            == {k: v.shape for k, v in _leaves(jblock).items()}
+    m = torch.empty(1, 8, 2, 192, device="meta")
+    mv = torch.empty(1, 8, 2, 128, device="meta")
+    lse = torch.empty(1, 2, 8, device="meta")
+    before = tflash.flash_attention_bwd.launches
+    with pytest.raises(NotImplementedError, match="MLA training.*A9"):
+        tflash.flash_attention_bwd(m, m, mv, mv, lse, mv)
+    assert tflash.flash_attention_bwd.launches == before
 
 
 def _layouts_equal(tcfg, jcfg, B, T):

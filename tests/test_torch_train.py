@@ -22,7 +22,10 @@
   distinct grid position streams; embedding inputs, whose unread `embed`
   leaf gets JAX's zero gradient), musicgen-large (embedding inputs) and
   dbrx-132b (MoE, its aux loss in the loss at 0.01x; Adafactor with bf16
-  gradient accumulation; the JAX weights carried over), f32: loss, aux
+  gradient accumulation; the JAX weights carried over) and
+  deepseek-v3-671b (MLA, autograd through `chunked_attention` on the CPU;
+  three dense layers, then MoE with the sigmoid router and a shared
+  expert; Adafactor as dbrx's), f32: loss, aux
   and grad_norm within 1e-5 relative; every gradient
   leaf within 1e-5 of its max |value| (sums in another order); after
   the step m within 1e-5 and v within 2e-5 of their leaves' max (v is
@@ -77,7 +80,7 @@ from test_torch_attention import grid_positions  # noqa: E402
 CPU = dict(device="cpu")
 ARCHS = ("qwen2-1.5b", "smollm-360m", "qwen3-4b", "gemma2-9b",
          "recurrentgemma-2b", "rwkv6-1.6b", "qwen2-vl-2b", "musicgen-large",
-         "dbrx-132b")
+         "dbrx-132b", "deepseek-v3-671b")
 TOL = 1e-5
 LR, EPS = 3e-4, 1e-8            # adamw_update's defaults in both packages
 
