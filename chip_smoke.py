@@ -52,7 +52,7 @@ Phases (any failure exits non-zero; nothing is caught):
      trace's final L-inf <= tau; over phases 5-6, one fused_ell_update
      call (the sweep kernel and its fold) per fused sweep and one ell_pull
      launch (every bucket) per staged sweep;
-  6. three chained DF-P batches (random_batch, frac=1e-4, 80% inserts)
+  6. two chained DF-P batches (random_batch, frac=1e-4, 80% inserts)
      through the fused kernels, dense and with frontier_caps, on the
      staged sweep (dense, pull_sum_fn=pull_sum_kernels), and on the plain
      path: each within L1 1e-8 of the plain path; L1 against a
@@ -157,7 +157,7 @@ Phases (any failure exits non-zero; nothing is caught):
      vertices, at phase 4's bars; (10b) a one-rank NCCL mesh: a
      StreamSession(mesh=, trace=True) at STREAM_PARAMS builds its
      ShardedSnapshot, then distributed_static_pagerank (default params,
-     health=True) and phase 6's three batches applied to the snapshot,
+     health=True) and phase 6's batches applied to the snapshot,
      each solved by distributed_dfp_pagerank dense and with frontier caps,
      every solve within L1 1e-8 of the single-device fused engine on the
      same layout and inputs, health 0, ms beside ms; (10c) the same
@@ -345,7 +345,8 @@ Phases (any failure exits non-zero; nothing is caught):
      cannot move and `embed` under embedding inputs (the loss reads no
      `embed`), the steps' times and tokens/s, the peak memory and one more
      step's device-busy share;
-  16. MLA and deepseek-v3-671b serving (after 15): (16a) flash_attention
+  16. MLA and deepseek-v3-671b serving and training (after 15): (16a)
+     flash_attention
      at MLA's q/k width 192 over v width 128, bf16 on the tensor cores
      (launches_tc counted), causal, B 2, 128 heads over 128, S = T = 8192,
      against the plain version (round_p) at 9's bars, bit for bit on
@@ -365,7 +366,22 @@ Phases (any failure exits non-zero; nothing is caught):
      0 just before: exactly 5 flash_attention, all on the tensor cores,
      nothing else), its time and peak memory, a second prefill_step bit
      for bit the first with each MoE layer's dropped assignments counted,
-     decode_step at 8192, B 4, serve (4, 64 + 32).
+     decode_step at 8192, B 4, serve (4, 64 + 32); (16d)
+     flash_attention_bwd at 192 / 128 against its plain version (round_p,
+     one kv head at a time) at 11a's bars: bf16 on the tensor cores at one
+     training layer's shape (B 1, 128 heads over 128, S = T = 8192) and at
+     a ragged 1000, bit for bit on repeat, the f32 scalar kernels at B 1,
+     4 heads, 1024; FlashAttentionFn against autograd (f32); the big shape
+     timed beside its bound (2 B H pairs (3 x 192 + 2 x 128) FLOPs),
+     its plain version and SDPA's backward; (16e) one f32 mla_dense layer
+     at full width on 2 x 512: loss and every gradient on the card (one
+     flash_attention_bwd, on the scalar kernels) against the CPU within
+     1e-5; (16f) train() of deepseek-v3-671b in bf16 at full width cut to
+     MLA_TRAIN's 3 mla_dense layers on 1 x 8192, Adafactor, bf16 gradient
+     sums, 3 steps (launch counts set to 0 just before: 6 flash_attention
+     and 3 flash_attention_bwd a step, all on the tensor cores), finite
+     losses, every leaf moved, the steps' times, tokens/s, peak memory and
+     one more step's device-busy share.
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -417,7 +433,9 @@ def parse_args(argv=None):
     p.add_argument("--d-p", type=int, default=64)
     p.add_argument("--tile", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--batches", type=int, default=3)
+    # 2 chained DF-P batches: each costs ~20 s of host rebuild at the full
+    # graph, against the script's time limit
+    p.add_argument("--batches", type=int, default=2)
     p.add_argument("--frac", type=float, default=1e-4)
     p.add_argument("--repeats", type=int, default=20)
     p.add_argument("--out", default=None, help="write the full report here")
@@ -1489,7 +1507,7 @@ def sharded_phase(args, g, dev, report, batches, errs) -> dict:
     """Phase 10: the sharded engines. 10a holds the per-shard pull of a
     4-way split of the full-size graph on the kernels against its plain
     version; 10b runs the 1-D engines at world size 1 over NCCL on the
-    full-size graph (static, then phase 6's three batches dense and with
+    full-size graph (static, then phase 6's batches dense and with
     frontier caps, on a ShardedSnapshot) against the single-device fused
     engine on the same layout; 10c runs a mesh StreamSession there; 10d
     spawns four gloo ranks on the card. Returns the launch counts of the
@@ -3303,19 +3321,22 @@ def plain_bwd_by_kv_head(q, k, v, o, lse, do, **kw):
 def time_attn_bwd(args, dev, flex, q, k, v, o, lse, do, window, cap,
                   lib_name=FLEX):
     """flash_attention_bwd at one bf16 shape: 10 calls back to back and
-    one a sample, beside its bound (2.5x the forward's allowed-pair
-    FLOPs), its plain version (round_p, one kv head at a time) and the
-    library's one call: the backward of compiled flex_attention, held to
-    the kernel's bars against the plain version (a failure to compile is
-    recorded, not raised)."""
+    one a sample, beside its bound (the five products over the allowed
+    pairs, 2 pairs (3 D + 2 Dv) FLOPs a head: 2.5x the forward's at
+    Dv = D), its plain version (round_p, one kv head at a time) and the
+    library's one call (`flex`: the backward of compiled flex_attention,
+    or of `mla_sdpa`'s call), held to the kernel's bars against the plain
+    version (a failure is recorded, not raised)."""
     from repro_torch.kernels.flash_attn import flash_attention_bwd
 
     B, S, H, D = q.shape
-    K = k.shape[2]
+    K, Dv = k.shape[2], v.shape[3]
     kw = dict(window=window, cap=cap)
     pairs = allowed_pairs(S, window)
-    flops = 2.5 * 4 * B * H * pairs * D
-    nbytes = 2 * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S
+    flops = 2 * B * H * pairs * (3 * D + 2 * Dv)
+    # q, dq, k, dk at D; o, do, v, dv at Dv; lse
+    nbytes = (2 * (2 * B * S * H * (D + Dv) + 2 * B * S * K * (D + Dv))
+              + 4 * B * H * S)
 
     def kern():
         return flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -5037,8 +5058,8 @@ def family_phase(args, dev, report):
 # -- phase 16: MLA and deepseek-v3-671b serving --------------------------------
 MLA_ARCH = "deepseek-v3-671b"
 MLA_ATTN = (2, 8192)                # 16a: the prefill's B, S = T
-MLA_F32_ATTN = (1, 4, 1024)         # 16a: the f32 scalar kernel's B, H, S
-MLA_RAGGED = (1, 4, 1000)           # 16a: bf16 tails on the tensor cores
+MLA_F32_ATTN = (1, 4, 1024)         # 16a, 16d: the f32 scalar kernels' B, H, S
+MLA_RAGGED = (1, 4, 1000)           # 16a, 16d: bf16 tails on the tensor cores
 MLA_F32_PROMPT = 128                # 16b: prefill against stepped decode
 # 16c: deepseek-v3-671b cut to 5 of its 61 layers to fit the card: its 3
 # dense layers (1.17 GB of bf16 MLA and MLP weights each) and 2 MoE layers
@@ -5192,21 +5213,224 @@ def deepseek_serve_checks(args, dev, report):
         report.setdefault("mla", {}).setdefault(MLA_ARCH, {}))
 
 
+# 16d-16f: MLA training. 16d's bf16 big shape is one training layer's
+# attention (B 1 at 8192, as gemma2's 13a); 16e's f32 witness one dense
+# layer at full width on 2 x 512
+MLA_BWD = (1, 8192)                 # 16d: B, S = T of the big shape
+MLA_PARITY = (2, 512)               # 16e: B, S
+# 16f: deepseek-v3-671b trained at full width cut to its 3 mla_dense
+# layers on 1 x 8192. One mla_moe layer holds 11.27 B expert weights:
+# 22.5 GB in bf16, 22.5 GB of bf16 gradients and Adafactor's f32
+# temporaries of a [256, 7168, 2048] leaf (15 GB each); with the dense
+# part (3.6 B parameters, 14.4 GB of weights and gradients) and the
+# 129,280-word head's f32 [8192, 129280] tensors (4.2 GB each) that is
+# past the card's 79 GiB. The MoE layers' training is held against JAX on
+# the CPU (tests/test_torch_train.py).
+MLA_TRAIN = (1, 8192, 3)            # 16f: B, S, layers
+
+
+def mla_bwd_checks(args, dev, report):
+    """16d: flash_attention_bwd at MLA's widths (q/k 192, v 128), causal,
+    against flash_attention_bwd_plain (one kv head at a time) on the
+    forward kernel's o and lse, at 11a's bars: f32 (B 1, 4 heads, 1024) on
+    the scalar kernels, bf16 at a ragged 1000 and at one training layer's
+    shape (B 1, 128 heads over 128, 8192) on the tensor cores, two runs bit
+    for bit, launches_tc exactly the bf16 calls; FlashAttentionFn against
+    autograd through the plain forward (f32); then the big shape's times
+    beside its bound, its plain version and SDPA's backward (`mla_sdpa`).
+    Returns the worst error and the times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (FlashAttentionFn,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain,
+                                                flash_attention_bwd,
+                                                tensor_core_path)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MLA_ARCH)
+    m = cfg.mla
+    Dqk, Dv, H = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim, cfg.n_heads
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 161)
+    rep = dict(checks=[])
+
+    def operands(B, h, S, dtype):
+        q, k, v, do = (torch.randn(B, S, h, d, generator=gen, device=dev)
+                       .to(dtype) for d in (Dqk, Dqk, Dv, Dv))
+        o, lse = flash_attention_bshd(q, k, v, return_lse=True)
+        return q, k, v, o, lse, do
+
+    B, S = MLA_BWD
+    cases = [("f32", *MLA_F32_ATTN, f32), ("bf16 ragged", *MLA_RAGGED, bf),
+             ("bf16", B, H, S, bf)]
+    err = 0.0
+    tc0 = flash_attention_bwd.launches_tc
+    for name, b, h, s, dtype in cases:
+        q, k, v, o, lse, do = operands(b, h, s, dtype)
+        tc = tensor_core_path(dtype, Dqk, Dv)
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        again = flash_attention_bwd(q, k, v, o, lse, do)
+        want = plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=tc)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        shape = (f"{MLA_ARCH}: {name}, B {b}, H {h} over {h}, Dqk {Dqk}, "
+                 f"Dv {Dv}, S = T = {s}, causal")
+        errs = {}
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            require(g.shape == w.shape and g.dtype == dtype,
+                    f"16d: {shape} {gname}: shape {tuple(g.shape)} or "
+                    f"dtype {g.dtype}")
+            e, rel, ok = bwd_err(g, w)
+            errs[gname] = (e, rel)
+            err = max(err, e)
+            require(ok, f"16d: {shape} {gname}: max |diff| {e} ({rel:.3e} "
+                        f"of max |want|)")
+        require(same, f"16d: {shape}: two runs differ")
+        rep["checks"].append(dict(case=shape, tensor_cores=tc, errs=errs,
+                                  bit_identical=same))
+        log(f"[mla-train] flash_attention_bwd {shape} "
+            f"({'tensor-core' if tc else 'scalar'} kernels): " + ", ".join(
+                f"{g} {e:.3e} ({r:.2e} of max)" for g, (e, r) in errs.items())
+            + f"; repeat bit-identical {same}")
+        del got, again, want
+    # (the last case's operands, the big shape's, stay for its times)
+    n_tc = flash_attention_bwd.launches_tc - tc0
+    want_tc = 2 * sum(c[-1] == bf for c in cases)
+    require(n_tc == want_tc, f"16d: {n_tc} tensor-core backward calls, "
+                             f"want {want_tc}")
+    # the autograd Function against autograd through the plain forward, f32
+    # (the scalar kernels at 192 / 128)
+    qkv = [torch.randn(2, 256, 4, d, generator=gen, device=dev)
+           .requires_grad_() for d in (Dqk, Dqk, Dv)]
+    dout = torch.randn(2, 256, 4, Dv, generator=gen, device=dev)
+    fn = torch.autograd.grad(FlashAttentionFn.apply(*qkv, True), qkv, dout)
+    ref = torch.autograd.grad(flash_attention_bshd_plain(*qkv), qkv, dout)
+    for gname, g, w in zip(("dq", "dk", "dv"), fn, ref):
+        e, rel, ok = bwd_err(g, w)
+        log(f"[mla-train] FlashAttentionFn {gname} (f32, 2 x 256, 4 heads, "
+            f"Dqk {Dqk}, Dv {Dv}) against autograd through the plain "
+            f"forward: {e:.3e} ({rel:.2e} of max)")
+        require(ok, f"16d: FlashAttentionFn {gname} vs autograd: {e}")
+    del qkv, dout, fn, ref
+    # times at one training layer's shape; SDPA's backward as the yardstick
+    lib, lib_name = mla_sdpa(*(x.transpose(1, 2) for x in (q, k, v)))
+    t = time_attn_bwd(args, dev, lib, q, k, v, o, lse, do, None, None,
+                      lib_name)
+    log_attn_bwd_time(f"bf16 B {B} ({MLA_ARCH}: H {H} over {H}, Dqk {Dqk}, "
+                      f"Dv {Dv}, S = T = {S}, causal)", t)
+    rep.update(max_abs_err=err, times=t)
+    report.setdefault("mla", {})["attn_bwd"] = rep
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return err, t
+
+
+def mla_train_parity(args, dev, report):
+    """16e: deepseek-v3-671b at full width, one mla_dense layer, f32, on
+    MLA_PARITY: loss and every gradient leaf on the card (the scalar
+    kernels at 192 / 128, exactly one flash_attention_bwd) against the CPU
+    (chunked_attention under autograd) from the same seed's weights,
+    within TOL_TRAIN. A parity check, not the path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import flash_attention_bwd
+    from repro_torch.models import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S = MLA_PARITY
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=1,
+                              prefix=("mla_dense",), repeats=0,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    card = LMModel(cfg, device=dev, seed=args.seed)
+    # the CPU's copy: the same seed's weights drawn on the card and moved
+    cpu = LMModel(cfg, device=dev, seed=args.seed).to("cpu")
+    cpu.device = torch.device("cpu")
+    batch = batch_for(cfg, B, S, 0, args.seed)
+
+    def loss_grads(mdl):
+        loss, _ = mdl.loss(batch)
+        w = dict(mdl.params.named_parameters())
+        g = torch.autograd.grad(loss, list(w.values()))
+        return float(loss.detach()), {k: x.detach().cpu()
+                                      for k, x in zip(w, g)}
+
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(
+        card.params.parameters(), cpu.params.parameters())),
+        "16e: the CPU's copy of the weights differs from the card's")
+    n0, tc0 = flash_attention_bwd.launches, flash_attention_bwd.launches_tc
+    (lc, gc), (lg, gg) = loss_grads(cpu), loss_grads(card)
+    require(flash_attention_bwd.launches - n0 == 1
+            and flash_attention_bwd.launches_tc == tc0,
+            f"16e: the card's backward ran flash_attention_bwd "
+            f"{flash_attention_bwd.launches - n0} times, "
+            f"{flash_attention_bwd.launches_tc - tc0} on the tensor cores "
+            f"(want once, on the scalar kernels)")
+    rep = dict(loss_rel=abs(lg - lc) / abs(lc),
+               n_params=sum(p.numel() for p in card.params.parameters()))
+    require(rep["loss_rel"] <= TOL_TRAIN, f"16e loss {lg} vs {lc}")
+    rep["grad_worst"] = _leaf_err(gg, gc, TOL_TRAIN)
+    rep.update(s=time.perf_counter() - t0, host_rss_gib=rss_gib())
+    log(f"[mla-train] 16e {MLA_ARCH} full width, 1 mla_dense layer "
+        f"({rep['n_params'] / 1e9:.3f} B parameters), f32, {B} x {S}, card "
+        f"(scalar kernels at 192 / 128) vs CPU (chunked_attention): loss "
+        f"{lg:.6f}, {rep['loss_rel']:.2e} relative; worst gradient leaf "
+        f"{rep['grad_worst'][1]} {rep['grad_worst'][0]:.2e} of its max (bar "
+        f"{TOL_TRAIN}); host RSS {rep['host_rss_gib']:.1f} GiB "
+        f"({rep['s']:.1f} s)")
+    report.setdefault("mla", {})["parity"] = rep
+    del cpu, card, gg, gc
+    torch.cuda.empty_cache()
+
+
+def deepseek_train_run(args, dev, report):
+    """16f: `train_run` of deepseek-v3-671b in bf16 at full width cut to
+    its 3 mla_dense layers (MLA_TRAIN), with its own optimizer (Adafactor)
+    and bf16 gradient sums: two flash_attention and one
+    flash_attention_bwd a layer a step at 192 / 128, all on the tensor
+    cores. Returns the path's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    B, S, L = MLA_TRAIN
+    cfg = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=L, repeats=L - len(cfg.prefix))
+    require(cfg.optimizer == "adafactor"
+            and cfg.grad_accum_dtype == "bfloat16"
+            and set(cfg.layer_kinds()[0]) == {"mla_dense"},
+            f"16f: {MLA_ARCH} cut to {cfg.layer_kinds()}, optimizer "
+            f"{cfg.optimizer}, gradient sums {cfg.grad_accum_dtype}")
+    rep, launches = train_run(args, dev, cfg, B, S)
+    report.setdefault("mla", {})["train"] = rep
+    return launches
+
+
 def mla_phase(args, dev, report):
-    """Phase 16: MLA and deepseek-v3-671b serving. 16a flash_attention at
-    q/k width 192 over v width 128, 16b the f32 witness at full width (one
-    dense and one MoE layer), 16c deepseek-v3-671b served at 5 layers.
-    Returns the main path's flash_attention launches (16c's prefill), the
-    kernel's worst error and the big shape's times."""
+    """Phase 16: MLA and deepseek-v3-671b serving and training. 16a
+    flash_attention at q/k width 192 over v width 128, 16b the f32 witness
+    at full width (one dense and one MoE layer), 16c deepseek-v3-671b
+    served at 5 layers; 16d flash_attention_bwd at 192 / 128, 16e one f32
+    dense layer's gradients on the card against the CPU, 16f
+    deepseek-v3-671b trained at full width on its 3 dense layers. Returns
+    the main path's launches (16c's prefill and 16f's training), the
+    kernels' worst errors and the big shapes' times."""
     t_phase = time.perf_counter()
     err, times = mla_attn_checks(args, dev, report)
     mla_witness(args, dev, report)
-    n = deepseek_serve_checks(args, dev, report)
+    launches = dict(flash_attention=deepseek_serve_checks(args, dev, report),
+                    flash_attention_bwd=0)
+    err_b, times_b = mla_bwd_checks(args, dev, report)
+    mla_train_parity(args, dev, report)
+    trained = deepseek_train_run(args, dev, report)
+    for k in launches:
+        launches[k] += trained[k]
     s = time.perf_counter() - t_phase
     report.setdefault("mla", {})["phase_s"] = s
-    log(f"[mla] phase 16 {s:.1f} s; its main path's flash_attention "
-        f"launches {n}")
-    return dict(launches=n, max_abs_err=err, times=times)
+    log(f"[mla] phase 16 {s:.1f} s; its main path's launches {launches}")
+    return dict(launches=launches, max_abs_err=err, max_abs_err_bwd=err_b,
+                times=times, times_bwd=times_b)
 
 
 def main(argv=None) -> int:
@@ -5460,7 +5684,7 @@ def main(argv=None) -> int:
         trace_linf=summ["linf_delta"])
     del r_w, r_tr, tb
 
-    # -- 6. three chained DF-P batches ---------------------------------------
+    # -- 6. chained DF-P batches --------------------------------------------
     # the three kernel chains, each from its own previous ranks
     chains = {"dense": r_k, "caps": r_k, "staged": r_st}
     rp = r_p
@@ -5874,10 +6098,13 @@ def main(argv=None) -> int:
         launches[name] += fm["launches"][name]
     torch.cuda.empty_cache()
 
-    # -- 16. MLA and deepseek-v3-671b serving ----------------------------------
+    # -- 16. MLA and deepseek-v3-671b serving and training --------------------
     ml = mla_phase(args, dev, report)
     errs["flash_attention"] = max(errs["flash_attention"], ml["max_abs_err"])
-    launches["flash_attention"] += ml["launches"]
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
+                                      ml["max_abs_err_bwd"])
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += ml["launches"][name]
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",

@@ -1,7 +1,9 @@
 """Time flash_attention_bwd from two source trees on one card, interleaved.
 
-At chip_smoke.py 11a's shape (bf16, causal, B 4, H 12 over 2 kv heads,
-S = T = 2048, D 128: qwen2-1.5b's training layer) each run is a fresh
+At chip_smoke.py 11a's shape (`--shape qwen2`: bf16, causal, B 4, H 12
+over 2 kv heads, S = T = 2048, D 128: qwen2-1.5b's training layer) or
+16d's (`--shape mla`: B 1, H 128 over 128, S = T = 8192, q/k width 192
+over v width 128: a deepseek-v3 training layer) each run is a fresh
 process whose PYTHONPATH is one tree's `src`, so it builds that tree's
 kernels from its own sources into its own build directory. Order A B B A,
 so that a drift of the card over the call reaches both trees alike. Each
@@ -14,7 +16,8 @@ the PATH (or under CUDA_HOME) also each tensor-core kernel's SASS
 instruction count (`--sass-dir` keeps the whole SASS). Needs one CUDA
 card:
 
-    python3 scripts/attn_bwd_ab.py --a OTHER_TREE --b . --out FILE.json
+    python3 scripts/attn_bwd_ab.py --a OTHER_TREE --b . [--shape mla] \
+        --out FILE.json
 
 The other tree is an unpacked `git archive` of another commit.
 """
@@ -28,11 +31,12 @@ import shutil
 import subprocess
 import sys
 
-B, S, H, K, D = 4, 2048, 12, 2, 128
+SHAPES = {"qwen2": dict(B=4, S=2048, H=12, K=2, D=128, Dv=128),
+          "mla": dict(B=1, S=8192, H=128, K=128, D=192, Dv=128)}
 PER, REPEATS = 10, 30
 
 
-def child(seed: int) -> dict:
+def child(shape: str, seed: int) -> dict:
     """One tree's run, in the process that imports it."""
     import numpy as np
     import torch
@@ -48,18 +52,27 @@ def child(seed: int) -> dict:
              if re.search(r"registers|spill", ln)]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=dev)
-                   .to(torch.bfloat16) for h in (H, K, K, H))
+    B, S, H, K, D, Dv = (SHAPES[shape][x] for x in "B S H K D Dv".split())
+    q, k, v, do = (torch.randn(B, S, h, d, generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for h, d in ((H, D), (K, D), (K, Dv), (H, Dv)))
     o, lse = flash_attention_bshd(q, k, v, return_lse=True)
 
     def kern():
         return flash_attention_bwd(q, k, v, o, lse, do)
 
     got = kern()
-    want = flash_attention_bwd_plain(q, k, v, o, lse, do, round_p=True)
-    err = max(float((g.float() - w.float()).abs().max())
-              for g, w in zip(got, want))
-    del want
+    # the plain version one kv head (and its query heads) at a time
+    G, err = H // K, 0.0
+    for j in range(K):
+        hs = slice(j * G, (j + 1) * G)
+        want = flash_attention_bwd_plain(
+            q[:, :, hs], k[:, :, j:j + 1], v[:, :, j:j + 1], o[:, :, hs],
+            lse[:, hs], do[:, :, hs], round_p=True)
+        for g, w in zip((got[0][:, :, hs], got[1][:, :, j:j + 1],
+                         got[2][:, :, j:j + 1]), want):
+            err = max(err, float((g.float() - w.float()).abs().max()))
+    del want, got
 
     def median_ms(per):
         kern()
@@ -164,6 +177,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--a", required=True, help="the first tree's root")
     p.add_argument("--b", required=True, help="the second tree's root")
+    p.add_argument("--shape", choices=sorted(SHAPES), default="qwen2")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None)
     p.add_argument("--sass-dir", default=None,
@@ -171,7 +185,8 @@ def main(argv=None) -> int:
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.child:
-        print("RESULT " + json.dumps(child(args.seed)), flush=True)
+        print("RESULT " + json.dumps(child(args.shape, args.seed)),
+              flush=True)
         return 0
     trees = {"a": os.path.abspath(args.a), "b": os.path.abspath(args.b)}
     runs = []
@@ -179,7 +194,8 @@ def main(argv=None) -> int:
         env = dict(os.environ, PYTHONPATH=os.path.join(trees[which], "src"))
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", "--a",
-             args.a, "--b", args.b, "--seed", str(args.seed)],
+             args.a, "--b", args.b, "--shape", args.shape, "--seed",
+             str(args.seed)],
             env=env, cwd=trees[which], capture_output=True, text=True)
         line = [ln for ln in proc.stdout.splitlines()
                 if ln.startswith("RESULT ")]
@@ -203,7 +219,7 @@ def main(argv=None) -> int:
         first["sass"] = sass_counts(first["lib"], dump)
         print(f"{which}: ptxas", *first["ptxas"], sep="\n  ")
         print(f"{which}: SASS instructions", json.dumps(first["sass"]))
-    report = dict(shape=dict(B=B, S=S, H=H, K=K, D=D), per=PER,
+    report = dict(shape=dict(SHAPES[args.shape], name=args.shape), per=PER,
                   repeats=REPEATS, runs=runs)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -2,7 +2,9 @@
 // softmax(Q K^T / sqrt(D)) V for grouped-query attention, from q, k, v, the
 // forward's output o, its row log-sum-exp lse and the output's gradient dO;
 // optionally with the forward's sliding window and tanh soft-cap (gemma2's
-// local and global layers).
+// local and global layers). v may be narrower than q and k: MLA
+// (DeepSeek-V3) attends with q/k width DQK = 192 over v width DV = 128
+// (scale 1/sqrt(192)); dV and o, dO then have width 128, dQ and dK 192.
 //
 // Replaces what the JAX package gets by autodiff of `chunked_attention`
 // (src/repro/models/attention.py:33, with its `window` and `cap`): the
@@ -16,7 +18,9 @@
 // at the card's 989 TFLOP/s of bf16 tensor-core products. At gemma2's (B 1,
 // H 16 over 8, S = T = 8192, D 256) they are 2.5x the forward's FLOPs over
 // the allowed pairs: 1.04 ms for a local layer (window 4096), 1.39 ms for a
-// global one. Only the tensor cores, fed by TMA without stalls, come near.
+// global one. At MLA's (B 1, H 128 over 128, S = T = 8192, DQK 192, DV
+// 128) the products are 2 B H pairs (3 DQK + 2 DV) = 7.148 TFLOP: 7.23 ms.
+// Only the tensor cores, fed by TMA without stalls, come near.
 //
 // The closed form (kernels/flash_attn.py flash_attention_bwd_plain):
 //   X  = S / sqrt(D); capped, t = tanh(X / cap) and the logit cap t
@@ -93,10 +97,12 @@
 //   kt0); tiles that cross the diagonal or the window's left edge take the
 //   masked loop, slabs wholly outside it skip the tile.
 //
-// bf16 at D 256: its own tensor-core layouts (the D 128 ones would need
-//   256 KB for dK/dV and 384 KB for dQ of the 227 KB, and 256 accumulator
-//   registers a thread):
-//   * dkdv_tc256: one block per (batch, query head, 64-row k tile), K and V
+// bf16 at D 256, and at (DQK, DV) = (192, 128): the 64-row tensor-core
+//   kernels, templated on (DQK, DV) (the D 128 layouts would need 256 KB
+//   for dK/dV and 384 KB for dQ of the 227 KB at D 256, and 256
+//   accumulator registers a thread; at 192 / 128, 96 + 64 + 64 registers
+//   for dQ and 240 KB of shared memory):
+//   * dkdv_tc_wide: one block per (batch, query head, 64-row k tile), K and V
 //     resident (32 KB each), a two-stage ring of 64-row Q and dO tiles (64
 //     KB a stage). The two consumers split the accumulators: warpgroup 1
 //     holds dV (64 x 256 f32, 128 registers), warpgroup 2 dK. Warpgroup 1
@@ -106,7 +112,7 @@
 //     warpgroup 2 computes dP^T = V dO^T meanwhile, then dS^T = G^T o (dP^T
 //     - Dr) and dK += dS^T Q. Four products per tile, two a warpgroup, the
 //     bound's count; 226 KB of shared memory;
-//   * dq_tc256: one block per (batch * head, 64-row q tile), Q and dO
+//   * dq_tc_wide: one block per (batch * head, 64-row q tile), Q and dO
 //     resident (32 KB each), a two-stage ring of 64-row K and V tiles (64
 //     KB a stage); the two consumers take the k tiles in turn (warpgroup 1
 //     the even ones, from stage 0; warpgroup 2 the odd ones, from stage 1),
@@ -115,11 +121,34 @@
 //     which adds it (one fixed order) and writes dQ * scale in bf16;
 //   * stats_kernel and reduce_kernel as above; the scratch is the same
 //     formula's (0.27 GB at B 1, T 8192, H 16).
+//   At (192, 128) (MLA) the same two kernels with tiles of their own
+//   widths: K and Q tiles are three boxes of 64 columns (24 KB), V and dO
+//   tiles two (16 KB), each with its own TMA boxes and barrier byte count.
+//   dkdv: warpgroup 1 runs S^T = K Q^T over 12 k16 steps and holds dV (64
+//   x 128 f32, 64 registers), warpgroup 2 runs dP^T = V dO^T over 8 and
+//   holds dK (64 x 192, 96 registers, dK += dS^T Q by m64n192k16); 155 KB
+//   of shared memory (a third ring stage, 195 KB, ran slower side by side:
+//   dK/dV 14.84 against 14.63 ms at B 1, 128 heads, 8192 on an H100 80GB
+//   HBM3 at 700 W, scripts/attn_bwd_ab.py --shape mla). dq: each consumer's dQ is 96 registers beside S and
+//   dP (32 each); warpgroup 2 hands it over through 48 KB from stage 1 on
+//   (the 40 KB stage and 8 KB past it); 129 KB. With one kv head a head
+//   (G = 1) each head's Q and dO (5.2 MB at S 8192) or K and V (5.2 MB)
+//   would be streamed from HBM by up to 128 blocks in the tile-by-tile
+//   order of D 256 (about 43 GB a kernel, 13 ms at 3.35 TB/s), so this
+//   instance launches a head's tiles side by side (head-major, as the
+//   forward's MLA instance): the blocks resident at once share one or two
+//   heads' tiles in the 50 MB L2. reduce_kernel runs once for dK at 192
+//   and once for dV at 128 (at G = 1 a copy to bf16); the scratch is
+//   2 B H Sp + B T H (DQK + DV) floats (1.34 GB at B 1, T 8192, H 128).
 //
-// f32, and bf16 at D in {16, 32}: the scalar kernels (the port's first
-//   design), every product on the CUDA cores in f32, tiles staged in shared
-//   memory as f32, like the forward's scalar kernel; p stays f32. Three
-//   launches:
+// f32 (at 192 / 128 too), and bf16 at D in {16, 32}: the scalar kernels
+//   (the port's first design), every product on the CUDA cores in f32,
+//   tiles staged in shared memory as f32, like the forward's scalar
+//   kernel; p stays f32. Templated on (D, DV) as the forward's scalar
+//   kernel; at 192 / 128 K and Q tiles have rows of 193 floats, V and dO
+//   of 129 (194 KB of shared memory for dK/dV, 178 KB for dQ, 64-row
+//   tiles), the columns past 128 take S alone, and dV is 8 columns a
+//   thread where dK is 12. Three launches:
 //   * rowdot_kernel: Dr, one warp per row (a shuffle tree) into f32
 //     [B, H, S] scratch;
 //   * dkdv_kernel: one block of 256 threads per (batch, kv head, k tile of
@@ -138,9 +167,9 @@
 // Masked scores: p is 0 wherever the forward's mask (-2^30) gave exp 0:
 // keys after the query under the causal mask, keys window or more places
 // back, and the tail rows past S or T, which are read as zeros and never
-// written. dQ, dK and dV are contiguous [B, S, H, D] / [B, T, KH, D] in the
-// input's type; q, k and v are read through their strides, o and dO are
-// contiguous. Built without --fmad=false, like flash_attention.cu: f32
+// written. dQ, dK and dV are contiguous [B, S, H, D], [B, T, KH, D] and
+// [B, T, KH, DV] in the input's type; q, k and v are read through their
+// strides, o and dO are contiguous. Built without --fmad=false, like flash_attention.cu: f32
 // multiply-add chains held to 1e-4 of the gradient's max (see
 // kernels/_build.py). Allocates nothing.
 #include <cuda_bf16.h>
@@ -241,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
@@ -254,15 +283,17 @@ __global__ void __launch_bounds__(kThreads)
                 float cap) {
   constexpr int R = kRowsOf<D>;
   constexpr int kI = R / 16;            // rows (and columns) per thread
-  constexpr int kPitch = D + 1;
+  constexpr int kPitch = D + 1;         // K and Q rows
+  constexpr int kPitchV = DV + 1;       // V and dO rows
   constexpr int kPP = R + 1;            // pitch of a score tile
-  constexpr int kCols = D / 16;         // accumulator columns per thread
+  constexpr int kCols = D / 16;         // dK columns per thread
+  constexpr int kColsV = DV / 16;       // dV columns per thread
   extern __shared__ float smem[];
-  float* ks = smem;                     // [R][kPitch] each
-  float* vs = ks + R * kPitch;
-  float* qs = vs + R * kPitch;
-  float* dos = qs + R * kPitch;
-  float* ps = dos + R * kPitch;         // [R][kPP]: P^T, then dS^T
+  float* ks = smem;                     // [R][kPitch]
+  float* vs = ks + R * kPitch;          // [R][kPitchV]
+  float* qs = vs + R * kPitchV;         // [R][kPitch]
+  float* dos = qs + R * kPitch;         // [R][kPitchV]
+  float* ps = dos + R * kPitchV;        // [R][kPP]: P^T, then dS^T
   float* dss = ps + R * kPP;
   float* ls = dss + R * kPP;            // [R] lse, then Dr
   float* ds = ls + R;
@@ -278,13 +309,16 @@ __global__ void __launch_bounds__(kThreads)
   const int cg = threadIdx.x % 16;      // query columns cg + 16 j
 
   stage_tile<T, D, R>(ks, k + b * ksb + kh * ksh, kss, k0, k_valid);
-  stage_tile<T, D, R>(vs, v + b * vsb + kh * vsh, vss, k0, k_valid);
+  stage_tile<T, DV, R>(vs, v + b * vsb + kh * vsh, vss, k0, k_valid);
 
-  float adk[kI][kCols], adv[kI][kCols];
+  float adk[kI][kCols], adv[kI][kColsV];
 #pragma unroll
-  for (int i = 0; i < kI; ++i)
+  for (int i = 0; i < kI; ++i) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) adk[i][c] = adv[i][c] = 0.f;
+    for (int c = 0; c < kCols; ++c) adk[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kColsV; ++c) adv[i][c] = 0.f;
+  }
 
   // under the causal mask, q tile qt sees key k0 only if qt >= kt; under a
   // window, only if its first row is within window - 1 of the block's last
@@ -299,8 +333,8 @@ __global__ void __launch_bounds__(kThreads)
       const int q_valid = min(R, S - q0);
       __syncthreads();                  // the last tile's reads are done
       stage_tile<T, D, R>(qs, q + b * qsb + h * qsh, qss, q0, q_valid);
-      stage_tile<T, D, R>(dos, dout + ((long long)b * S * H + h) * D,
-                          (long long)H * D, q0, q_valid);
+      stage_tile<T, DV, R>(dos, dout + ((long long)b * S * H + h) * DV,
+                           (long long)H * DV, q0, q_valid);
       stage_stats<R>(ls, ds, lse, dsum, bh, S, q0, q_valid);
       __syncthreads();
 
@@ -311,17 +345,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < kI; ++j) st[i][j] = dpt[i][j] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DV; ++d) {
         float ak[kI], av[kI], bq[kI], bo[kI];
 #pragma unroll
         for (int i = 0; i < kI; ++i) {
           ak[i] = ks[(rg + 16 * i) * kPitch + d];
-          av[i] = vs[(rg + 16 * i) * kPitch + d];
+          av[i] = vs[(rg + 16 * i) * kPitchV + d];
         }
 #pragma unroll
         for (int j = 0; j < kI; ++j) {
           bq[j] = qs[(cg + 16 * j) * kPitch + d];
-          bo[j] = dos[(cg + 16 * j) * kPitch + d];
+          bo[j] = dos[(cg + 16 * j) * kPitchV + d];
         }
 #pragma unroll
         for (int i = 0; i < kI; ++i)
@@ -330,6 +364,19 @@ __global__ void __launch_bounds__(kThreads)
             st[i][j] += ak[i] * bq[j];
             dpt[i][j] += av[i] * bo[j];
           }
+      }
+      // the columns of q and k past v's width (MLA's): S^T alone
+#pragma unroll 4
+      for (int d = DV; d < D; ++d) {
+        float ak[kI], bq[kI];
+#pragma unroll
+        for (int i = 0; i < kI; ++i) ak[i] = ks[(rg + 16 * i) * kPitch + d];
+#pragma unroll
+        for (int j = 0; j < kI; ++j) bq[j] = qs[(cg + 16 * j) * kPitch + d];
+#pragma unroll
+        for (int i = 0; i < kI; ++i)
+#pragma unroll
+          for (int j = 0; j < kI; ++j) st[i][j] += ak[i] * bq[j];
       }
 #pragma unroll
       for (int i = 0; i < kI; ++i) {
@@ -357,14 +404,20 @@ __global__ void __launch_bounds__(kThreads)
           dr[i] = dss[(rg + 16 * i) * kPP + t];
         }
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const float ov = dos[t * kPitch + cg + 16 * c];
+        for (int c = 0; c < kColsV; ++c) {
+          const float ov = dos[t * kPitchV + cg + 16 * c];
           const float qv = qs[t * kPitch + cg + 16 * c];
 #pragma unroll
           for (int i = 0; i < kI; ++i) {
             adv[i][c] += pr[i] * ov;
             adk[i][c] += dr[i] * qv;
           }
+        }
+#pragma unroll
+        for (int c = kColsV; c < kCols; ++c) {
+          const float qv = qs[t * kPitch + cg + 16 * c];
+#pragma unroll
+          for (int i = 0; i < kI; ++i) adk[i][c] += dr[i] * qv;
         }
       }
     }
@@ -375,15 +428,19 @@ __global__ void __launch_bounds__(kThreads)
     const int kr = rg + 16 * i;
     if (kr >= k_valid) continue;
     const long long off = (((long long)b * Tk + k0 + kr) * KH + kh) * D;
+    const long long offv = (((long long)b * Tk + k0 + kr) * KH + kh) * DV;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < kColsV; ++c) {
       store(dk + off + cg + 16 * c, adk[i][c] * scale);
-      store(dv + off + cg + 16 * c, adv[i][c]);
+      store(dv + offv + cg + 16 * c, adv[i][c]);
     }
+#pragma unroll
+    for (int c = kColsV; c < kCols; ++c)
+      store(dk + off + cg + 16 * c, adk[i][c] * scale);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
@@ -395,15 +452,16 @@ __global__ void __launch_bounds__(kThreads)
               int window, float cap) {
   constexpr int R = kRowsOf<D>;
   constexpr int kI = R / 16;
-  constexpr int kPitch = D + 1;
+  constexpr int kPitch = D + 1;         // Q and K rows
+  constexpr int kPitchV = DV + 1;       // dO and V rows
   constexpr int kPP = R + 1;
   constexpr int kCols = D / 16;
   extern __shared__ float smem[];
-  float* qs = smem;                     // [R][kPitch] each
-  float* dos = qs + R * kPitch;
-  float* ks = dos + R * kPitch;
-  float* vs = ks + R * kPitch;
-  float* dss = vs + R * kPitch;         // [R][kPP]: dS
+  float* qs = smem;                     // [R][kPitch]
+  float* dos = qs + R * kPitch;         // [R][kPitchV]
+  float* ks = dos + R * kPitchV;        // [R][kPitch]
+  float* vs = ks + R * kPitch;          // [R][kPitchV]
+  float* dss = vs + R * kPitchV;        // [R][kPP]: dS
   float* ls = dss + R * kPP;
   float* ds = ls + R;
 
@@ -417,8 +475,8 @@ __global__ void __launch_bounds__(kThreads)
   const int cg = threadIdx.x % 16;      // key columns cg + 16 j
 
   stage_tile<T, D, R>(qs, q + b * qsb + h * qsh, qss, q0, q_valid);
-  stage_tile<T, D, R>(dos, dout + ((long long)b * S * H + h) * D,
-                      (long long)H * D, q0, q_valid);
+  stage_tile<T, DV, R>(dos, dout + ((long long)b * S * H + h) * DV,
+                       (long long)H * DV, q0, q_valid);
   stage_stats<R>(ls, ds, lse, dsum, bh, S, q0, q_valid);
 
   float adq[kI][kCols];
@@ -436,7 +494,7 @@ __global__ void __launch_bounds__(kThreads)
     const int k_valid = min(R, Tk - k0);
     __syncthreads();                    // the last tile's reads are done
     stage_tile<T, D, R>(ks, k + b * ksb + kh * ksh, kss, k0, k_valid);
-    stage_tile<T, D, R>(vs, v + b * vsb + kh * vsh, vss, k0, k_valid);
+    stage_tile<T, DV, R>(vs, v + b * vsb + kh * vsh, vss, k0, k_valid);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: rows queries, columns keys
@@ -446,17 +504,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DV; ++d) {
       float aq[kI], ao[kI], bk[kI], bv[kI];
 #pragma unroll
       for (int i = 0; i < kI; ++i) {
         aq[i] = qs[(rg + 16 * i) * kPitch + d];
-        ao[i] = dos[(rg + 16 * i) * kPitch + d];
+        ao[i] = dos[(rg + 16 * i) * kPitchV + d];
       }
 #pragma unroll
       for (int j = 0; j < kI; ++j) {
         bk[j] = ks[(cg + 16 * j) * kPitch + d];
-        bv[j] = vs[(cg + 16 * j) * kPitch + d];
+        bv[j] = vs[(cg + 16 * j) * kPitchV + d];
       }
 #pragma unroll
       for (int i = 0; i < kI; ++i)
@@ -465,6 +523,19 @@ __global__ void __launch_bounds__(kThreads)
           s[i][j] += aq[i] * bk[j];
           dp[i][j] += ao[i] * bv[j];
         }
+    }
+    // the columns of q and k past v's width (MLA's): S alone
+#pragma unroll 4
+    for (int d = DV; d < D; ++d) {
+      float aq[kI], bk[kI];
+#pragma unroll
+      for (int i = 0; i < kI; ++i) aq[i] = qs[(rg + 16 * i) * kPitch + d];
+#pragma unroll
+      for (int j = 0; j < kI; ++j) bk[j] = ks[(cg + 16 * j) * kPitch + d];
+#pragma unroll
+      for (int i = 0; i < kI; ++i)
+#pragma unroll
+        for (int j = 0; j < kI; ++j) s[i][j] += aq[i] * bk[j];
     }
 #pragma unroll
     for (int i = 0; i < kI; ++i) {
@@ -507,7 +578,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq,
            void* dk, void* dv, int B, int H, int KH, int S, int Tk,
@@ -522,33 +593,33 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int per = kThreads / 32;
   rowdot_kernel<T><<<(unsigned)((rows + per - 1) / per), kThreads, 0,
                      stream>>>(static_cast<const T*>(o), dop, dsum, rows, S,
-                               H, D);
+                               H, DV);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const float scale = (float)(1.0 / std::sqrt((double)D));  // as the forward
-  const size_t smem = sizeof(float) * (4 * R * (D + 1) + 2 * R * (R + 1)
-                                       + 2 * R);
-  err = cudaFuncSetAttribute(dkdv_kernel<T, D>,
+  const size_t smem = sizeof(float) * (2 * R * (D + 1) + 2 * R * (DV + 1)
+                                       + 2 * R * (R + 1) + 2 * R);
+  err = cudaFuncSetAttribute(dkdv_kernel<T, D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nk = (Tk + R - 1) / R;
-  dkdv_kernel<T, D><<<nk * B * KH, kThreads, smem, stream>>>(
+  dkdv_kernel<T, D, DV><<<nk * B * KH, kThreads, smem, stream>>>(
       qp, kp, vp, dop, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
       B, H, KH, S, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], scale, causal, window, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_q = sizeof(float) * (4 * R * (D + 1) + R * (R + 1)
-                                         + 2 * R);
-  err = cudaFuncSetAttribute(dq_kernel<T, D>,
+  const size_t smem_q = sizeof(float) * (2 * R * (D + 1) + 2 * R * (DV + 1)
+                                         + R * (R + 1) + 2 * R);
+  err = cudaFuncSetAttribute(dq_kernel<T, D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_q);
   if (err != cudaSuccess) return (int)err;
   const int nq = (S + R - 1) / R;
-  dq_kernel<T, D><<<nq * B * H, kThreads, smem_q, stream>>>(
+  dq_kernel<T, D, DV><<<nq * B * H, kThreads, smem_q, stream>>>(
       qp, kp, vp, dop, lse, dsum, static_cast<T*>(dq), H, KH, S, Tk, B * H,
       nq, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       scale, causal, window, cap);
@@ -556,15 +627,26 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v,
+int launch_d(int D, int Dv, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, float* dsum,
              void* dq, void* dk, void* dv, int B, int H, int KH, int S,
              int Tk, const long long* st, int causal, int window, float cap,
              cudaStream_t stream) {
+  if (Dv != D) {
+    // MLA's pair, in f32 (bf16 takes the tensor-core kernels)
+    if constexpr (sizeof(T) == sizeof(float)) {
+      if (D == 192 && Dv == 128)
+        return launch<T, 192, 128>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
+                                   B, H, KH, S, Tk, st, causal, window, cap,
+                                   stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
 #define FAB_CASE(DD)                                                       \
   case DD:                                                                 \
-    return launch<T, DD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, H,    \
-                         KH, S, Tk, st, causal, window, cap, stream);
+    return launch<T, DD, DD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B,   \
+                             H, KH, S, Tk, st, causal, window, cap,        \
+                             stream);
   switch (D) {
     FAB_CASE(16)
     FAB_CASE(32)
@@ -1077,39 +1159,61 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// -- the tensor-core kernels at D 256 ----------------------------------------
-constexpr int kR256 = 64;       // rows of every tile and block at D 256
+// -- the tensor-core kernels at D 256 and at (DQK, DV) = (192, 128) ---------
+constexpr int kR256 = 64;       // rows of every tile and block of these
 
-struct Layout256 {
-  static constexpr int kTile = kR256 * 256 * 2;   // 32 KB: 4 boxes of 64 rows
+// A q or k tile is DQK / 64 boxes of 64 rows, a v or dO tile DV / 64; a
+// stage holds one of each (Q then dO, or K then V).
+template <int DQK, int DV>
+struct LayoutWide {
+  static constexpr int kTileK = kR256 * DQK * 2;  // K or Q
+  static constexpr int kTileV = kR256 * DV * 2;   // V or dO
+  static constexpr int kStage = kTileK + kTileV;
   static constexpr int kStats = kR256 * 4;        // lse2 or Dr of a stage
   static constexpr int kGBuf = 64 * 64 * 4;       // G^T of a q tile, f32
   // dkdv: K, V, 2 stages of Q and dO, their statistics, two G^T buffers;
   // barriers full [2], empty [2], K and V, G full [2], G free [2]
-  static constexpr int kSmemKV = 2 * kTile + 2 * 2 * kTile + 2 * 2 * kStats
+  static constexpr int kSmemKV = kStage + 2 * kStage + 2 * 2 * kStats
                                  + 2 * kGBuf + 8 * 9 + 1024;
-  // dq: Q, dO, 2 stages of K and V; barriers full [2], empty [2], Q and dO
-  static constexpr int kSmemQ = 2 * kTile + 2 * 2 * kTile + 8 * 5 + 1024;
+  // dq: Q, dO, 2 stages of K and V; warpgroup 2 hands its f32 dQ (DQK / 2
+  // values a thread) to warpgroup 1 from stage 1 on, past its end where
+  // the stage is smaller (at 192 / 128); barriers full [2], empty [2], Q
+  // and dO
+  static constexpr int kXfer = DQK / 2 * 128 * 4;
+  static constexpr int kRingQ = kStage + (kXfer > kStage ? kXfer : kStage);
+  static constexpr int kSmemQ = kStage + kRingQ + 8 * 5 + 1024;
 };
-static_assert(Layout256::kSmemKV <= 232448, "dkdv_tc256 shared memory");
+static_assert(LayoutWide<256, 256>::kSmemKV <= 232448,
+              "dkdv_tc_wide shared memory");
 
+// The first DV / 2 accumulators of a DQK / 2 array, as a DV-wide product's
+template <int DV, int N>
+__device__ __forceinline__ float (&head_of(float (&a)[N]))[DV / 2] {
+  return *reinterpret_cast<float(*)[DV / 2]>(&a[0]);
+}
+
+// In both kernels below, `if constexpr (DQK == DV)` keeps D 256's code as
+// it was before the pair (its loads interleaved K with V and Q with dO, one
+// loop over the warpgroups' shared product), so that its SASS is unchanged;
+// the other branch is the pair's, whose tiles and products differ in width.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
-    dkdv_tc256(const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv,
-               const __grid_constant__ CUtensorMap tq,
-               const __grid_constant__ CUtensorMap tdo,
-               const float* __restrict__ lse2, const float* __restrict__ dr,
-               float* __restrict__ dk_part, float* __restrict__ dv_part,
-               int H, int KH, int S, int Tk, int Sp, int BH,
-               float scale_log2, int causal, Mod mod) {
-  constexpr int D = 256, R = kR256;
-  using L = Layout256;
+    dkdv_tc_wide(const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse2, const float* __restrict__ dr,
+                 float* __restrict__ dk_part, float* __restrict__ dv_part,
+                 int H, int KH, int S, int Tk, int Sp, int BH,
+                 float scale_log2, int causal, Mod mod) {
+  constexpr int R = kR256;
+  using L = LayoutWide<DQK, DV>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sk = (raw + 1023) & ~1023u;          // K, V, then the ring
-  const uint32_t sv = sk + L::kTile;
-  const uint32_t ring = sv + L::kTile;                // stage s: Q, then dO
-  const uint32_t stats = ring + 2 * 2 * L::kTile;     // s: lse2, Dr
+  const uint32_t sv = sk + L::kTileK;
+  const uint32_t ring = sv + L::kTileV;               // stage s: Q, then dO
+  const uint32_t stats = ring + 2 * L::kStage;        // s: lse2, Dr
   const uint32_t gbuf = stats + 2 * 2 * L::kStats;    // G^T [2]
   const uint32_t bars = gbuf + 2 * L::kGBuf;
   const uint32_t kv_full = bars + 8 * 4;
@@ -1118,8 +1222,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       reinterpret_cast<const float*>(smem_raw + (stats - raw));
   float* gbuf_p = reinterpret_cast<float*>(smem_raw + (gbuf - raw));
 
-  const int bh = blockIdx.x % BH;
-  const int kt = blockIdx.x / BH;
+  // the k tiles nearest the start (which the most queries see) first: tile
+  // by tile across the heads, or at DQK != DV (MLA: one kv head a head)
+  // head by head, so that the resident blocks share a head's Q and dO in L2
+  int bh, kt;
+  if constexpr (DQK != DV) {
+    const int nk = (Tk + R - 1) / R;
+    bh = blockIdx.x / nk;
+    kt = blockIdx.x % nk;
+  } else {
+    bh = blockIdx.x % BH;
+    kt = blockIdx.x / BH;
+  }
   const int b = bh / H, h = bh % H;
   const int kh = h / (H / KH);
   const int k0 = kt * R;
@@ -1147,21 +1261,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(kv_full, 2 * L::kTile);
-      for (int c = 0; c < D / kBox; ++c) {
-        tma_load(sk + c * R * kRowBytes, &tk, c * kBox, kh, k0, b, kv_full);
-        tma_load(sv + c * R * kRowBytes, &tv, c * kBox, kh, k0, b, kv_full);
+      mbar_expect_tx(kv_full, L::kStage);
+      if constexpr (DQK == DV) {
+        for (int c = 0; c < DQK / kBox; ++c) {
+          tma_load(sk + c * R * kRowBytes, &tk, c * kBox, kh, k0, b, kv_full);
+          tma_load(sv + c * R * kRowBytes, &tv, c * kBox, kh, k0, b, kv_full);
+        }
+      } else {
+        for (int c = 0; c < DQK / kBox; ++c)
+          tma_load(sk + c * R * kRowBytes, &tk, c * kBox, kh, k0, b, kv_full);
+        for (int c = 0; c < DV / kBox; ++c)
+          tma_load(sv + c * R * kRowBytes, &tv, c * kBox, kh, k0, b, kv_full);
       }
       for (int it = 0; it < n_iter; ++it) {
         const int s = it % 2;
         const int q0 = (qt_first + it) * R;
-        const uint32_t sq = ring + s * 2 * L::kTile, sdo = sq + L::kTile;
+        const uint32_t sq = ring + s * L::kStage, sdo = sq + L::kTileK;
         const uint32_t full = bars + 8 * s;
         mbar_wait(bars + 8 * (2 + s), ((it / 2) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * L::kTile + 2 * L::kStats);
-        for (int c = 0; c < D / kBox; ++c) {
-          tma_load(sq + c * R * kRowBytes, &tq, c * kBox, h, q0, b, full);
-          tma_load(sdo + c * R * kRowBytes, &tdo, c * kBox, h, q0, b, full);
+        mbar_expect_tx(full, L::kStage + 2 * L::kStats);
+        if constexpr (DQK == DV) {
+          for (int c = 0; c < DQK / kBox; ++c) {
+            tma_load(sq + c * R * kRowBytes, &tq, c * kBox, h, q0, b, full);
+            tma_load(sdo + c * R * kRowBytes, &tdo, c * kBox, h, q0, b, full);
+          }
+        } else {
+          for (int c = 0; c < DQK / kBox; ++c)
+            tma_load(sq + c * R * kRowBytes, &tq, c * kBox, h, q0, b, full);
+          for (int c = 0; c < DV / kBox; ++c)
+            tma_load(sdo + c * R * kRowBytes, &tdo, c * kBox, h, q0, b, full);
         }
         const long long st = (long long)bh * Sp + q0;
         bulk_load(stats + s * 2 * L::kStats, lse2 + st, L::kStats, full);
@@ -1180,26 +1308,43 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int cq = 2 * (t % 4);
   const int krow0 = k0 + r;                           // krow1 = krow0 + 8
 
-  float acc[D / 2];                                   // dV, or dK
+  // dV (its first DV / 2), or dK
+  float acc[DQK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int it = 0; it < n_iter; ++it) {
     const int s = it % 2;
     const uint32_t ph = (it / 2) & 1;
     const int q0 = (qt_first + it) * R;
-    const uint32_t sq = ring + s * 2 * L::kTile, sdo = sq + L::kTile;
+    const uint32_t sq = ring + s * L::kStage, sdo = sq + L::kTileK;
     const float* ls = stats_p + s * 2 * R;
     float* gp = gbuf_p + s * 64 * 64;      // G^T [32][128 threads] of tile
     mbar_wait(bars + 8 * s, ph);
     float x[R / 2];                        // S^T, or dP^T
     wgmma_fence();
+    if constexpr (DQK == DV) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * R * kRowBytes + (kk % 4) * 32;
-      wgmma_ss<R>(x, desc((cw ? sv : sk) + off, 16, 1024),
-                  desc((cw ? sdo : sq) + off, 16, 1024), kk > 0);
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        const uint32_t off = (kk / 4) * R * kRowBytes + (kk % 4) * 32;
+        wgmma_ss<R>(x, desc((cw ? sv : sk) + off, 16, 1024),
+                    desc((cw ? sdo : sq) + off, 16, 1024), kk > 0);
+      }
+    } else if (cw) {
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        const uint32_t off = (kk / 4) * R * kRowBytes + (kk % 4) * 32;
+        wgmma_ss<R>(x, desc(sv + off, 16, 1024), desc(sdo + off, 16, 1024),
+                    kk > 0);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        const uint32_t off = (kk / 4) * R * kRowBytes + (kk % 4) * 32;
+        wgmma_ss<R>(x, desc(sk + off, 16, 1024), desc(sq + off, 16, 1024),
+                    kk > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -1245,54 +1390,104 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // dV += P^T dO, or dK += dS^T Q: R / 16 steps of k16, the stage's dO or
     // Q read MN-major
-    const uint32_t bsrc = cw ? sq : sdo;
-    fence_regs(acc);
-    wgmma_fence();
+    if constexpr (DQK == DV) {
+      const uint32_t bsrc = cw ? sq : sdo;
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < R / 16; ++kk)
-      wgmma_rs<D>(acc, a[kk],
-                  desc(bsrc + kk * 16 * kRowBytes, R * kRowBytes, 1024));
+      for (int kk = 0; kk < R / 16; ++kk)
+        wgmma_rs<DQK>(acc, a[kk],
+                      desc(bsrc + kk * 16 * kRowBytes, R * kRowBytes, 1024));
+    } else {
+      fence_regs(acc);
+      wgmma_fence();
+      if (cw) {
+#pragma unroll
+        for (int kk = 0; kk < R / 16; ++kk)
+          wgmma_rs<DQK>(acc, a[kk],
+                        desc(sq + kk * 16 * kRowBytes, R * kRowBytes, 1024));
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < R / 16; ++kk)
+          wgmma_rs<DV>(head_of<DV>(acc), a[kk],
+                       desc(sdo + kk * 16 * kRowBytes, R * kRowBytes, 1024));
+      }
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
     mbar_arrive(bars + 8 * (2 + s));                  // stage s is free
   }
 
-  // epilogue: this head's partial, f32, rows past T not written
-  float* part = cw ? dk_part : dv_part;
+  // epilogue: this head's partial, f32, rows past T not written; dK is
+  // [B, T, H, DQK], dV [B, T, H, DV]
+  if constexpr (DQK == DV) {
+    float* part = cw ? dk_part : dv_part;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = krow0 + 8 * half;
-    if (row >= Tk) continue;
-    const long long off = (((long long)b * Tk + row) * H + h) * D + cq;
+    for (int half = 0; half < 2; ++half) {
+      const int row = krow0 + 8 * half;
+      if (row >= Tk) continue;
+      const long long off = (((long long)b * Tk + row) * H + h) * DQK + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(part + off + 8 * j) =
-          make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      for (int j = 0; j < DQK / 8; ++j)
+        *reinterpret_cast<float2*>(part + off + 8 * j) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  } else if (cw) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = krow0 + 8 * half;
+      if (row >= Tk) continue;
+      const long long off = (((long long)b * Tk + row) * H + h) * DQK + cq;
+#pragma unroll
+      for (int j = 0; j < DQK / 8; ++j)
+        *reinterpret_cast<float2*>(dk_part + off + 8 * j) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = krow0 + 8 * half;
+      if (row >= Tk) continue;
+      const long long off = (((long long)b * Tk + row) * H + h) * DV + cq;
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *reinterpret_cast<float2*>(dv_part + off + 8 * j) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
   }
 }
 
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
-    dq_tc256(const __grid_constant__ CUtensorMap tq,
-             const __grid_constant__ CUtensorMap tdo,
-             const __grid_constant__ CUtensorMap tk,
-             const __grid_constant__ CUtensorMap tv,
-             const float* __restrict__ lse2, const float* __restrict__ dr,
-             __nv_bfloat16* __restrict__ dq, int H, int KH, int S, int Tk,
-             int Sp, int BH, int nq, float scale_log2, float scale,
-             int causal, Mod mod) {
-  constexpr int D = 256, R = kR256;
-  using L = Layout256;
+    dq_tc_wide(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const float* __restrict__ lse2, const float* __restrict__ dr,
+               __nv_bfloat16* __restrict__ dq, int H, int KH, int S, int Tk,
+               int Sp, int BH, int nq, float scale_log2, float scale,
+               int causal, Mod mod) {
+  constexpr int R = kR256;
+  using L = LayoutWide<DQK, DV>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + 1023) & ~1023u;          // Q, dO, then the ring
-  const uint32_t sdo = sq + L::kTile;
-  const uint32_t ring = sdo + L::kTile;               // stage s: K, then V
-  const uint32_t bars = ring + 2 * 2 * L::kTile;
+  const uint32_t sdo = sq + L::kTileK;
+  const uint32_t ring = sdo + L::kTileV;              // stage s: K, then V
+  const uint32_t bars = ring + L::kRingQ;
   const uint32_t q_full = bars + 8 * 4;
 
-  const int bh = blockIdx.x % BH;
-  const int qt = nq - 1 - blockIdx.x / BH;
+  // the latest (heaviest) q tiles first: tile by tile across the heads, or
+  // at DQK != DV head by head (a head's K and V shared in L2)
+  int bh, qt;
+  if constexpr (DQK != DV) {
+    bh = blockIdx.x / nq;
+    qt = nq - 1 - blockIdx.x % nq;
+  } else {
+    bh = blockIdx.x % BH;
+    qt = nq - 1 - blockIdx.x / BH;
+  }
   const int b = bh / H, h = bh % H;
   const int kh = h / (H / KH);
   const int q0 = qt * R;
@@ -1315,21 +1510,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, 2 * L::kTile);
-      for (int c = 0; c < D / kBox; ++c) {
-        tma_load(sq + c * R * kRowBytes, &tq, c * kBox, h, q0, b, q_full);
-        tma_load(sdo + c * R * kRowBytes, &tdo, c * kBox, h, q0, b, q_full);
+      mbar_expect_tx(q_full, L::kStage);
+      if constexpr (DQK == DV) {
+        for (int c = 0; c < DQK / kBox; ++c) {
+          tma_load(sq + c * R * kRowBytes, &tq, c * kBox, h, q0, b, q_full);
+          tma_load(sdo + c * R * kRowBytes, &tdo, c * kBox, h, q0, b, q_full);
+        }
+      } else {
+        for (int c = 0; c < DQK / kBox; ++c)
+          tma_load(sq + c * R * kRowBytes, &tq, c * kBox, h, q0, b, q_full);
+        for (int c = 0; c < DV / kBox; ++c)
+          tma_load(sdo + c * R * kRowBytes, &tdo, c * kBox, h, q0, b, q_full);
       }
       for (int it = 0; it < n_iter; ++it) {
         const int s = it % 2;
         const int k0 = (kt0 + it) * R;
-        const uint32_t sk = ring + s * 2 * L::kTile, sv = sk + L::kTile;
+        const uint32_t sk = ring + s * L::kStage, sv = sk + L::kTileK;
         const uint32_t full = bars + 8 * s;
         mbar_wait(bars + 8 * (2 + s), ((it / 2) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * L::kTile);
-        for (int c = 0; c < D / kBox; ++c) {
-          tma_load(sk + c * R * kRowBytes, &tk, c * kBox, kh, k0, b, full);
-          tma_load(sv + c * R * kRowBytes, &tv, c * kBox, kh, k0, b, full);
+        mbar_expect_tx(full, L::kStage);
+        if constexpr (DQK == DV) {
+          for (int c = 0; c < DQK / kBox; ++c) {
+            tma_load(sk + c * R * kRowBytes, &tk, c * kBox, kh, k0, b, full);
+            tma_load(sv + c * R * kRowBytes, &tv, c * kBox, kh, k0, b, full);
+          }
+        } else {
+          for (int c = 0; c < DQK / kBox; ++c)
+            tma_load(sk + c * R * kRowBytes, &tk, c * kBox, kh, k0, b, full);
+          for (int c = 0; c < DV / kBox; ++c)
+            tma_load(sv + c * R * kRowBytes, &tv, c * kBox, kh, k0, b, full);
         }
       }
     }
@@ -1346,11 +1555,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long st0 = (long long)bh * Sp + row0;    // never past the pad
   const float l20 = lse2[st0], l21 = lse2[st0 + 8];
   const float dr0 = dr[st0], dr1 = dr[st0 + 8];
-  const uint32_t sk = ring + cw * 2 * L::kTile, sv = sk + L::kTile;
+  const uint32_t sk = ring + cw * L::kStage, sv = sk + L::kTileK;
 
-  float acc[D / 2];
+  float acc[DQK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(q_full, 0);
   for (int it = cw; it < n_iter; it += 2) {
@@ -1360,13 +1569,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     float sc[R / 2], dp[R / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       const uint32_t off = (kk / 4) * R * kRowBytes + (kk % 4) * 32;
       wgmma_ss<R>(sc, desc(sq + off, 16, 1024), desc(sk + off, 16, 1024),
                   kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DV / 16; ++kk) {
       const uint32_t off = (kk / 4) * R * kRowBytes + (kk % 4) * 32;
       wgmma_ss<R>(dp, desc(sdo + off, 16, 1024), desc(sv + off, 16, 1024),
                   kk > 0);
@@ -1403,33 +1612,33 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < R / 16; ++kk)
-      wgmma_rs<D>(acc, da[kk],
-                  desc(sk + kk * 16 * kRowBytes, R * kRowBytes, 1024));
+      wgmma_rs<DQK>(acc, da[kk],
+                    desc(sk + kk * 16 * kRowBytes, R * kRowBytes, 1024));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
     mbar_arrive(bars + 8 * (2 + cw));                 // stage cw is free
   }
 
-  // warpgroup 2 hands its sum to warpgroup 1 through stage 1's memory (no
+  // warpgroup 2 hands its sum to warpgroup 1 from stage 1's memory on (no
   // copy lands there any more: its last tile was warpgroup 2's), which adds
   // it and writes dQ / sqrt(D) in bf16; tail rows are not written
-  float* xp = reinterpret_cast<float*>(smem_raw + (ring + 2 * L::kTile - raw));
+  float* xp = reinterpret_cast<float*>(smem_raw + (ring + L::kStage - raw));
   if (cw == 1) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) xp[i * 128 + t] = acc[i];
+    for (int i = 0; i < DQK / 2; ++i) xp[i * 128 + t] = acc[i];
   }
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
   if (cw == 1) return;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] += xp[i * 128 + t];
+  for (int i = 0; i < DQK / 2; ++i) acc[i] += xp[i * 128 + t];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
     if (row >= S) continue;
-    __nv_bfloat16* op = dq + (((long long)b * S + row) * H + h) * D + cq;
+    __nv_bfloat16* op = dq + (((long long)b * S + row) * H + h) * DQK + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DQK / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
   }
@@ -1469,10 +1678,10 @@ __global__ void __launch_bounds__(256)
 }
 
 // the scratch of these kernels, in floats: lse2 and Dr [B H Sp], the dK
-// and dV partials [B T H D] each
-long long work_floats(int B, int H, int S, int Tk, int D) {
+// partials [B T H D] and the dV partials [B T H Dv]
+long long work_floats(int B, int H, int S, int Tk, int D, int Dv) {
   const long long Sp = (S + kPadRows - 1) / kPadRows * kPadRows;
-  return 2LL * B * H * Sp + 2LL * B * Tk * H * D;
+  return 2LL * B * H * Sp + (long long)B * Tk * H * (D + Dv);
 }
 
 // The kernels' shared arguments at one call.
@@ -1486,8 +1695,9 @@ struct Call {
   int causal;
 };
 
-template <int D, bool kMod>
+template <int DQK, int DV, bool kMod>
 int run(const Call& c, const Mod& mod, cudaStream_t stream) {
+  constexpr int D = DQK;
   const int B = c.B, H = c.H, KH = c.KH, S = c.S, Tk = c.Tk;
   const long long* st = c.st;
   const int Sp = (S + kPadRows - 1) / kPadRows * kPadRows;
@@ -1495,40 +1705,43 @@ int run(const Call& c, const Mod& mod, cudaStream_t stream) {
   float* lse2 = c.work;
   float* dr = lse2 + (long long)BH * Sp;
   float* dk_part = dr + (long long)BH * Sp;
-  float* dv_part = dk_part + (long long)B * Tk * H * D;
+  float* dv_part = dk_part + (long long)B * Tk * H * DQK;
   const auto* o16 = static_cast<const __nv_bfloat16*>(c.o);
   const auto* do16 = static_cast<const __nv_bfloat16*>(c.dout);
 
   const long long rows = (long long)BH * Sp;
   stats_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      o16, do16, c.lse, lse2, dr, rows, H, S, Sp, D);
+      o16, do16, c.lse, lse2, dr, rows, H, S, Sp, DV);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  // dO is contiguous [B, S, H, D]
-  const long long dsb = (long long)S * H * D, dss = (long long)H * D;
+  // dO is contiguous [B, S, H, DV]
+  const long long dsb = (long long)S * H * DV, dss = (long long)H * DV;
   // 1 / sqrt(D) as the forward, times log2(e) for ex2
   const double scale = 1.0 / std::sqrt((double)D);
   const float scale_log2 = (float)(scale * 1.4426950408889634);
-  // rows of each map's box: the k block and q tile of dkdv, then the q
-  // block and k tile of dq (all 64 at D 256)
-  constexpr int kKVr = D == 256 ? kR256 : kKV;
-  constexpr int kQTr = D == 256 ? kR256 : kQT;
-  constexpr int kQBr = D == 256 ? kR256 : kQB;
-  constexpr int kKTr = D == 256 ? kR256 : kKT;
+  // the 64-row kernels at D 256 and at DQK != DV (kWide); rows of each
+  // map's box: the k block and q tile of dkdv, then the q block and k tile
+  // of dq (all 64 there)
+  constexpr bool kWide = D == 256 || DQK != DV;
+  constexpr int kKVr = kWide ? kR256 : kKV;
+  constexpr int kQTr = kWide ? kR256 : kQT;
+  constexpr int kQBr = kWide ? kR256 : kQB;
+  constexpr int kKTr = kWide ? kR256 : kKT;
   CUtensorMap tk, tv, tq, tdo;
-  if (!make_map(&tk, c.k, D, KH, Tk, B, st[3], st[4], st[5], kKVr)
-      || !make_map(&tv, c.v, D, KH, Tk, B, st[6], st[7], st[8], kKVr)
-      || !make_map(&tq, c.q, D, H, S, B, st[0], st[1], st[2], kQTr)
-      || !make_map(&tdo, c.dout, D, H, S, B, dsb, dss, D, kQTr))
+  if (!make_map(&tk, c.k, DQK, KH, Tk, B, st[3], st[4], st[5], kKVr)
+      || !make_map(&tv, c.v, DV, KH, Tk, B, st[6], st[7], st[8], kKVr)
+      || !make_map(&tq, c.q, DQK, H, S, B, st[0], st[1], st[2], kQTr)
+      || !make_map(&tdo, c.dout, DV, H, S, B, dsb, dss, DV, kQTr))
     return (int)cudaErrorInvalidValue;
   const int nk = (Tk + kKVr - 1) / kKVr;
-  if constexpr (D == 256) {
-    err = cudaFuncSetAttribute(dkdv_tc256,
+  if constexpr (kWide) {
+    using L = LayoutWide<DQK, DV>;
+    err = cudaFuncSetAttribute(dkdv_tc_wide<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Layout256::kSmemKV);
+                               L::kSmemKV);
     if (err != cudaSuccess) return (int)err;
-    dkdv_tc256<<<nk * BH, kThreads, Layout256::kSmemKV, stream>>>(
+    dkdv_tc_wide<DQK, DV><<<nk * BH, kThreads, L::kSmemKV, stream>>>(
         tk, tv, tq, tdo, lse2, dr, dk_part, dv_part, H, KH, S, Tk, Sp, BH,
         scale_log2, c.causal, mod);
   } else {
@@ -1544,19 +1757,20 @@ int run(const Call& c, const Mod& mod, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
 
   CUtensorMap tq2, tdo2, tk2, tv2;
-  if (!make_map(&tq2, c.q, D, H, S, B, st[0], st[1], st[2], kQBr)
-      || !make_map(&tdo2, c.dout, D, H, S, B, dsb, dss, D, kQBr)
-      || !make_map(&tk2, c.k, D, KH, Tk, B, st[3], st[4], st[5], kKTr)
-      || !make_map(&tv2, c.v, D, KH, Tk, B, st[6], st[7], st[8], kKTr))
+  if (!make_map(&tq2, c.q, DQK, H, S, B, st[0], st[1], st[2], kQBr)
+      || !make_map(&tdo2, c.dout, DV, H, S, B, dsb, dss, DV, kQBr)
+      || !make_map(&tk2, c.k, DQK, KH, Tk, B, st[3], st[4], st[5], kKTr)
+      || !make_map(&tv2, c.v, DV, KH, Tk, B, st[6], st[7], st[8], kKTr))
     return (int)cudaErrorInvalidValue;
   const int nq = (S + kQBr - 1) / kQBr;
   auto* dq16 = static_cast<__nv_bfloat16*>(c.dq);
-  if constexpr (D == 256) {
-    err = cudaFuncSetAttribute(dq_tc256,
+  if constexpr (kWide) {
+    using L = LayoutWide<DQK, DV>;
+    err = cudaFuncSetAttribute(dq_tc_wide<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Layout256::kSmemQ);
+                               L::kSmemQ);
     if (err != cudaSuccess) return (int)err;
-    dq_tc256<<<nq * BH, kThreads, Layout256::kSmemQ, stream>>>(
+    dq_tc_wide<DQK, DV><<<nq * BH, kThreads, L::kSmemQ, stream>>>(
         tq2, tdo2, tk2, tv2, lse2, dr, dq16, H, KH, S, Tk, Sp, BH, nq,
         scale_log2, (float)scale, c.causal, mod);
   } else {
@@ -1571,28 +1785,42 @@ int run(const Call& c, const Mod& mod, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const long long n4 = (long long)B * Tk * KH * D / 4;
-  const unsigned blocks = (unsigned)std::min<long long>((n4 + 255) / 256,
-                                                        4096);
-  reduce_kernel<<<dim3(blocks, 2), 256, 0, stream>>>(
-      dk_part, dv_part, static_cast<__nv_bfloat16*>(c.dk),
-      static_cast<__nv_bfloat16*>(c.dv), n4, H / KH, D, (float)scale);
+  auto* dk16 = static_cast<__nv_bfloat16*>(c.dk);
+  auto* dv16 = static_cast<__nv_bfloat16*>(c.dv);
+  auto blocks = [](long long n4) {
+    return (unsigned)std::min<long long>((n4 + 255) / 256, 4096);
+  };
+  if constexpr (DQK == DV) {
+    const long long n4 = (long long)B * Tk * KH * D / 4;
+    reduce_kernel<<<dim3(blocks(n4), 2), 256, 0, stream>>>(
+        dk_part, dv_part, dk16, dv16, n4, H / KH, D, (float)scale);
+  } else {
+    // dK and dV of their own widths: one launch each, as blockIdx.y 0
+    const long long n4k = (long long)B * Tk * KH * DQK / 4;
+    const long long n4v = (long long)B * Tk * KH * DV / 4;
+    reduce_kernel<<<dim3(blocks(n4k), 1), 256, 0, stream>>>(
+        dk_part, nullptr, dk16, nullptr, n4k, H / KH, DQK, (float)scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    reduce_kernel<<<dim3(blocks(n4v), 1), 256, 0, stream>>>(
+        dv_part, nullptr, dv16, nullptr, n4v, H / KH, DV, 1.f);
+  }
   return (int)cudaGetLastError();
 }
 
-// the kMod instantiation when the call has a window or a soft-cap, and at
-// D 256 always (its kernels have no other)
-template <int D>
+// the kMod instantiation when the call has a window or a soft-cap, and in
+// the 64-row kernels always (they have no other)
+template <int DQK, int DV>
 int launch(const Call& c, int window, float cap, cudaStream_t stream) {
-  const double scale = 1.0 / std::sqrt((double)D);
+  const double scale = 1.0 / std::sqrt((double)DQK);
   const Mod mod{window > 0 ? window : 1 << 30, cap > 0.f,
                 cap > 0.f ? (float)(scale / cap) : 0.f,
                 (float)(cap * 1.4426950408889634)};
-  if constexpr (D == 256) {
-    return run<D, true>(c, mod, stream);
+  if constexpr (DQK == 256 || DQK != DV) {
+    return run<DQK, DV, true>(c, mod, stream);
   } else {
-    if (window > 0 || cap > 0.f) return run<D, true>(c, mod, stream);
-    return run<D, false>(c, mod, stream);
+    if (window > 0 || cap > 0.f) return run<DQK, DV, true>(c, mod, stream);
+    return run<DQK, DV, false>(c, mod, stream);
   }
 }
 
@@ -1602,24 +1830,26 @@ int launch(const Call& c, int window, float cap, cudaStream_t stream) {
 
 extern "C" {
 
-// q [B, S, H, D], k and v [B, T, KH, D] through their (batch, row, head)
-// strides in elements (the last dimension contiguous); o and dout (the
-// forward's output and its gradient) contiguous [B, S, H, D]; lse the
-// forward's contiguous f32 [B, H, S] row log-sum-exp (natural log); dq a
-// contiguous [B, S, H, D], dk and dv contiguous [B, T, KH, D], written
-// whole. dtype 0: float32, 1: bfloat16. D in {16, 32, 64, 128, 256}; H a
-// multiple of KH; S, T >= 1. window: 0 for none, else the forward's
-// (a key is allowed only when qpos - kpos < window); cap: 0 for none, else
-// the forward's soft-cap of the scaled scores. bf16 at D 64, 128 or 256
-// takes the tensor-core kernels, which need 16-byte aligned bases and
-// strides that are multiples of 8 elements (kernels/flash_attn.py makes
-// them so); everything else the scalar kernels. `work` is f32 scratch of
-// the size that flash_attention_bwd_work gives. Returns a CUDA error code
-// (0 on success).
+// q [B, S, H, D], k [B, T, KH, D] and v [B, T, KH, Dv] through their
+// (batch, row, head) strides in elements (the last dimension contiguous);
+// o and dout (the forward's output and its gradient) contiguous
+// [B, S, H, Dv]; lse the forward's contiguous f32 [B, H, S] row
+// log-sum-exp (natural log); dq a contiguous [B, S, H, D], dk a contiguous
+// [B, T, KH, D] and dv a contiguous [B, T, KH, Dv], written whole. dtype
+// 0: float32, 1: bfloat16. Dv = D in {16, 32, 64, 128, 256}, or (D, Dv) =
+// (192, 128) (MLA's); H a multiple of KH; S, T >= 1. window: 0 for none,
+// else the forward's (a key is allowed only when qpos - kpos < window);
+// cap: 0 for none, else the forward's soft-cap of the scaled scores. bf16
+// at D 64, 128 or 256, or at 192 / 128, takes the tensor-core kernels,
+// which need 16-byte aligned bases and strides that are multiples of 8
+// elements (kernels/flash_attn.py makes them so); everything else the
+// scalar kernels. `work` is f32 scratch of the size that
+// flash_attention_bwd_work gives. Returns a CUDA error code (0 on
+// success; cudaErrorInvalidValue for a pair of widths no kernel takes).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
                         void* work, void* dq, void* dk, void* dv, int dtype,
-                        int B, int H, int KH, int S, int T, int D,
+                        int B, int H, int KH, int S, int T, int D, int Dv,
                         long long qsb, long long qss, long long qsh,
                         long long ksb, long long kss, long long ksh,
                         long long vsb, long long vss, long long vsh,
@@ -1630,27 +1860,34 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   float* w = static_cast<float*>(work);
   const tc::Call c{q, k, v, o, dout, l, w, dq, dk, dv, B, H, KH, S, T, st,
                    causal};
-  if (dtype == 1 && D == 256) return tc::launch<256>(c, window, cap, s);
-  if (dtype == 1 && D == 128) return tc::launch<128>(c, window, cap, s);
-  if (dtype == 1 && D == 64) return tc::launch<64>(c, window, cap, s);
+  if (dtype == 1 && D == 192 && Dv == 128)
+    return tc::launch<192, 128>(c, window, cap, s);
+  if (dtype == 1 && D == 256 && Dv == D)
+    return tc::launch<256, 256>(c, window, cap, s);
+  if (dtype == 1 && D == 128 && Dv == D)
+    return tc::launch<128, 128>(c, window, cap, s);
+  if (dtype == 1 && D == 64 && Dv == D)
+    return tc::launch<64, 64>(c, window, cap, s);
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, dout, l, w, dq, dk, dv, B, H, KH,
-                           S, T, st, causal, window, cap, s);
+    return launch_d<float>(D, Dv, q, k, v, o, dout, l, w, dq, dk, dv, B, H,
+                           KH, S, T, st, causal, window, cap, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, w, dq, dk, dv, B,
-                                   H, KH, S, T, st, causal, window, cap, s);
+    return launch_d<__nv_bfloat16>(D, Dv, q, k, v, o, dout, l, w, dq, dk,
+                                   dv, B, H, KH, S, T, st, causal, window,
+                                   cap, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // *floats = the f32 scratch flash_attention_bwd needs for these sizes: the
 // tensor-core kernels' padded row statistics and per-query-head dK and dV
-// partials (2 B H Sp + 2 B T H D, Sp = S rounded up to 128), the scalar
-// kernels' Dr (B H S). Returns 0.
+// partials (2 B H Sp + B T H (D + Dv), Sp = S rounded up to 128), the
+// scalar kernels' Dr (B H S). Returns 0.
 int flash_attention_bwd_work(int dtype, int B, int H, int S, int T, int D,
-                             long long* floats) {
-  *floats = dtype == 1 && (D == 64 || D == 128 || D == 256)
-                ? tc::work_floats(B, H, S, T, D)
-                : (long long)B * H * S;
+                             int Dv, long long* floats) {
+  const bool tc = dtype == 1
+      && (Dv == D ? D == 64 || D == 128 || D == 256
+                  : D == 192 && Dv == 128);
+  *floats = tc ? tc::work_floats(B, H, S, T, D, Dv) : (long long)B * H * S;
   return 0;
 }
 

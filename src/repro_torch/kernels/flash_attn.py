@@ -59,24 +59,25 @@ forward's window and soft-cap (the cap's derivative 1 - t^2 joins dS).
 Its source holds two designs, chosen by `tensor_core_path` as the
 forward's are:
 
-- bf16 at head widths 64, 128 and 256: the Hopper kernels (TMA rings,
-  `wgmma`; a dK/dV kernel per (batch, query head, k tile) writing f32
-  per-head partials into a scratch of 2 B T H D floats that a small kernel
-  sums over each kv head's query heads in a fixed order, and a dQ kernel;
-  at 256 their own layouts: 64-row tiles, the two consumer warpgroups
-  splitting dK from dV and the k tiles of dQ; the wrapper allocates the
-  scratch at the size the library's `flash_attention_bwd_work` gives).
+- bf16 at head widths 64, 128 and 256, and at the pair 192 / 128: the
+  Hopper kernels (TMA rings, `wgmma`; a dK/dV kernel per (batch, query
+  head, k tile) writing f32 per-head partials into a scratch of
+  B T H (D + Dv) floats that a small kernel sums over each kv head's
+  query heads in a fixed order, and a dQ kernel; at 256 and at 192 / 128
+  their own layouts: 64-row tiles, the two consumer warpgroups splitting
+  dK from dV and the k tiles of dQ, and at 192 / 128 a head's tiles
+  launched side by side, so that they share its tiles in L2; the wrapper
+  allocates the scratch at the size the library's
+  `flash_attention_bwd_work` gives).
   Under a window they visit only the tiles some allowed pair lies in. The
   tensor cores take bf16 operands, so p is rounded to bf16 for dV and dS
   for dK and dQ: `flash_attention_bwd_plain(round_p=True)` rounds the
   same. `flash_attention_bwd.launches_tc` counts these calls;
-- f32, and bf16 at widths 16 and 32: the scalar kernels, all in f32.
+- f32 (the pair 192 / 128 too), and bf16 at widths 16 and 32: the scalar
+  kernels, all in f32.
 
-The backward kernels take one width for q, k and v: at the pair 192 / 128
-(MLA's training) `flash_attention_bwd` and a `FlashAttentionFn` that
-wants a gradient raise `NotImplementedError` naming ROADMAP A9 on a
-device other than the CPU, before any launch; on the CPU both run the
-plain versions, which take the pair.
+The backward takes the calls the forward takes (`V_PAIRS` included:
+MLA's training); dq and dk have q's width, dv, o and do v's.
 
 `flash_attention_bwd.launches` counts every call (each launches its
 design's kernels together). On CPU tensors both halves run their plain
@@ -106,9 +107,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _L = ctypes.c_longlong
 _SIG = {"flash_attention": [_build.P] * 5 + [_build.I] * 8 + [_L] * 9
         + [_build.I, _build.I, ctypes.c_float, _build.P]}
-_SIG_BWD = {"flash_attention_bwd": [_build.P] * 10 + [_build.I] * 7
+_SIG_BWD = {"flash_attention_bwd": [_build.P] * 10 + [_build.I] * 8
             + [_L] * 9 + [_build.I, _build.I, ctypes.c_float, _build.P],
-            "flash_attention_bwd_work": [_build.I] * 6
+            "flash_attention_bwd_work": [_build.I] * 7
             + [ctypes.POINTER(_L)]}
 
 
@@ -284,12 +285,10 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, causal, window, cap, return_lse)
 
 
-def _check(q, k, v, window=None, cap=None):
-    """Raise unless q, k, v are tensors on one CUDA device that the kernels
-    take; returns whether the call takes the tensor-core path."""
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {dev}")
+def _shapes(q, k, v):
+    """Raise unless q [B, S, H, D], k [B, T, K, D] and v [B, T, K, Dv] are
+    shapes the kernels take (Dv = D of `HEAD_DIMS`, or a pair of
+    `V_PAIRS`)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -305,6 +304,17 @@ def _check(q, k, v, window=None, cap=None):
     if Dv != D and (D, Dv) not in V_PAIRS:
         raise ValueError(f"flash_attention: q/k width {D} over v width "
                          f"{Dv}, a pair not in {V_PAIRS}")
+
+
+def _check(q, k, v, window=None, cap=None):
+    """Raise unless q, k, v are tensors on one CUDA device that the kernels
+    take; returns whether the call takes the tensor-core path."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    _shapes(q, k, v)
+    B, S, H, D = q.shape
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype}, expected "
                         f"float32 or bfloat16")
@@ -348,44 +358,48 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
                         window=None, cap=None):
     """(dq, dk, dv) of `flash_attention_bshd(q, k, v, causal=, window=,
-    cap=)`: q, o, do [B, S, H, D], k/v [B, T, K, D], lse f32 [B, H, S]
-    from the forward. On a CUDA tensor one call launches the backward
-    kernels (the tensor-core design where `tensor_core_path` says so,
-    rounding as `flash_attention_bwd_plain(round_p=True)`; else the scalar
-    one, all f32); on a CPU tensor it runs `flash_attention_bwd_plain`;
-    anything else raises, a narrower v (MLA's) with NotImplementedError
-    naming ROADMAP A9 (no backward kernel takes it yet). Returns contiguous
-    gradients in the inputs' dtype."""
+    cap=)`: q [B, S, H, D], k [B, T, K, D], v [B, T, K, Dv] (Dv = D, or a
+    pair of `V_PAIRS`), o and do [B, S, H, Dv], lse f32 [B, H, S] from the
+    forward. On a CUDA tensor one call launches the backward kernels (the
+    tensor-core design where `tensor_core_path` says so, rounding as
+    `flash_attention_bwd_plain(round_p=True)`; else the scalar one, all
+    f32); on a CPU tensor it runs `flash_attention_bwd_plain`; anything
+    else raises. Returns contiguous gradients in the inputs' dtype, dv of
+    v's width."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, cap=cap)
-    if v.shape[-1] != q.shape[-1]:
-        raise _narrow_v_grad(q, v)
+    # the shapes first, so that a call no kernel takes raises as such on
+    # any device
+    _shapes(q, k, v)
+    B, S, H, D = q.shape
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[3]
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (B, S, H, Dv):
+            raise ValueError(f"flash_attention_bwd: {name} is "
+                             f"{tuple(t.shape)}, expected {(B, S, H, Dv)}")
     tc = _check(q, k, v, window, cap)
     dev = q.device
-    B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
     for name, t in (("o", o), ("do", do)):
-        if tuple(t.shape) != (B, S, H, D) or t.device != dev:
-            raise ValueError(f"flash_attention_bwd: {name} is "
-                             f"{tuple(t.shape)} on {t.device}, expected "
-                             f"{(B, S, H, D)} on {dev}")
+        if t.device != dev:
+            raise ValueError(f"flash_attention_bwd: {name} is on "
+                             f"{t.device}, q on {dev}")
     o, do = o.to(q.dtype).contiguous(), do.to(q.dtype).contiguous()
     _build.check("flash_attention_bwd lse", lse, torch.float32, (B, H, S),
                  dev)
     q, k, v = (_operand(t, tc) for t in (q, k, v))
     lib = _build.load("flash_attention_bwd", _SIG_BWD)
     floats = _L()
-    lib.flash_attention_bwd_work(_DTYPES[q.dtype], B, H, S, T, D,
+    lib.flash_attention_bwd_work(_DTYPES[q.dtype], B, H, S, T, D, Dv,
                                  ctypes.byref(floats))
     work = torch.empty(floats.value, dtype=torch.float32, device=dev)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, T, K, D), dtype=q.dtype, device=dev)
-    dv = torch.empty((B, T, K, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, T, K, Dv), dtype=q.dtype, device=dev)
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, H, K, S, T, D,
+        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, H, K, S, T, D, Dv,
         *_strides(q), *_strides(k), *_strides(v), int(causal),
         int(window or 0), float(cap or 0.0), _build.stream_ptr(dev))
     _build.launch_error("flash_attention_bwd", err)
@@ -394,29 +408,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-def _narrow_v_grad(q, v) -> NotImplementedError:
-    """The error of a gradient the backward kernels cannot give yet."""
-    return NotImplementedError(
-        f"flash_attention's backward at q/k width {q.shape[-1]} over v width "
-        f"{v.shape[-1]} (MLA training) is not ported yet (ROADMAP A9: the "
-        f"LM substrate, the rest)")
-
-
 class FlashAttentionFn(torch.autograd.Function):
     """`flash_attention_bshd(q, k, v, causal=, window=, cap=)` with a
     gradient: `FlashAttentionFn.apply(q, k, v, causal, window, cap)`. The
     forward writes the row log-sum-exp only when an input wants a gradient
     (as it does again when `torch.utils.checkpoint` recomputes it) and
     saves q, k, v, o and lse; the backward is `flash_attention_bwd` with
-    the same causal flag, window and cap. Off the CPU, a gradient at a
-    narrower v (MLA's) raises NotImplementedError naming ROADMAP A9 in the
-    forward, before any launch."""
+    the same causal flag, window and cap (v may be narrower: a pair of
+    `V_PAIRS`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, window=None, cap=None):
         want = any(ctx.needs_input_grad[:3])
-        if want and q.device.type != "cpu" and v.shape[-1] != q.shape[-1]:
-            raise _narrow_v_grad(q, v)
         out = flash_attention_bshd(q, k, v, causal=causal, window=window,
                                    cap=cap, return_lse=want)
         ctx.causal, ctx.window, ctx.cap = causal, window, cap

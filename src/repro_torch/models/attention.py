@@ -36,8 +36,8 @@ the `flash_attention` kernel (its 192 / 128 instantiation, through
 devices: `wk_b` folded into q and `wv_b` applied after the softmax, so a
 step reads the latent cache {"ckv" [B, T, r], "krope" [B, T, rope]}
 (written in place) and never the per-head k and v. Training MLA on the
-card needs the backward kernel at 192 / 128, which a later slice brings:
-there `FlashAttentionFn` raises NotImplementedError naming ROADMAP A9.
+card differentiates through `FlashAttentionFn`, whose backward is the
+`flash_attention_bwd` kernel's 192 / 128 instantiation.
 """
 from __future__ import annotations
 
@@ -262,9 +262,10 @@ def _mla_qkv_latent(x, p, cfg, positions):
 def mla_apply(x, p, cfg, positions):
     """Full-sequence MLA: per-head k/v decompressed from the latent
     (prefill and training). Runs the flash_attention kernel (q/k width
-    192, v width 128 at the full config) on CUDA tensors,
-    chunked_attention on CPU tensors. Returns (out, (ckv, k_rope
-    [B,S,rope]) for caching)."""
+    192, v width 128 at the full config) on CUDA tensors, its gradient
+    the flash_attention_bwd kernel at the same widths, and
+    chunked_attention, under autograd, on CPU tensors. Returns (out, (ckv,
+    k_rope [B,S,rope]) for caching)."""
     m = cfg.mla
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(x, p, cfg, positions)
     k_nope = _proj(ckv, p["wk_b"])

@@ -88,11 +88,13 @@ def unstack_jax_tree(tree: dict, cfg) -> dict:
     flat: dict = {}
     _flat("", {k: tree[k] for k in ("embed", "unembed", "lnf")}, flat)
     layers = list(tree.get("prefix", []))
+    # (a pattern repeated 0 times may have no entry: it holds no leaf)
+    pattern = tree.get("pattern", [])
     for r in range(reps):
-        for group in tree["pattern"]:
+        for group in pattern:
             layers.append(_slice(group, r))
     layers += list(tree.get("suffix", []))
-    if len(tree["pattern"]) != len(pat) or len(layers) != cfg.n_layers:
+    if (reps and len(pattern) != len(pat)) or len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: the tree has {len(layers)} layers, "
                          f"the config {cfg.n_layers}")
     for i, block in enumerate(layers):
@@ -125,7 +127,9 @@ def jax_tree(flat: dict, cfg, stack: Callable = torch.stack) -> dict:
             "prefix": [block(i) for i in pre_ids],
             "suffix": [block(i) for i in suf_ids], "pattern": []}
     for ids in pat_ids:
-        tree["pattern"].append(_stack([block(i) for i in ids], stack))
+        # a pattern repeated 0 times (a model cut to its prefix) has no leaf
+        tree["pattern"].append(_stack([block(i) for i in ids], stack)
+                               if ids else {})
     return tree
 
 

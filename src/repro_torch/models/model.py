@@ -35,9 +35,7 @@ weights (`self.params`, a `transformer.LMParams`), so the steps take no
   tensors every attention layer runs the `flash_attention` kernel
   twice (the forward and its recomputation under remat) and its backward
   kernel once a microbatch (with gemma2's window, soft-cap and head width
-  256 too). An MLA config trains on the CPU; on the card its first layer
-  raises NotImplementedError naming ROADMAP A9 (no backward kernel at
-  q/k width 192 over v width 128 yet), before any launch.
+  256 too; an MLA layer at q/k width 192 over v width 128).
 
 Inputs are dicts of tensors or numpy arrays ({"tokens": [B, S] int}, or
 with `embed_inputs` {"embeddings": [B, S, d], "labels": [B, S] int}, and

@@ -282,11 +282,10 @@ def test_flash_attention_fn_refuses_what_the_backward_lacks():
     plain backward takes the narrower v. What it still refuses is a device
     without a kernel: on `meta`, with a gradient and with the window, the
     cap or width 256, the call reaches the kernel's device check and
-    raises before any launch, as does the backward itself; and off the
-    CPU the backward at 192 / 128 (MLA's training, ROADMAP A9): a
-    gradient there raises NotImplementedError naming A9 before any
-    launch, in the Function's forward and in the backward, while the
-    forward without a gradient reaches the device check."""
+    raises before any launch, as does the backward itself; and so, since
+    the backward kernels take 192 / 128 too (MLA's training), does a
+    gradient there, in the Function's forward and in the backward, as the
+    forward without a gradient does."""
     assert tflash.HEAD_DIMS == (16, 32, 64, 128, 256)
     assert tflash.V_PAIRS == ((192, 128),)
     assert not hasattr(tflash, "BWD_HEAD_DIMS")
@@ -322,15 +321,43 @@ def test_flash_attention_fn_refuses_what_the_backward_lacks():
     mq = torch.empty(1, 8, 2, 192, device="meta", requires_grad=True)
     mv = torch.empty(1, 8, 2, 128, device="meta", requires_grad=True)
     before = (flash_attention.launches, tflash.flash_attention_bwd.launches)
-    with pytest.raises(NotImplementedError, match="MLA training.*A9"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         tflash.FlashAttentionFn.apply(mq, mq, mv, True)
-    with pytest.raises(NotImplementedError, match="MLA training.*A9"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         tflash.flash_attention_bwd(mq, mq, mv, mv, lse, mv)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tflash.FlashAttentionFn.apply(mq.detach(), mq.detach(), mv.detach(),
                                       True)
     assert (flash_attention.launches,
             tflash.flash_attention_bwd.launches) == before
+
+
+def test_flash_attention_bwd_checks_mla_shapes_before_the_device():
+    """flash_attention_bwd at MLA's q/k width 192 over v width 128: with o
+    and do of v's width the call is one the kernels take and reaches the
+    device check (on `meta`, no kernel); o or do of q's width, and a pair
+    outside `V_PAIRS` (q/k 256 over v 128), raise ValueError naming the
+    shape before it. None launches anything."""
+    def meta(*shape):
+        return torch.empty(*shape, device="meta")
+
+    q, k, v = meta(1, 8, 4, 192), meta(1, 8, 4, 192), meta(1, 8, 4, 128)
+    o, lse = meta(1, 8, 4, 128), meta(1, 4, 8)
+    before = (tflash.flash_attention_bwd.launches,
+              tflash.flash_attention_bwd.launches_tc)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tflash.flash_attention_bwd(q, k, v, o, lse, o)
+    wide = meta(1, 8, 4, 192)
+    with pytest.raises(ValueError, match=r"o is \(1, 8, 4, 192\), "
+                                         r"expected \(1, 8, 4, 128\)"):
+        tflash.flash_attention_bwd(q, k, v, wide, lse, o)
+    with pytest.raises(ValueError, match=r"do is \(1, 8, 4, 192\)"):
+        tflash.flash_attention_bwd(q, k, v, o, lse, wide)
+    q2, k2 = meta(1, 8, 4, 256), meta(1, 8, 4, 256)
+    with pytest.raises(ValueError, match="a pair not in"):
+        tflash.flash_attention_bwd(q2, k2, v, o, lse, o)
+    assert (tflash.flash_attention_bwd.launches,
+            tflash.flash_attention_bwd.launches_tc) == before
 
 
 @pytest.mark.parametrize("causal", [True, False])

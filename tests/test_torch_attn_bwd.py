@@ -23,7 +23,10 @@ is held:
 Each case runs causal and full, at S 64 and 96 and a ragged S; the first
 two also with gemma2's window and soft-cap, alone and together (causal, q
 scaled by 3 so that scores reach the cap), against `chunked_attention(
-window=, cap=)`'s VJP.
+window=, cap=)`'s VJP. MLA's widths (q/k 192 over v 128, the pair the
+tensor-core backward also takes) run the same three holds, with one kv
+head a query head (4 over 4: deepseek-v3's G = 1) causal and full at the
+same lengths, and once with GQA (4 over 2).
 """
 import math
 
@@ -49,25 +52,35 @@ CASE_IDS = [f"S{s}-{'causal' if c else 'full'}" for s, c in CASES]
 MOD_CASES = [(96, 24, None), (96, None, 2.0), (96, 24, 2.0), (50, 16, 1.5)]
 MOD_IDS = [f"S{s}-causal" + (f"-w{w}" if w else "")
            + (f"-cap{c:g}" if c else "") for s, w, c in MOD_CASES]
-ALL = ([(s, c, None, None) for s, c in CASES]
-       + [(s, True, w, c) for s, w, c in MOD_CASES])
-ALL_IDS = CASE_IDS + MOD_IDS
+GQA = (H, K, D, D)                  # (query heads, kv heads, q/k, v width)
+# MLA's q/k width 192 over v width 128: G = 1 at every case, GQA once
+MLA = [(s, c, (4, 4, 192, 128)) for s, c in CASES] + [(64, True,
+                                                         (4, 2, 192, 128))]
+MLA_IDS = [f"mla-{i}" for i in CASE_IDS] + ["mla-S64-causal-gqa"]
+ALL = ([(s, c, None, None, GQA) for s, c in CASES]
+       + [(s, True, w, c, GQA) for s, w, c in MOD_CASES]
+       + [(s, c, None, None, w) for s, c, w in MLA])
+ALL_IDS = CASE_IDS + MOD_IDS + MLA_IDS
+F32 = [(s, c, GQA) for s, c in CASES] + MLA
+F32_IDS = CASE_IDS + MLA_IDS
 TOL_AUTOGRAD = 2.0 ** -6
 TOL_JAX = 2.0 ** -5
 
 
-def _inputs(S: int, dtype=torch.bfloat16, q_scale=1.0):
+def _inputs(S: int, dtype=torch.bfloat16, q_scale=1.0, widths=GQA):
     """q, k, v, do as `dtype` tensors from one numpy seed per length, q
-    times `q_scale`."""
+    times `q_scale`, at `widths` (query heads, kv heads, q/k width, v
+    width)."""
+    h, kh, d, dv = widths
     rng = np.random.default_rng(1000 + S)
-    shapes = ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D))
+    shapes = ((B, S, h, d), (B, S, kh, d), (B, S, kh, dv), (B, S, h, dv))
     x = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
     x[0] = x[0] * np.float32(q_scale)
     return [torch.from_numpy(a).to(dtype) for a in x]
 
 
-def _mod_inputs(S, cap, dtype=torch.bfloat16):
-    return _inputs(S, dtype, 1.0 if cap is None else 3.0)
+def _mod_inputs(S, cap, dtype=torch.bfloat16, widths=GQA):
+    return _inputs(S, dtype, 1.0 if cap is None else 3.0, widths)
 
 
 def _rel(got, want) -> float:
@@ -75,9 +88,9 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("S,causal,window,cap", ALL, ids=ALL_IDS)
-def test_round_p_matches_autograd(S, causal, window, cap):
-    q, k, v, do = _mod_inputs(S, cap)
+@pytest.mark.parametrize("S,causal,window,cap,widths", ALL, ids=ALL_IDS)
+def test_round_p_matches_autograd(S, causal, window, cap, widths):
+    q, k, v, do = _mod_inputs(S, cap, widths=widths)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     kw = dict(causal=causal, window=window, cap=cap)
     o, lse = flash_attention_bshd_plain(q, k, v, round_p=True,
@@ -108,9 +121,9 @@ def _jax_grads(q, k, v, do, causal: bool, window=None, cap=None):
             for g in vjp(to_jax(do))]
 
 
-@pytest.mark.parametrize("S,causal,window,cap", ALL, ids=ALL_IDS)
-def test_round_p_near_jax_bf16_vjp(S, causal, window, cap):
-    q, k, v, do = _mod_inputs(S, cap)
+@pytest.mark.parametrize("S,causal,window,cap,widths", ALL, ids=ALL_IDS)
+def test_round_p_near_jax_bf16_vjp(S, causal, window, cap, widths):
+    q, k, v, do = _mod_inputs(S, cap, widths=widths)
     kw = dict(causal=causal, window=window, cap=cap)
     o, lse = flash_attention_bshd_plain(q, k, v, round_p=True,
                                         return_lse=True, **kw)
@@ -126,11 +139,11 @@ def _bwd_f32_reference(q, k, v, o, lse, do, causal):
     """The f32 closed form as the scalar kernels' oracle computed it before
     round_p also rounded dS: the same operations in the same order."""
     B_, S, H_, D_ = q.shape
-    T, K_ = k.shape[1], k.shape[2]
+    T, K_, Dv_ = k.shape[1], k.shape[2], v.shape[3]
     G = H_ // K_
     scale = 1.0 / math.sqrt(D_)
     qf = q.float().reshape(B_, S, K_, G, D_)
-    dof = do.float().reshape(B_, S, K_, G, D_)
+    dof = do.float().reshape(B_, S, K_, G, Dv_)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bskgd,btkd->bkgst", qf, kf) * scale
     if causal:
@@ -147,9 +160,9 @@ def _bwd_f32_reference(q, k, v, o, lse, do, causal):
             dv.to(v.dtype))
 
 
-@pytest.mark.parametrize("S,causal", CASES, ids=CASE_IDS)
-def test_f32_unchanged_bit_for_bit(S, causal):
-    q, k, v, do = _inputs(S, torch.float32)
+@pytest.mark.parametrize("S,causal,widths", F32, ids=F32_IDS)
+def test_f32_unchanged_bit_for_bit(S, causal, widths):
+    q, k, v, do = _inputs(S, torch.float32, widths=widths)
     o, lse = flash_attention_bshd_plain(q, k, v, causal=causal,
                                         return_lse=True)
     want = _bwd_f32_reference(q, k, v, o, lse, do, causal)

@@ -10,9 +10,13 @@ for `mla_decode` at every position (its output and the cache it writes in
 place); `init_mla_cache`'s names, dtypes and shapes equal to JAX's. The
 port's own parity: the absorbed-matrix decode against the decompressed
 full-sequence attention, position by position. `convert` carries every
-MLA leaf and the shared expert both ways under JAX's tree paths. On the
-CPU `mla_apply` runs `chunked_attention`; the CUDA kernel at 192 / 128 is
-held against its plain version on the card by `chip_smoke.py` (phase 16).
+MLA leaf and the shared expert both ways under JAX's tree paths. One
+Adafactor `train_step` with bf16 gradient sums at 192 / 128 on the 3
+dense layers that `chip_smoke.py` trains on the card, against JAX's, at
+tests/test_torch_train.py's bars. On the CPU `mla_apply` runs
+`chunked_attention`; the CUDA kernels at 192 / 128 (forward and
+backward) are held against their plain versions on the card by
+`chip_smoke.py` (phase 16).
 """
 import dataclasses
 
@@ -30,7 +34,8 @@ import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.models import LMModel  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
-    jax_paths, params_from_jax, params_to_jax, unstack_paths)
+    jax_paths, jax_tree, opt_state_from_jax, params_from_jax, params_to_jax,
+    unstack_paths)
 
 TOL = 1e-5
 ARCH = "deepseek-v3-671b"
@@ -206,3 +211,48 @@ def test_mla_gradients_match_jax():
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), w, rtol=0, err_msg=name,
                                    atol=TOL * np.abs(w).max())
+
+
+def test_adafactor_train_step_at_full_head_widths_matches_jax():
+    """One train_step of deepseek-v3-671b's smoke config at the full
+    config's head widths (WIDE: q/k 192 over v 128) in the layout
+    chip_smoke.py trains on the card, its 3 mla_dense layers alone (the
+    pattern repeated 0 times: JAX keeps its stacked leaves with a layer
+    axis of 0, which the port does not hold; the pattern's kind and `moe`
+    set to what no layer reads, a dense kind and none, since JAX traces
+    the pattern's initialiser even at 0 repeats and `_check_step` holds a
+    MoE config to a nonzero aux loss), with its own optimizer
+    (Adafactor) and bf16 gradient sums, against
+    `repro.models.LMModel.train_step` at tests/test_torch_train.py's bars
+    (`_check_step`: loss and every gradient leaf within 1e-5; the weights
+    and factors within 1e-5 of each leaf's max against JAX's update of the
+    port's gradients rounded to bf16, as both packages' accumulators round
+    them). The MoE layers' step at the smoke widths is
+    tests/test_torch_train.py's."""
+    from test_torch_train import _check_step, _flat, _leaves_close
+    import repro.optim as jopt
+
+    tcfg, jcfg = _cfgs(WIDE, n_layers=3, repeats=0, moe=None,
+                       pattern=("mla_dense",))
+    assert (tcfg.optimizer, tcfg.grad_accum_dtype) == ("adafactor",
+                                                       "bfloat16")
+    jm = JLMModel(jcfg)
+    jp = jax.jit(jm.init_params)(jax.random.key(6))
+    model = LMModel(tcfg, device="cpu")
+    model.params.load_state_dict(
+        params_from_jax(jax.tree.map(np.asarray, jp), tcfg))
+    assert model.params.kinds == ("mla_dense",) * 3
+    _, _, gn, topt, tg = _check_step(model, jm, jp, tcfg, B=2)
+    assert gn == 0.0 and type(topt).__name__ == "AdafactorState"
+    g_tree = jax_tree({k: v.to(torch.bfloat16).float().numpy()
+                       for k, v in tg.items()}, tcfg, np.stack)
+    g_tree["pattern"] = jax.tree.map(np.zeros_like, jp["pattern"])
+    jnew, jstate, _ = jax.jit(jopt.adafactor_update)(
+        jax.tree.map(jnp.asarray, g_tree), jm.init_opt(jp), jp)
+    _leaves_close(dict(model.params.state_dict()), _flat(jnew, tcfg), TOL)
+    want = opt_state_from_jax(jax.tree.map(np.asarray, jstate), tcfg)
+    assert topt.vr["prefix.0.mix.wq_b"].shape == (32, tcfg.n_heads)
+    # JAX's factors of its empty pattern leaves: a row factor of 0 entries
+    held = {k for k, v in want.vr.items() if v.numel()}
+    for got, w in ((topt.vr, want.vr), (topt.vc, want.vc)):
+        _leaves_close(got, {k: w[k].numpy() for k in held}, TOL)

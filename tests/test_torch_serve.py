@@ -18,10 +18,9 @@ full-sequence forward takes distinct position streams, `grid_positions`;
 prefill-against-decode checks keep them). Bars: logits and
 caches within 1e-5 (the prefill's attention is `chunked_attention` on the
 CPU; the CUDA kernel is held against its plain version on the card by
-`chip_smoke.py`); greedy tokens exactly equal. Also the guards: what the
-port does not run yet (MLA's training off the CPU) raises
-NotImplementedError naming ROADMAP A9, and nothing is put on the CPU
-unless asked.
+`chip_smoke.py`); greedy tokens exactly equal. Also the guards: every
+family reaches the kernels' device check (on `meta`, before any launch),
+MLA's training too, and nothing is put on the CPU unless asked.
 """
 import dataclasses
 
@@ -427,16 +426,16 @@ def _mla_on_meta(cfg, grad: bool):
 
 @pytest.mark.parametrize("name,what", [("deepseek-v3-671b", "MLA")])
 def test_unported_families_raise(name, what):
-    """Every family is served now; what still raises naming A9 is MLA's
-    training off the CPU, whose backward kernel at q/k width 192 over v
-    width 128 a later slice brings. deepseek-v3-671b's model and caches
-    build (the full config's 61 layers on `meta`); on `meta` an MLA layer
-    that wants a gradient raises NotImplementedError naming A9 in
-    FlashAttentionFn's forward, before any launch, at the full config's
-    widths and at the smoke config's; without a gradient it reaches the
-    kernel's device check."""
+    """Every family is served and trained now: MLA's training too, whose
+    backward kernel takes q/k width 192 over v width 128. deepseek-v3-
+    671b's model and caches build (the full config's 61 layers on
+    `meta`); on `meta` an MLA layer reaches the kernel's device check
+    (no kernel there) before any launch, with a gradient and without, at
+    the full config's widths and at the smoke config's: nothing refuses
+    the family itself any more."""
     cfg = _port_cfg(jconfigs.smoke_config(jconfigs.get_config(name)))
     full = tconfigs.get_config(name)
+    assert (full.mla is not None) == (what == "MLA")
     LMModel(cfg, **CPU)
     assert len(ttfm.init_cache(cfg, 1, 4, **CPU)) == cfg.n_layers
     params = ttfm.init_params(full, generator=torch.Generator(),
@@ -447,11 +446,9 @@ def test_unported_families_raise(name, what):
     before = (tflash.flash_attention.launches,
               tflash.flash_attention_bwd.launches)
     for c in (full, cfg):
-        with pytest.raises(NotImplementedError,
-                           match=f"{what} training.*ROADMAP A9"):
-            _mla_on_meta(c, True)
-        with pytest.raises(ValueError, match="no kernel for device meta"):
-            _mla_on_meta(c, False)
+        for grad in (True, False):
+            with pytest.raises(ValueError, match="no kernel for device meta"):
+                _mla_on_meta(c, grad)
     assert (tflash.flash_attention.launches,
             tflash.flash_attention_bwd.launches) == before
 
@@ -461,9 +458,9 @@ def test_unported_options_raise():
     JAX's layout (codes int8, scales f32 [B, T, K, 1]; local layers
     clamped to the window). MLA and its layer kinds are ported too: MLA's
     latent cache has JAX's layout ({"ckv" [B, T, r], "krope" [B, T,
-    rope]}), and `init_block` gives each MLA kind JAX's leaves; what still
-    refuses is `flash_attention_bwd` off the CPU at q/k width 192 over v
-    width 128 (NotImplementedError naming A9, before any launch)."""
+    rope]}), and `init_block` gives each MLA kind JAX's leaves; and
+    `flash_attention_bwd` takes q/k width 192 over v width 128: on `meta`
+    it reaches the kernel's device check before any launch."""
     tcfg, jcfg = _cfgs("gemma2-9b", kv_cache_dtype="int8")
     LMModel(tcfg, **CPU)
     _layouts_equal(tcfg, jcfg, 2, 40)
@@ -483,7 +480,7 @@ def test_unported_options_raise():
     mv = torch.empty(1, 8, 2, 128, device="meta")
     lse = torch.empty(1, 2, 8, device="meta")
     before = tflash.flash_attention_bwd.launches
-    with pytest.raises(NotImplementedError, match="MLA training.*A9"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         tflash.flash_attention_bwd(m, m, mv, mv, lse, mv)
     assert tflash.flash_attention_bwd.launches == before
 
