@@ -165,8 +165,8 @@ Phases (any failure exits non-zero; nothing is caught):
      sharded, no rebuild, the trace's engine and iterations, L1 <= 1e-8
      to a from-scratch solve, every device table equal to the shard's
      mirror; (10d) four gloo ranks spawned on the card (run_ranks, a
-     deadline) at n = 2^20, m = 2^24 (GLOO: cut from 2^22 / 2^26 for the
-     phase's time): the 1-D engines (static, DF-P dense and with caps),
+     deadline) at n = 2^18, m = 2^22 (GLOO: cut from 2^22 / 2^26 for the
+     script's time): the 1-D engines (static, DF-P dense and with caps),
      pagerank_2d and dfp_2d on a (2, 2) mesh over a uniform graph of that
      size, and a guarded mesh session with a churn batch and a NaN batch
      that must walk the sharded rung; rank 0 holds each against a
@@ -262,7 +262,7 @@ Phases (any failure exits non-zero; nothing is caught):
      the library's one call (the backward of compiled flex_attention, the
      cap as its score_mod, causal + window as its block mask, held to the
      kernel's bars; a failure to compile is recorded); (13b) gemma2-9b's
-     widths at 2 layers (local, global) in f32, window 128, B 2 x 512:
+     widths at 2 layers (local, global) in f32, window 128, B 1 x 256:
      loss and every gradient leaf on the card (the scalar kernels) against
      the CPU (chunked_attention under autograd) at 11b's bars, the host's
      peak RSS; (13c) train() at full width, 2 layers (one local, one
@@ -298,10 +298,11 @@ Phases (any failure exits non-zero; nothing is caught):
      rwkv6-1.6b the same (the f32 model at 2 layers, 256 stepped
      decode_steps, then 16 more from the prefill's returned state against
      continued stepping; its prefill_step launches no kernel); (14d) each
-     family at full width in f32 on the card against the CPU, B 2 x 512:
-     recurrentgemma at one pattern, window 128, and rwkv6 at 2 layers, one
-     train_step (AdamW) each: loss, grad norm, m (the gradients), v and the
-     weights at 11b's bars; rwkv6's at 1e-4 of a leaf's max
+     family at full width in f32 on the card against the CPU on 512
+     tokens a row: recurrentgemma at one pattern, window 128, 1 row, and
+     rwkv6 at 2 layers, 2 rows, one train_step (AdamW) each: loss, grad
+     norm, m (the gradients), v and the weights at 11b's bars; rwkv6's
+     at 1e-4 of a leaf's max
      (TOL_TRAIN_RWKV), with the same step in f64 on the card as the
      witness that both f32 steps differ from it by rounding; (14e) train() in bf16, AdamW, 3
      steps (launch counts set to 0 just before): rwkv6-1.6b at full width,
@@ -374,14 +375,34 @@ Phases (any failure exits non-zero; nothing is caught):
      4 heads, 1024; FlashAttentionFn against autograd (f32); the big shape
      timed beside its bound (2 B H pairs (3 x 192 + 2 x 128) FLOPs),
      its plain version and SDPA's backward; (16e) one f32 mla_dense layer
-     at full width on 2 x 512: loss and every gradient on the card (one
+     at full width on 1 x 256: loss and every gradient on the card (one
      flash_attention_bwd, on the scalar kernels) against the CPU within
      1e-5; (16f) train() of deepseek-v3-671b in bf16 at full width cut to
      MLA_TRAIN's 3 mla_dense layers on 1 x 8192, Adafactor, bf16 gradient
      sums, 3 steps (launch counts set to 0 just before: 6 flash_attention
      and 3 flash_attention_bwd a step, all on the tensor cores), finite
      losses, every leaf moved, the steps' times, tokens/s, peak memory and
-     one more step's device-busy share.
+     one more step's device-busy share;
+ 17. training on a mesh (mesh_phase): (17a) flash_attention and
+     flash_attention_bwd at one rank's share of qwen2-1.5b's heads on
+     'model' 2 (bf16, B 1, 6 q heads over 1 kv head, D 128, S = T = 2048)
+     against their plain versions at 9's / 11a's bars, on the tensor
+     cores, timed beside SDPA; then four gloo ranks spawned on the card
+     (run_ranks; NCCL refuses two ranks on one card), mesh (2, 2) over
+     ("data", "model"), zero1 and seq_parallel: (17b) one f32 train_step
+     of qwen2-1.5b at full width, 2 layers, 2 x 256, each rank holding
+     the loss, grad_norm and its shards of AdamW's m (the clipped
+     gradients) and of the weights against one device's step (which every
+     rank runs too) at 11b's bars; (17c) train(mesh=) of qwen2-1.5b in
+     bf16 at full width cut to MESH_TRAIN's 4 layers, 4 x 2048, 3 steps
+     (launch counts set to 0 just before: on every rank 8 flash_attention
+     and 4 flash_attention_bwd a step, all on the tensor cores), equal
+     histories on every rank, each step's loss and grad_norm and the
+     step-3 weights against train() of the same 3 steps on one device
+     (TOL_MESH_*), every leaf moved, each rank's step times, time in
+     collectives
+     and peak memory, and the step-3 checkpoint restored on one device into
+     the gathered weights bit for bit.
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -1445,12 +1466,12 @@ def obs_phase(sess, reg, capture_dir: str) -> dict:
 # Phase 10: the sharded engines (repro_torch.core.distributed, distributed2d,
 # stream.sharded). 10a and 10b-c run on phase 1's graph; 10d spawns four
 # gloo ranks on the one card (NCCL refuses two ranks on one card) at
-# n = 2^20, m = 2^24, cut from 2^22 / 2^26 for the phase's time; its 2-D
+# n = 2^18, m = 2^22, cut from 2^22 / 2^26 for the script's time; its 2-D
 # engines run on a uniform graph of that size, since a block of the 2-D
 # split is one ELL as wide as the block's largest in-degree, which the
 # power-law graph's hubs would make ~10^5 wide.
 SHARD_ND = 4                                 # 10a: shards of the graph
-GLOO = dict(ranks=4, n=2 ** 20, m=2 ** 24)   # 10d
+GLOO = dict(ranks=4, n=2 ** 18, m=2 ** 22)   # 10d, cut for the script's time
 GLOO_TIMEOUT_S = 300.0
 
 
@@ -1871,7 +1892,7 @@ def gloo_rank(rank, world, cfg) -> dict:
 # health word's overhead timed over this many interleaved pairs of solves
 GUARD = dict(policy="quarantine", audit_every=3)
 # 8b's graph, cut from phase 3's 2^22 vertices and 2^26 edges for the
-# script's time (its full-size restore took 123-137 s): 10d's size
+# script's time (its full-size restore took 123-137 s)
 GUARD_GRAPH = (2 ** 20, 2 ** 24)
 HEALTH_PAIRS = 3
 
@@ -3285,7 +3306,7 @@ def gemma_phase(args, dev, report):
 
 # -- phase 13: gemma2-9b training ---------------------------------------------
 GEMMA_BWD_BATCH = 1                 # 13a: B 1 at gemma2's context
-GEMMA_PARITY = (2, 512, 128)        # 13b: B, S, window (short, so it masks)
+GEMMA_PARITY = (1, 256, 128)        # 13b: B, S, window (short, so it masks)
 GEMMA_TRAIN_SEQ = 8192              # 13c: gemma2's context, B 1
 # 13c's depth: two local and two global layers, the one cut. The step
 # peaks in the backward of the 256,000-word head, where a layer holds only
@@ -3514,7 +3535,7 @@ def gemma_bwd_checks(args, dev, report):
 
 def gemma_train_parity(args, dev, report):
     """13b: gemma2-9b at full width, 2 layers (one local, one global), f32,
-    the window cut to 128 so that it masks at B 2 x 512: loss and every
+    the window cut to 128 so that it masks at B 1 x 256: loss and every
     gradient leaf on the card (the scalar kernels, with the window and the
     cap) against the CPU (chunked_attention under autograd), within the CPU
     tests' bars. A parity check, not the path."""
@@ -3869,7 +3890,9 @@ LONG_CONTEXT = 524_288              # long_500k's decode position (shapes.py)
 # cache rolls 64 times
 REC_F32_PROMPT = 2112
 RWKV_F32 = (2, 256, 16)             # 14c: layers, prompt, steps continued
-REC_PARITY = (2, 512, 128)          # 14d: B, S, recurrentgemma's window
+# 14d: B, S, recurrentgemma's window; recurrentgemma on 1 x 512 (its
+# host step, 51 s at 2 x 512 on a slow host, is the phase's largest part)
+REC_PARITY = (2, 512, 128)
 # 14d's bar for rwkv6: its decays start at 1 - 2.5e-3, so the wkv state
 # sums its tokens almost undamped and a gradient is a sum with cancellation
 # whose f32 rounding grows with the tokens summed (at the smoke widths and
@@ -4237,16 +4260,16 @@ def rec_serve_checks(args, dev, arch, report):
 
 def rec_train_parity(args, dev, report):
     """14d: each family at full width in f32 on the card and on the CPU
-    from the same weights, B 2 x 512, one train_step (AdamW) each:
+    from the same weights, S 512, one train_step (AdamW) each:
     recurrentgemma at one pattern (rec, rec, attn_local) with its window
-    cut to 128 so that it masks, rwkv6 at 2 layers. Loss and grad norm
-    relative; m (0.1 x the clipped gradient: the gradients, leaf by leaf)
-    of each leaf's max, v at 2 x; the weights within AdamW's sign-step bar
-    (11b's). The bars: TOL_TRAIN; TOL_TRAIN_RWKV for rwkv6, with its
-    witness: the same step's m in f64 on the card (`grads_f64`), which the
-    card's and the host's f32 m each lie within, and which two chunkings
-    give alike to 1e-10. The host's results are compared on the card. A
-    parity check, not the path."""
+    cut to 128 so that it masks, B 1; rwkv6 at 2 layers, B 2. Loss and
+    grad norm relative; m (0.1 x the clipped gradient: the gradients, leaf
+    by leaf) of each leaf's max, v at 2 x; the weights within AdamW's
+    sign-step bar (11b's). The bars: TOL_TRAIN; TOL_TRAIN_RWKV for rwkv6,
+    with its witness: the same step's m in f64 on the card
+    (`grads_f64`), which the card's and the host's f32 m each lie within,
+    and which two chunkings give alike to 1e-10. The host's results are
+    compared on the card. A parity check, not the path."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4256,16 +4279,16 @@ def rec_train_parity(args, dev, report):
     torch.backends.cuda.matmul.allow_tf32 = False
     B, S, W = REC_PARITY
     out = report.setdefault("recurrent", {}).setdefault("parity", {})
-    for arch, cut in ((REC_ARCH, dict(n_layers=3, repeats=1, suffix=(),
-                                      window=W)),
-                      (RWKV_ARCH, dict(n_layers=2, repeats=2))):
+    for arch, b, cut in ((REC_ARCH, 1, dict(n_layers=3, repeats=1,
+                                            suffix=(), window=W)),
+                         (RWKV_ARCH, B, dict(n_layers=2, repeats=2))):
         cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
         t0 = time.perf_counter()
         card = LMModel(cfg, device=dev, seed=args.seed)
         # the CPU's copy: the same seed's weights drawn on the card, moved
         cpu = LMModel(cfg, device=dev, seed=args.seed).to("cpu")
         cpu.device = torch.device("cpu")
-        batch = batch_for(cfg, B, S, 0, args.seed)
+        batch = batch_for(cfg, b, S, 0, args.seed)
         n_attn = int(arch == REC_ARCH)
         tol = TOL_TRAIN if n_attn else TOL_TRAIN_RWKV
         n0 = launch_counts()
@@ -4320,7 +4343,7 @@ def rec_train_parity(args, dev, report):
         rep.update(s=time.perf_counter() - t0,
                    host_peak_rss_gib=peak_rss_gib())
         log(f"[rec-train] 14d {arch} full width, {cfg.n_layers} layers, f32"
-            f"{f', window {W}' if n_attn else ''}, {B} x {S}, card vs CPU: "
+            f"{f', window {W}' if n_attn else ''}, {b} x {S}, card vs CPU: "
             f"{what} (bar {tol}); {rep['s']:.1f} s (the host's train_step "
             f"{rep['host_step_s']:.1f} s), host peak RSS "
             f"{rep['host_peak_rss_gib']:.1f} GiB")
@@ -5215,9 +5238,10 @@ def deepseek_serve_checks(args, dev, report):
 
 # 16d-16f: MLA training. 16d's bf16 big shape is one training layer's
 # attention (B 1 at 8192, as gemma2's 13a); 16e's f32 witness one dense
-# layer at full width on 2 x 512
+# layer at full width on 1 x 256 (both cut from 2 x 512 for the script's
+# time, as 13b's)
 MLA_BWD = (1, 8192)                 # 16d: B, S = T of the big shape
-MLA_PARITY = (2, 512)               # 16e: B, S
+MLA_PARITY = (1, 256)               # 16e: B, S
 # 16f: deepseek-v3-671b trained at full width cut to its 3 mla_dense
 # layers on 1 x 8192. One mla_moe layer holds 11.27 B expert weights:
 # 22.5 GB in bf16, 22.5 GB of bf16 gradients and Adafactor's f32
@@ -5431,6 +5455,429 @@ def mla_phase(args, dev, report):
     log(f"[mla] phase 16 {s:.1f} s; its main path's launches {launches}")
     return dict(launches=launches, max_abs_err=err, max_abs_err_bwd=err_b,
                 times=times, times_bwd=times_b)
+
+
+# -- phase 17: training on a mesh ---------------------------------------------
+MESH_SHAPE = (2, 2)                 # ("data", "model"): four gloo ranks
+MESH_ATTN = (1, 2048)               # 17a: one rank's B, S = T
+MESH_WITNESS = (2, 256, 2)          # 17b: B, S, layers (f32)
+# 17c: qwen2-1.5b at full width cut to 4 of its 28 layers, for the
+# script's time: train() gathers every leaf of the step-3 checkpoint
+# through host memory (gloo) and rank 0 writes it, 15.4 GB at 28 layers
+# (bf16 weights and f32 AdamW state) against 6.5 GB at 4
+MESH_TRAIN = (4, 2048, 4)           # B, S, layers
+MESH_FLAGS = dict(zero1=True, seq_parallel=True)
+MESH_TIMEOUT_S = 300.0
+MESH_REPEATS = 5                    # 17a's timed samples (phase 9's are 20)
+# 17c against train() on one device, the same 3 steps, bars set from the
+# readings on an H100 (bf16 gradient sums in another order): the first
+# loss (7.2e-6 relative), the later losses (1.9e-5, 1.5e-5) and every
+# step's grad_norm (6.3e-4 to 6.7e-4); the step-3 weights' distance from
+# the one-device weights over that run's own move, |w_mesh - w_one| /
+# |w_one - w_0| (2-norms), over the whole model (0.066) and leaf by leaf
+# (at most 0.52, the k biases, whose small gradients are mostly rounding;
+# 0.14 the rest). AdamW's update is about lr sign(g): a leaf updated with
+# unrelated gradients reads about sqrt(2)
+TOL_MESH_LOSS = 1e-4
+TOL_MESH_LATER = 1e-4
+TOL_MESH_GNORM = 3e-3
+TOL_MESH_WEIGHTS_ALL = 0.2
+TOL_MESH_WEIGHTS = 1.0
+
+
+def mesh_attn_checks(args, dev, report):
+    """17a: flash_attention and flash_attention_bwd at one rank's share of
+    qwen2-1.5b's attention on 'model' 2 (6 q heads over 1 kv head, D 128),
+    bf16, B 1, S = T = 2048, causal, on the tensor cores: each against its
+    plain version at phase 9's / 11a's bars, the backward's two runs bit
+    for bit; times beside the bound and scaled_dot_product_attention.
+    Returns (worst forward error, worst backward error, times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain,
+                                                flash_attention_bwd)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    cfg = get_config(LM_ARCH)
+    mp = MESH_SHAPE[1]
+    H, K, D = cfg.n_heads // mp, cfg.n_kv_heads // mp, cfg.hd
+    B, S = MESH_ATTN
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=dev).to(bf)
+                   for h in (H, K, K, H))
+    shape = (f"{LM_ARCH} on one of {mp} 'model' ranks: H {H} over K {K}, "
+             f"D {D}, B {B}, S = T = {S}, causal")
+    rep = dict(checks=[], times={}, shape=shape)
+    tc0 = flash_attention.launches_tc
+    got = flash_attention_bshd(q, k, v)
+    require(flash_attention.launches_tc - tc0 == 1 and got.shape == q.shape,
+            f"17a: the forward did not run on the tensor cores ({shape})")
+    err_f = hold_attn(rep["checks"], f"bf16 ({shape})", got,
+                      lambda r: flash_attention_bshd_plain(q, k, v,
+                                                           round_p=r),
+                      v, list(k.shape))
+    del got
+    rep["times"]["forward"] = time_attn(args, dev, sdpa_library, q, k, v,
+                                        None, None, SDPA)
+    log_attn_time(f"bf16 ({shape})", rep["times"]["forward"])
+    o, lse = flash_attention_bshd(q, k, v, return_lse=True)
+    tc0 = flash_attention_bwd.launches_tc
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    again = flash_attention_bwd(q, k, v, o, lse, do)
+    require(flash_attention_bwd.launches_tc - tc0 == 2,
+            f"17a: the backward did not run on the tensor cores ({shape})")
+    want = plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=True)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs, err_b = {}, 0.0
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        require(g.shape == w.shape and g.dtype == bf,
+                f"17a flash_attention_bwd {gname}: shape or dtype")
+        e, rel, ok = bwd_err(g, w)
+        errs[gname] = (e, rel)
+        err_b = max(err_b, e)
+        require(ok, f"17a flash_attention_bwd {gname} ({shape}): max |diff| "
+                    f"{e} ({rel:.3e} of max |want|)")
+    require(same, f"17a flash_attention_bwd ({shape}): two runs differ")
+    rep["checks"].append(dict(case=f"bwd bf16 ({shape})", errs=errs,
+                              bit_identical=same))
+    log(f"[mesh] flash_attention_bwd bf16 ({shape}, tensor-core kernels): "
+        + ", ".join(f"{g} {e:.3e} ({r:.2e} of max)"
+                    for g, (e, r) in errs.items())
+        + f"; repeat bit-identical {same}")
+    del got, again, want
+    rep["times"]["backward"] = time_attn_bwd(args, dev, sdpa_library, q, k,
+                                             v, o, lse, do, None, None, SDPA)
+    log_attn_bwd_time(f"bf16 ({shape})", rep["times"]["backward"])
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    rep.update(max_abs_err=err_f, max_abs_err_bwd=err_b)
+    report.setdefault("mesh", {})["attn"] = rep
+    return err_f, err_b, rep["times"]
+
+
+def _timed_collectives(mesh, clock: dict) -> None:
+    """Add the wall time of each of the mesh's collectives (host copies
+    included; the card synchronised first, so that no earlier kernel's
+    time is counted) to clock["s"]."""
+    for name in ("all_gather", "all_sum", "all_max", "psum_scatter",
+                 "gather_to"):
+        fn = getattr(mesh, name)
+
+        def timed(*a, _fn=fn, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            clock["s"] += time.perf_counter() - t0
+            return out
+        setattr(mesh, name, timed)
+
+
+def _witness_turn(wcfg, dev, seed, batch, met, mine, m_mine, pspecs,
+                  mspecs, mesh) -> dict:
+    """17b on one rank: the one-device f32 step, and this rank's shards of
+    the mesh step's weights and of AdamW's m (0.1 x the clipped
+    gradients) against the same pieces of it: m within TOL_TRAIN of each
+    leaf's max, the weights at 11b's bar (AdamW's first step is about lr
+    sign(g))."""
+    from repro_torch.models import LMModel
+    from repro_torch.models import shard as sh
+
+    ref = LMModel(wcfg, device=dev, seed=seed)
+    ropt, rmet = ref.train_step(ref.init_opt(), batch)
+    w = dict(met={k: float(x) for k, x in met.items()},
+             ref={k: float(x) for k, x in rmet.items()})
+    for k in ("loss", "grad_norm"):
+        w[f"{k}_rel"] = abs(w["met"][k] - w["ref"][k]) / abs(w["ref"][k])
+        require(w[f"{k}_rel"] <= TOL_TRAIN,
+                f"17b {k}: {w['met'][k]} vs one device's {w['ref'][k]}")
+    w["m_worst"], worst = (-1.0, ""), 0.0
+    for k, x in m_mine.items():
+        full = ropt.m[k]
+        rel = float((x - sh.shard_of(full, mspecs[k], mesh)).abs().max()) \
+            / max(float(full.abs().max()), 1e-30)
+        w["m_worst"] = max(w["m_worst"], (rel, k))
+    require(w["m_worst"][0] <= TOL_TRAIN, f"17b m {w['m_worst']}")
+    for k, p in ref.params.state_dict().items():
+        g = (ropt.m[k] / 0.1).abs()
+        bar = 1e-6 + TRAIN_LR * torch.clamp(
+            2 * TOL_TRAIN * g.max() / (g + TRAIN_EPS), max=2.0)
+        diff = (mine[k] - sh.shard_of(p, pspecs[k], mesh)).abs()
+        ratio = diff / sh.shard_of(bar, pspecs[k], mesh)
+        worst = max(worst, float(ratio.max()))
+        require(bool((ratio <= 1).all()), f"17b weights {k}")
+        del g, bar, diff, ratio
+    w["weights_worst_of_bar"] = worst
+    return w
+
+
+def mesh_rank(rank, world, cfg) -> dict:
+    """Phase 17b-c on one of the four gloo ranks sharing the card, mesh
+    (2, 2) over ("data", "model"), `zero1` and `seq_parallel` on. 17b: one
+    f32 train_step of qwen2-1.5b at full width, 2 layers, 2 x 256; each
+    rank holds the loss, grad_norm and its shards of the weights and of
+    AdamW's m (0.1 x the clipped gradients) against the same step on one
+    device, which it runs too (TOL_TRAIN of each leaf's max; the weights
+    at 11b's bar).
+    17c: train() in bf16 at full width on MESH_TRAIN, 3 steps, the launch
+    counts set to 0 just before; then rank 0 runs the same 3 steps by
+    train() on one device and holds every step's loss and grad_norm and
+    the gathered step-3 weights against it (TOL_MESH_*), checks that
+    every leaf moved and that the step-3 checkpoint restores on one device
+    into the gathered weights, bit for bit. Returns this rank's launches,
+    step times, time in collectives, peak memory and rank 0's checks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import build_mesh
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bwd)
+    from repro_torch.models import LMModel
+    from repro_torch.models import shard as sh
+    from repro_torch.models.model import abstract_params, param_specs
+    from repro_torch.train import train
+    from repro_torch.train.loop import restore_train_state
+
+    t_start = time.perf_counter()
+    dev = torch.device(cfg["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seed = cfg["seed"]
+    mesh = build_mesh(MESH_SHAPE, ("data", "model"), device=dev)
+    lead = mesh.rank == 0
+    out = dict(rank=mesh.rank, coord=list(mesh.coord))
+    base = get_config(LM_ARCH)
+
+    # -- 17b the f32 witness -----------------------------------------------
+    # every rank runs the one-device step too and holds its own shards
+    # against the same pieces of it (no leaf crosses the ranks)
+    t0 = time.perf_counter()
+    B, S, L = MESH_WITNESS
+    wcfg = dataclasses.replace(base, n_layers=L, repeats=L, dtype="float32")
+    model = LMModel(dataclasses.replace(wcfg, **MESH_FLAGS), mesh=mesh,
+                    seed=seed)
+    batch = batch_for(wcfg, B, S, 0, seed)
+    opt, met = model.train_step(model.init_opt(), batch)
+    mine, m_mine = model.params.state_dict(), opt.m
+    pspecs, mspecs = model.pspecs, model.state_specs.m
+    del model, opt
+    torch.cuda.empty_cache()
+    # one rank at a time (four one-device f32 steps do not fit beside
+    # each other); each holds its shards against the same pieces of the
+    # one-device step, then frees it
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            out["witness"] = _witness_turn(wcfg, dev, seed, batch, met,
+                                           mine, m_mine, pspecs, mspecs,
+                                           mesh)
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    del mine, m_mine
+    out["witness_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+    # -- 17c qwen2-1.5b in bf16 by train(mesh=) ------------------------------
+    B, S, L = MESH_TRAIN
+    tcfg = dataclasses.replace(base, n_layers=L, repeats=L)
+    clock = dict(s=0.0)
+    _timed_collectives(mesh, clock)
+    marks = []
+    step = LMModel.train_step
+
+    def marked(self, *a, **kw):
+        got = step(self, *a, **kw)
+        marks.append(clock["s"])
+        return got
+    LMModel.train_step = marked
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention.launches_tc = 0
+    flash_attention_bwd.launches = flash_attention_bwd.launches_tc = 0
+    try:
+        shards, hist = train(dataclasses.replace(tcfg, **MESH_FLAGS),
+                             steps=TRAIN_STEPS, batch=B, seq=S,
+                             ckpt_dir=cfg["ckpt"], ckpt_every=TRAIN_STEPS,
+                             mesh=mesh, log_every=1, seed=seed)
+        torch.cuda.synchronize()
+    finally:
+        LMModel.train_step = step
+    out["launches"] = dict(
+        flash_attention=flash_attention.launches,
+        flash_attention_tc=flash_attention.launches_tc,
+        flash_attention_bwd=flash_attention_bwd.launches,
+        flash_attention_bwd_tc=flash_attention_bwd.launches_tc)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    secs = [hist[0]["sec"]] + [b["sec"] - a["sec"]
+                               for a, b in zip(hist, hist[1:])]
+    out.update(history=hist, step_s=secs, collective_s=[marks[0]] + [
+        b - a for a, b in zip(marks, marks[1:])], ckpt_collective_s=(
+        clock["s"] - marks[-1]))
+    specs = param_specs(tcfg, abstract_params(tcfg), mesh)
+    gathered = {k: sh.gather_root(p.detach(), specs[k], mesh)
+                for k, p in shards.state_dict().items()}
+    del shards
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    if lead:
+        one = LMModel(tcfg, device=dev, seed=seed)
+        fresh = {k: p.cpu() for k, p in one.params.state_dict().items()}
+        ref, rhist = train(tcfg, steps=TRAIN_STEPS, batch=B, seq=S,
+                           log_every=1, seed=seed, device=dev)
+        c = {f"{k}_rel": [abs(h[k] - r[k]) / abs(r[k])
+                          for h, r in zip(hist, rhist)]
+             for k in ("loss", "grad_norm")}
+        c.update(one_device=[{k: r[k] for k in ("loss", "grad_norm")}
+                             for r in rhist])
+        gaps, sq_gap, sq_move = [], 0.0, 0.0
+        for k, p in ref.state_dict().items():
+            want = p.float().cpu()
+            moved = float((want - fresh[k].float()).norm())
+            gap = float((gathered[k].float() - want).norm())
+            sq_gap, sq_move = sq_gap + gap ** 2, sq_move + moved ** 2
+            gaps.append((gap / moved if moved else (
+                0.0 if gap == 0 else np.inf), k))
+        del ref, want
+        torch.cuda.empty_cache()
+        gaps.sort(reverse=True)
+        c.update(weights_gap=gaps[0], weights_gap_all=(sq_gap / sq_move)
+                 ** 0.5, weights_gaps_top=gaps[:6])
+        log(f"[mesh] 17c against train() on one device: losses "
+            + " / ".join(f"{x:.3e}" for x in c["loss_rel"]) + ", grad_norm "
+            + " / ".join(f"{x:.3e}" for x in c["grad_norm_rel"])
+            + f" relative; step-{TRAIN_STEPS} weights |w - w_one| / "
+            f"|w_one - w_0| {c['weights_gap_all']:.4f} over the model, "
+            "by leaf at most " + ", ".join(f"{k} {x:.4f}"
+                                           for x, k in gaps[:6]))
+        require(len(rhist) == len(hist) == TRAIN_STEPS, f"17c {rhist}")
+        require(c["loss_rel"][0] <= TOL_MESH_LOSS,
+                f"17c first loss {hist[0]['loss']} vs one device's "
+                f"{rhist[0]['loss']}")
+        require(max(c["loss_rel"][1:]) <= TOL_MESH_LATER,
+                f"17c losses {c['loss_rel']} relative to one device's")
+        require(max(c["grad_norm_rel"]) <= TOL_MESH_GNORM,
+                f"17c grad_norm {c['grad_norm_rel']} relative to one "
+                f"device's")
+        require(c["weights_gap_all"] <= TOL_MESH_WEIGHTS_ALL,
+                f"17c step-{TRAIN_STEPS} weights {c['weights_gap_all']} "
+                f"of the one-device run's move from them")
+        require(gaps[0][0] <= TOL_MESH_WEIGHTS,
+                f"17c step-{TRAIN_STEPS} weights {gaps[:6]} of the "
+                f"one-device run's move from them")
+        still = [k for k, p in gathered.items() if torch.equal(p, fresh[k])
+                 and can_move(fresh[k], TRAIN_STEPS)]
+        require(not still, f"17c weights that did not move: {still[:5]}")
+        t0 = time.perf_counter()
+        _, got_step = restore_train_state(cfg["ckpt"], one, one.init_opt())
+        torch.cuda.synchronize()
+        c["restore_s"] = time.perf_counter() - t0
+        same = got_step == TRAIN_STEPS and all(
+            torch.equal(p.cpu(), gathered[k])
+            for k, p in one.params.state_dict().items())
+        require(same, "17c: the step-3 checkpoint did not restore on one "
+                      "device into the gathered weights bit for bit")
+        c.update(resumed_bit_for_bit=same, ckpt_bytes=sum(
+            os.path.getsize(f) for f in glob.glob(os.path.join(
+                cfg["ckpt"], f"step_{TRAIN_STEPS:010d}", "*"))),
+            n_params=sum(p.numel() for p in fresh.values()))
+        out["checks"] = c
+        del one, fresh
+    mesh.barrier()
+    out["s"] = time.perf_counter() - t_start
+    return out
+
+
+def mesh_phase(args, dev, report):
+    """Phase 17: training on a mesh. 17a the kernels at one rank's share
+    of qwen2-1.5b's heads; 17b-c on four gloo ranks sharing the card
+    (`mesh_rank`): the f32 witness against one device, then qwen2-1.5b
+    trained in bf16 at full width by train(mesh=), its launches on every
+    rank (two flash_attention and one flash_attention_bwd a layer a step,
+    all on the tensor cores), step times, time in collectives and peak
+    memory per rank, and its checkpoint resumed on one device. The four
+    ranks time-share the card: their times are recorded as measured, no
+    speed claim. Returns the path's launches (17c's, every rank's), the
+    kernels' worst errors and 17a's times."""
+    from repro_torch.core.mesh import run_ranks
+
+    import types
+
+    t_phase = time.perf_counter()
+    err_f, err_b, times = mesh_attn_checks(types.SimpleNamespace(**dict(
+        vars(args), repeats=min(args.repeats, MESH_REPEATS))), dev, report)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_store_")
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, n, dict(
+            device="cuda:0" if dev.type == "cuda" else str(dev),
+            seed=args.seed, ckpt=root),
+                          store_dir=store, backend="gloo",
+                          timeout_s=MESH_TIMEOUT_S)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(store, ignore_errors=True)
+    B, S, L = MESH_TRAIN
+    want = dict(flash_attention=2 * L * TRAIN_STEPS,
+                flash_attention_tc=2 * L * TRAIN_STEPS,
+                flash_attention_bwd=L * TRAIN_STEPS,
+                flash_attention_bwd_tc=L * TRAIN_STEPS)
+    hist0 = [{k: v for k, v in h.items() if k != "sec"}
+             for h in ranks[0]["history"]]
+    for r in ranks:
+        require(r["launches"] == want, f"17c rank {r['rank']} launches "
+                                       f"{r['launches']}, want {want}")
+        require([{k: v for k, v in h.items() if k != "sec"}
+                 for h in r["history"]] == hist0,
+                f"17c rank {r['rank']}: its history differs from rank 0's")
+    require(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                for h in hist0), f"17c losses {hist0}")
+    c = ranks[0]["checks"]
+    w = dict(ranks[0]["witness"], m_worst=max(r["witness"]["m_worst"]
+                                              for r in ranks),
+             weights_worst_of_bar=max(r["witness"]["weights_worst_of_bar"]
+                                      for r in ranks))
+    log(f"[mesh] 17b {LM_ARCH} full width, {MESH_WITNESS[2]} layers, f32, "
+        f"{MESH_WITNESS[0]} x {MESH_WITNESS[1]}, mesh {MESH_SHAPE} with "
+        f"zero1 and seq_parallel against one device: loss "
+        f"{w['loss_rel']:.2e}, grad_norm {w['grad_norm_rel']:.2e} relative; "
+        f"m (the clipped gradients) {w['m_worst'][0]:.2e} of its leaf's max "
+        f"({w['m_worst'][1]}); weights at "
+        f"{w['weights_worst_of_bar']:.3f} of 11b's bar "
+        f"({ranks[0]['witness_s']:.1f} s)")
+    log(f"[mesh] 17c {LM_ARCH} bf16, full width, {L} layers "
+        f"({c['n_params'] / 1e9:.3f} B parameters), {B} x {S}, "
+        f"{TRAIN_STEPS} steps by train(mesh=) on {n} gloo ranks: losses "
+        + " / ".join(f"{h['loss']:.4f}" for h in hist0)
+        + "; against the same steps on one device: losses "
+        + " / ".join(f"{x:.2e}" for x in c["loss_rel"]) + ", grad_norm "
+        + " / ".join(f"{x:.2e}" for x in c["grad_norm_rel"])
+        + f" relative, step-{TRAIN_STEPS} weights "
+        f"{c['weights_gap_all']:.4f} of its move over the model, at most "
+        f"{c['weights_gap'][0]:.4f} by leaf ({c['weights_gap'][1]}); "
+        f"every leaf moved; the step-{TRAIN_STEPS} checkpoint "
+        f"({c['ckpt_bytes'] / 2**30:.3f} GiB) restored on one device bit "
+        f"for bit in {c['restore_s']:.1f} s")
+    for r in ranks:
+        log(f"[mesh] rank {r['rank']} {tuple(r['coord'])}: steps "
+            + " / ".join(f"{1e3 * x:.1f}" for x in r["step_s"])
+            + " ms, in collectives (gloo, through host memory) "
+            + " / ".join(f"{1e3 * x:.1f}" for x in r["collective_s"])
+            + f" ms; the checkpoint's gathers {r['ckpt_collective_s']:.1f} s;"
+            f" peak allocated {r['peak_mem_bytes'] / 2**30:.3f} GiB; "
+            f"launches {r['launches']}; {r['s']:.1f} s")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("flash_attention", "flash_attention_bwd")}
+    s = time.perf_counter() - t_phase
+    report["mesh"] = dict(report.get("mesh", {}), ranks=ranks,
+                          ranks_s=t_ranks, phase_s=s)
+    log(f"[mesh] phase 17 {s:.1f} s (the ranks {t_ranks:.1f} s); its main "
+        f"path's launches {launches}")
+    return dict(launches=launches, max_abs_err=err_f, max_abs_err_bwd=err_b,
+                times=times)
 
 
 def main(argv=None) -> int:
@@ -6105,6 +6552,15 @@ def main(argv=None) -> int:
                                       ml["max_abs_err_bwd"])
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] += ml["launches"][name]
+    torch.cuda.empty_cache()
+
+    # -- 17. training on a mesh -----------------------------------------------
+    ms = mesh_phase(args, dev, report)
+    errs["flash_attention"] = max(errs["flash_attention"], ms["max_abs_err"])
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
+                                      ms["max_abs_err_bwd"])
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += ms["launches"][name]
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",

@@ -67,11 +67,12 @@ class Sharded2D(NamedTuple):
 def block_of(mesh: Mesh) -> int:
     """This rank's block b = i·c + j: (i, j) its coordinates on the
     ('data', 'model') mesh."""
-    if len(mesh.shape) != 2:
+    sizes = tuple(mesh.shape.values())
+    if len(sizes) != 2:
         raise ValueError(f"the 2-D engines take a 2-dimensional mesh, not "
-                         f"{mesh.shape}")
+                         f"{sizes}")
     i, j = mesh.coord
-    return i * mesh.shape[1] + j
+    return i * sizes[1] + j
 
 
 def build_sharded_2d(g: Graph, r: int, c: int, d_p: int = 8, *, block: int,
@@ -164,10 +165,11 @@ def _solve_2d(mesh: Mesh, sg: Sharded2D, r0, dv0, dn0, params: PRParams, *,
     outside the choice, so devices may diverge). The expansion pull stays
     full-width: its output IS the new frontier. With ``row_cap`` the
     overflow flag is a second host read per iteration."""
-    if block_of(mesh) != sg.block or (sg.r, sg.c) != mesh.shape:
+    if block_of(mesh) != sg.block or \
+            (sg.r, sg.c) != tuple(mesh.shape.values()):
         raise ValueError(f"block {sg.block} of a ({sg.r}, {sg.c}) split on "
                          f"mesh {mesh}")
-    row_axis, col_axis = mesh.dim_names
+    row_axis, col_axis = mesh.axis_names
     dev = sg.device
     rank = as_ranks(r0, dev)
     dt = rank.dtype

@@ -17,7 +17,9 @@ counterparts of those collectives:
     backends' own MAX drops a NaN;
   * `psum_scatter` — a reduce-scatter over one mesh dimension;
   * `ppermute` — paired send/receive; a pair with this rank on both ends
-    is a copy.
+    is a copy;
+  * `gather_to` — every rank's tensor on rank 0's host (a checkpoint's
+    leaves, written by rank 0).
 
 The 1-D engines use the mesh flattened to one group (every dimension as
 one, as the JAX 1-D engine takes every mesh axis as one), so this rank's
@@ -76,15 +78,17 @@ class Mesh:
         # gloo collectives take host tensors: on a card they go through
         # host memory (decided here, once)
         self._via_host = self.backend == "gloo" and self.device.type != "cpu"
-        self.shape = tuple(device_mesh.mesh.shape)
-        self.dim_names = tuple(device_mesh.mesh_dim_names or ())
+        # as jax.sharding.Mesh: axis names, and axis -> size in mesh order
+        self.axis_names = tuple(device_mesh.mesh_dim_names or ())
+        self.shape = dict(zip(self.axis_names, device_mesh.mesh.shape))
         self.size = len(ranks)
         self.rank = dist.get_rank()
         self.shard = self.rank
         self.coord = tuple(device_mesh.get_coordinate())
+        self._groups = {}
 
     def __repr__(self) -> str:
-        return (f"Mesh(shape={self.shape}, dims={self.dim_names}, "
+        return (f"Mesh(shape={self.shape}, "
                 f"rank={self.rank}, backend={self.backend}, "
                 f"device={self.device})")
 
@@ -92,12 +96,63 @@ class Mesh:
 
     def group(self, dim=None):
         """The process group of mesh dimension `dim` (a name or an index),
-        or of the whole mesh for None."""
-        return dist.group.WORLD if dim is None else self.dm.get_group(dim)
+        of several named dimensions (a tuple in mesh order: its ranks in
+        row-major order over them), or of the whole mesh for None."""
+        if dim is None:
+            return dist.group.WORLD
+        if not isinstance(dim, tuple):
+            return self.dm.get_group(dim)
+        if len(dim) == 1:
+            return self.dm.get_group(dim[0])
+        if set(dim) == set(self.axis_names):
+            return dist.group.WORLD
+        if dim not in self._groups:
+            self._groups[dim] = self._new_group(dim)
+        return self._groups[dim]
+
+    def _new_group(self, dims: tuple):
+        """Every rank creates every group of `dims` (all ranks call this in
+        the same order: the runs are SPMD) and keeps its own."""
+        import itertools
+
+        sizes = tuple(self.shape.values())
+        axes = [self.axis_names.index(d) for d in dims]
+        if axes != sorted(axes):
+            raise ValueError(f"mesh dimensions {dims} are not in mesh order "
+                             f"{self.axis_names}")
+        rest = [i for i in range(len(sizes)) if i not in axes]
+        mine = None
+        for other in itertools.product(*(range(sizes[i]) for i in rest)):
+            ranks = []
+            for inner in itertools.product(*(range(sizes[i]) for i in axes)):
+                coord = [0] * len(sizes)
+                for i, c in zip(rest, other):
+                    coord[i] = c
+                for i, c in zip(axes, inner):
+                    coord[i] = c
+                ranks.append(self.rank_at(coord))
+            g = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = g
+        return mine
 
     def group_size(self, dim=None) -> int:
-        return self.size if dim is None else dist.get_world_size(
-            self.group(dim))
+        if dim is None:
+            return self.size
+        dims = dim if isinstance(dim, tuple) else (dim,)
+        n = 1
+        for d in dims:
+            n *= self.shape[self.axis_names[d] if isinstance(d, int) else d]
+        return n
+
+    def index(self, dims) -> int:
+        """This rank's row-major position over the named dimension(s)
+        `dims` (a name or a tuple in mesh order)."""
+        dims = dims if isinstance(dims, tuple) else (dims,)
+        idx = 0
+        for d in dims:
+            idx = idx * self.shape[d] + self.coord[self.axis_names.index(d)]
+        return idx
 
     def rank_at(self, coord: Sequence[int]) -> int:
         """The global rank at mesh coordinate `coord`."""
@@ -166,6 +221,23 @@ class Mesh:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return self._back(out)
+
+    def gather_to(self, x: torch.Tensor):
+        """Every rank's `x` (same shape on each), in rank order, as host
+        tensors on rank 0 (None on the others): each rank sends its tensor
+        once."""
+        if self.size == 1:
+            return [x.cpu()]
+        xs = self._out(x.contiguous())
+        out = ([torch.empty_like(xs) for _ in range(self.size)]
+               if self.rank == 0 else None)
+        dist.gather(xs, out, dst=0)
+        return None if out is None else [t.cpu() for t in out]
+
+    def coord_of(self, rank: int) -> tuple:
+        """The mesh coordinate of global rank `rank`."""
+        hit = (self.dm.mesh == rank).nonzero()[0]
+        return tuple(int(c) for c in hit)
 
     def all_gather_object(self, obj) -> list:
         """Every rank's picklable `obj`, in rank order (checkpoints and the

@@ -1,20 +1,27 @@
-"""Training launcher: the train loop for any --arch config on one device.
+"""Training launcher: the train loop for any --arch config, on one device
+or on a mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --smoke --device cpu --steps 50 --batch 8 --seq 128 --ckpt run1
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen2-1.5b --smoke --device cpu --model-parallel 2
 
-The JAX package's `repro.launch.train` on one device, CUDA unless
-`--device` names another. Its mesh flags (`--production-mesh`,
-`--multi-pod`, `--model-parallel` above 1) wait for the sharded training
-path (ROADMAP A9) and raise `NotImplementedError`.
+The JAX package's `repro.launch.train`, CUDA unless `--device` names
+another. Under torchrun (or with a mesh flag) it builds the mesh as JAX's
+launcher does: `--production-mesh` the (16, 16) mesh (with `--multi-pod`
+(2, 16, 16)), else the local (world / `--model-parallel`,
+`--model-parallel`) one; a world size the mesh does not fit raises
+`ValueError`. One process without a mesh flag trains on one device. Rank
+0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 from ..configs import get_config, smoke_config
-from ..models.attention import later
 from ..train.loop import train
+from .mesh import make_local_mesh, make_production_mesh
 
 __all__ = ["main"]
 
@@ -35,20 +42,31 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.production_mesh or args.multi_pod or args.model_parallel > 1:
-        raise later("training on a mesh (--production-mesh, --multi-pod, "
-                    "--model-parallel)")
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    print(f"arch={cfg.name} device={args.device or 'cuda'}")
+    mesh = None
+    if args.production_mesh:
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    device=args.device)
+    elif (args.multi_pod or args.model_parallel > 1
+          or "WORLD_SIZE" in os.environ):
+        mesh = make_local_mesh(args.model_parallel, device=args.device)
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        where = (f"mesh={mesh.shape} backend={mesh.backend} "
+                 f"device={mesh.device}" if mesh is not None else
+                 f"device={args.device or 'cuda'}")
+        print(f"arch={cfg.name} {where}")
     params, history = train(cfg, steps=args.steps, batch=args.batch,
                             seq=args.seq, ckpt_dir=args.ckpt,
-                            ckpt_every=args.ckpt_every, device=args.device)
-    for h in history:
-        print(h)
-    print(f"final loss: {history[-1]['loss']:.4f}")
+                            ckpt_every=args.ckpt_every, mesh=mesh,
+                            device=args.device)
+    if lead:
+        for h in history:
+            print(h)
+        print(f"final loss: {history[-1]['loss']:.4f}")
 
 
 if __name__ == "__main__":

@@ -145,10 +145,20 @@ def _proj(x, w):
     return (x @ w.reshape(d, h * e)).unflatten(-1, (h, e))
 
 
-def _qkv(x, p, cfg, positions):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _qkv(x, p, cfg, positions, kv=None):
+    """q, k, v [B, S, heads, hd]. `kv` (a mesh rank's q heads over whole
+    k / v weights, `shard.ShardCtx.kv_heads`): (lo, hi, idx), k and v of
+    kv heads [lo, hi) only, then, with idx, one kv head per q head."""
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    if kv is not None:
+        lo, hi, _ = kv
+        wk, wv = wk[:, lo:hi], wv[:, lo:hi]
+        if cfg.qkv_bias:
+            bk, bv = bk[lo:hi], bv[lo:hi]
+    q, k, v = _proj(x, p["wq"]), _proj(x, wk), _proj(x, wv)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + bk, v + bv
     if cfg.qk_norm:
         q, k = rmsnorm(q, p["qn"]), rmsnorm(k, p["kn"])
     if cfg.rope == "rope":
@@ -157,6 +167,8 @@ def _qkv(x, p, cfg, positions):
     elif cfg.rope == "mrope":
         q = mrope_apply(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = mrope_apply(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if kv is not None and kv[2] is not None:
+        k, v = k[:, :, kv[2]], v[:, :, kv[2]]
     return q, k, v
 
 
@@ -166,11 +178,13 @@ def _out(o, wo):
     return o.flatten(-2) @ wo.reshape(h * e, d)
 
 
-def attn_apply(x, p, cfg, kind: str, positions):
+def attn_apply(x, p, cfg, kind: str, positions, kv=None):
     """Full-sequence (prefill and training). Returns (out, (k, v) for
     caching). Runs the flash_attention kernel (with its backward) on CUDA
-    tensors, chunked_attention on CPU tensors."""
-    q, k, v = _qkv(x, p, cfg, positions)
+    tensors, chunked_attention on CPU tensors. On a mesh rank `p` holds
+    this rank's heads and `kv` says which kv heads they read (`_qkv`);
+    the output is then this rank's part of the sum over heads."""
+    q, k, v = _qkv(x, p, cfg, positions, kv)
     window = cfg.window if kind == "attn_local" else None
     cap = cfg.attn_softcap
     if q.device.type == "cpu":

@@ -41,38 +41,348 @@ Inputs are dicts of tensors or numpy arrays ({"tokens": [B, S] int}, or
 with `embed_inputs` {"embeddings": [B, S, d], "labels": [B, S] int}, and
 {"positions": [B, 3, S] int} for M-RoPE, as `data.batch_for` gives
 them), moved to the model's device. One device: `zero1`, `seq_parallel` and `pure_dp`
-act on a mesh only, so they change nothing here (as in JAX with
-`mesh=None`); the sharding specs come with ROADMAP A9.
+act on a mesh only, so they change nothing there (as in JAX with
+`mesh=None`).
+
+The sharding rules (JAX's, see DESIGN.md §4): mesh axes ('pod', 'data',
+'model') or ('data', 'model'); batch over the dp axes, heads, d_ff and
+the vocabulary over 'model', MoE experts over 'data' with the expert d_ff
+over 'model'; a dimension the axis does not divide stays whole
+(`_sanitize`). `param_specs`, `zero1_specs`, `batch_specs`, `cache_specs`
+and `input_specs` are JAX's functions on the port's leaves: the weights
+are keyed like `LMParams.state_dict()` (one leaf a layer, so a JAX
+stacked leaf's spec without its leading scan None), Adafactor's state by
+the JAX tree's paths (`convert.jax_paths`), whose specs keep that None.
+They read only a mesh's `shape` (axis -> size) and `axis_names`.
+
+Training on a mesh (`LMModel(cfg, mesh=...)`, one process a rank, SPMD
+on `torch.distributed`): each rank holds its shards of the weights by
+`param_specs` and, with `cfg.zero1`, of the gradient sums and the
+optimizer state by `zero1_specs`. `train_step` takes the global batch
+(the same on every rank) and keeps JAX's microbatches: microbatch i is
+global rows [i mb, (i + 1) mb), split over the dp axes (whole on every
+rank where they do not divide it, as `_dp_or_none`). The layers run
+their collectives themselves (`models.shard`): tensor parallelism over
+'model' for the dense attention kinds (each rank's heads and d_ff
+columns, the vocabulary-parallel embedding and loss), sequence
+parallelism between the layers with `cfg.seq_parallel`; a MoE layer
+gathers the microbatch's rows over the dp axes, since its routing and
+capacity span them. Each microbatch's gradients are summed in their
+own dtype, as GSPMD sums JAX's partial products, over the dp axes (and
+over 'model' for a whole leaf each rank reads only in part: the norms
+under sequence parallelism, qwen3's q/k norms and the k/v weights of
+heads that 'model' does not divide), reduce-scattered into the ZeRO-1
+layout with `zero1`, and the optimizer's statistics that span a sharded
+dimension are reduced over its axes. The result is JAX's single-device
+step up to the order of sums. Two cases wait for ROADMAP A9 and raise:
+'model' above 1 with the recurrent, MoE or MLA kinds, and 'data' above 1
+where the experts shard over it (not `pure_dp`). ZeRO-1 of AdamW's
+per-layer state splits a layer's first free dimension where JAX's
+stacked leaf may split the layer axis (the same share a rank).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..optim import (adafactor_init, adafactor_update, adamw_init,
-                     adamw_update)
+from ..optim import (AdafactorState, AdamWState, adafactor_init,
+                     adafactor_update, adamw_init, adamw_update)
+from . import shard as sh
 from . import transformer as tfm
+from .attention import later
 from .convert import jax_paths, unstack_paths
+from .shard import P
 
-__all__ = ["LMModel"]
+__all__ = ["LMModel", "P", "abstract_params", "param_specs", "zero1_specs",
+           "opt_specs", "input_specs", "batch_specs", "cache_specs",
+           "dp_axes"]
+
+ATTN_KINDS = ("attn", "attn_local", "attn_global")
+
+
+def dp_axes(mesh, cfg: Optional[ArchConfig] = None) -> tuple:
+    if cfg is not None and cfg.pure_dp:
+        return tuple(mesh.axis_names)
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def _dp_or_none(mesh, B: int, cfg: Optional[ArchConfig] = None):
+    dp = dp_axes(mesh, cfg)
+    size = 1
+    for a in dp:
+        size *= mesh.shape[a]
+    return dp if B % size == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding rules (path + shape pattern matched)
+# ---------------------------------------------------------------------------
+
+def _leaf_spec(names: list, leaf_ndim: int) -> P:
+    name = names[-1]
+    stacked = "pattern" in names            # scan axis prepended
+    nd = leaf_ndim - (1 if stacked else 0)
+
+    def out(*spec):
+        assert len(spec) == nd, (names, leaf_ndim, spec)
+        return P(*(((None,) if stacked else ()) + spec))
+
+    moe_ctx = "ffn" in names and nd == 3    # stacked expert weights
+    if name == "embed":
+        return P("model", None)
+    if name == "unembed":
+        return P(None, "model")
+    if name in ("wq", "wk", "wv") and nd == 3:
+        return out(None, "model", None)
+    if name == "wo" and nd == 3:
+        return out("model", None, None)
+    if name in ("bq", "bk", "bv") and nd == 2:
+        return out("model", None)
+    if name in ("wq_b", "wk_b", "wv_b"):
+        return out(None, "model", None)
+    if name in ("wg", "wu"):
+        return out("data", None, "model") if moe_ctx else out(None, "model")
+    if name == "wd":
+        return out("data", "model", None) if moe_ctx else out("model", None)
+    if name in ("wr", "wk", "wv", "wg", "cm_wk", "cm_wr", "wx", "wy",
+                "wa", "wi") and nd == 2:
+        return out(None, "model")
+    if name in ("wo", "cm_wv") and nd == 2:
+        return out("model", None)
+    if name == "u" and nd == 2:             # rwkv bonus [H, dk]
+        return out(None, None)
+    # everything else (norms, biases, router, loras, conv, lambda): replicated
+    return P(*([None] * leaf_ndim))
+
+
+def _sanitize(spec: P, shape, mesh) -> P:
+    """Drop sharding on dims the mesh axis size does not divide (e.g. 15 GQA
+    heads over model=16 -> replicate)."""
+    if mesh is None:
+        return spec
+    out = []
+    for i, s in enumerate(spec):
+        if s is None:
+            out.append(None)
+            continue
+        axes = s if isinstance(s, tuple) else (s,)
+        size = 1
+        for a in axes:
+            size *= mesh.shape[a]
+        out.append(s if shape[i] % size == 0 else None)
+    return P(*out)
+
+
+def param_specs(cfg: ArchConfig, abstract_params: dict, mesh=None) -> dict:
+    """{leaf key: P} for a flat dict of leaves keyed by their dotted paths
+    (the port's state-dict keys, or JAX's paths with the pattern
+    stacked)."""
+    def spec(key, leaf):
+        if cfg.pure_dp:   # small models: replicate weights, batch everywhere
+            return P(*([None] * leaf.dim()))
+        return _sanitize(_leaf_spec(key.split("."), leaf.dim()), leaf.shape,
+                         mesh)
+    return {k: spec(k, v) for k, v in abstract_params.items()}
+
+
+def zero1_specs(cfg: ArchConfig, pspecs: dict, abstract: dict, mesh) -> dict:
+    """ZeRO-1: additionally shard a replicated-or-spare dim over 'data'
+    (over ALL axes under pure_dp). Applied to the grad accumulator and
+    optimizer state (not params)."""
+    zaxes = tuple(mesh.axis_names) if cfg.pure_dp else ("data",)
+    dsize = 1
+    for a in zaxes:
+        dsize *= mesh.shape[a]
+
+    def used(s):
+        return "data" in ((s,) if not isinstance(s, tuple) else s) \
+            if s is not None else False
+
+    def upd(ps, leaf):
+        spec = list(tuple(ps)) + [None] * (leaf.dim() - len(tuple(ps)))
+        if any(used(s) for s in spec):
+            return P(*spec)          # expert weights already shard over data
+        for i, s in enumerate(spec):
+            if s is None and leaf.shape[i] % dsize == 0 and \
+                    leaf.shape[i] >= dsize:
+                spec[i] = zaxes if len(zaxes) > 1 else zaxes[0]
+                break
+        return P(*spec)
+
+    return {k: upd(pspecs[k], abstract[k]) for k in pspecs}
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The whole model's leaves as meta tensors, keyed like
+    `LMParams.state_dict()`."""
+    return tfm.init_params(cfg, generator=torch.Generator(),
+                           device="meta").state_dict()
+
+
+def _stack_spec(specs: list) -> P:
+    """A pattern slot's per-layer specs as its stacked leaf's: the scan
+    axis first, whole."""
+    return P(None, *specs[0])
+
+
+def opt_specs(cfg: ArchConfig, pspecs: dict, mesh=None, abstract=None):
+    """The optimizer state's specs for the weights' `pspecs`: AdamW's keyed
+    like the weights, Adafactor's by the JAX tree's paths (the pattern
+    stacked); with `cfg.zero1` on a mesh, by `zero1_specs`. `abstract`:
+    `abstract_params(cfg)` where the caller has it."""
+    if abstract is None:
+        abstract = abstract_params(cfg)
+    if cfg.optimizer == "adafactor":
+        pspecs = jax_paths(pspecs, cfg, _stack_spec)
+        abstract = jax_paths(abstract, cfg)
+        state = adafactor_init(abstract)
+    else:
+        state = adamw_init(abstract)
+    if cfg.zero1 and mesh is not None:
+        pspecs = zero1_specs(cfg, pspecs, abstract, mesh)
+    return _state_specs(cfg, pspecs, state)
+
+
+def _state_specs(cfg: ArchConfig, pspecs: dict, abstract_state):
+    """Optimizer state: m/v (or vr/vc) inherit param specs, truncated to the
+    factored shapes for adafactor; scalars replicated."""
+    if cfg.optimizer == "adafactor":
+        vr = {k: P(*tuple(pspecs[k])[:l.dim()])
+              for k, l in abstract_state.vr.items()}
+        vc = {k: P(*(tuple(pspecs[k])[:l.dim() - 1] + tuple(pspecs[k])[-1:]))
+              if l.dim() > 1 else P(*([None] * l.dim()))
+              for k, l in abstract_state.vc.items()}
+        return type(abstract_state)(step=P(), vr=vr, vc=vc)
+    return type(abstract_state)(step=P(), m=dict(pspecs), v=dict(pspecs))
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache specs (meta-tensor factories for the dry-run)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ArchConfig, mesh, B: int, S: int, *, decode=False):
+    """Returns (dict of meta tensors, dict of P)."""
+    dp = _dp_or_none(mesh, B, cfg)
+    dt = getattr(torch, cfg.dtype)
+    shapes, specs = {}, {}
+    if cfg.embed_inputs:
+        shapes["embeddings"] = _meta((B, S, cfg.d_model), dt)
+        specs["embeddings"] = P(dp, None, None)
+        if not decode:
+            shapes["labels"] = _meta((B, S), torch.int32)
+            specs["labels"] = P(dp, None)
+    else:
+        shapes["tokens"] = _meta((B, S), torch.int32)
+        specs["tokens"] = P(dp, None)
+    if cfg.rope == "mrope":
+        shapes["positions"] = _meta((B, 3, S), torch.int32)
+        specs["positions"] = P(dp, None, None)
+    return shapes, specs
+
+
+def cache_specs(cfg: ArchConfig, mesh, B: int, T: int):
+    """(the decode cache as meta tensors, one dict a layer as
+    `transformer.init_cache` lays it out; their specs)."""
+    dp = _dp_or_none(mesh, B, cfg)
+    abstract = tfm.init_cache(cfg, B, T, device="meta")
+
+    def spec(name, leaf):
+        base: tuple
+        if name in ("k", "v", "k_scale", "v_scale"):
+            if cfg.shard_cache_t:
+                base = (dp, "model", None, None)
+            else:
+                base = (dp, None, "model", None)
+        elif name in ("ckv", "krope"):
+            base = (dp, "model", None) if cfg.shard_cache_t \
+                else (dp, None, None)
+        elif name == "s":                    # rwkv state [B,H,dk,dv]
+            base = (dp, "model", None, None)
+        elif name in ("x_tm", "x_cm"):
+            base = (dp, None)
+        elif name == "h":
+            base = (dp, "model")
+        elif name == "conv":
+            base = (dp, None, "model")
+        else:
+            base = tuple([None] * leaf.dim())
+        return _sanitize(P(*base[:leaf.dim()]), leaf.shape, mesh)
+
+    return abstract, [{k: spec(k, v) for k, v in layer.items()}
+                      for layer in abstract]
+
+
+def input_specs(cfg: ArchConfig, shape, mesh):
+    """Meta-tensor stand-ins + specs for one (arch, shape) cell.
+
+    train:   (batch,)
+    prefill: (batch,)
+    decode:  (cache, batch, pos)  — one new token against a T=seq_len cache
+    """
+    if shape.kind in ("train", "prefill"):
+        b, s = batch_specs(cfg, mesh, shape.global_batch, shape.seq_len)
+        return {"batch": b}, {"batch": s}
+    b, bs = batch_specs(cfg, mesh, shape.global_batch, 1, decode=True)
+    cache, cs = cache_specs(cfg, mesh, shape.global_batch, shape.seq_len)
+    pos = _meta((), torch.int32)
+    return ({"cache": cache, "batch": b, "pos": pos},
+            {"cache": cs, "batch": bs, "pos": P()})
+
+
+# ---------------------------------------------------------------------------
+# Model wrapper
+# ---------------------------------------------------------------------------
+
+_NORMS = ("ln1", "ln2", "pn1", "pn2", "lnf")
 
 
 class LMModel(nn.Module):
     """Step functions for one architecture on one device (CUDA unless
-    `device` names another; raises without a card)."""
+    `device` names another; raises without a card), or on this rank of
+    `mesh` (on the mesh's device unless `device` names another)."""
 
-    def __init__(self, cfg: ArchConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: ArchConfig, mesh=None, device=None,
+                 seed: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
+        if mesh is not None:
+            self._plan()
         self.params = self.init_params(seed)
 
+    # ---- params ----------------------------------------------------------
     def init_params(self, seed: int) -> tfm.LMParams:
-        """Fresh weights drawn from `seed` on the model's device."""
+        """Fresh weights drawn from `seed` on the model's device (on a
+        mesh: drawn in the one-device order, `embed`, `unembed` and each
+        layer cut to this rank's shards before the next is drawn, so no
+        rank holds more than one of them whole at a time)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return tfm.init_params(self.cfg, generator=gen, device=self.device)
+        keep = None
+        if self.mesh is not None:
+            def keep(key, t):
+                return sh.shard_of(t, self.pspecs[key], self.mesh).clone()
+        return tfm.init_params(self.cfg, generator=gen, device=self.device,
+                               keep=keep)
+
+    def abstract_params(self) -> dict:
+        return abstract_params(self.cfg)
+
+    def param_partition(self) -> dict:
+        return param_specs(self.cfg, self.abstract_params(), self.mesh)
+
+    def opt_partition(self, pspecs: dict):
+        return opt_specs(self.cfg, pspecs, self.mesh)
 
     def init_cache(self, B: int, T: int) -> list:
         return tfm.init_cache(self.cfg, B, T, device=self.device)
@@ -83,6 +393,8 @@ class LMModel(nn.Module):
 
     @torch.no_grad()
     def prefill_step(self, batch):
+        if self.mesh is not None:
+            raise later("serving on a mesh (prefill_step)")
         logits, caches, _ = tfm.forward_full(
             self.params, self.cfg, self._batch(batch), want_cache=True,
             last_only=True)
@@ -90,8 +402,150 @@ class LMModel(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache, batch, pos: int):
+        if self.mesh is not None:
+            raise later("serving on a mesh (decode_step)")
         return tfm.forward_decode(self.params, self.cfg, cache,
                                   self._batch(batch), int(pos))
+
+    # ---- the mesh ----------------------------------------------------------
+    def _plan(self) -> None:
+        """The specs of this mesh, and the refusals of what waits for
+        ROADMAP A9."""
+        cfg, mesh = self.cfg, self.mesh
+        abstract = self.abstract_params()
+        self.pspecs = param_specs(cfg, abstract, mesh)
+        self.tp = 1 if cfg.pure_dp else mesh.shape.get("model", 1)
+        kinds = tfm.layer_kinds(cfg)
+        if self.tp > 1 and not set(kinds) <= set(ATTN_KINDS):
+            raise later(f"tensor parallelism over 'model' for the kinds "
+                        f"{sorted(set(kinds) - set(ATTN_KINDS))}")
+        if mesh.shape.get("data", 1) > 1 and any(
+                "data" in sh.spec_axes(s) for s in self.pspecs.values()):
+            raise later("expert parallelism over 'data' (without pure_dp)")
+        self.state_specs = self.opt_partition(self.pspecs)
+        # the gradients' layout: the weights', Adafactor's keyed by its
+        # stacked paths; then ZeRO-1's
+        if cfg.optimizer == "adafactor":
+            self.gspecs = jax_paths(self.pspecs, cfg, _stack_spec)
+            abstract = jax_paths(abstract, cfg)
+        else:
+            self.gspecs = self.pspecs
+        z = self.zspecs = (zero1_specs(cfg, self.gspecs, abstract, mesh)
+                           if cfg.zero1 else dict(self.gspecs))
+        # the state laid out like the gradients: the same as its specs but
+        # for a 2-D leaf's column factor, which JAX keeps whole over an
+        # axis that shards the leaf's columns
+        self.compute_specs = self.state_specs
+        if cfg.optimizer == "adafactor":
+            self.compute_specs = type(self.state_specs)(
+                step=P(), vr={k: P(*(z[k][:-1] if len(z[k]) > 1 else z[k]))
+                              for k in z},
+                vc={k: P(*(z[k][:-2] + z[k][-1:])) if len(z[k]) > 1
+                    else P(None) for k in z})
+        # what 'model' splits: the first attention layer's heads and d_ff
+        # (every such layer's are alike), the vocabulary
+        first = next((i for i, kind in enumerate(kinds)
+                      if kind in ATTN_KINDS), None)
+
+        def split(key):
+            return key in self.pspecs and "model" in sh.spec_axes(
+                self.pspecs[key])
+
+        blk = f"blocks.{first}."
+        self._flags = dict(attn_sharded=split(blk + "mix.wq"),
+                           kv_sharded=split(blk + "mix.wk"),
+                           ffn_sharded=split(blk + "ffn.wu"),
+                           vocab_sharded=split("embed"))
+
+    def _ctx(self, S: int, ndp_rows: int) -> sh.ShardCtx:
+        """The layers' view of the mesh for a microbatch of S positions
+        whose rows are split `ndp_rows` ways over the dp axes."""
+        sp = (self.cfg.seq_parallel and not self.cfg.pure_dp
+              and self.tp > 1 and S % self.tp == 0)
+        dp = dp_axes(self.mesh, self.cfg) if ndp_rows > 1 else ()
+        return sh.ShardCtx(self.mesh, self.cfg, tp=self.tp, sp=sp,
+                           dp_axes=dp, ndp=ndp_rows, **self._flags)
+
+    def _model_partial(self, key: str, ctx: sh.ShardCtx) -> bool:
+        """Whether each 'model' rank's gradient of a whole leaf is a part
+        of it: a norm on the sequence-parallel residual stream, or a leaf
+        read by this rank's heads only (qwen3's q/k norms, the k/v weights
+        of heads 'model' does not divide)."""
+        if ctx.tp == 1 or "model" in sh.spec_axes(self.gspecs[key]):
+            return False
+        parts = key.split(".")
+        if len(parts) < 2:            # embed, unembed: whole, read whole
+            return False
+        if parts[-2] in _NORMS:
+            return ctx.sp
+        return ctx.attn_sharded and parts[-2] == "mix" and parts[-1] in (
+            "qn", "kn", "wk", "wv", "bk", "bv")
+
+    def _split(self, mb: int) -> int:
+        """The ways a microbatch's rows split over the dp axes (1: every
+        rank takes them all)."""
+        dp = _dp_or_none(self.mesh, mb, self.cfg)
+        return 1 if dp is None else sh.entry_size(self.mesh, dp)
+
+    def gathered_params(self, leaf=lambda t: t) -> dict:
+        """Every leaf whole, keyed like the weights, each passed through
+        `leaf` as it is gathered (on a mesh every rank takes part and rank
+        0 gets the leaves, on its host; the others get None)."""
+        if self.mesh is None:
+            return {k: leaf(p.detach()) for k, p in
+                    self.params.state_dict().items()}
+        return {k: leaf(sh.gather_root(p.detach(), self.pspecs[k],
+                                       self.mesh))
+                for k, p in self.params.state_dict().items()}
+
+    @torch.no_grad()
+    def load_full(self, state_dict: dict) -> None:
+        """Whole leaves (keyed like the weights) into this rank's
+        shards."""
+        for k, p in self.params.state_dict().items():
+            full = state_dict[k]
+            if self.mesh is not None:
+                full = sh.shard_of(full, self.pspecs[k], self.mesh)
+            p.copy_(full)
+
+    def abstract_opt(self):
+        """The whole optimizer state as meta tensors, keyed as `init_opt`
+        keys it."""
+        w = self.abstract_params()
+        if self._adafactor():
+            return adafactor_init(jax_paths(w, self.cfg))
+        return adamw_init(w)
+
+    def opt_shard(self, state):
+        """A whole optimizer state (keyed as `init_opt` keys it) -> this
+        rank's shards on the model's device (on one device, the state as
+        it is)."""
+        if self.mesh is None:
+            return state
+        specs = self.state_specs
+
+        def piece(v, spec):
+            return sh.shard_of(v, spec, self.mesh).to(self.device,
+                                                      copy=True)
+
+        return type(state)(state.step.to(self.device), *(
+            {k: piece(v, sp[k]) for k, v in d.items()}
+            for d, sp in zip(state[1:], specs[1:])))
+
+    def opt_gather(self, state, leaf=lambda t: t):
+        """An optimizer state of this rank's shards -> whole leaves, each
+        passed through `leaf` as it is gathered (on rank 0, as
+        `gathered_params`)."""
+        if self.mesh is None:
+            return type(state)(leaf(state.step),
+                               *({k: leaf(v) for k, v in d.items()}
+                                 for d in state[1:]))
+        specs = self.state_specs
+        step = state.step.cpu() if self.mesh.rank == 0 else None
+        return type(state)(leaf(step), *(
+            {k: leaf(sh.gather_root(v, sp[k], self.mesh))
+             for k, v in d.items()}
+            for d, sp in zip(state[1:], specs[1:])))
 
     # ---- training ---------------------------------------------------------
     def _weights(self) -> dict:
@@ -101,14 +555,53 @@ class LMModel(nn.Module):
         return self.cfg.optimizer == "adafactor"
 
     def init_opt(self):
-        """Fresh optimizer state for `cfg.optimizer` over the weights."""
+        """Fresh optimizer state for `cfg.optimizer` over the weights (on
+        a mesh, this rank's shards of it)."""
         w = {k: p.detach() for k, p in self._weights().items()}
         if self._adafactor():
-            return adafactor_init(jax_paths(w, self.cfg))
-        return adamw_init(w)
+            w = jax_paths(w, self.cfg)
+        if self.mesh is None:
+            return adafactor_init(w) if self._adafactor() else adamw_init(w)
+        w = {k: sh.slice_extra(v, self.gspecs[k], self.zspecs[k], self.mesh)
+             for k, v in w.items()}
+        state = adafactor_init(w) if self._adafactor() else adamw_init(w)
+        return self._relayout(state, to_specs=True)
+
+    def _relayout(self, state, to_specs: bool):
+        """An optimizer state of this rank's shards from the gradients'
+        layout to its specs' (`to_specs`), or back."""
+        mesh = self.mesh
+        if self.compute_specs is self.state_specs:
+            return state
+        out = []
+        for d, sp, cp in zip(state[1:], self.state_specs[1:],
+                             self.compute_specs[1:]):
+            if to_specs:
+                out.append({k: sh.gather(v, cp[k], mesh, from_spec=sp[k])
+                            for k, v in d.items()})
+            else:
+                out.append({k: sh.slice_extra(v, sp[k], cp[k], mesh)
+                            for k, v in d.items()})
+        return type(state)(state.step, *out)
 
     def loss(self, batch):
-        return tfm.loss_fn(self.params, self.cfg, self._batch(batch))
+        """(loss + 0.01 aux, {"loss", "aux"}) over the whole batch; on a
+        mesh the first is this rank's part of the objective (its rows'
+        share; the gradients summed over the ranks are the loss's) and the
+        metrics are the whole batch's."""
+        b = self._batch(batch)
+        if self.mesh is None:
+            return tfm.loss_fn(self.params, self.cfg, b)
+        B = b["embeddings" if self.cfg.embed_inputs else "tokens"].shape[0]
+        S = b["embeddings" if self.cfg.embed_inputs else "tokens"].shape[1]
+        ctx = self._ctx(S, self._split(B))
+        total, metrics = tfm.loss_fn(self.params, self.cfg,
+                                     {k: ctx.rows(v) for k, v in b.items()},
+                                     ctx=ctx)
+        loss = metrics["loss"].detach()
+        if ctx.ndp > 1:
+            loss = self.mesh.all_sum(loss, ctx.dp_axes)
+        return total, {"loss": loss, "aux": metrics["aux"].detach()}
 
     def train_step(self, opt_state, batch):
         cfg = self.cfg
@@ -120,6 +613,8 @@ class LMModel(nn.Module):
                              f"microbatch {mb}")
         n_micro = B // mb
         acc_dt = getattr(torch, cfg.grad_accum_dtype)
+        if self.mesh is not None:
+            return self._mesh_step(opt_state, b, mb, n_micro, acc_dt)
         weights = self._weights()
         acc, losses, auxes = None, [], []
         for i in range(n_micro):
@@ -153,3 +648,127 @@ class LMModel(nn.Module):
         return opt_state, {"loss": torch.stack(losses).mean(),
                            "aux": torch.stack(auxes).mean(),
                            "grad_norm": gn}
+
+    def _mesh_step(self, opt_state, b, mb, n_micro, acc_dt):
+        """`train_step` on this rank: its rows of each microbatch; each
+        microbatch's gradient summed over the ranks in its own dtype (as
+        GSPMD sums the partial products of JAX's step) into the ZeRO-1
+        layout, then added in `grad_accum_dtype`; the optimizer on this
+        rank's shards."""
+        cfg = self.cfg
+        S = b["embeddings" if cfg.embed_inputs else "tokens"].shape[1]
+        ctx = self._ctx(S, self._split(mb))
+        weights = self._weights()
+        acc, losses, auxes = None, [], []
+        for i in range(n_micro):
+            micro = {k: ctx.rows(v[i * mb:(i + 1) * mb])
+                     for k, v in b.items()}
+            total, metrics = tfm.loss_fn(self.params, cfg, micro, ctx=ctx)
+            grads = torch.autograd.grad(total, list(weights.values()),
+                                        allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(weights.items(), grads)}
+            del total
+            if self._adafactor():
+                grads = jax_paths(grads, cfg)
+            grads = {k: self._reduce(k, grads.pop(k), ctx).to(acc_dt)
+                     for k in list(grads)}
+            if acc is None:
+                acc = grads
+            else:
+                for k, g in grads.items():
+                    acc[k] += g
+            del grads
+            losses.append(metrics["loss"].detach())
+            auxes.append(metrics["aux"].detach())
+        grads = {k: acc.pop(k).div_(n_micro) for k in list(acc)}
+        opt_state, gn = self._sharded_update(grads, opt_state)
+        loss = torch.stack(losses)
+        if ctx.ndp > 1:
+            loss = self.mesh.all_sum(loss, ctx.dp_axes)
+        return opt_state, {"loss": loss.mean(),
+                           "aux": torch.stack(auxes).mean(),
+                           "grad_norm": gn}
+
+    @torch.no_grad()
+    def _reduce(self, k: str, g: torch.Tensor, ctx) -> torch.Tensor:
+        """This rank's part of leaf k's gradient (the weights' layout) ->
+        the sum over the ranks, this rank's piece of the ZeRO-1 layout."""
+        mesh = self.mesh
+        gs, zs = self.gspecs[k], self.zspecs[k]
+        if self._model_partial(k, ctx):
+            g = mesh.all_sum(g, "model")
+        if not ctx.dp_axes:
+            return sh.slice_extra(g, gs, zs, mesh).contiguous()
+        extra = set(sh.spec_axes(zs)) - set(sh.spec_axes(gs))
+        rest = tuple(a for a in ctx.dp_axes if a not in extra)
+        if rest:
+            g = mesh.all_sum(g, rest)
+        return sh.scatter_sum(g, gs, zs, mesh)
+
+    @torch.no_grad()
+    def _sharded_update(self, grads: dict, opt_state):
+        """The optimizer on this rank's shards of the gradients, the state
+        and the weights (the ZeRO-1 layout), the new weights all-gathered
+        back to `param_specs`."""
+        cfg, mesh = self.cfg, self.mesh
+        weights = self._weights()
+        params = {k: p.detach() for k, p in weights.items()}
+        if self._adafactor():
+            params = jax_paths(params, cfg)
+        shards = {k: sh.slice_extra(params[k], self.gspecs[k],
+                                    self.zspecs[k], mesh) for k in grads}
+        del params
+        if self._adafactor():
+            new, opt_state, gn = adafactor_update(
+                grads, self._relayout(opt_state, to_specs=False), shards,
+                stats=_ShardStats(self))
+            opt_state = self._relayout(opt_state, to_specs=True)
+        else:
+            new, opt_state, gn = adamw_update(grads, opt_state, shards,
+                                              norm=self._global_norm)
+        del grads, shards
+        new = {k: sh.gather(v, self.zspecs[k], mesh, from_spec=self.gspecs[k])
+               for k, v in new.items()}
+        if self._adafactor():
+            new = unstack_paths(new, cfg)
+        for k, p in weights.items():
+            p.copy_(new.pop(k))
+        return opt_state, gn
+
+    def _global_norm(self, grads: dict) -> torch.Tensor:
+        """AdamW's global gradient norm over the ranks' shards, each
+        element counted once (a leaf whole over an axis is counted by the
+        rank at coordinate 0 of it)."""
+        parts = [torch.sum(torch.square(g.float())) for k, g in grads.items()
+                 if sh.owner(self.zspecs[k], self.mesh)]
+        total = torch.stack(parts).sum() if parts else torch.zeros(
+            (), device=self.device)
+        return torch.sqrt(self.mesh.all_sum(total))
+
+
+class _ShardStats:
+    """Adafactor's means over the dimensions of a leaf's shards: a sum
+    over this rank's piece, reduced over the axes that shard that
+    dimension, over the whole dimension's length."""
+
+    def __init__(self, model: LMModel):
+        self.mesh, self.specs = model.mesh, model.zspecs
+
+    def mean(self, key, x, dim, leaf_dim, keepdim=False):
+        entry = self.specs[key][leaf_dim]
+        k = sh.entry_size(self.mesh, entry)
+        s = torch.sum(x, dim=dim, keepdim=keepdim)
+        if k > 1:
+            s = self.mesh.all_sum(s, sh.entry_axes(entry))
+        return s / (x.shape[dim] * k)
+
+    def mean_all(self, key, x):
+        axes = sh.spec_axes(self.specs[key])
+        s = torch.sum(x)
+        n = x.numel()
+        if axes:
+            s = self.mesh.all_sum(s, tuple(a for a in self.mesh.axis_names
+                                           if a in axes))
+            n *= sh.entry_size(self.mesh, axes)
+        return s / n

@@ -43,7 +43,7 @@ the MoE layers' summed aux loss (decode discards aux, as JAX does).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -127,13 +127,18 @@ def init_block(cfg, kind: str, *, generator: torch.Generator,
 
 
 def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
-                pos=None):
+                pos=None, ctx=None):
     """mode is implied: cache None => full-sequence; else one-token decode.
     Returns (x, new_cache, aux): after a full sequence (k, v), MLA's
     (ckv, k_rope) or the recurrent layer's final state; after a decode
     step the same cache dict, its k/v, latent or state written in place;
     aux the MoE layer's load-balance loss (f32), None for the other kinds
-    (JAX's 0, without a device tensor a layer)."""
+    (JAX's 0, without a device tensor a layer). `ctx` (training on a
+    mesh, `shard.ShardCtx`): x holds this rank's rows (and, with
+    sequence parallelism, its positions); the attention and the MLP run on
+    this rank's heads and d_ff columns between `ctx.enter` and
+    `ctx.leave`, a MoE layer on the microbatch's rows gathered over the
+    dp axes."""
     aux = None
     mixer = KIND_MIXER[kind]
     h = apply_norm(cfg.norm, x, p["ln1"])
@@ -163,6 +168,12 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
             o, new_cache = attn.mla_apply(h, p["mix"], cfg, positions)
         else:
             o, new_cache = attn.mla_decode(h, p["mix"], cfg, cache, pos)
+    elif cache is None and ctx is not None:
+        h = ctx.enter(h, ctx.attn_sharded)
+        o, new_cache = attn.attn_apply(
+            h, p["mix"], cfg, kind, positions,
+            kv=ctx.kv_heads(p["mix"]["wq"].shape[1]))
+        o = ctx.leave(o, ctx.attn_sharded)
     elif cache is None:
         o, new_cache = attn.attn_apply(h, p["mix"], cfg, kind, positions)
     else:
@@ -171,8 +182,15 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
         o = apply_norm(cfg.norm, o, p["pn1"])
     x = x + o
     h = apply_norm(cfg.norm, x, p["ln2"])
-    if kind.endswith("_moe"):
+    if kind.endswith("_moe") and ctx is not None:
+        # routing and capacity span the whole microbatch's rows
+        f, aux = moe_apply(ctx.gather_rows(h), p["ffn"], cfg.moe)
+        f = ctx.rows(f)
+    elif kind.endswith("_moe"):
         f, aux = moe_apply(h, p["ffn"], cfg.moe)
+    elif ctx is not None:
+        f = ctx.leave(mlp_apply(ctx.enter(h, ctx.ffn_sharded), p["ffn"],
+                                cfg.mlp), ctx.ffn_sharded)
     else:
         f = mlp_apply(h, p["ffn"], cfg.mlp)
     if cfg.post_norm:
@@ -186,28 +204,44 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
 
 class LMParams(nn.Module):
     """The model's weights: `embed` [V, d], `unembed` [d, V], `lnf`, and
-    `blocks`, one per layer (kinds in `kinds`)."""
+    `blocks`, one per layer (kinds in `kinds`). `keep(key, leaf)`, where
+    given, replaces each leaf as it is drawn (a mesh rank's shard of it),
+    keyed as the state dict keys it."""
 
-    def __init__(self, cfg, *, generator: torch.Generator, device=None):
+    def __init__(self, cfg, *, generator: torch.Generator, device=None,
+                 keep: Optional[Callable] = None):
         super().__init__()
         dt = _dtype(cfg)
         kw = dict(dtype=dt, generator=generator, device=device)
-        self.embed = nn.Parameter(dense_init((cfg.vocab, cfg.d_model), **kw))
-        self.unembed = nn.Parameter(dense_init((cfg.d_model, cfg.vocab), **kw))
-        self.lnf = _weights(norm_init(cfg.norm, cfg.d_model, dt, device))
+        keep = keep or (lambda key, t: t)
+        self.embed = nn.Parameter(keep(
+            "embed", dense_init((cfg.vocab, cfg.d_model), **kw)))
+        self.unembed = nn.Parameter(keep(
+            "unembed", dense_init((cfg.d_model, cfg.vocab), **kw)))
+        self.lnf = _weights({k: keep(f"lnf.{k}", v) for k, v in
+                             norm_init(cfg.norm, cfg.d_model, dt,
+                                       device).items()})
         self.kinds = tuple(layer_kinds(cfg))
-        self.blocks = nn.ModuleList(
-            init_block(cfg, kind, generator=generator, device=device)
-            for kind in self.kinds)
+        self.blocks = nn.ModuleList()
+        for i, kind in enumerate(self.kinds):
+            block = init_block(cfg, kind, generator=generator, device=device)
+            for name, p in block.named_parameters():
+                p.data = keep(f"blocks.{i}.{name}", p.data)
+            self.blocks.append(block)
 
 
-def init_params(cfg, *, generator: torch.Generator, device=None) -> LMParams:
-    return LMParams(cfg, generator=generator, device=device)
+def init_params(cfg, *, generator: torch.Generator, device=None,
+                keep: Optional[Callable] = None) -> LMParams:
+    return LMParams(cfg, generator=generator, device=device, keep=keep)
 
 
-def _embed_inputs(params, cfg, batch):
+def _embed_inputs(params, cfg, batch, ctx=None):
     if cfg.embed_inputs:
         x = batch["embeddings"].to(_dtype(cfg))
+        if ctx is not None:
+            x = ctx.local_seq(x)
+    elif ctx is not None:
+        x = ctx.embed(params.embed, batch["tokens"])
     else:
         x = params.embed[batch["tokens"].long()]
     if cfg.embed_scale:
@@ -225,34 +259,39 @@ def _positions(cfg, batch, B, S, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
-def _block_out(p, x, cfg, kind, positions):
+def _block_out(p, x, cfg, kind, positions, ctx=None):
     """One block under remat: (x, aux); the cache is dropped."""
-    x, _, aux = apply_block(p, x, cfg, kind, positions=positions)
+    x, _, aux = apply_block(p, x, cfg, kind, positions=positions, ctx=ctx)
     return x, aux
 
 
-def _run_stack(params, cfg, batch, want_cache=False
+def _run_stack(params, cfg, batch, want_cache=False, ctx=None
                ) -> Tuple[torch.Tensor, list, torch.Tensor]:
     """Every block over the whole sequence: (x before `lnf`, each layer's
     (k, v) or recurrent state with `want_cache`, else [], the layers'
     summed aux loss). Without a cache, a forward that autograd records
-    runs each block under `torch.utils.checkpoint`."""
-    x = _embed_inputs(params, cfg, batch)
-    B, S = x.shape[0], x.shape[1]
+    runs each block under `torch.utils.checkpoint` (whose recomputation
+    runs a mesh rank's collectives again, in the same order on every
+    rank)."""
+    x = _embed_inputs(params, cfg, batch, ctx)
+    B = x.shape[0]
+    S = batch["embeddings" if cfg.embed_inputs else "tokens"].shape[1]
     positions = _positions(cfg, batch, B, S, x.device)
     if cfg.rope == "sinusoidal":
-        x = x + sinusoidal_positions(torch.arange(S, device=x.device),
+        table = sinusoidal_positions(torch.arange(S, device=x.device),
                                      cfg.d_model).to(x.dtype)[None]
+        x = x + (table if ctx is None else ctx.local_seq(table))
     remat = torch.is_grad_enabled() and not want_cache
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params.blocks, params.kinds):
         if remat:
             # the blocks draw no random numbers: no RNG state to keep
-            x, a = checkpoint(_block_out, p, x, cfg, kind, positions,
+            x, a = checkpoint(_block_out, p, x, cfg, kind, positions, ctx,
                               use_reentrant=False, preserve_rng_state=False)
         else:
-            x, c, a = apply_block(p, x, cfg, kind, positions=positions)
+            x, c, a = apply_block(p, x, cfg, kind, positions=positions,
+                                  ctx=ctx)
             if want_cache:
                 caches.append(c)
         if a is not None:
@@ -260,39 +299,56 @@ def _run_stack(params, cfg, batch, want_cache=False
     return x, caches, aux
 
 
-def _head(params, cfg, x):
+def _head(params, cfg, x, ctx=None):
     """Final norm, unembedding in the activations' dtype, then f32 logits
-    (soft-capped where the config says so)."""
+    (soft-capped where the config says so; the cap is element-wise, so a
+    mesh rank applies it to its vocabulary's logits)."""
     x = apply_norm(cfg.norm, x, params.lnf)
+    if ctx is not None:
+        x = ctx.enter(x, ctx.vocab_sharded)
     logits = x @ params.unembed
     return softcap(logits.float(), cfg.logit_softcap)
 
 
-def forward_full(params, cfg, batch, *, want_cache=False, last_only=False):
+def forward_full(params, cfg, batch, *, want_cache=False, last_only=False,
+                 ctx=None):
     """Returns (logits [B,S,V] f32, caches, aux). `caches` (with
     want_cache) is one (k, v) [B,S,K,hd] pair per attention layer, one
     (ckv [B,S,r], k_rope [B,S,rope]) pair per MLA layer and the final
     state dict of each recurrent one; `aux` the MoE layers' summed
     load-balance loss (f32, 0 without MoE). With `last_only` the head runs
     on the last position only (logits [B,1,V]: the same values, without
-    the [B,S,V] tensor)."""
-    x, caches, aux = _run_stack(params, cfg, batch, want_cache)
+    the [B,S,V] tensor). With `ctx` (training on a mesh) the logits are
+    this rank's rows over every position and its vocabulary shard."""
+    x, caches, aux = _run_stack(params, cfg, batch, want_cache, ctx)
     if last_only:
         x = x[:, -1:]
-    logits = _head(params, cfg, x)
+    logits = _head(params, cfg, x, ctx)
     return logits, (caches if want_cache else None), aux
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, ctx=None):
     """Next-token cross entropy (mean over predicted positions) from the
     f32 logits, plus 0.01 x the MoE aux loss. Returns (loss +
     0.01 aux, {"loss", "aux"}). The label logit is gathered: the same value
     as the JAX package's one-hot contraction, which exists there only to
-    keep a model-sharded vocab axis local."""
-    logits, _, aux = forward_full(params, cfg, batch)
+    keep a model-sharded vocab axis local.
+
+    With `ctx` (training on a mesh; `batch` this rank's rows) the loss is
+    this rank's share: its tokens' sum over the microbatch's token count
+    (the shares sum to the loss over the dp axes), the logsumexp and the
+    label logit reduced over a vocabulary sharded on 'model'
+    (`ShardCtx.cross_entropy`: the [B, S, V] logits are never gathered),
+    and the aux loss, which every dp rank computes whole, counted once
+    over them."""
+    logits, _, aux = forward_full(params, cfg, batch, ctx=ctx)
     labels = batch["labels"] if "labels" in batch else batch["tokens"]
     lg = logits[:, :-1]
     tgt = labels[:, 1:].long()
+    if ctx is not None:
+        tok = ctx.cross_entropy(lg, tgt)
+        loss = tok.sum() / (tok.numel() * ctx.ndp)
+        return loss + 0.01 * aux / ctx.ndp, {"loss": loss, "aux": aux}
     lse = torch.logsumexp(lg, dim=-1)                          # [B, S-1]
     ll = torch.gather(lg, -1, tgt[..., None])[..., 0]
     loss = torch.mean(lse - ll)

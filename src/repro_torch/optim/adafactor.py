@@ -42,11 +42,29 @@ def adafactor_init(params: Tree) -> AdafactorState:
     return AdafactorState(step=_step0(params), vr=vr, vc=vc)
 
 
+class _Whole:
+    """The means of whole leaves: `mean(key, x, dim, leaf_dim)` over
+    dimension `dim` of x (the leaf's dimension `leaf_dim`), `mean_all`
+    over every element."""
+
+    @staticmethod
+    def mean(key, x, dim, leaf_dim, keepdim=False):
+        return torch.mean(x, dim=dim, keepdim=keepdim)
+
+    @staticmethod
+    def mean_all(key, x):
+        return torch.mean(x)
+
+
 @torch.no_grad()
 def adafactor_update(grads: Tree, state: AdafactorState, params: Tree, *,
-                     lr=1e-3, decay=0.8, eps=1e-30, clip=1.0, wd=0.0):
+                     lr=1e-3, decay=0.8, eps=1e-30, clip=1.0, wd=0.0,
+                     stats=None):
     """Returns (new params, new AdafactorState, 0: JAX's Adafactor reports
-    no gradient norm)."""
+    no gradient norm). On shards of the leaves, `stats` gives the means
+    that span a sharded dimension (the factors' means and the update
+    clip's RMS) over every rank's shards."""
+    stats = stats or _Whole
     step = state.step + 1
     t = step.float()
     beta2 = 1.0 - t ** (-decay)
@@ -56,10 +74,10 @@ def adafactor_update(grads: Tree, state: AdafactorState, params: Tree, *,
         g = g.float()
         g2 = g * g + eps
         if _factored(p):
-            vr2 = beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1)
-            vc2 = beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2)
+            vr2 = beta2 * vr + (1 - beta2) * stats.mean(k, g2, -1, -1)
+            vc2 = beta2 * vc + (1 - beta2) * stats.mean(k, g2, -2, -2)
             denom = (vr2[..., None] * vc2[..., None, :]
-                     / torch.clamp(torch.mean(vr2, dim=-1, keepdim=True)
+                     / torch.clamp(stats.mean(k, vr2, -1, -2, keepdim=True)
                                    [..., None], min=eps))
             u = g * torch.rsqrt(torch.clamp(denom, min=eps))
         else:
@@ -67,7 +85,7 @@ def adafactor_update(grads: Tree, state: AdafactorState, params: Tree, *,
             vc2 = vc
             u = g * torch.rsqrt(torch.clamp(vr2, min=eps))
         # update clipping (RMS <= clip)
-        rms = torch.sqrt(torch.mean(u * u) + 1e-12)
+        rms = torch.sqrt(stats.mean_all(k, u * u) + 1e-12)
         u = u / torch.clamp(rms / clip, min=1.0)
         if wd:
             u = u + wd * p.float()

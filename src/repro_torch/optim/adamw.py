@@ -35,11 +35,14 @@ def adamw_init(params: Tree) -> AdamWState:
                       v={k: z.clone() for k, z in zeros.items()})
 
 
-def _clip_scale(grads: Tree, max_norm: float):
+def _clip_scale(grads: Tree, max_norm: float, norm=None):
     """(the factor that brings the global norm to at most `max_norm`, the
-    global norm)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in grads.values()))
+    global norm; `norm(grads)` computes it where given)."""
+    if norm is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                            for g in grads.values()))
+    else:
+        gn = norm(grads)
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
 
 
@@ -53,11 +56,13 @@ def clip_by_global_norm(grads: Tree, max_norm: float):
 
 @torch.no_grad()
 def adamw_update(grads: Tree, state: AdamWState, params: Tree, *, lr=3e-4,
-                 b1=0.9, b2=0.95, eps=1e-8, wd=0.1, clip=1.0):
+                 b1=0.9, b2=0.95, eps=1e-8, wd=0.1, clip=1.0, norm=None):
     """Returns (new params, new AdamWState, global grad norm). The clip
     scales one leaf at a time (the same products as
-    `clip_by_global_norm`), so no clipped copy of every gradient is held."""
-    scale, gnorm = _clip_scale(grads, clip)
+    `clip_by_global_norm`), so no clipped copy of every gradient is held.
+    On shards of the leaves, `norm(grads)` gives the global norm over
+    every rank's shards (the update itself is element-wise)."""
+    scale, gnorm = _clip_scale(grads, clip, norm)
     step = state.step + 1
     t = step.float()
     bc1 = 1.0 - b1 ** t

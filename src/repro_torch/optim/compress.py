@@ -1,8 +1,9 @@
 """Gradient compression for the data-parallel all-reduce: int8 with
 per-tensor scale + error feedback. Cuts the DP collective term 4x (bf16->int8
 with an f32 scale per tensor); the residual accumulator keeps the compression
-unbiased over steps (standard EF-SGD argument). Nothing on one device calls
-it; the sharded training path that would is ROADMAP A9's.
+unbiased over steps (standard EF-SGD argument). The JAX package's training
+never calls it (only `repro.optim` exports it), so the port's training on a
+mesh sums its gradients uncompressed, as JAX's does.
 
 The JAX package's `repro.optim.compress` on dicts of tensors.
 """

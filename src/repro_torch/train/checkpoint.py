@@ -192,11 +192,13 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, like: Any,
-                       step: Optional[int] = None):
+                       step: Optional[int] = None, mmap: bool = False):
     """Restore into the structure of `like`, a tree whose leaves have a
     ``shape`` and a ``dtype`` (arrays, tensors, or any such template),
     after verifying every checksum: CPU tensors where `like` has tensors
     (any device, "meta" too), numpy arrays elsewhere, of `like`'s dtypes.
+    With `mmap` a leaf of the stored dtype is a copy-on-write map of its
+    file: a reader that keeps a slice of each leaf copies that slice only.
 
     Returns (tree, extra_dict, step).
     """
@@ -220,7 +222,8 @@ def restore_checkpoint(directory: str, like: Any,
     for i, leaf in enumerate(leaves):
         path = paths[i]
         entry = manifest["files"][_key(i)]
-        arr = np.load(path, allow_pickle=False)
+        arr = np.load(path, mmap_mode="c" if mmap else None,
+                      allow_pickle=False)
         want_shape = tuple(leaf.shape)
         assert arr.shape == want_shape, (arr.shape, want_shape)
         out.append(_leaf_like(arr, entry["dtype"], leaf))

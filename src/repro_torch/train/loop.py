@@ -1,13 +1,18 @@
 """End-to-end training loop: data -> train_step -> checkpoint/restart.
 
-The JAX package's `repro.train.loop` on one device. The loop is
+The JAX package's `repro.train.loop`, on one device or on a mesh (one
+process a rank, `models.LMModel(cfg, mesh=)`). The loop is
 restart-safe: the step index, the weights and the optimizer state are in
 the checkpoint, and the data is seekable by step (`data.batch_for` gives
-the JAX package's tokens). The checkpoint holds `(params, opt_state)` as
-the JAX loop writes it: JAX's leaves in JAX's `tree_flatten` order, the
-pattern axis stacked (`models.convert.jax_tree`), bf16 as byte views; so
-`repro.train.train` resumes a run of this loop and this loop resumes one
-of it.
+the JAX package's tokens; every rank draws the global batch). The
+checkpoint holds `(params, opt_state)` as the JAX loop writes it: JAX's
+leaves, whole, in JAX's `tree_flatten` order, the pattern axis stacked
+(`models.convert.jax_tree`), bf16 as byte views; so `repro.train.train`
+resumes a run of this loop and this loop resumes one of it, on one
+device or on a mesh of any shape. On a mesh each rank sends rank 0 its
+shard of each leaf and rank 0 writes (as the mesh sessions do); every
+rank maps a checkpoint's files and copies its shards out of them. The
+history is equal on every rank.
 """
 from __future__ import annotations
 
@@ -17,7 +22,6 @@ from typing import Optional
 from ..configs.base import ArchConfig
 from ..data.pipeline import batch_for
 from ..models import LMModel
-from ..models.attention import later
 from ..models.convert import (jax_tree, opt_state_from_jax, opt_tree,
                               unstack_jax_tree)
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -26,44 +30,63 @@ __all__ = ["train", "save_train_state", "restore_train_state"]
 
 
 def _state_tree(model: LMModel, opt, device):
-    """(params, opt_state) in the JAX loop's tree, each leaf moved to
-    `device` ("cpu" to write, "meta" for a restore's template)."""
+    """(params, opt_state) in the JAX loop's tree, each whole leaf moved
+    to `device` ("cpu" to write, "meta" for a restore's template). On a
+    mesh rank 0 gathers each leaf; the other ranks return None."""
+    cfg = model.cfg
+    if device == "meta":
+        return (jax_tree(model.abstract_params(), cfg),
+                opt_tree(model.abstract_opt(), cfg))
+    keep = model.mesh is None or model.mesh.rank == 0
+
     def move(t):
-        return t.detach().to(device)
+        return t.detach().to(device) if keep else None
 
-    return (jax_tree({k: move(v) for k, v in
-                      model.params.state_dict().items()}, model.cfg),
-            opt_tree(opt, model.cfg, move))
+    params = model.gathered_params(move)
+    state = model.opt_gather(opt, move)
+    return (jax_tree(params, cfg), opt_tree(state, cfg)) if keep else None
 
 
-def save_train_state(ckpt_dir: str, step: int, model: LMModel, opt) -> str:
-    """Checkpoint the model's weights and `opt` at `step`."""
-    return save_checkpoint(ckpt_dir, step, _state_tree(model, opt, "cpu"))
+def save_train_state(ckpt_dir: str, step: int, model: LMModel, opt):
+    """Checkpoint the model's weights and `opt` at `step` (on a mesh rank
+    0 writes, the others return None once it has)."""
+    tree = _state_tree(model, opt, "cpu")
+    if model.mesh is None:
+        return save_checkpoint(ckpt_dir, step, tree)
+    path = save_checkpoint(ckpt_dir, step, tree) if model.mesh.rank == 0 \
+        else None
+    model.mesh.barrier()
+    return path
 
 
 def restore_train_state(ckpt_dir: str, model: LMModel, opt,
                         step: Optional[int] = None):
     """Load the checkpoint at `step` (the latest by default) into the
-    model's weights; returns (its optimizer state, shaped like `opt`, on
-    the model's device; its step)."""
+    model's weights (on a mesh, this rank's shards); returns (its
+    optimizer state, shaped like `opt`, on the model's device; its
+    step)."""
+    # the files are mapped: each leaf is copied once, to the model's
+    # device (on a mesh, only this rank's shards of it)
     tree, _, step = restore_checkpoint(
-        ckpt_dir, _state_tree(model, opt, "meta"), step)
+        ckpt_dir, _state_tree(model, opt, "meta"), step, mmap=True)
     params, state = tree
-    model.params.load_state_dict(unstack_jax_tree(params, model.cfg))
-    return opt_state_from_jax(state, model.cfg, model.device), step
+    model.load_full(unstack_jax_tree(params, model.cfg))
+    state = opt_state_from_jax(state, model.cfg,
+                               "cpu" if model.mesh else model.device)
+    return model.opt_shard(state), step
 
 
 def train(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 100,
           mesh=None, log_every: int = 10, seed: int = 0,
           fail_at: Optional[int] = None, device=None):
-    """Returns (params, metrics_history): the model's `LMParams` and one
-    dict of loss, aux, grad_norm, step and sec every `log_every` steps and
-    at the last. On CUDA unless `device` names another. `fail_at` injects
-    one simulated failure (tested in tests/test_torch_train_ckpt.py)."""
-    if mesh is not None:
-        raise later("training on a mesh (mesh=)")
-    model = LMModel(cfg, device=device, seed=seed)
+    """Returns (params, metrics_history): the model's `LMParams` (on a
+    mesh, this rank's shards) and one dict of loss, aux, grad_norm, step
+    and sec every `log_every` steps and at the last. On CUDA unless
+    `device` names another (on a mesh, the mesh's device). `fail_at`
+    injects one simulated failure (tested in
+    tests/test_torch_train_ckpt.py)."""
+    model = LMModel(cfg, mesh=mesh, device=device, seed=seed)
     opt = model.init_opt()
     start = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:

@@ -226,6 +226,8 @@ def test_port_imports_neither_jax_nor_repro():
               ROOT / "examples" / "torch_distributed_pagerank.py",
               ROOT / "examples" / "torch_train_lm.py"]
     files += sorted((ROOT / "scripts").glob("*.py"))
+    files += [ROOT / "tests" / "test_torch_lm_mesh_workers.py",
+              ROOT / "tests" / "test_torch_mesh_workers.py"]
     assert len(files) > 10
     # the sharded engines, their mesh and the elastic resume are scanned
     names = {f.relative_to(ROOT).as_posix() for f in files}
@@ -235,7 +237,9 @@ def test_port_imports_neither_jax_nor_repro():
                 "optim/adafactor.py", "optim/compress.py",
                 "launch/train.py", "models/moe.py", "models/layers.py",
                 "configs/qwen2_vl_2b.py", "configs/musicgen_large.py",
-                "configs/dbrx_132b.py", "configs/deepseek_v3_671b.py"):
+                "configs/dbrx_132b.py", "configs/deepseek_v3_671b.py",
+                "configs/shapes.py", "launch/mesh.py", "models/shard.py",
+                "models/model.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         bad = {m for m in _imported_roots(f) if m in ("jax", "jaxlib",

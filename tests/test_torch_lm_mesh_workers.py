@@ -1,0 +1,116 @@
+"""The per-rank bodies of `test_torch_lm_mesh.py` and the configs they
+share with its JAX side. No tests here: each spawned gloo rank
+(`repro_torch.core.mesh.run_ranks`) imports this module by name to find
+its function, so it imports neither JAX nor `repro`.
+"""
+import contextlib
+import dataclasses
+import io
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.configs as tconfigs  # noqa: E402
+
+B, S = 4, 32            # the global batch: two microbatches of 2 rows
+
+# (case name -> (arch, its layers, changes to the smoke config)); the
+# 3-head case leaves every attention leaf whole on 'model' (`_sanitize`),
+# "h12" puts 3 q heads over one kv head on each of 4 'model' ranks (k / v
+# whole), "h12k3" 6 q heads over kv heads (0,0,0,0,1,1) on each of 2;
+# recurrentgemma keeps its pattern without its suffix and deepseek one of
+# its dense layers before its MoE one (for the JAX side's compile time);
+# dbrx and deepseek sum gradients in bf16, where a rank's f32 part rounds
+# to another bf16 value than the whole sum in about one entry in a
+# thousand: their f32 variants are held at 1e-5, "dbrx-bf16" at bf16's
+# bar; "vocab511" has a vocabulary that 'model' 2 does not divide, so
+# `embed` and `unembed` stay whole
+VARIANTS = {
+    "qwen2-1.5b": ("qwen2-1.5b", 2, {}),
+    "gemma2-9b": ("gemma2-9b", 2, {}),
+    "qwen3-4b": ("qwen3-4b", 2, {}),
+    "qwen2-vl-2b": ("qwen2-vl-2b", 2, {}),
+    "heads3": ("qwen2-1.5b", 2, dict(n_heads=3, n_kv_heads=1)),
+    "h12": ("qwen2-1.5b", 1, dict(n_heads=12, n_kv_heads=2)),
+    "h12k3": ("qwen2-1.5b", 1, dict(n_heads=12, n_kv_heads=3)),
+    "rwkv6-1.6b": ("rwkv6-1.6b", 2, {}),
+    "recurrentgemma-2b": ("recurrentgemma-2b", 3, dict(suffix=())),
+    "dbrx-132b": ("dbrx-132b", 1, dict(grad_accum_dtype="float32")),
+    "deepseek-v3-671b": ("deepseek-v3-671b", 1, dict(
+        prefix=("mla_dense",), grad_accum_dtype="float32")),
+    "dbrx-bf16": ("dbrx-132b", 1, {}),
+    "vocab511": ("qwen2-1.5b", 2, dict(vocab=511)),
+}
+
+
+def smoke_cfg(configs, variant: str, **flags):
+    """`configs` (either package's) smoke config of `variant` with its
+    layers in the repeated pattern (at least one repeat) between its
+    prefix and suffix, and `flags` (zero1, seq_parallel, pure_dp)."""
+    arch, layers, kw = VARIANTS[variant]
+    cfg = configs.smoke_config(configs.get_config(arch))
+    cfg = dataclasses.replace(cfg, **kw)
+    reps = max(1, layers // len(cfg.pattern))
+    return dataclasses.replace(
+        cfg, n_layers=len(cfg.prefix) + reps * len(cfg.pattern)
+        + len(cfg.suffix), repeats=reps, **flags)
+
+
+def train_cases(rank, world, cases):
+    """Each case on this rank, in order: `train(mesh=)` to each step of
+    `steps` in turn, each a fresh call that resumes the checkpoint of the
+    one before (its histories), or the message of the
+    `NotImplementedError` it raised; or, for a case with `argv`, what the
+    launcher printed; or, for a case with `init`, the largest difference
+    between this rank's freshly drawn shards and the same pieces of the
+    one-device draw. A case: dict(variant, flags, shape, steps, ckpt),
+    its mesh ("data", "model")."""
+    from repro_torch.core.mesh import build_mesh
+    from repro_torch.train import train
+
+    out = []
+    for c in cases:
+        if "argv" in c:
+            out.append(launcher(rank, world, c["argv"]))
+            continue
+        cfg = smoke_cfg(tconfigs, c["variant"], **c["flags"])
+        mesh = build_mesh(c["shape"], ("data", "model"), device="cpu")
+        if c.get("init"):
+            out.append(init_gap(cfg, mesh))
+            continue
+        try:
+            out.append([train(cfg, steps=s, batch=B, seq=S,
+                              ckpt_dir=c["ckpt"], mesh=mesh,
+                              log_every=1)[1] for s in c["steps"]])
+        except NotImplementedError as e:
+            out.append(str(e))
+    return out
+
+
+def launcher(rank, world, argv):
+    """`repro_torch.launch.train.main(argv)` on this rank: what it
+    printed."""
+    from repro_torch.launch import train as tlaunch
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tlaunch.main(argv)
+    return buf.getvalue()
+
+
+def init_gap(cfg, mesh) -> float:
+    """The largest difference between this rank's shards as a mesh model
+    draws them (cut layer by layer) and the same pieces of one device's
+    draw from the same seed."""
+    from repro_torch.models import LMModel
+    from repro_torch.models import shard as sh
+
+    one = LMModel(cfg, device="cpu", seed=3).params.state_dict()
+    model = LMModel(cfg, mesh=mesh, seed=3)
+    gap = 0.0
+    for k, p in model.params.state_dict().items():
+        want = sh.shard_of(one[k], model.pspecs[k], mesh)
+        assert p.shape == want.shape, k
+        gap = max(gap, float((p.float() - want.float()).abs().max()))
+    return gap

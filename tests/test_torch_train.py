@@ -47,9 +47,9 @@
   gradients in f64 (the port's, with `.float()` keeping f64): the
   witness that they differ by rounding, which card-against-host checks
   of the wkv at larger sizes rely on.
-- The loop against `train_step` driven by hand, the launcher (gemma2's
-  smoke config too), the mesh guards; remat keeps no layer's (k, v) and
-  changes no gradient.
+- The loop against `train_step` driven by hand and on a one-rank mesh,
+  the launcher (gemma2's smoke config too), the mesh flags in a world of
+  one process; remat keeps no layer's (k, v) and changes no gradient.
 """
 import dataclasses
 
@@ -439,7 +439,11 @@ def test_remat_keeps_no_layer_cache_and_same_gradients():
 def test_loop_steps_as_train_step_and_mesh_raises():
     """`train` is `train_step` on `batch_for`'s step-indexed batches from
     a model of the same seed: the same losses, bit for bit, logged every
-    `log_every` steps and at the last."""
+    `log_every` steps and at the last. On a one-rank mesh (a process
+    group of this process alone) the loop trains the same model within
+    f32 rounding; a mesh larger than the world raises `ValueError` naming
+    the world size (`test_torch_lm_mesh.py` trains on meshes of 2 and 4
+    ranks)."""
     tcfg, _ = _cfgs("smollm-360m", layers=1)
     params, hist = ttrain(tcfg, steps=5, batch=2, seq=32, log_every=2,
                           seed=3, **CPU)
@@ -453,8 +457,23 @@ def test_loop_steps_as_train_step_and_mesh_raises():
     assert [h["loss"] for h in hist] == [losses[1], losses[3], losses[4]]
     for a, b in zip(params.parameters(), model.params.parameters()):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="mesh.*ROADMAP A9"):
-        ttrain(tcfg, steps=1, batch=2, seq=32, mesh=object(), **CPU)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    with pytest.raises(ValueError, match="world size 1"):
+        make_local_mesh(2, device="cpu")
+    mesh = make_local_mesh(1, device="cpu")
+    try:
+        assert mesh.shape == {"data": 1, "model": 1}
+        mparams, mhist = ttrain(tcfg, steps=5, batch=2, seq=32, log_every=2,
+                                seed=3, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert [h["step"] for h in mhist] == [2, 4, 5]
+    for h, w in zip(mhist, hist):
+        for k in ("loss", "aux", "grad_norm"):
+            np.testing.assert_allclose(h[k], w[k], rtol=1e-6, atol=1e-30)
+    for a, b in zip(mparams.parameters(), params.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
 def test_launcher_smoke_on_cpu(capsys):
@@ -475,10 +494,14 @@ def test_launcher_smoke_gemma2_on_cpu(capsys):
     assert "final loss:" in out
 
 
-@pytest.mark.parametrize("flags", [["--production-mesh"], ["--multi-pod"],
+@pytest.mark.parametrize("flags", [["--production-mesh"],
+                                   ["--production-mesh", "--multi-pod"],
                                    ["--model-parallel", "2"]])
 def test_launcher_mesh_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    """The mesh flags build a mesh of the world's ranks: one process is
+    not a (16, 16), a (2, 16, 16) or a (0.5, 2) mesh (under 4 ranks
+    `--model-parallel 2` trains: `test_torch_lm_mesh.py`)."""
+    with pytest.raises(ValueError, match=r"world size (is )?1\b"):
         tlaunch.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
                       *flags])
 
