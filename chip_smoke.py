@@ -117,7 +117,7 @@ Phases (any failure exits non-zero; nothing is caught):
      plain loop and index_copy_, and the batched call and index_copy_ on
      the card alone (10 calls in a CUDA graph, replayed);
   8b. the guard, once phase 8's session is freed, on a power-law graph of
-     2^20 vertices and 2^24 edges (GUARD_GRAPH: cut from phase 3's size
+     2^17 vertices and 2^21 edges (GUARD_GRAPH: cut from phase 3's size
      for the script's time; at a smaller --n, phase 3's graph): a
      StreamSession with GuardConfig(policy="quarantine", audit_every=3)
      and a journal in a temporary directory (launch counts start at 0
@@ -274,9 +274,8 @@ Phases (any failure exits non-zero; nothing is caught):
      steps' ms and tokens/s (the first apart), the peak allocated and
      reserved memory and the allocator's retries, one step's forward /
      backward / AdamW split by CUDA events with its wall time and its
-     device-busy time under torch.profiler, and that
-     model's checkpoint (its post-norms and untied head) restored bit for
-     bit;
+     device-busy time under torch.profiler (its 20.8 GiB checkpoint
+     round trip was cut for the script's time);
   14. the recurrent families (after 13, in the allocator's fixed
      segments): (14a) flash_attention and flash_attention_bwd at
      recurrentgemma-2b's attention shape, bf16 on the tensor cores, 10
@@ -402,7 +401,25 @@ Phases (any failure exits non-zero; nothing is caught):
      (TOL_MESH_*), every leaf moved, each rank's step times, time in
      collectives
      and peak memory, and the step-3 checkpoint restored on one device into
-     the gathered weights bit for bit.
+     the gathered weights bit for bit; (17d) serving on the same ranks:
+     flash_attention at 17d's per-rank prefill shapes (qwen2-1.5b's B 2,
+     6 q heads over 1 kv head, 2048; gemma2-9b's B 1, 8 over 4, 8192, its
+     window and cap) against its plain version on the tensor cores, timed;
+     the one-device references run on the card before the spawn
+     (mesh_serve_refs); then on every rank (mesh_serve_rank; the launch
+     counts set to 0 just before each prefill_step): 17d-i a 2-layer f32
+     qwen2-1.5b at full width, prefill_step, every stepped decode_step
+     and serve(mesh=) on 4 x (16 + 8) within TOL_MESH_SERVE_F32 of one
+     device's logits and its tokens; 17d-ii qwen2-1.5b uncut in bf16,
+     prefill_step on 4 x 2048 (28 flash_attention launches a rank, on the
+     tensor cores), decode at 2048 on a seeded random cache (heads over
+     'model'), serve(mesh=) on 4 x (64 + 32); 17d-iii gemma2-9b at full
+     width on 4 layers, prefill_step on 2 x 8192 (4 launches a rank),
+     decode at 8192 (the local layers roll) on seeded random caches, bf16
+     with the heads over 'model' and int8 with T over 'model'; the bf16
+     logits within TOL_MESH_SERVE_BF16 of one device's, every rank's
+     logits bit-identical, each rank's prefill, decode and serve times,
+     time in collectives and peak memory.
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -1892,8 +1909,10 @@ def gloo_rank(rank, world, cfg) -> dict:
 # health word's overhead timed over this many interleaved pairs of solves
 GUARD = dict(policy="quarantine", audit_every=3)
 # 8b's graph, cut from phase 3's 2^22 vertices and 2^26 edges for the
-# script's time (its full-size restore took 123-137 s)
-GUARD_GRAPH = (2 ** 20, 2 ** 24)
+# script's time (its full-size restore took 123-137 s; 2^20 and 2^24
+# until phase 17d came: 8b 68.9 s at 2^20, 33.5 at 2^19, 24.2-29.9 at
+# 2^18)
+GUARD_GRAPH = (2 ** 17, 2 ** 21)
 HEALTH_PAIRS = 3
 
 
@@ -3011,6 +3030,14 @@ def time_attn(args, dev, flex, q, k, v, window, cap, lib_name=FLEX):
         return flash_attention_bshd_plain(q, k, v, window=window, cap=cap,
                                           round_p=True)
 
+    t = dict(ms=cuda_ms(kern, args.repeats, ATTN_PER),
+             single_ms=cuda_ms(kern, args.repeats),
+             plain_ms=cuda_ms(plain, 3), library=lib_name,
+             bound=bound(nbytes, flops, BF16_FLOPS), pairs_per_head=pairs)
+    t["tflops"] = flops / t["ms"] / 1e9
+    if flex is None:            # no library call timed at this shape
+        t.update(library=None, library_ms=None)
+        return t
     (qt, kt, vt), fkw = flex_inputs(dev, q, k, v, window, cap)
 
     def lib():
@@ -3019,34 +3046,31 @@ def time_attn(args, dev, flex, q, k, v, window, cap, lib_name=FLEX):
     t0 = time.perf_counter()
     lib_err, lib_mean, lib_ok = attn_err_tc(lib().transpose(1, 2), plain(),
                                             v)
-    t = dict(ms=cuda_ms(kern, args.repeats, ATTN_PER),
-             single_ms=cuda_ms(kern, args.repeats),
-             plain_ms=cuda_ms(plain, 3),
-             library_ms=cuda_ms(lib, args.repeats, ATTN_PER),
+    t.update(library_ms=cuda_ms(lib, args.repeats, ATTN_PER),
              library_single_ms=cuda_ms(lib, args.repeats),
              library_first_s=time.perf_counter() - t0,
              library_err=lib_err, library_mean_err=lib_mean,
-             library_within_bars=lib_ok, library=lib_name,
-             bound=bound(nbytes, flops, BF16_FLOPS), pairs_per_head=pairs)
-    t["tflops"] = flops / t["ms"] / 1e9
+             library_within_bars=lib_ok)
     return t
 
 
 def log_attn_time(what, tl):
+    lib = ("no library call timed at this shape" if tl["library_ms"] is None
+           else None)
     log(f"[time] flash_attention {what}: "
         f"{tl['ms']:.4f} ms per call, {ATTN_PER} back to back, "
         f"{tl['single_ms']:.4f} one call a sample "
         f"({tl['tflops']:.1f} TFLOP/s over {tl['pairs_per_head']} "
         f"allowed pairs a head, {100 * tl['bound'][0] / tl['ms']:.1f}% "
         f"of the {tl['bound'][0]:.4f} ms bound ({tl['bound'][1]})); "
-        f"plain (round_p) {tl['plain_ms']:.2f} ms; "
+        f"plain (round_p) {tl['plain_ms']:.2f} ms; " + (lib or
         f"{tl.get('library', FLEX)} {tl['library_ms']:.4f} ms, "
         f"{ATTN_PER} back to back, {tl['library_single_ms']:.4f} one "
         f"call a sample, vs plain max |diff| {tl['library_err']:.3e} "
         f"mean {tl['library_mean_err']:.3e} "
         f"({'within' if tl['library_within_bars'] else 'OUTSIDE'} the "
         f"kernel's bars; compiled and timed in "
-        f"{tl['library_first_s']:.1f} s)")
+        f"{tl['library_first_s']:.1f} s)"))
 
 
 def gemma_attn_checks(args, dev, report):
@@ -3823,12 +3847,12 @@ def gemma_train_run(args, dev, L, times=None):
 def gemma_train_phase(args, dev, report):
     """Phase 13: the backward with gemma2's window, soft-cap and D 256
     (13a), the model on the card against the CPU (13b), then gemma2-9b
-    trained at full width in bf16 (13c) with its launch counts, a step's
-    split and a checkpoint round trip. Returns the main path's launches,
-    the kernel's worst error and its times."""
-    from repro_torch.models import LMModel
-    from repro_torch.train.loop import restore_train_state, save_train_state
-
+    trained at full width in bf16 (13c) with its launch counts and a
+    step's split (its 20.8 GiB checkpoint round trip was cut for the
+    script's time: 11c's and 17c's round trips run the same code, and
+    the CPU tests resume gemma2's leaves across the packages).
+    Returns the main path's launches, the kernel's worst error and its
+    times."""
     t_phase = time.perf_counter()
     err, times = gemma_bwd_checks(args, dev, report)
     gemma_train_parity(args, dev, report)
@@ -3843,34 +3867,7 @@ def gemma_train_phase(args, dev, report):
     torch.cuda.empty_cache()
     expandable_segments(True)
     rep, launches, model, opt = gemma_train_run(args, dev, L, times)
-    cfg = model.cfg
-    torch.cuda.empty_cache()
-    root = tempfile.mkdtemp(prefix="chip_smoke_gemma_train_")
-    try:
-        t0 = time.perf_counter()
-        save_train_state(root, 1, model, opt)
-        rep["ckpt_s"] = time.perf_counter() - t0
-        rep["ckpt_bytes"] = sum(os.path.getsize(f) for f in glob.glob(
-            os.path.join(root, "step_0000000001", "*")))
-        other = LMModel(cfg, device=dev, seed=args.seed + 1)
-        t0 = time.perf_counter()
-        got, step = restore_train_state(root, other, other.init_opt())
-        torch.cuda.synchronize()
-        rep["restore_s"] = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    a, b = model.params.state_dict(), other.params.state_dict()
-    same = step == 1 and torch.equal(got.step, opt.step) and all(
-        torch.equal(a[k], b[k]) for k in a) and all(
-        torch.equal(x[k], y[k]) for x, y in ((got.m, opt.m), (got.v, opt.v))
-        for k in x)
-    require(same, "the gemma2 training checkpoint did not restore bit for "
-                  "bit")
-    log(f"[gemma-train] checkpoint of {GEMMA_ARCH} at {L} layers (bf16 "
-        f"weights, f32 AdamW state, post-norms and the untied head): "
-        f"{rep['ckpt_bytes'] / 2**30:.3f} GiB written in {rep['ckpt_s']:.1f} "
-        f"s, restored bit for bit in {rep['restore_s']:.1f} s")
-    del model, other, opt, got, a, b
+    del model, opt
     torch.cuda.empty_cache()
     expandable_segments(False)
     rep["phase_s"] = time.perf_counter() - t_phase
@@ -5557,12 +5554,15 @@ def mesh_attn_checks(args, dev, report):
     return err_f, err_b, rep["times"]
 
 
+COLLECTIVES = ("all_gather", "all_sum", "all_max", "psum_scatter",
+               "gather_to")
+
+
 def _timed_collectives(mesh, clock: dict) -> None:
     """Add the wall time of each of the mesh's collectives (host copies
     included; the card synchronised first, so that no earlier kernel's
     time is counted) to clock["s"]."""
-    for name in ("all_gather", "all_sum", "all_max", "psum_scatter",
-                 "gather_to"):
+    for name in COLLECTIVES:
         fn = getattr(mesh, name)
 
         def timed(*a, _fn=fn, **kw):
@@ -5769,7 +5769,9 @@ def mesh_rank(rank, world, cfg) -> dict:
                  and can_move(fresh[k], TRAIN_STEPS)]
         require(not still, f"17c weights that did not move: {still[:5]}")
         t0 = time.perf_counter()
-        _, got_step = restore_train_state(cfg["ckpt"], one, one.init_opt())
+        restored, got_step = restore_train_state(cfg["ckpt"], one,
+                                                 one.init_opt())
+        del restored        # AdamW's state: 17d runs on this rank next
         torch.cuda.synchronize()
         c["restore_s"] = time.perf_counter() - t0
         same = got_step == TRAIN_STEPS and all(
@@ -5783,8 +5785,354 @@ def mesh_rank(rank, world, cfg) -> dict:
             n_params=sum(p.numel() for p in fresh.values()))
         out["checks"] = c
         del one, fresh
+    del gathered
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+    # -- 17d serving on the same mesh -----------------------------------------
+    out["serve"] = mesh_serve_rank(mesh, dev, seed, cfg["refs"], clock)
     mesh.barrier()
     out["s"] = time.perf_counter() - t_start
+    return out
+
+
+# -- phase 17d: serving on a mesh ---------------------------------------------
+MESH_SERVE_WITNESS = (4, 16, 8, 2)  # 17d-i: B, prompt, gen, layers (f32)
+MESH_PREFILL = (4, 2048)            # 17d-ii: qwen2-1.5b uncut, B, S
+MESH_SERVE = (4, 64, 32)            # 17d-ii: serve's B, prompt, gen
+MESH_GEMMA = (2, 8192, 4)           # 17d-iii: gemma2-9b's B, S, layers
+MESH_DECODE_STEPS = 4               # decode steps from the prefill's length
+# 17d's bars, set from the readings on an H100: max |logit - one
+# device's| over max |one device's logit|. 17d-i in f32 (1.1e-6 prefill,
+# 8.5e-7 every stepped decode)
+TOL_MESH_SERVE_F32 = 1e-5
+# ... in bf16, where each rank's partial sums over 'model' round to bf16
+# before they are added: qwen2-1.5b's 28 layers (prefill 1.4e-2; decode
+# on the random cache 4.9e-2) and gemma2-9b's 4 (prefill 9.9e-3, decode
+# 1.3e-2 with either cache)
+TOL_MESH_SERVE_BF16 = dict(qwen2=(3e-2, 1e-1), gemma2=(3e-2, 3e-2))
+
+
+def mesh_serve_attn(args, dev, report):
+    """17d's kernel at its per-rank prefill shapes on mesh (2, 2) (B over
+    'data', heads over 'model'), bf16, on the tensor cores: qwen2-1.5b's
+    (B 2, 6 q heads over 1 kv head, S 2048, D 128, causal; timed beside
+    SDPA) and gemma2-9b's (B 1, 8 over 4, S 8192, D 256, cap 50, its local
+    window and global; no library call timed at this shape), each against
+    its plain version at phase 9's bars. Returns (worst error, times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain)
+
+    bf = torch.bfloat16
+    dp, mp = MESH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 171)
+    q_cfg, g_cfg = get_config(LM_ARCH), get_config(GEMMA_ARCH)
+    B, S = MESH_PREFILL
+    Bg, Sg, _ = MESH_GEMMA
+    cases = [(f"{LM_ARCH} share", B // dp, S, q_cfg.n_heads // mp,
+              q_cfg.n_kv_heads // mp, q_cfg.hd, None, None, 1.0,
+              sdpa_library),
+             (f"{GEMMA_ARCH} local share", Bg // dp, Sg, g_cfg.n_heads // mp,
+              g_cfg.n_kv_heads // mp, g_cfg.hd, g_cfg.window,
+              g_cfg.attn_softcap, GEMMA_Q_SCALE, None),
+             (f"{GEMMA_ARCH} global share", Bg // dp, Sg,
+              g_cfg.n_heads // mp, g_cfg.n_kv_heads // mp, g_cfg.hd, None,
+              g_cfg.attn_softcap, GEMMA_Q_SCALE, None)]
+    rep = dict(checks=[], times={})
+    err = 0.0
+    for name, b, s, h, kh, d, window, cap, q_scale, lib in cases:
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev)
+                   for n in (h, kh, kh))
+        q, k, v = (q * q_scale).to(bf), k.to(bf), v.to(bf)
+        shape = (f"{name}: B {b}, H {h} over K {kh}, D {d}, S = T = {s}"
+                 + (f", window {window}" if window else "")
+                 + (f", cap {cap:g}" if cap else ""))
+        tc0 = flash_attention.launches_tc
+        got = flash_attention_bshd(q, k, v, window=window, cap=cap)
+        require(flash_attention.launches_tc - tc0 == 1,
+                f"17d: the kernel did not run on the tensor cores ({shape})")
+        err = max(err, hold_attn(
+            rep["checks"], f"bf16 ({shape})", got,
+            lambda r: flash_attention_bshd_plain(q, k, v, window=window,
+                                                 cap=cap, round_p=r),
+            v, list(k.shape)))
+        del got
+        rep["times"][name] = time_attn(args, dev, lib, q, k, v, window, cap,
+                                       SDPA if lib else None)
+        rep["times"][name]["shape"] = shape
+        log_attn_time(f"bf16 ({shape})", rep["times"][name])
+        del q, k, v
+        torch.cuda.empty_cache()
+    rep["max_abs_err"] = err
+    report.setdefault("mesh", {})["serve_attn"] = rep
+    return err, rep["times"]
+
+
+def fill_random(cache, whole, seed, dev, specs=None, mesh=None):
+    """Fill a decode cache with seeded random k / v (int8: codes and
+    scales; |dequantised| ≈ 1), every leaf drawn whole on `dev` from its
+    own generator: one device's cache as drawn, or (with `specs`) this
+    rank's piece of the same draw."""
+    from repro_torch.models import shard as sh
+
+    for i, layer in enumerate(whole):
+        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + i)
+        for n in sorted(layer):
+            t = layer[n]
+            if t.dtype == torch.int8:
+                full = torch.randint(-127, 128, t.shape, generator=gen,
+                                     device=dev, dtype=torch.int8)
+            elif n.endswith("_scale"):
+                full = (0.5 + torch.rand(t.shape, generator=gen,
+                                         device=dev)) / 127.0
+            else:
+                full = torch.randn(t.shape, generator=gen,
+                                   device=dev).to(t.dtype)
+            cache[i][n].copy_(full if specs is None else
+                              sh.shard_of(full, specs[i][n], mesh))
+            del full
+
+
+def _serve_cfgs():
+    """(17d-i's f32 witness, 17d-ii's qwen2-1.5b, 17d-iii's gemma2-9b and
+    its int8 cache with T over 'model')."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = get_config(LM_ARCH)
+    L = MESH_SERVE_WITNESS[3]
+    wcfg = dataclasses.replace(base, n_layers=L, repeats=L, dtype="float32")
+    Lg = MESH_GEMMA[2]
+    gcfg = dataclasses.replace(get_config(GEMMA_ARCH), n_layers=Lg,
+                               repeats=Lg // 2)
+    g8 = dataclasses.replace(gcfg, kv_cache_dtype="int8", shard_cache_t=True)
+    return wcfg, base, gcfg, g8
+
+
+def _decode_run(model, cache, tokens, start, dev) -> tuple:
+    """decode_step at positions start, start + 1, ... on `tokens`' columns:
+    (the logits [steps, B, V] as f32 on the host, ms a step)."""
+    out, times = [], []
+    for j in range(tokens.shape[1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(cache, {"tokens": tokens[:, j:j + 1]},
+                                      start + j)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        out.append(lg[:, 0].float().cpu())
+    return torch.stack(out), times
+
+
+def mesh_serve_refs(args, dev, path) -> dict:
+    """17d's one-device references, on the card before the ranks are
+    spawned, saved to `path` (host tensors): 17d-i's prefill, serve and
+    every stepped decode's logits; 17d-ii's and 17d-iii's prefill logits,
+    decode logits on the seeded random caches (17d-iii: both caches) and
+    17d-ii's serve tokens. Frees its memory. Returns its times."""
+    from repro_torch.data import batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import LMModel
+    from repro_torch.models import transformer as tfm
+
+    wcfg, base, gcfg, g8 = _serve_cfgs()
+    seed, refs, t = args.seed, {}, {}
+    t0 = time.perf_counter()
+    B, P, G, _ = MESH_SERVE_WITNESS
+    model = LMModel(wcfg, device=dev, seed=seed)
+    prompts = torch.as_tensor(batch_for(wcfg, B, P, 0, seed)["tokens"],
+                              device=dev)
+    last = model.prefill_step({"tokens": prompts})[0].cpu()
+    toks, _ = serve(wcfg, batch=B, prompt_len=P, gen=G, seed=seed,
+                    device=dev)
+    seq = torch.cat([prompts, torch.as_tensor(toks, device=dev)], dim=1)
+    logits, _ = _decode_run(model, model.init_cache(B, P + G), seq, 0, dev)
+    refs["witness"] = dict(last=last, logits=logits, toks=toks)
+    del model
+    torch.cuda.empty_cache()
+    t["witness_s"] = time.perf_counter() - t0
+    for name, cfg, B, S in (("qwen2", base, *MESH_PREFILL),
+                            ("gemma2", gcfg, *MESH_GEMMA[:2])):
+        t0 = time.perf_counter()
+        model = LMModel(cfg, device=dev, seed=seed)
+        batch = batch_for(cfg, B, S, 0, seed)
+        r = dict(last=model.prefill_step(batch)[0].float().cpu())
+        tok = torch.as_tensor(batch_for(cfg, B, MESH_DECODE_STEPS, 1, seed)[
+            "tokens"], device=dev)
+        T = S + MESH_DECODE_STEPS
+        for cname, c in ((("bf16", cfg),) if name == "qwen2" else
+                         (("bf16", cfg), ("int8", g8))):
+            cache = tfm.init_cache(c, B, T, device=dev)
+            fill_random(cache, tfm.init_cache(c, B, T, device="meta"),
+                        seed + 17, dev)
+            r[f"decode_{cname}"], ms = _decode_run(model, cache, tok, S, dev)
+            t.setdefault("decode_ms", {})[f"{name} {cname}"] = ms
+            del cache
+        del model
+        torch.cuda.empty_cache()
+        if name == "qwen2":
+            Bs, Ps, Gs = MESH_SERVE
+            r["serve_toks"], t["serve_tps"] = serve(
+                cfg, batch=Bs, prompt_len=Ps, gen=Gs, seed=seed, device=dev)
+        refs[name] = r
+        t[f"{name}_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    torch.save(refs, path)
+    return t
+
+
+@contextlib.contextmanager
+def _untimed(mesh):
+    """The mesh's own collectives inside the block, without
+    `_timed_collectives`' timers and the card's synchronisations around
+    each."""
+    saved = {n: mesh.__dict__.pop(n) for n in COLLECTIVES
+             if n in mesh.__dict__}
+    try:
+        yield
+    finally:
+        mesh.__dict__.update(saved)
+
+
+def _bits(*ts) -> str:
+    """A digest of tensors' bytes: equal on every rank iff their logits
+    are."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def mesh_serve_rank(mesh, dev, seed, path, clock) -> dict:
+    """17d on one of the four gloo ranks (after 17c, on its mesh): the
+    f32 witness (17d-i), qwen2-1.5b uncut (17d-ii) and gemma2-9b at full
+    width on MESH_GEMMA's layers (17d-iii) served by the mesh entry
+    points, each against the one-device references at `path`. The launch
+    counts are set to 0 just before each prefill_step and read just
+    after. Returns this rank's errors, launches, times (prefill, decode a
+    step, serve's tokens/s), time in collectives and peak memory."""
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import LMModel
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import serving_cache_specs
+
+    refs = torch.load(path, map_location="cpu", weights_only=False)
+    wcfg, base, gcfg, g8 = _serve_cfgs()
+    out = dict(launches={})
+
+    def prefill(model, batch, tag):
+        flash_attention.launches = flash_attention.launches_tc = 0
+        torch.cuda.synchronize()
+        c0, t0 = clock["s"], time.perf_counter()
+        last, caches = model.prefill_step(batch)
+        torch.cuda.synchronize()
+        out[f"{tag}_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        out[f"{tag}_prefill_coll_ms"] = 1e3 * (clock["s"] - c0)
+        out["launches"][tag] = (flash_attention.launches,
+                                flash_attention.launches_tc)
+        return last, caches
+
+    def decode(model, cache, tok, start, tag):
+        c0 = clock["s"]
+        logits, ms = _decode_run(model, cache, tok, start, dev)
+        out[f"{tag}_ms"] = ms
+        out[f"{tag}_coll_ms"] = 1e3 * (clock["s"] - c0) / len(ms)
+        return logits
+
+    # -- 17d-i the f32 witness ------------------------------------------------
+    t0 = time.perf_counter()
+    ref = refs["witness"]
+    B, P, G, L = MESH_SERVE_WITNESS
+    model = LMModel(wcfg, mesh=mesh, seed=seed)
+    prompts = torch.as_tensor(batch_for(wcfg, B, P, 0, seed)["tokens"],
+                              device=dev)
+    last, _ = prefill(model, {"tokens": prompts}, "witness")
+    toks, _ = serve(wcfg, batch=B, prompt_len=P, gen=G, mesh=mesh,
+                    seed=seed)
+    seq = torch.cat([prompts, torch.as_tensor(ref["toks"], device=dev)], 1)
+    logits = decode(model, model.init_cache(B, P + G), seq, 0,
+                    "witness_decode")
+    out["witness"] = dict(prefill=_rel(last.cpu(), ref["last"]),
+                          decode=_rel(logits, ref["logits"]),
+                          toks_equal=bool(np.array_equal(toks, ref["toks"])),
+                          bits=_bits(last, logits))
+    del model
+    torch.cuda.empty_cache()
+    out["witness_s"] = time.perf_counter() - t0
+
+    # -- 17d-ii qwen2-1.5b uncut, 17d-iii gemma2-9b --------------------------
+    for name, cfg, B, S in (("qwen2", base, *MESH_PREFILL),
+                            ("gemma2", gcfg, *MESH_GEMMA[:2])):
+        t0 = time.perf_counter()
+        ref = refs[name]
+        torch.cuda.reset_peak_memory_stats()
+        model = LMModel(cfg, mesh=mesh, seed=seed)
+        batch = batch_for(cfg, B, S, 0, seed)
+        last, caches = prefill(model, batch, name)
+        r = dict(prefill=_rel(last.cpu(), ref["last"]),
+                 cache_shape=list(caches[0][0].shape), bits=_bits(last))
+        del caches, last
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.prefill_step(batch)
+        torch.cuda.synchronize()
+        out[f"{name}_prefill_again_ms"] = 1e3 * (time.perf_counter() - t1)
+        tok = torch.as_tensor(batch_for(cfg, B, MESH_DECODE_STEPS, 1, seed)[
+            "tokens"], device=dev)
+        T = S + MESH_DECODE_STEPS
+        for cname, c in ((("bf16", cfg),) if name == "qwen2" else
+                         (("bf16", cfg), ("int8", g8))):
+            # the weights do not depend on the cache's dtype or layout
+            model.cfg = c
+            cache = model.init_cache(B, T)
+            fill_random(cache, tfm.init_cache(c, B, T, device="meta"),
+                        seed + 17, dev, serving_cache_specs(c, mesh, B, T),
+                        mesh)
+            r[f"cache_{cname}"] = [list(x.shape) for x in cache[-1].values()]
+            logits = decode(model, cache, tok, S, f"{name}_decode_{cname}")
+            if name == "qwen2":
+                # the same steps again without the collectives' timers:
+                # the timers' cost, and the steps' repeat bit for bit
+                with _untimed(mesh):
+                    again, out["qwen2_decode_untimed_ms"] = _decode_run(
+                        model, cache, tok, S, dev)
+                r["decode_repeat_equal"] = bool(torch.equal(again, logits))
+            want = ref[f"decode_{cname}"]
+            r[f"decode_{cname}"] = _rel(logits, want)
+            r[f"decode_{cname}_argmax"] = float(
+                (logits.argmax(-1) == want.argmax(-1)).float().mean())
+            r["bits"] += _bits(logits)
+            del cache
+        model.cfg = cfg
+        del model
+        torch.cuda.empty_cache()
+        if name == "qwen2":
+            # untimed: the timers' synchronisations would slow the 96 steps
+            # (the decode steps above give the collectives' share)
+            Bs, Ps, Gs = MESH_SERVE
+            with _untimed(mesh):
+                toks, tps = serve(cfg, batch=Bs, prompt_len=Ps, gen=Gs,
+                                  mesh=mesh, seed=seed)
+            out["serve_tps"] = tps
+            r["serve_agree"] = float((toks == ref["serve_toks"]).mean())
+            r["serve_toks"] = toks.tolist()
+        out[name] = r
+        out[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5804,22 +6152,30 @@ def mesh_phase(args, dev, report):
     import types
 
     t_phase = time.perf_counter()
-    err_f, err_b, times = mesh_attn_checks(types.SimpleNamespace(**dict(
-        vars(args), repeats=min(args.repeats, MESH_REPEATS))), dev, report)
+    short = types.SimpleNamespace(**dict(
+        vars(args), repeats=min(args.repeats, MESH_REPEATS)))
+    err_f, err_b, times = mesh_attn_checks(short, dev, report)
+    err_s, serve_times = mesh_serve_attn(short, dev, report)
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     store = tempfile.mkdtemp(prefix="chip_smoke_mesh_store_")
+    refs = tempfile.mkdtemp(prefix="chip_smoke_mesh_refs_")
     n = MESH_SHAPE[0] * MESH_SHAPE[1]
     try:
         t0 = time.perf_counter()
+        ref_t = mesh_serve_refs(args, dev, os.path.join(refs, "refs.pt"))
+        torch.cuda.empty_cache()
+        t_refs = time.perf_counter() - t0
+        t0 = time.perf_counter()
         ranks = run_ranks(mesh_rank, n, dict(
             device="cuda:0" if dev.type == "cuda" else str(dev),
-            seed=args.seed, ckpt=root),
+            seed=args.seed, ckpt=root, refs=os.path.join(refs, "refs.pt")),
                           store_dir=store, backend="gloo",
                           timeout_s=MESH_TIMEOUT_S)
         t_ranks = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(refs, ignore_errors=True)
     B, S, L = MESH_TRAIN
     want = dict(flash_attention=2 * L * TRAIN_STEPS,
                 flash_attention_tc=2 * L * TRAIN_STEPS,
@@ -5871,13 +6227,110 @@ def mesh_phase(args, dev, report):
             f"launches {r['launches']}; {r['s']:.1f} s")
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ("flash_attention", "flash_attention_bwd")}
+    launches["flash_attention"] += mesh_serve_checks(ranks, ref_t, t_refs)
     s = time.perf_counter() - t_phase
     report["mesh"] = dict(report.get("mesh", {}), ranks=ranks,
-                          ranks_s=t_ranks, phase_s=s)
+                          ranks_s=t_ranks, refs_s=t_refs, phase_s=s)
     log(f"[mesh] phase 17 {s:.1f} s (the ranks {t_ranks:.1f} s); its main "
         f"path's launches {launches}")
-    return dict(launches=launches, max_abs_err=err_f, max_abs_err_bwd=err_b,
-                times=times)
+    return dict(launches=launches, max_abs_err=max(err_f, err_s),
+                max_abs_err_bwd=err_b, times=times, serve_times=serve_times)
+
+
+def mesh_serve_checks(ranks, ref_t, t_refs) -> int:
+    """17d's checks over the four ranks' results (`mesh_serve_rank`) and
+    its logs, a rank a line. Returns 17d's flash_attention launches, every
+    rank's."""
+    from repro_torch.configs import get_config
+
+    L = MESH_SERVE_WITNESS[3]
+    want = dict(witness=(L, 0), qwen2=(get_config(LM_ARCH).n_layers,) * 2,
+                gemma2=(MESH_GEMMA[2],) * 2)
+    s0 = ranks[0]["serve"]
+    for r in ranks:
+        s = r["serve"]
+        require({k: tuple(v) for k, v in s["launches"].items()} == want,
+                f"17d rank {r['rank']}: prefill launches {s['launches']} "
+                f"(flash_attention, on the tensor cores), want {want}")
+        w = s["witness"]
+        require(w["prefill"] <= TOL_MESH_SERVE_F32
+                and w["decode"] <= TOL_MESH_SERVE_F32 and w["toks_equal"],
+                f"17d-i rank {r['rank']}: {w} (bar {TOL_MESH_SERVE_F32})")
+        for name in ("qwen2", "gemma2"):
+            bar_p, bar_d = TOL_MESH_SERVE_BF16[name]
+            errs = {k: s[name][k] for k in ("decode_bf16", "decode_int8")
+                    if k in s[name]}
+            require(s[name]["prefill"] <= bar_p
+                    and max(errs.values()) <= bar_d,
+                    f"17d {name} rank {r['rank']}: prefill "
+                    f"{s[name]['prefill']}, {errs} of max |logit| (bars "
+                    f"{bar_p}, {bar_d})")
+        for name in ("witness", "qwen2", "gemma2"):
+            require(s[name]["bits"] == s0[name]["bits"],
+                    f"17d {name}: rank {r['rank']}'s logits differ from "
+                    f"rank 0's")
+        require(s["qwen2"]["serve_toks"] == s0["qwen2"]["serve_toks"],
+                f"17d: rank {r['rank']}'s served tokens differ from rank 0's")
+        require(s["qwen2"]["decode_repeat_equal"],
+                f"17d-ii rank {r['rank']}: the decode steps' repeat differs")
+    g = s0["gemma2"]
+    T, tp = MESH_GEMMA[1] + MESH_DECODE_STEPS, MESH_SHAPE[1]
+    require(g["cache_int8"][0][1] == T // tp,
+            f"17d-iii: the int8 cache's T over 'model' {g['cache_int8']}")
+    w, q = s0["witness"], s0["qwen2"]
+    B, P, G, _ = MESH_SERVE_WITNESS
+    log(f"[mesh] 17d-i {LM_ARCH} full width, {L} layers, f32, {B} x ({P} + "
+        f"{G}) on mesh {MESH_SHAPE} against one device: prefill logits "
+        f"{w['prefill']:.2e}, every stepped decode's {w['decode']:.2e} of "
+        f"max |logit| (bar {TOL_MESH_SERVE_F32}); serve(mesh=)'s tokens "
+        f"equal one device's; the same logits' bits on every rank")
+    Bs, Ps, Gs = MESH_SERVE
+    log(f"[mesh] 17d-ii {LM_ARCH} uncut, bf16: prefill_step "
+        f"{' x '.join(map(str, MESH_PREFILL))} logits {q['prefill']:.3e}, "
+        f"decode at {MESH_PREFILL[1]} on the seeded random bf16 cache "
+        f"(heads over 'model') {q['decode_bf16']:.3e} of max |logit| "
+        f"(bars {TOL_MESH_SERVE_BF16['qwen2']}), argmax agrees on "
+        f"{q['decode_bf16_argmax']:.3f}; serve(mesh=) {Bs} x ({Ps} + {Gs}): "
+        f"tokens equal one device's at {q['serve_agree']:.3f}; a rank's "
+        f"prefill k {q['cache_shape']}")
+    log(f"[mesh] 17d-iii {GEMMA_ARCH} full width, {MESH_GEMMA[2]} layers, "
+        f"bf16: prefill_step {MESH_GEMMA[0]} x {MESH_GEMMA[1]} logits "
+        f"{g['prefill']:.3e}; decode at {MESH_GEMMA[1]} (past the "
+        f"{get_config(GEMMA_ARCH).window} window) on the seeded random "
+        f"caches: bf16 (heads over 'model') {g['decode_bf16']:.3e}, argmax "
+        f"{g['decode_bf16_argmax']:.3f}; int8 with T over 'model' "
+        f"{g['decode_int8']:.3e}, argmax {g['decode_int8_argmax']:.3f} "
+        f"(bars {TOL_MESH_SERVE_BF16['gemma2']}); a rank's int8 cache (last "
+        f"layer) "
+        f"{g['cache_int8']}")
+    log(f"[mesh] 17d one-device references {t_refs:.1f} s (17d-i "
+        f"{ref_t['witness_s']:.1f}, qwen2 {ref_t['qwen2_s']:.1f}, gemma2 "
+        f"{ref_t['gemma2_s']:.1f}); one device's decode ms a step: "
+        + ", ".join(f"{k} " + " / ".join(f"{x:.1f}" for x in v)
+                    for k, v in ref_t["decode_ms"].items())
+        + f"; one device's serve {ref_t['serve_tps']:.1f} tokens/s")
+    for r in ranks:
+        s = r["serve"]
+        log(f"[mesh] 17d rank {r['rank']} {tuple(r['coord'])}: prefill "
+            f"qwen2 {s['qwen2_prefill_ms']:.1f} ms (in collectives "
+            f"{s['qwen2_prefill_coll_ms']:.1f}; again "
+            f"{s['qwen2_prefill_again_ms']:.1f}), gemma2 "
+            f"{s['gemma2_prefill_ms']:.1f} ms ({s['gemma2_prefill_coll_ms']:.1f};"
+            f" again {s['gemma2_prefill_again_ms']:.1f}); decode ms a step "
+            + ", ".join(f"{k[:-3]} " + " / ".join(f"{x:.1f}" for x in s[k])
+                        + f" (collectives {s[k[:-3] + '_coll_ms']:.1f})"
+                        for k in s if k.endswith("_decode_bf16_ms")
+                        or k.endswith("_decode_int8_ms"))
+            + ", qwen2's again without the collectives' timers "
+            + " / ".join(f"{x:.1f}" for x in s["qwen2_decode_untimed_ms"])
+            + f" (bit for bit); serve {s['serve_tps']:.1f} tokens/s ("
+            f"collectives untimed); peak allocated qwen2 "
+            f"{s['qwen2_peak_bytes'] / 2**30:.3f} GiB, gemma2 "
+            f"{s['gemma2_peak_bytes'] / 2**30:.3f} GiB; launches "
+            f"{s['launches']}; 17d-i {s['witness_s']:.1f} s, qwen2 "
+            f"{s['qwen2_s']:.1f} s, gemma2 {s['gemma2_s']:.1f} s")
+    return sum(sum(v[0] for v in r["serve"]["launches"].values())
+               for r in ranks)
 
 
 def main(argv=None) -> int:

@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen2-1.5b --smoke --device cpu
 
-The JAX package's `repro.launch.serve` on one device: the prompts are
+The JAX package's `repro.launch.serve`: the prompts are
 prefilled by stepping every token through `decode_step` (correct for every
 cache kind; the fused `prefill_step` is the other entry point, and the
 one that runs the flash_attention kernel), then greedy argmax decoding.
@@ -22,6 +24,16 @@ of bf16 weights).
 The int8 KV cache is the config's `kv_cache_dtype="int8"`, reached by
 `serve(dataclasses.replace(cfg, kv_cache_dtype="int8"), ...)` as in the
 JAX dry run; there is no flag for it, as in JAX's launcher.
+
+On a mesh (`serve(cfg, ..., mesh=)`, one process a rank): every rank
+takes the whole batch of prompts, runs its rows on its heads
+(`LMModel(cfg, mesh=)`; the decode cache is this rank's pieces in
+`models.model.cache_specs`' layout) and gets the whole batch's logits,
+the same bits on every rank, so every rank draws the same greedy tokens;
+a generated token's `embed` row comes from the vocabulary-sharded
+lookup. Under torchrun with more than one rank `main` builds
+`launch.mesh.make_local_mesh()`, as JAX's `main` builds its local mesh;
+rank 0 prints.
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ import torch
 from ..configs import get_config, smoke_config
 from ..data.pipeline import batch_for
 from ..models import LMModel
+from .mesh import make_local_mesh, world_size
 
 __all__ = ["serve", "generate", "main"]
 
@@ -42,7 +55,8 @@ def generate(model: LMModel, prompts: np.ndarray, gen: int):
     """Greedy decoding after a stepped prefill of `prompts` with an
     already-built model: token ids [B, P], or embeddings [B, P, d] for a
     config with `embed_inputs`. Returns (generated tokens [B, gen] as
-    numpy, tokens/s over the B * (P + gen) steps)."""
+    numpy, tokens/s over the B * (P + gen) steps); on a mesh every rank
+    passes the whole batch and gets the whole batch's tokens."""
     key = "embeddings" if model.cfg.embed_inputs else "tokens"
     B, prompt_len = prompts.shape[:2]
     total = prompt_len + gen
@@ -57,7 +71,7 @@ def generate(model: LMModel, prompts: np.ndarray, gen: int):
     nxt = torch.argmax(logits[:, -1], dim=-1)
     for t in range(prompt_len, total):
         out.append(nxt)
-        piece = (model.params.embed.detach()[nxt[:, None]]
+        piece = (model.embed_rows(nxt[:, None])
                  if model.cfg.embed_inputs else nxt[:, None])
         logits, cache = model.decode_step(cache, {key: piece}, t)
         nxt = torch.argmax(logits[:, -1], dim=-1)
@@ -66,11 +80,13 @@ def generate(model: LMModel, prompts: np.ndarray, gen: int):
     return toks, B * total / dt
 
 
-def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed=0,
+def serve(cfg, *, batch: int, prompt_len: int, gen: int, mesh=None, seed=0,
           device=None):
     """Returns (generated tokens [B, gen], tokens/sec). On CUDA unless
-    `device` names another; raises without a card."""
-    model = LMModel(cfg, device=device, seed=seed)
+    `device` names another (on a mesh, its device); raises without a
+    card. On a mesh, this rank's part of the run: the tokens are the
+    whole batch's on every rank."""
+    model = LMModel(cfg, mesh=mesh, device=device, seed=seed)
     prompts = batch_for(cfg, batch, prompt_len, 0, seed)
     return generate(model, prompts["embeddings" if cfg.embed_inputs
                                    else "tokens"], gen)
@@ -89,10 +105,16 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    mesh = make_local_mesh(device=args.device) if world_size() > 1 \
+        else None
     toks, tps = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                      gen=args.gen, device=args.device)
-    print(f"generated {toks.shape} tokens at {tps:.1f} tok/s")
-    print(toks[:, :12])
+                      gen=args.gen, mesh=mesh, device=args.device)
+    if mesh is None or mesh.rank == 0:
+        if mesh is not None:
+            print(f"arch={cfg.name} mesh={mesh.shape} "
+                  f"backend={mesh.backend} device={mesh.device}")
+        print(f"generated {toks.shape} tokens at {tps:.1f} tok/s")
+        print(toks[:, :12])
 
 
 if __name__ == "__main__":

@@ -178,13 +178,23 @@ def _out(o, wo):
     return o.flatten(-2) @ wo.reshape(h * e, d)
 
 
-def attn_apply(x, p, cfg, kind: str, positions, kv=None):
+def attn_apply(x, p, cfg, kind: str, positions, kv=None, whole_kv=False):
     """Full-sequence (prefill and training). Returns (out, (k, v) for
     caching). Runs the flash_attention kernel (with its backward) on CUDA
     tensors, chunked_attention on CPU tensors. On a mesh rank `p` holds
     this rank's heads and `kv` says which kv heads they read (`_qkv`);
-    the output is then this rank's part of the sum over heads."""
-    q, k, v = _qkv(x, p, cfg, positions, kv)
+    the output is then this rank's part of the sum over heads. With
+    `whole_kv` (a mesh prefill) the returned k / v hold every kv head
+    whose weights this rank holds, not only those its q heads read."""
+    if whole_kv and kv is not None:
+        q, k_all, v_all = _qkv(x, p, cfg, positions)
+        lo, hi, idx = kv
+        k, v = k_all[:, :, lo:hi], v_all[:, :, lo:hi]
+        if idx is not None:
+            k, v = k[:, :, idx], v[:, :, idx]
+    else:
+        q, k, v = _qkv(x, p, cfg, positions, kv)
+        k_all, v_all = k, v
     window = cfg.window if kind == "attn_local" else None
     cap = cfg.attn_softcap
     if q.device.type == "cpu":
@@ -192,20 +202,12 @@ def attn_apply(x, p, cfg, kind: str, positions, kv=None):
                               cap=cap)
     else:
         o = FlashAttentionFn.apply(q, k, v, True, window, cap)
-    return _out(o, p["wo"]), (k, v)
+    return _out(o, p["wo"]), (k_all, v_all)
 
 
-def attn_decode(x, p, cfg, kind: str, cache, pos: int):
-    """One-token decode. x [B,1,d]; cache {"k","v"} [B,T,K,hd] (+ f32
-    "k_scale", "v_scale" [B,T,K,1] if int8); pos = the current position
-    (int). Local kinds roll mod window. Writes the new k/v (codes and
-    scales) into `cache` in place and returns (out, cache)."""
-    B = x.shape[0]
-    shape = (B, 3, 1) if cfg.rope == "mrope" else (B, 1)
-    positions = torch.full(shape, pos, dtype=torch.int64, device=x.device)
-    q, k, v = _qkv(x, p, cfg, positions)
-    T = cache["k"].shape[1]
-    slot = pos % T if kind == "attn_local" else pos  # rolling window slot
+def _write_slot(cache, k, v, slot: int) -> None:
+    """The new token's k / v (codes and scales with an int8 cache) into
+    position `slot` of `cache`, in place."""
     kq, ks_ = quantize_kv(k, cache)
     vq, vs_ = quantize_kv(v, cache)
     cache["k"][:, slot] = kq[:, 0]
@@ -213,23 +215,82 @@ def attn_decode(x, p, cfg, kind: str, cache, pos: int):
     if "k_scale" in cache:
         cache["k_scale"][:, slot] = ks_[:, 0]
         cache["v_scale"][:, slot] = vs_[:, 0]
-    kf = dequantize_kv(cache["k"], cache.get("k_scale"), q.dtype)
-    vf = dequantize_kv(cache["v"], cache.get("v_scale"), q.dtype)
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    G = H // K
-    qg = q.reshape(B, 1, K, G, hd)
+
+
+def _decode_scores(q, kf, cfg, kind, slot: int, pos: int, T: int, t0=0):
+    """Scores [B, Kc, G, 1, Tc] of q [B, 1, Kc·G, hd] against the cache's
+    kv heads kf [B, Tc, Kc, hd] holding positions [t0, t0 + Tc) of a
+    cache of T, soft-capped and masked as one device masks them."""
+    B, _, Hq, hd = q.shape
+    Tc, Kc = kf.shape[1], kf.shape[2]
+    qg = q.reshape(B, 1, Kc, Hq // Kc, hd)
     s = _f32_einsum("bqkgd,btkd->bkgqt", qg, kf) / math.sqrt(hd)
     s = softcap(s, cfg.attn_softcap)
-    tpos = torch.arange(T, device=x.device)
+    tpos = t0 + torch.arange(Tc, device=q.device)
     if kind == "attn_local":
         valid = (tpos[None] <= slot) | (pos >= T)   # rolled window full
     else:
         valid = tpos[None] <= pos
-    s = torch.where(valid[None, None, None], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqt,btkd->bqkgd", w.to(vf.dtype), vf)
-    o = o.reshape(B, 1, H, hd)
-    return _out(o, p["wo"]), cache
+    return torch.where(valid[None, None, None], s, NEG_INF)
+
+
+def attn_decode(x, p, cfg, kind: str, cache, pos: int, ctx=None,
+                t_split: bool = False):
+    """One-token decode. x [B,1,d]; cache {"k","v"} [B,T,K,hd] (+ f32
+    "k_scale", "v_scale" [B,T,K,1] if int8); pos = the current position
+    (int). Local kinds roll mod window. Writes the new k/v (codes and
+    scales) into `cache` in place and returns (out, cache).
+
+    On a mesh (`ctx`, `shard.ShardCtx`) x holds this rank's rows and `p`
+    its heads; `cache` is this rank's piece in `model.cache_specs`'
+    layout. Heads over 'model': the cache holds this rank's kv heads (all
+    K where 'model' does not divide them; then every rank writes all K),
+    and each rank attends on its q heads. T over 'model' (`t_split`): the
+    cache holds positions [m T', (m + 1) T') of every kv head; the new
+    token's k / v are gathered over 'model' and written by the rank whose
+    range holds the slot, q is gathered so that each rank scores its
+    positions for every head, and the partial softmax statistics are
+    merged over 'model' (`ShardCtx.merge_softmax`) before each rank keeps
+    its heads' output for `wo`. The output is this rank's part of the
+    sum over heads."""
+    B = x.shape[0]
+    shape = (B, 3, 1) if cfg.rope == "mrope" else (B, 1)
+    positions = torch.full(shape, pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(x, p, cfg, positions)
+    K = cfg.n_kv_heads
+    mesh = ctx is not None and ctx.tp > 1
+    Tl = cache["k"].shape[1]
+    split = t_split and mesh
+    T = Tl * ctx.tp if split else Tl
+    slot = pos % T if kind == "attn_local" else pos  # rolling window slot
+    if mesh and cache["k"].shape[2] == K and k.shape[2] != K:
+        k, v = ctx.gather_heads(k), ctx.gather_heads(v)
+    t0 = ctx.m * Tl if split else 0
+    if not split or t0 <= slot < t0 + Tl:       # the rank that holds it
+        _write_slot(cache, k, v, slot - t0)
+    kf = dequantize_kv(cache["k"], cache.get("k_scale"), q.dtype)
+    vf = dequantize_kv(cache["v"], cache.get("v_scale"), q.dtype)
+    if not split:
+        if mesh and ctx.attn_sharded and kf.shape[2] == K:
+            lo, hi, idx = ctx.kv_map(q.shape[2])
+            kf, vf = kf[:, :, lo:hi], vf[:, :, lo:hi]
+            if idx is not None:
+                kf, vf = kf[:, :, idx], vf[:, :, idx]
+        s = _decode_scores(q, kf, cfg, kind, slot, pos, T)
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqt,btkd->bqkgd", w.to(vf.dtype), vf)
+        return _out(o.reshape(B, 1, q.shape[2], cfg.hd), p["wo"]), cache
+    if ctx.attn_sharded:
+        q = ctx.gather_heads(q)
+    s = _decode_scores(q, kf, cfg, kind, slot, pos, T, t0)
+    m = s.amax(dim=-1)                                   # [B, K, G, 1]
+    e = torch.exp(s - m[..., None])
+    o = _f32_einsum("bkgqt,btkd->bkgqd", e.to(vf.dtype), vf)
+    o = ctx.merge_softmax(m, e.sum(dim=-1), o)           # [B, K, G, 1, hd]
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, cfg.n_heads, cfg.hd)
+    if ctx.attn_sharded:
+        o = ctx.own_heads(o)
+    return _out(o.to(q.dtype), p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -79,6 +79,16 @@ step up to the order of sums. Two cases wait for ROADMAP A9 and raise:
 where the experts shard over it (not `pure_dp`). ZeRO-1 of AdamW's
 per-layer state splits a layer's first free dimension where JAX's
 stacked leaf may split the layer axis (the same share a rank).
+
+Serving on a mesh covers the same configs: `prefill_step` and
+`decode_step` take the whole batch (each rank runs its rows, all of
+them where the dp axes do not divide B, on its heads) and return JAX's
+global logits, every row over the whole vocabulary, the same bits on
+every rank (`shard.ShardCtx.whole_logits`); `init_cache` allocates this
+rank's pieces of the decode cache in `cache_specs`' layout (heads over
+'model', or T over 'model' with `shard_cache_t`; only the rows under
+`pure_dp`), which `decode_step` writes in place; `prefill_step`'s
+caches are this rank's rows and kv heads.
 """
 from __future__ import annotations
 
@@ -99,7 +109,7 @@ from .shard import P
 
 __all__ = ["LMModel", "P", "abstract_params", "param_specs", "zero1_specs",
            "opt_specs", "input_specs", "batch_specs", "cache_specs",
-           "dp_axes"]
+           "serving_cache_specs", "dp_axes"]
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
 
@@ -108,6 +118,12 @@ def dp_axes(mesh, cfg: Optional[ArchConfig] = None) -> tuple:
     if cfg is not None and cfg.pure_dp:
         return tuple(mesh.axis_names)
     return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def _local_shape(shape: tuple, spec, mesh) -> tuple:
+    """A leaf's shape cut to one rank's piece by its spec."""
+    return tuple(n // sh.entry_size(mesh, e) for n, e in
+                 zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
 
 
 def _dp_or_none(mesh, B: int, cfg: Optional[ArchConfig] = None):
@@ -320,6 +336,17 @@ def cache_specs(cfg: ArchConfig, mesh, B: int, T: int):
                       for layer in abstract]
 
 
+def serving_cache_specs(cfg: ArchConfig, mesh, B: int, T: int) -> list:
+    """The decode cache's specs that a mesh serves with: `cache_specs`',
+    but under `pure_dp` (no tensor parallelism) only the rows split (JAX's
+    specs name 'model' twice there when it is above 1)."""
+    _, specs = cache_specs(cfg, mesh, B, T)
+    if cfg.pure_dp:
+        specs = [{n: P(s[0], *([None] * (len(s) - 1)))
+                  for n, s in layer.items()} for layer in specs]
+    return specs
+
+
 def input_specs(cfg: ArchConfig, shape, mesh):
     """Meta-tensor stand-ins + specs for one (arch, shape) cell.
 
@@ -354,6 +381,7 @@ class LMModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
+        self._cache_layout = None       # a mesh's last init_cache
         if device is None and mesh is not None:
             device = mesh.device
         self.device = resolve_device(device)
@@ -385,27 +413,88 @@ class LMModel(nn.Module):
         return opt_specs(self.cfg, pspecs, self.mesh)
 
     def init_cache(self, B: int, T: int) -> list:
-        return tfm.init_cache(self.cfg, B, T, device=self.device)
+        """The decode cache for B rows and positions [0, T); on a mesh,
+        this rank's pieces of it in `cache_specs`' layout (only they are
+        allocated), which `decode_step` then expects."""
+        if self.mesh is None:
+            return tfm.init_cache(self.cfg, B, T, device=self.device)
+        specs = serving_cache_specs(self.cfg, self.mesh, B, T)
+
+        def local(i, name, shape):
+            return _local_shape(shape, specs[i][name], self.mesh)
+        cache = tfm.init_cache(self.cfg, B, T, device=self.device,
+                               local=local)
+        # a rank cannot tell a piece of T from a whole T by its shape:
+        # decode_step reads the layout from here
+        self._cache_layout = (B, T, [
+            {n: tuple(t.shape) for n, t in c.items()} for c in cache], [
+            "k" in sp and sp["k"][1] is not None for sp in specs])
+        return cache
 
     def _batch(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
 
+    def _rows(self, b: dict):
+        """(the layers' view of the mesh for a serving step on batch `b`,
+        this rank's rows of it, the batch's B)."""
+        x = b["embeddings" if self.cfg.embed_inputs else "tokens"]
+        ctx = self._ctx(x.shape[1], self._split(x.shape[0]))
+        return ctx, {k: ctx.rows(v) for k, v in b.items()}, x.shape[0]
+
     @torch.no_grad()
     def prefill_step(self, batch):
-        if self.mesh is not None:
-            raise later("serving on a mesh (prefill_step)")
+        """(logits [B, V] at the last position, caches). On a mesh: the
+        whole batch in, each rank runs its rows (all of them where the dp
+        axes do not divide B) on its heads; the logits are the whole
+        batch's over the whole vocabulary on every rank, the caches this
+        rank's rows and kv heads."""
+        if self.mesh is None:
+            logits, caches, _ = tfm.forward_full(
+                self.params, self.cfg, self._batch(batch), want_cache=True,
+                last_only=True)
+            return logits[:, -1], caches
+        ctx, rows, _ = self._rows(self._batch(batch))
         logits, caches, _ = tfm.forward_full(
-            self.params, self.cfg, self._batch(batch), want_cache=True,
-            last_only=True)
+            self.params, self.cfg, rows, want_cache=True, last_only=True,
+            ctx=ctx)
         return logits[:, -1], caches
 
     @torch.no_grad()
     def decode_step(self, cache, batch, pos: int):
-        if self.mesh is not None:
-            raise later("serving on a mesh (decode_step)")
-        return tfm.forward_decode(self.params, self.cfg, cache,
-                                  self._batch(batch), int(pos))
+        """(logits [B, 1, V], cache), the cache written in place. On a
+        mesh: the whole batch in, the logits the whole batch's on every
+        rank; `cache` this rank's pieces as `init_cache` made them."""
+        if self.mesh is None:
+            return tfm.forward_decode(self.params, self.cfg, cache,
+                                      self._batch(batch), int(pos))
+        ctx, rows, B = self._rows(self._batch(batch))
+        return tfm.forward_decode(self.params, self.cfg, cache, rows,
+                                  int(pos), ctx=ctx,
+                                  t_split=self._t_split(cache, B))
+
+    def _t_split(self, cache: list, B: int) -> list:
+        """For each layer, whether its cache's T is over 'model'; the
+        pieces must have the shapes of this model's last `init_cache`."""
+        layout = self._cache_layout
+        shapes = [{n: tuple(t.shape) for n, t in c.items()} for c in cache]
+        if layout is None or layout[0] != B or layout[2] != shapes:
+            raise ValueError(
+                f"decode_step on a mesh takes this rank's pieces of the "
+                f"model's last init_cache(B, T) (B {B}; "
+                f"{'none made' if layout is None else layout[:2]})")
+        return layout[3]
+
+    def embed_rows(self, tokens) -> torch.Tensor:
+        """`embed` rows of `tokens` (whole rows on every rank of a mesh:
+        over a vocabulary sharded on 'model' each rank looks up the ids
+        it owns and the rows are summed over 'model')."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        table = self.params.embed.detach()
+        if self.mesh is None:
+            return table[tokens.long()]
+        with torch.no_grad():
+            return self._ctx(1, 1).embed(table, tokens)
 
     # ---- the mesh ----------------------------------------------------------
     def _plan(self) -> None:

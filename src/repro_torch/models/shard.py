@@ -321,15 +321,19 @@ class ShardCtx:
     # -- attention's kv heads ------------------------------------------------
 
     def kv_heads(self, n_heads_local: int):
-        """Under sharded q heads and whole k / v heads: (the first and
-        one past the last kv head this rank's q heads read, the index of
-        each q head's kv head among them when they do not group evenly,
-        else None). None when k / v are sharded like q or nothing is."""
+        """Under sharded q heads and whole k / v heads: `kv_map`. None
+        when k / v are sharded like q or nothing is."""
         if self.tp == 1 or not self.attn_sharded or self.kv_sharded:
             return None
+        return self.kv_map(n_heads_local)
+
+    def kv_map(self, n_heads_local: int):
+        """(the first and one past the last kv head this rank's q heads
+        read, the index of each q head's kv head among them when they do
+        not group evenly, else None)."""
         cfg = self.cfg
         G = cfg.n_heads // cfg.n_kv_heads
-        h0 = self.m * n_heads_local
+        h0 = self.m * n_heads_local if self.attn_sharded else 0
         ids = [(h0 + i) // G for i in range(n_heads_local)]
         lo, hi = ids[0], ids[-1] + 1
         kl = hi - lo
@@ -377,6 +381,64 @@ class ShardCtx:
         ll = torch.gather(logits, -1, t.clamp(0, n - 1)[..., None])[..., 0]
         ll = reduce_from(ll * own.to(ll.dtype), self.mesh, "model")
         return lse - ll
+
+    # -- serving -------------------------------------------------------------
+
+    def gather_heads(self, x, dim: int = 2):
+        """Every rank's heads of `x` (dimension `dim`) over 'model', in
+        rank order: the whole head dimension."""
+        return _gather_dim(x, dim, self.mesh, "model")
+
+    def own_heads(self, x, dim: int = 2):
+        """This rank's piece of a whole head dimension (a view)."""
+        return _piece(x, dim, self.mesh, "model")
+
+    def merge_softmax(self, m, l, o):
+        """Attention's partial statistics over this rank's positions (row
+        max m [...], sum of exponentials l [...], unnormalised output o
+        [..., Dv], f32) merged over 'model' into the normalised output:
+        every rank gathers the partials and folds them in rank order, so
+        every rank gets the same bits."""
+        k = self.tp
+        parts = self.mesh.all_gather(
+            torch.cat([m[..., None], l[..., None], o], dim=-1)[None],
+            "model")
+        ms, ls, os_ = parts[..., 0], parts[..., 1], parts[..., 2:]
+        mx = ms[0]
+        for r in range(1, k):
+            mx = torch.maximum(mx, ms[r])
+        tot_l = torch.zeros_like(l)
+        tot_o = torch.zeros_like(o)
+        for r in range(k):
+            w = torch.exp(ms[r] - mx)
+            tot_l = tot_l + ls[r] * w
+            tot_o = tot_o + os_[r] * w[..., None]
+        return tot_o / tot_l[..., None]
+
+    def last_position(self, x):
+        """x[:, -1:] of the whole sequence: under `sp`, the last rank of
+        'model' holds it and every rank gets its copy."""
+        if not self.sp:
+            return x[:, -1:]
+        got = self.mesh.all_gather(x[:, -1:].contiguous(), "model")
+        return got[-x.shape[0]:]
+
+    def whole_logits(self, logits):
+        """Logits [B', s, V'] of this rank's rows and vocabulary shard ->
+        the whole batch's over the whole vocabulary, the same bits on
+        every rank: the vocabulary gathered over 'model' (each shard
+        computed by one rank), or, where 'model' leaves it whole, model
+        rank 0's copy; then the rows gathered over the data axes."""
+        if self.tp > 1:
+            if self.vocab_sharded:
+                logits = _gather_dim(logits, logits.dim() - 1, self.mesh,
+                                     "model")
+            else:
+                logits = self.mesh.all_gather(logits[None].contiguous(),
+                                              "model")[0]
+        if self.ndp > 1:
+            logits = self.mesh.all_gather(logits.contiguous(), self.dp_axes)
+        return logits
 
     # -- the data axes -------------------------------------------------------
 

@@ -127,18 +127,20 @@ def init_block(cfg, kind: str, *, generator: torch.Generator,
 
 
 def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
-                pos=None, ctx=None):
+                pos=None, ctx=None, t_split=False):
     """mode is implied: cache None => full-sequence; else one-token decode.
     Returns (x, new_cache, aux): after a full sequence (k, v), MLA's
     (ckv, k_rope) or the recurrent layer's final state; after a decode
     step the same cache dict, its k/v, latent or state written in place;
     aux the MoE layer's load-balance loss (f32), None for the other kinds
-    (JAX's 0, without a device tensor a layer). `ctx` (training on a
-    mesh, `shard.ShardCtx`): x holds this rank's rows (and, with
-    sequence parallelism, its positions); the attention and the MLP run on
-    this rank's heads and d_ff columns between `ctx.enter` and
-    `ctx.leave`, a MoE layer on the microbatch's rows gathered over the
-    dp axes."""
+    (JAX's 0, without a device tensor a layer). `ctx` (a mesh,
+    `shard.ShardCtx`): x holds this rank's rows (and, with sequence
+    parallelism, its positions); the attention and the MLP run on this
+    rank's heads and d_ff columns between `ctx.enter` and `ctx.leave`, a
+    MoE layer on the microbatch's rows gathered over the dp axes. A
+    decode step's cache is this rank's piece of it (`t_split`: its T over
+    'model', `attention.attn_decode`); a prefill's (k, v) hold every kv
+    head whose weights this rank holds."""
     aux = None
     mixer = KIND_MIXER[kind]
     h = apply_norm(cfg.norm, x, p["ln1"])
@@ -172,12 +174,16 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
         h = ctx.enter(h, ctx.attn_sharded)
         o, new_cache = attn.attn_apply(
             h, p["mix"], cfg, kind, positions,
-            kv=ctx.kv_heads(p["mix"]["wq"].shape[1]))
+            kv=ctx.kv_heads(p["mix"]["wq"].shape[1]),
+            whole_kv=not torch.is_grad_enabled())
         o = ctx.leave(o, ctx.attn_sharded)
     elif cache is None:
         o, new_cache = attn.attn_apply(h, p["mix"], cfg, kind, positions)
     else:
-        o, new_cache = attn.attn_decode(h, p["mix"], cfg, kind, cache, pos)
+        o, new_cache = attn.attn_decode(h, p["mix"], cfg, kind, cache, pos,
+                                        ctx=ctx, t_split=t_split)
+        if ctx is not None:
+            o = ctx.leave(o, ctx.attn_sharded)
     if cfg.post_norm:
         o = apply_norm(cfg.norm, o, p["pn1"])
     x = x + o
@@ -299,15 +305,18 @@ def _run_stack(params, cfg, batch, want_cache=False, ctx=None
     return x, caches, aux
 
 
-def _head(params, cfg, x, ctx=None):
+def _head(params, cfg, x, ctx=None, whole=False):
     """Final norm, unembedding in the activations' dtype, then f32 logits
     (soft-capped where the config says so; the cap is element-wise, so a
-    mesh rank applies it to its vocabulary's logits)."""
+    mesh rank applies it to its vocabulary's logits). With `whole` (a
+    serving step on a mesh, under no_grad: x holds every position it
+    needs) the logits are gathered to the whole batch over the whole
+    vocabulary (`ShardCtx.whole_logits`)."""
     x = apply_norm(cfg.norm, x, params.lnf)
-    if ctx is not None:
+    if ctx is not None and not whole:
         x = ctx.enter(x, ctx.vocab_sharded)
-    logits = x @ params.unembed
-    return softcap(logits.float(), cfg.logit_softcap)
+    logits = softcap((x @ params.unembed).float(), cfg.logit_softcap)
+    return ctx.whole_logits(logits) if whole else logits
 
 
 def forward_full(params, cfg, batch, *, want_cache=False, last_only=False,
@@ -318,12 +327,16 @@ def forward_full(params, cfg, batch, *, want_cache=False, last_only=False,
     state dict of each recurrent one; `aux` the MoE layers' summed
     load-balance loss (f32, 0 without MoE). With `last_only` the head runs
     on the last position only (logits [B,1,V]: the same values, without
-    the [B,S,V] tensor). With `ctx` (training on a mesh) the logits are
-    this rank's rows over every position and its vocabulary shard."""
+    the [B,S,V] tensor). With `ctx` (a mesh; `batch` this rank's rows)
+    the logits are this rank's rows over every position and its
+    vocabulary shard; with `last_only` too (a prefill), the whole batch's
+    over the whole vocabulary, the same bits on every rank (under
+    sequence parallelism the last position comes from the rank that holds
+    it), and the caches this rank's rows and kv heads."""
     x, caches, aux = _run_stack(params, cfg, batch, want_cache, ctx)
     if last_only:
-        x = x[:, -1:]
-    logits = _head(params, cfg, x, ctx)
+        x = x[:, -1:] if ctx is None else ctx.last_position(x)
+    logits = _head(params, cfg, x, ctx, whole=last_only and ctx is not None)
     return logits, (caches if want_cache else None), aux
 
 
@@ -355,19 +368,25 @@ def loss_fn(params, cfg, batch, ctx=None):
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
-def forward_decode(params, cfg, cache, batch, pos: int):
+def forward_decode(params, cfg, cache, batch, pos: int, ctx=None,
+                   t_split=None):
     """One-token step. batch: {"tokens" [B,1]} or {"embeddings" [B,1,d]};
     cache as init_cache(). Writes each layer's k/v at `pos`, or its new
     recurrent state, in place. Returns (logits [B,1,V], cache); the MoE
-    layers' aux is discarded, as in JAX."""
-    x = _embed_inputs(params, cfg, batch)
+    layers' aux is discarded, as in JAX. With `ctx` (a mesh) `batch` and
+    `cache` are this rank's rows and pieces (`t_split`: for each layer,
+    whether its cache's T is over 'model'), and the logits the whole
+    batch's over the whole vocabulary, the same bits on every rank."""
+    x = _embed_inputs(params, cfg, batch, ctx)
     if cfg.rope == "sinusoidal":
         x = x + sinusoidal_positions(
             torch.tensor([pos], device=x.device), cfg.d_model
         ).to(x.dtype)[None]
-    for p, kind, c in zip(params.blocks, params.kinds, cache):
-        x, _, _ = apply_block(p, x, cfg, kind, cache=c, pos=pos)
-    return _head(params, cfg, x), cache
+    splits = t_split or [False] * len(cache)
+    for p, kind, c, ts in zip(params.blocks, params.kinds, cache, splits):
+        x, _, _ = apply_block(p, x, cfg, kind, cache=c, pos=pos, ctx=ctx,
+                              t_split=ts)
+    return _head(params, cfg, x, ctx, whole=ctx is not None), cache
 
 
 def _cache_for_kind(cfg, kind, B, T, dt, device):
@@ -382,12 +401,20 @@ def _cache_for_kind(cfg, kind, B, T, dt, device):
     return attn.init_kv_cache(cfg, kind, B, Tk, dt, device)
 
 
-def init_cache(cfg, B: int, T: int, device=None) -> list:
+def init_cache(cfg, B: int, T: int, device=None, local=None) -> list:
     """Decode cache sized for positions [0, T), one dict per layer: {"k",
     "v"} (+ "k_scale", "v_scale" with `kv_cache_dtype="int8"`) for
     attention, local windows clamping storage; the latent {"ckv",
     "krope"} for MLA; the constant-size f32 state for the recurrent kinds
-    ({"h", "conv"} for `rec`, {"s", "x_tm", "x_cm"} for `rwkv`)."""
+    ({"h", "conv"} for `rec`, {"s", "x_tm", "x_cm"} for `rwkv`). With
+    `local(layer, name, shape)` (a mesh rank's piece of each leaf: its
+    shape) only the pieces are allocated, zero as the whole would be."""
     dt = _dtype(cfg)
-    return [_cache_for_kind(cfg, kind, B, T, dt, device)
-            for kind in layer_kinds(cfg)]
+    if local is None:
+        return [_cache_for_kind(cfg, kind, B, T, dt, device)
+                for kind in layer_kinds(cfg)]
+    whole = [_cache_for_kind(cfg, kind, B, T, dt, "meta")
+             for kind in layer_kinds(cfg)]
+    return [{n: torch.zeros(local(i, n, tuple(t.shape)), dtype=t.dtype,
+                            device=device) for n, t in c.items()}
+            for i, c in enumerate(whole)]

@@ -1,5 +1,6 @@
-"""The per-rank bodies of `test_torch_lm_mesh.py` and the configs they
-share with its JAX side. No tests here: each spawned gloo rank
+"""The per-rank bodies of `test_torch_lm_mesh.py` and
+`test_torch_lm_mesh_serve.py` and the configs they share with their JAX
+sides. No tests here: each spawned gloo rank
 (`repro_torch.core.mesh.run_ranks`) imports this module by name to find
 its function, so it imports neither JAX nor `repro`.
 """
@@ -25,7 +26,7 @@ B, S = 4, 32            # the global batch: two microbatches of 2 rows
 # to another bf16 value than the whole sum in about one entry in a
 # thousand: their f32 variants are held at 1e-5, "dbrx-bf16" at bf16's
 # bar; "vocab511" has a vocabulary that 'model' 2 does not divide, so
-# `embed` and `unembed` stay whole
+# `embed` and `unembed` stay whole; "gemma2-int8" has the int8 KV cache
 VARIANTS = {
     "qwen2-1.5b": ("qwen2-1.5b", 2, {}),
     "gemma2-9b": ("gemma2-9b", 2, {}),
@@ -41,6 +42,7 @@ VARIANTS = {
         prefix=("mla_dense",), grad_accum_dtype="float32")),
     "dbrx-bf16": ("dbrx-132b", 1, {}),
     "vocab511": ("qwen2-1.5b", 2, dict(vocab=511)),
+    "gemma2-int8": ("gemma2-9b", 2, dict(kv_cache_dtype="int8")),
 }
 
 
@@ -114,3 +116,92 @@ def init_gap(cfg, mesh) -> float:
         assert p.shape == want.shape, k
         gap = max(gap, float((p.float() - want.float()).abs().max()))
     return gap
+
+
+# -- serving on a mesh (`test_torch_lm_mesh_serve.py`) -------------------------
+
+def serve_cases(rank, world, cases):
+    """Each case on this rank, in order, on its ("data", "model") mesh:
+    what `_serve_one` returns, or the message of the
+    `NotImplementedError` it raised; for a case with `argv`, what
+    `repro_torch.launch.serve.main` printed."""
+    from repro_torch.core.mesh import build_mesh
+
+    out = []
+    for c in cases:
+        if "argv" in c:
+            out.append(serve_launcher(c["argv"]))
+            continue
+        cfg = smoke_cfg(tconfigs, c["variant"], **c["flags"])
+        mesh = build_mesh(c["shape"], ("data", "model"), device="cpu")
+        try:
+            out.append(_serve_one(cfg, mesh, c))
+        except NotImplementedError as e:
+            out.append(str(e))
+    return out
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def _serve_one(cfg, mesh, c) -> dict:
+    """The JAX weights (`c["state"]`, whole) loaded into this rank's
+    shards; then `prefill_step` on the prompts (its last logits and each
+    layer's cache), `generate` (the greedy tokens), and the decode steps
+    of the prompts and those tokens from `init_cache` (every step's
+    logits, the cache's pieces after the last, and the largest tensor a
+    collective returned during them)."""
+    from repro_torch.data import batch_for
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LMModel
+
+    if c.get("serve_only"):
+        from repro_torch.launch.serve import serve
+        return serve(cfg, batch=c["B"], prompt_len=c["P"], gen=c["G"],
+                     mesh=mesh, seed=c["seed"])[0]
+    model = LMModel(cfg, mesh=mesh)
+    model.load_full(c["state"])
+    key = "embeddings" if cfg.embed_inputs else "tokens"
+    B, P, G = c["B"], c["P"], c["G"]
+    batch = batch_for(cfg, B, P, 0, c["seed"])
+    inputs = {k: v for k, v in batch.items() if k in (key, "positions")}
+    last, caches = model.prefill_step(inputs)
+    toks, _ = generate(model, batch[key], G)
+    if cfg.embed_inputs:
+        seq = torch.cat([torch.as_tensor(batch[key]),
+                         model.embed_rows(toks)], dim=1)
+    else:
+        seq = torch.cat([torch.as_tensor(batch[key]),
+                         torch.as_tensor(toks)], dim=1)
+    largest = [0]
+    for name in ("all_gather", "all_sum"):
+        fn = getattr(mesh, name)
+
+        def seen(*a, _fn=fn, **kw):
+            got = _fn(*a, **kw)
+            largest[0] = max(largest[0], got.numel())
+            return got
+        setattr(mesh, name, seen)
+    cache = model.init_cache(B, P + G)
+    logits = []
+    for t in range(P + G):
+        lg, cache = model.decode_step(cache, {key: seq[:, t:t + 1]}, t)
+        logits.append(_np(lg))
+    return dict(
+        coord=tuple(mesh.coord), last=_np(last), toks=toks,
+        prefill=[tuple(_np(a) for a in c_) if isinstance(c_, tuple)
+                 else {n: _np(a) for n, a in c_.items()} for c_ in caches],
+        logits=logits, largest=largest[0],
+        cache=[{n: _np(a) for n, a in c_.items()} for c_ in cache])
+
+
+def serve_launcher(argv):
+    """`repro_torch.launch.serve.main(argv)` on this rank: what it
+    printed."""
+    from repro_torch.launch import serve as slaunch
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        slaunch.main(argv)
+    return buf.getvalue()
