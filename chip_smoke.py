@@ -164,8 +164,8 @@ Phases (any failure exits non-zero; nothing is caught):
      session recomputed, then a churn and an insert-only batch: engine
      sharded, no rebuild, the trace's engine and iterations, L1 <= 1e-8
      to a from-scratch solve, every device table equal to the shard's
-     mirror; (10d) four gloo ranks spawned on the card (run_ranks, a
-     deadline) at n = 2^18, m = 2^22 (GLOO: cut from 2^22 / 2^26 for the
+     mirror; (10d, run first in phase 17's four gloo ranks, one spawn for
+     both) at n = 2^18, m = 2^22 (GLOO: cut from 2^22 / 2^26 for the
      script's time): the 1-D engines (static, DF-P dense and with caps),
      pagerank_2d and dfp_2d on a (2, 2) mesh over a uniform graph of that
      size, and a guarded mesh session with a churn batch and a NaN batch
@@ -386,26 +386,30 @@ Phases (any failure exits non-zero; nothing is caught):
      flash_attention_bwd at one rank's share of qwen2-1.5b's heads on
      'model' 2 (bf16, B 1, 6 q heads over 1 kv head, D 128, S = T = 2048)
      against their plain versions at 9's / 11a's bars, on the tensor
-     cores, timed beside SDPA; then four gloo ranks spawned on the card
-     (run_ranks; NCCL refuses two ranks on one card), mesh (2, 2) over
-     ("data", "model"), zero1 and seq_parallel: (17b) one f32 train_step
-     of qwen2-1.5b at full width, 2 layers, 2 x 256, each rank holding
-     the loss, grad_norm and its shards of AdamW's m (the clipped
-     gradients) and of the weights against one device's step (which every
-     rank runs too) at 11b's bars; (17c) train(mesh=) of qwen2-1.5b in
-     bf16 at full width cut to MESH_TRAIN's 4 layers, 4 x 2048, 3 steps
-     (launch counts set to 0 just before: on every rank 8 flash_attention
-     and 4 flash_attention_bwd a step, all on the tensor cores), equal
+     cores, timed beside SDPA; four gloo ranks on the card (run_ranks;
+     NCCL refuses two ranks on one card), spawned at the phase's start,
+     wait for the parent's go, given once 17a-e's kernel checks and
+     timings, the one-device references and 17b's one-device step are
+     done; they run 10d, then on mesh (2, 2) over ("data", "model"),
+     zero1 and seq_parallel: (17b) one f32 train_step of qwen2-1.5b at
+     full width, 2 layers, 2 x 256, each rank holding the loss, grad_norm
+     and its shards of AdamW's m (the clipped gradients) and of the
+     weights against the same step on one device (run once by the parent,
+     its tensors shared with the ranks by CUDA IPC) at 11b's bars;
+     (17c) train(mesh=) of qwen2-1.5b in bf16 at full width cut to
+     MESH_TRAIN's 4 layers, 4 x 2048, MESH_TRAIN_STEPS steps (launch
+     counts set to 0 just before: on every rank 8 flash_attention and 4
+     flash_attention_bwd a step, all on the tensor cores), equal
      histories on every rank, each step's loss and grad_norm and the
-     step-3 weights against train() of the same 3 steps on one device
+     last step's weights against train() of the same steps on one device
      (TOL_MESH_*), every leaf moved, each rank's step times, time in
-     collectives
-     and peak memory, and the step-3 checkpoint restored on one device into
-     the gathered weights bit for bit; (17d) serving on the same ranks:
-     flash_attention at 17d's per-rank prefill shapes (qwen2-1.5b's B 2,
-     6 q heads over 1 kv head, 2048; gemma2-9b's B 1, 8 over 4, 8192, its
-     window and cap) against its plain version on the tensor cores, timed;
-     the one-device references run on the card before the spawn
+     collectives and peak memory, and the last step's checkpoint restored
+     on one device into the gathered weights bit for bit; (17d) serving
+     on the same ranks: flash_attention at 17d's per-rank prefill shapes
+     (qwen2-1.5b's B 2, 6 q heads over 1 kv head, 2048; gemma2-9b's B 1,
+     8 over 4, 8192, its window and cap) against its plain version on the
+     tensor cores, timed;
+     the one-device references run on the card before the go
      (mesh_serve_refs); then on every rank (mesh_serve_rank; the launch
      counts set to 0 just before each prefill_step): 17d-i a 2-layer f32
      qwen2-1.5b at full width, prefill_step, every stepped decode_step
@@ -413,13 +417,36 @@ Phases (any failure exits non-zero; nothing is caught):
      device's logits and its tokens; 17d-ii qwen2-1.5b uncut in bf16,
      prefill_step on 4 x 2048 (28 flash_attention launches a rank, on the
      tensor cores), decode at 2048 on a seeded random cache (heads over
-     'model'), serve(mesh=) on 4 x (64 + 32); 17d-iii gemma2-9b at full
-     width on 4 layers, prefill_step on 2 x 8192 (4 launches a rank),
-     decode at 8192 (the local layers roll) on seeded random caches, bf16
-     with the heads over 'model' and int8 with T over 'model'; the bf16
-     logits within TOL_MESH_SERVE_BF16 of one device's, every rank's
-     logits bit-identical, each rank's prefill, decode and serve times,
-     time in collectives and peak memory.
+     'model'), serve(mesh=) on MESH_SERVE's 4 x (16 + 8); 17d-iii
+     gemma2-9b at full width on 4 layers, prefill_step on 2 x 8192 (4
+     launches a rank), decode at 8192 (the local layers roll) on seeded
+     random caches, bf16 with the heads over 'model' and int8 with T over
+     'model'; 17d-ii and iii (`_case_rank`) run the prefill twice and the
+     decode steps twice, the second time on the cache drawn afresh and
+     without the collectives' timers, bit for bit; the bf16 logits within
+     TOL_MESH_SERVE_BF16 of one device's, every rank's logits
+     bit-identical, each rank's prefill, decode and serve times, time in
+     collectives and peak memory; (17e) the kinds whose weights
+     'model' splits by columns and heads: flash_attention and
+     flash_attention_bwd at one rank's share of recurrentgemma-2b's
+     attn_local (B 1, 5 q heads over 1 kv head, D 256, window 2048) and
+     of deepseek-v3-671b's MLA (B 1, 64 heads, q/k 192 over v 128), S = T
+     = 2048, against their plain versions at 9's / 11a's bars on the
+     tensor cores, timed beside SDPA; the one-device references run on the
+     card before the go (mesh_kinds_refs; rwkv6's also in f32, with its
+     bf16 gradients against the f32 ones leaf by leaf); then on every rank
+     (mesh_kinds_rank; the launch counts set to 0 just before the prefill
+     and the training) recurrentgemma-2b on its 3 pattern layers,
+     rwkv6-1.6b on 2 and deepseek-v3-671b on one mla_dense layer, full
+     width, bf16: prefill_step on 2 x 2048, 8 decode steps at 2048 on a
+     seeded random cache in serving_cache_specs' layout (deepseek's latent
+     also with T over 'model'), train(mesh=) with zero1 and seq_parallel
+     for 2 steps; logits, losses and grad_norm within TOL_MESH_KINDS of
+     one device's (rwkv6's grad_norm at TOL_MESH_KINDS_GNORM, and within
+     TOL_MESH_KINDS_F32 of its f32 run's), every rank's logits and
+     histories identical, and every piece of the trained weights alike on
+     the ranks that hold it (a whole leaf's gradient left unsummed over
+     'model' would part them).
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -427,6 +454,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import glob
@@ -1547,9 +1575,9 @@ def sharded_phase(args, g, dev, report, batches, errs) -> dict:
     version; 10b runs the 1-D engines at world size 1 over NCCL on the
     full-size graph (static, then phase 6's batches dense and with
     frontier caps, on a ShardedSnapshot) against the single-device fused
-    engine on the same layout; 10c runs a mesh StreamSession there; 10d
-    spawns four gloo ranks on the card. Returns the launch counts of the
-    sharded path (10b, 10c and every rank of 10d)."""
+    engine on the same layout; 10c runs a mesh StreamSession there (10d
+    runs first in phase 17's gloo ranks, `gloo_rank`). Returns the launch
+    counts of the sharded path (10b and 10c)."""
     import shutil
     import tempfile
 
@@ -1560,8 +1588,7 @@ def sharded_phase(args, g, dev, report, batches, errs) -> dict:
     from repro_torch.core.distributed import (
         build_sharded, distributed_dfp_pagerank, distributed_static_pagerank,
         initial_affected_sharded, local_pull, sharded_frontier_caps)
-    from repro_torch.core.mesh import init_mesh, run_ranks
-    from repro_torch.guard import H_NONFINITE
+    from repro_torch.core.mesh import init_mesh
     from repro_torch.kernels import csr_block_pull, ell_pull
     from repro_torch.kernels.csr_block import csr_block_pull_plain
     from repro_torch.kernels.ell_pull import (ell_pull_buckets,
@@ -1737,40 +1764,50 @@ def sharded_phase(args, g, dev, report, batches, errs) -> dict:
     log(f"[launches] phase 10b-c (world size 1): {launches_1}")
     del sess, snap, ref
     dist.destroy_process_group()
+    shutil.rmtree(store)
     torch.cuda.empty_cache()
 
-    # -- 10d. four gloo ranks on the one card --------------------------------
-    cfg = dict(GLOO, alpha=args.alpha, seed=args.seed, d_p=args.d_p,
-               tile=args.tile, frac=args.frac, device=str(mesh.device))
-    t0 = time.perf_counter()
-    ranks = run_ranks(gloo_rank, GLOO["ranks"], cfg, store_dir=store,
-                      backend="gloo", timeout_s=GLOO_TIMEOUT_S)
-    t_gloo = time.perf_counter() - t0
-    shutil.rmtree(store)
+    rep["s"] = time.perf_counter() - t_phase
+    rep["launches"] = dict(tally)
+    log(f"[sharded] phase 10 {rep['s']:.1f} s (10d runs in phase 17's "
+        f"ranks)")
+    report["sharded"] = rep
+    return dict(launches=tally)
+
+
+def gloo_cfg(args, dev) -> dict:
+    """10d's arguments to its ranks (`gloo_rank`)."""
+    return dict(GLOO, alpha=args.alpha, seed=args.seed, d_p=args.d_p,
+                tile=args.tile, frac=args.frac,
+                device="cuda:0" if dev.type == "cuda" else str(dev))
+
+
+def gloo_checks(ranks, report) -> dict:
+    """10d's checks over the four ranks' results (`gloo_rank`, run first
+    in phase 17's ranks) and its log. Returns its launches, every
+    rank's."""
+    from repro_torch.guard import H_NONFINITE
+
+    tally = {}
     for r in ranks:
         for name, cnt in r["launches"].items():
-            tally[name] += cnt
-    ref = ranks[0]["checks"]
-    log(f"[sharded 10d] {GLOO['ranks']} gloo ranks, n {GLOO['n']}: "
-        f"{t_gloo:.1f} s; per rank {[round(r['s'], 1) for r in ranks]} s; "
-        f"launches per rank {[r['launches'] for r in ranks]}; rank 0 "
-        f"against single-device solves (L1): {ref}")
-    for r in ranks:
-        for name, cnt in r["launches"].items():
+            tally[name] = tally.get(name, 0) + cnt
             require(cnt > 0, f"10d rank {r['rank']}: {name} never launched")
+    ref = ranks[0]["checks"]
+    log(f"[sharded 10d] {GLOO['ranks']} gloo ranks, n {GLOO['n']}: per rank "
+        f"{[round(r['s'], 1) for r in ranks]} s; launches per rank "
+        f"{[r['launches'] for r in ranks]}; rank 0 against single-device "
+        f"solves (L1): {ref}")
     for name, v in ref.items():
         require(v <= TOL_SOLVE_L1, f"10d {name}: L1 {v}")
     nan = ranks[0]["nan"]
     require(nan["health"] & H_NONFINITE and nan["rungs"][:1] == ["sharded"]
             and nan["success"] == 1,
             f"10d NaN batch: {nan}")
-    rep["10d"] = dict(s=t_gloo, ranks=ranks)
-    rep["s"] = time.perf_counter() - t_phase
-    rep["launches"] = dict(tally)
-    log(f"[launches] phase 10 (10b-c and every 10d rank): {tally}; phase "
-        f"10 {rep['s']:.1f} s")
-    report["sharded"] = rep
-    return dict(launches=tally)
+    report.setdefault("sharded", {})["10d"] = dict(
+        s=max(r["s"] for r in ranks), ranks=ranks)
+    log(f"[launches] phase 10d (every rank): {tally}")
+    return tally
 
 
 def gloo_rank(rank, world, cfg) -> dict:
@@ -5459,19 +5496,25 @@ MESH_SHAPE = (2, 2)                 # ("data", "model"): four gloo ranks
 MESH_ATTN = (1, 2048)               # 17a: one rank's B, S = T
 MESH_WITNESS = (2, 256, 2)          # 17b: B, S, layers (f32)
 # 17c: qwen2-1.5b at full width cut to 4 of its 28 layers, for the
-# script's time: train() gathers every leaf of the step-3 checkpoint
+# script's time: train() gathers every leaf of the last step's checkpoint
 # through host memory (gloo) and rank 0 writes it, 15.4 GB at 28 layers
 # (bf16 weights and f32 AdamW state) against 6.5 GB at 4
 MESH_TRAIN = (4, 2048, 4)           # B, S, layers
 MESH_FLAGS = dict(zero1=True, seq_parallel=True)
+# 17c's steps, 2 of 11c's TRAIN_STEPS for the script's time: the first
+# step and a later one are each held to their bar
+MESH_TRAIN_STEPS = 2
 MESH_TIMEOUT_S = 300.0
+# the ranks' wait for the parent's go, which comes after phase 17's kernel
+# checks and timings and the one-device references (15-30 s)
+MESH_GO_S = 240.0
 MESH_REPEATS = 5                    # 17a's timed samples (phase 9's are 20)
-# 17c against train() on one device, the same 3 steps, bars set from the
-# readings on an H100 (bf16 gradient sums in another order): the first
-# loss (7.2e-6 relative), the later losses (1.9e-5, 1.5e-5) and every
-# step's grad_norm (6.3e-4 to 6.7e-4); the step-3 weights' distance from
-# the one-device weights over that run's own move, |w_mesh - w_one| /
-# |w_one - w_0| (2-norms), over the whole model (0.066) and leaf by leaf
+# 17c against train() on one device, the same steps, bars set from the
+# readings on an H100 over 3 steps (bf16 gradient sums in another order):
+# the first loss (7.2e-6 relative), the later losses (1.9e-5, 1.5e-5) and
+# every step's grad_norm (6.3e-4 to 6.7e-4); the step-3 weights' distance
+# from the one-device weights over that run's own move, |w_mesh - w_one|
+# / |w_one - w_0| (2-norms), over the whole model (0.066) and leaf by leaf
 # (at most 0.52, the k biases, whose small gradients are mostly rounding;
 # 0.14 the rest). AdamW's update is about lr sign(g): a leaf updated with
 # unrelated gradients reads about sqrt(2)
@@ -5575,33 +5618,60 @@ def _timed_collectives(mesh, clock: dict) -> None:
         setattr(mesh, name, timed)
 
 
-def _witness_turn(wcfg, dev, seed, batch, met, mine, m_mine, pspecs,
-                  mspecs, mesh) -> dict:
-    """17b on one rank: the one-device f32 step, and this rank's shards of
-    the mesh step's weights and of AdamW's m (0.1 x the clipped
-    gradients) against the same pieces of it: m within TOL_TRAIN of each
-    leaf's max, the weights at 11b's bar (AdamW's first step is about lr
-    sign(g))."""
+def _witness_cfg():
+    """17b's config: qwen2-1.5b at full width on MESH_WITNESS's layers,
+    f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    L = MESH_WITNESS[2]
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=L, repeats=L,
+                               dtype="float32")
+
+
+def _witness_ref(args, dev) -> dict:
+    """17b's one-device f32 train_step, run once on the card by the parent
+    before its go: the weights after the step, AdamW's m (0.1 x the
+    clipped gradients) and the metrics. The ranks read the tensors where
+    they lie, shared by CUDA IPC (`_await_go`)."""
+    from repro_torch.data import batch_for
     from repro_torch.models import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, _ = MESH_WITNESS
+    wcfg = _witness_cfg()
+    ref = LMModel(wcfg, device=dev, seed=args.seed)
+    opt, met = ref.train_step(ref.init_opt(),
+                              batch_for(wcfg, B, S, 0, args.seed))
+    torch.cuda.synchronize()
+    return dict(params={k: p.detach()
+                        for k, p in ref.params.state_dict().items()},
+                m=dict(opt.m), met={k: float(x) for k, x in met.items()})
+
+
+def _witness_check(wref, met, mine, m_mine, pspecs, mspecs, mesh) -> dict:
+    """17b on one rank: the loss and grad_norm, and this rank's shards of
+    the mesh step's weights and of AdamW's m against the same pieces of
+    the one-device step `wref` (`_witness_ref`): m within TOL_TRAIN of
+    each leaf's max, the weights at 11b's bar (AdamW's first step is about
+    lr sign(g))."""
     from repro_torch.models import shard as sh
 
-    ref = LMModel(wcfg, device=dev, seed=seed)
-    ropt, rmet = ref.train_step(ref.init_opt(), batch)
-    w = dict(met={k: float(x) for k, x in met.items()},
-             ref={k: float(x) for k, x in rmet.items()})
+    w = dict(met={k: float(x) for k, x in met.items()}, ref=wref["met"])
     for k in ("loss", "grad_norm"):
         w[f"{k}_rel"] = abs(w["met"][k] - w["ref"][k]) / abs(w["ref"][k])
         require(w[f"{k}_rel"] <= TOL_TRAIN,
                 f"17b {k}: {w['met'][k]} vs one device's {w['ref'][k]}")
     w["m_worst"], worst = (-1.0, ""), 0.0
     for k, x in m_mine.items():
-        full = ropt.m[k]
+        full = wref["m"][k]
         rel = float((x - sh.shard_of(full, mspecs[k], mesh)).abs().max()) \
             / max(float(full.abs().max()), 1e-30)
         w["m_worst"] = max(w["m_worst"], (rel, k))
     require(w["m_worst"][0] <= TOL_TRAIN, f"17b m {w['m_worst']}")
-    for k, p in ref.params.state_dict().items():
-        g = (ropt.m[k] / 0.1).abs()
+    for k, p in wref["params"].items():
+        g = (wref["m"][k] / 0.1).abs()
         bar = 1e-6 + TRAIN_LR * torch.clamp(
             2 * TOL_TRAIN * g.max() / (g + TRAIN_EPS), max=2.0)
         diff = (mine[k] - sh.shard_of(p, pspecs[k], mesh)).abs()
@@ -5613,21 +5683,58 @@ def _witness_turn(wcfg, dev, seed, batch, met, mine, m_mine, pspecs,
     return w
 
 
+def _await_go(go_dir: str, rank: int) -> dict:
+    """This rank's go from the parent, which spawns the ranks first and
+    checks and times phase 17's kernels while they start: a rank waits
+    here before it touches the card. Returns 17b's one-device step
+    (`_witness_ref`), its tensors mapped from the parent's memory on the
+    card (CUDA IPC). Raises if the parent aborts or passes MESH_GO_S."""
+    import pickle
+
+    path = os.path.join(go_dir, f"go_{rank}.pkl")
+    t_end = time.monotonic() + MESH_GO_S
+    while not os.path.exists(path):
+        if os.path.exists(os.path.join(go_dir, "abort")):
+            raise RuntimeError("17: the parent stopped before its go")
+        if time.monotonic() > t_end:
+            raise TimeoutError(f"17: no go within {MESH_GO_S} s")
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        return pickle.loads(f.read())
+
+
+def _give_go(go_dir: str, n: int, wref: dict) -> None:
+    """The ranks' go (`_await_go`): `wref` pickled for each rank with
+    torch's reductions, which share its tensors by CUDA IPC; each file
+    is written whole, then renamed into place."""
+    from multiprocessing.reduction import ForkingPickler
+
+    for r in range(n):
+        tmp = os.path.join(go_dir, f"go_{r}.tmp")
+        with open(tmp, "wb") as f:
+            f.write(bytes(ForkingPickler.dumps(wref)))
+        os.replace(tmp, os.path.join(go_dir, f"go_{r}.pkl"))
+
+
 def mesh_rank(rank, world, cfg) -> dict:
-    """Phase 17b-c on one of the four gloo ranks sharing the card, mesh
+    """Phase 10d and 17b-e on one of the four gloo ranks sharing the card,
+    after the parent's go (`_await_go`). 10d: `gloo_rank`. Then mesh
     (2, 2) over ("data", "model"), `zero1` and `seq_parallel` on. 17b: one
     f32 train_step of qwen2-1.5b at full width, 2 layers, 2 x 256; each
     rank holds the loss, grad_norm and its shards of the weights and of
     AdamW's m (0.1 x the clipped gradients) against the same step on one
-    device, which it runs too (TOL_TRAIN of each leaf's max; the weights
-    at 11b's bar).
-    17c: train() in bf16 at full width on MESH_TRAIN, 3 steps, the launch
-    counts set to 0 just before; then rank 0 runs the same 3 steps by
-    train() on one device and holds every step's loss and grad_norm and
-    the gathered step-3 weights against it (TOL_MESH_*), checks that
-    every leaf moved and that the step-3 checkpoint restores on one device
-    into the gathered weights, bit for bit. Returns this rank's launches,
-    step times, time in collectives, peak memory and rank 0's checks."""
+    device, which the parent ran once (TOL_TRAIN of each leaf's max; the
+    weights at 11b's bar).
+    17c: train() in bf16 at full width on MESH_TRAIN, MESH_TRAIN_STEPS
+    steps, the launch counts set to 0 just before; then rank 0 runs the
+    same steps by train() on one device and holds every step's loss and
+    grad_norm and the gathered last weights against it (TOL_MESH_*),
+    checks that every leaf moved and that the last step's checkpoint
+    restores on one device into the gathered weights, bit for bit.
+    17d (`mesh_serve_rank`) and 17e (`mesh_kinds_rank`) follow on the
+    same mesh. Returns 10d's results, this rank's launches, step times,
+    time in collectives, peak memory, rank 0's checks and 17d's and 17e's
+    results."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5641,40 +5748,32 @@ def mesh_rank(rank, world, cfg) -> dict:
     from repro_torch.train import train
     from repro_torch.train.loop import restore_train_state
 
+    wref = _await_go(cfg["go"], rank)
     t_start = time.perf_counter()
+    gloo = gloo_rank(rank, world, cfg["gloo"])
+    torch.cuda.empty_cache()
     dev = torch.device(cfg["device"])
     torch.backends.cuda.matmul.allow_tf32 = False
     seed = cfg["seed"]
     mesh = build_mesh(MESH_SHAPE, ("data", "model"), device=dev)
     lead = mesh.rank == 0
-    out = dict(rank=mesh.rank, coord=list(mesh.coord))
+    out = dict(rank=mesh.rank, coord=list(mesh.coord), gloo=gloo)
     base = get_config(LM_ARCH)
 
     # -- 17b the f32 witness -----------------------------------------------
-    # every rank runs the one-device step too and holds its own shards
-    # against the same pieces of it (no leaf crosses the ranks)
+    # every rank holds its own shards against the same pieces of the
+    # parent's one-device step (no leaf crosses the ranks)
     t0 = time.perf_counter()
-    B, S, L = MESH_WITNESS
-    wcfg = dataclasses.replace(base, n_layers=L, repeats=L, dtype="float32")
+    B, S, _ = MESH_WITNESS
+    wcfg = _witness_cfg()
     model = LMModel(dataclasses.replace(wcfg, **MESH_FLAGS), mesh=mesh,
                     seed=seed)
-    batch = batch_for(wcfg, B, S, 0, seed)
-    opt, met = model.train_step(model.init_opt(), batch)
-    mine, m_mine = model.params.state_dict(), opt.m
-    pspecs, mspecs = model.pspecs, model.state_specs.m
-    del model, opt
-    torch.cuda.empty_cache()
-    # one rank at a time (four one-device f32 steps do not fit beside
-    # each other); each holds its shards against the same pieces of the
-    # one-device step, then frees it
-    for turn in range(mesh.size):
-        if turn == mesh.rank:
-            out["witness"] = _witness_turn(wcfg, dev, seed, batch, met,
-                                           mine, m_mine, pspecs, mspecs,
-                                           mesh)
-            torch.cuda.empty_cache()
-        mesh.barrier()
-    del mine, m_mine
+    opt, met = model.train_step(model.init_opt(),
+                                batch_for(wcfg, B, S, 0, seed))
+    out["witness"] = _witness_check(wref, met, model.params.state_dict(),
+                                    opt.m, model.pspecs,
+                                    model.state_specs.m, mesh)
+    del model, opt, wref
     out["witness_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     mesh.barrier()
@@ -5697,8 +5796,9 @@ def mesh_rank(rank, world, cfg) -> dict:
     flash_attention_bwd.launches = flash_attention_bwd.launches_tc = 0
     try:
         shards, hist = train(dataclasses.replace(tcfg, **MESH_FLAGS),
-                             steps=TRAIN_STEPS, batch=B, seq=S,
-                             ckpt_dir=cfg["ckpt"], ckpt_every=TRAIN_STEPS,
+                             steps=MESH_TRAIN_STEPS, batch=B, seq=S,
+                             ckpt_dir=cfg["ckpt"],
+                             ckpt_every=MESH_TRAIN_STEPS,
                              mesh=mesh, log_every=1, seed=seed)
         torch.cuda.synchronize()
     finally:
@@ -5723,7 +5823,7 @@ def mesh_rank(rank, world, cfg) -> dict:
     if lead:
         one = LMModel(tcfg, device=dev, seed=seed)
         fresh = {k: p.cpu() for k, p in one.params.state_dict().items()}
-        ref, rhist = train(tcfg, steps=TRAIN_STEPS, batch=B, seq=S,
+        ref, rhist = train(tcfg, steps=MESH_TRAIN_STEPS, batch=B, seq=S,
                            log_every=1, seed=seed, device=dev)
         c = {f"{k}_rel": [abs(h[k] - r[k]) / abs(r[k])
                           for h, r in zip(hist, rhist)]
@@ -5746,11 +5846,12 @@ def mesh_rank(rank, world, cfg) -> dict:
         log(f"[mesh] 17c against train() on one device: losses "
             + " / ".join(f"{x:.3e}" for x in c["loss_rel"]) + ", grad_norm "
             + " / ".join(f"{x:.3e}" for x in c["grad_norm_rel"])
-            + f" relative; step-{TRAIN_STEPS} weights |w - w_one| / "
+            + f" relative; step-{MESH_TRAIN_STEPS} weights |w - w_one| / "
             f"|w_one - w_0| {c['weights_gap_all']:.4f} over the model, "
             "by leaf at most " + ", ".join(f"{k} {x:.4f}"
                                            for x, k in gaps[:6]))
-        require(len(rhist) == len(hist) == TRAIN_STEPS, f"17c {rhist}")
+        require(len(rhist) == len(hist) == MESH_TRAIN_STEPS,
+                f"17c {rhist}")
         require(c["loss_rel"][0] <= TOL_MESH_LOSS,
                 f"17c first loss {hist[0]['loss']} vs one device's "
                 f"{rhist[0]['loss']}")
@@ -5760,13 +5861,14 @@ def mesh_rank(rank, world, cfg) -> dict:
                 f"17c grad_norm {c['grad_norm_rel']} relative to one "
                 f"device's")
         require(c["weights_gap_all"] <= TOL_MESH_WEIGHTS_ALL,
-                f"17c step-{TRAIN_STEPS} weights {c['weights_gap_all']} "
+                f"17c step-{MESH_TRAIN_STEPS} weights "
+                f"{c['weights_gap_all']} "
                 f"of the one-device run's move from them")
         require(gaps[0][0] <= TOL_MESH_WEIGHTS,
-                f"17c step-{TRAIN_STEPS} weights {gaps[:6]} of the "
+                f"17c step-{MESH_TRAIN_STEPS} weights {gaps[:6]} of the "
                 f"one-device run's move from them")
         still = [k for k, p in gathered.items() if torch.equal(p, fresh[k])
-                 and can_move(fresh[k], TRAIN_STEPS)]
+                 and can_move(fresh[k], MESH_TRAIN_STEPS)]
         require(not still, f"17c weights that did not move: {still[:5]}")
         t0 = time.perf_counter()
         restored, got_step = restore_train_state(cfg["ckpt"], one,
@@ -5774,14 +5876,14 @@ def mesh_rank(rank, world, cfg) -> dict:
         del restored        # AdamW's state: 17d runs on this rank next
         torch.cuda.synchronize()
         c["restore_s"] = time.perf_counter() - t0
-        same = got_step == TRAIN_STEPS and all(
+        same = got_step == MESH_TRAIN_STEPS and all(
             torch.equal(p.cpu(), gathered[k])
             for k, p in one.params.state_dict().items())
         require(same, "17c: the step-3 checkpoint did not restore on one "
                       "device into the gathered weights bit for bit")
         c.update(resumed_bit_for_bit=same, ckpt_bytes=sum(
             os.path.getsize(f) for f in glob.glob(os.path.join(
-                cfg["ckpt"], f"step_{TRAIN_STEPS:010d}", "*"))),
+                cfg["ckpt"], f"step_{MESH_TRAIN_STEPS:010d}", "*"))),
             n_params=sum(p.numel() for p in fresh.values()))
         out["checks"] = c
         del one, fresh
@@ -5792,6 +5894,10 @@ def mesh_rank(rank, world, cfg) -> dict:
     # -- 17d serving on the same mesh -----------------------------------------
     out["serve"] = mesh_serve_rank(mesh, dev, seed, cfg["refs"], clock)
     mesh.barrier()
+
+    # -- 17e the recurrent kinds and MLA over 'model' ------------------------
+    out["kinds"] = mesh_kinds_rank(mesh, dev, seed, cfg["kinds"], clock)
+    mesh.barrier()
     out["s"] = time.perf_counter() - t_start
     return out
 
@@ -5799,7 +5905,9 @@ def mesh_rank(rank, world, cfg) -> dict:
 # -- phase 17d: serving on a mesh ---------------------------------------------
 MESH_SERVE_WITNESS = (4, 16, 8, 2)  # 17d-i: B, prompt, gen, layers (f32)
 MESH_PREFILL = (4, 2048)            # 17d-ii: qwen2-1.5b uncut, B, S
-MESH_SERVE = (4, 64, 32)            # 17d-ii: serve's B, prompt, gen
+# 17d-ii: serve's B, prompt, gen, cut for the script's time from 4 x (64
+# + 32): each decode step runs ~59 gloo collectives
+MESH_SERVE = (4, 16, 8)
 MESH_GEMMA = (2, 8192, 4)           # 17d-iii: gemma2-9b's B, S, layers
 MESH_DECODE_STEPS = 4               # decode steps from the prefill's length
 # 17d's bars, set from the readings on an H100: max |logit - one
@@ -5895,9 +6003,24 @@ def fill_random(cache, whole, seed, dev, specs=None, mesh=None):
             del full
 
 
-def _serve_cfgs():
-    """(17d-i's f32 witness, 17d-ii's qwen2-1.5b, 17d-iii's gemma2-9b and
-    its int8 cache with T over 'model')."""
+# A config run by the mesh entry points and held against the same run on
+# one device (17d-ii, 17d-iii and each of 17e's): prefill_step on B x S;
+# `steps` decode_steps from position S, once on each of `decode`'s (name,
+# config) caches (the same weights; a config may lay its cache out
+# otherwise), each cache filled with `fill`'s seeded random draws;
+# `again`: the prefill once more, timed, and the decode steps once more on
+# the cache drawn afresh, without the collectives' timers, bit for bit;
+# serve(mesh=) on `serve`'s (B, prompt, gen) unless None; train(mesh=)
+# with MESH_FLAGS for `train` steps unless 0.
+MeshCase = collections.namedtuple("MeshCase", (
+    "name", "cfg", "B", "S", "decode", "steps", "fill", "again", "serve",
+    "train"))
+
+
+def _serve_cases():
+    """(17d-i's f32 witness config, [17d-ii's qwen2-1.5b uncut, 17d-iii's
+    gemma2-9b with its bf16 cache and its int8 cache with T over
+    'model']), the last two as MeshCases."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5909,7 +6032,12 @@ def _serve_cfgs():
     gcfg = dataclasses.replace(get_config(GEMMA_ARCH), n_layers=Lg,
                                repeats=Lg // 2)
     g8 = dataclasses.replace(gcfg, kv_cache_dtype="int8", shard_cache_t=True)
-    return wcfg, base, gcfg, g8
+    return wcfg, [
+        MeshCase("qwen2", base, *MESH_PREFILL, (("bf16", base),),
+                 MESH_DECODE_STEPS, 17, True, MESH_SERVE, 0),
+        MeshCase("gemma2", gcfg, *MESH_GEMMA[:2],
+                 (("bf16", gcfg), ("int8", g8)), MESH_DECODE_STEPS, 17,
+                 True, None, 0)]
 
 
 def _decode_run(model, cache, tokens, start, dev) -> tuple:
@@ -5927,18 +6055,226 @@ def _decode_run(model, cache, tokens, start, dev) -> tuple:
     return torch.stack(out), times
 
 
-def mesh_serve_refs(args, dev, path) -> dict:
-    """17d's one-device references, on the card before the ranks are
-    spawned, saved to `path` (host tensors): 17d-i's prefill, serve and
-    every stepped decode's logits; 17d-ii's and 17d-iii's prefill logits,
-    decode logits on the seeded random caches (17d-iii: both caches) and
-    17d-ii's serve tokens. Frees its memory. Returns its times."""
+def _case_ref(c, dev, seed) -> tuple:
+    """One device's run of MeshCase `c` on the card: (its results on the
+    host: the prefill's last logits, each cache's decode logits, serve's
+    tokens, the training history; its times)."""
     from repro_torch.data import batch_for
     from repro_torch.launch.serve import serve
     from repro_torch.models import LMModel
     from repro_torch.models import transformer as tfm
+    from repro_torch.train import train
 
-    wcfg, base, gcfg, g8 = _serve_cfgs()
+    t0 = time.perf_counter()
+    model = LMModel(c.cfg, device=dev, seed=seed)
+    r = dict(last=model.prefill_step(batch_for(c.cfg, c.B, c.S, 0, seed))[
+        0].float().cpu())
+    tok = torch.as_tensor(batch_for(c.cfg, c.B, c.steps, 1, seed)["tokens"],
+                          device=dev)
+    T, t = c.S + c.steps, {}
+    for cname, cc in c.decode:
+        cache = tfm.init_cache(cc, c.B, T, device=dev)
+        fill_random(cache, tfm.init_cache(cc, c.B, T, device="meta"),
+                    seed + c.fill, dev)
+        r[f"decode_{cname}"], t[f"decode_{cname}_ms"] = _decode_run(
+            model, cache, tok, c.S, dev)
+        del cache
+    del model
+    torch.cuda.empty_cache()
+    if c.serve:
+        Bs, Ps, Gs = c.serve
+        r["serve_toks"], t["serve_tps"] = serve(
+            c.cfg, batch=Bs, prompt_len=Ps, gen=Gs, seed=seed, device=dev)
+    if c.train:
+        _, hist = train(c.cfg, steps=c.train, batch=c.B, seq=c.S,
+                        log_every=1, seed=seed, device=dev)
+        r["history"] = [{k: h[k] for k in ("loss", "grad_norm")}
+                        for h in hist]
+        torch.cuda.empty_cache()
+    t["s"] = time.perf_counter() - t0
+    return r, t
+
+
+def _digest(t) -> list:
+    """A fingerprint of a tensor's bits, taken on the card: the sum of its
+    words and their sum weighted by position (mod 2^64), equal for equal
+    tensors."""
+    w = t.detach().contiguous().view(-1)
+    w = w.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[w.element_size()])
+    s = torch.zeros(2, dtype=torch.int64, device=w.device)
+    step = 1 << 24
+    for i in range(0, w.numel(), step):
+        x = w[i:i + step].long()
+        pos = torch.arange(i, i + x.numel(), device=w.device)
+        s[0] += x.sum()
+        s[1] += (x * (pos % 65521 + 1)).sum()
+    return s.tolist()
+
+
+def _pieces(params, cfg, mesh) -> dict:
+    """{leaf: [this rank's coordinates on the leaf's mesh axes, a digest
+    of its piece]}: ranks with equal coordinates hold the same piece of
+    the leaf, so their digests must be equal (a whole leaf whose gradient
+    went unsummed over 'model' would part its replicas)."""
+    from repro_torch.models import shard as sh
+    from repro_torch.models.model import abstract_params, param_specs
+
+    specs = param_specs(cfg, abstract_params(cfg), mesh)
+    out = {}
+    for k, p in params.state_dict().items():
+        axes = sh.spec_axes(specs[k])
+        out[k] = [[c for a, c in zip(mesh.axis_names, mesh.coord)
+                   if a in axes], _digest(p)]
+    return out
+
+
+def _case_rank(c, mesh, dev, seed, ref, clock) -> dict:
+    """MeshCase `c` on this rank by the mesh entry points against one
+    device's run `ref` (`_case_ref`), each decode on the same random
+    cache's piece in `serving_cache_specs`' layout. The launch counts are
+    set to 0 just before the prefill and the training and read just
+    after. Returns the errors, digests of the logits, the launches, the
+    times, the time in collectives and the peak memory; with training,
+    `_case_train`'s."""
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import LMModel
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import serving_cache_specs
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = LMModel(c.cfg, mesh=mesh, seed=seed)
+    batch = batch_for(c.cfg, c.B, c.S, 0, seed)
+    flash_attention.launches = flash_attention.launches_tc = 0
+    torch.cuda.synchronize()
+    c0, t1 = clock["s"], time.perf_counter()
+    last, caches = model.prefill_step(batch)
+    torch.cuda.synchronize()
+    first = caches[0]
+    r = dict(prefill_ms=1e3 * (time.perf_counter() - t1),
+             prefill_coll_ms=1e3 * (clock["s"] - c0),
+             launches=dict(prefill=(flash_attention.launches,
+                                    flash_attention.launches_tc)),
+             prefill=_rel(last.cpu(), ref["last"]), bits=_bits(last),
+             state=[list(x.shape) for x in (first.values() if isinstance(
+                 first, dict) else first)])
+    del last, caches, first
+    if c.again:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.prefill_step(batch)
+        torch.cuda.synchronize()
+        r["prefill_again_ms"] = 1e3 * (time.perf_counter() - t1)
+    tok = torch.as_tensor(batch_for(c.cfg, c.B, c.steps, 1, seed)["tokens"],
+                          device=dev)
+    T = c.S + c.steps
+
+    def drawn(cc):
+        cache = model.init_cache(c.B, T)
+        fill_random(cache, tfm.init_cache(cc, c.B, T, device="meta"),
+                    seed + c.fill, dev, serving_cache_specs(cc, mesh, c.B, T),
+                    mesh)
+        return cache
+    for cname, cc in c.decode:
+        # the weights do not depend on the cache's dtype or layout
+        model.cfg = cc
+        cache = drawn(cc)
+        r[f"cache_{cname}"] = [list(x.shape) for x in cache[-1].values()]
+        c0 = clock["s"]
+        logits, ms = _decode_run(model, cache, tok, c.S, dev)
+        r[f"decode_{cname}_ms"] = ms
+        r[f"decode_{cname}_coll_ms"] = 1e3 * (clock["s"] - c0) / len(ms)
+        if c.again:
+            # the same steps again on the same cache drawn afresh, without
+            # the collectives' timers: the timers' cost, and the steps'
+            # repeat bit for bit
+            cache = drawn(cc)
+            with _untimed(mesh):
+                again, r[f"decode_{cname}_untimed_ms"] = _decode_run(
+                    model, cache, tok, c.S, dev)
+            r[f"decode_{cname}_repeat_equal"] = bool(
+                torch.equal(again, logits))
+            del again
+        want = ref[f"decode_{cname}"]
+        r[f"decode_{cname}"] = _rel(logits, want)
+        r[f"decode_{cname}_argmax"] = float(
+            (logits.argmax(-1) == want.argmax(-1)).float().mean())
+        r["bits"] += _bits(logits)
+        del cache, logits
+    model.cfg = c.cfg
+    del model
+    torch.cuda.empty_cache()
+    if c.serve:
+        # untimed: the timers' synchronisations would slow its steps (the
+        # decode steps above give the collectives' share)
+        Bs, Ps, Gs = c.serve
+        with _untimed(mesh):
+            toks, r["serve_tps"] = serve(c.cfg, batch=Bs, prompt_len=Ps,
+                                         gen=Gs, mesh=mesh, seed=seed)
+        r["serve_agree"] = float((toks == ref["serve_toks"]).mean())
+        r["serve_toks"] = toks.tolist()
+    r["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if c.train:
+        _case_train(c, mesh, seed, ref, clock, r)
+    r["s"] = time.perf_counter() - t0
+    return r
+
+
+def _case_train(c, mesh, seed, ref, clock, r) -> None:
+    """MeshCase `c`'s train(mesh=) with MESH_FLAGS, the launch counts set
+    to 0 just before and read just after, into `r`: the history, each
+    step's loss and grad_norm relative to one device's in `ref` (and to
+    its f32 run's where `ref` has one), the step times, the time in
+    collectives, the peak memory and `_pieces` of the weights."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bwd)
+    from repro_torch.train import train
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention.launches_tc = 0
+    flash_attention_bwd.launches = flash_attention_bwd.launches_tc = 0
+    c0 = clock["s"]
+    params, hist = train(dataclasses.replace(c.cfg, **MESH_FLAGS),
+                         steps=c.train, batch=c.B, seq=c.S, mesh=mesh,
+                         log_every=1, seed=seed)
+    torch.cuda.synchronize()
+    r["launches"]["train"] = (flash_attention.launches,
+                              flash_attention.launches_tc,
+                              flash_attention_bwd.launches,
+                              flash_attention_bwd.launches_tc)
+    r.update(history=[{k: h[k] for k in ("loss", "grad_norm")}
+                      for h in hist],
+             step_s=[hist[0]["sec"]] + [b["sec"] - a["sec"]
+                                        for a, b in zip(hist, hist[1:])],
+             train_coll_s=clock["s"] - c0,
+             train_peak_bytes=torch.cuda.max_memory_allocated(),
+             pieces=_pieces(params, c.cfg, mesh))
+    del params
+    for tag in ("", "_f32"):
+        if f"history{tag}" not in ref:
+            continue
+        for k in ("loss", "grad_norm"):
+            r[f"{k}_rel{tag}"] = [abs(h[k] - w[k]) / abs(w[k]) if w[k] else
+                                  abs(h[k]) for h, w in zip(
+                                      r["history"], ref[f"history{tag}"])]
+    torch.cuda.empty_cache()
+
+
+def mesh_serve_refs(args, dev, path) -> dict:
+    """17d's one-device references, on the card before the go, saved to
+    `path` (host tensors): 17d-i's prefill, serve and every stepped
+    decode's logits; `_case_ref` of 17d-ii and 17d-iii. Frees its memory.
+    Returns its times."""
+    from repro_torch.data import batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import LMModel
+
+    wcfg, cases = _serve_cases()
     seed, refs, t = args.seed, {}, {}
     t0 = time.perf_counter()
     B, P, G, _ = MESH_SERVE_WITNESS
@@ -5954,32 +6290,8 @@ def mesh_serve_refs(args, dev, path) -> dict:
     del model
     torch.cuda.empty_cache()
     t["witness_s"] = time.perf_counter() - t0
-    for name, cfg, B, S in (("qwen2", base, *MESH_PREFILL),
-                            ("gemma2", gcfg, *MESH_GEMMA[:2])):
-        t0 = time.perf_counter()
-        model = LMModel(cfg, device=dev, seed=seed)
-        batch = batch_for(cfg, B, S, 0, seed)
-        r = dict(last=model.prefill_step(batch)[0].float().cpu())
-        tok = torch.as_tensor(batch_for(cfg, B, MESH_DECODE_STEPS, 1, seed)[
-            "tokens"], device=dev)
-        T = S + MESH_DECODE_STEPS
-        for cname, c in ((("bf16", cfg),) if name == "qwen2" else
-                         (("bf16", cfg), ("int8", g8))):
-            cache = tfm.init_cache(c, B, T, device=dev)
-            fill_random(cache, tfm.init_cache(c, B, T, device="meta"),
-                        seed + 17, dev)
-            r[f"decode_{cname}"], ms = _decode_run(model, cache, tok, S, dev)
-            t.setdefault("decode_ms", {})[f"{name} {cname}"] = ms
-            del cache
-        del model
-        torch.cuda.empty_cache()
-        if name == "qwen2":
-            Bs, Ps, Gs = MESH_SERVE
-            r["serve_toks"], t["serve_tps"] = serve(
-                cfg, batch=Bs, prompt_len=Ps, gen=Gs, seed=seed, device=dev)
-        refs[name] = r
-        t[f"{name}_s"] = time.perf_counter() - t0
-        torch.cuda.empty_cache()
+    for c in cases:
+        refs[c.name], t[c.name] = _case_ref(c, dev, seed)
     torch.save(refs, path)
     return t
 
@@ -6016,137 +6328,67 @@ def _rel(got, want) -> float:
 
 def mesh_serve_rank(mesh, dev, seed, path, clock) -> dict:
     """17d on one of the four gloo ranks (after 17c, on its mesh): the
-    f32 witness (17d-i), qwen2-1.5b uncut (17d-ii) and gemma2-9b at full
-    width on MESH_GEMMA's layers (17d-iii) served by the mesh entry
-    points, each against the one-device references at `path`. The launch
-    counts are set to 0 just before each prefill_step and read just
-    after. Returns this rank's errors, launches, times (prefill, decode a
-    step, serve's tokens/s), time in collectives and peak memory."""
+    f32 witness (17d-i) served by the mesh entry points, then
+    `_case_rank` of qwen2-1.5b uncut (17d-ii) and gemma2-9b at full width
+    on MESH_GEMMA's layers (17d-iii), each against the one-device
+    references at `path`. The launch counts are set to 0 just before each
+    prefill_step and read just after."""
     from repro_torch.data import batch_for
     from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.launch.serve import serve
     from repro_torch.models import LMModel
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.model import serving_cache_specs
 
     refs = torch.load(path, map_location="cpu", weights_only=False)
-    wcfg, base, gcfg, g8 = _serve_cfgs()
-    out = dict(launches={})
-
-    def prefill(model, batch, tag):
-        flash_attention.launches = flash_attention.launches_tc = 0
-        torch.cuda.synchronize()
-        c0, t0 = clock["s"], time.perf_counter()
-        last, caches = model.prefill_step(batch)
-        torch.cuda.synchronize()
-        out[f"{tag}_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
-        out[f"{tag}_prefill_coll_ms"] = 1e3 * (clock["s"] - c0)
-        out["launches"][tag] = (flash_attention.launches,
-                                flash_attention.launches_tc)
-        return last, caches
-
-    def decode(model, cache, tok, start, tag):
-        c0 = clock["s"]
-        logits, ms = _decode_run(model, cache, tok, start, dev)
-        out[f"{tag}_ms"] = ms
-        out[f"{tag}_coll_ms"] = 1e3 * (clock["s"] - c0) / len(ms)
-        return logits
+    wcfg, cases = _serve_cases()
 
     # -- 17d-i the f32 witness ------------------------------------------------
     t0 = time.perf_counter()
     ref = refs["witness"]
-    B, P, G, L = MESH_SERVE_WITNESS
+    B, P, G, _ = MESH_SERVE_WITNESS
     model = LMModel(wcfg, mesh=mesh, seed=seed)
     prompts = torch.as_tensor(batch_for(wcfg, B, P, 0, seed)["tokens"],
                               device=dev)
-    last, _ = prefill(model, {"tokens": prompts}, "witness")
+    flash_attention.launches = flash_attention.launches_tc = 0
+    last, _ = model.prefill_step({"tokens": prompts})
+    launches = (flash_attention.launches, flash_attention.launches_tc)
     toks, _ = serve(wcfg, batch=B, prompt_len=P, gen=G, mesh=mesh,
                     seed=seed)
     seq = torch.cat([prompts, torch.as_tensor(ref["toks"], device=dev)], 1)
-    logits = decode(model, model.init_cache(B, P + G), seq, 0,
-                    "witness_decode")
-    out["witness"] = dict(prefill=_rel(last.cpu(), ref["last"]),
-                          decode=_rel(logits, ref["logits"]),
-                          toks_equal=bool(np.array_equal(toks, ref["toks"])),
-                          bits=_bits(last, logits))
+    logits, _ = _decode_run(model, model.init_cache(B, P + G), seq, 0, dev)
+    out = dict(witness=dict(
+        prefill=_rel(last.cpu(), ref["last"]),
+        decode=_rel(logits, ref["logits"]),
+        toks_equal=bool(np.array_equal(toks, ref["toks"])),
+        bits=_bits(last, logits), launches=launches,
+        s=time.perf_counter() - t0))
     del model
     torch.cuda.empty_cache()
-    out["witness_s"] = time.perf_counter() - t0
 
     # -- 17d-ii qwen2-1.5b uncut, 17d-iii gemma2-9b --------------------------
-    for name, cfg, B, S in (("qwen2", base, *MESH_PREFILL),
-                            ("gemma2", gcfg, *MESH_GEMMA[:2])):
-        t0 = time.perf_counter()
-        ref = refs[name]
-        torch.cuda.reset_peak_memory_stats()
-        model = LMModel(cfg, mesh=mesh, seed=seed)
-        batch = batch_for(cfg, B, S, 0, seed)
-        last, caches = prefill(model, batch, name)
-        r = dict(prefill=_rel(last.cpu(), ref["last"]),
-                 cache_shape=list(caches[0][0].shape), bits=_bits(last))
-        del caches, last
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        model.prefill_step(batch)
-        torch.cuda.synchronize()
-        out[f"{name}_prefill_again_ms"] = 1e3 * (time.perf_counter() - t1)
-        tok = torch.as_tensor(batch_for(cfg, B, MESH_DECODE_STEPS, 1, seed)[
-            "tokens"], device=dev)
-        T = S + MESH_DECODE_STEPS
-        for cname, c in ((("bf16", cfg),) if name == "qwen2" else
-                         (("bf16", cfg), ("int8", g8))):
-            # the weights do not depend on the cache's dtype or layout
-            model.cfg = c
-            cache = model.init_cache(B, T)
-            fill_random(cache, tfm.init_cache(c, B, T, device="meta"),
-                        seed + 17, dev, serving_cache_specs(c, mesh, B, T),
-                        mesh)
-            r[f"cache_{cname}"] = [list(x.shape) for x in cache[-1].values()]
-            logits = decode(model, cache, tok, S, f"{name}_decode_{cname}")
-            if name == "qwen2":
-                # the same steps again without the collectives' timers:
-                # the timers' cost, and the steps' repeat bit for bit
-                with _untimed(mesh):
-                    again, out["qwen2_decode_untimed_ms"] = _decode_run(
-                        model, cache, tok, S, dev)
-                r["decode_repeat_equal"] = bool(torch.equal(again, logits))
-            want = ref[f"decode_{cname}"]
-            r[f"decode_{cname}"] = _rel(logits, want)
-            r[f"decode_{cname}_argmax"] = float(
-                (logits.argmax(-1) == want.argmax(-1)).float().mean())
-            r["bits"] += _bits(logits)
-            del cache
-        model.cfg = cfg
-        del model
-        torch.cuda.empty_cache()
-        if name == "qwen2":
-            # untimed: the timers' synchronisations would slow the 96 steps
-            # (the decode steps above give the collectives' share)
-            Bs, Ps, Gs = MESH_SERVE
-            with _untimed(mesh):
-                toks, tps = serve(cfg, batch=Bs, prompt_len=Ps, gen=Gs,
-                                  mesh=mesh, seed=seed)
-            out["serve_tps"] = tps
-            r["serve_agree"] = float((toks == ref["serve_toks"]).mean())
-            r["serve_toks"] = toks.tolist()
-        out[name] = r
-        out[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated()
-        out[f"{name}_s"] = time.perf_counter() - t0
+    for c in cases:
+        out[c.name] = _case_rank(c, mesh, dev, seed, refs[c.name], clock)
         torch.cuda.empty_cache()
     return out
 
 
 def mesh_phase(args, dev, report):
-    """Phase 17: training on a mesh. 17a the kernels at one rank's share
-    of qwen2-1.5b's heads; 17b-c on four gloo ranks sharing the card
-    (`mesh_rank`): the f32 witness against one device, then qwen2-1.5b
-    trained in bf16 at full width by train(mesh=), its launches on every
-    rank (two flash_attention and one flash_attention_bwd a layer a step,
-    all on the tensor cores), step times, time in collectives and peak
-    memory per rank, and its checkpoint resumed on one device. The four
-    ranks time-share the card: their times are recorded as measured, no
-    speed claim. Returns the path's launches (17c's, every rank's), the
-    kernels' worst errors and 17a's times."""
+    """Phase 17 (and phase 10d): four gloo ranks sharing the card
+    (`mesh_rank`), spawned first; while they start, the parent holds the
+    kernels at each rank's share of the attention against their plain
+    versions and times them (17a, 17d's and 17e's shapes), runs the
+    one-device references of 17d and 17e and 17b's one-device step, then
+    gives the go (`_give_go`). Then 10d, the f32 witness against one
+    device (17b), qwen2-1.5b trained in bf16 at full width by
+    train(mesh=) (17c: its launches on every rank, two flash_attention
+    and one flash_attention_bwd a layer a step, all on the tensor cores,
+    step times, time in collectives and peak memory per rank, and its
+    checkpoint resumed on one device), serving (17d) and the kinds
+    'model' splits by columns and heads (17e). The four ranks time-share
+    the card: their times are recorded as measured, no speed claim.
+    Returns the path's launches (17c-e's and 10d's, every rank's), the
+    kernels' worst errors and the kernels' times."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.core.mesh import run_ranks
 
     import types
@@ -6154,33 +6396,53 @@ def mesh_phase(args, dev, report):
     t_phase = time.perf_counter()
     short = types.SimpleNamespace(**dict(
         vars(args), repeats=min(args.repeats, MESH_REPEATS)))
-    err_f, err_b, times = mesh_attn_checks(short, dev, report)
-    err_s, serve_times = mesh_serve_attn(short, dev, report)
-    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_store_")
-    refs = tempfile.mkdtemp(prefix="chip_smoke_mesh_refs_")
+    root, store, refs, go = (tempfile.mkdtemp(prefix=f"chip_smoke_mesh_{x}_")
+                             for x in ("ckpt", "store", "refs", "go"))
     n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    pool = ThreadPoolExecutor(1)
     try:
+        ranks_f = pool.submit(run_ranks, mesh_rank, n, dict(
+            device="cuda:0" if dev.type == "cuda" else str(dev),
+            seed=args.seed, ckpt=root, refs=os.path.join(refs, "refs.pt"),
+            kinds=os.path.join(refs, "kinds.pt"), go=go,
+            gloo=gloo_cfg(args, dev)),
+            store_dir=store, backend="gloo", timeout_s=MESH_TIMEOUT_S)
+        err_f, err_b, times = mesh_attn_checks(short, dev, report)
+        err_s, serve_times = mesh_serve_attn(short, dev, report)
+        err_kf, err_kb, kinds_times = mesh_kinds_attn(short, dev, report)
         t0 = time.perf_counter()
         ref_t = mesh_serve_refs(args, dev, os.path.join(refs, "refs.pt"))
         torch.cuda.empty_cache()
         t_refs = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = run_ranks(mesh_rank, n, dict(
-            device="cuda:0" if dev.type == "cuda" else str(dev),
-            seed=args.seed, ckpt=root, refs=os.path.join(refs, "refs.pt")),
-                          store_dir=store, backend="gloo",
-                          timeout_s=MESH_TIMEOUT_S)
-        t_ranks = time.perf_counter() - t0
+        kinds_t = mesh_kinds_refs(args, dev, os.path.join(refs, "kinds.pt"))
+        torch.cuda.empty_cache()
+        t_kinds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wref = _witness_ref(args, dev)
+        _give_go(go, n, wref)
+        t_go = time.perf_counter()
+        log(f"[mesh] the go {t_go - t_phase:.1f} s into phase 17 (17b's "
+            f"one-device step {t_go - t0:.1f} s)")
+        ranks = ranks_f.result()
+        t_ranks = time.perf_counter() - t_go
+        del wref
+    except BaseException:
+        # the ranks still waiting for the go stop; the others fail their
+        # collectives, and run_ranks ends them all
+        open(os.path.join(go, "abort"), "w").close()
+        raise
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-        shutil.rmtree(store, ignore_errors=True)
-        shutil.rmtree(refs, ignore_errors=True)
+        pool.shutdown(wait=True)
+        for d in (root, store, refs, go):
+            shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gloo = gloo_checks([r["gloo"] for r in ranks], report)
     B, S, L = MESH_TRAIN
-    want = dict(flash_attention=2 * L * TRAIN_STEPS,
-                flash_attention_tc=2 * L * TRAIN_STEPS,
-                flash_attention_bwd=L * TRAIN_STEPS,
-                flash_attention_bwd_tc=L * TRAIN_STEPS)
+    want = dict(flash_attention=2 * L * MESH_TRAIN_STEPS,
+                flash_attention_tc=2 * L * MESH_TRAIN_STEPS,
+                flash_attention_bwd=L * MESH_TRAIN_STEPS,
+                flash_attention_bwd_tc=L * MESH_TRAIN_STEPS)
     hist0 = [{k: v for k, v in h.items() if k != "sec"}
              for h in ranks[0]["history"]]
     for r in ranks:
@@ -6202,19 +6464,21 @@ def mesh_phase(args, dev, report):
         f"{w['loss_rel']:.2e}, grad_norm {w['grad_norm_rel']:.2e} relative; "
         f"m (the clipped gradients) {w['m_worst'][0]:.2e} of its leaf's max "
         f"({w['m_worst'][1]}); weights at "
-        f"{w['weights_worst_of_bar']:.3f} of 11b's bar "
-        f"({ranks[0]['witness_s']:.1f} s)")
+        f"{w['weights_worst_of_bar']:.3f} of 11b's bar (the parent's "
+        f"one-device step {t_go - t0:.1f} s, the ranks' "
+        + " / ".join(f"{r['witness_s']:.1f}" for r in ranks) + " s)")
     log(f"[mesh] 17c {LM_ARCH} bf16, full width, {L} layers "
         f"({c['n_params'] / 1e9:.3f} B parameters), {B} x {S}, "
-        f"{TRAIN_STEPS} steps by train(mesh=) on {n} gloo ranks: losses "
+        f"{MESH_TRAIN_STEPS} steps by train(mesh=) on {n} gloo ranks: "
+        "losses "
         + " / ".join(f"{h['loss']:.4f}" for h in hist0)
         + "; against the same steps on one device: losses "
         + " / ".join(f"{x:.2e}" for x in c["loss_rel"]) + ", grad_norm "
         + " / ".join(f"{x:.2e}" for x in c["grad_norm_rel"])
-        + f" relative, step-{TRAIN_STEPS} weights "
+        + f" relative, step-{MESH_TRAIN_STEPS} weights "
         f"{c['weights_gap_all']:.4f} of its move over the model, at most "
         f"{c['weights_gap'][0]:.4f} by leaf ({c['weights_gap'][1]}); "
-        f"every leaf moved; the step-{TRAIN_STEPS} checkpoint "
+        f"every leaf moved; the step-{MESH_TRAIN_STEPS} checkpoint "
         f"({c['ckpt_bytes'] / 2**30:.3f} GiB) restored on one device bit "
         f"for bit in {c['restore_s']:.1f} s")
     for r in ranks:
@@ -6228,56 +6492,124 @@ def mesh_phase(args, dev, report):
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ("flash_attention", "flash_attention_bwd")}
     launches["flash_attention"] += mesh_serve_checks(ranks, ref_t, t_refs)
+    fwd, bwd = mesh_kinds_checks(ranks, kinds_t, t_kinds)
+    launches["flash_attention"] += fwd
+    launches["flash_attention_bwd"] += bwd
     s = time.perf_counter() - t_phase
     report["mesh"] = dict(report.get("mesh", {}), ranks=ranks,
-                          ranks_s=t_ranks, refs_s=t_refs, phase_s=s)
-    log(f"[mesh] phase 17 {s:.1f} s (the ranks {t_ranks:.1f} s); its main "
-        f"path's launches {launches}")
-    return dict(launches=launches, max_abs_err=max(err_f, err_s),
-                max_abs_err_bwd=err_b, times=times, serve_times=serve_times)
+                          ranks_s=t_ranks, refs_s=t_refs,
+                          kinds_refs_s=t_kinds, go_s=t_go - t_phase,
+                          phase_s=s)
+    log(f"[mesh] phase 17 {s:.1f} s (the go at {t_go - t_phase:.1f} s, then "
+        f"the ranks {t_ranks:.1f} s); its main path's launches {launches}")
+    return dict(launches=launches, gloo_launches=gloo,
+                max_abs_err=max(err_f, err_s, err_kf),
+                max_abs_err_bwd=max(err_b, err_kb), times=times,
+                serve_times=serve_times, kinds_times=kinds_times)
+
+
+def _case_hold(c, rs, bar_p, bar_d, tag) -> tuple:
+    """The checks every MeshCase shares, over the four ranks' results `rs`
+    of `c`, rank 0's first: its launches (one flash_attention a layer of
+    attention in the prefill, with training two a layer a step and one
+    flash_attention_bwd, all on the tensor cores), the prefill's and each
+    decode's logits within `bar_p` / `bar_d` of max |one device's logit|,
+    every rank's logits bit for bit rank 0's, each decode's repeat bit for
+    bit, serve's tokens and the training histories alike on every rank,
+    a cache with T over 'model' holding T / tp positions. Returns the
+    case's (flash_attention, flash_attention_bwd) launches, every
+    rank's."""
+    from repro_torch.models import transformer as tfm
+
+    n = sum(tfm.KIND_MIXER[k] in ("attn", "mla")
+            for k in tfm.layer_kinds(c.cfg))
+    want = dict(prefill=(n, n))
+    if c.train:
+        want["train"] = (2 * n * c.train,) * 2 + (n * c.train,) * 2
+    fwd = bwd = 0
+    for i, s in enumerate(rs):
+        require({k: tuple(v) for k, v in s["launches"].items()} == want,
+                f"{tag} {c.name} rank {i}: launches {s['launches']} "
+                f"(flash_attention, on the tensor cores; with training "
+                f"flash_attention_bwd, on the tensor cores), want {want}")
+        errs = {cname: s[f"decode_{cname}"] for cname, _ in c.decode}
+        require(s["prefill"] <= bar_p and max(errs.values()) <= bar_d,
+                f"{tag} {c.name} rank {i}: prefill {s['prefill']}, {errs} "
+                f"of max |logit| (bars {bar_p}, {bar_d})")
+        require(s["bits"] == rs[0]["bits"],
+                f"{tag} {c.name}: rank {i}'s logits differ from rank 0's")
+        require(not c.again or all(s[f"decode_{cname}_repeat_equal"]
+                                   for cname, _ in c.decode),
+                f"{tag} {c.name} rank {i}: a decode's repeat differs")
+        require(not c.serve or s["serve_toks"] == rs[0]["serve_toks"],
+                f"{tag} {c.name}: rank {i}'s served tokens differ from "
+                f"rank 0's")
+        require(not c.train or s["history"] == rs[0]["history"],
+                f"{tag} {c.name}: rank {i}'s history differs from rank "
+                f"0's")
+        fwd += sum(v[0] for v in s["launches"].values())
+        bwd += s["launches"]["train"][2] if c.train else 0
+    T, tp = c.S + c.steps, MESH_SHAPE[1]
+    for cname, cc in c.decode:
+        if cc.shard_cache_t:
+            require(rs[0][f"cache_{cname}"][0][1] == T // tp,
+                    f"{tag} {c.name}: the {cname} cache's T over 'model' "
+                    f"{rs[0][f'cache_{cname}']}")
+    return fwd, bwd
+
+
+def _case_log(tag, c, ranks, key) -> None:
+    """One line a rank of MeshCase `c`'s times (r[key][c.name])."""
+    for r in ranks:
+        s = r[key][c.name]
+        log(f"[mesh] {tag} {c.name} rank {r['rank']} {tuple(r['coord'])}: "
+            f"prefill {s['prefill_ms']:.1f} ms (in collectives "
+            f"{s['prefill_coll_ms']:.1f}"
+            + (f"; again {s['prefill_again_ms']:.1f}" if c.again else "")
+            + "); decode ms a step " + ", ".join(
+                f"{cname} " + " / ".join(f"{x:.1f}" for x in
+                                         s[f"decode_{cname}_ms"])
+                + f" (collectives {s[f'decode_{cname}_coll_ms']:.1f}"
+                + (", again without the collectives' timers " + " / ".join(
+                    f"{x:.1f}" for x in s[f"decode_{cname}_untimed_ms"])
+                   + ", bit for bit" if c.again else "") + ")"
+                for cname, _ in c.decode)
+            + (f"; serve {s['serve_tps']:.1f} tokens/s (collectives "
+               "untimed)" if c.serve else "")
+            + ("; train steps " + " / ".join(f"{1e3 * x:.1f}"
+                                             for x in s["step_s"])
+               + f" ms (in collectives {s['train_coll_s']:.1f} s in all)"
+               if c.train else "")
+            + f"; peak allocated serving {s['serve_peak_bytes'] / 2**30:.3f}"
+            " GiB" + (f", training {s['train_peak_bytes'] / 2**30:.3f} GiB"
+                      if c.train else "")
+            + f"; launches {s['launches']}; {s['s']:.1f} s")
 
 
 def mesh_serve_checks(ranks, ref_t, t_refs) -> int:
     """17d's checks over the four ranks' results (`mesh_serve_rank`) and
-    its logs, a rank a line. Returns 17d's flash_attention launches, every
-    rank's."""
+    its logs. Returns 17d's flash_attention launches, every rank's."""
     from repro_torch.configs import get_config
 
     L = MESH_SERVE_WITNESS[3]
-    want = dict(witness=(L, 0), qwen2=(get_config(LM_ARCH).n_layers,) * 2,
-                gemma2=(MESH_GEMMA[2],) * 2)
-    s0 = ranks[0]["serve"]
+    _, cases = _serve_cases()
+    launches = 0
     for r in ranks:
-        s = r["serve"]
-        require({k: tuple(v) for k, v in s["launches"].items()} == want,
-                f"17d rank {r['rank']}: prefill launches {s['launches']} "
-                f"(flash_attention, on the tensor cores), want {want}")
-        w = s["witness"]
+        w = r["serve"]["witness"]
+        require(tuple(w["launches"]) == (L, 0),
+                f"17d-i rank {r['rank']}: prefill launches "
+                f"{w['launches']}, want {(L, 0)} (f32: the scalar kernel)")
         require(w["prefill"] <= TOL_MESH_SERVE_F32
                 and w["decode"] <= TOL_MESH_SERVE_F32 and w["toks_equal"],
                 f"17d-i rank {r['rank']}: {w} (bar {TOL_MESH_SERVE_F32})")
-        for name in ("qwen2", "gemma2"):
-            bar_p, bar_d = TOL_MESH_SERVE_BF16[name]
-            errs = {k: s[name][k] for k in ("decode_bf16", "decode_int8")
-                    if k in s[name]}
-            require(s[name]["prefill"] <= bar_p
-                    and max(errs.values()) <= bar_d,
-                    f"17d {name} rank {r['rank']}: prefill "
-                    f"{s[name]['prefill']}, {errs} of max |logit| (bars "
-                    f"{bar_p}, {bar_d})")
-        for name in ("witness", "qwen2", "gemma2"):
-            require(s[name]["bits"] == s0[name]["bits"],
-                    f"17d {name}: rank {r['rank']}'s logits differ from "
-                    f"rank 0's")
-        require(s["qwen2"]["serve_toks"] == s0["qwen2"]["serve_toks"],
-                f"17d: rank {r['rank']}'s served tokens differ from rank 0's")
-        require(s["qwen2"]["decode_repeat_equal"],
-                f"17d-ii rank {r['rank']}: the decode steps' repeat differs")
-    g = s0["gemma2"]
-    T, tp = MESH_GEMMA[1] + MESH_DECODE_STEPS, MESH_SHAPE[1]
-    require(g["cache_int8"][0][1] == T // tp,
-            f"17d-iii: the int8 cache's T over 'model' {g['cache_int8']}")
-    w, q = s0["witness"], s0["qwen2"]
+        require(w["bits"] == ranks[0]["serve"]["witness"]["bits"],
+                f"17d-i: rank {r['rank']}'s logits differ from rank 0's")
+        launches += w["launches"][0]
+    for c in cases:
+        launches += _case_hold(c, [r["serve"][c.name] for r in ranks],
+                               *TOL_MESH_SERVE_BF16[c.name], "17d")[0]
+    s0 = ranks[0]["serve"]
+    w, q, g = s0["witness"], s0["qwen2"], s0["gemma2"]
     B, P, G, _ = MESH_SERVE_WITNESS
     log(f"[mesh] 17d-i {LM_ARCH} full width, {L} layers, f32, {B} x ({P} + "
         f"{G}) on mesh {MESH_SHAPE} against one device: prefill logits "
@@ -6292,7 +6624,7 @@ def mesh_serve_checks(ranks, ref_t, t_refs) -> int:
         f"(bars {TOL_MESH_SERVE_BF16['qwen2']}), argmax agrees on "
         f"{q['decode_bf16_argmax']:.3f}; serve(mesh=) {Bs} x ({Ps} + {Gs}): "
         f"tokens equal one device's at {q['serve_agree']:.3f}; a rank's "
-        f"prefill k {q['cache_shape']}")
+        f"prefill cache (first layer) {q['state']}")
     log(f"[mesh] 17d-iii {GEMMA_ARCH} full width, {MESH_GEMMA[2]} layers, "
         f"bf16: prefill_step {MESH_GEMMA[0]} x {MESH_GEMMA[1]} logits "
         f"{g['prefill']:.3e}; decode at {MESH_GEMMA[1]} (past the "
@@ -6301,36 +6633,343 @@ def mesh_serve_checks(ranks, ref_t, t_refs) -> int:
         f"{g['decode_bf16_argmax']:.3f}; int8 with T over 'model' "
         f"{g['decode_int8']:.3e}, argmax {g['decode_int8_argmax']:.3f} "
         f"(bars {TOL_MESH_SERVE_BF16['gemma2']}); a rank's int8 cache (last "
-        f"layer) "
-        f"{g['cache_int8']}")
+        f"layer) {g['cache_int8']}")
     log(f"[mesh] 17d one-device references {t_refs:.1f} s (17d-i "
-        f"{ref_t['witness_s']:.1f}, qwen2 {ref_t['qwen2_s']:.1f}, gemma2 "
-        f"{ref_t['gemma2_s']:.1f}); one device's decode ms a step: "
-        + ", ".join(f"{k} " + " / ".join(f"{x:.1f}" for x in v)
-                    for k, v in ref_t["decode_ms"].items())
-        + f"; one device's serve {ref_t['serve_tps']:.1f} tokens/s")
-    for r in ranks:
-        s = r["serve"]
-        log(f"[mesh] 17d rank {r['rank']} {tuple(r['coord'])}: prefill "
-            f"qwen2 {s['qwen2_prefill_ms']:.1f} ms (in collectives "
-            f"{s['qwen2_prefill_coll_ms']:.1f}; again "
-            f"{s['qwen2_prefill_again_ms']:.1f}), gemma2 "
-            f"{s['gemma2_prefill_ms']:.1f} ms ({s['gemma2_prefill_coll_ms']:.1f};"
-            f" again {s['gemma2_prefill_again_ms']:.1f}); decode ms a step "
-            + ", ".join(f"{k[:-3]} " + " / ".join(f"{x:.1f}" for x in s[k])
-                        + f" (collectives {s[k[:-3] + '_coll_ms']:.1f})"
-                        for k in s if k.endswith("_decode_bf16_ms")
-                        or k.endswith("_decode_int8_ms"))
-            + ", qwen2's again without the collectives' timers "
-            + " / ".join(f"{x:.1f}" for x in s["qwen2_decode_untimed_ms"])
-            + f" (bit for bit); serve {s['serve_tps']:.1f} tokens/s ("
-            f"collectives untimed); peak allocated qwen2 "
-            f"{s['qwen2_peak_bytes'] / 2**30:.3f} GiB, gemma2 "
-            f"{s['gemma2_peak_bytes'] / 2**30:.3f} GiB; launches "
-            f"{s['launches']}; 17d-i {s['witness_s']:.1f} s, qwen2 "
-            f"{s['qwen2_s']:.1f} s, gemma2 {s['gemma2_s']:.1f} s")
-    return sum(sum(v[0] for v in r["serve"]["launches"].values())
-               for r in ranks)
+        f"{ref_t['witness_s']:.1f}, " + ", ".join(
+            f"{c.name} {ref_t[c.name]['s']:.1f}" for c in cases)
+        + "); one device's decode ms a step: " + ", ".join(
+            f"{c.name} {cname} " + " / ".join(
+                f"{x:.1f}" for x in ref_t[c.name][f"decode_{cname}_ms"])
+            for c in cases for cname, _ in c.decode)
+        + f"; one device's serve {ref_t['qwen2']['serve_tps']:.1f} "
+        "tokens/s")
+    log(f"[mesh] 17d-i the ranks' "
+        + " / ".join(f"{r['serve']['witness']['s']:.1f}" for r in ranks)
+        + " s")
+    for c in cases:
+        _case_log("17d", c, ranks, "serve")
+    return launches
+
+
+# -- phase 17e: the recurrent kinds and MLA over 'model' ----------------------
+MESH_KINDS_SEQ = (2, 2048)          # 17e: B, S of each prefill and train step
+MESH_KINDS_DECODE = 8               # 17e: decode steps from position S
+MESH_KINDS_STEPS = 2                # 17e: train(mesh=) steps
+
+
+def _kinds_cases() -> list:
+    """17e's MeshCases at full width in bf16, cut in depth for the
+    script's time: recurrentgemma-2b on its pattern's 3 layers (rec, rec,
+    attn_local), rwkv6-1.6b on 2 layers and deepseek-v3-671b on one
+    mla_dense layer, its latent cache also with T over 'model' (JAX's
+    decode-cell layout)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    rec, rwkv, mla = (get_config(a) for a in (REC_ARCH, RWKV_ARCH, MLA_ARCH))
+    mla = dataclasses.replace(mla, n_layers=1, prefix=mla.prefix[:1],
+                              repeats=0)
+
+    def case(name, cfg, *decode):
+        return MeshCase(name, cfg, *MESH_KINDS_SEQ, (("heads", cfg),) + decode,
+                        MESH_KINDS_DECODE, 175, False, None, MESH_KINDS_STEPS)
+    return [case("recurrentgemma", dataclasses.replace(
+                rec, n_layers=len(rec.pattern), repeats=1, suffix=())),
+            case("rwkv6", dataclasses.replace(rwkv, n_layers=2, repeats=2)),
+            case("deepseek", mla, ("t_split", dataclasses.replace(
+                mla, shard_cache_t=True)))]
+
+
+# 17e's bars, set from the readings on an H100 (bf16; each rank's partial
+# sums over 'model' round before they are added): max |logit - one
+# device's| over max |one device's logit| (prefill 1.3e-2, 1.3e-2, 7.8e-3
+# for recurrentgemma, rwkv6, deepseek; decode 1.3e-2, 1.2e-2, 6.6e-3 and
+# 8.2e-3 with T over 'model'), the losses relative (at most 3.4e-5) and
+# grad_norm relative (recurrentgemma 1.1e-4; Adafactor's is 0).
+TOL_MESH_KINDS = dict(prefill=3e-2, decode=3e-2, loss=1e-4, grad_norm=3e-3)
+# rwkv6's bf16 gradients are far from its f32 ones at this shape (its wkv
+# state sums 2048 almost undamped tokens): on one device, the first
+# batch's gradient norm 321.91 against 338.17 in f32 (4.8%), leaves up to
+# 0.43 of their max apart (ln_b; wk 0.31, embed 0.25), and train()'s
+# grad_norm 4.8% / 4.4% from its f32 run's. The mesh's bf16 step reads
+# 0.161 then 3.7e-3 of one device's bf16 grad_norm and 0.105 then 4.7e-2
+# of its f32 run's: its bars are 0.3 and 0.2. A whole leaf left unsummed
+# over 'model' is caught bit for bit instead, by `_parted`.
+TOL_MESH_KINDS_GNORM = dict(rwkv6=0.3)
+TOL_MESH_KINDS_F32 = dict(rwkv6=0.2)
+
+
+def mesh_kinds_attn(args, dev, report):
+    """17e's kernels at one rank's share on 'model' MESH_SHAPE[1] of the
+    new kinds' attention, bf16, B 1, S = T = MESH_KINDS_SEQ[1], causal, on
+    the tensor cores: recurrentgemma-2b's attn_local (5 q heads over 1 kv
+    head, D 256, window 2048; q x GEMMA_Q_SCALE) and deepseek-v3-671b's
+    MLA (64 heads, q/k width 192 over v width 128). The forward and the
+    backward each against its plain version at phase 9's / 11a's bars, the
+    backward's two runs bit for bit; each timed beside its bound, its plain
+    version and the library's call (SDPA causal with GQA, which at S = T =
+    window excludes the same pairs; `mla_sdpa` for MLA). Returns (worst
+    forward error, worst backward error, times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_bshd,
+                                                flash_attention_bshd_plain,
+                                                flash_attention_bwd)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    mp = MESH_SHAPE[1]
+    S = MESH_KINDS_SEQ[1]
+    rec, mla = get_config(REC_ARCH), get_config(MLA_ARCH)
+    m = mla.mla
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 175)
+    rep = dict(checks=[], times={})
+    errs = [0.0, 0.0]
+    cases = [(f"{REC_ARCH} attn_local share", rec.n_heads // mp,
+              rec.n_kv_heads, rec.hd, rec.hd, rec.window, GEMMA_Q_SCALE),
+             (f"{MLA_ARCH} MLA share", mla.n_heads // mp, mla.n_heads // mp,
+              m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim, None, 1.0)]
+    for name, H, K, D, Dv, window, q_scale in cases:
+        q, k = (torch.randn(1, S, h, D, generator=gen, device=dev)
+                for h in (H, K))
+        v, do = (torch.randn(1, S, h, Dv, generator=gen, device=dev)
+                 for h in (K, H))
+        q, k, v, do = (q * q_scale).to(bf), k.to(bf), v.to(bf), do.to(bf)
+        shape = (f"{name}: B 1, H {H} over K {K}, D {D}"
+                 + (f", Dv {Dv}" if Dv != D else "") + f", S = T = {S}"
+                 + (f", window {window}" if window else "") + ", causal")
+        if Dv == D:
+            # SDPA has no window: at S <= window it excludes the same pairs
+            require(window is None or window >= S,
+                    f"17e: SDPA is not the same function at {shape}")
+            lib, lib_name = sdpa_library, SDPA
+        else:
+            lib, lib_name = mla_sdpa(*(t.transpose(1, 2) for t in (q, k, v)))
+        tc0 = flash_attention.launches_tc
+        got = flash_attention_bshd(q, k, v, window=window)
+        require(flash_attention.launches_tc - tc0 == 1
+                and got.shape == (1, S, H, Dv),
+                f"17e: the forward did not run on the tensor cores ({shape})")
+        errs[0] = max(errs[0], hold_attn(
+            rep["checks"], f"bf16 ({shape})", got,
+            lambda r: flash_attention_bshd_plain(q, k, v, window=window,
+                                                 round_p=r),
+            v, list(k.shape)))
+        del got
+        t = dict(forward=time_attn(args, dev, lib, q, k, v, window, None,
+                                   lib_name))
+        log_attn_time(f"bf16 ({shape})", t["forward"])
+        o, lse = flash_attention_bshd(q, k, v, window=window,
+                                      return_lse=True)
+        tc0 = flash_attention_bwd.launches_tc
+        got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        again = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        require(flash_attention_bwd.launches_tc - tc0 == 2,
+                f"17e: the backward did not run on the tensor cores "
+                f"({shape})")
+        want = plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=True,
+                                    window=window)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        require(same, f"17e flash_attention_bwd ({shape}): two runs differ")
+        e_b = {}
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            require(g.shape == w.shape and g.dtype == bf,
+                    f"17e flash_attention_bwd {gname}: shape or dtype")
+            e, rel, ok = bwd_err(g, w)
+            e_b[gname] = (e, rel)
+            errs[1] = max(errs[1], e)
+            require(ok, f"17e flash_attention_bwd {gname} ({shape}): max "
+                        f"|diff| {e} ({rel:.3e} of max |want|)")
+        rep["checks"].append(dict(case=f"bwd bf16 ({shape})", errs=e_b,
+                                  bit_identical=same))
+        log(f"[mesh] 17e flash_attention_bwd bf16 ({shape}, tensor-core "
+            "kernels): " + ", ".join(f"{g} {e:.3e} ({r:.2e} of max)"
+                                     for g, (e, r) in e_b.items())
+            + f"; repeat bit-identical {same}")
+        del got, again, want
+        t["backward"] = time_attn_bwd(args, dev, lib, q, k, v, o, lse, do,
+                                      window, None, lib_name)
+        log_attn_bwd_time(f"bf16 ({shape})", t["backward"])
+        t["shape"] = shape
+        rep["times"][name] = t
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    rep.update(max_abs_err=errs[0], max_abs_err_bwd=errs[1])
+    report.setdefault("mesh", {})["kinds_attn"] = rep
+    return errs[0], errs[1], rep["times"]
+
+
+def _grad_gap(cfg, f32, B, S, dev, seed) -> dict:
+    """One device's gradients on the first training batch in `cfg` (bf16)
+    and in `f32`, from the same seed: both global norms and the leaves
+    furthest apart, max |g_bf16 - g_f32| / max |g_f32|."""
+    from repro_torch.data import batch_for
+    from repro_torch.models import LMModel
+
+    batch = batch_for(cfg, B, S, 0, seed)
+    gs = []
+    for c in (cfg, f32):
+        model = LMModel(c, device=dev, seed=seed)
+        total, _ = model.loss(batch)
+        named = dict(model.params.named_parameters())
+        got = torch.autograd.grad(total, list(named.values()),
+                                  allow_unused=True)
+        gs.append({k: (torch.zeros_like(p) if g is None else g).float()
+                   for (k, p), g in zip(named.items(), got)})
+        del model, total, got
+    gb, gf = gs
+    gap = sorted(((float((gb[k] - gf[k]).abs().max())
+                   / max(float(gf[k].abs().max()), 1e-30), k) for k in gf),
+                 reverse=True)
+    norms = [float(torch.sqrt(sum(torch.sum(torch.square(x.double()))
+                                  for x in g.values()))) for g in gs]
+    del gs, gb, gf
+    torch.cuda.empty_cache()
+    return dict(norm_bf16=norms[0], norm_f32=norms[1], worst=gap[:6])
+
+
+def mesh_kinds_refs(args, dev, path) -> dict:
+    """17e's one-device references, on the card before the go, saved to
+    `path` (host tensors): `_case_ref` of each config; for those of
+    TOL_MESH_KINDS_F32 also train() in f32 (its history) and `_grad_gap`
+    on the first batch. Frees its memory. Returns its times, the
+    one-device histories and the gaps."""
+    import dataclasses
+
+    from repro_torch.train import train
+
+    refs, t = {}, {}
+    for c in _kinds_cases():
+        refs[c.name], t[c.name] = _case_ref(c, dev, args.seed)
+        if c.name not in TOL_MESH_KINDS_F32:
+            continue
+        t0 = time.perf_counter()
+        f32 = dataclasses.replace(c.cfg, dtype="float32")
+        _, hist = train(f32, steps=c.train, batch=c.B, seq=c.S, log_every=1,
+                        seed=args.seed, device=dev)
+        refs[c.name]["history_f32"] = [{k: h[k] for k in ("loss",
+                                                           "grad_norm")}
+                                       for h in hist]
+        t[c.name].update(history=refs[c.name]["history"],
+                         history_f32=refs[c.name]["history_f32"],
+                         grad_gap=_grad_gap(c.cfg, f32, c.B, c.S, dev,
+                                            args.seed),
+                         f32_s=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    torch.save(refs, path)
+    return t
+
+
+def mesh_kinds_rank(mesh, dev, seed, path, clock) -> dict:
+    """17e on one of the four gloo ranks (after 17d, on its mesh):
+    `_case_rank` of each of `_kinds_cases`, against the one-device
+    references at `path`."""
+    refs = torch.load(path, map_location="cpu", weights_only=False)
+    out = {}
+    for c in _kinds_cases():
+        out[c.name] = _case_rank(c, mesh, dev, seed, refs[c.name], clock)
+        mesh.barrier()
+    return out
+
+
+def _parted(rs) -> tuple:
+    """(the leaves whose pieces differ between ranks that hold the same
+    piece, by `_pieces`; the number of pieces that more than one rank
+    holds)."""
+    parted, shared = [], 0
+    for k in rs[0]["pieces"]:
+        seen = {}
+        for s in rs:
+            coord, dig = s["pieces"][k]
+            seen.setdefault(tuple(coord), []).append(tuple(dig))
+        shared += sum(len(v) > 1 for v in seen.values())
+        if any(len(set(v)) > 1 for v in seen.values()):
+            parted.append(k)
+    return parted, shared
+
+
+def mesh_kinds_checks(ranks, ref_t, t_refs) -> tuple:
+    """17e's checks over the four ranks' results (`mesh_kinds_rank`) and
+    its logs: `_case_hold` at TOL_MESH_KINDS; the losses and grad_norm
+    against one device's (rwkv6's grad_norm at TOL_MESH_KINDS_GNORM, and
+    against its f32 run's at TOL_MESH_KINDS_F32); every piece of the
+    trained weights alike on the ranks that hold it (`_parted`). Returns
+    17e's (flash_attention, flash_attention_bwd) launches, every rank's."""
+    from repro_torch.models import transformer as tfm
+
+    fwd = bwd = 0
+    cases = _kinds_cases()
+    for c in cases:
+        rs = [r["kinds"][c.name] for r in ranks]
+        f, b = _case_hold(c, rs, TOL_MESH_KINDS["prefill"],
+                          TOL_MESH_KINDS["decode"], "17e")
+        fwd, bwd = fwd + f, bwd + b
+        s = rs[0]
+        require(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                    for h in s["history"]), f"17e {c.name} {s['history']}")
+        f32 = c.name in TOL_MESH_KINDS_F32
+        bar_g = TOL_MESH_KINDS_GNORM.get(c.name, TOL_MESH_KINDS["grad_norm"])
+        require(max(s["loss_rel"]) <= TOL_MESH_KINDS["loss"]
+                and max(s["grad_norm_rel"]) <= bar_g,
+                f"17e {c.name}: losses {s['loss_rel']}, grad_norm "
+                f"{s['grad_norm_rel']} relative to one device's (bars "
+                f"{TOL_MESH_KINDS['loss']}, {bar_g})")
+        require(not f32 or max(s.get("grad_norm_rel_f32", [np.inf]))
+                <= TOL_MESH_KINDS_F32[c.name],
+                f"17e {c.name}: grad_norm {s.get('grad_norm_rel_f32')} "
+                f"relative to one device's f32 run (bar "
+                f"{TOL_MESH_KINDS_F32.get(c.name)})")
+        parted, shared = _parted(rs)
+        require(not parted, f"17e {c.name}: the trained weights' pieces "
+                f"{parted} differ between ranks that hold the same piece")
+        log(f"[mesh] 17e {c.cfg.name} full width, {c.cfg.n_layers} layers "
+            f"{tfm.layer_kinds(c.cfg)}, bf16, mesh {MESH_SHAPE}: "
+            f"prefill_step {c.B} x {c.S} logits {s['prefill']:.3e}; "
+            f"{c.steps} decode steps at {c.S} on a seeded random cache "
+            + ", ".join(f"{cname} {s['decode_' + cname]:.3e} (argmax "
+                        f"{s['decode_' + cname + '_argmax']:.3f})"
+                        for cname, _ in c.decode)
+            + f" of max |logit| (bars {TOL_MESH_KINDS['prefill']}, "
+            f"{TOL_MESH_KINDS['decode']}); train(mesh=) {MESH_FLAGS} "
+            f"{c.train} steps: losses "
+            + " / ".join(f"{h['loss']:.4f}" for h in s["history"])
+            + ", against one device's " + " / ".join(
+                f"{x:.2e}" for x in s["loss_rel"]) + ", grad_norm "
+            + " / ".join(f"{x:.2e}" for x in s["grad_norm_rel"])
+            + f" relative (bar {bar_g})"
+            + (", grad_norm against one device's f32 run " + " / ".join(
+                f"{x:.2e}" for x in s["grad_norm_rel_f32"])
+               + f" (bar {TOL_MESH_KINDS_F32[c.name]})" if f32 else "")
+            + f"; the {shared} pieces of the weights that two ranks hold "
+            f"alike on both; a rank's prefill state (first layer) "
+            f"{s['state']}, decode cache (last layer) "
+            + ", ".join(f"{cname} {s['cache_' + cname]}"
+                        for cname, _ in c.decode)
+            + "; the same logits' bits and histories on every rank")
+    log(f"[mesh] 17e one-device references {t_refs:.1f} s ("
+        + ", ".join(f"{c.name} {ref_t[c.name]['s']:.1f}" for c in cases)
+        + "); one device's decode ms a step: " + ", ".join(
+            f"{c.name} " + " / ".join(
+                f"{x:.1f}" for x in ref_t[c.name]["decode_heads_ms"])
+            for c in cases))
+    for c in cases:
+        t = ref_t[c.name]
+        if "grad_gap" not in t:
+            continue
+        g = t["grad_gap"]
+        log(f"[mesh] 17e {c.name} on one device, bf16 against f32 "
+            f"({t['f32_s']:.1f} s): train()'s grad_norm "
+            + " / ".join(f"{h['grad_norm']:.4f}" for h in t["history"])
+            + " against " + " / ".join(f"{h['grad_norm']:.4f}"
+                                       for h in t["history_f32"])
+            + f"; the first batch's gradients' norm {g['norm_bf16']:.4f} "
+            f"against {g['norm_f32']:.4f}, the leaves furthest apart "
+            "(max |g_bf16 - g_f32| / max |g_f32|) " + ", ".join(
+                f"{k} {x:.3e}" for x, k in g["worst"]))
+    for c in cases:
+        _case_log("17e", c, ranks, "kinds")
+    return fwd, bwd
 
 
 def main(argv=None) -> int:
@@ -7014,6 +7653,9 @@ def main(argv=None) -> int:
                                       ms["max_abs_err_bwd"])
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] += ms["launches"][name]
+    # phase 10d ran first in phase 17's ranks
+    for name, cnt in ms["gloo_launches"].items():
+        launches[name] += cnt
     sources = {"fused_ell_update": ("src/repro_torch/csrc/fused_ell_update.cu",
                                     "src/repro/kernels/ell_bucket_pull.py:129"),
                "csr_block_pull": ("src/repro_torch/csrc/csr_block_pull.cu",

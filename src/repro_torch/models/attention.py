@@ -37,7 +37,12 @@ devices: `wk_b` folded into q and `wv_b` applied after the softmax, so a
 step reads the latent cache {"ckv" [B, T, r], "krope" [B, T, rope]}
 (written in place) and never the per-head k and v. Training MLA on the
 card differentiates through `FlashAttentionFn`, whose backward is the
-`flash_attention_bwd` kernel's 192 / 128 instantiation.
+`flash_attention_bwd` kernel's 192 / 128 instantiation. On a mesh whose
+'model' axis splits MLA's heads (`wq_b`, `wk_b`, `wv_b`, `wo`), each rank
+computes the latent whole and attends on its heads; its output is its
+part of the sum over heads. With `shard_cache_t` the decode's latent
+cache holds this rank's positions, and every head's absorbed query is
+scored against them, the partials merged as `attn_decode` merges them.
 """
 from __future__ import annotations
 
@@ -271,7 +276,7 @@ def attn_decode(x, p, cfg, kind: str, cache, pos: int, ctx=None,
     kf = dequantize_kv(cache["k"], cache.get("k_scale"), q.dtype)
     vf = dequantize_kv(cache["v"], cache.get("v_scale"), q.dtype)
     if not split:
-        if mesh and ctx.attn_sharded and kf.shape[2] == K:
+        if mesh and ctx.split["attn"] and kf.shape[2] == K:
             lo, hi, idx = ctx.kv_map(q.shape[2])
             kf, vf = kf[:, :, lo:hi], vf[:, :, lo:hi]
             if idx is not None:
@@ -280,7 +285,7 @@ def attn_decode(x, p, cfg, kind: str, cache, pos: int, ctx=None,
         w = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgqt,btkd->bqkgd", w.to(vf.dtype), vf)
         return _out(o.reshape(B, 1, q.shape[2], cfg.hd), p["wo"]), cache
-    if ctx.attn_sharded:
+    if ctx.split["attn"]:
         q = ctx.gather_heads(q)
     s = _decode_scores(q, kf, cfg, kind, slot, pos, T, t0)
     m = s.amax(dim=-1)                                   # [B, K, G, 1]
@@ -288,8 +293,8 @@ def attn_decode(x, p, cfg, kind: str, cache, pos: int, ctx=None,
     o = _f32_einsum("bkgqt,btkd->bkgqd", e.to(vf.dtype), vf)
     o = ctx.merge_softmax(m, e.sum(dim=-1), o)           # [B, K, G, 1, hd]
     o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, cfg.n_heads, cfg.hd)
-    if ctx.attn_sharded:
-        o = ctx.own_heads(o)
+    if ctx.split["attn"]:
+        o = ctx.own(o, 2)
     return _out(o.to(q.dtype), p["wo"]), cache
 
 
@@ -340,12 +345,14 @@ def mla_apply(x, p, cfg, positions):
     192, v width 128 at the full config) on CUDA tensors, its gradient
     the flash_attention_bwd kernel at the same widths, and
     chunked_attention, under autograd, on CPU tensors. Returns (out, (ckv,
-    k_rope [B,S,rope]) for caching)."""
+    k_rope [B,S,rope]) for caching). The heads are those `p` holds (a
+    mesh rank's: its output is then its part of the sum over heads; the
+    latent is every rank's whole)."""
     m = cfg.mla
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(x, p, cfg, positions)
     k_nope = _proj(ckv, p["wk_b"])
     v = _proj(ckv, p["wv_b"])
-    H = cfg.n_heads
+    H = p["wq_b"].shape[1]
     k = torch.cat([k_nope, k_rope.expand(k_rope.shape[:2]
                                          + (H, m.qk_rope_dim))], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -356,31 +363,56 @@ def mla_apply(x, p, cfg, positions):
     return _out(o, p["wo"]), (ckv, k_rope[..., 0, :])
 
 
-def mla_decode(x, p, cfg, cache, pos: int):
+def mla_decode(x, p, cfg, cache, pos: int, ctx=None, t_split=False):
     """Absorbed-matrix MLA decode (DeepSeek-V3's weight absorption): the
     scores against the latent cache directly, so a step's cost does not
     grow with H x head width. cache {"ckv" [B,T,r], "krope" [B,T,rope]};
-    writes position `pos` in place and returns (out, cache)."""
+    writes position `pos` in place and returns (out, cache).
+
+    On a mesh (`ctx`, `shard.ShardCtx`) `p` holds this rank's heads (all
+    of them where 'model' does not divide them) and the output is this
+    rank's part of the sum over heads. The cache is whole over 'model'
+    (every rank writes the new latent), or with `t_split` holds positions
+    [m T', (m + 1) T'): the rank whose range holds `pos` writes it, the
+    absorbed queries of every head are gathered, and each rank's partial
+    softmax statistics over its positions are merged over 'model'
+    (`ShardCtx.merge_softmax`) before it keeps its heads for `wv_b`."""
     m = cfg.mla
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv_latent(x, p, cfg,
                                                           positions)
-    cache["ckv"][:, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
-    cache["krope"][:, pos] = k_rope_new[:, 0, 0].to(cache["krope"].dtype)
+    split = t_split and ctx is not None and ctx.tp > 1
+    Tl = cache["ckv"].shape[1]
+    t0 = ctx.m * Tl if split else 0
+    if not split or t0 <= pos < t0 + Tl:        # the rank that holds it
+        cache["ckv"][:, pos - t0] = ckv_new[:, 0].to(cache["ckv"].dtype)
+        cache["krope"][:, pos - t0] = k_rope_new[:, 0, 0].to(
+            cache["krope"].dtype)
     ckv = cache["ckv"].to(x.dtype)                      # [B,T,r]
     krope = cache["krope"].to(x.dtype)                  # [B,T,rope]
     # absorb W_k into q: q_eff [B,1,H,r]
     q_eff = torch.einsum("bshe,rhe->bshr", q_nope, p["wk_b"])
+    heads = split and ctx.sharded("mla")
+    if heads:
+        q_eff, q_rope = ctx.gather_heads(q_eff), ctx.gather_heads(q_rope)
     s = (torch.einsum("bshr,btr->bhst", q_eff, ckv)
          + torch.einsum("bshe,bte->bhst", q_rope, krope)).float()
     s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    T = ckv.shape[1]
-    valid = torch.arange(T, device=x.device) <= pos
+    valid = t0 + torch.arange(Tl, device=x.device) <= pos
     s = torch.where(valid[None, None, None], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhst,btr->bshr", w.to(ckv.dtype), ckv)
-    o = torch.einsum("bshr,rhe->bshe", ctx, p["wv_b"])  # [B,1,H,v]
+    if split:
+        mx = s.amax(dim=-1)                             # [B, H, 1]
+        e = torch.exp(s - mx[..., None])
+        lat = _f32_einsum("bhst,btr->bhsr", e.to(ckv.dtype), ckv)
+        lat = ctx.merge_softmax(mx, e.sum(dim=-1), lat)  # [B, H, 1, r]
+        lat = lat.permute(0, 2, 1, 3).to(x.dtype)
+        if heads:
+            lat = ctx.own(lat, 2)
+    else:
+        w = torch.softmax(s, dim=-1)
+        lat = torch.einsum("bhst,btr->bshr", w.to(ckv.dtype), ckv)
+    o = torch.einsum("bshr,rhe->bshe", lat, p["wv_b"])  # [B,1,H,v]
     return _out(o, p["wo"]), cache
 
 

@@ -64,31 +64,38 @@ global rows [i mb, (i + 1) mb), split over the dp axes (whole on every
 rank where they do not divide it, as `_dp_or_none`). The layers run
 their collectives themselves (`models.shard`): tensor parallelism over
 'model' for the dense attention kinds (each rank's heads and d_ff
-columns, the vocabulary-parallel embedding and loss), sequence
-parallelism between the layers with `cfg.seq_parallel`; a MoE layer
-gathers the microbatch's rows over the dp axes, since its routing and
-capacity span them. Each microbatch's gradients are summed in their
-own dtype, as GSPMD sums JAX's partial products, over the dp axes (and
-over 'model' for a whole leaf each rank reads only in part: the norms
-under sequence parallelism, qwen3's q/k norms and the k/v weights of
-heads that 'model' does not divide), reduce-scattered into the ZeRO-1
-layout with `zero1`, and the optimizer's statistics that span a sharded
-dimension are reduced over its axes. The result is JAX's single-device
-step up to the order of sums. Two cases wait for ROADMAP A9 and raise:
-'model' above 1 with the recurrent, MoE or MLA kinds, and 'data' above 1
-where the experts shard over it (not `pure_dp`). ZeRO-1 of AdamW's
+columns, the vocabulary-parallel embedding and loss), for RG-LRU and
+RWKV-6 (each rank's `lru_width`, d_model and d_ff columns, `models.ssm`)
+and for MLA (each rank's heads, the latent whole), sequence parallelism
+between the layers with `cfg.seq_parallel`; a MoE layer gathers the
+microbatch's rows over the dp axes, since its routing and capacity span
+them. Each microbatch's gradients are summed in their own dtype, as
+GSPMD sums JAX's partial products, over the dp axes (and over 'model'
+for a whole leaf each rank reads only in part: the norms under sequence
+parallelism, and every whole leaf of a token mixer that 'model' splits,
+such as qwen3's q/k norms, the k/v weights of heads that 'model' does
+not divide, MLA's latent projections, RG-LRU's gates' biases or RWKV-6's
+token-shift LoRA), reduce-scattered into the ZeRO-1 layout with `zero1`,
+and the optimizer's statistics that span a sharded dimension are reduced
+over its axes. The result is JAX's single-device step up to the order of
+sums. Two cases wait for ROADMAP A9 and raise: 'model' above 1 with the
+MoE kinds (`attn_moe`, `mla_moe`), and 'data' above 1 where the experts
+shard over it (not `pure_dp`); so does RWKV-6 over a 'model' axis that
+divides only one of its d_model and d_ff. ZeRO-1 of AdamW's
 per-layer state splits a layer's first free dimension where JAX's
 stacked leaf may split the layer axis (the same share a rank).
 
 Serving on a mesh covers the same configs: `prefill_step` and
 `decode_step` take the whole batch (each rank runs its rows, all of
-them where the dp axes do not divide B, on its heads) and return JAX's
-global logits, every row over the whole vocabulary, the same bits on
-every rank (`shard.ShardCtx.whole_logits`); `init_cache` allocates this
-rank's pieces of the decode cache in `cache_specs`' layout (heads over
-'model', or T over 'model' with `shard_cache_t`; only the rows under
-`pure_dp`), which `decode_step` writes in place; `prefill_step`'s
-caches are this rank's rows and kv heads.
+them where the dp axes do not divide B, on its heads or columns) and
+return JAX's global logits, every row over the whole vocabulary, the
+same bits on every rank (`shard.ShardCtx.whole_logits`); `init_cache`
+allocates this rank's pieces of the decode cache in `cache_specs`'
+layout (heads over 'model', or T over 'model' with `shard_cache_t` for
+attention's k / v and MLA's latent; a recurrent state's heads or
+columns; only the rows under `pure_dp`), which `decode_step` writes in
+place; `prefill_step`'s caches are this rank's rows and kv heads, MLA's
+latent whole, a recurrent state in `cache_specs`' layout.
 """
 from __future__ import annotations
 
@@ -428,7 +435,8 @@ class LMModel(nn.Module):
         # decode_step reads the layout from here
         self._cache_layout = (B, T, [
             {n: tuple(t.shape) for n, t in c.items()} for c in cache], [
-            "k" in sp and sp["k"][1] is not None for sp in specs])
+            any(n in sp and sp[n][1] is not None for n in ("k", "ckv"))
+            for sp in specs])
         return cache
 
     def _batch(self, batch: dict) -> dict:
@@ -505,9 +513,10 @@ class LMModel(nn.Module):
         self.pspecs = param_specs(cfg, abstract, mesh)
         self.tp = 1 if cfg.pure_dp else mesh.shape.get("model", 1)
         kinds = tfm.layer_kinds(cfg)
-        if self.tp > 1 and not set(kinds) <= set(ATTN_KINDS):
+        moe = sorted({k for k in kinds if k.endswith("_moe")})
+        if self.tp > 1 and moe:
             raise later(f"tensor parallelism over 'model' for the kinds "
-                        f"{sorted(set(kinds) - set(ATTN_KINDS))}")
+                        f"{moe}")
         if mesh.shape.get("data", 1) > 1 and any(
                 "data" in sh.spec_axes(s) for s in self.pspecs.values()):
             raise later("expert parallelism over 'data' (without pure_dp)")
@@ -531,20 +540,39 @@ class LMModel(nn.Module):
                               for k in z},
                 vc={k: P(*(z[k][:-2] + z[k][-1:])) if len(z[k]) > 1
                     else P(None) for k in z})
-        # what 'model' splits: the first attention layer's heads and d_ff
-        # (every such layer's are alike), the vocabulary
-        first = next((i for i, kind in enumerate(kinds)
-                      if kind in ATTN_KINDS), None)
+        self._flags = self._split_flags(kinds)
 
+    def _split_flags(self, kinds: list) -> dict:
+        """What 'model' splits, read from the specs of the first layer of
+        each mixer (every such layer's are alike): attention's q heads, kv
+        heads and the MLP's d_ff, RG-LRU's `lru_width`, RWKV-6's d_model
+        and d_ff columns, MLA's heads; the vocabulary."""
         def split(key):
             return key in self.pspecs and "model" in sh.spec_axes(
                 self.pspecs[key])
 
-        blk = f"blocks.{first}."
-        self._flags = dict(attn_sharded=split(blk + "mix.wq"),
-                           kv_sharded=split(blk + "mix.wk"),
-                           ffn_sharded=split(blk + "ffn.wu"),
-                           vocab_sharded=split("embed"))
+        def first(pred, leaf):
+            i = next((i for i, k in enumerate(kinds) if pred(k)), None)
+            return i is not None and split(f"blocks.{i}.{leaf}")
+
+        def mixer(name):
+            return lambda k: tfm.KIND_MIXER[k] == name
+
+        rwkv = (first(mixer("rwkv"), "mix.wr"),
+                first(mixer("rwkv"), "mix.cm_wk"))
+        if rwkv[0] != rwkv[1]:
+            # a time mix split by d_model columns beside a channel mix
+            # whole over d_ff, or the other way round
+            raise later("tensor parallelism over 'model' for RWKV-6 where "
+                        "'model' divides only one of d_model and d_ff")
+        return dict(attn=first(lambda k: k in ATTN_KINDS, "mix.wq"),
+                    kv=first(lambda k: k in ATTN_KINDS, "mix.wk"),
+                    ffn=first(lambda k: not k.endswith("_moe")
+                              and tfm.KIND_MIXER[k] != "rwkv", "ffn.wu"),
+                    vocab=split("embed"),
+                    rec=first(mixer("rec"), "mix.wx"),
+                    rwkv=rwkv[0],
+                    mla=first(mixer("mla"), "mix.wq_b"))
 
     def _ctx(self, S: int, ndp_rows: int) -> sh.ShardCtx:
         """The layers' view of the mesh for a microbatch of S positions
@@ -553,13 +581,18 @@ class LMModel(nn.Module):
               and self.tp > 1 and S % self.tp == 0)
         dp = dp_axes(self.mesh, self.cfg) if ndp_rows > 1 else ()
         return sh.ShardCtx(self.mesh, self.cfg, tp=self.tp, sp=sp,
-                           dp_axes=dp, ndp=ndp_rows, **self._flags)
+                           dp_axes=dp, ndp=ndp_rows, split=self._flags)
 
     def _model_partial(self, key: str, ctx: sh.ShardCtx) -> bool:
         """Whether each 'model' rank's gradient of a whole leaf is a part
         of it: a norm on the sequence-parallel residual stream, or a leaf
-        read by this rank's heads only (qwen3's q/k norms, the k/v weights
-        of heads 'model' does not divide)."""
+        of a token mixer that 'model' splits, which each rank reads for
+        its own heads or columns only (qwen3's q/k norms, the k/v weights
+        of heads 'model' does not divide, MLA's latent projections and
+        norms, RG-LRU's convolution, biases and Λ, RWKV-6's token-shift
+        LoRA, decay, bonus and group norm). `key` is a weights' key
+        ("blocks.3.mix.mu.r") or, for Adafactor, a JAX path
+        ("pattern.0.mix.wq_a")."""
         if ctx.tp == 1 or "model" in sh.spec_axes(self.gspecs[key]):
             return False
         parts = key.split(".")
@@ -567,8 +600,18 @@ class LMModel(nn.Module):
             return False
         if parts[-2] in _NORMS:
             return ctx.sp
-        return ctx.attn_sharded and parts[-2] == "mix" and parts[-1] in (
-            "qn", "kn", "wk", "wv", "bk", "bv")
+        return parts[2] == "mix" and ctx.sharded(
+            tfm.KIND_MIXER[self._kind_of(parts)])
+
+    def _kind_of(self, parts: list) -> str:
+        """The layer kind of a block's key: "blocks.i...", or a JAX path
+        "prefix.i...", "pattern.j..." (slot j of the pattern) or
+        "suffix.i..."."""
+        i = int(parts[1])
+        if parts[0] == "blocks":
+            return tfm.layer_kinds(self.cfg)[i]
+        pre, pat, _, suf = self.cfg.layer_kinds()
+        return {"prefix": pre, "pattern": pat, "suffix": suf}[parts[0]][i]
 
     def _split(self, mb: int) -> int:
         """The ways a microbatch's rows split over the dp axes (1: every

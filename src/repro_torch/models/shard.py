@@ -17,6 +17,10 @@ layers call the collectives themselves. This module holds:
   (reduce-scatter, all-gather) for sequence parallelism; `gather_rep`
   (all-gather, keep this rank's piece) and `slice_seq` (keep this rank's
   piece, all-gather) around a product that every rank computes whole;
+  `gather_sum` (all-gather a feature dimension, reduce-scatter) for the
+  input of a product whose weight's columns 'model' splits, read whole
+  by each rank for its own output columns (RG-LRU's gates, RWKV-6's
+  decay LoRA, a wkv head that 'model' cuts);
 - `ShardCtx`, what a layer needs to know of the mesh for one microbatch.
 
 Every collective goes through `core.mesh.Mesh`, so gloo ranks on a card
@@ -32,7 +36,7 @@ __all__ = ["P", "entry_axes", "entry_size", "spec_axes", "owner",
            "shard_of", "gather", "gather_root", "slice_extra",
            "scatter_sum", "copy_to",
            "reduce_from", "gather_seq", "scatter_seq", "gather_rep",
-           "slice_seq", "ShardCtx"]
+           "slice_seq", "gather_sum", "ShardCtx"]
 
 
 class P(tuple):
@@ -258,6 +262,14 @@ def slice_seq(x, mesh, axis, dim=1):
     return _SliceSeq.apply(x, mesh, axis, dim)
 
 
+def gather_sum(x, mesh, axis, dim=-1):
+    """All-gather a feature dimension `dim` over `axis` for a product that
+    each rank computes for its own output columns only: each rank's
+    gradient of the whole is a part of the sum, so the backward
+    reduce-scatters (not `gather_rep`'s piece of an equal gradient)."""
+    return _GatherSeq.apply(x, mesh, axis, dim)
+
+
 # ---------------------------------------------------------------------------
 # the layers' view of the mesh
 # ---------------------------------------------------------------------------
@@ -272,21 +284,25 @@ class ShardCtx:
       positions between the layers;
     - `dp_axes`, `ndp`: the data axes and their size when the microbatch's
       rows are split over them, else ((), 1);
-    - `attn_sharded`, `kv_sharded`, `ffn_sharded`, `vocab_sharded`:
-      whether the specs put "model" on the q heads, the kv heads, d_ff
-      and the vocabulary (`_sanitize` leaves a dimension whole that
-      "model" does not divide).
+    - `split`: whether the specs put "model" on each part, by name:
+      "attn" the q heads, "kv" the kv heads, "ffn" d_ff, "vocab" the
+      vocabulary, "rec" RG-LRU's `lru_width`, "rwkv" RWKV-6's d_model and
+      d_ff columns, "mla" MLA's heads (`_sanitize` leaves a dimension
+      whole that "model" does not divide).
     """
 
     def __init__(self, mesh, cfg, *, tp: int, sp: bool, dp_axes: tuple,
-                 ndp: int, attn_sharded: bool, kv_sharded: bool,
-                 ffn_sharded: bool, vocab_sharded: bool):
+                 ndp: int, split: dict):
         self.mesh, self.cfg = mesh, cfg
         self.tp, self.sp = tp, sp
         self.dp_axes, self.ndp = dp_axes, ndp
-        self.attn_sharded, self.kv_sharded = attn_sharded, kv_sharded
-        self.ffn_sharded, self.vocab_sharded = ffn_sharded, vocab_sharded
+        self.split = split
         self.m = mesh.index("model") if tp > 1 else 0
+
+    def sharded(self, mixer: str) -> bool:
+        """Whether 'model' splits a token mixer's weights ("attn", "mla",
+        "rec" or "rwkv", `transformer.KIND_MIXER`'s names)."""
+        return self.tp > 1 and self.split[mixer]
 
     # -- around a sublayer ---------------------------------------------------
 
@@ -323,7 +339,7 @@ class ShardCtx:
     def kv_heads(self, n_heads_local: int):
         """Under sharded q heads and whole k / v heads: `kv_map`. None
         when k / v are sharded like q or nothing is."""
-        if self.tp == 1 or not self.attn_sharded or self.kv_sharded:
+        if self.tp == 1 or not self.split["attn"] or self.split["kv"]:
             return None
         return self.kv_map(n_heads_local)
 
@@ -333,7 +349,7 @@ class ShardCtx:
         not group evenly, else None)."""
         cfg = self.cfg
         G = cfg.n_heads // cfg.n_kv_heads
-        h0 = self.m * n_heads_local if self.attn_sharded else 0
+        h0 = self.m * n_heads_local if self.split["attn"] else 0
         ids = [(h0 + i) // G for i in range(n_heads_local)]
         lo, hi = ids[0], ids[-1] + 1
         kl = hi - lo
@@ -350,7 +366,7 @@ class ShardCtx:
         positions of the sum)."""
         if self.tp == 1:
             return table[tokens.long()]
-        if not self.vocab_sharded:
+        if not self.split["vocab"]:
             x = table[tokens.long()]
             return slice_seq(x, self.mesh, "model") if self.sp else x
         n = table.shape[0]
@@ -367,7 +383,7 @@ class ShardCtx:
         against labels [B, S']: over a vocabulary sharded on "model" the
         row max and the sum of exponentials are reduced over "model", and
         the rank that owns a label supplies its logit."""
-        if self.tp == 1 or not self.vocab_sharded:
+        if self.tp == 1 or not self.split["vocab"]:
             lse = torch.logsumexp(logits, dim=-1)
             ll = torch.gather(logits, -1, tgt[..., None])[..., 0]
             return lse - ll
@@ -389,9 +405,20 @@ class ShardCtx:
         rank order: the whole head dimension."""
         return _gather_dim(x, dim, self.mesh, "model")
 
-    def own_heads(self, x, dim: int = 2):
-        """This rank's piece of a whole head dimension (a view)."""
+    def own(self, x, dim: int = -1):
+        """This rank's piece of `dim` (its heads, its columns) of a leaf
+        or tensor every rank holds whole (a view; the gradient of a leaf
+        read so is a part of the sum over 'model',
+        `LMModel._model_partial`)."""
         return _piece(x, dim, self.mesh, "model")
+
+    # -- the feature columns of a mixer that 'model' splits ------------------
+
+    def gather_cols(self, x):
+        """The whole last dimension of x from every rank's columns, for a
+        product each rank takes for its own output columns
+        (`gather_sum`: the backward sums the ranks' parts)."""
+        return gather_sum(x, self.mesh, "model", dim=-1)
 
     def merge_softmax(self, m, l, o):
         """Attention's partial statistics over this rank's positions (row
@@ -430,7 +457,7 @@ class ShardCtx:
         computed by one rank), or, where 'model' leaves it whole, model
         rank 0's copy; then the rows gathered over the data axes."""
         if self.tp > 1:
-            if self.vocab_sharded:
+            if self.split["vocab"]:
                 logits = _gather_dim(logits, logits.dim() - 1, self.mesh,
                                      "model")
             else:

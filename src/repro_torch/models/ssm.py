@@ -25,6 +25,21 @@ constant-size state; `models.transformer` writes the new state into the
 layer's cache dict. The full-sequence functions return states that own
 their storage (copies, as JAX's jitted slices are): a view of the last
 position would keep the whole [B, S, ·] activation alive.
+
+On a mesh whose 'model' axis splits a mixer's weights (`ctx`, a
+`shard.ShardCtx`; `LMModel`'s specs are JAX's), each rank runs its
+columns, as GSPMD lays JAX's out: RG-LRU its `lru_width` columns (the
+gates' [w, w] products read u whole, gathered over 'model' by
+`ShardCtx.gather_cols`, whose backward sums the ranks' parts), RWKV-6
+its d_model columns, which are its wkv heads (the decay LoRA's 64
+columns gathered before `wb`; where 'model' cuts a head, r, k and v are
+gathered and every rank runs every head, then keeps its columns after
+the group norm), and its channel mix's d_ff columns (the receptance
+gate gathered, since it multiplies a sum over them). A leaf every rank
+holds whole (biases, Λ, the token-shift LoRA, u, the group norm) is
+read for this rank's columns or heads (`ShardCtx.own`). The output is
+this rank's part of the sum over 'model', and a recurrent state is
+this rank's piece in `models.model.cache_specs`' layout.
 """
 from __future__ import annotations
 
@@ -97,10 +112,26 @@ def _token_shift(x, xs, p):
     return {m: x + delta * (p["mu"][m] + a @ p["lora_b"][m]) for m in _MIXES}
 
 
-def _decay(xw, p):
-    """log w_t (<= 0), f32."""
-    return -torch.exp(p["w0"] + torch.tanh(xw.float() @ p["wa"].float())
-                      @ p["wb"].float())
+def _split(ctx, mixer: str):
+    """`ctx` where 'model' splits the mixer's weights, else None."""
+    return ctx if ctx is not None and ctx.sharded(mixer) else None
+
+
+def _own(p, names, ctx) -> tuple:
+    """Leaves every rank holds whole, cut to this rank's columns on a
+    mesh (`ctx`), else as they are."""
+    return tuple(p[n] if ctx is None else ctx.own(p[n]) for n in names)
+
+
+def _decay(xw, p, ctx=None, own=False):
+    """log w_t (<= 0), f32. With `ctx`: the LoRA's hidden layer gathered
+    where 'model' splits `wa`'s columns; with `own`, this rank's columns
+    of the result, else all d."""
+    a = torch.tanh(xw.float() @ p["wa"].float())
+    if ctx is not None and p["wa"].shape[1] != p["wb"].shape[0]:
+        a = ctx.gather_cols(a)
+    w0, wb = _own(p, ("w0", "wb"), ctx if own else None)
+    return -torch.exp(w0 + a @ wb.float())
 
 
 def _group_norm(x, w, b, H, eps=1e-5):
@@ -173,35 +204,66 @@ def _wkv(r, k, v, wlog, u, s):
     return torch.cat(outs, dim=1), s
 
 
-def rwkv_time_mix(x, p, cfg, x_prev=None, s0=None):
-    """Full-sequence RWKV-6 time mix. Returns (out, (x_last, s_final))."""
-    B, S, d = x.shape
+def _heads(mixed, p, cfg, ctx):
+    """The time mix's per-token terms of the heads this rank runs: (r, k,
+    v [B, S, H', dk] f32, g [B, S, d'], log w [B, S, H', dk], u [H', dk],
+    the group norm's weight and bias [H' dk], whether 'model' cuts a
+    head). One device, or a head 'model' cuts (then r, k and v are
+    gathered and H' is every head): H' = H; else this rank's H / tp."""
+    B, S, _ = mixed["r"].shape
     dk = cfg.rec.head_dim
-    H = d // dk
+    r, k, v = (mixed[m] @ p["w" + m] for m in ("r", "k", "v"))
+    g = F.silu(mixed["g"] @ p["wg"])
+    cut = ctx is not None and r.shape[-1] % dk != 0
+    if cut:
+        r, k, v = (ctx.gather_cols(t) for t in (r, k, v))
+    own = ctx is not None and not cut
+    wlog = _decay(mixed["w"], p, ctx, own=own)
+    u = ctx.own(p["u"], 0) if own else p["u"]
+    ln_w, ln_b = _own(p, ("ln_w", "ln_b"), ctx if own else None)
+    H = r.shape[-1] // dk
+    r, k, v, wlog = (t.reshape(B, S, H, dk) for t in (r, k, v, wlog))
+    return r.float(), k.float(), v.float(), g, wlog, u, ln_w, ln_b, cut
+
+
+def rwkv_time_mix(x, p, cfg, x_prev=None, s0=None, ctx=None):
+    """Full-sequence RWKV-6 time mix. Returns (out, (x_last, s_final));
+    on a mesh (`ctx`) out is this rank's part of the sum over 'model' and
+    s_final its heads' (every head's where 'model' cuts one)."""
+    B, S, _ = x.shape
     C = min(cfg.rec.chunk, S)
     if S % C:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {C}")
+    ctx = _split(ctx, "rwkv")
     mixed = _token_shift(x, _shift(x, x_prev), p)
-    r = (mixed["r"] @ p["wr"]).reshape(B, S // C, C, H, dk).float()
-    k = (mixed["k"] @ p["wk"]).reshape(B, S // C, C, H, dk).float()
-    v = (mixed["v"] @ p["wv"]).reshape(B, S // C, C, H, dk).float()
-    g = F.silu(mixed["g"] @ p["wg"])
-    wlog = _decay(mixed["w"], p).reshape(B, S // C, C, H, dk)
+    r, k, v, g, wlog, u, ln_w, ln_b, cut = _heads(mixed, p, cfg, ctx)
+    H, dk = r.shape[2], r.shape[3]
+    r, k, v, wlog = (t.reshape(B, S // C, C, H, dk) for t in (r, k, v, wlog))
     s0 = (torch.zeros((B, H, dk, dk), dtype=torch.float32, device=x.device)
           if s0 is None else s0)
-    o, s = _wkv(r, k, v, wlog, p["u"], s0)
-    o = o.reshape(B, S, d)
-    o = _group_norm(o.to(x.dtype), p["ln_w"], p["ln_b"], H)
+    o, s = _wkv(r, k, v, wlog, u, s0)
+    o = o.reshape(B, S, H * dk)
+    o = _group_norm(o.to(x.dtype), ln_w, ln_b, H)
+    if cut:
+        o = ctx.own(o)
     out = (o * g) @ p["wo"]
     return out, (x[:, -1].clone(), s)
 
 
-def rwkv_channel_mix(x, p, x_prev=None):
+def rwkv_channel_mix(x, p, x_prev=None, ctx=None):
+    """(out, x_last). On a mesh (`ctx`) k's d_ff columns are this rank's,
+    so `k @ cm_wv` is its part of the sum over 'model', and the
+    receptance gate it multiplies is gathered whole from this rank's d
+    columns: out is this rank's part of the sum."""
+    ctx = _split(ctx, "rwkv")
     xs = _shift(x, x_prev)
     xk = x + (xs - x) * p["cm_mu_k"]
     xr = x + (xs - x) * p["cm_mu_r"]
     k = torch.square(torch.relu(xk @ p["cm_wk"]))
-    out = torch.sigmoid(xr @ p["cm_wr"]) * (k @ p["cm_wv"])
+    gate = torch.sigmoid(xr @ p["cm_wr"])
+    if ctx is not None:
+        gate = ctx.gather_cols(gate)
+    out = gate * (k @ p["cm_wv"])
     return out, x[:, -1].clone()
 
 
@@ -215,27 +277,27 @@ def rwkv_init_state(cfg, B: int, device=None) -> dict:
             "x_cm": torch.zeros((B, d), **f32)}
 
 
-def rwkv_decode(x, p, cfg, state):
+def rwkv_decode(x, p, cfg, state, ctx=None):
     """Single-token step. x [B,1,d]; state {"s","x_tm","x_cm"}. Returns
     (time-mix output [B,1,d], the new state; its "x_cm" is the old one:
-    the block's channel mix replaces it)."""
-    B, _, d = x.shape
-    dk = cfg.rec.head_dim
-    H = d // dk
+    the block's channel mix replaces it). On a mesh (`ctx`) as
+    `rwkv_time_mix`: "s" holds this rank's heads (every head where
+    'model' cuts one), "x_tm" and "x_cm" all d."""
+    B = x.shape[0]
+    ctx = _split(ctx, "rwkv")
     xt = x[:, 0].float()
     mixed = _token_shift(x, state["x_tm"][:, None].to(x.dtype), p)
-    r = (mixed["r"] @ p["wr"]).reshape(B, H, dk).float()
-    k = (mixed["k"] @ p["wk"]).reshape(B, H, dk).float()
-    v = (mixed["v"] @ p["wv"]).reshape(B, H, dk).float()
-    g = F.silu(mixed["g"] @ p["wg"])[:, 0]
-    w = torch.exp(_decay(mixed["w"], p)).reshape(B, H, dk)
+    r, k, v, g, wlog, u, ln_w, ln_b, cut = _heads(mixed, p, cfg, ctx)
+    r, k, v, g = r[:, 0], k[:, 0], v[:, 0], g[:, 0]
+    w = torch.exp(wlog[:, 0])
     s = state["s"]
     # o_t = r·(u ⊙ (k ⊗ v) + S)
     kv = torch.einsum("bhk,bhv->bhkv", k, v)
-    o = torch.einsum("bhk,bhkv->bhv", r, s + p["u"][None, :, :, None] * kv)
+    o = torch.einsum("bhk,bhkv->bhv", r, s + u[None, :, :, None] * kv)
     s_new = w[..., None] * s + kv
-    o = o.reshape(B, d)
-    o = _group_norm(o.to(x.dtype), p["ln_w"], p["ln_b"], H)
+    o = _group_norm(o.reshape(B, -1).to(x.dtype), ln_w, ln_b, r.shape[1])
+    if cut:
+        o = ctx.own(o)
     out_tm = ((o * g) @ p["wo"])[:, None]
     return out_tm, {"s": s_new, "x_tm": xt, "x_cm": state["x_cm"]}
 
@@ -284,11 +346,15 @@ def _causal_conv(u, w, b, state=None):
     return out + b, up[:, -(cw - 1):]
 
 
-def _rglru_gates(u, p):
+def _rglru_gates(u, p, ctx=None):
+    """(a, b) of the recurrence; on a mesh (`ctx`) u holds this rank's
+    columns, and the [w, w] gates read it whole."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p["wa"].float() + p["ba"])
-    i = torch.sigmoid(uf @ p["wi"].float() + p["bi"])
-    log_a = -_C_RGLRU * r * F.softplus(p["lam"])        # [B,S,w] (<= 0)
+    uw = uf if ctx is None else ctx.gather_cols(u).float()
+    ba, bi, lam = _own(p, ("ba", "bi", "lam"), ctx)
+    r = torch.sigmoid(uw @ p["wa"].float() + ba)
+    i = torch.sigmoid(uw @ p["wi"].float() + bi)
+    log_a = -_C_RGLRU * r * F.softplus(lam)             # [B,S,w] (<= 0)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
         * (i * uf)
@@ -309,13 +375,17 @@ def _linear_scan(a, b):
     return b
 
 
-def rglru_apply(x, p, cfg, state=None):
-    """Full-sequence recurrent block. Returns (out, {"h", "conv"})."""
+def rglru_apply(x, p, cfg, state=None, ctx=None):
+    """Full-sequence recurrent block. Returns (out, {"h", "conv"}); on a
+    mesh (`ctx`) out is this rank's part of the sum over 'model' and the
+    state its `lru_width` columns."""
+    ctx = _split(ctx, "rec")
     u0 = x @ p["wx"]
     gate = F.gelu(x @ p["wy"], approximate="tanh")
     conv_state = None if state is None else state["conv"]
-    u, conv_new = _causal_conv(u0, p["conv_w"], p["conv_b"], conv_state)
-    a, b = _rglru_gates(u, p)
+    u, conv_new = _causal_conv(u0, *_own(p, ("conv_w", "conv_b"), ctx),
+                               conv_state)
+    a, b = _rglru_gates(u, p, ctx)
     if state is not None:
         # inject carried h0 through the first step: b_0 += a_0 * h0
         b = torch.cat([b[:, :1] + a[:, :1] * state["h"][:, None], b[:, 1:]],
@@ -333,12 +403,15 @@ def rglru_init_state(cfg, B: int, device=None) -> dict:
             "conv": torch.zeros((B, cfg.rec.conv_width - 1, w), **f32)}
 
 
-def rglru_decode(x, p, cfg, state):
-    """Single-step. x [B,1,d]. Returns (out, the new {"h", "conv"})."""
+def rglru_decode(x, p, cfg, state, ctx=None):
+    """Single-step. x [B,1,d]. Returns (out, the new {"h", "conv"}); on a
+    mesh as `rglru_apply`."""
+    ctx = _split(ctx, "rec")
     u0 = x @ p["wx"]
     gate = F.gelu(x @ p["wy"], approximate="tanh")
-    u, conv_new = _causal_conv(u0, p["conv_w"], p["conv_b"], state["conv"])
-    a, b = _rglru_gates(u, p)
+    u, conv_new = _causal_conv(u0, *_own(p, ("conv_w", "conv_b"), ctx),
+                               state["conv"])
+    a, b = _rglru_gates(u, p, ctx)
     h = a[:, 0] * state["h"] + b[:, 0]
     out = (h[:, None].to(x.dtype) * gate) @ p["wo"]
     return out, {"h": h, "conv": conv_new.float()}

@@ -135,55 +135,62 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
     aux the MoE layer's load-balance loss (f32), None for the other kinds
     (JAX's 0, without a device tensor a layer). `ctx` (a mesh,
     `shard.ShardCtx`): x holds this rank's rows (and, with sequence
-    parallelism, its positions); the attention and the MLP run on this
-    rank's heads and d_ff columns between `ctx.enter` and `ctx.leave`, a
-    MoE layer on the microbatch's rows gathered over the dp axes. A
-    decode step's cache is this rank's piece of it (`t_split`: its T over
-    'model', `attention.attn_decode`); a prefill's (k, v) hold every kv
-    head whose weights this rank holds."""
+    parallelism, its positions); every token mixer (attention, MLA,
+    RG-LRU, RWKV-6's time and channel mixes) and the MLP run on this
+    rank's heads or columns between `ctx.enter` and `ctx.leave` where
+    'model' splits their weights (`ctx.sharded`), a MoE layer on the
+    microbatch's rows gathered over the dp axes. A decode step's cache
+    is this rank's piece of it (`t_split`: its T over 'model',
+    `attention.attn_decode`, `attention.mla_decode`); a prefill's (k, v)
+    hold every kv head whose weights this rank holds, a recurrent
+    layer's state this rank's piece of it."""
     aux = None
     mixer = KIND_MIXER[kind]
-    h = apply_norm(cfg.norm, x, p["ln1"])
+    sharded = ctx is not None and ctx.sharded(mixer)
+
+    def enter(h):
+        return h if ctx is None else ctx.enter(h, sharded)
+
+    def leave(o):
+        return o if ctx is None else ctx.leave(o, sharded)
+
+    h = enter(apply_norm(cfg.norm, x, p["ln1"]))
     if mixer == "rwkv":               # time mix + its own channel mix
         if cache is None:
-            o, (x_tm, s_fin) = ssm.rwkv_time_mix(h, p["mix"], cfg)
-            x = x + o
-            h2 = apply_norm(cfg.norm, x, p["ln2"])
-            o2, x_cm = ssm.rwkv_channel_mix(h2, p["mix"])
-            return x + o2, {"s": s_fin, "x_tm": x_tm.float(),
-                            "x_cm": x_cm.float()}, aux
-        o, st = ssm.rwkv_decode(h, p["mix"], cfg, cache)
-        x = x + o
-        h2 = apply_norm(cfg.norm, x, p["ln2"])
-        o2, x_cm = ssm.rwkv_channel_mix(h2, p["mix"],
-                                        x_prev=cache["x_cm"].to(h2.dtype))
+            o, (x_tm, s_fin) = ssm.rwkv_time_mix(h, p["mix"], cfg, ctx=ctx)
+            st = {"s": s_fin, "x_tm": x_tm.float()}
+        else:
+            o, st = ssm.rwkv_decode(h, p["mix"], cfg, cache, ctx=ctx)
+        x = x + leave(o)
+        h2 = enter(apply_norm(cfg.norm, x, p["ln2"]))
+        o2, x_cm = ssm.rwkv_channel_mix(
+            h2, p["mix"], ctx=ctx,
+            x_prev=None if cache is None else cache["x_cm"].to(h2.dtype))
         st["x_cm"] = x_cm.float()
-        return x + o2, _write(cache, st), aux
+        return x + leave(o2), st if cache is None else _write(cache, st), aux
     if mixer == "rec":
         if cache is None:
-            o, new_cache = ssm.rglru_apply(h, p["mix"], cfg)
+            o, new_cache = ssm.rglru_apply(h, p["mix"], cfg, ctx=ctx)
         else:
-            o, st = ssm.rglru_decode(h, p["mix"], cfg, cache)
+            o, st = ssm.rglru_decode(h, p["mix"], cfg, cache, ctx=ctx)
             new_cache = _write(cache, st)
     elif mixer == "mla":
         if cache is None:
             o, new_cache = attn.mla_apply(h, p["mix"], cfg, positions)
         else:
-            o, new_cache = attn.mla_decode(h, p["mix"], cfg, cache, pos)
+            o, new_cache = attn.mla_decode(h, p["mix"], cfg, cache, pos,
+                                           ctx=ctx, t_split=t_split)
     elif cache is None and ctx is not None:
-        h = ctx.enter(h, ctx.attn_sharded)
         o, new_cache = attn.attn_apply(
             h, p["mix"], cfg, kind, positions,
             kv=ctx.kv_heads(p["mix"]["wq"].shape[1]),
             whole_kv=not torch.is_grad_enabled())
-        o = ctx.leave(o, ctx.attn_sharded)
     elif cache is None:
         o, new_cache = attn.attn_apply(h, p["mix"], cfg, kind, positions)
     else:
         o, new_cache = attn.attn_decode(h, p["mix"], cfg, kind, cache, pos,
                                         ctx=ctx, t_split=t_split)
-        if ctx is not None:
-            o = ctx.leave(o, ctx.attn_sharded)
+    o = leave(o)
     if cfg.post_norm:
         o = apply_norm(cfg.norm, o, p["pn1"])
     x = x + o
@@ -195,8 +202,8 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
     elif kind.endswith("_moe"):
         f, aux = moe_apply(h, p["ffn"], cfg.moe)
     elif ctx is not None:
-        f = ctx.leave(mlp_apply(ctx.enter(h, ctx.ffn_sharded), p["ffn"],
-                                cfg.mlp), ctx.ffn_sharded)
+        f = ctx.leave(mlp_apply(ctx.enter(h, ctx.split["ffn"]), p["ffn"],
+                                cfg.mlp), ctx.split["ffn"])
     else:
         f = mlp_apply(h, p["ffn"], cfg.mlp)
     if cfg.post_norm:
@@ -314,7 +321,7 @@ def _head(params, cfg, x, ctx=None, whole=False):
     vocabulary (`ShardCtx.whole_logits`)."""
     x = apply_norm(cfg.norm, x, params.lnf)
     if ctx is not None and not whole:
-        x = ctx.enter(x, ctx.vocab_sharded)
+        x = ctx.enter(x, ctx.split["vocab"])
     logits = softcap((x @ params.unembed).float(), cfg.logit_softcap)
     return ctx.whole_logits(logits) if whole else logits
 

@@ -28,6 +28,13 @@
   embedding inputs) and three head layouts: 3 heads that 'model' leaves
   whole, 12 q heads over 2 kv heads (3 a rank on 4, over one kv head)
   and 12 over 3 (6 a rank on 2, over kv heads 0,0,0,0,1,1).
+- Tensor parallelism over 'model' for the recurrent kinds and MLA:
+  recurrentgemma-2b (RG-LRU beside local attention) on (1, 2) and, with
+  `zero1` and `seq_parallel`, on (2, 2); rwkv6-1.6b on (1, 2) and on
+  (1, 4) with `seq_parallel`; an rwkv6 of 3 wkv heads 32 wide at
+  d_model 96 on (1, 4), where 'model' cuts every head; deepseek's MLA
+  over a dense MLP ("deepseek-mla", Adafactor, f32 sums) on (1, 2) with
+  `seq_parallel` and on (2, 2) with `zero1` too.
 - `pure_dp` on (2, 1) for rwkv6, recurrentgemma, dbrx (MoE, Adafactor)
   and deepseek (MLA, MoE, Adafactor): the MoE layers route the whole
   microbatch. Adafactor's weights and factors within 1e-5 of their max.
@@ -39,7 +46,9 @@
 - Checkpoints across the packages and mesh shapes: every run above
   resumes JAX's step 0; a (2, 2) run's step 2 resumes on (1, 4) and a
   (2, 1) run's in `repro.train.train`, each to step 3 against JAX's.
-- The refusals that wait for ROADMAP A9; the launcher under 4 ranks
+- The refusals that wait for ROADMAP A9 (the MoE kinds over 'model',
+  experts over 'data', RWKV-6 where 'model' divides d_model but not
+  d_ff); the launcher under 4 ranks
   builds its (2, 2) mesh from `--model-parallel 2`.
 - A vocabulary that 'model' does not divide (`embed`/`unembed` whole);
   a mesh model's fresh shards equal to the one-device draw's pieces; the
@@ -272,6 +281,9 @@ CASES2 = [
     ("deepseek-v3-671b", dict(pure_dp=True), (2, 1)),
     ("dbrx-bf16", dict(pure_dp=True), (2, 1)),
     ("vocab511", dict(zero1=True, seq_parallel=True), (1, 2)),
+    ("recurrentgemma-2b", {}, (1, 2)),
+    ("rwkv6-1.6b", {}, (1, 2)),
+    ("deepseek-mla", dict(seq_parallel=True), (1, 2)),
 ]
 CASES4 = [
     ("qwen2-1.5b", dict(zero1=True, seq_parallel=True), (2, 2)),
@@ -285,12 +297,17 @@ CASES4 = [
     ("qwen2-vl-2b", {}, (1, 4)),
     ("h12", dict(seq_parallel=True), (1, 4)),
     ("heads3", {}, (1, 4)),
+    ("recurrentgemma-2b", dict(zero1=True, seq_parallel=True), (2, 2)),
+    ("rwkv6-1.6b", dict(seq_parallel=True), (1, 4)),
+    ("rwkv-hd32", {}, (1, 4)),
+    ("deepseek-mla", dict(zero1=True, seq_parallel=True), (2, 2)),
 ]
-# (variant, flags, mesh shape): 'model' above 1 for the recurrent, MoE
-# and MLA kinds; 'data' above 1 under the experts without pure_dp
-REFUSED = [("rwkv6-1.6b", {}, (1, 2)), ("recurrentgemma-2b", {}, (1, 2)),
-           ("dbrx-132b", {}, (1, 2)), ("deepseek-v3-671b", {}, (1, 2)),
-           ("dbrx-132b", {}, (2, 1)), ("deepseek-v3-671b", {}, (2, 1))]
+# (variant, flags, mesh shape): 'model' above 1 for the MoE kinds and for
+# RWKV-6 where it divides d_model but not d_ff; 'data' above 1 under the
+# experts without pure_dp
+REFUSED = [("dbrx-132b", {}, (1, 2)), ("deepseek-v3-671b", {}, (1, 2)),
+           ("dbrx-132b", {}, (2, 1)), ("deepseek-v3-671b", {}, (2, 1)),
+           ("rwkv-f129", {}, (1, 2))]
 # (variant, flags, mesh shape): a mesh model's fresh shards against the
 # one-device draw
 INIT = [("h12k3", {}, (1, 2)), ("qwen2-1.5b", dict(zero1=True), (2, 2))]

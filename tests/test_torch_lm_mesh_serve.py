@@ -37,9 +37,16 @@ generated tokens' rows from the vocabulary-sharded `embed`) on (2, 2);
 a vocabulary of 511 that 'model' 2 leaves whole; a batch of 3 that
 (2, 1) does not divide (every rank runs every row); `pure_dp` on (2, 1)
 for rwkv6, recurrentgemma, dbrx (MoE: routing over the gathered rows)
-and deepseek (MLA, MoE). `serve(mesh=)` of rwkv6 over 'model' still
-raises naming ROADMAP A9, and `launch.serve.main` under 2 ranks builds
-its `make_local_mesh()`.
+and deepseek (MLA, MoE). The recurrent kinds and MLA over 'model', each
+rank's state its piece in `cache_specs`' layout after the prefill too:
+recurrentgemma on (1, 2) and with `zero1` and `seq_parallel` on (2, 2);
+rwkv6 on (1, 2) and (1, 4), and with 3 wkv heads of 32 at d_model 96
+on (1, 4), where 'model' cuts every head (the state whole on every rank);
+deepseek's MLA over a dense MLP on (1, 2) and (2, 2) (heads over
+'model', the latent cache whole) and with `shard_cache_t` on (1, 2)
+(the latent's T over 'model'). `serve(mesh=)` of dbrx over 'model' (a
+MoE kind) still raises naming ROADMAP A9, and `launch.serve.main` under
+2 ranks builds its `make_local_mesh()`.
 """
 import dataclasses
 import threading
@@ -85,6 +92,8 @@ RUNS = {
     "recurrentgemma": ("recurrentgemma-2b", 4, 8, 4, 31),
     "dbrx": ("dbrx-132b", 4, 8, 4, 32),
     "deepseek": ("deepseek-v3-671b", 4, 8, 4, 33),
+    "deepseek-mla": ("deepseek-mla", 4, 8, 4, 34),
+    "rwkv-hd32": ("rwkv-hd32", 4, 8, 4, 35),
 }
 # (JAX run, the port's flags, mesh shape)
 CASES2 = [
@@ -98,6 +107,10 @@ CASES2 = [
     ("recurrentgemma", dict(pure_dp=True), (2, 1)),
     ("dbrx", dict(pure_dp=True), (2, 1)),
     ("deepseek", dict(pure_dp=True), (2, 1)),
+    ("recurrentgemma", {}, (1, 2)),
+    ("rwkv6", {}, (1, 2)),
+    ("deepseek-mla", {}, (1, 2)),
+    ("deepseek-mla", dict(shard_cache_t=True), (1, 2)),
 ]
 CASES4 = [
     ("qwen2", {}, (2, 2)),
@@ -105,8 +118,12 @@ CASES4 = [
     ("h12", {}, (1, 4)),
     ("gemma2-int8", dict(shard_cache_t=True), (2, 2)),
     ("qwen2-vl", {}, (2, 2)),
+    ("recurrentgemma", dict(zero1=True, seq_parallel=True), (2, 2)),
+    ("rwkv6", {}, (1, 4)),
+    ("rwkv-hd32", {}, (1, 4)),
+    ("deepseek-mla", {}, (2, 2)),
 ]
-REFUSED = ("rwkv6", {}, (1, 2))
+REFUSED = ("dbrx", {}, (1, 2))
 LAUNCH = ["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu", "--batch",
           "2", "--prompt-len", "4", "--gen", "3"]
 
@@ -280,13 +297,16 @@ def _prefill_spec(tcfg, shape, B, leaf_ndim, name):
 
 
 def _check_case(case, got, ref):
-    """Every rank of one case against JAX's one device."""
+    """Every rank of one case against JAX's one device (a recurrent
+    state after the prefill as `serving_cache_specs` lays it out)."""
     run, flags, shape = case
     variant, B, P, G, _ = RUNS[run]
     tcfg = smoke_cfg(tconfigs, variant, **flags)
     T = P + G
     mesh = abstract_mesh(shape, AXES)
     _, specs = tmodel.cache_specs(tcfg, mesh, B, T)
+    states = tmodel.serving_cache_specs(tcfg, mesh, B, T)
+    kinds = ttfm.layer_kinds(tcfg)
     jcfg = ref["cfg"]
     for r in got:
         at = _At(shape, r["coord"])
@@ -299,7 +319,9 @@ def _check_case(case, got, ref):
         for layer, c in enumerate(r["prefill"]):
             want = _jlayer(ref["prefill"], layer, jcfg)
             names = list(c) if isinstance(c, dict) else \
-                list(want) if isinstance(want, dict) else ["k", "v"]
+                list(want) if isinstance(want, dict) else \
+                ["ckv", "krope"] if kinds[layer].startswith("mla") \
+                else ["k", "v"]
             if isinstance(want, tuple):
                 want = dict(zip(names, want))
             if isinstance(c, tuple):
@@ -307,7 +329,8 @@ def _check_case(case, got, ref):
             assert set(c) == set(want), layer
             for n in want:
                 w = np.asarray(want[n])
-                spec = _prefill_spec(tcfg, shape, B, w.ndim, n)
+                spec = states[layer][n] if n in STATES else \
+                    _prefill_spec(tcfg, shape, B, w.ndim, n)
                 _leaf_close(c[n], _piece(w, spec, at), n,
                             f"prefill layer {layer} {n}")
         for layer, c in enumerate(r["cache"]):
@@ -338,8 +361,9 @@ SPLIT_T = [c for c in CASES2 + CASES4 if c[1].get("shard_cache_t")]
 def test_no_rank_holds_or_gathers_a_whole_t(case, world2, world4):
     """With `shard_cache_t` each rank's attention cache holds T / 'model'
     positions of every kv head where 'model' divides the layer's T (the
-    whole T where it does not), and no collective of the decode steps
-    returns a tensor as large as one layer's whole k cache of this rank's
+    whole T where it does not), an MLA layer's latent T / 'model'
+    positions, and no collective of the decode steps returns a tensor as
+    large as one layer's whole k cache (latent cache) of this rank's
     rows."""
     run, flags, shape = case
     variant, B, P, G, _ = RUNS[run]
@@ -350,16 +374,24 @@ def test_no_rank_holds_or_gathers_a_whole_t(case, world2, world4):
     rows = B // shape[0] if B % shape[0] == 0 else B
     split = 0
     kinds = ttfm.layer_kinds(cfg)
+    mla = kinds[0].startswith("mla")
+    whole = rows * T * (cfg.mla.kv_lora_rank if mla
+                        else cfg.n_kv_heads * cfg.hd)
     for g in world:
         r = g[i]
         for layer, (kind, c) in enumerate(zip(kinds, r["cache"])):
             Tk = min(T, cfg.window) if kind == "attn_local" else T
             want_t = Tk // tp if Tk % tp == 0 else Tk
             split += Tk % tp == 0
+            if mla:
+                assert c["ckv"].shape == (rows, want_t,
+                                          cfg.mla.kv_lora_rank), layer
+                assert c["krope"].shape[1] == want_t
+                continue
             assert c["k"].shape == (rows, want_t, cfg.n_kv_heads, cfg.hd), \
                 (layer, kind, c["k"].shape)
             assert c["k_scale" if "k_scale" in c else "k"].shape[1] == want_t
-        assert r["largest"] < rows * T * cfg.n_kv_heads * cfg.hd
+        assert r["largest"] < whole
     assert split > 0
 
 

@@ -26,7 +26,12 @@ B, S = 4, 32            # the global batch: two microbatches of 2 rows
 # to another bf16 value than the whole sum in about one entry in a
 # thousand: their f32 variants are held at 1e-5, "dbrx-bf16" at bf16's
 # bar; "vocab511" has a vocabulary that 'model' 2 does not divide, so
-# `embed` and `unembed` stay whole; "gemma2-int8" has the int8 KV cache
+# `embed` and `unembed` stay whole; "gemma2-int8" has the int8 KV cache;
+# "rwkv-hd32" has 3 wkv heads of 32 at d_model 96, 24 columns a rank on
+# 'model' 4, which cuts every head (a change given as a function of the
+# config, as `rec` is each package's own dataclass); "deepseek-mla" is
+# deepseek's MLA over a dense MLP alone; "rwkv-f129" has a d_ff that
+# 'model' 2 does not divide beside a d_model that it does
 VARIANTS = {
     "qwen2-1.5b": ("qwen2-1.5b", 2, {}),
     "gemma2-9b": ("gemma2-9b", 2, {}),
@@ -43,6 +48,11 @@ VARIANTS = {
     "dbrx-bf16": ("dbrx-132b", 1, {}),
     "vocab511": ("qwen2-1.5b", 2, dict(vocab=511)),
     "gemma2-int8": ("gemma2-9b", 2, dict(kv_cache_dtype="int8")),
+    "rwkv-hd32": ("rwkv6-1.6b", 2, dict(
+        d_model=96, rec=lambda c: dataclasses.replace(c.rec, head_dim=32))),
+    "deepseek-mla": ("deepseek-v3-671b", 2, dict(
+        prefix=(), pattern=("mla_dense",), grad_accum_dtype="float32")),
+    "rwkv-f129": ("rwkv6-1.6b", 2, dict(d_ff=129)),
 }
 
 
@@ -52,7 +62,8 @@ def smoke_cfg(configs, variant: str, **flags):
     prefix and suffix, and `flags` (zero1, seq_parallel, pure_dp)."""
     arch, layers, kw = VARIANTS[variant]
     cfg = configs.smoke_config(configs.get_config(arch))
-    cfg = dataclasses.replace(cfg, **kw)
+    cfg = dataclasses.replace(cfg, **{k: v(cfg) if callable(v) else v
+                                      for k, v in kw.items()})
     reps = max(1, layers // len(cfg.pattern))
     return dataclasses.replace(
         cfg, n_layers=len(cfg.prefix) + reps * len(cfg.pattern)
