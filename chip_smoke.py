@@ -446,7 +446,23 @@ Phases (any failure exits non-zero; nothing is caught):
      TOL_MESH_KINDS_F32 of its f32 run's), every rank's logits and
      histories identical, and every piece of the trained weights alike on
      the ranks that hold it (a whole leaf's gradient left unsummed over
-     'model' would part them).
+     'model' would part them); (17f) the MoE kinds, their experts over
+     'data' and each expert's d_ff over 'model': both kernels at one
+     rank's share of dbrx-132b's attention (B 1, 24 q heads over 4 kv
+     heads, D 128, S = T = 2048) against their plain versions, timed
+     beside SDPA; 17f-i dbrx-132b at full width on 2 layers in f32,
+     prefill_step on 2 x 256 within TOL_MESH_SERVE_F32 of one device's
+     logits and the same tokens dropped a MoE layer; then in bf16
+     (mesh_moe_rank; each MoE model drawn one rank at a time) dbrx-132b
+     on 2 layers (prefill_step on 2 x 2048, 8 decode steps on the bf16
+     and the int8 cache, heads over 'model'), train(mesh=) of dbrx on 1
+     layer, 1 x 2048, Adafactor, bf16 sums, and deepseek-v3-671b's one
+     mla_moe layer (prefill, decode with the latent whole and with T over
+     'model'): logits and the loss within TOL_MESH_MOE of one device's
+     over the decode steps every MoE layer routed as one device, every
+     rank's logits, drops and history identical, the tokens routed
+     otherwise than one device and each side's drops printed, every
+     trained piece alike on the ranks that hold it.
 Before the last line it prints the `kernels` JSON line (eight kernels); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card; exits 2
 without one.
@@ -4648,26 +4664,44 @@ def n_attn_layers(cfg) -> int:
 
 
 @contextlib.contextmanager
-def moe_drops(record: list):
-    """Within the block, each MoE layer appends its dropped tokens (routed
-    past an expert's capacity C, from the layer's own routing) to
-    `record`, then runs unchanged (`transformer.moe_apply` wrapped)."""
-    from repro_torch.models import moe, transformer
+def moe_routes(record: list):
+    """Within the block, each MoE layer appends the experts each token is
+    routed to, (gates > 0) [N, E] on the host, to `record`, then runs
+    unchanged (`moe._route` wrapped; on a mesh the whole microbatch's,
+    which every rank routes)."""
+    from repro_torch.models import moe
 
-    real = transformer.moe_apply
+    real = moe._route
 
-    def counted(x, p, cfg_moe):
-        N = x.shape[0] * x.shape[1]
-        gates, _ = moe._route(x.reshape(N, -1), p, cfg_moe)
-        C = min(moe.capacity(N, cfg_moe), N)
-        record.append(int(torch.clamp((gates > 0).sum(0) - C, min=0).sum()))
-        return real(x, p, cfg_moe)
+    def recorded(x_flat, p, cfg_moe):
+        gates, aux = real(x_flat, p, cfg_moe)
+        record.append((gates > 0).cpu())
+        return gates, aux
 
-    transformer.moe_apply = counted
+    moe._route = recorded
     try:
         yield record
     finally:
-        transformer.moe_apply = real
+        moe._route = real
+
+
+def dropped(routes: list, cfg_moe) -> list:
+    """For each MoE layer of a `moe_routes` record, the assignments routed
+    past an expert's capacity C."""
+    from repro_torch.models import moe
+
+    out = []
+    for m in routes:
+        N = m.shape[0]
+        C = min(moe.capacity(N, cfg_moe), N)
+        out.append(int(torch.clamp(m.sum(dim=0) - C, min=0).sum()))
+    return out
+
+
+def rerouted(got: list, want: list) -> list:
+    """For each MoE layer, the tokens whose experts differ between two
+    records of `moe_routes`."""
+    return [int((a != b).any(dim=-1).sum()) for a, b in zip(got, want)]
 
 
 def family_attn_checks(args, dev, report):
@@ -4929,8 +4963,9 @@ def moe_witness(args, dev, cfg32, P, rep, tag):
     n_params = sum(p.numel() for p in m32.parameters())
     toks = batch_for(cfg32, 1, P, 0, args.seed)["tokens"]
     n0, tc0 = flash_attention.launches, flash_attention.launches_tc
-    with moe_drops([]) as drops:
+    with moe_routes([]) as routes:
         want, _ = m32.prefill_step({"tokens": toks})
+    drops = dropped(routes, cfg32.moe)
     n, tc = flash_attention.launches - n0, flash_attention.launches_tc - tc0
     require(n == n_attn_layers(cfg32) and tc == 0,
             f"{tag} f32 prefill launches {n}, on the tensor cores {tc}")
@@ -5007,11 +5042,12 @@ def moe_serve(args, dev, cut, rep):
     require(last.shape == (B, cut.vocab) and bool(torch.isfinite(last).all())
             and len(caches) == L, f"{cut.name}'s prefill_step")
     rep["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
-    with moe_drops([]) as drops:
+    with moe_routes([]) as routes:
         ev[2].record()
         last2, caches2 = model.prefill_step(batch)
         ev[3].record()
     torch.cuda.synchronize()
+    drops = dropped(routes, cut.moe)
     same = torch.equal(last, last2) and all(
         torch.equal(a, b) for c, c2 in zip(caches, caches2)
         for a, b in zip(c, c2))
@@ -5025,8 +5061,8 @@ def moe_serve(args, dev, cut, rep):
                dropped=drops, capacity=C, bit_identical=same)
     log(f"[time] {cut.name} prefill_step {B} x {S} at {L} layers: "
         f"{rep['prefill_ms'][0]:.1f} ms (counted), "
-        f"{rep['prefill_ms'][1]:.1f} ms (again, with the drop counter's "
-        f"routing; bit-identical {same}); peak allocated "
+        f"{rep['prefill_ms'][1]:.1f} ms (again, each layer's routes copied "
+        f"to the host; bit-identical {same}); peak allocated "
         f"{rep['prefill_peak_bytes'] / 2**30:.3f} GiB; assignments dropped "
         f"a MoE layer (capacity {C} of {N} tokens x {top_k} / {E} experts, "
         f"factor {cut.moe.capacity_factor}): {drops} of {N * top_k}")
@@ -5731,10 +5767,10 @@ def mesh_rank(rank, world, cfg) -> dict:
     grad_norm and the gathered last weights against it (TOL_MESH_*),
     checks that every leaf moved and that the last step's checkpoint
     restores on one device into the gathered weights, bit for bit.
-    17d (`mesh_serve_rank`) and 17e (`mesh_kinds_rank`) follow on the
-    same mesh. Returns 10d's results, this rank's launches, step times,
-    time in collectives, peak memory, rank 0's checks and 17d's and 17e's
-    results."""
+    17d (`mesh_serve_rank`), 17e (`mesh_kinds_rank`) and 17f
+    (`mesh_moe_rank`) follow on the same mesh. Returns 10d's results, this
+    rank's launches, step times, time in collectives, peak memory, rank
+    0's checks and 17d's, 17e's and 17f's results."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5776,6 +5812,8 @@ def mesh_rank(rank, world, cfg) -> dict:
     del model, opt, wref
     out["witness_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    # the parent may free 17b's step once every rank is past it
+    open(os.path.join(cfg["go"], f"past_17b_{rank}"), "w").close()
     mesh.barrier()
 
     # -- 17c qwen2-1.5b in bf16 by train(mesh=) ------------------------------
@@ -5897,6 +5935,10 @@ def mesh_rank(rank, world, cfg) -> dict:
 
     # -- 17e the recurrent kinds and MLA over 'model' ------------------------
     out["kinds"] = mesh_kinds_rank(mesh, dev, seed, cfg["kinds"], clock)
+    mesh.barrier()
+
+    # -- 17f the MoE kinds over 'model', experts over 'data' -----------------
+    out["moe"] = mesh_moe_rank(mesh, dev, seed, cfg["moe"], clock)
     mesh.barrier()
     out["s"] = time.perf_counter() - t_start
     return out
@@ -6040,25 +6082,30 @@ def _serve_cases():
                  True, None, 0)]
 
 
-def _decode_run(model, cache, tokens, start, dev) -> tuple:
+def _decode_run(model, cache, tokens, start, dev, routes=None) -> tuple:
     """decode_step at positions start, start + 1, ... on `tokens`' columns:
-    (the logits [steps, B, V] as f32 on the host, ms a step)."""
+    (the logits [steps, B, V] as f32 on the host, ms a step). With
+    `routes`, each step appends its MoE layers' `moe_routes` record."""
     out, times = [], []
     for j in range(tokens.shape[1]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = model.decode_step(cache, {"tokens": tokens[:, j:j + 1]},
-                                      start + j)
+        with moe_routes([]) as step_routes:
+            lg, cache = model.decode_step(
+                cache, {"tokens": tokens[:, j:j + 1]}, start + j)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         out.append(lg[:, 0].float().cpu())
+        if routes is not None:
+            routes.append(step_routes)
     return torch.stack(out), times
 
 
 def _case_ref(c, dev, seed) -> tuple:
     """One device's run of MeshCase `c` on the card: (its results on the
-    host: the prefill's last logits, each cache's decode logits, serve's
-    tokens, the training history; its times)."""
+    host: the prefill's last logits and the tokens each MoE layer dropped,
+    each cache's decode logits, serve's tokens, the training history; its
+    times). A case without decode caches only trains."""
     from repro_torch.data import batch_for
     from repro_torch.launch.serve import serve
     from repro_torch.models import LMModel
@@ -6066,21 +6113,27 @@ def _case_ref(c, dev, seed) -> tuple:
     from repro_torch.train import train
 
     t0 = time.perf_counter()
-    model = LMModel(c.cfg, device=dev, seed=seed)
-    r = dict(last=model.prefill_step(batch_for(c.cfg, c.B, c.S, 0, seed))[
-        0].float().cpu())
-    tok = torch.as_tensor(batch_for(c.cfg, c.B, c.steps, 1, seed)["tokens"],
-                          device=dev)
-    T, t = c.S + c.steps, {}
-    for cname, cc in c.decode:
-        cache = tfm.init_cache(cc, c.B, T, device=dev)
-        fill_random(cache, tfm.init_cache(cc, c.B, T, device="meta"),
-                    seed + c.fill, dev)
-        r[f"decode_{cname}"], t[f"decode_{cname}_ms"] = _decode_run(
-            model, cache, tok, c.S, dev)
-        del cache
-    del model
-    torch.cuda.empty_cache()
+    r, t = {}, {}
+    if c.decode:
+        model = LMModel(c.cfg, device=dev, seed=seed)
+        with moe_routes([]) as routes:
+            r["last"] = model.prefill_step(batch_for(c.cfg, c.B, c.S, 0,
+                                                     seed))[0].float().cpu()
+        r["drops"] = t["drops"] = dropped(routes, c.cfg.moe)
+        r["routes"] = routes
+        tok = torch.as_tensor(batch_for(c.cfg, c.B, c.steps, 1,
+                                        seed)["tokens"], device=dev)
+        T = c.S + c.steps
+        for cname, cc in c.decode:
+            cache = tfm.init_cache(cc, c.B, T, device=dev)
+            fill_random(cache, tfm.init_cache(cc, c.B, T, device="meta"),
+                        seed + c.fill, dev)
+            r[f"routes_{cname}"] = []
+            r[f"decode_{cname}"], t[f"decode_{cname}_ms"] = _decode_run(
+                model, cache, tok, c.S, dev, r[f"routes_{cname}"])
+            del cache
+        del model
+        torch.cuda.empty_cache()
     if c.serve:
         Bs, Ps, Gs = c.serve
         r["serve_toks"], t["serve_tps"] = serve(
@@ -6129,14 +6182,29 @@ def _pieces(params, cfg, mesh) -> dict:
     return out
 
 
+def _rank_by_rank(mesh, fn):
+    """fn() on one rank at a time, the others waiting at a barrier, its
+    cached blocks returned to the card after it: the ranks' transient
+    peaks do not meet on the shared card. Returns this rank's fn()."""
+    out = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    return out
+
+
 def _case_rank(c, mesh, dev, seed, ref, clock) -> dict:
     """MeshCase `c` on this rank by the mesh entry points against one
     device's run `ref` (`_case_ref`), each decode on the same random
     cache's piece in `serving_cache_specs`' layout. The launch counts are
     set to 0 just before the prefill and the training and read just
-    after. Returns the errors, digests of the logits, the launches, the
-    times, the time in collectives and the peak memory; with training,
-    `_case_train`'s."""
+    after. Returns the errors, digests of the logits, the tokens each MoE
+    layer of the prefill dropped, the launches, the times, the time in
+    collectives and the peak memory; with training, `_case_train`'s. A
+    case without decode caches only trains."""
     from repro_torch.data import batch_for
     from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.launch.serve import serve
@@ -6145,16 +6213,30 @@ def _case_rank(c, mesh, dev, seed, ref, clock) -> dict:
     from repro_torch.models.model import serving_cache_specs
 
     t0 = time.perf_counter()
+    if not c.decode:
+        r = dict(launches={})
+        _case_train(c, mesh, seed, ref, clock, r)
+        r["s"] = time.perf_counter() - t0
+        return r
     torch.cuda.reset_peak_memory_stats()
-    model = LMModel(c.cfg, mesh=mesh, seed=seed)
+    if c.cfg.moe:
+        # a rank draws each expert leaf whole (deepseek's in f32: 15 GB)
+        # before it keeps its piece: one rank at a time on the shared card
+        model = _rank_by_rank(mesh, lambda: LMModel(c.cfg, mesh=mesh,
+                                                    seed=seed))
+    else:
+        model = LMModel(c.cfg, mesh=mesh, seed=seed)
     batch = batch_for(c.cfg, c.B, c.S, 0, seed)
     flash_attention.launches = flash_attention.launches_tc = 0
     torch.cuda.synchronize()
     c0, t1 = clock["s"], time.perf_counter()
-    last, caches = model.prefill_step(batch)
+    with moe_routes([]) as routes:
+        last, caches = model.prefill_step(batch)
     torch.cuda.synchronize()
     first = caches[0]
     r = dict(prefill_ms=1e3 * (time.perf_counter() - t1),
+             drops=dropped(routes, c.cfg.moe),
+             rerouted=rerouted(routes, ref.get("routes", [])),
              prefill_coll_ms=1e3 * (clock["s"] - c0),
              launches=dict(prefill=(flash_attention.launches,
                                     flash_attention.launches_tc)),
@@ -6184,7 +6266,8 @@ def _case_rank(c, mesh, dev, seed, ref, clock) -> dict:
         cache = drawn(cc)
         r[f"cache_{cname}"] = [list(x.shape) for x in cache[-1].values()]
         c0 = clock["s"]
-        logits, ms = _decode_run(model, cache, tok, c.S, dev)
+        routes = []
+        logits, ms = _decode_run(model, cache, tok, c.S, dev, routes)
         r[f"decode_{cname}_ms"] = ms
         r[f"decode_{cname}_coll_ms"] = 1e3 * (clock["s"] - c0) / len(ms)
         if c.again:
@@ -6199,7 +6282,16 @@ def _case_rank(c, mesh, dev, seed, ref, clock) -> dict:
                 torch.equal(again, logits))
             del again
         want = ref[f"decode_{cname}"]
-        r[f"decode_{cname}"] = _rel(logits, want)
+        # a step whose tokens some MoE layer routed otherwise than one
+        # device (a near tie that the rounding of the mesh's sums moved)
+        # is reported, not held to the bar
+        moved = [j for j, (a, b) in enumerate(zip(
+            routes, ref[f"routes_{cname}"])) if any(rerouted(a, b))]
+        held = [j for j in range(len(logits)) if j not in moved]
+        r[f"decode_{cname}_rerouted"] = moved
+        r[f"decode_{cname}"] = _rel(logits[held], want[held]) if held \
+            else 0.0
+        r[f"decode_{cname}_all"] = _rel(logits, want)
         r[f"decode_{cname}_argmax"] = float(
             (logits.argmax(-1) == want.argmax(-1)).float().mean())
         r["bits"] += _bits(logits)
@@ -6375,17 +6467,19 @@ def mesh_phase(args, dev, report):
     """Phase 17 (and phase 10d): four gloo ranks sharing the card
     (`mesh_rank`), spawned first; while they start, the parent holds the
     kernels at each rank's share of the attention against their plain
-    versions and times them (17a, 17d's and 17e's shapes), runs the
-    one-device references of 17d and 17e and 17b's one-device step, then
+    versions and times them (17a, 17d's, 17e's and 17f's shapes), runs
+    the one-device references of 17d, 17e and 17f and 17b's one-device
+    step, then
     gives the go (`_give_go`). Then 10d, the f32 witness against one
     device (17b), qwen2-1.5b trained in bf16 at full width by
     train(mesh=) (17c: its launches on every rank, two flash_attention
     and one flash_attention_bwd a layer a step, all on the tensor cores,
     step times, time in collectives and peak memory per rank, and its
-    checkpoint resumed on one device), serving (17d) and the kinds
-    'model' splits by columns and heads (17e). The four ranks time-share
+    checkpoint resumed on one device), serving (17d), the kinds 'model'
+    splits by columns and heads (17e) and the MoE kinds, their experts
+    over 'data' (17f). The four ranks time-share
     the card: their times are recorded as measured, no speed claim.
-    Returns the path's launches (17c-e's and 10d's, every rank's), the
+    Returns the path's launches (17c-f's and 10d's, every rank's), the
     kernels' worst errors and the kernels' times."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -6404,12 +6498,14 @@ def mesh_phase(args, dev, report):
         ranks_f = pool.submit(run_ranks, mesh_rank, n, dict(
             device="cuda:0" if dev.type == "cuda" else str(dev),
             seed=args.seed, ckpt=root, refs=os.path.join(refs, "refs.pt"),
-            kinds=os.path.join(refs, "kinds.pt"), go=go,
+            kinds=os.path.join(refs, "kinds.pt"),
+            moe=os.path.join(refs, "moe.pt"), go=go,
             gloo=gloo_cfg(args, dev)),
             store_dir=store, backend="gloo", timeout_s=MESH_TIMEOUT_S)
         err_f, err_b, times = mesh_attn_checks(short, dev, report)
         err_s, serve_times = mesh_serve_attn(short, dev, report)
         err_kf, err_kb, kinds_times = mesh_kinds_attn(short, dev, report)
+        err_mf, err_mb, moe_times = mesh_moe_attn(short, dev, report)
         t0 = time.perf_counter()
         ref_t = mesh_serve_refs(args, dev, os.path.join(refs, "refs.pt"))
         torch.cuda.empty_cache()
@@ -6419,14 +6515,28 @@ def mesh_phase(args, dev, report):
         torch.cuda.empty_cache()
         t_kinds = time.perf_counter() - t0
         t0 = time.perf_counter()
+        moe_t = mesh_moe_refs(args, dev, os.path.join(refs, "moe.pt"))
+        torch.cuda.empty_cache()
+        t_moe = time.perf_counter() - t0
+        t0 = time.perf_counter()
         wref = _witness_ref(args, dev)
+        # the step's cached blocks back to the card: the ranks' 17f
+        # training needs them
+        torch.cuda.empty_cache()
         _give_go(go, n, wref)
         t_go = time.perf_counter()
         log(f"[mesh] the go {t_go - t_phase:.1f} s into phase 17 (17b's "
             f"one-device step {t_go - t0:.1f} s)")
+        # 17b's step back to the card once every rank is past 17b (17f's
+        # training needs the room)
+        while not ranks_f.done() and len(glob.glob(
+                os.path.join(go, "past_17b_*"))) < n:
+            time.sleep(0.2)
+        del wref
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
         ranks = ranks_f.result()
         t_ranks = time.perf_counter() - t_go
-        del wref
     except BaseException:
         # the ranks still waiting for the go stop; the others fail their
         # collectives, and run_ranks ends them all
@@ -6495,17 +6605,22 @@ def mesh_phase(args, dev, report):
     fwd, bwd = mesh_kinds_checks(ranks, kinds_t, t_kinds)
     launches["flash_attention"] += fwd
     launches["flash_attention_bwd"] += bwd
+    fwd, bwd = mesh_moe_checks(ranks, moe_t, t_moe)
+    launches["flash_attention"] += fwd
+    launches["flash_attention_bwd"] += bwd
     s = time.perf_counter() - t_phase
     report["mesh"] = dict(report.get("mesh", {}), ranks=ranks,
                           ranks_s=t_ranks, refs_s=t_refs,
-                          kinds_refs_s=t_kinds, go_s=t_go - t_phase,
+                          kinds_refs_s=t_kinds, moe_refs_s=t_moe,
+                          go_s=t_go - t_phase,
                           phase_s=s)
     log(f"[mesh] phase 17 {s:.1f} s (the go at {t_go - t_phase:.1f} s, then "
         f"the ranks {t_ranks:.1f} s); its main path's launches {launches}")
     return dict(launches=launches, gloo_launches=gloo,
-                max_abs_err=max(err_f, err_s, err_kf),
-                max_abs_err_bwd=max(err_b, err_kb), times=times,
-                serve_times=serve_times, kinds_times=kinds_times)
+                max_abs_err=max(err_f, err_s, err_kf, err_mf),
+                max_abs_err_bwd=max(err_b, err_kb, err_mb), times=times,
+                serve_times=serve_times, kinds_times=kinds_times,
+                moe_times=moe_times)
 
 
 def _case_hold(c, rs, bar_p, bar_d, tag) -> tuple:
@@ -6523,7 +6638,7 @@ def _case_hold(c, rs, bar_p, bar_d, tag) -> tuple:
 
     n = sum(tfm.KIND_MIXER[k] in ("attn", "mla")
             for k in tfm.layer_kinds(c.cfg))
-    want = dict(prefill=(n, n))
+    want = dict(prefill=(n, n)) if c.decode else {}
     if c.train:
         want["train"] = (2 * n * c.train,) * 2 + (n * c.train,) * 2
     fwd = bwd = 0
@@ -6533,10 +6648,15 @@ def _case_hold(c, rs, bar_p, bar_d, tag) -> tuple:
                 f"(flash_attention, on the tensor cores; with training "
                 f"flash_attention_bwd, on the tensor cores), want {want}")
         errs = {cname: s[f"decode_{cname}"] for cname, _ in c.decode}
-        require(s["prefill"] <= bar_p and max(errs.values()) <= bar_d,
-                f"{tag} {c.name} rank {i}: prefill {s['prefill']}, {errs} "
-                f"of max |logit| (bars {bar_p}, {bar_d})")
-        require(s["bits"] == rs[0]["bits"],
+        require(all(len(s[f"decode_{cname}_rerouted"]) < c.steps
+                    for cname, _ in c.decode),
+                f"{tag} {c.name} rank {i}: every decode step routed "
+                f"otherwise than one device")
+        require(not c.decode or (s["prefill"] <= bar_p
+                                 and max(errs.values()) <= bar_d),
+                f"{tag} {c.name} rank {i}: prefill {s.get('prefill')}, "
+                f"{errs} of max |logit| (bars {bar_p}, {bar_d})")
+        require(not c.decode or s["bits"] == rs[0]["bits"],
                 f"{tag} {c.name}: rank {i}'s logits differ from rank 0's")
         require(not c.again or all(s[f"decode_{cname}_repeat_equal"]
                                    for cname, _ in c.decode),
@@ -6702,16 +6822,32 @@ TOL_MESH_KINDS_F32 = dict(rwkv6=0.2)
 
 def mesh_kinds_attn(args, dev, report):
     """17e's kernels at one rank's share on 'model' MESH_SHAPE[1] of the
-    new kinds' attention, bf16, B 1, S = T = MESH_KINDS_SEQ[1], causal, on
-    the tensor cores: recurrentgemma-2b's attn_local (5 q heads over 1 kv
-    head, D 256, window 2048; q x GEMMA_Q_SCALE) and deepseek-v3-671b's
-    MLA (64 heads, q/k width 192 over v width 128). The forward and the
-    backward each against its plain version at phase 9's / 11a's bars, the
-    backward's two runs bit for bit; each timed beside its bound, its plain
-    version and the library's call (SDPA causal with GQA, which at S = T =
-    window excludes the same pairs; `mla_sdpa` for MLA). Returns (worst
-    forward error, worst backward error, times)."""
+    new kinds' attention (`share_attn`): recurrentgemma-2b's attn_local
+    (5 q heads over 1 kv head, D 256, window 2048; q x GEMMA_Q_SCALE) and
+    deepseek-v3-671b's MLA (64 heads, q/k width 192 over v width 128).
+    Returns (worst forward error, worst backward error, times)."""
     from repro_torch.configs import get_config
+
+    mp = MESH_SHAPE[1]
+    rec, mla = get_config(REC_ARCH), get_config(MLA_ARCH)
+    m = mla.mla
+    return share_attn(args, dev, report, "17e", "kinds_attn", 175, [
+        (f"{REC_ARCH} attn_local share", rec.n_heads // mp, rec.n_kv_heads,
+         rec.hd, rec.hd, rec.window, GEMMA_Q_SCALE),
+        (f"{MLA_ARCH} MLA share", mla.n_heads // mp, mla.n_heads // mp,
+         m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim, None, 1.0)])
+
+
+def share_attn(args, dev, report, tag, key, seed_off, cases):
+    """Phase 17's kernels at one rank's share of an attention, bf16, B 1,
+    S = T = MESH_KINDS_SEQ[1], causal, on the tensor cores: for each of
+    `cases` (name, H, K, D, Dv, window, q scale), the forward and the
+    backward each against its plain version at phase 9's / 11a's bars,
+    the backward's two runs bit for bit; each timed beside its bound, its
+    plain version and the library's call (SDPA causal with GQA, which at
+    S = T <= window excludes the same pairs; `mla_sdpa` at Dv != D).
+    Reported under report["mesh"][key]. Returns (worst forward error,
+    worst backward error, times)."""
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_bshd,
                                                 flash_attention_bshd_plain,
@@ -6719,17 +6855,10 @@ def mesh_kinds_attn(args, dev, report):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     bf = torch.bfloat16
-    mp = MESH_SHAPE[1]
     S = MESH_KINDS_SEQ[1]
-    rec, mla = get_config(REC_ARCH), get_config(MLA_ARCH)
-    m = mla.mla
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 175)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + seed_off)
     rep = dict(checks=[], times={})
     errs = [0.0, 0.0]
-    cases = [(f"{REC_ARCH} attn_local share", rec.n_heads // mp,
-              rec.n_kv_heads, rec.hd, rec.hd, rec.window, GEMMA_Q_SCALE),
-             (f"{MLA_ARCH} MLA share", mla.n_heads // mp, mla.n_heads // mp,
-              m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim, None, 1.0)]
     for name, H, K, D, Dv, window, q_scale in cases:
         q, k = (torch.randn(1, S, h, D, generator=gen, device=dev)
                 for h in (H, K))
@@ -6742,7 +6871,7 @@ def mesh_kinds_attn(args, dev, report):
         if Dv == D:
             # SDPA has no window: at S <= window it excludes the same pairs
             require(window is None or window >= S,
-                    f"17e: SDPA is not the same function at {shape}")
+                    f"{tag}: SDPA is not the same function at {shape}")
             lib, lib_name = sdpa_library, SDPA
         else:
             lib, lib_name = mla_sdpa(*(t.transpose(1, 2) for t in (q, k, v)))
@@ -6750,7 +6879,8 @@ def mesh_kinds_attn(args, dev, report):
         got = flash_attention_bshd(q, k, v, window=window)
         require(flash_attention.launches_tc - tc0 == 1
                 and got.shape == (1, S, H, Dv),
-                f"17e: the forward did not run on the tensor cores ({shape})")
+                f"{tag}: the forward did not run on the tensor cores "
+                f"({shape})")
         errs[0] = max(errs[0], hold_attn(
             rep["checks"], f"bf16 ({shape})", got,
             lambda r: flash_attention_bshd_plain(q, k, v, window=window,
@@ -6766,24 +6896,25 @@ def mesh_kinds_attn(args, dev, report):
         got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
         again = flash_attention_bwd(q, k, v, o, lse, do, window=window)
         require(flash_attention_bwd.launches_tc - tc0 == 2,
-                f"17e: the backward did not run on the tensor cores "
+                f"{tag}: the backward did not run on the tensor cores "
                 f"({shape})")
         want = plain_bwd_by_kv_head(q, k, v, o, lse, do, round_p=True,
                                     window=window)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        require(same, f"17e flash_attention_bwd ({shape}): two runs differ")
+        require(same, f"{tag} flash_attention_bwd ({shape}): two runs "
+                      "differ")
         e_b = {}
         for gname, g, w in zip(("dq", "dk", "dv"), got, want):
             require(g.shape == w.shape and g.dtype == bf,
-                    f"17e flash_attention_bwd {gname}: shape or dtype")
+                    f"{tag} flash_attention_bwd {gname}: shape or dtype")
             e, rel, ok = bwd_err(g, w)
             e_b[gname] = (e, rel)
             errs[1] = max(errs[1], e)
-            require(ok, f"17e flash_attention_bwd {gname} ({shape}): max "
+            require(ok, f"{tag} flash_attention_bwd {gname} ({shape}): max "
                         f"|diff| {e} ({rel:.3e} of max |want|)")
         rep["checks"].append(dict(case=f"bwd bf16 ({shape})", errs=e_b,
                                   bit_identical=same))
-        log(f"[mesh] 17e flash_attention_bwd bf16 ({shape}, tensor-core "
+        log(f"[mesh] {tag} flash_attention_bwd bf16 ({shape}, tensor-core "
             "kernels): " + ", ".join(f"{g} {e:.3e} ({r:.2e} of max)"
                                      for g, (e, r) in e_b.items())
             + f"; repeat bit-identical {same}")
@@ -6796,7 +6927,7 @@ def mesh_kinds_attn(args, dev, report):
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
     rep.update(max_abs_err=errs[0], max_abs_err_bwd=errs[1])
-    report.setdefault("mesh", {})["kinds_attn"] = rep
+    report.setdefault("mesh", {})[key] = rep
     return errs[0], errs[1], rep["times"]
 
 
@@ -6969,6 +7100,259 @@ def mesh_kinds_checks(ranks, ref_t, t_refs) -> tuple:
                 f"{k} {x:.3e}" for x, k in g["worst"]))
     for c in cases:
         _case_log("17e", c, ranks, "kinds")
+    return fwd, bwd
+
+
+# -- phase 17f: the MoE kinds over 'model', experts over 'data' -------------
+MESH_MOE_SEQ = (2, 2048)            # 17f: B, S of each prefill
+MESH_MOE_DECODE = 8                 # 17f: decode steps from position S
+MESH_MOE_LAYERS = 2                 # 17f: dbrx's serving depth
+MESH_MOE_TRAIN = (1, 2048, 1, 1)    # 17f: dbrx's train(mesh=): B, S, layers,
+#                                     steps
+MESH_MOE_WITNESS = (2, 256)         # 17f-i: dbrx in f32 on MESH_MOE_LAYERS,
+#                                     prefill B, S
+# 17f's bars: 17e's (`TOL_MESH_KINDS`), which held the readings on an
+# H100 (bf16): dbrx on 2 layers prefill 1.27e-2, decode 1.43e-2 (bf16
+# cache) and 1.38e-2 (int8) of max |logit|; deepseek's mla_moe layer
+# prefill 8.27e-3, decode 7.87e-3 / 9.22e-3 (T over 'model'); dbrx's
+# training loss 1.62e-5 relative (Adafactor's grad_norm is 0). A decode
+# step that a MoE layer routes otherwise than one device (a near tie the
+# mesh's rounding moves: int8's third step, 0.283) is reported, not held
+TOL_MESH_MOE = dict(TOL_MESH_KINDS)
+
+
+def _moe_cases() -> list:
+    """17f's MeshCases at full width in bf16, cut in depth for the
+    script's time and the card's memory: dbrx-132b served on
+    MESH_MOE_LAYERS layers (its decode on the bf16 cache and on the int8
+    one, heads over 'model'), dbrx-132b trained by train(mesh=) on
+    MESH_MOE_TRAIN (no decode caches: it only trains), deepseek-v3-671b on
+    one mla_moe layer, its latent cache whole and with T over 'model'.
+    The mesh's experts over 'data', their d_ff, the shared expert and the
+    heads over 'model'."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    dbrx, ds = get_config(MOE_ARCH), get_config(MLA_ARCH)
+    L = MESH_MOE_LAYERS
+    serve = dataclasses.replace(dbrx, n_layers=L, repeats=L)
+    B, S, Lt, steps = MESH_MOE_TRAIN
+    trained = dataclasses.replace(dbrx, n_layers=Lt, repeats=Lt)
+    moe1 = dataclasses.replace(ds, n_layers=1, prefix=(),
+                               pattern=("mla_moe",), repeats=1)
+    return [
+        MeshCase("dbrx", serve, *MESH_MOE_SEQ, (
+            ("heads", serve),
+            ("int8", dataclasses.replace(serve, kv_cache_dtype="int8"))),
+            MESH_MOE_DECODE, 176, False, None, 0),
+        MeshCase("dbrx_train", trained, B, S, (), 0, 0, False, None, steps),
+        MeshCase("deepseek", moe1, *MESH_MOE_SEQ, (
+            ("heads", moe1),
+            ("t_split", dataclasses.replace(moe1, shard_cache_t=True))),
+            MESH_MOE_DECODE, 177, False, None, 0)]
+
+
+def mesh_moe_attn(args, dev, report):
+    """17f's kernels at one rank's share of dbrx-132b's attention on
+    'model' MESH_SHAPE[1] (`share_attn`): 24 q heads over 4 kv heads, D
+    128. Returns (worst forward error, worst backward error, times)."""
+    from repro_torch.configs import get_config
+
+    mp = MESH_SHAPE[1]
+    dbrx = get_config(MOE_ARCH)
+    return share_attn(args, dev, report, "17f", "moe_attn", 176, [
+        (f"{MOE_ARCH} share", dbrx.n_heads // mp, dbrx.n_kv_heads // mp,
+         dbrx.hd, dbrx.hd, None, 1.0)])
+
+
+def _moe_witness_cfg():
+    """17f-i's config: dbrx-132b at full width on MESH_MOE_LAYERS layers,
+    f32 (its routing far from bf16's rounding, so that the mesh and one
+    device route alike)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    L = MESH_MOE_LAYERS
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=L, repeats=L,
+                               dtype="float32")
+
+
+def _moe_witness(model, seed) -> dict:
+    """17f-i's prefill on `model` (one device's or a mesh rank's): the
+    last logits on the host and the tokens each MoE layer dropped."""
+    from repro_torch.data import batch_for
+
+    B, S = MESH_MOE_WITNESS
+    with moe_routes([]) as routes:
+        last, _ = model.prefill_step(batch_for(model.cfg, B, S, 0, seed))
+    return dict(last=last.float().cpu(),
+                drops=dropped(routes, model.cfg.moe))
+
+
+def mesh_moe_refs(args, dev, path) -> dict:
+    """17f's one-device references, on the card before the go, saved to
+    `path` (host tensors): 17f-i's f32 prefill (`_moe_witness`) and
+    `_case_ref` of each of `_moe_cases`. Frees its memory. Returns its
+    times and 17f-i's drops."""
+    from repro_torch.models import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = LMModel(_moe_witness_cfg(), device=dev, seed=args.seed)
+    refs = dict(witness=_moe_witness(model, args.seed))
+    del model
+    torch.cuda.empty_cache()
+    t = dict(witness=dict(s=time.perf_counter() - t0,
+                          drops=refs["witness"]["drops"]))
+    for c in _moe_cases():
+        refs[c.name], t[c.name] = _case_ref(c, dev, args.seed)
+        torch.cuda.empty_cache()
+    torch.save(refs, path)
+    return t
+
+
+def mesh_moe_rank(mesh, dev, seed, path, clock) -> dict:
+    """17f on one of the four gloo ranks (after 17e, on its mesh): 17f-i's
+    f32 prefill, then `_case_rank` of each of `_moe_cases`, against the
+    one-device references at `path`."""
+    from repro_torch.models import LMModel
+
+    refs = torch.load(path, map_location="cpu", weights_only=False)
+    # four ranks' training of a dbrx layer fills the card: the allocator
+    # maps what it needs (17f is the ranks' last phase)
+    torch.cuda.empty_cache()
+    expandable_segments(True)
+    t0 = time.perf_counter()
+    model = _rank_by_rank(mesh, lambda: LMModel(_moe_witness_cfg(),
+                                                mesh=mesh, seed=seed))
+    got = _moe_witness(model, seed)
+    del model
+    torch.cuda.empty_cache()
+    ref = refs["witness"]
+    out = dict(witness=dict(prefill=_rel(got["last"], ref["last"]),
+                            drops=got["drops"], bits=_bits(got["last"]),
+                            s=time.perf_counter() - t0))
+    mesh.barrier()
+    for c in _moe_cases():
+        out[c.name] = _case_rank(c, mesh, dev, seed, refs[c.name], clock)
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    return out
+
+
+def mesh_moe_checks(ranks, ref_t, t_refs) -> tuple:
+    """17f's checks over the four ranks' results (`mesh_moe_rank`) and its
+    logs: 17f-i's f32 logits within TOL_MESH_SERVE_F32 of one device's,
+    each MoE layer's dropped tokens the same on every rank as on one
+    device; `_case_hold` at TOL_MESH_MOE, in bf16 each MoE layer's
+    dropped tokens the same on every rank (beside one device's: bf16's
+    rounding, other on the mesh, moves near-tied routes); the training's
+    losses and grad_norm against one device's; every piece of the trained
+    weights alike on the ranks that hold it (`_parted`). Returns 17f's
+    (flash_attention, flash_attention_bwd) launches, every rank's."""
+    from repro_torch.models import transformer as tfm
+
+    fwd = bwd = 0
+    cases = _moe_cases()
+    want = ref_t["witness"]["drops"]
+    for r in ranks:
+        w = r["moe"]["witness"]
+        require(w["prefill"] <= TOL_MESH_SERVE_F32 and w["drops"] == want,
+                f"17f-i rank {r['rank']}: prefill logits {w['prefill']} of "
+                f"max |logit| (bar {TOL_MESH_SERVE_F32}), tokens dropped "
+                f"{w['drops']}, one device's {want}")
+        require(w["bits"] == ranks[0]["moe"]["witness"]["bits"],
+                f"17f-i: rank {r['rank']}'s logits differ from rank 0's")
+    B, S = MESH_MOE_WITNESS
+    log(f"[mesh] 17f-i {MOE_ARCH} full width, {MESH_MOE_LAYERS} layers, "
+        f"f32, prefill_step {B} x {S} on mesh {MESH_SHAPE} against one "
+        f"device: logits {ranks[0]['moe']['witness']['prefill']:.2e} of max "
+        f"|logit| (bar {TOL_MESH_SERVE_F32}); tokens dropped a MoE layer "
+        f"{want} on one device and on every rank; the same logits' bits on "
+        f"every rank (one device {ref_t['witness']['s']:.1f} s, the ranks' "
+        + " / ".join(f"{r['moe']['witness']['s']:.1f}" for r in ranks)
+        + " s)")
+    for c in cases:
+        rs = [r["moe"][c.name] for r in ranks]
+        f, b = _case_hold(c, rs, TOL_MESH_MOE["prefill"],
+                          TOL_MESH_MOE["decode"], "17f")
+        fwd, bwd = fwd + f, bwd + b
+        s = rs[0]
+        kinds = tfm.layer_kinds(c.cfg)
+        if c.decode:
+            n_moe = sum(k.endswith("_moe") for k in kinds)
+            want = ref_t[c.name]["drops"]
+            require(len(s["drops"]) == n_moe
+                    and all(r["drops"] == s["drops"] for r in rs),
+                    f"17f {c.name}: tokens dropped by each MoE layer "
+                    f"{[r['drops'] for r in rs]} on the ranks")
+            log(f"[mesh] 17f {c.cfg.name} full width, {c.cfg.n_layers} "
+                f"layers {kinds}, {c.cfg.dtype}, mesh {MESH_SHAPE} (experts "
+                f"over 'data', their d_ff and the heads over 'model'): "
+                f"prefill_step {c.B} x {c.S} logits {s['prefill']:.3e}; "
+                f"{c.steps} decode steps at {c.S} on a seeded random cache "
+                + ", ".join(f"{cname} {s['decode_' + cname]:.3e} (argmax "
+                            f"{s['decode_' + cname + '_argmax']:.3f})"
+                            for cname, _ in c.decode)
+                + f" of max |logit| over the steps every MoE layer routed "
+                f"as one device (bars {TOL_MESH_MOE['prefill']}, "
+                f"{TOL_MESH_MOE['decode']}; steps routed otherwise "
+                + ", ".join(f"{cname} {s['decode_' + cname + '_rerouted']}"
+                            f" (all steps {s['decode_' + cname + '_all']:.3e})"
+                            for cname, _ in c.decode)
+                + f"); tokens dropped a MoE layer {s['drops']} on every "
+                f"rank, {want} on one device; the prefill's tokens routed "
+                f"otherwise than on one device {s['rerouted']} a layer; a "
+                "rank's prefill "
+                f"cache (first layer) {s['state']}, decode cache (last "
+                "layer) " + ", ".join(f"{cname} {s['cache_' + cname]}"
+                                      for cname, _ in c.decode)
+                + "; the same logits' bits on every rank")
+        if not c.train:
+            continue
+        require(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                    for h in s["history"]), f"17f {c.name} {s['history']}")
+        require(max(s["loss_rel"]) <= TOL_MESH_MOE["loss"]
+                and max(s["grad_norm_rel"]) <= TOL_MESH_MOE["grad_norm"],
+                f"17f {c.name}: losses {s['loss_rel']}, grad_norm "
+                f"{s['grad_norm_rel']} relative to one device's (bars "
+                f"{TOL_MESH_MOE['loss']}, {TOL_MESH_MOE['grad_norm']})")
+        parted, shared = _parted(rs)
+        require(not parted, f"17f {c.name}: the trained weights' pieces "
+                f"{parted} differ between ranks that hold the same piece")
+        log(f"[mesh] 17f {c.cfg.name} full width, {c.cfg.n_layers} layer "
+            f"{kinds}, {c.cfg.dtype}, {c.cfg.optimizer}, "
+            f"{c.cfg.grad_accum_dtype} sums: train(mesh=) {MESH_FLAGS} "
+            f"{c.B} x {c.S}, {c.train} "
+            "step(s): losses " + " / ".join(f"{h['loss']:.4f}"
+                                            for h in s["history"])
+            + ", against one device's " + " / ".join(
+                f"{x:.2e}" for x in s["loss_rel"]) + ", grad_norm "
+            + " / ".join(f"{x:.2e}" for x in s["grad_norm_rel"])
+            + f" relative (bars {TOL_MESH_MOE['loss']}, "
+            f"{TOL_MESH_MOE['grad_norm']}); the {shared} pieces of the "
+            "weights that two ranks hold alike on both; the same history "
+            "on every rank")
+    log(f"[mesh] 17f one-device references {t_refs:.1f} s ("
+        + ", ".join(f"{c.name} {ref_t[c.name]['s']:.1f}" for c in cases)
+        + "); one device's decode ms a step: " + ", ".join(
+            f"{c.name} {cname} " + " / ".join(
+                f"{x:.1f}" for x in ref_t[c.name][f"decode_{cname}_ms"])
+            for c in cases for cname, _ in c.decode))
+    for c in cases:
+        if c.decode:
+            _case_log("17f", c, ranks, "moe")
+            continue
+        for r in ranks:
+            s = r["moe"][c.name]
+            log(f"[mesh] 17f {c.name} rank {r['rank']} {tuple(r['coord'])}: "
+                "train steps " + " / ".join(f"{1e3 * x:.1f}"
+                                            for x in s["step_s"])
+                + f" ms (in collectives {s['train_coll_s']:.1f} s in all); "
+                f"peak allocated {s['train_peak_bytes'] / 2**30:.3f} GiB; "
+                f"launches {s['launches']}; {s['s']:.1f} s")
     return fwd, bwd
 
 

@@ -69,19 +69,20 @@ RWKV-6 (each rank's `lru_width`, d_model and d_ff columns, `models.ssm`)
 and for MLA (each rank's heads, the latent whole), sequence parallelism
 between the layers with `cfg.seq_parallel`; a MoE layer gathers the
 microbatch's rows over the dp axes, since its routing and capacity span
-them. Each microbatch's gradients are summed in their own dtype, as
+them, runs this rank's experts (over 'data') on its d_ff columns (over
+'model') and gathers the experts' outputs over 'data' (`models.moe`).
+Each microbatch's gradients are summed in their own dtype, as
 GSPMD sums JAX's partial products, over the dp axes (and over 'model'
 for a whole leaf each rank reads only in part: the norms under sequence
 parallelism, and every whole leaf of a token mixer that 'model' splits,
 such as qwen3's q/k norms, the k/v weights of heads that 'model' does
 not divide, MLA's latent projections, RG-LRU's gates' biases or RWKV-6's
-token-shift LoRA), reduce-scattered into the ZeRO-1 layout with `zero1`,
-and the optimizer's statistics that span a sharded dimension are reduced
-over its axes. The result is JAX's single-device step up to the order of
-sums. Two cases wait for ROADMAP A9 and raise: 'model' above 1 with the
-MoE kinds (`attn_moe`, `mla_moe`), and 'data' above 1 where the experts
-shard over it (not `pure_dp`); so does RWKV-6 over a 'model' axis that
-divides only one of its d_model and d_ff. ZeRO-1 of AdamW's
+token-shift LoRA; an expert's gradient is not summed over 'data', which
+holds other experts), reduce-scattered into the ZeRO-1 layout with
+`zero1`, and the optimizer's statistics that span a sharded dimension
+are reduced over its axes. The result is JAX's single-device step up to
+the order of sums. RWKV-6 over a 'model' axis that divides only one of its d_model
+and d_ff waits for ROADMAP A9 and raises. ZeRO-1 of AdamW's
 per-layer state splits a layer's first free dimension where JAX's
 stacked leaf may split the layer axis (the same share a rank).
 
@@ -117,9 +118,6 @@ from .shard import P
 __all__ = ["LMModel", "P", "abstract_params", "param_specs", "zero1_specs",
            "opt_specs", "input_specs", "batch_specs", "cache_specs",
            "serving_cache_specs", "dp_axes"]
-
-ATTN_KINDS = ("attn", "attn_local", "attn_global")
-
 
 def dp_axes(mesh, cfg: Optional[ArchConfig] = None) -> tuple:
     if cfg is not None and cfg.pure_dp:
@@ -506,20 +504,13 @@ class LMModel(nn.Module):
 
     # ---- the mesh ----------------------------------------------------------
     def _plan(self) -> None:
-        """The specs of this mesh, and the refusals of what waits for
-        ROADMAP A9."""
+        """The specs of this mesh, and what 'model' and 'data' split
+        (`_split_flags`)."""
         cfg, mesh = self.cfg, self.mesh
         abstract = self.abstract_params()
         self.pspecs = param_specs(cfg, abstract, mesh)
         self.tp = 1 if cfg.pure_dp else mesh.shape.get("model", 1)
         kinds = tfm.layer_kinds(cfg)
-        moe = sorted({k for k in kinds if k.endswith("_moe")})
-        if self.tp > 1 and moe:
-            raise later(f"tensor parallelism over 'model' for the kinds "
-                        f"{moe}")
-        if mesh.shape.get("data", 1) > 1 and any(
-                "data" in sh.spec_axes(s) for s in self.pspecs.values()):
-            raise later("expert parallelism over 'data' (without pure_dp)")
         self.state_specs = self.opt_partition(self.pspecs)
         # the gradients' layout: the weights', Adafactor's keyed by its
         # stacked paths; then ZeRO-1's
@@ -546,17 +537,23 @@ class LMModel(nn.Module):
         """What 'model' splits, read from the specs of the first layer of
         each mixer (every such layer's are alike): attention's q heads, kv
         heads and the MLP's d_ff, RG-LRU's `lru_width`, RWKV-6's d_model
-        and d_ff columns, MLA's heads; the vocabulary."""
-        def split(key):
-            return key in self.pspecs and "model" in sh.spec_axes(
+        and d_ff columns, MLA's heads, the experts' and the shared
+        expert's d_ff; the vocabulary; and whether 'data' splits the
+        experts. Raises for RWKV-6 where 'model' divides only one of its
+        d_model and d_ff (ROADMAP A9)."""
+        def split(key, axis="model"):
+            return key in self.pspecs and axis in sh.spec_axes(
                 self.pspecs[key])
 
-        def first(pred, leaf):
+        def first(pred, leaf, axis="model"):
             i = next((i for i, k in enumerate(kinds) if pred(k)), None)
-            return i is not None and split(f"blocks.{i}.{leaf}")
+            return i is not None and split(f"blocks.{i}.{leaf}", axis)
 
         def mixer(name):
             return lambda k: tfm.KIND_MIXER[k] == name
+
+        def moe(k):
+            return k.endswith("_moe")
 
         rwkv = (first(mixer("rwkv"), "mix.wr"),
                 first(mixer("rwkv"), "mix.cm_wk"))
@@ -565,14 +562,17 @@ class LMModel(nn.Module):
             # whole over d_ff, or the other way round
             raise later("tensor parallelism over 'model' for RWKV-6 where "
                         "'model' divides only one of d_model and d_ff")
-        return dict(attn=first(lambda k: k in ATTN_KINDS, "mix.wq"),
-                    kv=first(lambda k: k in ATTN_KINDS, "mix.wk"),
-                    ffn=first(lambda k: not k.endswith("_moe")
+        return dict(attn=first(mixer("attn"), "mix.wq"),
+                    kv=first(mixer("attn"), "mix.wk"),
+                    ffn=first(lambda k: not moe(k)
                               and tfm.KIND_MIXER[k] != "rwkv", "ffn.wu"),
                     vocab=split("embed"),
                     rec=first(mixer("rec"), "mix.wx"),
                     rwkv=rwkv[0],
-                    mla=first(mixer("mla"), "mix.wq_b"))
+                    mla=first(mixer("mla"), "mix.wq_b"),
+                    ffn_expert=first(moe, "ffn.wu"),
+                    shared=first(moe, "ffn.shared.wu"),
+                    expert=first(moe, "ffn.wg", "data"))
 
     def _ctx(self, S: int, ndp_rows: int) -> sh.ShardCtx:
         """The layers' view of the mesh for a microbatch of S positions
@@ -832,8 +832,11 @@ class LMModel(nn.Module):
             g = mesh.all_sum(g, "model")
         if not ctx.dp_axes:
             return sh.slice_extra(g, gs, zs, mesh).contiguous()
-        extra = set(sh.spec_axes(zs)) - set(sh.spec_axes(gs))
-        rest = tuple(a for a in ctx.dp_axes if a not in extra)
+        # summed over the dp axes that neither ZeRO-1 adds (a
+        # reduce-scatter) nor the leaf's own spec holds: an expert's
+        # gradient on its 'data' rank is already the sum over the rows
+        held = set(sh.spec_axes(zs))
+        rest = tuple(a for a in ctx.dp_axes if a not in held)
         if rest:
             g = mesh.all_sum(g, rest)
         return sh.scatter_sum(g, gs, zs, mesh)

@@ -20,8 +20,21 @@ DeepSeek-V3's refinements, as in JAX: node-limited group routing
 (`n_groups`, `group_top`: tokens restricted to the `group_top` expert
 groups with the largest sum of their top-2 scores) and a low-precision
 dispatch (`dispatch_dtype`: the dispatched tokens rounded through that
-dtype, then the experts run in the model's). One device: the sharding
-constraints of the JAX package's expert parallelism have no counterpart.
+dtype, then the experts run in the model's).
+
+On a mesh (`ctx`, a `shard.ShardCtx`), JAX's layout: the experts over
+'data', each expert's d_ff over 'model', the shared expert's d_ff over
+'model'. JAX states it with sharding constraints and GSPMD moves the
+tokens (an all-to-all); here every rank routes the whole microbatch
+(its rows gathered over the dp axes, its positions over 'model'), so the
+gates, the capacity and each expert's top-C tokens are the same bits on
+every rank and as one device's. A rank runs its experts on their
+tokens over its d_ff columns, the partial sums are added over 'model',
+and the experts' outputs [E, C, d] are all-gathered over 'data'. The
+gates are applied after the gather and the combine is the one-device
+one: every rank adds every expert in ascending order, then keeps its
+rows and positions. The router reads its input whole, so its gradient
+is whole on every rank (`ShardCtx.enter_pair`).
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import shard as sh
 from .layers import dense_init, mlp_apply, mlp_init
 
 __all__ = ["moe_init", "moe_apply", "capacity"]
@@ -92,8 +106,33 @@ def _expert_ffn(xe, p):
     return torch.bmm(h, p["wd"])
 
 
-def moe_apply(x, p, moe):
-    """x [B, S, d] -> ([B, S, d], aux loss (f32 scalar))."""
+def _dispatch(x_flat, idx, moe, dtype):
+    """The experts' tokens [E', C, d] (x_flat's rows at idx [E', C]), in
+    the model's dtype after the dispatch's rounding."""
+    xe = x_flat[idx]
+    if moe.dispatch_dtype != "bfloat16":
+        # DeepSeek-V3-style low-precision dispatch; the experts run in the
+        # model's dtype
+        xe = xe.to(getattr(torch, moe.dispatch_dtype))
+    return xe.to(dtype)
+
+
+def _combine(ye, vals, idx, N):
+    """The gated expert outputs added at their tokens: [N, d]."""
+    ye = ye * vals[..., None].to(ye.dtype)
+    out = torch.zeros((N, ye.shape[-1]), dtype=ye.dtype, device=ye.device)
+    for e in range(ye.shape[0]):       # ascending: JAX's order, no atomics
+        out.index_add_(0, idx[e], ye[e])
+    return out
+
+
+def moe_apply(x, p, moe, ctx=None):
+    """x [B, S, d] -> ([B, S, d], aux loss (f32 scalar)). With `ctx` (a
+    mesh): x and the output are this rank's rows and positions of the
+    residual stream, `p` this rank's shards; aux is the whole
+    microbatch's, the same on every rank."""
+    if ctx is not None:
+        return _moe_mesh(x, p, moe, ctx)
     B, S, d = x.shape
     N = B * S
     x_flat = x.reshape(N, d)
@@ -101,17 +140,44 @@ def moe_apply(x, p, moe):
     C = min(capacity(N, moe), N)   # decode: a single token caps capacity
     # per-expert top-C tokens (spare slots take zero-gate tokens: they add 0)
     vals, idx = torch.topk(gates.T, C, dim=-1)                  # [E, C]
-    xe = x_flat[idx]                                            # [E, C, d]
-    if moe.dispatch_dtype != "bfloat16":
-        # DeepSeek-V3-style low-precision dispatch; the experts run in the
-        # model's dtype
-        xe = xe.to(getattr(torch, moe.dispatch_dtype))
-    xe = xe.to(x.dtype)
-    ye = _expert_ffn(xe, p)                                     # [E, C, d]
-    ye = ye * vals[..., None].to(ye.dtype)
-    out = torch.zeros((N, d), dtype=ye.dtype, device=x.device)
-    for e in range(ye.shape[0]):       # ascending: JAX's order, no atomics
-        out.index_add_(0, idx[e], ye[e])
+    ye = _expert_ffn(_dispatch(x_flat, idx, moe, x.dtype), p)   # [E, C, d]
+    out = _combine(ye, vals, idx, N)
     if "shared" in p:
         out = out + mlp_apply(x_flat, p["shared"], "swiglu")
     return out.reshape(B, S, d), aux
+
+
+def _moe_mesh(x, p, moe, ctx):
+    """`moe_apply` on this rank of a mesh (the module's docstring).
+    'model' splits the experts' d_ff where `ctx.split["ffn_expert"]`,
+    'data' the experts where `ctx.split["expert"]`; a dimension the specs
+    leave whole is computed whole."""
+    split, mesh = ctx.split, ctx.mesh
+    f_split = ctx.tp > 1 and split["ffn_expert"]
+    e_split = split["expert"] and mesh.shape["data"] > 1
+    # the whole microbatch: rows over the dp axes, then positions over
+    # 'model' (one view for d_ff columns, one read whole)
+    h_part, h_whole = ctx.enter_pair(ctx.gather_rows(x))
+    B, S, d = h_whole.shape
+    N = B * S
+    gates, aux = _route(h_whole.reshape(N, d), p, moe)          # [N, E]
+    C = min(capacity(N, moe), N)
+    vals, idx = torch.topk(gates.T, C, dim=-1)                  # [E, C]
+    xin = (h_part if f_split else h_whole).reshape(N, d)
+    mine = idx
+    if e_split:
+        n_loc = p["wg"].shape[0]
+        e0 = mesh.index("data") * n_loc
+        xin, mine = ctx.experts_in(xin), idx[e0:e0 + n_loc]
+    ye = _expert_ffn(_dispatch(xin, mine, moe, x.dtype), p)     # [E', C, d]
+    if f_split:
+        ye = sh.reduce_from(ye, mesh, "model")
+    if e_split:
+        ye = ctx.experts_out(ye)                                # [E, C, d]
+    out = ctx.leave(ctx.rows(_combine(ye, vals, idx, N).reshape(B, S, d)),
+                    False)
+    if "shared" in p:
+        s_split = ctx.tp > 1 and split["shared"]
+        hs = ctx.rows(h_part if s_split else h_whole)
+        out = out + ctx.leave(mlp_apply(hs, p["shared"], "swiglu"), s_split)
+    return out, aux

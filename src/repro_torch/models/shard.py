@@ -21,6 +21,10 @@ layers call the collectives themselves. This module holds:
   input of a product whose weight's columns 'model' splits, read whole
   by each rank for its own output columns (RG-LRU's gates, RWKV-6's
   decay LoRA, a wkv head that 'model' cuts);
+- `enter_pair`: one gather of a sublayer's input as two views, one read
+  for this rank's columns (its gradient a part, summed) and one read
+  whole (its gradient whole, kept), as a MoE layer reads its input for
+  the experts' d_ff columns and for the router;
 - `ShardCtx`, what a layer needs to know of the mesh for one microbatch.
 
 Every collective goes through `core.mesh.Mesh`, so gloo ranks on a card
@@ -36,7 +40,7 @@ __all__ = ["P", "entry_axes", "entry_size", "spec_axes", "owner",
            "shard_of", "gather", "gather_root", "slice_extra",
            "scatter_sum", "copy_to",
            "reduce_from", "gather_seq", "scatter_seq", "gather_rep",
-           "slice_seq", "gather_sum", "ShardCtx"]
+           "slice_seq", "gather_sum", "enter_pair", "ShardCtx"]
 
 
 class P(tuple):
@@ -270,6 +274,31 @@ def gather_sum(x, mesh, axis, dim=-1):
     return _GatherSeq.apply(x, mesh, axis, dim)
 
 
+class _EnterPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        y = _gather_dim(x, dim, mesh, axis)
+        return y, y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g_part, g_whole):
+        # an unused view's gradient comes as zeros: every rank runs the
+        # same collectives
+        g = _scatter_dim(g_part, ctx.dim, ctx.mesh, ctx.axis)
+        return (g + _piece(g_whole, ctx.dim, ctx.mesh, ctx.axis),
+                None, None, None)
+
+
+def enter_pair(x, mesh, axis, dim=1):
+    """All-gather `dim` over `axis` once, as two views of the result:
+    (one read by each rank for its own columns, whose backward
+    reduce-scatters as `gather_seq`'s; one read whole by every rank alike,
+    whose backward keeps this rank's piece as `gather_rep`'s). The
+    input's gradient is the sum of the two."""
+    return _EnterPair.apply(x, mesh, axis, dim)
+
+
 # ---------------------------------------------------------------------------
 # the layers' view of the mesh
 # ---------------------------------------------------------------------------
@@ -287,8 +316,10 @@ class ShardCtx:
     - `split`: whether the specs put "model" on each part, by name:
       "attn" the q heads, "kv" the kv heads, "ffn" d_ff, "vocab" the
       vocabulary, "rec" RG-LRU's `lru_width`, "rwkv" RWKV-6's d_model and
-      d_ff columns, "mla" MLA's heads (`_sanitize` leaves a dimension
-      whole that "model" does not divide).
+      d_ff columns, "mla" MLA's heads, "ffn_expert" the experts' d_ff,
+      "shared" the shared expert's d_ff; and "expert": whether they put
+      "data" on the experts (`_sanitize` leaves a dimension whole that
+      its axis does not divide).
     """
 
     def __init__(self, mesh, cfg, *, tp: int, sp: bool, dp_axes: tuple,
@@ -316,6 +347,17 @@ class ShardCtx:
         if sharded:
             return gather_seq(x, self.mesh, "model")
         return gather_rep(x, self.mesh, "model")
+
+    def enter_pair(self, x):
+        """The sublayer's input twice, for a sublayer that reads it both
+        for this rank's columns and whole (a MoE layer's experts and
+        shared expert over d_ff columns, its router whole): (`enter(x,
+        True)`, `enter(x, False)`) from one collective."""
+        if self.tp == 1:
+            return x, x
+        if not self.sp:
+            return copy_to(x, self.mesh, "model"), x
+        return enter_pair(x, self.mesh, "model")
 
     def leave(self, y, sharded: bool):
         """The sublayer's output back on the residual stream: summed over
@@ -481,6 +523,29 @@ class ShardCtx:
         if self.ndp == 1:
             return x
         return _piece(x, 0, self.mesh, self.dp_axes)
+
+    # -- the experts over 'data' ---------------------------------------------
+
+    def experts_in(self, x):
+        """The experts' input, every row of the microbatch, for this rank's
+        experts: where every rank holds all the rows (`ndp` 1), each rank's
+        gradient of them covers its experts only, and the backward sums
+        over 'data' (where the rows are split, `gather_rows`' backward
+        sums them)."""
+        if self.ndp > 1:
+            return x
+        return copy_to(x, self.mesh, "data")
+
+    def experts_out(self, ye):
+        """This rank's experts' outputs [E / nd, C, d] -> every expert's
+        [E, C, d], in 'data' order. The backward: where the rows are
+        split over the dp axes, each rank's gradient covers its own rows
+        and the pieces are summed (a reduce-scatter); where every rank
+        holds them all, each holds the same gradient and keeps its
+        piece."""
+        if self.ndp > 1:
+            return gather_sum(ye, self.mesh, "data", dim=0)
+        return gather_rep(ye, self.mesh, "data", dim=0)
 
 
 def spec_axes(spec: Sequence) -> tuple:

@@ -139,7 +139,9 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
     RG-LRU, RWKV-6's time and channel mixes) and the MLP run on this
     rank's heads or columns between `ctx.enter` and `ctx.leave` where
     'model' splits their weights (`ctx.sharded`), a MoE layer on the
-    microbatch's rows gathered over the dp axes. A decode step's cache
+    whole microbatch (rows gathered over the dp axes, positions over
+    'model'), its experts over 'data' and their d_ff over 'model'
+    (`moe.moe_apply`). A decode step's cache
     is this rank's piece of it (`t_split`: its T over 'model',
     `attention.attn_decode`, `attention.mla_decode`); a prefill's (k, v)
     hold every kv head whose weights this rank holds, a recurrent
@@ -195,12 +197,9 @@ def apply_block(p, x, cfg, kind: str, *, positions=None, cache=None,
         o = apply_norm(cfg.norm, o, p["pn1"])
     x = x + o
     h = apply_norm(cfg.norm, x, p["ln2"])
-    if kind.endswith("_moe") and ctx is not None:
-        # routing and capacity span the whole microbatch's rows
-        f, aux = moe_apply(ctx.gather_rows(h), p["ffn"], cfg.moe)
-        f = ctx.rows(f)
-    elif kind.endswith("_moe"):
-        f, aux = moe_apply(h, p["ffn"], cfg.moe)
+    if kind.endswith("_moe"):
+        # on a mesh: routing and capacity span the whole microbatch
+        f, aux = moe_apply(h, p["ffn"], cfg.moe, ctx=ctx)
     elif ctx is not None:
         f = ctx.leave(mlp_apply(ctx.enter(h, ctx.split["ffn"]), p["ffn"],
                                 cfg.mlp), ctx.split["ffn"])

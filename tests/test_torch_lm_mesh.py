@@ -37,7 +37,9 @@
   `seq_parallel` and on (2, 2) with `zero1` too.
 - `pure_dp` on (2, 1) for rwkv6, recurrentgemma, dbrx (MoE, Adafactor)
   and deepseek (MLA, MoE, Adafactor): the MoE layers route the whole
-  microbatch. Adafactor's weights and factors within 1e-5 of their max.
+  microbatch (the MoE kinds over 'model' and their experts over 'data'
+  are in `test_torch_lm_mesh_moe.py`). Adafactor's weights and factors
+  within 1e-5 of their max.
   dbrx and deepseek sum their gradients in bf16, where a rank's f32 part
   rounds to another bf16 value than the whole sum now and then: they are
   held with f32 sums, and dbrx with its bf16 sums too, at bf16's bar
@@ -46,9 +48,8 @@
 - Checkpoints across the packages and mesh shapes: every run above
   resumes JAX's step 0; a (2, 2) run's step 2 resumes on (1, 4) and a
   (2, 1) run's in `repro.train.train`, each to step 3 against JAX's.
-- The refusals that wait for ROADMAP A9 (the MoE kinds over 'model',
-  experts over 'data', RWKV-6 where 'model' divides d_model but not
-  d_ff); the launcher under 4 ranks
+- The refusal that waits for ROADMAP A9 (RWKV-6 where 'model' divides
+  d_model but not d_ff); the launcher under 4 ranks
   builds its (2, 2) mesh from `--model-parallel 2`.
 - A vocabulary that 'model' does not divide (`embed`/`unembed` whole);
   a mesh model's fresh shards equal to the one-device draw's pieces; the
@@ -302,12 +303,10 @@ CASES4 = [
     ("rwkv-hd32", {}, (1, 4)),
     ("deepseek-mla", dict(zero1=True, seq_parallel=True), (2, 2)),
 ]
-# (variant, flags, mesh shape): 'model' above 1 for the MoE kinds and for
-# RWKV-6 where it divides d_model but not d_ff; 'data' above 1 under the
-# experts without pure_dp
-REFUSED = [("dbrx-132b", {}, (1, 2)), ("deepseek-v3-671b", {}, (1, 2)),
-           ("dbrx-132b", {}, (2, 1)), ("deepseek-v3-671b", {}, (2, 1)),
-           ("rwkv-f129", {}, (1, 2))]
+# (variant, flags, mesh shape): 'model' above 1 for RWKV-6 where it
+# divides d_model but not d_ff (the MoE kinds over 'model' and their
+# experts over 'data': `test_torch_lm_mesh_moe.py`)
+REFUSED = [("rwkv-f129", {}, (1, 2))]
 # (variant, flags, mesh shape): a mesh model's fresh shards against the
 # one-device draw
 INIT = [("h12k3", {}, (1, 2)), ("qwen2-1.5b", dict(zero1=True), (2, 2))]
@@ -514,9 +513,7 @@ def test_uncovered_meshes_raise_naming_a9(case, world2):
     i = len(CASES2) + REFUSED.index(case)
     for g in got:
         assert isinstance(g[i], str) and "ROADMAP A9" in g[i], g[i]
-    want = "expert parallelism" if case[2] == (2, 1) else \
-        "tensor parallelism"
-    assert want in got[0][i]
+    assert "tensor parallelism" in got[0][i]
 
 
 @pytest.mark.parametrize("case", INIT, ids=[_case_id(c) for c in INIT])

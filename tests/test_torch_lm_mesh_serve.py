@@ -37,16 +37,19 @@ generated tokens' rows from the vocabulary-sharded `embed`) on (2, 2);
 a vocabulary of 511 that 'model' 2 leaves whole; a batch of 3 that
 (2, 1) does not divide (every rank runs every row); `pure_dp` on (2, 1)
 for rwkv6, recurrentgemma, dbrx (MoE: routing over the gathered rows)
-and deepseek (MLA, MoE). The recurrent kinds and MLA over 'model', each
-rank's state its piece in `cache_specs`' layout after the prefill too:
+and deepseek (MLA, MoE); the MoE kinds over 'model' and their experts
+over 'data' are in `test_torch_lm_mesh_moe.py`. The recurrent kinds and
+MLA over 'model', each rank's state its piece in `cache_specs`' layout
+after the prefill too:
 recurrentgemma on (1, 2) and with `zero1` and `seq_parallel` on (2, 2);
 rwkv6 on (1, 2) and (1, 4), and with 3 wkv heads of 32 at d_model 96
 on (1, 4), where 'model' cuts every head (the state whole on every rank);
 deepseek's MLA over a dense MLP on (1, 2) and (2, 2) (heads over
 'model', the latent cache whole) and with `shard_cache_t` on (1, 2)
-(the latent's T over 'model'). `serve(mesh=)` of dbrx over 'model' (a
-MoE kind) still raises naming ROADMAP A9, and `launch.serve.main` under
-2 ranks builds its `make_local_mesh()`.
+(the latent's T over 'model'). `serve(mesh=)` of an RWKV-6 whose d_ff
+'model' 2 does not divide beside a d_model that it does still raises
+naming ROADMAP A9, and `launch.serve.main` under 2 ranks builds its
+`make_local_mesh()`.
 """
 import dataclasses
 import threading
@@ -123,7 +126,9 @@ CASES4 = [
     ("rwkv-hd32", {}, (1, 4)),
     ("deepseek-mla", {}, (2, 2)),
 ]
-REFUSED = ("dbrx", {}, (1, 2))
+# (variant, flags, mesh shape, B, prompt, generated): RWKV-6 where 'model'
+# divides d_model but not d_ff, the one LM case that still waits for A9
+REFUSED = ("rwkv-f129", {}, (1, 2), 4, 8, 4)
 LAUNCH = ["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu", "--batch",
           "2", "--prompt-len", "4", "--gen", "3"]
 
@@ -151,10 +156,10 @@ class _At:
         return idx
 
 
-def _jax_params(name):
+def _jax_params(name, runs=RUNS):
     """(JAX config, JAX model, the weights `repro.launch.serve.serve`
     draws, the port's whole state) of a JAX run."""
-    variant, _, _, _, seed = RUNS[name]
+    variant, _, _, _, seed = runs[name]
     jcfg = smoke_cfg(jconfigs, variant)
     jm = JLMModel(jcfg)
     jp = jm.init_params(jax.random.key(seed))
@@ -181,9 +186,9 @@ def spawned(tmp_path_factory):
     store = tmp_path_factory.mktemp("store")
     params, out = {}, {}
     ready = {4: threading.Event(), 2: threading.Event()}
-    variant, B, P, G, seed = RUNS[REFUSED[0]]
-    extra = {2: [dict(variant=variant, flags=REFUSED[1], shape=REFUSED[2],
-                      B=B, P=P, G=G, seed=seed, serve_only=True),
+    variant, flags, shape, B, P, G = REFUSED
+    extra = {2: [dict(variant=variant, flags=flags, shape=shape, B=B, P=P,
+                      G=G, seed=0, serve_only=True),
                  dict(argv=LAUNCH)], 4: []}
     cases = {4: CASES4, 2: CASES2}
 
@@ -214,28 +219,32 @@ def jax_ref(spawned):
     `prefill_step` on the prompts, and its `decode_step` (jit) logits at
     every position of the prompts and those tokens, with the cache after
     the last."""
-    out = {}
-    for name, (variant, B, P, G, seed) in RUNS.items():
-        jcfg, jm, jp, _ = spawned[2][name]
-        toks, _ = j_serve(jcfg, batch=B, prompt_len=P, gen=G, seed=seed)
-        toks = np.asarray(toks)
-        batch = jbatch_for(jcfg, B, P, 0, seed)
-        key = "embeddings" if jcfg.embed_inputs else "tokens"
-        inputs = {k: jnp.asarray(v) for k, v in batch.items()
-                  if k in (key, "positions")}
-        last, pcache = jax.jit(jm.prefill_step)(jp, inputs)
-        more = np.asarray(jp["embed"])[toks] if jcfg.embed_inputs else toks
-        seq = np.concatenate([batch[key], more], axis=1)
-        cache = jtfm.init_cache(jcfg, B, P + G)
-        step = jax.jit(jm.decode_step)
-        logits = []
-        for t in range(P + G):
-            lg, cache = step(jp, cache, {key: jnp.asarray(seq[:, t:t + 1])},
-                             jnp.asarray(t, jnp.int32))
-            logits.append(np.asarray(lg))
-        out[name] = dict(cfg=jcfg, toks=toks, last=np.asarray(last),
-                         prefill=pcache, logits=logits, cache=cache)
-    return out
+    return {name: _jax_run(spawned[2][name], *RUNS[name][1:])
+            for name in RUNS}
+
+
+def _jax_run(params, B, P, G, seed) -> dict:
+    """One JAX run (`params`: `_jax_params`' tuple) on B prompts of P
+    tokens and G generated ones."""
+    jcfg, jm, jp, _ = params
+    toks, _ = j_serve(jcfg, batch=B, prompt_len=P, gen=G, seed=seed)
+    toks = np.asarray(toks)
+    batch = jbatch_for(jcfg, B, P, 0, seed)
+    key = "embeddings" if jcfg.embed_inputs else "tokens"
+    inputs = {k: jnp.asarray(v) for k, v in batch.items()
+              if k in (key, "positions")}
+    last, pcache = jax.jit(jm.prefill_step)(jp, inputs)
+    more = np.asarray(jp["embed"])[toks] if jcfg.embed_inputs else toks
+    seq = np.concatenate([batch[key], more], axis=1)
+    cache = jtfm.init_cache(jcfg, B, P + G)
+    step = jax.jit(jm.decode_step)
+    logits = []
+    for t in range(P + G):
+        lg, cache = step(jp, cache, {key: jnp.asarray(seq[:, t:t + 1])},
+                         jnp.asarray(t, jnp.int32))
+        logits.append(np.asarray(lg))
+    return dict(cfg=jcfg, toks=toks, last=np.asarray(last), prefill=pcache,
+                logits=logits, cache=cache)
 
 
 def _joined(spawned, world):
@@ -296,11 +305,11 @@ def _prefill_spec(tcfg, shape, B, leaf_ndim, name):
         else sh.P(dp, *([None] * (leaf_ndim - 1)))
 
 
-def _check_case(case, got, ref):
+def _check_case(case, got, ref, runs=RUNS):
     """Every rank of one case against JAX's one device (a recurrent
     state after the prefill as `serving_cache_specs` lays it out)."""
     run, flags, shape = case
-    variant, B, P, G, _ = RUNS[run]
+    variant, B, P, G, _ = runs[run]
     tcfg = smoke_cfg(tconfigs, variant, **flags)
     T = P + G
     mesh = abstract_mesh(shape, AXES)

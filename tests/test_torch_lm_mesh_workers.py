@@ -1,6 +1,6 @@
-"""The per-rank bodies of `test_torch_lm_mesh.py` and
-`test_torch_lm_mesh_serve.py` and the configs they share with their JAX
-sides. No tests here: each spawned gloo rank
+"""The per-rank bodies of `test_torch_lm_mesh.py`,
+`test_torch_lm_mesh_serve.py` and `test_torch_lm_mesh_moe.py` and the
+configs they share with their JAX sides. No tests here: each spawned gloo rank
 (`repro_torch.core.mesh.run_ranks`) imports this module by name to find
 its function, so it imports neither JAX nor `repro`.
 """
@@ -31,7 +31,8 @@ B, S = 4, 32            # the global batch: two microbatches of 2 rows
 # 'model' 4, which cuts every head (a change given as a function of the
 # config, as `rec` is each package's own dataclass); "deepseek-mla" is
 # deepseek's MLA over a dense MLP alone; "rwkv-f129" has a d_ff that
-# 'model' 2 does not divide beside a d_model that it does
+# 'model' 2 does not divide beside a d_model that it does; "dbrx-int8" is
+# dbrx with the int8 KV cache
 VARIANTS = {
     "qwen2-1.5b": ("qwen2-1.5b", 2, {}),
     "gemma2-9b": ("gemma2-9b", 2, {}),
@@ -53,6 +54,7 @@ VARIANTS = {
     "deepseek-mla": ("deepseek-v3-671b", 2, dict(
         prefix=(), pattern=("mla_dense",), grad_accum_dtype="float32")),
     "rwkv-f129": ("rwkv6-1.6b", 2, dict(d_ff=129)),
+    "dbrx-int8": ("dbrx-132b", 1, dict(kv_cache_dtype="int8")),
 }
 
 
@@ -216,3 +218,106 @@ def serve_launcher(argv):
     with contextlib.redirect_stdout(buf):
         slaunch.main(argv)
     return buf.getvalue()
+
+
+# -- one MoE layer, training and serving of the MoE kinds on a mesh
+#    (`test_torch_lm_mesh_moe.py`) ---------------------------------------------
+
+def moe_mesh_cases(rank, world, cases):
+    """Each case on this rank, in order, by its "kind": "layer"
+    (`moe_layer`), "train" (`train_cases`), "serve" (`serve_cases`) or
+    "launch" (`serve_launcher` of its argv)."""
+    out = []
+    for c in cases:
+        kind = c["kind"]
+        if kind == "layer":
+            out.append(moe_layer(c))
+        elif kind == "train":
+            out.append(train_cases(rank, world, [c])[0])
+        elif kind == "serve":
+            out.append(serve_cases(rank, world, [c])[0])
+        else:
+            out.append(serve_launcher(c["argv"]))
+    return out
+
+
+def moe_layer(c) -> dict:
+    """One MoE layer of `c["variant"]` (its MoE config changed by
+    `c["moe"]`) through `models.moe.moe_apply` on this rank of a
+    ("data", "model") mesh of `c["shape"]`, with `c["flags"]`: the whole
+    leaves `c["p"]` (numpy) cut to this rank's shards by the model's
+    specs, x `c["x"]` [B, S, d] cut to this rank's rows and (under
+    sequence parallelism) positions, the loss sum(out * r) + 0.01 aux
+    (aux counted once over the dp axes, as `transformer.loss_fn` counts
+    it). Returns this rank's output, aux, the gates each rank routed by,
+    the gradient of its x and of each leaf's shard, summed over the ranks
+    as `LMModel._reduce` sums a microbatch's, and what it holds."""
+    from repro_torch.core.mesh import build_mesh
+    from repro_torch.models import LMModel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import shard as sh
+    from repro_torch.models import transformer as ttfm
+
+    cfg = smoke_cfg(tconfigs, c["variant"], optimizer="adamw", **c["flags"])
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           **c["moe"]))
+    mesh = build_mesh(c["shape"], ("data", "model"), device="cpu")
+    model = LMModel(cfg, mesh=mesh)
+    i = next(j for j, k in enumerate(ttfm.layer_kinds(cfg))
+             if k.endswith("_moe"))
+    x_all = torch.from_numpy(c["x"])
+    B, S, _ = x_all.shape
+    ctx = model._ctx(S, model._split(B))
+    leaves = {}
+    for path, full in _flat(c["p"]).items():
+        key = f"blocks.{i}.ffn.{path}"
+        leaves[key] = sh.shard_of(torch.from_numpy(full), model.pspecs[key],
+                                  mesh).clone().requires_grad_()
+    p = _nest({k.split(".ffn.")[1]: v for k, v in leaves.items()})
+    x = ctx.local_seq(ctx.rows(x_all)).clone().requires_grad_()
+    r = ctx.local_seq(ctx.rows(torch.from_numpy(c["r"])))
+    gates = []
+    route = tmoe._route
+
+    def spy(*a, **kw):
+        got = route(*a, **kw)
+        gates.append(got[0].detach().numpy())
+        return got
+    tmoe._route = spy
+    try:
+        out, aux = tmoe.moe_apply(x, p, cfg.moe, ctx=ctx)
+    finally:
+        tmoe._route = route
+    loss = torch.sum(out * r) + 0.01 * aux / ctx.ndp
+    got = torch.autograd.grad(loss, [x] + list(leaves.values()))
+    grads = {k: model._reduce(k, g, ctx).numpy()
+             for k, g in zip(leaves, got[1:])}
+    return dict(coord=tuple(mesh.coord), ndp=ctx.ndp, sp=ctx.sp,
+                out=out.detach().numpy(), aux=float(aux.detach()),
+                gates=gates[0],
+                gx=got[0].numpy(), grads={k.split(".ffn.")[1]: g
+                                          for k, g in grads.items()},
+                specs={k.split(".ffn.")[1]: tuple(model.pspecs[k])
+                       for k in leaves}, split=dict(ctx.split),
+                x_shape=tuple(x.shape))
+
+
+def _flat(tree, pre=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{pre}{k}."))
+        else:
+            out[pre + k] = v
+    return out
+
+
+def _nest(flat):
+    out = {}
+    for k, v in flat.items():
+        *path, leaf = k.split(".")
+        d = out
+        for name in path:
+            d = d.setdefault(name, {})
+        d[leaf] = v
+    return out
